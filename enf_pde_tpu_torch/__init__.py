@@ -1,0 +1,13 @@
+"""enf-pde-tpu in PyTorch: the port of ``enf_pde_tpu`` to PyTorch and CUDA on Hopper.
+
+The JAX package stays the reference; each module here names its counterpart there.
+This package imports only ``torch``, ``numpy`` and the standard library. Its entry
+points run on the card (``device="cuda"``) unless the caller asks for the CPU.
+
+Ported so far (ROADMAP.md): the Navier-Stokes forecast path -- config, the torus
+invariant, the decoder (eager, and the fused forward decode kernel
+``csrc/fused_decode_fwd.cu``), the PONITA latent ODE, the meta-SGD latent fit, and
+``inference.Forecaster``; ``convert`` loads the JAX package's parameters.
+"""
+
+__version__ = "0.1.0"

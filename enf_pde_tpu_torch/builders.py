@@ -1,0 +1,73 @@
+"""Construction of decoder + latent-ODE models from an experiment config.
+
+Counterpart of ``enf_pde_tpu/builders.py``. The config keeps the JAX package's
+decoder backend names: ``xla`` is the port's eager decoder and ``pallas`` its fused
+kernel (``decoder_backend``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+from enf_pde_tpu_torch.dynamics.ponita import PonitaLatentODE
+from enf_pde_tpu_torch.geometry.invariants import get_ca_invariant, get_sa_invariant
+from enf_pde_tpu_torch.models.decoder import EnfDecoder
+
+__all__ = ["build_models", "coordinate_system_for", "decoder_backend"]
+
+_BACKENDS = {"xla": "eager", "pallas": "kernel"}
+
+
+def decoder_backend(name: str) -> str:
+    """The port's decoder backend for a config's ``nef.*backend`` value."""
+    if name not in _BACKENDS:
+        raise ValueError(f"Decoder backend {name!r} has no counterpart in the port ({sorted(_BACKENDS)}).")
+    return _BACKENDS[name]
+
+
+def coordinate_system_for(dataset_name: str) -> str:
+    """Latent coordinate system per dataset (only the cartesian ones are ported)."""
+    if dataset_name in ("diff_sphere", "shallow_water", "shallow_water_low_res"):
+        return "polar"
+    if dataset_name == "ihc":
+        return "ball"
+    return "cartesian"
+
+
+def build_models(cfg) -> Tuple[EnfDecoder, PonitaLatentODE]:
+    """Build the ENF decoder and the latent ODE model from a config.
+
+    Their parameters are left uninitialised (see ``MetaSGDTrainer.init_state``).
+    """
+    sa_invariant = get_sa_invariant(cfg.nef)
+    ca_invariant = get_ca_invariant(cfg.nef)
+    decoder = EnfDecoder(
+        num_hidden=cfg.nef.num_hidden,
+        num_heads=cfg.nef.num_heads,
+        num_layers=cfg.nef.num_layers,
+        num_out=cfg.nef.num_out,
+        latent_dim=cfg.nef.latent_dim,
+        cross_attn_invariant=ca_invariant,
+        embedding_type=cfg.nef.embedding_type,
+        embedding_freq_multiplier=(
+            cfg.nef.embedding_freq_multiplier_invariant,
+            cfg.nef.embedding_freq_multiplier_value,
+        ),
+        condition_value_transform=cfg.nef.condition_value_transform,
+        use_gaussian_window=cfg.nef.use_gaussian_window,
+    )
+    if cfg.node.name != "ponita":
+        raise NotImplementedError(f"ODE model {cfg.node.name!r} is not ported yet; see ROADMAP.md.")
+    ode_model = PonitaLatentODE(
+        num_hidden=cfg.node.num_hidden,
+        num_layers=cfg.node.num_layers,
+        scalar_num_out=cfg.nef.latent_dim,
+        vec_num_out=1,
+        invariant=sa_invariant,
+        basis_dim=cfg.node.basis_dim,
+        degree=cfg.node.degree,
+        widening_factor=cfg.node.widening_factor,
+        kernel_size=cfg.node.kernel_size,
+        global_pool=False,
+    )
+    return decoder, ode_model

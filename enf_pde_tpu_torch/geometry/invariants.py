@@ -1,0 +1,103 @@
+"""Bi-invariant geometry functions between query coordinates and latent point poses.
+
+Counterpart of ``enf_pde_tpu/geometry/invariants.py``. Each invariant maps
+``(x[b, n, x_dim], p[b, z, p_dim]) -> inv[b, n, z, dim]`` and provides the Gaussian
+window that is added to the attention logits. Only the torus invariant of the
+Navier-Stokes experiment is ported; the other names raise ``NotImplementedError``.
+
+The window flavours are part of the trained-model contract: the planar default is the
+log-domain ``-(1/sigma^2) * d^2``; the torus window is ``+(1/sigma^2) * sum cos^2(pi*d)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+__all__ = [
+    "BaseInvariant",
+    "RelativePositionPeriodic",
+    "get_sa_invariant",
+    "get_ca_invariant",
+]
+
+
+def _sq_dist(x_pos, p_pos):
+    """Squared euclidean distance, broadcast to [b, n, z, 1]."""
+    return torch.sum((p_pos[:, None, :, :] - x_pos[:, :, None, :]) ** 2, dim=-1, keepdim=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class BaseInvariant:
+    """Static metadata + window dispatch shared by all invariants.
+
+    Attributes:
+        dim: dimensionality of the produced invariant feature.
+        num_x_pos_dims / num_x_ori_dims: positional / orientation dims of queries.
+        num_z_pos_dims / num_z_ori_dims: positional / orientation dims of latent poses.
+        is_periodic: whether the underlying domain is periodic.
+    """
+
+    dim: int = 0
+    num_x_pos_dims: int = 0
+    num_x_ori_dims: int = 0
+    num_z_pos_dims: int = 0
+    num_z_ori_dims: int = 0
+    is_periodic: bool = False
+
+    def __call__(self, x, p):
+        raise NotImplementedError
+
+    def gaussian_window(self, x, p, sigma):
+        """Additive attention-logit bias. Default: non-periodic log-domain window."""
+        p_pos = p[:, :, : self.num_z_pos_dims]
+        x_pos = x[:, :, : self.num_x_pos_dims]
+        return -(1.0 / sigma[:, None, :] ** 2) * _sq_dist(x_pos, p_pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class RelativePositionPeriodic(BaseInvariant):
+    """Translation invariant on the torus T^n over [-1, 1]^n: [cos(pi*d), sin(pi*d)]."""
+
+    def __init__(self, num_dims: int):
+        super().__init__(
+            dim=2 * num_dims,
+            num_x_pos_dims=num_dims,
+            num_x_ori_dims=0,
+            num_z_pos_dims=num_dims,
+            num_z_ori_dims=0,
+            is_periodic=True,
+        )
+
+    def __call__(self, x, p):
+        rel = p[:, None, :, :] - x[:, :, None, :]
+        return torch.cat([torch.cos(math.pi * rel), torch.sin(math.pi * rel)], dim=-1)
+
+    def gaussian_window(self, x, p, sigma):
+        p_pos = p[:, :, : self.num_z_pos_dims]
+        x_pos = x[:, :, : self.num_x_pos_dims]
+        rel = p_pos[:, None, :, :] - x_pos[:, :, None, :]
+        neg_cos_sq = -torch.sum(torch.cos(math.pi * rel) ** 2, dim=-1, keepdim=True)
+        return -(1.0 / sigma[:, None, :] ** 2) * neg_cos_sq
+
+
+def _build(name: str, num_dims: int) -> BaseInvariant:
+    if name == "rel_pos_periodic":
+        if num_dims != 2:
+            raise ValueError("rel_pos_periodic currently supports 2D input only.")
+        return RelativePositionPeriodic(num_dims)
+    raise NotImplementedError(
+        f"Invariant {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 2."
+    )
+
+
+def get_sa_invariant(nef_cfg) -> BaseInvariant:
+    """Invariant used for latent-latent self attention (and the PONITA ODE kernel)."""
+    return _build(nef_cfg.invariant_type, int(nef_cfg.num_in))
+
+
+def get_ca_invariant(nef_cfg) -> BaseInvariant:
+    """Invariant used for coordinate->latent cross attention."""
+    return _build(nef_cfg.invariant_type, int(nef_cfg.num_in))

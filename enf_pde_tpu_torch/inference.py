@@ -1,0 +1,108 @@
+"""Fit-then-forecast inference: the serving path of the port.
+
+Counterpart of ``enf_pde_tpu/inference.py``: fit latents to observed frames with the
+meta-SGD inner loop (eager decoder, autograd), roll them forward with the latent
+ODE, and decode the forecast at any coordinate set through the fused decode kernel
+(``nef.eval_backend``), in coordinate chunks of ``max_num_sampled_points`` that share
+one weight fold.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from enf_pde_tpu_torch.builders import build_models
+from enf_pde_tpu_torch.config import Config
+from enf_pde_tpu_torch.models.decoder import decode_chunked
+from enf_pde_tpu_torch.ops.fused_decode import fused_decode_fwd, strict_fp32
+from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
+
+__all__ = ["Forecaster"]
+
+
+class Forecaster:
+    """Fit-then-forecast on a meta-SGD model.
+
+    Args:
+        cfg: experiment config (``config.load_experiment_config``).
+        coords: the training grid [num_points, coord_dim].
+        params: converted JAX parameters (``convert.convert_params``); ``None`` draws
+            random weights from ``cfg.seed``.
+        device: where everything runs; the card unless the caller asks for the CPU.
+
+    Example:
+        fc = Forecaster(load_experiment_config("navier_stokes"), planar_coords(64, 64))
+        forecast = fc.forecast(frames, num_frames=20)   # [b, 20, 4096, 1]
+    """
+
+    def __init__(self, cfg: Config, coords: np.ndarray, params: Optional[dict] = None,
+                 device="cuda"):
+        strict_fp32()
+        decoder, ode_model = build_models(cfg)
+        seed = cfg.get_path("seed", 0)
+        self.trainer = MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=seed, device=device)
+        self.cfg = cfg
+        self.device = self.trainer.device
+        self.state = self.trainer.init_state() if params is None else self.trainer.load_state(params)
+        self._generator = torch.Generator().manual_seed(seed)
+
+    def fit(self, frames, dp: float = 0.0, masks=None):
+        """Meta-SGD latent fit to observed frames [batch, *spatial, channels].
+
+        ``dp`` restricts the fit to a random dp-fraction of coordinates; ``masks``
+        [>= K, num_sampled] fixes the inner loop's coordinate subsets (row k for step k).
+        """
+        frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
+        return self.trainer.fit_latents(self.state, frames, generator=self._generator,
+                                        masks=masks, dp=dp)
+
+    def rollout(self, latents, num_frames: int):
+        """Latent-space forecast: (p, a, window) trajectories, each [batch, num_frames, ...]."""
+        return self.trainer.rollout_latents(latents, num_frames)
+
+    @torch.no_grad()
+    def decode(self, latent_traj: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+               coords: Optional[np.ndarray] = None, chunk_size: Optional[int] = None) -> torch.Tensor:
+        """Decode latent trajectories at arbitrary coordinates.
+
+        Args:
+            latent_traj: (p, a, window), each [batch, T, ...] (from ``rollout``).
+            coords: [num_points, coord_dim]; defaults to the training grid.
+            chunk_size: coordinates per decode call (default ``max_num_sampled_points``).
+
+        Returns:
+            [batch, T, num_points, num_out]
+        """
+        if coords is None:
+            coords = self.trainer.coords
+        coords = torch.as_tensor(coords, dtype=torch.float32, device=self.device)
+        chunk = chunk_size or self.cfg.training.max_num_sampled_points
+        p, a, w = latent_traj
+        b, t = p.shape[0], p.shape[1]
+        p_fl, a_fl, w_fl = (x.reshape(b * t, *x.shape[2:]) for x in (p, a, w))
+        xs = coords[None].expand(b * t, *coords.shape)
+        dec = self.trainer.decoder
+        if self.trainer.eval_backend == "kernel":
+            # The weight folds depend on the latents only: fold once for all chunks.
+            folded = dec.fold(p_fl, a_fl)
+
+            def apply_fn(x, pp, aa, ww):
+                return fused_decode_fwd(*dec.kernel_geometry(x, pp, ww), *folded,
+                                        num_heads=dec.num_heads, head_dim=dec.num_hidden)
+        else:
+            apply_fn = dec
+        out = decode_chunked(apply_fn, xs, p_fl, a_fl, w_fl, chunk_size=chunk)
+        return out.reshape(b, t, coords.shape[0], -1)
+
+    def forecast(self, frames, num_frames: int, coords: Optional[np.ndarray] = None,
+                 dp: float = 0.0, masks=None) -> torch.Tensor:
+        """Observed frames -> latent fit -> ODE rollout -> decoded forecast.
+
+        Returns [batch, num_frames, num_points, num_out].
+        """
+        fitted = self.fit(frames, dp=dp, masks=masks)
+        traj = self.rollout(fitted, num_frames)
+        return self.decode(traj, coords=coords)

@@ -1,0 +1,70 @@
+"""Build a CUDA source of ``csrc/`` with plain ``nvcc`` and load it with ``ctypes``.
+
+Each source exposes ``extern "C"`` launchers that take raw pointers, sizes and a
+stream and return a ``cudaError_t`` code; nothing includes PyTorch's headers, so a
+build takes seconds. The shared library goes into ``csrc/_build/`` (gitignored),
+named by a hash of the source and the flags, and is built at first use: a fresh
+checkout builds on its first call, a later call loads the cached file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC_DIR / "_build"
+# sm_90a: Hopper with its architecture-specific instructions (wgmma, setmaxnreg).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are built with the CUDA toolkit's "
+        "nvcc (put it on PATH or set CUDA_HOME)."
+    )
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` into a shared library unless it is already built.
+
+    Returns the library's path. The compiler's ``-Xptxas -v`` report (registers,
+    shared memory and spills per kernel) is kept beside it as ``<name>.ptxas.txt``.
+    """
+    src = CSRC_DIR / source
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{src.stem}-{key}.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stderr}")
+    lib.with_name(f"{src.stem}-{key}.ptxas.txt").write_text(proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees no half-written file
+    return lib
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>``; one handle per process."""
+    if source not in _loaded:
+        _loaded[source] = ctypes.CDLL(str(build(source)))
+    return _loaded[source]

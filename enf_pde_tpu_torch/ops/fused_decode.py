@@ -1,0 +1,382 @@
+"""Fused ENF decode: weight folding, the plain PyTorch version, and the CUDA kernel K1.
+
+Counterpart of ``enf_pde_tpu/ops/pallas_decode.py`` (forward only). The decode
+cross-attention, its output projection, the block FFN and the decoder's MLP head run
+as one kernel per (batch row, coordinate tile) that keeps every per-coordinate
+activation on chip; only the invariants, the window bias and the folded per-latent
+matrices come in, and only the field values go out.
+
+Layers, as in the JAX package:
+
+- ``extract_attention_weights`` / ``extract_tail_weights`` pull the raw weights out
+  of the modules, as ``[in, out]`` matrices.
+- ``fold_weights`` / ``fold_tail_weights`` pre-multiply linear chains and build the
+  per-latent logit matrices ``A [b, z, hid, H]`` / ``ab [b, z, H]`` and FiLM+mixer
+  matrices ``G [b, z, hid, H*hidm]`` / ``c [b, z, H*hidm]`` (see the JAX module's
+  notes for the algebra). These are f32 einsums outside the kernel.
+- ``fused_decode_plain`` is ``_tile_decode``'s math on whole tensors: the plain
+  version the CPU tests run and the kernel is held against.
+- ``fused_decode_fwd`` is the kernel's wrapper. On a CPU tensor it runs the plain
+  version; on a CUDA tensor it launches ``csrc/fused_decode_fwd.cu`` (built with
+  plain ``nvcc``, bound with ``ctypes``) or raises. It has no backward yet (the
+  TPU backward kernel K2 is the training slice), so it refuses inputs that need grad.
+
+Numerics: the reference paths run in strict f32. ``strict_fp32`` turns TF32 off for
+both cuBLAS matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``); the fold and the plain version call it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from enf_pde_tpu_torch.ops import cuda_lib
+from enf_pde_tpu_torch.ops.layers import LN_EPS, gelu
+
+__all__ = [
+    "WEIGHT_NAMES",
+    "TAIL_WEIGHT_NAMES",
+    "strict_fp32",
+    "extract_attention_weights",
+    "extract_tail_weights",
+    "fold_weights",
+    "fold_tail_weights",
+    "fold_decode_weights",
+    "fused_decode_plain",
+    "fused_decode_fwd",
+    "decode_flops_per_point",
+]
+
+# Order of the folded weights handed to the kernel (``_WEIGHT_NAMES`` in JAX).
+WEIGHT_NAMES = (
+    "q_coeff", "q_w1", "q_b1",
+    "v_coeff", "v_w1", "v_b1",
+    "fw", "fb",
+    "m_w2", "m_b2",
+)
+TAIL_WEIGHT_NAMES = (
+    "o_w", "o_b",
+    "p_w1", "p_b1",
+    "p_w2", "p_b2",
+    "h_w1", "h_b1",
+    "h_w2", "h_b2",
+    "h_w3", "h_b3",
+)
+
+KERNEL_SOURCE = "fused_decode_fwd.cu"
+
+
+def strict_fp32() -> None:
+    """Full-f32 matmuls and convolutions on the card (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _kernel(dense) -> torch.Tensor:
+    """A ``Dense`` weight as the flax kernel layout ``[in, out]``."""
+    return dense.weight.t()
+
+
+def extract_attention_weights(attn) -> Dict[str, torch.Tensor]:
+    """Raw weights of an ``EquivariantCrossAttention`` (with value conditioning)."""
+    q = attn.invariant_embedding_query
+    v = attn.invariant_embedding_value
+    film = attn.inv_emb_to_v
+    mixer = attn.inv_emb_cond_mixer
+    return {
+        "q_coeff": q.RFFEmbedding_0.coefficients,
+        "q_w1": _kernel(q.Dense_0), "q_b1": q.Dense_0.bias,
+        "q_w2": _kernel(q.Dense_1), "q_b2": q.Dense_1.bias,
+        "wq": _kernel(attn.inv_emb_to_q), "bq": attn.inv_emb_to_q.bias,
+        "v_coeff": v.RFFEmbedding_0.coefficients,
+        "v_w1": _kernel(v.Dense_0), "v_b1": v.Dense_0.bias,
+        "v_w2": _kernel(v.Dense_1), "v_b2": v.Dense_1.bias,
+        "f_w1": _kernel(film.Dense_0), "f_b1": film.Dense_0.bias,
+        "f_ln_s": film.LayerNorm_0.weight, "f_ln_b": film.LayerNorm_0.bias,
+        "f_w2": _kernel(film.Dense_1), "f_b2": film.Dense_1.bias,
+        "m_w1": _kernel(mixer.Dense_0), "m_b1": mixer.Dense_0.bias,
+        "m_ln_s": mixer.LayerNorm_0.weight, "m_ln_b": mixer.LayerNorm_0.bias,
+        "m_w2": _kernel(mixer.Dense_1), "m_b2": mixer.Dense_1.bias,
+    }
+
+
+def extract_tail_weights(attn_out_proj, block_ffn, head_mlp) -> Dict[str, torch.Tensor]:
+    """Attention out-projection + block FFN + decoder head MLP."""
+    return {
+        "o_w": _kernel(attn_out_proj), "o_b": attn_out_proj.bias,
+        "p_w1": _kernel(block_ffn.Dense_0), "p_b1": block_ffn.Dense_0.bias,
+        "p_ln_s": block_ffn.LayerNorm_0.weight, "p_ln_b": block_ffn.LayerNorm_0.bias,
+        "p_w2": _kernel(block_ffn.Dense_1), "p_b2": block_ffn.Dense_1.bias,
+        "h_w1": _kernel(head_mlp.layers_0), "h_b1": head_mlp.layers_0.bias,
+        "h_w2": _kernel(head_mlp.layers_2), "h_b2": head_mlp.layers_2.bias,
+        "h_w3": _kernel(head_mlp.layers_4), "h_b3": head_mlp.layers_4.bias,
+    }
+
+
+def fold_weights(weights: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                 num_heads: int, head_dim: int):
+    """Pre-multiply linear chains and build the per-latent logit / FiLM matrices.
+
+    Args:
+        weights: raw arrays from ``extract_attention_weights``.
+        k / v: latent keys / values [b, z, H*D].
+
+    Returns:
+        (folded weight dict, A [b, z, hid, H], ab [b, z, H], G [b, z, hid, H*hidm],
+        c [b, z, H*hidm]).
+    """
+    strict_fp32()
+    H, D = num_heads, head_dim
+    m_w1 = weights["m_w1"]  # [D, hidm]
+    hid = weights["f_w1"].shape[0]
+    hidm = m_w1.shape[1]
+    b, z, _ = v.shape
+
+    # Linear-chain folds (no nonlinearity between the factors).
+    qw = weights["q_w2"] @ weights["wq"]
+    qb = weights["q_b2"] @ weights["wq"] + weights["bq"]
+    fw = weights["v_w2"] @ weights["f_w1"]
+    fb = weights["v_b2"] @ weights["f_w1"] + weights["f_b1"]
+
+    # Query-logit fold: the q projection contracted with the latent key over D,
+    # with the 1/sqrt(D) softmax scale.
+    scale = 1.0 / math.sqrt(D)
+    k4 = k.reshape(b, z, H, D)
+    A = scale * torch.einsum("xhd,bzhd->bzxh", qw.reshape(-1, H, D), k4)
+    ab = scale * torch.einsum("hd,bzhd->bzh", qb.reshape(H, D), k4)
+
+    # FiLM + mixer-dense-1 fold. f_w2 [hid, 2*H*D]: gamma half then beta half.
+    f_w2, f_b2 = weights["f_w2"], weights["f_b2"]
+    Wg = f_w2[:, : H * D].reshape(hid, H, D)
+    Wb = f_w2[:, H * D:].reshape(hid, H, D)
+    bg = f_b2[: H * D].reshape(H, D)
+    bb = f_b2[H * D:].reshape(H, D)
+    v4 = v.reshape(b, z, H, D)
+
+    # G[b,z,h] = Wg_h diag(v[b,z,h]) m_w1 + Wb_h m_w1, per head [hid, hidm].
+    G_beta = torch.einsum("xhd,dm->hxm", Wb, m_w1)
+    G = torch.einsum("bzxhd,dm->bzhxm", Wg * v4[:, :, None], m_w1) + G_beta
+    G = G.permute(0, 1, 3, 2, 4).reshape(b, z, hid, H * hidm)
+    # c[b,z,h] = (v (1+bg) + bb) m_w1 + m_b1.
+    c = torch.einsum("bzhd,dm->bzhm", v4 * (1.0 + bg) + bb, m_w1) + weights["m_b1"]
+    c = c.reshape(b, z, H * hidm)
+
+    # The FiLM LayerNorm's scale/bias go into G/c; the mixer's into its dense 2.
+    c = c + torch.einsum("x,bzxm->bzm", weights["f_ln_b"], G)
+    G = G * weights["f_ln_s"][:, None]
+    m_w2 = weights["m_ln_s"][:, None] * weights["m_w2"]
+    m_b2 = weights["m_b2"] + weights["m_ln_b"] @ weights["m_w2"]
+
+    folded = {
+        "q_coeff": weights["q_coeff"], "q_w1": weights["q_w1"], "q_b1": weights["q_b1"],
+        "v_coeff": weights["v_coeff"], "v_w1": weights["v_w1"], "v_b1": weights["v_b1"],
+        "fw": fw, "fb": fb, "m_w2": m_w2, "m_b2": m_b2,
+    }
+    return folded, A, ab, G, c
+
+
+def fold_tail_weights(tw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fold the block-FFN LayerNorm scale/bias into its dense 2."""
+    out = {n: tw[n] for n in TAIL_WEIGHT_NAMES}
+    out["p_w2"] = tw["p_ln_s"][:, None] * tw["p_w2"]
+    out["p_b2"] = tw["p_b2"] + tw["p_ln_b"] @ tw["p_w2"]
+    return out
+
+
+def fold_decode_weights(k, v, weights, num_heads: int, head_dim: int,
+                        tail_weights: Optional[Dict[str, torch.Tensor]] = None):
+    """The coordinate-independent part of ``fused_decode_fwd``'s inputs, contiguous f32.
+
+    Args:
+        k / v: latent keys / values [b, z, H*D].
+        weights / tail_weights: from ``extract_attention_weights`` /
+            ``extract_tail_weights``; without the tail the output is [b, c, H*D].
+
+    Returns:
+        (A, ab, G, c, ws, tws) with ``ws`` / ``tws`` the folded weights in
+        ``WEIGHT_NAMES`` / ``TAIL_WEIGHT_NAMES`` order. They depend on the latents
+        only, so one fold serves every coordinate chunk of a decode.
+    """
+    f32 = {n: w.float() for n, w in weights.items()}
+    folded, A, ab, G, c = fold_weights(f32, k.float(), v.float(), num_heads, head_dim)
+    ws = tuple(folded[n].contiguous() for n in WEIGHT_NAMES)
+    tws: Tuple[torch.Tensor, ...] = ()
+    if tail_weights is not None:
+        ft = fold_tail_weights({n: w.float() for n, w in tail_weights.items()})
+        tws = tuple(ft[n].contiguous() for n in TAIL_WEIGHT_NAMES)
+    return A.contiguous(), ab.contiguous(), G.contiguous(), c.contiguous(), ws, tws
+
+
+# --------------------------------------------------------------------- plain version
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm without scale and bias, var = E[x^2] - E[x]^2 as in the JAX kernel."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x * x).mean(dim=-1, keepdim=True) - mean * mean
+    return (x - mean) * torch.rsqrt(var + LN_EPS)
+
+
+def _rff_hidden(x, coeff, w1, b1):
+    """RFF sin/cos features -> ReLU dense (RFFNet dense 1)."""
+    proj = x @ coeff
+    h = torch.cat([torch.sin(2 * math.pi * proj), torch.cos(2 * math.pi * proj)], dim=-1)
+    return torch.relu(h @ w1 + b1)
+
+
+def fused_decode_plain(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
+                       tws: Sequence[torch.Tensor], num_heads: int, head_dim: int):
+    """``_tile_decode`` on whole tensors: inv [b, z, c, I], wb [b, z, c] -> [b, c, out]."""
+    strict_fp32()
+    H, D = num_heads, head_dim
+    q_coeff, q_w1, q_b1, v_coeff, v_w1, v_b1, fw, fb, m_w2, m_b2 = ws
+    b, Z, C, _ = inv.shape
+    hidm = m_w2.shape[0]
+
+    # Per-head logits straight from the query RFF hidden (A holds the key and scale).
+    hq = _rff_hidden(inv, q_coeff, q_w1, q_b1)  # [b, z, c, hid]
+    att = hq @ A + ab[:, :, None, :] + wb[..., None]  # [b, z, c, H]
+
+    # Value chain: FiLM and mixer dense 1 are one per-latent matmul with G / c.
+    t = _normalize(gelu(_rff_hidden(inv, v_coeff, v_w1, v_b1) @ fw + fb))
+    pre = (t @ G + c[:, :, None, :]).reshape(b, Z, C, H, hidm)
+    v_mix = (_normalize(gelu(pre)) @ m_w2 + m_b2).reshape(b, Z, C, H * D)
+
+    # Softmax over latents on the narrow logits, then the weighted sum.
+    m = att.amax(dim=1, keepdim=True)
+    pr = torch.exp(att - m)
+    pr = pr / pr.sum(dim=1, keepdim=True)
+    y = (pr.repeat_interleave(D, dim=-1) * v_mix).sum(dim=1)  # [b, c, H*D]
+    if not tws:
+        return y
+
+    o_w, o_b, p_w1, p_b1, p_w2, p_b2, h_w1, h_b1, h_w2, h_b2, h_w3, h_b3 = tws
+    y = y @ o_w + o_b
+    t = _normalize(gelu(y @ p_w1 + p_b1))
+    y = gelu(t @ p_w2 + p_b2)
+    h = gelu(y @ h_w1 + h_b1)
+    h = gelu(h @ h_w2 + h_b2)
+    return h @ h_w3 + h_b3
+
+
+# --------------------------------------------------------------------- kernel K1
+
+
+def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int) -> torch.Tensor:
+    H, D = num_heads, head_dim
+    dev = inv.device
+    if inv.dim() != 4:
+        raise ValueError(f"inv must be [b, z, c, I], got shape {tuple(inv.shape)}")
+    B, Z, C, I = inv.shape
+    if len(ws) != len(WEIGHT_NAMES):
+        raise ValueError(f"expected {len(WEIGHT_NAMES)} folded weights, got {len(ws)}")
+    hid = ws[1].shape[0]
+    hidm = ws[8].shape[0]
+    with_tail = len(tws) > 0
+    if with_tail and len(tws) != len(TAIL_WEIGHT_NAMES):
+        raise ValueError(f"expected {len(TAIL_WEIGHT_NAMES)} tail weights, got {len(tws)}")
+    out_dim = tws[10].shape[1] if with_tail else H * D
+    HD, HH = H * D, H * hidm
+    expected = {
+        "inv": (inv, (B, Z, C, I)), "wb": (wb, (B, Z, C)),
+        "A": (A, (B, Z, hid, H)), "ab": (ab, (B, Z, H)),
+        "G": (G, (B, Z, hid, HH)), "c": (c, (B, Z, HH)),
+    }
+    w_shapes = ((I, hid // 2), (hid, hid), (hid,), (I, hid // 2), (hid, hid), (hid,),
+                (hid, hid), (hid,), (hidm, D), (D,))
+    t_shapes = ((HD, HD), (HD,), (HD, HD), (HD,), (HD, HD), (HD,),
+                (HD, hid), (hid,), (hid, hid), (hid,), (hid, out_dim), (out_dim,))
+    for n, w, s in zip(WEIGHT_NAMES, ws, w_shapes):
+        expected[n] = (w, s)
+    for n, w, s in zip(TAIL_WEIGHT_NAMES, tws, t_shapes):
+        expected[n] = (w, s)
+    for n, (t, s) in expected.items():
+        _check(n, t, s, dev)
+    if hid % 4 or hidm % 4 or D % 4:
+        raise ValueError(f"the kernel needs hid, hidm and D divisible by 4 (got {hid}, {hidm}, {D})")
+
+    lib = cuda_lib.load(KERNEL_SOURCE)
+    launch = lib.fused_decode_fwd_launch
+    launch.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    lib.fused_decode_fwd_error_string.argtypes = [ctypes.c_int]
+    lib.fused_decode_fwd_error_string.restype = ctypes.c_char_p
+
+    out = torch.empty(B, C, out_dim, device=dev, dtype=torch.float32)
+    tail_ptrs = [t.data_ptr() for t in tws] if with_tail else [None] * len(TAIL_WEIGHT_NAMES)
+    ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G.data_ptr(),
+            c.data_ptr(), *[w.data_ptr() for w in ws], *tail_ptrs, out.data_ptr()]
+    dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch((ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+                    (ctypes.c_int * len(dims))(*dims), len(dims), ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.fused_decode_fwd_error_string(rc).decode()
+        raise RuntimeError(f"fused_decode_fwd launch failed: {msg} (cudaError {rc})")
+    fused_decode_fwd.launches += 1
+    return out
+
+
+def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
+                     tws: Sequence[torch.Tensor], num_heads: int, head_dim: int) -> torch.Tensor:
+    """Kernel K1: the fused forward decode.
+
+    ``inv`` [b, z, c, I] and ``wb`` [b, z, c] are the latent-major invariants and
+    window bias; the rest is what ``fold_decode_weights`` returns.
+
+    On CPU tensors this is ``fused_decode_plain``; on CUDA tensors it launches the
+    kernel on the current stream (counted in ``fused_decode_fwd.launches``) or
+    raises. Returns [b, c, num_out] with tail weights, else [b, c, H*D].
+    """
+    if inv.device.type == "cpu":
+        return fused_decode_plain(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
+    if inv.device.type != "cuda":
+        raise ValueError(f"fused_decode_fwd runs on CPU or CUDA tensors, got {inv.device}")
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (inv, wb, A, ab, G, c, *ws, *tws)
+    ):
+        raise RuntimeError(
+            "fused_decode_fwd has no backward kernel yet; call it under torch.no_grad() "
+            "or differentiate the eager decoder (backend='eager')."
+        )
+    return _launch(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
+
+
+fused_decode_fwd.launches = 0
+
+
+def decode_flops_per_point(num_heads: int, head_dim: int, hidden: int, hidden_mixer: int,
+                           num_latents: int, inv_dim: int, num_out: int) -> int:
+    """Matmul FLOPs per decoded coordinate of the folded decode (2 per multiply-add).
+
+    Counts what the kernel computes, after folding: the two RFF projections, the
+    three hidden denses, the logit matmul with A, the G matmul and the per-head
+    mixer dense 2 per latent, plus the fused tail. Elementwise work is not counted.
+    """
+    hd = num_heads * head_dim
+    per_z = 2 * (
+        2 * inv_dim * (hidden // 2)
+        + 3 * hidden * hidden
+        + hidden * num_heads
+        + hidden * num_heads * hidden_mixer
+        + num_heads * hidden_mixer * head_dim
+    )
+    tail = 2 * (3 * hd * hd + hd * hidden + hidden * hidden + hidden * num_out)
+    return num_latents * per_z + tail

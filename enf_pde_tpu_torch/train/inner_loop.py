@@ -1,0 +1,119 @@
+"""Meta-SGD inner loop: K latent SGD steps with learned per-leaf learning rates.
+
+Counterpart of ``enf_pde_tpu/train/inner_loop.py`` for serving (first order): shared
+init latents are tiled over the batch, each step fits them to a random coordinate
+subset of the target frame with gradients scaled by the batch size and the learned
+learning rates. Serving needs only the fitted latents, so the held-out (K+1)-th
+subset's query loss, which the meta-learning outer step trains on, is left to the
+training slice.
+
+The coordinate subsets come from a ``torch.Generator``, or are passed in as
+``masks`` (the parity tests hand in the ones the JAX package drew).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from enf_pde_tpu_torch.models.latents import LatentParams, latents_to_pose, tile_latents
+
+__all__ = ["InnerLoopConfig", "make_inner_loop", "init_meta_sgd_lrs", "sample_coordinate_masks"]
+
+
+class InnerLoopConfig(NamedTuple):
+    num_inner_steps: int
+    max_num_sampled_points: int
+    optimize_gaussian_window: bool
+    noise_pos_inner_loop: float
+
+
+def sample_coordinate_masks(generator: Optional[torch.Generator], num_coords: int,
+                            num_masks: int, num_sampled: int) -> torch.Tensor:
+    """Independent random coordinate subsets: [num_masks, min(num_sampled, num_coords)]."""
+    take = min(num_sampled, num_coords)
+    return torch.stack(
+        [torch.randperm(num_coords, generator=generator)[:take] for _ in range(num_masks)]
+    )
+
+
+def make_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: InnerLoopConfig):
+    """Build the inner-loop function.
+
+    Args:
+        decoder_apply: ``decoder_apply(x, p, a, window) -> values``, differentiable in
+            the latents.
+        coords: full coordinate set [num_coords, coord_dim].
+        cfg: inner-loop hyperparameters.
+
+    Returns:
+        ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None, dp=0.0)
+        -> fitted_latents``. ``latent_init`` is a shared (num_signals=1) latent
+        dict, ``frames`` is [batch, *spatial, channels], ``masks``
+        [>= K, num_sampled] indexes the coordinates of step k in row k (drawn from
+        ``generator`` when not given; the JAX package draws K+1 rows, the last for
+        its query loss), and ``dp`` > 0 restricts fitting to a random
+        ``dp``-fraction of the coordinates.
+    """
+
+    def inner_loop(meta_lrs, latent_init: LatentParams, frames: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   masks: Optional[torch.Tensor] = None,
+                   dp: float = 0.0) -> LatentParams:
+        img = frames.reshape(frames.shape[0], -1, frames.shape[-1])  # [b, N, C]
+        batch_size = img.shape[0]
+        local_coords = coords
+
+        if dp > 0:
+            n_keep = int(coords.shape[0] * dp)
+            keep = torch.randperm(coords.shape[0], generator=generator)[:n_keep].to(coords.device)
+            local_coords = coords[keep]
+            img = img[:, keep]
+
+        if masks is None:
+            masks = sample_coordinate_masks(
+                generator, local_coords.shape[0], cfg.num_inner_steps,
+                cfg.max_num_sampled_points,
+            )
+        masks = torch.as_tensor(masks, dtype=torch.long).to(coords.device)
+
+        latents = tile_latents(latent_init, batch_size)
+        if cfg.noise_pos_inner_loop > 0:
+            noise = torch.randn(latents["p_pos"].shape, generator=generator)
+            latents["p_pos"] = latents["p_pos"] + cfg.noise_pos_inner_loop * noise.to(coords.device)
+
+        def recon_loss(latent_params: LatentParams, mask) -> torch.Tensor:
+            xs = local_coords[mask].expand(batch_size, -1, -1)  # [b, M, d]
+            ys = img[:, mask]  # [b, M, C]
+            p, a, window = latents_to_pose(latent_params)
+            return torch.mean((decoder_apply(xs, p, a, window) - ys) ** 2)
+
+        names = list(latents)
+        for step in range(cfg.num_inner_steps):
+            leaves = {n: latents[n].detach().requires_grad_(True) for n in names}
+            with torch.enable_grad():
+                grads = torch.autograd.grad(recon_loss(leaves, masks[step]),
+                                            [leaves[n] for n in names])
+            # The loss means over the batch; rescale so each signal's latents see
+            # their own full gradient.
+            grads = {n: g * batch_size for n, g in zip(names, grads)}
+            if not cfg.optimize_gaussian_window and "gaussian_window" in grads:
+                grads["gaussian_window"] = torch.zeros_like(grads["gaussian_window"])
+            latents = {n: leaves[n].detach() - meta_lrs[n] * grads[n] for n in names}
+        return latents
+
+    return inner_loop
+
+
+def init_meta_sgd_lrs(latent_dim: int, lr_pos: float, lr_a: float, lr_window: float,
+                      with_orientation: bool) -> dict:
+    """Learned per-parameter inner learning rates."""
+    lrs = {
+        "p_pos": torch.ones(1) * lr_pos,
+        "a": torch.ones(latent_dim) * lr_a,
+        "gaussian_window": torch.ones(1) * lr_window,
+    }
+    if with_orientation:
+        lrs["p_ori"] = torch.ones(1) * lr_pos
+    return lrs
