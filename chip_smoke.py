@@ -6,9 +6,9 @@ Run from the repository root, with one card:
 
 Phases, one line each, flushed as they go:
 
-1. build: compile every CUDA kernel of the forecast path with plain ``nvcc``
-   (the build's seconds, the compiler's register/spill report, the card's name
-   and power limit);
+1. build: compile every CUDA kernel with plain ``nvcc``, one process per source, all
+   started together (the build's seconds, the compiler's register/spill report, the
+   card's name and power limit);
 2. kernel K1 (``fused_decode_fwd``) against its plain PyTorch version at the full
    Navier-Stokes width, batch 8 x 4096 points, with and without the fused tail;
 3. the Navier-Stokes forecast end to end at full width with seeded random weights:
@@ -19,11 +19,24 @@ Phases, one line each, flushed as they go:
    latents, and the time of the call and of each stage (median of 5 warm repeats);
 4. K1's time at the forecast's launch shape beside its plain version's and the
    card's bound for the same work, and the decode's PyTorch prologue (weight fold,
-   geometry).
+   geometry);
+5. kernel K2 (``fused_decode_bwd``) against its plain version (autograd over the
+   plain decode) at the ode step's decode shape, 80 frames x 512 points at full
+   width, with and without weight gradients and with and without the tail, every
+   gradient tensor; its time beside the plain version's and the bound;
+6. one ode step's and one dual step's loss and gradients with the rollout decode on
+   the kernels (K1 + K2) against the same step with the eager decoder, from the same
+   state and draws;
+7. the training path end to end: ``TrainLoop.run`` for 3 epochs at full width on 16
+   seeded smooth periodic trajectories [16, 20, 64, 64, 1] (two batches of 8; 8 more
+   for validation), phases overridden to epoch 1 nef, 2 dual, 3 ode, with validation
+   and dp validation at epoch 3; finite losses, K1 and K2 launch counts of that run,
+   each step kind's median warm time over 5 repeats, and the peak memory.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
-Every float check is in f32: rel-L2 <= 1e-5 against the plain version.
+Every float check is in f32: rel-L2 <= 1e-5 against the plain version (K2 reduces
+its sums deterministically, in another order than autograd: no atomics).
 """
 
 from __future__ import annotations
@@ -33,6 +46,8 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,12 +59,19 @@ from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.decoder import decode_chunked
 from enf_pde_tpu_torch.ops import cuda_lib
 from enf_pde_tpu_torch.ops.fused_decode import (
+    BWD_KERNEL_SOURCE,
     KERNEL_SOURCE,
+    decode_bwd_flops_per_point,
     decode_flops_per_point,
+    fused_decode_bwd,
+    fused_decode_bwd_plain,
     fused_decode_fwd,
     fused_decode_plain,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
+from enf_pde_tpu_torch.train.logging import MetricLogger
+from enf_pde_tpu_torch.train.loop import TrainLoop
+from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
 SEED = 0
 REL_L2_TOL = 1e-5  # f32 kernel vs f32 plain version: only the order of the sums differs
@@ -57,6 +79,10 @@ GRID = 64
 NUM_SIGNALS = 8
 NUM_FRAMES = 20
 WARM_REPEATS = 5
+TRAIN_SIGNALS = 16   # training trajectories, two batches of 8
+VAL_SIGNALS = 8
+TRAIN_FRAMES = 20
+LOG_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_train"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernel's operand type
@@ -136,6 +162,200 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def smooth_trajectories(n: int, frames: int, size: int, seed: int) -> np.ndarray:
+    """``n`` smooth periodic fields drifting in time, [n, frames, size, size, 1]."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0.0, 2 * np.pi, size, endpoint=False)
+    X, Y = np.meshgrid(ang, ang, indexing="ij")
+    out = np.zeros((n, frames, size, size), dtype=np.float64)
+    ts = np.arange(frames)[:, None, None]
+    for i in range(n):
+        for kx in range(0, 5):
+            for ky in range(-4, 5):
+                if kx == 0 and ky <= 0:
+                    continue
+                amp = rng.standard_normal() / (kx * kx + ky * ky)
+                phase, omega = rng.uniform(0, 2 * np.pi), rng.uniform(-0.2, 0.2)
+                out[i] += amp * np.cos(kx * X + ky * Y + phase + omega * ts)
+        out[i] /= np.abs(out[i]).max()
+    return out[..., None].astype(np.float32)
+
+
+def check_grads(label: str, got, want) -> float:
+    """Hold every gradient tensor of ``got`` against ``want`` (nested sequences or dicts
+    of tensors, None where there is no gradient); one line; returns the max abs error."""
+    def flat(x, prefix=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from flat(v, f"{prefix}{k}.")
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                yield from flat(v, f"{prefix}{i}.")
+        else:
+            yield prefix.rstrip("."), x
+    worst, worst_name, err, n = 0.0, "", 0.0, 0
+    for (name, g), (_, w) in zip(flat(got), flat(want), strict=True):
+        if w is None:
+            if g is not None:
+                raise AssertionError(f"{label} {name}: a gradient where the plain version has none")
+            continue
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
+        ref = float(torch.linalg.vector_norm(w))
+        diff = float(torch.linalg.vector_norm(g - w))
+        rel = diff / ref if ref > 0 else (0.0 if diff == 0 else float("inf"))
+        err = max(err, float((g - w).abs().max()))
+        n += 1
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[check] {label}: {n} tensors, worst rel_l2 {worst:.3e} ({worst_name}), max_abs_err "
+        f"{err:.3e} (tol rel_l2 {REL_L2_TOL:g} each)")
+    if not worst <= REL_L2_TOL:
+        raise AssertionError(f"{label}: {worst_name} rel_l2 {worst:.3e} > {REL_L2_TOL:g}")
+    return err
+
+
+def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
+    """5. K2 against its plain version at the ode step's decode shape; its timing."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    decoder, _ = build_models(cfg)
+    reset_parameters(decoder, torch.Generator().manual_seed(SEED))
+    decoder.to(dev)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    b, Z, M = NUM_SIGNALS * cfg.dataset.traj_len_train, cfg.nef.num_latents, cfg.training.max_num_sampled_points
+    idx = torch.randperm(coords.shape[0], generator=gen)[:M]
+    x = torch.from_numpy(coords)[idx][None].expand(b, -1, -1).to(dev)
+    p = (torch.rand(b, Z, 2, generator=gen) * 2 - 1).to(dev)
+    a = (1 + 0.5 * torch.randn(b, Z, cfg.nef.latent_dim, generator=gen)).to(dev)
+    w = torch.full((b, Z, 1), 1.0, device=dev)
+    with torch.no_grad():
+        args = decoder.kernel_inputs(x, p, a, w)
+    errs, g_tail = [], None
+    for tail in (True, False):
+        kargs = args if tail else (*args[:7], ())
+        g = torch.randn(b, M, cfg.nef.num_out if tail else H * D, generator=gen).to(dev)
+        g_tail = g if tail else g_tail
+        for wg in (False, True):
+            got = fused_decode_bwd(*kargs, g, H, D, wg)
+            want = fused_decode_bwd_plain(*kargs, g, H, D, wg)
+            errs.append(check_grads(f"K2 {'tail' if tail else 'no-tail'} "
+                                    f"{'with' if wg else 'without'} weight grads b={b} c={M}",
+                                    got, want))
+    torch.cuda.synchronize()
+    inv, ws, tws = args[0], args[6], args[7]
+    B, Zl, C, I = inv.shape
+    hid, hidm = ws[1].shape[0], ws[8].shape[0]
+    timing = {}
+    for wg in (False, True):
+        k_ms = cuda_ms(lambda: fused_decode_bwd(*args, g_tail, H, D, wg), iters=10)
+        p_ms = cuda_ms(lambda: fused_decode_bwd_plain(*args, g_tail, H, D, wg), iters=3, warmup=1)
+        out = fused_decode_bwd(*args, g_tail, H, D, wg)
+        grads = [t for t in (*out[:6], *out[6], *out[7]) if t is not None]
+        flops = decode_bwd_flops_per_point(H, D, hid, hidm, Zl, I, cfg.nef.num_out, wg) * B * C
+        moved = nbytes(args[:6]) + nbytes(ws) + nbytes(tws) + nbytes([g_tail]) + nbytes(grads)
+        b_bytes, b_ops = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        timing[wg] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(b_bytes, b_ops),
+                          bound_by="bytes" if b_bytes >= b_ops else "operations")
+        log(f"[timing] K2 {'with' if wg else 'without'} weight grads, tail, b={B} z={Zl} c={C}: "
+            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s f32); plain {p_ms:.4f} ms; bound "
+            f"{timing[wg]['bound_ms']:.4f} ms by {timing[wg]['bound_by']} (f32 {b_ops:.4f} ms, "
+            f"bytes {b_bytes:.4f} ms: {flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB)")
+    return {"max_abs_err": max(errs), "timing": timing}
+
+
+def make_trainer(cfg, coords: np.ndarray) -> MetaSGDTrainer:
+    decoder, ode_model = build_models(cfg)
+    return MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=SEED, device="cuda")
+
+
+def step_parity_phase(cfg, coords: np.ndarray, dev) -> float:
+    """6. ode and dual step on K1 + K2 against the eager decoder: loss and gradients."""
+    trainer = make_trainer(cfg, coords)
+    state = trainer.init_state()
+    traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 3)).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    N, M, K = coords.shape[0], cfg.training.max_num_sampled_points, cfg.meta.num_inner_steps
+    masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
+    ode_masks = torch.stack([torch.randperm(N, generator=gen)[:M]
+                             for _ in range(cfg.dataset.traj_len_train)])
+    errs = []
+    for kind, fn in (("ode", trainer.ode_grads), ("dual", trainer.dual_grads)):
+        trainer.ode_backend = "kernel"
+        k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+        loss_k, grads_k = fn(state, traj, masks=masks, ode_masks=ode_masks)
+        torch.cuda.synchronize()
+        if (fused_decode_fwd.launches - k1, fused_decode_bwd.launches - k2) != (1, 1):
+            raise AssertionError(f"{kind} step on the kernel backend did not launch K1 and K2 once each")
+        trainer.ode_backend = "eager"
+        loss_e, grads_e = fn(state, traj, masks=masks, ode_masks=ode_masks)
+        trainer.ode_backend = "kernel"
+        errs.append(check_close(f"{kind} step loss, kernels vs eager decoder", loss_k, loss_e))
+        errs.append(check_grads(f"{kind} step gradients, kernels vs eager decoder", grads_k, grads_e))
+    return max(errs)
+
+
+def train_phase(coords: np.ndarray, dev) -> dict:
+    """7. ``TrainLoop.run`` for 3 epochs (nef, dual, ode) at full width."""
+    cfg = load_experiment_config("navier_stokes")
+    for path, value in (("training.nef.train_from_epoch", 0), ("training.nef.train_until_epoch", 2),
+                        ("training.ode.train_from_epoch", 1), ("training.ode.train_until_epoch", 3),
+                        ("test.test_interval", 3), ("test.test_dp_interval", 3),
+                        ("logging.log_every_n_steps", 1), ("logging.log_dir", str(LOG_DIR))):
+        cfg.set_path(path, value)
+    trainer = make_trainer(cfg, coords)
+    data = smooth_trajectories(TRAIN_SIGNALS + VAL_SIGNALS, TRAIN_FRAMES, GRID, SEED + 4)
+    bs = cfg.dataset.batch_size
+    train = [data[i:i + bs] for i in range(0, TRAIN_SIGNALS, bs)]
+    val = [data[TRAIN_SIGNALS + i:TRAIN_SIGNALS + i + bs] for i in range(0, VAL_SIGNALS, bs)]
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    metrics_path = LOG_DIR / "metrics.jsonl"
+    metrics_path.unlink(missing_ok=True)
+    logger = MetricLogger(str(LOG_DIR))
+    loop = TrainLoop(trainer, train, val, logger=logger)
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_decode_fwd.launches = fused_decode_bwd.launches = 0
+    state, run_s = sync_time(lambda: loop.run(3))
+    k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logger.close()
+    records = [json.loads(ln) for ln in metrics_path.read_text().splitlines()]
+    epochs = [r for r in records if "train_mse_epoch" in r]
+    phases = [r["phase"] for r in epochs]
+    val_rec = next(r for r in records if "val_mse_in_t" in r)
+    dp_rec = next(r for r in records if "val_mse_in_t_dp5" in r)
+    values = [r["train_mse_epoch"] for r in epochs] + [v for r in (val_rec, dp_rec)
+                                                       for k, v in r.items() if "mse" in k]
+    epoch_mse = ", ".join(f"{r['train_mse_epoch']:.4e}" for r in epochs)
+    log(f"[train] TrainLoop.run(3) in {run_s:.2f} s (first calls included): phases {phases}, "
+        f"train_mse_epoch [{epoch_mse}], val_mse_in_t "
+        f"{val_rec['val_mse_in_t']:.4e} out_t {val_rec['val_mse_out_t']:.4e}, dp5 in_t "
+        f"{dp_rec['val_mse_in_t_dp5']:.4e}; K1 launches {k1}, K2 launches {k2}; peak memory {peak:.2f} GiB")
+    if phases != ["nef", "nef+ode", "ode"]:
+        raise AssertionError(f"phases {phases} != nef, nef+ode, ode")
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite training or validation metrics: {values}")
+    n_train = len(train)
+    val_steps = (len(val) + n_train) * (1 + 3)  # val + 3 dp variants, over val and train loaders
+    decodes_per_val = -(-(coords.shape[0]) // cfg.training.max_num_sampled_points)
+    expect = (2 * n_train + val_steps * decodes_per_val, 2 * n_train)
+    if (k1, k2) != expect or k2 == 0:
+        raise AssertionError(f"K1/K2 launches {(k1, k2)} != expected {expect}")
+
+    traj = torch.from_numpy(train[0]).to(dev)
+    steps = {"nef": trainer.nef_train_step, "dual": trainer.dual_train_step,
+             "ode": trainer.ode_train_step, "val": trainer.val_step}
+    medians = {}
+    for name, fn in steps.items():
+        samples = [sync_time(lambda: fn(state, traj))[1] * 1e3 for _ in range(WARM_REPEATS)]
+        medians[name] = statistics.median(samples)
+        log(f"[train] {name} step (warm, median of {WARM_REPEATS}): {medians[name]:.2f} ms "
+            f"(samples {', '.join(f'{v:.2f}' for v in samples)})")
+    log(f"[train] peak memory of the run and the timed steps: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"k1": k1, "k2": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card.",
@@ -144,17 +364,22 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    # 1. Build.
+    # 1. Build: one nvcc per source, all started together.
     t0 = time.perf_counter()
-    lib_path = cuda_lib.build(KERNEL_SOURCE)
-    cuda_lib.load(KERNEL_SOURCE)
+    sources = (KERNEL_SOURCE, BWD_KERNEL_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        lib_paths = list(pool.map(cuda_lib.build, sources))
+    for src in sources:
+        cuda_lib.load(src)
     build_s = time.perf_counter() - t0
-    ptxas = lib_path.with_name(lib_path.name.replace(".so", ".ptxas.txt"))
-    report = [ln.strip() for ln in ptxas.read_text().splitlines()
-              if "registers" in ln or "spill" in ln] if ptxas.exists() else []
-    log(f"[build] {KERNEL_SOURCE} with nvcc in {build_s:.2f} s -> {lib_path.name}")
-    for ln in report:
-        log(f"[build] ptxas: {ln}")
+    for src, lib_path in zip(sources, lib_paths):
+        ptxas = lib_path.with_name(lib_path.name.replace(".so", ".ptxas.txt"))
+        report = [ln.strip() for ln in ptxas.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln] if ptxas.exists() else []
+        log(f"[build] {src} with nvcc -> {lib_path.name}")
+        for ln in report:
+            log(f"[build] ptxas: {ln}")
+    log(f"[build] {len(sources)} sources in {build_s:.2f} s")
     smi = nvidia_smi()
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -262,6 +487,14 @@ def main() -> int:
         f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms, bytes {bound_bytes_ms:.4f} ms: "
         f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB); forecast launches {launches}, "
         f"decode total at this time {kernel_ms * launches:.3f} ms")
+
+    # 5-7. The training path: K2, the kernel-backend steps, TrainLoop.run.
+    del args, out_k, folded, traj, fitted, field, fc
+    torch.cuda.empty_cache()
+    k2 = k2_phase(cfg, coords, dev)
+    max_errs.append(step_parity_phase(cfg, coords, dev))
+    torch.cuda.empty_cache()
+    train = train_phase(coords, dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [{
@@ -269,12 +502,22 @@ def main() -> int:
         "route": "cuda",
         "source": f"enf_pde_tpu_torch/csrc/{KERNEL_SOURCE}",
         "replaces": "enf_pde_tpu/ops/pallas_decode.py:548",
-        "launches": launches,
+        "launches": launches + train["k1"],
         "max_abs_err": max(max_errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "fused_decode_bwd",
+        "route": "cuda",
+        "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
+        "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
+        "launches": train["k2"],
+        "max_abs_err": k2["max_abs_err"],
+        # The ode step's mode (no weight gradients), the phase of 1600 of 2000 epochs.
+        **k2["timing"][False],
         "library_ms": None,
     }]
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

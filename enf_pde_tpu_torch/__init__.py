@@ -5,9 +5,11 @@ This package imports only ``torch``, ``numpy`` and the standard library. Its ent
 points run on the card (``device="cuda"``) unless the caller asks for the CPU.
 
 Ported so far (ROADMAP.md): the Navier-Stokes forecast path -- config, the torus
-invariant, the decoder (eager, and the fused forward decode kernel
-``csrc/fused_decode_fwd.cu``), the PONITA latent ODE, the meta-SGD latent fit, and
-``inference.Forecaster``; ``convert`` loads the JAX package's parameters.
+invariant, the decoder (eager, and the fused decode kernels: forward
+``csrc/fused_decode_fwd.cu``, backward ``csrc/fused_decode_bwd.cu``), the PONITA
+latent ODE, the meta-SGD latent fit, and ``inference.Forecaster``; and its training
+path -- optimizers, the nef / ode / dual steps, validation and ``train.loop.TrainLoop``.
+``convert`` loads the JAX package's parameters.
 """
 
 __version__ = "0.1.0"

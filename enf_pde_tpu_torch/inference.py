@@ -16,8 +16,7 @@ import torch
 
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import Config
-from enf_pde_tpu_torch.models.decoder import decode_chunked
-from enf_pde_tpu_torch.ops.fused_decode import fused_decode_fwd, strict_fp32
+from enf_pde_tpu_torch.ops.fused_decode import strict_fp32
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
 __all__ = ["Forecaster"]
@@ -63,7 +62,6 @@ class Forecaster:
         """Latent-space forecast: (p, a, window) trajectories, each [batch, num_frames, ...]."""
         return self.trainer.rollout_latents(latents, num_frames)
 
-    @torch.no_grad()
     def decode(self, latent_traj: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                coords: Optional[np.ndarray] = None, chunk_size: Optional[int] = None) -> torch.Tensor:
         """Decode latent trajectories at arbitrary coordinates.
@@ -76,26 +74,9 @@ class Forecaster:
         Returns:
             [batch, T, num_points, num_out]
         """
-        if coords is None:
-            coords = self.trainer.coords
-        coords = torch.as_tensor(coords, dtype=torch.float32, device=self.device)
-        chunk = chunk_size or self.cfg.training.max_num_sampled_points
-        p, a, w = latent_traj
-        b, t = p.shape[0], p.shape[1]
-        p_fl, a_fl, w_fl = (x.reshape(b * t, *x.shape[2:]) for x in (p, a, w))
-        xs = coords[None].expand(b * t, *coords.shape)
-        dec = self.trainer.decoder
-        if self.trainer.eval_backend == "kernel":
-            # The weight folds depend on the latents only: fold once for all chunks.
-            folded = dec.fold(p_fl, a_fl)
-
-            def apply_fn(x, pp, aa, ww):
-                return fused_decode_fwd(*dec.kernel_geometry(x, pp, ww), *folded,
-                                        num_heads=dec.num_heads, head_dim=dec.num_hidden)
-        else:
-            apply_fn = dec
-        out = decode_chunked(apply_fn, xs, p_fl, a_fl, w_fl, chunk_size=chunk)
-        return out.reshape(b, t, coords.shape[0], -1)
+        if coords is not None:
+            coords = torch.as_tensor(coords, dtype=torch.float32, device=self.device)
+        return self.trainer.decode(latent_traj, coords=coords, chunk_size=chunk_size)
 
     def forecast(self, frames, num_frames: int, coords: Optional[np.ndarray] = None,
                  dp: float = 0.0, masks=None) -> torch.Tensor:

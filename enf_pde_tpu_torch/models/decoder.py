@@ -7,9 +7,11 @@ Two backends share the parameters:
 
 - ``'eager'``: the PyTorch composition (``ops/attention.py``), which autograd
   differentiates; the inner-loop latent fit runs on it.
-- ``'kernel'``: the fused forward decode (``ops/fused_decode.py``): geometry, the
-  stem and the weight folds in PyTorch, then kernel K1 for cross attention, out
-  projection, block FFN and head. On CUDA tensors it launches the kernel or raises.
+- ``'kernel'``: the fused decode (``ops/fused_decode.py``): geometry, the stem and
+  the weight folds in PyTorch, then ``FusedDecode`` for cross attention, out
+  projection, block FFN and head: kernel K1 forward, kernel K2 backward, with the
+  fold's einsums carrying the gradients on to the latents and the weights. First
+  order only. On CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     extract_attention_weights,
     extract_tail_weights,
     fold_decode_weights,
-    fused_decode_fwd,
+    FusedDecode,
 )
 from enf_pde_tpu_torch.ops.layers import Dense, LayerNorm, gelu
 
@@ -122,14 +124,16 @@ class EnfDecoder(nn.Module):
             p: [batch, num_latents, pose_dim].
             a: [batch, num_latents, latent_dim].
             gaussian_window: [batch, num_latents, 1] per-latent window size.
-            backend: ``'eager'`` (differentiable) or ``'kernel'`` (forward only).
+            backend: ``'eager'`` (differentiable to any order) or ``'kernel'``
+                (first order).
 
         Returns:
             [batch, num_coords, num_out].
         """
         if backend == "kernel":
-            return fused_decode_fwd(*self.kernel_inputs(x, p, a, gaussian_window),
-                                    num_heads=self.num_heads, head_dim=self.num_hidden)
+            inv, wb, A, ab, G, c, ws, tws = self.kernel_inputs(x, p, a, gaussian_window)
+            return FusedDecode.apply(self.num_heads, self.num_hidden, len(tws),
+                                     inv, wb, A, ab, G, c, *ws, *tws)
         if backend != "eager":
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         p = embed_pose_angles(p, self.cross_attn_invariant)

@@ -1,6 +1,6 @@
-"""Fused ENF decode: weight folding, the plain PyTorch version, and the CUDA kernel K1.
+"""Fused ENF decode: weight folding, the plain PyTorch versions, the CUDA kernels K1 and K2.
 
-Counterpart of ``enf_pde_tpu/ops/pallas_decode.py`` (forward only). The decode
+Counterpart of ``enf_pde_tpu/ops/pallas_decode.py``. The decode
 cross-attention, its output projection, the block FFN and the decoder's MLP head run
 as one kernel per (batch row, coordinate tile) that keeps every per-coordinate
 activation on chip; only the invariants, the window bias and the folded per-latent
@@ -18,8 +18,12 @@ Layers, as in the JAX package:
   version the CPU tests run and the kernel is held against.
 - ``fused_decode_fwd`` is the kernel's wrapper. On a CPU tensor it runs the plain
   version; on a CUDA tensor it launches ``csrc/fused_decode_fwd.cu`` (built with
-  plain ``nvcc``, bound with ``ctypes``) or raises. It has no backward yet (the
-  TPU backward kernel K2 is the training slice), so it refuses inputs that need grad.
+  plain ``nvcc``, bound with ``ctypes``) or raises.
+- ``fused_decode_bwd_plain`` is the VJP of ``fused_decode_plain`` by autograd, and
+  ``fused_decode_bwd`` the wrapper of kernel K2 (``csrc/fused_decode_bwd.cu``), with
+  the same CPU / CUDA dispatch.
+- ``FusedDecode`` pairs the two wrappers in a ``torch.autograd.Function`` (K1
+  forward, K2 backward; first order only: a double backward raises).
 
 Numerics: the reference paths run in strict f32. ``strict_fp32`` turns TF32 off for
 both cuBLAS matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -48,7 +52,11 @@ __all__ = [
     "fold_decode_weights",
     "fused_decode_plain",
     "fused_decode_fwd",
+    "fused_decode_bwd_plain",
+    "fused_decode_bwd",
+    "FusedDecode",
     "decode_flops_per_point",
+    "decode_bwd_flops_per_point",
 ]
 
 # Order of the folded weights handed to the kernel (``_WEIGHT_NAMES`` in JAX).
@@ -68,6 +76,9 @@ TAIL_WEIGHT_NAMES = (
 )
 
 KERNEL_SOURCE = "fused_decode_fwd.cu"
+BWD_KERNEL_SOURCE = "fused_decode_bwd.cu"
+# The RFF coefficients (fixed buffers, ``stop_gradient`` in JAX) get no gradient.
+COEFF_INDICES = (WEIGHT_NAMES.index("q_coeff"), WEIGHT_NAMES.index("v_coeff"))
 
 
 def strict_fp32() -> None:
@@ -277,7 +288,8 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.dev
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int) -> torch.Tensor:
+def _check_inputs(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int):
+    """Validate the kernels' inputs; return (B, Z, C, I, hid, hidm, out_dim, with_tail)."""
     H, D = num_heads, head_dim
     dev = inv.device
     if inv.dim() != 4:
@@ -309,7 +321,13 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int) -> tor
         _check(n, t, s, dev)
     if hid % 4 or hidm % 4 or D % 4:
         raise ValueError(f"the kernel needs hid, hidm and D divisible by 4 (got {hid}, {hidm}, {D})")
+    return B, Z, C, I, hid, hidm, out_dim, with_tail
 
+
+def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int) -> torch.Tensor:
+    H, D = num_heads, head_dim
+    dev = inv.device
+    B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
     lib = cuda_lib.load(KERNEL_SOURCE)
     launch = lib.fused_decode_fwd_launch
     launch.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
@@ -349,17 +367,160 @@ def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
         return fused_decode_plain(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
     if inv.device.type != "cuda":
         raise ValueError(f"fused_decode_fwd runs on CPU or CUDA tensors, got {inv.device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (inv, wb, A, ab, G, c, *ws, *tws)
-    ):
-        raise RuntimeError(
-            "fused_decode_fwd has no backward kernel yet; call it under torch.no_grad() "
-            "or differentiate the eager decoder (backend='eager')."
-        )
     return _launch(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
 
 
 fused_decode_fwd.launches = 0
+
+
+# --------------------------------------------------------------------- kernel K2
+
+
+def fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
+                           tws: Sequence[torch.Tensor], g: torch.Tensor, num_heads: int,
+                           head_dim: int, weight_grads: bool = True):
+    """The VJP of ``fused_decode_plain`` at cotangent ``g`` [b, c, out], by autograd.
+
+    Returns ``(dinv, dwb, dA, dab, dG, dc, dws, dtws)``: the first six have their
+    inputs' shapes; ``dws`` / ``dtws`` follow ``ws`` / ``tws``, with ``None`` for the
+    RFF coefficients (never trained) and everywhere when ``weight_grads`` is False.
+    """
+    with torch.enable_grad():
+        lat = [x.detach().requires_grad_(True) for x in (inv, wb, A, ab, G, c)]
+        wts = [w.detach().requires_grad_(weight_grads and i not in COEFF_INDICES)
+               for i, w in enumerate((*ws, *tws))]
+        out = fused_decode_plain(*lat, wts[:len(ws)], wts[len(ws):], num_heads, head_dim)
+        targets = lat + [w for w in wts if w.requires_grad]
+        grads = list(torch.autograd.grad(out, targets, g))
+    dlat, dw_iter = grads[:6], iter(grads[6:])
+    dwts = [next(dw_iter) if w.requires_grad else None for w in wts]
+    return (*dlat, tuple(dwts[:len(ws)]), tuple(dwts[len(ws):]))
+
+
+def _bwd_lib():
+    lib = cuda_lib.load(BWD_KERNEL_SOURCE)
+    lib.fused_decode_bwd_sizes.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_decode_bwd_sizes.restype = ctypes.c_int
+    lib.fused_decode_bwd_launch.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                            ctypes.c_void_p]
+    lib.fused_decode_bwd_launch.restype = ctypes.c_int
+    lib.fused_decode_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.fused_decode_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
+                weight_grads: bool):
+    H, D = num_heads, head_dim
+    dev = inv.device
+    B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
+    _check("g", g, (B, C, out_dim), dev)
+    lib = _bwd_lib()
+    dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail), int(weight_grads)]
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    sizes = (ctypes.c_longlong * 3)()
+    rc = lib.fused_decode_bwd_sizes(c_dims, len(dims), sizes)
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_bwd: unsupported shapes {dims} "
+                           f"({lib.fused_decode_bwd_error_string(rc).decode()})")
+    n_out, n_work, n_part = sizes
+    f32 = dict(device=dev, dtype=torch.float32)
+    dinv, dwb = torch.empty(B, Z, C, I, **f32), torch.empty(B, Z, C, **f32)
+    # The reduced gradients in one buffer; per-block partials and per-block activations
+    # are the kernel's scratch (it zeroes its own partials).
+    flat, work, part = torch.empty(n_out, **f32), torch.empty(n_work, **f32), torch.empty(n_part, **f32)
+    tail_ptrs = [t.data_ptr() for t in tws] if with_tail else [None] * len(TAIL_WEIGHT_NAMES)
+    ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G.data_ptr(),
+            c.data_ptr(), *[w.data_ptr() for w in ws], *tail_ptrs, g.data_ptr(),
+            dinv.data_ptr(), dwb.data_ptr(), flat.data_ptr(), work.data_ptr(), part.data_ptr()]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_decode_bwd_launch((ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+                                         c_dims, len(dims), ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.fused_decode_bwd_error_string(rc).decode()
+        raise RuntimeError(f"fused_decode_bwd launch failed: {msg} (cudaError {rc})")
+    fused_decode_bwd.launches += 1
+
+    # Split the flat buffer: dA, dab, dG, dc, then the trained weights in order.
+    shapes = [A.shape, ab.shape, G.shape, c.shape]
+    if weight_grads:
+        shapes += [w.shape for i, w in enumerate(ws) if i not in COEFF_INDICES]
+        shapes += [w.shape for w in tws]
+    pieces, off = [], 0
+    for s in shapes:
+        n = math.prod(s)
+        pieces.append(flat[off:off + n].view(s))
+        off += n
+    dA, dab, dG, dc = pieces[:4]
+    rest = iter(pieces[4:])
+    dws = tuple(None if (not weight_grads or i in COEFF_INDICES) else next(rest)
+                for i in range(len(ws)))
+    dtws = tuple(next(rest) if weight_grads else None for _ in tws)
+    return dinv, dwb, dA, dab, dG, dc, dws, dtws
+
+
+def fused_decode_bwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
+                     tws: Sequence[torch.Tensor], g: torch.Tensor, num_heads: int, head_dim: int,
+                     weight_grads: bool = True):
+    """Kernel K2: the fused backward decode, the VJP of ``fused_decode_fwd`` at ``g``.
+
+    Same inputs as ``fused_decode_fwd`` plus the cotangent ``g`` [b, c, out]; returns
+    what ``fused_decode_bwd_plain`` returns. ``weight_grads=False`` computes only the
+    gradients of inv, wb, A, ab, G and c (the ode step's need).
+
+    On CPU tensors this is ``fused_decode_bwd_plain``; on CUDA tensors it launches
+    the kernel on the current stream (counted in ``fused_decode_bwd.launches``) or
+    raises.
+    """
+    if inv.device.type == "cpu":
+        return fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws, tws, g, num_heads, head_dim,
+                                      weight_grads)
+    if inv.device.type != "cuda":
+        raise ValueError(f"fused_decode_bwd runs on CPU or CUDA tensors, got {inv.device}")
+    return _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads, head_dim, weight_grads)
+
+
+fused_decode_bwd.launches = 0
+
+
+class FusedDecode(torch.autograd.Function):
+    """K1 forward, K2 backward: the differentiable fused decode (first order).
+
+    ``FusedDecode.apply(num_heads, head_dim, num_tail, inv, wb, A, ab, G, c, *ws, *tws)``
+    with ``num_tail`` = ``len(tws)`` (0 or 12). The backward computes only what
+    ``ctx.needs_input_grad`` asks for: the weight gradients only when some weight
+    needs one. Second order through the kernels is not supported: a backward that
+    would build a graph for a double backward (``create_graph=True``) raises.
+    """
+
+    @staticmethod
+    def forward(ctx, num_heads: int, head_dim: int, num_tail: int, inv, wb, A, ab, G, c, *weights):
+        ctx.num_heads, ctx.head_dim, ctx.num_tail = num_heads, head_dim, num_tail
+        ctx.save_for_backward(inv, wb, A, ab, G, c, *weights)
+        n_ws = len(weights) - num_tail
+        return fused_decode_fwd(inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:],
+                                num_heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():  # create_graph: K2 has no derivative of its own
+            raise RuntimeError(
+                "FusedDecode is first order: its backward (kernel K2) cannot be "
+                "differentiated again; take higher-order gradients through the eager "
+                "decoder (backend='eager')."
+            )
+        inv, wb, A, ab, G, c, *weights = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        n_ws = len(weights) - ctx.num_tail
+        weight_grads = any(needs[6:])
+        dinv, dwb, dA, dab, dG, dc, dws, dtws = fused_decode_bwd(
+            inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:], g.contiguous(),
+            ctx.num_heads, ctx.head_dim, weight_grads)
+        grads = (dinv, dwb, dA, dab, dG, dc, *dws, *dtws)
+        return (None, None, None, *(d if need else None for d, need in zip(grads, needs)))
 
 
 def decode_flops_per_point(num_heads: int, head_dim: int, hidden: int, hidden_mixer: int,
@@ -380,3 +541,25 @@ def decode_flops_per_point(num_heads: int, head_dim: int, hidden: int, hidden_mi
     )
     tail = 2 * (3 * hd * hd + hd * hidden + hidden * hidden + hidden * num_out)
     return num_latents * per_z + tail
+
+
+def decode_bwd_flops_per_point(num_heads: int, head_dim: int, hidden: int, hidden_mixer: int,
+                               num_latents: int, inv_dim: int, num_out: int,
+                               weight_grads: bool) -> int:
+    """Matmul FLOPs per decoded coordinate of K2 (2 per multiply-add).
+
+    The backward recomputes the forward (``decode_flops_per_point``), then computes
+    every activation gradient (one more product of each dense layer's size) and the
+    per-latent gradients of A and G (one more for those two); ``weight_grads`` adds
+    one more for each shared weight.
+    """
+    hd = num_heads * head_dim
+    fwd = decode_flops_per_point(num_heads, head_dim, hidden, hidden_mixer, num_latents,
+                                 inv_dim, num_out)
+    latent = 2 * (hidden * num_heads + hidden * num_heads * hidden_mixer)  # A, G per latent
+    shared_z = 2 * (2 * inv_dim * (hidden // 2) + 3 * hidden * hidden
+                    + num_heads * hidden_mixer * head_dim)
+    tail = 2 * (3 * hd * hd + hd * hidden + hidden * hidden + hidden * num_out)
+    # Input gradients of the RFF projections are counted; the coefficients get none.
+    wgrad = num_latents * (shared_z - 2 * 2 * inv_dim * (hidden // 2)) + tail
+    return 2 * fwd + num_latents * latent + (wgrad if weight_grads else 0)

@@ -1,11 +1,15 @@
 """Meta-SGD inner loop: K latent SGD steps with learned per-leaf learning rates.
 
-Counterpart of ``enf_pde_tpu/train/inner_loop.py`` for serving (first order): shared
-init latents are tiled over the batch, each step fits them to a random coordinate
-subset of the target frame with gradients scaled by the batch size and the learned
-learning rates. Serving needs only the fitted latents, so the held-out (K+1)-th
-subset's query loss, which the meta-learning outer step trains on, is left to the
-training slice.
+Counterpart of ``enf_pde_tpu/train/inner_loop.py``: shared init latents are tiled
+over the batch, each step fits them to a random coordinate subset of the target frame
+with gradients scaled by the batch size and the learned learning rates. Two forms:
+
+- serving (``make_inner_loop``): first order, returns the fitted latents only
+  (detached);
+- training (``make_train_inner_loop``): returns ``(query_loss, fitted)`` with the
+  query loss on a held-out (K+1)-th subset, and keeps the graph of every inner
+  gradient (``create_graph=True``) so that the outer gradient reaches the decoder,
+  the learning rates and the init latents through the loop (second order, MAML).
 
 The coordinate subsets come from a ``torch.Generator``, or are passed in as
 ``masks`` (the parity tests hand in the ones the JAX package drew).
@@ -19,7 +23,13 @@ import torch
 
 from enf_pde_tpu_torch.models.latents import LatentParams, latents_to_pose, tile_latents
 
-__all__ = ["InnerLoopConfig", "make_inner_loop", "init_meta_sgd_lrs", "sample_coordinate_masks"]
+__all__ = [
+    "InnerLoopConfig",
+    "make_inner_loop",
+    "make_train_inner_loop",
+    "init_meta_sgd_lrs",
+    "sample_coordinate_masks",
+]
 
 
 class InnerLoopConfig(NamedTuple):
@@ -39,7 +49,7 @@ def sample_coordinate_masks(generator: Optional[torch.Generator], num_coords: in
 
 
 def make_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: InnerLoopConfig):
-    """Build the inner-loop function.
+    """Build the serving inner-loop function (first order).
 
     Args:
         decoder_apply: ``decoder_apply(x, p, a, window) -> values``, differentiable in
@@ -48,62 +58,99 @@ def make_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: InnerLoo
         cfg: inner-loop hyperparameters.
 
     Returns:
-        ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None, dp=0.0)
-        -> fitted_latents``. ``latent_init`` is a shared (num_signals=1) latent
-        dict, ``frames`` is [batch, *spatial, channels], ``masks``
+        ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None, dp=0.0,
+        keep=None) -> fitted_latents``. ``latent_init`` is a shared (num_signals=1)
+        latent dict, ``frames`` is [batch, *spatial, channels], ``masks``
         [>= K, num_sampled] indexes the coordinates of step k in row k (drawn from
         ``generator`` when not given; the JAX package draws K+1 rows, the last for
         its query loss), and ``dp`` > 0 restricts fitting to a random
-        ``dp``-fraction of the coordinates.
+        ``dp``-fraction of the coordinates (``keep``, drawn when not given; masks
+        then index into it).
     """
 
     def inner_loop(meta_lrs, latent_init: LatentParams, frames: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    masks: Optional[torch.Tensor] = None,
-                   dp: float = 0.0) -> LatentParams:
-        img = frames.reshape(frames.shape[0], -1, frames.shape[-1])  # [b, N, C]
-        batch_size = img.shape[0]
-        local_coords = coords
-
-        if dp > 0:
-            n_keep = int(coords.shape[0] * dp)
-            keep = torch.randperm(coords.shape[0], generator=generator)[:n_keep].to(coords.device)
-            local_coords = coords[keep]
-            img = img[:, keep]
-
-        if masks is None:
-            masks = sample_coordinate_masks(
-                generator, local_coords.shape[0], cfg.num_inner_steps,
-                cfg.max_num_sampled_points,
-            )
-        masks = torch.as_tensor(masks, dtype=torch.long).to(coords.device)
-
-        latents = tile_latents(latent_init, batch_size)
-        if cfg.noise_pos_inner_loop > 0:
-            noise = torch.randn(latents["p_pos"].shape, generator=generator)
-            latents["p_pos"] = latents["p_pos"] + cfg.noise_pos_inner_loop * noise.to(coords.device)
-
-        def recon_loss(latent_params: LatentParams, mask) -> torch.Tensor:
-            xs = local_coords[mask].expand(batch_size, -1, -1)  # [b, M, d]
-            ys = img[:, mask]  # [b, M, C]
-            p, a, window = latents_to_pose(latent_params)
-            return torch.mean((decoder_apply(xs, p, a, window) - ys) ** 2)
-
-        names = list(latents)
-        for step in range(cfg.num_inner_steps):
-            leaves = {n: latents[n].detach().requires_grad_(True) for n in names}
-            with torch.enable_grad():
-                grads = torch.autograd.grad(recon_loss(leaves, masks[step]),
-                                            [leaves[n] for n in names])
-            # The loss means over the batch; rescale so each signal's latents see
-            # their own full gradient.
-            grads = {n: g * batch_size for n, g in zip(names, grads)}
-            if not cfg.optimize_gaussian_window and "gaussian_window" in grads:
-                grads["gaussian_window"] = torch.zeros_like(grads["gaussian_window"])
-            latents = {n: leaves[n].detach() - meta_lrs[n] * grads[n] for n in names}
-        return latents
+                   dp: float = 0.0, keep: Optional[torch.Tensor] = None) -> LatentParams:
+        fitted = _fit(decoder_apply, coords, cfg, meta_lrs, latent_init, frames, generator,
+                      masks, dp, keep, num_masks=cfg.num_inner_steps, create_graph=False)[1]
+        return {n: v.detach() for n, v in fitted.items()}
 
     return inner_loop
+
+
+def make_train_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: InnerLoopConfig):
+    """Build the training inner-loop function.
+
+    Returns:
+        ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None)
+        -> (query_loss, fitted_latents)``: ``masks`` [K + 1, num_sampled] (drawn when
+        not given), the query loss is the fitted latents' MSE on row K. Both are
+        differentiable to second order in the decoder's parameters, ``meta_lrs`` and
+        ``latent_init``.
+    """
+
+    def inner_loop(meta_lrs, latent_init: LatentParams, frames: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   masks: Optional[torch.Tensor] = None):
+        recon_loss, fitted, masks = _fit(
+            decoder_apply, coords, cfg, meta_lrs, latent_init, frames, generator, masks,
+            0.0, None, num_masks=cfg.num_inner_steps + 1, create_graph=True)
+        return recon_loss(fitted, masks[cfg.num_inner_steps]), fitted
+
+    return inner_loop
+
+
+def _fit(decoder_apply, coords, cfg: InnerLoopConfig, meta_lrs, latent_init, frames, generator,
+         masks, dp, keep, num_masks: int, create_graph: bool):
+    """The K SGD steps; returns (recon_loss, fitted latents, masks)."""
+    img = frames.reshape(frames.shape[0], -1, frames.shape[-1])  # [b, N, C]
+    batch_size = img.shape[0]
+    local_coords = coords
+
+    if dp > 0:
+        if keep is None:
+            n_keep = int(coords.shape[0] * dp)
+            keep = torch.randperm(coords.shape[0], generator=generator)[:n_keep]
+        keep = torch.as_tensor(keep, dtype=torch.long).to(coords.device)
+        local_coords = coords[keep]
+        img = img[:, keep]
+
+    if masks is None:
+        masks = sample_coordinate_masks(generator, local_coords.shape[0], num_masks,
+                                        cfg.max_num_sampled_points)
+    masks = torch.as_tensor(masks, dtype=torch.long).to(coords.device)
+
+    latents = tile_latents(latent_init, batch_size)
+    if cfg.noise_pos_inner_loop > 0:
+        noise = torch.randn(latents["p_pos"].shape, generator=generator)
+        latents["p_pos"] = latents["p_pos"] + cfg.noise_pos_inner_loop * noise.to(coords.device)
+
+    def recon_loss(latent_params: LatentParams, mask) -> torch.Tensor:
+        xs = local_coords[mask].expand(batch_size, -1, -1)  # [b, M, d]
+        ys = img[:, mask]  # [b, M, C]
+        p, a, window = latents_to_pose(latent_params)
+        return torch.mean((decoder_apply(xs, p, a, window) - ys) ** 2)
+
+    names = list(latents)
+    for step in range(cfg.num_inner_steps):
+        if create_graph:
+            # Keep the graph to the init latents; a leaf that has none starts one here.
+            leaves = {n: v if v.requires_grad else v.detach().requires_grad_(True)
+                      for n, v in latents.items()}
+        else:
+            leaves = {n: latents[n].detach().requires_grad_(True) for n in names}
+        with torch.enable_grad():
+            grads = torch.autograd.grad(recon_loss(leaves, masks[step]),
+                                        [leaves[n] for n in names], create_graph=create_graph)
+        # The loss means over the batch; rescale so each signal's latents see
+        # their own full gradient.
+        grads = {n: g * batch_size for n, g in zip(names, grads)}
+        if not cfg.optimize_gaussian_window and "gaussian_window" in grads:
+            grads["gaussian_window"] = torch.zeros_like(grads["gaussian_window"])
+        base = leaves if create_graph else {n: leaves[n].detach() for n in names}
+        latents = {n: base[n] - meta_lrs[n] * grads[n] for n in names}
+    return recon_loss, latents, masks
 
 
 def init_meta_sgd_lrs(latent_dim: int, lr_pos: float, lr_a: float, lr_window: float,

@@ -1,34 +1,83 @@
-"""The serving part of the meta-SGD trainer: parameter init, latent fit, latent rollout.
+"""Meta-SGD PDE trainer: state, losses, the nef / ode / dual steps, validation.
 
-Counterpart of ``enf_pde_tpu/train/meta_sgd.py`` without the optimizers and the
-nef / ode / dual training steps (the training slice, ROADMAP.md). The decoder's and
-the ODE's parameters live in their modules; the rest of the state is a dict
-``{'autodecoder': shared init latents, 'meta_sgd_lrs': inner learning rates}``.
+Counterpart of ``enf_pde_tpu/train/meta_sgd.py`` (reference ``pde_trainer.py``):
+
+- **nef phase**: outer gradients of the inner-loop query loss update the decoder and
+  the learned inner learning rates (second order through the K-step latent fit, on
+  the eager decoder).
+- **ode phase**: latents are inner-fitted to frame 0 (first order: they are
+  constants of the ODE's gradient), rolled out with the latent ODE for
+  ``traj_len_train`` frames, decoded at one random coordinate subset per frame on
+  ``nef.ode_backend`` (the fused kernels K1 forward, K2 backward), and the rollout
+  MSE updates the ODE model.
+- **dual phase**: the rollout loss updates decoder + inner learning rates + ODE
+  together (second-order inner loop, rollout decode on K1 + K2).
+- **validation**: fit frame 0, roll out over the train and out horizons, decode every
+  grid point on ``nef.eval_backend`` (K1), MSE in and out of the train horizon.
+
+The decoder's and the ODE's parameters live in their modules; the rest of the state
+is a dict ``{'autodecoder': shared init latents, 'meta_sgd_lrs': inner learning rates,
+'opt': optimizer states}``. The steps update it (and the modules) in place and return
+``(loss, state)``. Random draws (frame choice, inner-loop masks, the rollout loss's
+coordinate subsets, the dp subsets) come from the trainer's ``generator`` or are
+passed in (the parity tests hand in the JAX package's draws). The rollout is a
+forward Python loop without rematerialisation.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from functools import partial
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from enf_pde_tpu_torch.builders import coordinate_system_for, decoder_backend
 from enf_pde_tpu_torch.dynamics.solvers import solve_latent_ode
+from enf_pde_tpu_torch.models.decoder import decode_chunked
 from enf_pde_tpu_torch.models.latents import init_latents, latents_to_pose
+from enf_pde_tpu_torch.ops.fused_decode import fused_decode_fwd
 from enf_pde_tpu_torch.ops.layers import reset_parameters
-from enf_pde_tpu_torch.train.inner_loop import InnerLoopConfig, init_meta_sgd_lrs, make_inner_loop
+from enf_pde_tpu_torch.train.inner_loop import (
+    InnerLoopConfig,
+    init_meta_sgd_lrs,
+    make_inner_loop,
+    make_train_inner_loop,
+)
+from enf_pde_tpu_torch.train.state import make_optimizers
 
-__all__ = ["MetaSGDTrainer"]
+__all__ = ["MetaSGDTrainer", "VAL_DP"]
+
+VAL_DP = (0.05, 0.1, 0.5)  # sparse-observation validation fractions
+
+
+def _leaves(group: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fresh leaves of a state group to differentiate with respect to."""
+    return {k: v.detach().requires_grad_(True) for k, v in group.items()}
+
+
+@contextlib.contextmanager
+def _frozen(module: torch.nn.Module):
+    """Run with ``module``'s parameters out of autograd (restored after)."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
 
 
 class MetaSGDTrainer:
-    """Owns the decoder and ODE modules and the serving functions of one experiment.
+    """Owns the decoder and ODE modules, the optimizers and the steps of one experiment.
 
     Args:
         cfg: experiment config.
         decoder / ode_model: from ``build_models``; moved to ``device``.
         coords: the training grid [num_coords, coord_dim].
-        seed: seed of the generator that ``init_state`` draws the weights from.
+        seed: seed of the generator that ``init_state`` draws the weights from, and of
+            ``generator``, which draws the steps' random subsets.
         device: where the modules and the latents live (default the card).
     """
 
@@ -43,7 +92,16 @@ class MetaSGDTrainer:
         inv = decoder.cross_attn_invariant
         self.num_pos_dims = inv.num_z_pos_dims
         self.num_ori_dims = inv.num_z_ori_dims
-        self.eval_backend = decoder_backend(cfg.nef.get("eval_backend", "xla"))
+        train_backend = cfg.nef.get("backend", "xla")
+        if decoder_backend(train_backend) != "eager":
+            raise NotImplementedError(
+                "The second-order inner loop runs on the eager decoder only (nef.backend: xla); "
+                "second order through the fused kernels is not ported (ROADMAP.md)."
+            )
+        self.eval_backend = decoder_backend(cfg.nef.get("eval_backend", train_backend))
+        self.ode_backend = decoder_backend(cfg.nef.get("ode_backend", train_backend))
+        self.opts = make_optimizers(cfg)
+        self.generator = torch.Generator().manual_seed(seed)
 
         self.inner_cfg = InnerLoopConfig(
             num_inner_steps=cfg.meta.num_inner_steps,
@@ -53,12 +111,14 @@ class MetaSGDTrainer:
         )
         # The latent fit differentiates the decoder, so it runs the eager backend.
         self.inner_loop = make_inner_loop(self.decoder, self.coords, self.inner_cfg)
+        self.train_inner_loop = make_train_inner_loop(self.decoder, self.coords, self.inner_cfg)
+        self.val_step_dp = {dp: partial(self.val_step, dp=dp) for dp in VAL_DP}
 
     # ------------------------------------------------------------------ state init
 
-    def init_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+    def init_state(self) -> dict:
         """Draw the decoder's and the ODE's weights from ``seed``; return the latent
-        init and the inner learning rates."""
+        init, the inner learning rates and fresh optimizer states."""
         cfg = self.cfg
         generator = torch.Generator().manual_seed(self.seed)
         reset_parameters(self.decoder, generator)
@@ -79,22 +139,35 @@ class MetaSGDTrainer:
             lr_window=cfg.meta.inner_learning_rate_window,
             with_orientation=self.num_ori_dims > 0,
         )
-        return self._to_device({"autodecoder": latent_init, "meta_sgd_lrs": meta_lrs})
+        return self._new_state(latent_init, meta_lrs)
 
-    def load_state(self, params: dict) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Load converted JAX parameters (``convert.convert_params``)."""
+    def load_state(self, params: dict) -> dict:
+        """Load converted JAX parameters (``convert.convert_params``); fresh optimizer states."""
         self.decoder.load_state_dict(params["nef"])
         self.ode_model.load_state_dict(params["ode"])
-        return self._to_device(
-            {"autodecoder": params["autodecoder"], "meta_sgd_lrs": params["meta_sgd_lrs"]}
-        )
+        return self._new_state(params["autodecoder"], params["meta_sgd_lrs"])
 
-    def _to_device(self, state):
-        return {group: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
-                        for k, v in leaves.items()}
-                for group, leaves in state.items()}
+    def _new_state(self, latent_init, meta_lrs) -> dict:
+        state = {group: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                         for k, v in leaves.items()}
+                 for group, leaves in (("autodecoder", latent_init), ("meta_sgd_lrs", meta_lrs))}
+        state["opt"] = {
+            "nef": self.opts["nef"].init(self.nef_group()),
+            "ode": self.opts["ode"].init(self.ode_group()),
+            "autodecoder": self.opts["autodecoder"].init(state["autodecoder"]),
+            "meta_sgd": self.opts["meta_sgd"].init(state["meta_sgd_lrs"]),
+        }
+        return state
 
-    # ------------------------------------------------------------------ serving
+    def nef_group(self) -> Dict[str, torch.Tensor]:
+        """The decoder's optimizer group: its parameters and its RFF coefficient buffers
+        (JAX's stop-gradient params, which AdamW decays)."""
+        return {**dict(self.decoder.named_parameters()), **dict(self.decoder.named_buffers())}
+
+    def ode_group(self) -> Dict[str, torch.Tensor]:
+        return {**dict(self.ode_model.named_parameters()), **dict(self.ode_model.named_buffers())}
+
+    # ------------------------------------------------------------------ losses
 
     def _rollout(self, latents, num_frames: int):
         return solve_latent_ode(
@@ -106,15 +179,233 @@ class MetaSGDTrainer:
             method=self.cfg.node.method,
         )
 
+    def _nef_loss(self, lrs, init, trajectory: torch.Tensor,
+                  frame_idx: Optional[torch.Tensor] = None,
+                  masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inner-loop query loss on frame 0 or on ``fit_on_num_steps`` random frames.
+
+        ``frame_idx`` [fit_on_num_steps] picks the frames (drawn when not given).
+        """
+        cfg = self.cfg
+        fos = cfg.training.nef.fit_on_num_steps
+        if fos == 1:
+            frames = trajectory[:, 0]
+        else:
+            if frame_idx is None:
+                frame_idx = torch.randperm(cfg.dataset.traj_len_train, generator=self.generator)[:fos]
+            frames = trajectory[:, torch.as_tensor(frame_idx, dtype=torch.long).to(self.device)]
+            frames = frames.reshape(frames.shape[0] * fos, *frames.shape[2:])
+        loss, _ = self.train_inner_loop(lrs, init, frames, generator=self.generator, masks=masks)
+        return loss
+
+    def _ode_loss(self, lrs, init, trajectory: torch.Tensor, second_order: bool,
+                  masks: Optional[torch.Tensor] = None,
+                  ode_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inner-fit frame 0 -> latent rollout -> decode random subsets -> MSE.
+
+        ``second_order``: differentiate through the inner loop (dual step), else the
+        fitted latents are constants (ode step). ``ode_masks`` [T, M] holds one
+        coordinate subset per timestep, shared across the batch (drawn when not
+        given). The decode runs on ``ode_backend``.
+        """
+        cfg = self.cfg
+        T = cfg.dataset.traj_len_train
+        trajectory = trajectory[:, :T]
+        b = trajectory.shape[0]
+        if second_order:
+            _, fitted = self.train_inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
+                                              masks=masks)
+        else:
+            fitted = self.inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
+                                     masks=masks)
+        sol = self._rollout(latents_to_pose(fitted), T)
+        p_fl, a_fl, w_fl = (x.reshape(b * T, *x.shape[2:]) for x in sol)
+
+        num_coords = self.coords.shape[0]
+        M = cfg.training.max_num_sampled_points
+        channels = trajectory.shape[-1]
+        traj_fl = trajectory.reshape(b, T, -1, channels)  # [b, T, N, C]
+        if M < num_coords:
+            if ode_masks is None:
+                ode_masks = torch.stack([torch.randperm(num_coords, generator=self.generator)[:M]
+                                         for _ in range(T)])
+            ode_masks = torch.as_tensor(ode_masks, dtype=torch.long).to(self.device)
+            xs = self.coords[ode_masks]  # [T, M, d]
+            xs = xs[None].expand(b, T, M, xs.shape[-1]).reshape(b * T, M, -1)
+            ys = traj_fl[:, torch.arange(T, device=self.device)[:, None], ode_masks]
+            ys = ys.reshape(b * T, M, channels)
+        else:
+            xs = self.coords[None, None].expand(b, T, num_coords, -1).reshape(b * T, num_coords, -1)
+            ys = traj_fl.reshape(b * T, num_coords, channels)
+        recon = self.decoder(xs, p_fl, a_fl, w_fl, backend=self.ode_backend)
+        return torch.mean((recon - ys) ** 2)
+
+    # ------------------------------------------------------------------ gradients
+
+    def nef_grads(self, state, trajectory, frame_idx=None, masks=None):
+        """(loss, grads) of the nef phase: grads {'nef', 'meta_sgd_lrs', 'autodecoder'}."""
+        lrs, init = _leaves(state["meta_sgd_lrs"]), _leaves(state["autodecoder"])
+        loss = self._nef_loss(lrs, init, trajectory, frame_idx, masks)
+        return loss.detach(), self._grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
+                                          autodecoder=init)
+
+    def ode_grads(self, state, trajectory, masks=None, ode_masks=None):
+        """(loss, grads) of the ode phase: grads {'ode'}; the decoder is not differentiated."""
+        with _frozen(self.decoder):
+            loss = self._ode_loss(state["meta_sgd_lrs"], state["autodecoder"], trajectory,
+                                  second_order=False, masks=masks, ode_masks=ode_masks)
+            return loss.detach(), self._grads(loss, ode=self.ode_group())
+
+    def dual_grads(self, state, trajectory, masks=None, ode_masks=None):
+        """(loss, grads) of the dual phase: {'nef', 'meta_sgd_lrs', 'autodecoder', 'ode'}."""
+        lrs, init = _leaves(state["meta_sgd_lrs"]), _leaves(state["autodecoder"])
+        loss = self._ode_loss(lrs, init, trajectory, second_order=True, masks=masks,
+                              ode_masks=ode_masks)
+        return loss.detach(), self._grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
+                                          autodecoder=init, ode=self.ode_group())
+
+    @staticmethod
+    def _grads(loss, **groups):
+        """Gradients of ``loss`` for every tensor of the groups that requires grad;
+        zeros for the rest (buffers) and for the unused ones."""
+        flat = [(g, k, v) for g, leaves in groups.items() for k, v in leaves.items()
+                if v.requires_grad]
+        got = torch.autograd.grad(loss, [v for _, _, v in flat], allow_unused=True)
+        out = {g: {k: torch.zeros_like(v) for k, v in leaves.items()} for g, leaves in groups.items()}
+        for (g, k, _), d in zip(flat, got):
+            if d is not None:
+                out[g][k] = d
+        return out
+
+    # ------------------------------------------------------------------ updates
+
+    def _update_nef(self, state, grads) -> None:
+        opt = state["opt"]
+        opt["nef"] = self.opts["nef"].update(grads["nef"], opt["nef"], self.nef_group())
+        lrs = state["meta_sgd_lrs"]
+        opt["meta_sgd"] = self.opts["meta_sgd"].update(grads["meta_sgd_lrs"], opt["meta_sgd"], lrs)
+        for v in lrs.values():
+            v.clamp_(1e-6, 10.0)
+
+    def _update_ode(self, state, grads) -> None:
+        state["opt"]["ode"] = self.opts["ode"].update(grads["ode"], state["opt"]["ode"],
+                                                      self.ode_group())
+
+    def nef_train_step(self, state, trajectory, frame_idx=None, masks=None):
+        """One nef-phase step; returns (loss, state) with the state updated in place."""
+        loss, grads = self.nef_grads(state, trajectory, frame_idx, masks)
+        self._update_nef(state, grads)
+        if self.cfg.optimizer.learning_rate_codes != 0:
+            opt = state["opt"]
+            opt["autodecoder"] = self.opts["autodecoder"].update(
+                grads["autodecoder"], opt["autodecoder"], state["autodecoder"])
+        return loss, state
+
+    def ode_train_step(self, state, trajectory, masks=None, ode_masks=None):
+        """One ode-phase step (ODE parameters only); returns (loss, state)."""
+        loss, grads = self.ode_grads(state, trajectory, masks, ode_masks)
+        self._update_ode(state, grads)
+        return loss, state
+
+    def dual_train_step(self, state, trajectory, masks=None, ode_masks=None):
+        """One dual step (decoder, inner learning rates and ODE); returns (loss, state)."""
+        loss, grads = self.dual_grads(state, trajectory, masks, ode_masks)
+        self._update_nef(state, grads)
+        self._update_ode(state, grads)
+        return loss, state
+
+    # ------------------------------------------------------------------ validation
+
+    @torch.no_grad()
+    def val_step(self, state, trajectory, dp: float = 0.0, masks=None, keep=None):
+        """Fit frame 0, roll out over the train + out horizon, decode every grid point.
+
+        Returns (mse_in, mse_out) as device scalars: the MSE over the first
+        ``traj_len_train`` frames and over the rest (0 when there is no rest).
+        ``dp`` > 0 fits on a random dp-fraction of the points (``keep``).
+        """
+        cfg = self.cfg
+        T_in = cfg.dataset.traj_len_train
+        # The out horizon is clamped to the frames the data has (NS asks for 50 of 20).
+        T_total = min(T_in + cfg.dataset.traj_len_out_horizon, trajectory.shape[1])
+        trajectory = trajectory[:, :T_total]
+        fitted = self.fit_latents(state, trajectory[:, 0], masks=masks, dp=dp, keep=keep)
+        recon = self.decode(self._rollout(latents_to_pose(fitted), T_total))
+        recon = recon.reshape(trajectory.shape)
+        mse_in = torch.mean((recon[:, :T_in] - trajectory[:, :T_in]) ** 2)
+        if T_total > T_in:
+            mse_out = torch.mean((recon[:, T_in:] - trajectory[:, T_in:]) ** 2)
+        else:
+            mse_out = torch.zeros((), device=self.device)
+        return mse_in, mse_out
+
+    # ------------------------------------------------------------------ phases
+
+    def phase_window(self, epoch: int) -> Tuple[bool, bool]:
+        """(train_nef, train_ode) flags for this epoch (ref ``_base_pde_trainer.py:279-288``)."""
+        t = self.cfg.training
+        train_nef = t.nef.train_from_epoch < epoch <= t.nef.train_until_epoch
+        train_ode = t.ode.train_from_epoch < epoch <= t.ode.train_until_epoch
+        return train_nef, train_ode
+
+    def phase_active(self, epoch: int) -> bool:
+        """Whether any training phase covers this epoch (``TrainLoop.run`` stops when not)."""
+        return any(self.phase_window(epoch))
+
+    def select_train_step(self, epoch: int) -> Tuple[Callable, bool, bool]:
+        """Phase scheduling by epoch ranges (reference ``_base_pde_trainer.py:281-299``)."""
+        train_nef, train_ode = self.phase_window(epoch)
+        if train_nef and train_ode:
+            return self.dual_train_step, train_nef, train_ode
+        if train_nef:
+            return self.nef_train_step, train_nef, train_ode
+        if train_ode:
+            return self.ode_train_step, train_nef, train_ode
+        raise ValueError(f"No training phase active at epoch {epoch}.")
+
+    # ------------------------------------------------------------------ serving
+
     def fit_latents(self, state, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
-                    masks: Optional[torch.Tensor] = None, dp: float = 0.0):
-        """Inner-fit latents to frames [batch, *spatial, channels]; returns the latent dict."""
+                    masks: Optional[torch.Tensor] = None, dp: float = 0.0, keep=None):
+        """Inner-fit latents to frames [batch, *spatial, channels]; returns the latent dict.
+
+        Draws from ``generator``, else from the trainer's own.
+        """
         return self.inner_loop(
-            state["meta_sgd_lrs"], state["autodecoder"], frames, generator=generator,
-            masks=masks, dp=dp,
+            state["meta_sgd_lrs"], state["autodecoder"], frames,
+            generator=generator if generator is not None else self.generator,
+            masks=masks, dp=dp, keep=keep,
         )
 
     @torch.no_grad()
     def rollout_latents(self, latents, num_frames: int):
         """Roll fitted latents forward ``num_frames`` (incl. t0): (p, a, window) trajectories."""
         return self._rollout(latents_to_pose(latents), num_frames)
+
+    @torch.no_grad()
+    def decode(self, latent_traj, coords: Optional[torch.Tensor] = None,
+               chunk_size: Optional[int] = None) -> torch.Tensor:
+        """Decode latent trajectories (p, a, window), each [batch, T, ...], at ``coords``
+        (default the training grid) in chunks of ``chunk_size`` points (default
+        ``max_num_sampled_points``) on ``eval_backend``; returns [batch, T, points, out].
+
+        On the kernel backend the weight folds, which depend on the latents only, run
+        once for all chunks.
+        """
+        coords = self.coords if coords is None else coords
+        chunk = chunk_size or self.cfg.training.max_num_sampled_points
+        p, a, w = latent_traj
+        b, t = p.shape[0], p.shape[1]
+        p_fl, a_fl, w_fl = (x.reshape(b * t, *x.shape[2:]) for x in (p, a, w))
+        xs = coords[None].expand(b * t, *coords.shape)
+        dec = self.decoder
+        if self.eval_backend == "kernel":
+            folded = dec.fold(p_fl, a_fl)
+
+            def apply_fn(x, pp, aa, ww):
+                return fused_decode_fwd(*dec.kernel_geometry(x, pp, ww), *folded,
+                                        num_heads=dec.num_heads, head_dim=dec.num_hidden)
+        else:
+            apply_fn = dec
+        out = decode_chunked(apply_fn, xs, p_fl, a_fl, w_fl, chunk_size=chunk)
+        return out.reshape(b, t, coords.shape[0], -1)
