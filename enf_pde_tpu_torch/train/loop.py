@@ -76,11 +76,13 @@ class TrainLoop:
         )
         return state
 
-    def _eval_loader(self, state, loader, step_fn):
-        # Device-side accumulation: one host read per loader pass.
+    def _eval_loader(self, state, loader, step_fn, seed_offset: int):
+        # Device-side accumulation: one host read per loader pass. The batch index plus
+        # the epoch offset seeds each batch's draws, as in the JAX loop: validation
+        # never draws from the training generator.
         mse_in, mse_out, n = None, None, 0
         for batch in loader:
-            a, b = step_fn(state, self._batch_traj(batch))
+            a, b = step_fn(state, self._batch_traj(batch), batch_idx=seed_offset + n)
             mse_in = a if mse_in is None else mse_in + a
             mse_out = b if mse_out is None else mse_out + b
             n += 1
@@ -89,8 +91,9 @@ class TrainLoop:
         return float(mse_in) / n, float(mse_out) / n
 
     def validate_epoch(self, state, epoch: int):
-        v_in, v_out = self._eval_loader(state, self.val_loader, self.trainer.val_step)
-        t_in, t_out = self._eval_loader(state, self.train_loader, self.trainer.val_step)
+        off = epoch << 20
+        v_in, v_out = self._eval_loader(state, self.val_loader, self.trainer.val_step, off)
+        t_in, t_out = self._eval_loader(state, self.train_loader, self.trainer.val_step, off)
         self.logger.log(
             {
                 "epoch": epoch,
@@ -105,10 +108,11 @@ class TrainLoop:
 
     def validate_epoch_dp(self, state, epoch: int):
         metrics = {"epoch": epoch}
+        off = epoch << 20
         for dp, fn in self.trainer.val_step_dp.items():
             tag = f"dp{int(dp * 100)}"
-            v_in, v_out = self._eval_loader(state, self.val_loader, fn)
-            t_in, t_out = self._eval_loader(state, self.train_loader, fn)
+            v_in, v_out = self._eval_loader(state, self.val_loader, fn, off)
+            t_in, t_out = self._eval_loader(state, self.train_loader, fn, off)
             metrics.update(
                 {
                     f"val_mse_in_t_{tag}": v_in,

@@ -18,9 +18,12 @@ Counterpart of ``enf_pde_tpu/train/meta_sgd.py`` (reference ``pde_trainer.py``):
 The decoder's and the ODE's parameters live in their modules; the rest of the state
 is a dict ``{'autodecoder': shared init latents, 'meta_sgd_lrs': inner learning rates,
 'opt': optimizer states}``. The steps update it (and the modules) in place and return
-``(loss, state)``. Random draws (frame choice, inner-loop masks, the rollout loss's
-coordinate subsets, the dp subsets) come from the trainer's ``generator`` or are
-passed in (the parity tests hand in the JAX package's draws). The rollout is a
+``(loss, state)``. The train steps' random draws (frame choice, inner-loop masks, the
+rollout loss's coordinate subsets) come from the trainer's ``generator``; validation
+draws its masks and dp subsets from a generator of its own, seeded from the trainer's
+seed and the batch index, as JAX folds ``batch_idx`` into its key. So validating does
+not move the training draws, and two evaluations of one state agree. Any draw may be
+passed in instead (the parity tests hand in the JAX package's draws). The rollout is a
 forward Python loop without rematerialisation.
 """
 
@@ -30,6 +33,7 @@ import contextlib
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from enf_pde_tpu_torch.builders import coordinate_system_for, decoder_backend
@@ -76,8 +80,9 @@ class MetaSGDTrainer:
         cfg: experiment config.
         decoder / ode_model: from ``build_models``; moved to ``device``.
         coords: the training grid [num_coords, coord_dim].
-        seed: seed of the generator that ``init_state`` draws the weights from, and of
-            ``generator``, which draws the steps' random subsets.
+        seed: seed of the generator that ``init_state`` draws the weights from, of
+            ``generator``, which draws the train steps' random subsets, and of the
+            validation draws (with the batch index).
         device: where the modules and the latents live (default the card).
     """
 
@@ -316,20 +321,30 @@ class MetaSGDTrainer:
 
     # ------------------------------------------------------------------ validation
 
+    def val_generator(self, batch_idx: int) -> torch.Generator:
+        """The generator of validation batch ``batch_idx``: a function of the trainer's
+        seed and the index only, never of the training draws."""
+        seed = np.random.SeedSequence([self.seed, batch_idx]).generate_state(1, np.uint64)[0]
+        return torch.Generator().manual_seed(int(seed))
+
     @torch.no_grad()
-    def val_step(self, state, trajectory, dp: float = 0.0, masks=None, keep=None):
+    def val_step(self, state, trajectory, dp: float = 0.0, masks=None, keep=None,
+                 batch_idx: int = 0):
         """Fit frame 0, roll out over the train + out horizon, decode every grid point.
 
         Returns (mse_in, mse_out) as device scalars: the MSE over the first
         ``traj_len_train`` frames and over the rest (0 when there is no rest).
-        ``dp`` > 0 fits on a random dp-fraction of the points (``keep``).
+        ``dp`` > 0 fits on a random dp-fraction of the points (``keep``). The draws
+        not passed in come from ``val_generator(batch_idx)``; ``TrainLoop`` passes
+        ``(epoch << 20) + batch``, as the JAX loop does.
         """
         cfg = self.cfg
         T_in = cfg.dataset.traj_len_train
         # The out horizon is clamped to the frames the data has (NS asks for 50 of 20).
         T_total = min(T_in + cfg.dataset.traj_len_out_horizon, trajectory.shape[1])
         trajectory = trajectory[:, :T_total]
-        fitted = self.fit_latents(state, trajectory[:, 0], masks=masks, dp=dp, keep=keep)
+        fitted = self.fit_latents(state, trajectory[:, 0], generator=self.val_generator(batch_idx),
+                                  masks=masks, dp=dp, keep=keep)
         recon = self.decode(self._rollout(latents_to_pose(fitted), T_total))
         recon = recon.reshape(trajectory.shape)
         mse_in = torch.mean((recon[:, :T_in] - trajectory[:, :T_in]) ** 2)

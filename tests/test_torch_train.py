@@ -314,3 +314,40 @@ def test_train_loop_run_writes_jax_metric_names(tmp_path):
     assert [r["phase"] for r in records if "phase" in r] == ["nef", "nef+ode", "ode"]
     assert all(np.isfinite(v) for r in records for k, v in r.items() if "mse" in k)
     assert loop.global_step == 6
+
+
+# ----------------------------------------------------------------- validation draws
+
+
+def test_validation_leaves_the_training_draws_alone(tmp_path):
+    """A run that validates every epoch trains exactly as a run that never validates."""
+    over = {"training.nef.train_until_epoch": 2, "training.ode.train_from_epoch": 1,
+            "training.ode.train_until_epoch": 3, "test.test_dp_interval": 1000,
+            "dataset.batch_size": BATCH}
+    data = smooth_trajectories(3 * BATCH, FRAMES, SIZE, seed=9)
+    epoch_mse = {}
+    for interval in (1, 1000):
+        cfg = port_config(**over, **{"test.test_interval": interval,
+                                     "logging.log_dir": str(tmp_path / str(interval))})
+        tr = MetaSGDTrainer(cfg, *build_models(cfg), planar_coords(SIZE, SIZE), seed=0, device="cpu")
+        TrainLoop(tr, [data[:BATCH], data[BATCH:2 * BATCH]], [data[2 * BATCH:]]).run(3)
+        records = [json.loads(ln) for ln in
+                   (tmp_path / str(interval) / "metrics.jsonl").read_text().splitlines()]
+        epoch_mse[interval] = [r["train_mse_epoch"] for r in records if "train_mse_epoch" in r]
+        assert any("val_mse_in_t" in r for r in records) == (interval == 1)
+    assert len(epoch_mse[1]) == 3
+    assert epoch_mse[1] == epoch_mse[1000]
+
+
+@pytest.mark.parametrize("dp", [0.0, 0.5])
+def test_val_step_is_a_function_of_state_and_batch(pair, dp):
+    """Two evaluations of one state at one (epoch, batch) agree, whatever ran between."""
+    _, _, tr, state, traj = pair
+    x = torch.from_numpy(traj)
+    batch_idx = (3 << 20) + 1
+    first = tr.val_step(state, x, dp=dp, batch_idx=batch_idx)
+    tr.val_step(state, x, dp=dp, batch_idx=batch_idx + 1)
+    torch.randperm(10, generator=tr.generator)  # a training draw in between
+    second = tr.val_step(state, x, dp=dp, batch_idx=batch_idx)
+    assert [float(v) for v in first] == [float(v) for v in second]
+    assert float(first[0]) > 0
