@@ -87,6 +87,7 @@ LOG_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_train"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernel's operand type
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores; K2's 3xTF32 products issue three per product
 
 
 def log(msg: str) -> None:
@@ -215,8 +216,9 @@ def check_grads(label: str, got, want) -> float:
     return err
 
 
-def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
-    """5. K2 against its plain version at the ode step's decode shape; its timing."""
+def k2_inputs(cfg, coords: np.ndarray, dev):
+    """K2's inputs at the ode step's decode shape (80 frames x 512 points, full width),
+    and a cotangent for each mode: ``(args, {with_tail: g})``."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     decoder, _ = build_models(cfg)
     reset_parameters(decoder, torch.Generator().manual_seed(SEED))
@@ -230,37 +232,63 @@ def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
     w = torch.full((b, Z, 1), 1.0, device=dev)
     with torch.no_grad():
         args = decoder.kernel_inputs(x, p, a, w)
-    errs, g_tail = [], None
+    g = {tail: torch.randn(b, M, cfg.nef.num_out if tail else H * D, generator=gen).to(dev)
+         for tail in (True, False)}
+    return args, g
+
+
+def k2_check(cfg, args, g, bwd=fused_decode_bwd) -> float:
+    """K2 (``bwd``) against its plain version in all four modes; the max abs error."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    errs = []
+    B, C = args[0].shape[0], args[0].shape[2]
     for tail in (True, False):
         kargs = args if tail else (*args[:7], ())
-        g = torch.randn(b, M, cfg.nef.num_out if tail else H * D, generator=gen).to(dev)
-        g_tail = g if tail else g_tail
         for wg in (False, True):
-            got = fused_decode_bwd(*kargs, g, H, D, wg)
-            want = fused_decode_bwd_plain(*kargs, g, H, D, wg)
+            got = bwd(*kargs, g[tail], H, D, wg)
+            want = fused_decode_bwd_plain(*kargs, g[tail], H, D, wg)
             errs.append(check_grads(f"K2 {'tail' if tail else 'no-tail'} "
-                                    f"{'with' if wg else 'without'} weight grads b={b} c={M}",
+                                    f"{'with' if wg else 'without'} weight grads b={B} c={C}",
                                     got, want))
     torch.cuda.synchronize()
+    return max(errs)
+
+
+def k2_bounds(cfg, args, g, wg: bool) -> dict:
+    """The least times of K2's work on the card (tail mode): f32 on the CUDA cores by
+    operations, 3xTF32 on the tensor cores (3 products per product), and by bytes."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     inv, ws, tws = args[0], args[6], args[7]
     B, Zl, C, I = inv.shape
     hid, hidm = ws[1].shape[0], ws[8].shape[0]
+    out = fused_decode_bwd_plain(*args, g, H, D, wg)
+    grads = [t for t in (*out[:6], *out[6], *out[7]) if t is not None]
+    flops = decode_bwd_flops_per_point(H, D, hid, hidm, Zl, I, cfg.nef.num_out, wg) * B * C
+    moved = nbytes(args[:6]) + nbytes(ws) + nbytes(tws) + nbytes([g]) + nbytes(grads)
+    b_bytes, b_ops = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return dict(flops=flops, moved=moved, bytes_ms=b_bytes, f32_ms=b_ops,
+                tc_ms=3 * flops / PEAK_TF32_FLOPS * 1e3, bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations")
+
+
+def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
+    """5. K2 against its plain version at the ode step's decode shape; its timing."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    args, g = k2_inputs(cfg, coords, dev)
+    max_err = k2_check(cfg, args, g)
+    B, Zl, C = args[0].shape[:3]
     timing = {}
     for wg in (False, True):
-        k_ms = cuda_ms(lambda: fused_decode_bwd(*args, g_tail, H, D, wg), iters=10)
-        p_ms = cuda_ms(lambda: fused_decode_bwd_plain(*args, g_tail, H, D, wg), iters=3, warmup=1)
-        out = fused_decode_bwd(*args, g_tail, H, D, wg)
-        grads = [t for t in (*out[:6], *out[6], *out[7]) if t is not None]
-        flops = decode_bwd_flops_per_point(H, D, hid, hidm, Zl, I, cfg.nef.num_out, wg) * B * C
-        moved = nbytes(args[:6]) + nbytes(ws) + nbytes(tws) + nbytes([g_tail]) + nbytes(grads)
-        b_bytes, b_ops = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-        timing[wg] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(b_bytes, b_ops),
-                          bound_by="bytes" if b_bytes >= b_ops else "operations")
+        k_ms = cuda_ms(lambda: fused_decode_bwd(*args, g[True], H, D, wg), iters=10)
+        p_ms = cuda_ms(lambda: fused_decode_bwd_plain(*args, g[True], H, D, wg), iters=3, warmup=1)
+        bd = k2_bounds(cfg, args, g[True], wg)
+        timing[wg] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
         log(f"[timing] K2 {'with' if wg else 'without'} weight grads, tail, b={B} z={Zl} c={C}: "
-            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s f32); plain {p_ms:.4f} ms; bound "
-            f"{timing[wg]['bound_ms']:.4f} ms by {timing[wg]['bound_by']} (f32 {b_ops:.4f} ms, "
-            f"bytes {b_bytes:.4f} ms: {flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB)")
-    return {"max_abs_err": max(errs), "timing": timing}
+            f"{k_ms:.4f} ms ({bd['flops'] / k_ms / 1e9:.2f} TFLOP/s); plain {p_ms:.4f} ms; bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (f32 CUDA cores {bd['f32_ms']:.4f} ms, "
+            f"3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
+            f"{bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} MB)")
+    return {"max_abs_err": max_err, "timing": timing}
 
 
 def make_trainer(cfg, coords: np.ndarray) -> MetaSGDTrainer:
@@ -353,7 +381,7 @@ def train_phase(coords: np.ndarray, dev) -> dict:
             f"(samples {', '.join(f'{v:.2f}' for v in samples)})")
     log(f"[train] peak memory of the run and the timed steps: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"k1": k1, "k2": k2}
+    return {"k1": k1, "k2": k2, "medians": medians}
 
 
 def main() -> int:
@@ -495,6 +523,10 @@ def main() -> int:
     max_errs.append(step_parity_phase(cfg, coords, dev))
     torch.cuda.empty_cache()
     train = train_phase(coords, dev)
+    for wg, step in ((False, "ode"), (True, "dual")):
+        k_ms, step_ms = k2["timing"][wg]["ms"], train["medians"][step]
+        log(f"[timing] K2 {'with' if wg else 'without'} weight grads {k_ms:.4f} ms is "
+            f"{100 * k_ms / step_ms:.1f} % of the {step} step's median {step_ms:.2f} ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [{

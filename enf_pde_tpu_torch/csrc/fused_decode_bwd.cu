@@ -52,6 +52,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -66,6 +67,14 @@ constexpr int KC = 32;                // rows of W per staging step
 // column, and 129 puts its 32 lanes in 32 banks (128 would put them all in one).
 constexpr int WS_LD = SLAB + 1;
 constexpr int WB = 64;                // wgrad output block edge
+// Tensor-core products (3xTF32 mma.sync.m16n8k8): a 32-row tile is two m16 tiles; the 8
+// warps split the N columns, NT n8 tiles each.
+constexpr int TC_KC = 16;             // k per staging step
+constexpr int XS_LD = TC_KC + 4;      // split-X row stride in float2: fragment loads hit 16 distinct 8-byte banks
+constexpr int WT_LD = TC_KC + 4;      // transposed W staging Ws[n][k] row stride: 20 g + t covers 32 banks
+constexpr int TC_SLAB = 256;          // widest slab (NT = 4)
+constexpr int TC_W = (TC_KC * (TC_SLAB + 8) > TC_SLAB * WT_LD) ? TC_KC * (TC_SLAB + 8) : TC_SLAB * WT_LD;
+constexpr int STAGE = TC_W + 2 * TILE * XS_LD;  // floats of the staging area
 constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 34;
@@ -112,7 +121,7 @@ inline bool make_dims(const int* v, Dims& d) {
   int w = d.HD > d.HH ? d.HD : d.HH;
   w = w > d.hid ? w : d.hid;
   w = w > d.out ? w : d.out;
-  d.W = pad4(w);
+  d.W = (w + 31) / 32 * 32 + 16;  // row stride 16 mod 32: a quarter warp's float4 reads of two rows hit distinct banks
   d.ntiles = (d.C + TILE - 1) / TILE;
   int bpr = (kTargetBlocks + d.B - 1) / d.B;
   bpr = bpr < 1 ? 1 : (bpr > d.ntiles ? d.ntiles : bpr);
@@ -179,7 +188,7 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
 // W streams through the staging buffer Ws. Any K (float4 reads of X when K % 4 == 0
 // and ldx % 4 == 0). Every thread of the block calls it; it starts with a barrier.
 template <int ACT, bool TRANS>
-__device__ __noinline__ void dense(const float* X, int ldx, int K, const float* __restrict__ W, int N,
+__device__ __noinline__ void dense_fma(const float* X, int ldx, int K, const float* __restrict__ W, int N,
                       const float* __restrict__ bias, float* Y, int ldy, float* Ws) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int r0 = (tid >> 5) * RT;
@@ -253,6 +262,187 @@ __device__ __noinline__ void dense(const float* X, int ldx, int K, const float* 
     }
   }
   __syncthreads();
+}
+
+// ---- 3xTF32 on the tensor cores -----------------------------------------------------
+// x = big + small + e with big = tf32(x), small = tf32(x - big): |x - big| <= 2^-11 |x| and
+// |e| <= 2^-11 |x - big| <= 2^-22 |x|. A product a b = ab bb + ab bs + as bb + as bs + O(2^-22
+// |a b|); dropping as bs (<= 2^-22 |a b|) leaves each product within about 2^-21 of the f32
+// product, and the mma accumulates in f32: the sums keep f32-level error.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const uint32_t big = to_tf32(x);
+  return make_float2(__uint_as_float(big), __uint_as_float(to_tf32(x - __uint_as_float(big))));
+}
+
+// d += a b on one m16n8k8 tile. Fragments (lane = 4 g + t): a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k = t, n = g), b1 (t + 4, g); d0, d1 (g, 2t, 2t + 1),
+// d2, d3 (g + 8, 2t, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b at f32 accuracy: the two cross terms first, then big x big. The tensor core
+// aligns its addends to the largest and truncates, so a long sum kept in d drifts toward
+// zero by up to an ulp per mma; callers give it a fresh d per k step of 8 and add that into
+// an f32 register sum (round to nearest).
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_big, const uint32_t* a_small,
+                                           const uint32_t* b_big, const uint32_t* b_small) {
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_big, b_big);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Y[t, n] = act(sum_k X[t, k] * W(k, n) + bias[n]) for the TILE rows on the tensor cores,
+// W(k, n) = W[k * N + n] or, with TRANS, W[n * K + k]. Per step of TC_KC: the block splits
+// the X chunk once into (big, small) pairs (Xs [TILE][XS_LD] float2) and stages the W chunk
+// (Ws[k][n], row stride SLAB + 8, or transposed Ws[n][k], row stride WT_LD: either way a
+// B-fragment load hits 32 banks); each warp then runs its 2 x NT tiles. Ragged K and N are
+// zero-padded in the staging. Every thread of the block calls it; it starts with a barrier.
+template <int ACT, bool TRANS, int NT>
+__device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const float* __restrict__ W, int N,
+                                      const float* __restrict__ bias, float* Y, int ldy, float* S) {
+  constexpr int WN = 8 * NT, SLAB = WARPS * WN, WS_LD = SLAB + 8;
+  static_assert(SLAB <= TC_SLAB, "slab wider than the staging buffer");
+  float* Ws = S;
+  float2* Xs = reinterpret_cast<float2*>(S + TC_W);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool xvec = K % 4 == 0 && ldx % 4 == 0 && aligned16(X);
+  const bool wvec = (TRANS ? K % 4 == 0 : N % 4 == 0) && aligned16(W);
+  for (int n_base = 0; n_base < N; n_base += SLAB) {
+    const int ncols = min(SLAB, N - n_base);
+    const int wn0 = warp * WN;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+    for (int k0 = 0; k0 < K; k0 += TC_KC) {
+      const int kc = min(TC_KC, K - k0);
+      __syncthreads();  // earlier readers of Ws / Xs (and writers of X) are done
+      if (xvec && kc == TC_KC) {
+        for (int idx = tid; idx < TILE * TC_KC / 4; idx += THREADS) {
+          const int r = idx / (TC_KC / 4), q = idx - r * (TC_KC / 4);
+          const float4 v = *reinterpret_cast<const float4*>(X + r * ldx + k0 + 4 * q);
+          const float2 a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z), e = split_tf32(v.w);
+          float4* dst = reinterpret_cast<float4*>(Xs + r * XS_LD + 4 * q);
+          dst[0] = make_float4(a.x, a.y, b.x, b.y);
+          dst[1] = make_float4(c.x, c.y, e.x, e.y);
+        }
+      } else {
+        for (int idx = tid; idx < TILE * TC_KC; idx += THREADS) {
+          const int r = idx / TC_KC, kk = idx - r * TC_KC;
+          Xs[r * XS_LD + kk] = split_tf32(kk < kc ? X[r * ldx + k0 + kk] : 0.0f);
+        }
+      }
+      if (TRANS) {
+        if (wvec && kc == TC_KC) {
+          for (int idx = tid; idx < SLAB * TC_KC / 4; idx += THREADS) {
+            const int n = idx / (TC_KC / 4), q = idx - n * (TC_KC / 4);
+            const float4 v = n < ncols ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(n_base + n) * K + k0) + q)
+                                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            *reinterpret_cast<float4*>(Ws + n * WT_LD + 4 * q) = v;
+          }
+        } else {
+          for (int idx = tid; idx < SLAB * TC_KC; idx += THREADS) {
+            const int n = idx / TC_KC, kk = idx - n * TC_KC;
+            Ws[n * WT_LD + kk] = n < ncols && kk < kc ? __ldg(W + (size_t)(n_base + n) * K + k0 + kk) : 0.0f;
+          }
+        }
+      } else {
+        if (wvec && ncols == SLAB) {
+          for (int idx = tid; idx < TC_KC * SLAB / 4; idx += THREADS) {
+            const int kk = idx / (SLAB / 4), q = idx - kk * (SLAB / 4);
+            const float4 v = kk < kc ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(k0 + kk) * N + n_base) + q)
+                                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            *reinterpret_cast<float4*>(Ws + kk * WS_LD + 4 * q) = v;
+          }
+        } else {
+          for (int idx = tid; idx < TC_KC * SLAB; idx += THREADS) {
+            const int kk = idx / SLAB, n = idx - kk * SLAB;
+            Ws[kk * WS_LD + n] = n < ncols && kk < kc ? __ldg(W + (size_t)(k0 + kk) * N + n_base + n) : 0.0f;
+          }
+        }
+      }
+      __syncthreads();
+      if (wn0 < ncols) {
+#pragma unroll
+        for (int ks = 0; ks < TC_KC; ks += 8) {
+          uint32_t ab[2][4], as[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const float2* xr = Xs + (mi * 16 + g) * XS_LD + ks + tq;
+            const float2 v[4] = {xr[0], xr[8 * XS_LD], xr[4], xr[8 * XS_LD + 4]};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ab[mi][e] = __float_as_uint(v[e].x);
+              as[mi][e] = __float_as_uint(v[e].y);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int n = wn0 + 8 * j + g;
+            const float w0 = TRANS ? Ws[n * WT_LD + ks + tq] : Ws[(ks + tq) * WS_LD + n];
+            const float w1 = TRANS ? Ws[n * WT_LD + ks + tq + 4] : Ws[(ks + tq + 4) * WS_LD + n];
+            const float2 s0 = split_tf32(w0), s1 = split_tf32(w1);
+            const uint32_t bb[2] = {__float_as_uint(s0.x), __float_as_uint(s1.x)};
+            const uint32_t bs[2] = {__float_as_uint(s0.y), __float_as_uint(s1.y)};
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_3xtf32(part, ab[mi], as[mi], bb, bs);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[e];
+            }
+          }
+        }
+      }
+    }
+    if (wn0 < ncols) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = wn0 + 8 * j + 2 * tq + e;
+          if (n >= ncols) continue;
+          const float bn = bias ? __ldg(bias + n_base + n) : 0.0f;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float v = acc[mi][j][2 * h + e] + bn;
+              Y[(mi * 16 + g + 8 * h) * ldy + n_base + n] = ACT == ACT_RELU ? fmaxf(v, 0.0f) : v;
+            }
+        }
+    }
+  }
+  __syncthreads();
+}
+
+// The dense layers and input gradients of K2: the forward layers on the tensor cores.
+template <int ACT, bool TRANS>
+__device__ __forceinline__ void dense(const float* X, int ldx, int K, const float* __restrict__ W, int N,
+                                      const float* __restrict__ bias, float* Y, int ldy, float* S) {
+  if (TRANS)
+    dense_fma<ACT, TRANS>(X, ldx, K, W, N, bias, Y, ldy, S);
+  else if (N > 8 * WARPS * 2)
+    dense_tc<ACT, TRANS, 4>(X, ldx, K, W, N, bias, Y, ldy, S);
+  else
+    dense_tc<ACT, TRANS, 2>(X, ldx, K, W, N, bias, Y, ldy, S);
 }
 
 // dW[k, n] += sum_t X[t, k] * dY[t, n] over the TILE rows (dW [K, N] row-major, block
@@ -428,8 +618,8 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
   const Dims& d = P.d;
   const int Z = d.Z, H = d.H, I = d.I, hid = d.hid, D = d.D, hidm = d.hidm;
   const int HD = d.HD, HH = d.HH, Wd = d.W, half = hid / 2;
-  float* Ws = smem;                          // [KC][WS_LD] staging, also wgrad's operands
-  float* GA = Ws + KC * WS_LD;               // [TILE][W] gradient ping-pong buffers: the X
+  float* Ws = smem;                          // [STAGE] staging, also wgrad's operands
+  float* GA = Ws + STAGE;                    // [TILE][W] gradient ping-pong buffers: the X
   float* GB = GA + TILE * Wd;                // of every dX = dY W^T, the dY of every wgrad
   float* s_prob = GB + TILE * Wd;            // [Z][TILE][H] softmax weights
   float* s_dlog = s_prob + Z * TILE * H;     // [Z][TILE][H] logit gradients
@@ -681,8 +871,8 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 }
 
 size_t smem_bytes(const Dims& d) {
-  static_assert(2 * TILE * WB <= KC * WS_LD, "wgrad's operand tiles must fit in the staging buffer");
-  return sizeof(float) * ((size_t)KC * WS_LD + 2 * (size_t)TILE * d.W + 2 * (size_t)d.Z * TILE * d.H +
+  static_assert(2 * TILE * WB <= STAGE && KC * WS_LD <= STAGE, "operand tiles must fit in the staging buffer");
+  return sizeof(float) * ((size_t)STAGE + 2 * (size_t)TILE * d.W + 2 * (size_t)d.Z * TILE * d.H +
                           2 * (size_t)TILE * d.I);
 }
 

@@ -42,7 +42,8 @@ def _nvcc() -> str:
 
 
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` into a shared library unless it is already built.
+    """Compile ``csrc/<source>`` (or ``source``, when it is an absolute path) into a
+    shared library unless it is already built.
 
     Returns the library's path. The compiler's ``-Xptxas -v`` report (registers,
     shared memory and spills per kernel) is kept beside it as ``<name>.ptxas.txt``.

@@ -397,8 +397,9 @@ def fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
     return (*dlat, tuple(dwts[:len(ws)]), tuple(dwts[len(ws):]))
 
 
-def _bwd_lib():
-    lib = cuda_lib.load(BWD_KERNEL_SOURCE)
+def _bwd_lib(source: str = BWD_KERNEL_SOURCE):
+    """K2's library, bound; ``source`` may name another build of the same C interface."""
+    lib = cuda_lib.load(source)
     lib.fused_decode_bwd_sizes.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_decode_bwd_sizes.restype = ctypes.c_int
@@ -412,12 +413,12 @@ def _bwd_lib():
 
 
 def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
-                weight_grads: bool):
+                weight_grads: bool, lib=None):
     H, D = num_heads, head_dim
     dev = inv.device
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
     _check("g", g, (B, C, out_dim), dev)
-    lib = _bwd_lib()
+    lib = lib or _bwd_lib()
     dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail), int(weight_grads)]
     c_dims = (ctypes.c_int * len(dims))(*dims)
     sizes = (ctypes.c_longlong * 3)()
