@@ -59,13 +59,6 @@ namespace {
 constexpr int TILE = 32;              // coordinates per tile
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int RT = TILE / WARPS;      // rows per warp in a dense layer
-constexpr int CT = 4;                 // columns per lane: lane + 32 * j
-constexpr int SLAB = 32 * CT;         // columns of W per pass
-constexpr int KC = 32;                // rows of W per staging step
-// Row stride of the staging buffer: the transposed staging (dX = dY W^T) writes a
-// column, and 129 puts its 32 lanes in 32 banks (128 would put them all in one).
-constexpr int WS_LD = SLAB + 1;
 constexpr int WB = 64;                // wgrad output block edge
 // Tensor-core products (3xTF32 mma.sync.m16n8k8): a 32-row tile is two m16 tiles; the 8
 // warps split the N columns, NT n8 tiles each.
@@ -181,89 +174,6 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
   return 0.5f * (1.0f + th) + 0.5f * x * (1.0f - th * th) * k * (1.0f + 3.0f * 0.044715f * x * x);
 }
 
-// Y[t, n] = act(sum_k X[t, k] * W(k, n) + bias[n]) for the TILE rows, where W(k, n) is
-// W[k * N + n] (a forward layer, W [K, N]) or, with TRANS, W[n * K + k] (an input
-// gradient dX = dY W^T of a forward layer W [N, K]). bias may be null. X and Y are
-// block-private rows (shared or global workspace) with row strides ldx / ldy, X != Y;
-// W streams through the staging buffer Ws. Any K (float4 reads of X when K % 4 == 0
-// and ldx % 4 == 0). Every thread of the block calls it; it starts with a barrier.
-template <int ACT, bool TRANS>
-__device__ __noinline__ void dense_fma(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                      const float* __restrict__ bias, float* Y, int ldy, float* Ws) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int r0 = (tid >> 5) * RT;
-  const bool vec = (K % 4 == 0) && (ldx % 4 == 0);
-  for (int n_base = 0; n_base < N; n_base += SLAB) {
-    const int ncols = min(SLAB, N - n_base);
-    float acc[RT][CT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      const int kc = min(KC, K - k0);
-      __syncthreads();  // earlier readers of Ws (and writers of X) are done
-      if (TRANS) {
-        for (int idx = tid; idx < kc * SLAB; idx += THREADS) {
-          const int n = idx / kc, kk = idx - n * kc;  // consecutive threads: consecutive k
-          Ws[kk * WS_LD + n] = n < ncols ? __ldg(W + (size_t)(n_base + n) * K + k0 + kk) : 0.0f;
-        }
-      } else {
-        for (int idx = tid; idx < kc * SLAB; idx += THREADS) {
-          const int kk = idx / SLAB, n = idx - kk * SLAB;
-          Ws[kk * WS_LD + n] = n < ncols ? __ldg(W + (size_t)(k0 + kk) * N + n_base + n) : 0.0f;
-        }
-      }
-      __syncthreads();
-      if (vec) {
-        for (int kk = 0; kk < kc; kk += 4) {
-          float4 xv[RT];
-#pragma unroll
-          for (int i = 0; i < RT; ++i)
-            xv[i] = *reinterpret_cast<const float4*>(X + (r0 + i) * ldx + k0 + kk);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float w[CT];
-#pragma unroll
-            for (int j = 0; j < CT; ++j) w[j] = Ws[(kk + q) * WS_LD + lane + 32 * j];
-#pragma unroll
-            for (int i = 0; i < RT; ++i) {
-              const float x = q == 0 ? xv[i].x : q == 1 ? xv[i].y : q == 2 ? xv[i].z : xv[i].w;
-#pragma unroll
-              for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
-            }
-          }
-        }
-      } else {
-        for (int kk = 0; kk < kc; ++kk) {
-          float w[CT];
-#pragma unroll
-          for (int j = 0; j < CT; ++j) w[j] = Ws[kk * WS_LD + lane + 32 * j];
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            const float x = X[(r0 + i) * ldx + k0 + kk];
-#pragma unroll
-            for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int n = lane + 32 * j;
-      if (n < ncols) {
-        const float bn = bias ? __ldg(bias + n_base + n) : 0.0f;
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const float v = acc[i][j] + bn;
-          Y[(r0 + i) * ldy + n_base + n] = ACT == ACT_RELU ? fmaxf(v, 0.0f) : v;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
 // ---- 3xTF32 on the tensor cores -----------------------------------------------------
 // x = big + small + e with big = tf32(x), small = tf32(x - big): |x - big| <= 2^-11 |x| and
 // |e| <= 2^-11 |x - big| <= 2^-22 |x|. A product a b = ab bb + ab bs + as bb + as bs + O(2^-22
@@ -304,26 +214,75 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_big, cons
 
 __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// One staged k chunk of a dense layer on a warp's 2 x NT tiles: A fragments from the split
+// X chunk, B fragments from the W chunk, split here; each k step of 8 into a fresh
+// accumulator added into acc.
+template <bool TRANS, int NT, int WS_LD>
+__device__ __forceinline__ void dense_chunk(float (&acc)[2][NT][4], const float2* Xs, const float* Ws,
+                                            int wn0, int g, int tq) {
+#pragma unroll
+  for (int ks = 0; ks < TC_KC; ks += 8) {
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float2* xr = Xs + (mi * 16 + g) * XS_LD + ks + tq;
+      const float2 v[4] = {xr[0], xr[8 * XS_LD], xr[4], xr[8 * XS_LD + 4]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ab[mi][e] = __float_as_uint(v[e].x);
+        as[mi][e] = __float_as_uint(v[e].y);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = wn0 + 8 * j + g;
+      const float w0 = TRANS ? Ws[n * WT_LD + ks + tq] : Ws[(ks + tq) * WS_LD + n];
+      const float w1 = TRANS ? Ws[n * WT_LD + ks + tq + 4] : Ws[(ks + tq + 4) * WS_LD + n];
+      const float2 s0 = split_tf32(w0), s1 = split_tf32(w1);
+      const uint32_t bb[2] = {__float_as_uint(s0.x), __float_as_uint(s1.x)};
+      const uint32_t bs[2] = {__float_as_uint(s0.y), __float_as_uint(s1.y)};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_3xtf32(part, ab[mi], as[mi], bb, bs);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[e];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_split4(float2* dst, float4 v) {
+  const float2 a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z), e = split_tf32(v.w);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  d4[0] = make_float4(a.x, a.y, b.x, b.y);
+  d4[1] = make_float4(c.x, c.y, e.x, e.y);
+}
+
 // Y[t, n] = act(sum_k X[t, k] * W(k, n) + bias[n]) for the TILE rows on the tensor cores,
 // W(k, n) = W[k * N + n] or, with TRANS, W[n * K + k]. Per step of TC_KC: the block splits
 // the X chunk once into (big, small) pairs (Xs [TILE][XS_LD] float2) and stages the W chunk
 // (Ws[k][n], row stride SLAB + 8, or transposed Ws[n][k], row stride WT_LD: either way a
-// B-fragment load hits 32 banks); each warp then runs its 2 x NT tiles. Ragged K and N are
-// zero-padded in the staging. Every thread of the block calls it; it starts with a barrier.
+// B-fragment load hits 32 banks); each warp then runs its 2 x NT tiles. When the shapes
+// allow 16-byte loads, the next chunk's global loads are issued before this chunk's
+// products, so their latency hides behind the tensor cores; ragged K and N take a plain
+// path that zero-pads the staging. Every thread of the block calls it; it starts with a
+// barrier.
 template <int ACT, bool TRANS, int NT>
 __device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const float* __restrict__ W, int N,
                                       const float* __restrict__ bias, float* Y, int ldy, float* S) {
   constexpr int WN = 8 * NT, SLAB = WARPS * WN, WS_LD = SLAB + 8;
-  static_assert(SLAB <= TC_SLAB, "slab wider than the staging buffer");
+  constexpr int WV = SLAB * TC_KC / 4 / THREADS;  // float4s of W a thread stages per chunk
+  static_assert(SLAB <= TC_SLAB && WV * 4 * THREADS == SLAB * TC_KC, "staging shape");
   float* Ws = S;
   float2* Xs = reinterpret_cast<float2*>(S + TC_W);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const bool xvec = K % 4 == 0 && ldx % 4 == 0 && aligned16(X);
-  const bool wvec = (TRANS ? K % 4 == 0 : N % 4 == 0) && aligned16(W);
+  const int wn0 = warp * WN;
+  const bool fast = K % TC_KC == 0 && ldx % 4 == 0 && aligned16(X) && aligned16(W) &&
+                    (TRANS ? true : N % SLAB == 0);
   for (int n_base = 0; n_base < N; n_base += SLAB) {
     const int ncols = min(SLAB, N - n_base);
-    const int wn0 = warp * WN;
     float acc[2][NT][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -331,85 +290,60 @@ __device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const floa
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += TC_KC) {
-      const int kc = min(TC_KC, K - k0);
-      __syncthreads();  // earlier readers of Ws / Xs (and writers of X) are done
-      if (xvec && kc == TC_KC) {
-        for (int idx = tid; idx < TILE * TC_KC / 4; idx += THREADS) {
-          const int r = idx / (TC_KC / 4), q = idx - r * (TC_KC / 4);
-          const float4 v = *reinterpret_cast<const float4*>(X + r * ldx + k0 + 4 * q);
-          const float2 a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z), e = split_tf32(v.w);
-          float4* dst = reinterpret_cast<float4*>(Xs + r * XS_LD + 4 * q);
-          dst[0] = make_float4(a.x, a.y, b.x, b.y);
-          dst[1] = make_float4(c.x, c.y, e.x, e.y);
+    if (fast) {
+      // Thread tid stages X float4 (r, q) = (tid / 4, tid % 4) (tid < 128) and W float4s
+      // tid + i * THREADS: TRANS (n, q) = (idx / 4, idx % 4), else (kk, q) = (idx / (SLAB / 4), ...).
+      const int xr = tid >> 2, xq = tid & 3;
+      const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 xv = zero4, wv[WV];
+      auto load = [&](int k0) {
+        if (tid < TILE * TC_KC / 4) xv = *reinterpret_cast<const float4*>(X + xr * ldx + k0 + 4 * xq);
+#pragma unroll
+        for (int i = 0; i < WV; ++i) {
+          const int idx = tid + i * THREADS;
+          if (TRANS) {
+            const int n = idx >> 2, q = idx & 3;
+            wv[i] = n < ncols ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(n_base + n) * K + k0) + q) : zero4;
+          } else {
+            const int kk = idx / (SLAB / 4), q = idx % (SLAB / 4);
+            wv[i] = __ldg(reinterpret_cast<const float4*>(W + (size_t)(k0 + kk) * N + n_base) + q);
+          }
         }
-      } else {
+      };
+      load(0);
+      for (int k0 = 0; k0 < K; k0 += TC_KC) {
+        __syncthreads();  // earlier readers of Ws / Xs (and writers of X) are done
+        if (tid < TILE * TC_KC / 4) store_split4(Xs + xr * XS_LD + 4 * xq, xv);
+#pragma unroll
+        for (int i = 0; i < WV; ++i) {
+          const int idx = tid + i * THREADS;
+          float* dst = TRANS ? Ws + (idx >> 2) * WT_LD + 4 * (idx & 3)
+                             : Ws + (idx / (SLAB / 4)) * WS_LD + 4 * (idx % (SLAB / 4));
+          *reinterpret_cast<float4*>(dst) = wv[i];
+        }
+        __syncthreads();
+        if (k0 + TC_KC < K) load(k0 + TC_KC);
+        if (wn0 < ncols) dense_chunk<TRANS, NT, WS_LD>(acc, Xs, Ws, wn0, g, tq);
+      }
+    } else {
+      for (int k0 = 0; k0 < K; k0 += TC_KC) {
+        const int kc = min(TC_KC, K - k0);
+        __syncthreads();
         for (int idx = tid; idx < TILE * TC_KC; idx += THREADS) {
           const int r = idx / TC_KC, kk = idx - r * TC_KC;
           Xs[r * XS_LD + kk] = split_tf32(kk < kc ? X[r * ldx + k0 + kk] : 0.0f);
         }
-      }
-      if (TRANS) {
-        if (wvec && kc == TC_KC) {
-          for (int idx = tid; idx < SLAB * TC_KC / 4; idx += THREADS) {
-            const int n = idx / (TC_KC / 4), q = idx - n * (TC_KC / 4);
-            const float4 v = n < ncols ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(n_base + n) * K + k0) + q)
-                                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            *reinterpret_cast<float4*>(Ws + n * WT_LD + 4 * q) = v;
-          }
-        } else {
-          for (int idx = tid; idx < SLAB * TC_KC; idx += THREADS) {
-            const int n = idx / TC_KC, kk = idx - n * TC_KC;
-            Ws[n * WT_LD + kk] = n < ncols && kk < kc ? __ldg(W + (size_t)(n_base + n) * K + k0 + kk) : 0.0f;
-          }
-        }
-      } else {
-        if (wvec && ncols == SLAB) {
-          for (int idx = tid; idx < TC_KC * SLAB / 4; idx += THREADS) {
-            const int kk = idx / (SLAB / 4), q = idx - kk * (SLAB / 4);
-            const float4 v = kk < kc ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(k0 + kk) * N + n_base) + q)
-                                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            *reinterpret_cast<float4*>(Ws + kk * WS_LD + 4 * q) = v;
-          }
-        } else {
-          for (int idx = tid; idx < TC_KC * SLAB; idx += THREADS) {
+        for (int idx = tid; idx < SLAB * TC_KC; idx += THREADS) {
+          const int a = idx / TC_KC, b = idx - a * TC_KC;  // TRANS: (n, kk); else (kk, n) below
+          if (TRANS) {
+            Ws[a * WT_LD + b] = a < ncols && b < kc ? __ldg(W + (size_t)(n_base + a) * K + k0 + b) : 0.0f;
+          } else {
             const int kk = idx / SLAB, n = idx - kk * SLAB;
             Ws[kk * WS_LD + n] = n < ncols && kk < kc ? __ldg(W + (size_t)(k0 + kk) * N + n_base + n) : 0.0f;
           }
         }
-      }
-      __syncthreads();
-      if (wn0 < ncols) {
-#pragma unroll
-        for (int ks = 0; ks < TC_KC; ks += 8) {
-          uint32_t ab[2][4], as[2][4];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const float2* xr = Xs + (mi * 16 + g) * XS_LD + ks + tq;
-            const float2 v[4] = {xr[0], xr[8 * XS_LD], xr[4], xr[8 * XS_LD + 4]};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              ab[mi][e] = __float_as_uint(v[e].x);
-              as[mi][e] = __float_as_uint(v[e].y);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int n = wn0 + 8 * j + g;
-            const float w0 = TRANS ? Ws[n * WT_LD + ks + tq] : Ws[(ks + tq) * WS_LD + n];
-            const float w1 = TRANS ? Ws[n * WT_LD + ks + tq + 4] : Ws[(ks + tq + 4) * WS_LD + n];
-            const float2 s0 = split_tf32(w0), s1 = split_tf32(w1);
-            const uint32_t bb[2] = {__float_as_uint(s0.x), __float_as_uint(s1.x)};
-            const uint32_t bs[2] = {__float_as_uint(s0.y), __float_as_uint(s1.y)};
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              mma_3xtf32(part, ab[mi], as[mi], bb, bs);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[e];
-            }
-          }
-        }
+        __syncthreads();
+        if (wn0 < ncols) dense_chunk<TRANS, NT, WS_LD>(acc, Xs, Ws, wn0, g, tq);
       }
     }
     if (wn0 < ncols) {
@@ -433,13 +367,11 @@ __device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const floa
   __syncthreads();
 }
 
-// The dense layers and input gradients of K2: the forward layers on the tensor cores.
+// Every dense layer and input gradient of K2: four n8 tiles a warp when N fills them.
 template <int ACT, bool TRANS>
 __device__ __forceinline__ void dense(const float* X, int ldx, int K, const float* __restrict__ W, int N,
                                       const float* __restrict__ bias, float* Y, int ldy, float* S) {
-  if (TRANS)
-    dense_fma<ACT, TRANS>(X, ldx, K, W, N, bias, Y, ldy, S);
-  else if (N > 8 * WARPS * 2)
+  if (N > 8 * WARPS * 2)
     dense_tc<ACT, TRANS, 4>(X, ldx, K, W, N, bias, Y, ldy, S);
   else
     dense_tc<ACT, TRANS, 2>(X, ldx, K, W, N, bias, Y, ldy, S);
@@ -871,7 +803,7 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 }
 
 size_t smem_bytes(const Dims& d) {
-  static_assert(2 * TILE * WB <= STAGE && KC * WS_LD <= STAGE, "operand tiles must fit in the staging buffer");
+  static_assert(2 * TILE * WB <= STAGE, "wgrad's operand tiles must fit in the staging buffer");
   return sizeof(float) * ((size_t)STAGE + 2 * (size_t)TILE * d.W + 2 * (size_t)d.Z * TILE * d.H +
                           2 * (size_t)TILE * d.I);
 }
