@@ -59,7 +59,6 @@ namespace {
 constexpr int TILE = 32;              // coordinates per tile
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int WB = 64;                // wgrad output block edge
 // Tensor-core products (3xTF32 mma.sync.m16n8k8): a 32-row tile is two m16 tiles; the 8
 // warps split the N columns, NT n8 tiles each.
 constexpr int TC_KC = 16;             // k per staging step
@@ -84,7 +83,7 @@ struct Dims {
   int HD, HH, W;      // H*D, H*hidm, widest gradient row (padded)
   int ntiles, tpb, bpr;  // tiles per row, tiles per block, blocks per row
   // Per-block workspace offsets (floats), each a [TILE][width] buffer (or Z of them).
-  long long o_fq, o_hq, o_fv, o_hv, o_u, o_t, o_pre, o_nn, o_vm, o_rt, o_rm;
+  long long o_fq, o_hq, o_fv, o_hv, o_u, o_t, o_dpre, o_pre, o_nn, o_vm, o_rt, o_rm;
   long long o_y, o_dy, o_y1, o_q1, o_t1, o_q2, o_y2, o_q3, o_h1, o_q4, o_h2, o_rt1;
   long long work;     // floats per block
   // Partial / output layout: per-row sections then the weights.
@@ -127,7 +126,9 @@ inline bool make_dims(const int* v, Dims& d) {
   auto take = [&](long long n) { long long r = o; o += (n + 3) / 4 * 4; return r; };
   d.o_fq = take(Z * T * d.hid); d.o_hq = take(Z * T * d.hid);
   d.o_fv = take(Z * T * d.hid); d.o_hv = take(Z * T * d.hid);
-  d.o_u = take(Z * T * d.hid);  d.o_t = take(Z * T * d.hid);
+  d.o_u = take(Z * T * d.hid);
+  // t and dpre of every tile of the block: dG and dc contract over all its rows at its end.
+  d.o_t = take(Z * d.tpb * T * d.hid); d.o_dpre = take(Z * d.tpb * T * d.HH);
   d.o_pre = take(Z * T * d.HH); d.o_nn = take(Z * T * d.HH);
   d.o_vm = take(Z * T * d.HD);
   d.o_rt = take(Z * T); d.o_rm = take(Z * T * d.H);
@@ -377,59 +378,148 @@ __device__ __forceinline__ void dense(const float* X, int ldx, int K, const floa
     dense_tc<ACT, TRANS, 2>(X, ldx, K, W, N, bias, Y, ldy, S);
 }
 
-// dW[k, n] += sum_t X[t, k] * dY[t, n] over the TILE rows (dW [K, N] row-major, block
-// private), and db[n] += sum_t dY[t, n] when db is not null. Operand tiles of
-// TILE x 64 go through the staging buffer S (2 * TILE * WB floats).
-__device__ __noinline__ void wgrad(const float* X, int ldx, int K, const float* dY, int ldy, int N,
-                      float* dW, float* db, float* S) {
-  const int tid = threadIdx.x;
-  float* Xs = S;              // [TILE][WB]
-  float* Ys = S + TILE * WB;  // [TILE][WB]
-  const int kg = (tid / 16) * 4, ng = (tid % 16) * 4;
-  for (int kb = 0; kb < K; kb += WB) {
-    for (int nb = 0; nb < N; nb += WB) {
-      __syncthreads();
-      for (int idx = tid; idx < TILE * WB; idx += THREADS) {
-        const int t = idx / WB, j = idx - t * WB;
-        Xs[idx] = kb + j < K ? X[t * ldx + kb + j] : 0.0f;
-        Ys[idx] = nb + j < N ? dY[t * ldy + nb + j] : 0.0f;
-      }
-      __syncthreads();
-      float acc[4][4];
+// Staging of the row-contracting product: RC rows of an X block [RC][TN_M] split into
+// (big, small) pairs (row stride TN_M + 4 float2: A fragments read (r, m) with lanes
+// 68 t + g, 16 distinct 8-byte banks) and of a dY block [RC][TN_N] (row stride TN_N + 8:
+// B fragments hit 32 banks).
+constexpr int TN_RC = 16, TN_M = 64, TN_N = 128;
+constexpr int TN_XLD = TN_M + 4, TN_YLD = TN_N + 8;
+static_assert(2 * TN_RC * TN_XLD + TN_RC * TN_YLD <= STAGE, "row-product staging must fit");
+
+// out[m, n] (+)= sum_{r < R} X[r, m] * dY[r, n] for m < M, n < N on the tensor cores at f32
+// accuracy (ACC adds into out, else stores); out is block private, row stride ldo. Output
+// blocks of TN_M x TN_N; the 8 warps as 2 (m) x 4 (n), each 32 x 32 (2 x 4 tiles). Rows go
+// in chunks of TN_RC, the next chunk's global loads issued before this chunk's products
+// when the shapes allow 16-byte loads. Every thread of the block calls it.
+template <bool ACC>
+__device__ __noinline__ void tn_tc(const float* X, int ldx, const float* dY, int ldy, int R, int M, int N,
+                                   float* out, int ldo, float* S) {
+  float2* Xs = reinterpret_cast<float2*>(S);   // [TN_RC][TN_XLD]
+  float* Ys = S + 2 * TN_RC * TN_XLD;          // [TN_RC][TN_YLD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+  const bool fast = M % 4 == 0 && N % 4 == 0 && ldx % 4 == 0 && ldy % 4 == 0 && aligned16(X) && aligned16(dY);
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // Thread tid stages X float4 (r, q) = (tid / 16, tid % 16) and dY float4s idx = tid, tid + 256:
+  // (r, q) = (idx / 32, idx % 32).
+  const int xr = tid >> 4, xq = tid & 15;
+  for (int m0 = 0; m0 < M; m0 += TN_M) {
+    for (int n0 = 0; n0 < N; n0 += TN_N) {
+      float acc[2][4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-      for (int t = 0; t < TILE; ++t) {
-        const float4 xv = *reinterpret_cast<const float4*>(Xs + t * WB + kg);
-        const float4 yv = *reinterpret_cast<const float4*>(Ys + t * WB + ng);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w}, ys[4] = {yv.x, yv.y, yv.z, yv.w};
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+      float4 xv = zero4, yv[2] = {zero4, zero4};
+      auto load = [&](int r0) {
+        const int r = r0 + xr, m = m0 + 4 * xq;
+        xv = r < R && m < M ? *reinterpret_cast<const float4*>(X + (size_t)r * ldx + m) : zero4;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
-      }
+        for (int i = 0; i < 2; ++i) {
+          const int idx = tid + i * THREADS, rr = r0 + (idx >> 5), n = n0 + 4 * (idx & 31);
+          yv[i] = rr < R && n < N ? *reinterpret_cast<const float4*>(dY + (size_t)rr * ldy + n) : zero4;
+        }
+      };
+      if (fast) load(0);
+      for (int r0 = 0; r0 < R; r0 += TN_RC) {
+        __syncthreads();  // earlier readers of the staging (and writers of X, dY) are done
+        if (fast) {
+          store_split4(Xs + xr * TN_XLD + 4 * xq, xv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = kb + kg + i;
-        if (k >= K) continue;
+          for (int i = 0; i < 2; ++i) {
+            const int idx = tid + i * THREADS;
+            *reinterpret_cast<float4*>(Ys + (idx >> 5) * TN_YLD + 4 * (idx & 31)) = yv[i];
+          }
+        } else {
+          for (int idx = tid; idx < TN_RC * TN_M; idx += THREADS) {
+            const int r = idx / TN_M, m = idx - r * TN_M;
+            Xs[r * TN_XLD + m] = split_tf32(r0 + r < R && m0 + m < M ? X[(size_t)(r0 + r) * ldx + m0 + m] : 0.0f);
+          }
+          for (int idx = tid; idx < TN_RC * TN_N; idx += THREADS) {
+            const int r = idx / TN_N, n = idx - r * TN_N;
+            Ys[r * TN_YLD + n] = r0 + r < R && n0 + n < N ? dY[(size_t)(r0 + r) * ldy + n0 + n] : 0.0f;
+          }
+        }
+        __syncthreads();
+        if (fast && r0 + TN_RC < R) load(r0 + TN_RC);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = nb + ng + j;
-          if (n < N) dW[(size_t)k * N + n] += acc[i][j];
+        for (int ks = 0; ks < TN_RC; ks += 8) {
+          uint32_t ab[2][4], as[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const float2* xr2 = Xs + (ks + tq) * TN_XLD + wm + 16 * mi + g;
+            const float2 v[4] = {xr2[0], xr2[8], xr2[4 * TN_XLD], xr2[4 * TN_XLD + 8]};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ab[mi][e] = __float_as_uint(v[e].x);
+              as[mi][e] = __float_as_uint(v[e].y);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float* yr = Ys + (ks + tq) * TN_YLD + wn + 8 * j + g;
+            const float2 s0 = split_tf32(yr[0]), s1 = split_tf32(yr[4 * TN_YLD]);
+            const uint32_t bb[2] = {__float_as_uint(s0.x), __float_as_uint(s1.x)};
+            const uint32_t bs[2] = {__float_as_uint(s0.y), __float_as_uint(s1.y)};
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_3xtf32(part, ab[mi], as[mi], bb, bs);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[e];
+            }
+          }
         }
       }
+      // With ACC, every old value is read before any is written: a load and a store
+      // through one pointer would otherwise run one round trip at a time.
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm + 16 * mi + g + 8 * h;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = n0 + wn + 8 * j + 2 * tq + e;
+              if (ACC && m < M && n < N) acc[mi][j][2 * h + e] += out[(size_t)m * ldo + n];
+            }
+        }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm + 16 * mi + g + 8 * h;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = n0 + wn + 8 * j + 2 * tq + e;
+              if (m < M && n < N) out[(size_t)m * ldo + n] = acc[mi][j][2 * h + e];
+            }
+        }
     }
   }
+  __syncthreads();
+}
+
+// A weight gradient over the tile: dW[k, n] += sum_t X[t, k] * dY[t, n] (dW [K, N], block
+// private) and db[n] += sum_t dY[t, n] when db is not null.
+__device__ void wgrad(const float* X, int ldx, int K, const float* dY, int ldy, int N,
+                      float* dW, float* db, float* S) {
+  tn_tc<true>(X, ldx, dY, ldy, TILE, K, N, dW, N, S);
   if (db) {
-    __syncthreads();
-    for (int n = tid; n < N; n += THREADS) {
+    for (int n = threadIdx.x; n < N; n += THREADS) {
       float s = 0.0f;
       for (int t = 0; t < TILE; ++t) s += dY[t * ldy + n];
       db[n] += s;
     }
+    __syncthreads();
   }
-  __syncthreads();
 }
 
 // F[t, :half] = sin(2 pi inv[t] @ coeff), F[t, half:] = cos(...); coeff is [I, half].
@@ -493,9 +583,10 @@ __device__ void gelu_normalize(const float* X, float* Y, int ld, int segs, int w
 }
 
 // In place: dX[t, :] = gelu'(P[t, :]) * r (dN - mean(dN) - N mean(dN N)) per segment,
-// the VJP of N = normalize(gelu(P)) with N and r kept from the forward.
+// the VJP of N = normalize(gelu(P)) with N and r kept from the forward; also written to
+// `copy` (row stride ld) when given.
 __device__ void gelu_normalize_vjp(float* dX, int ldd, const float* P, const float* Nn, int ld,
-                                   int segs, int width, const float* rstd) {
+                                   int segs, int width, const float* rstd, float* copy = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < TILE * segs; r += WARPS) {
     float* dx = dX + (r / segs) * ldd + (r % segs) * width;
@@ -512,8 +603,11 @@ __device__ void gelu_normalize_vjp(float* dX, int ldd, const float* P, const flo
       sn += __shfl_xor_sync(0xffffffffu, sn, o);
     }
     const float ms = s / width, msn = sn / width, r_ = rstd[r];
-    for (int n = lane; n < width; n += 32)
+    float* cp = copy ? copy + (r / segs) * ld + (r % segs) * width : nullptr;
+    for (int n = lane; n < width; n += 32) {
       dx[n] = r_ * (dx[n] - ms - nn[n] * msn) * gelu_tanh_grad(p[n]);
+      if (cp) cp[n] = dx[n];
+    }
   }
   __syncthreads();
 }
@@ -567,11 +661,15 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
   float* pG = pab + d.l_ab;
   float* pc = pG + d.l_G;
   float* pw = part + d.l_row;
-  for (long long idx = tid; idx < d.part; idx += THREADS) part[idx] = 0.0f;
+  // Zero the sections this block adds into over its tiles (dA, dab, the weights); dG and
+  // dc are stored whole at its end.
+  for (long long idx = tid; idx < d.l_A + d.l_ab; idx += THREADS) part[idx] = 0.0f;
+  for (long long idx = tid; idx < d.l_w; idx += THREADS) pw[idx] = 0.0f;
 
   const size_t zT = (size_t)TILE;
   float *FQ = work + d.o_fq, *HQ = work + d.o_hq, *FV = work + d.o_fv, *HV = work + d.o_hv;
-  float *U = work + d.o_u, *TT = work + d.o_t, *PRE = work + d.o_pre, *NN = work + d.o_nn;
+  float *U = work + d.o_u, *TT = work + d.o_t, *DPRE = work + d.o_dpre, *PRE = work + d.o_pre;
+  float *NN = work + d.o_nn;
   float *VM = work + d.o_vm, *RTs = work + d.o_rt, *RM = work + d.o_rm;
   float *Y = work + d.o_y, *DY = work + d.o_dy;
   float *Y1 = work + d.o_y1, *Q1 = work + d.o_q1, *T1 = work + d.o_t1, *Q2 = work + d.o_q2;
@@ -587,8 +685,10 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
   float* wm_w2 = pw + d.w_off[6];
   float* wm_b2 = pw + d.w_off[7];
 
-  for (int tile = j * d.tpb; tile < min(d.ntiles, (j + 1) * d.tpb); ++tile) {
+  const int tile0 = j * d.tpb, tile1 = min(d.ntiles, (j + 1) * d.tpb);
+  for (int tile = tile0; tile < tile1; ++tile) {
     const int c0 = tile * TILE;
+    const size_t tl = tile - tile0;  // the tile's place in the block's kept t and dpre rows
     const int rows = min(TILE, d.C - c0);
     __syncthreads();
 
@@ -630,7 +730,8 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
       const float* src = P.inv + (bz * d.C + c0) * I;
       for (int idx = tid; idx < TILE * I; idx += THREADS) s_inv[idx] = idx / I < rows ? src[idx] : 0.0f;
       __syncthreads();
-      float *fv = FV + z * zT * hid, *hv = HV + z * zT * hid, *u = U + z * zT * hid, *tt = TT + z * zT * hid;
+      float *fv = FV + z * zT * hid, *hv = HV + z * zT * hid, *u = U + z * zT * hid;
+      float *tt = TT + (z * d.tpb + tl) * zT * hid;
       float *pre = PRE + z * zT * HH, *nn = NN + z * zT * HH, *vm = VM + z * zT * HD;
       rff_features(s_inv, I, P.v_coeff, half, fv, hid);
       dense<ACT_RELU, false>(fv, hid, hid, P.v_w1, hid, P.v_b1, hv, hid, Ws);
@@ -711,7 +812,8 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
     for (int z = 0; z < Z; ++z) {
       const size_t bz = (size_t)b * Z + z;
       float *fq = FQ + z * zT * hid, *hq = HQ + z * zT * hid;
-      float *fv = FV + z * zT * hid, *hv = HV + z * zT * hid, *u = U + z * zT * hid, *tt = TT + z * zT * hid;
+      float *fv = FV + z * zT * hid, *hv = HV + z * zT * hid, *u = U + z * zT * hid;
+      float *tt = TT + (z * d.tpb + tl) * zT * hid;
       float *pre = PRE + z * zT * HH, *nn = NN + z * zT * HH;
       const float* prob = s_prob + z * TILE * H;
       const float* dlog = s_dlog + z * TILE * H;
@@ -726,8 +828,8 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
         if (WGRAD) wgrad(nn + h * hidm, HH, hidm, GA + h * D, Wd, D, wm_w2, wm_b2, Ws);
         dense<ACT_NONE, true>(GA + h * D, Wd, D, P.m_w2, hidm, nullptr, GB + h * hidm, Wd, Ws);
       }
-      gelu_normalize_vjp(GB, Wd, pre, nn, HH, H, hidm, RM + z * TILE * H);  // GB = dpre
-      wgrad(tt, hid, hid, GB, Wd, HH, pG + (size_t)z * hid * HH, pc + (size_t)z * HH, Ws);
+      gelu_normalize_vjp(GB, Wd, pre, nn, HH, H, hidm, RM + z * TILE * H,  // GB = dpre, kept
+                         DPRE + (z * d.tpb + tl) * zT * HH);
       dense<ACT_NONE, true>(GB, Wd, HH, P.G + bz * hid * HH, hid, nullptr, GA, Wd, Ws);  // dt
       gelu_normalize_vjp(GA, Wd, u, tt, hid, 1, hid, RTs + z * TILE);                     // du
       if (WGRAD) wgrad(hv, hid, hid, GA, Wd, hid, wfw, wfb, Ws);
@@ -771,6 +873,20 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
       __syncthreads();
     }
   }
+
+  // dG = t^T dpre and dc = sum dpre over every row of the block's tiles, once per latent.
+  // Padded rows (past C) have dpre = 0: their cotangent is 0.
+  const int R = (tile1 - tile0) * TILE;
+  for (int z = 0; z < Z; ++z) {
+    const float* tt = TT + (size_t)z * d.tpb * TILE * hid;
+    const float* dpre = DPRE + (size_t)z * d.tpb * TILE * HH;
+    tn_tc<false>(tt, hid, dpre, HH, R, hid, HH, pG + (size_t)z * hid * HH, HH, Ws);
+    for (int n = tid; n < HH; n += THREADS) {
+      float s = 0.0f;
+      for (int r = 0; r < R; ++r) s += dpre[(size_t)r * HH + n];
+      pc[(size_t)z * HH + n] = s;
+    }
+  }
 }
 
 // Pass 2: out = [dA | dab | dG | dc] over all rows (each [B, Z, ...]), then the weight
@@ -803,7 +919,6 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 }
 
 size_t smem_bytes(const Dims& d) {
-  static_assert(2 * TILE * WB <= STAGE, "wgrad's operand tiles must fit in the staging buffer");
   return sizeof(float) * ((size_t)STAGE + 2 * (size_t)TILE * d.W + 2 * (size_t)d.Z * TILE * d.H +
                           2 * (size_t)TILE * d.I);
 }
