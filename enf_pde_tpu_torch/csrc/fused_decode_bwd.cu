@@ -292,9 +292,10 @@ __device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const floa
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
     if (fast) {
-      // Thread tid stages X float4 (r, q) = (tid / 4, tid % 4) (tid < 128) and W float4s
-      // tid + i * THREADS: TRANS (n, q) = (idx / 4, idx % 4), else (kk, q) = (idx / (SLAB / 4), ...).
-      const int xr = tid >> 2, xq = tid & 3;
+      // Thread tid stages X float4 (r, q) = (tid / QK, tid % QK) and W float4s idx = tid +
+      // i * THREADS: TRANS (n, q) = (idx / QK, idx % QK), else (kk, q) = (idx / (SLAB / 4), ...).
+      constexpr int QK = TC_KC / 4;
+      const int xr = tid / QK, xq = tid % QK;
       const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       float4 xv = zero4, wv[WV];
       auto load = [&](int k0) {
@@ -303,7 +304,7 @@ __device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const floa
         for (int i = 0; i < WV; ++i) {
           const int idx = tid + i * THREADS;
           if (TRANS) {
-            const int n = idx >> 2, q = idx & 3;
+            const int n = idx / QK, q = idx % QK;
             wv[i] = n < ncols ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(n_base + n) * K + k0) + q) : zero4;
           } else {
             const int kk = idx / (SLAB / 4), q = idx % (SLAB / 4);
@@ -318,7 +319,7 @@ __device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const floa
 #pragma unroll
         for (int i = 0; i < WV; ++i) {
           const int idx = tid + i * THREADS;
-          float* dst = TRANS ? Ws + (idx >> 2) * WT_LD + 4 * (idx & 3)
+          float* dst = TRANS ? Ws + (idx / QK) * WT_LD + 4 * (idx % QK)
                              : Ws + (idx / (SLAB / 4)) * WS_LD + 4 * (idx % (SLAB / 4));
           *reinterpret_cast<float4*>(dst) = wv[i];
         }
@@ -555,9 +556,70 @@ __device__ void rff_features_vjp(const float* F, int ldf, const float* dF, int l
   __syncthreads();
 }
 
-// Y[t, :] = normalize(gelu(X[t, :])) over `segs` segments of `width`, one warp per
-// segment; var = E[x^2] - E[x]^2 as in the JAX kernel; rstd[t * segs + s] kept.
+// Row passes: one warp per row segment, two rows at a time. At the widths of the model
+// (a multiple of 128 floats) a lane keeps its 16-byte pieces of both rows in registers, so
+// each row costs one round trip to the workspace; other widths take a plain loop.
+template <int V>  // float4s a lane holds per row: width = 128 V
+__device__ __forceinline__ void load_row(float4 (&v)[V], const float* x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = *reinterpret_cast<const float4*>(x + 128 * k + 4 * lane);
+}
+template <int V>
+__device__ __forceinline__ void store_row(float* y, const float4 (&v)[V]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < V; ++k) *reinterpret_cast<float4*>(y + 128 * k + 4 * lane) = v[k];
+}
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+#define K2_F4(OP) OP(x) OP(y) OP(z) OP(w)
+
+// Y[t, :] = normalize(gelu(X[t, :])) over `segs` segments of `width`; var = E[x^2] - E[x]^2
+// as in the JAX kernel; rstd[t * segs + s] kept.
+template <int V>
+__device__ __noinline__ void gelu_normalize_v(const float* X, float* Y, int ld, int segs, float* rstd) {
+  constexpr int width = 128 * V;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r0 = warp; r0 < TILE * segs; r0 += 2 * WARPS) {  // TILE * segs is a multiple of 2 WARPS
+    float4 v[2][V];
+    float s[2], ss[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + i * WARPS;
+      load_row<V>(v[i], X + (r / segs) * ld + (r % segs) * width);
+      s[i] = ss[i] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+#define K2_GELU(c) v[i][k].c = gelu_tanh(v[i][k].c); s[i] += v[i][k].c; ss[i] = fmaf(v[i][k].c, v[i][k].c, ss[i]);
+        K2_F4(K2_GELU)
+#undef K2_GELU
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + i * WARPS;
+      const float mean = warp_sum(s[i]) / width;
+      const float r_ = 1.0f / sqrtf(warp_sum(ss[i]) / width - mean * mean + LN_EPS);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+#define K2_NORM(c) v[i][k].c = (v[i][k].c - mean) * r_;
+        K2_F4(K2_NORM)
+#undef K2_NORM
+      }
+      store_row<V>(Y + (r / segs) * ld + (r % segs) * width, v[i]);
+      if (lane == 0) rstd[r] = r_;
+    }
+  }
+  __syncthreads();
+}
+
 __device__ void gelu_normalize(const float* X, float* Y, int ld, int segs, int width, float* rstd) {
+  if (width == 128 && ld % 4 == 0 && aligned16(X) && aligned16(Y)) return gelu_normalize_v<1>(X, Y, ld, segs, rstd);
+  if (width == 256 && ld % 4 == 0 && aligned16(X) && aligned16(Y)) return gelu_normalize_v<2>(X, Y, ld, segs, rstd);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < TILE * segs; r += WARPS) {
     const float* x = X + (r / segs) * ld + (r % segs) * width;
@@ -569,13 +631,8 @@ __device__ void gelu_normalize(const float* X, float* Y, int ld, int segs, int w
       s += v;
       ss = fmaf(v, v, ss);
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = s / width;
-    const float r_ = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
+    const float mean = warp_sum(s) / width;
+    const float r_ = 1.0f / sqrtf(warp_sum(ss) / width - mean * mean + LN_EPS);
     for (int n = lane; n < width; n += 32) y[n] = (y[n] - mean) * r_;
     if (lane == 0) rstd[r] = r_;
   }
@@ -585,8 +642,54 @@ __device__ void gelu_normalize(const float* X, float* Y, int ld, int segs, int w
 // In place: dX[t, :] = gelu'(P[t, :]) * r (dN - mean(dN) - N mean(dN N)) per segment,
 // the VJP of N = normalize(gelu(P)) with N and r kept from the forward; also written to
 // `copy` (row stride ld) when given.
+template <int V>
+__device__ __noinline__ void gelu_normalize_vjp_v(float* dX, int ldd, const float* P, const float* Nn, int ld,
+                                                  int segs, const float* rstd, float* copy) {
+  constexpr int width = 128 * V;
+  const int warp = threadIdx.x >> 5;
+  for (int r0 = warp; r0 < TILE * segs; r0 += 2 * WARPS) {
+    float4 dx[2][V], nn[2][V], p[2][V];
+    float s[2], sn[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + i * WARPS, t = r / segs, o = (r % segs) * width;
+      load_row<V>(dx[i], dX + t * ldd + o);
+      load_row<V>(nn[i], Nn + t * ld + o);
+      load_row<V>(p[i], P + t * ld + o);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s[i] = sn[i] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+#define K2_SUMS(c) s[i] += dx[i][k].c; sn[i] = fmaf(dx[i][k].c, nn[i][k].c, sn[i]);
+        K2_F4(K2_SUMS)
+#undef K2_SUMS
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + i * WARPS, t = r / segs, o = (r % segs) * width;
+      const float ms = warp_sum(s[i]) / width, msn = warp_sum(sn[i]) / width, r_ = rstd[r];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+#define K2_VJP(c) dx[i][k].c = r_ * (dx[i][k].c - ms - nn[i][k].c * msn) * gelu_tanh_grad(p[i][k].c);
+        K2_F4(K2_VJP)
+#undef K2_VJP
+      }
+      store_row<V>(dX + t * ldd + o, dx[i]);
+      if (copy) store_row<V>(copy + t * ld + o, dx[i]);
+    }
+  }
+  __syncthreads();
+}
+
 __device__ void gelu_normalize_vjp(float* dX, int ldd, const float* P, const float* Nn, int ld,
                                    int segs, int width, const float* rstd, float* copy = nullptr) {
+  const bool vec = ld % 4 == 0 && ldd % 4 == 0 && aligned16(dX) && aligned16(P) && aligned16(Nn) &&
+                   aligned16(copy);
+  if (width == 128 && vec) return gelu_normalize_vjp_v<1>(dX, ldd, P, Nn, ld, segs, rstd, copy);
+  if (width == 256 && vec) return gelu_normalize_vjp_v<2>(dX, ldd, P, Nn, ld, segs, rstd, copy);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < TILE * segs; r += WARPS) {
     float* dx = dX + (r / segs) * ldd + (r % segs) * width;
@@ -597,12 +700,7 @@ __device__ void gelu_normalize_vjp(float* dX, int ldd, const float* P, const flo
       s += dx[n];
       sn = fmaf(dx[n], nn[n], sn);
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      sn += __shfl_xor_sync(0xffffffffu, sn, o);
-    }
-    const float ms = s / width, msn = sn / width, r_ = rstd[r];
+    const float ms = warp_sum(s) / width, msn = warp_sum(sn) / width, r_ = rstd[r];
     float* cp = copy ? copy + (r / segs) * ld + (r % segs) * width : nullptr;
     for (int n = lane; n < width; n += 32) {
       dx[n] = r_ * (dx[n] - ms - nn[n] * msn) * gelu_tanh_grad(p[n]);
@@ -612,29 +710,31 @@ __device__ void gelu_normalize_vjp(float* dX, int ldd, const float* P, const flo
   __syncthreads();
 }
 
+// Elementwise passes over [TILE][width]: a warp per row, lanes along it.
 __device__ void gelu_rows(const float* X, float* Y, int ld, int width) {
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    Y[t * ld + n] = gelu_tanh(X[t * ld + n]);
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < TILE; t += WARPS)
+#pragma unroll 4
+    for (int n = lane; n < width; n += 32) Y[t * ld + n] = gelu_tanh(X[t * ld + n]);
   __syncthreads();
 }
 
-// dX *= gelu'(P), elementwise over [TILE][width].
+// dX *= gelu'(P).
 __device__ void mul_gelu_grad(float* dX, int ldd, const float* P, int ld, int width) {
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    dX[t * ldd + n] *= gelu_tanh_grad(P[t * ld + n]);
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < TILE; t += WARPS)
+#pragma unroll 4
+    for (int n = lane; n < width; n += 32) dX[t * ldd + n] *= gelu_tanh_grad(P[t * ld + n]);
   __syncthreads();
 }
 
-// dX *= (H > 0), elementwise: the ReLU's VJP from its output.
+// dX *= (H > 0): the ReLU's VJP from its output.
 __device__ void mul_relu_grad(float* dX, int ldd, const float* Hh, int ld, int width) {
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    if (!(Hh[t * ld + n] > 0.0f)) dX[t * ldd + n] = 0.0f;
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < TILE; t += WARPS)
+#pragma unroll 4
+    for (int n = lane; n < width; n += 32)
+      if (!(Hh[t * ld + n] > 0.0f)) dX[t * ldd + n] = 0.0f;
   __syncthreads();
 }
 
