@@ -538,20 +538,29 @@ __device__ void rff_features(const float* s_inv, int I, const float* __restrict_
   __syncthreads();
 }
 
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
 // s_dinv[t, i] += sum_j 2 pi (cos_j dF[t, j] - sin_j dF[t, half + j]) coeff[i, j], with
-// sin / cos read back from the features F.
+// sin / cos read back from the features F. A warp per row, lanes along j.
 __device__ void rff_features_vjp(const float* F, int ldf, const float* dF, int ldd,
                                  const float* __restrict__ coeff, int half, int I, float* s_dinv) {
-  for (int idx = threadIdx.x; idx < TILE * I; idx += THREADS) {
-    const int t = idx / I, i = idx - t * I;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < TILE; t += WARPS) {
     const float* f = F + t * ldf;
     const float* df = dF + t * ldd;
-    float s = 0.0f;
-    for (int j = 0; j < half; ++j) {
-      const float dproj = TWO_PI * (f[half + j] * df[j] - f[j] * df[half + j]);
-      s = fmaf(dproj, __ldg(coeff + i * half + j), s);
+    for (int i = 0; i < I; ++i) {
+      float s = 0.0f;
+      for (int j = lane; j < half; j += 32) {
+        const float dproj = TWO_PI * (f[half + j] * df[j] - f[j] * df[half + j]);
+        s = fmaf(dproj, __ldg(coeff + i * half + j), s);
+      }
+      s = warp_sum(s);
+      if (lane == 0) s_dinv[t * I + i] += s;
     }
-    s_dinv[idx] += s;
   }
   __syncthreads();
 }
@@ -570,11 +579,6 @@ __device__ __forceinline__ void store_row(float* y, const float4 (&v)[V]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int k = 0; k < V; ++k) *reinterpret_cast<float4*>(y + 128 * k + 4 * lane) = v[k];
-}
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
 }
 #define K2_F4(OP) OP(x) OP(y) OP(z) OP(w)
 
@@ -889,13 +893,23 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
     }
 
     // 4. Softmax VJP: dp_z = <dy, v_z> per head, dlogit_z = p_z (dp_z - sum_z' p_z' dp_z').
-    for (int idx = tid; idx < Z * TILE * H; idx += THREADS) {
-      const int z = idx / (TILE * H), r = idx - z * TILE * H, t = r / H, h = r - t * H;
-      const float* vm = VM + z * zT * HD + t * HD + h * D;
-      const float* dy = DY + t * Wd + h * D;
-      float s = 0.0f;
-      for (int n = 0; n < D; ++n) s = fmaf(dy[n], vm[n], s);
-      s_dlog[idx] = s;
+    // A warp per (z, t, h), lanes along the head, four at a time.
+    for (int i0 = (tid >> 5) * 4; i0 < Z * TILE * H; i0 += WARPS * 4) {
+      float s[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = min(i0 + u, Z * TILE * H - 1);
+        const int z = idx / (TILE * H), r = idx - z * TILE * H, t = r / H, h = r - t * H;
+        const float* vm = VM + z * zT * HD + t * HD + h * D;
+        const float* dy = DY + t * Wd + h * D;
+        s[u] = 0.0f;
+        for (int n = tid & 31; n < D; n += 32) s[u] = fmaf(dy[n], vm[n], s[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        s[u] = warp_sum(s[u]);
+        if ((tid & 31) == 0 && i0 + u < Z * TILE * H) s_dlog[i0 + u] = s[u];
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < TILE * H; idx += THREADS) {
