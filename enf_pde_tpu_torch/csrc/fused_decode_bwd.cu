@@ -1,4 +1,5 @@
-// Fused ENF decode, backward: CUDA C++ for Hopper (sm_90a), f32 on the CUDA cores.
+// Fused ENF decode, backward: CUDA C++ for Hopper (sm_90a), its products on the tensor
+// cores at f32 accuracy (3xTF32 mma.sync).
 //
 // Replaces the TPU kernel `_bwd_kernel` launched by `_bwd_pallas`
 // (enf_pde_tpu/ops/pallas_decode.py), which recomputes one coordinate tile's forward
@@ -16,9 +17,12 @@
 // The Pallas grid runs in order and carries the sums from one grid step to the next;
 // the CUDA grid does not. Deterministic two-pass reduction instead of atomics:
 //   pass 1 (`fused_decode_bwd_kernel`): block (b, j) owns batch row b and a contiguous
-//     run of 32-coordinate tiles; it zeroes its own slice of a partial-sum buffer and
-//     adds every tile's dA/dab/dG/dc (and weight) gradients into it. No two blocks
-//     write the same address.
+//     run of 32-coordinate tiles (one at the ode shape: about five rounds of blocks fill
+//     the card better than two rounds of longer runs). It keeps t and dpre of its tiles
+//     in its workspace and at its end stores dG = t^T dpre and dc = sum dpre, contracted
+//     once over all its rows, into its slice of a partial-sum buffer; it zeroes and adds
+//     into only dA/dab and the weight sections, tile by tile. No two blocks write the
+//     same address.
 //   pass 2 (`fused_decode_bwd_reduce`): one thread per output element sums the
 //     partials of the row's blocks (per-row gradients) or of all blocks (weights), in
 //     a fixed order.
@@ -32,23 +36,34 @@
 // Hand-written VJPs: sin/cos features (d proj = 2 pi (cos dS - sin dC)), ReLU, tanh-gelu,
 // and the scale-free LayerNorm (dx = r (dn - mean(dn) - n mean(dn n))).
 //
+// Products. Three shapes, all on m16n8k8 TF32 mma.sync: forward layers Y = X W and
+// input gradients dX = dY W^T (`dense_tc`: the 32-row tile is two m16 tiles, the 8 warps
+// split N, 2 or 4 n8 tiles each), and row contractions out += X^T dY over a tile's or a
+// block's rows (`tn_tc`: weight gradients and dG; 64 x 128 output blocks, warps 2 x 4).
+// Operands go through shared memory in 16-deep chunks with row strides that make every
+// fragment load conflict free; the next chunk's global loads are issued before this
+// chunk's products. 3xTF32: each f32 operand x = big + small, both tf32, and
+// a b = ab bb + ab bs + as bb with as bs dropped, about 2^-21 relative per product. The
+// tensor core aligns its addends to the largest and truncates, so a long sum kept in its
+// accumulator drifts toward zero (1.8e-3 rel-L2 on the weight gradients, measured); each
+// k step of 8 goes into a fresh accumulator that is added into an f32 register sum, and
+// every gradient stays within 2e-6 rel-L2 of autograd in f32.
+//
 // Memory. One latent's activations at T = 32 (hq, features, hidden, t, pre, mixer,
 // v_mix) are about 100 KB and all four with the tail's do not fit in 227 KB of shared
-// memory beside the weight staging. They are not recomputed either: each block keeps
-// them in its own slice of a global workspace (about 1.1 MB a block at Navier-Stokes
-// width), which it writes once and reads back in step 5 while they are mostly in the
-// 50 MB L2. Shared memory (85 KB at that width, two blocks per SM) holds the weight
-// staging buffer (also the wgrad operand tiles), the two gradient buffers that every
-// transposed product reads, the logits and softmax weights and the tile's invariants.
+// memory beside the staging. They are not recomputed either: each block keeps them in
+// its own slice of a global workspace (about 1.2 MB a block at Navier-Stokes width),
+// which it writes once and reads back in step 5 while they are mostly in the 50 MB L2.
+// Shared memory (96 KB at that width, two blocks per SM) holds the operand staging, the
+// two gradient buffers that every transposed product reads, the logits and softmax
+// weights and the tile's invariants.
 //
-// What bounds it. About 3.1 MFLOP of matmul per point without weight gradients and
-// 4.2 with them (`decode_bwd_flops_per_point`): bound by operations, like K1. Every
-// product is f32 FMAs: dense layers and input gradients (dX = dY W^T) stream W
-// through the shared staging buffer as K1 does; weight gradients (dW += X^T dY) run
-// 64 x 64 output blocks over the tile's 32 rows with a 4 x 4 register tile per
-// thread and add into the block's partial. The global workspace costs about 2 MB of
-// L2/HBM traffic per tile, under 1 ms at the ode shape. Measured at half K1's rate
-// per FLOP (PERF.md); right and simple first: the tensor cores are later work.
+// What bounds it. About 3.1 MFLOP of matmul per point without weight gradients and 4.2
+// with them (`decode_bwd_flops_per_point`): bound by operations, 1.9 ms at the ode shape
+// on the f32 CUDA cores and 0.8 ms for the three TF32 products of each product on the
+// tensor cores. Measured (PERF.md) at several times that: the mma itself is about a third
+// of the time, the chunk staging with its barriers and the elementwise passes the rest.
+// wgmma with TMA-fed staging is the next step.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,11 +86,9 @@ constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 34;
 constexpr int kNumDims = 11;
-constexpr int kTargetBlocks = 528;    // about two rounds of 2 blocks on each of 132 SMs
+constexpr int kTargetBlocks = 1320;   // about five rounds of 2 blocks on each of 132 SMs: a short last round
 
 enum { ACT_NONE = 0, ACT_RELU = 1 };
-
-__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 
 // Sizes and offsets shared by the host launcher and the kernels.
 struct Dims {
