@@ -176,6 +176,23 @@ def test_bwd_kernel_source_matches_the_binding():
     assert len(fd.WEIGHT_NAMES) - len(fd.COEFF_INDICES) == 8 and len(fd.TAIL_WEIGHT_NAMES) == 12
 
 
+def test_bwd_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
+    """K2's products go through its own 3xTF32 mma.sync helper: every product shape calls
+    it, each operand is split into two tf32 parts, and no library GEMM is linked."""
+    src = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE).read_text()
+    assert src.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1
+    assert src.count("cvt.rna.tf32.f32") == 1
+    helper = re.search(r"void mma_3xtf32\(.*?\n}", src, re.S).group(0)
+    assert helper.count("mma_tf32(") == 3  # small x big, big x small, big x big
+    # Forward layers and input gradients (dense_tc), row contractions (tn_tc).
+    for fn in ("dense_tc", "tn_tc"):
+        body = re.search(rf"void {fn}\(.*?\n}}\n", src, re.S).group(0)
+        assert "mma_3xtf32" in body or "dense_chunk" in body
+    assert re.search(r"void dense_chunk\(.*?mma_3xtf32", src, re.S)
+    for banned in ("wmma", "cutlass", "cublas", "fmaf(xs[i], ys[j]"):
+        assert banned not in src.lower()
+
+
 def test_bwd_flop_count_at_navier_stokes_width():
     fwd = fd.decode_flops_per_point(2, 128, 128, 128, 4, 4, 1)
     without = fd.decode_bwd_flops_per_point(2, 128, 128, 128, 4, 4, 1, weight_grads=False)
