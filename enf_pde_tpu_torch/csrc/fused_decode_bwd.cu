@@ -20,9 +20,9 @@
 //     run of 32-coordinate tiles (one at the ode shape: about five rounds of blocks fill
 //     the card better than two rounds of longer runs). It keeps t and dpre of its tiles
 //     in its workspace and at its end stores dG = t^T dpre and dc = sum dpre, contracted
-//     once over all its rows, into its slice of a partial-sum buffer; it zeroes and adds
-//     into only dA/dab and the weight sections, tile by tile. No two blocks write the
-//     same address.
+//     once over all its rows, into its slice of a partial-sum buffer. Tile by tile it adds
+//     dA/dab into zeroed sections and the weight gradients into sections that its first
+//     contribution stored. No two blocks write the same address.
 //   pass 2 (`fused_decode_bwd_reduce`): one thread per output element sums the
 //     partials of the row's blocks (per-row gradients) or of all blocks (weights), in
 //     a fixed order.
@@ -521,16 +521,20 @@ __device__ __noinline__ void tn_tc(const float* X, int ldx, const float* dY, int
   __syncthreads();
 }
 
-// A weight gradient over the tile: dW[k, n] += sum_t X[t, k] * dY[t, n] (dW [K, N], block
-// private) and db[n] += sum_t dY[t, n] when db is not null.
+// A weight gradient over the tile: dW[k, n] (+)= sum_t X[t, k] * dY[t, n] (dW [K, N], block
+// private) and db[n] (+)= sum_t dY[t, n] when db is not null; the block's first
+// contribution stores (add false), the later ones add.
 __device__ void wgrad(const float* X, int ldx, int K, const float* dY, int ldy, int N,
-                      float* dW, float* db, float* S) {
-  tn_tc<true>(X, ldx, dY, ldy, TILE, K, N, dW, N, S);
+                      float* dW, float* db, float* S, bool add) {
+  if (add)
+    tn_tc<true>(X, ldx, dY, ldy, TILE, K, N, dW, N, S);
+  else
+    tn_tc<false>(X, ldx, dY, ldy, TILE, K, N, dW, N, S);
   if (db) {
     for (int n = threadIdx.x; n < N; n += THREADS) {
       float s = 0.0f;
       for (int t = 0; t < TILE; ++t) s += dY[t * ldy + n];
-      db[n] += s;
+      db[n] = add ? db[n] + s : s;
     }
     __syncthreads();
   }
@@ -778,10 +782,9 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
   float* pG = pab + d.l_ab;
   float* pc = pG + d.l_G;
   float* pw = part + d.l_row;
-  // Zero the sections this block adds into over its tiles (dA, dab, the weights); dG and
-  // dc are stored whole at its end.
+  // Zero dA and dab, which every tile adds into. The weight sections are stored by the
+  // block's first contribution and added into after; dG and dc are stored whole at its end.
   for (long long idx = tid; idx < d.l_A + d.l_ab; idx += THREADS) part[idx] = 0.0f;
-  for (long long idx = tid; idx < d.l_w; idx += THREADS) pw[idx] = 0.0f;
 
   const size_t zT = (size_t)TILE;
   float *FQ = work + d.o_fq, *HQ = work + d.o_hq, *FV = work + d.o_fv, *HV = work + d.o_hv;
@@ -887,21 +890,21 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
       dense<ACT_NONE, false>(H1, hid, hid, P.h_w2, hid, P.h_b2, Q4, hid, Ws);
       gelu_rows(Q4, H2, hid, hid);
       // GA = g. Head layer 3, 2, 1, block FFN dense 2 and 1, out-projection.
-      if (WGRAD) wgrad(H2, hid, hid, GA, Wd, out, pw + d.w_off[18], pw + d.w_off[19], Ws);
+      if (WGRAD) wgrad(H2, hid, hid, GA, Wd, out, pw + d.w_off[18], pw + d.w_off[19], Ws, tile > tile0);
       dense<ACT_NONE, true>(GA, Wd, out, P.h_w3, hid, nullptr, GB, Wd, Ws);
       mul_gelu_grad(GB, Wd, Q4, hid, hid);
-      if (WGRAD) wgrad(H1, hid, hid, GB, Wd, hid, pw + d.w_off[16], pw + d.w_off[17], Ws);
+      if (WGRAD) wgrad(H1, hid, hid, GB, Wd, hid, pw + d.w_off[16], pw + d.w_off[17], Ws, tile > tile0);
       dense<ACT_NONE, true>(GB, Wd, hid, P.h_w2, hid, nullptr, GA, Wd, Ws);
       mul_gelu_grad(GA, Wd, Q3, hid, hid);
-      if (WGRAD) wgrad(Y2, HD, HD, GA, Wd, hid, pw + d.w_off[14], pw + d.w_off[15], Ws);
+      if (WGRAD) wgrad(Y2, HD, HD, GA, Wd, hid, pw + d.w_off[14], pw + d.w_off[15], Ws, tile > tile0);
       dense<ACT_NONE, true>(GA, Wd, hid, P.h_w1, HD, nullptr, GB, Wd, Ws);
       mul_gelu_grad(GB, Wd, Q2, HD, HD);
-      if (WGRAD) wgrad(T1, HD, HD, GB, Wd, HD, pw + d.w_off[12], pw + d.w_off[13], Ws);
+      if (WGRAD) wgrad(T1, HD, HD, GB, Wd, HD, pw + d.w_off[12], pw + d.w_off[13], Ws, tile > tile0);
       dense<ACT_NONE, true>(GB, Wd, HD, P.p_w2, HD, nullptr, GA, Wd, Ws);
       gelu_normalize_vjp(GA, Wd, Q1, T1, HD, 1, HD, RT1);
-      if (WGRAD) wgrad(Y1, HD, HD, GA, Wd, HD, pw + d.w_off[10], pw + d.w_off[11], Ws);
+      if (WGRAD) wgrad(Y1, HD, HD, GA, Wd, HD, pw + d.w_off[10], pw + d.w_off[11], Ws, tile > tile0);
       dense<ACT_NONE, true>(GA, Wd, HD, P.p_w1, HD, nullptr, GB, Wd, Ws);
-      if (WGRAD) wgrad(Y, Wd, HD, GB, Wd, HD, pw + d.w_off[8], pw + d.w_off[9], Ws);
+      if (WGRAD) wgrad(Y, Wd, HD, GB, Wd, HD, pw + d.w_off[8], pw + d.w_off[9], Ws, tile > tile0);
       dense<ACT_NONE, true>(GB, Wd, HD, P.o_w, HD, nullptr, DY, Wd, Ws);
     }
 
@@ -952,17 +955,18 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
       }
       __syncthreads();
       for (int h = 0; h < H; ++h) {
-        if (WGRAD) wgrad(nn + h * hidm, HH, hidm, GA + h * D, Wd, D, wm_w2, wm_b2, Ws);
+        if (WGRAD)
+          wgrad(nn + h * hidm, HH, hidm, GA + h * D, Wd, D, wm_w2, wm_b2, Ws, tile > tile0 || z > 0 || h > 0);
         dense<ACT_NONE, true>(GA + h * D, Wd, D, P.m_w2, hidm, nullptr, GB + h * hidm, Wd, Ws);
       }
       gelu_normalize_vjp(GB, Wd, pre, nn, HH, H, hidm, RM + z * TILE * H,  // GB = dpre, kept
                          DPRE + (z * d.tpb + tl) * zT * HH);
       dense<ACT_NONE, true>(GB, Wd, HH, P.G + bz * hid * HH, hid, nullptr, GA, Wd, Ws);  // dt
       gelu_normalize_vjp(GA, Wd, u, tt, hid, 1, hid, RTs + z * TILE);                     // du
-      if (WGRAD) wgrad(hv, hid, hid, GA, Wd, hid, wfw, wfb, Ws);
+      if (WGRAD) wgrad(hv, hid, hid, GA, Wd, hid, wfw, wfb, Ws, tile > tile0 || z > 0);
       dense<ACT_NONE, true>(GA, Wd, hid, P.fw, hid, nullptr, GB, Wd, Ws);
       mul_relu_grad(GB, Wd, hv, hid, hid);
-      if (WGRAD) wgrad(fv, hid, hid, GB, Wd, hid, wv_w1, wv_b1, Ws);
+      if (WGRAD) wgrad(fv, hid, hid, GB, Wd, hid, wv_w1, wv_b1, Ws, tile > tile0 || z > 0);
       dense<ACT_NONE, true>(GB, Wd, hid, P.v_w1, hid, nullptr, GA, Wd, Ws);  // dF (value)
       rff_features_vjp(fv, hid, GA, Wd, P.v_coeff, half, I, s_dinv);
       // Logit chain: dA, dab, dwb, then back through the query RFF net. GA and GB
@@ -992,7 +996,7 @@ __global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __gr
         GB[t * Wd + k] = hq[t * hid + k] > 0.0f ? s : 0.0f;
       }
       __syncthreads();
-      if (WGRAD) wgrad(fq, hid, hid, GB, Wd, hid, wq_w1, wq_b1, Ws);
+      if (WGRAD) wgrad(fq, hid, hid, GB, Wd, hid, wq_w1, wq_b1, Ws, tile > tile0 || z > 0);
       dense<ACT_NONE, true>(GB, Wd, hid, P.q_w1, hid, nullptr, GA, Wd, Ws);  // dF (query)
       rff_features_vjp(fq, hid, GA, Wd, P.q_coeff, half, I, s_dinv);
       float* dst = P.dinv + (bz * d.C + c0) * I;
