@@ -95,7 +95,8 @@ struct Dims {
   int B, Z, C, I, hid, H, D, hidm, out, tail, wgrad;
   int HD, HH, W;      // H*D, H*hidm, widest gradient row (padded)
   int ntiles, tpb, bpr;  // tiles per row, tiles per block, blocks per row
-  // Per-block workspace offsets (floats), each a [TILE][width] buffer (or Z of them).
+  // Per-block workspace offsets (floats), each a [TILE][width] buffer (or Z of them; t and
+  // dpre: Z x tpb of them, every tile of the block).
   long long o_fq, o_hq, o_fv, o_hv, o_u, o_t, o_dpre, o_pre, o_nn, o_vm, o_rt, o_rm;
   long long o_y, o_dy, o_y1, o_q1, o_t1, o_q2, o_y2, o_q3, o_h1, o_q4, o_h2, o_rt1;
   long long work;     // floats per block
@@ -192,7 +193,7 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
 // x = big + small + e with big = tf32(x), small = tf32(x - big): |x - big| <= 2^-11 |x| and
 // |e| <= 2^-11 |x - big| <= 2^-22 |x|. A product a b = ab bb + ab bs + as bb + as bs + O(2^-22
 // |a b|); dropping as bs (<= 2^-22 |a b|) leaves each product within about 2^-21 of the f32
-// product, and the mma accumulates in f32: the sums keep f32-level error.
+// product. The sums over k are kept in f32 registers (mma_3xtf32).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
