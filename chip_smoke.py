@@ -10,16 +10,20 @@ Phases, one line each, flushed as they go:
    started together (the build's seconds, the compiler's register/spill report, the
    card's name and power limit);
 2. kernel K1 (``fused_decode_fwd``) against its plain PyTorch version at the full
-   Navier-Stokes width, batch 8 x 4096 points, with and without the fused tail;
+   Navier-Stokes width, batch 8 x 4096 points, with and without the fused tail, and
+   with the tail at the rollout decode's shape (80 frames x 512 points) and at a
+   ragged 8 x 1000 (not a multiple of K1's 32-point tile);
 3. the Navier-Stokes forecast end to end at full width with seeded random weights:
    ``Forecaster.forecast`` of 8 smooth periodic 64x64 frames for 20 frames
    (3-step latent fit, 19 Euler steps of the PONITA ODE, decode of 160 frames x
    4096 points through K1), the launch count of K1 in that run, the output's
    shape and finiteness, the decoded field against the plain decode of the same
    latents, and the time of the call and of each stage (median of 5 warm repeats);
-4. K1's time at the forecast's launch shape beside its plain version's and the
-   card's bound for the same work, and the decode's PyTorch prologue (weight fold,
-   geometry);
+4. K1 at the forecast's launch shape (160 frames x 512 points) against its plain
+   version, and its time there and at the rollout decode's shape (80 x 512) beside
+   the plain version's and the card's bounds for the same work (f32 on the CUDA cores,
+   3xTF32 on the tensor cores, bytes), with the design's L2 weight bytes per point;
+   and the decode's PyTorch prologue (weight fold, geometry);
 5. kernel K2 (``fused_decode_bwd``) against its plain version (autograd over the
    plain decode) at the ode step's decode shape, 80 frames x 512 points at full
    width, with and without weight gradients and with and without the tail, every
@@ -86,7 +90,6 @@ LOG_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_train"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernel's operand type
-PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12  # tensor cores; K2's 3xTF32 products issue three per product
 
 
@@ -216,25 +219,63 @@ def check_grads(label: str, got, want) -> float:
     return err
 
 
-def k2_inputs(cfg, coords: np.ndarray, dev):
-    """K2's inputs at the ode step's decode shape (80 frames x 512 points, full width),
-    and a cotangent for each mode: ``(args, {with_tail: g})``."""
-    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+def decode_inputs(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=None):
+    """The kernels' inputs at full width for ``b`` frames of seeded random latents decoded
+    at ``M`` coordinates drawn from ``coords`` (all of them, in order, when ``M`` is their
+    number): ``(inv, wb, A, ab, G, c, ws, tws)`` with the tail."""
     decoder, _ = build_models(cfg)
     reset_parameters(decoder, torch.Generator().manual_seed(SEED))
     decoder.to(dev)
-    gen = torch.Generator().manual_seed(SEED + 2)
-    b, Z, M = NUM_SIGNALS * cfg.dataset.traj_len_train, cfg.nef.num_latents, cfg.training.max_num_sampled_points
-    idx = torch.randperm(coords.shape[0], generator=gen)[:M]
+    gen = gen or torch.Generator().manual_seed(seed)
+    Z = cfg.nef.num_latents
+    idx = torch.randperm(coords.shape[0], generator=gen)[:M] if M < coords.shape[0] else torch.arange(M)
     x = torch.from_numpy(coords)[idx][None].expand(b, -1, -1).to(dev)
     p = (torch.rand(b, Z, 2, generator=gen) * 2 - 1).to(dev)
     a = (1 + 0.5 * torch.randn(b, Z, cfg.nef.latent_dim, generator=gen)).to(dev)
     w = torch.full((b, Z, 1), 1.0, device=dev)
     with torch.no_grad():
-        args = decoder.kernel_inputs(x, p, a, w)
+        return decoder.kernel_inputs(x, p, a, w)
+
+
+def k2_inputs(cfg, coords: np.ndarray, dev):
+    """K2's inputs at the ode step's decode shape (80 frames x 512 points, full width),
+    and a cotangent for each mode: ``(args, {with_tail: g})``."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    gen = torch.Generator().manual_seed(SEED + 2)
+    b, M = NUM_SIGNALS * cfg.dataset.traj_len_train, cfg.training.max_num_sampled_points
+    args = decode_inputs(cfg, coords, dev, b, M, SEED + 2, gen)
     g = {tail: torch.randn(b, M, cfg.nef.num_out if tail else H * D, generator=gen).to(dev)
          for tail in (True, False)}
     return args, g
+
+
+def k1_l2_bytes_per_point(args, tile: int = 32) -> float:
+    """Weight bytes one K1 block streams from L2, per decoded point (``tile`` points a
+    block): q_w1, v_w1 and fw once for all latents and m_w2 once per pair of latents, both
+    pre-split (8 bytes an element); G and A once per latent and the tail once, in f32."""
+    inv, ws, tws = args[0], args[6], args[7]
+    Z = inv.shape[1]
+    split = sum(ws[i].numel() for i in (1, 4, 6)) + -(-Z // 2) * ws[8].numel()
+    per_latent = args[4][0, 0].numel() + args[2][0, 0].numel()
+    tail = sum(t.numel() for t in tws if t.dim() == 2)
+    return (8 * split + 4 * (Z * per_latent + tail)) / tile
+
+
+def k1_bounds(cfg, args, out) -> dict:
+    """The least times of K1's work on the card: f32 on the CUDA cores by operations,
+    3xTF32 on the tensor cores (3 products per product), and by bytes; and the design's
+    L2 weight bytes per point."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    inv, ws, tws = args[0], args[6], args[7]
+    B, Zl, C, I = inv.shape
+    hid, hidm = ws[1].shape[0], ws[8].shape[0]
+    flops = decode_flops_per_point(H, D, hid, hidm, Zl, I, cfg.nef.num_out) * B * C
+    moved = nbytes(args[:6]) + nbytes(ws) + nbytes(tws) + nbytes([out])
+    b_bytes, b_ops = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return dict(flops=flops, moved=moved, bytes_ms=b_bytes, f32_ms=b_ops,
+                tc_ms=3 * flops / PEAK_TF32_FLOPS * 1e3, bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                l2_per_point=k1_l2_bytes_per_point(args))
 
 
 def k2_check(cfg, args, g, bwd=fused_decode_bwd) -> float:
@@ -417,7 +458,8 @@ def main() -> int:
     coords = planar_coords(GRID, GRID)
     max_errs = []
 
-    # 2. K1 against its plain version at full width, b=8, C=4096.
+    # 2. K1 against its plain version at full width: b=8, C=4096 with and without the tail;
+    # the rollout decode shape b=80, c=512 and a ragged b=8, C=1000 with it.
     decoder, _ = build_models(cfg)
     reset_parameters(decoder, torch.Generator().manual_seed(SEED))
     decoder.to(dev)
@@ -436,8 +478,14 @@ def main() -> int:
         out_k = fused_decode_fwd(*no_tail, num_heads=H, head_dim=D)
         out_p = fused_decode_plain(*no_tail, num_heads=H, head_dim=D)
         max_errs.append(check_close("K1 no-tail b=8 C=4096", out_k, out_p))
+        rollout_args = decode_inputs(cfg, coords, dev, NUM_SIGNALS * cfg.dataset.traj_len_train,
+                                     cfg.training.max_num_sampled_points, SEED + 6)
+        ragged_args = decode_inputs(cfg, coords, dev, NUM_SIGNALS, 1000, SEED + 7)
+        for label, kargs in (("b=80 c=512", rollout_args), ("b=8 C=1000 (ragged)", ragged_args)):
+            max_errs.append(check_close(f"K1 tail {label}", fused_decode_fwd(*kargs, num_heads=H, head_dim=D),
+                                        fused_decode_plain(*kargs, num_heads=H, head_dim=D)))
     torch.cuda.synchronize()
-    del decoder, args, out_k, out_p
+    del decoder, args, out_k, out_p, ragged_args
 
     # 3. The forecast end to end, at full width.
     frames = smooth_frames(NUM_SIGNALS, GRID, SEED)
@@ -489,35 +537,38 @@ def main() -> int:
     max_errs.append(check_close("forecast decode vs plain decode", field, plain))
     del plain
 
-    # 4. K1 at the forecast's launch shape: kernel, plain version, bound; and the
-    # decode's PyTorch prologue (one weight fold per decode, geometry per chunk).
+    # 4. K1 at the forecast's launch shape and the rollout decode's: kernel against plain,
+    # times, bounds; and the decode's PyTorch prologue (one weight fold per decode,
+    # geometry per chunk).
     with torch.no_grad():
         fold_ms = cuda_ms(lambda: dec.fold(flat[0], flat[1]), iters=5, warmup=1)
         geom_ms = cuda_ms(lambda: dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), iters=20)
         args = (*dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), *folded)
-        kernel_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D), iters=20)
-        plain_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=5, warmup=1)
         out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
+        max_errs.append(check_close("K1 tail b=160 c=512 (forecast launch shape)", out_k,
+                                    fused_decode_plain(*args, num_heads=H, head_dim=D)))
+        k1_timing = {}
+        for label, kargs in (("forecast", args), ("rollout", rollout_args)):
+            k_ms = cuda_ms(lambda: fused_decode_fwd(*kargs, num_heads=H, head_dim=D), iters=20)
+            p_ms = cuda_ms(lambda: fused_decode_plain(*kargs, num_heads=H, head_dim=D), iters=5, warmup=1)
+            bd = k1_bounds(cfg, kargs, out_k if label == "forecast" else
+                           fused_decode_fwd(*kargs, num_heads=H, head_dim=D))
+            k1_timing[label] = dict(ms=k_ms, plain_ms=p_ms, **bd)
+            B, Zl, C = kargs[0].shape[:3]
+            log(f"[timing] K1 at the {label} launch shape b={B} z={Zl} c={C}: {k_ms:.4f} ms "
+                f"({bd['flops'] / k_ms / 1e9:.2f} TFLOP/s); plain {p_ms:.4f} ms; bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (f32 CUDA cores {bd['f32_ms']:.4f} ms, "
+                f"3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
+                f"{bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} MB); L2 weight bytes "
+                f"per point {bd['l2_per_point'] / 1e3:.1f} KB")
     log(f"[timing] decode prologue: weight fold {fold_ms:.4f} ms per decode, geometry "
-        f"{geom_ms:.4f} ms per chunk x {launches} chunks")
-    inv, ws, tws = args[0], args[6], args[7]
-    B, Zl, C, I = inv.shape
-    hid, hidm = ws[1].shape[0], ws[8].shape[0]
-    flops = decode_flops_per_point(H, D, hid, hidm, Zl, I, cfg.nef.num_out) * B * C
-    moved = nbytes(args[:6]) + nbytes(ws) + nbytes(tws) + nbytes([out_k])
-    bound_bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / PEAK_F32_FLOPS * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
-    log(f"[timing] K1 at the forecast launch shape b={B} z={Zl} c={C}: {kernel_ms:.4f} ms "
-        f"({flops / kernel_ms / 1e9:.2f} TFLOP/s f32); plain {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by} (f32 {bound_ops_ms:.4f} ms, bf16 tensor "
-        f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms, bytes {bound_bytes_ms:.4f} ms: "
-        f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB); forecast launches {launches}, "
-        f"decode total at this time {kernel_ms * launches:.3f} ms")
+        f"{geom_ms:.4f} ms per chunk x {launches} chunks; forecast decode total at K1's time "
+        f"{k1_timing['forecast']['ms'] * launches:.3f} ms")
+    kernel_ms, plain_ms = k1_timing["forecast"]["ms"], k1_timing["forecast"]["plain_ms"]
+    bound_ms, bound_by = k1_timing["forecast"]["bound_ms"], k1_timing["forecast"]["bound_by"]
 
     # 5-7. The training path: K2, the kernel-backend steps, TrainLoop.run.
-    del args, out_k, folded, traj, fitted, field, fc
+    del args, out_k, folded, traj, fitted, field, fc, rollout_args
     torch.cuda.empty_cache()
     k2 = k2_phase(cfg, coords, dev)
     max_errs.append(step_parity_phase(cfg, coords, dev))

@@ -36,7 +36,8 @@
 // Hand-written VJPs: sin/cos features (d proj = 2 pi (cos dS - sin dC)), ReLU, tanh-gelu,
 // and the scale-free LayerNorm (dx = r (dn - mean(dn) - n mean(dn n))).
 //
-// Products. Three shapes, all on m16n8k8 TF32 mma.sync: forward layers Y = X W and
+// Products. Three shapes, all on m16n8k8 TF32 mma.sync through the 3xTF32 helper of
+// tf32_mma.cuh (shared with K1): forward layers Y = X W and
 // input gradients dX = dY W^T (`dense_tc`: the 32-row tile is two m16 tiles, the 8 warps
 // split N, 2 or 4 n8 tiles each), and row contractions out += X^T dY over a tile's or a
 // block's rows (`tn_tc`: weight gradients and dG; 64 x 128 output blocks, warps 2 x 4).
@@ -68,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"  // gelu_tanh, split_tf32, mma_3xtf32 (shared with K1)
 
 namespace {
 
@@ -178,56 +181,11 @@ struct Params {
   Dims d;
 };
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
-}
-
 __device__ __forceinline__ float gelu_tanh_grad(float x) {
   const float k = 0.7978845608028654f;
   const float th = tanhf(k * (x + 0.044715f * x * x * x));
   return 0.5f * (1.0f + th) + 0.5f * x * (1.0f - th * th) * k * (1.0f + 3.0f * 0.044715f * x * x);
 }
-
-// ---- 3xTF32 on the tensor cores -----------------------------------------------------
-// x = big + small + e with big = tf32(x), small = tf32(x - big): |x - big| <= 2^-11 |x| and
-// |e| <= 2^-11 |x - big| <= 2^-22 |x|. A product a b = ab bb + ab bs + as bb + as bs + O(2^-22
-// |a b|); dropping as bs (<= 2^-22 |a b|) leaves each product within about 2^-21 of the f32
-// product. The sums over k are kept in f32 registers (mma_3xtf32).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r & 0xffffe000u;
-}
-
-__device__ __forceinline__ float2 split_tf32(float x) {
-  const uint32_t big = to_tf32(x);
-  return make_float2(__uint_as_float(big), __uint_as_float(to_tf32(x - __uint_as_float(big))));
-}
-
-// d += a b on one m16n8k8 tile. Fragments (lane = 4 g + t): a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k = t, n = g), b1 (t + 4, g); d0, d1 (g, 2t, 2t + 1),
-// d2, d3 (g + 8, 2t, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b at f32 accuracy: the two cross terms first, then big x big. The tensor core
-// aligns its addends to the largest and truncates, so a long sum kept in d drifts toward
-// zero by up to an ulp per mma; callers give it a fresh d per k step of 8 and add that into
-// an f32 register sum (round to nearest).
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_big, const uint32_t* a_small,
-                                           const uint32_t* b_big, const uint32_t* b_small) {
-  mma_tf32(d, a_small, b_big);
-  mma_tf32(d, a_big, b_small);
-  mma_tf32(d, a_big, b_big);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // One staged k chunk of a dense layer on a warp's 2 x NT tiles: A fragments from the split
 // X chunk, B fragments from the W chunk, split here; each k step of 8 into a fresh

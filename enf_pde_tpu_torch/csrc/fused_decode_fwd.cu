@@ -1,4 +1,6 @@
-// Fused ENF decode, forward: CUDA C++ for Hopper (sm_90a), f32 on the CUDA cores.
+// Fused ENF decode, forward: CUDA C++ for Hopper (sm_90a), its products on the tensor
+// cores at f32 accuracy (3xTF32 mma.sync), the latents batched into the rows of the
+// shared-weight layers, weights staged into shared memory by cp.async in a ring.
 //
 // Replaces the TPU kernel `_fwd_kernel` launched by `_fwd_pallas`
 // (enf_pde_tpu/ops/pallas_decode.py), whose body is `_tile_decode`. The plain
@@ -18,58 +20,312 @@
 // `normalize` is a LayerNorm without scale and bias (those are folded into the next
 // matmul). The tail is the compile-time flag WITH_TAIL.
 //
-// Design. One block of 256 threads decodes TILE = 32 coordinates of one batch row;
-// the grid is (ceil(C / TILE), B), so neighbouring blocks share a row's A/G/c in L2.
-// Activations stay in shared memory: bufA (TILE x hid), bufB and acc (TILE x the
-// widest layer, 256 at Navier-Stokes width). Weights cannot all sit on chip (one
-// G[b, z] alone is 128 KB), so every dense layer streams its W through a shared
-// staging buffer of KC x 128 floats that all 8 warps read: each weight crosses L2
-// once per block instead of once per warp. About 98 KB of shared memory a block,
-// two blocks per SM. Two passes over the latents: the first computes every logit and
-// the softmax over Z, the second the value chains, whose last dense layer adds its
-// softmax-weighted output straight into acc (no running rescale, no value buffer).
+// Design. One block of 256 threads (8 warps) decodes TILE = 32 coordinates of one batch
+// row; the grid is (ceil(C / TILE), B), so neighbouring blocks share a row's A/G/c in L2.
+// As the Pallas kernel does (`inv3.reshape(Z*T, I)`), the latents go into the rows of the
+// layers whose weights they share, up to ZG = 4 latents (128 rows) at a time:
+//   q_w1, v_w1, fw   one [Z*T x hid] @ [hid x hid] product each;
+//   m_w2             one [2*H*T x hidm] @ [hidm x D] product per pair of latents (the two
+//                    heads and two latents of a pair: 128 rows at H = 2); a warp's two m16
+//                    tiles are the same 16 coordinates and head in the two latents, so it
+//                    weights both by their softmax probabilities and adds their sum into the
+//                    accumulator: no two warps write one element;
+//   G[b, z], A[b, z] per latent (they differ per latent): [T x hid] @ [hid x H*hidm] on the
+//                    tensor cores, and the logits (N = H) as warp dot products on the CUDA
+//                    cores, as is the head's last layer (N = out_dim);
+//   tail             [T x H*D] products.
+// Two passes over the latents, as the softmax over Z forces: the logits of every latent
+// first, then the value chains weighted into the accumulator.
 //
-// What bounds it. About 1.42 MFLOP of matmul per decoded point at Navier-Stokes
-// width and a few bytes of input per point, so it is bound by operations: every
-// dense layer is a [32 x K] @ [K x N] product in f32 FMAs, each warp owning 4 rows
-// x 4 strided columns per lane (16 accumulators), reading X as float4 broadcasts and
-// W from the staging buffer. This is the simple first version: bf16 operands on the
-// tensor cores (wgmma, TMA-staged weights) are the next step.
+// Products (`gemm`): m16n8k8 TF32 mma.sync through the 3xTF32 helper of tf32_mma.cuh. The 8
+// warps tile the rows as MW x (8 / MW): 4 x 2 for the 128-row products (a warp owns 32
+// rows x 64 columns), 1 x 8 for the 32-row ones (32 rows x 32 columns). A operands are the
+// activations, f32 in shared memory with a row stride of 4 mod 32 words (fragment loads
+// conflict free), split into big and small per fragment. B operands are staged 16 k-rows at
+// a time into a ring of 3 stages by cp.async (16-byte copies, zero-filled past N): the
+// copies of chunk c + 2 are in flight while chunk c is multiplied, one barrier per chunk.
+// q_w1, v_w1, fw and m_w2, each read by four warps in the 128-row products, come pre-split
+// by the wrapper (`split_weights` in fused_decode.py: float2 (big, small) pairs, row-major
+// [K][N]) and are staged as they are; G and the tail weights (each B element read by one
+// warp) come raw and are split per fragment. Staged row strides: 132 float2 (4 mod 16:
+// 8-byte B loads conflict free) and 264 floats (8 mod 32).
+//
+// Accuracy. Every k step of 8 (K1_CHAIN_STEPS = 1) goes into a fresh accumulator that is
+// added into f32 registers: the tensor core truncates when it aligns addends. Measured on
+// the H100 against the plain version at b = 160, c = 512, with the tail (PERF.md, PR 8;
+// `tools/k1_compare.py --chain`): chain 1, rel-L2 in PERF.md §6; longer chains there too.
+//
+// Shared memory at Navier-Stokes width (z = 4, I = 4, hid = 128, H = 2, hidm = D = 128):
+//   X    [128 x 132] f32   67,584 B   RFF features, then u / t of all latents
+//   Y    [128 x 132] f32   67,584 B   hq / hv; the pre rows of a latent pair [64 x 260];
+//                                     tail activations [32 x 260]
+//   acc  [32 x 260]  f32   33,280 B   the weighted sum y, then tail activations
+//   ring 3 x 16 x 264 f32  50,688 B
+//   probabilities [Z][32][H] 1,024 B, invariants [4][32][I] 2,048 B
+//   222,208 B of the 232,448 a block may have: one block (8 warps) per SM.
+// L2 weight bytes per block of 32 points: q_w1, v_w1, fw 3 x 128 KB (pre-split, once for all
+// four latents); m_w2 2 x 128 KB (once per pair); G 4 x 128 KB; A 4 KB; tail o_w, p_w1, p_w2
+// 3 x 256 KB, h_w1 128 KB, h_w2 64 KB: 2,116 KB, 66 KB per decoded point (86 KB before:
+// each latent and head streamed every shared weight once, in f32).
+//
+// What bounds it: 1.415 MFLOP of products per point, on the tensor cores at three TF32
+// products per product (0.70 ms at b = 160, c = 512); a few bytes of input per point.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"  // gelu_tanh, split_tf32, mma_3xtf32 (shared with K2)
+
+// Build-time variants (tools/k1_compare.py --define NAME=VALUE builds them side by side).
+#ifndef K1_CHAIN_STEPS
+#define K1_CHAIN_STEPS 2  // k steps of 8 an mma accumulator carries before it is added into f32:
+#endif                    // 1, 2 (a staged chunk) or 0 (the whole sum)
+#ifndef K1_STAGES
+#define K1_STAGES 3       // depth of the cp.async ring
+#endif
+#ifndef K1_PRESPLIT
+#define K1_PRESPLIT 1     // q_w1, v_w1, fw, m_w2 from the pre-split copies (0: raw, split per fragment)
+#endif
+#ifndef K1_THREADS
+#define K1_THREADS 256    // threads a block
+#endif
+#ifndef K1_NJ128
+#define K1_NJ128 (K1_THREADS == 256 ? 4 : 2)  // n8 tiles a warp in the 128-row products
+#endif
+#ifndef K1_CVT_SPLIT
+#define K1_CVT_SPLIT 0    // split operands with cvt.rna (split_tf32), not integer rounding
+#endif
 
 namespace {
 
 constexpr int TILE = 32;              // coordinates per block
-constexpr int THREADS = 256;
+constexpr int THREADS = K1_THREADS;
 constexpr int WARPS = THREADS / 32;
-constexpr int RT = TILE / WARPS;      // rows per warp in a dense layer
-constexpr int CT = 4;                 // columns per lane: lane + 32 * j
-constexpr int SLAB = 32 * CT;         // columns of W per pass
-constexpr int KC = 32;                // rows of W per staging step
+constexpr int ZG = 4;                 // latents per batched product (ZG * TILE = 128 rows)
+constexpr int KC = 16;                // k rows per staged chunk
+constexpr int STAGES = K1_STAGES;     // ring depth
+constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (128 + 4) float2 or 16 x (256 + 8) f32
+constexpr int CHAIN = K1_CHAIN_STEPS;
+constexpr bool PRESPLIT = K1_PRESPLIT != 0;
+constexpr int NJ128 = K1_NJ128;
+constexpr bool CVT_SPLIT = K1_CVT_SPLIT != 0;
+constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
+constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
 constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
-
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
-enum { STORE = 0, ACCUM = 1 };
+constexpr int kNumPtrs = 33;
+constexpr int kNumDims = 10;
+static_assert(CHAIN >= 0 && CHAIN <= 2 && STAGES >= 2 && (THREADS == 256 || THREADS == 512), "variant");
 
 struct Params {
   const float *inv, *wb, *A, *ab, *G, *c;
   const float *q_coeff, *q_w1, *q_b1, *v_coeff, *v_w1, *v_b1, *fw, *fb, *m_w2, *m_b2;
+  const float *q_w1s, *v_w1s, *fws, *m_w2s;  // the same, pre-split: (big, small) pairs, [K][N]
   const float *o_w, *o_b, *p_w1, *p_b1, *p_w2, *p_b2, *h_w1, *h_b1, *h_w2, *h_b2, *h_w3, *h_b3;
   float* out;
   int B, Z, C, I, hid, H, D, hidm, out_dim;
-  int ldA, ldB;  // row strides of the shared activation buffers (multiples of 4)
+  int ldX, ldP, ldW;  // row strides (words, 4 mod 32): X / Y as [128][ldX], pre [64][ldP], acc [32][ldW]
+  int nY;             // floats of Y
 };
 
-constexpr int kNumPtrs = 29;
-constexpr int kNumDims = 10;
+// Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
+__host__ __device__ inline int row_stride(int width) { return (width + 31) / 32 * 32 + 4; }
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
+// Both give big = tf32(x), small = tf32(x - big), bit for bit; the integer form takes fewer
+// instructions (cvt.rna.tf32 is not one instruction on sm_90).
+__device__ __forceinline__ float2 split(float x) { return CVT_SPLIT ? split_tf32(x) : split_tf32_int(x); }
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// out[rows of the block] = X W for a [R x K] activation operand in shared memory and W [K x N]
+// in global memory (PRE: float2 (big, small) pairs, else f32), on the tensor cores at f32
+// accuracy. Warp (wm, wn) of the MW x (WARPS / MW) layout owns two m16 tiles of rows (mi =
+// 0, 1) and NJ n8 tiles of each N slab of WARPS / MW x 8 NJ columns.
+//   xrow(wm, mi, r) -> pointer to the start of A row r (0..15) of tile mi, warp row wm;
+//   active(wm)      -> whether warp row wm has rows (warp-uniform);
+//   epi(wm, r, n, v0, v1) is called once per output column n < N and tile row r with the
+//   sums of tiles mi = 0 and 1.
+// ASPLIT (32-row products, MW = 1, where all warps read the same A fragments): the block
+// splits each A chunk once into two [32][LDA] float2 buffers after the ring, one chunk ahead;
+// otherwise each warp splits its own A fragments. K must be a multiple of KC and N of 4.
+// Every thread of the block calls it; it starts with a barrier (X may have been written just
+// before) and does not end with one.
+template <int MW, int NJ, bool PRE, bool ASPLIT, class XRow, class Active, class Epi>
+__device__ __forceinline__ void gemm(XRow xrow, Active active, int K, const float* __restrict__ W, int N,
+                                     float* ring, Epi epi) {
+  constexpr int NW = WARPS / MW, WN = 8 * NJ, SW = NW * WN;
+  constexpr int LD = PRE ? 2 * (SW + 4) : SW + 8;  // floats per staged k row
+  constexpr int PER_ROW = PRE ? SW / 2 : SW / 4;   // 16-byte copies per staged k row
+  static_assert(KC * LD <= STAGE_FLOATS && KC == 16, "stage shape");
+  static_assert(!ASPLIT || MW == 1, "a block-split A chunk is 32 rows");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp / NW, wn = warp - wm * NW;
+  const bool act = active(wm);
+  const float* xr[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) xr[mi][h] = xrow(wm, mi, g + 8 * h);
+  constexpr int E = PRE ? 2 : 1;                   // floats per weight element
+  constexpr int CPT = KC * PER_ROW / THREADS;      // 16-byte copies a thread issues per chunk
+  constexpr int APT = 32 * KC / THREADS;           // A elements a thread splits per chunk (ASPLIT)
+  static_assert(CPT * THREADS == KC * PER_ROW && APT * THREADS == 32 * KC, "staging shape");
+  const int nk = K / KC, total = nk * ((N + SW - 1) / SW);
+  float2* astage = reinterpret_cast<float2*>(ring + STAGES * STAGE_FLOATS);
+
+  // What this thread copies and splits does not change from chunk to chunk: its offsets are
+  // computed once (no divisions in the loop).
+  int c_dst[CPT], c_src[CPT], c_col[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int idx = tid + i * THREADS, kk = idx / PER_ROW, q = idx % PER_ROW;
+    c_col[i] = (4 / E) * q;
+    c_dst[i] = kk * LD + 4 * q;
+    c_src[i] = (kk * N + c_col[i]) * E;
+  }
+  const float* a_src[ASPLIT ? APT : 1];
+  int a_dst[ASPLIT ? APT : 1];
+  if (ASPLIT) {
+#pragma unroll
+    for (int i = 0; i < APT; ++i) {
+      const int idx = tid + i * THREADS, r = idx / KC, kk = idx % KC;
+      a_src[i] = xrow(0, r >> 4, r & 15) + kk;
+      a_dst[i] = r * LDA + kk;
+    }
+  }
+  int is = 0, ik = 0, ist = 0;  // slab, k chunk and ring stage of the next chunk to issue
+  auto issue = [&](int c) {
+    if (c < total) {
+      const float* src = W + (ik * KC * N + is * SW) * E;
+      float* st = ring + ist * STAGE_FLOATS;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        const bool ok = is * SW + c_col[i] < N;
+        cp_async16(st + c_dst[i], ok ? src + c_src[i] : W, ok);
+      }
+      if (++ik == nk) { ik = 0; ++is; }
+      if (++ist == STAGES) ist = 0;
+    }
+    cp_async_commit();  // an empty group past the end keeps the wait count uniform
+  };
+  auto split_a = [&](int k0, int buf) {
+#pragma unroll
+    for (int i = 0; i < APT; ++i) astage[buf * 32 * LDA + a_dst[i]] = split(a_src[i][k0]);
+  };
+
+  __syncthreads();  // earlier readers of the ring and astage (and writers of X) are done
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
+  if (ASPLIT) split_a(0, 0);
+  float acc[2][NJ][4];
+  int s = 0, kc = 0, cst = 0;  // slab, k chunk and ring stage of chunk c
+  for (int c = 0; c < total; ++c, cst = cst + 1 == STAGES ? 0 : cst + 1) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();              // everyone's have, and A chunk c is split; all are done with chunk c - 1
+    issue(c + STAGES - 1);        // into the stage chunk c - 1 used
+    if (ASPLIT && c + 1 < total) split_a(kc + 1 == nk ? 0 : (kc + 1) * KC, (c + 1) & 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+    }
+    const int ncols = N - s * SW;
+    const float* st = ring + cst * STAGE_FLOATS;
+    if (act && wn * WN < ncols) {
+      // A fragments of both k steps of the chunk, split.
+      uint32_t ab[2][2][4], as[2][2][4];  // [k step][mi][fragment register]
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          float2 v[4];
+          if (ASPLIT) {
+            const float2* a = astage + (c & 1) * 32 * LDA + (mi * 16 + g) * LDA + 8 * q + tq;
+            v[0] = a[0]; v[1] = a[8 * LDA]; v[2] = a[4]; v[3] = a[8 * LDA + 4];
+          } else {
+            const int k = kc * KC + 8 * q + tq;
+            v[0] = split(xr[mi][0][k]); v[1] = split(xr[mi][1][k]);
+            v[2] = split(xr[mi][0][k + 4]); v[3] = split(xr[mi][1][k + 4]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ab[q][mi][e] = __float_as_uint(v[e].x);
+            as[q][mi][e] = __float_as_uint(v[e].y);
+          }
+        }
+      // B fragments of both k steps for every n8 tile of the warp.
+      uint32_t bb[2][NJ][2], bs[2][NJ][2];  // [k step][tile][fragment register]
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = wn * WN + 8 * j + g;
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int kk = 8 * q + tq + 4 * r;
+            const float2 w = PRE ? reinterpret_cast<const float2*>(st)[kk * (LD / 2) + n] : split(st[kk * LD + n]);
+            bb[q][j][r] = __float_as_uint(w.x);
+            bs[q][j][r] = __float_as_uint(w.y);
+          }
+      }
+      if constexpr (CHAIN == 0) {  // the whole sum in the mma accumulator
+#pragma unroll
+        for (int q = 0; q < 2; ++q) mma_3xtf32_tiles(acc, ab[q], as[q], bb[q], bs[q]);
+      } else {  // a fresh accumulator per k step (CHAIN = 1) or per chunk of two (CHAIN = 2)
+        float p[2][NJ][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q == 0 || CHAIN == 1) {
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) p[mi][j][e] = 0.0f;
+          }
+          mma_3xtf32_tiles(p, ab[q], as[q], bb[q], bs[q]);
+          if (q == 1 || CHAIN == 1) {
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mi][j][e] += p[mi][j][e];
+          }
+        }
+      }
+      if (kc == nk - 1) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = wn * WN + 8 * j + 2 * tq + e;
+            if (n >= ncols) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) epi(wm, g + 8 * h, s * SW + n, acc[0][j][2 * h + e], acc[1][j][2 * h + e]);
+          }
+      }
+    }
+    if (++kc == nk) { kc = 0; ++s; }
+  }
+  cp_async_wait<0>();
+}
+
+// Y = act(X W + bias) over rows [0, R) of X and Y (row strides ldx, ldy), R a multiple of 32.
+// 128-row products run 4 x 2 warps, 32-row ones 1 x 8.
+enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
 
 template <int ACT>
 __device__ __forceinline__ float activate(float x) {
@@ -78,143 +334,171 @@ __device__ __forceinline__ float activate(float x) {
   return x;
 }
 
-// Y[t, n] = act(sum_k X[t, k] * W[k, n] + bias[n]) for the TILE rows of the block, or
-// with MODE == ACCUM: Y[t, n] += scale[t * scale_stride] * (sum_k ... + bias[n]).
-// X and Y are in shared memory with row strides ldx / ldy (X != Y); W is [K, N]
-// row-major in global memory, staged KC rows x SLAB columns at a time through Ws.
-// Needs K % 4 == 0 and ldx % 4 == 0 (float4 reads of X). Every thread of the block
-// must call it (it synchronises); it starts with a barrier, so X may have been
-// written just before the call.
-template <int ACT, int MODE>
-__device__ void dense(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                      const float* __restrict__ bias, float* Y, int ldy, float* Ws,
-                      const float* scale = nullptr, int scale_stride = 0) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int r0 = (tid >> 5) * RT;
-  for (int n_base = 0; n_base < N; n_base += SLAB) {
-    const int ncols = min(SLAB, N - n_base);
-    float acc[RT][CT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      const int kc = min(KC, K - k0);
-      __syncthreads();  // earlier readers of Ws (and writers of X) are done
-      for (int idx = tid; idx < kc * SLAB; idx += THREADS) {
-        const int kk = idx / SLAB, n = idx - kk * SLAB;
-        Ws[idx] = n < ncols ? __ldg(W + (size_t)(k0 + kk) * N + n_base + n) : 0.0f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kc; kk += 4) {
-        float4 xv[RT];
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-          xv[i] = *reinterpret_cast<const float4*>(X + (r0 + i) * ldx + k0 + kk);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float w[CT];
-#pragma unroll
-          for (int j = 0; j < CT; ++j) w[j] = Ws[(kk + q) * SLAB + lane + 32 * j];
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            const float x = q == 0 ? xv[i].x : q == 1 ? xv[i].y : q == 2 ? xv[i].z : xv[i].w;
-#pragma unroll
-            for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int n = lane + 32 * j;
-      if (n < ncols) {
-        const float bn = __ldg(bias + n_base + n);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          float* y = Y + (r0 + i) * ldy + n_base + n;
-          if (MODE == ACCUM)
-            *y = fmaf(scale[(r0 + i) * scale_stride], acc[i][j] + bn, *y);
-          else
-            *y = activate<ACT>(acc[i][j] + bn);
-        }
-      }
-    }
-  }
+template <int MW, int NJ, bool PRE, bool ASPLIT, int ACT>
+__device__ __noinline__ void dense(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
+                                   const float* __restrict__ bias, float* Y, int ldy, float* ring) {
+  gemm<MW, NJ, PRE, ASPLIT>(
+      [&](int wm, int mi, int r) { return X + (wm * 32 + mi * 16 + r) * ldx; },
+      [&](int wm) { return wm * 32 < R; }, K, W, N, ring,
+      [&](int wm, int r, int n, float v0, float v1) {
+        const float bn = __ldg(bias + n);
+        float* y = Y + (wm * 32 + r) * ldy + n;
+        y[0] = activate<ACT>(v0 + bn);
+        y[16 * ldy] = activate<ACT>(v1 + bn);
+      });
 }
 
-// F[t, :half] = sin(2 pi inv[t] @ coeff), F[t, half:] = cos(...); coeff is [I, half].
-__device__ void rff_features(const float* s_inv, int I, const float* __restrict__ coeff,
-                             int half, float* F, int ldf) {
-  for (int idx = threadIdx.x; idx < TILE * half; idx += THREADS) {
-    const int t = idx / half, j = idx - t * half;
+// The 32-row layers (one latent's G, the tail): four n8 tiles a warp when N is wide.
+template <int ACT>
+__device__ __forceinline__ void dense32(const float* X, int ldx, int K, const float* __restrict__ W, int N,
+                                        const float* __restrict__ bias, float* Y, int ldy, float* ring) {
+  if (N > 128)
+    dense<1, 256 / (8 * WARPS), false, true, ACT>(X, ldx, 32, K, W, N, bias, Y, ldy, ring);
+  else
+    dense<1, 128 / (8 * WARPS), false, true, ACT>(X, ldx, 32, K, W, N, bias, Y, ldy, ring);
+}
+
+// F[r, :half] = sin(2 pi inv[r] @ coeff), F[r, half:] = cos(...) for the R rows of a latent
+// group; coeff is [I, half].
+__device__ void rff_features(const float* s_inv, int R, int I, const float* __restrict__ coeff, int half,
+                             float* F, int ldf) {
+  for (int idx = threadIdx.x; idx < R * half; idx += THREADS) {
+    const int r = idx / half, j = idx - r * half;
     float proj = 0.0f;
-    for (int i = 0; i < I; ++i) proj = fmaf(s_inv[t * I + i], __ldg(coeff + i * half + j), proj);
+    for (int i = 0; i < I; ++i) proj = fmaf(s_inv[r * I + i], __ldg(coeff + i * half + j), proj);
     float s, co;
     sincosf(TWO_PI * proj, &s, &co);
-    F[t * ldf + j] = s;
-    F[t * ldf + half + j] = co;
+    F[r * ldf + j] = s;
+    F[r * ldf + half + j] = co;
   }
 }
 
-// Normalize-only LayerNorm of each of the `segs` segments of width `width` in every
-// row of X, one warp per segment; var = E[x^2] - E[x]^2 as in the JAX kernel.
-__device__ void normalize(float* X, int ldx, int segs, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < TILE * segs; r += WARPS) {
-    float* row = X + (r / segs) * ldx + (r % segs) * width;
+// Normalize-only LayerNorm of each of the `segs` segments of width `width` (a multiple of 4,
+// at most MAXW) in every one of `rows` rows of X; var = E[x^2] - E[x]^2 as in the JAX
+// kernel. Eight lanes per segment, four segments per warp at once, the values held in
+// registers between the two passes.
+constexpr int MAXW = 256;
+__device__ void normalize(float* X, int ldx, int rows, int segs, int width) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane & 7;
+  const int n_seg = rows * segs;
+  for (int base = 4 * warp; base < n_seg; base += 4 * WARPS) {  // warp-uniform: the shuffles see every lane
+    const int r = base + (lane >> 3);
+    const bool ok = r < n_seg;
+    float* row = X + (ok ? (r / segs) * ldx + (r % segs) * width : 0);
+    float4 v[MAXW / 32];
     float s = 0.0f, ss = 0.0f;
-    for (int n = lane; n < width; n += 32) {
-      const float v = row[n];
-      s += v;
-      ss = fmaf(v, v, ss);
+#pragma unroll
+    for (int i = 0; i < MAXW / 32; ++i) {
+      const int n = 4 * sub + 32 * i;
+      v[i] = ok && n < width ? *reinterpret_cast<const float4*>(row + n) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+      ss = fmaf(v[i].x, v[i].x, fmaf(v[i].y, v[i].y, fmaf(v[i].z, v[i].z, fmaf(v[i].w, v[i].w, ss))));
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
+    for (int o = 4; o > 0; o >>= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, o);
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
     }
     const float mean = s / width;
     const float rstd = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
-    for (int n = lane; n < width; n += 32) row[n] = (row[n] - mean) * rstd;
+#pragma unroll
+    for (int i = 0; i < MAXW / 32; ++i) {
+      const int n = 4 * sub + 32 * i;
+      if (ok && n < width)
+        *reinterpret_cast<float4*>(row + n) = make_float4((v[i].x - mean) * rstd, (v[i].y - mean) * rstd,
+                                                          (v[i].z - mean) * rstd, (v[i].w - mean) * rstd);
+    }
+  }
+}
+
+// The narrow products on the CUDA cores: for each output o of `count` (one warp per output),
+// lane t computes sum_k X(o)[t, k] W(o)[k * ldw] for row t of 32; store(o, t, value). Lane t
+// starts its sum at k = t, so the 32 rows (row stride 4 mod 32 words) hit distinct banks.
+template <class XOf, class WOf, class Store>
+__device__ void lane_dots(int count, int K, int ldw, XOf x_of, WOf w_of, Store store) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = warp; o < count; o += WARPS) {
+    const float* x = x_of(o, lane);
+    const float* w = w_of(o);
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int k = lane % K;
+    for (int i = 0; i < K; ++i) {
+      s[i & 3] = fmaf(x[k], __ldg(w + k * ldw), s[i & 3]);
+      if (++k == K) k = 0;
+    }
+    store(o, lane, (s[0] + s[1]) + (s[2] + s[3]));
+  }
+}
+
+// acc[t, h*D + n] += sum over the np (1 or 2) latents of a pair of prob[z, t, h] *
+// (normalize(pre_z,h)[t] @ m_w2 + m_b2)[n]: one product over the heads and latents of the
+// pair. Warp row wm holds head h0 + wm / 2 and coordinates 16 (wm % 2) + r; its tile mi is
+// latent mi of the pair, so one lane owns both latents' sums of an output element.
+__device__ __noinline__ void mixer(const float* Y, int ldP, int np, int H, int hidm, int D,
+                                   const float* __restrict__ m_w2, const float* __restrict__ m_b2,
+                                   const float* prob, float* acc, int ldW, float* ring) {
+  for (int h0 = 0; h0 < H; h0 += 2) {
+    gemm<4, NJ128, PRESPLIT, false>(
+        [&](int wm, int mi, int r) {
+          const int h = min(h0 + (wm >> 1), H - 1), t = (wm & 1) * 16 + r;
+          return Y + ((mi < np ? mi : 0) * TILE + t) * ldP + h * hidm;
+        },
+        [&](int wm) { return h0 + (wm >> 1) < H; }, hidm, m_w2, D, ring,
+        [&](int wm, int r, int n, float v0, float v1) {
+          const int h = h0 + (wm >> 1), t = (wm & 1) * 16 + r;
+          const float bn = __ldg(m_b2 + n);
+          float s = prob[t * H + h] * (v0 + bn);
+          if (np > 1) s = fmaf(prob[TILE * H + t * H + h], v1 + bn, s);
+          acc[t * ldW + h * D + n] += s;
+        });
   }
 }
 
 template <bool WITH_TAIL>
-__global__ void __launch_bounds__(THREADS) fused_decode_fwd_kernel(const Params P) {
+__global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Params P) {
   extern __shared__ __align__(16) float smem[];
-  const int ldA = P.ldA, ldB = P.ldB, Z = P.Z, H = P.H, I = P.I, hid = P.hid, D = P.D;
-  const int hidm = P.hidm, HD = H * D, HH = H * hidm;
-  float* bufA = smem;                    // [TILE][ldA]
-  float* bufB = bufA + TILE * ldA;       // [TILE][ldB]
-  float* acc = bufB + TILE * ldB;        // [TILE][ldB]
-  float* Ws = acc + TILE * ldB;          // [KC][SLAB] weight staging
-  float* s_prob = Ws + KC * SLAB;        // [Z][TILE][H] logits, then softmax weights
-  float* s_inv = s_prob + Z * TILE * H;  // [TILE][I]
+  const int Z = P.Z, H = P.H, I = P.I, hid = P.hid, D = P.D, hidm = P.hidm, C = P.C;
+  const int HD = H * D, HH = H * hidm, ldX = P.ldX, ldP = P.ldP, ldW = P.ldW;
+  float* X = smem;                       // [128][ldX]
+  float* Y = X + ZG * TILE * ldX;        // nY floats
+  float* acc = Y + P.nY;                 // [TILE][ldW]
+  float* ring = acc + TILE * ldW;        // [STAGES][STAGE_FLOATS]
+  float* s_prob = ring + RING_FLOATS;    // [Z][TILE][H] logits, then softmax weights
+  float* s_inv = s_prob + Z * TILE * H;  // [ZG][TILE][I]
   const int b = blockIdx.y, c0 = blockIdx.x * TILE, tid = threadIdx.x;
-  const int rows = min(TILE, P.C - c0);  // valid coordinates in this tile
+  const int rows = min(TILE, C - c0);  // valid coordinates in this tile
 
-  auto load_inv = [&](int z) {
-    const float* src = P.inv + ((size_t)(b * Z + z) * P.C + c0) * I;
-    for (int idx = tid; idx < TILE * I; idx += THREADS) s_inv[idx] = idx / I < rows ? src[idx] : 0.0f;
+  auto load_inv = [&](int z0, int nz) {
+    for (int idx = tid; idx < nz * TILE * I; idx += THREADS) {
+      const int zz = idx / (TILE * I), rem = idx - zz * TILE * I, t = rem / I;
+      s_inv[idx] = t < rows ? P.inv[((size_t)(b * Z + z0 + zz) * C + c0) * I + rem] : 0.0f;
+    }
+  };
+  auto features = [&](int z0, int nz, const float* coeff) {
+    __syncthreads();  // earlier readers of s_inv and X are done
+    load_inv(z0, nz);
+    __syncthreads();
+    rff_features(s_inv, nz * TILE, I, coeff, hid / 2, X, ldX);
   };
 
-  // Pass 1: per-latent logits from the query chain, then the softmax over latents.
-  for (int z = 0; z < Z; ++z) {
-    const size_t bz = (size_t)b * Z + z;
-    load_inv(z);
+  // Pass 1: every latent's logits from the query chain, ZG latents per product.
+  for (int z0 = 0; z0 < Z; z0 += ZG) {
+    const int nz = min(ZG, Z - z0);
+    features(z0, nz, P.q_coeff);
+    dense<4, NJ128, PRESPLIT, false, ACT_RELU>(X, ldX, nz * TILE, hid, PRESPLIT ? P.q_w1s : P.q_w1, hid, P.q_b1, Y, ldX, ring);
     __syncthreads();
-    rff_features(s_inv, I, P.q_coeff, hid / 2, bufA, ldA);
-    dense<ACT_RELU, STORE>(bufA, ldA, hid, P.q_w1, hid, P.q_b1, bufB, ldB, Ws);
-    float* logit = s_prob + z * TILE * H;
-    dense<ACT_NONE, STORE>(bufB, ldB, hid, P.A + bz * hid * H, H, P.ab + bz * H, logit, H, Ws);
-    __syncthreads();
-    for (int idx = tid; idx < TILE * H; idx += THREADS) {
-      const int t = idx / H;
-      if (t < rows) logit[idx] += P.wb[bz * P.C + c0 + t];
-    }
-    __syncthreads();
+    // logit[z, t, h] = hq[z, t] . A[b, z][:, h] + ab + wb: one warp per (latent, head).
+    lane_dots(
+        nz * H, hid, H, [&](int o, int t) { return Y + ((o / H) * TILE + t) * ldX; },
+        [&](int o) { return P.A + ((size_t)b * Z + z0 + o / H) * hid * H + o % H; },
+        [&](int o, int t, float s) {
+          const int z = z0 + o / H, h = o % H;
+          const size_t bz = (size_t)b * Z + z;
+          s_prob[(z * TILE + t) * H + h] =
+              s + __ldg(P.ab + bz * H + h) + (t < rows ? __ldg(P.wb + bz * C + c0 + t) : 0.0f);
+        });
   }
+  __syncthreads();
   for (int idx = tid; idx < TILE * H; idx += THREADS) {
     float m = -INFINITY;
     for (int z = 0; z < Z; ++z) m = fmaxf(m, s_prob[z * TILE * H + idx]);
@@ -226,59 +510,90 @@ __global__ void __launch_bounds__(THREADS) fused_decode_fwd_kernel(const Params 
     }
     for (int z = 0; z < Z; ++z) s_prob[z * TILE * H + idx] /= sum;
   }
-  for (int idx = tid; idx < TILE * HD; idx += THREADS) acc[(idx / HD) * ldB + idx % HD] = 0.0f;
+  for (int idx = tid; idx < TILE * HD; idx += THREADS) acc[(idx / HD) * ldW + idx % HD] = 0.0f;
 
-  // Pass 2: the FiLM-conditioned value chain per latent, weighted into acc.
-  for (int z = 0; z < Z; ++z) {
-    const size_t bz = (size_t)b * Z + z;
+  // Pass 2: the FiLM-conditioned value chains, weighted into acc.
+  for (int z0 = 0; z0 < Z; z0 += ZG) {
+    const int nz = min(ZG, Z - z0);
+    features(z0, nz, P.v_coeff);
+    dense<4, NJ128, PRESPLIT, false, ACT_RELU>(X, ldX, nz * TILE, hid, PRESPLIT ? P.v_w1s : P.v_w1, hid, P.v_b1, Y, ldX, ring);
+    dense<4, NJ128, PRESPLIT, false, ACT_GELU>(Y, ldX, nz * TILE, hid, PRESPLIT ? P.fws : P.fw, hid, P.fb, X, ldX, ring);
     __syncthreads();
-    load_inv(z);
-    __syncthreads();
-    rff_features(s_inv, I, P.v_coeff, hid / 2, bufA, ldA);
-    dense<ACT_RELU, STORE>(bufA, ldA, hid, P.v_w1, hid, P.v_b1, bufB, ldB, Ws);
-    dense<ACT_GELU, STORE>(bufB, ldB, hid, P.fw, hid, P.fb, bufA, ldA, Ws);
-    __syncthreads();
-    normalize(bufA, ldA, 1, hid);
-    dense<ACT_GELU, STORE>(bufA, ldA, hid, P.G + bz * hid * HH, HH, P.c + bz * HH, bufB, ldB, Ws);
-    __syncthreads();
-    normalize(bufB, ldB, H, hidm);
-    const float* prob = s_prob + z * TILE * H;
-    for (int h = 0; h < H; ++h)  // heads read and write disjoint columns
-      dense<ACT_NONE, ACCUM>(bufB + h * hidm, ldB, hidm, P.m_w2, D, P.m_b2, acc + h * D, ldB, Ws,
-                             prob + h, H);
+    normalize(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
+    for (int zp = 0; zp < nz; zp += 2) {   // pairs of latents
+      const int np = min(2, nz - zp);
+      for (int zz = 0; zz < np; ++zz) {
+        const size_t bz = (size_t)b * Z + z0 + zp + zz;
+        dense32<ACT_GELU>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
+                          Y + zz * TILE * ldP, ldP, ring);
+      }
+      __syncthreads();
+      normalize(Y, ldP, np * TILE, H, hidm);
+      mixer(Y, P.ldP, np, H, hidm, D, PRESPLIT ? P.m_w2s : P.m_w2, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW,
+            ring);
+    }
   }
 
-  const float* result = acc;
-  int width = HD;
+  float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
   if (WITH_TAIL) {
-    dense<ACT_NONE, STORE>(acc, ldB, HD, P.o_w, HD, P.o_b, bufB, ldB, Ws);
-    dense<ACT_GELU, STORE>(bufB, ldB, HD, P.p_w1, HD, P.p_b1, acc, ldB, Ws);
+    dense32<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW, ring);
+    dense32<ACT_GELU>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW, ring);
     __syncthreads();
-    normalize(acc, ldB, 1, HD);
-    dense<ACT_GELU, STORE>(acc, ldB, HD, P.p_w2, HD, P.p_b2, bufB, ldB, Ws);
-    dense<ACT_GELU, STORE>(bufB, ldB, HD, P.h_w1, hid, P.h_b1, acc, ldB, Ws);
-    dense<ACT_GELU, STORE>(acc, ldB, hid, P.h_w2, hid, P.h_b2, bufB, ldB, Ws);
-    dense<ACT_NONE, STORE>(bufB, ldB, hid, P.h_w3, P.out_dim, P.h_b3, acc, ldB, Ws);
-    width = P.out_dim;
+    normalize(acc, ldW, TILE, 1, HD);
+    dense32<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW, ring);
+    dense32<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW, ring);
+    dense32<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW, ring);
+    __syncthreads();
+    const int od = P.out_dim;
+    lane_dots(
+        od, hid, od, [&](int, int t) { return Y + t * ldW; }, [&](int o) { return P.h_w3 + o; },
+        [&](int o, int t, float s) {
+          if (t < rows) dst[t * od + o] = s + __ldg(P.h_b3 + o);
+        });
+  } else {
+    __syncthreads();
+    for (int idx = tid; idx < rows * HD; idx += THREADS) dst[idx] = acc[(idx / HD) * ldW + idx % HD];
   }
-  __syncthreads();
-  float* dst = P.out + ((size_t)b * P.C + c0) * width;
-  for (int idx = tid; idx < rows * width; idx += THREADS) dst[idx] = result[(idx / width) * ldB + idx % width];
+}
+
+// Fills P's strides; false for shapes the kernel does not take.
+bool layout(Params& P, bool with_tail, size_t* smem) {
+  if (P.B < 0 || P.B > 65535 || P.Z <= 0 || P.C < 0 || P.I <= 0 || P.H <= 0 || P.out_dim <= 0) return false;
+  if (P.hid % KC || P.hidm % KC || P.D % KC || P.hid > 128) return false;  // X holds [128][hid]
+  if (P.hidm > MAXW || P.H * P.D > MAXW) return false;                        // normalize's registers
+  if (!with_tail && P.out_dim != P.H * P.D) return false;
+  const int HD = P.H * P.D, HH = P.H * P.hidm;
+  P.ldX = row_stride(P.hid);
+  P.ldP = row_stride(HH);
+  P.ldW = row_stride(HD > P.hid ? HD : P.hid);
+  size_t nY = (size_t)ZG * TILE * P.ldX;
+  if ((size_t)2 * TILE * P.ldP > nY) nY = (size_t)2 * TILE * P.ldP;
+  if ((size_t)TILE * P.ldW > nY) nY = (size_t)TILE * P.ldW;
+  P.nY = (int)nY;
+  *smem = sizeof(float) * ((size_t)ZG * TILE * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)RING_FLOATS +
+                           (size_t)P.Z * TILE * P.H + (size_t)ZG * TILE * P.I);
+  return *smem <= 232448;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one block, in bytes.
-size_t fused_decode_fwd_smem_bytes(int Z, int I, int H, int ldA, int ldB) {
-  return sizeof(float) * ((size_t)TILE * (ldA + 2 * ldB) + (size_t)KC * SLAB +
-                          (size_t)Z * TILE * H + (size_t)TILE * I);
+// Shared memory of one block in bytes, 0 for shapes the kernel does not take.
+// dims as for fused_decode_fwd_launch.
+size_t fused_decode_fwd_smem_bytes(const int* dims, int n_dims) {
+  if (n_dims != kNumDims) return 0;
+  Params P;
+  P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
+  P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
+  size_t smem = 0;
+  return layout(P, dims[9] != 0, &smem) ? smem : 0;
 }
 
-// ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null
-// without the tail), out. dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail.
-// Launches on `stream` and returns the cudaError_t of the launch.
+// ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null without
+// the tail), out, then q_w1, v_w1, fw and m_w2 split into (big, small) float2 pairs.
+// dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail. Launches on `stream` and returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for shapes it does not take).
 int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
                             void* stream) {
   if (n_ptrs != kNumPtrs || n_dims != kNumDims) return (int)cudaErrorInvalidValue;
@@ -291,18 +606,14 @@ int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   P.o_w = f[16]; P.o_b = f[17]; P.p_w1 = f[18]; P.p_b1 = f[19]; P.p_w2 = f[20]; P.p_b2 = f[21];
   P.h_w1 = f[22]; P.h_b1 = f[23]; P.h_w2 = f[24]; P.h_b2 = f[25]; P.h_w3 = f[26]; P.h_b3 = f[27];
   P.out = const_cast<float*>(f[28]);
+  P.q_w1s = f[29]; P.v_w1s = f[30]; P.fws = f[31]; P.m_w2s = f[32];
   P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
   P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
   const bool with_tail = dims[9] != 0;
-  int ld = P.hid > P.H * P.hidm ? P.hid : P.H * P.hidm;
-  ld = ld > P.H * P.D ? ld : P.H * P.D;
-  P.ldA = P.hid;
-  P.ldB = (ld + 3) / 4 * 4;
-  if (P.hid % 4 || P.hidm % 4 || P.D % 4 || (with_tail && P.out_dim > P.ldB) || P.B > 65535)
-    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  if (!layout(P, with_tail, &smem)) return (int)cudaErrorInvalidValue;
   if (P.B == 0 || P.C == 0) return (int)cudaSuccess;
 
-  const size_t smem = fused_decode_fwd_smem_bytes(P.Z, P.I, P.H, P.ldA, P.ldB);
   const dim3 grid((P.C + TILE - 1) / TILE, P.B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -3,8 +3,9 @@
 Each source exposes ``extern "C"`` launchers that take raw pointers, sizes and a
 stream and return a ``cudaError_t`` code; nothing includes PyTorch's headers, so a
 build takes seconds. The shared library goes into ``csrc/_build/`` (gitignored),
-named by a hash of the source and the flags, and is built at first use: a fresh
-checkout builds on its first call, a later call loads the cached file.
+named by a hash of the source, every header it includes with ``#include "..."``
+(followed recursively) and the flags, and is built at first use: a fresh checkout
+builds on its first call, a later call loads the cached file.
 """
 
 from __future__ import annotations
@@ -12,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "included_files", "build_key", "build", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "_build"
@@ -41,6 +43,35 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def included_files(src: Path) -> list:
+    """``src`` and every file it includes with ``#include "..."``, recursively, each once.
+
+    A quoted include is looked up beside the file that includes it (an absolute path
+    as it is), as ``nvcc`` does first; system headers (``<...>``) are not followed.
+    """
+    seen, todo = [], [Path(src).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            todo.append((path.parent / name).resolve())
+    return seen
+
+
+def build_key(src: Path) -> str:
+    """Hash of the source, the headers it includes and the flags: the library's name."""
+    h = hashlib.sha256()
+    for path in included_files(src):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` (or ``source``, when it is an absolute path) into a
     shared library unless it is already built.
@@ -49,7 +80,7 @@ def build(source: str) -> Path:
     shared memory and spills per kernel) is kept beside it as ``<name>.ptxas.txt``.
     """
     src = CSRC_DIR / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = build_key(src)
     lib = BUILD_DIR / f"{src.stem}-{key}.so"
     if lib.exists():
         return lib

@@ -18,7 +18,9 @@ Layers, as in the JAX package:
   version the CPU tests run and the kernel is held against.
 - ``fused_decode_fwd`` is the kernel's wrapper. On a CPU tensor it runs the plain
   version; on a CUDA tensor it launches ``csrc/fused_decode_fwd.cu`` (built with
-  plain ``nvcc``, bound with ``ctypes``) or raises.
+  plain ``nvcc``, bound with ``ctypes``) or raises. It hands the kernel the four
+  weights that its 128-row products share, ``SPLIT_WEIGHT_NAMES``, split once per
+  launch into tf32 (big, small) pairs (``split_weights``).
 - ``fused_decode_bwd_plain`` is the VJP of ``fused_decode_plain`` by autograd, and
   ``fused_decode_bwd`` the wrapper of kernel K2 (``csrc/fused_decode_bwd.cu``), with
   the same CPU / CUDA dispatch.
@@ -52,6 +54,7 @@ __all__ = [
     "fold_decode_weights",
     "fused_decode_plain",
     "fused_decode_fwd",
+    "split_weights",
     "fused_decode_bwd_plain",
     "fused_decode_bwd",
     "FusedDecode",
@@ -74,6 +77,9 @@ TAIL_WEIGHT_NAMES = (
     "h_w2", "h_b2",
     "h_w3", "h_b3",
 )
+
+# Handed to K1 split into tf32 (big, small) pairs too, in this order (after ``out``).
+SPLIT_WEIGHT_NAMES = ("q_w1", "v_w1", "fw", "m_w2")
 
 KERNEL_SOURCE = "fused_decode_fwd.cu"
 BWD_KERNEL_SOURCE = "fused_decode_bwd.cu"
@@ -324,30 +330,63 @@ def _check_inputs(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int):
     return B, Z, C, I, hid, hidm, out_dim, with_tail
 
 
-def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int) -> torch.Tensor:
-    H, D = num_heads, head_dim
-    dev = inv.device
-    B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
-    lib = cuda_lib.load(KERNEL_SOURCE)
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32 (10 mantissa bits), to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: add half of the dropped 13 bits' unit, clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weights(ws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``SPLIT_WEIGHT_NAMES`` of the folded weights as tf32 (big, small) pairs.
+
+    big = tf32(w) and small = tf32(w - big), so big + small is within 2^-22 |w| of w.
+    Returns one contiguous buffer and, per weight, its view [K, N, 2] (row-major, each
+    element's big then small), whose pointers K1 takes after ``out``.
+    """
+    mats = [ws[WEIGHT_NAMES.index(n)] for n in SPLIT_WEIGHT_NAMES]
+    flat = torch.cat([w.reshape(-1) for w in mats])
+    big = _tf32(flat)
+    buf = torch.stack([big, _tf32(flat - big)], dim=-1)
+    views, off = [], 0
+    for w in mats:
+        views.append(buf[off:off + w.numel()].view(*w.shape, 2))
+        off += w.numel()
+    return buf, tuple(views)
+
+
+def _fwd_lib(source: str = KERNEL_SOURCE):
+    """K1's library, bound; ``source`` may name another build of the same C interface."""
+    lib = cuda_lib.load(source)
     launch = lib.fused_decode_fwd_launch
     launch.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
     launch.restype = ctypes.c_int
     lib.fused_decode_fwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_decode_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, lib=None) -> torch.Tensor:
+    H, D = num_heads, head_dim
+    dev = inv.device
+    B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
+    lib = lib or _fwd_lib()
 
     out = torch.empty(B, C, out_dim, device=dev, dtype=torch.float32)
+    _, split = split_weights(ws)
     tail_ptrs = [t.data_ptr() for t in tws] if with_tail else [None] * len(TAIL_WEIGHT_NAMES)
     ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G.data_ptr(),
-            c.data_ptr(), *[w.data_ptr() for w in ws], *tail_ptrs, out.data_ptr()]
+            c.data_ptr(), *[w.data_ptr() for w in ws], *tail_ptrs, out.data_ptr(),
+            *[w.data_ptr() for w in split]]
     dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch((ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
-                    (ctypes.c_int * len(dims))(*dims), len(dims), ctypes.c_void_p(stream))
+        rc = lib.fused_decode_fwd_launch((ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+                                         (ctypes.c_int * len(dims))(*dims), len(dims),
+                                         ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.fused_decode_fwd_error_string(rc).decode()
-        raise RuntimeError(f"fused_decode_fwd launch failed: {msg} (cudaError {rc})")
+        raise RuntimeError(f"fused_decode_fwd launch failed for dims {dims}: {msg} (cudaError {rc})")
     fused_decode_fwd.launches += 1
     return out
 

@@ -173,12 +173,97 @@ def test_kernel_source_matches_the_binding():
     src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
     n_ptrs = int(re.search(r"kNumPtrs = (\d+);", src).group(1))
     n_dims = int(re.search(r"kNumDims = (\d+);", src).group(1))
-    assert n_ptrs == 6 + len(fd.WEIGHT_NAMES) + len(fd.TAIL_WEIGHT_NAMES) + 1
+    # inputs, folded weights, tail weights, out, then the pre-split shared weights
+    assert n_ptrs == 6 + len(fd.WEIGHT_NAMES) + len(fd.TAIL_WEIGHT_NAMES) + 1 + len(fd.SPLIT_WEIGHT_NAMES)
     assert n_dims == 10
     for sym in ("fused_decode_fwd_launch", "fused_decode_fwd_error_string"):
         assert re.search(rf"\b{sym}\(", src)
     assert 'extern "C"' in src and "torch/extension.h" not in src
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+
+
+def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
+    """K1's wide products go through the shared 3xTF32 mma.sync helper, the latents share
+    the rows of the shared-weight layers, and weights are staged by cp.async in a ring."""
+    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    header = (cuda_lib.CSRC_DIR / "tf32_mma.cuh").read_text()
+    assert '#include "tf32_mma.cuh"' in src
+    assert "mma.sync.aligned" not in src and "cvt.rna" not in src  # only through the shared helper
+    assert header.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1
+    gemm = re.search(r"void gemm\(.*?\n}\n", src, re.S).group(0)
+    assert "mma_3xtf32_tiles(" in gemm and "split(" in gemm
+    assert re.search(r"float2 split\(float x\) \{ return CVT_SPLIT \? split_tf32\(x\) : split_tf32_int\(x\); \}", src)
+    tiles = re.search(r"void mma_3xtf32_tiles\(.*?\n}", header, re.S).group(0)
+    assert tiles.count("mma_tf32(") == 3  # small x big, big x small, big x big, across the tiles
+    # A fresh accumulator per K1_CHAIN_STEPS k steps, added into f32 registers.
+    assert re.search(r"#define K1_CHAIN_STEPS 2\b", src) and re.search(r"#define K1_PRESPLIT 1\b", src)
+    # Asynchronous staging: 16-byte cp.async into a ring of at least two stages.
+    assert "cp.async.cg.shared.global" in gemm or "cp_async16(" in gemm
+    assert "cp_async_wait<STAGES - 2>()" in gemm
+    assert int(re.search(r"constexpr int STAGES = (\d+);", src).group(1)) >= 2
+    body = re.search(r"__global__ void .*?fused_decode_fwd_kernel\(.*?\n}\n", src, re.S).group(0)
+    # q_w1, v_w1, fw over the rows of every latent of a group (ZG * TILE), pre-split.
+    for w in ("q_w1s", "v_w1s", "fws"):
+        assert re.search(rf"dense<4, NJ128, PRESPLIT, ACT_\w+>\([^;]*nz \* TILE, hid, PRESPLIT \? P\.{w}", body), w
+    assert int(re.search(r"constexpr int ZG = (\d+);", src).group(1)) * 32 == 128
+    # m_w2 over the heads and a pair of latents, pre-split; G and the tail on the helper too.
+    mixer = re.search(r"void mixer\(.*?\n}\n", src, re.S).group(0)
+    assert "gemm<4, NJ128, PRESPLIT>(" in mixer and re.search(r"mixer\([^;]*PRESPLIT \? P\.m_w2s", body)
+    assert re.search(r"dense32<ACT_GELU>\([^;]*P\.G \+ bz", body)
+    for w in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"):
+        assert re.search(rf"dense32<ACT_\w+>\([^;]*P\.{w},", body), w
+    # No f32 FMA loop over a weight tile is left for the wide products.
+    assert "fmaf(x, w[j]" not in src and "Ws[(kk + q) * SLAB" not in src
+    for banned in ("wmma", "cutlass", "cublas", "torch/extension.h"):
+        assert banned not in src.lower() and banned not in header.lower()
+
+
+def test_split_weights_reconstruct_and_match_the_launcher():
+    """The pre-split copies: big and small are tf32 (13 low bits clear), big is w rounded to
+    nearest with ties away from zero, big + small is within 2^-21 |w| of w, and the views
+    go to the launcher in the order it unpacks them."""
+    gen = torch.Generator().manual_seed(3)
+    ws = [torch.randn(*shape, generator=gen) * 10.0 ** torch.randint(-3, 3, shape, generator=gen)
+          for shape in ((4, 8), (16, 16), (16,), (4, 8), (16, 16), (16,), (16, 16), (16,), (8, 12), (12,))]
+    buf, views = fd.split_weights(ws)
+    assert buf.is_contiguous() and buf.dtype == torch.float32
+    off = 0
+    for name, view in zip(fd.SPLIT_WEIGHT_NAMES, views):
+        w = ws[fd.WEIGHT_NAMES.index(name)]
+        assert view.shape == (*w.shape, 2)
+        assert view.data_ptr() == buf.data_ptr() + off * 8  # [K][N] float2, one after another
+        off += w.numel()
+        big, small = view[..., 0], view[..., 1]
+        for part in (big, small):
+            assert not (part.contiguous().view(torch.int32) & 0x1FFF).any()
+        assert ((big + small) - w).abs().le(2.0 ** -21 * w.abs()).all()
+        assert (w - big).abs().le(2.0 ** -11 * w.abs()).all()
+    assert off == buf.shape[0]
+    one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23, 3.0])
+    assert fd._tf32(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0]
+    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    first = 6 + len(fd.WEIGHT_NAMES) + len(fd.TAIL_WEIGHT_NAMES) + 1
+    for i, name in enumerate(fd.SPLIT_WEIGHT_NAMES):
+        assert re.search(rf"P\.{name}s = f\[{first + i}\];", src), name
+
+
+def test_build_key_covers_included_headers(tmp_path):
+    """A library is named by its source, every header it includes (recursively) and the
+    flags, so an edited header never loads a stale build."""
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "outer.cuh"\nint x;\n')
+    assert [p.name for p in cuda_lib.included_files(src)] == ["k.cu", "outer.cuh", "inner.cuh"]
+    keys = {cuda_lib.build_key(src)}
+    (tmp_path / "inner.cuh").write_text("// inner, edited\n")
+    keys.add(cuda_lib.build_key(src))
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n// edited\n')
+    keys.add(cuda_lib.build_key(src))
+    assert len(keys) == 3
+    for source in (fd.KERNEL_SOURCE, fd.BWD_KERNEL_SOURCE):
+        names = [p.name for p in cuda_lib.included_files(cuda_lib.CSRC_DIR / source)]
+        assert names == [source, "tf32_mma.cuh"]
 
 
 def test_flop_count_at_navier_stokes_width():

@@ -177,9 +177,11 @@ def test_bwd_kernel_source_matches_the_binding():
 
 
 def test_bwd_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
-    """K2's products go through its own 3xTF32 mma.sync helper: every product shape calls
-    it, each operand is split into two tf32 parts, and no library GEMM is linked."""
-    src = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE).read_text()
+    """K2's products go through the 3xTF32 mma.sync helper (tf32_mma.cuh, which it shares
+    with K1): every product shape calls it, each operand is split into two tf32 parts,
+    and no library GEMM is linked."""
+    src = ((cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE).read_text()
+           + (cuda_lib.CSRC_DIR / "tf32_mma.cuh").read_text())
     assert src.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1
     assert src.count("cvt.rna.tf32.f32") == 1
     helper = re.search(r"void mma_3xtf32\(.*?\n}", src, re.S).group(0)
