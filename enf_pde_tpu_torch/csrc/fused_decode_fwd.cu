@@ -94,7 +94,7 @@
 #define K1_NJ128 (K1_THREADS == 256 ? 4 : 2)  // n8 tiles a warp in the 128-row products
 #endif
 #ifndef K1_CVT_SPLIT
-#define K1_CVT_SPLIT 0    // split operands with cvt.rna (split_tf32), not integer rounding
+#define K1_CVT_SPLIT 0    // split operands with the tf32 conversion (split_tf32), not integer rounding
 #endif
 
 namespace {
@@ -133,7 +133,7 @@ struct Params {
 __host__ __device__ inline int row_stride(int width) { return (width + 31) / 32 * 32 + 4; }
 
 // Both give big = tf32(x), small = tf32(x - big), bit for bit; the integer form takes fewer
-// instructions (cvt.rna.tf32 is not one instruction on sm_90).
+// instructions (the tf32 conversion compiles to several on sm_90).
 __device__ __forceinline__ float2 split(float x) { return CVT_SPLIT ? split_tf32(x) : split_tf32_int(x); }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
