@@ -79,19 +79,10 @@
 
 // Build-time variants (tools/k1_compare.py --define NAME=VALUE builds them side by side).
 #ifndef K1_CHAIN_STEPS
-#define K1_CHAIN_STEPS 2  // k steps of 8 an mma accumulator carries before it is added into f32:
-#endif                    // 1, 2 (a staged chunk) or 0 (the whole sum)
+#define K1_CHAIN_STEPS 2  // k steps of 8 an accumulator carries before it is added into f32:
+#endif                    // 1 (mma.sync only), 2 (a staged chunk) or 0 (the whole sum)
 #ifndef K1_STAGES
 #define K1_STAGES 3       // depth of the cp.async ring
-#endif
-#ifndef K1_PRESPLIT
-#define K1_PRESPLIT 1     // q_w1, v_w1, fw, m_w2 from the pre-split copies (0: raw, split per fragment)
-#endif
-#ifndef K1_THREADS
-#define K1_THREADS 256    // threads a block
-#endif
-#ifndef K1_NJ128
-#define K1_NJ128 (K1_THREADS == 256 ? 4 : 2)  // n8 tiles a warp in the 128-row products
 #endif
 #ifndef K1_CVT_SPLIT
 #define K1_CVT_SPLIT 0    // split operands with the tf32 conversion (split_tf32), not integer rounding
@@ -100,15 +91,15 @@
 namespace {
 
 constexpr int TILE = 32;              // coordinates per block
-constexpr int THREADS = K1_THREADS;
+constexpr int THREADS = 256;          // two warpgroups
 constexpr int WARPS = THREADS / 32;
 constexpr int ZG = 4;                 // latents per batched product (ZG * TILE = 128 rows)
 constexpr int KC = 16;                // k rows per staged chunk
 constexpr int STAGES = K1_STAGES;     // ring depth
-constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (128 + 4) float2 or 16 x (256 + 8) f32
+constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (256 + 8) f32, or a 16 KB wgmma block
+constexpr int WG_N = 128;             // columns of one wgmma product and of one pre-split slab
+constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part x k step x 8 x 128
 constexpr int CHAIN = K1_CHAIN_STEPS;
-constexpr bool PRESPLIT = K1_PRESPLIT != 0;
-constexpr int NJ128 = K1_NJ128;
 constexpr bool CVT_SPLIT = K1_CVT_SPLIT != 0;
 constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
@@ -116,12 +107,12 @@ constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 33;
 constexpr int kNumDims = 10;
-static_assert(CHAIN >= 0 && CHAIN <= 2 && STAGES >= 2 && (THREADS == 256 || THREADS == 512), "variant");
+static_assert(CHAIN >= 0 && CHAIN <= 2 && STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "variant");
 
 struct Params {
   const float *inv, *wb, *A, *ab, *G, *c;
-  const float *q_coeff, *q_w1, *q_b1, *v_coeff, *v_w1, *v_b1, *fw, *fb, *m_w2, *m_b2;
-  const float *q_w1s, *v_w1s, *fws, *m_w2s;  // the same, pre-split: (big, small) pairs, [K][N]
+  const float *q_coeff, *q_b1, *v_coeff, *v_b1, *fb, *m_b2;
+  const float *q_w1s, *v_w1s, *fws, *m_w2s;  // pre-split, blocked for wgmma (split_weights)
   const float *o_w, *o_b, *p_w1, *p_b1, *p_w2, *p_b2, *h_w1, *h_b1, *h_w2, *h_b2, *h_w3, *h_b3;
   float* out;
   int B, Z, C, I, hid, H, D, hidm, out_dim;
@@ -145,67 +136,57 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-// out[rows of the block] = X W for a [R x K] activation operand in shared memory and W [K x N]
-// in global memory (PRE: float2 (big, small) pairs, else f32), on the tensor cores at f32
-// accuracy. Warp (wm, wn) of the MW x (WARPS / MW) layout owns two m16 tiles of rows (mi =
-// 0, 1) and NJ n8 tiles of each N slab of WARPS / MW x 8 NJ columns.
-//   xrow(wm, mi, r) -> pointer to the start of A row r (0..15) of tile mi, warp row wm;
-//   active(wm)      -> whether warp row wm has rows (warp-uniform);
-//   epi(wm, r, n, v0, v1) is called once per output column n < N and tile row r with the
-//   sums of tiles mi = 0 and 1.
-// ASPLIT (32-row products, MW = 1, where all warps read the same A fragments): the block
-// splits each A chunk once into two [32][LDA] float2 buffers after the ring, one chunk ahead;
-// otherwise each warp splits its own A fragments. K must be a multiple of KC and N of 4.
-// Every thread of the block calls it; it starts with a barrier (X may have been written just
-// before) and does not end with one.
-template <int MW, int NJ, bool PRE, bool ASPLIT, class XRow, class Active, class Epi>
-__device__ __forceinline__ void gemm(XRow xrow, Active active, int K, const float* __restrict__ W, int N,
-                                     float* ring, Epi epi) {
-  constexpr int NW = WARPS / MW, WN = 8 * NJ, SW = NW * WN;
-  constexpr int LD = PRE ? 2 * (SW + 4) : SW + 8;  // floats per staged k row
-  constexpr int PER_ROW = PRE ? SW / 2 : SW / 4;   // 16-byte copies per staged k row
-  static_assert(KC * LD <= STAGE_FLOATS && KC == 16, "stage shape");
-  static_assert(!ASPLIT || MW == 1, "a block-split A chunk is 32 rows");
+enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float x) {
+  if (ACT == ACT_RELU) return fmaxf(x, 0.0f);
+  if (ACT == ACT_GELU) return gelu_tanh(x);
+  return x;
+}
+
+// ---- 32-row products: 3xTF32 mma.sync ------------------------------------------------------
+// Y = act(X W + bias) for the TILE rows of X (shared memory, row stride ldx) and W [K x N] in
+// global memory, f32, on the tensor cores at f32 accuracy. The 8 warps split N: warp w owns
+// the two m16 tiles of rows and NJ n8 tiles of each slab of 8 x 8 NJ columns. Per chunk of
+// KC k rows: W is staged by cp.async into the ring, two chunks ahead, and split per fragment
+// (each element is read by one warp); the block splits the X chunk once into one of two
+// [32][LDA] float2 buffers after the ring, one chunk ahead (all warps read all of it). K must
+// be a multiple of KC and N of 4. Every thread of the block calls it; it starts with a barrier
+// (X may have been written just before) and does not end with one.
+template <int NJ, int ACT>
+__device__ __noinline__ void dense32(const float* X, int ldx, int K, const float* __restrict__ W, int N,
+                                     const float* __restrict__ bias, float* Y, int ldy, float* ring) {
+  constexpr int WN = 8 * NJ, SW = WARPS * WN;
+  constexpr int LD = SW + 8;                   // floats per staged k row: B loads conflict free
+  constexpr int CPT = KC * SW / 4 / THREADS;   // 16-byte copies a thread issues per chunk
+  constexpr int APT = 32 * KC / THREADS;       // X elements a thread splits per chunk
+  static_assert(KC * LD <= STAGE_FLOATS && CPT * 4 * THREADS == KC * SW && APT * THREADS == 32 * KC, "staging");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp / NW, wn = warp - wm * NW;
-  const bool act = active(wm);
-  const float* xr[2][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) xr[mi][h] = xrow(wm, mi, g + 8 * h);
-  constexpr int E = PRE ? 2 : 1;                   // floats per weight element
-  constexpr int CPT = KC * PER_ROW / THREADS;      // 16-byte copies a thread issues per chunk
-  constexpr int APT = 32 * KC / THREADS;           // A elements a thread splits per chunk (ASPLIT)
-  static_assert(CPT * THREADS == KC * PER_ROW && APT * THREADS == 32 * KC, "staging shape");
   const int nk = K / KC, total = nk * ((N + SW - 1) / SW);
   float2* astage = reinterpret_cast<float2*>(ring + STAGES * STAGE_FLOATS);
 
   // What this thread copies and splits does not change from chunk to chunk: its offsets are
   // computed once (no divisions in the loop).
-  int c_dst[CPT], c_src[CPT], c_col[CPT];
+  int c_dst[CPT], c_src[CPT], c_col[CPT], a_src[APT], a_dst[APT];
 #pragma unroll
   for (int i = 0; i < CPT; ++i) {
-    const int idx = tid + i * THREADS, kk = idx / PER_ROW, q = idx % PER_ROW;
-    c_col[i] = (4 / E) * q;
+    const int idx = tid + i * THREADS, kk = idx / (SW / 4), q = idx % (SW / 4);
+    c_col[i] = 4 * q;
     c_dst[i] = kk * LD + 4 * q;
-    c_src[i] = (kk * N + c_col[i]) * E;
+    c_src[i] = kk * N + 4 * q;
   }
-  const float* a_src[ASPLIT ? APT : 1];
-  int a_dst[ASPLIT ? APT : 1];
-  if (ASPLIT) {
 #pragma unroll
-    for (int i = 0; i < APT; ++i) {
-      const int idx = tid + i * THREADS, r = idx / KC, kk = idx % KC;
-      a_src[i] = xrow(0, r >> 4, r & 15) + kk;
-      a_dst[i] = r * LDA + kk;
-    }
+  for (int i = 0; i < APT; ++i) {
+    const int idx = tid + i * THREADS, r = idx / KC, kk = idx % KC;
+    a_src[i] = r * ldx + kk;
+    a_dst[i] = r * LDA + kk;
   }
   int is = 0, ik = 0, ist = 0;  // slab, k chunk and ring stage of the next chunk to issue
   auto issue = [&](int c) {
     if (c < total) {
-      const float* src = W + (ik * KC * N + is * SW) * E;
+      const float* src = W + ik * KC * N + is * SW;
       float* st = ring + ist * STAGE_FLOATS;
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
@@ -217,22 +198,22 @@ __device__ __forceinline__ void gemm(XRow xrow, Active active, int K, const floa
     }
     cp_async_commit();  // an empty group past the end keeps the wait count uniform
   };
-  auto split_a = [&](int k0, int buf) {
+  auto split_x = [&](int k0, int buf) {
 #pragma unroll
-    for (int i = 0; i < APT; ++i) astage[buf * 32 * LDA + a_dst[i]] = split(a_src[i][k0]);
+    for (int i = 0; i < APT; ++i) astage[buf * 32 * LDA + a_dst[i]] = split(X[a_src[i] + k0]);
   };
 
   __syncthreads();  // earlier readers of the ring and astage (and writers of X) are done
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) issue(c);
-  if (ASPLIT) split_a(0, 0);
+  split_x(0, 0);
   float acc[2][NJ][4];
   int s = 0, kc = 0, cst = 0;  // slab, k chunk and ring stage of chunk c
-  for (int c = 0; c < total; ++c, cst = cst + 1 == STAGES ? 0 : cst + 1) {
+  for (int c = 0; c < total; ++c) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed
-    __syncthreads();              // everyone's have, and A chunk c is split; all are done with chunk c - 1
+    __syncthreads();              // everyone's have, and X chunk c is split; all are done with chunk c - 1
     issue(c + STAGES - 1);        // into the stage chunk c - 1 used
-    if (ASPLIT && c + 1 < total) split_a(kc + 1 == nk ? 0 : (kc + 1) * KC, (c + 1) & 1);
+    if (c + 1 < total) split_x(kc + 1 == nk ? 0 : (kc + 1) * KC, (c + 1) & 1);
     if (kc == 0) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -242,40 +223,28 @@ __device__ __forceinline__ void gemm(XRow xrow, Active active, int K, const floa
           for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
     }
     const int ncols = N - s * SW;
-    const float* st = ring + cst * STAGE_FLOATS;
-    if (act && wn * WN < ncols) {
-      // A fragments of both k steps of the chunk, split.
-      uint32_t ab[2][2][4], as[2][2][4];  // [k step][mi][fragment register]
+    if (warp * WN < ncols) {
+      const float* st = ring + cst * STAGE_FLOATS;
+      const float2* xs = astage + (c & 1) * 32 * LDA;
+      uint32_t ab[2][2][4], as[2][2][4];  // [k step][m16 tile][fragment register]
+      uint32_t bb[2][NJ][2], bs[2][NJ][2];  // [k step][n8 tile][fragment register]
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < 2; ++q) {
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-          float2 v[4];
-          if (ASPLIT) {
-            const float2* a = astage + (c & 1) * 32 * LDA + (mi * 16 + g) * LDA + 8 * q + tq;
-            v[0] = a[0]; v[1] = a[8 * LDA]; v[2] = a[4]; v[3] = a[8 * LDA + 4];
-          } else {
-            const int k = kc * KC + 8 * q + tq;
-            v[0] = split(xr[mi][0][k]); v[1] = split(xr[mi][1][k]);
-            v[2] = split(xr[mi][0][k + 4]); v[3] = split(xr[mi][1][k + 4]);
-          }
+          const float2* a = xs + (mi * 16 + g) * LDA + 8 * q + tq;
+          const float2 v[4] = {a[0], a[8 * LDA], a[4], a[8 * LDA + 4]};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             ab[q][mi][e] = __float_as_uint(v[e].x);
             as[q][mi][e] = __float_as_uint(v[e].y);
           }
         }
-      // B fragments of both k steps for every n8 tile of the warp.
-      uint32_t bb[2][NJ][2], bs[2][NJ][2];  // [k step][tile][fragment register]
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = wn * WN + 8 * j + g;
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const int kk = 8 * q + tq + 4 * r;
-            const float2 w = PRE ? reinterpret_cast<const float2*>(st)[kk * (LD / 2) + n] : split(st[kk * LD + n]);
+            const float2 w = split(st[(8 * q + tq + 4 * r) * LD + warp * WN + 8 * j + g]);
             bb[q][j][r] = __float_as_uint(w.x);
             bs[q][j][r] = __float_as_uint(w.y);
           }
@@ -311,41 +280,21 @@ __device__ __forceinline__ void gemm(XRow xrow, Active active, int K, const floa
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int n = wn * WN + 8 * j + 2 * tq + e;
+            const int n = warp * WN + 8 * j + 2 * tq + e;
             if (n >= ncols) continue;
+            const float bn = __ldg(bias + s * SW + n);
 #pragma unroll
-            for (int h = 0; h < 2; ++h) epi(wm, g + 8 * h, s * SW + n, acc[0][j][2 * h + e], acc[1][j][2 * h + e]);
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                Y[(mi * 16 + g + 8 * h) * ldy + s * SW + n] = activate<ACT>(acc[mi][j][2 * h + e] + bn);
           }
       }
     }
     if (++kc == nk) { kc = 0; ++s; }
+    cst = cst + 1 == STAGES ? 0 : cst + 1;
   }
   cp_async_wait<0>();
-}
-
-// Y = act(X W + bias) over rows [0, R) of X and Y (row strides ldx, ldy), R a multiple of 32.
-// 128-row products run 4 x 2 warps, 32-row ones 1 x 8.
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
-
-template <int ACT>
-__device__ __forceinline__ float activate(float x) {
-  if (ACT == ACT_RELU) return fmaxf(x, 0.0f);
-  if (ACT == ACT_GELU) return gelu_tanh(x);
-  return x;
-}
-
-template <int MW, int NJ, bool PRE, bool ASPLIT, int ACT>
-__device__ __noinline__ void dense(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
-                                   const float* __restrict__ bias, float* Y, int ldy, float* ring) {
-  gemm<MW, NJ, PRE, ASPLIT>(
-      [&](int wm, int mi, int r) { return X + (wm * 32 + mi * 16 + r) * ldx; },
-      [&](int wm) { return wm * 32 < R; }, K, W, N, ring,
-      [&](int wm, int r, int n, float v0, float v1) {
-        const float bn = __ldg(bias + n);
-        float* y = Y + (wm * 32 + r) * ldy + n;
-        y[0] = activate<ACT>(v0 + bn);
-        y[16 * ldy] = activate<ACT>(v1 + bn);
-      });
 }
 
 // The 32-row layers (one latent's G, the tail): four n8 tiles a warp when N is wide.
@@ -353,9 +302,168 @@ template <int ACT>
 __device__ __forceinline__ void dense32(const float* X, int ldx, int K, const float* __restrict__ W, int N,
                                         const float* __restrict__ bias, float* Y, int ldy, float* ring) {
   if (N > 128)
-    dense<1, 256 / (8 * WARPS), false, true, ACT>(X, ldx, 32, K, W, N, bias, Y, ldy, ring);
+    dense32<4, ACT>(X, ldx, K, W, N, bias, Y, ldy, ring);
   else
-    dense<1, 128 / (8 * WARPS), false, true, ACT>(X, ldx, 32, K, W, N, bias, Y, ldy, ring);
+    dense32<2, ACT>(X, ldx, K, W, N, bias, Y, ldy, ring);
+}
+
+// ---- 128-row products: 3xTF32 wgmma ----------------------------------------------------------
+// D (64 x 64, f32, this thread's 32 values) = A (64 x 8 tf32, registers: this warp's 16
+// rows in the m16n8k8 A-fragment order) x B (8 x 64 tf32, K-major in shared memory, `desc`)
+// + (accumulate ? D : 0), one asynchronous warpgroup product. D's fragment: n8 tile j at
+// d[4 j .. 4 j + 3] = (row g, col 8 j + 2 t), (g, 8 j + 2 t + 1), (g + 8, 8 j + 2 t),
+// (g + 8, 8 j + 2 t + 1) of the warp's 16 rows.
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// Shared-memory descriptor of a K-major tf32 B tile without swizzle (split_weights' block):
+// core matrices of 8 rows x 16 bytes stored whole; LBO is the step between the two core
+// matrices of a k step of 8, SBO the step between groups of 8 rows (n).
+constexpr int WG_LBO = 128, WG_SBO = 256;
+__device__ __forceinline__ uint64_t wg_desc(const float* smem) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(WG_LBO >> 4) << 16) | ((uint64_t)(WG_SBO >> 4) << 32);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Orders the generic-proxy writes of shared memory (cp.async, stores) before wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// Keeps the compiler from moving reads of an accumulator across wgmma's asynchronous writes.
+__device__ __forceinline__ void wg_fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// out = X W for the 128 rows of a latent group on the tensor cores at f32 accuracy: warpgroup
+// wg (warps 4 wg .. 4 wg + 3) multiplies 64 rows by each 128-wide slab of N, as two m64n64k8
+// wgmma products, warp w supplying A rows 16 w .. 16 w + 15 from shared memory (xrow(wg, w, r) points
+// at row r of them), split per fragment into registers. W is split_weights' blocked layout:
+// each 16 KB block (big and small, two k steps, 128 columns) is staged whole into the ring by
+// cp.async, two chunks ahead; 3xTF32 is three wgmma per k step (small x big, big x small, big x
+// big) into a fresh accumulator per chunk (K1_CHAIN_STEPS 2; 0: per slab) that is added into
+// f32 registers. active(wg) says whether warpgroup wg has rows; epi(wg, w, r, n, v0, v1) gets
+// column n of rows r (0..7) and r + 8 of warp w's 16. Every thread of the block calls it; it
+// starts with a barrier and does not end with one.
+template <class XRow, class Active, class Epi>
+__device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const float* __restrict__ W, int N,
+                                        float* ring, Epi epi) {
+  constexpr int CPT = WG_BLOCK / 4 / THREADS;  // 16-byte copies a thread issues per chunk
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, w = warp & 3;
+  const bool act = active(wg);
+  const float* xr0 = xrow(wg, w, g);
+  const float* xr1 = xrow(wg, w, g + 8);
+  const int nk = K / KC, nslab = (N + WG_N - 1) / WG_N, total = nk * nslab;
+  int is = 0, ik = 0, ist = 0;  // slab, k chunk and ring stage of the next chunk to issue
+  auto issue = [&](int c) {
+    if (c < total) {
+      const float* src = W + (ik * nslab + is) * WG_BLOCK;
+      float* st = ring + ist * STAGE_FLOATS;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) cp_async16(st + 4 * (tid + i * THREADS), src + 4 * (tid + i * THREADS), true);
+      if (++ik == nk) { ik = 0; ++is; }
+      if (++ist == STAGES) ist = 0;
+    }
+    cp_async_commit();
+  };
+
+  __syncthreads();  // earlier readers of the ring (and writers of X) are done
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
+  float acc[64], p[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = 0.0f;
+  int s = 0, kc = 0, cst = 0;  // slab, k chunk and ring stage of chunk c
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait<STAGES - 2>();
+    fence_async_smem();  // this thread's copies of chunk c are visible to wgmma
+    __syncthreads();     // and everyone's; all are done with chunk c - 1
+    issue(c + STAGES - 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    }
+    if (act) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = kc * KC + 8 * q + tq;
+        const float v[4] = {xr0[k], xr1[k], xr0[k + 4], xr1[k + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 sp = split(v[e]);
+          ab[q][e] = __float_as_uint(sp.x);
+          as[q][e] = __float_as_uint(sp.y);
+        }
+      }
+      const float* st = ring + cst * STAGE_FLOATS;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // two m64n64 products: 32 accumulator registers each
+        float* d = CHAIN == 0 ? acc + 32 * half : p;
+        wg_fence_operands(d);
+        wg_fence();
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;  // k step q, n groups 8 half ..
+          const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
+          wgmma_tf32(d, as[q], big, CHAIN == 0 || q > 0);  // a fresh accumulator starts each chunk
+          wgmma_tf32(d, ab[q], small, 1);
+          wgmma_tf32(d, ab[q], big, 1);
+        }
+        wg_commit();
+        wg_wait0();
+        wg_fence_operands(d);
+        if (CHAIN != 0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[32 * half + i] += p[i];
+        }
+      }
+      if (kc == nk - 1) {
+#pragma unroll
+        for (int j = 0; j < WG_N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = s * WG_N + 8 * j + 2 * tq + e;
+            if (n < N) epi(wg, w, g, n, acc[4 * j + e], acc[4 * j + 2 + e]);
+          }
+      }
+    }
+    if (++kc == nk) { kc = 0; ++s; }
+    cst = cst + 1 == STAGES ? 0 : cst + 1;
+  }
+  cp_async_wait<0>();
+}
+
+// Y = act(X W + bias) over the 128 rows of a latent group (R of them valid), row strides
+// ldx, ldy; W pre-split and blocked.
+// Inlined, as is mixer: ptxas serializes every wgmma of a kernel whose wgmma pipeline crosses a
+// function call.
+template <int ACT>  // ACT_NONE or ACT_RELU (the gelu after fw is applied in its normalize pass)
+__device__ __forceinline__ void dense128(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
+                                      const float* __restrict__ bias, float* Y, int ldy, float* ring) {
+  gemm_wg(
+      [&](int wg, int w, int r) { return X + (64 * wg + 16 * w + r) * ldx; }, [&](int wg) { return 64 * wg < R; },
+      K, W, N, ring, [&](int wg, int w, int r, int n, float v0, float v1) {
+        const float bn = __ldg(bias + n);
+        float* y = Y + (64 * wg + 16 * w + r) * ldy + n;
+        y[0] = activate<ACT>(v0 + bn);
+        y[8 * ldy] = activate<ACT>(v1 + bn);
+      });
 }
 
 // F[r, :half] = sin(2 pi inv[r] @ coeff), F[r, half:] = cos(...) for the R rows of a latent
@@ -374,10 +482,12 @@ __device__ void rff_features(const float* s_inv, int R, int I, const float* __re
 }
 
 // Normalize-only LayerNorm of each of the `segs` segments of width `width` (a multiple of 4,
-// at most MAXW) in every one of `rows` rows of X; var = E[x^2] - E[x]^2 as in the JAX
-// kernel. Eight lanes per segment, four segments per warp at once, the values held in
-// registers between the two passes.
+// at most MAXW) in every one of `rows` rows of X, of gelu(X) with GELU (the activation of the
+// product that wrote X, applied here rather than in its epilogue); var = E[x^2] - E[x]^2 as
+// in the JAX kernel. Eight lanes per segment, four segments per warp at once, the values held
+// in registers between the two passes.
 constexpr int MAXW = 256;
+template <bool GELU>
 __device__ void normalize(float* X, int ldx, int rows, int segs, int width) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane & 7;
   const int n_seg = rows * segs;
@@ -391,6 +501,7 @@ __device__ void normalize(float* X, int ldx, int rows, int segs, int width) {
     for (int i = 0; i < MAXW / 32; ++i) {
       const int n = 4 * sub + 32 * i;
       v[i] = ok && n < width ? *reinterpret_cast<const float4*>(row + n) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (GELU) v[i] = make_float4(gelu_tanh(v[i].x), gelu_tanh(v[i].y), gelu_tanh(v[i].z), gelu_tanh(v[i].w));
       s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
       ss = fmaf(v[i].x, v[i].x, fmaf(v[i].y, v[i].y, fmaf(v[i].z, v[i].z, fmaf(v[i].w, v[i].w, ss))));
     }
@@ -431,21 +542,22 @@ __device__ void lane_dots(int count, int K, int ldw, XOf x_of, WOf w_of, Store s
 }
 
 // acc[t, h*D + n] += sum over the np (1 or 2) latents of a pair of prob[z, t, h] *
-// (normalize(pre_z,h)[t] @ m_w2 + m_b2)[n]: one product over the heads and latents of the
-// pair. Warp row wm holds head h0 + wm / 2 and coordinates 16 (wm % 2) + r; its tile mi is
-// latent mi of the pair, so one lane owns both latents' sums of an output element.
-__device__ __noinline__ void mixer(const float* Y, int ldP, int np, int H, int hidm, int D,
+// (normalize(pre_z,h)[t] @ m_w2 + m_b2)[n]: one 128-row product over two heads and the
+// latents of the pair. Warpgroup wg holds head h0 + wg; warp w of it coordinates 8 w .. 8 w + 7,
+// its rows r and r + 8 the same coordinate in latents 0 and 1 of the pair, so one thread owns
+// both latents' sums of an output element.
+__device__ __forceinline__ void mixer(const float* Y, int ldP, int np, int H, int hidm, int D,
                                    const float* __restrict__ m_w2, const float* __restrict__ m_b2,
                                    const float* prob, float* acc, int ldW, float* ring) {
   for (int h0 = 0; h0 < H; h0 += 2) {
-    gemm<4, NJ128, PRESPLIT, false>(
-        [&](int wm, int mi, int r) {
-          const int h = min(h0 + (wm >> 1), H - 1), t = (wm & 1) * 16 + r;
-          return Y + ((mi < np ? mi : 0) * TILE + t) * ldP + h * hidm;
+    gemm_wg(
+        [&](int wg, int w, int r) {
+          const int h = min(h0 + wg, H - 1), t = 8 * w + (r & 7);
+          return Y + ((r >= 8 && np > 1 ? TILE : 0) + t) * ldP + h * hidm;
         },
-        [&](int wm) { return h0 + (wm >> 1) < H; }, hidm, m_w2, D, ring,
-        [&](int wm, int r, int n, float v0, float v1) {
-          const int h = h0 + (wm >> 1), t = (wm & 1) * 16 + r;
+        [&](int wg) { return h0 + wg < H; }, hidm, m_w2, D, ring,
+        [&](int wg, int w, int r, int n, float v0, float v1) {
+          const int h = h0 + wg, t = 8 * w + r;
           const float bn = __ldg(m_b2 + n);
           float s = prob[t * H + h] * (v0 + bn);
           if (np > 1) s = fmaf(prob[TILE * H + t * H + h], v1 + bn, s);
@@ -485,7 +597,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Para
   for (int z0 = 0; z0 < Z; z0 += ZG) {
     const int nz = min(ZG, Z - z0);
     features(z0, nz, P.q_coeff);
-    dense<4, NJ128, PRESPLIT, false, ACT_RELU>(X, ldX, nz * TILE, hid, PRESPLIT ? P.q_w1s : P.q_w1, hid, P.q_b1, Y, ldX, ring);
+    dense128<ACT_RELU>(X, ldX, nz * TILE, hid, P.q_w1s, hid, P.q_b1, Y, ldX, ring);
     __syncthreads();
     // logit[z, t, h] = hq[z, t] . A[b, z][:, h] + ab + wb: one warp per (latent, head).
     lane_dots(
@@ -516,20 +628,20 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Para
   for (int z0 = 0; z0 < Z; z0 += ZG) {
     const int nz = min(ZG, Z - z0);
     features(z0, nz, P.v_coeff);
-    dense<4, NJ128, PRESPLIT, false, ACT_RELU>(X, ldX, nz * TILE, hid, PRESPLIT ? P.v_w1s : P.v_w1, hid, P.v_b1, Y, ldX, ring);
-    dense<4, NJ128, PRESPLIT, false, ACT_GELU>(Y, ldX, nz * TILE, hid, PRESPLIT ? P.fws : P.fw, hid, P.fb, X, ldX, ring);
+    dense128<ACT_RELU>(X, ldX, nz * TILE, hid, P.v_w1s, hid, P.v_b1, Y, ldX, ring);
+    dense128<ACT_NONE>(Y, ldX, nz * TILE, hid, P.fws, hid, P.fb, X, ldX, ring);
     __syncthreads();
-    normalize(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
+    normalize<true>(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
     for (int zp = 0; zp < nz; zp += 2) {   // pairs of latents
       const int np = min(2, nz - zp);
       for (int zz = 0; zz < np; ++zz) {
         const size_t bz = (size_t)b * Z + z0 + zp + zz;
-        dense32<ACT_GELU>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
+        dense32<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
                           Y + zz * TILE * ldP, ldP, ring);
       }
       __syncthreads();
-      normalize(Y, ldP, np * TILE, H, hidm);
-      mixer(Y, P.ldP, np, H, hidm, D, PRESPLIT ? P.m_w2s : P.m_w2, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW,
+      normalize<true>(Y, ldP, np * TILE, H, hidm);  // gelu, then each head
+      mixer(Y, P.ldP, np, H, hidm, D, P.m_w2s, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW,
             ring);
     }
   }
@@ -537,9 +649,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Para
   float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
   if (WITH_TAIL) {
     dense32<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW, ring);
-    dense32<ACT_GELU>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW, ring);
+    dense32<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW, ring);
     __syncthreads();
-    normalize(acc, ldW, TILE, 1, HD);
+    normalize<true>(acc, ldW, TILE, 1, HD);
     dense32<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW, ring);
     dense32<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW, ring);
     dense32<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW, ring);
@@ -600,9 +712,7 @@ int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   const float* const* f = reinterpret_cast<const float* const*>(ptrs);
   Params P;
   P.inv = f[0]; P.wb = f[1]; P.A = f[2]; P.ab = f[3]; P.G = f[4]; P.c = f[5];
-  P.q_coeff = f[6]; P.q_w1 = f[7]; P.q_b1 = f[8];
-  P.v_coeff = f[9]; P.v_w1 = f[10]; P.v_b1 = f[11];
-  P.fw = f[12]; P.fb = f[13]; P.m_w2 = f[14]; P.m_b2 = f[15];
+  P.q_coeff = f[6]; P.q_b1 = f[8]; P.v_coeff = f[9]; P.v_b1 = f[11]; P.fb = f[13]; P.m_b2 = f[15];
   P.o_w = f[16]; P.o_b = f[17]; P.p_w1 = f[18]; P.p_b1 = f[19]; P.p_w2 = f[20]; P.p_b2 = f[21];
   P.h_w1 = f[22]; P.h_b1 = f[23]; P.h_w2 = f[24]; P.h_b2 = f[25]; P.h_w3 = f[26]; P.h_b3 = f[27];
   P.out = const_cast<float*>(f[28]);

@@ -20,7 +20,8 @@ Layers, as in the JAX package:
   version; on a CUDA tensor it launches ``csrc/fused_decode_fwd.cu`` (built with
   plain ``nvcc``, bound with ``ctypes``) or raises. It hands the kernel the four
   weights that its 128-row products share, ``SPLIT_WEIGHT_NAMES``, split once per
-  launch into tf32 (big, small) pairs (``split_weights``).
+  launch into tf32 (big, small) parts in the blocked layout ``wgmma`` reads
+  (``split_weights``).
 - ``fused_decode_bwd_plain`` is the VJP of ``fused_decode_plain`` by autograd, and
   ``fused_decode_bwd`` the wrapper of kernel K2 (``csrc/fused_decode_bwd.cu``), with
   the same CPU / CUDA dispatch.
@@ -78,8 +79,10 @@ TAIL_WEIGHT_NAMES = (
     "h_w3", "h_b3",
 )
 
-# Handed to K1 split into tf32 (big, small) pairs too, in this order (after ``out``).
+# Handed to K1 split into tf32 (big, small) parts too, in this order (after ``out``), in
+# the blocked layout of ``split_weights``; WG_N is the width of one wgmma tile and slab.
 SPLIT_WEIGHT_NAMES = ("q_w1", "v_w1", "fw", "m_w2")
+WG_N = 128
 
 KERNEL_SOURCE = "fused_decode_fwd.cu"
 BWD_KERNEL_SOURCE = "fused_decode_bwd.cu"
@@ -337,20 +340,35 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_weights(ws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """``SPLIT_WEIGHT_NAMES`` of the folded weights as tf32 (big, small) pairs.
+    """``SPLIT_WEIGHT_NAMES`` of the folded weights as K1's 128-row products read them.
 
-    big = tf32(w) and small = tf32(w - big), so big + small is within 2^-22 |w| of w.
-    Returns one contiguous buffer and, per weight, its view [K, N, 2] (row-major, each
-    element's big then small), whose pointers K1 takes after ``out``.
+    Each weight W [K, N] (K a multiple of 16; N padded with zeros to a multiple of
+    ``WG_N``) is split into tf32 parts, big = tf32(W) and small = tf32(W - big), so big +
+    small is within 2^-22 |W| of W, and laid out in the K-major blocks that ``wgmma``
+    reads from shared memory: one 16 KB block per 16-deep chunk kc of k and ``WG_N``-wide
+    slab s of n, holding in order part (big, small), k step q (2), n group ng (16 of 8),
+    k group kg (2 of 4), row r (8), k i (4), i.e. the element
+    W[16 kc + 8 q + 4 kg + i, WG_N s + 8 ng + r].
+
+    Returns one contiguous buffer and, per weight, its view
+    [K / 16, N / WG_N, 2, 2, 16, 2, 8, 4], whose pointers K1 takes after ``out``.
     """
-    mats = [ws[WEIGHT_NAMES.index(n)] for n in SPLIT_WEIGHT_NAMES]
-    flat = torch.cat([w.reshape(-1) for w in mats])
-    big = _tf32(flat)
-    buf = torch.stack([big, _tf32(flat - big)], dim=-1)
+    blocks = []
+    for name in SPLIT_WEIGHT_NAMES:
+        w = ws[WEIGHT_NAMES.index(name)]
+        K, N = w.shape
+        if K % 16:
+            raise ValueError(f"{name}: K1 needs the rows of {name} in chunks of 16, got {K}")
+        w = torch.nn.functional.pad(w, (0, -N % WG_N))
+        big = _tf32(w)
+        parts = torch.stack([big, _tf32(w - big)])  # [part, K, N]
+        blk = parts.reshape(2, K // 16, 2, 2, 4, w.shape[1] // WG_N, WG_N // 8, 8)  # part kc q kg i s ng r
+        blocks.append(blk.permute(1, 5, 0, 2, 6, 3, 7, 4).contiguous())  # kc s part q ng kg r i
+    buf = torch.cat([b.reshape(-1) for b in blocks])
     views, off = [], 0
-    for w in mats:
-        views.append(buf[off:off + w.numel()].view(*w.shape, 2))
-        off += w.numel()
+    for b in blocks:
+        views.append(buf[off:off + b.numel()].view(b.shape))
+        off += b.numel()
     return buf, tuple(views)
 
 

@@ -183,33 +183,36 @@ def test_kernel_source_matches_the_binding():
 
 
 def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
-    """K1's wide products go through the shared 3xTF32 mma.sync helper, the latents share
-    the rows of the shared-weight layers, and weights are staged by cp.async in a ring."""
+    """K1's wide products run on the tensor cores in 3xTF32: the 128-row products (q_w1, v_w1,
+    fw over the rows of every latent of a group, m_w2 over two heads and a latent pair) on
+    wgmma, the 32-row ones (G, the tail) on the shared mma.sync helper; weights are staged by
+    cp.async in a ring of at least two stages; no library GEMM."""
     src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
     header = (cuda_lib.CSRC_DIR / "tf32_mma.cuh").read_text()
     assert '#include "tf32_mma.cuh"' in src
     assert "mma.sync.aligned" not in src and "cvt.rna" not in src  # only through the shared helper
     assert header.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1
-    gemm = re.search(r"void gemm\(.*?\n}\n", src, re.S).group(0)
-    assert "mma_3xtf32_tiles(" in gemm and "split(" in gemm
-    assert re.search(r"float2 split\(float x\) \{ return CVT_SPLIT \? split_tf32\(x\) : split_tf32_int\(x\); \}", src)
     tiles = re.search(r"void mma_3xtf32_tiles\(.*?\n}", header, re.S).group(0)
     assert tiles.count("mma_tf32(") == 3  # small x big, big x small, big x big, across the tiles
+    assert re.search(r"float2 split\(float x\) \{ return CVT_SPLIT \? split_tf32\(x\) : split_tf32_int\(x\); \}", src)
+    assert src.count("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32") == 1
+    body_of = lambda name: re.search(rf"\n(?:template <[^\n]*>\n)?__(?:device|global)__[^\n]* {name}\(.*?\n}}\n", src, re.S).group(0)
+    wg = body_of("gemm_wg")
+    assert wg.count("wgmma_tf32(") == 3 and "split(" in wg and "fence_async_smem()" in wg
+    d32 = body_of("dense32")
+    assert "mma_3xtf32_tiles(" in d32 and "split(" in d32
+    for gemm in (wg, d32):  # asynchronous staging: 16-byte cp.async, waited for two chunks late
+        assert "cp_async16(" in gemm and "cp_async_wait<STAGES - 2>()" in gemm
+    assert "cp.async.cg.shared.global" in src
+    assert int(re.search(r"#define K1_STAGES (\d+)", src).group(1)) >= 2
     # A fresh accumulator per K1_CHAIN_STEPS k steps, added into f32 registers.
-    assert re.search(r"#define K1_CHAIN_STEPS 2\b", src) and re.search(r"#define K1_PRESPLIT 1\b", src)
-    # Asynchronous staging: 16-byte cp.async into a ring of at least two stages.
-    assert "cp.async.cg.shared.global" in gemm or "cp_async16(" in gemm
-    assert "cp_async_wait<STAGES - 2>()" in gemm
-    assert int(re.search(r"constexpr int STAGES = (\d+);", src).group(1)) >= 2
-    body = re.search(r"__global__ void .*?fused_decode_fwd_kernel\(.*?\n}\n", src, re.S).group(0)
-    # q_w1, v_w1, fw over the rows of every latent of a group (ZG * TILE), pre-split.
+    assert re.search(r"#define K1_CHAIN_STEPS 2\b", src)
+    body = body_of("fused_decode_fwd_kernel")
     for w in ("q_w1s", "v_w1s", "fws"):
-        assert re.search(rf"dense<4, NJ128, PRESPLIT, ACT_\w+>\([^;]*nz \* TILE, hid, PRESPLIT \? P\.{w}", body), w
+        assert re.search(rf"dense128<ACT_\w+>\([^;]*nz \* TILE, hid, P\.{w},", body), w
     assert int(re.search(r"constexpr int ZG = (\d+);", src).group(1)) * 32 == 128
-    # m_w2 over the heads and a pair of latents, pre-split; G and the tail on the helper too.
-    mixer = re.search(r"void mixer\(.*?\n}\n", src, re.S).group(0)
-    assert "gemm<4, NJ128, PRESPLIT>(" in mixer and re.search(r"mixer\([^;]*PRESPLIT \? P\.m_w2s", body)
-    assert re.search(r"dense32<ACT_GELU>\([^;]*P\.G \+ bz", body)
+    assert "gemm_wg(" in body_of("mixer") and re.search(r"mixer\([^;]*P\.m_w2s", body)
+    assert re.search(r"dense32<ACT_\w+>\([^;]*P\.G \+ bz", body)
     for w in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"):
         assert re.search(rf"dense32<ACT_\w+>\([^;]*P\.{w},", body), w
     # No f32 FMA loop over a weight tile is left for the wide products.
@@ -219,32 +222,48 @@ def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
 
 
 def test_split_weights_reconstruct_and_match_the_launcher():
-    """The pre-split copies: big and small are tf32 (13 low bits clear), big is w rounded to
-    nearest with ties away from zero, big + small is within 2^-21 |w| of w, and the views
-    go to the launcher in the order it unpacks them."""
+    """The pre-split copies of the 128-row products' weights: big and small are tf32 (13 low
+    bits clear), big is W rounded to nearest with ties away from zero, big + small is within
+    2^-21 |W| of W, the blocks are the K-major layout the kernel's wgmma descriptors read,
+    and the views go to the launcher in the order it unpacks them."""
     gen = torch.Generator().manual_seed(3)
+    shapes = ((4, 8), (32, 48), (48,), (4, 8), (32, 48), (48,), (32, 48), (48,), (16, 136), (136,))
     ws = [torch.randn(*shape, generator=gen) * 10.0 ** torch.randint(-3, 3, shape, generator=gen)
-          for shape in ((4, 8), (16, 16), (16,), (4, 8), (16, 16), (16,), (16, 16), (16,), (8, 12), (12,))]
+          for shape in shapes]
     buf, views = fd.split_weights(ws)
     assert buf.is_contiguous() and buf.dtype == torch.float32
     off = 0
     for name, view in zip(fd.SPLIT_WEIGHT_NAMES, views):
         w = ws[fd.WEIGHT_NAMES.index(name)]
-        assert view.shape == (*w.shape, 2)
-        assert view.data_ptr() == buf.data_ptr() + off * 8  # [K][N] float2, one after another
-        off += w.numel()
-        big, small = view[..., 0], view[..., 1]
+        K, N = w.shape
+        slabs = -(-N // fd.WG_N)
+        assert view.shape == (K // 16, slabs, 2, 2, 16, 2, 8, 4)
+        assert view.data_ptr() == buf.data_ptr() + off * 4
+        off += view.numel()
+        # Element W[16 kc + 8 q + 4 kg + i, WG_N s + 8 ng + r] sits at [kc, s, part, q, ng, kg, r, i].
+        parts = view.permute(2, 0, 3, 5, 7, 1, 4, 6).reshape(2, K, slabs * fd.WG_N)
+        big, small = parts[0, :, :N], parts[1, :, :N]
+        assert not parts[:, :, N:].any()  # columns past N are zero
         for part in (big, small):
             assert not (part.contiguous().view(torch.int32) & 0x1FFF).any()
         assert ((big + small) - w).abs().le(2.0 ** -21 * w.abs()).all()
         assert (w - big).abs().le(2.0 ** -11 * w.abs()).all()
-    assert off == buf.shape[0]
+        kc, s, q, ng, kg, r, i = K // 16 - 1, slabs - 1, 1, 3, 1, 5, 2
+        k, n = 16 * kc + 8 * q + 4 * kg + i, fd.WG_N * s + 8 * ng + r
+        if n < N:
+            assert view[kc, s, 0, q, ng, kg, r, i] == big[k, n]
+    assert off == buf.numel()
     one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23, 3.0])
     assert fd._tf32(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0]
     src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
     first = 6 + len(fd.WEIGHT_NAMES) + len(fd.TAIL_WEIGHT_NAMES) + 1
     for i, name in enumerate(fd.SPLIT_WEIGHT_NAMES):
         assert re.search(rf"P\.{name}s = f\[{first + i}\];", src), name
+    # The descriptors: a block of WG_N columns; 8 rows x 4 k (16 bytes) per core matrix, the
+    # two k groups of a k step 128 bytes apart, groups of 8 columns 256 bytes apart.
+    assert int(re.search(r"constexpr int WG_N = (\d+);", src).group(1)) == fd.WG_N
+    lbo, sbo = map(int, re.search(r"constexpr int WG_LBO = (\d+), WG_SBO = (\d+);", src).groups())
+    assert (lbo, sbo) == (8 * 4 * 4, 2 * 8 * 4 * 4)
 
 
 def test_build_key_covers_included_headers(tmp_path):

@@ -85,7 +85,7 @@ def main() -> int:
     for name, path in paths.items():
         report = path.with_name(path.name.replace(".so", ".ptxas.txt")).read_text().splitlines()
         for ln in report:
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln or "Function properties" in ln:
+            if any(w in ln for w in ("registers", "spill", "Compiling entry", "Function properties", "warning", "wgmma")):
                 cs.log(f"[build] {name}: {ln.strip()}")
         lib = fd._fwd_lib(sources[name])
         n_ptrs = int(re.search(r"kNumPtrs = (\d+);", Path(sources[name]).read_text()).group(1)) \
