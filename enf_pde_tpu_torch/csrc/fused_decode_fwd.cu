@@ -79,8 +79,11 @@
 
 // Build-time variants (tools/k1_compare.py --define NAME=VALUE builds them side by side).
 #ifndef K1_CHAIN_STEPS
-#define K1_CHAIN_STEPS 2  // k steps of 8 an accumulator carries before it is added into f32:
-#endif                    // 1 (mma.sync only), 2 (a staged chunk) or 0 (the whole sum)
+#define K1_CHAIN_STEPS 2  // mma.sync: k steps of 8 an accumulator carries before it is added
+#endif                    // into f32: 1, 2 (a staged chunk) or 0 (the whole sum)
+#ifndef K1_WG_CHAIN_STEPS
+#define K1_WG_CHAIN_STEPS 0  // wgmma: 2 (a fresh accumulator per chunk) or 0 (the whole sum)
+#endif
 #ifndef K1_STAGES
 #define K1_STAGES 3       // depth of the cp.async ring
 #endif
@@ -100,6 +103,7 @@ constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (256 + 8) f32, or a 1
 constexpr int WG_N = 128;             // columns of one wgmma product and of one pre-split slab
 constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part x k step x 8 x 128
 constexpr int CHAIN = K1_CHAIN_STEPS;
+constexpr int WG_CHAIN = K1_WG_CHAIN_STEPS;
 constexpr bool CVT_SPLIT = K1_CVT_SPLIT != 0;
 constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
@@ -107,7 +111,7 @@ constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 33;
 constexpr int kNumDims = 10;
-static_assert(CHAIN >= 0 && CHAIN <= 2 && STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "variant");
+static_assert(CHAIN >= 0 && CHAIN <= 2 && (WG_CHAIN == 0 || WG_CHAIN == 2) && STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "variant");
 
 struct Params {
   const float *inv, *wb, *A, *ab, *G, *c;
@@ -412,23 +416,40 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
         }
       }
       const float* st = ring + cst * STAGE_FLOATS;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {  // two m64n64 products: 32 accumulator registers each
-        float* d = CHAIN == 0 ? acc + 32 * half : p;
-        wg_fence_operands(d);
+      if constexpr (WG_CHAIN == 0) {  // the whole slab's sum in the accumulator: one wait a chunk
+        wg_fence_operands(acc);
+        wg_fence_operands(acc + 32);
         wg_fence();
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;  // k step q, n groups 8 half ..
-          const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
-          wgmma_tf32(d, as[q], big, CHAIN == 0 || q > 0);  // a fresh accumulator starts each chunk
-          wgmma_tf32(d, ab[q], small, 1);
-          wgmma_tf32(d, ab[q], big, 1);
-        }
+        for (int half = 0; half < 2; ++half)  // two m64n64 products: 32 accumulator registers each
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;  // k step q, n groups 8 half ..
+            const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
+            wgmma_tf32(acc + 32 * half, as[q], big, 1);
+            wgmma_tf32(acc + 32 * half, ab[q], small, 1);
+            wgmma_tf32(acc + 32 * half, ab[q], big, 1);
+          }
         wg_commit();
         wg_wait0();
-        wg_fence_operands(d);
-        if (CHAIN != 0) {
+        wg_fence_operands(acc);
+        wg_fence_operands(acc + 32);
+      } else {  // a fresh accumulator per chunk, added into f32 registers
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          wg_fence_operands(p);
+          wg_fence();
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;
+            const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
+            wgmma_tf32(p, as[q], big, q > 0);
+            wgmma_tf32(p, ab[q], small, 1);
+            wgmma_tf32(p, ab[q], big, 1);
+          }
+          wg_commit();
+          wg_wait0();
+          wg_fence_operands(p);
 #pragma unroll
           for (int i = 0; i < 32; ++i) acc[32 * half + i] += p[i];
         }

@@ -1,14 +1,16 @@
 """Kernel K1 against earlier builds of it and its plain version, on one card.
 
     python3 tools/k1_compare.py [--old path/to/fused_decode_fwd_old.cu ...] [--define NAME=VALUE[,...] ...]
+                                [--skip PHASE ...]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_fwd.cu``, each ``--old`` (an earlier K1
 source, named by its file name; one with the 29-pointer interface of PR 4-7 is handed
 the first 29 pointers) and, for each ``--define``, the current source with those
 build-time variants (the ``K1_*`` macros at the top of the source: the accumulator
 chain, the ring's depth, pre-split weights, threads a block, tiles a warp, the split's
-rounding), with
-plain ``nvcc`` in parallel, and prints the compiler's register and spill report. Holds every build against the plain version at the main path's launch
+rounding), and for each ``--skip`` a copy of the current source that leaves one phase out
+(``SKIPS``: its results are wrong, its time says what the phase costs), with plain ``nvcc``
+in parallel, and prints the compiler's register and spill report. Holds every build against the plain version at the main path's launch
 shapes at Navier-Stokes width (160 x 512 and 80 x 512 with the tail, 8 x 4096 with and
 without it, and a ragged 8 x 1000), one rel-L2 per shape, then times plain, old, new,
 new, old, plain at 160 x 512 and 80 x 512 beside the bounds (f32 on the CUDA cores and
@@ -51,6 +53,32 @@ class _FirstPointers:
                                                  dims, n_dims, stream)
 
 
+_LOOP = "  for (int c = 0; c < total; ++c) {"
+# Phase -> (text of the source, its replacement, which occurrence); each leaves that phase out.
+SKIPS = {
+    "mma32": (_LOOP, "  for (int c = 0; c < total && K < 0; ++c) {", 0),   # dense32's chunk loop
+    "wgmma": (_LOOP, "  for (int c = 0; c < total && K < 0; ++c) {", 1),   # gemm_wg's chunk loop
+    "tail": ("  if (WITH_TAIL) {", "  if (WITH_TAIL && P.B < 0) {", 0),
+    "normalize": ("  for (int base = 4 * warp; base < n_seg;", "  for (int base = 4 * warp; base < n_seg && ldx < 0;", 0),
+    "dots": ("  for (int o = warp; o < count; o += WARPS) {", "  for (int o = warp; o < count && K < 0; o += WARPS) {", 0),
+    "rff": ("    sincosf(TWO_PI * proj, &s, &co);", "    s = proj; co = 1.0f - proj;", 0),
+}
+
+
+def skip_source(phase: str) -> tuple:
+    """(label, path) of a source under csrc/_build/ that leaves ``phase`` out of K1."""
+    text, repl, which = SKIPS[phase]
+    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text().replace('#include "', '#include "../')
+    parts = src.split(text)
+    if len(parts) <= which + 1:
+        raise SystemExit(f"k1_compare: --skip {phase}: its text is no longer in {fd.KERNEL_SOURCE}")
+    src = text.join(parts[:which + 1]) + repl + text.join(parts[which + 1:])
+    path = cuda_lib.BUILD_DIR / f"fused_decode_fwd_skip_{phase}.cu"
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path.write_text(src)
+    return f"skip_{phase}", str(path)
+
+
 def variant_source(defines: str) -> tuple:
     """(label, path) of a source under csrc/_build/ that builds K1 with the comma-separated
     ``NAME=VALUE`` defines."""
@@ -68,6 +96,8 @@ def main() -> int:
                     help="an earlier K1 source with a compatible C interface (repeatable)")
     ap.add_argument("--define", action="append", default=[],
                     help="also build the current source with these NAME=VALUE[,NAME=VALUE] defines (repeatable)")
+    ap.add_argument("--skip", action="append", default=[], choices=sorted(SKIPS),
+                    help="also build the current source without this phase (timing only; repeatable)")
     ap.add_argument("--iters", type=int, default=20, help="kernel launches per timed sample")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -77,6 +107,7 @@ def main() -> int:
     olds = [Path(p).stem for p in opts.old]
     sources.update({name: str(Path(p).resolve()) for name, p in zip(olds, opts.old)})
     variants = dict(variant_source(d) for d in opts.define)
+    variants.update(skip_source(p) for p in opts.skip)
     extra = list(variants)
     sources.update(variants)
     with ThreadPoolExecutor(len(sources)) as pool:
