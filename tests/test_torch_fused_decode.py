@@ -198,7 +198,9 @@ def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
     assert src.count("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32") == 1
     body_of = lambda name: re.search(rf"\n(?:template <[^\n]*>\n)?__(?:device|global)__[^\n]* {name}\(.*?\n}}\n", src, re.S).group(0)
     wg = body_of("gemm_wg")
-    assert wg.count("wgmma_tf32(") == 3 and "split(" in wg and "fence_async_smem()" in wg
+    # Three wgmma per k step (small x big, big x small, big x big), in each accumulation mode.
+    assert wg.count("wgmma_tf32(") == 3 * 2 and "split(" in wg and "fence_async_smem()" in wg
+    assert re.search(r"#define K1_WG_CHAIN_STEPS 0\b", src)
     d32 = body_of("dense32")
     assert "mma_3xtf32_tiles(" in d32 and "split(" in d32
     for gemm in (wg, d32):  # asynchronous staging: 16-byte cp.async, waited for two chunks late
