@@ -1,6 +1,6 @@
 // Fused ENF decode, forward: CUDA C++ for Hopper (sm_90a), its products on the tensor
-// cores at f32 accuracy (3xTF32 mma.sync), the latents batched into the rows of the
-// shared-weight layers, weights staged into shared memory by cp.async in a ring.
+// cores at f32 accuracy (3xTF32), the latents batched into the rows of the layers that
+// share weights (128-row products on wgmma), weights staged by cp.async in a ring.
 //
 // Replaces the TPU kernel `_fwd_kernel` launched by `_fwd_pallas`
 // (enf_pde_tpu/ops/pallas_decode.py), whose body is `_tile_decode`. The plain
@@ -20,62 +20,75 @@
 // `normalize` is a LayerNorm without scale and bias (those are folded into the next
 // matmul). The tail is the compile-time flag WITH_TAIL.
 //
-// Design. One block of 256 threads (8 warps) decodes TILE = 32 coordinates of one batch
-// row; the grid is (ceil(C / TILE), B), so neighbouring blocks share a row's A/G/c in L2.
-// As the Pallas kernel does (`inv3.reshape(Z*T, I)`), the latents go into the rows of the
-// layers whose weights they share, up to ZG = 4 latents (128 rows) at a time:
-//   q_w1, v_w1, fw   one [Z*T x hid] @ [hid x hid] product each;
-//   m_w2             one [2*H*T x hidm] @ [hidm x D] product per pair of latents (the two
-//                    heads and two latents of a pair: 128 rows at H = 2); a warp's two m16
-//                    tiles are the same 16 coordinates and head in the two latents, so it
-//                    weights both by their softmax probabilities and adds their sum into the
-//                    accumulator: no two warps write one element;
-//   G[b, z], A[b, z] per latent (they differ per latent): [T x hid] @ [hid x H*hidm] on the
-//                    tensor cores, and the logits (N = H) as warp dot products on the CUDA
-//                    cores, as is the head's last layer (N = out_dim);
-//   tail             [T x H*D] products.
-// Two passes over the latents, as the softmax over Z forces: the logits of every latent
-// first, then the value chains weighted into the accumulator.
+// Design. One block of 256 threads (two warpgroups) decodes TILE = 32 coordinates of one
+// batch row; the grid is (ceil(C / TILE), B), so neighbouring blocks share a row's A/G/c in
+// L2. Two passes over the latents, as the softmax over Z forces: every latent's logits
+// first, then the value chains weighted into the accumulator. As the Pallas kernel does
+// (`inv3.reshape(Z*T, I)`), the latents go into the rows of the layers whose weights they
+// share, ZG = 4 latents (128 rows) at a time:
+//   q_w1, v_w1, fw  one [4 T x hid] @ [hid x hid] product each (`dense128`);
+//   m_w2            one [128 x hidm] @ [hidm x D] product per pair of latents and pair of
+//                   heads (`mixer`): a thread's two fragment rows are one coordinate in the
+//                   two latents, so it weights both by their softmax probabilities and adds
+//                   the sum into the accumulator; no two threads write one element.
+// What differs per latent stays per latent: G[b, z] as a [T x hid] @ [hid x H*hidm] product
+// (`dense32`), A[b, z] (N = H) as dot products on the CUDA cores (`lane_dots`), as is the
+// head's last layer (N = out_dim). The tail's products have T = 32 rows (`dense32`).
 //
-// Products (`gemm`): m16n8k8 TF32 mma.sync through the 3xTF32 helper of tf32_mma.cuh. The 8
-// warps tile the rows as MW x (8 / MW): 4 x 2 for the 128-row products (a warp owns 32
-// rows x 64 columns), 1 x 8 for the 32-row ones (32 rows x 32 columns). A operands are the
-// activations, f32 in shared memory with a row stride of 4 mod 32 words (fragment loads
-// conflict free), split into big and small per fragment. B operands are staged 16 k-rows at
-// a time into a ring of 3 stages by cp.async (16-byte copies, zero-filled past N): the
-// copies of chunk c + 2 are in flight while chunk c is multiplied, one barrier per chunk.
-// q_w1, v_w1, fw and m_w2, each read by four warps in the 128-row products, come pre-split
-// by the wrapper (`split_weights` in fused_decode.py: float2 (big, small) pairs, row-major
-// [K][N]) and are staged as they are; G and the tail weights (each B element read by one
-// warp) come raw and are split per fragment. Staged row strides: 132 float2 (4 mod 16:
-// 8-byte B loads conflict free) and 264 floats (8 mod 32).
+// Products. 3xTF32: each operand x = big + small, both tf32 (tf32_mma.cuh); small x small is
+// dropped, about 2^-21 relative per product.
+//   128 rows: wgmma m64n64k8 (A from registers, B K-major from shared memory, no swizzle),
+//     one warpgroup per 64 rows, two n64 halves per 128-column slab, three wgmma (small x
+//     big, big x small, big x big) per k step of 8. The wrapper hands the four weights over
+//     pre-split and blocked (`split_weights` in fused_decode.py): one 16 KB block per
+//     16-deep k chunk and 128 columns, which the ring takes whole. The warps split their A
+//     fragments themselves. ptxas serializes every wgmma of a kernel whose wgmma crosses a
+//     function call or a path that differs between warpgroups, so these products are
+//     inlined and branch on nothing per warpgroup but whether it has rows.
+//   32 rows: mma.sync m16n8k8 through mma_3xtf32_tiles, which issues each term across all
+//     of a warp's 2 x NJ tiles before the next; the 8 warps split N (32 columns each). G
+//     and the tail weights come raw and are split per fragment (each element is read by one
+//     warp); the block splits each A chunk once into a float2 buffer, one chunk ahead.
+// Staging: 16-deep k chunks by 16-byte cp.async into a ring of K1_STAGES = 3 stages (16,896
+// bytes each), two chunks ahead of the products, one barrier per chunk; no register round
+// trip. Activations stay in shared memory with row strides of 4 mod 32 words and the staged
+// raw weights with 8 mod 32, so every fragment load is conflict free.
 //
-// Accuracy. Every k step of 8 (K1_CHAIN_STEPS = 1) goes into a fresh accumulator that is
-// added into f32 registers: the tensor core truncates when it aligns addends. Measured on
-// the H100 against the plain version at b = 160, c = 512, with the tail (PERF.md, PR 8;
-// `tools/k1_compare.py --chain`): chain 1, rel-L2 in PERF.md §6; longer chains there too.
+// Accuracy: the length of the chain an accumulator carries before it is added into f32
+// registers (the tensor core truncates when it aligns addends; K2 drifted to 1.8e-3 with
+// its whole sums in the accumulator). Measured on an H100 against the plain version,
+// rel-L2 at b = 160, c = 512 with the tail (tools/k1_compare.py, PERF.md §6):
+//   mma.sync, a fresh accumulator per k step of 8 (K1_CHAIN_STEPS 1): 1.03e-6; per two (2,
+//     used): 1.04e-6; per 4 and 8 steps: 1.18e-6, 1.87e-6 (an earlier build); the whole
+//     sum (0, up to 32 steps and 96 mma): 5.58e-6;
+//   wgmma, a fresh accumulator per chunk of two k steps (K1_WG_CHAIN_STEPS 2): 1.04e-6; the
+//     whole slab in the accumulator (0, used: 16 k steps, 48 wgmma per sum): 1.37e-6.
+// Every shape chip_smoke.py checks stays within 1.5e-6 (gate 1e-5).
 //
 // Shared memory at Navier-Stokes width (z = 4, I = 4, hid = 128, H = 2, hidm = D = 128):
-//   X    [128 x 132] f32   67,584 B   RFF features, then u / t of all latents
-//   Y    [128 x 132] f32   67,584 B   hq / hv; the pre rows of a latent pair [64 x 260];
-//                                     tail activations [32 x 260]
-//   acc  [32 x 260]  f32   33,280 B   the weighted sum y, then tail activations
-//   ring 3 x 16 x 264 f32  50,688 B
+//   X      [128 x 132] f32       67,584 B   RFF features, then u / t of all latents
+//   Y      [128 x 132] f32       67,584 B   hq / hv; a latent pair's pre [64 x 260]; the tail's
+//   acc    [32 x 260] f32        33,280 B   the weighted sum y, then the tail's activations
+//   ring   3 x 16 x 264 f32      50,688 B   B chunks (a 16 KB wgmma block or 16 x 256 raw f32)
+//   A      2 x 32 x 20 float2    10,240 B   the split A chunks of the 32-row products
 //   probabilities [Z][32][H] 1,024 B, invariants [4][32][I] 2,048 B
-//   222,208 B of the 232,448 a block may have: one block (8 warps) per SM.
+//   232,448 B, all that a block may have: one block (two warpgroups) per SM.
 // L2 weight bytes per block of 32 points: q_w1, v_w1, fw 3 x 128 KB (pre-split, once for all
-// four latents); m_w2 2 x 128 KB (once per pair); G 4 x 128 KB; A 4 KB; tail o_w, p_w1, p_w2
-// 3 x 256 KB, h_w1 128 KB, h_w2 64 KB: 2,116 KB, 66 KB per decoded point (86 KB before:
-// each latent and head streamed every shared weight once, in f32).
+// four latents); m_w2 2 x 128 KB (once per pair); G 4 x 128 KB; A 4 KB; the tail's o_w, p_w1,
+// p_w2 3 x 256 KB, h_w1 128 KB, h_w2 64 KB: 2,116 KB, 67.7 kB per decoded point (86 KB in
+// the PR 7 build, which streamed every shared weight once per latent and head, in f32).
 //
-// What bounds it: 1.415 MFLOP of products per point, on the tensor cores at three TF32
-// products per product (0.70 ms at b = 160, c = 512); a few bytes of input per point.
+// What bounds it: 1.415 MFLOP of products per point, three TF32 products each on the tensor
+// cores: 0.70 ms at b = 160, c = 512 (1.73 ms in f32 on the CUDA cores); a few bytes of input
+// per point. Measured 4.67 ms (PERF.md): the 32-row mma.sync products take about half, the
+// 128-row wgmma ones a fifth, the row passes (LayerNorm with gelu, RFF, logits) most of the
+// rest.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32_mma.cuh"  // gelu_tanh, split_tf32, mma_3xtf32 (shared with K2)
+#include "tf32_mma.cuh"  // gelu_tanh, split_tf32_int, mma_3xtf32_tiles (the header K2 shares)
 
 // Build-time variants (tools/k1_compare.py --define NAME=VALUE builds them side by side).
 #ifndef K1_CHAIN_STEPS
@@ -86,9 +99,6 @@
 #endif
 #ifndef K1_STAGES
 #define K1_STAGES 3       // depth of the cp.async ring
-#endif
-#ifndef K1_CVT_SPLIT
-#define K1_CVT_SPLIT 0    // split operands with the tf32 conversion (split_tf32), not integer rounding
 #endif
 
 namespace {
@@ -104,14 +114,14 @@ constexpr int WG_N = 128;             // columns of one wgmma product and of one
 constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part x k step x 8 x 128
 constexpr int CHAIN = K1_CHAIN_STEPS;
 constexpr int WG_CHAIN = K1_WG_CHAIN_STEPS;
-constexpr bool CVT_SPLIT = K1_CVT_SPLIT != 0;
 constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
 constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 33;
 constexpr int kNumDims = 10;
-static_assert(CHAIN >= 0 && CHAIN <= 2 && (WG_CHAIN == 0 || WG_CHAIN == 2) && STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "variant");
+static_assert(CHAIN >= 0 && CHAIN <= 2 && (WG_CHAIN == 0 || WG_CHAIN == 2), "accumulator chain");
+static_assert(STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "ring");
 
 struct Params {
   const float *inv, *wb, *A, *ab, *G, *c;
@@ -126,10 +136,6 @@ struct Params {
 
 // Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
 __host__ __device__ inline int row_stride(int width) { return (width + 31) / 32 * 32 + 4; }
-
-// Both give big = tf32(x), small = tf32(x - big), bit for bit; the integer form takes fewer
-// instructions (the tf32 conversion compiles to several on sm_90).
-__device__ __forceinline__ float2 split(float x) { return CVT_SPLIT ? split_tf32(x) : split_tf32_int(x); }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -204,7 +210,7 @@ __device__ __noinline__ void dense32(const float* X, int ldx, int K, const float
   };
   auto split_x = [&](int k0, int buf) {
 #pragma unroll
-    for (int i = 0; i < APT; ++i) astage[buf * 32 * LDA + a_dst[i]] = split(X[a_src[i] + k0]);
+    for (int i = 0; i < APT; ++i) astage[buf * 32 * LDA + a_dst[i]] = split_tf32_int(X[a_src[i] + k0]);
   };
 
   __syncthreads();  // earlier readers of the ring and astage (and writers of X) are done
@@ -248,7 +254,7 @@ __device__ __noinline__ void dense32(const float* X, int ldx, int K, const float
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const float2 w = split(st[(8 * q + tq + 4 * r) * LD + warp * WN + 8 * j + g]);
+            const float2 w = split_tf32_int(st[(8 * q + tq + 4 * r) * LD + warp * WN + 8 * j + g]);
             bb[q][j][r] = __float_as_uint(w.x);
             bs[q][j][r] = __float_as_uint(w.y);
           }
@@ -355,12 +361,13 @@ __device__ __forceinline__ void wg_fence_operands(float* d) {
 
 // out = X W for the 128 rows of a latent group on the tensor cores at f32 accuracy: warpgroup
 // wg (warps 4 wg .. 4 wg + 3) multiplies 64 rows by each 128-wide slab of N, as two m64n64k8
-// wgmma products, warp w supplying A rows 16 w .. 16 w + 15 from shared memory (xrow(wg, w, r) points
-// at row r of them), split per fragment into registers. W is split_weights' blocked layout:
-// each 16 KB block (big and small, two k steps, 128 columns) is staged whole into the ring by
-// cp.async, two chunks ahead; 3xTF32 is three wgmma per k step (small x big, big x small, big x
-// big) into a fresh accumulator per chunk (K1_CHAIN_STEPS 2; 0: per slab) that is added into
-// f32 registers. active(wg) says whether warpgroup wg has rows; epi(wg, w, r, n, v0, v1) gets
+// wgmma products, warp w supplying A rows 16 w .. 16 w + 15 from shared memory (xrow(wg, w, r)
+// points at row r of them), split per fragment into registers. W is split_weights' blocked
+// layout: each 16 KB block (big and small, two k steps, 128 columns) is staged whole into the
+// ring by cp.async, two chunks ahead. 3xTF32 is three wgmma per k step (small x big, big x
+// small, big x big); K1_WG_CHAIN_STEPS 0 keeps a slab's whole sum in the accumulator, one
+// commit and wait a chunk; 2 starts a fresh accumulator each chunk and adds it into f32
+// registers. active(wg) says whether warpgroup wg has rows; epi(wg, w, r, n, v0, v1) gets
 // column n of rows r (0..7) and r + 8 of warp w's 16. Every thread of the block calls it; it
 // starts with a barrier and does not end with one.
 template <class XRow, class Active, class Epi>
@@ -410,7 +417,7 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
         const float v[4] = {xr0[k], xr1[k], xr0[k + 4], xr1[k + 4]};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 sp = split(v[e]);
+          const float2 sp = split_tf32_int(v[e]);
           ab[q][e] = __float_as_uint(sp.x);
           as[q][e] = __float_as_uint(sp.y);
         }
@@ -471,9 +478,8 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
 }
 
 // Y = act(X W + bias) over the 128 rows of a latent group (R of them valid), row strides
-// ldx, ldy; W pre-split and blocked.
-// Inlined, as is mixer: ptxas serializes every wgmma of a kernel whose wgmma pipeline crosses a
-// function call.
+// ldx, ldy; W pre-split and blocked. Inlined, as is mixer: ptxas serializes every wgmma of a
+// kernel whose wgmma pipeline crosses a function call.
 template <int ACT>  // ACT_NONE or ACT_RELU (the gelu after fw is applied in its normalize pass)
 __device__ __forceinline__ void dense128(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
                                       const float* __restrict__ bias, float* Y, int ldy, float* ring) {
@@ -724,7 +730,7 @@ size_t fused_decode_fwd_smem_bytes(const int* dims, int n_dims) {
 }
 
 // ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null without
-// the tail), out, then q_w1, v_w1, fw and m_w2 split into (big, small) float2 pairs.
+// the tail), out, then split_weights' blocks of q_w1, v_w1, fw and m_w2.
 // dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail. Launches on `stream` and returns
 // the cudaError_t of the launch (cudaErrorInvalidValue for shapes it does not take).
 int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,

@@ -34,7 +34,8 @@ __device__ __forceinline__ float2 split_tf32(float x) {
 }
 
 // The same split by integer rounding (add half of the 13 dropped bits' unit, clear them):
-// bit for bit the cvt.rna result for finite x, on the integer pipes instead of a conversion.
+// bit for bit the cvt.rna result for finite x, in fewer instructions (the conversion compiles
+// to several on sm_90). K1 uses this one.
 __device__ __forceinline__ float2 split_tf32_int(float x) {
   const uint32_t big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   const float small = x - __uint_as_float(big);

@@ -194,15 +194,14 @@ def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
     assert header.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1
     tiles = re.search(r"void mma_3xtf32_tiles\(.*?\n}", header, re.S).group(0)
     assert tiles.count("mma_tf32(") == 3  # small x big, big x small, big x big, across the tiles
-    assert re.search(r"float2 split\(float x\) \{ return CVT_SPLIT \? split_tf32\(x\) : split_tf32_int\(x\); \}", src)
     assert src.count("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32") == 1
     body_of = lambda name: re.search(rf"\n(?:template <[^\n]*>\n)?__(?:device|global)__[^\n]* {name}\(.*?\n}}\n", src, re.S).group(0)
     wg = body_of("gemm_wg")
     # Three wgmma per k step (small x big, big x small, big x big), in each accumulation mode.
-    assert wg.count("wgmma_tf32(") == 3 * 2 and "split(" in wg and "fence_async_smem()" in wg
+    assert wg.count("wgmma_tf32(") == 3 * 2 and "split_tf32_int(" in wg and "fence_async_smem()" in wg
     assert re.search(r"#define K1_WG_CHAIN_STEPS 0\b", src)
     d32 = body_of("dense32")
-    assert "mma_3xtf32_tiles(" in d32 and "split(" in d32
+    assert "mma_3xtf32_tiles(" in d32 and "split_tf32_int(" in d32
     for gemm in (wg, d32):  # asynchronous staging: 16-byte cp.async, waited for two chunks late
         assert "cp_async16(" in gemm and "cp_async_wait<STAGES - 2>()" in gemm
     assert "cp.async.cg.shared.global" in src
