@@ -57,13 +57,13 @@
 // Accuracy: the length of the chain an accumulator carries before it is added into f32
 // registers (the tensor core truncates when it aligns addends; K2 drifted to 1.8e-3 with
 // its whole sums in the accumulator). Measured on an H100 against the plain version,
-// rel-L2 at b = 160, c = 512 with the tail (tools/k1_compare.py, PERF.md §6):
-//   mma.sync, a fresh accumulator per k step of 8 (K1_CHAIN_STEPS 1): 1.03e-6; per two (2,
-//     used): 1.04e-6; per 4 and 8 steps: 1.18e-6, 1.87e-6 (an earlier build); the whole
-//     sum (0, up to 32 steps and 96 mma): 5.58e-6;
-//   wgmma, a fresh accumulator per chunk of two k steps (K1_WG_CHAIN_STEPS 2): 1.04e-6; the
-//     whole slab in the accumulator (0, used: 16 k steps, 48 wgmma per sum): 1.37e-6.
-// Every shape chip_smoke.py checks stays within 1.5e-6 (gate 1e-5).
+// rel-L2 at b = 160, c = 512 with the tail, one call of tools/k1_compare.py (PERF.md §6):
+//   used: mma.sync fresh per two k steps of 8 (K1_CHAIN_STEPS 2: 6 mma), wgmma the whole
+//     slab in the accumulator (K1_WG_CHAIN_STEPS 0: 16 k steps, 48 wgmma): 1.37e-6;
+//   mma.sync fresh per k step (1): 1.36e-6; its whole sum (0: up to 32 steps, 96 mma):
+//     5.58e-6; wgmma fresh per two k steps (2): 1.04e-6.
+// An earlier build measured mma.sync chains of 4 and 8 k steps at 1.18e-6 and 1.87e-6.
+// Every shape chip_smoke.py checks stays within 1.5e-6 of the plain version (gate 1e-5).
 //
 // Shared memory at Navier-Stokes width (z = 4, I = 4, hid = 128, H = 2, hidm = D = 128):
 //   X      [128 x 132] f32       67,584 B   RFF features, then u / t of all latents
