@@ -49,10 +49,10 @@
 //     of a warp's 2 x NJ tiles before the next; the 8 warps split N (32 columns each). G
 //     and the tail weights come raw and are split per fragment (each element is read by one
 //     warp); the block splits each A chunk once into a float2 buffer, one chunk ahead.
-// Staging: 16-deep k chunks by 16-byte cp.async into a ring of K1_STAGES = 3 stages (16,896
-// bytes each), two chunks ahead of the products, one barrier per chunk; no register round
-// trip. Activations stay in shared memory with row strides of 4 mod 32 words and the staged
-// raw weights with 8 mod 32, so every fragment load is conflict free.
+// Staging: 16-deep k chunks by 16-byte cp.async into a ring of 3 stages (16,896 bytes each),
+// two chunks ahead of the products, one barrier per chunk; no register round trip.
+// Activations stay in shared memory with row strides of 4 mod 32 words and the staged raw
+// weights with 8 mod 32, so every fragment load is conflict free.
 //
 // Accuracy: the length of the chain an accumulator carries before it is added into f32
 // registers (the tensor core truncates when it aligns addends; K2 drifted to 1.8e-3 with
@@ -97,9 +97,6 @@
 #ifndef K1_WG_CHAIN_STEPS
 #define K1_WG_CHAIN_STEPS 0  // wgmma: 2 (a fresh accumulator per chunk) or 0 (the whole sum)
 #endif
-#ifndef K1_STAGES
-#define K1_STAGES 3       // depth of the cp.async ring
-#endif
 
 namespace {
 
@@ -108,7 +105,7 @@ constexpr int THREADS = 256;          // two warpgroups
 constexpr int WARPS = THREADS / 32;
 constexpr int ZG = 4;                 // latents per batched product (ZG * TILE = 128 rows)
 constexpr int KC = 16;                // k rows per staged chunk
-constexpr int STAGES = K1_STAGES;     // ring depth
+constexpr int STAGES = 3;             // ring depth (2 measured the same, PERF.md §6)
 constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (256 + 8) f32, or a 16 KB wgmma block
 constexpr int WG_N = 128;             // columns of one wgmma product and of one pre-split slab
 constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part x k step x 8 x 128
@@ -717,17 +714,6 @@ bool layout(Params& P, bool with_tail, size_t* smem) {
 }  // namespace
 
 extern "C" {
-
-// Shared memory of one block in bytes, 0 for shapes the kernel does not take.
-// dims as for fused_decode_fwd_launch.
-size_t fused_decode_fwd_smem_bytes(const int* dims, int n_dims) {
-  if (n_dims != kNumDims) return 0;
-  Params P;
-  P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
-  P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
-  size_t smem = 0;
-  return layout(P, dims[9] != 0, &smem) ? smem : 0;
-}
 
 // ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null without
 // the tail), out, then split_weights' blocks of q_w1, v_w1, fw and m_w2.

@@ -205,7 +205,7 @@ def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
     for gemm in (wg, d32):  # asynchronous staging: 16-byte cp.async, waited for two chunks late
         assert "cp_async16(" in gemm and "cp_async_wait<STAGES - 2>()" in gemm
     assert "cp.async.cg.shared.global" in src
-    assert int(re.search(r"#define K1_STAGES (\d+)", src).group(1)) >= 2
+    assert int(re.search(r"constexpr int STAGES = (\d+);", src).group(1)) >= 2
     # A fresh accumulator per K1_CHAIN_STEPS k steps, added into f32 registers.
     assert re.search(r"#define K1_CHAIN_STEPS 2\b", src)
     body = body_of("fused_decode_fwd_kernel")

@@ -4,19 +4,19 @@
                                 [--skip PHASE ...]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_fwd.cu``, each ``--old`` (an earlier K1
-source, named by its file name; one with the 29-pointer interface of PR 4-7 is handed
-the first 29 pointers) and, for each ``--define``, the current source with those
-build-time variants (the ``K1_*`` macros at the top of the source: the accumulator
-chain, the ring's depth, pre-split weights, threads a block, tiles a warp, the split's
-rounding), and for each ``--skip`` a copy of the current source that leaves one phase out
-(``SKIPS``: its results are wrong, its time says what the phase costs), with plain ``nvcc``
-in parallel, and prints the compiler's register and spill report. Holds every build against the plain version at the main path's launch
-shapes at Navier-Stokes width (160 x 512 and 80 x 512 with the tail, 8 x 4096 with and
-without it, and a ragged 8 x 1000), one rel-L2 per shape, then times plain, old, new,
-new, old, plain at 160 x 512 and 80 x 512 beside the bounds (f32 on the CUDA cores and
-3xTF32 on the tensor cores by operations, and by bytes) and the design's L2 weight
-bytes per point. Prints the card's name and power limit. Exits 1 when the new build
-misses the rel-L2 tolerance of ``chip_smoke.py`` at any shape.
+source, named by its file name; one with the 29-pointer interface of PR 4-7 is handed the
+first 29 pointers), for each ``--define`` the current source with those build-time
+variants (the ``K1_*`` macros at the top of the source: the accumulator chains), and for
+each ``--skip`` a copy of the current source that leaves one phase out (``SKIPS``: its
+results are wrong, its time says what the phase costs), with plain ``nvcc`` in parallel,
+and prints the compiler's register, spill and ``wgmma`` report. Holds every build against
+the plain version at the main path's launch shapes at Navier-Stokes width (160 x 512 and
+80 x 512 with the tail, 8 x 4096 with and without it, and a ragged 8 x 1000), one rel-L2
+per shape, then times plain, old, variants, new, new, variants, old, plain at 160 x 512
+and 80 x 512 beside the bounds (f32 on the CUDA cores and 3xTF32 on the tensor cores by
+operations, and by bytes) and the design's L2 weight bytes per point. Prints the card's
+name and power limit. Exits 1 when the new build misses the rel-L2 tolerance of
+``chip_smoke.py`` at any shape.
 """
 
 from __future__ import annotations
