@@ -62,6 +62,18 @@ SKIPS = {
     "normalize": ("  for (int base = 4 * warp; base < n_seg;", "  for (int base = 4 * warp; base < n_seg && ldx < 0;", 0),
     "dots": ("  for (int o = warp; o < count; o += WARPS) {", "  for (int o = warp; o < count && K < 0; o += WARPS) {", 0),
     "rff": ("    sincosf(TWO_PI * proj, &s, &co);", "    s = proj; co = 1.0f - proj;", 0),
+    # Parts of the 32-row products' chunk loop (dense32).
+    "mma32_mma": ("          mma_3xtf32_tiles(p, ab[q], as[q], bb[q], bs[q]);",
+                  "          p[0][0][0] += __uint_as_float(ab[q][0][0] ^ as[q][1][3] ^ bb[q][0][0] ^ bs[q][NJ - 1][1]);", 0),
+    "mma32_aload": ("          const float2 v[4] = {a[0], a[8 * LDA], a[4], a[8 * LDA + 4]};",
+                    "          const float2 v[4] = {make_float2(q, mi), make_float2(g, 1.0f), make_float2(tq, 2.0f),"
+                    " make_float2(c, 3.0f)};", 0),
+    "mma32_bload": ("            const float2 w = split_tf32_int(st[(8 * q + tq + 4 * r) * LD + warp * WN + 8 * j + g]);",
+                    "            const float2 w = split_tf32_int((float)(8 * q + tq + 4 * r + j));", 0),
+    "mma32_bsplit": ("            const float2 w = split_tf32_int(st[(8 * q + tq + 4 * r) * LD + warp * WN + 8 * j + g]);",
+                     "            const float w0 = st[(8 * q + tq + 4 * r) * LD + warp * WN + 8 * j + g];"
+                     " const float2 w = make_float2(w0, w0);", 0),
+    "mma32_asplit": ("    if (c + 1 < total) split_x(kc + 1 == nk ? 0 : (kc + 1) * KC, (c + 1) & 1);", "", 0),
 }
 
 
