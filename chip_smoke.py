@@ -20,10 +20,11 @@ Phases, one line each, flushed as they go:
    shape and finiteness, the decoded field against the plain decode of the same
    latents, and the time of the call and of each stage (median of 5 warm repeats);
 4. K1 at the forecast's launch shape (160 frames x 512 points) against its plain
-   version, and its time there and at the rollout decode's shape (80 x 512) beside
-   the plain version's and the card's bounds for the same work (f32 on the CUDA cores,
-   3xTF32 on the tensor cores, bytes), with the design's L2 weight bytes per point;
-   and the decode's PyTorch prologue (weight fold, geometry);
+   version, and its time there and at the rollout decode's shape (80 x 512), its
+   shared weights split once as the forecast decode splits them, beside the plain
+   version's and the card's bounds for the same work (f32 on the CUDA cores, 3xTF32 on
+   the tensor cores, bytes), with the design's L2 weight bytes per point; and the
+   decode's PyTorch prologue (weight fold, K1's weight split, geometry);
 5. kernel K2 (``fused_decode_bwd``) against its plain version (autograd over the
    plain decode) at the ode step's decode shape, 80 frames x 512 points at full
    width, with and without weight gradients and with and without the tail, every
@@ -37,7 +38,9 @@ Phases, one line each, flushed as they go:
    and dp validation at epoch 3; finite losses, K1 and K2 launch counts of that run,
    each step kind's median warm time over 5 repeats, and the peak memory.
 
-Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+Then one line ``{"kernels": [...]}`` (each kernel's ``bound_ms`` is that of the route it
+takes, 3xTF32 on the tensor cores, or bytes where they take longer) and, last,
+``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
 Every float check is in f32: rel-L2 <= 1e-5 against the plain version (K2 reduces
 its sums deterministically, in another order than autograd: no atomics).
@@ -71,6 +74,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fused_decode_bwd_plain,
     fused_decode_fwd,
     fused_decode_plain,
+    split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
 from enf_pde_tpu_torch.train.logging import MetricLogger
@@ -89,8 +93,8 @@ TRAIN_FRAMES = 20
 LOG_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_train"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernel's operand type
-PEAK_TF32_FLOPS = 495e12  # tensor cores; K2's 3xTF32 products issue three per product
+PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernels' operand type
+PEAK_TF32_FLOPS = 495e12  # tensor cores; K1's and K2's 3xTF32 products issue three per product
 
 
 def log(msg: str) -> None:
@@ -263,7 +267,8 @@ def k1_l2_bytes_per_point(args, tile: int = 32) -> float:
 
 def k1_bounds(cfg, args, out) -> dict:
     """The least times of K1's work on the card: f32 on the CUDA cores by operations,
-    3xTF32 on the tensor cores (3 products per product), and by bytes; and the design's
+    3xTF32 on the tensor cores (3 products per product), and by bytes; ``bound_ms`` is
+    the route K1 takes, the larger of the 3xTF32 and the bytes bound. And the design's
     L2 weight bytes per point."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     inv, ws, tws = args[0], args[6], args[7]
@@ -271,10 +276,10 @@ def k1_bounds(cfg, args, out) -> dict:
     hid, hidm = ws[1].shape[0], ws[8].shape[0]
     flops = decode_flops_per_point(H, D, hid, hidm, Zl, I, cfg.nef.num_out) * B * C
     moved = nbytes(args[:6]) + nbytes(ws) + nbytes(tws) + nbytes([out])
-    b_bytes, b_ops = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return dict(flops=flops, moved=moved, bytes_ms=b_bytes, f32_ms=b_ops,
-                tc_ms=3 * flops / PEAK_TF32_FLOPS * 1e3, bound_ms=max(b_bytes, b_ops),
-                bound_by="bytes" if b_bytes >= b_ops else "operations",
+    b_bytes, b_tc = moved / PEAK_BYTES_PER_S * 1e3, 3 * flops / PEAK_TF32_FLOPS * 1e3
+    return dict(flops=flops, moved=moved, bytes_ms=b_bytes, f32_ms=flops / PEAK_F32_FLOPS * 1e3,
+                tc_ms=b_tc, bound_ms=max(b_bytes, b_tc),
+                bound_by="bytes" if b_bytes >= b_tc else "operations",
                 l2_per_point=k1_l2_bytes_per_point(args))
 
 
@@ -297,7 +302,8 @@ def k2_check(cfg, args, g, bwd=fused_decode_bwd) -> float:
 
 def k2_bounds(cfg, args, g, wg: bool) -> dict:
     """The least times of K2's work on the card (tail mode): f32 on the CUDA cores by
-    operations, 3xTF32 on the tensor cores (3 products per product), and by bytes."""
+    operations, 3xTF32 on the tensor cores (3 products per product), and by bytes;
+    ``bound_ms`` is the route K2 takes, the larger of the 3xTF32 and the bytes bound."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     inv, ws, tws = args[0], args[6], args[7]
     B, Zl, C, I = inv.shape
@@ -306,10 +312,10 @@ def k2_bounds(cfg, args, g, wg: bool) -> dict:
     grads = [t for t in (*out[:6], *out[6], *out[7]) if t is not None]
     flops = decode_bwd_flops_per_point(H, D, hid, hidm, Zl, I, cfg.nef.num_out, wg) * B * C
     moved = nbytes(args[:6]) + nbytes(ws) + nbytes(tws) + nbytes([g]) + nbytes(grads)
-    b_bytes, b_ops = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return dict(flops=flops, moved=moved, bytes_ms=b_bytes, f32_ms=b_ops,
-                tc_ms=3 * flops / PEAK_TF32_FLOPS * 1e3, bound_ms=max(b_bytes, b_ops),
-                bound_by="bytes" if b_bytes >= b_ops else "operations")
+    b_bytes, b_tc = moved / PEAK_BYTES_PER_S * 1e3, 3 * flops / PEAK_TF32_FLOPS * 1e3
+    return dict(flops=flops, moved=moved, bytes_ms=b_bytes, f32_ms=flops / PEAK_F32_FLOPS * 1e3,
+                tc_ms=b_tc, bound_ms=max(b_bytes, b_tc),
+                bound_by="bytes" if b_bytes >= b_tc else "operations")
 
 
 def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
@@ -542,6 +548,7 @@ def main() -> int:
     # geometry per chunk).
     with torch.no_grad():
         fold_ms = cuda_ms(lambda: dec.fold(flat[0], flat[1]), iters=5, warmup=1)
+        split_ms = cuda_ms(lambda: split_weights(folded[4]), iters=5, warmup=1)
         geom_ms = cuda_ms(lambda: dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), iters=20)
         args = (*dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), *folded)
         out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
@@ -549,7 +556,8 @@ def main() -> int:
                                     fused_decode_plain(*args, num_heads=H, head_dim=D)))
         k1_timing = {}
         for label, kargs in (("forecast", args), ("rollout", rollout_args)):
-            k_ms = cuda_ms(lambda: fused_decode_fwd(*kargs, num_heads=H, head_dim=D), iters=20)
+            split = split_weights(kargs[6])[1]  # once per fold, as the forecast decode splits
+            k_ms = cuda_ms(lambda: fused_decode_fwd(*kargs, num_heads=H, head_dim=D, split=split), iters=20)
             p_ms = cuda_ms(lambda: fused_decode_plain(*kargs, num_heads=H, head_dim=D), iters=5, warmup=1)
             bd = k1_bounds(cfg, kargs, out_k if label == "forecast" else
                            fused_decode_fwd(*kargs, num_heads=H, head_dim=D))
@@ -561,7 +569,7 @@ def main() -> int:
                 f"3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
                 f"{bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} MB); L2 weight bytes "
                 f"per point {bd['l2_per_point'] / 1e3:.1f} KB")
-    log(f"[timing] decode prologue: weight fold {fold_ms:.4f} ms per decode, geometry "
+    log(f"[timing] decode prologue: weight fold {fold_ms:.4f} ms and split {split_ms:.4f} ms per decode, geometry "
         f"{geom_ms:.4f} ms per chunk x {launches} chunks; forecast decode total at K1's time "
         f"{k1_timing['forecast']['ms'] * launches:.3f} ms")
     kernel_ms, plain_ms = k1_timing["forecast"]["ms"], k1_timing["forecast"]["plain_ms"]

@@ -57,11 +57,12 @@
 // Accuracy: the length of the chain an accumulator carries before it is added into f32
 // registers (the tensor core truncates when it aligns addends; K2 drifted to 1.8e-3 with
 // its whole sums in the accumulator). Measured on an H100 against the plain version,
-// rel-L2 at b = 160, c = 512 with the tail, one call of tools/k1_compare.py (PERF.md §6):
-//   used: mma.sync fresh per two k steps of 8 (K1_CHAIN_STEPS 2: 6 mma), wgmma the whole
-//     slab in the accumulator (K1_WG_CHAIN_STEPS 0: 16 k steps, 48 wgmma): 1.37e-6;
-//   mma.sync fresh per k step (1): 1.36e-6; its whole sum (0: up to 32 steps, 96 mma):
-//     5.58e-6; wgmma fresh per two k steps (2): 1.04e-6.
+// rel-L2 at b = 160, c = 512 with the tail, one call of tools/k1_compare.py that built each
+// chain length as a variant of this source (PERF.md §6):
+//   used: mma.sync fresh per two k steps of 8 (a staged chunk, 6 mma), wgmma the whole slab
+//     in the accumulator (16 k steps, 48 wgmma): 1.37e-6;
+//   mma.sync fresh per k step: 1.36e-6; its whole sum (up to 32 steps, 96 mma): 5.58e-6;
+//     wgmma fresh per two k steps: 1.04e-6.
 // An earlier build measured mma.sync chains of 4 and 8 k steps at 1.18e-6 and 1.87e-6.
 // Every shape chip_smoke.py checks stays within 1.5e-6 of the plain version (gate 1e-5).
 //
@@ -90,14 +91,6 @@
 
 #include "tf32_mma.cuh"  // gelu_tanh, split_tf32_int, mma_3xtf32_tiles (the header K2 shares)
 
-// Build-time variants (tools/k1_compare.py --define NAME=VALUE builds them side by side).
-#ifndef K1_CHAIN_STEPS
-#define K1_CHAIN_STEPS 2  // mma.sync: k steps of 8 an accumulator carries before it is added
-#endif                    // into f32: 1, 2 (a staged chunk) or 0 (the whole sum)
-#ifndef K1_WG_CHAIN_STEPS
-#define K1_WG_CHAIN_STEPS 0  // wgmma: 2 (a fresh accumulator per chunk) or 0 (the whole sum)
-#endif
-
 namespace {
 
 constexpr int TILE = 32;              // coordinates per block
@@ -109,15 +102,12 @@ constexpr int STAGES = 3;             // ring depth (2 measured the same, PERF.m
 constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (256 + 8) f32, or a 16 KB wgmma block
 constexpr int WG_N = 128;             // columns of one wgmma product and of one pre-split slab
 constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part x k step x 8 x 128
-constexpr int CHAIN = K1_CHAIN_STEPS;
-constexpr int WG_CHAIN = K1_WG_CHAIN_STEPS;
 constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
 constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 33;
 constexpr int kNumDims = 10;
-static_assert(CHAIN >= 0 && CHAIN <= 2 && (WG_CHAIN == 0 || WG_CHAIN == 2), "accumulator chain");
 static_assert(STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "ring");
 
 struct Params {
@@ -256,32 +246,22 @@ __device__ __noinline__ void dense32(const float* X, int ldx, int K, const float
             bs[q][j][r] = __float_as_uint(w.y);
           }
       }
-      if constexpr (CHAIN == 0) {  // the whole sum in the mma accumulator
+      // A fresh accumulator per chunk (two k steps, 6 mma a tile), added into f32 registers.
+      float p[2][NJ][4];
 #pragma unroll
-        for (int q = 0; q < 2; ++q) mma_3xtf32_tiles(acc, ab[q], as[q], bb[q], bs[q]);
-      } else {  // a fresh accumulator per k step (CHAIN = 1) or per chunk of two (CHAIN = 2)
-        float p[2][NJ][4];
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          if (q == 0 || CHAIN == 1) {
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
+          for (int e = 0; e < 4; ++e) p[mi][j][e] = 0.0f;
 #pragma unroll
-              for (int j = 0; j < NJ; ++j)
+      for (int q = 0; q < 2; ++q) mma_3xtf32_tiles(p, ab[q], as[q], bb[q], bs[q]);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) p[mi][j][e] = 0.0f;
-          }
-          mma_3xtf32_tiles(p, ab[q], as[q], bb[q], bs[q]);
-          if (q == 1 || CHAIN == 1) {
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-              for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mi][j][e] += p[mi][j][e];
-          }
-        }
-      }
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] += p[mi][j][e];
       if (kc == nk - 1) {
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
@@ -362,9 +342,8 @@ __device__ __forceinline__ void wg_fence_operands(float* d) {
 // points at row r of them), split per fragment into registers. W is split_weights' blocked
 // layout: each 16 KB block (big and small, two k steps, 128 columns) is staged whole into the
 // ring by cp.async, two chunks ahead. 3xTF32 is three wgmma per k step (small x big, big x
-// small, big x big); K1_WG_CHAIN_STEPS 0 keeps a slab's whole sum in the accumulator, one
-// commit and wait a chunk; 2 starts a fresh accumulator each chunk and adds it into f32
-// registers. active(wg) says whether warpgroup wg has rows; epi(wg, w, r, n, v0, v1) gets
+// small, big x big) and a slab's whole sum in the accumulator (the header's accuracy note),
+// one commit and wait a chunk. active(wg) says whether warpgroup wg has rows; epi(wg, w, r, n, v0, v1) gets
 // column n of rows r (0..7) and r + 8 of warp w's 16. Every thread of the block calls it; it
 // starts with a barrier and does not end with one.
 template <class XRow, class Active, class Epi>
@@ -393,9 +372,7 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
   __syncthreads();  // earlier readers of the ring (and writers of X) are done
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) issue(c);
-  float acc[64], p[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = 0.0f;
+  float acc[64];
   int s = 0, kc = 0, cst = 0;  // slab, k chunk and ring stage of chunk c
   for (int c = 0; c < total; ++c) {
     cp_async_wait<STAGES - 2>();
@@ -420,44 +397,24 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
         }
       }
       const float* st = ring + cst * STAGE_FLOATS;
-      if constexpr (WG_CHAIN == 0) {  // the whole slab's sum in the accumulator: one wait a chunk
-        wg_fence_operands(acc);
-        wg_fence_operands(acc + 32);
-        wg_fence();
+      // The whole slab's sum stays in the accumulator: one commit and wait a chunk.
+      wg_fence_operands(acc);
+      wg_fence_operands(acc + 32);
+      wg_fence();
 #pragma unroll
-        for (int half = 0; half < 2; ++half)  // two m64n64 products: 32 accumulator registers each
+      for (int half = 0; half < 2; ++half)  // two m64n64 products: 32 accumulator registers each
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;  // k step q, n groups 8 half ..
-            const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
-            wgmma_tf32(acc + 32 * half, as[q], big, 1);
-            wgmma_tf32(acc + 32 * half, ab[q], small, 1);
-            wgmma_tf32(acc + 32 * half, ab[q], big, 1);
-          }
-        wg_commit();
-        wg_wait0();
-        wg_fence_operands(acc);
-        wg_fence_operands(acc + 32);
-      } else {  // a fresh accumulator per chunk, added into f32 registers
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          wg_fence_operands(p);
-          wg_fence();
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;
-            const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
-            wgmma_tf32(p, as[q], big, q > 0);
-            wgmma_tf32(p, ab[q], small, 1);
-            wgmma_tf32(p, ab[q], big, 1);
-          }
-          wg_commit();
-          wg_wait0();
-          wg_fence_operands(p);
-#pragma unroll
-          for (int i = 0; i < 32; ++i) acc[32 * half + i] += p[i];
+        for (int q = 0; q < 2; ++q) {
+          const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;  // k step q, n groups 8 half ..
+          const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
+          wgmma_tf32(acc + 32 * half, as[q], big, 1);
+          wgmma_tf32(acc + 32 * half, ab[q], small, 1);
+          wgmma_tf32(acc + 32 * half, ab[q], big, 1);
         }
-      }
+      wg_commit();
+      wg_wait0();
+      wg_fence_operands(acc);
+      wg_fence_operands(acc + 32);
       if (kc == nk - 1) {
 #pragma unroll
         for (int j = 0; j < WG_N / 8; ++j)
@@ -718,7 +675,9 @@ extern "C" {
 // ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null without
 // the tail), out, then split_weights' blocks of q_w1, v_w1, fw and m_w2.
 // dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail. Launches on `stream` and returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for shapes it does not take).
+// the cudaError_t of the launch (cudaErrorInvalidValue for shapes it does not take, or for a
+// weight staged by cp.async (G, the split blocks, the tail's wide weights) that does not start
+// on 16 bytes).
 int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
                             void* stream) {
   if (n_ptrs != kNumPtrs || n_dims != kNumDims) return (int)cudaErrorInvalidValue;
@@ -735,6 +694,10 @@ int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   const bool with_tail = dims[9] != 0;
   size_t smem = 0;
   if (!layout(P, with_tail, &smem)) return (int)cudaErrorInvalidValue;
+  // The weights staged by 16-byte cp.async must start on 16 bytes.
+  const float* staged[] = {P.G, P.q_w1s, P.v_w1s, P.fws, P.m_w2s, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
+  for (int i = 0; i < (with_tail ? 10 : 5); ++i)
+    if (!aligned16(staged[i])) return (int)cudaErrorInvalidValue;
   if (P.B == 0 || P.C == 0) return (int)cudaSuccess;
 
   const dim3 grid((P.C + TILE - 1) / TILE, P.B);

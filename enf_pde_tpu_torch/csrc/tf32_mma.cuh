@@ -82,6 +82,6 @@ __device__ __forceinline__ void mma_3xtf32_tiles(float (&d)[MI][NJ][4], const ui
     for (int mi = 0; mi < MI; ++mi) mma_tf32(d[mi][j], a_big[mi], b_big[j]);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+__host__ __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace

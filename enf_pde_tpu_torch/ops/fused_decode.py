@@ -19,9 +19,10 @@ Layers, as in the JAX package:
 - ``fused_decode_fwd`` is the kernel's wrapper. On a CPU tensor it runs the plain
   version; on a CUDA tensor it launches ``csrc/fused_decode_fwd.cu`` (built with
   plain ``nvcc``, bound with ``ctypes``) or raises. It hands the kernel the four
-  weights that its 128-row products share, ``SPLIT_WEIGHT_NAMES``, split once per
-  launch into tf32 (big, small) parts in the blocked layout ``wgmma`` reads
-  (``split_weights``).
+  weights that its 128-row products share, ``SPLIT_WEIGHT_NAMES``, split into tf32
+  (big, small) parts in the blocked layout ``wgmma`` reads (``split_weights``): once
+  per fold when the caller passes ``split``, as a decode of many chunks does, else once
+  per launch.
 - ``fused_decode_bwd_plain`` is the VJP of ``fused_decode_plain`` by autograd, and
   ``fused_decode_bwd`` the wrapper of kernel K2 (``csrc/fused_decode_bwd.cu``), with
   the same CPU / CUDA dispatch.
@@ -372,6 +373,23 @@ def split_weights(ws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Tuple[torch
     return buf, tuple(views)
 
 
+def _check_split(split: Sequence[torch.Tensor], ws: Sequence[torch.Tensor], device: torch.device) -> None:
+    """``split`` is ``split_weights(ws)[1]`` in shape: the blocks K1 reads for each weight."""
+    if len(split) != len(SPLIT_WEIGHT_NAMES):
+        raise ValueError(f"expected {len(SPLIT_WEIGHT_NAMES)} split weights, got {len(split)}")
+    for name, blk in zip(SPLIT_WEIGHT_NAMES, split):
+        K, N = ws[WEIGHT_NAMES.index(name)].shape
+        _check(f"split {name}", blk, (K // 16, -(-N // WG_N), 2, 2, WG_N // 8, 2, 8, 4), device)
+
+
+def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
+    """K1 stages these by 16-byte ``cp.async``: each must start on 16 bytes (a contiguous
+    view at a storage offset that is not a multiple of 4 floats does not)."""
+    for name, t in named.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes for K1 (storage offset {t.storage_offset()})")
+
+
 def _fwd_lib(source: str = KERNEL_SOURCE):
     """K1's library, bound; ``source`` may name another build of the same C interface."""
     lib = cuda_lib.load(source)
@@ -384,14 +402,21 @@ def _fwd_lib(source: str = KERNEL_SOURCE):
     return lib
 
 
-def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, lib=None) -> torch.Tensor:
+def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=None,
+            lib=None) -> torch.Tensor:
     H, D = num_heads, head_dim
     dev = inv.device
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
+    if split is None:
+        _, split = split_weights(ws)
+    _check_split(split, ws, dev)
+    staged = {"G": G, **{f"split {n}": w for n, w in zip(SPLIT_WEIGHT_NAMES, split)}}
+    if with_tail:
+        staged.update((n, tws[TAIL_WEIGHT_NAMES.index(n)]) for n in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"))
+    _check_aligned16(staged)
     lib = lib or _fwd_lib()
 
     out = torch.empty(B, C, out_dim, device=dev, dtype=torch.float32)
-    _, split = split_weights(ws)
     tail_ptrs = [t.data_ptr() for t in tws] if with_tail else [None] * len(TAIL_WEIGHT_NAMES)
     ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G.data_ptr(),
             c.data_ptr(), *[w.data_ptr() for w in ws], *tail_ptrs, out.data_ptr(),
@@ -410,21 +435,25 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, lib=No
 
 
 def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
-                     tws: Sequence[torch.Tensor], num_heads: int, head_dim: int) -> torch.Tensor:
+                     tws: Sequence[torch.Tensor], num_heads: int, head_dim: int,
+                     split: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """Kernel K1: the fused forward decode.
 
     ``inv`` [b, z, c, I] and ``wb`` [b, z, c] are the latent-major invariants and
-    window bias; the rest is what ``fold_decode_weights`` returns.
+    window bias; the rest is what ``fold_decode_weights`` returns. ``split`` may be
+    ``split_weights(ws)[1]``, made once for every launch with the same ``ws``; without
+    it each launch splits ``ws`` anew.
 
-    On CPU tensors this is ``fused_decode_plain``; on CUDA tensors it launches the
-    kernel on the current stream (counted in ``fused_decode_fwd.launches``) or
-    raises. Returns [b, c, num_out] with tail weights, else [b, c, H*D].
+    On CPU tensors this is ``fused_decode_plain`` (``split`` is not read); on CUDA
+    tensors it launches the kernel on the current stream (counted in
+    ``fused_decode_fwd.launches``) or raises. Returns [b, c, num_out] with tail
+    weights, else [b, c, H*D].
     """
     if inv.device.type == "cpu":
         return fused_decode_plain(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
     if inv.device.type != "cuda":
         raise ValueError(f"fused_decode_fwd runs on CPU or CUDA tensors, got {inv.device}")
-    return _launch(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
+    return _launch(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim, split)
 
 
 fused_decode_fwd.launches = 0

@@ -40,7 +40,7 @@ from enf_pde_tpu_torch.builders import coordinate_system_for, decoder_backend
 from enf_pde_tpu_torch.dynamics.solvers import solve_latent_ode
 from enf_pde_tpu_torch.models.decoder import decode_chunked
 from enf_pde_tpu_torch.models.latents import init_latents, latents_to_pose
-from enf_pde_tpu_torch.ops.fused_decode import fused_decode_fwd
+from enf_pde_tpu_torch.ops.fused_decode import fused_decode_fwd, split_weights
 from enf_pde_tpu_torch.ops.layers import reset_parameters
 from enf_pde_tpu_torch.train.inner_loop import (
     InnerLoopConfig,
@@ -404,8 +404,8 @@ class MetaSGDTrainer:
         (default the training grid) in chunks of ``chunk_size`` points (default
         ``max_num_sampled_points``) on ``eval_backend``; returns [batch, T, points, out].
 
-        On the kernel backend the weight folds, which depend on the latents only, run
-        once for all chunks.
+        On the kernel backend the weight folds, which depend on the latents only, and
+        K1's split of the shared weights run once for all chunks.
         """
         coords = self.coords if coords is None else coords
         chunk = chunk_size or self.cfg.training.max_num_sampled_points
@@ -416,10 +416,12 @@ class MetaSGDTrainer:
         dec = self.decoder
         if self.eval_backend == "kernel":
             folded = dec.fold(p_fl, a_fl)
+            _, split = split_weights(folded[4])
 
             def apply_fn(x, pp, aa, ww):
                 return fused_decode_fwd(*dec.kernel_geometry(x, pp, ww), *folded,
-                                        num_heads=dec.num_heads, head_dim=dec.num_hidden)
+                                        num_heads=dec.num_heads, head_dim=dec.num_hidden,
+                                        split=split)
         else:
             apply_fn = dec
         out = decode_chunked(apply_fn, xs, p_fl, a_fl, w_fl, chunk_size=chunk)

@@ -23,6 +23,7 @@ from enf_pde_tpu_torch.convert import convert_params
 from enf_pde_tpu_torch.data import planar_coords
 from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.latents import latents_to_pose
+from enf_pde_tpu_torch.train import meta_sgd
 from tests.test_torch_modules import assert_close, np_tree
 
 torch.set_num_threads(1)
@@ -130,6 +131,21 @@ def test_decode_folds_once_for_all_chunks(pair, monkeypatch):
     with torch.no_grad():
         eager = dec(fc.trainer.coords[None].expand(BATCH * 2, -1, -1), p, a, w, backend="eager")
     assert_close(got, eager.reshape(got.shape))
+
+
+def test_decode_splits_the_shared_weights_once(pair, monkeypatch):
+    """The kernel backend splits K1's shared weights once per decode and hands that split
+    to every chunk's launch."""
+    _, fc, frames, masks, _ = pair
+    traj = fc.rollout(fc.fit(frames, masks=masks), 2)
+    splits, seen = [], []
+    split_weights, fwd = meta_sgd.split_weights, meta_sgd.fused_decode_fwd
+    monkeypatch.setattr(meta_sgd, "split_weights", lambda ws: splits.append(split_weights(ws)) or splits[-1])
+    monkeypatch.setattr(meta_sgd, "fused_decode_fwd",
+                        lambda *args, split=None, **kw: seen.append(split) or fwd(*args, split=split, **kw))
+    got = fc.decode(traj, chunk_size=48)  # 6 chunks, the last one ragged
+    assert got.shape == (BATCH, 2, SIZE * SIZE, 1)
+    assert len(splits) == 1 and len(seen) == 6 and all(s is splits[0][1] for s in seen)
 
 
 def test_random_init_is_seeded():

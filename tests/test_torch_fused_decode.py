@@ -168,6 +168,42 @@ def test_launch_checks_inputs_and_needs_nvcc(pair, monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_launch_refuses_weights_cp_async_cannot_stage(pair):
+    """K1 stages G, the split blocks and the tail's wide weights by 16-byte cp.async. The
+    wrapper refuses one that does not start on 16 bytes (a contiguous view at a storage
+    offset of one float) or a split of the wrong shape before anything is built; the C
+    launcher refuses the same pointers with an error code."""
+    _, _, dec, (x, p, a, sigma) = pair
+    with torch.no_grad():
+        inv, wb, A, ab, G, c, ws, tws = dec.kernel_inputs(t(x), t(p), t(a), t(sigma))
+
+    def shifted(w):
+        return torch.empty(w.numel() + 1)[1:].view(w.shape).copy_(w)
+
+    assert shifted(G).is_contiguous() and shifted(G).data_ptr() % 16
+    with pytest.raises(ValueError, match="G must start on 16 bytes"):
+        fd._launch(inv, wb, A, ab, shifted(G), c, ws, tws, H, D)
+    for name in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"):
+        i = fd.TAIL_WEIGHT_NAMES.index(name)
+        bad = (*tws[:i], shifted(tws[i]), *tws[i + 1:])
+        with pytest.raises(ValueError, match=f"{name} must start on 16 bytes"):
+            fd._launch(inv, wb, A, ab, G, c, ws, bad, H, D)
+    _, split = fd.split_weights(ws)
+    for i, name in enumerate(fd.SPLIT_WEIGHT_NAMES):
+        bad = (*split[:i], shifted(split[i]), *split[i + 1:])
+        with pytest.raises(ValueError, match=f"split {name} must start on 16 bytes"):
+            fd._launch(inv, wb, A, ab, G, c, ws, tws, H, D, split=bad)
+    with pytest.raises(ValueError, match="split m_w2 has shape"):
+        fd._launch(inv, wb, A, ab, G, c, ws, tws, H, D, split=(*split[:3], split[3].reshape(-1)))
+    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    staged = re.search(r"const float\* staged\[\] = \{([^}]*)\};", src).group(1)
+    names = [n.strip().removeprefix("P.") for n in staged.split(",")]
+    assert names == ["G", *(f"{n}s" for n in fd.SPLIT_WEIGHT_NAMES), "o_w", "p_w1", "p_w2", "h_w1", "h_w2"]
+    assert "i < (with_tail ? 10 : 5)" in src and "if (!aligned16(staged[i])) return (int)cudaErrorInvalidValue;" in src
+    header = (cuda_lib.CSRC_DIR / "tf32_mma.cuh").read_text()
+    assert "__host__ __device__ __forceinline__ bool aligned16(" in header  # the launcher is host code
+
+
 def test_kernel_source_matches_the_binding():
     """What the ctypes binding passes is what the C launcher unpacks (no nvcc here)."""
     src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
@@ -197,17 +233,19 @@ def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
     assert src.count("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32") == 1
     body_of = lambda name: re.search(rf"\n(?:template <[^\n]*>\n)?__(?:device|global)__[^\n]* {name}\(.*?\n}}\n", src, re.S).group(0)
     wg = body_of("gemm_wg")
-    # Three wgmma per k step (small x big, big x small, big x big), in each accumulation mode.
-    assert wg.count("wgmma_tf32(") == 3 * 2 and "split_tf32_int(" in wg and "fence_async_smem()" in wg
-    assert re.search(r"#define K1_WG_CHAIN_STEPS 0\b", src)
+    # Three wgmma per k step (small x big, big x small, big x big), a slab's whole sum in the
+    # accumulator: one commit and wait a chunk.
+    assert wg.count("wgmma_tf32(") == 3 and "split_tf32_int(" in wg and "fence_async_smem()" in wg
+    assert wg.count("wg_commit();") == 1 and wg.count("wg_wait0();") == 1
     d32 = body_of("dense32")
     assert "mma_3xtf32_tiles(" in d32 and "split_tf32_int(" in d32
     for gemm in (wg, d32):  # asynchronous staging: 16-byte cp.async, waited for two chunks late
         assert "cp_async16(" in gemm and "cp_async_wait<STAGES - 2>()" in gemm
     assert "cp.async.cg.shared.global" in src
     assert int(re.search(r"constexpr int STAGES = (\d+);", src).group(1)) >= 2
-    # A fresh accumulator per K1_CHAIN_STEPS k steps, added into f32 registers.
-    assert re.search(r"#define K1_CHAIN_STEPS 2\b", src)
+    # mma.sync: a fresh accumulator per staged chunk (two k steps), added into f32 registers.
+    assert "acc[mi][j][e] += p[mi][j][e];" in d32 and "mma_3xtf32_tiles(p," in d32
+    assert "#define K1_" not in src and "#ifndef" not in src  # no build-time variants
     body = body_of("fused_decode_fwd_kernel")
     for w in ("q_w1s", "v_w1s", "fws"):
         assert re.search(rf"dense128<ACT_\w+>\([^;]*nz \* TILE, hid, P\.{w},", body), w

@@ -1,22 +1,20 @@
 """Kernel K1 against earlier builds of it and its plain version, on one card.
 
-    python3 tools/k1_compare.py [--old path/to/fused_decode_fwd_old.cu ...] [--define NAME=VALUE[,...] ...]
-                                [--skip PHASE ...]
+    python3 tools/k1_compare.py [--old path/to/fused_decode_fwd_old.cu ...] [--skip PHASE ...]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_fwd.cu``, each ``--old`` (an earlier K1
-source, named by its file name; one with the 29-pointer interface of PR 4-7 is handed the
-first 29 pointers), for each ``--define`` the current source with those build-time
-variants (the ``K1_*`` macros at the top of the source: the accumulator chains), and for
-each ``--skip`` a copy of the current source that leaves one phase out (``SKIPS``: its
-results are wrong, its time says what the phase costs), with plain ``nvcc`` in parallel,
-and prints the compiler's register, spill and ``wgmma`` report. Holds every build against
-the plain version at the main path's launch shapes at Navier-Stokes width (160 x 512 and
-80 x 512 with the tail, 8 x 4096 with and without it, and a ragged 8 x 1000), one rel-L2
-per shape, then times plain, old, variants, new, new, variants, old, plain at 160 x 512
-and 80 x 512 beside the bounds (f32 on the CUDA cores and 3xTF32 on the tensor cores by
-operations, and by bytes) and the design's L2 weight bytes per point. Prints the card's
-name and power limit. Exits 1 when the new build misses the rel-L2 tolerance of
-``chip_smoke.py`` at any shape.
+source, named by its file name; one with the 29-pointer interface from before the
+pre-split weights is handed the first 29 pointers), and for each ``--skip`` a copy of the
+current source that leaves one phase out (``SKIPS``: its results are wrong, its time says
+what the phase costs), with plain ``nvcc`` in parallel, and prints the compiler's
+register, spill and ``wgmma`` report. Holds every build against the plain version at the
+main path's launch shapes at Navier-Stokes width (160 x 512 and 80 x 512 with the tail,
+8 x 4096 with and without it, and a ragged 8 x 1000), one rel-L2 per shape, then times
+plain, old, variants, new, new, variants, old, plain at 160 x 512 and 80 x 512, the
+shared weights split once as the forecast decode splits them, beside the bounds (f32 on
+the CUDA cores and 3xTF32 on the tensor cores by operations, and by bytes) and the
+design's L2 weight bytes per point. Prints the card's name and power limit. Exits 1 when
+the new build misses the rel-L2 tolerance of ``chip_smoke.py`` at any shape.
 """
 
 from __future__ import annotations
@@ -63,8 +61,9 @@ SKIPS = {
     "dots": ("  for (int o = warp; o < count; o += WARPS) {", "  for (int o = warp; o < count && K < 0; o += WARPS) {", 0),
     "rff": ("    sincosf(TWO_PI * proj, &s, &co);", "    s = proj; co = 1.0f - proj;", 0),
     # Parts of the 32-row products' chunk loop (dense32).
-    "mma32_mma": ("          mma_3xtf32_tiles(p, ab[q], as[q], bb[q], bs[q]);",
-                  "          p[0][0][0] += __uint_as_float(ab[q][0][0] ^ as[q][1][3] ^ bb[q][0][0] ^ bs[q][NJ - 1][1]);", 0),
+    "mma32_mma": ("      for (int q = 0; q < 2; ++q) mma_3xtf32_tiles(p, ab[q], as[q], bb[q], bs[q]);",
+                  "      for (int q = 0; q < 2; ++q)"
+                  " p[0][0][0] += __uint_as_float(ab[q][0][0] ^ as[q][1][3] ^ bb[q][0][0] ^ bs[q][NJ - 1][1]);", 0),
     "mma32_aload": ("          const float2 v[4] = {a[0], a[8 * LDA], a[4], a[8 * LDA + 4]};",
                     "          const float2 v[4] = {make_float2(q, mi), make_float2(g, 1.0f), make_float2(tq, 2.0f),"
                     " make_float2(c, 3.0f)};", 0),
@@ -91,23 +90,10 @@ def skip_source(phase: str) -> tuple:
     return f"skip_{phase}", str(path)
 
 
-def variant_source(defines: str) -> tuple:
-    """(label, path) of a source under csrc/_build/ that builds K1 with the comma-separated
-    ``NAME=VALUE`` defines."""
-    pairs = [d.split("=") for d in defines.split(",")]
-    label = "_".join(f"{name.removeprefix('K1_').lower()}{value}" for name, value in pairs)
-    path = cuda_lib.BUILD_DIR / f"fused_decode_fwd_{label}.cu"
-    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path.write_text("".join(f"#define {n} {v}\n" for n, v in pairs) + f'#include "../{fd.KERNEL_SOURCE}"\n')
-    return label, str(path)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", action="append", default=[],
                     help="an earlier K1 source with a compatible C interface (repeatable)")
-    ap.add_argument("--define", action="append", default=[],
-                    help="also build the current source with these NAME=VALUE[,NAME=VALUE] defines (repeatable)")
     ap.add_argument("--skip", action="append", default=[], choices=sorted(SKIPS),
                     help="also build the current source without this phase (timing only; repeatable)")
     ap.add_argument("--iters", type=int, default=20, help="kernel launches per timed sample")
@@ -118,8 +104,7 @@ def main() -> int:
     sources = {"new": str(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE)}
     olds = [Path(p).stem for p in opts.old]
     sources.update({name: str(Path(p).resolve()) for name, p in zip(olds, opts.old)})
-    variants = dict(variant_source(d) for d in opts.define)
-    variants.update(skip_source(p) for p in opts.skip)
+    variants = dict(skip_source(p) for p in opts.skip)
     extra = list(variants)
     sources.update(variants)
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -164,7 +149,8 @@ def main() -> int:
         order = ["plain", *olds, *extra, "new", "new", *extra[::-1], *olds[::-1], "plain"]
         for label in ("b=160 c=512", "b=80 c=512"):
             args = inputs[label]
-            fns = {name: partial(k1, *args, H, D) for name, k1 in kernels.items()}
+            split = fd.split_weights(args[6])[1]  # once, as the forecast decode splits
+            fns = {name: partial(k1, *args, H, D, split=split) for name, k1 in kernels.items()}
             fns["plain"] = partial(fd.fused_decode_plain, *args, H, D)
             samples = {name: [] for name in fns}
             for name in order:
