@@ -32,11 +32,26 @@ Phases, one line each, flushed as they go:
 6. one ode step's and one dual step's loss and gradients with the rollout decode on
    the kernels (K1 + K2) against the same step with the eager decoder, from the same
    state and draws;
-7. the training path end to end: ``TrainLoop.run`` for 3 epochs at full width on 16
-   seeded smooth periodic trajectories [16, 20, 64, 64, 1] (two batches of 8; 8 more
-   for validation), phases overridden to epoch 1 nef, 2 dual, 3 ode, with validation
-   and dp validation at epoch 3; finite losses, K1 and K2 launch counts of that run,
-   each step kind's median warm time over 5 repeats, and the peak memory.
+7. data: ``get_dataloader`` for ``navier_stokes`` at the full protocol (64x64, viscosity
+   1e-3, dt 1e-3, 30 time units of burn-in, 20 frames: 50,000 solver steps a block of
+   16) with 16 training and 8 test signals, generated on the card into a fresh
+   ``chiprun_out/ns_data/`` (one block per split); seconds per block and solver steps
+   per second, the batch shape [8, 20, 64, 64, 1], finiteness and each frame's mean
+   near zero; and one seed's initial field built from the same CPU-drawn coefficients
+   on the CPU and on the card, then 1,000 solver steps from it on each, held within
+   rel-L2 1e-4;
+8. the training path end to end through the CLI's ``run_experiment``, at full width on
+   that data (two batches of 8; the 8 test signals validate): 3 epochs with the phases
+   overridden to epoch 1 nef, 2 dual, 3 ode, validation, dp validation and the
+   equivariance check at epoch 3, a checkpoint after every epoch keeping 2; finite
+   losses, ``equivariance_err_translation`` finite, the checkpoints of epochs 2 and 3,
+   K1 and K2 launch counts of that run; the checkpoint of epoch 3 restored into a
+   freshly built trainer equals the live modules, state and generator bit for bit;
+   each step kind's median warm time over 5 repeats on a batch of the generated data,
+   and the peak memory;
+9. resume: ``run_experiment`` again with ``logging.resume`` and the ode window and
+   ``num_epochs`` moved to 4; it starts at epoch 4, takes an ode epoch, launches K1 and
+   K2, and its config check names ``training.ode.train_until_epoch``.
 
 Then one line ``{"kernels": [...]}`` (each kernel's ``bound_ms`` is that of the route it
 takes, 3xTF32 on the tensor cores, or bytes where they take longer) and, last,
@@ -49,6 +64,7 @@ its sums deterministically, in another order than autograd: no atomics).
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,7 +77,9 @@ import torch
 
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import load_experiment_config
-from enf_pde_tpu_torch.data import planar_coords
+from enf_pde_tpu_torch.data import get_dataloader, planar_coords
+from enf_pde_tpu_torch.data.navier_stokes import GaussianRF2D, default_forcing, navier_stokes_rollout
+from enf_pde_tpu_torch.experiments.fit import run_experiment
 from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.decoder import decode_chunked
 from enf_pde_tpu_torch.ops import cuda_lib
@@ -77,8 +95,6 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
-from enf_pde_tpu_torch.train.logging import MetricLogger
-from enf_pde_tpu_torch.train.loop import TrainLoop
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
 SEED = 0
@@ -90,7 +106,12 @@ WARM_REPEATS = 5
 TRAIN_SIGNALS = 16   # training trajectories, two batches of 8
 VAL_SIGNALS = 8
 TRAIN_FRAMES = 20
-LOG_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_train"
+OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+LOG_DIR = OUT_DIR / "chip_smoke_train"
+DATA_DIR = OUT_DIR / "ns_data"
+NS_VISC, NS_DT, BURN_IN = 1e-3, 1e-3, 30.0  # generate_ns_trajectories' protocol
+MEAN_TOL = 1e-3  # |spatial mean| of a frame; fields are O(1), the mean is 0 up to rounding
+SOLVER_TOL = 1e-4  # rel-L2, card vs CPU solver (cuFFT vs pocketfft rounding)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernels' operand type
@@ -369,66 +390,177 @@ def step_parity_phase(cfg, coords: np.ndarray, dev) -> float:
     return max(errs)
 
 
-def train_phase(coords: np.ndarray, dev) -> dict:
-    """7. ``TrainLoop.run`` for 3 epochs (nef, dual, ode) at full width."""
-    cfg = load_experiment_config("navier_stokes")
-    for path, value in (("training.nef.train_from_epoch", 0), ("training.nef.train_until_epoch", 2),
-                        ("training.ode.train_from_epoch", 1), ("training.ode.train_until_epoch", 3),
-                        ("test.test_interval", 3), ("test.test_dp_interval", 3),
-                        ("logging.log_every_n_steps", 1), ("logging.log_dir", str(LOG_DIR))):
-        cfg.set_path(path, value)
-    trainer = make_trainer(cfg, coords)
-    data = smooth_trajectories(TRAIN_SIGNALS + VAL_SIGNALS, TRAIN_FRAMES, GRID, SEED + 4)
-    bs = cfg.dataset.batch_size
-    train = [data[i:i + bs] for i in range(0, TRAIN_SIGNALS, bs)]
-    val = [data[TRAIN_SIGNALS + i:TRAIN_SIGNALS + i + bs] for i in range(0, VAL_SIGNALS, bs)]
-    LOG_DIR.mkdir(parents=True, exist_ok=True)
-    metrics_path = LOG_DIR / "metrics.jsonl"
-    metrics_path.unlink(missing_ok=True)
-    logger = MetricLogger(str(LOG_DIR))
-    loop = TrainLoop(trainer, train, val, logger=logger)
+def fresh_dir(path: Path) -> Path:
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
 
+
+def data_phase(dev) -> dict:
+    """7. Navier-Stokes trajectories generated on the card by ``get_dataloader``."""
+    cfg = load_experiment_config("navier_stokes", [f"dataset.path={fresh_dir(DATA_DIR)}",
+                                                   f"dataset.num_signals_train={TRAIN_SIGNALS}",
+                                                   f"dataset.num_signals_test={VAL_SIGNALS}"])
+    train, test = get_dataloader(cfg.dataset, device="cuda")
+    steps = int(BURN_IN / NS_DT) + TRAIN_FRAMES * int(1.0 / NS_DT)  # generate_ns_trajectories
+    block_s = {}
+    for name, ldr in (("train", train), ("test", test)):
+        block_s[name] = sync_time(ldr.ensure_all)[1]
+    files = sorted(p.name for p in DATA_DIR.rglob("traj_*.npz"))
+    log(f"[data] {len(files)} trajectories in 2 blocks of 16 on {torch.cuda.get_device_name(0)}: "
+        + ", ".join(f"{n} {v:.2f} s ({steps / v:.0f} solver steps/s)" for n, v in block_s.items())
+        + f"; {steps} steps a block")
+    if len(files) != 32:
+        raise AssertionError(f"expected 32 cached trajectories (2 aligned blocks of 16), found {len(files)}")
+    worst_mean = 0.0
+    for name, ldr in (("train", train), ("test", test)):
+        batch = next(iter(ldr))[0]
+        if batch.shape != (8, TRAIN_FRAMES, GRID, GRID, 1) or not np.isfinite(batch).all():
+            raise AssertionError(f"{name} batch shape {batch.shape} or non-finite values")
+        worst_mean = max(worst_mean, float(np.abs(batch.mean(axis=(2, 3, 4))).max()))
+        log(f"[data] {name} batch {tuple(batch.shape)}: |w| max {np.abs(batch).max():.3f}, "
+            f"std {batch.std():.3f}")
+    log(f"[data] largest |spatial mean| of a frame {worst_mean:.3e} (tol {MEAN_TOL:g}; forcing and "
+        f"initial field have zero mean)")
+    if not worst_mean <= MEAN_TOL:
+        raise AssertionError(f"a frame's spatial mean {worst_mean:.3e} > {MEAN_TOL:g}")
+
+    sampler = GaussianRF2D(GRID)
+    coeff = sampler.coefficients(SEED)
+    if not torch.equal(coeff, sampler.coefficients(SEED)):
+        raise AssertionError("the seed's coefficients are not reproducible")
+    w_cpu, w_gpu = sampler.field(coeff[None]), sampler.field(coeff[None].to(dev))
+    field_rel = rel_l2(w_gpu.cpu(), w_cpu)
+    runs = [navier_stokes_rollout(w0, default_forcing(GRID, w0.device), NS_VISC, NS_DT, 1, 1000)[1]
+            for w0 in (w_cpu, w_cpu.to(dev))]
+    solver_rel = rel_l2(runs[1].cpu(), runs[0])
+    log(f"[data] seed {SEED}: coefficients drawn on the CPU, initial field card vs CPU rel_l2 "
+        f"{field_rel:.3e}; 1000 solver steps card vs CPU rel_l2 {solver_rel:.3e} (tol {SOLVER_TOL:g})")
+    if not (field_rel <= SOLVER_TOL and solver_rel <= SOLVER_TOL):
+        raise AssertionError(f"card and CPU solvers disagree: {field_rel:.3e}, {solver_rel:.3e}")
+    return {"block_s": block_s, "steps": steps}
+
+
+def train_overrides(*extra: str) -> list:
+    """The training phase's overrides of the navier_stokes config (full width)."""
+    return [f"dataset.path={DATA_DIR}", f"dataset.num_signals_train={TRAIN_SIGNALS}",
+            f"dataset.num_signals_test={VAL_SIGNALS}", f"logging.log_dir={LOG_DIR}",
+            "training.num_epochs=3", "training.nef.train_from_epoch=0",
+            "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=1",
+            "training.ode.train_until_epoch=3", "test.test_interval=3", "test.test_dp_interval=3",
+            "test.test_equiv_at_epoch=0", "logging.log_every_n_steps=1",
+            "logging.checkpoint_every_n_epochs=1", "logging.keep_n_checkpoints=2", *extra]
+
+
+def read_metrics() -> list:
+    return [json.loads(ln) for ln in (LOG_DIR / "metrics.jsonl").read_text().splitlines()]
+
+
+def check_restore(loop, state) -> None:
+    """The latest checkpoint restored into a freshly built trainer equals the live one."""
+    live = loop.trainer
+    decoder, ode_model = build_models(live.cfg)
+    fresh = MetaSGDTrainer(live.cfg, decoder, ode_model, live.coords.cpu().numpy(), seed=SEED + 9,
+                           device="cuda")
+    restored, _ = loop.checkpoints.restore(fresh)
+
+    def tensors(x, prefix=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from tensors(v, f"{prefix}{k}.")
+        else:
+            yield prefix.rstrip("."), x
+
+    pairs = [(f"nef.{k}", v, fresh.decoder.state_dict()[k]) for k, v in live.decoder.state_dict().items()]
+    pairs += [(f"ode.{k}", v, fresh.ode_model.state_dict()[k]) for k, v in live.ode_model.state_dict().items()]
+    got = dict(tensors(restored))
+    pairs += [(k, v, got.pop(k)) for k, v in tensors(state)]
+    pairs.append(("generator", live.generator.get_state(), fresh.generator.get_state()))
+    bad = [k for k, a, b in pairs if not (torch.equal(a, b) if torch.is_tensor(a) else a == b)]
+    log(f"[resume] epoch {loop.checkpoints.latest_epoch()} restored into a fresh trainer: "
+        f"{len(pairs)} tensors and counts, {len(bad)} differ")
+    if bad or got:
+        raise AssertionError(f"restore differs at {bad[:5]}, extra {sorted(got)[:5]}")
+
+
+def train_phase() -> dict:
+    """8. ``run_experiment`` for 3 epochs (nef, dual, ode) at full width on the generated data."""
+    cfg = load_experiment_config("navier_stokes", train_overrides())
+    fresh_dir(LOG_DIR)
     torch.cuda.reset_peak_memory_stats()
     fused_decode_fwd.launches = fused_decode_bwd.launches = 0
-    state, run_s = sync_time(lambda: loop.run(3))
+    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    logger.close()
-    records = [json.loads(ln) for ln in metrics_path.read_text().splitlines()]
+    trainer = loop.trainer
+    records = read_metrics()
     epochs = [r for r in records if "train_mse_epoch" in r]
     phases = [r["phase"] for r in epochs]
     val_rec = next(r for r in records if "val_mse_in_t" in r)
     dp_rec = next(r for r in records if "val_mse_in_t_dp5" in r)
+    eqv = next((r["equivariance_err_translation"] for r in records
+                if "equivariance_err_translation" in r), None)
     values = [r["train_mse_epoch"] for r in epochs] + [v for r in (val_rec, dp_rec)
                                                        for k, v in r.items() if "mse" in k]
     epoch_mse = ", ".join(f"{r['train_mse_epoch']:.4e}" for r in epochs)
-    log(f"[train] TrainLoop.run(3) in {run_s:.2f} s (first calls included): phases {phases}, "
-        f"train_mse_epoch [{epoch_mse}], val_mse_in_t "
+    saved = loop.checkpoints.all_epochs()
+    log(f"[train] run_experiment(3 epochs) in {run_s:.2f} s (data read, build and first calls "
+        f"included): phases {phases}, train_mse_epoch [{epoch_mse}], val_mse_in_t "
         f"{val_rec['val_mse_in_t']:.4e} out_t {val_rec['val_mse_out_t']:.4e}, dp5 in_t "
-        f"{dp_rec['val_mse_in_t_dp5']:.4e}; K1 launches {k1}, K2 launches {k2}; peak memory {peak:.2f} GiB")
+        f"{dp_rec['val_mse_in_t_dp5']:.4e}; equivariance_err_translation {eqv}; checkpoints "
+        f"{saved}; K1 launches {k1}, K2 launches {k2}; peak memory {peak:.2f} GiB")
     if phases != ["nef", "nef+ode", "ode"]:
         raise AssertionError(f"phases {phases} != nef, nef+ode, ode")
     if not all(np.isfinite(v) for v in values):
         raise AssertionError(f"non-finite training or validation metrics: {values}")
-    n_train = len(train)
-    val_steps = (len(val) + n_train) * (1 + 3)  # val + 3 dp variants, over val and train loaders
-    decodes_per_val = -(-(coords.shape[0]) // cfg.training.max_num_sampled_points)
-    expect = (2 * n_train + val_steps * decodes_per_val, 2 * n_train)
+    if eqv is None or not np.isfinite(eqv):
+        raise AssertionError(f"equivariance_err_translation not logged or not finite: {eqv}")
+    if saved != [2, 3]:
+        raise AssertionError(f"checkpoints {saved} != [2, 3]")
+    n_train, n_val = len(loop.train_loader), len(loop.val_loader)
+    val_steps = (n_val + n_train) * (1 + 3)  # val + 3 dp variants, over val and train loaders
+    decodes_per_val = -(-(trainer.coords.shape[0]) // cfg.training.max_num_sampled_points)
+    expect = (2 * n_train + val_steps * decodes_per_val, 2 * n_train)  # the equivariance fit is eager
     if (k1, k2) != expect or k2 == 0:
         raise AssertionError(f"K1/K2 launches {(k1, k2)} != expected {expect}")
+    check_restore(loop, state)
 
-    traj = torch.from_numpy(train[0]).to(dev)
+    traj = next(iter(loop.train_loader))[0]
     steps = {"nef": trainer.nef_train_step, "dual": trainer.dual_train_step,
              "ode": trainer.ode_train_step, "val": trainer.val_step}
     medians = {}
     for name, fn in steps.items():
         samples = [sync_time(lambda: fn(state, traj))[1] * 1e3 for _ in range(WARM_REPEATS)]
         medians[name] = statistics.median(samples)
-        log(f"[train] {name} step (warm, median of {WARM_REPEATS}): {medians[name]:.2f} ms "
-            f"(samples {', '.join(f'{v:.2f}' for v in samples)})")
+        log(f"[train] {name} step on generated data {tuple(traj.shape)} (warm, median of "
+            f"{WARM_REPEATS}): {medians[name]:.2f} ms (samples {', '.join(f'{v:.2f}' for v in samples)})")
     log(f"[train] peak memory of the run and the timed steps: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"k1": k1, "k2": k2, "medians": medians}
+
+
+def resume_phase() -> dict:
+    """9. Resume from the epoch-3 checkpoint with the ode window moved to epoch 4."""
+    cfg = load_experiment_config("navier_stokes", train_overrides(
+        "logging.resume=true", "training.ode.train_until_epoch=4", "training.num_epochs=4"))
+    before = len(read_metrics())
+    fused_decode_fwd.launches = fused_decode_bwd.launches = 0
+    (loop, _), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    records = read_metrics()[before:]
+    resumed = next((r for r in records if "resumed_from_epoch" in r), {})
+    epochs = [(r["epoch"], r["phase"]) for r in records if "train_mse_epoch" in r]
+    log(f"[resume] run_experiment(num_epochs=4, resume) in {run_s:.2f} s: resumed from epoch "
+        f"{resumed.get('resumed_from_epoch')}, epochs {epochs}, config differs at "
+        f"{resumed.get('resumed_config_differs')}; checkpoints {loop.checkpoints.all_epochs()}; "
+        f"K1 launches {k1}, K2 launches {k2}")
+    if epochs != [(4, "ode")]:
+        raise AssertionError(f"the resumed run trained {epochs}, not one ode epoch 4")
+    if "training.ode.train_until_epoch" not in resumed.get("resumed_config_differs", []):
+        raise AssertionError("the resumed config check did not name training.ode.train_until_epoch")
+    if k1 == 0 or k2 == 0:
+        raise AssertionError(f"the resumed ode epoch launched K1 {k1} and K2 {k2} times")
+    return {"k1": k1, "k2": k2}
 
 
 def main() -> int:
@@ -575,13 +707,15 @@ def main() -> int:
     kernel_ms, plain_ms = k1_timing["forecast"]["ms"], k1_timing["forecast"]["plain_ms"]
     bound_ms, bound_by = k1_timing["forecast"]["bound_ms"], k1_timing["forecast"]["bound_by"]
 
-    # 5-7. The training path: K2, the kernel-backend steps, TrainLoop.run.
+    # 5-9. The training path: K2, the kernel-backend steps, the data, run_experiment, resume.
     del args, out_k, folded, traj, fitted, field, fc, rollout_args
     torch.cuda.empty_cache()
     k2 = k2_phase(cfg, coords, dev)
     max_errs.append(step_parity_phase(cfg, coords, dev))
     torch.cuda.empty_cache()
-    train = train_phase(coords, dev)
+    data_phase(dev)
+    train = train_phase()
+    resume = resume_phase()
     for wg, step in ((False, "ode"), (True, "dual")):
         k_ms, step_ms = k2["timing"][wg]["ms"], train["medians"][step]
         log(f"[timing] K2 {'with' if wg else 'without'} weight grads {k_ms:.4f} ms is "
@@ -593,7 +727,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"enf_pde_tpu_torch/csrc/{KERNEL_SOURCE}",
         "replaces": "enf_pde_tpu/ops/pallas_decode.py:548",
-        "launches": launches + train["k1"],
+        "launches": launches + train["k1"] + resume["k1"],
         "max_abs_err": max(max_errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -605,7 +739,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
         "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
-        "launches": train["k2"],
+        "launches": train["k2"] + resume["k2"],
         "max_abs_err": k2["max_abs_err"],
         # The ode step's mode (no weight gradients), the phase of 1600 of 2000 epochs.
         **k2["timing"][False],

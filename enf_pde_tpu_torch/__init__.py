@@ -7,9 +7,11 @@ points run on the card (``device="cuda"``) unless the caller asks for the CPU.
 Ported so far (ROADMAP.md): the Navier-Stokes forecast path -- config, the torus
 invariant, the decoder (eager, and the fused decode kernels: forward
 ``csrc/fused_decode_fwd.cu``, backward ``csrc/fused_decode_bwd.cu``), the PONITA
-latent ODE, the meta-SGD latent fit, and ``inference.Forecaster``; and its training
-path -- optimizers, the nef / ode / dual steps, validation and ``train.loop.TrainLoop``.
-``convert`` loads the JAX package's parameters.
+latent ODE, the meta-SGD latent fit, and ``inference.Forecaster``; its training
+path -- optimizers, the nef / ode / dual steps, validation and ``train.loop.TrainLoop``
+with checkpoints, resume, the equivariance check and figures; its data -- the
+spectral solver, the trajectory cache and loader (``data``); and the experiment CLI
+``experiments.fit``. ``convert`` loads the JAX package's parameters.
 """
 
 __version__ = "0.1.0"

@@ -3,16 +3,20 @@
 Counterpart of ``enf_pde_tpu/config.py`` without YAML: the port runs where PyYAML is
 not installed, so each ported experiment's configuration is written out here with
 the same keys and values as its YAML file under
-``enf_pde_tpu/experiments/configs/``. A CPU test holds each one equal to the JAX
-package's ``load_experiment_config``.
+``enf_pde_tpu/experiments/configs/``, and the ``key.sub=value`` overrides are parsed
+here with the YAML 1.1 scalar rules PyYAML applies (``_parse_value``). CPU tests hold
+both equal to the JAX package's.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Mapping
+import json
+import math
+import re
+from typing import Any, Iterable, Mapping
 
-__all__ = ["Config", "load_experiment_config", "NAVIER_STOKES"]
+__all__ = ["Config", "apply_overrides", "load_experiment_config", "NAVIER_STOKES"]
 
 
 class Config(dict):
@@ -140,11 +144,132 @@ NAVIER_STOKES = {
 _EXPERIMENTS = {"navier_stokes": NAVIER_STOKES}
 
 
-def load_experiment_config(name: str) -> Config:
-    """A fresh copy of a ported experiment's configuration, e.g. ``navier_stokes``."""
+# PyYAML's implicit resolvers for untagged plain scalars (YAML 1.1), ``yaml/resolver.py``.
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF)$")
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+    |[-+]?0[0-7_]+
+    |[-+]?(?:0|[1-9][0-9_]*)
+    |[-+]?0x[0-9a-fA-F_]+
+    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+    |[-+]?\.(?:inf|Inf|INF)
+    |\.(?:nan|NaN|NAN))$""", re.X)
+
+
+def _sexagesimal(text: str, cast) -> Any:
+    value = 0
+    for part in text.split(":"):
+        value = value * 60 + cast(part)
+    return value
+
+
+def _int(text: str) -> int:
+    text = text.replace("_", "")
+    sign = -1 if text[0] == "-" else 1
+    text = text.lstrip("+-")
+    if text == "0":
+        return 0
+    if text.startswith("0b"):
+        return sign * int(text[2:], 2)
+    if text.startswith("0x"):
+        return sign * int(text[2:], 16)
+    if text[0] == "0":
+        return sign * int(text, 8)
+    return sign * (_sexagesimal(text, int) if ":" in text else int(text))
+
+
+def _float(text: str) -> float:
+    text = text.replace("_", "").lower()
+    sign = -1.0 if text[0] == "-" else 1.0
+    text = text.lstrip("+-")
+    if text == ".inf":
+        return sign * math.inf
+    if text == ".nan":
+        return math.nan
+    return sign * (_sexagesimal(text, float) if ":" in text else float(text))
+
+
+def _scalar(text: str) -> Any:
+    """One plain or quoted scalar, resolved as PyYAML's ``safe_load`` resolves it."""
+    if len(text) >= 2 and text[0] == text[-1] == "'":
+        return text[1:-1].replace("''", "'")
+    if len(text) >= 2 and text[0] == text[-1] == '"':
+        return json.loads(text)
+    if text[:1] in ("{", "&", "*", "!", "|", ">", "%") or text == "-" or text.startswith("- ") \
+            or ": " in text or text.endswith(":"):
+        raise ValueError(f"Override value {text!r} is YAML that the port does not parse "
+                         "(only scalars and [a, b] lists).")
+    if _NULL.match(text):
+        return None
+    if _BOOL.match(text):
+        return text.lower() in ("yes", "true", "on")
+    if _INT.match(text):
+        return _int(text)
+    if _FLOAT.match(text):
+        return _float(text)
+    return text
+
+
+def _flow_list(text: str, pos: int):
+    """Parse the ``[...]`` starting at ``text[pos]``; returns (list, index after it)."""
+    items, pos = [], pos + 1
+    while True:
+        while pos < len(text) and text[pos] == " ":
+            pos += 1
+        if pos >= len(text):
+            raise ValueError("unclosed [")
+        if text[pos] == "]":
+            return items, pos + 1
+        if text[pos] == "[":
+            item, pos = _flow_list(text, pos)
+        else:
+            end = pos
+            while end < len(text) and text[end] not in ",]":
+                end += 1
+            item, pos = _scalar(text[pos:end].strip()), end
+        items.append(item)
+        while pos < len(text) and text[pos] == " ":
+            pos += 1
+        if pos < len(text) and text[pos] == ",":
+            pos += 1
+        elif pos >= len(text) or text[pos] != "]":
+            raise ValueError("expected , or ]")
+
+
+def _parse_value(raw: str) -> Any:
+    """Parse a CLI override value as the JAX package's ``_parse_value`` does
+    (``yaml.safe_load``): int, float (YAML 1.1: ``1.0e-4`` is a float, ``1e-4`` a
+    string), bool (``true`` / ``yes`` / ``on`` ...), null, ``[a, b]`` lists, quoted
+    and plain strings. A value YAML cannot parse stays the raw string, as there."""
+    text = re.split(r"\s#", raw.strip(), maxsplit=1)[0].strip()
+    if text.startswith("["):
+        try:
+            value, end = _flow_list(text, 0)
+        except ValueError:
+            return raw
+        return value if not text[end:].strip() else raw
+    return _scalar(text)
+
+
+def apply_overrides(cfg: Config, overrides: Iterable[str]) -> Config:
+    """Apply ``key.sub=value`` overrides to ``cfg`` in place; returns it."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"Override must look like key.subkey=value, got: {ov!r}")
+        key, raw = ov.split("=", 1)
+        cfg.set_path(key.strip(), _parse_value(raw.strip()))
+    return cfg
+
+
+def load_experiment_config(name: str, overrides: Iterable[str] = ()) -> Config:
+    """A fresh copy of a ported experiment's configuration, e.g. ``navier_stokes``,
+    with ``key.sub=value`` overrides applied."""
     if name not in _EXPERIMENTS:
         raise NotImplementedError(
             f"Experiment {name!r} is not ported yet (ported: {sorted(_EXPERIMENTS)}); "
             "see ROADMAP.md, Queue 1."
         )
-    return Config(copy.deepcopy(_EXPERIMENTS[name]))
+    return apply_overrides(Config(copy.deepcopy(_EXPERIMENTS[name])), overrides)

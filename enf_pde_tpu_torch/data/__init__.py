@@ -1,11 +1,23 @@
-"""Coordinate grids (counterpart of ``enf_pde_tpu/data/__init__.py``; the dataset
-loaders are not ported yet)."""
+"""Datasets: generate on first touch, cache to disk, load as batches.
+
+Counterpart of ``enf_pde_tpu/data/__init__.py``: ``get_dataloader(dataset_cfg) ->
+(train_loader, test_loader)``, each yielding ``(traj [b, T, *spatial, C], coords,
+indices)``; planar datasets use a [-1, 1]^2 grid. The solvers run on the card unless
+the caller asks for the CPU. Only the Navier-Stokes datasets are ported
+(``data/registry.py``).
+"""
 
 from __future__ import annotations
 
+import os
+from typing import Tuple
+
 import numpy as np
 
-__all__ = ["planar_coords"]
+from enf_pde_tpu_torch.data.cache import TrajectoryCache, test_seed
+from enf_pde_tpu_torch.data.loader import TrajectoryLoader
+
+__all__ = ["get_dataloader", "planar_coords", "TrajectoryLoader", "TrajectoryCache", "test_seed"]
 
 
 def planar_coords(h: int, w: int, lo: float = -1.0, hi: float = 1.0) -> np.ndarray:
@@ -14,3 +26,42 @@ def planar_coords(h: int, w: int, lo: float = -1.0, hi: float = 1.0) -> np.ndarr
     v = np.linspace(lo, hi, w)
     U, V = np.meshgrid(u, v, indexing="ij")
     return np.stack([U, V], axis=-1).reshape(-1, 2).astype(np.float32)
+
+
+def get_dataloader(dataset_cfg, device="cuda") -> Tuple[TrajectoryLoader, TrajectoryLoader]:
+    """Train (shuffled, seed 0, ``n_frames_train`` frames) and test (in order) loaders
+    over the caches under ``<dataset_cfg.path>/<cache_name>/{train,test}``; missing
+    trajectories are generated on ``device``, which also holds the device cache."""
+    from enf_pde_tpu_torch.data.registry import dataset_spec
+
+    spec = dataset_spec(dataset_cfg.name, dataset_cfg, device=device)
+    root = os.path.join(dataset_cfg.path, spec.cache_name)
+    cache_tr = TrajectoryCache(os.path.join(root, "train"), spec.gen_train,
+                               batch_size_gen=spec.batch_size_gen)
+    cache_ts = TrajectoryCache(os.path.join(root, "test"), spec.gen_test,
+                               batch_size_gen=spec.batch_size_gen)
+
+    train = TrajectoryLoader(
+        lambda i: spec.postprocess(cache_tr.get(i)),
+        indices=range(dataset_cfg.num_signals_train),
+        coords=spec.coords,
+        batch_size=dataset_cfg.batch_size,
+        shuffle=True,
+        seed=0,
+        max_frames=spec.n_frames_train,
+        device=device,
+    )
+    test = TrajectoryLoader(
+        lambda i: spec.postprocess(cache_ts.get(i)),
+        indices=range(dataset_cfg.num_signals_test),
+        coords=spec.coords,
+        batch_size=dataset_cfg.batch_size,
+        shuffle=False,
+        seed=1,
+        device=device,
+    )
+    # Pre-generation hooks: entry points generate every missing trajectory once at
+    # startup, before training, rather than at a loader's first touch.
+    train.ensure_all = lambda: cache_tr.ensure(train.indices)
+    test.ensure_all = lambda: cache_ts.ensure(test.indices)
+    return train, test

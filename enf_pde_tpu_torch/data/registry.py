@@ -1,0 +1,69 @@
+"""Per-dataset generator and coordinate registry shared by loaders and the generation CLI.
+
+Counterpart of ``enf_pde_tpu/data/registry.py``. ``dataset_spec(name)`` returns what
+caches and loaders need: train/test batch generators, the coordinate grid, per-split
+frame handling and the solver batch size. Only the Navier-Stokes datasets are ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+
+from enf_pde_tpu_torch.data.cache import test_seed
+
+__all__ = ["DatasetSpec", "dataset_spec", "DATASET_NAMES"]
+
+DATASET_NAMES = (
+    "navier_stokes",
+    "navier_stokes_long",
+    "diffusion_plane",
+    "cahn_hilliard",
+    "diff_sphere",
+    "shallow_water",
+    "shallow_water_low_res",
+    "ihc",
+)
+
+
+class DatasetSpec(NamedTuple):
+    gen_train: Callable[[np.ndarray], np.ndarray]
+    gen_test: Callable[[np.ndarray], np.ndarray]
+    coords: np.ndarray
+    n_frames_train: Optional[int]  # truncation applied to the train split
+    batch_size_gen: int
+    cache_name: str  # subdirectory under the dataset path (shared between variants)
+    postprocess: Callable[[np.ndarray], np.ndarray]  # applied per trajectory at load
+
+
+def _identity(x: np.ndarray) -> np.ndarray:
+    return x
+
+
+def dataset_spec(name: str, dataset_cfg=None, device="cuda") -> DatasetSpec:
+    """The spec of dataset ``name``; its solvers run on ``device``."""
+    from enf_pde_tpu_torch.data import planar_coords
+
+    if name in ("navier_stokes", "navier_stokes_long"):
+        from enf_pde_tpu_torch.data.navier_stokes import generate_ns_trajectories
+
+        if name == "navier_stokes":
+            t_horizon = 20
+        else:
+            t_horizon = dataset_cfg.traj_len_train + dataset_cfg.traj_len_out_horizon
+
+        return DatasetSpec(
+            gen_train=lambda ids: generate_ns_trajectories(ids, t_horizon=t_horizon, device=device),
+            gen_test=lambda ids: generate_ns_trajectories(
+                [test_seed(i) for i in ids], t_horizon=t_horizon, device=device),
+            coords=planar_coords(64, 64),
+            n_frames_train=20,
+            batch_size_gen=16,
+            cache_name=name,
+            postprocess=_identity,
+        )
+    if name in DATASET_NAMES:
+        raise NotImplementedError(
+            f"Dataset {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 7.")
+    raise ValueError(f"Unknown dataset name: {name!r}")

@@ -1,0 +1,1 @@
+"""See the counterpart package enf_pde_tpu.experiments."""

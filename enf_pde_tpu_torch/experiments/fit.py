@@ -1,0 +1,91 @@
+"""Experiment entry point: ``python -m enf_pde_tpu_torch.experiments.fit <config> [k=v ...]``.
+
+Counterpart of ``enf_pde_tpu/experiments/fit.py`` for the meta-SGD experiments:
+
+    python -m enf_pde_tpu_torch.experiments.fit navier_stokes
+    python -m enf_pde_tpu_torch.experiments.fit navier_stokes seed=1 training.num_epochs=100
+    python -m enf_pde_tpu_torch.experiments.fit navier_stokes logging.resume=true --device cpu
+
+Missing trajectories are generated first (on the same device), the input / output
+widths and the grid come from a probe batch, the trajectories stay on the device
+(``dataset.device_cache``, default on), and checkpoints go under
+``<logging.log_dir>/checkpoints`` when ``logging.checkpoint`` is set. Everything runs
+on one device, the card unless ``--device cpu``.
+
+Not ported, and refused: autodecoding (``meta.meta_sgd: false``), the shallow-water
+super-resolution evaluation, the multi-device mesh, and wandb (``logging.use_wandb``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Tuple
+
+from enf_pde_tpu_torch.builders import build_models
+from enf_pde_tpu_torch.config import Config, load_experiment_config
+from enf_pde_tpu_torch.data import get_dataloader
+from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
+from enf_pde_tpu_torch.train.logging import MetricLogger
+from enf_pde_tpu_torch.train.loop import TrainLoop
+from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
+
+__all__ = ["run_experiment", "prepare", "main"]
+
+
+def prepare(cfg: Config, device="cuda"):
+    """Build loaders, coords and models; fill in the data-derived config fields.
+
+    Returns ``(train_loader, test_loader, coords, decoder, ode_model)``.
+    """
+    train_loader, test_loader = get_dataloader(cfg.dataset, device=device)
+    for ldr in (train_loader, test_loader):
+        ldr.ensure_all()
+    frame = next(iter(train_loader))[0][0]
+    cfg.dataset.image_shape = list(frame.shape)
+    coords = train_loader.coords
+    cfg.nef.num_in = int(coords.shape[-1])
+    cfg.nef.num_out = int(frame.shape[-1])
+    decoder, ode_model = build_models(cfg)
+    return train_loader, test_loader, coords, decoder, ode_model
+
+
+def run_experiment(cfg: Config, device="cuda") -> Tuple[TrainLoop, dict]:
+    """Train ``cfg`` for ``training.num_epochs`` on one device; returns ``(loop, state)``."""
+    if cfg.get_path("logging.use_wandb", False):
+        raise NotImplementedError("wandb is not ported: metrics go to <log_dir>/metrics.jsonl.")
+    if not cfg.get_path("meta.meta_sgd", True):
+        raise NotImplementedError("Autodecoding is not ported yet; see ROADMAP.md, Queue 1 item 7.")
+    train_loader, test_loader, coords, decoder, ode_model = prepare(cfg, device)
+    logger = MetricLogger(cfg.logging.log_dir)
+    ckpt = (CheckpointManager(cfg.logging.log_dir,
+                              every_n_epochs=cfg.logging.checkpoint_every_n_epochs,
+                              keep_n=cfg.logging.keep_n_checkpoints)
+            if cfg.logging.checkpoint else None)
+    # The trajectory set is static: keep it on the device so epochs copy nothing.
+    if cfg.get_path("dataset.device_cache", True):
+        for ldr in (train_loader, test_loader):
+            ldr.enable_device_cache()
+    trainer = MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=cfg.seed, device=device)
+    loop = TrainLoop(trainer, train_loader, test_loader, logger, ckpt)
+    try:
+        state = loop.run(cfg.training.num_epochs)
+    finally:
+        logger.close()
+    return loop, state
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("config", help="experiment name, e.g. navier_stokes")
+    parser.add_argument("overrides", nargs="*", help="key.sub=value overrides")
+    parser.add_argument("--device", default="cuda", help="where everything runs (cuda | cpu)")
+    args = parser.parse_args(argv)
+    cfg = load_experiment_config(args.config, args.overrides)
+    os.makedirs(cfg.logging.log_dir, exist_ok=True)
+    run_experiment(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,7 @@
 
 Counterpart of ``enf_pde_tpu/train/logging.py`` without wandb, with the same metric
 names (``mse_step``, ``train_mse_epoch``, ``{val,train}_mse_{in,out}_t``,
-``*_dp{5,10,50}``).
+``*_dp{5,10,50}``, ``equivariance_err_*``) and figures recorded by their path.
 """
 
 from __future__ import annotations
@@ -37,6 +37,14 @@ class MetricLogger:
                 f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in record.items()
             )
             print(parts, file=sys.stderr)
+
+    def log_image(self, name: str, path: str, step: Optional[int] = None):
+        """Record a figure: its path in the JSONL stream."""
+        record = {"t": round(time.time() - self._t0, 3), name: path}
+        if step is not None:
+            record["step"] = step
+        self._fh.write(json.dumps(record) + "\n")
+        self._fh.flush()
 
     def close(self):
         self._fh.close()

@@ -1,21 +1,37 @@
-"""Epoch-level training loop: phase scheduling and the validation protocol.
+"""Epoch-level training loop: phase scheduling, validation protocol, checkpoints.
 
 Counterpart of ``enf_pde_tpu/train/loop.py`` (reference ``_base_pde_trainer.py:239-424``):
-in-t / out-t rollout MSE over the val *and* train loaders, and the sparse-observation
-variants at 5/10/50 %. Checkpoints and resume, the equivariance check and the rollout
-figures are not ported yet (ROADMAP.md). A kernel failure on the card raises and ends
-the run: there is no fallback to another decode path.
+in-t / out-t rollout MSE over the val *and* train loaders, the sparse-observation
+variants at 5/10/50 %, a checkpoint offered after every epoch and resume under
+``logging.resume``, the numeric equivariance check once past
+``test.test_equiv_at_epoch``, and rollout figures every
+``logging.visualize_every_n_epochs``. The equivariance check and the figures fit
+their latents with generators of their own, so neither moves the training draws.
+
+Not ported: the JAX loop's retry of a failed validation or epoch on another decode
+path (``_eval_guarded``). A kernel failure on the card raises and ends the run, and
+so does a figure that cannot be drawn (matplotlib is imported before the first
+epoch when figures are on).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Iterable, Optional
 
 import torch
 
+from enf_pde_tpu_torch.models.latents import latents_to_pose
+from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
 from enf_pde_tpu_torch.train.logging import MetricLogger
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
+from enf_pde_tpu_torch.utils import visualization as viz
+from enf_pde_tpu_torch.utils.equivariance import equivariance_errors
+
+# Second key of ``MetaSGDTrainer.val_generator(epoch, key)`` for the side fits.
+_EQUIVARIANCE_DRAWS, _FIGURE_DRAWS = 1, 2
 
 __all__ = ["TrainLoop"]
 
@@ -29,16 +45,21 @@ class TrainLoop:
             trajectory [batch, frames, *spatial, channels] (numpy or tensor), or a
             tuple whose first item is one.
         logger: where metrics go (default ``<logging.log_dir>/metrics.jsonl``).
+        checkpoints: offered a save after every epoch; ``logging.resume`` restores
+            the latest one before training.
     """
 
     def __init__(self, trainer: MetaSGDTrainer, train_loader: Iterable, val_loader: Iterable,
-                 logger: Optional[MetricLogger] = None):
+                 logger: Optional[MetricLogger] = None,
+                 checkpoints: Optional[CheckpointManager] = None):
         self.trainer = trainer
         self.cfg = trainer.cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.logger = logger or MetricLogger(self.cfg.get_path("logging.log_dir", "outputs/run"))
+        self.checkpoints = checkpoints
         self.global_step = 0
+        self._equivariance_checked = False
 
     def _batch_traj(self, batch) -> torch.Tensor:
         traj = batch[0] if isinstance(batch, (tuple, list)) else batch
@@ -105,6 +126,52 @@ class TrainLoop:
             step=self.global_step,
             echo=True,
         )
+        if not self._equivariance_checked and epoch > self.cfg.get_path(
+            "test.test_equiv_at_epoch", 10**9
+        ):
+            self._log_equivariance(state, epoch)
+            self._equivariance_checked = True
+
+    def _log_equivariance(self, state, epoch: int):
+        """Numeric analogue of the reference's visual equivariance check: fit frame 0
+        of the first val batch, then decode (eager decoder) 512 grid points under
+        joint translations of coordinates and poses."""
+        trainer = self.trainer
+        frames = self._batch_traj(next(iter(self.val_loader)))[:, 0]
+        fitted = trainer.fit_latents(state, frames,
+                                     generator=trainer.val_generator(epoch, _EQUIVARIANCE_DRAWS))
+        p, a, w = latents_to_pose(fitted)
+        n = min(512, trainer.coords.shape[0])
+        coords = trainer.coords[None, :n].expand(p.shape[0], n, trainer.coords.shape[-1])
+        errs = equivariance_errors(trainer.decoder, coords, p, a, w,
+                                   invariant=trainer.decoder.cross_attn_invariant,
+                                   coordinate_system=trainer.coordinate_system)
+        self.logger.log({"epoch": epoch, **{f"equivariance_err_{k}": v for k, v in errs.items()}},
+                        step=self.global_step, echo=True)
+
+    def visualize_epoch(self, state, epoch: int) -> str:
+        """Rollout figure: fit frame 0 of the first val trajectory, roll out over the
+        train + out horizon, decode, and plot ground truth / prediction / error panels
+        to ``<log_dir>/figures/rollout_epochXXXXX.png``; returns its path."""
+        cfg, trainer = self.cfg, self.trainer
+        traj = self._batch_traj(next(iter(self.val_loader)))
+        t_total = min(cfg.dataset.traj_len_train + cfg.dataset.traj_len_out_horizon, traj.shape[1])
+        traj = traj[:1, :t_total]
+        fitted = trainer.fit_latents(state, traj[:, 0],
+                                     generator=trainer.val_generator(epoch, _FIGURE_DRAWS))
+        sol = trainer.rollout_latents(fitted, t_total)
+        pred = trainer.decode(sol).reshape(traj.shape).cpu().numpy()
+        gt = traj.cpu().numpy()
+        out_path = os.path.join(self.logger.log_dir, "figures", f"rollout_epoch{epoch:05d}.png")
+        cs = trainer.coordinate_system
+        if cs == "cartesian":
+            viz.plot_planar_rollout(gt[0], pred[0], out_path, p_traj=sol[0][0].cpu().numpy())
+        elif cs == "polar":
+            viz.plot_sphere_rollout(gt[0], pred[0], out_path)
+        else:
+            viz.plot_ball_rollout(gt[0], pred[0], out_path)
+        self.logger.log_image("rollout_figure", out_path, step=self.global_step)
+        return out_path
 
     def validate_epoch_dp(self, state, epoch: int):
         metrics = {"epoch": epoch}
@@ -123,10 +190,48 @@ class TrainLoop:
             )
         self.logger.log(metrics, step=self.global_step, echo=True)
 
+    def _check_resumed_config(self, epoch: int) -> dict:
+        """The keys where the config saved with ``epoch`` differs from the live one,
+        as ``{key: (saved, live)}`` (printed). ``logging.*`` may differ between runs and
+        is ignored: the model is already built, so a difference is reported, not
+        applied."""
+        saved = self.checkpoints.restore_config(epoch)
+        # JSON round trip: tuples and lists compare as the restored JSON does.
+        live = json.loads(json.dumps(self.cfg.to_dict()))
+
+        def flat(d, prefix=""):
+            for k, v in sorted(d.items()):
+                key = f"{prefix}{k}"
+                if isinstance(v, dict):
+                    yield from flat(v, key + ".")
+                else:
+                    yield key, v
+
+        saved_flat = dict(flat(saved))
+        diffs = {k: (saved_flat.get(k), v) for k, v in flat(live)
+                 if not k.startswith("logging.") and saved_flat.get(k) != v}
+        if diffs:
+            print(f"[loop] WARNING: resumed config differs from checkpoint: {diffs}")
+        return diffs
+
     def run(self, num_epochs: int, state=None):
-        """Train epochs 1..num_epochs (validating at the test intervals); returns the state."""
+        """Train epochs 1..num_epochs (validating at the test intervals), or from the
+        epoch after the latest checkpoint under ``logging.resume``; returns the state."""
         if state is None:
             state = self.trainer.init_state()
+        start_epoch = 1
+        if self.checkpoints is not None and self.cfg.get_path("logging.resume", False):
+            latest = self.checkpoints.latest_epoch()
+            if latest is not None:
+                state, self.global_step = self.checkpoints.restore(self.trainer, latest)
+                start_epoch = latest + 1
+                diffs = self._check_resumed_config(latest)
+                self.logger.log({"resumed_from_epoch": latest,
+                                 "resumed_config_differs": sorted(diffs)}, step=self.global_step)
+                print(f"[loop] resumed from epoch {latest}")
+        viz_every = self.cfg.get_path("logging.visualize_every_n_epochs", 0)
+        if viz_every:
+            import matplotlib  # noqa: F401  (figures need it: fail before training, not at the first)
         t_start = time.time()
         self.logger.log(
             {
@@ -137,20 +242,25 @@ class TrainLoop:
             step=self.global_step,
             echo=True,
         )
-        for epoch in range(1, num_epochs + 1):
+        for epoch in range(start_epoch, num_epochs + 1):
             if not self.trainer.phase_active(epoch):
                 # Schedule exhausted: the reference raises here mid-run; stop cleanly
                 # after the last covered epoch, validating it if that was not done.
                 print(f"[loop] no training phase covers epoch {epoch} "
                       f"(num_epochs={num_epochs}); schedule exhausted — stopping.")
                 self.logger.log({"schedule_exhausted_at_epoch": epoch}, step=self.global_step)
-                if epoch > 1 and (epoch - 1) % self.cfg.test.test_interval:
+                if epoch > start_epoch and (epoch - 1) % self.cfg.test.test_interval:
                     self.validate_epoch(state, epoch - 1)
                 break
             state = self.train_epoch(state, epoch)
+            if self.checkpoints is not None:
+                self.checkpoints.save(epoch, self.trainer, state, self.cfg.to_dict(),
+                                      self.global_step)
             if epoch % self.cfg.test.test_interval == 0:
                 self.validate_epoch(state, epoch)
             if epoch % self.cfg.test.test_dp_interval == 0:
                 self.validate_epoch_dp(state, epoch)
+            if viz_every and epoch % viz_every == 0:
+                self.visualize_epoch(state, epoch)
         self.logger.log({"train_wall_s": time.time() - t_start}, step=self.global_step)
         return state

@@ -321,10 +321,12 @@ class MetaSGDTrainer:
 
     # ------------------------------------------------------------------ validation
 
-    def val_generator(self, batch_idx: int) -> torch.Generator:
-        """The generator of validation batch ``batch_idx``: a function of the trainer's
-        seed and the index only, never of the training draws."""
-        seed = np.random.SeedSequence([self.seed, batch_idx]).generate_state(1, np.uint64)[0]
+    def val_generator(self, *key: int) -> torch.Generator:
+        """The generator of validation batch ``key`` (one index), or of another draw
+        beside training (the loop's equivariance check and figures pass ``(epoch,
+        purpose)``): a function of the trainer's seed and the key only, never of the
+        training draws."""
+        seed = np.random.SeedSequence([self.seed, *key]).generate_state(1, np.uint64)[0]
         return torch.Generator().manual_seed(int(seed))
 
     @torch.no_grad()
