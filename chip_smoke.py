@@ -51,10 +51,36 @@ Phases, one line each, flushed as they go:
    and the peak memory;
 9. resume: ``run_experiment`` again with ``logging.resume`` and the ode window and
    ``num_epochs`` moved to 4; it starts at epoch 4, takes an ode epoch, launches K1 and
-   K2, and its config check names ``training.ode.train_until_epoch``.
+   K2, and its config check names ``training.ode.train_until_epoch``;
 
-Then one line ``{"kernels": [...]}`` (each kernel's ``bound_ms`` is that of the route it
-takes, 3xTF32 on the tensor cores, or bytes where they take longer) and, last,
+then, for each SE(2) planar experiment (``diffusion_plane``: 4 latents of 16; then
+``cahn_hilliard``: 9 latents of 32, PONITA hidden 128 / basis 128, kernel_size 0.2; both
+``ponita`` invariants, decoder hidden 64, 2 heads):
+
+10. K1 against its plain version at the config's widths (I = 2, hid = hidm = D = 64,
+    H = 2), with and without the tail, at the forecast's and validation's launch shape
+    (160 frames x the config's chunk, 1024 / 2048 points), at 160 x 512 and 80 x 512, and
+    for ``diffusion_plane`` at z = 5 and z = 1 (groups of one latent) at a ragged 8 x 1000;
+    ms per launch, the plain version's ms, the 3xTF32 bound and K1's shared memory;
+11. data: ``get_dataloader`` generates the dataset on the card into a fresh
+    ``chiprun_out/<name>_data/``, removed after phase 12 (``diffusion_plane``: one block
+    of 32 per split, the analytic heat kernel, one trajectory held against the CPU's
+    within rel-L2 1e-5;
+    ``cahn_hilliard``: 8 + 8 trajectories of 60,000 IMEX steps, the first 100 steps of one
+    field held against the CPU's within 1e-4, every frame's mean against its initial
+    field's within 1e-5, and the median |c| of the last frames above 0.8);
+12. training through ``run_experiment`` at full width on that data (``diffusion_plane``:
+    16 + 8 signals, 3 epochs nef, dual, ode; ``cahn_hilliard``: 8 + 8, 2 epochs nef,
+    dual), validation with the dp variants and the equivariance check, whose translation
+    and rotation errors must be at f32 rounding (<= 1e-4), K1's launches against the
+    loop's arithmetic (the training steps decode eagerly: neither YAML sets
+    ``ode_backend``), each step kind's warm median; then ``Forecaster.forecast`` of 8
+    generated test frames for 20 frames as in phase 3, through K1.
+
+Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
+config's paths, its time at that config's forecast launch shape) and K2 at the
+Navier-Stokes ode step's shape; each kernel's ``bound_ms`` is that of the route it
+takes, 3xTF32 on the tensor cores, or bytes where they take longer. Last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
 Every float check is in f32: rel-L2 <= 1e-5 against the plain version (K2 reduces
@@ -64,6 +90,7 @@ its sums deterministically, in another order than autograd: no atomics).
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -78,6 +105,8 @@ import torch
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import load_experiment_config
 from enf_pde_tpu_torch.data import get_dataloader, planar_coords
+from enf_pde_tpu_torch.data.cahn_hilliard import cahn_hilliard_rollout, initial_fields
+from enf_pde_tpu_torch.data.diffusion_plane import generate_diffusion_trajectories
 from enf_pde_tpu_torch.data.navier_stokes import GaussianRF2D, default_forcing, navier_stokes_rollout
 from enf_pde_tpu_torch.experiments.fit import run_experiment
 from enf_pde_tpu_torch.inference import Forecaster
@@ -112,6 +141,7 @@ DATA_DIR = OUT_DIR / "ns_data"
 NS_VISC, NS_DT, BURN_IN = 1e-3, 1e-3, 30.0  # generate_ns_trajectories' protocol
 MEAN_TOL = 1e-3  # |spatial mean| of a frame; fields are O(1), the mean is 0 up to rounding
 SOLVER_TOL = 1e-4  # rel-L2, card vs CPU solver (cuFFT vs pocketfft rounding)
+CH_BULK_MIN = 0.8  # median |c| of a Cahn-Hilliard trajectory's last frame: phases near +-1
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernels' operand type
@@ -255,7 +285,10 @@ def decode_inputs(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=N
     Z = cfg.nef.num_latents
     idx = torch.randperm(coords.shape[0], generator=gen)[:M] if M < coords.shape[0] else torch.arange(M)
     x = torch.from_numpy(coords)[idx][None].expand(b, -1, -1).to(dev)
-    p = (torch.rand(b, Z, 2, generator=gen) * 2 - 1).to(dev)
+    p = torch.rand(b, Z, 2, generator=gen) * 2 - 1
+    if decoder.cross_attn_invariant.num_z_ori_dims:  # SE(2) poses carry an angle
+        p = torch.cat([p, (torch.rand(b, Z, 1, generator=gen) * 2 - 1) * math.pi], dim=-1)
+    p = p.to(dev)
     a = (1 + 0.5 * torch.randn(b, Z, cfg.nef.latent_dim, generator=gen)).to(dev)
     w = torch.full((b, Z, 1), 1.0, device=dev)
     with torch.no_grad():
@@ -525,18 +558,22 @@ def train_phase() -> dict:
         raise AssertionError(f"K1/K2 launches {(k1, k2)} != expected {expect}")
     check_restore(loop, state)
 
-    traj = next(iter(loop.train_loader))[0]
-    steps = {"nef": trainer.nef_train_step, "dual": trainer.dual_train_step,
-             "ode": trainer.ode_train_step, "val": trainer.val_step}
-    medians = {}
-    for name, fn in steps.items():
-        samples = [sync_time(lambda: fn(state, traj))[1] * 1e3 for _ in range(WARM_REPEATS)]
-        medians[name] = statistics.median(samples)
-        log(f"[train] {name} step on generated data {tuple(traj.shape)} (warm, median of "
-            f"{WARM_REPEATS}): {medians[name]:.2f} ms (samples {', '.join(f'{v:.2f}' for v in samples)})")
+    medians = step_medians(trainer, state, next(iter(loop.train_loader))[0], "train")
     log(f"[train] peak memory of the run and the timed steps: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"k1": k1, "k2": k2, "medians": medians}
+
+
+def step_medians(trainer, state, traj, tag: str) -> dict:
+    """Each step kind's median warm time in ms over WARM_REPEATS calls on one batch."""
+    medians = {}
+    for name, fn in (("nef", trainer.nef_train_step), ("dual", trainer.dual_train_step),
+                     ("ode", trainer.ode_train_step), ("val", trainer.val_step)):
+        samples = [sync_time(lambda: fn(state, traj))[1] * 1e3 for _ in range(WARM_REPEATS)]
+        medians[name] = statistics.median(samples)
+        log(f"[{tag}] {name} step on generated data {tuple(traj.shape)} (warm, median of "
+            f"{WARM_REPEATS}): {medians[name]:.2f} ms (samples {', '.join(f'{v:.2f}' for v in samples)})")
+    return medians
 
 
 def resume_phase() -> dict:
@@ -561,6 +598,212 @@ def resume_phase() -> dict:
     if k1 == 0 or k2 == 0:
         raise AssertionError(f"the resumed ode epoch launched K1 {k1} and K2 {k2} times")
     return {"k1": k1, "k2": k2}
+
+
+def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
+    """``Forecaster.forecast`` of ``frames`` for NUM_FRAMES frames at full width with seeded
+    random weights: K1's launches in the first call against the decode's chunks, the
+    output's shape and finiteness, the median of warm calls and of each stage, and the
+    decoded field against the plain decode of the same latents."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    fc, init_s = sync_time(lambda: Forecaster(cfg, coords, device="cuda"))
+    log(f"[{tag}] Forecaster built on {fc.device} (random weights, seed {SEED}) in {init_s:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    fused_decode_fwd.launches = 0
+    out, fc_s = sync_time(lambda: fc.forecast(frames, num_frames=NUM_FRAMES))
+    launches = fused_decode_fwd.launches
+    chunk = cfg.training.max_num_sampled_points
+    expect_launches = -(-coords.shape[0] // chunk)  # one launch per chunk of the 160-frame decode
+    expect = (len(frames), NUM_FRAMES, coords.shape[0], 1)
+    log(f"[{tag}] forecast({len(frames)} frames, num_frames={NUM_FRAMES}) -> {tuple(out.shape)} in "
+        f"{fc_s:.3f} s (first call); K1 launches {launches} (expected {expect_launches}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if tuple(out.shape) != expect:
+        raise AssertionError(f"forecast shape {tuple(out.shape)} != {expect}")
+    if not torch.isfinite(out).all():
+        raise AssertionError("forecast has non-finite values")
+    if launches != expect_launches:
+        raise AssertionError(f"the forecast launched K1 {launches} times, not {expect_launches}")
+
+    # Warm repeats: the whole call, then the path stage by stage; medians are reported
+    # because the host-bound fit and rollout vary from call to call.
+    totals = [sync_time(lambda: fc.forecast(frames, num_frames=NUM_FRAMES))[1] * 1e3
+              for _ in range(WARM_REPEATS)]
+    log(f"[{tag}] warm forecast x{WARM_REPEATS}: median {statistics.median(totals):.2f} ms "
+        f"(samples {', '.join(f'{v:.2f}' for v in totals)} ms)")
+    stages = {"fit": [], "rollout": [], "decode": []}
+    for _ in range(WARM_REPEATS):
+        fitted, fit_s = sync_time(lambda: fc.fit(frames))
+        traj, roll_s = sync_time(lambda: fc.rollout(fitted, NUM_FRAMES))
+        field, dec_s = sync_time(lambda: fc.decode(traj))
+        for name, sec in (("fit", fit_s), ("rollout", roll_s), ("decode", dec_s)):
+            stages[name].append(sec * 1e3)
+    log(f"[{tag}] stages (warm, median of {WARM_REPEATS}): " + " | ".join(
+        f"{n} {statistics.median(v):.2f} ms (samples {', '.join(f'{x:.2f}' for x in v)})"
+        for n, v in stages.items()))
+    dec = fc.trainer.decoder
+    pb, tb = traj[0].shape[:2]
+    flat = [t.reshape(pb * tb, *t.shape[2:]) for t in traj]
+    xs = fc.trainer.coords[None].expand(pb * tb, -1, -1)
+    with torch.no_grad():
+        folded = dec.fold(flat[0], flat[1])
+        plain = decode_chunked(
+            lambda xc, pp, aa, ww: fused_decode_plain(*dec.kernel_geometry(xc, pp, ww), *folded,
+                                                      num_heads=H, head_dim=D),
+            xs, *flat, chunk_size=chunk,
+        ).reshape(field.shape)
+    err = check_close(f"{tag} forecast decode vs plain decode", field, plain)
+    return dict(fc=fc, launches=launches, max_abs_err=err, dec=dec, flat=flat, xs=xs, folded=folded,
+                chunk=chunk)
+
+
+def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
+    """K1's dynamic shared memory for a shape, as ``layout`` in csrc/fused_decode_fwd.cu
+    sizes it: X, Y, acc, the cp.async ring and two split A chunks, probabilities, invariants."""
+    stride = lambda w: (w + 31) // 32 * 32 + 4  # noqa: E731  (row_stride)
+    ld_x, ld_p, ld_w = stride(hid), stride(H * hidm), stride(max(H * D, hid))
+    n_y = max(4 * 32 * ld_x, 2 * 32 * ld_p, 32 * ld_w)
+    ring = 3 * 16 * 264 + 2 * 2 * 32 * 20
+    return 4 * (4 * 32 * ld_x + n_y + 32 * ld_w + ring + Z * 32 * H + 4 * 32 * I)
+
+
+def k1_planar_phase(name: str, dev, ragged: bool) -> dict:
+    """10. K1 against its plain version at a planar config's widths (I = 2, hid = hidm = D
+    = 64, H = 2), with and without the tail: at the forecast's and validation's launch shape
+    (160 frames x the config's chunk), at 160 x 512 and 80 x 512, and with ``ragged`` at
+    z = 5 and z = 1 (latent groups of one) at 8 x 1000; times, bounds, shared memory."""
+    cfg = load_experiment_config(name)
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    coords = planar_coords(GRID, GRID)
+    b_main, chunk = NUM_SIGNALS * NUM_FRAMES, cfg.training.max_num_sampled_points
+    shapes = [(cfg, b_main, chunk), (cfg, b_main, 512), (cfg, b_main // 2, 512)]
+    if ragged:
+        shapes += [(load_experiment_config(name, [f"nef.num_latents={z}"]), NUM_SIGNALS, 1000) for z in (5, 1)]
+    errs, timing = [], {}
+    for i, (c, b, M) in enumerate(shapes):
+        args = decode_inputs(c, coords, dev, b, M, SEED + 11 + i)
+        B, Zl, C, I = args[0].shape
+        hid, hidm = args[6][1].shape[0], args[6][8].shape[0]
+        label = f"K1 {name} z={Zl} b={B} c={C} I={I} hid={hid}"
+        with torch.no_grad():
+            out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
+            errs.append(check_close(f"{label} tail", out_k, fused_decode_plain(*args, num_heads=H, head_dim=D)))
+            no_tail = (*args[:7], ())
+            errs.append(check_close(f"{label} no-tail", fused_decode_fwd(*no_tail, num_heads=H, head_dim=D),
+                                    fused_decode_plain(*no_tail, num_heads=H, head_dim=D)))
+            split = split_weights(args[6])[1]  # once per fold, as the decode splits
+            k_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
+            p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
+        bd = k1_bounds(c, args, out_k)
+        smem = k1_smem_bytes(Zl, I, hid, H, D, hidm)
+        timing[(Zl, B, C)] = dict(ms=k_ms, plain_ms=p_ms, **bd)
+        log(f"[timing] {label}: {k_ms:.4f} ms ({bd['flops'] / k_ms / 1e9:.2f} TFLOP/s); plain "
+            f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (3xTF32 tensor cores "
+            f"{bd['tc_ms']:.4f} ms, f32 CUDA cores {bd['f32_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
+            f"{bd['flops'] / 1e9:.3f} GFLOP); shared memory {smem} B of 232448")
+        del args, out_k
+    torch.cuda.synchronize()
+    main = timing[(cfg.nef.num_latents, b_main, chunk)]
+    return {"max_abs_err": max(errs), "shape": f"{name} b={b_main} z={cfg.nef.num_latents} c={chunk}",
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def planar_data_phase(name: str, n_train: int, n_test: int, dev) -> Path:
+    """11/12 a. ``get_dataloader`` generates the planar dataset on the card into a fresh
+    ``chiprun_out/<name>_data/`` (one aligned block per split); seconds per block, batch
+    shapes, finiteness, and the physics checks: for diffusion_plane one whole trajectory
+    against the CPU's; for cahn_hilliard the first 100 solver steps of one field against
+    the CPU's, every frame's mean against its initial field's (mass), and |c| near 1."""
+    path = fresh_dir(OUT_DIR / f"{name}_data")
+    cfg = load_experiment_config(name, [f"dataset.path={path}", f"dataset.num_signals_train={n_train}",
+                                        f"dataset.num_signals_test={n_test}"])
+    train, test = get_dataloader(cfg.dataset, device="cuda")
+    block_s = {}
+    for split, ldr in (("train", train), ("test", test)):
+        block_s[split] = sync_time(ldr.ensure_all)[1]
+    files = {split: sorted((path / name / split).glob("traj_*.npz")) for split in ("train", "test")}
+    log(f"[{name}] data on {torch.cuda.get_device_name(0)}: " + ", ".join(
+        f"{split} {len(files[split])} trajectories in {block_s[split]:.2f} s" for split in files))
+    for split, ldr in (("train", train), ("test", test)):
+        batch = next(iter(ldr))[0]
+        if batch.shape != (8, TRAIN_FRAMES, GRID, GRID, 1) or not np.isfinite(batch).all():
+            raise AssertionError(f"{name} {split} batch shape {batch.shape} or non-finite values")
+        log(f"[{name}] {split} batch {tuple(batch.shape)}: |u| max {np.abs(batch).max():.4f}, "
+            f"mean {batch.mean():.4f}, std {batch.std():.4f}")
+    first = np.load(files["train"][0])["data"]
+    if name == "diffusion_plane":
+        cpu = generate_diffusion_trajectories([0], device="cpu")[0]
+        rel = rel_l2(torch.from_numpy(first), torch.from_numpy(cpu))
+        log(f"[{name}] trajectory 0 (20 frames) card vs CPU rel_l2 {rel:.3e} (tol 1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError(f"diffusion trajectory card vs CPU rel_l2 {rel:.3e}")
+        return path
+    c0 = initial_fields([0], device="cpu")
+    runs = [cahn_hilliard_rollout(c.clone(), 1e-2, 2, 100)[:, 1] for c in (c0, c0.to(dev))]
+    rel = rel_l2(runs[1].cpu(), runs[0])
+    ids = [int(f.stem.split("_")[1]) for f in files["train"]]
+    trajs = np.stack([np.load(f)["data"] for f in files["train"]])[..., 0]
+    drift = float(np.abs(trajs.mean(axis=(2, 3)) - initial_fields(ids, device="cpu").mean(dim=(1, 2)).numpy()[:, None]).max())
+    bulk = float(np.median(np.abs(trajs[:, -1])))
+    log(f"[{name}] field 0: 100 solver steps card vs CPU rel_l2 {rel:.3e} (tol {SOLVER_TOL:g}); "
+        f"largest |frame mean - initial mean| over {len(ids)} trajectories x 20 frames {drift:.3e} "
+        f"(tol 1e-5; 60,000 steps a trajectory); median |c| of the last frames {bulk:.4f}")
+    if not (rel <= SOLVER_TOL and drift <= 1e-5 and bulk > CH_BULK_MIN):
+        raise AssertionError(f"cahn_hilliard checks failed: {rel:.3e}, {drift:.3e}, {bulk:.4f}")
+    return path
+
+
+def planar_train_phase(name: str, data: Path, overrides: list, phases: list, coords: np.ndarray) -> dict:
+    """11/12 b. ``run_experiment`` at the config's full width on the generated data, the
+    phases overridden to ``phases``; finite metrics, the translation and rotation
+    equivariance errors at f32 rounding, K1's launches against the loop's arithmetic (the
+    training steps decode eagerly: no ``ode_backend`` in the YAML), step medians."""
+    log_dir = fresh_dir(OUT_DIR / f"{name}_train")
+    cfg = load_experiment_config(name, [f"dataset.path={data}", f"logging.log_dir={log_dir}",
+                                        "test.test_equiv_at_epoch=0", "logging.log_every_n_steps=1",
+                                        "logging.checkpoint_every_n_epochs=1", *overrides])
+    fused_decode_fwd.launches = fused_decode_bwd.launches = 0
+    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in records if "train_mse_epoch" in r]
+    val = next(r for r in records if "val_mse_in_t" in r)
+    eqv = next((r for r in records if "equivariance_err_translation" in r), {})
+    values = [v for r in records for k, v in r.items() if "mse" in k]
+    n_train, n_val = len(loop.train_loader), len(loop.val_loader)
+    expect_k1 = (n_val + n_train) * (1 + 3) * -(-coords.shape[0] // cfg.training.max_num_sampled_points)
+    epoch_mse = ", ".join(f"{r['train_mse_epoch']:.4e}" for r in epochs)
+    log(f"[{name}] run_experiment({cfg.training.num_epochs} epochs) in {run_s:.2f} s: phases "
+        f"{[r['phase'] for r in epochs]}, train_mse_epoch [{epoch_mse}], "
+        f"val_mse_in_t {val['val_mse_in_t']:.4e} out_t {val['val_mse_out_t']:.4e}; equivariance_err "
+        f"translation {eqv.get('equivariance_err_translation')} rotation {eqv.get('equivariance_err_rotation')}; "
+        f"K1 launches {k1} (expected {expect_k1}), K2 launches {k2}; checkpoints {loop.checkpoints.all_epochs()}")
+    if [r["phase"] for r in epochs] != phases:
+        raise AssertionError(f"phases {[r['phase'] for r in epochs]} != {phases}")
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite training or validation metrics: {values}")
+    errs = [eqv.get(f"equivariance_err_{k}") for k in ("translation", "rotation")]
+    if not all(e is not None and e <= 1e-4 for e in errs):  # SE(2)-equivariant by construction
+        raise AssertionError(f"equivariance errors {errs} not logged or above 1e-4")
+    if (k1, k2) != (expect_k1, 0):
+        raise AssertionError(f"K1/K2 launches {(k1, k2)} != ({expect_k1}, 0)")
+    step_medians(loop.trainer, state, next(iter(loop.train_loader))[0], name)
+    return {"k1": k1, "frames": torch.as_tensor(next(iter(loop.val_loader))[0])[:, 0]}
+
+
+def planar_phase(name: str, dev, n_train: int, n_test: int, overrides: list, phases: list) -> dict:
+    """10-12 for one planar config: K1 at its widths, its data on the card, training, and
+    the forecast; the K1 entry of the kernels line for this config."""
+    k1 = k1_planar_phase(name, dev, ragged=name == "diffusion_plane")
+    coords = planar_coords(GRID, GRID)
+    data = planar_data_phase(name, n_train, n_test, dev)
+    train = planar_train_phase(name, data, overrides, phases, coords)
+    cfg = load_experiment_config(name)
+    fc = forecast_phase(cfg, coords, train["frames"], name)
+    shutil.rmtree(data)  # the generated data is not kept: the output directory stays small
+    torch.cuda.empty_cache()
+    return {**k1, "launches": train["k1"] + fc["launches"],
+            "max_abs_err": max(k1["max_abs_err"], fc["max_abs_err"])}
 
 
 def main() -> int:
@@ -626,54 +869,9 @@ def main() -> int:
     del decoder, args, out_k, out_p, ragged_args
 
     # 3. The forecast end to end, at full width.
-    frames = smooth_frames(NUM_SIGNALS, GRID, SEED)
-    (fc, init_s) = sync_time(lambda: Forecaster(cfg, coords, device="cuda"))
-    log(f"[forecast] Forecaster built on {dev} (random weights, seed {SEED}) in {init_s:.3f} s")
-    torch.cuda.reset_peak_memory_stats()
-    fused_decode_fwd.launches = 0
-    out, fc_s = sync_time(lambda: fc.forecast(frames, num_frames=NUM_FRAMES))
-    launches = fused_decode_fwd.launches
-    expect = (NUM_SIGNALS, NUM_FRAMES, GRID * GRID, 1)
-    log(f"[forecast] forecast(8 frames, num_frames={NUM_FRAMES}) -> {tuple(out.shape)} in "
-        f"{fc_s:.3f} s (first call); K1 launches {launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if tuple(out.shape) != expect:
-        raise AssertionError(f"forecast shape {tuple(out.shape)} != {expect}")
-    if not torch.isfinite(out).all():
-        raise AssertionError("forecast has non-finite values")
-    if launches == 0:
-        raise AssertionError("the forecast did not launch K1")
-
-    # Warm repeats: the whole call, then the path stage by stage; medians are reported
-    # because the host-bound fit and rollout vary from call to call.
-    totals = [sync_time(lambda: fc.forecast(frames, num_frames=NUM_FRAMES))[1] * 1e3
-              for _ in range(WARM_REPEATS)]
-    log(f"[forecast] warm forecast x{WARM_REPEATS}: median {statistics.median(totals):.2f} ms "
-        f"(samples {', '.join(f'{v:.2f}' for v in totals)} ms)")
-    stages = {"fit": [], "rollout": [], "decode": []}
-    for _ in range(WARM_REPEATS):
-        fitted, fit_s = sync_time(lambda: fc.fit(frames))
-        traj, roll_s = sync_time(lambda: fc.rollout(fitted, NUM_FRAMES))
-        field, dec_s = sync_time(lambda: fc.decode(traj))
-        for name, sec in (("fit", fit_s), ("rollout", roll_s), ("decode", dec_s)):
-            stages[name].append(sec * 1e3)
-    log("[forecast] stages (warm, median of " + str(WARM_REPEATS) + "): " + " | ".join(
-        f"{n} {statistics.median(v):.2f} ms (samples {', '.join(f'{x:.2f}' for x in v)})"
-        for n, v in stages.items()))
-    dec = fc.trainer.decoder
-    pb, tb = traj[0].shape[:2]
-    flat = [t.reshape(pb * tb, *t.shape[2:]) for t in traj]
-    xs = fc.trainer.coords[None].expand(pb * tb, -1, -1)
-    chunk = cfg.training.max_num_sampled_points
-    with torch.no_grad():
-        folded = dec.fold(flat[0], flat[1])
-        plain = decode_chunked(
-            lambda xc, pp, aa, ww: fused_decode_plain(*dec.kernel_geometry(xc, pp, ww), *folded,
-                                                      num_heads=H, head_dim=D),
-            xs, *flat, chunk_size=chunk,
-        ).reshape(field.shape)
-    max_errs.append(check_close("forecast decode vs plain decode", field, plain))
-    del plain
+    ns_fc = forecast_phase(cfg, coords, smooth_frames(NUM_SIGNALS, GRID, SEED), "forecast")
+    launches, max_errs = ns_fc["launches"], max_errs + [ns_fc["max_abs_err"]]
+    dec, flat, xs, folded, chunk = (ns_fc[k] for k in ("dec", "flat", "xs", "folded", "chunk"))
 
     # 4. K1 at the forecast's launch shape and the rollout decode's: kernel against plain,
     # times, bounds; and the decode's PyTorch prologue (one weight fold per decode,
@@ -708,7 +906,7 @@ def main() -> int:
     bound_ms, bound_by = k1_timing["forecast"]["bound_ms"], k1_timing["forecast"]["bound_by"]
 
     # 5-9. The training path: K2, the kernel-backend steps, the data, run_experiment, resume.
-    del args, out_k, folded, traj, fitted, field, fc, rollout_args
+    del args, out_k, folded, flat, xs, ns_fc, rollout_args
     torch.cuda.empty_cache()
     k2 = k2_phase(cfg, coords, dev)
     max_errs.append(step_parity_phase(cfg, coords, dev))
@@ -720,22 +918,39 @@ def main() -> int:
         k_ms, step_ms = k2["timing"][wg]["ms"], train["medians"][step]
         log(f"[timing] K2 {'with' if wg else 'without'} weight grads {k_ms:.4f} ms is "
             f"{100 * k_ms / step_ms:.1f} % of the {step} step's median {step_ms:.2f} ms")
+    torch.cuda.empty_cache()
+
+    # 10-12. The SE(2) planar experiments: K1 at their widths, data, training, forecast.
+    planar = [
+        planar_phase("diffusion_plane", dev, n_train=TRAIN_SIGNALS, n_test=VAL_SIGNALS, phases=[
+            "nef", "nef+ode", "ode"], overrides=[
+            f"dataset.num_signals_train={TRAIN_SIGNALS}", f"dataset.num_signals_test={VAL_SIGNALS}",
+            "training.num_epochs=3", "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=1",
+            "training.ode.train_until_epoch=3", "test.test_interval=3", "test.test_dp_interval=3"]),
+        planar_phase("cahn_hilliard", dev, n_train=NUM_SIGNALS, n_test=NUM_SIGNALS, phases=[
+            "nef", "nef+ode"], overrides=[
+            f"dataset.num_signals_train={NUM_SIGNALS}", f"dataset.num_signals_test={NUM_SIGNALS}",
+            "training.num_epochs=2", "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=1",
+            "training.ode.train_until_epoch=2", "test.test_interval=2", "test.test_dp_interval=2"]),
+    ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
+    k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
+                "source": f"enf_pde_tpu_torch/csrc/{KERNEL_SOURCE}",
+                "replaces": "enf_pde_tpu/ops/pallas_decode.py:548", "library_ms": None}
     kernels = [{
-        "name": "fused_decode_fwd",
-        "route": "cuda",
-        "source": f"enf_pde_tpu_torch/csrc/{KERNEL_SOURCE}",
-        "replaces": "enf_pde_tpu/ops/pallas_decode.py:548",
+        **k1_entry,
+        "shape": f"navier_stokes b={NUM_SIGNALS * NUM_FRAMES} z={cfg.nef.num_latents} c={chunk}",
         "launches": launches + train["k1"] + resume["k1"],
         "max_abs_err": max(max_errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,
-    }, {
+    }, *({**k1_entry, **entry} for entry in planar), {
         "name": "fused_decode_bwd",
+        "shape": f"navier_stokes b={NUM_SIGNALS * cfg.dataset.traj_len_train} z={cfg.nef.num_latents} "
+                 f"c={cfg.training.max_num_sampled_points}",
         "route": "cuda",
         "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
         "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",

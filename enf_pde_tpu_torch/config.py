@@ -16,7 +16,8 @@ import math
 import re
 from typing import Any, Iterable, Mapping
 
-__all__ = ["Config", "apply_overrides", "load_experiment_config", "NAVIER_STOKES"]
+__all__ = ["Config", "apply_overrides", "load_experiment_config", "NAVIER_STOKES",
+           "DIFFUSION_PLANE", "CAHN_HILLIARD"]
 
 
 class Config(dict):
@@ -141,7 +142,163 @@ NAVIER_STOKES = {
     },
 }
 
-_EXPERIMENTS = {"navier_stokes": NAVIER_STOKES}
+
+# ``enf_pde_tpu/experiments/configs/diffusion_plane.yaml``, key for key.
+DIFFUSION_PLANE = {
+    "seed": 0,
+    "proj_name": "enf-pde-tpu",
+    "logging": {
+        "log_dir": "outputs/diffusion_plane",
+        "log_every_n_steps": 50,
+        "checkpoint_every_n_epochs": 50,
+        "keep_n_checkpoints": 1,
+        "checkpoint": True,
+        "resume": False,
+        "use_wandb": False,
+        "visualize_every_n_epochs": 0,
+    },
+    "dataset": {
+        "name": "diffusion_plane",
+        "batch_size": 8,
+        "traj_len_train": 10,
+        "traj_len_out_horizon": 10,
+        "path": "data/",
+        "num_signals_train": 2048,
+        "num_signals_test": 32,
+    },
+    "nef": {
+        "num_in": 2,
+        "num_out": 1,
+        "num_layers": 0,
+        "num_hidden": 64,
+        "num_heads": 2,
+        "condition_value_transform": True,
+        "latent_dim": 16,
+        "num_latents": 4,
+        "gaussian_window": -1,
+        "optimize_gaussian_window": False,
+        "use_gaussian_window": True,
+        "embedding_type": "rff",
+        "embedding_freq_multiplier_invariant": 0.05,
+        "embedding_freq_multiplier_value": 0.01,
+        "invariant_type": "ponita",
+        "backend": "xla",
+        "eval_backend": "pallas",
+    },
+    "node": {
+        "name": "ponita",
+        "num_layers": 3,
+        "num_hidden": 64,
+        "widening_factor": 2,
+        "kernel_size": "global",
+        "degree": 3,
+        "basis_dim": 64,
+        "dt": 1,
+        "method": "euler",
+    },
+    "training": {
+        "num_epochs": 1000,
+        "max_num_sampled_points": 1024,
+        "ode": {"train_from_epoch": 100, "train_until_epoch": 10000},
+        "nef": {"train_from_epoch": 0, "fit_on_num_steps": 4, "train_until_epoch": 100},
+    },
+    "test": {"test_interval": 100, "test_dp_interval": 100, "test_equiv_at_epoch": 200},
+    "meta": {
+        "meta_sgd": True,
+        "num_inner_steps": 3,
+        "inner_learning_rate_p": 1.0,
+        "inner_learning_rate_a": 5.0,
+        "inner_learning_rate_window": 0.0,
+        "learning_rate_meta_sgd": 1.0e-4,
+        "noise_pos_inner_loop": 0.0,
+    },
+    "optimizer": {
+        "name": "adamw",
+        "learning_rate_enf": 1.0e-4,
+        "learning_rate_codes": 0.0,
+        "learning_rate_ode": 1.0e-3,
+    },
+}
+
+# ``enf_pde_tpu/experiments/configs/cahn_hilliard.yaml``, key for key.
+CAHN_HILLIARD = {
+    "seed": 0,
+    "proj_name": "enf-pde-tpu",
+    "logging": {
+        "log_dir": "outputs/cahn_hilliard",
+        "log_every_n_steps": 50,
+        "checkpoint_every_n_epochs": 50,
+        "keep_n_checkpoints": 1,
+        "checkpoint": True,
+        "resume": False,
+        "use_wandb": False,
+        "visualize_every_n_epochs": 0,
+    },
+    "dataset": {
+        "name": "cahn_hilliard",
+        "batch_size": 8,
+        "traj_len_train": 10,
+        "traj_len_out_horizon": 10,
+        "path": "data/",
+        "num_signals_train": 2048,
+        "num_signals_test": 32,
+    },
+    "nef": {
+        "num_in": 2,
+        "num_out": 1,
+        "num_layers": 0,
+        "num_hidden": 64,
+        "num_heads": 2,
+        "condition_value_transform": True,
+        "latent_dim": 32,
+        "num_latents": 9,
+        "gaussian_window": -1,
+        "optimize_gaussian_window": False,
+        "use_gaussian_window": True,
+        "embedding_type": "rff",
+        "embedding_freq_multiplier_invariant": 0.05,
+        "embedding_freq_multiplier_value": 0.2,
+        "invariant_type": "ponita",
+        "backend": "xla",
+        "eval_backend": "pallas",
+    },
+    "node": {
+        "name": "ponita",
+        "num_layers": 3,
+        "num_hidden": 128,
+        "widening_factor": 2,
+        "kernel_size": 0.2,
+        "degree": 3,
+        "basis_dim": 128,
+        "dt": 1,
+        "method": "euler",
+    },
+    "training": {
+        "num_epochs": 10000,
+        "max_num_sampled_points": 2048,
+        "ode": {"train_from_epoch": 100, "train_until_epoch": 10000},
+        "nef": {"train_from_epoch": 0, "fit_on_num_steps": 3, "train_until_epoch": 100},
+    },
+    "test": {"test_interval": 100, "test_dp_interval": 1000, "test_equiv_at_epoch": 400},
+    "meta": {
+        "meta_sgd": True,
+        "num_inner_steps": 3,
+        "inner_learning_rate_p": 2.0,
+        "inner_learning_rate_a": 2.0,
+        "inner_learning_rate_window": 0.0,
+        "learning_rate_meta_sgd": 1.0e-4,
+        "noise_pos_inner_loop": 0.05,
+    },
+    "optimizer": {
+        "name": "adamw",
+        "learning_rate_enf": 1.0e-4,
+        "learning_rate_codes": 0.0,
+        "learning_rate_ode": 1.0e-3,
+    },
+}
+
+_EXPERIMENTS = {"navier_stokes": NAVIER_STOKES, "diffusion_plane": DIFFUSION_PLANE,
+                "cahn_hilliard": CAHN_HILLIARD}
 
 
 # PyYAML's implicit resolvers for untagged plain scalars (YAML 1.1), ``yaml/resolver.py``.

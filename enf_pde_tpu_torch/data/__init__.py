@@ -3,8 +3,8 @@
 Counterpart of ``enf_pde_tpu/data/__init__.py``: ``get_dataloader(dataset_cfg) ->
 (train_loader, test_loader)``, each yielding ``(traj [b, T, *spatial, C], coords,
 indices)``; planar datasets use a [-1, 1]^2 grid. The solvers run on the card unless
-the caller asks for the CPU. Only the Navier-Stokes datasets are ported
-(``data/registry.py``).
+the caller asks for the CPU. Ported: the Navier-Stokes, ``diffusion_plane`` and
+``cahn_hilliard`` datasets (``data/registry.py``).
 """
 
 from __future__ import annotations

@@ -2,6 +2,7 @@
 
     python -m enf_pde_tpu_torch.data.generate navier_stokes --path data/ --group train --count 256
     python -m enf_pde_tpu_torch.data.generate navier_stokes --group test --ids 0,1,2 --device cpu
+    python -m enf_pde_tpu_torch.data.generate cahn_hilliard --path data/ --group train --count 64
 
 Writes the missing ones of the given ids, ``batch_size_gen`` per solver call, to
 ``<path>/<cache_name>/<group>/traj_XXXXXX.npz`` (with the ``.raw`` and ``shape.json``

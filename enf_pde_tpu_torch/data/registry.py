@@ -2,7 +2,8 @@
 
 Counterpart of ``enf_pde_tpu/data/registry.py``. ``dataset_spec(name)`` returns what
 caches and loaders need: train/test batch generators, the coordinate grid, per-split
-frame handling and the solver batch size. Only the Navier-Stokes datasets are ported.
+frame handling and the solver batch size. Ported: the Navier-Stokes datasets and the
+SE(2) planar ones (``diffusion_plane``, ``cahn_hilliard``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,31 @@ def dataset_spec(name: str, dataset_cfg=None, device="cuda") -> DatasetSpec:
             coords=planar_coords(64, 64),
             n_frames_train=20,
             batch_size_gen=16,
+            cache_name=name,
+            postprocess=_identity,
+        )
+    if name == "diffusion_plane":
+        from enf_pde_tpu_torch.data.diffusion_plane import generate_diffusion_trajectories
+
+        return DatasetSpec(
+            gen_train=lambda ids: generate_diffusion_trajectories(ids, test=False, device=device),
+            gen_test=lambda ids: generate_diffusion_trajectories(
+                [test_seed(i) for i in ids], test=True, device=device),
+            coords=planar_coords(64, 64),
+            n_frames_train=20,
+            batch_size_gen=32,
+            cache_name=name,
+            postprocess=_identity,
+        )
+    if name == "cahn_hilliard":
+        from enf_pde_tpu_torch.data.cahn_hilliard import generate_ch_trajectories
+
+        return DatasetSpec(
+            gen_train=lambda ids: generate_ch_trajectories(ids, device=device),
+            gen_test=lambda ids: generate_ch_trajectories([test_seed(i) for i in ids], device=device),
+            coords=planar_coords(64, 64),
+            n_frames_train=20,
+            batch_size_gen=8,
             cache_name=name,
             postprocess=_identity,
         )

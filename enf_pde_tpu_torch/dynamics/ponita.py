@@ -6,7 +6,12 @@ over the latent set. A polynomial-MLP kernel basis over the pairwise invariants
 derivatives, and an invariant-gated mean of relative positions reads out the pose
 derivatives. Contexts are centred (``a - 1``) because they are initialised at ones;
 the window derivative is zero. Submodule names follow the flax parameter tree.
-Oriented poses (the ``ponita`` invariant) are not ported yet.
+
+Oriented poses (the ``ponita`` invariant, poses (x, y, angle)): the angle is embedded
+as (cos, sin) before the invariants, a second gate (``Dense_5``) adds a mean of the
+senders' embedded orientations to the vector readout, and one more scalar is read out
+as the angle's derivative, so ``dp = [vector, d angle]``. The angle is integrated raw
+and never wrapped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 from torch import nn
 
 from enf_pde_tpu_torch.geometry.invariants import BaseInvariant
+from enf_pde_tpu_torch.models.decoder import embed_pose_angles
 from enf_pde_tpu_torch.ops.embeddings import polynomial_features
 from enf_pde_tpu_torch.ops.layers import Dense, LayerNorm, gelu, variance_scaling, zeros
 
@@ -78,8 +84,6 @@ class PonitaGen(nn.Module):
                  widening_factor: int, global_pool: bool,
                  kernel_size: Union[float, str] = "global"):
         super().__init__()
-        if invariant.num_z_ori_dims > 0:
-            raise NotImplementedError("Oriented PONITA poses are not ported yet; see ROADMAP.md.")
         self.invariant = invariant
         self.num_layers = num_layers
         self.vec_num_out = vec_num_out
@@ -96,9 +100,13 @@ class PonitaGen(nn.Module):
         if vec_num_out > 0:
             self.Dense_4 = Dense(invariant.dim + num_hidden, vec_num_out, use_bias=False,
                                  kernel_init=_small_init)
+            if invariant.num_z_ori_dims > 0:  # the orientation gate
+                self.Dense_5 = Dense(invariant.dim + num_hidden, vec_num_out, use_bias=False,
+                                     kernel_init=_small_init)
 
     def forward(self, latent):
         p, a, _ = latent
+        p = embed_pose_angles(p, self.invariant)  # angles to (cos, sin), as the decoder does
         invariants = self.invariant(p, p)  # [b, z, z, inv_dim]
 
         # Kernel basis: polynomial features -> MLP -> basis coefficients.
@@ -126,6 +134,9 @@ class PonitaGen(nn.Module):
                 [invariants, a[:, None, :, :].expand(*invariants.shape[:-1], a.shape[-1])], dim=-1
             )
             vec_out = (self.Dense_4(inv_feat) * rel_pos).mean(dim=-2)
+            if self.invariant.num_z_ori_dims > 0:
+                p_ori = p[:, None, :, pos_dims:].expand(rel_pos.shape)  # senders' (cos, sin)
+                vec_out = vec_out + (self.Dense_5(inv_feat) * p_ori).mean(dim=-2)
 
         if self.global_pool:
             scalar_out = scalar_out.mean(dim=1)
@@ -141,16 +152,22 @@ class PonitaLatentODE(nn.Module):
                  invariant: BaseInvariant, basis_dim: int, degree: int, widening_factor: int,
                  global_pool: bool = False, kernel_size: Union[float, str] = "global"):
         super().__init__()
-        # Contexts a are [.., scalar_num_out] wide: the field maps them to their derivative.
+        self.oriented = invariant.num_z_ori_dims > 0
+        # Contexts a are [.., scalar_num_out] wide: the field maps them to their derivative,
+        # and an oriented pose reads one scalar more, the angle's derivative.
         self.PonitaGen_0 = PonitaGen(
             num_in=scalar_num_out, num_hidden=num_hidden, num_layers=num_layers,
-            scalar_num_out=scalar_num_out, vec_num_out=vec_num_out, invariant=invariant,
-            basis_dim=basis_dim, degree=degree, widening_factor=widening_factor,
-            global_pool=global_pool, kernel_size=kernel_size,
+            scalar_num_out=scalar_num_out + self.oriented, vec_num_out=vec_num_out,
+            invariant=invariant, basis_dim=basis_dim, degree=degree,
+            widening_factor=widening_factor, global_pool=global_pool, kernel_size=kernel_size,
         )
 
     def forward(self, latents):
         p, a, window = latents
-        da, dp = self.PonitaGen_0((p, a - 1, window))  # contexts start at ones: centre them
+        scalar, vec = self.PonitaGen_0((p, a - 1, window))  # contexts start at ones: centre them
+        if self.oriented:
+            da, dp = scalar[..., :-1], torch.cat([vec, scalar[..., -1:]], dim=-1)
+        else:
+            da, dp = scalar, vec
         dw = torch.zeros_like(window) if window is not None else None
         return dp, da, dw

@@ -2,8 +2,10 @@
 
 Counterpart of ``enf_pde_tpu/geometry/invariants.py``. Each invariant maps
 ``(x[b, n, x_dim], p[b, z, p_dim]) -> inv[b, n, z, dim]`` and provides the Gaussian
-window that is added to the attention logits. Only the torus invariant of the
-Navier-Stokes experiment is ported; the other names raise ``NotImplementedError``.
+window that is added to the attention logits. Ported: the torus invariant of the
+Navier-Stokes experiment and the SE(2) ``ponita`` pair of the planar experiments
+(``PonitaPos2D`` for cross attention, whose queries carry no orientation, ``Ponita2D``
+for the latent ODE); the other names raise ``NotImplementedError``.
 
 The window flavours are part of the trained-model contract: the planar default is the
 log-domain ``-(1/sigma^2) * d^2``; the torus window is ``+(1/sigma^2) * sum cos^2(pi*d)``.
@@ -19,6 +21,8 @@ import torch
 __all__ = [
     "BaseInvariant",
     "RelativePositionPeriodic",
+    "PonitaPos2D",
+    "Ponita2D",
     "get_sa_invariant",
     "get_ca_invariant",
 ]
@@ -83,21 +87,67 @@ class RelativePositionPeriodic(BaseInvariant):
         return -(1.0 / sigma[:, None, :] ** 2) * neg_cos_sq
 
 
-def _build(name: str, num_dims: int) -> BaseInvariant:
+def _rotate_into_frame(x_pos, p):
+    """Relative position x - p rotated into the latent's frame: [b, n, z, 2].
+
+    ``p`` is [b, z, 4] with the orientation embedded as (cos t, sin t)."""
+    rel = x_pos[:, :, None, :] - p[:, None, :, :2]
+    cos_t, sin_t = p[:, None, :, 2], p[:, None, :, 3]
+    return torch.stack([rel[..., 0] * cos_t + rel[..., 1] * sin_t,
+                        -rel[..., 0] * sin_t + rel[..., 1] * cos_t], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PonitaPos2D(BaseInvariant):
+    """SE(2) position-only invariant: the relative position in the latent's frame.
+
+    Latent poses are (x, y, cos t, sin t), queries positions only (cross attention).
+    Planar log-domain window."""
+
+    def __init__(self):
+        super().__init__(dim=2, num_x_pos_dims=2, num_x_ori_dims=0, num_z_pos_dims=2,
+                         num_z_ori_dims=1)
+
+    def __call__(self, x, p):
+        return _rotate_into_frame(x, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ponita2D(BaseInvariant):
+    """Full SE(2) bi-invariant when both sides carry an orientation (PONITA): the
+    relative position in the latent's frame and the cosine of the relative angle.
+    Used for the latent ODE's kernel."""
+
+    def __init__(self):
+        super().__init__(dim=3, num_x_pos_dims=2, num_x_ori_dims=1, num_z_pos_dims=2,
+                         num_z_ori_dims=1)
+
+    def __call__(self, x, p):
+        rel = _rotate_into_frame(x[..., :2], p)
+        cos_rel = torch.sum(x[:, :, None, 2:] * p[:, None, :, 2:], dim=-1, keepdim=True)
+        return torch.cat([rel, cos_rel], dim=-1)
+
+
+def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant:
     if name == "rel_pos_periodic":
         if num_dims != 2:
             raise ValueError("rel_pos_periodic currently supports 2D input only.")
         return RelativePositionPeriodic(num_dims)
+    if name == "ponita":
+        if num_dims != 2:
+            raise ValueError("ponita currently supports 2D input only.")
+        # Cross-attention queries carry no orientation: the position-only invariant.
+        return PonitaPos2D() if for_cross_attention else Ponita2D()
     raise NotImplementedError(
-        f"Invariant {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 2."
+        f"Invariant {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 7."
     )
 
 
 def get_sa_invariant(nef_cfg) -> BaseInvariant:
     """Invariant used for latent-latent self attention (and the PONITA ODE kernel)."""
-    return _build(nef_cfg.invariant_type, int(nef_cfg.num_in))
+    return _build(nef_cfg.invariant_type, int(nef_cfg.num_in), for_cross_attention=False)
 
 
 def get_ca_invariant(nef_cfg) -> BaseInvariant:
     """Invariant used for coordinate->latent cross attention."""
-    return _build(nef_cfg.invariant_type, int(nef_cfg.num_in))
+    return _build(nef_cfg.invariant_type, int(nef_cfg.num_in), for_cross_attention=True)

@@ -1,8 +1,9 @@
 """Latent point sets as plain dicts of tensors.
 
 Counterpart of ``enf_pde_tpu/models/latents.py``: latents are
-``{'p_pos', 'a', 'gaussian_window'}``, every entry batch-leading, updated by plain
-functions in the inner loop. The ``'p_ori'`` of oriented geometries is not ported yet.
+``{'p_pos', ['p_ori'], 'a', 'gaussian_window'}``, every entry batch-leading, updated by
+plain functions in the inner loop. ``p_ori`` is the raw angle of an SE(2) latent
+(``ponita``); the decoder and PONITA see it only through its cosine and sine.
 """
 
 from __future__ import annotations
@@ -11,7 +12,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from enf_pde_tpu_torch.geometry.latent_init import default_gaussian_window_size, init_positions_grid
+from enf_pde_tpu_torch.geometry.latent_init import (
+    default_gaussian_window_size,
+    init_orientations_grid,
+    init_positions_grid,
+)
 
 __all__ = ["init_latents", "latents_to_pose", "tile_latents", "LatentParams"]
 
@@ -27,28 +32,33 @@ def init_latents(
     coordinate_system: str = "cartesian",
     gaussian_window_size: Optional[float] = None,
 ) -> LatentParams:
-    """Latents for ``num_signals`` signals: grid positions, unit contexts, and a window
-    size that defaults (``None`` or negative) to the latent spacing."""
+    """Latents for ``num_signals`` signals: grid positions, with ``num_ori_dims`` > 0
+    their orientations (2D only), unit contexts, and a window size that defaults
+    (``None`` or negative) to the latent spacing."""
     if coordinate_system != "cartesian":
         raise NotImplementedError(
             f"Coordinate system {coordinate_system!r} is not ported yet; see ROADMAP.md."
         )
+    params: LatentParams = {"p_pos": init_positions_grid(num_signals, num_latents, num_pos_dims)}
     if num_ori_dims > 0:
-        raise NotImplementedError("Oriented latents are not ported yet; see ROADMAP.md.")
+        if num_pos_dims != 2:
+            raise ValueError("Orientation latents are only supported in 2D.")
+        params["p_ori"] = init_orientations_grid(num_signals, num_latents)
     if gaussian_window_size is None or gaussian_window_size <= 0:
         window = default_gaussian_window_size(coordinate_system, num_latents, num_pos_dims)
     else:
         window = float(gaussian_window_size)
-    return {
-        "p_pos": init_positions_grid(num_signals, num_latents, num_pos_dims),
-        "a": torch.ones(num_signals, num_latents, latent_dim),
-        "gaussian_window": torch.full((num_signals, num_latents, 1), window),
-    }
+    params["a"] = torch.ones(num_signals, num_latents, latent_dim)
+    params["gaussian_window"] = torch.full((num_signals, num_latents, 1), window)
+    return params
 
 
 def latents_to_pose(params: LatentParams) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Assemble (p, a, gaussian_window) from the latent dict."""
-    return params["p_pos"], params["a"], params["gaussian_window"]
+    """Assemble (p, a, gaussian_window) from the latent dict; p is [.., pos (+ angle)]."""
+    p = params["p_pos"]
+    if "p_ori" in params:
+        p = torch.cat([p, params["p_ori"]], dim=-1)
+    return p, params["a"], params["gaussian_window"]
 
 
 def tile_latents(params: LatentParams, batch_size: int) -> LatentParams:

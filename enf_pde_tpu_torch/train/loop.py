@@ -135,7 +135,8 @@ class TrainLoop:
     def _log_equivariance(self, state, epoch: int):
         """Numeric analogue of the reference's visual equivariance check: fit frame 0
         of the first val batch, then decode (eager decoder) 512 grid points under
-        joint translations of coordinates and poses."""
+        joint translations of coordinates and poses, and rotations where the poses
+        carry an orientation (SE(2))."""
         trainer = self.trainer
         frames = self._batch_traj(next(iter(self.val_loader)))[:, 0]
         fitted = trainer.fit_latents(state, frames,

@@ -1,17 +1,22 @@
 """Kernel K1 against earlier builds of it and its plain version, on one card.
 
     python3 tools/k1_compare.py [--old path/to/fused_decode_fwd_old.cu ...] [--skip PHASE ...]
+        [--shape navier_stokes|diffusion_plane|cahn_hilliard]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_fwd.cu``, each ``--old`` (an earlier K1
 source, named by its file name; one with the 29-pointer interface from before the
 pre-split weights is handed the first 29 pointers), and for each ``--skip`` a copy of the
 current source that leaves one phase out (``SKIPS``: its results are wrong, its time says
 what the phase costs), with plain ``nvcc`` in parallel, and prints the compiler's
-register, spill and ``wgmma`` report. Holds every build against the plain version at the
-main path's launch shapes at Navier-Stokes width (160 x 512 and 80 x 512 with the tail,
-8 x 4096 with and without it, and a ragged 8 x 1000), one rel-L2 per shape, then times
-plain, old, variants, new, new, variants, old, plain at 160 x 512 and 80 x 512, the
-shared weights split once as the forecast decode splits them, beside the bounds (f32 on
+register, spill and ``wgmma`` report. Holds every build against the plain version, with
+and without the tail, at the ``--shape`` config's widths (``navier_stokes``, the default;
+``diffusion_plane``, z = 4; ``cahn_hilliard``, z = 9; I = 2 and hid = 64 for both planar
+ones) and launch shapes: the forecast's and validation's 160 x chunk (512 / 1024 / 2048),
+160 x 512, 80 x 512, 8 x 4096 and a ragged 8 x 1000; one rel-L2 per shape and mode. Then
+times plain, old, variants, new, new, variants, old, plain at 160 x chunk and at the next
+shape (80 x 512 for Navier-Stokes, 160 x 512 for the planar configs), the shared weights
+split once as the forecast decode splits them,
+beside the bounds (f32 on
 the CUDA cores and 3xTF32 on the tensor cores by operations, and by bytes) and the
 design's L2 weight bytes per point. Prints the card's name and power limit. Exits 1 when
 the new build misses the rel-L2 tolerance of ``chip_smoke.py`` at any shape.
@@ -97,6 +102,9 @@ def main() -> int:
     ap.add_argument("--skip", action="append", default=[], choices=sorted(SKIPS),
                     help="also build the current source without this phase (timing only; repeatable)")
     ap.add_argument("--iters", type=int, default=20, help="kernel launches per timed sample")
+    ap.add_argument("--shape", default="navier_stokes", choices=("navier_stokes", "diffusion_plane",
+                                                                 "cahn_hilliard"),
+                    help="the config whose widths K1 runs at")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("k1_compare: torch.cuda.is_available() is False; this needs a CUDA card.", file=sys.stderr)
@@ -123,19 +131,21 @@ def main() -> int:
         kernels[name] = partial(fd._launch, lib=lib)
     cs.log(f"[device] {torch.cuda.get_device_name(0)} | {cs.nvidia_smi()} | torch {torch.__version__}")
 
-    cfg = load_experiment_config("navier_stokes")
+    cfg = load_experiment_config(opts.shape)
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     dev = torch.device("cuda")
     coords = planar_coords(cs.GRID, cs.GRID)
-    shapes = {"b=160 c=512": (160, 512), "b=80 c=512": (80, 512), "b=8 c=4096": (8, 4096),
-              "b=8 c=1000": (8, 1000)}
+    chunk = cfg.training.max_num_sampled_points
+    shapes = [(160, chunk), (160, 512), (80, 512), (8, 4096), (8, 1000)]  # the first two are timed
+    shapes = {f"b={b} c={c}": (b, c) for b, c in dict.fromkeys(shapes)}
     inputs = {label: cs.decode_inputs(cfg, coords, dev, b, c, cs.SEED + 7 + i)
               for i, (label, (b, c)) in enumerate(shapes.items())}
+    cs.log(f"[shape] {opts.shape}: z={cfg.nef.num_latents} I={inputs[next(iter(inputs))][0].shape[-1]} "
+           f"hid={cfg.nef.num_hidden} H={H} latent_dim={cfg.nef.latent_dim}")
     worst = {name: 0.0 for name in kernels}
     with torch.no_grad():
         for label, args in inputs.items():
-            modes = [(True, args)] + ([(False, (*args[:7], ()))] if label == "b=8 c=4096" else [])
-            for tail, kargs in modes:
+            for tail, kargs in ((True, args), (False, (*args[:7], ()))):
                 ref = fd.fused_decode_plain(*kargs, H, D)
                 parts = []
                 for name, k1 in kernels.items():
@@ -147,7 +157,7 @@ def main() -> int:
         torch.cuda.synchronize()
 
         order = ["plain", *olds, *extra, "new", "new", *extra[::-1], *olds[::-1], "plain"]
-        for label in ("b=160 c=512", "b=80 c=512"):
+        for label in list(inputs)[:2]:
             args = inputs[label]
             split = fd.split_weights(args[6])[1]  # once, as the forecast decode splits
             fns = {name: partial(k1, *args, H, D, split=split) for name, k1 in kernels.items()}
