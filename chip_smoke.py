@@ -61,7 +61,8 @@ then, for each SE(2) planar experiment (``diffusion_plane``: 4 latents of 16; th
     H = 2), with and without the tail, at the forecast's and validation's launch shape
     (160 frames x the config's chunk, 1024 / 2048 points), at 160 x 512 and 80 x 512, and
     for ``diffusion_plane`` at z = 5 and z = 1 (groups of one latent) at a ragged 8 x 1000;
-    ms per launch, the plain version's ms, the 3xTF32 bound and K1's shared memory;
+    ms per launch, the plain version's ms, the 3xTF32 bound and K1's shared memory (the
+    Python mirror of its ``layout`` held equal to the built library's);
 11. data: ``get_dataloader`` generates the dataset on the card into a fresh
     ``chiprun_out/<name>_data/``, removed after phase 12 (``diffusion_plane``: one block
     of 32 per split, the analytic heat kernel, one trajectory held against the CPU's
@@ -75,10 +76,34 @@ then, for each SE(2) planar experiment (``diffusion_plane``: 4 latents of 16; th
     and rotation errors must be at f32 rounding (<= 1e-4), K1's launches against the
     loop's arithmetic (the training steps decode eagerly: neither YAML sets
     ``ode_backend``), each step kind's warm median; then ``Forecaster.forecast`` of 8
-    generated test frames for 20 frames as in phase 3, through K1.
+    generated test frames for 20 frames as in phase 3, through K1;
+
+13. K1 past four latents at the Navier-Stokes width (I = 4, hid = hidm = D = 128, H = 2),
+    which the earlier two-pass layout refused: z = 5, 8, 9 and 16 at a ragged
+    8 x 1000, and ``shallow_water``'s decode widths (latent_dim 32, z = 8) at its launch
+    shape 160 x 2048, against the plain version with and without the tail, with times,
+    bounds and shared memory as in phase 10;
+
+then the heat equation on the sphere, ``diff_sphere`` at its full published width (decoder
+hidden 16, 2 heads, 18 latents of 4 on a polar grid, ``polar_periodic``: I = 1, no window;
+PONITA 3 layers, hidden 32, basis 32; 2048 sampled points of the 128 x 64 grid, batch 2):
+
+14. K1 at its widths as in phase 10, at 160 x 2048 (the forecast's and validation's
+    launch, latent groups 4, 4, 4, 4, 2), 160 x 512, 80 x 512 and at z = 2 and z = 8 at a
+    ragged 8 x 1000;
+15. data: ``get_dataloader`` generates one block of 16 trajectories per split on the card
+    into a fresh ``chiprun_out/diff_sphere_data/`` (removed after phase 16); trajectory 0
+    against the CPU's generation within rel-L2 1e-5, and the area-weighted mean of every
+    frame against its initial frame's within 1e-5;
+16. training through ``run_experiment`` on 16 + 8 signals for 3 epochs (nef, dual, ode),
+    validation with the dp variants, the sphere equivariance check (longitude and rotation
+    errors at f32 rounding, <= 1e-4), K1's launches against the loop's arithmetic, each step
+    kind's warm median; then ``Forecaster.forecast`` of 8 generated test frames for 20
+    frames through K1, with its stages.
 
 Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
-config's paths, its time at that config's forecast launch shape) and K2 at the
+config's paths, its time at that config's forecast launch shape; the Navier-Stokes entry's
+error includes phase 13's) and K2 at the
 Navier-Stokes ode step's shape; each kernel's ``bound_ms`` is that of the route it
 takes, 3xTF32 on the tensor cores, or bytes where they take longer. Last,
 ``{"ok": true, "device": {...}}``.
@@ -105,8 +130,11 @@ import torch
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import load_experiment_config
 from enf_pde_tpu_torch.data import get_dataloader, planar_coords
+from enf_pde_tpu_torch.data.registry import dataset_spec
+from enf_pde_tpu_torch.data.sphere_harmonics import SphereGrid
 from enf_pde_tpu_torch.data.cahn_hilliard import cahn_hilliard_rollout, initial_fields
 from enf_pde_tpu_torch.data.diffusion_plane import generate_diffusion_trajectories
+from enf_pde_tpu_torch.data.diffusion_sphere import generate_sphere_diffusion_trajectories
 from enf_pde_tpu_torch.data.navier_stokes import GaussianRF2D, default_forcing, navier_stokes_rollout
 from enf_pde_tpu_torch.experiments.fit import run_experiment
 from enf_pde_tpu_torch.inference import Forecaster
@@ -121,6 +149,8 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fused_decode_bwd_plain,
     fused_decode_fwd,
     fused_decode_plain,
+    k1_library_smem_bytes,
+    k1_smem_bytes,
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
@@ -272,6 +302,11 @@ def check_grads(label: str, got, want) -> float:
     if not worst <= REL_L2_TOL:
         raise AssertionError(f"{label}: {worst_name} rel_l2 {worst:.3e} > {REL_L2_TOL:g}")
     return err
+
+
+def config_coords(cfg) -> np.ndarray:
+    """The decode grid of a config's dataset, as its registry entry gives it."""
+    return dataset_spec(cfg.dataset.name, device="cpu").coords
 
 
 def decode_inputs(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=None):
@@ -657,34 +692,24 @@ def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
                 chunk=chunk)
 
 
-def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
-    """K1's dynamic shared memory for a shape, as ``layout`` in csrc/fused_decode_fwd.cu
-    sizes it: X, Y, acc, the cp.async ring and two split A chunks, probabilities, invariants."""
-    stride = lambda w: (w + 31) // 32 * 32 + 4  # noqa: E731  (row_stride)
-    ld_x, ld_p, ld_w = stride(hid), stride(H * hidm), stride(max(H * D, hid))
-    n_y = max(4 * 32 * ld_x, 2 * 32 * ld_p, 32 * ld_w)
-    ring = 3 * 16 * 264 + 2 * 2 * 32 * 20
-    return 4 * (4 * 32 * ld_x + n_y + 32 * ld_w + ring + Z * 32 * H + 4 * 32 * I)
-
-
-def k1_planar_phase(name: str, dev, ragged: bool) -> dict:
-    """10. K1 against its plain version at a planar config's widths (I = 2, hid = hidm = D
-    = 64, H = 2), with and without the tail: at the forecast's and validation's launch shape
-    (160 frames x the config's chunk), at 160 x 512 and 80 x 512, and with ``ragged`` at
-    z = 5 and z = 1 (latent groups of one) at 8 x 1000; times, bounds, shared memory."""
-    cfg = load_experiment_config(name)
-    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
-    coords = planar_coords(GRID, GRID)
-    b_main, chunk = NUM_SIGNALS * NUM_FRAMES, cfg.training.max_num_sampled_points
-    shapes = [(cfg, b_main, chunk), (cfg, b_main, 512), (cfg, b_main // 2, 512)]
-    if ragged:
-        shapes += [(load_experiment_config(name, [f"nef.num_latents={z}"]), NUM_SIGNALS, 1000) for z in (5, 1)]
+def k1_shapes_phase(tag: str, shapes: list, dev) -> dict:
+    """K1 against its plain version, with and without the tail, at each ``(cfg, b, M)`` of
+    ``shapes`` (the config's widths and latents, ``b`` frames of seeded random latents,
+    ``M`` coordinates of its grid); per shape ms per launch, the plain version's ms, the
+    bounds, and the shared memory of ``k1_smem_bytes`` held equal to the built library's
+    ``layout``. Returns the worst max abs error and each shape's numbers, keyed by
+    ``(z, b, c)``."""
     errs, timing = [], {}
     for i, (c, b, M) in enumerate(shapes):
-        args = decode_inputs(c, coords, dev, b, M, SEED + 11 + i)
+        H, D = c.nef.num_heads, c.nef.num_hidden
+        args = decode_inputs(c, config_coords(c), dev, b, M, SEED + 11 + i)
         B, Zl, C, I = args[0].shape
         hid, hidm = args[6][1].shape[0], args[6][8].shape[0]
-        label = f"K1 {name} z={Zl} b={B} c={C} I={I} hid={hid}"
+        label = f"K1 {tag} z={Zl} b={B} c={C} I={I} hid={hid}"
+        smem = k1_smem_bytes(Zl, I, hid, H, D, hidm)
+        lib_smem = k1_library_smem_bytes([B, Zl, C, I, hid, H, D, hidm, c.nef.num_out, 1])
+        if lib_smem != smem:
+            raise AssertionError(f"{label}: k1_smem_bytes {smem} != the library's layout {lib_smem}")
         with torch.no_grad():
             out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
             errs.append(check_close(f"{label} tail", out_k, fused_decode_plain(*args, num_heads=H, head_dim=D)))
@@ -695,17 +720,40 @@ def k1_planar_phase(name: str, dev, ragged: bool) -> dict:
             k_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
             p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
         bd = k1_bounds(c, args, out_k)
-        smem = k1_smem_bytes(Zl, I, hid, H, D, hidm)
-        timing[(Zl, B, C)] = dict(ms=k_ms, plain_ms=p_ms, **bd)
+        timing[(Zl, B, C)] = dict(ms=k_ms, plain_ms=p_ms, smem=smem, **bd)
         log(f"[timing] {label}: {k_ms:.4f} ms ({bd['flops'] / k_ms / 1e9:.2f} TFLOP/s); plain "
             f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (3xTF32 tensor cores "
             f"{bd['tc_ms']:.4f} ms, f32 CUDA cores {bd['f32_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
-            f"{bd['flops'] / 1e9:.3f} GFLOP); shared memory {smem} B of 232448")
+            f"{bd['flops'] / 1e9:.3f} GFLOP); shared memory {smem} B of 232448 (the library's layout agrees)")
         del args, out_k
     torch.cuda.synchronize()
-    main = timing[(cfg.nef.num_latents, b_main, chunk)]
-    return {"max_abs_err": max(errs), "shape": f"{name} b={b_main} z={cfg.nef.num_latents} c={chunk}",
+    return {"max_abs_err": max(errs), "timing": timing}
+
+
+def k1_config_phase(name: str, dev, ragged_latents=()) -> dict:
+    """10 / 14. K1 at a config's widths: at the forecast's and validation's launch shape
+    (160 frames x the config's chunk), at 160 x 512 and 80 x 512, and at each of
+    ``ragged_latents`` latents at a ragged 8 x 1000; the kernels-line numbers of the first."""
+    cfg = load_experiment_config(name)
+    b_main, chunk = NUM_SIGNALS * NUM_FRAMES, cfg.training.max_num_sampled_points
+    shapes = [(cfg, b_main, chunk), (cfg, b_main, 512), (cfg, b_main // 2, 512)]
+    shapes += [(load_experiment_config(name, [f"nef.num_latents={z}"]), NUM_SIGNALS, 1000) for z in ragged_latents]
+    res = k1_shapes_phase(name, shapes, dev)
+    main = res["timing"][(cfg.nef.num_latents, b_main, chunk)]
+    return {"max_abs_err": res["max_abs_err"], "shape": f"{name} b={b_main} z={cfg.nef.num_latents} c={chunk}",
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def k1_repair_phase(dev) -> dict:
+    """13. K1 past four latents at Navier-Stokes width (I = 4, hid = hidm = D = 128, H = 2),
+    which the earlier two-pass layout refused: z = 5, 8, 9 and 16 at a ragged 8 x 1000, and
+    shallow_water's decode widths (latent_dim 32, z = 8) at its launch shape 160 x 2048,
+    seeded random weights; against the plain version, with times, bounds, shared memory."""
+    ns = lambda *over: load_experiment_config("navier_stokes", list(over))  # noqa: E731
+    shapes = [(ns(f"nef.num_latents={z}"), NUM_SIGNALS, 1000) for z in (5, 8, 9, 16)]
+    shapes.append((ns("nef.num_latents=8", "nef.latent_dim=32"), NUM_SIGNALS * NUM_FRAMES, 2048))
+    res = k1_shapes_phase("navier_stokes width", shapes, dev)
+    return {"max_abs_err": res["max_abs_err"], "shallow_water": res["timing"][(8, NUM_SIGNALS * NUM_FRAMES, 2048)]}
 
 
 def planar_data_phase(name: str, n_train: int, n_test: int, dev) -> Path:
@@ -753,11 +801,14 @@ def planar_data_phase(name: str, n_train: int, n_test: int, dev) -> Path:
     return path
 
 
-def planar_train_phase(name: str, data: Path, overrides: list, phases: list, coords: np.ndarray) -> dict:
-    """11/12 b. ``run_experiment`` at the config's full width on the generated data, the
-    phases overridden to ``phases``; finite metrics, the translation and rotation
-    equivariance errors at f32 rounding, K1's launches against the loop's arithmetic (the
-    training steps decode eagerly: no ``ode_backend`` in the YAML), step medians."""
+def config_train_phase(name: str, data: Path, overrides: list, phases: list, coords: np.ndarray,
+                       eqv_kinds=("translation", "rotation")) -> dict:
+    """12 / 16. ``run_experiment`` at the config's full width on the generated data, the
+    phases overridden to ``phases``; finite metrics, the equivariance errors ``eqv_kinds``
+    (SE(2): translation and rotation; S^2: longitude and rotation) at f32 rounding, K1's
+    launches against the loop's arithmetic (the training steps decode eagerly: no
+    ``ode_backend`` in the YAML), step medians. Returns K1's launches and the first
+    NUM_SIGNALS test signals' first frames."""
     log_dir = fresh_dir(OUT_DIR / f"{name}_train")
     cfg = load_experiment_config(name, [f"dataset.path={data}", f"logging.log_dir={log_dir}",
                                         "test.test_equiv_at_epoch=0", "logging.log_every_n_steps=1",
@@ -768,7 +819,7 @@ def planar_train_phase(name: str, data: Path, overrides: list, phases: list, coo
     records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
     epochs = [r for r in records if "train_mse_epoch" in r]
     val = next(r for r in records if "val_mse_in_t" in r)
-    eqv = next((r for r in records if "equivariance_err_translation" in r), {})
+    eqv = next((r for r in records if f"equivariance_err_{eqv_kinds[0]}" in r), {})
     values = [v for r in records for k, v in r.items() if "mse" in k]
     n_train, n_val = len(loop.train_loader), len(loop.val_loader)
     expect_k1 = (n_val + n_train) * (1 + 3) * -(-coords.shape[0] // cfg.training.max_num_sampled_points)
@@ -776,29 +827,81 @@ def planar_train_phase(name: str, data: Path, overrides: list, phases: list, coo
     log(f"[{name}] run_experiment({cfg.training.num_epochs} epochs) in {run_s:.2f} s: phases "
         f"{[r['phase'] for r in epochs]}, train_mse_epoch [{epoch_mse}], "
         f"val_mse_in_t {val['val_mse_in_t']:.4e} out_t {val['val_mse_out_t']:.4e}; equivariance_err "
-        f"translation {eqv.get('equivariance_err_translation')} rotation {eqv.get('equivariance_err_rotation')}; "
+        + " ".join(f"{k} {eqv.get(f'equivariance_err_{k}')}" for k in eqv_kinds) + "; "
         f"K1 launches {k1} (expected {expect_k1}), K2 launches {k2}; checkpoints {loop.checkpoints.all_epochs()}")
     if [r["phase"] for r in epochs] != phases:
         raise AssertionError(f"phases {[r['phase'] for r in epochs]} != {phases}")
     if not all(np.isfinite(v) for v in values):
         raise AssertionError(f"non-finite training or validation metrics: {values}")
-    errs = [eqv.get(f"equivariance_err_{k}") for k in ("translation", "rotation")]
-    if not all(e is not None and e <= 1e-4 for e in errs):  # SE(2)-equivariant by construction
+    errs = [eqv.get(f"equivariance_err_{k}") for k in eqv_kinds]
+    if not all(e is not None and e <= 1e-4 for e in errs):  # equivariant by construction
         raise AssertionError(f"equivariance errors {errs} not logged or above 1e-4")
     if (k1, k2) != (expect_k1, 0):
         raise AssertionError(f"K1/K2 launches {(k1, k2)} != ({expect_k1}, 0)")
     step_medians(loop.trainer, state, next(iter(loop.train_loader))[0], name)
-    return {"k1": k1, "frames": torch.as_tensor(next(iter(loop.val_loader))[0])[:, 0]}
+    frames = torch.cat([torch.as_tensor(batch[0])[:, 0] for batch in loop.val_loader])[:NUM_SIGNALS]
+    return {"k1": k1, "frames": frames}
 
 
 def planar_phase(name: str, dev, n_train: int, n_test: int, overrides: list, phases: list) -> dict:
     """10-12 for one planar config: K1 at its widths, its data on the card, training, and
     the forecast; the K1 entry of the kernels line for this config."""
-    k1 = k1_planar_phase(name, dev, ragged=name == "diffusion_plane")
+    k1 = k1_config_phase(name, dev, ragged_latents=(5, 1) if name == "diffusion_plane" else ())
     coords = planar_coords(GRID, GRID)
     data = planar_data_phase(name, n_train, n_test, dev)
-    train = planar_train_phase(name, data, overrides, phases, coords)
+    train = config_train_phase(name, data, overrides, phases, coords)
     cfg = load_experiment_config(name)
+    fc = forecast_phase(cfg, coords, train["frames"], name)
+    shutil.rmtree(data)  # the generated data is not kept: the output directory stays small
+    torch.cuda.empty_cache()
+    return {**k1, "launches": train["k1"] + fc["launches"],
+            "max_abs_err": max(k1["max_abs_err"], fc["max_abs_err"])}
+
+
+def sphere_data_phase(dev) -> Path:
+    """15. ``get_dataloader`` generates ``diff_sphere`` on the card into a fresh
+    ``chiprun_out/diff_sphere_data/``, one block of 16 trajectories per split (the heat
+    equation on the 128 x 64 sphere grid, exact in the harmonic basis); seconds per block,
+    trajectory 0 against the CPU's generation within rel-L2 1e-5, and the area-weighted
+    mean of every frame of the training block against its initial frame's within 1e-5."""
+    name = "diff_sphere"
+    path = fresh_dir(OUT_DIR / f"{name}_data")
+    cfg = load_experiment_config(name, [f"dataset.path={path}", f"dataset.num_signals_train={TRAIN_SIGNALS}",
+                                        f"dataset.num_signals_test={VAL_SIGNALS}"])
+    train, test = get_dataloader(cfg.dataset, device="cuda")
+    block_s = {split: sync_time(ldr.ensure_all)[1] for split, ldr in (("train", train), ("test", test))}
+    files = {split: sorted((path / name / split).glob("traj_*.npz")) for split in ("train", "test")}
+    log(f"[{name}] data on {torch.cuda.get_device_name(0)}: " + ", ".join(
+        f"{split} {len(files[split])} trajectories in {block_s[split]:.2f} s" for split in files))
+    trajs = np.stack([np.load(f)["data"] for f in files["train"]])[..., 0]
+    if [len(f) for f in files.values()] != [16, 16] or trajs.shape != (16, TRAIN_FRAMES, 128, 64) \
+            or not np.isfinite(trajs).all():
+        raise AssertionError(f"{name}: {[len(f) for f in files.values()]} files, shape {trajs.shape} or non-finite")
+    cpu = generate_sphere_diffusion_trajectories([0], device="cpu")[0, ..., 0]
+    rel = rel_l2(torch.from_numpy(trajs[0]), torch.from_numpy(cpu))
+    means = (trajs * SphereGrid(128, 64, device="cpu").w).sum(axis=-1).mean(axis=-1) / 2  # area means
+    drift = float(np.abs(means - means[:, :1]).max())
+    log(f"[{name}] trajectory 0 (20 frames) card vs CPU rel_l2 {rel:.3e} (tol 1e-5); largest |frame mean - "
+        f"initial mean| over 16 trajectories x 20 frames {drift:.3e} (tol 1e-5; initial means "
+        f"{means[:, 0].min():.4f}-{means[:, 0].max():.4f}); |u| max {np.abs(trajs).max():.4f}")
+    if not (rel <= 1e-5 and drift <= 1e-5):
+        raise AssertionError(f"diff_sphere data checks failed: {rel:.3e}, {drift:.3e}")
+    return path
+
+
+def sphere_phase(dev) -> dict:
+    """14-16 for ``diff_sphere``: K1 at its widths, its data on the card, training with the
+    sphere equivariance check, and the forecast; the K1 entry of the kernels line."""
+    name = "diff_sphere"
+    k1 = k1_config_phase(name, dev, ragged_latents=(2, 8))
+    cfg = load_experiment_config(name)
+    coords = config_coords(cfg)
+    data = sphere_data_phase(dev)
+    train = config_train_phase(name, data, [
+        f"dataset.num_signals_train={TRAIN_SIGNALS}", f"dataset.num_signals_test={VAL_SIGNALS}",
+        "training.num_epochs=3", "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=1",
+        "training.ode.train_until_epoch=3", "test.test_interval=3", "test.test_dp_interval=3"],
+        ["nef", "nef+ode", "ode"], coords, eqv_kinds=("longitude", "rotation"))
     fc = forecast_phase(cfg, coords, train["frames"], name)
     shutil.rmtree(data)  # the generated data is not kept: the output directory stays small
     torch.cuda.empty_cache()
@@ -933,6 +1036,15 @@ def main() -> int:
             "training.num_epochs=2", "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=1",
             "training.ode.train_until_epoch=2", "test.test_interval=2", "test.test_dp_interval=2"]),
     ]
+    # 13. K1 past four latents at Navier-Stokes width, and at shallow_water's decode shape.
+    repair = k1_repair_phase(dev)
+    sw = repair["shallow_water"]
+    log(f"[timing] K1 at shallow_water's decode shape (navier_stokes width, latent_dim 32, z=8, "
+        f"160 x 2048): {sw['ms']:.4f} ms, plain {sw['plain_ms']:.4f} ms, bound {sw['bound_ms']:.4f} ms, "
+        f"shared memory {sw['smem']} B")
+    torch.cuda.empty_cache()
+    # 14-16. The heat equation on S^2: K1 at its widths, data, training, forecast.
+    sphere = sphere_phase(dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
@@ -942,12 +1054,12 @@ def main() -> int:
         **k1_entry,
         "shape": f"navier_stokes b={NUM_SIGNALS * NUM_FRAMES} z={cfg.nef.num_latents} c={chunk}",
         "launches": launches + train["k1"] + resume["k1"],
-        "max_abs_err": max(max_errs),
+        "max_abs_err": max(max_errs + [repair["max_abs_err"]]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-    }, *({**k1_entry, **entry} for entry in planar), {
+    }, *({**k1_entry, **entry} for entry in (*planar, sphere)), {
         "name": "fused_decode_bwd",
         "shape": f"navier_stokes b={NUM_SIGNALS * cfg.dataset.traj_len_train} z={cfg.nef.num_latents} "
                  f"c={cfg.training.max_num_sampled_points}",

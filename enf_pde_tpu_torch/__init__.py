@@ -11,7 +11,11 @@ latent ODE, the meta-SGD latent fit, and ``inference.Forecaster``; its training
 path -- optimizers, the nef / ode / dual steps, validation and ``train.loop.TrainLoop``
 with checkpoints, resume, the equivariance check and figures; its data -- the
 spectral solver, the trajectory cache and loader (``data``); and the experiment CLI
-``experiments.fit``. ``convert`` loads the JAX package's parameters.
+``experiments.fit``. ``convert`` loads the JAX package's parameters. Then the SE(2)
+planar experiments ``diffusion_plane`` and ``cahn_hilliard`` (the ``ponita`` invariants,
+oriented latents and PONITA, their solvers), and the heat equation on the sphere,
+``diff_sphere`` (the ``polar_periodic`` invariant, polar latents, spherical-harmonic
+transforms in ``data.sphere_harmonics``).
 """
 
 __version__ = "0.1.0"

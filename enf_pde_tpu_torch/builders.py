@@ -26,7 +26,7 @@ def decoder_backend(name: str) -> str:
 
 
 def coordinate_system_for(dataset_name: str) -> str:
-    """Latent coordinate system per dataset (only the cartesian ones are ported)."""
+    """Latent coordinate system per dataset (the cartesian and polar ones are ported)."""
     if dataset_name in ("diff_sphere", "shallow_water", "shallow_water_low_res"):
         return "polar"
     if dataset_name == "ihc":

@@ -22,10 +22,16 @@
 //
 // Design. One block of 256 threads (two warpgroups) decodes TILE = 32 coordinates of one
 // batch row; the grid is (ceil(C / TILE), B), so neighbouring blocks share a row's A/G/c in
-// L2. Two passes over the latents, as the softmax over Z forces: every latent's logits
-// first, then the value chains weighted into the accumulator. As the Pallas kernel does
-// (`inv3.reshape(Z*T, I)`), the latents go into the rows of the layers whose weights they
-// share, ZG = 4 latents (128 rows) at a time:
+// L2. One pass over the latents in groups of ZG, with the softmax over Z taken online, as a
+// fused attention takes it over a long key axis: a group's logits from the query chain, then
+// per (coordinate, head) the running max m and sum l of exp(logit - m) are updated, the
+// accumulator's columns of that head are rescaled by exp(m_old - m_new), and the group's
+// value chains add exp(logit - m_new) * vmix. The last group divides by the complete l, in
+// its weights and in the accumulator's factor, so no pass follows. The update and the
+// rescale share the barriers of the value chain's RFF staging: none is added. Shared
+// memory does not depend on Z. As the Pallas kernel does (`inv3.reshape(Z*T, I)`), the
+// latents go into the rows of the layers whose weights they share, ZG = 4 latents (128
+// rows) at a time:
 //   q_w1, v_w1, fw  one [4 T x hid] @ [hid x hid] product each (`dense128`);
 //   m_w2            one [128 x hidm] @ [hidm x D] product per pair of latents and pair of
 //                   heads (`mixer`): a thread's two fragment rows are one coordinate in the
@@ -64,16 +70,18 @@
 //   mma.sync fresh per k step: 1.36e-6; its whole sum (up to 32 steps, 96 mma): 5.58e-6;
 //     wgmma fresh per two k steps: 1.04e-6.
 // An earlier build measured mma.sync chains of 4 and 8 k steps at 1.18e-6 and 1.87e-6.
-// Every shape chip_smoke.py checks stays within 1.5e-6 of the plain version (gate 1e-5).
+// Every shape chip_smoke.py checks stays within 2.4e-6 of the plain version (gate 1e-5;
+// 1.5e-6 at Navier-Stokes width with z = 4).
 //
-// Shared memory at Navier-Stokes width (z = 4, I = 4, hid = 128, H = 2, hidm = D = 128):
-//   X      [128 x 132] f32       67,584 B   RFF features, then u / t of all latents
+// Shared memory at Navier-Stokes width (I = 4, hid = 128, H = 2, hidm = D = 128), any Z:
+//   X      [128 x 132] f32       67,584 B   RFF features, then u / t of the group's latents
 //   Y      [128 x 132] f32       67,584 B   hq / hv; a latent pair's pre [64 x 260]; the tail's
 //   acc    [32 x 260] f32        33,280 B   the weighted sum y, then the tail's activations
 //   ring   3 x 16 x 264 f32      50,688 B   B chunks (a 16 KB wgmma block or 16 x 256 raw f32)
 //   A      2 x 32 x 20 float2    10,240 B   the split A chunks of the 32-row products
-//   probabilities [Z][32][H] 1,024 B, invariants [4][32][I] 2,048 B
-//   232,448 B, all that a block may have: one block (two warpgroups) per SM.
+//   the group's logits, then weights [ZG][32][H] 1,024 B; running max, sum, factor [3][32][H] 768 B
+//   231,168 B of the 232,448 B a block may have (SMEM_CAP): one block (two warpgroups) per SM.
+// A group's invariants, [4][32][I], are staged in Y while it is idle (I <= hid + 4).
 // L2 weight bytes per block of 32 points: q_w1, v_w1, fw 3 x 128 KB (pre-split, once for all
 // four latents); m_w2 2 x 128 KB (once per pair); G 4 x 128 KB; A 4 KB; the tail's o_w, p_w1,
 // p_w2 3 x 256 KB, h_w1 128 KB, h_w2 64 KB: 2,116 KB, 67.7 kB per decoded point (86 KB in
@@ -84,6 +92,12 @@
 // per point. Measured 4.67 ms (PERF.md): the 32-row mma.sync products take about half, the
 // 128-row wgmma ones a fifth, the row passes (LayerNorm with gelu, RFF, logits) most of the
 // rest.
+// The online softmax against the earlier two-pass build, one call of tools/k1_compare.py
+// (PERF.md §6): -2.2 % at Navier-Stokes width (z = 4, 160 x 512), +2.0 % at z = 9 (hid 64,
+// 160 x 2048), +5.9 % at z = 18 (hid 16, 160 x 2048). The invariants are staged rather than
+// read from global memory in the RFF pass, whose dependent loads then wait on L2 (+9.9 % at
+// z = 9); the update runs on all lanes and shares barriers rather than taking its own
+// (64 threads and two barriers of their own: +3.6 %).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,6 +118,9 @@ constexpr int WG_N = 128;             // columns of one wgmma product and of one
 constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part x k step x 8 x 128
 constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
+constexpr int SMEM_CAP = 232448;      // bytes of shared memory a block may have on an H100
+// These constants and `layout` have one mirror, k1_smem_bytes in ops/fused_decode.py, which
+// reads the `constexpr int` lines of this file.
 constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 33;
@@ -448,7 +465,7 @@ __device__ __forceinline__ void dense128(const float* X, int ldx, int R, int K, 
 }
 
 // F[r, :half] = sin(2 pi inv[r] @ coeff), F[r, half:] = cos(...) for the R rows of a latent
-// group; coeff is [I, half].
+// group; s_inv is [R][I] in shared memory, coeff [I, half].
 __device__ void rff_features(const float* s_inv, int R, int I, const float* __restrict__ coeff, int half,
                              float* F, int ldf) {
   for (int idx = threadIdx.x; idx < R * half; idx += THREADS) {
@@ -556,28 +573,79 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Para
   float* Y = X + ZG * TILE * ldX;        // nY floats
   float* acc = Y + P.nY;                 // [TILE][ldW]
   float* ring = acc + TILE * ldW;        // [STAGES][STAGE_FLOATS]
-  float* s_prob = ring + RING_FLOATS;    // [Z][TILE][H] logits, then softmax weights
-  float* s_inv = s_prob + Z * TILE * H;  // [ZG][TILE][I]
+  float* s_prob = ring + RING_FLOATS;    // [ZG][TILE][H] the group's logits, then its weights
+  float* s_max = s_prob + ZG * TILE * H;  // [TILE][H] running max of the logits
+  float* s_sum = s_max + TILE * H;       // [TILE][H] running sum of exp(logit - max)
+  float* s_scale = s_sum + TILE * H;     // [TILE][H] the factor acc's columns of head h take
   const int b = blockIdx.y, c0 = blockIdx.x * TILE, tid = threadIdx.x;
   const int rows = min(TILE, C - c0);  // valid coordinates in this tile
 
-  auto load_inv = [&](int z0, int nz) {
+  // Online softmax over the latent groups, after the group's logits are in s_prob: the
+  // running max m and sum l of each (coordinate, head) take the group in, its logits become
+  // exp(logit - m_new), and s_scale holds exp(m_old - m_new), the factor the accumulator's
+  // columns of that head take before the group's value chains add into it. After the last
+  // group l is complete, and both are divided by it. One lane per (coordinate, head, latent
+  // of the group), the ZG lanes of a pair adjacent: shuffles reduce over the group.
+  static_assert(ZG <= 32 && (ZG & (ZG - 1)) == 0, "a group's lanes lie in one warp");
+  auto online_softmax = [&](int z0, int nz) {
+    const bool first = z0 == 0, last = z0 + ZG >= Z;
+    for (int base = tid; base < TILE * H * ZG; base += THREADS) {  // TILE H ZG: whole warps
+      const int zz = base % ZG, pair = base / ZG;  // pair = t H + h
+      const bool valid = zz < nz;
+      const float x = valid ? s_prob[zz * TILE * H + pair] : -INFINITY;
+      const float m_old = first ? -INFINITY : s_max[pair];
+      const float l_old = first ? 0.0f : s_sum[pair];
+      float m = fmaxf(m_old, x);
+#pragma unroll
+      for (int o = 1; o < ZG; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float ms = m == -INFINITY ? 0.0f : m;  // every logit so far -inf: exp gives 0, not NaN
+      float e = valid ? expf(x - ms) : 0.0f, sum = e;
+#pragma unroll
+      for (int o = 1; o < ZG; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      float scale = expf(m_old - ms);  // 0 for the first group
+      const float l = l_old * scale + sum;
+      if (last) {
+        const float inv_l = 1.0f / l;
+        e *= inv_l;
+        scale *= inv_l;
+      }
+      __syncwarp();  // every lane of the pair has read m_old and l_old
+      if (valid) s_prob[zz * TILE * H + pair] = e;
+      if (zz == 0) {
+        s_max[pair] = m;
+        s_sum[pair] = l;
+        s_scale[pair] = scale;
+      }
+    }
+  };
+
+  // The RFF features of a group's latents into X, their invariants staged in Y, which is
+  // idle between the last pair's mixer and the first product of either chain. Before the
+  // value chain's, the online softmax takes the group's logits in beside the staging, and
+  // the accumulator takes its factor beside the features: no barrier of their own.
+  float* s_inv = Y;  // [ZG][TILE][I]
+  auto features = [&](int z0, int nz, const float* coeff, bool softmax) {
+    __syncthreads();  // earlier readers of X and Y are done, the group's logits written
+    if (softmax) online_softmax(z0, nz);
     for (int idx = tid; idx < nz * TILE * I; idx += THREADS) {
       const int zz = idx / (TILE * I), rem = idx - zz * TILE * I, t = rem / I;
       s_inv[idx] = t < rows ? P.inv[((size_t)(b * Z + z0 + zz) * C + c0) * I + rem] : 0.0f;
     }
-  };
-  auto features = [&](int z0, int nz, const float* coeff) {
-    __syncthreads();  // earlier readers of s_inv and X are done
-    load_inv(z0, nz);
     __syncthreads();
+    if (softmax && z0 > 0)  // acc holds the earlier groups' sum: a warp per row, lanes along n
+      for (int t = tid >> 5; t < TILE; t += WARPS)
+        for (int h = 0; h < H; ++h) {
+          const float f = s_scale[t * H + h];
+          for (int n = tid & 31; n < D; n += 32) acc[t * ldW + h * D + n] *= f;
+        }
     rff_features(s_inv, nz * TILE, I, coeff, hid / 2, X, ldX);
   };
 
-  // Pass 1: every latent's logits from the query chain, ZG latents per product.
+  for (int idx = tid; idx < TILE * HD; idx += THREADS) acc[(idx / HD) * ldW + idx % HD] = 0.0f;
   for (int z0 = 0; z0 < Z; z0 += ZG) {
     const int nz = min(ZG, Z - z0);
-    features(z0, nz, P.q_coeff);
+    // The group's logits from the query chain, ZG latents per product.
+    features(z0, nz, P.q_coeff, false);
     dense128<ACT_RELU>(X, ldX, nz * TILE, hid, P.q_w1s, hid, P.q_b1, Y, ldX, ring);
     __syncthreads();
     // logit[z, t, h] = hq[z, t] . A[b, z][:, h] + ab + wb: one warp per (latent, head).
@@ -585,30 +653,14 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Para
         nz * H, hid, H, [&](int o, int t) { return Y + ((o / H) * TILE + t) * ldX; },
         [&](int o) { return P.A + ((size_t)b * Z + z0 + o / H) * hid * H + o % H; },
         [&](int o, int t, float s) {
-          const int z = z0 + o / H, h = o % H;
-          const size_t bz = (size_t)b * Z + z;
-          s_prob[(z * TILE + t) * H + h] =
+          const int zz = o / H, h = o % H;
+          const size_t bz = (size_t)b * Z + z0 + zz;
+          s_prob[(zz * TILE + t) * H + h] =
               s + __ldg(P.ab + bz * H + h) + (t < rows ? __ldg(P.wb + bz * C + c0 + t) : 0.0f);
         });
-  }
-  __syncthreads();
-  for (int idx = tid; idx < TILE * H; idx += THREADS) {
-    float m = -INFINITY;
-    for (int z = 0; z < Z; ++z) m = fmaxf(m, s_prob[z * TILE * H + idx]);
-    float sum = 0.0f;
-    for (int z = 0; z < Z; ++z) {
-      const float e = expf(s_prob[z * TILE * H + idx] - m);
-      s_prob[z * TILE * H + idx] = e;
-      sum += e;
-    }
-    for (int z = 0; z < Z; ++z) s_prob[z * TILE * H + idx] /= sum;
-  }
-  for (int idx = tid; idx < TILE * HD; idx += THREADS) acc[(idx / HD) * ldW + idx % HD] = 0.0f;
 
-  // Pass 2: the FiLM-conditioned value chains, weighted into acc.
-  for (int z0 = 0; z0 < Z; z0 += ZG) {
-    const int nz = min(ZG, Z - z0);
-    features(z0, nz, P.v_coeff);
+    // The group's FiLM-conditioned value chains, weighted into acc.
+    features(z0, nz, P.v_coeff, true);
     dense128<ACT_RELU>(X, ldX, nz * TILE, hid, P.v_w1s, hid, P.v_b1, Y, ldX, ring);
     dense128<ACT_NONE>(Y, ldX, nz * TILE, hid, P.fws, hid, P.fb, X, ldX, ring);
     __syncthreads();
@@ -622,8 +674,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Para
       }
       __syncthreads();
       normalize<true>(Y, ldP, np * TILE, H, hidm);  // gelu, then each head
-      mixer(Y, P.ldP, np, H, hidm, D, P.m_w2s, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW,
-            ring);
+      mixer(Y, P.ldP, np, H, hidm, D, P.m_w2s, P.m_b2, s_prob + zp * TILE * H, acc, ldW, ring);
     }
   }
 
@@ -655,6 +706,7 @@ bool layout(Params& P, bool with_tail, size_t* smem) {
   if (P.hid % KC || P.hidm % KC || P.D % KC || P.hid > 128) return false;  // X holds [128][hid]
   if (P.hidm > MAXW || P.H * P.D > MAXW) return false;                        // normalize's registers
   if (!with_tail && P.out_dim != P.H * P.D) return false;
+  if (P.I > P.hid + 4) return false;  // a group's invariants are staged in Y
   const int HD = P.H * P.D, HH = P.H * P.hidm;
   P.ldX = row_stride(P.hid);
   P.ldP = row_stride(HH);
@@ -663,9 +715,16 @@ bool layout(Params& P, bool with_tail, size_t* smem) {
   if ((size_t)2 * TILE * P.ldP > nY) nY = (size_t)2 * TILE * P.ldP;
   if ((size_t)TILE * P.ldW > nY) nY = (size_t)TILE * P.ldW;
   P.nY = (int)nY;
+  // X, Y, acc, the ring and two A chunks, the group's logits, running max, sum and factor.
   *smem = sizeof(float) * ((size_t)ZG * TILE * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)RING_FLOATS +
-                           (size_t)P.Z * TILE * P.H + (size_t)ZG * TILE * P.I);
-  return *smem <= 232448;
+                           (size_t)(ZG + 3) * TILE * P.H);
+  return *smem <= SMEM_CAP;
+}
+
+// The shape dims of the launcher's interface into P.
+void set_dims(Params& P, const int* dims) {
+  P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
+  P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
 }
 
 }  // namespace
@@ -689,8 +748,7 @@ int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   P.h_w1 = f[22]; P.h_b1 = f[23]; P.h_w2 = f[24]; P.h_b2 = f[25]; P.h_w3 = f[26]; P.h_b3 = f[27];
   P.out = const_cast<float*>(f[28]);
   P.q_w1s = f[29]; P.v_w1s = f[30]; P.fws = f[31]; P.m_w2s = f[32];
-  P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
-  P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
+  set_dims(P, dims);
   const bool with_tail = dims[9] != 0;
   size_t smem = 0;
   if (!layout(P, with_tail, &smem)) return (int)cudaErrorInvalidValue;
@@ -715,6 +773,16 @@ int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
     fused_decode_fwd_kernel<false><<<grid, THREADS, smem, s>>>(P);
   }
   return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory a launch with these dims takes, or -1 for shapes the
+// kernel does not take (the launcher's dims).
+long long fused_decode_fwd_smem_bytes(const int* dims, int n_dims) {
+  if (n_dims != kNumDims) return -1;
+  Params P;
+  set_dims(P, dims);
+  size_t smem = 0;
+  return layout(P, dims[9] != 0, &smem) ? (long long)smem : -1;
 }
 
 const char* fused_decode_fwd_error_string(int code) {

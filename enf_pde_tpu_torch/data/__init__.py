@@ -2,9 +2,10 @@
 
 Counterpart of ``enf_pde_tpu/data/__init__.py``: ``get_dataloader(dataset_cfg) ->
 (train_loader, test_loader)``, each yielding ``(traj [b, T, *spatial, C], coords,
-indices)``; planar datasets use a [-1, 1]^2 grid. The solvers run on the card unless
-the caller asks for the CPU. Ported: the Navier-Stokes, ``diffusion_plane`` and
-``cahn_hilliard`` datasets (``data/registry.py``).
+indices)``; planar datasets use a [-1, 1]^2 grid, spherical ones the (phi, theta)
+generation grid. The solvers run on the card unless the caller asks for the CPU.
+Ported: the Navier-Stokes, ``diffusion_plane``, ``cahn_hilliard`` and ``diff_sphere``
+datasets (``data/registry.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 from enf_pde_tpu_torch.data.cache import TrajectoryCache, test_seed
 from enf_pde_tpu_torch.data.loader import TrajectoryLoader
 
-__all__ = ["get_dataloader", "planar_coords", "TrajectoryLoader", "TrajectoryCache", "test_seed"]
+__all__ = ["get_dataloader", "planar_coords", "angular_coords", "TrajectoryLoader", "TrajectoryCache",
+           "test_seed"]
 
 
 def planar_coords(h: int, w: int, lo: float = -1.0, hi: float = 1.0) -> np.ndarray:
@@ -26,6 +28,12 @@ def planar_coords(h: int, w: int, lo: float = -1.0, hi: float = 1.0) -> np.ndarr
     v = np.linspace(lo, hi, w)
     U, V = np.meshgrid(u, v, indexing="ij")
     return np.stack([U, V], axis=-1).reshape(-1, 2).astype(np.float32)
+
+
+def angular_coords(phi: np.ndarray, theta: np.ndarray) -> np.ndarray:
+    """(phi, theta) pairs of a sphere grid, flattened longitude-major like its frames."""
+    P, T = np.meshgrid(phi, theta, indexing="ij")
+    return np.stack([P, T], axis=-1).reshape(-1, 2).astype(np.float32)
 
 
 def get_dataloader(dataset_cfg, device="cuda") -> Tuple[TrajectoryLoader, TrajectoryLoader]:

@@ -2,8 +2,9 @@
 
 Counterpart of ``enf_pde_tpu/data/registry.py``. ``dataset_spec(name)`` returns what
 caches and loaders need: train/test batch generators, the coordinate grid, per-split
-frame handling and the solver batch size. Ported: the Navier-Stokes datasets and the
-SE(2) planar ones (``diffusion_plane``, ``cahn_hilliard``).
+frame handling and the solver batch size. Ported: the Navier-Stokes datasets, the
+SE(2) planar ones (``diffusion_plane``, ``cahn_hilliard``) and the heat equation on the
+sphere (``diff_sphere``, on its 128 x 64 (phi, theta) grid).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def _identity(x: np.ndarray) -> np.ndarray:
 
 def dataset_spec(name: str, dataset_cfg=None, device="cuda") -> DatasetSpec:
     """The spec of dataset ``name``; its solvers run on ``device``."""
-    from enf_pde_tpu_torch.data import planar_coords
+    from enf_pde_tpu_torch.data import angular_coords, planar_coords
 
     if name in ("navier_stokes", "navier_stokes_long"):
         from enf_pde_tpu_torch.data.navier_stokes import generate_ns_trajectories
@@ -86,6 +87,23 @@ def dataset_spec(name: str, dataset_cfg=None, device="cuda") -> DatasetSpec:
             coords=planar_coords(64, 64),
             n_frames_train=20,
             batch_size_gen=8,
+            cache_name=name,
+            postprocess=_identity,
+        )
+    if name == "diff_sphere":
+        from enf_pde_tpu_torch.data.diffusion_sphere import (
+            generate_sphere_diffusion_trajectories,
+            sphere_diffusion_grid,
+        )
+
+        grid = sphere_diffusion_grid(device=device)
+        return DatasetSpec(
+            gen_train=lambda ids: generate_sphere_diffusion_trajectories(ids, grid=grid),
+            gen_test=lambda ids: generate_sphere_diffusion_trajectories(
+                [test_seed(i) for i in ids], grid=grid),
+            coords=angular_coords(grid.phi, grid.theta),
+            n_frames_train=20,
+            batch_size_gen=16,
             cache_name=name,
             postprocess=_identity,
         )

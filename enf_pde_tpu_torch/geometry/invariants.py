@@ -3,12 +3,15 @@
 Counterpart of ``enf_pde_tpu/geometry/invariants.py``. Each invariant maps
 ``(x[b, n, x_dim], p[b, z, p_dim]) -> inv[b, n, z, dim]`` and provides the Gaussian
 window that is added to the attention logits. Ported: the torus invariant of the
-Navier-Stokes experiment and the SE(2) ``ponita`` pair of the planar experiments
+Navier-Stokes experiment, the SE(2) ``ponita`` pair of the planar experiments
 (``PonitaPos2D`` for cross attention, whose queries carry no orientation, ``Ponita2D``
-for the latent ODE); the other names raise ``NotImplementedError``.
+for the latent ODE), and the SO(3) ``polar_periodic`` invariant on S^2 (the cosine of
+the great-circle angle, I = 1); the other names raise ``NotImplementedError``.
 
 The window flavours are part of the trained-model contract: the planar default is the
-log-domain ``-(1/sigma^2) * d^2``; the torus window is ``+(1/sigma^2) * sum cos^2(pi*d)``.
+log-domain ``-(1/sigma^2) * d^2``; the torus window is ``+(1/sigma^2) * sum cos^2(pi*d)``;
+the sphere window is probability-domain, ``exp(-d^2 / (2 sigma^2))`` with d the
+great-circle distance (its arccos clipped away from +-1), and is added all the same.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ __all__ = [
     "RelativePositionPeriodic",
     "PonitaPos2D",
     "Ponita2D",
+    "RelativePositionPolarPeriodic",
     "get_sa_invariant",
     "get_ca_invariant",
 ]
@@ -31,6 +35,30 @@ __all__ = [
 def _sq_dist(x_pos, p_pos):
     """Squared euclidean distance, broadcast to [b, n, z, 1]."""
     return torch.sum((p_pos[:, None, :, :] - x_pos[:, :, None, :]) ** 2, dim=-1, keepdim=True)
+
+
+def _sphere_unit_vec(phi, theta):
+    """(phi, theta) spherical angles -> unit vectors on S^2, stacked on the last axis."""
+    return torch.stack(
+        [torch.sin(theta) * torch.cos(phi), torch.sin(theta) * torch.sin(phi), torch.cos(theta)],
+        dim=-1,
+    )
+
+
+def _great_circle_cos(x_ang, p_ang):
+    """Cosine of the great-circle angle between angular coords [b, n, 2] and [b, z, 2]
+    (``[..., 0] = phi``, the longitude; ``[..., 1] = theta``, the colatitude): [b, n, z, 1]."""
+    xv = _sphere_unit_vec(x_ang[:, :, 0], x_ang[:, :, 1])
+    pv = _sphere_unit_vec(p_ang[:, :, 0], p_ang[:, :, 1])
+    cos = torch.einsum("bnd,bmd->bnm", xv, pv)
+    norm = torch.linalg.norm(xv, dim=-1)[:, :, None] * torch.linalg.norm(pv, dim=-1)[:, None, :]
+    return (cos / norm)[:, :, :, None]
+
+
+def _sphere_window(cos_ang, sigma):
+    """exp(-d^2 / 2 sigma^2) with d the clipped great-circle distance; sigma [b, z, 1]."""
+    dist = torch.arccos(torch.clamp(cos_ang, -1 + 1e-6, 1 - 1e-6))
+    return torch.exp(-(dist ** 2) / (2 * sigma[:, None, :, :] ** 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +156,22 @@ class Ponita2D(BaseInvariant):
         return torch.cat([rel, cos_rel], dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class RelativePositionPolarPeriodic(BaseInvariant):
+    """SO(3)-invariant scalar on S^2: the cosine of the great-circle angle between a
+    query and a latent, both (phi, theta) spherical angles."""
+
+    def __init__(self):
+        super().__init__(dim=1, num_x_pos_dims=2, num_x_ori_dims=0, num_z_pos_dims=2,
+                         num_z_ori_dims=0, is_periodic=True)
+
+    def __call__(self, x, p):
+        return _great_circle_cos(x[:, :, :2], p[:, :, :2])
+
+    def gaussian_window(self, x, p, sigma):
+        return _sphere_window(self(x, p), sigma)
+
+
 def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant:
     if name == "rel_pos_periodic":
         if num_dims != 2:
@@ -138,6 +182,8 @@ def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant
             raise ValueError("ponita currently supports 2D input only.")
         # Cross-attention queries carry no orientation: the position-only invariant.
         return PonitaPos2D() if for_cross_attention else Ponita2D()
+    if name == "polar_periodic":
+        return RelativePositionPolarPeriodic()
     raise NotImplementedError(
         f"Invariant {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 7."
     )

@@ -1,8 +1,9 @@
-"""Deterministic latent-pose initializers (cartesian only).
+"""Deterministic latent-pose initializers (cartesian and polar).
 
 Counterpart of ``enf_pde_tpu/geometry/latent_init.py``: a cell-centred grid over
-[-1, 1]^d (``num_latents = k**d``), the orientations of SE(2) latents, and the window
-size that makes neighbouring windows overlap. The polar and ball geometries are not
+[-1, 1]^d (``num_latents = k**d``), the orientations of SE(2) latents, a (phi, theta)
+grid on the sphere with twice the resolution in longitude (``num_latents = 2 k**2``),
+and the window size that makes neighbouring windows overlap. The ball geometry is not
 ported yet.
 """
 
@@ -11,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["init_positions_grid", "init_orientations_grid", "default_gaussian_window_size"]
+__all__ = ["init_positions_grid", "init_positions_polar", "init_orientations_grid",
+           "default_gaussian_window_size"]
 
 
 def _latents_per_dim(num_latents: int, num_dims: int) -> int:
@@ -32,6 +34,29 @@ def init_positions_grid(num_signals: int, num_latents: int, num_dims: int) -> to
     return pos[None].repeat(num_signals, 1, 1)
 
 
+def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, num)``'s f32 formula: with s = i / (num - 1), start (1 - s)
+    + stop s, the end point exact. Equal to JAX's values bit for bit at the shipped sizes
+    (the polar grids of 2, 8, 18 and 32 latents); XLA may round a larger grid's interior
+    points one unit in the last place apart."""
+    start32, stop32 = np.float32(start), np.float32(stop)
+    if num == 1:
+        return np.array([start32])
+    s = np.arange(num - 1, dtype=np.float32) / np.float32(num - 1)
+    return np.append(start32 * (np.float32(1) - s) + stop32 * s, stop32)
+
+
+def init_positions_polar(num_signals: int, num_latents: int, num_dims: int) -> torch.Tensor:
+    """Spherical (phi, theta) grid, cell-centred, with twice the longitudinal resolution:
+    ``num_latents = 2 k**2``. Returns [num_signals, num_latents, 2]."""
+    k = _latents_per_dim(num_latents // 2, num_dims)
+    grid_phi = _linspace_f32(np.pi / (2 * k), 2 * np.pi - np.pi / (2 * k), 2 * k)
+    grid_theta = _linspace_f32((np.pi / 2) / k, np.pi - (np.pi / 2) / k, k)
+    grids = np.meshgrid(grid_phi, grid_theta, indexing="ij")
+    pos = torch.from_numpy(np.stack(grids, axis=-1).reshape(-1, num_dims))
+    return pos[None].repeat(num_signals, 1, 1)
+
+
 def init_orientations_grid(num_signals: int, num_latents: int) -> torch.Tensor:
     """Rotation-covariant orientations: arctan2 of the 2D grid position. Returns
     [num_signals, num_latents, 1]."""
@@ -43,6 +68,8 @@ def default_gaussian_window_size(coordinate_system: str, num_latents: int, num_p
     """Initial per-latent Gaussian window std such that neighbouring windows overlap."""
     if coordinate_system == "cartesian":
         return num_pos_dims / _latents_per_dim(num_latents, num_pos_dims)
+    if coordinate_system == "polar":
+        return float(num_pos_dims * np.pi / _latents_per_dim(num_latents // 2, num_pos_dims))
     raise NotImplementedError(
         f"Coordinate system {coordinate_system!r} is not ported yet; see ROADMAP.md."
     )

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -57,6 +58,9 @@ __all__ = [
     "fused_decode_plain",
     "fused_decode_fwd",
     "split_weights",
+    "k1_constants",
+    "k1_smem_bytes",
+    "k1_library_smem_bytes",
     "fused_decode_bwd_plain",
     "fused_decode_bwd",
     "FusedDecode",
@@ -388,6 +392,58 @@ def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
     for name, t in named.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on 16 bytes for K1 (storage offset {t.storage_offset()})")
+
+
+def k1_constants() -> Dict[str, int]:
+    """K1's layout constants (TILE, ZG, RING_FLOATS, MAXW, SMEM_CAP, ...), read from the
+    ``constexpr int NAME = expr;`` lines of its source, each an integer expression of the
+    ones before: the kernel and ``k1_smem_bytes`` share one set of constants."""
+    env: Dict[str, int] = {}
+    text = (cuda_lib.CSRC_DIR / KERNEL_SOURCE).read_text()
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([\w\s*+/()-]+);", text, re.M):
+        # C's integer division; the expression holds only integers and earlier names.
+        env[name] = int(eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(env)))
+    return env
+
+
+def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
+    """K1's dynamic shared memory in bytes for a decode shape, as ``layout`` in
+    ``csrc/fused_decode_fwd.cu`` computes it: X, Y (which also stages a latent group's
+    invariants), acc, the ``cp.async`` ring and two split A chunks, then one latent group's
+    logits and the online softmax's running max, sum and factor. It does not depend on
+    ``Z``. Raises ``ValueError`` for a shape that ``layout`` refuses: widths it does not
+    take, or more than ``SMEM_CAP`` bytes."""
+    k = k1_constants()
+    tile, zg, kc = k["TILE"], k["ZG"], k["KC"]
+    if Z <= 0 or I <= 0 or H <= 0:
+        raise ValueError(f"K1 needs Z, I and H positive, got {Z}, {I}, {H}")
+    if hid % kc or hidm % kc or D % kc or hid > zg * tile:
+        raise ValueError(f"K1 needs hid, hidm and D in multiples of {kc} and hid <= {zg * tile}, "
+                         f"got {hid}, {hidm}, {D}")
+    if hidm > k["MAXW"] or H * D > k["MAXW"]:
+        raise ValueError(f"K1 needs hidm and H*D <= {k['MAXW']}, got {hidm}, {H * D}")
+    if I > hid + 4:
+        raise ValueError(f"K1 stages a latent group's invariants in Y: it needs I <= hid + 4, got {I}")
+
+    def stride(w: int) -> int:  # row_stride: 4 mod 32 words
+        return (w + 31) // 32 * 32 + 4
+
+    ld_x, ld_p, ld_w = stride(hid), stride(H * hidm), stride(max(H * D, hid))
+    n_y = max(zg * tile * ld_x, 2 * tile * ld_p, tile * ld_w)
+    smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + (zg + 3) * tile * H)
+    if smem > k["SMEM_CAP"]:
+        raise ValueError(f"K1 would need {smem} B of shared memory, more than {k['SMEM_CAP']}")
+    return smem
+
+
+def k1_library_smem_bytes(dims: Sequence[int]) -> int:
+    """The shared memory that the built K1 library's ``layout`` gives a launch with these
+    dims (the launcher's ``B, Z, C, I, hid, H, D, hidm, out_dim, with_tail``), -1 for a
+    shape it refuses; on the card, held against ``k1_smem_bytes``."""
+    fn = cuda_lib.load(KERNEL_SOURCE).fused_decode_fwd_smem_bytes
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn((ctypes.c_int * len(dims))(*dims), len(dims)))
 
 
 def _fwd_lib(source: str = KERNEL_SOURCE):

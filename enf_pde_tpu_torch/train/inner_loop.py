@@ -141,11 +141,13 @@ def _fit(decoder_apply, coords, cfg: InnerLoopConfig, meta_lrs, latent_init, fra
         else:
             leaves = {n: latents[n].detach().requires_grad_(True) for n in names}
         with torch.enable_grad():
-            grads = torch.autograd.grad(recon_loss(leaves, masks[step]),
-                                        [leaves[n] for n in names], create_graph=create_graph)
-        # The loss means over the batch; rescale so each signal's latents see
-        # their own full gradient.
-        grads = {n: g * batch_size for n, g in zip(names, grads)}
+            grads = torch.autograd.grad(recon_loss(leaves, masks[step]), [leaves[n] for n in names],
+                                        create_graph=create_graph, allow_unused=True)
+        # A latent the decode does not read (the window, with use_gaussian_window off) has a
+        # zero gradient, as jax.grad gives. The loss means over the batch; rescale so each
+        # signal's latents see their own full gradient.
+        grads = {n: torch.zeros_like(leaves[n]) if g is None else g * batch_size
+                 for n, g in zip(names, grads)}
         if not cfg.optimize_gaussian_window and "gaussian_window" in grads:
             grads["gaussian_window"] = torch.zeros_like(grads["gaussian_window"])
         base = leaves if create_graph else {n: leaves[n].detach() for n in names}

@@ -14,6 +14,8 @@ from typing import Callable, Dict
 
 import torch
 
+from enf_pde_tpu_torch.geometry.invariants import RelativePositionPolarPeriodic
+
 __all__ = [
     "equivariance_errors",
     "equivariance_errors_2d",
@@ -183,15 +185,20 @@ def equivariance_errors(decoder_apply: DecoderApply, coords, p, a, window, invar
                         coordinate_system: str) -> Dict[str, float]:
     """Dispatch the numeric equivariance check on the trained geometry.
 
-    ``invariant`` is the decoder's cross-attention invariant; ``coordinate_system`` the
-    dataset's. The sphere and ball checks choose their flags by invariant classes that
-    are not ported yet, so those geometries raise ``NotImplementedError``.
+    ``invariant`` is the decoder's cross-attention invariant (its class decides which
+    group actions the architecture claims); ``coordinate_system`` the dataset's. On the
+    sphere the SO(3)-invariant ``polar_periodic`` geometry gets the rotation check too.
+    The ball check chooses its flag by an invariant class that is not ported yet, so that
+    geometry raises ``NotImplementedError``.
     """
     if coordinate_system == "cartesian":
         return equivariance_errors_2d(decoder_apply, coords, p, a, window,
                                       has_orientation=invariant.num_z_ori_dims > 0,
                                       periodic=invariant.is_periodic)
-    if coordinate_system in ("polar", "ball"):
+    if coordinate_system == "polar":
+        return equivariance_errors_sphere(decoder_apply, coords, p, a, window,
+                                          full_so3=isinstance(invariant, RelativePositionPolarPeriodic))
+    if coordinate_system == "ball":
         raise NotImplementedError(
             f"The {coordinate_system} invariants are not ported yet; see ROADMAP.md, Queue 1 item 7.")
     raise ValueError(f"Unknown coordinate system: {coordinate_system!r}")

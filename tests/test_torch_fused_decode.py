@@ -13,13 +13,16 @@ All in f32, rtol 1e-4 / atol 2e-5 (as ``tests/test_pallas.py``).
 """
 
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from enf_pde_tpu.config import load_experiment_config as jax_load_config
 from enf_pde_tpu.geometry.invariants import RelativePositionPeriodic as JaxPeriodic
+from enf_pde_tpu.geometry.invariants import get_ca_invariant as jax_get_ca_invariant
 from enf_pde_tpu.ops import pallas_decode as jpd
 
 from enf_pde_tpu_torch.ops import cuda_lib
@@ -330,11 +333,35 @@ def test_flop_count_at_navier_stokes_width():
     assert folded < jpd.decode_flops_per_point(2, 128, 128, 4, 4, 1)  # the unfolded model count
 
 
+SHIPPED_CONFIGS = sorted(p.stem for p in (Path(__file__).resolve().parents[1] / "enf_pde_tpu" / "experiments"
+                                           / "configs").glob("*.yaml"))
+
+
+@pytest.mark.parametrize("name", SHIPPED_CONFIGS)
+def test_k1_layout_accepts_every_shipped_decode_shape(name):
+    """``k1_smem_bytes`` (the mirror of K1's ``layout``, its constants read from the source)
+    accepts each config's decode widths: I from the config's cross-attention invariant,
+    hid = hidm = D = nef.num_hidden, H heads, its latents; the size does not grow with Z."""
+    nef = jax_load_config(name).nef
+    I, hid, H = jax_get_ca_invariant(nef).dim, nef.num_hidden, nef.num_heads
+    smem = fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
+    assert 0 < smem <= fd.k1_constants()["SMEM_CAP"] == 232_448
+    assert {fd.k1_smem_bytes(z, I, hid, H, hid, hid) for z in (1, 4, 5, 8, 9, 16, 25, 64, 1000)} == {smem}
+
+
+def test_k1_layout_mirror_refuses_what_layout_refuses():
+    assert fd.k1_smem_bytes(8, 4, 128, 2, 128, 128) == 231_168  # shallow_water: z = 8 at NS width
+    assert "231,168 B" in (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()  # the header's table
+    for bad in ((4, 4, 136, 2, 128, 128), (4, 4, 120, 2, 128, 128), (4, 4, 128, 3, 128, 128),
+                (4, 4, 128, 1, 128, 272), (0, 4, 128, 2, 128, 128), (4, 21, 16, 2, 16, 16)):
+        with pytest.raises(ValueError):
+            fd.k1_smem_bytes(*bad)
+
+
 def test_package_imports_no_jax():
     """The port and chip_smoke.py stay importable where jax/flax/optax/orbax/yaml are absent."""
     import subprocess
     import sys
-    from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
     code = (

@@ -117,7 +117,7 @@ def test_base_window_is_planar_log_domain():
 
 
 def test_unported_invariant_raises():
-    cfg = Config({"invariant_type": "polar_periodic", "num_in": 2})
+    cfg = Config({"invariant_type": "latitude_periodic", "num_in": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_ca_invariant(cfg)
 

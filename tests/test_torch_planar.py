@@ -34,7 +34,7 @@ from enf_pde_tpu.models.latents import latents_to_pose as jax_latents_to_pose
 from enf_pde_tpu.ops import pallas_decode as jpd
 from enf_pde_tpu.train.meta_sgd import MetaSGDTrainer as JaxTrainer
 
-from chip_smoke import k1_smem_bytes, smooth_trajectories
+from chip_smoke import smooth_trajectories
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import Config, load_experiment_config
 from enf_pde_tpu_torch.convert import convert_params, flax_to_state_dict
@@ -252,12 +252,13 @@ def test_flop_count_at_planar_widths():
 
 
 def test_k1_shared_memory_at_planar_widths():
-    """chip_smoke's copy of K1's ``layout``: the source header's 232,448 B at Navier-Stokes
-    width (all a block may have), and well under it at the planar widths for z = 4 and 9."""
-    assert k1_smem_bytes(4, 4, 128, 2, 128, 128) == 232_448
-    assert "232,448 B" in (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
-    assert k1_smem_bytes(4, 2, 64, 2, 64, 64) == 149_504
-    assert k1_smem_bytes(9, 2, 64, 2, 64, 64) == 150_784
+    """The mirror of K1's ``layout`` (``fused_decode.k1_smem_bytes``): the source header's
+    231,168 B at Navier-Stokes width, under the 232,448 B a block may have, and well under
+    it at the planar widths, the same for z = 4 and 9 (the softmax runs online over groups)."""
+    assert fd.k1_smem_bytes(4, 4, 128, 2, 128, 128) == 231_168
+    assert "231,168 B" in (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    assert fd.k1_smem_bytes(4, 2, 64, 2, 64, 64) == 149_248
+    assert fd.k1_smem_bytes(9, 2, 64, 2, 64, 64) == 149_248
 
 
 # ----------------------------------------------------------------- equivariance
