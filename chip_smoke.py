@@ -101,10 +101,37 @@ PONITA 3 layers, hidden 32, basis 32; 2048 sampled points of the 128 x 64 grid, 
     kind's warm median; then ``Forecaster.forecast`` of 8 generated test frames for 20
     frames through K1, with its stages.
 
+then the Galewsky-jet shallow water on the sphere, ``shallow_water`` at its full published
+width (decoder hidden 128, 2 heads, 8 latents of 32 on a polar grid, ``latitude_periodic``:
+I = 4, window on; three output channels (h, u_phi, u_theta); PONITA 3 layers, hidden 256,
+basis 128; batch 1, 2048 sampled points of the 96 x 48 grid; ``ode_backend: pallas``):
+
+17. K1 against its plain version at its widths, with and without the tail, at 160 x 2048
+    (the forecast's launch), 14 x 2048 (validation's), 14 x 512 and a ragged 8 x 1000, with
+    times, bounds and shared memory as in phase 10; K2 against its plain version at the ode
+    step's decode shape (10 frames x 2048 points) in all four modes, its time beside the
+    bound; one ode and one dual step on K1 + K2 against the eager decoder, as in phase 6;
+18. data: ``get_dataloader`` for ``shallow_water_low_res`` generates one block of 4
+    trajectories per split on the card (192 x 96, lmax 64, 20 records of 150 steps of
+    400 s) into a fresh ``chiprun_out/shallow_water_data/`` (removed after phase 19):
+    seconds per block, solver steps per second, the batch shape [1, 14, 96, 48, 3],
+    finiteness, the JAX package's physical bounds, the area-weighted mean of h of every
+    recorded frame against the first's (within 1e-6 of max |h|), and seed 0's initial
+    state and first record built on the CPU and on the card within rel-L2 1e-4 (h, u_phi,
+    and u_theta's error against the velocity's norm: u_theta alone is printed too);
+19. training through ``run_experiment`` on 4 + 4 signals for 3 epochs (nef, dual, ode),
+    validation with the dp variants, the longitude equivariance check (<= 1e-4, and no
+    rotation error: the geometry claims none), then the zero-shot super-resolution eval on
+    the 192 x 96 test split (``superres_mse_in_t`` / ``out_t``, once more timed), K1's and
+    K2's launches against the loop's arithmetic (the ode and dual steps launch each once,
+    validation K1 3 times, the super-resolution eval 9 times a batch), each step kind's
+    warm median; then ``Forecaster.forecast`` of 8 generated first frames for 20 frames
+    through K1, with its stages.
+
 Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
 config's paths, its time at that config's forecast launch shape; the Navier-Stokes entry's
-error includes phase 13's) and K2 at the
-Navier-Stokes ode step's shape; each kernel's ``bound_ms`` is that of the route it
+error includes phase 13's) and K2 at the Navier-Stokes and ``shallow_water`` ode steps'
+shapes; each kernel's ``bound_ms`` is that of the route it
 takes, 3xTF32 on the tensor cores, or bytes where they take longer. Last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
@@ -136,7 +163,14 @@ from enf_pde_tpu_torch.data.cahn_hilliard import cahn_hilliard_rollout, initial_
 from enf_pde_tpu_torch.data.diffusion_plane import generate_diffusion_trajectories
 from enf_pde_tpu_torch.data.diffusion_sphere import generate_sphere_diffusion_trajectories
 from enf_pde_tpu_torch.data.navier_stokes import GaussianRF2D, default_forcing, navier_stokes_rollout
-from enf_pde_tpu_torch.experiments.fit import run_experiment
+from enf_pde_tpu_torch.data.shallow_water import (
+    STEPS_PER_RECORD,
+    ShallowWaterSolver,
+    SWUnits,
+    galewsky_state,
+    sw_grid,
+)
+from enf_pde_tpu_torch.experiments.fit import run_experiment, super_resolution_eval
 from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.decoder import decode_chunked
 from enf_pde_tpu_torch.ops import cuda_lib
@@ -154,6 +188,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
+from enf_pde_tpu_torch.train.logging import MetricLogger
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
 SEED = 0
@@ -171,7 +206,16 @@ DATA_DIR = OUT_DIR / "ns_data"
 NS_VISC, NS_DT, BURN_IN = 1e-3, 1e-3, 30.0  # generate_ns_trajectories' protocol
 MEAN_TOL = 1e-3  # |spatial mean| of a frame; fields are O(1), the mean is 0 up to rounding
 SOLVER_TOL = 1e-4  # rel-L2, card vs CPU solver (cuFFT vs pocketfft rounding)
+# A ReLU pre-activation this close to 0, as a share of the sum of its terms' magnitudes, may
+# round to either side in f32 or 3xTF32, whose rounding of a 128-term sum is of the order of
+# 1e-8 of it (the kinks that split K2 from its plain version on the card sat at 1.8e-9 and
+# 4.7e-9, ``tools/k2_compare.py --f64``).
+TIE_MARGIN = 1e-6
 CH_BULK_MIN = 0.8  # median |c| of a Cahn-Hilliard trajectory's last frame: phases near +-1
+SW_SIGNALS = 4  # shallow-water trajectories a split: one block (batch_size_gen)
+SW_FRAMES = 20  # generate_sw_trajectories' protocol: 20 records of STEPS_PER_RECORD steps of 400 s
+# Output channels of each config's data, where not 1 (``prepare`` sets ``nef.num_out`` from it).
+NUM_OUT = {"shallow_water": 3}
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernels' operand type
@@ -270,9 +314,10 @@ def smooth_trajectories(n: int, frames: int, size: int, seed: int) -> np.ndarray
     return out[..., None].astype(np.float32)
 
 
-def check_grads(label: str, got, want) -> float:
-    """Hold every gradient tensor of ``got`` against ``want`` (nested sequences or dicts
-    of tensors, None where there is no gradient); one line; returns the max abs error."""
+def grad_errors(got, want):
+    """``(worst rel-L2, its tensor's name, max abs error, tensors compared)`` of every
+    gradient tensor of ``got`` against ``want`` (nested sequences or dicts of tensors,
+    None where there is no gradient)."""
     def flat(x, prefix=""):
         if isinstance(x, dict):
             for k, v in x.items():
@@ -286,10 +331,10 @@ def check_grads(label: str, got, want) -> float:
     for (name, g), (_, w) in zip(flat(got), flat(want), strict=True):
         if w is None:
             if g is not None:
-                raise AssertionError(f"{label} {name}: a gradient where the plain version has none")
+                raise AssertionError(f"{name}: a gradient where the plain version has none")
             continue
         if g.shape != w.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"{label} {name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
         ref = float(torch.linalg.vector_norm(w))
         diff = float(torch.linalg.vector_norm(g - w))
         rel = diff / ref if ref > 0 else (0.0 if diff == 0 else float("inf"))
@@ -297,6 +342,13 @@ def check_grads(label: str, got, want) -> float:
         n += 1
         if rel >= worst:
             worst, worst_name = rel, name
+    return worst, worst_name, err, n
+
+
+def check_grads(label: str, got, want) -> float:
+    """Hold every gradient tensor of ``got`` against ``want`` within REL_L2_TOL (see
+    ``grad_errors``); one line; returns the max abs error."""
+    worst, worst_name, err, n = grad_errors(got, want)
     log(f"[check] {label}: {n} tensors, worst rel_l2 {worst:.3e} ({worst_name}), max_abs_err "
         f"{err:.3e} (tol rel_l2 {REL_L2_TOL:g} each)")
     if not worst <= REL_L2_TOL:
@@ -307,6 +359,29 @@ def check_grads(label: str, got, want) -> float:
 def config_coords(cfg) -> np.ndarray:
     """The decode grid of a config's dataset, as its registry entry gives it."""
     return dataset_spec(cfg.dataset.name, device="cpu").coords
+
+
+def shape_config(name: str, *overrides: str):
+    """Experiment ``name``'s config with ``nef.num_out`` as its data sets it (three
+    channels for shallow water; the YAML says 1, and ``prepare`` fills in the data's)."""
+    return load_experiment_config(name, [f"nef.num_out={NUM_OUT.get(name, 1)}", *overrides])
+
+
+def sphere_trajectories(n: int, frames: int, nphi: int, ntheta: int, channels: int, seed: int) -> np.ndarray:
+    """``n`` smooth fields on a (phi, theta) grid drifting in longitude, [n, frames, nphi,
+    ntheta, channels]."""
+    rng = np.random.default_rng(seed)
+    phi = np.linspace(0.0, 2 * np.pi, nphi, endpoint=False)[:, None]
+    theta = np.linspace(0.0, np.pi, ntheta + 2)[None, 1:-1]
+    out = np.zeros((n, frames, nphi, ntheta, channels))
+    ts = np.arange(frames)[:, None, None]
+    for i in range(n):
+        for c in range(channels):
+            for m in range(4):
+                amp, ph, om = rng.standard_normal(), rng.uniform(0, 2 * np.pi), rng.uniform(-0.2, 0.2)
+                out[i, ..., c] += amp * np.cos(m * phi + ph + om * ts) * np.sin(theta) ** m
+        out[i] /= np.abs(out[i]).max()
+    return out.astype(np.float32)
 
 
 def decode_inputs(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=None):
@@ -331,11 +406,12 @@ def decode_inputs(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=N
 
 
 def k2_inputs(cfg, coords: np.ndarray, dev):
-    """K2's inputs at the ode step's decode shape (80 frames x 512 points, full width),
-    and a cotangent for each mode: ``(args, {with_tail: g})``."""
+    """K2's inputs at the ode step's decode shape (batch x ``traj_len_train`` frames x
+    ``max_num_sampled_points``, full width: 80 x 512 for Navier-Stokes, 10 x 2048 for
+    shallow water), and a cotangent for each mode: ``(args, {with_tail: g})``."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     gen = torch.Generator().manual_seed(SEED + 2)
-    b, M = NUM_SIGNALS * cfg.dataset.traj_len_train, cfg.training.max_num_sampled_points
+    b, M = cfg.dataset.batch_size * cfg.dataset.traj_len_train, cfg.training.max_num_sampled_points
     args = decode_inputs(cfg, coords, dev, b, M, SEED + 2, gen)
     g = {tail: torch.randn(b, M, cfg.nef.num_out if tail else H * D, generator=gen).to(dev)
          for tail in (True, False)}
@@ -372,19 +448,48 @@ def k1_bounds(cfg, args, out) -> dict:
                 l2_per_point=k1_l2_bytes_per_point(args))
 
 
+def relu_margins(args) -> torch.Tensor:
+    """[b, z, c]: over the units of the query and value RFF nets' ReLUs, the least
+    |pre-activation| as a share of the sum of its terms' magnitudes, in f64 from the f32
+    inputs ``args`` (K1's and K2's)."""
+    inv, ws = args[0].double(), args[6]
+    out = torch.full(inv.shape[:3], float("inf"), dtype=torch.float64, device=inv.device)
+    for coeff, w1, b1 in ((ws[0], ws[1], ws[2]), (ws[3], ws[4], ws[5])):
+        proj = 2 * math.pi * (inv @ coeff.double())
+        feats = torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+        pre = feats @ w1.double() + b1.double()
+        scale = feats.abs() @ w1.double().abs() + b1.double().abs()
+        out = torch.minimum(out, (pre.abs() / scale).amin(dim=-1))
+        del proj, feats, pre, scale
+    return out
+
+
+def relu_ties(args, margin: float = TIE_MARGIN) -> torch.Tensor:
+    """[b, c] bool: the points at which some latent's RFF ReLU has a pre-activation within
+    ``margin`` of its terms' summed magnitude from 0 (``relu_margins``). There the
+    derivative jumps, and f32 sums in either order may round the pre-activation to either
+    side, so two right f32 VJPs differ by a whole unit's share."""
+    return (relu_margins(args) < margin).any(dim=1)
+
+
 def k2_check(cfg, args, g, bwd=fused_decode_bwd) -> float:
-    """K2 (``bwd``) against its plain version in all four modes; the max abs error."""
+    """K2 (``bwd``) against its plain version in all four modes; the max abs error. The
+    cotangent is zero at the points ``relu_ties`` finds, where the VJP is not determined
+    to f32 rounding; the errors with the whole cotangent are printed beside."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     errs = []
     B, C = args[0].shape[0], args[0].shape[2]
+    keep = ~relu_ties(args)
     for tail in (True, False):
         kargs = args if tail else (*args[:7], ())
         for wg in (False, True):
-            got = bwd(*kargs, g[tail], H, D, wg)
-            want = fused_decode_bwd_plain(*kargs, g[tail], H, D, wg)
-            errs.append(check_grads(f"K2 {'tail' if tail else 'no-tail'} "
-                                    f"{'with' if wg else 'without'} weight grads b={B} c={C}",
-                                    got, want))
+            label = f"K2 {'tail' if tail else 'no-tail'} {'with' if wg else 'without'} weight grads b={B} c={C}"
+            whole = grad_errors(bwd(*kargs, g[tail], H, D, wg), fused_decode_bwd_plain(*kargs, g[tail], H, D, wg))
+            log(f"[check] {label}, the whole cotangent: worst rel_l2 {whole[0]:.3e} ({whole[1]}); "
+                f"{int((~keep).sum())} of {keep.numel()} points are within {TIE_MARGIN:g} of a ReLU's kink")
+            gk = g[tail] * keep[..., None]
+            errs.append(check_grads(f"{label}, cotangent 0 at those points",
+                                    bwd(*kargs, gk, H, D, wg), fused_decode_bwd_plain(*kargs, gk, H, D, wg)))
     torch.cuda.synchronize()
     return max(errs)
 
@@ -408,7 +513,7 @@ def k2_bounds(cfg, args, g, wg: bool) -> dict:
 
 
 def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
-    """5. K2 against its plain version at the ode step's decode shape; its timing."""
+    """5 / 17. K2 against its plain version at the ode step's decode shape; its timing."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     args, g = k2_inputs(cfg, coords, dev)
     max_err = k2_check(cfg, args, g)
@@ -432,11 +537,12 @@ def make_trainer(cfg, coords: np.ndarray) -> MetaSGDTrainer:
     return MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=SEED, device="cuda")
 
 
-def step_parity_phase(cfg, coords: np.ndarray, dev) -> float:
-    """6. ode and dual step on K1 + K2 against the eager decoder: loss and gradients."""
+def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev) -> float:
+    """6 / 17. ode and dual step on K1 + K2 against the eager decoder, on trajectories
+    ``traj`` [batch, frames, *grid, channels]: loss and gradients."""
     trainer = make_trainer(cfg, coords)
     state = trainer.init_state()
-    traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 3)).to(dev)
+    traj = torch.from_numpy(traj).to(dev)
     gen = torch.Generator().manual_seed(SEED + 5)
     N, M, K = coords.shape[0], cfg.training.max_num_sampled_points, cfg.meta.num_inner_steps
     masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
@@ -649,7 +755,7 @@ def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
     launches = fused_decode_fwd.launches
     chunk = cfg.training.max_num_sampled_points
     expect_launches = -(-coords.shape[0] // chunk)  # one launch per chunk of the 160-frame decode
-    expect = (len(frames), NUM_FRAMES, coords.shape[0], 1)
+    expect = (len(frames), NUM_FRAMES, coords.shape[0], cfg.nef.num_out)
     log(f"[{tag}] forecast({len(frames)} frames, num_frames={NUM_FRAMES}) -> {tuple(out.shape)} in "
         f"{fc_s:.3f} s (first call); K1 launches {launches} (expected {expect_launches}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -803,12 +909,15 @@ def planar_data_phase(name: str, n_train: int, n_test: int, dev) -> Path:
 
 def config_train_phase(name: str, data: Path, overrides: list, phases: list, coords: np.ndarray,
                        eqv_kinds=("translation", "rotation")) -> dict:
-    """12 / 16. ``run_experiment`` at the config's full width on the generated data, the
-    phases overridden to ``phases``; finite metrics, the equivariance errors ``eqv_kinds``
-    (SE(2): translation and rotation; S^2: longitude and rotation) at f32 rounding, K1's
-    launches against the loop's arithmetic (the training steps decode eagerly: no
-    ``ode_backend`` in the YAML), step medians. Returns K1's launches and the first
-    NUM_SIGNALS test signals' first frames."""
+    """12 / 16 / 19. ``run_experiment`` at the config's full width on the generated data,
+    the phases overridden to ``phases``; finite metrics, exactly the equivariance errors
+    ``eqv_kinds`` (SE(2): translation and rotation; S^2: longitude, and rotation for the
+    SO(3) invariant) at f32 rounding, the launches of K1 and K2 against the loop's
+    arithmetic (the ode and dual steps launch each once where the YAML sets
+    ``ode_backend: pallas``; validation launches K1 once a chunk; a ``shallow_water_low_res``
+    run ends with the super-resolution eval, once a chunk of the 192 x 96 grid for each
+    test batch), step medians. Returns the launches, the medians and the first NUM_SIGNALS
+    first frames of the test, then the training signals."""
     log_dir = fresh_dir(OUT_DIR / f"{name}_train")
     cfg = load_experiment_config(name, [f"dataset.path={data}", f"logging.log_dir={log_dir}",
                                         "test.test_equiv_at_epoch=0", "logging.log_every_n_steps=1",
@@ -822,13 +931,22 @@ def config_train_phase(name: str, data: Path, overrides: list, phases: list, coo
     eqv = next((r for r in records if f"equivariance_err_{eqv_kinds[0]}" in r), {})
     values = [v for r in records for k, v in r.items() if "mse" in k]
     n_train, n_val = len(loop.train_loader), len(loop.val_loader)
-    expect_k1 = (n_val + n_train) * (1 + 3) * -(-coords.shape[0] // cfg.training.max_num_sampled_points)
+    chunk = cfg.training.max_num_sampled_points
+    kernel_steps = n_train * sum(r["phase"] != "nef" for r in epochs) if cfg.nef.get("ode_backend") == "pallas" else 0
+    superres = cfg.dataset.name == "shallow_water_low_res"
+    sr_k1 = n_val * -(-dataset_spec("shallow_water", device="cpu").coords.shape[0] // chunk) if superres else 0
+    expect = (kernel_steps + (n_val + n_train) * (1 + 3) * -(-coords.shape[0] // chunk) + sr_k1, kernel_steps)
+    sr = next((r for r in records if "superres_mse_in_t" in r), {})
     epoch_mse = ", ".join(f"{r['train_mse_epoch']:.4e}" for r in epochs)
     log(f"[{name}] run_experiment({cfg.training.num_epochs} epochs) in {run_s:.2f} s: phases "
         f"{[r['phase'] for r in epochs]}, train_mse_epoch [{epoch_mse}], "
         f"val_mse_in_t {val['val_mse_in_t']:.4e} out_t {val['val_mse_out_t']:.4e}; equivariance_err "
         + " ".join(f"{k} {eqv.get(f'equivariance_err_{k}')}" for k in eqv_kinds) + "; "
-        f"K1 launches {k1} (expected {expect_k1}), K2 launches {k2}; checkpoints {loop.checkpoints.all_epochs()}")
+        + (f"superres_mse_in_t {sr.get('superres_mse_in_t')} out_t {sr.get('superres_mse_out_t')}; "
+           if superres else "")
+        + f"K1 launches {k1}, K2 launches {k2} (expected {expect}: {kernel_steps} ode/dual steps, "
+        f"{(n_val + n_train) * 4} validation steps, {sr_k1} super-resolution chunks); checkpoints "
+        f"{loop.checkpoints.all_epochs()}")
     if [r["phase"] for r in epochs] != phases:
         raise AssertionError(f"phases {[r['phase'] for r in epochs]} != {phases}")
     if not all(np.isfinite(v) for v in values):
@@ -836,11 +954,29 @@ def config_train_phase(name: str, data: Path, overrides: list, phases: list, coo
     errs = [eqv.get(f"equivariance_err_{k}") for k in eqv_kinds]
     if not all(e is not None and e <= 1e-4 for e in errs):  # equivariant by construction
         raise AssertionError(f"equivariance errors {errs} not logged or above 1e-4")
-    if (k1, k2) != (expect_k1, 0):
-        raise AssertionError(f"K1/K2 launches {(k1, k2)} != ({expect_k1}, 0)")
-    step_medians(loop.trainer, state, next(iter(loop.train_loader))[0], name)
-    frames = torch.cat([torch.as_tensor(batch[0])[:, 0] for batch in loop.val_loader])[:NUM_SIGNALS]
-    return {"k1": k1, "frames": frames}
+    if {k for k in eqv if k.startswith("equivariance_err_")} != {f"equivariance_err_{k}" for k in eqv_kinds}:
+        raise AssertionError(f"equivariance errors {sorted(eqv)} are not exactly {eqv_kinds}")
+    if superres and not all(np.isfinite(sr.get(k, np.nan)) for k in ("superres_mse_in_t", "superres_mse_out_t")):
+        raise AssertionError(f"super-resolution metrics not logged or not finite: {sr}")
+    if (k1, k2) != expect:
+        raise AssertionError(f"K1/K2 launches {(k1, k2)} != expected {expect}")
+    if superres:  # once more, timed: the same draws (keyed by batch index), so the same numbers
+        sr_logger = MetricLogger(str(log_dir / "superres_repeat"))
+        try:
+            again, sr_s = sync_time(lambda: super_resolution_eval(cfg, state, loop.trainer.decoder,
+                                                                  loop.trainer.ode_model, sr_logger,
+                                                                  device="cuda"))
+        finally:
+            sr_logger.close()
+        log(f"[{name}] super-resolution eval again: {sr_s * 1e3:.2f} ms for {n_val} test batches "
+            f"({sr_k1} K1 launches); {again} (logged {sr['superres_mse_in_t']}, {sr['superres_mse_out_t']})")
+        logged = (sr["superres_mse_in_t"], sr["superres_mse_out_t"])
+        if not all(abs(x - y) <= REL_L2_TOL * abs(y) for x, y in zip(again, logged)):
+            raise AssertionError(f"the super-resolution eval is not a function of the state: {again} vs {logged}")
+    medians = step_medians(loop.trainer, state, next(iter(loop.train_loader))[0], name)
+    frames = torch.cat([torch.as_tensor(batch[0])[:, 0] for ldr in (loop.val_loader, loop.train_loader)
+                        for batch in ldr])[:NUM_SIGNALS]
+    return {"k1": k1, "k2": k2, "medians": medians, "frames": frames}
 
 
 def planar_phase(name: str, dev, n_train: int, n_test: int, overrides: list, phases: list) -> dict:
@@ -907,6 +1043,115 @@ def sphere_phase(dev) -> dict:
     torch.cuda.empty_cache()
     return {**k1, "launches": train["k1"] + fc["launches"],
             "max_abs_err": max(k1["max_abs_err"], fc["max_abs_err"])}
+
+
+def sw_kernel_phase(dev) -> dict:
+    """17. K1 and K2 at ``shallow_water``'s widths (I = 4, hid = hidm = D = 128, H = 2, z = 8,
+    num_out = 3; seeded random weights) against their plain versions: K1 with and without
+    the tail at the forecast's launch (160 x 2048), validation's (14 x 2048), a last chunk's
+    512 points and a ragged 8 x 1000; K2 at the ode step's decode (10 x 2048) in all four
+    modes; then one ode and one dual step with the rollout decode on K1 + K2 against the
+    eager decoder. Returns the kernels-line numbers."""
+    cfg = shape_config("shallow_water")
+    chunk, coords = cfg.training.max_num_sampled_points, config_coords(cfg)
+    b_fc = NUM_SIGNALS * NUM_FRAMES
+    b_val = cfg.dataset.batch_size * (cfg.dataset.traj_len_train + cfg.dataset.traj_len_out_horizon)
+    k1 = k1_shapes_phase("shallow_water", [(cfg, b_fc, chunk), (cfg, b_val, chunk), (cfg, b_val, 512),
+                                           (cfg, NUM_SIGNALS, 1000)], dev)
+    k2 = k2_phase(cfg, coords, dev)
+    traj = sphere_trajectories(cfg.dataset.batch_size, b_val, 96, 48, NUM_OUT["shallow_water"], SEED + 3)
+    step_err = step_parity_phase(cfg, coords, traj, dev)
+    main = k1["timing"][(cfg.nef.num_latents, b_fc, chunk)]
+    return {"k1": {"shape": f"shallow_water b={b_fc} z={cfg.nef.num_latents} c={chunk}",
+                   **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+            "k1_err": max(k1["max_abs_err"], step_err), "k2": k2}
+
+
+def sw_data_phase(dev) -> Path:
+    """18. ``get_dataloader`` for ``shallow_water_low_res`` generates one block of 4 Galewsky
+    jets per split on the card (192 x 96, lmax 64, 20 records x 150 steps of 400 s) into a
+    fresh ``chiprun_out/shallow_water_data/`` (removed after phase 19): seconds per block,
+    solver steps per second, the batch shape, finiteness and the JAX package's physical
+    bounds (|u_phi| < 3 u_max, |h| < 1e4 m), the area-weighted mean of h in every recorded
+    frame against the first's (within 1e-6 of max |h|); and one seed's initial state and
+    first record (150 steps) built on the CPU and on the card, held within rel-L2 1e-4."""
+    path = fresh_dir(OUT_DIR / "shallow_water_data")
+    cfg = load_experiment_config("shallow_water", [f"dataset.path={path}", f"dataset.num_signals_train={SW_SIGNALS}",
+                                                   f"dataset.num_signals_test={SW_SIGNALS}"])
+    train, test = get_dataloader(cfg.dataset, device="cuda")
+    block_s = {split: sync_time(ldr.ensure_all)[1] for split, ldr in (("train", train), ("test", test))}
+    files = [f for split in ("train", "test") for f in sorted((path / "shallow_water" / split).glob("traj_*.npz"))]
+    steps = SW_FRAMES * STEPS_PER_RECORD
+    log(f"[shallow_water] data on {torch.cuda.get_device_name(0)}: " + ", ".join(
+        f"{split} one block of {SW_SIGNALS} in {sec:.2f} s ({steps / sec:.1f} solver steps/s of the block)"
+        for split, sec in block_s.items()) + f"; {steps} steps a block")
+    raw = np.stack([np.load(f)["data"] for f in files])  # [8, 20, 192, 96, 3], the shared full-res cache
+    batch = next(iter(train))[0]
+    if raw.shape != (2 * SW_SIGNALS, SW_FRAMES, 192, 96, 3) or batch.shape != (1, 14, 96, 48, 3) \
+            or not (np.isfinite(raw).all() and np.isfinite(batch).all()):
+        raise AssertionError(f"shallow_water data shape {raw.shape}, batch {batch.shape} or non-finite values")
+    units, h_max = SWUnits(), float(np.abs(raw[..., 0]).max())
+    u_max = float(np.abs(raw[..., 1]).max())
+    mass = (raw[..., 0] * sw_grid(device="cpu").w).sum(axis=-1).mean(axis=-1)  # area means of h, [8, 20]
+    drift = float(np.abs(mass - mass[:, :1]).max())
+    log(f"[shallow_water] batch {tuple(batch.shape)}; over {len(files)} trajectories: max |u_phi| {u_max:.4e} "
+        f"(3 u_max = {3 * units.umax:.4e}), max |h| {h_max:.4e} (1e4 m = {1e4 * units.meter:.4e}), max "
+        f"|u_theta| {float(np.abs(raw[..., 2]).max()):.4e}; largest |area mean of h - first frame's| "
+        f"{drift:.3e} (tol 1e-6 max |h| = {1e-6 * h_max:.3e})")
+    if not (u_max < 3 * units.umax and h_max < 1e4 * units.meter and drift <= 1e-6 * h_max):
+        raise AssertionError(f"shallow_water physics checks failed: {u_max:.4e}, {h_max:.4e}, {drift:.3e}")
+
+    # One seed on the CPU and on the card: the state, then its first record. u_theta is about
+    # 1/150 of u_phi; its error is also given against the velocity field's norm.
+    runs = {}
+    for name in ("cpu", "cuda"):
+        grid = sw_grid(device=name)
+        state = galewsky_state(grid, SEED)
+        record = ShallowWaterSolver(grid).rollout(state, units.timestep / 3, 1, STEPS_PER_RECORD)
+        runs[name] = ([x.cpu() for x in state], [x[0].cpu() for x in record])
+    (s_cpu, r_cpu), (s_gpu, r_gpu) = runs["cpu"], runs["cuda"]
+    state_rel = [rel_l2(s_gpu[i], s_cpu[i]) for i in (0, 2)]  # zeta, h (delta is 0)
+    rec_rel = [rel_l2(g, c) for g, c in zip(r_gpu, r_cpu)]
+    vel = torch.stack(r_cpu[1:])
+    ut_vs_vel = float(torch.linalg.vector_norm(r_gpu[2] - r_cpu[2]) / torch.linalg.vector_norm(vel))
+    block_rel = [rel_l2(torch.from_numpy(raw[0, 0, ..., c]), r_cpu[c]) for c in range(3)]
+    log(f"[shallow_water] seed {SEED}: state card vs CPU rel_l2 zeta {state_rel[0]:.3e} h {state_rel[1]:.3e}; "
+        f"first record ({STEPS_PER_RECORD} steps) card vs CPU rel_l2 h {rec_rel[0]:.3e} u_phi {rec_rel[1]:.3e} "
+        f"u_theta {rec_rel[2]:.3e} (against |(u_phi, u_theta)| {ut_vs_vel:.3e}); the generated block's frame 0 "
+        f"vs the CPU: h {block_rel[0]:.3e} u_phi {block_rel[1]:.3e} u_theta {block_rel[2]:.3e} (tol {SOLVER_TOL:g} "
+        f"each; u_theta against the velocity's norm)")
+    if not max(*state_rel, rec_rel[0], rec_rel[1], ut_vs_vel, block_rel[0], block_rel[1]) <= SOLVER_TOL:
+        raise AssertionError(f"card and CPU shallow-water solvers disagree: {state_rel}, {rec_rel}, {block_rel}")
+    return path
+
+
+def sw_phase(dev) -> dict:
+    """17-19 for ``shallow_water``: K1 and K2 at its widths and the kernel-backend steps,
+    its data on the card, training through ``run_experiment`` with the longitude
+    equivariance check and the super-resolution eval, and the forecast; the kernels-line
+    entries of K1 and K2 at its shapes."""
+    name = "shallow_water"
+    kernels = sw_kernel_phase(dev)
+    torch.cuda.empty_cache()
+    data = sw_data_phase(dev)
+    cfg = shape_config(name)
+    coords = config_coords(cfg)
+    train = config_train_phase(name, data, [
+        f"dataset.num_signals_train={SW_SIGNALS}", f"dataset.num_signals_test={SW_SIGNALS}",
+        "training.num_epochs=3", "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=1",
+        "training.ode.train_until_epoch=3", "test.test_interval=3", "test.test_dp_interval=3"],
+        ["nef", "nef+ode", "ode"], coords, eqv_kinds=("longitude",))
+    fc = forecast_phase(cfg, coords, train["frames"], name)
+    shutil.rmtree(data)  # the generated data is not kept: the output directory stays small
+    torch.cuda.empty_cache()
+    k2 = kernels["k2"]
+    for wg, step in ((False, "ode"), (True, "dual")):
+        k_ms, step_ms = k2["timing"][wg]["ms"], train["medians"][step]
+        log(f"[timing] {name}: K2 {'with' if wg else 'without'} weight grads {k_ms:.4f} ms is "
+            f"{100 * k_ms / step_ms:.1f} % of the {step} step's median {step_ms:.2f} ms")
+    return {"k1": {**kernels["k1"], "launches": train["k1"] + fc["launches"],
+                   "max_abs_err": max(kernels["k1_err"], fc["max_abs_err"])},
+            "k2": {"launches": train["k2"], "max_abs_err": k2["max_abs_err"], "timing": k2["timing"]}}
 
 
 def main() -> int:
@@ -1012,7 +1257,8 @@ def main() -> int:
     del args, out_k, folded, flat, xs, ns_fc, rollout_args
     torch.cuda.empty_cache()
     k2 = k2_phase(cfg, coords, dev)
-    max_errs.append(step_parity_phase(cfg, coords, dev))
+    max_errs.append(step_parity_phase(
+        cfg, coords, smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 3), dev))
     torch.cuda.empty_cache()
     data_phase(dev)
     train = train_phase()
@@ -1045,6 +1291,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 14-16. The heat equation on S^2: K1 at its widths, data, training, forecast.
     sphere = sphere_phase(dev)
+    torch.cuda.empty_cache()
+    # 17-19. Shallow water on S^2: K1 and K2 at its widths, data, training, super-resolution, forecast.
+    sw = sw_phase(dev)
+    for wg in (False, True):
+        log(f"[timing] K2 {'with' if wg else 'without'} weight grads at shallow_water's ode shape "
+            f"{sw['k2']['timing'][wg]['ms']:.4f} ms (bound {sw['k2']['timing'][wg]['bound_ms']:.4f}) against "
+            f"{k2['timing'][wg]['ms']:.4f} ms at navier_stokes's (bound {k2['timing'][wg]['bound_ms']:.4f})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
@@ -1059,7 +1312,7 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-    }, *({**k1_entry, **entry} for entry in (*planar, sphere)), {
+    }, *({**k1_entry, **entry} for entry in (*planar, sphere, sw["k1"])), {
         "name": "fused_decode_bwd",
         "shape": f"navier_stokes b={NUM_SIGNALS * cfg.dataset.traj_len_train} z={cfg.nef.num_latents} "
                  f"c={cfg.training.max_num_sampled_points}",
@@ -1070,6 +1323,16 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"],
         # The ode step's mode (no weight gradients), the phase of 1600 of 2000 epochs.
         **k2["timing"][False],
+        "library_ms": None,
+    }, {
+        "name": "fused_decode_bwd",
+        "shape": "shallow_water b=10 z=8 c=2048",
+        "route": "cuda",
+        "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
+        "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
+        "launches": sw["k2"]["launches"],
+        "max_abs_err": sw["k2"]["max_abs_err"],
+        **sw["k2"]["timing"][False],  # the ode step's mode, as for Navier-Stokes
         "library_ms": None,
     }]
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

@@ -4,8 +4,8 @@ Counterpart of ``enf_pde_tpu/data/__init__.py``: ``get_dataloader(dataset_cfg) -
 (train_loader, test_loader)``, each yielding ``(traj [b, T, *spatial, C], coords,
 indices)``; planar datasets use a [-1, 1]^2 grid, spherical ones the (phi, theta)
 generation grid. The solvers run on the card unless the caller asks for the CPU.
-Ported: the Navier-Stokes, ``diffusion_plane``, ``cahn_hilliard`` and ``diff_sphere``
-datasets (``data/registry.py``).
+Ported: the Navier-Stokes, ``diffusion_plane``, ``cahn_hilliard``, ``diff_sphere`` and
+shallow-water (``shallow_water``, ``shallow_water_low_res``) datasets (``data/registry.py``).
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Counterpart of ``enf_pde_tpu/data/registry.py``. ``dataset_spec(name)`` returns what
 caches and loaders need: train/test batch generators, the coordinate grid, per-split
 frame handling and the solver batch size. Ported: the Navier-Stokes datasets, the
-SE(2) planar ones (``diffusion_plane``, ``cahn_hilliard``) and the heat equation on the
-sphere (``diff_sphere``, on its 128 x 64 (phi, theta) grid).
+SE(2) planar ones (``diffusion_plane``, ``cahn_hilliard``), the heat equation on the
+sphere (``diff_sphere``, on its 128 x 64 (phi, theta) grid) and the Galewsky-jet shallow
+water on the sphere (``shallow_water`` on its 192 x 96 generation grid and
+``shallow_water_low_res`` on the 96 x 48 one, 2 x 2 mean-pooled; one cache serves both).
 """
 
 from __future__ import annotations
@@ -106,6 +108,27 @@ def dataset_spec(name: str, dataset_cfg=None, device="cuda") -> DatasetSpec:
             batch_size_gen=16,
             cache_name=name,
             postprocess=_identity,
+        )
+    if name in ("shallow_water", "shallow_water_low_res"):
+        from enf_pde_tpu_torch.data.shallow_water import _avg_pool_2x2, generate_sw_trajectories, sw_grid
+        from enf_pde_tpu_torch.data.sphere_harmonics import SphereGrid
+
+        grid = sw_grid(device=device)
+        if name.endswith("low_res"):
+            coarse = SphereGrid(grid.nphi // 2, grid.ntheta // 2, device="cpu")
+            coords = angular_coords(coarse.phi, coarse.theta)
+            post = lambda t: _avg_pool_2x2(t[6:])  # noqa: E731
+        else:
+            coords = angular_coords(grid.phi, grid.theta)
+            post = lambda t: t[6:]  # noqa: E731
+        return DatasetSpec(
+            gen_train=lambda ids: generate_sw_trajectories(ids, grid=grid),
+            gen_test=lambda ids: generate_sw_trajectories([test_seed(i) for i in ids], grid=grid),
+            coords=coords,
+            n_frames_train=None,  # the 6-frame skip is the postprocess's
+            batch_size_gen=4,
+            cache_name="shallow_water",  # both resolutions share the cache
+            postprocess=post,
         )
     if name in DATASET_NAMES:
         raise NotImplementedError(

@@ -6,8 +6,9 @@ table of normalized associated Legendre functions, exact for band-limited fields
 (Gauss-Legendre quadrature in cos(theta) integrates polynomials up to degree
 ``2 ntheta - 1`` exactly). The tables are computed in float64 numpy and held in f32 on
 the grid's device, as the JAX package holds them; the products run in f32 with TF32 off
-(``strict_fp32``), the complex coefficients split into their real and imaginary parts
-so that each product is a real one.
+(``strict_fp32``): one batched real matrix product over the orders m, the real and
+imaginary parts of every field side by side as its columns, against tables laid out
+m-major once, so that a transform is a few launches and no ``einsum`` planning.
 
 Used by the sphere-diffusion dataset (the heat kernel is diagonal in the SH basis:
 ``f_lm(t) = f_lm(0) exp(-D l (l+1) t)``); the theta-derivative tables serve the
@@ -51,11 +52,19 @@ def legendre_table(lmax: int, x: np.ndarray) -> np.ndarray:
     return P
 
 
-def _apply_table(table: torch.Tensor, coeffs: torch.Tensor, spec: str) -> torch.Tensor:
-    """``einsum(spec, table, coeffs)`` of a real f32 table with complex coefficients, as
-    two real products (no TF32)."""
+def _per_order(table_m: torch.Tensor, coeffs: torch.Tensor, analysis: bool) -> torch.Tensor:
+    """``out[..., m, r] = sum_k table_m[m, r, k] coeffs[..., m, k]`` for a real f32 table
+    [M, R, K] and complex coefficients: one ``bmm`` over the orders m, the real and
+    imaginary parts of every field as its columns (no TF32). Analysis takes modes
+    [..., M, K] to [..., R, M]; synthesis coefficients [..., K, M] to [..., M, R]."""
     strict_fp32()
-    return torch.complex(torch.einsum(spec, table, coeffs.real), torch.einsum(spec, table, coeffs.imag))
+    M, R, K = table_m.shape
+    lead = coeffs.shape[:-2]
+    x = torch.view_as_real(coeffs).reshape(-1, *coeffs.shape[-2:], 2)
+    x = x.permute(1, 2, 0, 3) if analysis else x.permute(2, 1, 0, 3)  # [M, K, fields, 2]
+    y = torch.bmm(table_m, x.reshape(M, K, -1)).reshape(M, R, -1, 2)
+    y = y.permute(2, 1, 0, 3) if analysis else y.permute(2, 0, 1, 3)
+    return torch.view_as_complex(y.contiguous()).reshape(*lead, *y.shape[1:3])
 
 
 class SphereGrid:
@@ -90,6 +99,9 @@ class SphereGrid:
         P = P_ext[: self.lmax + 1, : self.mmax + 1, :]
         self._P = torch.tensor(P, **f32)  # [L, M, J]
         self._Pw = torch.tensor(P * self.w[None, None, :], **f32)
+        # m-major copies for the products: synthesis sums over l, analysis over j.
+        self._P_syn = self._P.permute(1, 2, 0).contiguous()  # [M, J, L]
+        self._Pw_ana = self._Pw.permute(1, 0, 2).contiguous()  # [M, L, J]
 
         # d Pbar_l^m / d theta by the normalized recurrence
         #   sin(theta) dP_l^m/dtheta = l eps_{l+1}^m P_{l+1}^m - (l+1) eps_l^m P_{l-1}^m,
@@ -108,11 +120,14 @@ class SphereGrid:
                 H[l, m] = (up - down) / sin_t
         self._H = torch.tensor(H[:, : self.mmax + 1, :], **f32)
         self._Hw = self._H * torch.tensor(self.w, **f32)[None, None, :]  # f32 product, as JAX's
+        self._H_syn = self._H.permute(1, 2, 0).contiguous()
+        self._Hw_ana = self._Hw.permute(1, 0, 2).contiguous()
 
         self.sin_theta = torch.tensor(sin_t, **f32)
         ls = np.arange(self.lmax + 1)
         self.l_values = torch.tensor(ls, dtype=torch.int32, device=self.device)
         self.m_values = torch.arange(self.mmax + 1, dtype=torch.int32, device=self.device)
+        self._im = 1j * self.m_values.to(torch.float32)  # d/dphi of e^{i m phi}, complex64
         self.laplacian_eig = torch.tensor(-ls * (ls + 1.0), **f32)  # on the unit sphere
 
     # -- transforms --------------------------------------------------------
@@ -131,25 +146,25 @@ class SphereGrid:
     def analysis(self, f: torch.Tensor) -> torch.Tensor:
         """Field [..., nphi, ntheta] -> SH coefficients [..., lmax+1, mmax+1] (complex):
         ``f_lm = 2 pi sum_j w_j Pbar[l, m, j] c_m[..., m, j]``."""
-        return 2 * math.pi * _apply_table(self._Pw, self._modes(f), "lmj,...mj->...lm")
+        return 2 * math.pi * _per_order(self._Pw_ana, self._modes(f), analysis=True)
 
     def synthesis(self, flm: torch.Tensor) -> torch.Tensor:
         """SH coefficients [..., lmax+1, mmax+1] -> field [..., nphi, ntheta]."""
-        return self._to_grid(_apply_table(self._P, flm, "lmj,...lm->...mj"))
+        return self._to_grid(_per_order(self._P_syn, flm, analysis=False))
 
     def synthesis_dtheta(self, flm: torch.Tensor) -> torch.Tensor:
         """Colatitude derivative: coefficients -> d(field)/d(theta) on the grid."""
-        return self._to_grid(_apply_table(self._H, flm, "lmj,...lm->...mj"))
+        return self._to_grid(_per_order(self._H_syn, flm, analysis=False))
 
     def analysis_dtheta_flux(self, a: torch.Tensor) -> torch.Tensor:
         """SH coefficients of ``(1/sin t) d(a sin t)/dt`` by integration by parts:
         ``< (1/sin t) d(a sin t)/dt, Y*_lm > = - < a, dY*_lm/dt >`` (the boundary term
         vanishes at the poles), an analysis with the theta-derivative table."""
-        return -2 * math.pi * _apply_table(self._Hw, self._modes(a), "lmj,...mj->...lm")
+        return -2 * math.pi * _per_order(self._Hw_ana, self._modes(a), analysis=True)
 
     def dphi_coeffs(self, flm: torch.Tensor) -> torch.Tensor:
         """Longitude derivative in spectral space: multiply by i m."""
-        return flm * (1j * self.m_values.to(torch.float32))
+        return flm * self._im
 
     def filter_lowpass(self, f: torch.Tensor, lcut: int) -> torch.Tensor:
         """Zero all SH modes with l > lcut."""

@@ -5,15 +5,18 @@ Counterpart of ``enf_pde_tpu/experiments/fit.py`` for the meta-SGD experiments:
     python -m enf_pde_tpu_torch.experiments.fit navier_stokes
     python -m enf_pde_tpu_torch.experiments.fit navier_stokes seed=1 training.num_epochs=100
     python -m enf_pde_tpu_torch.experiments.fit navier_stokes logging.resume=true --device cpu
+    python -m enf_pde_tpu_torch.experiments.fit shallow_water      # + super-resolution eval
 
 Missing trajectories are generated first (on the same device), the input / output
 widths and the grid come from a probe batch, the trajectories stay on the device
 (``dataset.device_cache``, default on), and checkpoints go under
 ``<logging.log_dir>/checkpoints`` when ``logging.checkpoint`` is set. Everything runs
-on one device, the card unless ``--device cpu``.
+on one device, the card unless ``--device cpu``. A run on ``shallow_water_low_res`` ends
+with the zero-shot super-resolution evaluation: the trained state validated on the
+full-resolution test split (``superres_mse_in_t``, ``superres_mse_out_t``).
 
-Not ported, and refused: autodecoding (``meta.meta_sgd: false``), the shallow-water
-super-resolution evaluation, the multi-device mesh, and wandb (``logging.use_wandb``).
+Not ported, and refused: autodecoding (``meta.meta_sgd: false``), the multi-device mesh,
+and wandb (``logging.use_wandb``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from __future__ import annotations
 import argparse
 import os
 from typing import Tuple
+
+import torch
 
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import Config, load_experiment_config
@@ -30,7 +35,7 @@ from enf_pde_tpu_torch.train.logging import MetricLogger
 from enf_pde_tpu_torch.train.loop import TrainLoop
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
-__all__ = ["run_experiment", "prepare", "main"]
+__all__ = ["run_experiment", "prepare", "super_resolution_eval", "main"]
 
 
 def prepare(cfg: Config, device="cuda"):
@@ -70,9 +75,31 @@ def run_experiment(cfg: Config, device="cuda") -> Tuple[TrainLoop, dict]:
     loop = TrainLoop(trainer, train_loader, test_loader, logger, ckpt)
     try:
         state = loop.run(cfg.training.num_epochs)
+        if cfg.dataset.name == "shallow_water_low_res":
+            super_resolution_eval(cfg, state, decoder, ode_model, logger, device)
     finally:
         logger.close()
     return loop, state
+
+
+def super_resolution_eval(cfg: Config, state: dict, decoder, ode_model, logger: MetricLogger,
+                          device="cuda") -> Tuple[float, float]:
+    """Zero-shot super-resolution: the state trained at half resolution, validated on the
+    full-resolution (``shallow_water``) test split, every test batch with its index as
+    ``batch_idx``; logs and returns the mean ``(superres_mse_in_t, superres_mse_out_t)``."""
+    hi_cfg = Config(cfg.to_dict())
+    hi_cfg.dataset.name = "shallow_water"
+    hi_train, hi_test = get_dataloader(hi_cfg.dataset, device=device)
+    hi_trainer = MetaSGDTrainer(hi_cfg, decoder, ode_model, hi_train.coords, seed=cfg.seed, device=device)
+    mse_in = mse_out = 0.0
+    for i, batch in enumerate(hi_test):
+        a, b = hi_trainer.val_step(state, torch.as_tensor(batch[0], device=hi_trainer.device), batch_idx=i)
+        mse_in += float(a)
+        mse_out += float(b)
+    n = max(len(hi_test), 1)
+    result = {"superres_mse_in_t": mse_in / n, "superres_mse_out_t": mse_out / n}
+    logger.log(result, echo=True)
+    return result["superres_mse_in_t"], result["superres_mse_out_t"]
 
 
 def main(argv=None):

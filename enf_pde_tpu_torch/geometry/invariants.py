@@ -5,8 +5,10 @@ Counterpart of ``enf_pde_tpu/geometry/invariants.py``. Each invariant maps
 window that is added to the attention logits. Ported: the torus invariant of the
 Navier-Stokes experiment, the SE(2) ``ponita`` pair of the planar experiments
 (``PonitaPos2D`` for cross attention, whose queries carry no orientation, ``Ponita2D``
-for the latent ODE), and the SO(3) ``polar_periodic`` invariant on S^2 (the cosine of
-the great-circle angle, I = 1); the other names raise ``NotImplementedError``.
+for the latent ODE), the SO(3) ``polar_periodic`` invariant on S^2 (the cosine of
+the great-circle angle, I = 1) and the longitude-only ``latitude_periodic`` one
+(``[theta_x, theta_p, cos dphi, sin dphi]``, I = 4); the other names raise
+``NotImplementedError``.
 
 The window flavours are part of the trained-model contract: the planar default is the
 log-domain ``-(1/sigma^2) * d^2``; the torus window is ``+(1/sigma^2) * sum cos^2(pi*d)``;
@@ -27,6 +29,7 @@ __all__ = [
     "PonitaPos2D",
     "Ponita2D",
     "RelativePositionPolarPeriodic",
+    "RelativeLatitudePeriodic",
     "get_sa_invariant",
     "get_ca_invariant",
 ]
@@ -172,6 +175,27 @@ class RelativePositionPolarPeriodic(BaseInvariant):
         return _sphere_window(self(x, p), sigma)
 
 
+@dataclasses.dataclass(frozen=True)
+class RelativeLatitudePeriodic(BaseInvariant):
+    """Longitude-rotation-only invariant on S^2, for dynamics that break full SO(3):
+    ``[theta_x, theta_p, cos(dphi), sin(dphi)]`` with ``dphi = phi_x - phi_p``. Its window
+    is the sphere's, of the great-circle angle."""
+
+    def __init__(self):
+        super().__init__(dim=4, num_x_pos_dims=2, num_x_ori_dims=0, num_z_pos_dims=2,
+                         num_z_ori_dims=0, is_periodic=True)
+
+    def __call__(self, x, p):
+        shape = (x.shape[0], x.shape[1], p.shape[1])
+        th_x = x[:, :, None, 1].expand(shape)
+        th_p = p[:, None, :, 1].expand(shape)
+        dphi = x[:, :, None, 0] - p[:, None, :, 0]
+        return torch.stack([th_x, th_p, torch.cos(dphi), torch.sin(dphi)], dim=-1)
+
+    def gaussian_window(self, x, p, sigma):
+        return _sphere_window(_great_circle_cos(x[:, :, :2], p[:, :, :2]), sigma)
+
+
 def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant:
     if name == "rel_pos_periodic":
         if num_dims != 2:
@@ -184,6 +208,8 @@ def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant
         return PonitaPos2D() if for_cross_attention else Ponita2D()
     if name == "polar_periodic":
         return RelativePositionPolarPeriodic()
+    if name == "latitude_periodic":
+        return RelativeLatitudePeriodic()
     raise NotImplementedError(
         f"Invariant {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 7."
     )

@@ -91,7 +91,7 @@ def test_config_attribute_access_and_unported_name():
     assert cfg.get_path("nef.num_hidden") == 32
     assert load_experiment_config("navier_stokes").nef.num_hidden == 128  # a fresh copy
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_experiment_config("shallow_water")
+        load_experiment_config("ihc")
 
 
 # ----------------------------------------------------------------- geometry
@@ -117,7 +117,7 @@ def test_base_window_is_planar_log_domain():
 
 
 def test_unported_invariant_raises():
-    cfg = Config({"invariant_type": "latitude_periodic", "num_in": 2})
+    cfg = Config({"invariant_type": "ball", "num_in": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_ca_invariant(cfg)
 

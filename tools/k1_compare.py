@@ -1,7 +1,7 @@
 """Kernel K1 against earlier builds of it and its plain version, on one card.
 
     python3 tools/k1_compare.py [--old path/to/fused_decode_fwd_old.cu ...] [--skip PHASE ...]
-        [--shape navier_stokes|diffusion_plane|cahn_hilliard|diff_sphere ...] [--latents Z ...]
+        [--shape navier_stokes|diffusion_plane|cahn_hilliard|diff_sphere|shallow_water ...] [--latents Z ...]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_fwd.cu``, each ``--old`` (an earlier K1
 source, named by its file name; one with the 29-pointer interface from before the
@@ -11,7 +11,8 @@ what the phase costs), with plain ``nvcc`` in parallel, and prints the compiler'
 register, spill and ``wgmma`` report. Holds every build against the plain version, with
 and without the tail, at each ``--shape`` config's widths (``navier_stokes``, the default;
 ``diffusion_plane``, z = 4; ``cahn_hilliard``, z = 9; I = 2 and hid = 64 for both planar
-ones; ``diff_sphere``, z = 18, I = 1, hid = 16) and launch shapes: the forecast's and
+ones; ``diff_sphere``, z = 18, I = 1, hid = 16; ``shallow_water``, z = 8 of latent 32,
+I = 4, hid = 128, three outputs) and launch shapes: the forecast's and
 validation's 160 x chunk (512 / 1024 / 2048), 160 x 512, 80 x 512, 8 x 4096 and a ragged
 8 x 1000, and for each ``--latents`` Z the ragged 8 x 1000 with Z latents; one rel-L2 per
 shape and mode. Then
@@ -40,7 +41,6 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
-from enf_pde_tpu_torch.config import load_experiment_config  # noqa: E402
 from enf_pde_tpu_torch.ops import cuda_lib  # noqa: E402
 from enf_pde_tpu_torch.ops import fused_decode as fd  # noqa: E402
 
@@ -102,7 +102,7 @@ def skip_source(phase: str) -> tuple:
 def compare_shape(shape: str, opts, kernels: dict, olds: list, extra: list, worst: dict) -> None:
     """Every build against the plain version at ``shape``'s widths and launch shapes, then
     their times in turns at the first two; the worst rel-L2 of each build into ``worst``."""
-    cfg = load_experiment_config(shape)
+    cfg = cs.shape_config(shape)
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     dev = torch.device("cuda")
     coords = cs.config_coords(cfg)
@@ -113,7 +113,7 @@ def compare_shape(shape: str, opts, kernels: dict, olds: list, extra: list, wors
               for i, (label, (b, c)) in enumerate(shapes.items())}
     for z in opts.latents:
         inputs[f"z={z} b=8 c=1000"] = cs.decode_inputs(
-            load_experiment_config(shape, [f"nef.num_latents={z}"]), coords, dev, 8, 1000, cs.SEED + 20 + z)
+            cs.shape_config(shape, f"nef.num_latents={z}"), coords, dev, 8, 1000, cs.SEED + 20 + z)
     cs.log(f"[shape] {shape}: z={cfg.nef.num_latents} I={inputs[next(iter(inputs))][0].shape[-1]} "
            f"hid={cfg.nef.num_hidden} H={H} latent_dim={cfg.nef.latent_dim}")
     with torch.no_grad():
@@ -163,7 +163,7 @@ def main() -> int:
                     help="also build the current source without this phase (timing only; repeatable)")
     ap.add_argument("--iters", type=int, default=20, help="kernel launches per timed sample")
     ap.add_argument("--shape", action="append", choices=("navier_stokes", "diffusion_plane",
-                                                         "cahn_hilliard", "diff_sphere"),
+                                                         "cahn_hilliard", "diff_sphere", "shallow_water"),
                     help="a config whose widths K1 runs at (repeatable; default navier_stokes)")
     ap.add_argument("--latents", action="append", type=int, default=[],
                     help="also check K1 with this many latents at each shape's widths, 8 x 1000 (repeatable)")
