@@ -128,11 +128,36 @@ basis 128; batch 1, 2048 sampled points of the 96 x 48 grid; ``ode_backend: pall
     warm median; then ``Forecaster.forecast`` of 8 generated first frames for 20 frames
     through K1, with its stages.
 
+then the paper's two baselines on phase 7's Navier-Stokes data (16 + 8 signals):
+
+20. K1 against its plain version, with times, bounds and shared memory as in phase 10, at
+    ``navier_stokes_nonmaml``'s validation decode (NS width, 160 x 2048) and a ragged
+    8 x 1000, and at NS width with I = 2 (``abs_pos``, ``rel_pos``) and I = 1
+    (``norm_rel_pos``) at 160 x 512; K2 at I = 2 (``abs_pos``) and I = 1 (``norm_rel_pos``)
+    at the ode step's 80 x 512 in all four modes, its time with and without weight
+    gradients beside the bound;
+21. ``navier_stokes_nonmaml`` (autodecoding) at its full published width (decoder hidden
+    128, 2 heads, 4 latents of 16; PONITA 3 x 128, basis 64; batch 8, 2048 points) through
+    ``run_experiment``: epochs nef, nef, ode and the final validation (stored-code rollout,
+    then 2-epoch re-fits of both splits at 4 dropout shares); the metric keys exactly the
+    JAX loop's, every value finite, K1's launches against the arithmetic (2 chunks per
+    validation batch, 2 + 4 x (1 + 2) batches: 28), the peak memory; a codes-only step
+    leaves the decoder bit for bit; each step kind's warm median;
+22. ``navier_stokes nef.invariant_type=abs_pos`` (the non-equivariant ablation) through
+    ``run_experiment`` for 3 epochs (nef, dual, ode): no equivariance key, K1 and K2 launches
+    against the loop's arithmetic, step medians; the kernel-backend ode and dual steps against
+    the eager ones at I = 2 (the key bias's gradient, 0 by structure there, held to rounding
+    of the step's gradient norm instead); one full-width ode step with ``node.name=mlp``:
+    a finite loss, a moved ODE, K1 and K2 once each (counted apart from the abs_pos run's
+    launches, which the kernels line reports). Then phase 7's data is removed: the
+    output directory that comes back stays small.
+
 Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
-config's paths, its time at that config's forecast launch shape; the Navier-Stokes entry's
-error includes phase 13's) and K2 at the Navier-Stokes and ``shallow_water`` ode steps'
-shapes; each kernel's ``bound_ms`` is that of the route it
-takes, 3xTF32 on the tensor cores, or bytes where they take longer. Last,
+config's paths, its time at that config's forecast launch shape, or for the baselines at
+phase 20's shape; the Navier-Stokes entry's error includes phase 13's) and K2 at the
+Navier-Stokes, ``shallow_water`` and ``abs_pos`` ode steps' shapes; each kernel's
+``bound_ms`` is that of the route it takes, 3xTF32 on the tensor cores, or bytes where
+they take longer. Last,
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
 Every float check is in f32: rel-L2 <= 1e-5 against the plain version (K2 reduces
@@ -537,9 +562,13 @@ def make_trainer(cfg, coords: np.ndarray) -> MetaSGDTrainer:
     return MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=SEED, device="cuda")
 
 
-def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev) -> float:
-    """6 / 17. ode and dual step on K1 + K2 against the eager decoder, on trajectories
-    ``traj`` [batch, frames, *grid, channels]: loss and gradients."""
+def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev, zero_by_structure=()) -> float:
+    """6 / 17 / 22. ode and dual step on K1 + K2 against the eager decoder, on trajectories
+    ``traj`` [batch, frames, *grid, channels]: loss and gradients. ``zero_by_structure``
+    names decoder gradients that are 0 in exact arithmetic (``abs_pos``: the key bias, whose
+    term q . b is the same for every latent and cancels in the softmax). Their relative
+    error is rounding over rounding; instead both sides must lie below 1e-6 of the step's
+    whole gradient norm, and they leave the relative check."""
     trainer = make_trainer(cfg, coords)
     state = trainer.init_state()
     traj = torch.from_numpy(traj).to(dev)
@@ -560,6 +589,13 @@ def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev) -> float:
         loss_e, grads_e = fn(state, traj, masks=masks, ode_masks=ode_masks)
         trainer.ode_backend = "kernel"
         errs.append(check_close(f"{kind} step loss, kernels vs eager decoder", loss_k, loss_e))
+        scale = math.sqrt(sum(float(v.square().sum()) for group in grads_e.values() for v in group.values()))
+        for name in (n for n in zero_by_structure if n in grads_e.get("nef", {})):
+            norms = [float(torch.linalg.vector_norm(g["nef"].pop(name))) for g in (grads_k, grads_e)]
+            log(f"[check] {kind} step gradient of {name}, 0 by structure: norm {norms[0]:.3e} on the "
+                f"kernels, {norms[1]:.3e} eager, against the step's gradient norm {scale:.3e} (tol 1e-6 of it)")
+            if not max(norms) <= 1e-6 * scale:
+                raise AssertionError(f"{kind} step: {name} is not 0 to rounding: {norms} vs {scale:.3e}")
         errs.append(check_grads(f"{kind} step gradients, kernels vs eager decoder", grads_k, grads_e))
     return max(errs)
 
@@ -909,10 +945,10 @@ def planar_data_phase(name: str, n_train: int, n_test: int, dev) -> Path:
 
 def config_train_phase(name: str, data: Path, overrides: list, phases: list, coords: np.ndarray,
                        eqv_kinds=("translation", "rotation")) -> dict:
-    """12 / 16 / 19. ``run_experiment`` at the config's full width on the generated data,
-    the phases overridden to ``phases``; finite metrics, exactly the equivariance errors
-    ``eqv_kinds`` (SE(2): translation and rotation; S^2: longitude, and rotation for the
-    SO(3) invariant) at f32 rounding, the launches of K1 and K2 against the loop's
+    """12 / 16 / 19 / 22. ``run_experiment`` at the config's full width on the generated
+    data, the phases overridden to ``phases``; finite metrics, exactly the equivariance
+    errors ``eqv_kinds`` (SE(2): translation and rotation; S^2: longitude, and rotation for
+    the SO(3) invariant; none for ``abs_pos``) at f32 rounding, the launches of K1 and K2 against the loop's
     arithmetic (the ode and dual steps launch each once where the YAML sets
     ``ode_backend: pallas``; validation launches K1 once a chunk; a ``shallow_water_low_res``
     run ends with the super-resolution eval, once a chunk of the 192 x 96 grid for each
@@ -928,7 +964,7 @@ def config_train_phase(name: str, data: Path, overrides: list, phases: list, coo
     records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
     epochs = [r for r in records if "train_mse_epoch" in r]
     val = next(r for r in records if "val_mse_in_t" in r)
-    eqv = next((r for r in records if f"equivariance_err_{eqv_kinds[0]}" in r), {})
+    eqv = next((r for r in records if any(k.startswith("equivariance_err_") for k in r)), {})
     values = [v for r in records for k, v in r.items() if "mse" in k]
     n_train, n_val = len(loop.train_loader), len(loop.val_loader)
     chunk = cfg.training.max_num_sampled_points
@@ -941,7 +977,8 @@ def config_train_phase(name: str, data: Path, overrides: list, phases: list, coo
     log(f"[{name}] run_experiment({cfg.training.num_epochs} epochs) in {run_s:.2f} s: phases "
         f"{[r['phase'] for r in epochs]}, train_mse_epoch [{epoch_mse}], "
         f"val_mse_in_t {val['val_mse_in_t']:.4e} out_t {val['val_mse_out_t']:.4e}; equivariance_err "
-        + " ".join(f"{k} {eqv.get(f'equivariance_err_{k}')}" for k in eqv_kinds) + "; "
+        + (" ".join(f"{k} {eqv.get(f'equivariance_err_{k}')}" for k in eqv_kinds) or "none claimed, none logged")
+        + "; "
         + (f"superres_mse_in_t {sr.get('superres_mse_in_t')} out_t {sr.get('superres_mse_out_t')}; "
            if superres else "")
         + f"K1 launches {k1}, K2 launches {k2} (expected {expect}: {kernel_steps} ode/dual steps, "
@@ -1154,6 +1191,151 @@ def sw_phase(dev) -> dict:
             "k2": {"launches": train["k2"], "max_abs_err": k2["max_abs_err"], "timing": k2["timing"]}}
 
 
+def nonmaml_overrides(log_dir: Path) -> list:
+    """Phase 21's overrides of ``navier_stokes_nonmaml``: phase 7's data, epochs nef, nef,
+    ode, and one validation at epoch 3 (the final one: both splits re-fitted for 2 epochs
+    at every dropout share)."""
+    return [f"dataset.path={DATA_DIR}", f"dataset.num_signals_train={TRAIN_SIGNALS}",
+            f"dataset.num_signals_test={VAL_SIGNALS}", f"logging.log_dir={log_dir}",
+            "training.num_epochs=3", "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=2",
+            "training.ode.train_until_epoch=3", "test.test_interval=3", "test.refit_epochs=2",
+            "logging.log_every_n_steps=1"]
+
+
+def ablation_kernel_phase(dev) -> dict:
+    """20. K1 and K2 at the shapes the baselines add, against their plain versions, with
+    times, bounds and shared memory: K1 at ``navier_stokes_nonmaml``'s validation decode
+    (NS width, 160 x 2048) and a ragged 8 x 1000; K1 at I = 2 (``abs_pos``, ``rel_pos``) and
+    at I = 1 (``norm_rel_pos``) at NS width, 160 x 512; K2 at I = 2 (``abs_pos``) and at I = 1
+    (``norm_rel_pos``) at the ode step's 80 x 512, all four modes, timed with and without
+    weight gradients."""
+    t0 = time.perf_counter()
+    b_val = NUM_SIGNALS * NUM_FRAMES  # 8 signals x 20 frames
+    nonmaml = load_experiment_config("navier_stokes_nonmaml")
+    chunk = nonmaml.training.max_num_sampled_points
+    res = {"nonmaml": k1_shapes_phase("navier_stokes_nonmaml", [(nonmaml, b_val, chunk),
+                                                                (nonmaml, NUM_SIGNALS, 1000)], dev)}
+    for inv, k2_key in (("abs_pos", "k2"), ("norm_rel_pos", "k2_i1")):
+        cfg = load_experiment_config("navier_stokes", [f"nef.invariant_type={inv}"])
+        res[inv] = k1_shapes_phase(f"navier_stokes {inv}", [(cfg, b_val, 512)], dev)
+        log(f"[phase 20] K2 at navier_stokes {inv}'s ode step")
+        res[k2_key] = k2_phase(cfg, planar_coords(GRID, GRID), dev)
+    torch.cuda.empty_cache()
+    log(f"[phase 20] K1 and K2 at the baselines' shapes in {time.perf_counter() - t0:.2f} s")
+    return res
+
+
+def nonmaml_phase(dev) -> dict:
+    """21. ``navier_stokes_nonmaml`` (autodecoding) at its full published width through
+    ``run_experiment`` on phase 7's data: its metric keys exactly the JAX loop's, every value
+    finite, K1's launches against the arithmetic (validation only: the training steps
+    decode eagerly), the peak memory; then a codes-only step that leaves the decoder bit for
+    bit, and each step kind's warm median."""
+    t0 = time.perf_counter()
+    log_dir = fresh_dir(OUT_DIR / "navier_stokes_nonmaml_train")
+    cfg = load_experiment_config("navier_stokes_nonmaml", nonmaml_overrides(log_dir))
+    torch.cuda.reset_peak_memory_stats()
+    fused_decode_fwd.launches = fused_decode_bwd.launches = 0
+    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer = loop.trainer
+    records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    keys = set().union(*records) - {"t", "step"}
+    tags = ("", "_dp0.05", "_dp0.1", "_dp0.5")
+    want = {"train_backend", "eval_backend", "mse_step", "epoch", "train_mse_epoch",
+            "train_mse_in_t_sc", "train_mse_out_t_sc"}
+    want |= {f"{s}_mse_{io}_t{tag}" for s in ("val", "train") for io in ("in", "out") for tag in tags}
+    epochs = [r for r in records if "train_mse_epoch" in r]
+    val = next(r for r in records if "val_mse_in_t" in r)
+    values = [v for r in records for k, v in r.items() if "mse" in k]
+    n_train, n_val = TRAIN_SIGNALS // cfg.dataset.batch_size, VAL_SIGNALS // cfg.dataset.batch_size
+    chunks = -(-trainer.coords.shape[0] // cfg.training.max_num_sampled_points)
+    # Stored-code rollout of the train split, then at each of 4 dropout shares the test
+    # and train splits re-fitted (eager codes-only steps) and rolled out.
+    expect = chunks * (n_train + 4 * (n_val + n_train))
+    epoch_mse = ", ".join(f"{r['train_mse_epoch']:.4e}" for r in epochs)
+    log(f"[navier_stokes_nonmaml] run_experiment(3 epochs) in {run_s:.2f} s: train_mse_epoch "
+        f"[{epoch_mse}], final validation "
+        + ", ".join(f"{k} {val[k]:.4e}" for k in sorted(val) if "mse" in k)
+        + f"; K1 launches {k1} (expected {expect}: {chunks} chunks x ({n_train} + 4 x ({n_val} + {n_train})) "
+        f"validation batches), K2 {k2}; peak memory {peak:.2f} GiB")
+    if keys != want:
+        raise AssertionError(f"metric keys differ from the JAX loop's: extra {sorted(keys - want)}, "
+                             f"missing {sorted(want - keys)}")
+    if [r["epoch"] for r in epochs] != [1, 2, 3] or not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"epochs {[r['epoch'] for r in epochs]} or non-finite metrics {values}")
+    if (k1, k2) != (expect, 0):
+        raise AssertionError(f"K1/K2 launches {(k1, k2)} != expected {(expect, 0)}")
+
+    train, _ = get_dataloader(cfg.dataset, device="cuda")
+    traj, _, idx = next(iter(train))
+    traj = torch.as_tensor(traj, device=dev)
+    before = {k: v.clone() for k, v in trainer.decoder.state_dict().items()}
+    table = {k: v.clone() for k, v in state["autodecoder"].items()}
+    trainer.codes_only_step(state, traj, idx)
+    torch.cuda.synchronize()
+    same = all(torch.equal(v, trainer.decoder.state_dict()[k]) for k, v in before.items())
+    moved = float(max((state["autodecoder"][k] - v).abs().max() for k, v in table.items()))
+    log(f"[navier_stokes_nonmaml] codes-only step: decoder bit for bit {same} ({len(before)} tensors), "
+        f"table moved by up to {moved:.3e}")
+    if not same or not moved > 0:
+        raise AssertionError(f"the codes-only step moved the decoder ({not same}) or not the table ({moved})")
+    torch.cuda.reset_peak_memory_stats()
+    medians = {}
+    for name, fn in (("nef", trainer.nef_train_step), ("codes-only", trainer.codes_only_step),
+                     ("ode", trainer.ode_train_step), ("val", trainer.val_step)):
+        samples = [sync_time(lambda: fn(state, traj, idx))[1] * 1e3 for _ in range(WARM_REPEATS)]
+        medians[name] = statistics.median(samples)
+        log(f"[navier_stokes_nonmaml] {name} step on generated data {tuple(traj.shape)} (warm, median of "
+            f"{WARM_REPEATS}): {medians[name]:.2f} ms (samples {', '.join(f'{v:.2f}' for v in samples)})")
+    log(f"[navier_stokes_nonmaml] peak memory of the timed steps {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del loop, trainer, state, traj
+    torch.cuda.empty_cache()
+    log(f"[phase 21] navier_stokes_nonmaml in {time.perf_counter() - t0:.2f} s")
+    return {"k1": k1, "medians": medians}
+
+
+def abs_pos_phase(dev) -> dict:
+    """22. ``navier_stokes nef.invariant_type=abs_pos`` (the non-equivariant ablation) at full
+    width through ``run_experiment`` on phase 7's data: 3 epochs (nef, dual, ode), no
+    equivariance key, K1's and K2's launches against the loop's arithmetic; the
+    kernel-backend ode and dual steps against the eager ones at I = 2; one ode step with
+    ``node.name=mlp``: a finite loss and a moved ODE, K1 and K2 launched once each."""
+    t0 = time.perf_counter()
+    coords = planar_coords(GRID, GRID)
+    train = config_train_phase("navier_stokes", DATA_DIR, [
+        "nef.invariant_type=abs_pos", f"dataset.num_signals_train={TRAIN_SIGNALS}",
+        f"dataset.num_signals_test={VAL_SIGNALS}", "training.num_epochs=3", "training.nef.train_until_epoch=2",
+        "training.ode.train_from_epoch=1", "training.ode.train_until_epoch=3", "test.test_interval=3",
+        "test.test_dp_interval=3"], ["nef", "nef+ode", "ode"], coords, eqv_kinds=())
+    shutil.rmtree(OUT_DIR / "navier_stokes_train" / "checkpoints")  # phase 8 checks them; keep the output small
+    torch.cuda.empty_cache()
+    cfg = load_experiment_config("navier_stokes", ["nef.invariant_type=abs_pos"])
+    step_err = step_parity_phase(cfg, coords, smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 3), dev,
+                                 zero_by_structure=("cross_attention_block.attn.a_to_k.bias",))
+
+    mlp_cfg = load_experiment_config("navier_stokes", ["nef.invariant_type=abs_pos", "node.name=mlp"])
+    trainer = make_trainer(mlp_cfg, coords)
+    state = trainer.init_state()
+    traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 4)).to(dev)
+    before = {k: v.clone() for k, v in trainer.ode_model.state_dict().items()}
+    fused_decode_fwd.launches = fused_decode_bwd.launches = 0
+    (loss, state), step_s = sync_time(lambda: trainer.ode_train_step(state, traj))
+    k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    moved = float(max((trainer.ode_model.state_dict()[k] - v).abs().max() for k, v in before.items()))
+    log(f"[navier_stokes abs_pos] one full-width ode step with node.name=mlp ({type(trainer.ode_model).__name__}, "
+        f"{sum(v.numel() for v in before.values())} parameters) in {step_s * 1e3:.2f} ms (first call): loss "
+        f"{float(loss):.4e}, parameters moved by up to {moved:.3e}; K1 launches {k1}, K2 launches {k2}")
+    if not (np.isfinite(float(loss)) and moved > 0 and (k1, k2) == (1, 1)):
+        raise AssertionError(f"the mlp ode step: loss {float(loss)}, moved {moved}, launches {(k1, k2)}")
+    del trainer, state, traj
+    torch.cuda.empty_cache()
+    log(f"[phase 22] navier_stokes abs_pos in {time.perf_counter() - t0:.2f} s")
+    # The kernels line counts the abs_pos run's launches alone: the mlp step's are logged above.
+    return {"k1": train["k1"], "k2": train["k2"], "step_err": step_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card.",
@@ -1298,6 +1480,13 @@ def main() -> int:
         log(f"[timing] K2 {'with' if wg else 'without'} weight grads at shallow_water's ode shape "
             f"{sw['k2']['timing'][wg]['ms']:.4f} ms (bound {sw['k2']['timing'][wg]['bound_ms']:.4f}) against "
             f"{k2['timing'][wg]['ms']:.4f} ms at navier_stokes's (bound {k2['timing'][wg]['bound_ms']:.4f})")
+    torch.cuda.empty_cache()
+    # 20-22. The paper's baselines on phase 7's data: K1 and K2 at their shapes,
+    # autodecoding (navier_stokes_nonmaml), and the non-equivariant abs_pos with the MLP ODE.
+    ablation = ablation_kernel_phase(dev)
+    nonmaml = nonmaml_phase(dev)
+    abs_pos = abs_pos_phase(dev)
+    shutil.rmtree(DATA_DIR)  # phase 22 was its last reader: the output directory stays small
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
@@ -1335,6 +1524,27 @@ def main() -> int:
         **sw["k2"]["timing"][False],  # the ode step's mode, as for Navier-Stokes
         "library_ms": None,
     }]
+    b_val = NUM_SIGNALS * NUM_FRAMES
+    for res, shape, c, launches, err in (
+            (ablation["nonmaml"], f"navier_stokes_nonmaml b={b_val} z={cfg.nef.num_latents} c=2048",
+             2048, nonmaml["k1"], ablation["nonmaml"]["max_abs_err"]),
+            (ablation["abs_pos"], f"navier_stokes abs_pos b={b_val} z={cfg.nef.num_latents} c=512 I=2",
+             512, abs_pos["k1"], max(ablation["abs_pos"]["max_abs_err"], abs_pos["step_err"]))):
+        main = res["timing"][(cfg.nef.num_latents, b_val, c)]
+        kernels.append({**k1_entry, "shape": shape, "launches": launches, "max_abs_err": err,
+                        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+    kernels.append({
+        "name": "fused_decode_bwd",
+        "shape": f"navier_stokes abs_pos b={NUM_SIGNALS * cfg.dataset.traj_len_train} z={cfg.nef.num_latents} "
+                 f"c={cfg.training.max_num_sampled_points} I=2",
+        "route": "cuda",
+        "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
+        "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
+        "launches": abs_pos["k2"],
+        "max_abs_err": ablation["k2"]["max_abs_err"],
+        **ablation["k2"]["timing"][False],  # the ode step's mode
+        "library_ms": None,
+    })
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ kernel (``decoder_backend``).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
+from enf_pde_tpu_torch.dynamics.mlp_ode import MLPLatentODE
 from enf_pde_tpu_torch.dynamics.ponita import PonitaLatentODE
 from enf_pde_tpu_torch.geometry.invariants import get_ca_invariant, get_sa_invariant
 from enf_pde_tpu_torch.models.decoder import EnfDecoder
@@ -34,8 +35,9 @@ def coordinate_system_for(dataset_name: str) -> str:
     return "cartesian"
 
 
-def build_models(cfg) -> Tuple[EnfDecoder, PonitaLatentODE]:
-    """Build the ENF decoder and the latent ODE model from a config.
+def build_models(cfg) -> Tuple[EnfDecoder, Union[PonitaLatentODE, MLPLatentODE]]:
+    """Build the ENF decoder and the latent ODE model (``node.name``: ``ponita``, or the
+    ``mlp`` baseline) from a config.
 
     Their parameters are left uninitialised (see ``MetaSGDTrainer.init_state``).
     """
@@ -56,8 +58,16 @@ def build_models(cfg) -> Tuple[EnfDecoder, PonitaLatentODE]:
         condition_value_transform=cfg.nef.condition_value_transform,
         use_gaussian_window=cfg.nef.use_gaussian_window,
     )
+    if cfg.node.name == "mlp":
+        pose_dim = sa_invariant.num_z_pos_dims + sa_invariant.num_z_ori_dims
+        return decoder, MLPLatentODE(
+            num_in=pose_dim + cfg.nef.latent_dim,
+            num_hidden=cfg.node.num_hidden,
+            scalar_num_out=cfg.nef.latent_dim,
+            vec_num_out=1,
+        )
     if cfg.node.name != "ponita":
-        raise NotImplementedError(f"ODE model {cfg.node.name!r} is not ported yet; see ROADMAP.md.")
+        raise ValueError(f"Unknown ODE model: {cfg.node.name!r}")
     ode_model = PonitaLatentODE(
         num_hidden=cfg.node.num_hidden,
         num_layers=cfg.node.num_layers,

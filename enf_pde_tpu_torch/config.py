@@ -17,7 +17,7 @@ import re
 from typing import Any, Iterable, Mapping
 
 __all__ = ["Config", "apply_overrides", "load_experiment_config", "NAVIER_STOKES",
-           "DIFFUSION_PLANE", "CAHN_HILLIARD", "DIFF_SPHERE", "SHALLOW_WATER"]
+           "NAVIER_STOKES_NONMAML", "DIFFUSION_PLANE", "CAHN_HILLIARD", "DIFF_SPHERE", "SHALLOW_WATER"]
 
 
 class Config(dict):
@@ -138,6 +138,86 @@ NAVIER_STOKES = {
         "name": "adamw",
         "learning_rate_enf": 1.0e-4,
         "learning_rate_codes": 0.0,
+        "learning_rate_ode": 1.0e-3,
+    },
+}
+
+
+# ``enf_pde_tpu/experiments/configs/navier_stokes_nonmaml.yaml``, key for key: the
+# autodecoding baseline (``meta.meta_sgd: false``) on the Navier-Stokes data.
+NAVIER_STOKES_NONMAML = {
+    "seed": 0,
+    "proj_name": "enf-pde-tpu",
+    "logging": {
+        "log_dir": "outputs/navier_stokes_nonmaml",
+        "log_every_n_steps": 50,
+        "checkpoint_every_n_epochs": 50,
+        "keep_n_checkpoints": 1,
+        "checkpoint": True,
+        "resume": False,
+        "use_wandb": False,
+        "visualize_every_n_epochs": 0,
+    },
+    "dataset": {
+        "name": "navier_stokes",
+        "batch_size": 8,
+        "traj_len_train": 10,
+        "traj_len_out_horizon": 10,
+        "path": "data/",
+        "num_signals_train": 8192,
+        "num_signals_test": 512,
+    },
+    "nef": {
+        "num_in": 2,
+        "num_out": 1,
+        "num_layers": 0,
+        "num_hidden": 128,
+        "num_heads": 2,
+        "condition_value_transform": True,
+        "latent_dim": 16,
+        "num_latents": 4,
+        "gaussian_window": -1,
+        "optimize_gaussian_window": False,
+        "use_gaussian_window": True,
+        "embedding_type": "rff",
+        "embedding_freq_multiplier_invariant": 0.05,
+        "embedding_freq_multiplier_value": 0.2,
+        "invariant_type": "rel_pos_periodic",
+        "backend": "xla",
+        "eval_backend": "pallas",
+    },
+    "node": {
+        "name": "ponita",
+        "num_layers": 3,
+        "num_hidden": 128,
+        "widening_factor": 2,
+        "kernel_size": "global",
+        "degree": 3,
+        "basis_dim": 64,
+        "dt": 1,
+        "method": "euler",
+    },
+    "training": {
+        "num_epochs": 2000,
+        "max_num_sampled_points": 2048,
+        "ode": {"train_from_epoch": 600, "train_until_epoch": 2000},
+        "nef": {"train_from_epoch": 0, "fit_on_num_steps": 2, "train_until_epoch": 600},
+    },
+    "test": {"test_interval": 500, "test_dp_interval": 9999, "test_equiv_at_epoch": 400,
+             "refit_epochs": 100},
+    "meta": {
+        "meta_sgd": False,
+        "num_inner_steps": 3,
+        "inner_learning_rate_p": 1.0,
+        "inner_learning_rate_a": 5.0,
+        "inner_learning_rate_window": 0.0,
+        "learning_rate_meta_sgd": 1.0e-4,
+        "noise_pos_inner_loop": 0.0,
+    },
+    "optimizer": {
+        "name": "adamw",
+        "learning_rate_enf": 1.0e-4,
+        "learning_rate_codes": 1.0e-3,
         "learning_rate_ode": 1.0e-3,
     },
 }
@@ -452,7 +532,8 @@ SHALLOW_WATER = {
     },
 }
 
-_EXPERIMENTS = {"navier_stokes": NAVIER_STOKES, "diffusion_plane": DIFFUSION_PLANE,
+_EXPERIMENTS = {"navier_stokes": NAVIER_STOKES, "navier_stokes_nonmaml": NAVIER_STOKES_NONMAML,
+                "diffusion_plane": DIFFUSION_PLANE,
                 "cahn_hilliard": CAHN_HILLIARD, "diff_sphere": DIFF_SPHERE,
                 "shallow_water": SHALLOW_WATER}
 

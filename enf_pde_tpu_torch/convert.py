@@ -1,7 +1,7 @@
 """Bridge from the JAX package's parameters to the port's.
 
-The JAX state's ``params`` is ``{'nef', 'ode', 'autodecoder', 'meta_sgd_lrs'}``; the
-first two are flax trees ``{'params': {module: {...: leaf}}}``. The caller hands them
+The JAX state's ``params`` is ``{'nef', 'ode', 'autodecoder', 'meta_sgd_lrs'}`` (the
+autodecoding trainer's has no ``meta_sgd_lrs``); the first two are flax trees ``{'params': {module: {...: leaf}}}``. The caller hands them
 over as nested dicts of numpy arrays (this module does not import JAX). The port's
 submodules carry the flax names, so a leaf path maps to a ``state_dict`` key
 directly, with the leaf renamed:
@@ -51,12 +51,14 @@ def convert_params(params: Mapping) -> dict:
 
     Returns ``{'nef': decoder state_dict, 'ode': ODE state_dict, 'autodecoder': {...},
     'meta_sgd_lrs': {...}}``, the input of ``MetaSGDTrainer.load_state`` and of
-    ``Forecaster(params=...)``.
+    ``Forecaster(params=...)``; from an autodecoding state (no ``meta_sgd_lrs``) the
+    last entry is None, and the result is the input of
+    ``AutodecodingTrainer.load_state``.
     """
     as_tensors = lambda d: {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in d.items()}  # noqa: E731
     return {
         "nef": flax_to_state_dict(params["nef"]),
         "ode": flax_to_state_dict(params["ode"]),
         "autodecoder": as_tensors(params["autodecoder"]),
-        "meta_sgd_lrs": as_tensors(params["meta_sgd_lrs"]),
+        "meta_sgd_lrs": as_tensors(params["meta_sgd_lrs"]) if "meta_sgd_lrs" in params else None,
     }

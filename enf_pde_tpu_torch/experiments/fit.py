@@ -1,11 +1,13 @@
 """Experiment entry point: ``python -m enf_pde_tpu_torch.experiments.fit <config> [k=v ...]``.
 
-Counterpart of ``enf_pde_tpu/experiments/fit.py`` for the meta-SGD experiments:
+Counterpart of ``enf_pde_tpu/experiments/fit.py``:
 
     python -m enf_pde_tpu_torch.experiments.fit navier_stokes
     python -m enf_pde_tpu_torch.experiments.fit navier_stokes seed=1 training.num_epochs=100
     python -m enf_pde_tpu_torch.experiments.fit navier_stokes logging.resume=true --device cpu
+    python -m enf_pde_tpu_torch.experiments.fit navier_stokes nef.invariant_type=abs_pos
     python -m enf_pde_tpu_torch.experiments.fit shallow_water      # + super-resolution eval
+    python -m enf_pde_tpu_torch.experiments.fit navier_stokes_nonmaml   # autodecoding
 
 Missing trajectories are generated first (on the same device), the input / output
 widths and the grid come from a probe batch, the trajectories stay on the device
@@ -15,24 +17,28 @@ on one device, the card unless ``--device cpu``. A run on ``shallow_water_low_re
 with the zero-shot super-resolution evaluation: the trained state validated on the
 full-resolution test split (``superres_mse_in_t``, ``superres_mse_out_t``).
 
-Not ported, and refused: autodecoding (``meta.meta_sgd: false``), the multi-device mesh,
-and wandb (``logging.use_wandb``).
+``meta.meta_sgd: false`` trains by autodecoding (``train.loop.AutodecodingLoop``): one
+phase an epoch, validation by re-fitting fresh latents on both splits; it writes no
+checkpoints, as the JAX package's writes none.
+
+Not ported, and refused: the multi-device mesh and wandb (``logging.use_wandb``).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import Config, load_experiment_config
 from enf_pde_tpu_torch.data import get_dataloader
+from enf_pde_tpu_torch.train.autodecode import AutodecodingTrainer
 from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
 from enf_pde_tpu_torch.train.logging import MetricLogger
-from enf_pde_tpu_torch.train.loop import TrainLoop
+from enf_pde_tpu_torch.train.loop import AutodecodingLoop, TrainLoop
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
 __all__ = ["run_experiment", "prepare", "super_resolution_eval", "main"]
@@ -55,25 +61,28 @@ def prepare(cfg: Config, device="cuda"):
     return train_loader, test_loader, coords, decoder, ode_model
 
 
-def run_experiment(cfg: Config, device="cuda") -> Tuple[TrainLoop, dict]:
-    """Train ``cfg`` for ``training.num_epochs`` on one device; returns ``(loop, state)``."""
+def run_experiment(cfg: Config, device="cuda") -> Tuple[Union[TrainLoop, AutodecodingLoop], dict]:
+    """Train ``cfg`` for ``training.num_epochs`` on one device; returns ``(loop, state)``:
+    a ``TrainLoop``, or an ``AutodecodingLoop`` for ``meta.meta_sgd: false``."""
     if cfg.get_path("logging.use_wandb", False):
         raise NotImplementedError("wandb is not ported: metrics go to <log_dir>/metrics.jsonl.")
-    if not cfg.get_path("meta.meta_sgd", True):
-        raise NotImplementedError("Autodecoding is not ported yet; see ROADMAP.md, Queue 1 item 7.")
     train_loader, test_loader, coords, decoder, ode_model = prepare(cfg, device)
     logger = MetricLogger(cfg.logging.log_dir)
-    ckpt = (CheckpointManager(cfg.logging.log_dir,
-                              every_n_epochs=cfg.logging.checkpoint_every_n_epochs,
-                              keep_n=cfg.logging.keep_n_checkpoints)
-            if cfg.logging.checkpoint else None)
     # The trajectory set is static: keep it on the device so epochs copy nothing.
     if cfg.get_path("dataset.device_cache", True):
         for ldr in (train_loader, test_loader):
             ldr.enable_device_cache()
-    trainer = MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=cfg.seed, device=device)
-    loop = TrainLoop(trainer, train_loader, test_loader, logger, ckpt)
     try:
+        if not cfg.get_path("meta.meta_sgd", True):
+            trainer = AutodecodingTrainer(cfg, decoder, ode_model, coords, seed=cfg.seed, device=device)
+            loop = AutodecodingLoop(trainer, train_loader, test_loader, logger)
+            return loop, loop.run(cfg.training.num_epochs)
+        ckpt = (CheckpointManager(cfg.logging.log_dir,
+                                  every_n_epochs=cfg.logging.checkpoint_every_n_epochs,
+                                  keep_n=cfg.logging.keep_n_checkpoints)
+                if cfg.logging.checkpoint else None)
+        trainer = MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=cfg.seed, device=device)
+        loop = TrainLoop(trainer, train_loader, test_loader, logger, ckpt)
         state = loop.run(cfg.training.num_epochs)
         if cfg.dataset.name == "shallow_water_low_res":
             super_resolution_eval(cfg, state, decoder, ode_model, logger, device)

@@ -2,12 +2,13 @@
 
 Counterpart of ``enf_pde_tpu/geometry/invariants.py``. Each invariant maps
 ``(x[b, n, x_dim], p[b, z, p_dim]) -> inv[b, n, z, dim]`` and provides the Gaussian
-window that is added to the attention logits. Ported: the torus invariant of the
-Navier-Stokes experiment, the SE(2) ``ponita`` pair of the planar experiments
+window that is added to the attention logits. Ported: the paper's ablations on R^n
+(``rel_pos``, x - p; ``norm_rel_pos``, ||p - x||, I = 1; and the non-equivariant
+``abs_pos``, x itself), the torus invariant of the Navier-Stokes experiment, the SE(2) ``ponita`` pair of the planar experiments
 (``PonitaPos2D`` for cross attention, whose queries carry no orientation, ``Ponita2D``
 for the latent ODE), the SO(3) ``polar_periodic`` invariant on S^2 (the cosine of
 the great-circle angle, I = 1) and the longitude-only ``latitude_periodic`` one
-(``[theta_x, theta_p, cos dphi, sin dphi]``, I = 4); the other names raise
+(``[theta_x, theta_p, cos dphi, sin dphi]``, I = 4); the ball names raise
 ``NotImplementedError``.
 
 The window flavours are part of the trained-model contract: the planar default is the
@@ -25,6 +26,9 @@ import torch
 
 __all__ = [
     "BaseInvariant",
+    "RelativePositionND",
+    "NormRelativePositionND",
+    "AbsolutePositionND",
     "RelativePositionPeriodic",
     "PonitaPos2D",
     "Ponita2D",
@@ -90,6 +94,47 @@ class BaseInvariant:
         p_pos = p[:, :, : self.num_z_pos_dims]
         x_pos = x[:, :, : self.num_x_pos_dims]
         return -(1.0 / sigma[:, None, :] ** 2) * _sq_dist(x_pos, p_pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class RelativePositionND(BaseInvariant):
+    """Translation invariant on R^n: x - p. Planar log-domain window."""
+
+    def __init__(self, num_dims: int):
+        super().__init__(dim=num_dims, num_x_pos_dims=num_dims, num_x_ori_dims=0,
+                         num_z_pos_dims=num_dims, num_z_ori_dims=0)
+
+    def __call__(self, x, p):
+        return x[:, :, None, : self.num_x_pos_dims] - p[:, None, :, : self.num_z_pos_dims]
+
+
+@dataclasses.dataclass(frozen=True)
+class NormRelativePositionND(BaseInvariant):
+    """E(n)-invariant distance ||p - x|| (I = 1). Planar log-domain window.
+
+    At a coincident point its gradient is 0 here (``torch.linalg.vector_norm``) where
+    ``jnp.linalg.norm``'s is NaN; everywhere else the two agree."""
+
+    def __init__(self, num_dims: int):
+        super().__init__(dim=1, num_x_pos_dims=num_dims, num_x_ori_dims=0,
+                         num_z_pos_dims=num_dims, num_z_ori_dims=0)
+
+    def __call__(self, x, p):
+        return torch.linalg.vector_norm(p[:, None, :, :] - x[:, :, None, :], dim=-1, keepdim=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbsolutePositionND(BaseInvariant):
+    """Non-equivariant ablation: the query's absolute coordinates, the same for every
+    latent. The window still depends on x - p (planar log-domain)."""
+
+    def __init__(self, num_dims: int):
+        super().__init__(dim=num_dims, num_x_pos_dims=num_dims, num_x_ori_dims=0,
+                         num_z_pos_dims=num_dims, num_z_ori_dims=0)
+
+    def __call__(self, x, p):
+        b, n, d = x.shape
+        return x[:, :, None, :].expand(b, n, p.shape[1], d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +242,12 @@ class RelativeLatitudePeriodic(BaseInvariant):
 
 
 def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant:
+    if name == "norm_rel_pos":
+        return NormRelativePositionND(num_dims)
+    if name == "rel_pos":
+        return RelativePositionND(num_dims)
+    if name == "abs_pos":
+        return AbsolutePositionND(num_dims)
     if name == "rel_pos_periodic":
         if num_dims != 2:
             raise ValueError("rel_pos_periodic currently supports 2D input only.")

@@ -27,11 +27,14 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     extract_attention_weights,
     extract_tail_weights,
     fold_decode_weights,
+    fused_decode_fwd,
     FusedDecode,
+    split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import Dense, LayerNorm, gelu
 
-__all__ = ["EnfDecoder", "CrossAttentionBlock", "decode_chunked", "embed_pose_angles", "BACKENDS"]
+__all__ = ["EnfDecoder", "CrossAttentionBlock", "decode_chunked", "decode_trajectories",
+           "embed_pose_angles", "BACKENDS"]
 
 BACKENDS = ("eager", "kernel")
 
@@ -197,3 +200,31 @@ def decode_chunked(apply_fn: Callable[..., torch.Tensor], coords: torch.Tensor, 
     outs = [apply_fn(coords[:, i * chunk_size:(i + 1) * chunk_size], p, a, window)
             for i in range(num_chunks)]
     return torch.cat(outs, dim=1)[:, :n]
+
+
+@torch.no_grad()
+def decode_trajectories(decoder: EnfDecoder, backend: str, coords: torch.Tensor, latent_traj,
+                        chunk_size: int) -> torch.Tensor:
+    """Decode latent trajectories (p, a, window), each [batch, T, ...], at ``coords``
+    [points, coord_dim] in chunks of ``chunk_size`` points on ``backend``; returns
+    [batch, T, points, out]. The validation and forecast decode of both trainers.
+
+    On the kernel backend the weight folds, which depend on the latents only, and K1's
+    split of the shared weights run once for all chunks.
+    """
+    p, a, w = latent_traj
+    b, t = p.shape[0], p.shape[1]
+    p_fl, a_fl, w_fl = (x.reshape(b * t, *x.shape[2:]) for x in (p, a, w))
+    xs = coords[None].expand(b * t, *coords.shape)
+    if backend == "kernel":
+        folded = decoder.fold(p_fl, a_fl)
+        _, split = split_weights(folded[4])
+
+        def apply_fn(x, pp, aa, ww):
+            return fused_decode_fwd(*decoder.kernel_geometry(x, pp, ww), *folded,
+                                    num_heads=decoder.num_heads, head_dim=decoder.num_hidden,
+                                    split=split)
+    else:
+        apply_fn = decoder
+    out = decode_chunked(apply_fn, xs, p_fl, a_fl, w_fl, chunk_size=chunk_size)
+    return out.reshape(b, t, coords.shape[0], -1)

@@ -19,7 +19,7 @@ from enf_pde_tpu_torch.geometry.latent_init import (
     init_positions_polar,
 )
 
-__all__ = ["init_latents", "latents_to_pose", "tile_latents", "LatentParams"]
+__all__ = ["init_latents", "latents_to_pose", "gather_latents", "tile_latents", "LatentParams"]
 
 LatentParams = Dict[str, torch.Tensor]
 
@@ -65,6 +65,12 @@ def latents_to_pose(params: LatentParams) -> Tuple[torch.Tensor, torch.Tensor, t
     if "p_ori" in params:
         p = torch.cat([p, params["p_ori"]], dim=-1)
     return p, params["a"], params["gaussian_window"]
+
+
+def gather_latents(params: LatentParams, idx) -> LatentParams:
+    """Select per-signal latents (rows of a table) by trajectory index (autodecoding path)."""
+    idx = torch.as_tensor(idx, dtype=torch.long, device=params["a"].device)
+    return {k: v[idx] for k, v in params.items()}
 
 
 def tile_latents(params: LatentParams, batch_size: int) -> LatentParams:

@@ -1,4 +1,4 @@
-"""Epoch-level training loop: phase scheduling, validation protocol, checkpoints.
+"""Epoch-level training loops: phase scheduling, validation protocol, checkpoints.
 
 Counterpart of ``enf_pde_tpu/train/loop.py`` (reference ``_base_pde_trainer.py:239-424``):
 in-t / out-t rollout MSE over the val *and* train loaders, the sparse-observation
@@ -12,6 +12,10 @@ Not ported: the JAX loop's retry of a failed validation or epoch on another deco
 path (``_eval_guarded``). A kernel failure on the card raises and ends the run, and
 so does a figure that cannot be drawn (matplotlib is imported before the first
 epoch when figures are on).
+
+``AutodecodingLoop`` runs the autodecoding baseline (``meta.meta_sgd: false``), the
+counterpart of ``_run_autodecoding`` and ``_autodecode_validation`` in
+``enf_pde_tpu/experiments/fit.py``: no checkpoints and no retry, as there.
 """
 
 from __future__ import annotations
@@ -24,16 +28,18 @@ from typing import Iterable, Optional
 import torch
 
 from enf_pde_tpu_torch.models.latents import latents_to_pose
+from enf_pde_tpu_torch.train.autodecode import AutodecodingTrainer
 from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
 from enf_pde_tpu_torch.train.logging import MetricLogger
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
+from enf_pde_tpu_torch.train.steps import phase_window
 from enf_pde_tpu_torch.utils import visualization as viz
 from enf_pde_tpu_torch.utils.equivariance import equivariance_errors
 
 # Second key of ``MetaSGDTrainer.val_generator(epoch, key)`` for the side fits.
 _EQUIVARIANCE_DRAWS, _FIGURE_DRAWS = 1, 2
 
-__all__ = ["TrainLoop"]
+__all__ = ["AutodecodingLoop", "TrainLoop"]
 
 
 class TrainLoop:
@@ -136,7 +142,8 @@ class TrainLoop:
         """Numeric analogue of the reference's visual equivariance check: fit frame 0
         of the first val batch, then decode (eager decoder) 512 grid points under
         joint translations of coordinates and poses, and rotations where the poses
-        carry an orientation (SE(2))."""
+        carry an orientation (SE(2)). Logs nothing for the non-equivariant ``abs_pos``
+        ablation."""
         trainer = self.trainer
         frames = self._batch_traj(next(iter(self.val_loader)))[:, 0]
         fitted = trainer.fit_latents(state, frames,
@@ -147,6 +154,8 @@ class TrainLoop:
         errs = equivariance_errors(trainer.decoder, coords, p, a, w,
                                    invariant=trainer.decoder.cross_attn_invariant,
                                    coordinate_system=trainer.coordinate_system)
+        if not errs:
+            return
         self.logger.log({"epoch": epoch, **{f"equivariance_err_{k}": v for k, v in errs.items()}},
                         step=self.global_step, echo=True)
 
@@ -265,3 +274,96 @@ class TrainLoop:
                 self.visualize_epoch(state, epoch)
         self.logger.log({"train_wall_s": time.time() - t_start}, step=self.global_step)
         return state
+
+
+class AutodecodingLoop:
+    """Runs the autodecoding baseline's epochs (reference ``nonmaml_pde_trainer.py``).
+
+    Each epoch runs one phase over the training batches: a nef step inside the nef
+    window, else an ode step inside the ode window, else nothing. It logs the epoch's
+    mean ``train_mse_epoch`` and one sampled ``mse_step``, and validates (``validate``)
+    every ``test.test_interval`` epochs and once more at the end when the last epoch was
+    not such an interval.
+
+    Args:
+        trainer: the ``AutodecodingTrainer``.
+        train_loader / val_loader: loaders yielding ``(trajectory, _, signal indices)``
+            with ``indices`` (the signals they hold).
+        logger: where metrics go (default ``<logging.log_dir>/metrics.jsonl``).
+    """
+
+    def __init__(self, trainer: AutodecodingTrainer, train_loader, val_loader,
+                 logger: Optional[MetricLogger] = None):
+        self.trainer = trainer
+        self.cfg = trainer.cfg
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.logger = logger or MetricLogger(self.cfg.get_path("logging.log_dir", "outputs/run"))
+
+    def _traj(self, traj) -> torch.Tensor:
+        return torch.as_tensor(traj, dtype=torch.float32, device=self.trainer.device)
+
+    def run(self, num_epochs: int, state=None):
+        """Train epochs 1..num_epochs; returns the state."""
+        cfg, trainer = self.cfg, self.trainer
+        self.logger.log({"train_backend": trainer.train_backend, "eval_backend": trainer.eval_backend},
+                        echo=True)
+        if state is None:
+            state = trainer.init_state()
+        global_step = 0
+        for epoch in range(1, num_epochs + 1):
+            train_nef, train_ode = phase_window(cfg.training, epoch)
+            # Losses accumulate on the device: one host read per epoch.
+            loss_ep, n, sample_loss, sample_step = None, 0, None, None
+            for traj, _, idx in self.train_loader:
+                if train_nef:
+                    loss, state = trainer.nef_train_step(state, self._traj(traj), idx)
+                elif train_ode:
+                    loss, state = trainer.ode_train_step(state, self._traj(traj), idx)
+                else:
+                    continue
+                loss_ep = loss if loss_ep is None else loss_ep + loss
+                n += 1
+                if global_step % cfg.logging.log_every_n_steps == 0:
+                    sample_loss, sample_step = loss, global_step
+                global_step += 1
+            if sample_loss is not None:
+                self.logger.log({"mse_step": float(sample_loss)}, step=sample_step)
+            self.logger.log({"epoch": epoch, "train_mse_epoch": float(loss_ep) / n if n else 0.0}, echo=True)
+            if epoch % cfg.test.test_interval == 0:
+                self.validate(state, epoch, num_epochs)
+        if num_epochs % cfg.test.test_interval != 0:
+            self.validate(state, "final", num_epochs)
+        return state
+
+    def _rollout_mse(self, state, loader):
+        mse_in = mse_out = None
+        n = 0
+        for traj, _, idx in loader:
+            a, b = self.trainer.val_step(state, self._traj(traj), idx)
+            mse_in = a if mse_in is None else mse_in + a
+            mse_out = b if mse_out is None else mse_out + b
+            n += 1
+        return (float(mse_in) / n, float(mse_out) / n) if n else (0.0, 0.0)
+
+    def validate(self, state, epoch, num_epochs: int) -> None:
+        """Rollout MSE from the stored latents on the train split (``train_mse_{in,out}_t_sc``),
+        then, for each coordinate share 0, 0.05, 0.1 and 0.5, a fresh table re-fitted for
+        min(``training.nef.train_until_epoch``, ``test.refit_epochs``) epochs on the val split
+        (``val_mse_*``) and, at the final validation unless ``test.refit_train_split`` says
+        otherwise, on the train split (``train_mse_*``); the dp variants carry ``_dp<share>``.
+        Reference ``nonmaml_pde_trainer.py:399-548``."""
+        cfg, trainer = self.cfg, self.trainer
+        metrics = {"epoch": epoch} if isinstance(epoch, int) else {}
+        metrics["train_mse_in_t_sc"], metrics["train_mse_out_t_sc"] = self._rollout_mse(state, self.train_loader)
+        refit_epochs = min(cfg.training.nef.train_until_epoch, cfg.get_path("test.refit_epochs", 100))
+        is_final = not isinstance(epoch, int) or epoch == num_epochs
+        refit_train = cfg.get_path("test.refit_train_split", is_final)
+        for dp in (0.0, 0.05, 0.1, 0.5):
+            tag = "" if dp == 0 else f"_dp{dp}"
+            for split, loader, on in (("val", self.val_loader, True), ("train", self.train_loader, refit_train)):
+                if on:
+                    refit = trainer.refit_latents(state, loader, num_epochs=refit_epochs, dp=dp)
+                    metrics[f"{split}_mse_in_t{tag}"], metrics[f"{split}_mse_out_t{tag}"] = \
+                        self._rollout_mse(refit, loader)
+        self.logger.log(metrics, echo=True)

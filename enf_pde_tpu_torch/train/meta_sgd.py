@@ -29,7 +29,6 @@ forward Python loop without rematerialisation.
 
 from __future__ import annotations
 
-import contextlib
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
@@ -37,10 +36,8 @@ import numpy as np
 import torch
 
 from enf_pde_tpu_torch.builders import coordinate_system_for, decoder_backend
-from enf_pde_tpu_torch.dynamics.solvers import solve_latent_ode
-from enf_pde_tpu_torch.models.decoder import decode_chunked
+from enf_pde_tpu_torch.models.decoder import decode_trajectories
 from enf_pde_tpu_torch.models.latents import init_latents, latents_to_pose
-from enf_pde_tpu_torch.ops.fused_decode import fused_decode_fwd, split_weights
 from enf_pde_tpu_torch.ops.layers import reset_parameters
 from enf_pde_tpu_torch.train.inner_loop import (
     InnerLoopConfig,
@@ -49,28 +46,19 @@ from enf_pde_tpu_torch.train.inner_loop import (
     make_train_inner_loop,
 )
 from enf_pde_tpu_torch.train.state import make_optimizers
+from enf_pde_tpu_torch.train.steps import (
+    frozen,
+    grad_leaves,
+    group_grads,
+    latent_rollout,
+    module_group,
+    phase_window,
+    rollout_loss,
+)
 
 __all__ = ["MetaSGDTrainer", "VAL_DP"]
 
 VAL_DP = (0.05, 0.1, 0.5)  # sparse-observation validation fractions
-
-
-def _leaves(group: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Fresh leaves of a state group to differentiate with respect to."""
-    return {k: v.detach().requires_grad_(True) for k, v in group.items()}
-
-
-@contextlib.contextmanager
-def _frozen(module: torch.nn.Module):
-    """Run with ``module``'s parameters out of autograd (restored after)."""
-    params = [p for p in module.parameters() if p.requires_grad]
-    for p in params:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p in params:
-            p.requires_grad_(True)
 
 
 class MetaSGDTrainer:
@@ -165,24 +153,16 @@ class MetaSGDTrainer:
         return state
 
     def nef_group(self) -> Dict[str, torch.Tensor]:
-        """The decoder's optimizer group: its parameters and its RFF coefficient buffers
-        (JAX's stop-gradient params, which AdamW decays)."""
-        return {**dict(self.decoder.named_parameters()), **dict(self.decoder.named_buffers())}
+        """The decoder's optimizer group (``module_group``)."""
+        return module_group(self.decoder)
 
     def ode_group(self) -> Dict[str, torch.Tensor]:
-        return {**dict(self.ode_model.named_parameters()), **dict(self.ode_model.named_buffers())}
+        return module_group(self.ode_model)
 
     # ------------------------------------------------------------------ losses
 
     def _rollout(self, latents, num_frames: int):
-        return solve_latent_ode(
-            f=lambda z, t: self.ode_model(z),
-            latents=latents,
-            t0=0,
-            tf=(num_frames - 1) * self.cfg.node.dt,
-            h=self.cfg.node.dt,
-            method=self.cfg.node.method,
-        )
+        return latent_rollout(self.ode_model, self.cfg, latents, num_frames)
 
     def _nef_loss(self, lrs, init, trajectory: torch.Tensor,
                   frame_idx: Optional[torch.Tensor] = None,
@@ -216,71 +196,39 @@ class MetaSGDTrainer:
         cfg = self.cfg
         T = cfg.dataset.traj_len_train
         trajectory = trajectory[:, :T]
-        b = trajectory.shape[0]
         if second_order:
             _, fitted = self.train_inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
                                               masks=masks)
         else:
             fitted = self.inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
                                      masks=masks)
-        sol = self._rollout(latents_to_pose(fitted), T)
-        p_fl, a_fl, w_fl = (x.reshape(b * T, *x.shape[2:]) for x in sol)
-
-        num_coords = self.coords.shape[0]
-        M = cfg.training.max_num_sampled_points
-        channels = trajectory.shape[-1]
-        traj_fl = trajectory.reshape(b, T, -1, channels)  # [b, T, N, C]
-        if M < num_coords:
-            if ode_masks is None:
-                ode_masks = torch.stack([torch.randperm(num_coords, generator=self.generator)[:M]
-                                         for _ in range(T)])
-            ode_masks = torch.as_tensor(ode_masks, dtype=torch.long).to(self.device)
-            xs = self.coords[ode_masks]  # [T, M, d]
-            xs = xs[None].expand(b, T, M, xs.shape[-1]).reshape(b * T, M, -1)
-            ys = traj_fl[:, torch.arange(T, device=self.device)[:, None], ode_masks]
-            ys = ys.reshape(b * T, M, channels)
-        else:
-            xs = self.coords[None, None].expand(b, T, num_coords, -1).reshape(b * T, num_coords, -1)
-            ys = traj_fl.reshape(b * T, num_coords, channels)
-        recon = self.decoder(xs, p_fl, a_fl, w_fl, backend=self.ode_backend)
-        return torch.mean((recon - ys) ** 2)
+        return rollout_loss(self.decoder, self.ode_backend, self.coords,
+                            self._rollout(latents_to_pose(fitted), T), trajectory,
+                            cfg.training.max_num_sampled_points, self.generator, ode_masks)
 
     # ------------------------------------------------------------------ gradients
 
     def nef_grads(self, state, trajectory, frame_idx=None, masks=None):
         """(loss, grads) of the nef phase: grads {'nef', 'meta_sgd_lrs', 'autodecoder'}."""
-        lrs, init = _leaves(state["meta_sgd_lrs"]), _leaves(state["autodecoder"])
+        lrs, init = grad_leaves(state["meta_sgd_lrs"]), grad_leaves(state["autodecoder"])
         loss = self._nef_loss(lrs, init, trajectory, frame_idx, masks)
-        return loss.detach(), self._grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
+        return loss.detach(), group_grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
                                           autodecoder=init)
 
     def ode_grads(self, state, trajectory, masks=None, ode_masks=None):
         """(loss, grads) of the ode phase: grads {'ode'}; the decoder is not differentiated."""
-        with _frozen(self.decoder):
+        with frozen(self.decoder):
             loss = self._ode_loss(state["meta_sgd_lrs"], state["autodecoder"], trajectory,
                                   second_order=False, masks=masks, ode_masks=ode_masks)
-            return loss.detach(), self._grads(loss, ode=self.ode_group())
+            return loss.detach(), group_grads(loss, ode=self.ode_group())
 
     def dual_grads(self, state, trajectory, masks=None, ode_masks=None):
         """(loss, grads) of the dual phase: {'nef', 'meta_sgd_lrs', 'autodecoder', 'ode'}."""
-        lrs, init = _leaves(state["meta_sgd_lrs"]), _leaves(state["autodecoder"])
+        lrs, init = grad_leaves(state["meta_sgd_lrs"]), grad_leaves(state["autodecoder"])
         loss = self._ode_loss(lrs, init, trajectory, second_order=True, masks=masks,
                               ode_masks=ode_masks)
-        return loss.detach(), self._grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
+        return loss.detach(), group_grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
                                           autodecoder=init, ode=self.ode_group())
-
-    @staticmethod
-    def _grads(loss, **groups):
-        """Gradients of ``loss`` for every tensor of the groups that requires grad;
-        zeros for the rest (buffers) and for the unused ones."""
-        flat = [(g, k, v) for g, leaves in groups.items() for k, v in leaves.items()
-                if v.requires_grad]
-        got = torch.autograd.grad(loss, [v for _, _, v in flat], allow_unused=True)
-        out = {g: {k: torch.zeros_like(v) for k, v in leaves.items()} for g, leaves in groups.items()}
-        for (g, k, _), d in zip(flat, got):
-            if d is not None:
-                out[g][k] = d
-        return out
 
     # ------------------------------------------------------------------ updates
 
@@ -359,11 +307,8 @@ class MetaSGDTrainer:
     # ------------------------------------------------------------------ phases
 
     def phase_window(self, epoch: int) -> Tuple[bool, bool]:
-        """(train_nef, train_ode) flags for this epoch (ref ``_base_pde_trainer.py:279-288``)."""
-        t = self.cfg.training
-        train_nef = t.nef.train_from_epoch < epoch <= t.nef.train_until_epoch
-        train_ode = t.ode.train_from_epoch < epoch <= t.ode.train_until_epoch
-        return train_nef, train_ode
+        """(train_nef, train_ode) flags for this epoch (``phase_window``)."""
+        return phase_window(self.cfg.training, epoch)
 
     def phase_active(self, epoch: int) -> bool:
         """Whether any training phase covers this epoch (``TrainLoop.run`` stops when not)."""
@@ -399,32 +344,12 @@ class MetaSGDTrainer:
         """Roll fitted latents forward ``num_frames`` (incl. t0): (p, a, window) trajectories."""
         return self._rollout(latents_to_pose(latents), num_frames)
 
-    @torch.no_grad()
     def decode(self, latent_traj, coords: Optional[torch.Tensor] = None,
                chunk_size: Optional[int] = None) -> torch.Tensor:
         """Decode latent trajectories (p, a, window), each [batch, T, ...], at ``coords``
         (default the training grid) in chunks of ``chunk_size`` points (default
-        ``max_num_sampled_points``) on ``eval_backend``; returns [batch, T, points, out].
-
-        On the kernel backend the weight folds, which depend on the latents only, and
-        K1's split of the shared weights run once for all chunks.
-        """
-        coords = self.coords if coords is None else coords
-        chunk = chunk_size or self.cfg.training.max_num_sampled_points
-        p, a, w = latent_traj
-        b, t = p.shape[0], p.shape[1]
-        p_fl, a_fl, w_fl = (x.reshape(b * t, *x.shape[2:]) for x in (p, a, w))
-        xs = coords[None].expand(b * t, *coords.shape)
-        dec = self.decoder
-        if self.eval_backend == "kernel":
-            folded = dec.fold(p_fl, a_fl)
-            _, split = split_weights(folded[4])
-
-            def apply_fn(x, pp, aa, ww):
-                return fused_decode_fwd(*dec.kernel_geometry(x, pp, ww), *folded,
-                                        num_heads=dec.num_heads, head_dim=dec.num_hidden,
-                                        split=split)
-        else:
-            apply_fn = dec
-        out = decode_chunked(apply_fn, xs, p_fl, a_fl, w_fl, chunk_size=chunk)
-        return out.reshape(b, t, coords.shape[0], -1)
+        ``max_num_sampled_points``) on ``eval_backend``; returns [batch, T, points, out]
+        (``models.decoder.decode_trajectories``)."""
+        return decode_trajectories(self.decoder, self.eval_backend,
+                                   self.coords if coords is None else coords, latent_traj,
+                                   chunk_size or self.cfg.training.max_num_sampled_points)

@@ -14,7 +14,7 @@ from typing import Callable, Dict
 
 import torch
 
-from enf_pde_tpu_torch.geometry.invariants import RelativePositionPolarPeriodic
+from enf_pde_tpu_torch.geometry.invariants import AbsolutePositionND, RelativePositionPolarPeriodic
 
 __all__ = [
     "equivariance_errors",
@@ -188,9 +188,11 @@ def equivariance_errors(decoder_apply: DecoderApply, coords, p, a, window, invar
     ``invariant`` is the decoder's cross-attention invariant (its class decides which
     group actions the architecture claims); ``coordinate_system`` the dataset's. On the
     sphere the SO(3)-invariant ``polar_periodic`` geometry gets the rotation check too.
-    The ball check chooses its flag by an invariant class that is not ported yet, so that
+    The non-equivariant ``abs_pos`` ablation claims no group action: ``{}``. The ball check chooses its flag by an invariant class that is not ported yet, so that
     geometry raises ``NotImplementedError``.
     """
+    if isinstance(invariant, AbsolutePositionND):
+        return {}
     if coordinate_system == "cartesian":
         return equivariance_errors_2d(decoder_apply, coords, p, a, window,
                                       has_orientation=invariant.num_z_ori_dims > 0,

@@ -339,8 +339,12 @@ def test_fit_main_trains_checkpoints_and_resumes(tmp_path):
     assert sorted(os.listdir(log_dir / "checkpoints")) == ["2", "3"]
 
     cfg = load_experiment_config("navier_stokes", over)
-    for bad, message in (("logging.use_wandb", "wandb"), ("meta.meta_sgd", "Autodecoding")):
-        cfg_bad = load_experiment_config("navier_stokes", [*over, f"{bad}={bad == 'logging.use_wandb'}"])
-        with pytest.raises(NotImplementedError, match=message):
-            run_experiment(cfg_bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="wandb"):
+        run_experiment(load_experiment_config("navier_stokes", [*over, "logging.use_wandb=true"]), device="cpu")
+    # meta.meta_sgd=false trains by autodecoding (tests/test_torch_autodecode.py): a latent
+    # table with a row for each training signal, no meta-SGD learning rates.
+    _, state = run_experiment(load_experiment_config(
+        "navier_stokes", [*over, "meta.meta_sgd=false", f"logging.log_dir={tmp_path / 'ad'}"]), device="cpu")
+    assert state["autodecoder"]["a"].shape == (4, cfg.nef.num_latents, cfg.nef.latent_dim)
+    assert set(state) == {"autodecoder", "opt"}
     assert cfg.dataset.path == str(data_dir)

@@ -23,7 +23,7 @@ from enf_pde_tpu_torch.convert import convert_params
 from enf_pde_tpu_torch.data import planar_coords
 from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.latents import latents_to_pose
-from enf_pde_tpu_torch.train import meta_sgd
+from enf_pde_tpu_torch.models import decoder as decoder_module
 from tests.test_torch_modules import assert_close, np_tree
 
 torch.set_num_threads(1)
@@ -139,9 +139,10 @@ def test_decode_splits_the_shared_weights_once(pair, monkeypatch):
     _, fc, frames, masks, _ = pair
     traj = fc.rollout(fc.fit(frames, masks=masks), 2)
     splits, seen = [], []
-    split_weights, fwd = meta_sgd.split_weights, meta_sgd.fused_decode_fwd
-    monkeypatch.setattr(meta_sgd, "split_weights", lambda ws: splits.append(split_weights(ws)) or splits[-1])
-    monkeypatch.setattr(meta_sgd, "fused_decode_fwd",
+    # The decode driver both trainers share, ``models.decoder.decode_trajectories``.
+    split_weights, fwd = decoder_module.split_weights, decoder_module.fused_decode_fwd
+    monkeypatch.setattr(decoder_module, "split_weights", lambda ws: splits.append(split_weights(ws)) or splits[-1])
+    monkeypatch.setattr(decoder_module, "fused_decode_fwd",
                         lambda *args, split=None, **kw: seen.append(split) or fwd(*args, split=split, **kw))
     got = fc.decode(traj, chunk_size=48)  # 6 chunks, the last one ragged
     assert got.shape == (BATCH, 2, SIZE * SIZE, 1)

@@ -337,12 +337,18 @@ SHIPPED_CONFIGS = sorted(p.stem for p in (Path(__file__).resolve().parents[1] / 
                                            / "configs").glob("*.yaml"))
 
 
-@pytest.mark.parametrize("name", SHIPPED_CONFIGS)
+# The paper's ablations run on the navier_stokes config with another invariant.
+ABLATION_RUNS = [f"navier_stokes nef.invariant_type={name}" for name in ("abs_pos", "rel_pos", "norm_rel_pos")]
+
+
+@pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)
 def test_k1_layout_accepts_every_shipped_decode_shape(name):
     """``k1_smem_bytes`` (the mirror of K1's ``layout``, its constants read from the source)
     accepts each config's decode widths: I from the config's cross-attention invariant,
-    hid = hidm = D = nef.num_hidden, H heads, its latents; the size does not grow with Z."""
-    nef = jax_load_config(name).nef
+    hid = hidm = D = nef.num_hidden, H heads, its latents; the size does not grow with Z.
+    The ablation runs add I = 2 and I = 1 at Navier-Stokes width."""
+    name, *overrides = name.split()
+    nef = jax_load_config(name, overrides).nef
     I, hid, H = jax_get_ca_invariant(nef).dim, nef.num_hidden, nef.num_heads
     smem = fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
     assert 0 < smem <= fd.k1_constants()["SMEM_CAP"] == 232_448
