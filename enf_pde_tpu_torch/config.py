@@ -17,7 +17,8 @@ import re
 from typing import Any, Iterable, Mapping
 
 __all__ = ["Config", "apply_overrides", "load_experiment_config", "NAVIER_STOKES",
-           "NAVIER_STOKES_NONMAML", "DIFFUSION_PLANE", "CAHN_HILLIARD", "DIFF_SPHERE", "SHALLOW_WATER"]
+           "NAVIER_STOKES_NONMAML", "DIFFUSION_PLANE", "CAHN_HILLIARD", "DIFF_SPHERE", "SHALLOW_WATER",
+           "IHC"]
 
 
 class Config(dict):
@@ -532,10 +533,87 @@ SHALLOW_WATER = {
     },
 }
 
+# ``enf_pde_tpu/experiments/configs/ihc.yaml``, key for key.
+IHC = {
+    "seed": 0,
+    "proj_name": "enf-pde-tpu",
+    "logging": {
+        "log_dir": "outputs/ihc",
+        "log_every_n_steps": 50,
+        "checkpoint_every_n_epochs": 50,
+        "keep_n_checkpoints": 1,
+        "checkpoint": True,
+        "resume": False,
+        "use_wandb": False,
+        "visualize_every_n_epochs": 0,
+    },
+    "dataset": {
+        "name": "ihc",
+        "batch_size": 1,
+        "traj_len_train": 10,
+        "traj_len_out_horizon": 4,
+        "path": "data/",
+        "num_signals_train": 512,
+        "num_signals_test": 128,
+    },
+    "nef": {
+        "num_in": 3,
+        "num_out": 1,
+        "num_layers": 0,
+        "num_hidden": 32,
+        "num_heads": 3,
+        "condition_value_transform": True,
+        "latent_dim": 32,
+        "num_latents": 25,
+        "gaussian_window": -1,
+        "optimize_gaussian_window": False,
+        "use_gaussian_window": True,
+        "embedding_type": "rff",
+        "embedding_freq_multiplier_invariant": 0.2,
+        "embedding_freq_multiplier_value": 0.5,
+        "invariant_type": "ball",
+        "backend": "xla",
+        "eval_backend": "pallas",
+    },
+    "node": {
+        "name": "ponita",
+        "num_layers": 3,
+        "num_hidden": 128,
+        "widening_factor": 2,
+        "kernel_size": "global",
+        "degree": 3,
+        "basis_dim": 64,
+        "dt": 1,
+        "method": "euler",
+    },
+    "training": {
+        "num_epochs": 2500,
+        "max_num_sampled_points": 2048,
+        "ode": {"train_from_epoch": 500, "train_until_epoch": 2000},
+        "nef": {"train_from_epoch": 0, "fit_on_num_steps": 2, "train_until_epoch": 500},
+    },
+    "test": {"test_interval": 100, "test_dp_interval": 1000, "test_equiv_at_epoch": 400},
+    "meta": {
+        "meta_sgd": True,
+        "num_inner_steps": 3,
+        "inner_learning_rate_p": 0.0,
+        "inner_learning_rate_a": 5.0,
+        "inner_learning_rate_window": 0.0,
+        "learning_rate_meta_sgd": 1.0e-4,
+        "noise_pos_inner_loop": 0.0,
+    },
+    "optimizer": {
+        "name": "adamw",
+        "learning_rate_enf": 1.0e-4,
+        "learning_rate_codes": 0.0,
+        "learning_rate_ode": 1.0e-3,
+    },
+}
+
 _EXPERIMENTS = {"navier_stokes": NAVIER_STOKES, "navier_stokes_nonmaml": NAVIER_STOKES_NONMAML,
                 "diffusion_plane": DIFFUSION_PLANE,
                 "cahn_hilliard": CAHN_HILLIARD, "diff_sphere": DIFF_SPHERE,
-                "shallow_water": SHALLOW_WATER}
+                "shallow_water": SHALLOW_WATER, "ihc": IHC}
 
 
 # PyYAML's implicit resolvers for untagged plain scalars (YAML 1.1), ``yaml/resolver.py``.
@@ -662,8 +740,5 @@ def load_experiment_config(name: str, overrides: Iterable[str] = ()) -> Config:
     """A fresh copy of a ported experiment's configuration, e.g. ``navier_stokes``,
     with ``key.sub=value`` overrides applied."""
     if name not in _EXPERIMENTS:
-        raise NotImplementedError(
-            f"Experiment {name!r} is not ported yet (ported: {sorted(_EXPERIMENTS)}); "
-            "see ROADMAP.md, Queue 1."
-        )
+        raise ValueError(f"Unknown experiment {name!r} (known: {sorted(_EXPERIMENTS)})")
     return apply_overrides(Config(copy.deepcopy(_EXPERIMENTS[name])), overrides)

@@ -3,9 +3,9 @@
 Counterpart of ``enf_pde_tpu/data/__init__.py``: ``get_dataloader(dataset_cfg) ->
 (train_loader, test_loader)``, each yielding ``(traj [b, T, *spatial, C], coords,
 indices)``; planar datasets use a [-1, 1]^2 grid, spherical ones the (phi, theta)
-generation grid. The solvers run on the card unless the caller asks for the CPU.
-Ported: the Navier-Stokes, ``diffusion_plane``, ``cahn_hilliard``, ``diff_sphere`` and
-shallow-water (``shallow_water``, ``shallow_water_low_res``) datasets (``data/registry.py``).
+generation grid, the ball a (phi, theta, r) meshgrid. The solvers run on the card unless
+the caller asks for the CPU. Every dataset of the JAX package's registry is ported
+(``data/registry.py``).
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ import numpy as np
 from enf_pde_tpu_torch.data.cache import TrajectoryCache, test_seed
 from enf_pde_tpu_torch.data.loader import TrajectoryLoader
 
-__all__ = ["get_dataloader", "planar_coords", "angular_coords", "TrajectoryLoader", "TrajectoryCache",
-           "test_seed"]
+__all__ = ["get_dataloader", "planar_coords", "angular_coords", "ball_coords", "TrajectoryLoader",
+           "TrajectoryCache", "test_seed"]
 
 
 def planar_coords(h: int, w: int, lo: float = -1.0, hi: float = 1.0) -> np.ndarray:
@@ -34,6 +34,16 @@ def angular_coords(phi: np.ndarray, theta: np.ndarray) -> np.ndarray:
     """(phi, theta) pairs of a sphere grid, flattened longitude-major like its frames."""
     P, T = np.meshgrid(phi, theta, indexing="ij")
     return np.stack([P, T], axis=-1).reshape(-1, 2).astype(np.float32)
+
+
+def ball_coords(nphi: int, ntheta: int, nr: int) -> np.ndarray:
+    """(phi, theta, r) of the ball's output grid (uniform phi, uniform theta in (0, pi) from
+    1e-3, r = linspace(0, 1)), flattened in the order of its frames [nphi, ntheta, nr]."""
+    phi = np.linspace(0, 2 * np.pi, nphi, endpoint=False)
+    theta = np.linspace(1e-3, np.pi, ntheta, endpoint=False)
+    r = np.linspace(0, 1, nr)
+    P, T, R = np.meshgrid(phi, theta, r, indexing="ij")
+    return np.stack([P, T, R], axis=-1).reshape(-1, 3).astype(np.float32)
 
 
 def get_dataloader(dataset_cfg, device="cuda") -> Tuple[TrajectoryLoader, TrajectoryLoader]:

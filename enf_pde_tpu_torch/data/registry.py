@@ -6,7 +6,8 @@ frame handling and the solver batch size. Ported: the Navier-Stokes datasets, th
 SE(2) planar ones (``diffusion_plane``, ``cahn_hilliard``), the heat equation on the
 sphere (``diff_sphere``, on its 128 x 64 (phi, theta) grid) and the Galewsky-jet shallow
 water on the sphere (``shallow_water`` on its 192 x 96 generation grid and
-``shallow_water_low_res`` on the 96 x 48 one, 2 x 2 mean-pooled; one cache serves both).
+``shallow_water_low_res`` on the 96 x 48 one, 2 x 2 mean-pooled; one cache serves both),
+and the Boussinesq convection in the ball (``ihc``, on its 48 x 24 x 24 output grid).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def _identity(x: np.ndarray) -> np.ndarray:
 
 def dataset_spec(name: str, dataset_cfg=None, device="cuda") -> DatasetSpec:
     """The spec of dataset ``name``; its solvers run on ``device``."""
-    from enf_pde_tpu_torch.data import angular_coords, planar_coords
+    from enf_pde_tpu_torch.data import angular_coords, ball_coords, planar_coords
 
     if name in ("navier_stokes", "navier_stokes_long"):
         from enf_pde_tpu_torch.data.navier_stokes import generate_ns_trajectories
@@ -130,7 +131,18 @@ def dataset_spec(name: str, dataset_cfg=None, device="cuda") -> DatasetSpec:
             cache_name="shallow_water",  # both resolutions share the cache
             postprocess=post,
         )
-    if name in DATASET_NAMES:
-        raise NotImplementedError(
-            f"Dataset {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 7.")
+    if name == "ihc":
+        from enf_pde_tpu_torch.data.ihc import full_size_solver, generate_ihc_trajectories
+
+        # Ra 1e6 Boussinesq convection (reference pdes.py:738-846), the solver built once at
+        # the first generation.
+        return DatasetSpec(
+            gen_train=lambda ids: generate_ihc_trajectories(ids, full_size_solver(device)),
+            gen_test=lambda ids: generate_ihc_trajectories([test_seed(i) for i in ids], full_size_solver(device)),
+            coords=ball_coords(48, 24, 24),
+            n_frames_train=None,
+            batch_size_gen=2,  # one batched block of two trajectories
+            cache_name="ihc_convection",
+            postprocess=lambda t: t[6:],
+        )
     raise ValueError(f"Unknown dataset name: {name!r}")

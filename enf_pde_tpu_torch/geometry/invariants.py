@@ -8,8 +8,10 @@ window that is added to the attention logits. Ported: the paper's ablations on R
 (``PonitaPos2D`` for cross attention, whose queries carry no orientation, ``Ponita2D``
 for the latent ODE), the SO(3) ``polar_periodic`` invariant on S^2 (the cosine of
 the great-circle angle, I = 1) and the longitude-only ``latitude_periodic`` one
-(``[theta_x, theta_p, cos dphi, sin dphi]``, I = 4); the ball names raise
-``NotImplementedError``.
+(``[theta_x, theta_p, cos dphi, sin dphi]``, I = 4), and on the solid ball the SO(3)
+``ball`` invariant (the query direction rotated into the latent's Z-Y-X Euler frame and
+both radii, I = 5) and the longitude-only ``ball_lat`` one (I = 6). An unknown name
+raises ``ValueError``.
 
 The window flavours are part of the trained-model contract: the planar default is the
 log-domain ``-(1/sigma^2) * d^2``; the torus window is ``+(1/sigma^2) * sum cos^2(pi*d)``;
@@ -34,6 +36,9 @@ __all__ = [
     "Ponita2D",
     "RelativePositionPolarPeriodic",
     "RelativeLatitudePeriodic",
+    "BallInvariant",
+    "BallLatInvariant",
+    "euler_zyx_matrix",
     "get_sa_invariant",
     "get_ca_invariant",
 ]
@@ -241,6 +246,69 @@ class RelativeLatitudePeriodic(BaseInvariant):
         return _sphere_window(_great_circle_cos(x[:, :, :2], p[:, :, :2]), sigma)
 
 
+def euler_zyx_matrix(alpha, beta, gamma) -> torch.Tensor:
+    """The Z-Y-X Euler rotation Rz(alpha) @ Ry(beta) @ Rx(gamma), rows on axis -2: [..., 3, 3]."""
+    ca, sa = torch.cos(alpha), torch.sin(alpha)
+    cb, sb = torch.cos(beta), torch.sin(beta)
+    cg, sg = torch.cos(gamma), torch.sin(gamma)
+    return torch.stack(
+        [
+            torch.stack([ca * cb, ca * sb * sg - sa * cg, ca * sb * cg + sa * sg], dim=-1),
+            torch.stack([sa * cb, sa * sb * sg + ca * cg, sa * sb * cg - ca * sg], dim=-1),
+            torch.stack([-sb, cb * sg, cb * cg], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _radii(x, p):
+    """The query's and the latent's radius, each broadcast to [b, n, z, 1]."""
+    shape = (x.shape[0], x.shape[1], p.shape[1], 1)
+    return x[:, :, None, 2:3].expand(shape), p[:, None, :, 3:4].expand(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class BallInvariant(BaseInvariant):
+    """SO(3) bi-invariant on the solid ball B^3. Queries are spherical coordinates
+    (phi, theta, r), latent poses Euler angles and a radius (alpha, beta, gamma, r): the
+    query's direction rotated by the pose's Z-Y-X rotation, then both radii (I = 5). Its
+    window reads (alpha, beta) as sphere angles (see the module docstring)."""
+
+    def __init__(self):
+        super().__init__(dim=5, num_x_pos_dims=3, num_x_ori_dims=0, num_z_pos_dims=4,
+                         num_z_ori_dims=0)
+
+    def __call__(self, x, p):
+        xv = _sphere_unit_vec(x[:, :, 0], x[:, :, 1])  # [b, n, 3]
+        rot = euler_zyx_matrix(p[:, :, 0], p[:, :, 1], p[:, :, 2])  # [b, z, 3, 3]
+        rotated = torch.einsum("bzij,bnj->bnzi", rot, xv)
+        return torch.cat([rotated, *_radii(x, p)], dim=-1)
+
+    def gaussian_window(self, x, p, sigma):
+        return _sphere_window(_great_circle_cos(x[:, :, :2], p[:, :, :2]), sigma)
+
+
+@dataclasses.dataclass(frozen=True)
+class BallLatInvariant(BaseInvariant):
+    """Longitude-invariant ball variant: ``[theta_x, theta_p, cos dphi, sin dphi, r_x,
+    r_p]`` (I = 6), poses (phi, theta, <unused>, r). The sphere window of (phi, theta)."""
+
+    def __init__(self):
+        super().__init__(dim=6, num_x_pos_dims=3, num_x_ori_dims=0, num_z_pos_dims=4,
+                         num_z_ori_dims=0)
+
+    def __call__(self, x, p):
+        shape = (x.shape[0], x.shape[1], p.shape[1])
+        th_x = x[:, :, None, 1].expand(shape)
+        th_p = p[:, None, :, 1].expand(shape)
+        dphi = x[:, :, None, 0] - p[:, None, :, 0]
+        angular = torch.stack([th_x, th_p, torch.cos(dphi), torch.sin(dphi)], dim=-1)
+        return torch.cat([angular, *_radii(x, p)], dim=-1)
+
+    def gaussian_window(self, x, p, sigma):
+        return _sphere_window(_great_circle_cos(x[:, :, :2], p[:, :, :2]), sigma)
+
+
 def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant:
     if name == "norm_rel_pos":
         return NormRelativePositionND(num_dims)
@@ -261,9 +329,11 @@ def _build(name: str, num_dims: int, for_cross_attention: bool) -> BaseInvariant
         return RelativePositionPolarPeriodic()
     if name == "latitude_periodic":
         return RelativeLatitudePeriodic()
-    raise NotImplementedError(
-        f"Invariant {name!r} is not ported yet; see ROADMAP.md, Queue 1 item 7."
-    )
+    if name == "ball":
+        return BallInvariant()
+    if name == "ball_lat":
+        return BallLatInvariant()
+    raise ValueError(f"Unknown invariant type: {name!r}")
 
 
 def get_sa_invariant(nef_cfg) -> BaseInvariant:

@@ -1,10 +1,10 @@
-"""Deterministic latent-pose initializers (cartesian and polar).
+"""Deterministic latent-pose initializers (cartesian, polar and ball).
 
 Counterpart of ``enf_pde_tpu/geometry/latent_init.py``: a cell-centred grid over
 [-1, 1]^d (``num_latents = k**d``), the orientations of SE(2) latents, a (phi, theta)
 grid on the sphere with twice the resolution in longitude (``num_latents = 2 k**2``),
-and the window size that makes neighbouring windows overlap. The ball geometry is not
-ported yet.
+Fibonacci-lattice Euler angles on the ball at radius 0.75, and the window size that makes
+neighbouring windows overlap.
 """
 
 from __future__ import annotations
@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["init_positions_grid", "init_positions_polar", "init_orientations_grid",
-           "default_gaussian_window_size"]
+__all__ = ["init_positions_grid", "init_positions_polar", "init_positions_ball",
+           "init_orientations_grid", "default_gaussian_window_size"]
 
 
 def _latents_per_dim(num_latents: int, num_dims: int) -> int:
@@ -57,6 +57,20 @@ def init_positions_polar(num_signals: int, num_latents: int, num_dims: int) -> t
     return pos[None].repeat(num_signals, 1, 1)
 
 
+def init_positions_ball(num_signals: int, num_latents: int, num_dims: int) -> torch.Tensor:
+    """Fibonacci-lattice Euler angles and a linear roll at radius 0.75, in f32: alpha =
+    arccos(1 - 2 i / (n + 1)), beta = pi (1 + sqrt 5) i for i = 1..n, gamma = 2 pi k / n.
+    Returns [num_signals, num_latents, 4] with columns (alpha, beta, gamma, r); ``num_dims``
+    is unused (the poses are 4-wide), as in the JAX package."""
+    idx = np.arange(1, num_latents + 1, dtype=np.float32)
+    alpha = np.arccos(np.float32(1) - np.float32(2) * idx / np.float32(num_latents + 1))
+    beta = np.float32(np.pi * (1 + 5**0.5)) * idx
+    gamma = np.arange(0, 2 * np.pi, 2 * np.pi / num_latents, dtype=np.float32)
+    radius = np.full(num_latents, 0.75, dtype=np.float32)
+    pos = torch.from_numpy(np.stack([alpha, beta, gamma, radius], axis=-1))
+    return pos[None].repeat(num_signals, 1, 1)
+
+
 def init_orientations_grid(num_signals: int, num_latents: int) -> torch.Tensor:
     """Rotation-covariant orientations: arctan2 of the 2D grid position. Returns
     [num_signals, num_latents, 1]."""
@@ -70,6 +84,6 @@ def default_gaussian_window_size(coordinate_system: str, num_latents: int, num_p
         return num_pos_dims / _latents_per_dim(num_latents, num_pos_dims)
     if coordinate_system == "polar":
         return float(num_pos_dims * np.pi / _latents_per_dim(num_latents // 2, num_pos_dims))
-    raise NotImplementedError(
-        f"Coordinate system {coordinate_system!r} is not ported yet; see ROADMAP.md."
-    )
+    if coordinate_system == "ball":
+        return 1.0
+    raise ValueError(f"Unknown coordinate system: {coordinate_system!r}")

@@ -15,6 +15,7 @@ import torch
 from enf_pde_tpu_torch.geometry.latent_init import (
     default_gaussian_window_size,
     init_orientations_grid,
+    init_positions_ball,
     init_positions_grid,
     init_positions_polar,
 )
@@ -33,18 +34,18 @@ def init_latents(
     coordinate_system: str = "cartesian",
     gaussian_window_size: Optional[float] = None,
 ) -> LatentParams:
-    """Latents for ``num_signals`` signals: grid positions (cartesian, or a (phi, theta)
-    grid on the sphere for ``polar``), with ``num_ori_dims`` > 0 their orientations (2D
+    """Latents for ``num_signals`` signals: grid positions (cartesian, a (phi, theta) grid
+    on the sphere for ``polar``, Fibonacci Euler angles and a radius for ``ball``), with ``num_ori_dims`` > 0 their orientations (2D
     only), unit contexts, and a window size that defaults (``None`` or negative) to the
     latent spacing."""
     if coordinate_system == "cartesian":
         p_pos = init_positions_grid(num_signals, num_latents, num_pos_dims)
     elif coordinate_system == "polar":
         p_pos = init_positions_polar(num_signals, num_latents, num_pos_dims)
+    elif coordinate_system == "ball":
+        p_pos = init_positions_ball(num_signals, num_latents, num_pos_dims)
     else:
-        raise NotImplementedError(
-            f"Coordinate system {coordinate_system!r} is not ported yet; see ROADMAP.md."
-        )
+        raise ValueError(f"Unknown coordinate system: {coordinate_system!r}")
     params: LatentParams = {"p_pos": p_pos}
     if num_ori_dims > 0:
         if num_pos_dims != 2:

@@ -14,7 +14,12 @@ from typing import Callable, Dict
 
 import torch
 
-from enf_pde_tpu_torch.geometry.invariants import AbsolutePositionND, RelativePositionPolarPeriodic
+from enf_pde_tpu_torch.geometry.invariants import (
+    AbsolutePositionND,
+    BallInvariant,
+    RelativePositionPolarPeriodic,
+    euler_zyx_matrix,
+)
 
 __all__ = [
     "equivariance_errors",
@@ -63,23 +68,8 @@ def _rotation_matrix(a: float = 0.7, b: float = 0.4, c: float = 0.2) -> torch.Te
     return rz(a) @ ry @ rz(c)
 
 
-def _euler_zyx_matrix(alpha, beta, gamma) -> torch.Tensor:
-    """Rz(alpha) @ Ry(beta) @ Rx(gamma), rows on axis -2 (matches BallInvariant)."""
-    ca, sa = torch.cos(alpha), torch.sin(alpha)
-    cb, sb = torch.cos(beta), torch.sin(beta)
-    cg, sg = torch.cos(gamma), torch.sin(gamma)
-    return torch.stack(
-        [
-            torch.stack([ca * cb, ca * sb * sg - sa * cg, ca * sb * cg + sa * sg], dim=-1),
-            torch.stack([sa * cb, sa * sb * sg + ca * cg, sa * sb * cg - ca * sg], dim=-1),
-            torch.stack([-sb, cb * sg, cb * cg], dim=-1),
-        ],
-        dim=-2,
-    )
-
-
 def _matrix_to_euler_zyx(M: torch.Tensor):
-    """Inverse of ``_euler_zyx_matrix`` (generic branch; gimbal lock unhandled)."""
+    """Inverse of ``euler_zyx_matrix`` (generic branch; gimbal lock unhandled)."""
     beta = torch.arcsin(torch.clamp(-M[..., 2, 0], -1.0, 1.0))
     alpha = torch.atan2(M[..., 1, 0], M[..., 0, 0])
     gamma = torch.atan2(M[..., 2, 1], M[..., 2, 2])
@@ -169,7 +159,7 @@ def equivariance_errors_ball(decoder_apply: DecoderApply, coords, p, a, window,
         Q = _rotation_matrix().to(coords)
         dirs = _vec_to_angles(_angles_to_vec(coords[..., :2]) @ Q.T)
         coords_r = torch.cat([dirs, coords[..., 2:3]], dim=-1)
-        R = _euler_zyx_matrix(p[..., 0], p[..., 1], p[..., 2])
+        R = euler_zyx_matrix(p[..., 0], p[..., 1], p[..., 2])
         alpha, beta, gamma = _matrix_to_euler_zyx(R @ Q.T)
         p_r = torch.stack([alpha, beta, gamma, p[..., 3]], dim=-1)
         out["rotation"] = _rel_err(base, decoder_apply(coords_r, p_r, a, window))
@@ -188,8 +178,8 @@ def equivariance_errors(decoder_apply: DecoderApply, coords, p, a, window, invar
     ``invariant`` is the decoder's cross-attention invariant (its class decides which
     group actions the architecture claims); ``coordinate_system`` the dataset's. On the
     sphere the SO(3)-invariant ``polar_periodic`` geometry gets the rotation check too.
-    The non-equivariant ``abs_pos`` ablation claims no group action: ``{}``. The ball check chooses its flag by an invariant class that is not ported yet, so that
-    geometry raises ``NotImplementedError``.
+    On the ball the Euler-angle ``ball`` invariant gets the joint rotation, ``ball_lat`` the
+    longitude shift. The non-equivariant ``abs_pos`` ablation claims no group action: ``{}``.
     """
     if isinstance(invariant, AbsolutePositionND):
         return {}
@@ -201,6 +191,6 @@ def equivariance_errors(decoder_apply: DecoderApply, coords, p, a, window, invar
         return equivariance_errors_sphere(decoder_apply, coords, p, a, window,
                                           full_so3=isinstance(invariant, RelativePositionPolarPeriodic))
     if coordinate_system == "ball":
-        raise NotImplementedError(
-            f"The {coordinate_system} invariants are not ported yet; see ROADMAP.md, Queue 1 item 7.")
+        return equivariance_errors_ball(decoder_apply, coords, p, a, window,
+                                        euler_poses=isinstance(invariant, BallInvariant))
     raise ValueError(f"Unknown coordinate system: {coordinate_system!r}")

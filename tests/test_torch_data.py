@@ -198,14 +198,12 @@ def test_registry_names_and_test_seeds(monkeypatch):
     long.gen_train(np.arange(1))
     assert seen[-1][1] == 60 and long.cache_name == "navier_stokes_long"
     # diffusion_plane, cahn_hilliard (tests/test_torch_planar_data.py), diff_sphere
-    # (tests/test_torch_sphere_data.py) and both shallow-water datasets
-    # (tests/test_torch_shallow_water_data.py) have specs; the datasets after them do not yet.
+    # (tests/test_torch_sphere_data.py), both shallow-water datasets
+    # (tests/test_torch_shallow_water_data.py) and ihc (tests/test_torch_ihc_data.py) have specs.
     assert DATASET_NAMES[4] == "diff_sphere" and dataset_spec("diff_sphere", device="cpu").cache_name == "diff_sphere"
     assert DATASET_NAMES[5:7] == ("shallow_water", "shallow_water_low_res")
     assert {dataset_spec(n, device="cpu").cache_name for n in DATASET_NAMES[5:7]} == {"shallow_water"}
-    for name in DATASET_NAMES[7:]:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            dataset_spec(name)
+    assert DATASET_NAMES[7:] == ("ihc",) and dataset_spec("ihc", device="cpu").cache_name == "ihc_convection"
     with pytest.raises(ValueError):
         dataset_spec("no_such_dataset")
 

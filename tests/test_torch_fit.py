@@ -28,7 +28,12 @@ from enf_pde_tpu_torch.data.cache import TrajectoryCache
 from enf_pde_tpu_torch.data.navier_stokes import GaussianRF2D, default_forcing, navier_stokes_rollout
 from enf_pde_tpu_torch.experiments.fit import main as fit_main
 from enf_pde_tpu_torch.experiments.fit import run_experiment
-from enf_pde_tpu_torch.geometry.invariants import RelativePositionPeriodic, RelativePositionPolarPeriodic
+from enf_pde_tpu_torch.geometry.invariants import (
+    BallInvariant,
+    BallLatInvariant,
+    RelativePositionPeriodic,
+    RelativePositionPolarPeriodic,
+)
 from enf_pde_tpu_torch.ops.layers import reset_parameters
 from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
 from enf_pde_tpu_torch.train.loop import TrainLoop
@@ -256,12 +261,17 @@ def test_decoder_is_torus_translation_equivariant():
     with torch.no_grad():  # a decode with the coordinates shifted and the poses not is flagged
         assert float((decoder(x + 0.3, p, a, w) - decoder(x, p, a, w)).abs().max()) > 1e-3
     # The sphere dispatches to the S^2 check: the longitude shift, and a rotation for the
-    # SO(3)-invariant polar_periodic geometry. The ball is not ported yet.
+    # SO(3)-invariant polar_periodic geometry. The ball dispatches to its check: the joint
+    # rotation for the Euler-angle ball invariant, else the longitude shift (ball_lat).
     assert set(teq.equivariance_errors(decoder, x, p, a, w, RelativePositionPeriodic(2), "polar")) == {"longitude"}
     assert set(teq.equivariance_errors(decoder, x, p, a, w, RelativePositionPolarPeriodic(), "polar")) == {
         "longitude", "rotation"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        teq.equivariance_errors(decoder, x, p, a, w, RelativePositionPeriodic(2), "ball")
+    xb = torch.cat([x, torch.rand(2, 32, 1, generator=gen)], dim=-1)  # (phi, theta, r)
+    pb = torch.cat([p, torch.rand(2, 4, 2, generator=gen)], dim=-1)  # (alpha, beta, gamma, r)
+    ball_dec, _ = build_models(load_experiment_config("ihc", ["nef.num_latents=4", "nef.latent_dim=16"]))
+    reset_parameters(ball_dec, torch.Generator().manual_seed(5))
+    assert set(teq.equivariance_errors(ball_dec, xb, pb, a, w, BallInvariant(), "ball")) == {"rotation"}
+    assert set(teq.equivariance_errors(ball_dec, xb, pb, a, w, BallLatInvariant(), "ball")) == {"longitude"}
 
 
 # ----------------------------------------------------------------- side fits, figures

@@ -337,8 +337,10 @@ SHIPPED_CONFIGS = sorted(p.stem for p in (Path(__file__).resolve().parents[1] / 
                                            / "configs").glob("*.yaml"))
 
 
-# The paper's ablations run on the navier_stokes config with another invariant.
+# The paper's ablations run on the navier_stokes config with another invariant, and
+# ball_lat (I = 6) on the ihc config.
 ABLATION_RUNS = [f"navier_stokes nef.invariant_type={name}" for name in ("abs_pos", "rel_pos", "norm_rel_pos")]
+ABLATION_RUNS.append("ihc nef.invariant_type=ball_lat")
 
 
 @pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)

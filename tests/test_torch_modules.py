@@ -90,8 +90,10 @@ def test_config_attribute_access_and_unported_name():
     cfg.set_path("nef.num_hidden", 32)
     assert cfg.get_path("nef.num_hidden") == 32
     assert load_experiment_config("navier_stokes").nef.num_hidden == 128  # a fresh copy
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_experiment_config("ihc")
+    # Every shipped experiment is ported (ihc last); an unknown name raises.
+    assert load_experiment_config("ihc").nef.invariant_type == "ball"
+    with pytest.raises(ValueError, match="no_such_experiment"):
+        load_experiment_config("no_such_experiment")
 
 
 # ----------------------------------------------------------------- geometry
@@ -117,8 +119,11 @@ def test_base_window_is_planar_log_domain():
 
 
 def test_unported_invariant_raises():
-    cfg = Config({"invariant_type": "ball", "num_in": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every invariant name of the JAX package builds (the ball ones last); an unknown name
+    raises ``ValueError``, as JAX's ``_build`` does."""
+    assert get_ca_invariant(Config({"invariant_type": "ball", "num_in": 3})).dim == 5
+    cfg = Config({"invariant_type": "no_such_invariant", "num_in": 2})
+    with pytest.raises(ValueError, match="no_such_invariant"):
         get_ca_invariant(cfg)
 
 
