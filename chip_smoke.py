@@ -149,8 +149,7 @@ then the paper's two baselines on phase 7's Navier-Stokes data (16 + 8 signals):
     the eager ones at I = 2 (the key bias's gradient, 0 by structure there, held to rounding
     of the step's gradient norm instead); one full-width ode step with ``node.name=mlp``:
     a finite loss, a moved ODE, K1 and K2 once each (counted apart from the abs_pos run's
-    launches, which the kernels line reports). Then phase 7's data is removed: the
-    output directory that comes back stays small.
+    launches, which the kernels line reports).
 
 then convection in the solid ball, ``ihc`` at its full published width (decoder hidden 32,
 3 heads, 25 latents of 32 with Fibonacci Euler-angle poses, the ``ball`` invariant: I = 5,
@@ -179,10 +178,50 @@ the 48 x 24 x 24 ball grid):
     ``Forecaster.forecast`` of 8 generated frames (the first two of each trajectory) for
     20 frames through K1, with its stages.
 
+then the rest of the decoder family at the Navier-Stokes width (phase 7's data is kept for
+phase 28 and removed after it):
+
+26. the decoder with 2 latent self-attention blocks (``nef.num_layers=2``, seeded random
+    weights): K1 on the folded, attended latents against the eager decoder at 160 x 512 and
+    a ragged 8 x 1000 (rel-L2 <= 1e-5), K1's time at 160 x 512 beside phase 4's, the fold's
+    time with the blocks; the ode and dual steps on K1 + K2 against the eager ones (rel-L2
+    <= 1e-5) with the cotangent 0 at the points within 1e-6 of an RFF ReLU's kink, as K2's
+    check in phase 5, the same points on both sides (printed beside, with no gate: how many
+    points that stops, the whole steps' errors, and each f32 step's distance from the step
+    in float64 with the whole cotangent and with those points stopped: a few such points
+    move the ODE's gradient by about the gate); the same numbers, with no gate, on a second
+    draw of weights, frames and masks;
+27. second order through K1 and K2 (``nef.backend=pallas``) at ``num_layers`` 0 and 2: the
+    nef step on the kernels against the same step on the eager decoder from the same state,
+    frames and masks (loss within 1e-5 relative, every gradient tensor within rel-L2 1e-4;
+    both steps' distances from the eager step in float64 printed beside),
+    ``Forecaster.fit`` on the kernels against the eager fit (fitted latents within 1e-4), the
+    launches of each (a nef step: K + 1 K1 and 2K + 1 K2; a fit: K and K), warm medians of
+    both on both backends, one nef step under ``utils.profiling.trace`` (its ten costliest
+    device operations and the card's busy share of the traced window), and K1 and K2 at the
+    nef step's 16 x 512 and the fit's 8 x 512 against their plain versions, timed;
+28. the slice end to end: ``run_experiment`` for ``navier_stokes nef.num_layers=2
+    nef.backend=pallas`` on phase 7's data for 3 epochs (nef, dual, ode) with validation, the
+    dp variants and the equivariance check: the run record's backends (kernel for training,
+    evaluation and the ode decode), finite metrics, K1's and K2's launches against the
+    loop's arithmetic; then ``Forecaster.from_checkpoint`` on its log directory (fit on the
+    eager decoder, decode on K1, as JAX's default ``backend='pallas'``) forecasts 8 test
+    frames for 20 frames bit for bit as a ``Forecaster`` built from the run's final state,
+    with its stages;
+29. the other options on the eager path: one nef and one ode step with
+    ``nef.embedding_type=ffn`` and ``=polynomial`` (multipliers 2: degree 2), whose backends
+    resolve to eager with no K1 or K2 launch, finite losses; the ``EquivariantTransformer``
+    (hidden 128, 2 heads, 2 layers, with and without global pooling) on phase 28's fitted
+    latents, card against CPU within rel-L2 1e-5.
+
 Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
 config's paths, its time at that config's forecast launch shape (``ihc`` included), or for the baselines at
 phase 20's shape; the Navier-Stokes entry's error includes phase 13's) and K2 at the
-Navier-Stokes, ``shallow_water`` and ``abs_pos`` ode steps' shapes; each kernel's
+Navier-Stokes, ``shallow_water`` and ``abs_pos`` ode steps' shapes; behind the
+self-attention stack, K1 at 160 x 512, the nef step's 16 x 512 and the fit's 8 x 512, and
+K2 at 16 x 512 with weight gradients and at 8 x 512 with and without, each with its
+launches at that shape (and mode) in phase 28's run and forecast and its error against its
+plain version at that shape (phases 26-27); each kernel's
 ``bound_ms`` is that of the route it takes, 3xTF32 on the tensor cores, or bytes where
 they take longer. Last,
 ``{"ok": true, "device": {...}}``.
@@ -200,6 +239,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -225,9 +265,11 @@ from enf_pde_tpu_torch.data.shallow_water import (
     sw_grid,
 )
 from enf_pde_tpu_torch.experiments.fit import run_experiment, super_resolution_eval
+from enf_pde_tpu_torch.geometry.invariants import get_sa_invariant
 from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.decoder import decode_chunked
 from enf_pde_tpu_torch.models.latents import latents_to_pose
+from enf_pde_tpu_torch.models.transformer import EquivariantTransformer
 from enf_pde_tpu_torch.ops import cuda_lib
 from enf_pde_tpu_torch.ops.fused_decode import (
     BWD_KERNEL_SOURCE,
@@ -243,9 +285,11 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
+from enf_pde_tpu_torch.train.inner_loop import make_inner_loop, make_train_inner_loop
 from enf_pde_tpu_torch.train.logging import MetricLogger
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 from enf_pde_tpu_torch.utils.equivariance import equivariance_errors
+from enf_pde_tpu_torch.utils.profiling import trace
 
 SEED = 0
 REL_L2_TOL = 1e-5  # f32 kernel vs f32 plain version: only the order of the sums differs
@@ -273,6 +317,10 @@ SW_FRAMES = 20  # generate_sw_trajectories' protocol: 20 records of STEPS_PER_RE
 IHC_SIGNALS = 2  # ball-convection trajectories a split: one batched block (batch_size_gen)
 BALL_STEPS = 200  # solver steps of seed 0 held card against CPU
 BALL_TOL = 1e-8  # rel-L2 of those float64 states (cuFFT / cuBLAS / cuSOLVER vs the CPU's rounding)
+SA_LAYERS = 2  # nef.num_layers of the self-attention phases (26-28)
+# The nef step and the fit on the kernels against eager: K2's 3xTF32 values enter three inner
+# steps and a second-order outer gradient, which the first-order checks' 1e-5 does not cover.
+NEF_TOL = 1e-4
 # Output channels of each config's data, where not 1 (``prepare`` sets ``nef.num_out`` from it).
 NUM_OUT = {"shallow_water": 3}
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -289,17 +337,17 @@ def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(x - ref) / torch.linalg.vector_norm(ref))
 
 
-def check_close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    """Fail unless ``out`` matches ``ref`` within REL_L2_TOL; return the max abs error."""
+def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float = REL_L2_TOL) -> float:
+    """Fail unless ``out`` matches ``ref`` within rel-L2 ``tol``; return the max abs error."""
     if out.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite values")
     rel = rel_l2(out, ref)
     err = float((out - ref).abs().max())
-    log(f"[check] {name}: rel_l2 {rel:.3e} max_abs_err {err:.3e} (tol rel_l2 {REL_L2_TOL:g})")
-    if not rel <= REL_L2_TOL:
-        raise AssertionError(f"{name}: rel_l2 {rel:.3e} > {REL_L2_TOL:g}")
+    log(f"[check] {name}: rel_l2 {rel:.3e} max_abs_err {err:.3e} (tol rel_l2 {tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: rel_l2 {rel:.3e} > {tol:g}")
     return err
 
 
@@ -404,14 +452,14 @@ def grad_errors(got, want):
     return worst, worst_name, err, n
 
 
-def check_grads(label: str, got, want) -> float:
-    """Hold every gradient tensor of ``got`` against ``want`` within REL_L2_TOL (see
+def check_grads(label: str, got, want, tol: float = REL_L2_TOL) -> float:
+    """Hold every gradient tensor of ``got`` against ``want`` within rel-L2 ``tol`` (see
     ``grad_errors``); one line; returns the max abs error."""
     worst, worst_name, err, n = grad_errors(got, want)
     log(f"[check] {label}: {n} tensors, worst rel_l2 {worst:.3e} ({worst_name}), max_abs_err "
-        f"{err:.3e} (tol rel_l2 {REL_L2_TOL:g} each)")
-    if not worst <= REL_L2_TOL:
-        raise AssertionError(f"{label}: {worst_name} rel_l2 {worst:.3e} > {REL_L2_TOL:g}")
+        f"{err:.3e} (tol rel_l2 {tol:g} each)")
+    if not worst <= tol:
+        raise AssertionError(f"{label}: {worst_name} rel_l2 {worst:.3e} > {tol:g}")
     return err
 
 
@@ -447,6 +495,15 @@ def decode_inputs(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=N
     """The kernels' inputs at full width for ``b`` frames of seeded random latents decoded
     at ``M`` coordinates drawn from ``coords`` (all of them, in order, when ``M`` is their
     number): ``(inv, wb, A, ab, G, c, ws, tws)`` with the tail."""
+    decoder, x, p, a, w = random_decode(cfg, coords, dev, b, M, seed, gen)
+    with torch.no_grad():
+        return decoder.kernel_inputs(x, p, a, w)
+
+
+def random_decode(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=None):
+    """A decoder of ``cfg`` with seeded random weights and ``(x, p, a, w)``: ``b`` frames of
+    seeded random latents and ``M`` coordinates drawn from ``coords`` (all of them, in
+    order, when ``M`` is their number)."""
     decoder, _ = build_models(cfg)
     reset_parameters(decoder, torch.Generator().manual_seed(SEED))
     decoder.to(dev)
@@ -463,17 +520,18 @@ def decode_inputs(cfg, coords: np.ndarray, dev, b: int, M: int, seed: int, gen=N
     p = p.to(dev)
     a = (1 + 0.5 * torch.randn(b, Z, cfg.nef.latent_dim, generator=gen)).to(dev)
     w = torch.full((b, Z, 1), 1.0, device=dev)
-    with torch.no_grad():
-        return decoder.kernel_inputs(x, p, a, w)
+    return decoder, x, p, a, w
 
 
-def k2_inputs(cfg, coords: np.ndarray, dev):
+def k2_inputs(cfg, coords: np.ndarray, dev, b=None):
     """K2's inputs at the ode step's decode shape (batch x ``traj_len_train`` frames x
     ``max_num_sampled_points``, full width: 80 x 512 for Navier-Stokes, 10 x 2048 for
-    shallow water), and a cotangent for each mode: ``(args, {with_tail: g})``."""
+    shallow water), or ``b`` frames of that many points, and a cotangent for each mode:
+    ``(args, {with_tail: g})``."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     gen = torch.Generator().manual_seed(SEED + 2)
-    b, M = cfg.dataset.batch_size * cfg.dataset.traj_len_train, cfg.training.max_num_sampled_points
+    b = b or cfg.dataset.batch_size * cfg.dataset.traj_len_train
+    M = cfg.training.max_num_sampled_points
     args = decode_inputs(cfg, coords, dev, b, M, SEED + 2, gen)
     g = {tail: torch.randn(b, M, cfg.nef.num_out if tail else H * D, generator=gen).to(dev)
          for tail in (True, False)}
@@ -574,10 +632,11 @@ def k2_bounds(cfg, args, g, wg: bool) -> dict:
                 bound_by="bytes" if b_bytes >= b_tc else "operations")
 
 
-def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
-    """5 / 17. K2 against its plain version at the ode step's decode shape; its timing."""
+def k2_phase(cfg, coords: np.ndarray, dev, b=None) -> dict:
+    """5 / 17 / 20 / 27. K2 against its plain version at the ode step's decode shape (or at
+    ``b`` frames of it); its timing."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
-    args, g = k2_inputs(cfg, coords, dev)
+    args, g = k2_inputs(cfg, coords, dev, b)
     max_err = k2_check(cfg, args, g)
     B, Zl, C = args[0].shape[:3]
     timing = {}
@@ -594,37 +653,110 @@ def k2_phase(cfg, coords: np.ndarray, dev) -> dict:
     return {"max_abs_err": max_err, "timing": timing}
 
 
-def make_trainer(cfg, coords: np.ndarray) -> MetaSGDTrainer:
+def make_trainer(cfg, coords: np.ndarray, seed: int = SEED) -> MetaSGDTrainer:
     decoder, ode_model = build_models(cfg)
-    return MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=SEED, device="cuda")
+    return MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=seed, device="cuda")
 
 
-def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev, zero_by_structure=()) -> float:
-    """6 / 17 / 22. ode and dual step on K1 + K2 against the eager decoder, on trajectories
-    ``traj`` [batch, frames, *grid, channels]: loss and gradients. ``zero_by_structure``
-    names decoder gradients that are 0 in exact arithmetic (``abs_pos``: the key bias, whose
-    term q . b is the same for every latent and cancels in the softmax). Their relative
-    error is rounding over rounding; instead both sides must lie below 1e-6 of the step's
-    whole gradient norm, and they leave the relative check."""
-    trainer = make_trainer(cfg, coords)
+class TieStop(torch.nn.Module):
+    """``decoder`` with the cotangent 0 at the points where an RFF ReLU of its kernel inputs
+    lies within TIE_MARGIN of its kink (``relu_ties``): the values are the decoder's, the
+    gradient there is none. There two right f32 VJPs differ by a unit's whole share, as in
+    ``k2_check``. The first wrapper finds the points of each decode and keeps them in
+    ``masks``; a wrapper given ``masks`` stops the same points in the same order of decodes,
+    so every side of a step check (kernels, eager, float64) drops the same terms."""
+
+    def __init__(self, decoder, masks=None):
+        super().__init__()
+        self.decoder = decoder
+        self.replay = masks is not None
+        self.masks = list(masks) if self.replay else []
+        self.calls = 0
+
+    def forward(self, x, p, a, w, backend="eager"):
+        out = self.decoder(x, p, a, w, backend=backend)
+        if self.replay:
+            stop = self.masks[self.calls]
+        else:
+            with torch.no_grad():
+                stop = relu_ties(self.decoder.kernel_inputs(x, p, a, w))
+            self.masks.append(stop)
+        self.calls += 1
+        keep = (~stop)[..., None].to(out.dtype)
+        return out * keep + out.detach() * (1 - keep)
+
+
+def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev, zero_by_structure=(),
+                      ties: bool = False, seed: int = SEED, gate: bool = True) -> float:
+    """6 / 17 / 22 / 26. ode and dual step on K1 + K2 against the eager decoder, on
+    trajectories ``traj`` [batch, frames, *grid, channels]: loss and gradients, from the
+    weights of ``seed`` and its masks. ``ties`` holds the gradients with the cotangent 0 at
+    the points near an RFF ReLU's kink (``TieStop``: the same points on every side; their
+    number printed) and prints beside, with no gate, the whole steps' errors and each f32
+    step's distance from the step in float64, with the whole cotangent and with those points
+    stopped: behind the self-attention stack (phase 26) a few such points move the ODE's
+    gradient by about the gate. ``zero_by_structure`` names decoder gradients that are 0 in
+    exact arithmetic (``abs_pos``: the key bias, whose term q . b is the same for every
+    latent and cancels in the softmax). Their relative error is rounding over rounding;
+    instead both sides must lie below 1e-6 of the step's whole gradient norm, and they leave
+    the relative check. ``gate=False`` prints the checks' errors and holds them to nothing:
+    a witness draw. Returns the worst max abs error of the checks (0 with no gate)."""
+    trainer = make_trainer(cfg, coords, seed)
     state = trainer.init_state()
     traj = torch.from_numpy(traj).to(dev)
-    gen = torch.Generator().manual_seed(SEED + 5)
+    gen = torch.Generator().manual_seed(seed + 5)
     N, M, K = coords.shape[0], cfg.training.max_num_sampled_points, cfg.meta.num_inner_steps
     masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
     ode_masks = torch.stack([torch.randperm(N, generator=gen)[:M]
                              for _ in range(cfg.dataset.traj_len_train)])
+    decoder = trainer.decoder
+
+    def both(fn):
+        """(kernel's, eager's) (loss, gradients) of step ``fn``."""
+        out = []
+        for backend in ("kernel", "eager"):
+            trainer.ode_backend = backend
+            k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+            out.append(fn(state, traj, masks=masks, ode_masks=ode_masks))
+            torch.cuda.synchronize()
+            if backend == "kernel" and (fused_decode_fwd.launches - k1, fused_decode_bwd.launches - k2) != (1, 1):
+                raise AssertionError("a step on the kernel backend did not launch K1 and K2 once each")
+        trainer.ode_backend = "kernel"
+        return out
+
+    def from_f64(tag, kind, grads_k, grads_e, stop=None):
+        _, grads_64 = f64_step(trainer, kind, state, traj, stop=stop, masks=masks, ode_masks=ode_masks)
+        log(f"[check] {kind} step {tag}, against the step in float64 (seed {seed}, no gate): kernels "
+            + ", eager decoder ".join("worst rel_l2 {:.3e} ({})".format(*grad_errors(g, grads_64)[:2])
+                                      for g in (grads_k, grads_e)))
+
     errs = []
     for kind, fn in (("ode", trainer.ode_grads), ("dual", trainer.dual_grads)):
-        trainer.ode_backend = "kernel"
-        k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
-        loss_k, grads_k = fn(state, traj, masks=masks, ode_masks=ode_masks)
-        torch.cuda.synchronize()
-        if (fused_decode_fwd.launches - k1, fused_decode_bwd.launches - k2) != (1, 1):
-            raise AssertionError(f"{kind} step on the kernel backend did not launch K1 and K2 once each")
-        trainer.ode_backend = "eager"
-        loss_e, grads_e = fn(state, traj, masks=masks, ode_masks=ode_masks)
-        trainer.ode_backend = "kernel"
+        (loss_k, grads_k), (loss_e, grads_e) = both(fn)
+        label = ""
+        if ties:
+            worst, name, _, n = grad_errors(grads_k, grads_e)
+            log(f"[check] {kind} step gradients, kernels vs eager decoder, the whole cotangent (seed {seed}): "
+                f"{n} tensors, worst rel_l2 {worst:.3e} ({name})")
+            from_f64("the whole cotangent", kind, grads_k, grads_e)
+            trainer.decoder = stop = TieStop(decoder)
+            _, grads_k = fn(state, traj, masks=masks, ode_masks=ode_masks)
+            trainer.ode_backend = "eager"
+            trainer.decoder = replay = TieStop(decoder, stop.masks)
+            _, grads_e = fn(state, traj, masks=masks, ode_masks=ode_masks)
+            trainer.decoder, trainer.ode_backend = decoder, "kernel"
+            if replay.calls != len(stop.masks):
+                raise AssertionError(f"the eager step decoded {replay.calls} times, the kernels' {len(stop.masks)}")
+            label = f", cotangent 0 within {TIE_MARGIN:g} of a ReLU's kink"
+            log(f"[check] {kind} step (seed {seed}): the cotangent is 0 at "
+                f"{[int(m.sum()) for m in stop.masks]} of {[m.numel() for m in stop.masks]} points of its decodes")
+            from_f64("with those points' cotangent 0 on every side", kind, grads_k, grads_e, stop.masks)
+        if not gate:
+            worst, name, _, n = grad_errors(grads_k, grads_e)
+            log(f"[check] {kind} step, kernels vs eager decoder{label} (seed {seed}, no gate): loss rel "
+                f"{abs(float(loss_k) - float(loss_e)) / abs(float(loss_e)):.3e}, {n} gradient tensors, worst "
+                f"rel_l2 {worst:.3e} ({name})")
+            continue
         errs.append(check_close(f"{kind} step loss, kernels vs eager decoder", loss_k, loss_e))
         scale = math.sqrt(sum(float(v.square().sum()) for group in grads_e.values() for v in group.values()))
         for name in (n for n in zero_by_structure if n in grads_e.get("nef", {})):
@@ -633,8 +765,8 @@ def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev, zero_by_st
                 f"kernels, {norms[1]:.3e} eager, against the step's gradient norm {scale:.3e} (tol 1e-6 of it)")
             if not max(norms) <= 1e-6 * scale:
                 raise AssertionError(f"{kind} step: {name} is not 0 to rounding: {norms} vs {scale:.3e}")
-        errs.append(check_grads(f"{kind} step gradients, kernels vs eager decoder", grads_k, grads_e))
-    return max(errs)
+        errs.append(check_grads(f"{kind} step gradients, kernels vs eager decoder{label}", grads_k, grads_e))
+    return max(errs, default=0.0)
 
 
 def fresh_dir(path: Path) -> Path:
@@ -688,10 +820,10 @@ def data_phase(dev) -> dict:
     return {"block_s": block_s, "steps": steps}
 
 
-def train_overrides(*extra: str) -> list:
+def train_overrides(*extra: str, log_dir: Path = LOG_DIR) -> list:
     """The training phase's overrides of the navier_stokes config (full width)."""
     return [f"dataset.path={DATA_DIR}", f"dataset.num_signals_train={TRAIN_SIGNALS}",
-            f"dataset.num_signals_test={VAL_SIGNALS}", f"logging.log_dir={LOG_DIR}",
+            f"dataset.num_signals_test={VAL_SIGNALS}", f"logging.log_dir={log_dir}",
             "training.num_epochs=3", "training.nef.train_from_epoch=0",
             "training.nef.train_until_epoch=2", "training.ode.train_from_epoch=1",
             "training.ode.train_until_epoch=3", "test.test_interval=3", "test.test_dp_interval=3",
@@ -860,7 +992,7 @@ def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
     flat = [t.reshape(pb * tb, *t.shape[2:]) for t in traj]
     xs = fc.trainer.coords[None].expand(pb * tb, -1, -1)
     with torch.no_grad():
-        folded = dec.fold(flat[0], flat[1])
+        folded = dec.fold(*flat)
         plain = decode_chunked(
             lambda xc, pp, aa, ww: fused_decode_plain(*dec.kernel_geometry(xc, pp, ww), *folded,
                                                       num_heads=H, head_dim=D),
@@ -877,7 +1009,8 @@ def k1_shapes_phase(tag: str, shapes: list, dev) -> dict:
     ``M`` coordinates of its grid), or ``(cfg, b, M, coords, name)`` to decode all ``M`` of
     ``coords``; per shape ms per launch, the plain version's ms, the bounds, and the shared
     memory of ``k1_smem_bytes`` held equal to the built library's ``layout``. Returns the
-    worst max abs error and each shape's numbers, keyed by ``(z, b, c)`` (and ``name``)."""
+    worst max abs error and each shape's numbers (its own worst error among them), keyed by
+    ``(z, b, c)`` (and ``name``)."""
     errs, timing = [], {}
     for i, (c, b, M, *own) in enumerate(shapes):
         H, D = c.nef.num_heads, c.nef.num_hidden
@@ -891,15 +1024,17 @@ def k1_shapes_phase(tag: str, shapes: list, dev) -> dict:
             raise AssertionError(f"{label}: k1_smem_bytes {smem} != the library's layout {lib_smem}")
         with torch.no_grad():
             out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
-            errs.append(check_close(f"{label} tail", out_k, fused_decode_plain(*args, num_heads=H, head_dim=D)))
             no_tail = (*args[:7], ())
-            errs.append(check_close(f"{label} no-tail", fused_decode_fwd(*no_tail, num_heads=H, head_dim=D),
-                                    fused_decode_plain(*no_tail, num_heads=H, head_dim=D)))
+            shape_errs = [
+                check_close(f"{label} tail", out_k, fused_decode_plain(*args, num_heads=H, head_dim=D)),
+                check_close(f"{label} no-tail", fused_decode_fwd(*no_tail, num_heads=H, head_dim=D),
+                            fused_decode_plain(*no_tail, num_heads=H, head_dim=D))]
+            errs += shape_errs
             split = split_weights(args[6])[1]  # once per fold, as the decode splits
             k_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
             p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
         bd = k1_bounds(c, args, out_k)
-        timing[(Zl, B, C, *own[1:])] = dict(ms=k_ms, plain_ms=p_ms, smem=smem, **bd)
+        timing[(Zl, B, C, *own[1:])] = dict(ms=k_ms, plain_ms=p_ms, smem=smem, max_abs_err=max(shape_errs), **bd)
         log(f"[timing] {label}: {k_ms:.4f} ms ({bd['flops'] / k_ms / 1e9:.2f} TFLOP/s); plain "
             f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (3xTF32 tensor cores "
             f"{bd['tc_ms']:.4f} ms, f32 CUDA cores {bd['f32_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
@@ -1529,6 +1664,359 @@ def ihc_phase(dev) -> dict:
     return {**k1, "launches": train["k1"] + fc["launches"], "max_abs_err": max(k1["max_abs_err"], fc["max_abs_err"])}
 
 
+def sa_config(*overrides: str):
+    """``navier_stokes`` at its full width with the latent self-attention stack."""
+    return load_experiment_config("navier_stokes", [f"nef.num_layers={SA_LAYERS}", *overrides])
+
+
+def attention_phase(dev) -> dict:
+    """26. The decoder with SA_LAYERS latent self-attention blocks at NS width (seeded random
+    weights): K1 on the folded, attended latents against the eager decoder at 160 x 512 and a
+    ragged 8 x 1000, K1's time at 160 x 512 and the fold's (stem, blocks, weight folds); then
+    the ode and dual steps on K1 + K2 against the eager ones with the cotangent 0 at the
+    points near an RFF ReLU's kink (``step_parity_phase`` with ``ties``), and the same
+    numbers with no gate on a second draw. The kernels-line error is K1's against its plain
+    version at 160 x 512."""
+    t0 = time.perf_counter()
+    cfg = sa_config()
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    coords = planar_coords(GRID, GRID)
+    errs, res = [], {}
+    for b, M in ((NUM_SIGNALS * NUM_FRAMES, 512), (NUM_SIGNALS, 1000)):
+        decoder, x, p, a, w = random_decode(cfg, coords, dev, b, M, SEED + 20 + b)
+        with torch.no_grad():
+            args = decoder.kernel_inputs(x, p, a, w)
+            out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
+            eager = decoder(x, p, a, w)
+            check_close(f"K1 behind {SA_LAYERS} self-attention blocks b={b} c={M} vs the eager decoder", out_k, eager)
+            errs.append(check_close(f"K1 behind {SA_LAYERS} self-attention blocks b={b} c={M} vs its plain version",
+                                    out_k, fused_decode_plain(*args, num_heads=H, head_dim=D)))
+            if b == NUM_SIGNALS * NUM_FRAMES:
+                split = split_weights(args[6])[1]
+                k_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
+                p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
+                fold_ms = cuda_ms(lambda: decoder.fold(p, a, w), iters=5, warmup=1)
+                bd = k1_bounds(cfg, args, out_k)
+                res = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                           max_abs_err=errs[-1])
+                log(f"[timing] K1 behind the self-attention stack b={b} z={cfg.nef.num_latents} c={M}: {k_ms:.4f} ms "
+                    f"(phase 4 times this shape without the stack); plain {p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms "
+                    f"by {bd['bound_by']}; the fold with {SA_LAYERS} blocks {fold_ms:.4f} ms a decode")
+        del decoder, args, out_k, eager
+    for seed in (SEED, SEED + 40):  # the gate's draw, and a witness draw of weights, frames and masks
+        step_parity_phase(cfg, coords, smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, seed + 3), dev,
+                          ties=True, seed=seed, gate=seed == SEED)
+    torch.cuda.empty_cache()
+    log(f"[phase 26] self-attention decoder in {time.perf_counter() - t0:.2f} s")
+    return res
+
+
+def reset_launches() -> None:
+    """Every launch count to 0: K1's and K2's totals and their tallies by shape."""
+    for kernel in (fused_decode_fwd, fused_decode_bwd):
+        kernel.launches = 0
+        kernel.launches_by_shape.clear()
+
+
+def launches_of(fn):
+    """(fn's result, its K1 launches, its K2 launches), synchronised."""
+    k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fused_decode_fwd.launches - k1, fused_decode_bwd.launches - k2
+
+
+def device_summary(prof, trace_file: Path, top: int = 10) -> str:
+    """The ``top`` device operations (kernels, copies) by device time (``key_averages``), and the
+    share of the traced window (first to last event) in which some kernel, copy or set
+    ran on the card (the union of their intervals in the Chrome trace)."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # The device's own entries (kernels, copies), not the host operations that launched them.
+    ops = sorted((e for e in prof.key_averages() if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")),
+                 key=dev_us, reverse=True)
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in timed
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    start, end = min(e["ts"] for e in timed), max(e["ts"] + e["dur"] for e in timed)
+    busy, cur = 0.0, None
+    for lo, hi in device:
+        if cur is None or lo > cur[1]:
+            busy += cur[1] - cur[0] if cur else 0.0
+            cur = [lo, hi]
+        else:
+            cur[1] = max(cur[1], hi)
+    busy += cur[1] - cur[0] if cur else 0.0
+    lines = [f"{dev_us(e) / 1e3:.3f} ms x{e.count} {e.key[:90]}" for e in ops[:top]]
+    return (f"device busy {busy / 1e3:.3f} of {(end - start) / 1e3:.3f} ms traced "
+            f"({100 * busy / (end - start):.1f} %), {len(device)} device activities; top {top} by device time: "
+            + " | ".join(lines))
+
+
+def f64_trainer(trainer) -> MetaSGDTrainer:
+    """A float64 copy of ``trainer`` on the eager decoder: its weights (the decoder's and the
+    ODE's), its coordinates, and inner loops that decode eagerly. Phase 27 prints both f32
+    nef steps' distances from it: which side f32 rounding moves."""
+    cfg = trainer.cfg
+    ref = MetaSGDTrainer(cfg, *build_models(cfg), trainer.coords.cpu().numpy(), seed=SEED, device=trainer.device)
+    ref.decoder.load_state_dict(trainer.decoder.state_dict())
+    ref.ode_model.load_state_dict(trainer.ode_model.state_dict())
+    ref.decoder.double()
+    ref.ode_model.double()
+    ref.coords = ref.coords.double()
+    ref.train_backend = ref.eval_backend = ref.ode_backend = "eager"
+
+    def fit_decode(x, p, a, window):  # reads ref.decoder at each call, as the trainer's own does
+        return ref.decoder(x, p, a, window)
+
+    ref.inner_loop = make_inner_loop(fit_decode, ref.coords, ref.inner_cfg)
+    ref.train_inner_loop = make_train_inner_loop(fit_decode, ref.coords, ref.inner_cfg)
+    return ref
+
+
+def f64_step(trainer, kind: str, state, traj, stop=None, **draws):
+    """``kind``'s (``nef``, ``ode``, ``dual``) loss and gradients on ``f64_trainer(trainer)``
+    from ``state`` and the same draws, cast back to f32; ``stop``, a ``TieStop``'s masks,
+    stops the cotangent at the same points of the step's decodes."""
+    ref = f64_trainer(trainer)
+    if stop is not None:
+        ref.decoder = TieStop(ref.decoder, stop)
+    state64 = {g: {k: v.double() for k, v in state[g].items()} for g in ("autodecoder", "meta_sgd_lrs")}
+    loss, grads = getattr(ref, f"{kind}_grads")(state64, traj.double(), **draws)
+    if stop is not None and ref.decoder.calls != len(stop):
+        raise AssertionError(f"the float64 step decoded {ref.decoder.calls} times, the f32 step {len(stop)}")
+    return loss.float(), {g: {k: v.float() for k, v in d.items()} for g, d in grads.items()}
+
+
+def second_order_phase(dev) -> dict:
+    """27. Second order through K1 and K2 (``nef.backend=pallas``) at num_layers 0 and
+    SA_LAYERS, NS width, seeded random weights: the nef step on the kernels against the same
+    step on the eager decoder from the same state, frames and masks (loss rel 1e-5, every
+    gradient tensor rel-L2 NEF_TOL), and both against the eager step in float64
+    (``f64_step``: which side f32 rounding moves); ``Forecaster.fit`` on the kernels against the eager fit
+    (fitted latents rel-L2 NEF_TOL); the launches of each; warm medians of both on both
+    backends; one nef step under ``utils.profiling.trace``; K1 and K2 at the nef step's
+    16 x 512 and the fit's 8 x 512 against their plain versions, timed (the kernels line's
+    errors and times at those shapes, by ``b``)."""
+    t0 = time.perf_counter()
+    coords = planar_coords(GRID, GRID)
+    traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 3)).to(dev)
+    frames = smooth_frames(NUM_SIGNALS, GRID, SEED)
+    N = coords.shape[0]
+    out = {"launches": {}}
+    for layers in (0, SA_LAYERS):
+        cfg = load_experiment_config("navier_stokes", [f"nef.num_layers={layers}", "nef.backend=pallas"])
+        K, M = cfg.meta.num_inner_steps, cfg.training.max_num_sampled_points
+        trainer = make_trainer(cfg, coords)
+        if (trainer.train_backend, trainer.eval_backend, trainer.ode_backend) != ("kernel",) * 3:
+            raise AssertionError(f"nef.backend=pallas resolved to {trainer.train_backend}")
+        state = trainer.init_state()
+        gen = torch.Generator().manual_seed(SEED + 30 + layers)
+        masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
+        frame_idx = torch.randperm(cfg.dataset.traj_len_train, generator=gen)[:cfg.training.nef.fit_on_num_steps]
+        tag = f"num_layers={layers}"
+        grads = {}
+        for backend in ("kernel", "eager"):
+            trainer.train_backend = backend
+            grads[backend], k1, k2 = launches_of(lambda: trainer.nef_grads(state, traj, frame_idx=frame_idx,
+                                                                             masks=masks))
+            if backend == "kernel":
+                out["launches"][f"nef {tag}"] = (k1, k2)
+        trainer.train_backend = "kernel"
+        (loss_k, grads_k), (loss_e, grads_e) = grads["kernel"], grads["eager"]
+        # Which side f32 rounding moves: both against the eager step in float64 (no gate).
+        loss_64, grads_64 = f64_step(trainer, "nef", state, traj, frame_idx=frame_idx, masks=masks)
+        for label, (loss, g) in (("eager decoder in f32", grads["eager"]), ("kernels", grads["kernel"])):
+            worst, name, _, n = grad_errors(g, grads_64)
+            log(f"[second order] nef step {tag} on the {label} against the eager decoder in float64: loss "
+                f"rel {abs(float(loss) - float(loss_64)) / abs(float(loss_64)):.3e}, {n} gradient tensors, worst "
+                f"rel_l2 {worst:.3e} ({name})")
+        check_close(f"nef step loss {tag}, kernels vs eager decoder", loss_k, loss_e)
+        check_grads(f"nef step gradients {tag}, kernels vs eager decoder", grads_k, grads_e, NEF_TOL)
+        nef_launches = out["launches"][f"nef {tag}"]
+        # K + 1 decodes on K1; K2 gives the K inner gradients (with a graph), the query
+        # decode's VJP, and the first-order VJP of each inner decode's output, on which the
+        # inner loss's cotangent depends.
+        if nef_launches != (K + 1, 2 * K + 1):
+            raise AssertionError(f"nef step {tag} launched (K1, K2) {nef_launches}, not {(K + 1, 2 * K + 1)}")
+
+        fc = Forecaster(cfg, coords, device="cuda")
+        fit_masks = masks[:K]
+        fits = {}
+        for backend in ("kernel", "eager"):
+            fc.trainer.train_backend = backend
+            fits[backend], k1, k2 = launches_of(lambda: fc.fit(frames, masks=fit_masks))
+            if backend == "kernel":
+                out["launches"][f"fit {tag}"] = (k1, k2)
+        for name in fits["eager"]:
+            check_close(f"fit {tag} {name}, kernels vs eager decoder", fits["kernel"][name], fits["eager"][name],
+                        NEF_TOL)
+        if out["launches"][f"fit {tag}"] != (K, K):
+            raise AssertionError(f"the fit {tag} launched {out['launches'][f'fit {tag}']}, not {(K, K)}")
+        log(f"[second order] {tag}: launches (K1, K2) of one nef step {nef_launches}, of one fit "
+            f"{out['launches'][f'fit {tag}']} at {K} inner steps")
+
+        medians = {}
+        for backend in ("kernel", "eager"):
+            trainer.train_backend = fc.trainer.train_backend = backend
+            for name, fn in (("nef step", lambda: trainer.nef_train_step(state, traj)),
+                             ("fit", lambda: fc.fit(frames))):
+                samples = [sync_time(fn)[1] * 1e3 for _ in range(WARM_REPEATS)]
+                medians[(name, backend)] = statistics.median(samples)
+                log(f"[second order] {tag} {name} on {backend} (warm, median of {WARM_REPEATS}): "
+                    f"{medians[(name, backend)]:.2f} ms (samples {', '.join(f'{v:.2f}' for v in samples)})")
+        trainer.train_backend = fc.trainer.train_backend = "kernel"
+        out[f"medians {tag}"] = medians
+        if layers == SA_LAYERS:
+            trace_dir = fresh_dir(OUT_DIR / "trace_nef_step")
+            with trace(str(trace_dir)) as prof:
+                trainer.nef_train_step(state, traj)
+            trace_file = trace_dir / "trace.json"
+            log(f"[trace] one nef step ({tag}, kernels; trace {trace_file.stat().st_size / 1e6:.1f} MB, not kept): "
+                + device_summary(prof, trace_file))
+            shutil.rmtree(trace_dir)
+        del trainer, state, fc, grads, fits
+        torch.cuda.empty_cache()
+
+    cfg = sa_config()
+    b_nef = cfg.dataset.batch_size * cfg.training.nef.fit_on_num_steps
+    k1 = k1_shapes_phase("nef step and fit", [(cfg, b_nef, 512), (cfg, NUM_SIGNALS, 512)], dev)
+    log(f"[phase 27] K2 at the nef step's b={b_nef} x 512 and the fit's b={NUM_SIGNALS} x 512")
+    k2 = {b: k2_phase(cfg, coords, dev, b=b) for b in (b_nef, NUM_SIGNALS)}
+    for b, r in k2.items():
+        log(f"[timing] K2 at b={b} c=512: with weight gradients {r['timing'][True]['ms']:.4f} ms, without "
+            f"{r['timing'][False]['ms']:.4f} ms: the inner steps' VJPs take the weight gradients, which only "
+            f"the double backward's graph reads (it takes them from the plain composition)")
+    torch.cuda.empty_cache()
+    log(f"[phase 27] second order through K1 and K2 in {time.perf_counter() - t0:.2f} s")
+    k1 = {b: {k: k1["timing"][(cfg.nef.num_latents, b, 512)][k]
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")} for b in (b_nef, NUM_SIGNALS)}
+    return {**out, "k1": k1, "k2": k2, "b_nef": b_nef}
+
+
+def sa_train_phase(dev) -> dict:
+    """28. ``run_experiment`` for ``navier_stokes nef.num_layers=SA_LAYERS nef.backend=pallas``
+    on phase 7's data for 3 epochs (nef, dual, ode), validation with the dp variants and the
+    equivariance check: the record's backends, finite metrics, K1's and K2's launches against
+    the loop's arithmetic; then ``Forecaster.from_checkpoint`` on its log directory against a
+    ``Forecaster`` built from the run's final state (same seed, ``backend='pallas'``): the
+    same forecast of NUM_SIGNALS test frames for NUM_FRAMES frames bit for bit; its stages.
+    Returns the launches of the run and the forecast, in all and by shape (the kernels line's
+    counts for this slice's shapes)."""
+    t0 = time.perf_counter()
+    log_dir = fresh_dir(OUT_DIR / "navier_stokes_attention_train")
+    over = [f"nef.num_layers={SA_LAYERS}", "nef.backend=pallas"]
+    cfg = load_experiment_config("navier_stokes", train_overrides(*over, log_dir=log_dir))
+    coords = planar_coords(GRID, GRID)
+    reset_launches()
+    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    k1_shapes, k2_shapes = Counter(fused_decode_fwd.launches_by_shape), Counter(fused_decode_bwd.launches_by_shape)
+    records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    rec = next(r for r in records if "train_backend" in r)
+    backends = tuple(rec[k] for k in ("train_backend", "eval_backend", "ode_backend"))
+    epochs = [r for r in records if "train_mse_epoch" in r]
+    values = [v for r in records for k, v in r.items() if "mse" in k or k.startswith("equivariance_err_")]
+    K, M = cfg.meta.num_inner_steps, cfg.training.max_num_sampled_points
+    n_train, n_val = len(loop.train_loader), len(loop.val_loader)
+    val_steps, chunks = (n_val + n_train) * (1 + 3), -(-coords.shape[0] // M)
+    # Epochs nef, dual, ode: K + 1 decodes a step; K2 2K + 1 times a second-order step
+    # (nef, dual) and K + 1 times an ode step; a validation step fits (K + K) and decodes
+    # in chunks; the equivariance check fits once (its decodes are eager).
+    expect = (n_train * 3 * (K + 1) + val_steps * (K + chunks) + K,
+              n_train * (2 * (2 * K + 1) + K + 1) + val_steps * K + K)
+    epoch_mse = ", ".join(f"{r['train_mse_epoch']:.4e}" for r in epochs)
+    log(f"[attention] run_experiment(3 epochs, navier_stokes {' '.join(over)}) in {run_s:.2f} s: phases "
+        f"{[r['phase'] for r in epochs]}, train_mse_epoch [{epoch_mse}]; "
+        f"record backends {backends}; K1 launches {k1}, K2 launches {k2} (expected {expect}); by (b, z, c): K1 "
+        f"{dict(sorted(k1_shapes.items()))}, K2 (and weight gradients) {dict(sorted(k2_shapes.items()))}")
+    if backends != ("kernel",) * 3:
+        raise AssertionError(f"the run record gives backends {backends}")
+    if [r["phase"] for r in epochs] != ["nef", "nef+ode", "ode"] or not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"phases {[r['phase'] for r in epochs]} or non-finite metrics {values}")
+    if (k1, k2) != expect:
+        raise AssertionError(f"K1/K2 launches {(k1, k2)} != expected {expect}")
+
+    fc_cfg = load_experiment_config("navier_stokes", over)
+    served, build_s = sync_time(lambda: Forecaster.from_checkpoint(str(log_dir), fc_cfg, coords))
+    params = {"nef": loop.trainer.decoder.state_dict(), "ode": loop.trainer.ode_model.state_dict(),
+              "autodecoder": state["autodecoder"], "meta_sgd_lrs": state["meta_sgd_lrs"]}
+    built = Forecaster(fc_cfg, coords, params=params, device="cuda", backend="pallas")
+    frames = torch.as_tensor(next(iter(loop.val_loader))[0], device=dev)[:NUM_SIGNALS, 0]
+    reset_launches()
+    got, fc_s = sync_time(lambda: served.forecast(frames, num_frames=NUM_FRAMES))
+    fc_k1, fc_k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
+    k1_shapes += fused_decode_fwd.launches_by_shape
+    want = built.forecast(frames, num_frames=NUM_FRAMES)
+    same = torch.equal(got, want)
+    stages = {"fit": [], "rollout": [], "decode": []}
+    for _ in range(WARM_REPEATS):
+        fitted, fit_s = sync_time(lambda: served.fit(frames))
+        traj, roll_s = sync_time(lambda: served.rollout(fitted, NUM_FRAMES))
+        _, dec_s = sync_time(lambda: served.decode(traj))
+        for name, sec in (("fit", fit_s), ("rollout", roll_s), ("decode", dec_s)):
+            stages[name].append(sec * 1e3)
+    log(f"[attention] Forecaster.from_checkpoint({log_dir.name}, epoch {loop.checkpoints.latest_epoch()}) built in "
+        f"{build_s:.3f} s; backends fit {served.trainer.train_backend}, decode {served.trainer.eval_backend}; "
+        f"forecast {tuple(got.shape)} in {fc_s:.3f} s (first call), K1 {fc_k1}, K2 {fc_k2}; equal bit for bit to "
+        f"the Forecaster built from the run's final state: {same}; stages (warm, median of {WARM_REPEATS}): "
+        + " | ".join(f"{n} {statistics.median(v):.2f} ms" for n, v in stages.items()))
+    if not same or not torch.isfinite(got).all() or got.shape != (NUM_SIGNALS, NUM_FRAMES, coords.shape[0], 1):
+        raise AssertionError(f"the served forecast differs from the built one or is malformed: {tuple(got.shape)}")
+    if (fc_k1, fc_k2) != (chunks, 0):
+        raise AssertionError(f"the served forecast launched {(fc_k1, fc_k2)}, not {(chunks, 0)}")
+    p, a, w = latents_to_pose(served.fit(frames))
+    del loop, state, served, built
+    shutil.rmtree(log_dir / "checkpoints")  # served above; what comes back stays under its 64 MiB
+    torch.cuda.empty_cache()
+    log(f"[phase 28] the slice end to end in {time.perf_counter() - t0:.2f} s")
+    return {"k1": k1 + fc_k1, "k2": k2, "k1_shapes": k1_shapes, "k2_shapes": k2_shapes, "latents": (p, a, w)}
+
+
+def options_phase(dev, latents) -> None:
+    """29. The other options on the eager path, NS width: one nef and one ode step with
+    ``nef.embedding_type=ffn`` and ``=polynomial`` (degree 2), whose backends resolve to
+    eager (no K1 or K2 launch) and whose losses are finite; the ``EquivariantTransformer``
+    (hid 128, 2 heads, 2 layers, with and without global pooling) on phase 28's fitted
+    latents, card against CPU within rel-L2 REL_L2_TOL."""
+    t0 = time.perf_counter()
+    coords = planar_coords(GRID, GRID)
+    traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 4)).to(dev)
+    for kind, extra in (("ffn", ()), ("polynomial", ("nef.embedding_freq_multiplier_invariant=2",
+                                                     "nef.embedding_freq_multiplier_value=2"))):
+        cfg = load_experiment_config("navier_stokes", [f"nef.embedding_type={kind}", "nef.backend=pallas", *extra])
+        trainer = make_trainer(cfg, coords)
+        backends = (trainer.train_backend, trainer.eval_backend, trainer.ode_backend)
+        state = trainer.init_state()
+        ((loss_n, state), k1n, k2n), nef_s = sync_time(lambda: launches_of(lambda: trainer.nef_train_step(state, traj)))
+        ((loss_o, state), k1o, k2o), ode_s = sync_time(lambda: launches_of(lambda: trainer.ode_train_step(state, traj)))
+        log(f"[options] embedding_type={kind} {' '.join(extra)}: backends {backends}; nef step loss "
+            f"{float(loss_n):.4e} in {nef_s * 1e3:.2f} ms, ode step loss {float(loss_o):.4e} in {ode_s * 1e3:.2f} ms "
+            f"(first calls); K1 / K2 launches {k1n + k1o} / {k2n + k2o}")
+        if backends != ("eager",) * 3 or not (np.isfinite(float(loss_n)) and np.isfinite(float(loss_o))) \
+                or (k1n, k2n, k1o, k2o) != (0, 0, 0, 0):
+            raise AssertionError(f"{kind}: backends {backends}, losses {float(loss_n)}, {float(loss_o)}, "
+                                 f"launches {(k1n, k2n, k1o, k2o)}")
+        del trainer, state
+    cfg = load_experiment_config("navier_stokes")
+    for pooling in (False, True):
+        tr = EquivariantTransformer(num_hidden=cfg.nef.num_hidden, num_heads=cfg.nef.num_heads, num_layers=2,
+                                    num_out=cfg.nef.latent_dim, latent_dim=cfg.nef.latent_dim,
+                                    self_attn_invariant=get_sa_invariant(cfg.nef), embedding_type="rff",
+                                    embedding_freq_multiplier=(cfg.nef.embedding_freq_multiplier_invariant,
+                                                               cfg.nef.embedding_freq_multiplier_value),
+                                    condition_value_transform=True, global_pooling=pooling)
+        reset_parameters(tr, torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            on_cpu = tr(tuple(x.cpu() for x in latents))
+            on_card = tr.to(dev)(latents)
+        check_close(f"EquivariantTransformer global_pooling={pooling} {tuple(on_card.shape)} card vs CPU",
+                    on_card.cpu(), on_cpu)
+    log(f"[phase 29] the other options in {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card.",
@@ -1600,7 +2088,7 @@ def main() -> int:
     # times, bounds; and the decode's PyTorch prologue (one weight fold per decode,
     # geometry per chunk).
     with torch.no_grad():
-        fold_ms = cuda_ms(lambda: dec.fold(flat[0], flat[1]), iters=5, warmup=1)
+        fold_ms = cuda_ms(lambda: dec.fold(*flat), iters=5, warmup=1)
         split_ms = cuda_ms(lambda: split_weights(folded[4]), iters=5, warmup=1)
         geom_ms = cuda_ms(lambda: dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), iters=20)
         args = (*dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), *folded)
@@ -1679,10 +2167,17 @@ def main() -> int:
     ablation = ablation_kernel_phase(dev)
     nonmaml = nonmaml_phase(dev)
     abs_pos = abs_pos_phase(dev)
-    shutil.rmtree(DATA_DIR)  # phase 22 was its last reader: the output directory stays small
     # 23-25. Convection in the ball: K1 at its widths, the solver and its data on the card,
     # training with the ball equivariance check, the forecast.
     ihc = ihc_phase(dev)
+    # 26-29. The rest of the decoder family: the self-attention stack behind K1 and K2, second
+    # order through them, the slice end to end on phase 7's data (kept until here), the
+    # ffn / polynomial embeddings and the transformer.
+    attention = attention_phase(dev)
+    second = second_order_phase(dev)
+    sa_run = sa_train_phase(dev)
+    shutil.rmtree(DATA_DIR)  # phase 28 was its last reader: the output directory stays small
+    options_phase(dev, sa_run["latents"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
@@ -1741,6 +2236,27 @@ def main() -> int:
         **ablation["k2"]["timing"][False],  # the ode step's mode
         "library_ms": None,
     })
+    # This slice's shapes: K1 and K2 as phases 26-27 held them against their plain versions
+    # and timed them, each with its launches at that shape (and K2's mode) in phase 28's run.
+    b_nef, Zc = second["b_nef"], cfg.nef.num_latents
+    k1_sa = [(NUM_SIGNALS * NUM_FRAMES, "decode", attention),
+             (b_nef, "nef step", second["k1"][b_nef]), (NUM_SIGNALS, "fit", second["k1"][NUM_SIGNALS])]
+    for b, what, res in k1_sa:
+        kernels.append({**k1_entry, "shape": f"navier_stokes num_layers={SA_LAYERS} {what} b={b} z={Zc} c=512",
+                        "launches": sa_run["k1_shapes"][(b, Zc, 512)],
+                        **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
+    k2_sa = [(b_nef, True, "nef step"), (NUM_SIGNALS, True, "fit"), (NUM_SIGNALS, False, "fit")]
+    for b, wg, what in k2_sa:
+        kernels.append({
+            "name": "fused_decode_bwd", "route": "cuda", "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
+            "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
+            "shape": f"navier_stokes num_layers={SA_LAYERS} {what} b={b} z={Zc} c=512 "
+                     f"{'with' if wg else 'without'} weight gradients",
+            "launches": sa_run["k2_shapes"][(b, Zc, 512, wg)], "max_abs_err": second["k2"][b]["max_abs_err"],
+            **second["k2"][b]["timing"][wg], "library_ms": None})
+    unlaunched = [k["shape"] for k in kernels[-len(k1_sa) - len(k2_sa):] if k["launches"] == 0]
+    if unlaunched:
+        raise AssertionError(f"phase 28 launched no kernel at {unlaunched}")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,10 @@ spectral solver, the trajectory cache and loader (``data``); and the experiment 
 planar experiments ``diffusion_plane`` and ``cahn_hilliard`` (the ``ponita`` invariants,
 oriented latents and PONITA, their solvers), and the heat equation on the sphere,
 ``diff_sphere`` (the ``polar_periodic`` invariant, polar latents, spherical-harmonic
-transforms in ``data.sphere_harmonics``).
+transforms in ``data.sphere_harmonics``); shallow water, the paper's baselines and
+convection in the ball; and the whole decoder family -- latent self attention, the
+``ffn`` and ``polynomial`` embeddings, ``models.transformer``, second order through the
+kernels, ``Forecaster.from_checkpoint`` and ``utils.profiling``.
 """
 
 __version__ = "0.1.0"

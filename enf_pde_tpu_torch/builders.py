@@ -2,7 +2,9 @@
 
 Counterpart of ``enf_pde_tpu/builders.py``. The config keeps the JAX package's
 decoder backend names: ``xla`` is the port's eager decoder and ``pallas`` its fused
-kernel (``decoder_backend``).
+kernels (``decoder_backend``). The kernels compute only a decoder with the RFF embedding
+and the value conditioning; for any other, ``resolve_backend`` resolves ``pallas`` to the
+eager decoder, as the JAX decoder takes its XLA path there, and says so.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from enf_pde_tpu_torch.dynamics.ponita import PonitaLatentODE
 from enf_pde_tpu_torch.geometry.invariants import get_ca_invariant, get_sa_invariant
 from enf_pde_tpu_torch.models.decoder import EnfDecoder
 
-__all__ = ["build_models", "coordinate_system_for", "decoder_backend"]
+__all__ = ["build_models", "coordinate_system_for", "decoder_backend", "resolve_backend"]
 
 _BACKENDS = {"xla": "eager", "pallas": "kernel"}
 
@@ -24,6 +26,20 @@ def decoder_backend(name: str) -> str:
     if name not in _BACKENDS:
         raise ValueError(f"Decoder backend {name!r} has no counterpart in the port ({sorted(_BACKENDS)}).")
     return _BACKENDS[name]
+
+
+def resolve_backend(name: str, decoder: EnfDecoder, key: str = "nef.backend") -> str:
+    """The backend that decodes for config value ``name`` (of ``key``): ``decoder_backend``,
+    except that ``pallas`` on a decoder the kernels do not compute
+    (``not decoder.kernel_eligible``) resolves to ``'eager'``, with a line that says so.
+    The trainers call it once per backend key, at construction."""
+    backend = decoder_backend(name)
+    if backend == "kernel" and not decoder.kernel_eligible:
+        print(f"[builders] {key}: {name} resolves to eager: the fused kernels compute the rff "
+              f"embedding with condition_value_transform, this decoder has embedding_type="
+              f"{decoder.embedding_type!r}, condition_value_transform={decoder.condition_value_transform}")
+        return "eager"
+    return backend
 
 
 def coordinate_system_for(dataset_name: str) -> str:
@@ -57,6 +73,7 @@ def build_models(cfg) -> Tuple[EnfDecoder, Union[PonitaLatentODE, MLPLatentODE]]
         ),
         condition_value_transform=cfg.nef.condition_value_transform,
         use_gaussian_window=cfg.nef.use_gaussian_window,
+        self_attn_invariant=sa_invariant,
     )
     if cfg.node.name == "mlp":
         pose_dim = sa_invariant.num_z_pos_dims + sa_invariant.num_z_ori_dims

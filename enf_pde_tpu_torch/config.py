@@ -1,11 +1,13 @@
 """Experiment configuration as plain Python dicts with attribute access.
 
-Counterpart of ``enf_pde_tpu/config.py`` without YAML: the port runs where PyYAML is
+Counterpart of ``enf_pde_tpu/config.py`` without PyYAML: the port runs where PyYAML is
 not installed, so each ported experiment's configuration is written out here with
 the same keys and values as its YAML file under
 ``enf_pde_tpu/experiments/configs/``, and the ``key.sub=value`` overrides are parsed
-here with the YAML 1.1 scalar rules PyYAML applies (``_parse_value``). CPU tests hold
-both equal to the JAX package's.
+here with the YAML 1.1 scalar rules PyYAML applies (``_parse_value``). ``load_config``
+reads a YAML file of the kind those files are (block mappings of scalars and ``[a, b]``
+lists, comments) with the same rules. CPU tests hold all three equal to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import math
 import re
 from typing import Any, Iterable, Mapping
 
-__all__ = ["Config", "apply_overrides", "load_experiment_config", "NAVIER_STOKES",
+__all__ = ["Config", "apply_overrides", "load_config", "load_experiment_config", "NAVIER_STOKES",
            "NAVIER_STOKES_NONMAML", "DIFFUSION_PLANE", "CAHN_HILLIARD", "DIFF_SPHERE", "SHALLOW_WATER",
            "IHC"]
 
@@ -63,6 +65,13 @@ class Config(dict):
 
     def to_dict(self) -> dict:
         return {k: v.to_dict() if isinstance(v, Config) else v for k, v in self.items()}
+
+    def copy(self) -> "Config":
+        """A deep copy."""
+        return Config(copy.deepcopy(self.to_dict()))
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), default=str)
 
 
 # ``enf_pde_tpu/experiments/configs/navier_stokes.yaml``, key for key.
@@ -724,6 +733,48 @@ def _parse_value(raw: str) -> Any:
             return raw
         return value if not text[end:].strip() else raw
     return _scalar(text)
+
+
+def _read_yaml(text: str) -> dict:
+    """The mapping of a block-style YAML document: nested ``key: value`` mappings by
+    indentation, values as ``_parse_value`` reads them, ``#`` comments; a key with
+    neither a value nor an indented block under it is None, as in PyYAML. Raises on
+    anything else (sequences of ``- item`` lines, anchors, multi-line scalars)."""
+    root: dict = {}
+    stack = [(-1, root)]  # (indent, mapping) of the open blocks
+    opened = set()  # ids of the mappings opened by a bare "key:", until a child arrives
+    for lineno, line in enumerate(text.splitlines(), 1):
+        body = line.lstrip(" ")
+        if not body.strip() or body.startswith("#"):
+            continue
+        indent = len(line) - len(body)
+        key, sep, rest = body.partition(":")
+        if not sep or (rest and rest[0] not in " \t") or key != key.strip() or body.startswith("- "):
+            raise ValueError(f"line {lineno}: {line!r} is YAML that the port does not parse")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        opened.discard(id(parent))
+        value = rest.strip()
+        if not value or value.startswith("#"):
+            parent[key] = child = {}
+            opened.add(id(child))
+            stack.append((indent, child))
+        else:
+            parent[key] = _parse_value(value)
+
+    def close(node: dict) -> dict:
+        return {k: (None if id(v) in opened else close(v)) if isinstance(v, dict) else v
+                for k, v in node.items()}
+
+    return close(root)
+
+
+def load_config(path: str, overrides: Iterable[str] = ()) -> Config:
+    """Read a YAML config file (``_read_yaml``) and apply ``key.sub=value`` overrides."""
+    with open(path) as f:
+        cfg = Config(_read_yaml(f.read()))
+    return apply_overrides(cfg, overrides)
 
 
 def apply_overrides(cfg: Config, overrides: Iterable[str]) -> Config:

@@ -3,7 +3,8 @@
 The JAX state's ``params`` is ``{'nef', 'ode', 'autodecoder', 'meta_sgd_lrs'}`` (the
 autodecoding trainer's has no ``meta_sgd_lrs``); the first two are flax trees ``{'params': {module: {...: leaf}}}``. The caller hands them
 over as nested dicts of numpy arrays (this module does not import JAX). The port's
-submodules carry the flax names, so a leaf path maps to a ``state_dict`` key
+submodules carry the flax names (a list of blocks as ``self_attention_blocks_<i>``, an
+embedding's layers as ``Dense_<i>``), so a leaf path maps to a ``state_dict`` key
 directly, with the leaf renamed:
 
 - ``kernel`` -> ``weight``, transposed (flax ``Dense.kernel`` is ``[in, out]``,

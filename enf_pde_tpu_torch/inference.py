@@ -1,10 +1,11 @@
 """Fit-then-forecast inference: the serving path of the port.
 
 Counterpart of ``enf_pde_tpu/inference.py``: fit latents to observed frames with the
-meta-SGD inner loop (eager decoder, autograd), roll them forward with the latent
-ODE, and decode the forecast at any coordinate set through the fused decode kernel
-(``nef.eval_backend``), in coordinate chunks of ``max_num_sampled_points`` that share
-one weight fold.
+meta-SGD inner loop (on ``nef.backend``: the eager decoder, or the fused kernels K1 and
+K2), roll them forward with the latent ODE, and decode the forecast at any coordinate
+set through the fused decode kernel (``nef.eval_backend``), in coordinate chunks of
+``max_num_sampled_points`` that share one weight fold. ``Forecaster.from_checkpoint``
+serves a training run from its log directory.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import Config
 from enf_pde_tpu_torch.ops.fused_decode import strict_fp32
+from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
 __all__ = ["Forecaster"]
@@ -28,18 +30,27 @@ class Forecaster:
     Args:
         cfg: experiment config (``config.load_experiment_config``).
         coords: the training grid [num_points, coord_dim].
-        params: converted JAX parameters (``convert.convert_params``); ``None`` draws
-            random weights from ``cfg.seed``.
+        params: converted JAX parameters (``convert.convert_params``) or a port run's
+            ``{'nef', 'ode', 'autodecoder', 'meta_sgd_lrs'}``; ``None`` draws random
+            weights from ``cfg.seed``.
         device: where everything runs; the card unless the caller asks for the CPU.
+        backend: as in the JAX package: when given, the fit decodes on ``xla`` (the
+            eager decoder) and the forecast on ``backend`` (``nef.backend`` and
+            ``nef.eval_backend`` of a copy of ``cfg``); ``None`` keeps ``cfg``'s.
 
     Example:
         fc = Forecaster(load_experiment_config("navier_stokes"), planar_coords(64, 64))
         forecast = fc.forecast(frames, num_frames=20)   # [b, 20, 4096, 1]
+        fc = Forecaster.from_checkpoint("outputs/navier_stokes", cfg, planar_coords(64, 64))
     """
 
     def __init__(self, cfg: Config, coords: np.ndarray, params: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda", backend: Optional[str] = None):
         strict_fp32()
+        if backend is not None:
+            cfg = cfg.copy()
+            cfg.nef.backend = "xla"
+            cfg.nef.eval_backend = backend
         decoder, ode_model = build_models(cfg)
         seed = cfg.get_path("seed", 0)
         self.trainer = MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=seed, device=device)
@@ -47,6 +58,17 @@ class Forecaster:
         self.device = self.trainer.device
         self.state = self.trainer.init_state() if params is None else self.trainer.load_state(params)
         self._generator = torch.Generator().manual_seed(seed)
+
+    @classmethod
+    def from_checkpoint(cls, log_dir: str, cfg: Config, coords: np.ndarray,
+                        backend: Optional[str] = "pallas", device="cuda") -> "Forecaster":
+        """Serve the latest checkpoint that a training run saved under ``log_dir``
+        (``train.checkpoint.CheckpointManager``): its decoder, ODE, latent init and inner
+        learning rates. ``backend`` as in the constructor (default ``pallas``: the fit on
+        the eager decoder, the forecast's decode on K1)."""
+        fc = cls(cfg, coords, device=device, backend=backend)
+        fc.state, _ = CheckpointManager(log_dir).restore(fc.trainer)
+        return fc
 
     def fit(self, frames, dp: float = 0.0, masks=None):
         """Meta-SGD latent fit to observed frames [batch, *spatial, channels].

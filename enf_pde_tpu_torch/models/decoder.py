@@ -1,22 +1,30 @@
-"""The ENF field decoder: latent stem -> cross attention block -> gelu MLP head.
+"""The ENF field decoder: latent stem -> latent self attention -> cross attention -> MLP.
 
-Counterpart of ``enf_pde_tpu/models/decoder.py`` with ``num_layers: 0`` (every
-experiment config): stem -> one cross-attention block -> 3-layer gelu head.
+Counterpart of ``enf_pde_tpu/models/decoder.py``: stem -> ``num_layers`` latent
+self-attention blocks (0 in every experiment config) -> one cross-attention block ->
+3-layer gelu head. Each self-attention block computes
+``a <- gelu(a + ffn(a + attn(LN(a))))`` over the latents, with the poses' angles already
+on the circle, as the JAX decoder does.
 
 Two backends share the parameters:
 
 - ``'eager'``: the PyTorch composition (``ops/attention.py``), which autograd
-  differentiates; the inner-loop latent fit runs on it.
-- ``'kernel'``: the fused decode (``ops/fused_decode.py``): geometry, the stem and
-  the weight folds in PyTorch, then ``FusedDecode`` for cross attention, out
-  projection, block FFN and head: kernel K1 forward, kernel K2 backward, with the
-  fold's einsums carrying the gradients on to the latents and the weights. First
-  order only. On CUDA tensors it launches the kernels or raises.
+  differentiates to any order.
+- ``'kernel'``: the fused decode (``ops/fused_decode.py``): geometry, the stem, the
+  self-attention blocks and the weight folds in PyTorch, then ``FusedDecode`` for cross
+  attention, out projection, block FFN and head: kernel K1 forward, kernel K2 backward,
+  with autograd carrying K2's gradients of the folded inputs back through the folds and
+  the blocks to the latents and the weights. A double backward takes K2's values and the
+  plain composition's second derivatives (``FusedDecode``). On CUDA tensors it launches
+  the kernels or raises. It computes only decoders with the RFF embedding and the value
+  conditioning (``kernel_eligible``), as JAX's ``_use_pallas_full``; the trainers resolve
+  a ``pallas`` backend of any other decoder to ``'eager'`` at construction
+  (``builders.resolve_backend``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -49,7 +57,8 @@ def embed_pose_angles(p: torch.Tensor, invariant: BaseInvariant) -> torch.Tensor
 
 
 class CrossAttentionBlock(nn.Module):
-    """LayerNorm(a) -> attention -> [residual] -> PointwiseFFN."""
+    """LayerNorm(a) -> attention -> [residual] -> PointwiseFFN. ``condition`` hands LN(a)
+    to the attention as its ``x_h`` (the transformer's self attention)."""
 
     def __init__(self, num_hidden: int, num_heads: int, attn: EquivariantCrossAttention,
                  residual: bool, project_heads: bool):
@@ -60,8 +69,9 @@ class CrossAttentionBlock(nn.Module):
         width = num_hidden if project_heads else num_heads * num_hidden
         self.pointwise_ffn = PointwiseFFN(width, width, width)
 
-    def forward(self, x, p, a, window_size):
-        a_attn = self.attn(x, p, self.layer_norm_attn(a), window_sigma=window_size)
+    def forward(self, x, p, a, window_size, condition: bool = False):
+        a_norm = self.layer_norm_attn(a)
+        a_attn = self.attn(x, p, a_norm, window_sigma=window_size, x_h=a_norm if condition else None)
         return self.pointwise_ffn(a + a_attn if self.residual else a_attn)
 
 
@@ -84,40 +94,57 @@ class EnfDecoder(nn.Module):
     Args:
         num_hidden: hidden width (also the per-head attention width).
         num_heads: attention heads.
-        num_layers: latent self-attention blocks; only 0 is ported.
+        num_layers: latent self-attention blocks (``self_attention_blocks_<i>``).
         num_out: output field channels.
         latent_dim: latent context width (before the stem).
         cross_attn_invariant: geometry invariant of the cross attention.
-        embedding_type: only ``'rff'`` is ported.
+        embedding_type: ``'rff'``, ``'ffn'`` or ``'polynomial'``.
+        self_attn_invariant: geometry invariant of the self attention (needed when
+            ``num_layers`` > 0; ``geometry.invariants.get_sa_invariant``).
     """
 
     def __init__(self, num_hidden: int, num_heads: int, num_layers: int, num_out: int,
                  latent_dim: int, cross_attn_invariant: BaseInvariant, embedding_type: str,
                  embedding_freq_multiplier: tuple, condition_value_transform: bool,
-                 use_gaussian_window: bool = True):
+                 use_gaussian_window: bool = True,
+                 self_attn_invariant: Optional[BaseInvariant] = None):
         super().__init__()
-        if num_layers != 0:
-            raise NotImplementedError("Latent self attention (num_layers > 0) is not ported yet; see ROADMAP.md.")
-        if embedding_type != "rff":
-            raise NotImplementedError(f"Embedding {embedding_type!r} is not ported yet; see ROADMAP.md.")
+        if num_layers and self_attn_invariant is None:
+            raise ValueError("num_layers > 0 needs a self_attn_invariant")
         self.num_hidden, self.num_heads, self.num_out = num_hidden, num_heads, num_out
+        self.num_layers = num_layers
         self.cross_attn_invariant = cross_attn_invariant
+        self.embedding_type = embedding_type
         self.condition_value_transform = condition_value_transform
         self.use_gaussian_window = use_gaussian_window
         self.latent_stem = Dense(latent_dim, num_hidden)
-        attn = EquivariantCrossAttention(
-            num_hidden=num_hidden,
-            num_heads=num_heads,
-            invariant=cross_attn_invariant,
-            embedding_freq_multiplier=tuple(embedding_freq_multiplier),
-            condition_value_transform=condition_value_transform,
-            project_heads=False,
-            use_gaussian_window=use_gaussian_window,
-        )
+
+        def attention(invariant, project_heads):
+            return EquivariantCrossAttention(
+                num_hidden=num_hidden,
+                num_heads=num_heads,
+                invariant=invariant,
+                embedding_freq_multiplier=tuple(embedding_freq_multiplier),
+                condition_value_transform=condition_value_transform,
+                project_heads=project_heads,
+                use_gaussian_window=use_gaussian_window,
+                embedding_type=embedding_type,
+            )
+
+        for i in range(num_layers):  # flax names a list of submodules <name>_<i>
+            self.add_module(f"self_attention_blocks_{i}", CrossAttentionBlock(
+                num_hidden, num_heads, attention(self_attn_invariant, True), residual=True,
+                project_heads=True))
         self.cross_attention_block = CrossAttentionBlock(
-            num_hidden, num_heads, attn, residual=False, project_heads=False
-        )
+            num_hidden, num_heads, attention(cross_attn_invariant, False), residual=False,
+            project_heads=False)
         self.out_proj = MLPHead(num_heads * num_hidden, num_hidden, num_out)
+
+    @property
+    def kernel_eligible(self) -> bool:
+        """Whether the fused kernels compute this decoder: the RFF embedding with the
+        value conditioning (JAX's ``_use_pallas_full``)."""
+        return self.condition_value_transform and self.embedding_type == "rff"
 
     def forward(self, x, p, a, gaussian_window, backend: str = "eager"):
         """Decode field values at coordinates ``x`` from latents ``(p, a, sigma)``.
@@ -127,8 +154,7 @@ class EnfDecoder(nn.Module):
             p: [batch, num_latents, pose_dim].
             a: [batch, num_latents, latent_dim].
             gaussian_window: [batch, num_latents, 1] per-latent window size.
-            backend: ``'eager'`` (differentiable to any order) or ``'kernel'``
-                (first order).
+            backend: ``'eager'`` or ``'kernel'`` (only where ``kernel_eligible``).
 
         Returns:
             [batch, num_coords, num_out].
@@ -139,14 +165,24 @@ class EnfDecoder(nn.Module):
                                      inv, wb, A, ab, G, c, *ws, *tws)
         if backend != "eager":
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-        p = embed_pose_angles(p, self.cross_attn_invariant)
-        a = self.latent_stem(a)
+        p, a = self.latent_features(p, a, gaussian_window)
         out = self.cross_attention_block(x, p, a, window_size=gaussian_window)
         return self.out_proj(gelu(out))
 
+    def latent_features(self, p, a, gaussian_window):
+        """The cross attention's latents: poses with their angles on the circle, and the
+        contexts after the stem and the self-attention blocks, each
+        ``a <- gelu(a + block(p, p, a))`` with the poses as the blocks' queries."""
+        p = embed_pose_angles(p, self.cross_attn_invariant)
+        a = self.latent_stem(a)
+        for i in range(self.num_layers):
+            block = getattr(self, f"self_attention_blocks_{i}")
+            a = gelu(a + block(p, p, a, window_size=gaussian_window))
+        return p, a
+
     def kernel_inputs(self, x, p, a, gaussian_window):
         """All of ``fused_decode_fwd``'s inputs: ``kernel_geometry`` then ``fold``."""
-        return (*self.kernel_geometry(x, p, gaussian_window), *self.fold(p, a))
+        return (*self.kernel_geometry(x, p, gaussian_window), *self.fold(p, a, gaussian_window))
 
     def kernel_geometry(self, x, p, gaussian_window):
         """The fused decode's per-coordinate inputs: inv [b, z, c, I], wb [b, z, c]."""
@@ -159,15 +195,19 @@ class EnfDecoder(nn.Module):
             wb = torch.zeros(inv.shape[:3], dtype=inv.dtype, device=inv.device)
         return inv.transpose(1, 2).float().contiguous(), wb.transpose(1, 2).float().contiguous()
 
-    def fold(self, p, a):
+    def fold(self, p, a, gaussian_window):
         """The fused decode's coordinate-independent inputs (``fold_decode_weights``).
 
-        The stem, the block LayerNorm, the key/value projections and the weight folds
-        run here in PyTorch; K1 takes over from the invariants.
+        The stem, the self-attention blocks, the block LayerNorm, the key/value
+        projections and the weight folds run here in PyTorch; K1 takes over from the
+        invariants.
         """
-        if not self.condition_value_transform:
-            raise NotImplementedError("The fused decode needs condition_value_transform.")
-        a = self.latent_stem(a)
+        if not self.kernel_eligible:
+            raise ValueError(
+                f"The fused decode computes the RFF embedding with condition_value_transform, "
+                f"not embedding_type={self.embedding_type!r}, condition_value_transform="
+                f"{self.condition_value_transform}: decode this decoder on backend='eager'.")
+        _, a = self.latent_features(p, a, gaussian_window)
         block = self.cross_attention_block
         attn = block.attn
         a_norm = block.layer_norm_attn(a)
@@ -209,15 +249,16 @@ def decode_trajectories(decoder: EnfDecoder, backend: str, coords: torch.Tensor,
     [points, coord_dim] in chunks of ``chunk_size`` points on ``backend``; returns
     [batch, T, points, out]. The validation and forecast decode of both trainers.
 
-    On the kernel backend the weight folds, which depend on the latents only, and K1's
-    split of the shared weights run once for all chunks.
+    On the kernel backend the weight folds (with the stem and the self-attention blocks),
+    which depend on the latents only, and K1's split of the shared weights run once for
+    all chunks.
     """
     p, a, w = latent_traj
     b, t = p.shape[0], p.shape[1]
     p_fl, a_fl, w_fl = (x.reshape(b * t, *x.shape[2:]) for x in (p, a, w))
     xs = coords[None].expand(b * t, *coords.shape)
     if backend == "kernel":
-        folded = decoder.fold(p_fl, a_fl)
+        folded = decoder.fold(p_fl, a_fl, w_fl)
         _, split = split_weights(folded[4])
 
         def apply_fn(x, pp, aa, ww):

@@ -1,14 +1,16 @@
 """Equivariant cross attention between coordinate queries and a latent point set.
 
 Counterpart of the eager path of ``enf_pde_tpu/ops/attention.py``: a query is built
-from an RFF embedding of the bi-invariants ``inv(x, p)``; keys/values come from the
-latent contexts ``a``; values are FiLM-conditioned per (coordinate, latent) pair by a
-second invariant embedding; a per-latent Gaussian window is added to the logits; the
-softmax normalizes over the latent axis.
+from an embedding (RFF, FFN or polynomial) of the bi-invariants ``inv(x, p)``;
+keys/values come from the latent contexts ``a``; values are FiLM-conditioned per
+(coordinate, latent) pair by a second invariant embedding (itself optionally
+conditioned on per-coordinate features ``x_h``); a per-latent Gaussian window is added
+to the logits; the softmax normalizes over the latent axis.
 
-This composition is the path autograd differentiates (the inner-loop latent fit).
-Forward-only decoding goes through the fused kernel instead
-(``EnfDecoder`` with ``backend='kernel'``, ``ops/fused_decode.py``).
+This composition is the eager backend, which autograd differentiates to any order.
+The decoder's last cross attention can run on the fused kernels instead
+(``EnfDecoder`` with ``backend='kernel'``, ``ops/fused_decode.py``) when it uses the RFF
+embedding and the value conditioning.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 
 from enf_pde_tpu_torch.geometry.invariants import BaseInvariant
-from enf_pde_tpu_torch.ops.embeddings import RFFNet
+from enf_pde_tpu_torch.ops.embeddings import get_embedding
 from enf_pde_tpu_torch.ops.layers import Dense, LayerNorm, gelu
 
 __all__ = ["PointwiseFFN", "EquivariantCrossAttention"]
@@ -43,39 +45,45 @@ class EquivariantCrossAttention(nn.Module):
         num_hidden: per-head hidden width D (also the latent context width).
         num_heads: number of heads H.
         invariant: geometry invariant producing ``inv(x, p) [b, c, z, inv_dim]``.
-        embedding_freq_multiplier: (query, value) RFF frequency multipliers.
+        embedding_freq_multiplier: (query, value) frequency multipliers of the embeddings.
         condition_value_transform: FiLM-condition values on the invariant embedding.
         project_heads: project concatenated heads back to ``num_hidden``.
         use_gaussian_window: add the per-latent Gaussian window to the logits.
-
-    Only the RFF embedding is ported, and the ``x_h`` conditioning of the invariant
-    embedding (used by latent self attention, ``num_layers > 0``) is not.
+        embedding_type: ``'rff'``, ``'ffn'`` or ``'polynomial'`` (``ops/embeddings.py``).
+        condition_invariant_embedding: FiLM-condition the value-side invariant embedding
+            on per-coordinate features ``x_h`` (the latent transformer's self attention).
     """
 
     def __init__(self, num_hidden: int, num_heads: int, invariant: BaseInvariant,
                  embedding_freq_multiplier: tuple, condition_value_transform: bool,
-                 project_heads: bool, use_gaussian_window: bool = True):
+                 project_heads: bool, use_gaussian_window: bool = True,
+                 embedding_type: str = "rff", condition_invariant_embedding: bool = False):
         super().__init__()
         H, D = num_heads, num_hidden
         self.num_heads, self.num_hidden = H, D
         self.invariant = invariant
+        self.embedding_type = embedding_type
         self.condition_value_transform = condition_value_transform
+        self.condition_invariant_embedding = condition_invariant_embedding
         self.use_gaussian_window = use_gaussian_window
         freq_q, freq_v = embedding_freq_multiplier
-        self.invariant_embedding_query = RFFNet(invariant.dim, D, D, std=freq_q)
-        self.invariant_embedding_value = RFFNet(invariant.dim, D, D, std=freq_v)
+        self.invariant_embedding_query = get_embedding(embedding_type, invariant.dim, D, D, freq_q)
+        self.invariant_embedding_value = get_embedding(embedding_type, invariant.dim, D, D, freq_v)
         self.inv_emb_to_q = Dense(D, H * D)
         self.a_to_k = Dense(D, H * D)
         self.a_to_v = Dense(D, H * D)
         self.scale = 1.0 / (D**0.5)
+        if condition_invariant_embedding:
+            self.inv_emb_cond_to_inv_emb = PointwiseFFN(D, D, 2 * D)
         if condition_value_transform:
             self.inv_emb_to_v = PointwiseFFN(D, D, 2 * H * D)
             self.inv_emb_cond_mixer = PointwiseFFN(D, D, D)
         self.out_proj = Dense(H * D, D if project_heads else H * D)
 
-    def forward(self, x, p, a, window_sigma=None):
-        """x [b, c, coord_dim], p [b, z, pose_dim], a [b, z, D], window_sigma [b, z, 1]
-        -> [b, c, D] (or [b, c, H*D] when ``project_heads`` is False)."""
+    def forward(self, x, p, a, window_sigma=None, x_h=None):
+        """x [b, c, coord_dim], p [b, z, pose_dim], a [b, z, D], window_sigma [b, z, 1],
+        x_h [b, c, D] (only with ``condition_invariant_embedding``) -> [b, c, D] (or
+        [b, c, H*D] when ``project_heads`` is False)."""
         H, D = self.num_heads, self.num_hidden
         inv = self.invariant(x, p)  # [b, c, z, inv_dim]
         q = self.inv_emb_to_q(self.invariant_embedding_query(inv))  # [b, c, z, H*D]
@@ -84,6 +92,11 @@ class EquivariantCrossAttention(nn.Module):
 
         if self.condition_value_transform:
             inv_emb_v = self.invariant_embedding_value(inv)  # [b, c, z, D]
+            if self.condition_invariant_embedding:
+                if x_h is None:
+                    raise ValueError("x_h is required when conditioning the invariant embedding.")
+                g, b_ = torch.chunk(self.inv_emb_cond_to_inv_emb(x_h), 2, dim=-1)
+                inv_emb_v = inv_emb_v * (1 + g[:, :, None, :]) + b_[:, :, None, :]
             v_gamma, v_beta = torch.chunk(self.inv_emb_to_v(inv_emb_v), 2, dim=-1)
             v = v[:, None, :, :] * (1 + v_gamma) + v_beta  # [b, c, z, H*D]
             v = v.reshape(v.shape[:-1] + (H, D))

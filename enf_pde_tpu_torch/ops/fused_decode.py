@@ -27,7 +27,10 @@ Layers, as in the JAX package:
   ``fused_decode_bwd`` the wrapper of kernel K2 (``csrc/fused_decode_bwd.cu``), with
   the same CPU / CUDA dispatch.
 - ``FusedDecode`` pairs the two wrappers in a ``torch.autograd.Function`` (K1
-  forward, K2 backward; first order only: a double backward raises).
+  forward, K2 backward). A backward that builds a graph (``create_graph=True``, the
+  meta-SGD inner loop) goes through ``FusedDecodeVJP``: K2 gives the gradients' values,
+  the plain composition their derivatives, as JAX's ``custom_jvp`` shields around its
+  kernels do.
 
 Numerics: the reference paths run in strict f32. ``strict_fp32`` turns TF32 off for
 both cuBLAS matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -36,6 +39,7 @@ both cuBLAS matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 import re
@@ -487,6 +491,7 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=
         msg = lib.fused_decode_fwd_error_string(rc).decode()
         raise RuntimeError(f"fused_decode_fwd launch failed for dims {dims}: {msg} (cudaError {rc})")
     fused_decode_fwd.launches += 1
+    fused_decode_fwd.launches_by_shape[(B, Z, C)] += 1
     return out
 
 
@@ -502,8 +507,8 @@ def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
 
     On CPU tensors this is ``fused_decode_plain`` (``split`` is not read); on CUDA
     tensors it launches the kernel on the current stream (counted in
-    ``fused_decode_fwd.launches``) or raises. Returns [b, c, num_out] with tail
-    weights, else [b, c, H*D].
+    ``fused_decode_fwd.launches``, and by ``(b, z, c)`` in ``launches_by_shape``) or
+    raises. Returns [b, c, num_out] with tail weights, else [b, c, H*D].
     """
     if inv.device.type == "cpu":
         return fused_decode_plain(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
@@ -513,6 +518,7 @@ def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
 
 
 fused_decode_fwd.launches = 0
+fused_decode_fwd.launches_by_shape = collections.Counter()
 
 
 # --------------------------------------------------------------------- kernel K2
@@ -586,6 +592,7 @@ def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
         msg = lib.fused_decode_bwd_error_string(rc).decode()
         raise RuntimeError(f"fused_decode_bwd launch failed: {msg} (cudaError {rc})")
     fused_decode_bwd.launches += 1
+    fused_decode_bwd.launches_by_shape[(B, Z, C, bool(weight_grads))] += 1
 
     # Split the flat buffer: dA, dab, dG, dc, then the trained weights in order.
     shapes = [A.shape, ab.shape, G.shape, c.shape]
@@ -615,8 +622,8 @@ def fused_decode_bwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
     gradients of inv, wb, A, ab, G and c (the ode step's need).
 
     On CPU tensors this is ``fused_decode_bwd_plain``; on CUDA tensors it launches
-    the kernel on the current stream (counted in ``fused_decode_bwd.launches``) or
-    raises.
+    the kernel on the current stream (counted in ``fused_decode_bwd.launches``, and by
+    ``(b, z, c, weight_grads)`` in ``launches_by_shape``) or raises.
     """
     if inv.device.type == "cpu":
         return fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws, tws, g, num_heads, head_dim,
@@ -627,16 +634,18 @@ def fused_decode_bwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
 
 
 fused_decode_bwd.launches = 0
+fused_decode_bwd.launches_by_shape = collections.Counter()
 
 
 class FusedDecode(torch.autograd.Function):
-    """K1 forward, K2 backward: the differentiable fused decode (first order).
+    """K1 forward, K2 backward: the differentiable fused decode.
 
     ``FusedDecode.apply(num_heads, head_dim, num_tail, inv, wb, A, ab, G, c, *ws, *tws)``
     with ``num_tail`` = ``len(tws)`` (0 or 12). The backward computes only what
     ``ctx.needs_input_grad`` asks for: the weight gradients only when some weight
-    needs one. Second order through the kernels is not supported: a backward that
-    would build a graph for a double backward (``create_graph=True``) raises.
+    needs one. A backward that builds a graph for a double backward
+    (``create_graph=True``) returns ``FusedDecodeVJP``'s gradients, whose values are
+    K2's and whose derivatives are the plain composition's.
     """
 
     @staticmethod
@@ -649,21 +658,74 @@ class FusedDecode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled():  # create_graph: K2 has no derivative of its own
-            raise RuntimeError(
-                "FusedDecode is first order: its backward (kernel K2) cannot be "
-                "differentiated again; take higher-order gradients through the eager "
-                "decoder (backend='eager')."
-            )
-        inv, wb, A, ab, G, c, *weights = ctx.saved_tensors
+        saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[3:]
-        n_ws = len(weights) - ctx.num_tail
-        weight_grads = any(needs[6:])
-        dinv, dwb, dA, dab, dG, dc, dws, dtws = fused_decode_bwd(
-            inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:], g.contiguous(),
-            ctx.num_heads, ctx.head_dim, weight_grads)
-        grads = (dinv, dwb, dA, dab, dG, dc, *dws, *dtws)
+        if torch.is_grad_enabled():  # create_graph: the gradients must be differentiable
+            got = iter(FusedDecodeVJP.apply(ctx.num_heads, ctx.head_dim, ctx.num_tail, needs,
+                                            g.contiguous(), *saved))
+            return (None, None, None, *(next(got) if need else None for need in needs))
+        grads = _k2_grads(ctx.num_heads, ctx.head_dim, ctx.num_tail, needs, g.contiguous(), saved)
         return (None, None, None, *(d if need else None for d, need in zip(grads, needs)))
+
+
+def _k2_grads(num_heads: int, head_dim: int, num_tail: int, needs, g, saved):
+    """K2's gradients of every input of ``FusedDecode`` (in its order), with the weights'
+    only when ``needs`` asks for one of them."""
+    inv, wb, A, ab, G, c, *weights = saved
+    n_ws = len(weights) - num_tail
+    dinv, dwb, dA, dab, dG, dc, dws, dtws = fused_decode_bwd(
+        inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:], g, num_heads, head_dim,
+        any(needs[6:]))
+    return (dinv, dwb, dA, dab, dG, dc, *dws, *dtws)
+
+
+class FusedDecodeVJP(torch.autograd.Function):
+    """The VJP of the fused decode as a differentiable function of its inputs and of the
+    cotangent (JAX's ``_bwd_op`` with its ``custom_jvp``).
+
+    ``FusedDecodeVJP.apply(num_heads, head_dim, num_tail, needs, g, inv, wb, A, ab, G, c,
+    *weights)`` returns the gradients of the inputs that ``needs`` marks (in order), with
+    K2's values. Its backward recomputes ``fused_decode_plain`` from the same inputs,
+    takes the plain VJP at ``g`` with a graph, and differentiates that against the
+    incoming cotangents, so a double backward sees the plain composition's second
+    derivatives. Every tensor it reads, ``g`` included, is an input: the outer gradient
+    reaches the weights, the latents and, through ``g``, the loss.
+    """
+
+    @staticmethod
+    def forward(ctx, num_heads: int, head_dim: int, num_tail: int, needs, g, *saved):
+        ctx.num_heads, ctx.head_dim, ctx.num_tail, ctx.needs = num_heads, head_dim, num_tail, needs
+        ctx.save_for_backward(g, *saved)
+        ctx.set_materialize_grads(False)
+        grads = _k2_grads(num_heads, head_dim, num_tail, needs, g, saved)
+        return tuple(d for d, need in zip(grads, needs) if need)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        g, *saved = ctx.saved_tensors
+        higher = torch.is_grad_enabled()
+        n_ws = len(saved) - 6 - ctx.num_tail
+        with torch.enable_grad():
+            # A tensor with a graph enters through an alias (a view: a node of its own),
+            # so that the derivatives are partial ones (one input may be computed from
+            # another, as A is from the weights) and a third derivative still reaches it;
+            # the others become leaves here.
+            xs = [x.view_as(x) if x.requires_grad else x.detach().requires_grad_(need)
+                  for x, need in zip((g, *saved), (True, *ctx.needs))]
+            g_, inv, wb, A, ab, G, c, *weights = xs
+            out = fused_decode_plain(inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:],
+                                     ctx.num_heads, ctx.head_dim)
+            targets = [x for x, need in zip(xs[1:], ctx.needs) if need]
+            first = torch.autograd.grad(out, targets, g_, create_graph=True)
+            pairs = [(f, ct) for f, ct in zip(first, cotangents) if ct is not None and f.requires_grad]
+            wrt = [i for i, need in enumerate(ctx.needs_input_grad[4:]) if need]
+            got = torch.autograd.grad([f for f, _ in pairs], [xs[i] for i in wrt],
+                                      [ct for _, ct in pairs], allow_unused=True,
+                                      create_graph=higher) if pairs and wrt else [None] * len(wrt)
+        grads = [None] * len(xs)
+        for i, d in zip(wrt, got):
+            grads[i] = d
+        return (None, None, None, None, *grads)
 
 
 def decode_flops_per_point(num_heads: int, head_dim: int, hidden: int, hidden_mixer: int,

@@ -15,7 +15,7 @@ Counterpart of ``enf_pde_tpu/train/autodecode.py`` (reference
   (``refit_latents``), optionally on a kept share of the coordinates.
 
 The training decodes run on ``nef.backend`` (``xla``: the eager decoder; ``pallas``:
-K1 forward, K2 backward). The decoder's and the ODE's parameters live in their
+K1 forward, K2 backward; ``builders.resolve_backend``). The decoder's and the ODE's parameters live in their
 modules; the state is ``{'autodecoder': the table, 'opt': optimizer states}``, and
 the steps update it (and the modules) in place and return ``(loss, state)``. Random
 draws come from the trainer's ``generator`` (or a generator handed in), and any draw
@@ -29,7 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from enf_pde_tpu_torch.builders import coordinate_system_for, decoder_backend
+from enf_pde_tpu_torch.builders import coordinate_system_for, resolve_backend
 from enf_pde_tpu_torch.models.decoder import decode_trajectories
 from enf_pde_tpu_torch.models.latents import gather_latents, init_latents, latents_to_pose
 from enf_pde_tpu_torch.ops.layers import reset_parameters
@@ -75,8 +75,9 @@ class AutodecodingTrainer:
         self.num_pos_dims = inv.num_z_pos_dims
         self.num_ori_dims = inv.num_z_ori_dims
         train_backend = cfg.nef.get("backend", "xla")
-        self.train_backend = decoder_backend(train_backend)
-        self.eval_backend = decoder_backend(cfg.nef.get("eval_backend", train_backend))
+        self.train_backend = resolve_backend(train_backend, decoder)
+        self.eval_backend = resolve_backend(cfg.nef.get("eval_backend", train_backend), decoder,
+                                            "nef.eval_backend")
         self.opts = make_optimizers(cfg)
         self.generator = torch.Generator().manual_seed(seed)
 

@@ -83,20 +83,21 @@ def make_train_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: In
     """Build the training inner-loop function.
 
     Returns:
-        ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None)
-        -> (query_loss, fitted_latents)``: ``masks`` [K + 1, num_sampled] (drawn when
-        not given), the query loss is the fitted latents' MSE on row K. Both are
-        differentiable to second order in the decoder's parameters, ``meta_lrs`` and
-        ``latent_init``.
+        ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None,
+        query=True) -> (query_loss, fitted_latents)``: ``masks`` [K + 1, num_sampled]
+        (drawn when not given), the query loss is the fitted latents' MSE on row K (None
+        with ``query=False``, which skips its decode: the dual step uses the fitted
+        latents only). Both are differentiable to second order in the decoder's
+        parameters, ``meta_lrs`` and ``latent_init``.
     """
 
     def inner_loop(meta_lrs, latent_init: LatentParams, frames: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   masks: Optional[torch.Tensor] = None):
+                   masks: Optional[torch.Tensor] = None, query: bool = True):
         recon_loss, fitted, masks = _fit(
             decoder_apply, coords, cfg, meta_lrs, latent_init, frames, generator, masks,
             0.0, None, num_masks=cfg.num_inner_steps + 1, create_graph=True)
-        return recon_loss(fitted, masks[cfg.num_inner_steps]), fitted
+        return (recon_loss(fitted, masks[cfg.num_inner_steps]) if query else None), fitted
 
     return inner_loop
 

@@ -245,7 +245,7 @@ class TrainLoop:
         t_start = time.time()
         self.logger.log(
             {
-                "train_backend": "eager",
+                "train_backend": self.trainer.train_backend,
                 "eval_backend": self.trainer.eval_backend,
                 "ode_backend": self.trainer.ode_backend,
             },

@@ -4,27 +4,32 @@ Counterpart of ``enf_pde_tpu/train/meta_sgd.py`` (reference ``pde_trainer.py``):
 
 - **nef phase**: outer gradients of the inner-loop query loss update the decoder and
   the learned inner learning rates (second order through the K-step latent fit, on
-  the eager decoder).
+  ``nef.backend``: the eager decoder, or K1 forward and K2 backward with the plain
+  composition's second derivatives, ``ops/fused_decode.py::FusedDecode``).
 - **ode phase**: latents are inner-fitted to frame 0 (first order: they are
   constants of the ODE's gradient), rolled out with the latent ODE for
   ``traj_len_train`` frames, decoded at one random coordinate subset per frame on
   ``nef.ode_backend`` (the fused kernels K1 forward, K2 backward), and the rollout
   MSE updates the ODE model.
 - **dual phase**: the rollout loss updates decoder + inner learning rates + ODE
-  together (second-order inner loop, rollout decode on K1 + K2).
+  together (second-order inner loop on ``nef.backend``, rollout decode on
+  ``nef.ode_backend``).
 - **validation**: fit frame 0, roll out over the train and out horizons, decode every
   grid point on ``nef.eval_backend`` (K1), MSE in and out of the train horizon.
 
-The decoder's and the ODE's parameters live in their modules; the rest of the state
-is a dict ``{'autodecoder': shared init latents, 'meta_sgd_lrs': inner learning rates,
-'opt': optimizer states}``. The steps update it (and the modules) in place and return
-``(loss, state)``. The train steps' random draws (frame choice, inner-loop masks, the
-rollout loss's coordinate subsets) come from the trainer's ``generator``; validation
-draws its masks and dp subsets from a generator of its own, seeded from the trainer's
-seed and the batch index, as JAX folds ``batch_idx`` into its key. So validating does
-not move the training draws, and two evaluations of one state agree. Any draw may be
-passed in instead (the parity tests hand in the JAX package's draws). The rollout is a
-forward Python loop without rematerialisation.
+Each of ``nef.backend``, ``nef.eval_backend`` and ``nef.ode_backend`` resolves once, at
+construction (``builders.resolve_backend``): to the eager decoder where the kernels do
+not compute the decoder. The latent fits (training, serving, validation) decode on
+``train_backend``. The decoder's and the ODE's parameters live in their modules; the
+rest of the state is a dict ``{'autodecoder': shared init latents, 'meta_sgd_lrs':
+inner learning rates, 'opt': optimizer states}``. The steps update it (and the modules)
+in place and return ``(loss, state)``. The train steps' random draws (frame choice,
+inner-loop masks, the rollout loss's coordinate subsets) come from the trainer's
+``generator``; validation draws its masks and dp subsets from a generator of its own,
+seeded from the trainer's seed and the batch index, as JAX folds ``batch_idx`` into its
+key. So validating does not move the training draws, and two evaluations of one state
+agree. Any draw may be passed in instead (the parity tests hand in the JAX package's
+draws). The rollout is a forward Python loop without rematerialisation.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from enf_pde_tpu_torch.builders import coordinate_system_for, decoder_backend
+from enf_pde_tpu_torch.builders import coordinate_system_for, resolve_backend
 from enf_pde_tpu_torch.models.decoder import decode_trajectories
 from enf_pde_tpu_torch.models.latents import init_latents, latents_to_pose
 from enf_pde_tpu_torch.ops.layers import reset_parameters
@@ -86,13 +91,11 @@ class MetaSGDTrainer:
         self.num_pos_dims = inv.num_z_pos_dims
         self.num_ori_dims = inv.num_z_ori_dims
         train_backend = cfg.nef.get("backend", "xla")
-        if decoder_backend(train_backend) != "eager":
-            raise NotImplementedError(
-                "The second-order inner loop runs on the eager decoder only (nef.backend: xla); "
-                "second order through the fused kernels is not ported (ROADMAP.md)."
-            )
-        self.eval_backend = decoder_backend(cfg.nef.get("eval_backend", train_backend))
-        self.ode_backend = decoder_backend(cfg.nef.get("ode_backend", train_backend))
+        self.train_backend = resolve_backend(train_backend, decoder)
+        self.eval_backend = resolve_backend(cfg.nef.get("eval_backend", train_backend), decoder,
+                                            "nef.eval_backend")
+        self.ode_backend = resolve_backend(cfg.nef.get("ode_backend", train_backend), decoder,
+                                           "nef.ode_backend")
         self.opts = make_optimizers(cfg)
         self.generator = torch.Generator().manual_seed(seed)
 
@@ -102,9 +105,11 @@ class MetaSGDTrainer:
             optimize_gaussian_window=cfg.nef.optimize_gaussian_window,
             noise_pos_inner_loop=cfg.meta.noise_pos_inner_loop,
         )
-        # The latent fit differentiates the decoder, so it runs the eager backend.
-        self.inner_loop = make_inner_loop(self.decoder, self.coords, self.inner_cfg)
-        self.train_inner_loop = make_train_inner_loop(self.decoder, self.coords, self.inner_cfg)
+        def fit_decode(x, p, a, window):  # reads the decoder and train_backend at each call
+            return self.decoder(x, p, a, window, backend=self.train_backend)
+
+        self.inner_loop = make_inner_loop(fit_decode, self.coords, self.inner_cfg)
+        self.train_inner_loop = make_train_inner_loop(fit_decode, self.coords, self.inner_cfg)
         self.val_step_dp = {dp: partial(self.val_step, dp=dp) for dp in VAL_DP}
 
     # ------------------------------------------------------------------ state init
@@ -198,7 +203,7 @@ class MetaSGDTrainer:
         trajectory = trajectory[:, :T]
         if second_order:
             _, fitted = self.train_inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
-                                              masks=masks)
+                                              masks=masks, query=False)
         else:
             fitted = self.inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
                                      masks=masks)

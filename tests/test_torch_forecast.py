@@ -124,7 +124,7 @@ def test_decode_folds_once_for_all_chunks(pair, monkeypatch):
     traj = fc.rollout(fc.fit(frames, masks=masks), 2)
     dec = fc.trainer.decoder
     fold, calls = dec.fold, []
-    monkeypatch.setattr(dec, "fold", lambda p, a: calls.append(p.shape) or fold(p, a))
+    monkeypatch.setattr(dec, "fold", lambda p, a, w: calls.append(p.shape) or fold(p, a, w))
     got = fc.decode(traj, chunk_size=48)  # 6 chunks, the last one ragged
     assert calls == [(BATCH * 2, fc.cfg.nef.num_latents, 2)]
     p, a, w = (x.reshape(BATCH * 2, *x.shape[2:]) for x in traj)

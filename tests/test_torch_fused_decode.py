@@ -145,10 +145,10 @@ def test_wrapper_runs_plain_on_cpu_without_counting(pair):
     _, _, dec, (x, p, a, sigma) = pair
     with torch.no_grad():
         args = dec.kernel_inputs(t(x), t(p), t(a), t(sigma))
-    before = fd.fused_decode_fwd.launches
+    before = fd.fused_decode_fwd.launches, dict(fd.fused_decode_fwd.launches_by_shape)
     got = fd.fused_decode_fwd(*args, num_heads=H, head_dim=D)
     assert torch.equal(got, fd.fused_decode_plain(*args, num_heads=H, head_dim=D))
-    assert fd.fused_decode_fwd.launches == before
+    assert (fd.fused_decode_fwd.launches, dict(fd.fused_decode_fwd.launches_by_shape)) == before
 
 
 def test_launch_checks_inputs_and_needs_nvcc(pair, monkeypatch, tmp_path):

@@ -7,8 +7,8 @@ the CUDA kernel itself is held against that plain version on the card by
 - the plain VJP against ``jax.vjp`` of JAX ``_reference_decode`` on identical inputs,
   with and without the tail (rtol 2e-4 / atol 2e-5, as ``tests/test_pallas.py``);
 - the kernel backend's gradients through ``FusedDecode`` against the eager decoder's;
-- what ``FusedDecode`` computes (only the gradients asked for) and what it refuses
-  (a double backward);
+- what ``FusedDecode`` computes (only the gradients asked for), and its double
+  backward against the eager decoder's;
 - the wrapper's dispatch, its input checks and the C interface it binds.
 """
 
@@ -113,15 +113,29 @@ def test_fused_decode_computes_only_what_is_needed(pair, monkeypatch):
 
 
 def test_double_backward_through_fused_decode_raises(pair):
+    """A double backward through FusedDecode, which raised before second order was ported,
+    now gives the eager decoder's second derivatives (one inner SGD step on the latents,
+    then the outer gradient, as tests/test_pallas.py runs JAX's): K2 gives the inner
+    gradient's values, the plain composition their derivatives. rtol 2e-3 / atol 1e-4,
+    as tests/test_pallas.py holds JAX's kernels' second order."""
     _, _, dec, (x, p, a, sigma) = pair
-    pl = t(p).requires_grad_(True)
-    out = dec(t(x), pl, t(a), t(sigma), backend="kernel")
-    # The graph for a second derivative is refused where it would be built: silently
-    # treating K2's output as a constant would give wrong second-order gradients.
-    with pytest.raises(RuntimeError, match="first order"):
-        torch.autograd.grad(out.sum(), [pl], create_graph=True)
-    (gp,) = torch.autograd.grad(out.sum(), [pl])
-    assert not gp.requires_grad
+    target = torch.from_numpy(np.random.default_rng(6).standard_normal((B, N, 1)).astype(np.float32))
+    params = [q for q in dec.parameters()]
+    grads = {}
+    for backend in ("eager", "kernel"):
+        lat = [t(v).requires_grad_(True) for v in (p, a)]
+        inner = ((dec(t(x), *lat, t(sigma), backend=backend) - target) ** 2).mean()
+        steps = torch.autograd.grad(inner, lat, create_graph=True)
+        assert all(s.requires_grad for s in steps)
+        moved = [v - 0.05 * s for v, s in zip(lat, steps)]
+        outer = ((dec(t(x), *moved, t(sigma), backend=backend) - target) ** 2).mean()
+        grads[backend] = torch.autograd.grad(outer, params + lat)
+    for ge, gk in zip(grads["eager"], grads["kernel"]):
+        assert_close(gk, ge, rtol=2e-3, atol=1e-4)
+    # The latents' outer gradient differs from the first-order one: second order is live.
+    lat = [t(v).requires_grad_(True) for v in (p, a)]
+    first = torch.autograd.grad(((dec(t(x), *lat, t(sigma)) - target) ** 2).mean(), lat)
+    assert float((grads["kernel"][-1] - first[1]).abs().max()) > 1e-4
 
 
 def test_bwd_wrapper_runs_plain_on_cpu_without_counting(pair):
@@ -129,13 +143,13 @@ def test_bwd_wrapper_runs_plain_on_cpu_without_counting(pair):
     with torch.no_grad():
         args = dec.kernel_inputs(t(x), t(p), t(a), t(sigma))
     g = torch.ones(B, N, 1)
-    before = fd.fused_decode_bwd.launches
+    before = fd.fused_decode_bwd.launches, dict(fd.fused_decode_bwd.launches_by_shape)
     got = fd.fused_decode_bwd(*args, g, H, D, weight_grads=False)
     want = fd.fused_decode_bwd_plain(*args, g, H, D, weight_grads=False)
     for gv, wv in zip(got[:6], want[:6]):
         assert torch.equal(gv, wv)
     assert all(w is None for w in (*got[6], *got[7]))
-    assert fd.fused_decode_bwd.launches == before
+    assert (fd.fused_decode_bwd.launches, dict(fd.fused_decode_bwd.launches_by_shape)) == before
     assert got[0].shape == (B, Z, N, 4) and got[1].shape == (B, Z, N)
 
 

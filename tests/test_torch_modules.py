@@ -239,10 +239,21 @@ def test_decoder_eager_matches_jax():
 
 
 def test_decoder_unported_options_raise():
-    with pytest.raises(NotImplementedError):
+    """Self attention and the ffn / polynomial embeddings are ported (their parity with JAX
+    is in tests/test_torch_self_attention.py); what the decoder still refuses is a
+    self-attention stack without its invariant, an unknown embedding, and the fused
+    kernels on a decoder they do not compute."""
+    with pytest.raises(ValueError, match="self_attn_invariant"):
         EnfDecoder(16, 2, 1, 1, 8, RelativePositionPeriodic(2), "rff", (0.1, 0.1), True)
-    with pytest.raises(NotImplementedError):
-        EnfDecoder(16, 2, 0, 1, 8, RelativePositionPeriodic(2), "ffn", (0.1, 0.1), True)
+    with pytest.raises(ValueError, match="Unknown embedding"):
+        EnfDecoder(16, 2, 0, 1, 8, RelativePositionPeriodic(2), "fourier", (0.1, 0.1), True)
+    dec = EnfDecoder(16, 2, 1, 1, 8, RelativePositionPeriodic(2), "ffn", (0.1, 0.1), True,
+                     self_attn_invariant=RelativePositionPeriodic(2))
+    reset_parameters(dec, torch.Generator().manual_seed(0))
+    x, p, a, sigma = (t(v) for v in torus_inputs(3, lat=8))
+    assert dec(x, p, a, sigma).shape == (B, N, 1) and not dec.kernel_eligible
+    with pytest.raises(ValueError, match="backend='eager'"):
+        dec(x, p, a, sigma, backend="kernel")
 
 
 def test_reset_parameters_is_seeded_and_flax_like():
