@@ -140,8 +140,9 @@ then the paper's two baselines on phase 7's Navier-Stokes data (16 + 8 signals):
     128, 2 heads, 4 latents of 16; PONITA 3 x 128, basis 64; batch 8, 2048 points) through
     ``run_experiment``: epochs nef, nef, ode and the final validation (stored-code rollout,
     then 2-epoch re-fits of both splits at 4 dropout shares); the metric keys exactly the
-    JAX loop's, every value finite, K1's launches against the arithmetic (2 chunks per
-    validation batch, 2 + 4 x (1 + 2) batches: 28), the peak memory; a codes-only step
+    JAX loop's (beside the port's data-path record), every value finite, K1's launches
+    against the arithmetic (2 chunks per validation batch, 2 + 4 x (1 + 2) batches: 28),
+    the peak memory; a codes-only step
     leaves the decoder bit for bit; each step kind's warm median;
 22. ``navier_stokes nef.invariant_type=abs_pos`` (the non-equivariant ablation) through
     ``run_experiment`` for 3 epochs (nef, dual, ode): no equivariance key, K1 and K2 launches
@@ -212,7 +213,33 @@ phase 28 and removed after it):
     ``nef.embedding_type=ffn`` and ``=polynomial`` (multipliers 2: degree 2), whose backends
     resolve to eager with no K1 or K2 launch, finite losses; the ``EquivariantTransformer``
     (hidden 128, 2 heads, 2 layers, with and without global pooling) on phase 28's fitted
-    latents, card against CPU within rel-L2 1e-5.
+    latents, card against CPU within rel-L2 1e-5;
+
+then the last modules at the Navier-Stokes width (phase 7's data is removed after phase 32):
+
+30. the solvers: the ode and dual steps with the training rollout rematerialized (the
+    default, JAX's) and stored, at the YAML's 10 frames and at 50 (``LONG_HORIZON``, the
+    YAML's out horizon, on smooth synthetic trajectories): losses and every gradient within
+    rel-L2 1e-6 of each other, warm medians and peak memory both ways, K1 and K2 launches
+    at the 50-frame rollout's 400 x 512, and both kernels held against their plain versions
+    and timed there;
+31. multi-process on the card: (a) an NCCL world of 1 in this process: the nef, ode and
+    dual steps through the data mesh, the coordinate-sharded validation and the forecast
+    decode bit for bit the paths without a mesh; (b) a gloo world of 2 spawned with both
+    ranks on the one card, on phase 7's first batch of 8: each rank's steps within rel-L2
+    1e-6 of this process's mean over the two halves of the batch, and within 1e-5 of the
+    whole batch's or as close as those halves come; (c) the coordinate-sharded validation
+    and forecast bit for bit; (d) parameters, optimizer states and generators equal on both
+    ranks after three steps; (e) each rank's K1 / K2 launches by shape and warm step
+    medians, and K1 and K2 held and timed at a rank's 40 x 512; (f) the fit CLI for 2
+    epochs on phase 7's data under ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1`` and without it, side by side: equal metrics;
+32. the native prefetcher: its g++ build's seconds, phase 7's batches through the train
+    loader's ``batch_fetch`` bit for bit ``np.load``'s, ms a batch both ways, and one
+    ``run_experiment`` epoch with ``dataset.device_cache=false`` (the run record says
+    ``prefetcher``; the probe batch and each training batch go through it);
+33. the split-DFT Navier-Stokes solver: 1,000 steps of a block of 16 fields, split against
+    ``torch.fft`` within rel-L2 1e-4, and µs a step both ways.
 
 Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
 config's paths, its time at that config's forecast launch shape (``ihc`` included), or for the baselines at
@@ -221,7 +248,10 @@ Navier-Stokes, ``shallow_water`` and ``abs_pos`` ode steps' shapes; behind the
 self-attention stack, K1 at 160 x 512, the nef step's 16 x 512 and the fit's 8 x 512, and
 K2 at 16 x 512 with weight gradients and at 8 x 512 with and without, each with its
 launches at that shape (and mode) in phase 28's run and forecast and its error against its
-plain version at that shape (phases 26-27); each kernel's
+plain version at that shape (phases 26-27); K1 and K2 (without weight gradients for the ode
+step, with them for the dual) at the 50-frame rollout's 400 x 512 (phase 30) and at a
+world-of-2 rank's 40 x 512 (phase 31, both ranks' launches), and K1's launches in the
+world's sharded decodes at 160 x 512 (phase 4's numbers); each kernel's
 ``bound_ms`` is that of the route it takes, 3xTF32 on the tensor cores, or bytes where
 they take longer. Last,
 ``{"ok": true, "device": {...}}``.
@@ -232,9 +262,12 @@ its sums deterministically, in another order than autograd: no atomics).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -245,18 +278,27 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import load_experiment_config
 from enf_pde_tpu_torch.data import get_dataloader, planar_coords
+from enf_pde_tpu_torch.data import native_loader
 from enf_pde_tpu_torch.data.ball_convection import BallConvectionSolver, BallOutputGrid
+from enf_pde_tpu_torch.data.cache import TrajectoryCache
 from enf_pde_tpu_torch.data.ihc import BallModes, full_size_solver
 from enf_pde_tpu_torch.data.registry import dataset_spec
 from enf_pde_tpu_torch.data.sphere_harmonics import SphereGrid
 from enf_pde_tpu_torch.data.cahn_hilliard import cahn_hilliard_rollout, initial_fields
 from enf_pde_tpu_torch.data.diffusion_plane import generate_diffusion_trajectories
 from enf_pde_tpu_torch.data.diffusion_sphere import generate_sphere_diffusion_trajectories
-from enf_pde_tpu_torch.data.navier_stokes import GaussianRF2D, default_forcing, navier_stokes_rollout
+from enf_pde_tpu_torch.data.navier_stokes import (
+    GaussianRF2D,
+    default_forcing,
+    navier_stokes_rollout,
+    navier_stokes_rollout_split,
+)
 from enf_pde_tpu_torch.data.shallow_water import (
     STEPS_PER_RECORD,
     ShallowWaterSolver,
@@ -285,6 +327,8 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
+from enf_pde_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from enf_pde_tpu_torch.train import steps as train_steps
 from enf_pde_tpu_torch.train.inner_loop import make_inner_loop, make_train_inner_loop
 from enf_pde_tpu_torch.train.logging import MetricLogger
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
@@ -327,6 +371,14 @@ NUM_OUT = {"shallow_water": 3}
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernels' operand type
 PEAK_TF32_FLOPS = 495e12  # tensor cores; K1's and K2's 3xTF32 products issue three per product
+# Phases 30-33.
+REMAT_TOL = 1e-6  # rel-L2, a step with the rollout rematerialized against it stored
+LONG_HORIZON = 50  # navier_stokes.yaml's traj_len_out_horizon: the rollout remat is for
+WORLD = 2  # ranks of the gloo world on the one card
+WORLD_TOL = 1e-6  # rel-L2, a rank's step against this process's on the same rows: f32 rounding of a mean
+WORLD_DIR = OUT_DIR / "world"
+SPLIT_STEPS = 1000  # Navier-Stokes steps held split against complex
+SPLIT_TOL = 1e-4  # their rel-L2 (f32 matmul DFT against cuFFT, after 1,000 steps)
 
 
 def log(msg: str) -> None:
@@ -1402,8 +1454,8 @@ def ablation_kernel_phase(dev) -> dict:
 
 def nonmaml_phase(dev) -> dict:
     """21. ``navier_stokes_nonmaml`` (autodecoding) at its full published width through
-    ``run_experiment`` on phase 7's data: its metric keys exactly the JAX loop's, every value
-    finite, K1's launches against the arithmetic (validation only: the training steps
+    ``run_experiment`` on phase 7's data: its metric keys exactly the JAX loop's (beside
+    the port's data-path record), every value finite, K1's launches against the arithmetic (validation only: the training steps
     decode eagerly), the peak memory; then a codes-only step that leaves the decoder bit for
     bit, and each step kind's warm median."""
     t0 = time.perf_counter()
@@ -1416,7 +1468,8 @@ def nonmaml_phase(dev) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer = loop.trainer
     records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
-    keys = set().union(*records) - {"t", "step"}
+    # The port's run record names the data path first; the JAX loop logs no such record.
+    keys = set().union(*records) - {"t", "step", "train_data_path", "val_data_path"}
     tags = ("", "_dp0.05", "_dp0.1", "_dp0.5")
     want = {"train_backend", "eval_backend", "mse_step", "epoch", "train_mse_epoch",
             "train_mse_in_t_sc", "train_mse_out_t_sc"}
@@ -2017,6 +2070,359 @@ def options_phase(dev, latents) -> None:
     log(f"[phase 29] the other options in {time.perf_counter() - t0:.2f} s")
 
 
+# ----------------------------------------------------------------- phases 30-33
+
+
+@contextlib.contextmanager
+def rollout_remat(on: bool):
+    """The training rollout rematerialized (``on``, the default) or stored: the solver call
+    of ``train.steps.latent_rollout`` with its ``remat`` turned off when not ``on``."""
+    real = train_steps.solve_latent_ode
+    train_steps.solve_latent_ode = lambda *a, **kw: real(*a, **{**kw, "remat": on and kw["remat"]})
+    try:
+        yield
+    finally:
+        train_steps.solve_latent_ode = real
+
+
+def step_draws(cfg, seed: int) -> dict:
+    """A step's draws for a batch of ``cfg``: the nef step's frames [fit_on_num_steps], the
+    inner-loop masks [K + 1, M] and the rollout's subsets [T, M]."""
+    gen = torch.Generator().manual_seed(seed)
+    N, M, T = GRID * GRID, cfg.training.max_num_sampled_points, cfg.dataset.traj_len_train
+    return {"frame_idx": torch.randperm(T, generator=gen)[:cfg.training.nef.fit_on_num_steps],
+            "masks": torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(cfg.meta.num_inner_steps + 1)]),
+            "ode_masks": torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(T)])}
+
+
+def step_grads(trainer, state, traj, draws) -> dict:
+    """{kind: (loss, grads)} of the nef, ode and dual steps from one state, ``draws`` handed in."""
+    return {"nef": trainer.nef_grads(state, traj, draws["frame_idx"], draws["masks"]),
+            "ode": trainer.ode_grads(state, traj, draws["masks"], draws["ode_masks"]),
+            "dual": trainer.dual_grads(state, traj, draws["masks"], draws["ode_masks"])}
+
+
+def solvers_phase(dev) -> dict:
+    """30. The ode and dual steps at full width with the rollout rematerialized (JAX's
+    default) and stored, at the training horizon and at 50 frames: losses and gradients,
+    warm medians, peak memory; the kernels' launches by shape."""
+    coords = planar_coords(GRID, GRID)
+    reset_launches()
+    peaks = {}
+    for extra in ([], [f"dataset.traj_len_train={LONG_HORIZON}"]):
+        cfg = load_experiment_config("navier_stokes", extra)
+        T = cfg.dataset.traj_len_train
+        trainer = make_trainer(cfg, coords)
+        state = trainer.init_state()
+        traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, T, GRID, SEED + 30)).to(dev)
+        draws = step_draws(cfg, SEED + 31)
+        for kind in ("ode", "dual"):
+            fn = getattr(trainer, f"{kind}_grads")
+            res = {}
+            for on in (True, False):
+                with rollout_remat(on):
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    loss, grads = fn(state, traj, draws["masks"], draws["ode_masks"])
+                    torch.cuda.synchronize()
+                    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+                    samples = [sync_time(lambda: fn(state, traj, draws["masks"], draws["ode_masks"]))[1] * 1e3
+                               for _ in range(WARM_REPEATS)]
+                res[on] = (loss, grads, peak, statistics.median(samples))
+            label = f"[solvers] {kind} step T={T} b={NUM_SIGNALS}"
+            loss_rel = abs(float(res[True][0]) / float(res[False][0]) - 1)
+            check_grads(f"{label}, remat on against off (loss rel {loss_rel:.3e})", res[True][1], res[False][1],
+                        tol=REMAT_TOL)
+            if not loss_rel <= REMAT_TOL:
+                raise AssertionError(f"{label}: remat moved the loss by {loss_rel:.3e}")
+            log(f"{label}: remat on {res[True][3]:.2f} ms, peak {res[True][2]:.1f} MiB above the state; "
+                f"off {res[False][3]:.2f} ms, peak {res[False][2]:.1f} MiB (warm medians of {WARM_REPEATS})")
+            peaks[(kind, T)] = {on: res[on][2:] for on in res}
+        del trainer, state, traj
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    b = NUM_SIGNALS * LONG_HORIZON
+    k1 = fused_decode_fwd.launches_by_shape[(b, 4, 512)]
+    k2 = {wg: fused_decode_bwd.launches_by_shape[(b, 4, 512, wg)] for wg in (False, True)}
+    log(f"[solvers] launches at T={LONG_HORIZON} (b={b} z=4 c=512): K1 {k1}, K2 without weight "
+        f"gradients {k2[False]}, with {k2[True]}")
+    if not (k1 and k2[False] and k2[True]):
+        raise AssertionError("phase 30 launched K1 or K2 no time at the 50-frame rollout's shape")
+    cfg = load_experiment_config("navier_stokes")
+    return {"peaks": peaks, "b": b, "k1_launches": k1, "k2_launches": k2,
+            "k1": k1_shapes_phase("rollout T=50", [(cfg, b, 512)], dev), "k2": k2_phase(cfg, coords, dev, b=b)}
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def world1_phase(dev, traj: torch.Tensor, frames: np.ndarray) -> None:
+    """31 (a). A world of 1 over NCCL: the steps through the data mesh, the coordinate-sharded
+    validation and the forecast decode, each bit for bit the path without a mesh."""
+    cfg = load_experiment_config("navier_stokes")
+    coords = planar_coords(GRID, GRID)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh("cuda")
+        plain, meshed = make_trainer(cfg, coords), MetaSGDTrainer(cfg, *build_models(cfg), coords, seed=SEED,
+                                                                  device="cuda", mesh=mesh)
+        draws = step_draws(cfg, SEED + 40)
+        want, got = (step_grads(tr, tr.init_state(), traj, draws) for tr in (plain, meshed))
+        sharded = MetaSGDTrainer(cfg, *build_models(cfg), coords, seed=SEED, device="cuda", coord_mesh=mesh)
+        val = [tr.val_step(tr.init_state(), traj, batch_idx=3) for tr in (plain, sharded)]
+        fc = [Forecaster(cfg, coords, device="cuda", coord_mesh=m).forecast(frames, NUM_FRAMES) for m in (None, mesh)]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    same = {kind: float(got[kind][0]) == float(want[kind][0]) and grad_errors(got[kind][1], want[kind][1])[2] == 0
+            for kind in want}
+    same["val"] = all(torch.equal(a, b) for a, b in zip(*val))
+    same["forecast"] = torch.equal(*fc)
+    log(f"[world] NCCL world of 1: bit for bit the single-process path: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the NCCL world of 1 differs from the single-process path: {same}")
+
+
+def world_rank(rank: int, payload_file: str, out_dir: str) -> None:
+    """31 (b)-(e), one rank of the gloo world on the one card: the steps on its rows with the
+    payload's draws, their warm medians, the coordinate-sharded validation and forecast,
+    three steps with the generator's draws, each part's K1 / K2 launches by shape."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank, world_size=WORLD)
+    try:
+        for src in (KERNEL_SOURCE, BWD_KERNEL_SOURCE):
+            cuda_lib.load(src)  # built by the parent: the cached libraries
+        pl = torch.load(payload_file, weights_only=False)
+        cfg = load_experiment_config("navier_stokes")
+        coords = planar_coords(GRID, GRID)
+        mesh = make_mesh("cuda")
+        trainer = MetaSGDTrainer(cfg, *build_models(cfg), coords, seed=SEED, device="cuda", mesh=mesh)
+        state = trainer.init_state()
+        x = shard_batch(pl["traj"], mesh)
+        reset_launches()
+        grads = step_grads(trainer, state, x, pl["draws"])
+        torch.cuda.synchronize()
+        step_launches = (Counter(fused_decode_fwd.launches_by_shape), Counter(fused_decode_bwd.launches_by_shape))
+        medians = {}
+        for kind, (fn, args) in {"nef": (trainer.nef_grads, ("frame_idx", "masks")),
+                                 "ode": (trainer.ode_grads, ("masks", "ode_masks")),
+                                 "dual": (trainer.dual_grads, ("masks", "ode_masks"))}.items():
+            samples = [sync_time(lambda: fn(state, x, *(pl["draws"][a] for a in args)))[1] * 1e3 for _ in range(3)]
+            medians[kind] = statistics.median(samples)
+        sharded = MetaSGDTrainer(cfg, *build_models(cfg), coords, seed=SEED, device="cuda", coord_mesh=mesh)
+        reset_launches()
+        val = sharded.val_step(sharded.init_state(), pl["traj"].to("cuda"), batch_idx=3)
+        forecast = Forecaster(cfg, coords, device="cuda").forecast(pl["frames"], NUM_FRAMES)
+        torch.cuda.synchronize()
+        decode_launches = Counter(fused_decode_fwd.launches_by_shape)
+        for step in (trainer.nef_train_step, trainer.ode_train_step, trainer.dual_train_step):
+            step(state, x)
+        after = {f"nef.{k}": v for k, v in trainer.nef_group().items()}
+        after.update({f"ode.{k}": v for k, v in trainer.ode_group().items()})
+        after.update({f"{g}.{k}": v for g in ("autodecoder", "meta_sgd_lrs") for k, v in state[g].items()})
+        after.update({f"opt.{g}.{part}.{k}": v for g, opt in state["opt"].items()
+                      for part in ("mu", "nu") for k, v in opt.get(part, {}).items()})
+        after["generator"] = trainer.generator.get_state()
+        cpu = lambda t: t.detach().cpu() if torch.is_tensor(t) else t  # noqa: E731
+        torch.save({"grads": {k: (cpu(l), {g: {n: cpu(v) for n, v in gs.items()} for g, gs in gr.items()})
+                              for k, (l, gr) in grads.items()},
+                    "medians": medians, "step_launches": step_launches, "decode_launches": decode_launches,
+                    "val": [cpu(v) for v in val], "forecast": cpu(forecast),
+                    "after": {k: cpu(v) for k, v in after.items()}},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def world_phase(dev, traj: torch.Tensor, frames: np.ndarray) -> dict:
+    """31 (b)-(e). A world of 2 over gloo with both ranks on the one card, against this
+    process: the steps within rel-L2 1e-6 of the mean of this process's steps on the two
+    halves of the batch (the ranks' rows), and within 1e-5 of the step on the whole batch,
+    or as close to it as those halves come (cuBLAS rounds a product by its shape); the
+    sharded decodes bit for bit; the parameters equal across the ranks after three steps;
+    each rank's launches."""
+    cfg = load_experiment_config("navier_stokes")
+    coords = planar_coords(GRID, GRID)
+    draws = step_draws(cfg, SEED + 41)
+    run_dir = fresh_dir(WORLD_DIR)
+    torch.save({"traj": traj.cpu(), "frames": frames, "draws": draws}, run_dir / "payload.pt")
+    _, spawn_s = sync_time(lambda: mp.spawn(world_rank, args=(str(run_dir / "payload.pt"), str(run_dir)),
+                                            nprocs=WORLD, join=True))
+    ranks = [torch.load(run_dir / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    shutil.rmtree(run_dir)
+    trainer = make_trainer(cfg, coords)
+    state = trainer.init_state()
+    cpu = lambda gr: {g: {n: v.cpu() for n, v in gs.items()} for g, gs in gr.items()}  # noqa: E731
+    whole = {k: (float(loss), cpu(gr)) for k, (loss, gr) in step_grads(trainer, state, traj, draws).items()}
+    rows = NUM_SIGNALS // WORLD
+    halves = [step_grads(trainer, state, traj[r * rows:(r + 1) * rows], draws) for r in range(WORLD)]
+    mean = {k: (float(sum(h[k][0] for h in halves) / WORLD),
+                {g: {n: sum(h[k][1][g][n] for h in halves).cpu() / WORLD for n in gs}
+                 for g, gs in halves[0][k][1].items()}) for k in whole}
+    want_val = trainer.val_step(state, traj, batch_idx=3)
+    want_fc = Forecaster(cfg, coords, device="cuda", coord_mesh=None).forecast(frames, NUM_FRAMES)
+    errs = []
+    for r, res in enumerate(ranks):
+        for kind in whole:
+            loss, grads = res["grads"][kind]
+            label = f"[world] rank {r} of {WORLD} (gloo, one card), {kind} step on its {rows} rows"
+            loss_rel = abs(float(loss) / mean[kind][0] - 1)
+            errs.append(check_grads(f"{label} against this process's mean over the halves (loss rel "
+                                    f"{loss_rel:.3e})", grads, mean[kind][1], tol=WORLD_TOL))
+            to_whole, halves_to_whole = grad_errors(grads, whole[kind][1]), grad_errors(mean[kind][1], whole[kind][1])
+            loss_whole = abs(float(loss) / whole[kind][0] - 1)
+            log(f"{label} against this process on all {NUM_SIGNALS}: worst rel_l2 {to_whole[0]:.3e} "
+                f"({to_whole[1]}), loss rel {loss_whole:.3e}; the halves' mean in this process: "
+                f"{halves_to_whole[0]:.3e} ({halves_to_whole[1]}) (tol {REL_L2_TOL:g}, or the halves' own)")
+            if not (loss_rel <= WORLD_TOL and loss_whole <= REL_L2_TOL
+                    and to_whole[0] <= max(REL_L2_TOL, halves_to_whole[0] + WORLD_TOL)):
+                raise AssertionError(f"{label}: loss {loss_rel:.3e} / {loss_whole:.3e}, whole batch "
+                                     f"{to_whole[0]:.3e} ({to_whole[1]})")
+        same = (all(torch.equal(a, b.cpu()) for a, b in zip(res["val"], want_val)),
+                torch.equal(res["forecast"], want_fc.cpu()))
+        log(f"[world] rank {r}: coordinate-sharded validation and forecast bit for bit this process's: "
+            f"{same}; step medians (warm, 3) " + ", ".join(f"{k} {v:.2f} ms" for k, v in res["medians"].items())
+            + f"; K1 launches by (b, z, c): steps {dict(res['step_launches'][0])}, decodes "
+            f"{dict(res['decode_launches'])}; K2 by (b, z, c, weight grads): {dict(res['step_launches'][1])}")
+        if not all(same):
+            raise AssertionError(f"rank {r}: the sharded decodes differ from the unsharded ones: {same}")
+    first = ranks[0]["after"]
+    differ = [k for k in first if not torch.equal(first[k], ranks[1]["after"][k])]
+    log(f"[world] after three steps {len(first)} tensors (parameters, optimizer states, generator), "
+        f"{len(differ)} differ between the ranks; the world's spawn and run took {spawn_s:.1f} s")
+    if differ or len(first) < 40:
+        raise AssertionError(f"the ranks' states differ at {differ[:5]}")
+    b = NUM_SIGNALS // WORLD * cfg.dataset.traj_len_train
+    k1 = sum(res["step_launches"][0][(b, 4, 512)] for res in ranks)
+    k2 = {wg: sum(res["step_launches"][1][(b, 4, 512, wg)] for res in ranks) for wg in (False, True)}
+    dec = sum(res["decode_launches"][(NUM_SIGNALS * NUM_FRAMES, 4, 512)] for res in ranks)
+    if not (k1 and k2[False] and k2[True] and dec):
+        raise AssertionError(f"the world launched K1 or K2 no time at its shapes: {k1}, {k2}, {dec}")
+    return {"b": b, "k1_launches": k1, "k2_launches": k2, "decode_launches": dec, "max_abs_err": max(errs),
+            "medians": [res["medians"] for res in ranks],
+            "k1": k1_shapes_phase(f"world={WORLD} step", [(cfg, b, 512)], dev), "k2": k2_phase(cfg, coords, dev, b=b)}
+
+
+def torchrun_phase() -> None:
+    """31 (f). The fit CLI under ``torchrun --standalone --nproc_per_node=1`` (an NCCL world
+    of 1) for 2 epochs on phase 7's data, and without it: the same metrics."""
+    root = Path(__file__).resolve().parent
+    over = train_overrides("training.num_epochs=2", "logging.checkpoint=false", "test.test_interval=2",
+                           "test.test_dp_interval=1000", "test.test_equiv_at_epoch=1000")
+    cmds = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1"],
+            "plain": [sys.executable]}
+    procs = {}
+    for name, prefix in cmds.items():
+        log_dir = fresh_dir(OUT_DIR / f"cli_{name}")
+        procs[name] = subprocess.Popen(
+            [*prefix, "-m", "enf_pde_tpu_torch.experiments.fit", "navier_stokes",
+             *(o for o in over if not o.startswith("logging.log_dir=")), f"logging.log_dir={log_dir}"],
+            cwd=root, env={**os.environ, "PYTHONPATH": str(root)}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    outs = {name: proc.communicate(timeout=600)[0] for name, proc in procs.items()}
+    took = time.perf_counter() - t0
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"the fit CLI ({name}) exited {proc.returncode}:\n{outs[name][-3000:]}")
+    metrics = {}
+    for name in cmds:
+        records = [json.loads(ln) for ln in (OUT_DIR / f"cli_{name}" / "metrics.jsonl").read_text().splitlines()]
+        metrics[name] = [{k: v for k, v in r.items() if "mse" in k or k in ("epoch", "phase")}
+                         for r in records if any("mse" in k for k in r)]
+        shutil.rmtree(OUT_DIR / f"cli_{name}")
+    log(f"[world] fit CLI for 2 epochs under torchrun (NCCL world of 1) and without, run side by side in "
+        f"{took:.1f} s: {len(metrics['torchrun'])} metric records each, equal: "
+        f"{metrics['torchrun'] == metrics['plain']}; torchrun's last: {metrics['torchrun'][-1]}")
+    if metrics["torchrun"] != metrics["plain"] or not metrics["plain"]:
+        raise AssertionError(f"torchrun's metrics {metrics['torchrun']} != {metrics['plain']}")
+
+
+def multi_process_phase(dev) -> dict:
+    """31. Multi-process on the card: (a) an NCCL world of 1, (b)-(e) a gloo world of 2 on the
+    one card, (f) the fit CLI under torchrun."""
+    cfg = load_experiment_config("navier_stokes", [f"dataset.path={DATA_DIR}"])
+    traj = torch.as_tensor(next(iter(get_dataloader(cfg.dataset, device="cuda")[0]))[0], device=dev)
+    frames = smooth_frames(NUM_SIGNALS, GRID, SEED + 42)
+    world1_phase(dev, traj, frames)
+    result = world_phase(dev, traj, frames)
+    torchrun_phase()
+    return result
+
+
+def prefetcher_phase(dev) -> dict:
+    """32. The native prefetcher: its g++ build, the batches it reads against ``np.load``'s,
+    ms a batch both ways, and one epoch of ``run_experiment`` with the device cache off."""
+    lib = native_loader.build_library()
+    lib.unlink()  # time a build from the source, as a fresh checkout's first batch takes it
+    _, build_s = sync_time(native_loader.build_library)
+    log_dir = OUT_DIR / "prefetch_run"
+    cfg = load_experiment_config("navier_stokes", train_overrides(
+        "dataset.device_cache=false", "training.num_epochs=1", "test.test_interval=1000",
+        "test.test_dp_interval=1000", "test.test_equiv_at_epoch=1000", "logging.checkpoint=false",
+        log_dir=log_dir))
+    train, _ = get_dataloader(cfg.dataset, device="cuda")
+    cache = TrajectoryCache(str(DATA_DIR / "navier_stokes" / "train"), None)
+    order = np.arange(TRAIN_SIGNALS).reshape(-1, NUM_SIGNALS)
+    got = [train.batch_fetch(ids) for ids in order]  # the first builds the prefetcher
+    want = [np.stack([np.load(cache.path(int(i)))["data"] for i in ids]) for ids in order]
+    same = all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
+    ms = {}
+    for name, fn in (("prefetcher", lambda ids: train.batch_fetch(ids)),
+                     ("np.load", lambda ids: np.stack([np.load(cache.path(int(i)))["data"] for i in ids]))):
+        samples = []
+        for _ in range(WARM_REPEATS):
+            for ids in order:
+                t0 = time.perf_counter()
+                fn(ids)
+                samples.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(samples)
+    log(f"[prefetch] g++ build {build_s:.2f} s; {len(order)} batches of {NUM_SIGNALS} {tuple(got[0].shape[1:])} "
+        f"through batch_fetch bit for bit np.load's: {same}; per batch (median of {WARM_REPEATS * len(order)}, "
+        f"files in the page cache): prefetcher {ms['prefetcher']:.3f} ms, np.load of the npz {ms['np.load']:.3f} ms")
+    if not same:
+        raise AssertionError("the prefetcher's batches differ from np.load's")
+    reads = []
+    real = native_loader.NativePrefetcher.load_batch
+    native_loader.NativePrefetcher.load_batch = lambda self, paths, shape: reads.append(len(paths)) or real(
+        self, paths, shape)
+    try:
+        fresh_dir(log_dir)
+        loop, _ = run_experiment(cfg, device="cuda")
+    finally:
+        native_loader.NativePrefetcher.load_batch = real
+    record = json.loads((log_dir / "metrics.jsonl").read_text().splitlines()[0])
+    shutil.rmtree(log_dir)
+    log(f"[prefetch] run_experiment(1 epoch, dataset.device_cache=false): run record {record}; "
+        f"{len(reads)} batches of {sorted(set(reads))} through the prefetcher: the probe batch and "
+        f"{len(loop.train_loader)} training batches")
+    if record.get("train_data_path") != "prefetcher" or len(reads) != 1 + len(loop.train_loader):
+        raise AssertionError(f"the epoch did not read its batches through the prefetcher: {record}, {reads}")
+    return {"build_s": build_s, "ms": ms}
+
+
+def split_fft_phase(dev) -> dict:
+    """33. The split-DFT Navier-Stokes path: 1,000 steps of a block of 16 fields on the card,
+    split against ``torch.fft``, and µs a step both ways."""
+    w0 = GaussianRF2D(GRID).sample_split(range(16), dev)
+    f = default_forcing(GRID, dev)
+    out, us = {}, {}
+    for name, rollout in (("split", navier_stokes_rollout_split), ("torch.fft", navier_stokes_rollout)):
+        rollout(w0, f, NS_VISC, NS_DT, 1, 10)  # warm
+        (_, out[name]), secs = sync_time(lambda: rollout(w0, f, NS_VISC, NS_DT, 1, SPLIT_STEPS))
+        us[name] = secs / SPLIT_STEPS * 1e6
+    rel = rel_l2(out["split"], out["torch.fft"])
+    log(f"[splitfft] {SPLIT_STEPS} steps of 16 x {GRID} x {GRID}: split against torch.fft rel_l2 {rel:.3e} "
+        f"(tol {SPLIT_TOL:g}); {us['split']:.1f} µs a step split, {us['torch.fft']:.1f} µs with torch.fft")
+    if not rel <= SPLIT_TOL or not torch.isfinite(out["split"]).all():
+        raise AssertionError(f"the split rollout differs from the complex one: rel_l2 {rel:.3e}")
+    return {"rel": rel, "us": us}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card.",
@@ -2176,8 +2582,15 @@ def main() -> int:
     attention = attention_phase(dev)
     second = second_order_phase(dev)
     sa_run = sa_train_phase(dev)
-    shutil.rmtree(DATA_DIR)  # phase 28 was its last reader: the output directory stays small
     options_phase(dev, sa_run["latents"])
+    torch.cuda.empty_cache()
+    # 30-33. The last modules: the solvers' remat, the multi-process paths, the prefetcher
+    # (31 and 32 read phase 7's data) and the split-DFT solver.
+    solvers = solvers_phase(dev)
+    multi = multi_process_phase(dev)
+    prefetcher_phase(dev)
+    shutil.rmtree(DATA_DIR)  # phase 32 was its last reader: the output directory stays small
+    split_fft_phase(dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
@@ -2257,6 +2670,26 @@ def main() -> int:
     unlaunched = [k["shape"] for k in kernels[-len(k1_sa) - len(k2_sa):] if k["launches"] == 0]
     if unlaunched:
         raise AssertionError(f"phase 28 launched no kernel at {unlaunched}")
+    # Phases 30-31: K1 and K2 at the 50-frame rollout's and at a world-of-2 rank's step shapes,
+    # held and timed there, with their launches in those phases' runs; K1's launches in the
+    # world's coordinate-sharded decodes, at the forecast's launch shape (phase 4's numbers).
+    k2_entry = {"name": "fused_decode_bwd", "route": "cuda", "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
+                "replaces": "enf_pde_tpu/ops/pallas_decode.py:635", "library_ms": None}
+    for res, what in ((solvers, f"rollout T={LONG_HORIZON}"), (multi, f"world={WORLD} rank's")):
+        b = res["b"]
+        k1t = res["k1"]["timing"][(Zc, b, 512)]
+        kernels.append({**k1_entry, "shape": f"navier_stokes {what} ode and dual steps b={b} z={Zc} c=512",
+                        "launches": res["k1_launches"],
+                        **{k: k1t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
+        for wg, step in ((False, "ode"), (True, "dual")):
+            kernels.append({**k2_entry, "shape": f"navier_stokes {what} {step} step b={b} z={Zc} c=512 "
+                                                 f"{'with' if wg else 'without'} weight gradients",
+                            "launches": res["k2_launches"][wg], "max_abs_err": res["k2"]["max_abs_err"],
+                            **res["k2"]["timing"][wg]})
+    kernels.append({**k1_entry, "shape": f"navier_stokes world={WORLD} coordinate-sharded validation and forecast "
+                                         f"b={NUM_SIGNALS * NUM_FRAMES} z={Zc} c=512",
+                    "launches": multi["decode_launches"], "max_abs_err": max(max_errs), "ms": kernel_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

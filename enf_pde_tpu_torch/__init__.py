@@ -18,7 +18,11 @@ oriented latents and PONITA, their solvers), and the heat equation on the sphere
 transforms in ``data.sphere_harmonics``); shallow water, the paper's baselines and
 convection in the ball; and the whole decoder family -- latent self attention, the
 ``ffn`` and ``polynomial`` embeddings, ``models.transformer``, second order through the
-kernels, ``Forecaster.from_checkpoint`` and ``utils.profiling``.
+kernels, ``Forecaster.from_checkpoint`` and ``utils.profiling``; and the last modules --
+data-parallel training and the coordinate-sharded decode on ``torch.distributed``
+(``parallel``), the solvers' ``remat`` / ``stop_gradient`` and ``solve_ode``, the native
+trajectory prefetcher (``data.native_loader``, ``csrc/trajloader.cc``) and the split-DFT
+Navier-Stokes path (``data.splitfft``). Everything the JAX package does but wandb.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ Counterpart of ``enf_pde_tpu/data/__init__.py``: ``get_dataloader(dataset_cfg) -
 indices)``; planar datasets use a [-1, 1]^2 grid, spherical ones the (phi, theta)
 generation grid, the ball a (phi, theta, r) meshgrid. The solvers run on the card unless
 the caller asks for the CPU. Every dataset of the JAX package's registry is ported
-(``data/registry.py``).
+(``data/registry.py``). Batches that do not come from the device cache are read by the
+native prefetcher (``data/native_loader.py``) from the cache's raw files.
 """
 
 from __future__ import annotations
@@ -46,10 +47,30 @@ def ball_coords(nphi: int, ntheta: int, nr: int) -> np.ndarray:
     return np.stack([P, T, R], axis=-1).reshape(-1, 3).astype(np.float32)
 
 
+def _prefetched_batch_fetch(cache: TrajectoryCache, postprocess):
+    """A loader's ``batch_fetch``: the batch's raw files through one ``NativePrefetcher``,
+    built at the first batch, each trajectory then postprocessed as ``fetch`` does."""
+    prefetcher = None
+
+    def batch_fetch(ids):
+        nonlocal prefetcher
+        if prefetcher is None:
+            from enf_pde_tpu_torch.data.native_loader import NativePrefetcher
+
+            prefetcher = NativePrefetcher(num_threads=2)
+        cache.ensure(ids)
+        paths = [cache.ensure_raw(int(i)) for i in ids]
+        block = prefetcher.load_batch(paths, cache.shape())
+        return np.stack([postprocess(t) for t in block])
+
+    return batch_fetch
+
+
 def get_dataloader(dataset_cfg, device="cuda") -> Tuple[TrajectoryLoader, TrajectoryLoader]:
     """Train (shuffled, seed 0, ``n_frames_train`` frames) and test (in order) loaders
     over the caches under ``<dataset_cfg.path>/<cache_name>/{train,test}``; missing
-    trajectories are generated on ``device``, which also holds the device cache."""
+    trajectories are generated on ``device``, which also holds the device cache. Each
+    loader's ``batch_fetch`` is the native prefetcher, as the JAX package's."""
     from enf_pde_tpu_torch.data.registry import dataset_spec
 
     spec = dataset_spec(dataset_cfg.name, dataset_cfg, device=device)
@@ -67,6 +88,7 @@ def get_dataloader(dataset_cfg, device="cuda") -> Tuple[TrajectoryLoader, Trajec
         shuffle=True,
         seed=0,
         max_frames=spec.n_frames_train,
+        batch_fetch=_prefetched_batch_fetch(cache_tr, spec.postprocess),
         device=device,
     )
     test = TrajectoryLoader(
@@ -76,6 +98,7 @@ def get_dataloader(dataset_cfg, device="cuda") -> Tuple[TrajectoryLoader, Trajec
         batch_size=dataset_cfg.batch_size,
         shuffle=False,
         seed=1,
+        batch_fetch=_prefetched_batch_fetch(cache_ts, spec.postprocess),
         device=device,
     )
     # Pre-generation hooks: entry points generate every missing trajectory once at

@@ -2,8 +2,9 @@
 
 Counterpart of ``enf_pde_tpu/data/cache.py``, in the same file format so that each
 package reads the other's cache: ``traj_%06d.npz`` (key ``data``), its flat float32
-``.raw`` companion and ``shape.json``. Missing trajectories are generated a whole
-block of ``batch_size_gen`` ids at a time, so the solver runs batched on the device.
+``.raw`` companion (which the prefetcher, ``data/native_loader.py``, reads) and
+``shape.json``. Missing trajectories are generated a whole block of ``batch_size_gen``
+ids at a time, so the solver runs batched on the device.
 A failed generation raises: there is no fallback to generation elsewhere.
 """
 
@@ -47,8 +48,16 @@ class TrajectoryCache:
         return os.path.join(self.root, f"traj_{idx:06d}.npz")
 
     def raw_path(self, idx: int) -> str:
-        """Flat float32 companion file (the JAX package's native prefetcher reads it)."""
+        """Flat float32 companion file (the native prefetchers of both packages read it)."""
         return os.path.join(self.root, f"traj_{idx:06d}.raw")
+
+    def shape(self):
+        """The shape of one trajectory, from ``shape.json`` (None before the first write)."""
+        meta = os.path.join(self.root, "shape.json")
+        if not os.path.exists(meta):
+            return None
+        with open(meta) as f:
+            return tuple(json.load(f))
 
     def write(self, idx: int, traj) -> None:
         """Store trajectory ``idx``: the npz and its raw companion, each by a rename,
@@ -57,13 +66,25 @@ class TrajectoryCache:
         tmp = self.path(idx) + ".tmp.npz"
         np.savez_compressed(tmp, data=arr)
         os.replace(tmp, self.path(idx))
-        tmp_raw = self.raw_path(idx) + ".tmp"
+        self._write_raw(idx, arr)
+
+    def _write_raw(self, idx: int, arr: np.ndarray) -> None:
+        tmp_raw = f"{self.raw_path(idx)}.{os.getpid()}.tmp"
         arr.tofile(tmp_raw)
         os.replace(tmp_raw, self.raw_path(idx))
         meta = os.path.join(self.root, "shape.json")
         if not os.path.exists(meta):
-            with open(meta, "w") as f:
+            tmp_meta = f"{meta}.{os.getpid()}.tmp"
+            with open(tmp_meta, "w") as f:
                 json.dump(list(arr.shape), f)
+            os.replace(tmp_meta, meta)
+
+    def ensure_raw(self, idx: int) -> str:
+        """The raw companion's path of trajectory ``idx``, written from its npz first
+        when it is missing (a cache filled without companions)."""
+        if not os.path.exists(self.raw_path(idx)):
+            self._write_raw(idx, np.asarray(self.get(idx), dtype=np.float32))
+        return self.raw_path(idx)
 
     def get(self, idx: int) -> np.ndarray:
         if idx in self._mem:

@@ -11,8 +11,9 @@ random field (alpha 2.5, tau 7) burned in for 30 time units, one frame per time 
 Each trajectory's Gaussian coefficients come from a CPU ``torch.Generator`` seeded by
 the trajectory's seed, so one seed gives one initial field on the CPU and on the card.
 The PRNG streams of JAX and torch differ, so the two packages' datasets are equally
-valid draws, not the same draws. The JAX package's complex-free split-DFT path is a
-workaround for a TPU without complex FFT and has no counterpart here.
+valid draws, not the same draws. ``split_fft=True`` runs the JAX package's complex-free
+path instead (``navier_stokes_rollout_split``): the same physics with every transform a
+pair of real matmuls (``data/splitfft.py``).
 """
 
 from __future__ import annotations
@@ -23,10 +24,13 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from enf_pde_tpu_torch.data.splitfft import dft_matrices, fft2_real_input, ifft2_real_output
+
 __all__ = [
     "GaussianRF2D",
     "default_forcing",
     "navier_stokes_rollout",
+    "navier_stokes_rollout_split",
     "generate_ns_trajectories",
 ]
 
@@ -63,6 +67,16 @@ class GaussianRF2D:
         """One field per seed, [len(seeds), size, size] on ``device``."""
         coeff = torch.stack([self.coefficients(s) for s in seeds]).to(device)
         return self.field(coeff)
+
+    def sample_split(self, seeds: Sequence[int], device="cuda") -> torch.Tensor:
+        """``sample`` without complex arithmetic on the device: the same coefficients,
+        inverted with the split DFT (``splitfft.ifft2_real_output``); equal to
+        ``sample`` to f32 rounding."""
+        coeff = torch.stack([self.coefficients(s) for s in seeds])
+        eig = self.sqrt_eig
+        re, im = (eig * coeff.real).to(device), (eig * coeff.imag).to(device)
+        C, S = dft_matrices(self.size, re.dtype, device)
+        return ifft2_real_output(re, im, C, S)
 
 
 def default_forcing(size: int, device="cuda") -> torch.Tensor:
@@ -123,20 +137,70 @@ def navier_stokes_rollout(w0: torch.Tensor, f: torch.Tensor, visc: float, delta_
     return torch.stack(snaps, dim=1), w_final
 
 
+@torch.no_grad()
+def navier_stokes_rollout_split(w0: torch.Tensor, f: torch.Tensor, visc: float, delta_t: float,
+                                record_steps: int, steps_per_record: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``navier_stokes_rollout`` with split-complex matmul DFTs (no complex dtypes).
+
+    The same physics, discretization and recording cadence; the spectral state is a
+    pair of f32 planes ``(re, im)`` and every transform a full-f32 real matmul
+    (``data/splitfft.py``). It agrees with the complex path to f32 rounding a step;
+    long chaotic rollouts drift apart as any two f32 orders of the sums do.
+
+    Returns ``(snapshots [batch, record_steps, N, N], w_final [batch, N, N])``.
+    """
+    N, dev = w0.shape[-1], w0.device
+    k_max = N // 2
+    k = torch.cat([torch.arange(0, k_max), torch.arange(-k_max, 0)]).to(dev)
+    k_y = k[None, :].expand(N, N)
+    k_x = k_y.T
+    lap = 4 * math.pi**2 * (k_x**2 + k_y**2)
+    lap[0, 0] = 1.0
+    dealias = ((k_y.abs() <= (2.0 / 3.0) * k_max) & (k_x.abs() <= (2.0 / 3.0) * k_max)).float()
+
+    C, S = dft_matrices(N, w0.dtype, dev)
+    w_re, w_im = fft2_real_input(w0, C, S)
+    f_re, f_im = fft2_real_input(f.to(dev), C, S)
+    two_pi_kx, two_pi_ky = 2 * math.pi * k_x, 2 * math.pi * k_y
+    cn_num = 1.0 - 0.5 * delta_t * visc * lap
+    cn_den = 1.0 + 0.5 * delta_t * visc * lap
+    # (a + i b) (i c) = -c b + i c a: the spectral derivatives of u = dpsi/dy,
+    # v = -dpsi/dx (psi = w / lap), w_x and w_y, stacked for one batched transform.
+    c = torch.stack([two_pi_ky, -two_pi_kx, two_pi_kx, two_pi_ky])[:, None]
+
+    snaps = []
+    for _ in range(record_steps):
+        snaps.append(ifft2_real_output(w_re, w_im, C, S))
+        for _ in range(steps_per_record):
+            psi_re, psi_im = w_re / lap, w_im / lap
+            x_re = torch.stack([psi_re, psi_re, w_re, w_re])
+            x_im = torch.stack([psi_im, psi_im, w_im, w_im])
+            u, v, w_x, w_y = ifft2_real_output(-c * x_im, c * x_re, C, S)
+            F_re, F_im = fft2_real_input(u * w_x + v * w_y, C, S)
+            w_re = (-delta_t * F_re * dealias + delta_t * f_re + cn_num * w_re) / cn_den
+            w_im = (-delta_t * F_im * dealias + delta_t * f_im + cn_num * w_im) / cn_den
+    return torch.stack(snaps, dim=1), ifft2_real_output(w_re, w_im, C, S)
+
+
 def generate_ns_trajectories(seeds: Sequence[int], size: int = 64, visc: float = 1e-3,
                              t_horizon: int = 20, delta_t: float = 1e-3, burn_in: float = 30.0,
-                             device="cuda") -> np.ndarray:
+                             split_fft: bool = False, device="cuda") -> np.ndarray:
     """Navier-Stokes trajectories for per-trajectory seeds, integrated on ``device``.
 
     Each initial field is a GRF sample evolved for ``burn_in`` time units; the recorded
-    trajectory then has one frame per time unit over ``t_horizon``.
+    trajectory then has one frame per time unit over ``t_horizon``. ``split_fft`` builds
+    the initial fields from the same coefficients and integrates with the split DFT
+    (``navier_stokes_rollout_split``), as the JAX package's option does.
 
     Returns [len(seeds), t_horizon, size, size, 1] float32.
     """
-    w0 = GaussianRF2D(size).sample(seeds, device)
+    grf = GaussianRF2D(size)
+    w0 = grf.sample_split(seeds, device) if split_fft else grf.sample(seeds, device)
+    rollout = navier_stokes_rollout_split if split_fft else navier_stokes_rollout
     f = default_forcing(size, device)
-    _, burned = navier_stokes_rollout(w0, f, visc, delta_t, record_steps=1,
-                                      steps_per_record=int(burn_in / delta_t))
-    traj, _ = navier_stokes_rollout(burned, f, visc, delta_t, record_steps=t_horizon,
-                                    steps_per_record=int(1.0 / delta_t))
+    _, burned = rollout(w0, f, visc, delta_t, record_steps=1,
+                        steps_per_record=int(burn_in / delta_t))
+    traj, _ = rollout(burned, f, visc, delta_t, record_steps=t_horizon,
+                      steps_per_record=int(1.0 / delta_t))
     return traj.cpu().numpy().astype(np.float32)[..., None]

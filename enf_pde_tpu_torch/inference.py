@@ -5,7 +5,10 @@ meta-SGD inner loop (on ``nef.backend``: the eager decoder, or the fused kernels
 K2), roll them forward with the latent ODE, and decode the forecast at any coordinate
 set through the fused decode kernel (``nef.eval_backend``), in coordinate chunks of
 ``max_num_sampled_points`` that share one weight fold. ``Forecaster.from_checkpoint``
-serves a training run from its log directory.
+serves a training run from its log directory. Where a process group of several ranks is
+initialised (``torchrun``), the decode shards the coordinates over the ranks
+(``parallel.mesh.sharded_decode``): each rank fits and rolls out the whole batch and
+decodes its share of the points.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import Config
 from enf_pde_tpu_torch.ops.fused_decode import strict_fp32
+from enf_pde_tpu_torch.parallel.mesh import make_mesh
 from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 
@@ -37,6 +41,9 @@ class Forecaster:
         backend: as in the JAX package: when given, the fit decodes on ``xla`` (the
             eager decoder) and the forecast on ``backend`` (``nef.backend`` and
             ``nef.eval_backend`` of a copy of ``cfg``); ``None`` keeps ``cfg``'s.
+        coord_mesh: the mesh the decode shards the coordinates over; ``"auto"`` takes
+            the initialised process group's when it has more than one rank, and
+            ``None`` decodes every point in this process.
 
     Example:
         fc = Forecaster(load_experiment_config("navier_stokes"), planar_coords(64, 64))
@@ -45,15 +52,19 @@ class Forecaster:
     """
 
     def __init__(self, cfg: Config, coords: np.ndarray, params: Optional[dict] = None,
-                 device="cuda", backend: Optional[str] = None):
+                 device="cuda", backend: Optional[str] = None, coord_mesh="auto"):
         strict_fp32()
+        if coord_mesh == "auto":
+            coord_mesh = make_mesh(device)
+            coord_mesh = coord_mesh if coord_mesh.size > 1 else None
         if backend is not None:
             cfg = cfg.copy()
             cfg.nef.backend = "xla"
             cfg.nef.eval_backend = backend
         decoder, ode_model = build_models(cfg)
         seed = cfg.get_path("seed", 0)
-        self.trainer = MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=seed, device=device)
+        self.trainer = MetaSGDTrainer(cfg, decoder, ode_model, coords, seed=seed, device=device,
+                                      coord_mesh=coord_mesh)
         self.cfg = cfg
         self.device = self.trainer.device
         self.state = self.trainer.init_state() if params is None else self.trainer.load_state(params)

@@ -110,7 +110,7 @@ class AutodecodingTrainer:
         state); fresh optimizer states."""
         self.decoder.load_state_dict(params["nef"])
         self.ode_model.load_state_dict(params["ode"])
-        return self._new_state({k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+        return self._new_state({k: torch.as_tensor(v, dtype=torch.float32).to(self.device, copy=True)
                                 for k, v in params["autodecoder"].items()})
 
     def _new_state(self, table) -> dict:

@@ -12,7 +12,10 @@ with gradients scaled by the batch size and the learned learning rates. Two form
   the learning rates and the init latents through the loop (second order, MAML).
 
 The coordinate subsets come from a ``torch.Generator``, or are passed in as
-``masks`` (the parity tests hand in the ones the JAX package drew).
+``masks`` (the parity tests hand in the ones the JAX package drew). Under a data mesh
+(``parallel/mesh.py``) the frames are the rank's rows of the global batch: the masks are
+shared across the batch, and the position noise is drawn at the global batch's shape and
+sliced to the rank's rows, so every rank draws what one process draws.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from enf_pde_tpu_torch.models.latents import LatentParams, latents_to_pose, tile_latents
+from enf_pde_tpu_torch.parallel.mesh import Mesh, data_sharding
 
 __all__ = [
     "InnerLoopConfig",
@@ -59,21 +63,23 @@ def make_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: InnerLoo
 
     Returns:
         ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None, dp=0.0,
-        keep=None) -> fitted_latents``. ``latent_init`` is a shared (num_signals=1)
+        keep=None, mesh=None) -> fitted_latents``. ``latent_init`` is a shared (num_signals=1)
         latent dict, ``frames`` is [batch, *spatial, channels], ``masks``
         [>= K, num_sampled] indexes the coordinates of step k in row k (drawn from
         ``generator`` when not given; the JAX package draws K+1 rows, the last for
         its query loss), and ``dp`` > 0 restricts fitting to a random
         ``dp``-fraction of the coordinates (``keep``, drawn when not given; masks
-        then index into it).
+        then index into it). ``mesh``: the data mesh whose rank's rows ``frames`` are.
     """
 
     def inner_loop(meta_lrs, latent_init: LatentParams, frames: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    masks: Optional[torch.Tensor] = None,
-                   dp: float = 0.0, keep: Optional[torch.Tensor] = None) -> LatentParams:
+                   dp: float = 0.0, keep: Optional[torch.Tensor] = None,
+                   mesh: Optional[Mesh] = None) -> LatentParams:
         fitted = _fit(decoder_apply, coords, cfg, meta_lrs, latent_init, frames, generator,
-                      masks, dp, keep, num_masks=cfg.num_inner_steps, create_graph=False)[1]
+                      masks, dp, keep, num_masks=cfg.num_inner_steps, create_graph=False,
+                      mesh=mesh)[1]
         return {n: v.detach() for n, v in fitted.items()}
 
     return inner_loop
@@ -84,8 +90,8 @@ def make_train_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: In
 
     Returns:
         ``inner_loop(meta_lrs, latent_init, frames, generator=None, masks=None,
-        query=True) -> (query_loss, fitted_latents)``: ``masks`` [K + 1, num_sampled]
-        (drawn when not given), the query loss is the fitted latents' MSE on row K (None
+        query=True, mesh=None) -> (query_loss, fitted_latents)``: ``masks`` [K + 1,
+        num_sampled] (drawn when not given), ``mesh`` as in ``make_inner_loop``, the query loss is the fitted latents' MSE on row K (None
         with ``query=False``, which skips its decode: the dual step uses the fitted
         latents only). Both are differentiable to second order in the decoder's
         parameters, ``meta_lrs`` and ``latent_init``.
@@ -93,17 +99,18 @@ def make_train_inner_loop(decoder_apply: Callable, coords: torch.Tensor, cfg: In
 
     def inner_loop(meta_lrs, latent_init: LatentParams, frames: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   masks: Optional[torch.Tensor] = None, query: bool = True):
+                   masks: Optional[torch.Tensor] = None, query: bool = True,
+                   mesh: Optional[Mesh] = None):
         recon_loss, fitted, masks = _fit(
             decoder_apply, coords, cfg, meta_lrs, latent_init, frames, generator, masks,
-            0.0, None, num_masks=cfg.num_inner_steps + 1, create_graph=True)
+            0.0, None, num_masks=cfg.num_inner_steps + 1, create_graph=True, mesh=mesh)
         return (recon_loss(fitted, masks[cfg.num_inner_steps]) if query else None), fitted
 
     return inner_loop
 
 
 def _fit(decoder_apply, coords, cfg: InnerLoopConfig, meta_lrs, latent_init, frames, generator,
-         masks, dp, keep, num_masks: int, create_graph: bool):
+         masks, dp, keep, num_masks: int, create_graph: bool, mesh: Optional[Mesh] = None):
     """The K SGD steps; returns (recon_loss, fitted latents, masks)."""
     img = frames.reshape(frames.shape[0], -1, frames.shape[-1])  # [b, N, C]
     batch_size = img.shape[0]
@@ -124,7 +131,11 @@ def _fit(decoder_apply, coords, cfg: InnerLoopConfig, meta_lrs, latent_init, fra
 
     latents = tile_latents(latent_init, batch_size)
     if cfg.noise_pos_inner_loop > 0:
-        noise = torch.randn(latents["p_pos"].shape, generator=generator)
+        b, *rest = latents["p_pos"].shape
+        world = 1 if mesh is None else mesh.size
+        noise = torch.randn((b * world, *rest), generator=generator)
+        if mesh is not None:
+            noise = noise[data_sharding(mesh, b * world)]
         latents["p_pos"] = latents["p_pos"] + cfg.noise_pos_inner_loop * noise.to(coords.device)
 
     def recon_loss(latent_params: LatentParams, mask) -> torch.Tensor:

@@ -13,7 +13,7 @@ import sys
 import time
 from typing import Any, Dict, Optional
 
-__all__ = ["MetricLogger"]
+__all__ = ["MetricLogger", "NullLogger"]
 
 
 class MetricLogger:
@@ -48,3 +48,20 @@ class MetricLogger:
 
     def close(self):
         self._fh.close()
+
+
+class NullLogger:
+    """A ``MetricLogger`` that records nothing: the logger of a data-parallel run's
+    ranks other than 0, which log through rank 0."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None, echo: bool = False):
+        pass
+
+    def log_image(self, name: str, path: str, step: Optional[int] = None):
+        pass
+
+    def close(self):
+        pass

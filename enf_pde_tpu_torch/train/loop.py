@@ -13,6 +13,12 @@ path (``_eval_guarded``). A kernel failure on the card raises and ends the run, 
 so does a figure that cannot be drawn (matplotlib is imported before the first
 epoch when figures are on).
 
+Data parallel: under the trainer's data mesh (``MetaSGDTrainer(mesh=...)``) each rank
+takes its rows of every batch (``parallel.mesh.shard_batch``, the JAX loop's
+``shard_batch`` hook), the validation MSEs are averaged over the ranks, and rank 0
+alone logs, saves checkpoints, runs the equivariance check and draws the figures (on
+the whole batch, with no collective call). Resume restores on every rank.
+
 ``AutodecodingLoop`` runs the autodecoding baseline (``meta.meta_sgd: false``), the
 counterpart of ``_run_autodecoding`` and ``_autodecode_validation`` in
 ``enf_pde_tpu/experiments/fit.py``: no checkpoints and no retry, as there.
@@ -28,9 +34,10 @@ from typing import Iterable, Optional
 import torch
 
 from enf_pde_tpu_torch.models.latents import latents_to_pose
+from enf_pde_tpu_torch.parallel.mesh import mean_over_ranks, shard_batch
 from enf_pde_tpu_torch.train.autodecode import AutodecodingTrainer
 from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
-from enf_pde_tpu_torch.train.logging import MetricLogger
+from enf_pde_tpu_torch.train.logging import MetricLogger, NullLogger
 from enf_pde_tpu_torch.train.meta_sgd import MetaSGDTrainer
 from enf_pde_tpu_torch.train.steps import phase_window
 from enf_pde_tpu_torch.utils import visualization as viz
@@ -50,9 +57,10 @@ class TrainLoop:
         train_loader / val_loader: re-iterable collections of batches, each a
             trajectory [batch, frames, *spatial, channels] (numpy or tensor), or a
             tuple whose first item is one.
-        logger: where metrics go (default ``<logging.log_dir>/metrics.jsonl``).
-        checkpoints: offered a save after every epoch; ``logging.resume`` restores
-            the latest one before training.
+        logger: where metrics go (default ``<logging.log_dir>/metrics.jsonl``; on a
+            data mesh's ranks other than 0, nowhere).
+        checkpoints: offered a save after every epoch (by rank 0); ``logging.resume``
+            restores the latest one before training (on every rank).
     """
 
     def __init__(self, trainer: MetaSGDTrainer, train_loader: Iterable, val_loader: Iterable,
@@ -60,15 +68,22 @@ class TrainLoop:
                  checkpoints: Optional[CheckpointManager] = None):
         self.trainer = trainer
         self.cfg = trainer.cfg
+        self.mesh = trainer.mesh
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.train_loader = train_loader
         self.val_loader = val_loader
-        self.logger = logger or MetricLogger(self.cfg.get_path("logging.log_dir", "outputs/run"))
+        log_dir = self.cfg.get_path("logging.log_dir", "outputs/run")
+        self.logger = logger or (MetricLogger(log_dir) if self.is_main else NullLogger(log_dir))
         self.checkpoints = checkpoints
         self.global_step = 0
         self._equivariance_checked = False
 
-    def _batch_traj(self, batch) -> torch.Tensor:
+    def _batch_traj(self, batch, shard: bool = True) -> torch.Tensor:
+        """The batch's trajectories on the trainer's device: this rank's rows under a
+        data mesh, unless ``shard`` is off."""
         traj = batch[0] if isinstance(batch, (tuple, list)) else batch
+        if shard and self.mesh is not None:
+            traj = shard_batch(traj, self.mesh)
         return torch.as_tensor(traj, dtype=torch.float32, device=self.trainer.device)
 
     def train_epoch(self, state, epoch: int):
@@ -106,7 +121,8 @@ class TrainLoop:
     def _eval_loader(self, state, loader, step_fn, seed_offset: int):
         # Device-side accumulation: one host read per loader pass. The batch index plus
         # the epoch offset seeds each batch's draws, as in the JAX loop: validation
-        # never draws from the training generator.
+        # never draws from the training generator. Under a data mesh each rank sums its
+        # shards' MSEs and the sums are averaged over the ranks.
         mse_in, mse_out, n = None, None, 0
         for batch in loader:
             a, b = step_fn(state, self._batch_traj(batch), batch_idx=seed_offset + n)
@@ -115,6 +131,8 @@ class TrainLoop:
             n += 1
         if n == 0:
             return 0.0, 0.0
+        if self.mesh is not None:
+            mse_in, mse_out = mean_over_ranks([mse_in, mse_out], self.mesh)
         return float(mse_in) / n, float(mse_out) / n
 
     def validate_epoch(self, state, epoch: int):
@@ -135,7 +153,8 @@ class TrainLoop:
         if not self._equivariance_checked and epoch > self.cfg.get_path(
             "test.test_equiv_at_epoch", 10**9
         ):
-            self._log_equivariance(state, epoch)
+            if self.is_main:
+                self._log_equivariance(state, epoch)
             self._equivariance_checked = True
 
     def _log_equivariance(self, state, epoch: int):
@@ -145,7 +164,7 @@ class TrainLoop:
         carry an orientation (SE(2)). Logs nothing for the non-equivariant ``abs_pos``
         ablation."""
         trainer = self.trainer
-        frames = self._batch_traj(next(iter(self.val_loader)))[:, 0]
+        frames = self._batch_traj(next(iter(self.val_loader)), shard=False)[:, 0]
         fitted = trainer.fit_latents(state, frames,
                                      generator=trainer.val_generator(epoch, _EQUIVARIANCE_DRAWS))
         p, a, w = latents_to_pose(fitted)
@@ -164,7 +183,7 @@ class TrainLoop:
         train + out horizon, decode, and plot ground truth / prediction / error panels
         to ``<log_dir>/figures/rollout_epochXXXXX.png``; returns its path."""
         cfg, trainer = self.cfg, self.trainer
-        traj = self._batch_traj(next(iter(self.val_loader)))
+        traj = self._batch_traj(next(iter(self.val_loader)), shard=False)
         t_total = min(cfg.dataset.traj_len_train + cfg.dataset.traj_len_out_horizon, traj.shape[1])
         traj = traj[:1, :t_total]
         fitted = trainer.fit_latents(state, traj[:, 0],
@@ -263,14 +282,14 @@ class TrainLoop:
                     self.validate_epoch(state, epoch - 1)
                 break
             state = self.train_epoch(state, epoch)
-            if self.checkpoints is not None:
+            if self.checkpoints is not None and self.is_main:
                 self.checkpoints.save(epoch, self.trainer, state, self.cfg.to_dict(),
                                       self.global_step)
             if epoch % self.cfg.test.test_interval == 0:
                 self.validate_epoch(state, epoch)
             if epoch % self.cfg.test.test_dp_interval == 0:
                 self.validate_epoch_dp(state, epoch)
-            if viz_every and epoch % viz_every == 0:
+            if viz_every and epoch % viz_every == 0 and self.is_main:
                 self.visualize_epoch(state, epoch)
         self.logger.log({"train_wall_s": time.time() - t_start}, step=self.global_step)
         return state

@@ -29,7 +29,18 @@ inner-loop masks, the rollout loss's coordinate subsets) come from the trainer's
 seeded from the trainer's seed and the batch index, as JAX folds ``batch_idx`` into its
 key. So validating does not move the training draws, and two evaluations of one state
 agree. Any draw may be passed in instead (the parity tests hand in the JAX package's
-draws). The rollout is a forward Python loop without rematerialisation.
+draws). The rollout rematerializes each step in the backward pass, as JAX's.
+
+Data parallel (``mesh``, ``parallel/mesh.py``): each rank's steps take its rows of the
+global batch; every draw is taken at the global shape from the same generator on every
+rank (the frame choice, the masks and the rollout subsets are shared across the batch;
+the position noise is sliced to the rank's rows), and the loss and every gradient group
+are all-reduced to their global means before the optimizers, so the parameters, the
+optimizer states and the generator stay equal on every rank and equal to one process
+on the whole batch. ``val_step`` then returns the rank's shard's MSEs (the loop
+averages them over the ranks). Coordinate-sharded decode (``coord_mesh``): every rank
+holds the whole batch and ``decode`` decodes the rank's share of the coordinates, then
+gathers them (the super-resolution eval and the forecast on several cards).
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from enf_pde_tpu_torch.builders import coordinate_system_for, resolve_backend
 from enf_pde_tpu_torch.models.decoder import decode_trajectories
 from enf_pde_tpu_torch.models.latents import init_latents, latents_to_pose
 from enf_pde_tpu_torch.ops.layers import reset_parameters
+from enf_pde_tpu_torch.parallel.mesh import Mesh, mean_over_ranks, replicate, sharded_decode
 from enf_pde_tpu_torch.train.inner_loop import (
     InnerLoopConfig,
     init_meta_sgd_lrs,
@@ -77,11 +89,21 @@ class MetaSGDTrainer:
             ``generator``, which draws the train steps' random subsets, and of the
             validation draws (with the batch index).
         device: where the modules and the latents live (default the card).
+        mesh: the data mesh the steps and ``val_step`` run over (their batches are
+            the rank's rows); None for one process.
+        coord_mesh: the mesh ``decode`` shards the coordinates over (the batch is
+            whole on every rank); None decodes every coordinate here.
     """
 
-    def __init__(self, cfg, decoder, ode_model, coords, seed: int = 0, device="cuda"):
+    def __init__(self, cfg, decoder, ode_model, coords, seed: int = 0, device="cuda",
+                 mesh: Optional[Mesh] = None, coord_mesh: Optional[Mesh] = None):
+        if mesh is not None and coord_mesh is not None:
+            raise ValueError("a trainer shards its batches (mesh) or its coordinates "
+                             "(coord_mesh), not both")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.coord_mesh = coord_mesh
         self.decoder = decoder.to(self.device)
         self.ode_model = ode_model.to(self.device)
         self.coords = torch.as_tensor(coords, dtype=torch.float32, device=self.device)
@@ -146,9 +168,13 @@ class MetaSGDTrainer:
         return self._new_state(params["autodecoder"], params["meta_sgd_lrs"])
 
     def _new_state(self, latent_init, meta_lrs) -> dict:
-        state = {group: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+        # A copy: the steps update the state in place, never the caller's arrays.
+        state = {group: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device, copy=True)
                          for k, v in leaves.items()}
                  for group, leaves in (("autodecoder", latent_init), ("meta_sgd_lrs", meta_lrs))}
+        if self.mesh is not None:  # every rank starts from rank 0's state
+            replicate([*self.nef_group().values(), *self.ode_group().values(),
+                       *(v for g in state.values() for v in g.values())], self.mesh)
         state["opt"] = {
             "nef": self.opts["nef"].init(self.nef_group()),
             "ode": self.opts["ode"].init(self.ode_group()),
@@ -185,7 +211,8 @@ class MetaSGDTrainer:
                 frame_idx = torch.randperm(cfg.dataset.traj_len_train, generator=self.generator)[:fos]
             frames = trajectory[:, torch.as_tensor(frame_idx, dtype=torch.long).to(self.device)]
             frames = frames.reshape(frames.shape[0] * fos, *frames.shape[2:])
-        loss, _ = self.train_inner_loop(lrs, init, frames, generator=self.generator, masks=masks)
+        loss, _ = self.train_inner_loop(lrs, init, frames, generator=self.generator, masks=masks,
+                                        mesh=self.mesh)
         return loss
 
     def _ode_loss(self, lrs, init, trajectory: torch.Tensor, second_order: bool,
@@ -203,37 +230,49 @@ class MetaSGDTrainer:
         trajectory = trajectory[:, :T]
         if second_order:
             _, fitted = self.train_inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
-                                              masks=masks, query=False)
+                                              masks=masks, query=False, mesh=self.mesh)
         else:
             fitted = self.inner_loop(lrs, init, trajectory[:, 0], generator=self.generator,
-                                     masks=masks)
+                                     masks=masks, mesh=self.mesh)
         return rollout_loss(self.decoder, self.ode_backend, self.coords,
                             self._rollout(latents_to_pose(fitted), T), trajectory,
                             cfg.training.max_num_sampled_points, self.generator, ode_masks)
 
     # ------------------------------------------------------------------ gradients
 
+    def _global(self, loss: torch.Tensor, grads: dict):
+        """The loss and the gradient groups as global means over the data mesh (as they
+        are without one)."""
+        if self.mesh is None:
+            return loss, grads
+        keys = [(g, k) for g in sorted(grads) for k in grads[g]]
+        means = mean_over_ranks([loss, *(grads[g][k] for g, k in keys)], self.mesh)
+        out = {g: {} for g in grads}
+        for (g, k), v in zip(keys, means[1:]):
+            out[g][k] = v
+        return means[0], out
+
     def nef_grads(self, state, trajectory, frame_idx=None, masks=None):
         """(loss, grads) of the nef phase: grads {'nef', 'meta_sgd_lrs', 'autodecoder'}."""
         lrs, init = grad_leaves(state["meta_sgd_lrs"]), grad_leaves(state["autodecoder"])
         loss = self._nef_loss(lrs, init, trajectory, frame_idx, masks)
-        return loss.detach(), group_grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
-                                          autodecoder=init)
+        return self._global(loss.detach(), group_grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
+                                                       autodecoder=init))
 
     def ode_grads(self, state, trajectory, masks=None, ode_masks=None):
         """(loss, grads) of the ode phase: grads {'ode'}; the decoder is not differentiated."""
         with frozen(self.decoder):
             loss = self._ode_loss(state["meta_sgd_lrs"], state["autodecoder"], trajectory,
                                   second_order=False, masks=masks, ode_masks=ode_masks)
-            return loss.detach(), group_grads(loss, ode=self.ode_group())
+            return self._global(loss.detach(), group_grads(loss, ode=self.ode_group()))
 
     def dual_grads(self, state, trajectory, masks=None, ode_masks=None):
         """(loss, grads) of the dual phase: {'nef', 'meta_sgd_lrs', 'autodecoder', 'ode'}."""
         lrs, init = grad_leaves(state["meta_sgd_lrs"]), grad_leaves(state["autodecoder"])
         loss = self._ode_loss(lrs, init, trajectory, second_order=True, masks=masks,
                               ode_masks=ode_masks)
-        return loss.detach(), group_grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
-                                          autodecoder=init, ode=self.ode_group())
+        return self._global(loss.detach(), group_grads(loss, nef=self.nef_group(), meta_sgd_lrs=lrs,
+                                                       autodecoder=init, ode=self.ode_group()))
 
     # ------------------------------------------------------------------ updates
 
@@ -288,7 +327,8 @@ class MetaSGDTrainer:
         """Fit frame 0, roll out over the train + out horizon, decode every grid point.
 
         Returns (mse_in, mse_out) as device scalars: the MSE over the first
-        ``traj_len_train`` frames and over the rest (0 when there is no rest).
+        ``traj_len_train`` frames and over the rest (0 when there is no rest); under a
+        data mesh, of the rank's rows.
         ``dp`` > 0 fits on a random dp-fraction of the points (``keep``). The draws
         not passed in come from ``val_generator(batch_idx)``; ``TrainLoop`` passes
         ``(epoch << 20) + batch``, as the JAX loop does.
@@ -299,7 +339,7 @@ class MetaSGDTrainer:
         T_total = min(T_in + cfg.dataset.traj_len_out_horizon, trajectory.shape[1])
         trajectory = trajectory[:, :T_total]
         fitted = self.fit_latents(state, trajectory[:, 0], generator=self.val_generator(batch_idx),
-                                  masks=masks, dp=dp, keep=keep)
+                                  masks=masks, dp=dp, keep=keep, mesh=self.mesh)
         recon = self.decode(self._rollout(latents_to_pose(fitted), T_total))
         recon = recon.reshape(trajectory.shape)
         mse_in = torch.mean((recon[:, :T_in] - trajectory[:, :T_in]) ** 2)
@@ -333,15 +373,17 @@ class MetaSGDTrainer:
     # ------------------------------------------------------------------ serving
 
     def fit_latents(self, state, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
-                    masks: Optional[torch.Tensor] = None, dp: float = 0.0, keep=None):
+                    masks: Optional[torch.Tensor] = None, dp: float = 0.0, keep=None,
+                    mesh: Optional[Mesh] = None):
         """Inner-fit latents to frames [batch, *spatial, channels]; returns the latent dict.
 
-        Draws from ``generator``, else from the trainer's own.
+        Draws from ``generator``, else from the trainer's own; ``mesh``: the data mesh
+        whose rank's rows ``frames`` are (None: the whole batch).
         """
         return self.inner_loop(
             state["meta_sgd_lrs"], state["autodecoder"], frames,
             generator=generator if generator is not None else self.generator,
-            masks=masks, dp=dp, keep=keep,
+            masks=masks, dp=dp, keep=keep, mesh=mesh,
         )
 
     @torch.no_grad()
@@ -354,7 +396,10 @@ class MetaSGDTrainer:
         """Decode latent trajectories (p, a, window), each [batch, T, ...], at ``coords``
         (default the training grid) in chunks of ``chunk_size`` points (default
         ``max_num_sampled_points``) on ``eval_backend``; returns [batch, T, points, out]
-        (``models.decoder.decode_trajectories``)."""
-        return decode_trajectories(self.decoder, self.eval_backend,
-                                   self.coords if coords is None else coords, latent_traj,
-                                   chunk_size or self.cfg.training.max_num_sampled_points)
+        (``models.decoder.decode_trajectories``). Under ``coord_mesh`` each rank
+        decodes its share of the points, chunked alike, and the shares are gathered."""
+        decode = partial(decode_trajectories, self.decoder, self.eval_backend)
+        if self.coord_mesh is not None:
+            decode = sharded_decode(decode, self.coord_mesh)
+        return decode(self.coords if coords is None else coords, latent_traj,
+                      chunk_size or self.cfg.training.max_num_sampled_points)

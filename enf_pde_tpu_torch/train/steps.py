@@ -40,7 +40,12 @@ def group_grads(loss: torch.Tensor, **groups) -> Dict[str, Dict[str, torch.Tenso
 
 def latent_rollout(ode_model: torch.nn.Module, cfg, latents, num_frames: int):
     """Roll latents (p, a, window) forward ``num_frames`` frames (the first included) with
-    the latent ODE under ``node.method``, ``node.dt`` a frame; each [batch, T, ...]."""
+    the latent ODE under ``node.method``, ``node.dt`` a frame; each [batch, T, ...].
+
+    JAX's defaults: each step rematerialized in the backward pass, where one is recorded
+    (the ODE's parameters or the latents require grad), and ``node.ode_unroll`` read."""
+    records = (any(p.requires_grad for p in ode_model.parameters())
+               or any(x.requires_grad for x in latents))
     return solve_latent_ode(
         f=lambda z, t: ode_model(z),
         latents=latents,
@@ -48,6 +53,8 @@ def latent_rollout(ode_model: torch.nn.Module, cfg, latents, num_frames: int):
         tf=(num_frames - 1) * cfg.node.dt,
         h=cfg.node.dt,
         method=cfg.node.method,
+        remat=records,
+        unroll=int(cfg.node.get("ode_unroll", 1)),
     )
 
 

@@ -286,6 +286,9 @@ def test_fit_cli_runs_navier_stokes_nonmaml_three_epochs_on_cpu(tmp_path, monkey
              "logging.log_every_n_steps=1", f"dataset.path={data_dir}"]
     fit_main(["navier_stokes_nonmaml", *over, f"logging.log_dir={tmp_path / 'port'}", "--device", "cpu"])
     records = read_metrics(tmp_path / "port")
+    # The port's run record names the data path first; the JAX loop logs no such record.
+    assert (records[0]["train_data_path"], records[0]["val_data_path"]) == ("device_cache", "device_cache")
+    records = records[1:]
 
     monkeypatch.setattr(jax_fit, "AutodecodingTrainer", _StubTrainer)
     jax_fit.run_experiment(jax_load_config("navier_stokes_nonmaml", [*over, f"logging.log_dir={tmp_path / 'jax'}"]))

@@ -336,8 +336,9 @@ def test_fit_main_trains_checkpoints_and_resumes(tmp_path):
     want = {"t", "step", "mse_step", "step_time_s", "steps_per_sec", "epoch", "train_mse_epoch",
             "phase", "train_backend", "eval_backend", "ode_backend", "train_wall_s",
             "val_mse_in_t", "val_mse_out_t", "train_mse_in_t", "train_mse_out_t",
-            "equivariance_err_translation"}
+            "equivariance_err_translation", "train_data_path", "val_data_path"}
     assert keys == want
+    assert (records[0]["train_data_path"], records[0]["val_data_path"]) == ("device_cache", "device_cache")
     assert [r["phase"] for r in records if "phase" in r] == ["nef", "ode"]
     assert sorted(os.listdir(log_dir / "checkpoints")) == ["1", "2"]
     assert all(np.isfinite(v) for r in records for k, v in r.items() if "mse" in k or "err" in k)
