@@ -157,10 +157,12 @@ then convection in the solid ball, ``ihc`` at its full published width (decoder 
 window size 1.0; PONITA 3 layers, hidden 128, basis 64; batch 1, 2048 sampled points of
 the 48 x 24 x 24 ball grid):
 
-23. K1 against its plain version at its widths (the mixer's odd third head; z = 25: latent
-    groups 4 x 6 and 1), with and without the tail, at the forecast's launch (160 x 2048),
-    validation's (14 x 2048), validation's padded last chunk (1,024 grid points and 1,024
-    zeros) and a ragged 8 x 1000, with times, bounds and shared memory as in phase 10;
+23. K1 against its plain version at its widths (the mixer's odd third head; the width class
+    32: z = 25 in seven latent groups of 4 and 3), with and without the tail, at the forecast's
+    launch (160 x 2048), validation's (14 x 2048), validation's padded last chunk (1,024 grid
+    points and 1,024 zeros), a ragged 8 x 1000, and at 8 x 1000 with z = 1 and z = 5 (one
+    past the class's largest group of 4), with times, bounds, shared memory, width class and
+    blocks an SM as in phase 10;
 24. the Boussinesq ball solver on the card (float64): (a) seed 0 at full size (lmax 23,
     nmax 24), its state after 200 steps against the port's CPU solver within rel-L2 1e-8;
     (b) the conduction limit (buoyancy 0): from ``BallModes``' seeded modal field, the frames
@@ -322,8 +324,11 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fused_decode_bwd_plain,
     fused_decode_fwd,
     fused_decode_plain,
+    k1_constants,
     k1_library_smem_bytes,
+    k1_occupancy,
     k1_smem_bytes,
+    k1_width_class,
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
@@ -591,12 +596,18 @@ def k2_inputs(cfg, coords: np.ndarray, dev, b=None):
 
 
 def k1_l2_bytes_per_point(args, tile: int = 32) -> float:
-    """Weight bytes one K1 block streams from L2, per decoded point (``tile`` points a
-    block): q_w1, v_w1 and fw once for all latents and m_w2 once per pair of latents, both
-    pre-split (8 bytes an element); G and A once per latent and the tail once, in f32."""
+    """Weight bytes K1 streams from L2 per tile of ``tile`` decoded points, per point: q_w1,
+    v_w1 and fw once per latent group and m_w2 once per pair of latents and pair of heads,
+    pre-split (8 bytes an element), where the width class streams them (128, or a ring);
+    none where they are resident (loaded once per persistent block); G and A once per latent
+    and the tail once, in f32."""
     inv, ws, tws = args[0], args[6], args[7]
-    Z = inv.shape[1]
-    split = sum(ws[i].numel() for i in (1, 4, 6)) + -(-Z // 2) * ws[8].numel()
+    Z, (hid, H), (hidm, D) = inv.shape[1], args[2].shape[2:], ws[8].shape
+    k, wn = k1_constants(), k1_width_class(hid, hidm, D)
+    split = 0
+    if wn == k["WG_N"] or not k[f"RES{wn}"]:
+        zg = k["ZG"] if wn == k["WG_N"] else k[f"ZG{wn}"]
+        split = -(-Z // zg) * sum(ws[i].numel() for i in (1, 4, 6)) + -(-Z // 2) * -(-H // 2) * ws[8].numel()
     per_latent = args[4][0, 0].numel() + args[2][0, 0].numel()
     tail = sum(t.numel() for t in tws if t.dim() == 2)
     return (8 * split + 4 * (Z * per_latent + tail)) / tile
@@ -618,6 +629,15 @@ def k1_bounds(cfg, args, out) -> dict:
                 tc_ms=b_tc, bound_ms=max(b_bytes, b_tc),
                 bound_by="bytes" if b_bytes >= b_tc else "operations",
                 l2_per_point=k1_l2_bytes_per_point(args))
+
+
+def k1_class_note(args, num_heads: int, head_dim: int, num_out: int) -> str:
+    """K1's width class and blocks an SM for a launch of ``args`` (the built library's)."""
+    inv, ws = args[0], args[6]
+    B, Z, C, I = inv.shape
+    wn, per_sm = k1_occupancy([B, Z, C, I, ws[1].shape[0], num_heads, head_dim, ws[8].shape[0], num_out,
+                               int(len(args[7]) > 0)])
+    return f"width class {wn}, {per_sm} blocks an SM"
 
 
 def relu_margins(args) -> torch.Tensor:
@@ -1060,9 +1080,10 @@ def k1_shapes_phase(tag: str, shapes: list, dev) -> dict:
     ``shapes`` (the config's widths and latents, ``b`` frames of seeded random latents,
     ``M`` coordinates of its grid), or ``(cfg, b, M, coords, name)`` to decode all ``M`` of
     ``coords``; per shape ms per launch, the plain version's ms, the bounds, and the shared
-    memory of ``k1_smem_bytes`` held equal to the built library's ``layout``. Returns the
-    worst max abs error and each shape's numbers (its own worst error among them), keyed by
-    ``(z, b, c)`` (and ``name``)."""
+    memory of ``k1_smem_bytes`` held equal to the built library's ``layout``, and its width
+    class (``k1_width_class``, held equal to the library's) and blocks an SM
+    (``k1_occupancy``). Returns the worst max abs error and each shape's numbers (its own
+    worst error among them), keyed by ``(z, b, c)`` (and ``name``)."""
     errs, timing = [], {}
     for i, (c, b, M, *own) in enumerate(shapes):
         H, D = c.nef.num_heads, c.nef.num_hidden
@@ -1071,9 +1092,14 @@ def k1_shapes_phase(tag: str, shapes: list, dev) -> dict:
         hid, hidm = args[6][1].shape[0], args[6][8].shape[0]
         label = f"K1 {tag} z={Zl} b={B} c={C} I={I} H={H} hid={hid}" + (f" ({own[1]})" if own else "")
         smem = k1_smem_bytes(Zl, I, hid, H, D, hidm)
-        lib_smem = k1_library_smem_bytes([B, Zl, C, I, hid, H, D, hidm, c.nef.num_out, 1])
+        dims = [B, Zl, C, I, hid, H, D, hidm, c.nef.num_out, 1]
+        lib_smem = k1_library_smem_bytes(dims)
         if lib_smem != smem:
             raise AssertionError(f"{label}: k1_smem_bytes {smem} != the library's layout {lib_smem}")
+        wn, per_sm = k1_occupancy(dims)
+        if wn != k1_width_class(hid, hidm, D) or per_sm < 1:
+            raise AssertionError(f"{label}: the library's width class {wn} ({per_sm} blocks an SM) != "
+                                 f"k1_width_class {k1_width_class(hid, hidm, D)}")
         with torch.no_grad():
             out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
             no_tail = (*args[:7], ())
@@ -1086,11 +1112,13 @@ def k1_shapes_phase(tag: str, shapes: list, dev) -> dict:
             k_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
             p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
         bd = k1_bounds(c, args, out_k)
-        timing[(Zl, B, C, *own[1:])] = dict(ms=k_ms, plain_ms=p_ms, smem=smem, max_abs_err=max(shape_errs), **bd)
+        timing[(Zl, B, C, *own[1:])] = dict(ms=k_ms, plain_ms=p_ms, smem=smem, max_abs_err=max(shape_errs),
+                                            width_class=wn, blocks_per_sm=per_sm, **bd)
         log(f"[timing] {label}: {k_ms:.4f} ms ({bd['flops'] / k_ms / 1e9:.2f} TFLOP/s); plain "
             f"{p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (3xTF32 tensor cores "
             f"{bd['tc_ms']:.4f} ms, f32 CUDA cores {bd['f32_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
-            f"{bd['flops'] / 1e9:.3f} GFLOP); shared memory {smem} B of 232448 (the library's layout agrees)")
+            f"{bd['flops'] / 1e9:.3f} GFLOP); shared memory {smem} B of 232448 (the library's layout agrees); "
+            f"width class {wn}, {per_sm} blocks an SM")
         del args, out_k
     torch.cuda.synchronize()
     return {"max_abs_err": max(errs), "timing": timing}
@@ -1566,18 +1594,24 @@ def abs_pos_phase(dev) -> dict:
 
 def ihc_kernel_phase(dev) -> dict:
     """23. K1 at ``ihc``'s widths (I = 5, hid = hidm = D = 32, H = 3: the mixer's odd head;
-    z = 25: six latent groups of 4 and one of 1; num_out = 1; seeded random weights) against
-    its plain version, with and without the tail, at the forecast's launch (160 x 2048),
-    validation's (14 x 2048), validation's padded last chunk (the grid's last 1,024 points
-    and 1,024 padded ones) and a ragged 8 x 1000; times, bounds, shared memory."""
+    the width class 32: z = 25 in seven latent groups, four of 4 and three of 3; num_out = 1;
+    seeded random weights) against its plain version, with and without the tail, at the
+    forecast's launch (160 x 2048), validation's (14 x 2048), validation's padded last chunk
+    (the grid's last 1,024 points and 1,024 padded ones), a ragged 8 x 1000, and at 8 x 1000
+    with z = 1 and with one latent past the class's largest group (z = ZG32 + 1 = 5: groups
+    of 2 and 3);
+    times, bounds, shared memory, width class and blocks an SM."""
     cfg = load_experiment_config("ihc")
     chunk, coords = cfg.training.max_num_sampled_points, config_coords(cfg)
     b_fc = NUM_SIGNALS * NUM_FRAMES
     b_val = cfg.dataset.batch_size * (cfg.dataset.traj_len_train + cfg.dataset.traj_len_out_horizon)
     last = coords.shape[0] % chunk
     padded = np.concatenate([coords[-last:], np.zeros((chunk - last, 3), np.float32)])
+    # One latent, and one past the class's largest group: groups spread evenly (5 = 2 + 3).
+    ragged = [load_experiment_config("ihc", [f"nef.num_latents={z}"]) for z in (1, k1_constants()["ZG32"] + 1)]
     res = k1_shapes_phase("ihc", [(cfg, b_fc, chunk), (cfg, b_val, chunk),
-                                  (cfg, b_val, chunk, padded, "padded last chunk"), (cfg, NUM_SIGNALS, 1000)], dev)
+                                  (cfg, b_val, chunk, padded, "padded last chunk"), (cfg, NUM_SIGNALS, 1000),
+                                  *((r, NUM_SIGNALS, 1000) for r in ragged)], dev)
     main = res["timing"][(cfg.nef.num_latents, b_fc, chunk)]
     return {"shape": f"ihc b={b_fc} z={cfg.nef.num_latents} c={chunk}", "max_abs_err": res["max_abs_err"],
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
@@ -1754,7 +1788,8 @@ def attention_phase(dev) -> dict:
                            max_abs_err=errs[-1])
                 log(f"[timing] K1 behind the self-attention stack b={b} z={cfg.nef.num_latents} c={M}: {k_ms:.4f} ms "
                     f"(phase 4 times this shape without the stack); plain {p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms "
-                    f"by {bd['bound_by']}; the fold with {SA_LAYERS} blocks {fold_ms:.4f} ms a decode")
+                    f"by {bd['bound_by']}; the fold with {SA_LAYERS} blocks {fold_ms:.4f} ms a decode; "
+                    f"{k1_class_note(args, H, D, cfg.nef.num_out)}")
         del decoder, args, out_k, eager
     for seed in (SEED, SEED + 40):  # the gate's draw, and a witness draw of weights, frames and masks
         step_parity_phase(cfg, coords, smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, seed + 3), dev,
@@ -2515,7 +2550,7 @@ def main() -> int:
                 f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (f32 CUDA cores {bd['f32_ms']:.4f} ms, "
                 f"3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
                 f"{bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} MB); L2 weight bytes "
-                f"per point {bd['l2_per_point'] / 1e3:.1f} KB")
+                f"per point {bd['l2_per_point'] / 1e3:.1f} KB; {k1_class_note(kargs, H, D, cfg.nef.num_out)}")
     log(f"[timing] decode prologue: weight fold {fold_ms:.4f} ms and split {split_ms:.4f} ms per decode, geometry "
         f"{geom_ms:.4f} ms per chunk x {launches} chunks; forecast decode total at K1's time "
         f"{k1_timing['forecast']['ms'] * launches:.3f} ms")
@@ -2556,7 +2591,7 @@ def main() -> int:
     sw = repair["shallow_water"]
     log(f"[timing] K1 at shallow_water's decode shape (navier_stokes width, latent_dim 32, z=8, "
         f"160 x 2048): {sw['ms']:.4f} ms, plain {sw['plain_ms']:.4f} ms, bound {sw['bound_ms']:.4f} ms, "
-        f"shared memory {sw['smem']} B")
+        f"shared memory {sw['smem']} B; width class {sw['width_class']}, {sw['blocks_per_sm']} blocks an SM")
     torch.cuda.empty_cache()
     # 14-16. The heat equation on S^2: K1 at its widths, data, training, forecast.
     sphere = sphere_phase(dev)

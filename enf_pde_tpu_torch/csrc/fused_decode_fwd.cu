@@ -1,6 +1,8 @@
 // Fused ENF decode, forward: CUDA C++ for Hopper (sm_90a), its products on the tensor
 // cores at f32 accuracy (3xTF32), the latents batched into the rows of the layers that
-// share weights (128-row products on wgmma), weights staged by cp.async in a ring.
+// share weights (products over a latent group's rows on wgmma), in four instantiations by
+// width class: 128 (Navier-Stokes, shallow water) stages every weight by cp.async in a ring;
+// the narrow classes 16, 32 and 64 are laid out below ("Width classes").
 //
 // Replaces the TPU kernel `_fwd_kernel` launched by `_fwd_pallas`
 // (enf_pde_tpu/ops/pallas_decode.py), whose body is `_tile_decode`. The plain
@@ -87,6 +89,50 @@
 // p_w2 3 x 256 KB, h_w1 128 KB, h_w2 64 KB: 2,116 KB, 67.7 kB per decoded point (86 KB in
 // the PR 7 build, which streamed every shared weight once per latent and head, in f32).
 //
+// Width classes. `layout` picks the instantiation from hid, hidm and D: the narrowest of
+// 16, 32, 64 that holds all three, else 128 (the design above, unchanged). The narrow classes
+// differ where the parent design lost its time at those widths (tools/k1_compare.py --skip on
+// it, PERF.md §6: at ihc the LayerNorm pass 41 %, the wgmma chunk loops 28 %, the mma.sync
+// chunk loops 15 %; 255 registers with spills, one block an SM):
+//   wgmma at the layer's own width: m64nWNk8 for q_w1, v_w1, fw (N = hid) and m_w2 (N = D),
+//     WN / 2 accumulator registers, no zero columns (128-wide slabs were 3/4 zeros at hid 32);
+//     split_weights lays the weights out in WN-wide blocks of 32 WN floats a 16-deep chunk.
+//   the shared weights resident (16, 32: RES, 8 / 32 KB, loaded once by cp.async per block)
+//     or in a ring of three narrow blocks (64: resident would take 128 KB and one block an SM;
+//     the ring leaves two: 10.46 against 11.81 ms at cahn_hilliard's 160 x 2048, one call of
+//     tools/k1_compare.py). Persistent blocks: a grid of the blocks the SMs hold at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), each walking the work items (batch
+//     row, tile) from blockIdx.x by gridDim.x.
+//   latents spread evenly over ceil(Z / ZG) groups of at most ZG16 = 8, ZG32 = 4, ZG64 = 4
+//     (z = 25: four groups of 4 and three of 3, never a group of one); at 16 a warpgroup
+//     multiplies tiles wg and wg + 2 (MT = 2) and the mixer four heads a call. At 32, groups
+//     of 6 (five of 5 at z = 25) took 15.99 against 14.98 ms (the fourth tile is multiplied
+//     whether it has rows or not, and more registers spill); at 16, groups of 4 took 4.74
+//     against 4.63 (one call of tools/k1_compare.py each).
+//   G and the tail with no ring (`dense32_direct`, not inlined): B fragments from L2 into
+//     registers a k step ahead, the first before the barrier; a latent pair's two G products
+//     side by side on four warps each (15.43 -> 14.21 ms at ihc, 4.99 -> 4.27 at
+//     diff_sphere); the group's A staged in shared memory for the logits.
+//   gelu only on the columns a LayerNorm segment has (the class 128 takes it of all 256
+//     register columns), a low-register two-pass LayerNorm for the tail.
+//   several blocks an SM: __launch_bounds__(256, 2), 128 registers a thread. ptxas spills
+//     200-500 bytes a thread, cheaper than one block an SM (19.82 against 16.07 ms at ihc)
+//     or 80 registers and three (24.99 against 16.60).
+// Shared memory, any Z (k1_smem_bytes mirrors it; the library's layout agrees on the card):
+//   16 (diff_sphere: I 1, H 2): X, Y [256 x 20], acc [32 x 36], weights 8 KB      57,600 B
+//   32 (ihc: I 5, H 3):         X, Y [128 x 36], acc [32 x 100], weights 32 KB    93,824 B
+//   64 (planar: I 2, H 2):      X, Y [128 x 68], acc [32 x 132], ring 24 KB      114,944 B
+//   with the group's logits, the softmax's running max, sum and factor, and the group's A:
+//   two blocks an SM at each (233,472 B an SM, 1 KB of it kept back per block; registers
+//   allow two at each).
+// What bounds them: the products, three TF32 products each on the tensor cores: 1.067 ms at
+// ihc's 160 x 2048, 0.147 ms at diff_sphere's, 1.278 ms at cahn_hilliard's, 0.352 ms at
+// diffusion_plane's 160 x 1024. Measured, one call of tools/k1_compare.py against the
+// earlier build on an H100 (PERF.md §6): 14.21 ms (parent 36.15), 4.27 (16.53), 10.87
+// (16.68), 2.83 (4.26): 13x, 29x, 8.5x and 8.0x the bound. What is left: the 32-row
+// products' waits on L2 (dense32_direct: 31 % at ihc), the group products (about a quarter)
+// and the LayerNorm passes; every step of a group is a barrier apart.
+//
 // What bounds it: 1.415 MFLOP of products per point, three TF32 products each on the tensor
 // cores: 0.70 ms at b = 160, c = 512 (1.73 ms in f32 on the CUDA cores); a few bytes of input
 // per point. Measured 4.67 ms (PERF.md): the 32-row mma.sync products take about half, the
@@ -119,6 +165,19 @@ constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part
 constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
 constexpr int SMEM_CAP = 232448;      // bytes of shared memory a block may have on an H100
+// The narrow width classes WN = 16, 32, 64 (hid, hidm and D at most WN; wider shapes take the
+// class WG_N): the most latents a group takes (ZG16 * TILE rows), whether the four shared
+// weights stay resident in shared memory (RES, 1) or pass through a ring of STAGES narrow blocks
+// (0), and the blocks an SM that __launch_bounds__ asks the compiler to make room for.
+constexpr int ZG16 = 8;
+constexpr int ZG32 = 4;
+constexpr int ZG64 = 4;
+constexpr int RES16 = 1;
+constexpr int RES32 = 1;
+constexpr int RES64 = 0;
+constexpr int MINB16 = 2;
+constexpr int MINB32 = 2;
+constexpr int MINB64 = 2;
 // These constants and `layout` have one mirror, k1_smem_bytes in ops/fused_decode.py, which
 // reads the `constexpr int` lines of this file.
 constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
@@ -127,6 +186,22 @@ constexpr int kNumPtrs = 33;
 constexpr int kNumDims = 10;
 static_assert(STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "ring");
 
+__host__ __device__ constexpr int zg_of(int wn) { return wn == 16 ? ZG16 : wn == 32 ? ZG32 : wn == 64 ? ZG64 : ZG; }
+__host__ __device__ constexpr bool res_of(int wn) { return wn == 16 ? RES16 : wn == 32 ? RES32 : wn == 64 ? RES64 : 0; }
+
+// What a width class fixes at compile time.
+template <int WN>
+struct Width {
+  static constexpr bool NARROW = WN < WG_N;
+  static constexpr int ZGN = zg_of(WN);                 // the most latents a group
+  static constexpr int MT = (ZGN * TILE / 64 + 1) / 2;  // m64 row tiles a warpgroup takes: tiles wg, wg + 2
+  static constexpr int ZL = ZGN <= 4 ? 4 : 8;           // lanes of a (coordinate, head) in the online softmax
+  static constexpr bool RES = res_of(WN);
+  static constexpr int MINB = WN == 16 ? MINB16 : WN == 32 ? MINB32 : WN == 64 ? MINB64 : 1;
+  static constexpr int BLOCK = 2 * 2 * 8 * WN;          // floats of one pre-split chunk (16 k x WN columns)
+  static_assert(ZGN <= ZL && MT >= 1 && MT <= 2, "class");
+};
+
 struct Params {
   const float *inv, *wb, *A, *ab, *G, *c;
   const float *q_coeff, *q_b1, *v_coeff, *v_b1, *fb, *m_b2;
@@ -134,8 +209,9 @@ struct Params {
   const float *o_w, *o_b, *p_w1, *p_b1, *p_w2, *p_b2, *h_w1, *h_b1, *h_w2, *h_b2, *h_w3, *h_b3;
   float* out;
   int B, Z, C, I, hid, H, D, hidm, out_dim;
-  int ldX, ldP, ldW;  // row strides (words, 4 mod 32): X / Y as [128][ldX], pre [64][ldP], acc [32][ldW]
+  int ldX, ldP, ldW;  // row strides (words, 4 mod 8): X / Y as [ZG TILE][ldX], pre [64][ldP], acc [32][ldW]
   int nY;             // floats of Y
+  int nW;             // narrow classes: floats of the resident shared weights, or of their ring
 };
 
 // Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
@@ -311,32 +387,168 @@ __device__ __forceinline__ void dense32(const float* X, int ldx, int K, const fl
     dense32<2, ACT>(X, ldx, K, W, N, bias, Y, ldy, ring);
 }
 
-// ---- 128-row products: 3xTF32 wgmma ----------------------------------------------------------
-// D (64 x 64, f32, this thread's 32 values) = A (64 x 8 tf32, registers: this warp's 16
-// rows in the m16n8k8 A-fragment order) x B (8 x 64 tf32, K-major in shared memory, `desc`)
-// + (accumulate ? D : 0), one asynchronous warpgroup product. D's fragment: n8 tile j at
-// d[4 j .. 4 j + 3] = (row g, col 8 j + 2 t), (g, 8 j + 2 t + 1), (g + 8, 8 j + 2 t),
+// The narrow classes' 32-row products, with no ring and no barrier past the first: warp w owns
+// columns 8 NJ w .. 8 NJ w + 8 NJ - 1 of each slab of 64 NJ, loads its B fragments straight from
+// global memory (L2: G and the tail are read by every block of a batch row) into registers one
+// k step ahead of the products (the first before the barrier), and its A fragments from X in
+// shared memory, both split per fragment. Same products and chains as dense32 (a fresh
+// accumulator per two k steps, added into f32 registers). Not inlined: its registers are its
+// own, not added to the kernel's; no wgmma crosses the call. Measured at ihc's 160 x 2048 (one
+// call of tools/k1_compare.py each, PERF.md §6): inlined 16.60 ms, not inlined 16.07; with
+// its B fragments four k steps ahead 22.31 ms inlined (3.8 KB of spills a thread) and 19.81
+// not inlined. `sync`: the barrier (X may have been written just before). Warps w0 ..
+// w0 + nw - 1 take the product (a latent pair's two G products run side by side, four warps
+// each); the others must not call it.
+template <int NJ, int ACT>
+__device__ __noinline__ void dense32_direct(const float* X, int ldx, int K, const float* __restrict__ W, int N,
+                                            const float* __restrict__ bias, float* Y, int ldy, bool sync, int w0,
+                                            int nw) {
+  constexpr int WN = 8 * NJ;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - w0, SW = nw * WN;
+  const int g = lane >> 2, tq = lane & 3;
+  const int nks = K / 8;
+  auto load = [&](float (&dst)[NJ][2], int n0, int ks) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = n0 + 8 * j + g;
+        dst[j][r] = n < N ? __ldg(W + (size_t)(8 * ks + tq + 4 * r) * N + n) : 0.0f;
+      }
+  };
+  float cur[NJ][2], nxt[NJ][2] = {};
+  int n0 = warp * WN;
+  if (n0 < N) load(cur, n0, 0);
+  if (sync) __syncthreads();
+  for (; n0 < N; n0 += SW) {  // warp-uniform
+    float acc[2][NJ][4], p[2][NJ][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = p[mi][j][e] = 0.0f;
+    for (int ks = 0; ks < nks; ++ks) {
+      if (ks + 1 < nks)
+        load(nxt, n0, ks + 1);
+      else if (n0 + SW < N)
+        load(nxt, n0 + SW, 0);  // the next slab's first k step
+      uint32_t ab[2][4], as[2][4], bb[NJ][2], bs[NJ][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* a = X + (mi * 16 + g) * ldx + 8 * ks + tq;
+        const float v[4] = {a[0], a[8 * ldx], a[4], a[8 * ldx + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 sp = split_tf32_int(v[e]);
+          ab[mi][e] = __float_as_uint(sp.x);
+          as[mi][e] = __float_as_uint(sp.y);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 w = split_tf32_int(cur[j][r]);
+          bb[j][r] = __float_as_uint(w.x);
+          bs[j][r] = __float_as_uint(w.y);
+          cur[j][r] = nxt[j][r];
+        }
+      mma_3xtf32_tiles(p, ab, as, bb, bs);
+      if (ks & 1) {  // a chunk of two k steps (K is a multiple of 16): into f32 registers
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[mi][j][e] += p[mi][j][e];
+              p[mi][j][e] = 0.0f;
+            }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * j + 2 * tq + e;
+        if (n >= N) continue;
+        const float bn = __ldg(bias + n);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) Y[(mi * 16 + g + 8 * h) * ldy + n] = activate<ACT>(acc[mi][j][2 * h + e] + bn);
+      }
+  }
+}
+
+// As many n8 tiles a warp (up to 3) as N needs over the nw warps in one slab.
+template <int ACT>
+__device__ __forceinline__ void dense32_direct(const float* X, int ldx, int K, const float* __restrict__ W, int N,
+                                               const float* __restrict__ bias, float* Y, int ldy, bool sync = true,
+                                               int w0 = 0, int nw = WARPS) {
+  const int cols = (N + nw - 1) / nw;  // columns a warp
+  if (cols > 16)
+    dense32_direct<3, ACT>(X, ldx, K, W, N, bias, Y, ldy, sync, w0, nw);
+  else if (cols > 8)
+    dense32_direct<2, ACT>(X, ldx, K, W, N, bias, Y, ldy, sync, w0, nw);
+  else
+    dense32_direct<1, ACT>(X, ldx, K, W, N, bias, Y, ldy, sync, w0, nw);
+}
+
+// ---- Products over the rows of a latent group: 3xTF32 wgmma ------------------------------------
+// D (64 x N, f32, this thread's N / 2 values) = A (64 x 8 tf32, registers: this warp's 16
+// rows in the m16n8k8 A-fragment order) x B (8 x N tf32, K-major in shared memory, `desc`)
+// + (accumulate ? D : 0), one asynchronous warpgroup product, N = 16, 32 or 64. D's fragment:
+// n8 tile j at d[4 j .. 4 j + 3] = (row g, col 8 j + 2 t), (g, 8 j + 2 t + 1), (g + 8, 8 j + 2 t),
 // (g + 8, 8 j + 2 t + 1) of the warp's 16 rows.
+template <int N>
 __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
 }
 
 // Shared-memory descriptor of a K-major tf32 B tile without swizzle (split_weights' block):
 // core matrices of 8 rows x 16 bytes stored whole; LBO is the step between the two core
-// matrices of a k step of 8, SBO the step between groups of 8 rows (n).
+// matrices of a k step of 8, SBO the step between groups of 8 rows (n). The same at every width.
 constexpr int WG_LBO = 128, WG_SBO = 256;
 __device__ __forceinline__ uint64_t wg_desc(const float* smem) {
   const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -348,36 +560,52 @@ __device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync
 // Orders the generic-proxy writes of shared memory (cp.async, stores) before wgmma's reads.
 __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 // Keeps the compiler from moving reads of an accumulator across wgmma's asynchronous writes.
+template <int N>
 __device__ __forceinline__ void wg_fence_operands(float* d) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// out = X W for the 128 rows of a latent group on the tensor cores at f32 accuracy: warpgroup
-// wg (warps 4 wg .. 4 wg + 3) multiplies 64 rows by each 128-wide slab of N, as two m64n64k8
-// wgmma products, warp w supplying A rows 16 w .. 16 w + 15 from shared memory (xrow(wg, w, r)
-// points at row r of them), split per fragment into registers. W is split_weights' blocked
-// layout: each 16 KB block (big and small, two k steps, 128 columns) is staged whole into the
-// ring by cp.async, two chunks ahead. 3xTF32 is three wgmma per k step (small x big, big x
-// small, big x big) and a slab's whole sum in the accumulator (the header's accuracy note),
-// one commit and wait a chunk. active(wg) says whether warpgroup wg has rows; epi(wg, w, r, n, v0, v1) gets
-// column n of rows r (0..7) and r + 8 of warp w's 16. Every thread of the block calls it; it
-// starts with a barrier and does not end with one.
-template <class XRow, class Active, class Epi>
+// out = X W for the rows of a latent group on the tensor cores at f32 accuracy. Warpgroup wg
+// (warps 4 wg .. 4 wg + 3) multiplies the 64-row tiles wg + 2 mt (mt < MT) by each WN-wide slab
+// of N: at WN = 128 as two m64n64k8 products, below it as one m64nWNk8 product; warp w supplies
+// A rows 16 w .. 16 w + 15 of a tile from shared memory (xrow(wg, mt, w, r) points at row r of
+// them), split per fragment into registers. W is split_weights' blocked layout: each block (big
+// and small, two k steps, WN columns) is either staged whole into the ring by cp.async, two
+// chunks ahead (RES false), or read where it lies, the block's resident copy of the weight
+// (RES: no ring, no barrier past the first). 3xTF32 is three wgmma per k step (small x big, big
+// x small, big x big) and a slab's whole sum in the accumulator (the header's accuracy note), one
+// commit and wait a chunk. active(wg, mt) says whether the tile has rows (a warpgroup's tiles
+// fill in order: none is active unless its first is); epi(wg, mt, w, r, n, v0, v1) gets column n
+// of rows r (0..7) and r + 8 of warp w's 16. Every thread of the block calls it; it starts with
+// a barrier and does not end with one.
+template <int WN, int MT, bool RES, class XRow, class Active, class Epi>
 __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const float* __restrict__ W, int N,
                                         float* ring, Epi epi) {
-  constexpr int CPT = WG_BLOCK / 4 / THREADS;  // 16-byte copies a thread issues per chunk
+  constexpr int NB = WN < 64 ? WN : 64;       // columns of one wgmma
+  constexpr int NH = WN / NB;                 // wgmma a slab, k step and tile
+  constexpr int NACC = WN / 2;                // accumulator registers a tile
+  constexpr int BLOCK = 2 * 2 * 8 * WN;       // floats of a pre-split chunk: part x k step x 8 x WN
+  constexpr int RS = WN == WG_N ? STAGE_FLOATS : BLOCK;  // floats of a ring stage
+  constexpr int CPT = BLOCK / 4 / THREADS;    // 16-byte copies a thread issues per chunk
+  static_assert(RES || CPT * 4 * THREADS == BLOCK, "ring copies");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, w = warp & 3;
-  const bool act = active(wg);
-  const float* xr0 = xrow(wg, w, g);
-  const float* xr1 = xrow(wg, w, g + 8);
-  const int nk = K / KC, nslab = (N + WG_N - 1) / WG_N, total = nk * nslab;
+  bool act[MT];
+  const float* xr0[MT];
+  const float* xr1[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    act[mt] = active(wg, mt);
+    xr0[mt] = xrow(wg, mt, w, g);
+    xr1[mt] = xrow(wg, mt, w, g + 8);
+  }
+  const int nk = K / KC, nslab = (N + WN - 1) / WN, total = nk * nslab;
   int is = 0, ik = 0, ist = 0;  // slab, k chunk and ring stage of the next chunk to issue
   auto issue = [&](int c) {
     if (c < total) {
-      const float* src = W + (ik * nslab + is) * WG_BLOCK;
-      float* st = ring + ist * STAGE_FLOATS;
+      const float* src = W + (ik * nslab + is) * BLOCK;
+      float* st = ring + ist * RS;
 #pragma unroll
       for (int i = 0; i < CPT; ++i) cp_async16(st + 4 * (tid + i * THREADS), src + 4 * (tid + i * THREADS), true);
       if (++ik == nk) { ik = 0; ++is; }
@@ -387,78 +615,98 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
   };
 
   __syncthreads();  // earlier readers of the ring (and writers of X) are done
+  if constexpr (!RES) {
 #pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) issue(c);
-  float acc[64];
+    for (int c = 0; c < STAGES - 1; ++c) issue(c);
+  }
+  float acc[MT][NACC];
   int s = 0, kc = 0, cst = 0;  // slab, k chunk and ring stage of chunk c
   for (int c = 0; c < total; ++c) {
-    cp_async_wait<STAGES - 2>();
-    fence_async_smem();  // this thread's copies of chunk c are visible to wgmma
-    __syncthreads();     // and everyone's; all are done with chunk c - 1
-    issue(c + STAGES - 1);
+    if constexpr (!RES) {
+      cp_async_wait<STAGES - 2>();
+      fence_async_smem();  // this thread's copies of chunk c are visible to wgmma
+      __syncthreads();     // and everyone's; all are done with chunk c - 1
+      issue(c + STAGES - 1);
+    }
     if (kc == 0) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[mt][i] = 0.0f;
     }
-    if (act) {
-      uint32_t ab[2][4], as[2][4];
+    if (act[0]) {
+      // Every tile of the warpgroup is multiplied, its rows valid or not (the epilogue skips
+      // an inactive one): a wgmma on a path that differs within the warpgroup's program would
+      // have ptxas serialize them all.
+      uint32_t ab[MT][2][4], as[MT][2][4];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int k = kc * KC + 8 * q + tq;
-        const float v[4] = {xr0[k], xr1[k], xr0[k + 4], xr1[k + 4]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 sp = split_tf32_int(v[e]);
-          ab[q][e] = __float_as_uint(sp.x);
-          as[q][e] = __float_as_uint(sp.y);
-        }
-      }
-      const float* st = ring + cst * STAGE_FLOATS;
-      // The whole slab's sum stays in the accumulator: one commit and wait a chunk.
-      wg_fence_operands(acc);
-      wg_fence_operands(acc + 32);
-      wg_fence();
-#pragma unroll
-      for (int half = 0; half < 2; ++half)  // two m64n64 products: 32 accumulator registers each
+      for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const float* b = st + q * 8 * WG_N + half * 8 * WG_N / 2;  // k step q, n groups 8 half ..
-          const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WG_N);
-          wgmma_tf32(acc + 32 * half, as[q], big, 1);
-          wgmma_tf32(acc + 32 * half, ab[q], small, 1);
-          wgmma_tf32(acc + 32 * half, ab[q], big, 1);
+          const int k = kc * KC + 8 * q + tq;
+          const float v[4] = {xr0[mt][k], xr1[mt][k], xr0[mt][k + 4], xr1[mt][k + 4]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 sp = split_tf32_int(v[e]);
+            ab[mt][q][e] = __float_as_uint(sp.x);
+            as[mt][q][e] = __float_as_uint(sp.y);
+          }
         }
+      }
+      const float* st = RES ? W + (kc * nslab + s) * BLOCK : ring + cst * RS;
+      // The whole slab's sum stays in the accumulator: one commit and wait a chunk.
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) wg_fence_operands<NACC>(acc[mt]);
+      wg_fence();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int half = 0; half < NH; ++half)  // NH products of NB columns: NB / 2 accumulator registers each
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float* b = st + q * 8 * WN + half * 8 * NB;  // k step q, n groups NB / 8 half ..
+            const uint64_t big = wg_desc(b), small = wg_desc(b + 2 * 8 * WN);
+            wgmma_tf32<NB>(acc[mt] + NB / 2 * half, as[mt][q], big, 1);
+            wgmma_tf32<NB>(acc[mt] + NB / 2 * half, ab[mt][q], small, 1);
+            wgmma_tf32<NB>(acc[mt] + NB / 2 * half, ab[mt][q], big, 1);
+          }
+      }
       wg_commit();
       wg_wait0();
-      wg_fence_operands(acc);
-      wg_fence_operands(acc + 32);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) wg_fence_operands<NACC>(acc[mt]);
       if (kc == nk - 1) {
 #pragma unroll
-        for (int j = 0; j < WG_N / 8; ++j)
+        for (int mt = 0; mt < MT; ++mt) {
+          if (mt > 0 && !act[mt]) continue;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int n = s * WG_N + 8 * j + 2 * tq + e;
-            if (n < N) epi(wg, w, g, n, acc[4 * j + e], acc[4 * j + 2 + e]);
-          }
+          for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = s * WN + 8 * j + 2 * tq + e;
+              if (n < N) epi(wg, mt, w, g, n, acc[mt][4 * j + e], acc[mt][4 * j + 2 + e]);
+            }
+        }
       }
     }
     if (++kc == nk) { kc = 0; ++s; }
     cst = cst + 1 == STAGES ? 0 : cst + 1;
   }
-  cp_async_wait<0>();
+  if constexpr (!RES) cp_async_wait<0>();
 }
 
-// Y = act(X W + bias) over the 128 rows of a latent group (R of them valid), row strides
-// ldx, ldy; W pre-split and blocked. Inlined, as is mixer: ptxas serializes every wgmma of a
-// kernel whose wgmma pipeline crosses a function call.
-template <int ACT>  // ACT_NONE or ACT_RELU (the gelu after fw is applied in its normalize pass)
-__device__ __forceinline__ void dense128(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
-                                      const float* __restrict__ bias, float* Y, int ldy, float* ring) {
-  gemm_wg(
-      [&](int wg, int w, int r) { return X + (64 * wg + 16 * w + r) * ldx; }, [&](int wg) { return 64 * wg < R; },
-      K, W, N, ring, [&](int wg, int w, int r, int n, float v0, float v1) {
+// Y = act(X W + bias) over the rows of a latent group (R of them valid), row strides ldx, ldy;
+// W pre-split and blocked (or resident). Inlined, as is mixer: ptxas serializes every wgmma of
+// a kernel whose wgmma pipeline crosses a function call.
+template <int WN, int MT, bool RES, int ACT>  // ACT_NONE or ACT_RELU (the gelu after fw is applied in its normalize pass)
+__device__ __forceinline__ void dense_group(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
+                                            const float* __restrict__ bias, float* Y, int ldy, float* ring) {
+  gemm_wg<WN, MT, RES>(
+      [&](int wg, int mt, int w, int r) { return X + (64 * (wg + 2 * mt) + 16 * w + r) * ldx; },
+      [&](int wg, int mt) { return 64 * (wg + 2 * mt) < R; }, K, W, N, ring,
+      [&](int wg, int mt, int w, int r, int n, float v0, float v1) {
         const float bn = __ldg(bias + n);
-        float* y = Y + (64 * wg + 16 * w + r) * ldy + n;
+        float* y = Y + (64 * (wg + 2 * mt) + 16 * w + r) * ldy + n;
         y[0] = activate<ACT>(v0 + bn);
         y[8 * ldy] = activate<ACT>(v1 + bn);
       });
@@ -480,39 +728,44 @@ __device__ void rff_features(const float* s_inv, int R, int I, const float* __re
 }
 
 // Normalize-only LayerNorm of each of the `segs` segments of width `width` (a multiple of 4,
-// at most MAXW) in every one of `rows` rows of X, of gelu(X) with GELU (the activation of the
+// at most NW) in every one of `rows` rows of X, of gelu(X) with GELU (the activation of the
 // product that wrote X, applied here rather than in its epilogue); var = E[x^2] - E[x]^2 as
-// in the JAX kernel. Eight lanes per segment, four segments per warp at once, the values held
-// in registers between the two passes.
+// in the JAX kernel. L lanes per segment (8, or NW / 4 below 32 columns), 32 / L segments per
+// warp at once, the values held in registers between the two passes. Below MAXW columns gelu
+// takes only the columns the segment has; at MAXW (the width class 128) the zeros past them
+// too, as that class always has (8x the tanh at 32 columns: half of K1's time at ihc).
 constexpr int MAXW = 256;
-template <bool GELU>
+template <bool GELU, int NW = MAXW>
 __device__ void normalize(float* X, int ldx, int rows, int segs, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane & 7;
+  constexpr int L = NW >= 32 ? 8 : NW / 4, SPW = 32 / L, NV = (NW + 4 * L - 1) / (4 * L);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane % L;
   const int n_seg = rows * segs;
-  for (int base = 4 * warp; base < n_seg; base += 4 * WARPS) {  // warp-uniform: the shuffles see every lane
-    const int r = base + (lane >> 3);
+  for (int base = SPW * warp; base < n_seg; base += SPW * WARPS) {  // warp-uniform: the shuffles see every lane
+    const int r = base + lane / L;
     const bool ok = r < n_seg;
     float* row = X + (ok ? (r / segs) * ldx + (r % segs) * width : 0);
-    float4 v[MAXW / 32];
+    float4 v[NV];
     float s = 0.0f, ss = 0.0f;
 #pragma unroll
-    for (int i = 0; i < MAXW / 32; ++i) {
-      const int n = 4 * sub + 32 * i;
-      v[i] = ok && n < width ? *reinterpret_cast<const float4*>(row + n) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (GELU) v[i] = make_float4(gelu_tanh(v[i].x), gelu_tanh(v[i].y), gelu_tanh(v[i].z), gelu_tanh(v[i].w));
+    for (int i = 0; i < NV; ++i) {
+      const int n = 4 * sub + 4 * L * i;
+      const bool in = ok && n < width;
+      v[i] = in ? *reinterpret_cast<const float4*>(row + n) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (GELU && (in || NW == MAXW))
+        v[i] = make_float4(gelu_tanh(v[i].x), gelu_tanh(v[i].y), gelu_tanh(v[i].z), gelu_tanh(v[i].w));
       s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
       ss = fmaf(v[i].x, v[i].x, fmaf(v[i].y, v[i].y, fmaf(v[i].z, v[i].z, fmaf(v[i].w, v[i].w, ss))));
     }
 #pragma unroll
-    for (int o = 4; o > 0; o >>= 1) {
+    for (int o = L / 2; o > 0; o >>= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, o);
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
     }
     const float mean = s / width;
     const float rstd = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
 #pragma unroll
-    for (int i = 0; i < MAXW / 32; ++i) {
-      const int n = 4 * sub + 32 * i;
+    for (int i = 0; i < NV; ++i) {
+      const int n = 4 * sub + 4 * L * i;
       if (ok && n < width)
         *reinterpret_cast<float4*>(row + n) = make_float4((v[i].x - mean) * rstd, (v[i].y - mean) * rstd,
                                                           (v[i].z - mean) * rstd, (v[i].w - mean) * rstd);
@@ -520,10 +773,36 @@ __device__ void normalize(float* X, int ldx, int rows, int segs, int width) {
   }
 }
 
+// normalize<true> of the 32 rows of X, each one segment of `width` (the narrow classes' tail,
+// up to MAXW columns): a warp per row, lanes along it, gelu stored back in a first pass and
+// normalized in a second, nothing held in registers between them.
+__device__ __noinline__ void normalize_rows(float* X, int ldx, int width) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < TILE; r += WARPS) {
+    float* row = X + r * ldx;
+    float s = 0.0f, ss = 0.0f;
+    for (int n = lane; n < width; n += 32) {
+      const float v = gelu_tanh(row[n]);
+      row[n] = v;
+      s += v;
+      ss = fmaf(v, v, ss);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    const float mean = s / width;
+    const float rstd = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
+    for (int n = lane; n < width; n += 32) row[n] = (row[n] - mean) * rstd;
+  }
+}
+
 // The narrow products on the CUDA cores: for each output o of `count` (one warp per output),
 // lane t computes sum_k X(o)[t, k] W(o)[k * ldw] for row t of 32; store(o, t, value). Lane t
 // starts its sum at k = t, so the 32 rows (row stride 4 mod 32 words) hit distinct banks.
-template <class XOf, class WOf, class Store>
+// W_SHARED: W(o) lies in shared memory (else global, read through the read-only cache).
+template <bool W_SHARED = false, class XOf, class WOf, class Store>
 __device__ void lane_dots(int count, int K, int ldw, XOf x_of, WOf w_of, Store store) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = warp; o < count; o += WARPS) {
@@ -532,7 +811,7 @@ __device__ void lane_dots(int count, int K, int ldw, XOf x_of, WOf w_of, Store s
     float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     int k = lane % K;
     for (int i = 0; i < K; ++i) {
-      s[i & 3] = fmaf(x[k], __ldg(w + k * ldw), s[i & 3]);
+      s[i & 3] = fmaf(x[k], W_SHARED ? w[k * ldw] : __ldg(w + k * ldw), s[i & 3]);
       if (++k == K) k = 0;
     }
     store(o, lane, (s[0] + s[1]) + (s[2] + s[3]));
@@ -540,22 +819,23 @@ __device__ void lane_dots(int count, int K, int ldw, XOf x_of, WOf w_of, Store s
 }
 
 // acc[t, h*D + n] += sum over the np (1 or 2) latents of a pair of prob[z, t, h] *
-// (normalize(pre_z,h)[t] @ m_w2 + m_b2)[n]: one 128-row product over two heads and the
-// latents of the pair. Warpgroup wg holds head h0 + wg; warp w of it coordinates 8 w .. 8 w + 7,
+// (normalize(pre_z,h)[t] @ m_w2 + m_b2)[n]: one product over 2 MT heads and the latents of the
+// pair. The tile (wg, mt) holds head h0 + wg + 2 mt; warp w of it coordinates 8 w .. 8 w + 7,
 // its rows r and r + 8 the same coordinate in latents 0 and 1 of the pair, so one thread owns
 // both latents' sums of an output element.
+template <int WN, int MT, bool RES>
 __device__ __forceinline__ void mixer(const float* Y, int ldP, int np, int H, int hidm, int D,
-                                   const float* __restrict__ m_w2, const float* __restrict__ m_b2,
-                                   const float* prob, float* acc, int ldW, float* ring) {
-  for (int h0 = 0; h0 < H; h0 += 2) {
-    gemm_wg(
-        [&](int wg, int w, int r) {
-          const int h = min(h0 + wg, H - 1), t = 8 * w + (r & 7);
+                                      const float* __restrict__ m_w2, const float* __restrict__ m_b2,
+                                      const float* prob, float* acc, int ldW, float* ring) {
+  for (int h0 = 0; h0 < H; h0 += 2 * MT) {
+    gemm_wg<WN, MT, RES>(
+        [&](int wg, int mt, int w, int r) {
+          const int h = min(h0 + wg + 2 * mt, H - 1), t = 8 * w + (r & 7);
           return Y + ((r >= 8 && np > 1 ? TILE : 0) + t) * ldP + h * hidm;
         },
-        [&](int wg) { return h0 + wg < H; }, hidm, m_w2, D, ring,
-        [&](int wg, int w, int r, int n, float v0, float v1) {
-          const int h = h0 + wg, t = 8 * w + r;
+        [&](int wg, int mt) { return h0 + wg + 2 * mt < H; }, hidm, m_w2, D, ring,
+        [&](int wg, int mt, int w, int r, int n, float v0, float v1) {
+          const int h = h0 + wg + 2 * mt, t = 8 * w + r;
           const float bn = __ldg(m_b2 + n);
           float s = prob[t * H + h] * (v0 + bn);
           if (np > 1) s = fmaf(prob[TILE * H + t * H + h], v1 + bn, s);
@@ -564,160 +844,259 @@ __device__ __forceinline__ void mixer(const float* Y, int ldP, int np, int H, in
   }
 }
 
-template <bool WITH_TAIL>
-__global__ void __launch_bounds__(THREADS, 1) fused_decode_fwd_kernel(const Params P) {
+template <int WN, bool WITH_TAIL>
+__global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_kernel(const Params P) {
+  using Cls = Width<WN>;
+  constexpr bool NARROW = Cls::NARROW, RES = Cls::RES;
+  constexpr int ZGN = Cls::ZGN, MT = Cls::MT, ZL = Cls::ZL;
   extern __shared__ __align__(16) float smem[];
   const int Z = P.Z, H = P.H, I = P.I, hid = P.hid, D = P.D, hidm = P.hidm, C = P.C;
   const int HD = H * D, HH = H * hidm, ldX = P.ldX, ldP = P.ldP, ldW = P.ldW;
-  float* X = smem;                       // [128][ldX]
-  float* Y = X + ZG * TILE * ldX;        // nY floats
-  float* acc = Y + P.nY;                 // [TILE][ldW]
-  float* ring = acc + TILE * ldW;        // [STAGES][STAGE_FLOATS]
-  float* s_prob = ring + RING_FLOATS;    // [ZG][TILE][H] the group's logits, then its weights
-  float* s_max = s_prob + ZG * TILE * H;  // [TILE][H] running max of the logits
+  float* X = smem;                        // [ZGN * TILE][ldX]
+  float* Y = X + ZGN * TILE * ldX;        // nY floats
+  float* acc = Y + P.nY;                  // [TILE][ldW]
+  float* ring = acc + TILE * ldW;         // [STAGES][STAGE_FLOATS] and two A chunks; narrow: the shared weights or their ring
+  float* s_prob = ring + (NARROW ? P.nW : RING_FLOATS);  // [ZGN][TILE][H] the group's logits, then its weights
+  float* s_max = s_prob + ZGN * TILE * H;  // [TILE][H] running max of the logits
   float* s_sum = s_max + TILE * H;       // [TILE][H] running sum of exp(logit - max)
   float* s_scale = s_sum + TILE * H;     // [TILE][H] the factor acc's columns of head h take
-  const int b = blockIdx.y, c0 = blockIdx.x * TILE, tid = threadIdx.x;
-  const int rows = min(TILE, C - c0);  // valid coordinates in this tile
+  float* s_A = s_scale + TILE * H;       // narrow: [ZGN][hid][H] the group's A
+  const int tid = threadIdx.x;
+  // The four shared weights: resident in the ring's place (narrow, RES), else pre-split in global memory.
+  const int wq_floats = hid / KC * Cls::BLOCK;
+  const float* Wq = RES ? ring : P.q_w1s;
+  const float* Wv = RES ? ring + wq_floats : P.v_w1s;
+  const float* Wf = RES ? ring + 2 * wq_floats : P.fws;
+  const float* Wm = RES ? ring + 3 * wq_floats : P.m_w2s;
 
-  // Online softmax over the latent groups, after the group's logits are in s_prob: the
-  // running max m and sum l of each (coordinate, head) take the group in, its logits become
-  // exp(logit - m_new), and s_scale holds exp(m_old - m_new), the factor the accumulator's
-  // columns of that head take before the group's value chains add into it. After the last
-  // group l is complete, and both are divided by it. One lane per (coordinate, head, latent
-  // of the group), the ZG lanes of a pair adjacent: shuffles reduce over the group.
-  static_assert(ZG <= 32 && (ZG & (ZG - 1)) == 0, "a group's lanes lie in one warp");
-  auto online_softmax = [&](int z0, int nz) {
-    const bool first = z0 == 0, last = z0 + ZG >= Z;
-    for (int base = tid; base < TILE * H * ZG; base += THREADS) {  // TILE H ZG: whole warps
-      const int zz = base % ZG, pair = base / ZG;  // pair = t H + h
-      const bool valid = zz < nz;
-      const float x = valid ? s_prob[zz * TILE * H + pair] : -INFINITY;
-      const float m_old = first ? -INFINITY : s_max[pair];
-      const float l_old = first ? 0.0f : s_sum[pair];
-      float m = fmaxf(m_old, x);
-#pragma unroll
-      for (int o = 1; o < ZG; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float ms = m == -INFINITY ? 0.0f : m;  // every logit so far -inf: exp gives 0, not NaN
-      float e = valid ? expf(x - ms) : 0.0f, sum = e;
-#pragma unroll
-      for (int o = 1; o < ZG; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      float scale = expf(m_old - ms);  // 0 for the first group
-      const float l = l_old * scale + sum;
-      if (last) {
-        const float inv_l = 1.0f / l;
-        e *= inv_l;
-        scale *= inv_l;
-      }
-      __syncwarp();  // every lane of the pair has read m_old and l_old
-      if (valid) s_prob[zz * TILE * H + pair] = e;
-      if (zz == 0) {
-        s_max[pair] = m;
-        s_sum[pair] = l;
-        s_scale[pair] = scale;
-      }
-    }
-  };
+  // Decodes the TILE coordinates from c0 of batch row b into out.
+  auto decode_tile = [&](const int b, const int c0) {
+    const int rows = min(TILE, C - c0);  // valid coordinates in this tile
 
-  // The RFF features of a group's latents into X, their invariants staged in Y, which is
-  // idle between the last pair's mixer and the first product of either chain. Before the
-  // value chain's, the online softmax takes the group's logits in beside the staging, and
-  // the accumulator takes its factor beside the features: no barrier of their own.
-  float* s_inv = Y;  // [ZG][TILE][I]
-  auto features = [&](int z0, int nz, const float* coeff, bool softmax) {
-    __syncthreads();  // earlier readers of X and Y are done, the group's logits written
-    if (softmax) online_softmax(z0, nz);
-    for (int idx = tid; idx < nz * TILE * I; idx += THREADS) {
-      const int zz = idx / (TILE * I), rem = idx - zz * TILE * I, t = rem / I;
-      s_inv[idx] = t < rows ? P.inv[((size_t)(b * Z + z0 + zz) * C + c0) * I + rem] : 0.0f;
-    }
-    __syncthreads();
-    if (softmax && z0 > 0)  // acc holds the earlier groups' sum: a warp per row, lanes along n
-      for (int t = tid >> 5; t < TILE; t += WARPS)
-        for (int h = 0; h < H; ++h) {
-          const float f = s_scale[t * H + h];
-          for (int n = tid & 31; n < D; n += 32) acc[t * ldW + h * D + n] *= f;
+    // Online softmax over the latent groups, after the group's logits are in s_prob: the
+    // running max m and sum l of each (coordinate, head) take the group in, its logits become
+    // exp(logit - m_new), and s_scale holds exp(m_old - m_new), the factor the accumulator's
+    // columns of that head take before the group's value chains add into it. After the last
+    // group l is complete, and both are divided by it. One lane per (coordinate, head, latent
+    // of the group), the ZL lanes of a pair adjacent: shuffles reduce over the group.
+    static_assert(ZL <= 32 && (ZL & (ZL - 1)) == 0, "a group's lanes lie in one warp");
+    auto online_softmax = [&](int z0, int nz) {
+      const bool first = z0 == 0, last = z0 + nz >= Z;
+      for (int base = tid; base < TILE * H * ZL; base += THREADS) {  // TILE H ZL: whole warps
+        const int zz = base % ZL, pair = base / ZL;  // pair = t H + h
+        const bool valid = zz < nz;
+        const float x = valid ? s_prob[zz * TILE * H + pair] : -INFINITY;
+        const float m_old = first ? -INFINITY : s_max[pair];
+        const float l_old = first ? 0.0f : s_sum[pair];
+        float m = fmaxf(m_old, x);
+#pragma unroll
+        for (int o = 1; o < ZL; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        const float ms = m == -INFINITY ? 0.0f : m;  // every logit so far -inf: exp gives 0, not NaN
+        float e = valid ? expf(x - ms) : 0.0f, sum = e;
+#pragma unroll
+        for (int o = 1; o < ZL; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        float scale = expf(m_old - ms);  // 0 for the first group
+        const float l = l_old * scale + sum;
+        if (last) {
+          const float inv_l = 1.0f / l;
+          e *= inv_l;
+          scale *= inv_l;
         }
-    rff_features(s_inv, nz * TILE, I, coeff, hid / 2, X, ldX);
-  };
+        __syncwarp();  // every lane of the pair has read m_old and l_old
+        if (valid) s_prob[zz * TILE * H + pair] = e;
+        if (zz == 0) {
+          s_max[pair] = m;
+          s_sum[pair] = l;
+          s_scale[pair] = scale;
+        }
+      }
+    };
 
-  for (int idx = tid; idx < TILE * HD; idx += THREADS) acc[(idx / HD) * ldW + idx % HD] = 0.0f;
-  for (int z0 = 0; z0 < Z; z0 += ZG) {
-    const int nz = min(ZG, Z - z0);
-    // The group's logits from the query chain, ZG latents per product.
-    features(z0, nz, P.q_coeff, false);
-    dense128<ACT_RELU>(X, ldX, nz * TILE, hid, P.q_w1s, hid, P.q_b1, Y, ldX, ring);
-    __syncthreads();
-    // logit[z, t, h] = hq[z, t] . A[b, z][:, h] + ab + wb: one warp per (latent, head).
-    lane_dots(
-        nz * H, hid, H, [&](int o, int t) { return Y + ((o / H) * TILE + t) * ldX; },
-        [&](int o) { return P.A + ((size_t)b * Z + z0 + o / H) * hid * H + o % H; },
-        [&](int o, int t, float s) {
-          const int zz = o / H, h = o % H;
-          const size_t bz = (size_t)b * Z + z0 + zz;
-          s_prob[(zz * TILE + t) * H + h] =
-              s + __ldg(P.ab + bz * H + h) + (t < rows ? __ldg(P.wb + bz * C + c0 + t) : 0.0f);
-        });
+    // The RFF features of a group's latents into X, their invariants staged in Y, which is
+    // idle between the last pair's mixer and the first product of either chain (narrow: the
+    // query chain stages the group's A beside them). Before the value chain's, the online
+    // softmax takes the group's logits in beside the staging, and the accumulator takes its
+    // factor beside the features: no barrier of their own.
+    float* s_inv = Y;  // [ZGN][TILE][I]
+    auto features = [&](int z0, int nz, const float* coeff, bool softmax) {
+      __syncthreads();  // earlier readers of X and Y are done, the group's logits written
+      if (softmax) online_softmax(z0, nz);
+      for (int idx = tid; idx < nz * TILE * I; idx += THREADS) {
+        const int zz = idx / (TILE * I), rem = idx - zz * TILE * I, t = rem / I;
+        s_inv[idx] = t < rows ? P.inv[((size_t)(b * Z + z0 + zz) * C + c0) * I + rem] : 0.0f;
+      }
+      if (NARROW && !softmax)  // A[b, z0 .. z0 + nz) is contiguous
+        for (int idx = tid; idx < nz * hid * H; idx += THREADS) s_A[idx] = __ldg(P.A + ((size_t)b * Z + z0) * hid * H + idx);
+      __syncthreads();
+      if (softmax && z0 > 0)  // acc holds the earlier groups' sum: a warp per row, lanes along n
+        for (int t = tid >> 5; t < TILE; t += WARPS)
+          for (int h = 0; h < H; ++h) {
+            const float f = s_scale[t * H + h];
+            for (int n = tid & 31; n < D; n += 32) acc[t * ldW + h * D + n] *= f;
+          }
+      rff_features(s_inv, nz * TILE, I, coeff, hid / 2, X, ldX);
+    };
 
-    // The group's FiLM-conditioned value chains, weighted into acc.
-    features(z0, nz, P.v_coeff, true);
-    dense128<ACT_RELU>(X, ldX, nz * TILE, hid, P.v_w1s, hid, P.v_b1, Y, ldX, ring);
-    dense128<ACT_NONE>(Y, ldX, nz * TILE, hid, P.fws, hid, P.fb, X, ldX, ring);
-    __syncthreads();
-    normalize<true>(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
-    for (int zp = 0; zp < nz; zp += 2) {   // pairs of latents
-      const int np = min(2, nz - zp);
-      for (int zz = 0; zz < np; ++zz) {
-        const size_t bz = (size_t)b * Z + z0 + zp + zz;
-        dense32<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
-                          Y + zz * TILE * ldP, ldP, ring);
+    for (int idx = tid; idx < TILE * HD; idx += THREADS) acc[(idx / HD) * ldW + idx % HD] = 0.0f;
+    // Groups of at most ZGN latents; the narrow classes spread Z evenly over them, so a last
+    // group is never left with a latent or two (z = 25 at ZG32 = 4: four groups of 4, three of 3).
+    const int ngroups = (Z + ZGN - 1) / ZGN;
+    for (int gi = 0; gi < ngroups; ++gi) {
+      const int z0 = NARROW ? gi * Z / ngroups : gi * ZG;
+      const int nz = NARROW ? (gi + 1) * Z / ngroups - z0 : min(ZG, Z - z0);
+      // The group's logits from the query chain, its latents' rows in one product.
+      features(z0, nz, P.q_coeff, false);
+      dense_group<WN, MT, RES, ACT_RELU>(X, ldX, nz * TILE, hid, Wq, hid, P.q_b1, Y, ldX, ring);
+      __syncthreads();
+      // logit[z, t, h] = hq[z, t] . A[b, z][:, h] + ab + wb: one warp per (latent, head).
+      lane_dots<NARROW>(
+          nz * H, hid, H, [&](int o, int t) { return Y + ((o / H) * TILE + t) * ldX; },
+          [&](int o) {
+            return NARROW ? s_A + (o / H) * hid * H + o % H : P.A + ((size_t)b * Z + z0 + o / H) * hid * H + o % H;
+          },
+          [&](int o, int t, float s) {
+            const int zz = o / H, h = o % H;
+            const size_t bz = (size_t)b * Z + z0 + zz;
+            s_prob[(zz * TILE + t) * H + h] =
+                s + __ldg(P.ab + bz * H + h) + (t < rows ? __ldg(P.wb + bz * C + c0 + t) : 0.0f);
+          });
+
+      // The group's FiLM-conditioned value chains, weighted into acc.
+      features(z0, nz, P.v_coeff, true);
+      dense_group<WN, MT, RES, ACT_RELU>(X, ldX, nz * TILE, hid, Wv, hid, P.v_b1, Y, ldX, ring);
+      dense_group<WN, MT, RES, ACT_NONE>(Y, ldX, nz * TILE, hid, Wf, hid, P.fb, X, ldX, ring);
+      __syncthreads();
+      if constexpr (NARROW)
+        normalize<true, WN>(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
+      else
+        normalize<true>(X, ldX, nz * TILE, 1, hid);
+      for (int zp = 0; zp < nz; zp += 2) {  // pairs of latents
+        const int np = min(2, nz - zp);
+        if constexpr (NARROW) {
+          if (np == 2) {  // the pair's products side by side: warps 0-3 the first, 4-7 the second
+            __syncthreads();
+            const int zz = (tid >> 5) >= WARPS / 2;
+            const size_t bz = (size_t)b * Z + z0 + zp + zz;
+            dense32_direct<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
+                                     Y + zz * TILE * ldP, ldP, false, zz * WARPS / 2, WARPS / 2);
+          } else {
+            const size_t bz = (size_t)b * Z + z0 + zp;
+            dense32_direct<ACT_NONE>(X + zp * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH, Y, ldP);
+          }
+        } else {
+          for (int zz = 0; zz < np; ++zz) {
+            const size_t bz = (size_t)b * Z + z0 + zp + zz;
+            dense32<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
+                              Y + zz * TILE * ldP, ldP, ring);
+          }
+        }
+        __syncthreads();
+        if constexpr (NARROW)
+          normalize<true, WN>(Y, ldP, np * TILE, H, hidm);  // gelu, then each head
+        else
+          normalize<true>(Y, ldP, np * TILE, H, hidm);
+        mixer<WN, MT, RES>(Y, P.ldP, np, H, hidm, D, Wm, P.m_b2, s_prob + zp * TILE * H, acc, ldW, ring);
+      }
+    }
+
+    float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
+    if (WITH_TAIL) {
+      if constexpr (NARROW) {
+        dense32_direct<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW);
+        dense32_direct<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW);
+        __syncthreads();
+        normalize_rows(acc, ldW, HD);
+        dense32_direct<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW);
+        dense32_direct<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW);
+        dense32_direct<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW);
+      } else {
+        dense32<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW, ring);
+        dense32<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW, ring);
+        __syncthreads();
+        normalize<true>(acc, ldW, TILE, 1, HD);
+        dense32<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW, ring);
+        dense32<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW, ring);
+        dense32<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW, ring);
       }
       __syncthreads();
-      normalize<true>(Y, ldP, np * TILE, H, hidm);  // gelu, then each head
-      mixer(Y, P.ldP, np, H, hidm, D, P.m_w2s, P.m_b2, s_prob + zp * TILE * H, acc, ldW, ring);
+      const int od = P.out_dim;
+      lane_dots(
+          od, hid, od, [&](int, int t) { return Y + t * ldW; }, [&](int o) { return P.h_w3 + o; },
+          [&](int o, int t, float s) {
+            if (t < rows) dst[t * od + o] = s + __ldg(P.h_b3 + o);
+          });
+    } else {
+      __syncthreads();
+      for (int idx = tid; idx < rows * HD; idx += THREADS) dst[idx] = acc[(idx / HD) * ldW + idx % HD];
     }
-  }
+  };
 
-  float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
-  if (WITH_TAIL) {
-    dense32<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW, ring);
-    dense32<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW, ring);
-    __syncthreads();
-    normalize<true>(acc, ldW, TILE, 1, HD);
-    dense32<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW, ring);
-    dense32<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW, ring);
-    dense32<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW, ring);
-    __syncthreads();
-    const int od = P.out_dim;
-    lane_dots(
-        od, hid, od, [&](int, int t) { return Y + t * ldW; }, [&](int o) { return P.h_w3 + o; },
-        [&](int o, int t, float s) {
-          if (t < rows) dst[t * od + o] = s + __ldg(P.h_b3 + o);
-        });
+  if constexpr (NARROW) {
+    // A persistent block: the shared weights come in once (RES), then it walks the work items
+    // (batch row, tile) from blockIdx.x by gridDim.x, neighbours sharing a row's A, G and c in L2.
+    if constexpr (RES) {
+      const float* src[4] = {P.q_w1s, P.v_w1s, P.fws, P.m_w2s};
+      const int n[4] = {wq_floats, wq_floats, wq_floats, hidm / KC * Cls::BLOCK};
+      float* dst = ring;
+      for (int i = 0; i < 4; ++i) {
+        for (int j = 4 * tid; j < n[i]; j += 4 * THREADS) cp_async16(dst + j, src[i] + j, true);
+        dst += n[i];
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_smem();  // visible to wgmma after the barrier that starts each item
+    }
+    const int ntiles = (C + TILE - 1) / TILE, items = ntiles * P.B;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      __syncthreads();  // the last item's readers of acc and Y are done
+      decode_tile(item / ntiles, item % ntiles * TILE);
+    }
   } else {
-    __syncthreads();
-    for (int idx = tid; idx < rows * HD; idx += THREADS) dst[idx] = acc[(idx / HD) * ldW + idx % HD];
+    decode_tile(blockIdx.y, blockIdx.x * TILE);
   }
 }
 
-// Fills P's strides; false for shapes the kernel does not take.
-bool layout(Params& P, bool with_tail, size_t* smem) {
+// The width class of a shape: the narrowest of 16, 32, 64 that holds hid, hidm and D, else WG_N.
+int width_class(int hid, int hidm, int D) {
+  const int w = hid > hidm ? (hid > D ? hid : D) : (hidm > D ? hidm : D);
+  return w <= 16 ? 16 : w <= 32 ? 32 : w <= 64 ? 64 : WG_N;
+}
+
+// Fills P's strides; false for shapes the kernel does not take. *cls: the width class.
+bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
   if (P.B < 0 || P.B > 65535 || P.Z <= 0 || P.C < 0 || P.I <= 0 || P.H <= 0 || P.out_dim <= 0) return false;
   if (P.hid % KC || P.hidm % KC || P.D % KC || P.hid > 128) return false;  // X holds [128][hid]
   if (P.hidm > MAXW || P.H * P.D > MAXW) return false;                        // normalize's registers
   if (!with_tail && P.out_dim != P.H * P.D) return false;
   if (P.I > P.hid + 4) return false;  // a group's invariants are staged in Y
   const int HD = P.H * P.D, HH = P.H * P.hidm;
-  P.ldX = row_stride(P.hid);
+  *cls = width_class(P.hid, P.hidm, P.D);
   P.ldP = row_stride(HH);
   P.ldW = row_stride(HD > P.hid ? HD : P.hid);
-  size_t nY = (size_t)ZG * TILE * P.ldX;
+  if (*cls == WG_N) {
+    P.ldX = row_stride(P.hid);
+    size_t nY = (size_t)ZG * TILE * P.ldX;
+    if ((size_t)2 * TILE * P.ldP > nY) nY = (size_t)2 * TILE * P.ldP;
+    if ((size_t)TILE * P.ldW > nY) nY = (size_t)TILE * P.ldW;
+    P.nY = (int)nY;
+    P.nW = 0;
+    // X, Y, acc, the ring and two A chunks, the group's logits, running max, sum and factor.
+    *smem = sizeof(float) * ((size_t)ZG * TILE * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)RING_FLOATS +
+                             (size_t)(ZG + 3) * TILE * P.H);
+    return *smem <= SMEM_CAP;
+  }
+  // Narrow: X and Y take a group's ZG rows at a stride of WN + 4 words (4 mod 8: the
+  // A-fragment loads hit distinct banks), the shared weights (or their ring) replace the ring,
+  // and the group's A is staged beside the softmax's state.
+  const int wn = *cls, zg = zg_of(wn), rows = zg * TILE;
+  P.ldX = wn + 4;
+  size_t nY = (size_t)rows * P.ldX;
   if ((size_t)2 * TILE * P.ldP > nY) nY = (size_t)2 * TILE * P.ldP;
   if ((size_t)TILE * P.ldW > nY) nY = (size_t)TILE * P.ldW;
   P.nY = (int)nY;
-  // X, Y, acc, the ring and two A chunks, the group's logits, running max, sum and factor.
-  *smem = sizeof(float) * ((size_t)ZG * TILE * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)RING_FLOATS +
-                           (size_t)(ZG + 3) * TILE * P.H);
+  P.nW = res_of(wn) ? (3 * P.hid + P.hidm) / KC * 32 * wn : STAGES * 32 * wn;
+  *smem = sizeof(float) * ((size_t)rows * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)P.nW +
+                           (size_t)(zg + 3) * TILE * P.H + (size_t)zg * P.hid * P.H);
   return *smem <= SMEM_CAP;
 }
 
@@ -726,6 +1105,59 @@ void set_dims(Params& P, const int* dims) {
   P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
   P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
 }
+
+// Sets the kernel's shared memory (and, narrow, asks for the largest carve-out, so that
+// several blocks fit an SM); with `per_sm`, the blocks an SM holds at that size.
+template <int WN, bool TAIL>
+cudaError_t prepare(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(fused_decode_fwd_kernel<WN, TAIL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && WN < WG_N)
+    err = cudaFuncSetAttribute(fused_decode_fwd_kernel<WN, TAIL>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && per_sm)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_fwd_kernel<WN, TAIL>, THREADS, smem);
+  return err;
+}
+
+// The width class 128: one block per (tile, batch row). Narrow: persistent blocks, as many as
+// the SMs hold at once, or one per work item when there are fewer.
+template <int WN, bool TAIL>
+cudaError_t launch(const Params& P, size_t smem, cudaStream_t s) {
+  dim3 grid((P.C + TILE - 1) / TILE, P.B);
+  int per_sm = 0;
+  cudaError_t err = prepare<WN, TAIL>(smem, WN < WG_N ? &per_sm : nullptr);
+  if (err != cudaSuccess) return err;
+  if (WN < WG_N) {
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const long long items = (long long)grid.x * grid.y, most = (long long)per_sm * sms;
+    grid = dim3((unsigned)(items < most ? items : most));
+  }
+  fused_decode_fwd_kernel<WN, TAIL><<<grid, THREADS, smem, s>>>(P);
+  return cudaGetLastError();
+}
+
+// `launch` or `prepare` of the instantiation for class `cls` and the tail flag.
+template <template <int, bool> class F, class... Args>
+cudaError_t by_class(int cls, bool tail, Args... args) {
+  switch (cls) {
+    case 16: return tail ? F<16, true>::run(args...) : F<16, false>::run(args...);
+    case 32: return tail ? F<32, true>::run(args...) : F<32, false>::run(args...);
+    case 64: return tail ? F<64, true>::run(args...) : F<64, false>::run(args...);
+    default: return tail ? F<WG_N, true>::run(args...) : F<WG_N, false>::run(args...);
+  }
+}
+template <int WN, bool TAIL>
+struct Launch {
+  static cudaError_t run(const Params& P, size_t smem, cudaStream_t s) { return launch<WN, TAIL>(P, smem, s); }
+};
+template <int WN, bool TAIL>
+struct Prepare {
+  static cudaError_t run(size_t smem, int* per_sm) { return prepare<WN, TAIL>(smem, per_sm); }
+};
 
 }  // namespace
 
@@ -751,28 +1183,14 @@ int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   set_dims(P, dims);
   const bool with_tail = dims[9] != 0;
   size_t smem = 0;
-  if (!layout(P, with_tail, &smem)) return (int)cudaErrorInvalidValue;
+  int cls = 0;
+  if (!layout(P, with_tail, &smem, &cls)) return (int)cudaErrorInvalidValue;
   // The weights staged by 16-byte cp.async must start on 16 bytes.
   const float* staged[] = {P.G, P.q_w1s, P.v_w1s, P.fws, P.m_w2s, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
   for (int i = 0; i < (with_tail ? 10 : 5); ++i)
     if (!aligned16(staged[i])) return (int)cudaErrorInvalidValue;
   if (P.B == 0 || P.C == 0) return (int)cudaSuccess;
-
-  const dim3 grid((P.C + TILE - 1) / TILE, P.B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (with_tail) {
-    err = cudaFuncSetAttribute(fused_decode_fwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_decode_fwd_kernel<true><<<grid, THREADS, smem, s>>>(P);
-  } else {
-    err = cudaFuncSetAttribute(fused_decode_fwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_decode_fwd_kernel<false><<<grid, THREADS, smem, s>>>(P);
-  }
-  return (int)cudaGetLastError();
+  return (int)by_class<Launch>(cls, with_tail, (const Params&)P, smem, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of dynamic shared memory a launch with these dims takes, or -1 for shapes the
@@ -782,7 +1200,24 @@ long long fused_decode_fwd_smem_bytes(const int* dims, int n_dims) {
   Params P;
   set_dims(P, dims);
   size_t smem = 0;
-  return layout(P, dims[9] != 0, &smem) ? (long long)smem : -1;
+  int cls = 0;
+  return layout(P, dims[9] != 0, &smem, &cls) ? (long long)smem : -1;
+}
+
+// For a launch with these dims: out[0] its width class, out[1] the blocks of it an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory; a narrow launch's grid
+// is that times the SMs). Returns the cudaError_t (cudaErrorInvalidValue for shapes it does
+// not take); sets the kernel's attributes as a launch does.
+int fused_decode_fwd_occupancy(const int* dims, int n_dims, int* out) {
+  if (n_dims != kNumDims) return (int)cudaErrorInvalidValue;
+  Params P;
+  set_dims(P, dims);
+  size_t smem = 0;
+  int cls = 0;
+  if (!layout(P, dims[9] != 0, &smem, &cls)) return (int)cudaErrorInvalidValue;
+  out[0] = cls;
+  out[1] = 0;
+  return (int)by_class<Prepare>(cls, dims[9] != 0, smem, out + 1);
 }
 
 const char* fused_decode_fwd_error_string(int code) {

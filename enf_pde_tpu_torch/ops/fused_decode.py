@@ -19,10 +19,10 @@ Layers, as in the JAX package:
 - ``fused_decode_fwd`` is the kernel's wrapper. On a CPU tensor it runs the plain
   version; on a CUDA tensor it launches ``csrc/fused_decode_fwd.cu`` (built with
   plain ``nvcc``, bound with ``ctypes``) or raises. It hands the kernel the four
-  weights that its 128-row products share, ``SPLIT_WEIGHT_NAMES``, split into tf32
-  (big, small) parts in the blocked layout ``wgmma`` reads (``split_weights``): once
-  per fold when the caller passes ``split``, as a decode of many chunks does, else once
-  per launch.
+  weights that its products over a latent group's rows share, ``SPLIT_WEIGHT_NAMES``,
+  split into tf32 (big, small) parts in the blocked layout ``wgmma`` reads at the shape's
+  width class (``split_weights``, ``k1_width_class``): once per fold when the caller
+  passes ``split``, as a decode of many chunks does, else once per launch.
 - ``fused_decode_bwd_plain`` is the VJP of ``fused_decode_plain`` by autograd, and
   ``fused_decode_bwd`` the wrapper of kernel K2 (``csrc/fused_decode_bwd.cu``), with
   the same CPU / CUDA dispatch.
@@ -62,9 +62,11 @@ __all__ = [
     "fused_decode_plain",
     "fused_decode_fwd",
     "split_weights",
+    "k1_width_class",
     "k1_constants",
     "k1_smem_bytes",
     "k1_library_smem_bytes",
+    "k1_occupancy",
     "fused_decode_bwd_plain",
     "fused_decode_bwd",
     "FusedDecode",
@@ -89,9 +91,11 @@ TAIL_WEIGHT_NAMES = (
 )
 
 # Handed to K1 split into tf32 (big, small) parts too, in this order (after ``out``), in
-# the blocked layout of ``split_weights``; WG_N is the width of one wgmma tile and slab.
+# the blocked layout of ``split_weights``; WG_N is the width of one slab of the widest class.
 SPLIT_WEIGHT_NAMES = ("q_w1", "v_w1", "fw", "m_w2")
 WG_N = 128
+# K1's narrow width classes: a shape whose hid, hidm and D fit one takes it, else WG_N.
+NARROW_CLASSES = (16, 32, 64)
 
 KERNEL_SOURCE = "fused_decode_fwd.cu"
 BWD_KERNEL_SOURCE = "fused_decode_bwd.cu"
@@ -348,30 +352,48 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def split_weights(ws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """``SPLIT_WEIGHT_NAMES`` of the folded weights as K1's 128-row products read them.
+def k1_width_class(hid: int, hidm: int, D: int) -> int:
+    """K1's width class for a decode shape, as ``width_class`` in its source: the narrowest
+    of ``NARROW_CLASSES`` that holds hid, hidm and D, else ``WG_N``. It picks the kernel's
+    instantiation and the slab width of ``split_weights``."""
+    widest = max(hid, hidm, D)
+    return next((c for c in NARROW_CLASSES if widest <= c), WG_N)
 
-    Each weight W [K, N] (K a multiple of 16; N padded with zeros to a multiple of
-    ``WG_N``) is split into tf32 parts, big = tf32(W) and small = tf32(W - big), so big +
-    small is within 2^-22 |W| of W, and laid out in the K-major blocks that ``wgmma``
-    reads from shared memory: one 16 KB block per 16-deep chunk kc of k and ``WG_N``-wide
-    slab s of n, holding in order part (big, small), k step q (2), n group ng (16 of 8),
-    k group kg (2 of 4), row r (8), k i (4), i.e. the element
-    W[16 kc + 8 q + 4 kg + i, WG_N s + 8 ng + r].
+
+def _ws_class(ws: Sequence[torch.Tensor]) -> int:
+    hidm, D = ws[WEIGHT_NAMES.index("m_w2")].shape
+    return k1_width_class(ws[WEIGHT_NAMES.index("q_w1")].shape[0], hidm, D)
+
+
+def split_weights(ws: Sequence[torch.Tensor], width: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``SPLIT_WEIGHT_NAMES`` of the folded weights as K1's products over a latent group's
+    rows read them, at the width class ``wn`` of ``ws`` (``k1_width_class``), or at
+    ``width`` (a build from before the narrow classes reads ``WG_N`` at every width).
+
+    Each weight W [K, N] (K a multiple of 16; N padded with zeros to a multiple of ``wn``)
+    is split into tf32 parts, big = tf32(W) and small = tf32(W - big), so big + small is
+    within 2^-22 |W| of W, and laid out in the K-major blocks that ``wgmma`` reads from
+    shared memory: one block of 32 ``wn`` floats (16 KB at ``WG_N``) per 16-deep chunk kc of
+    k and ``wn``-wide slab s of n, holding in order part (big, small), k step q (2), n group
+    ng (``wn`` / 8 of 8), k group kg (2 of 4), row r (8), k i (4), i.e. the element
+    W[16 kc + 8 q + 4 kg + i, wn s + 8 ng + r]. The narrow classes (N <= wn: one slab) keep
+    a weight's blocks resident in shared memory; ``WG_N`` streams them through a ring.
 
     Returns one contiguous buffer and, per weight, its view
-    [K / 16, N / WG_N, 2, 2, 16, 2, 8, 4], whose pointers K1 takes after ``out``.
+    [K / 16, N / wn, 2, 2, wn / 8, 2, 8, 4], whose pointers K1 takes after ``out``.
     """
+    wn = width or _ws_class(ws)
     blocks = []
     for name in SPLIT_WEIGHT_NAMES:
         w = ws[WEIGHT_NAMES.index(name)]
         K, N = w.shape
         if K % 16:
             raise ValueError(f"{name}: K1 needs the rows of {name} in chunks of 16, got {K}")
-        w = torch.nn.functional.pad(w, (0, -N % WG_N))
+        w = torch.nn.functional.pad(w, (0, -N % wn))
         big = _tf32(w)
         parts = torch.stack([big, _tf32(w - big)])  # [part, K, N]
-        blk = parts.reshape(2, K // 16, 2, 2, 4, w.shape[1] // WG_N, WG_N // 8, 8)  # part kc q kg i s ng r
+        blk = parts.reshape(2, K // 16, 2, 2, 4, w.shape[1] // wn, wn // 8, 8)  # part kc q kg i s ng r
         blocks.append(blk.permute(1, 5, 0, 2, 6, 3, 7, 4).contiguous())  # kc s part q ng kg r i
     buf = torch.cat([b.reshape(-1) for b in blocks])
     views, off = [], 0
@@ -381,13 +403,15 @@ def split_weights(ws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Tuple[torch
     return buf, tuple(views)
 
 
-def _check_split(split: Sequence[torch.Tensor], ws: Sequence[torch.Tensor], device: torch.device) -> None:
-    """``split`` is ``split_weights(ws)[1]`` in shape: the blocks K1 reads for each weight."""
+def _check_split(split: Sequence[torch.Tensor], ws: Sequence[torch.Tensor], device: torch.device,
+                 width: Optional[int] = None) -> None:
+    """``split`` is ``split_weights(ws, width)[1]`` in shape: the blocks K1 reads for each weight."""
     if len(split) != len(SPLIT_WEIGHT_NAMES):
         raise ValueError(f"expected {len(SPLIT_WEIGHT_NAMES)} split weights, got {len(split)}")
+    wn = width or _ws_class(ws)
     for name, blk in zip(SPLIT_WEIGHT_NAMES, split):
         K, N = ws[WEIGHT_NAMES.index(name)].shape
-        _check(f"split {name}", blk, (K // 16, -(-N // WG_N), 2, 2, WG_N // 8, 2, 8, 4), device)
+        _check(f"split {name}", blk, (K // 16, -(-N // wn), 2, 2, wn // 8, 2, 8, 4), device)
 
 
 def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
@@ -399,7 +423,8 @@ def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
 
 
 def k1_constants() -> Dict[str, int]:
-    """K1's layout constants (TILE, ZG, RING_FLOATS, MAXW, SMEM_CAP, ...), read from the
+    """K1's layout constants (TILE, ZG, RING_FLOATS, MAXW, SMEM_CAP, the narrow classes'
+    ZG16 / RES16 / MINB16, ...), read from the
     ``constexpr int NAME = expr;`` lines of its source, each an integer expression of the
     ones before: the kernel and ``k1_smem_bytes`` share one set of constants."""
     env: Dict[str, int] = {}
@@ -412,11 +437,14 @@ def k1_constants() -> Dict[str, int]:
 
 def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
     """K1's dynamic shared memory in bytes for a decode shape, as ``layout`` in
-    ``csrc/fused_decode_fwd.cu`` computes it: X, Y (which also stages a latent group's
+    ``csrc/fused_decode_fwd.cu`` computes it for the shape's width class
+    (``k1_width_class``). At ``WG_N``: X, Y (which also stages a latent group's
     invariants), acc, the ``cp.async`` ring and two split A chunks, then one latent group's
-    logits and the online softmax's running max, sum and factor. It does not depend on
-    ``Z``. Raises ``ValueError`` for a shape that ``layout`` refuses: widths it does not
-    take, or more than ``SMEM_CAP`` bytes."""
+    logits and the online softmax's running max, sum and factor. Narrow (class ``wn``): X
+    and Y of ``ZG<wn>`` latents' rows at a stride of ``wn`` + 4, acc, the four shared
+    weights resident (``RES<wn>``) or a ring of ``STAGES`` of their blocks, the softmax's
+    state and the group's A. It does not depend on ``Z``. Raises ``ValueError`` for a shape
+    that ``layout`` refuses: widths it does not take, or more than ``SMEM_CAP`` bytes."""
     k = k1_constants()
     tile, zg, kc = k["TILE"], k["ZG"], k["KC"]
     if Z <= 0 or I <= 0 or H <= 0:
@@ -432,9 +460,18 @@ def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
     def stride(w: int) -> int:  # row_stride: 4 mod 32 words
         return (w + 31) // 32 * 32 + 4
 
-    ld_x, ld_p, ld_w = stride(hid), stride(H * hidm), stride(max(H * D, hid))
-    n_y = max(zg * tile * ld_x, 2 * tile * ld_p, tile * ld_w)
-    smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + (zg + 3) * tile * H)
+    ld_p, ld_w = stride(H * hidm), stride(max(H * D, hid))
+    wn = k1_width_class(hid, hidm, D)
+    if wn == k["WG_N"]:
+        ld_x = stride(hid)
+        n_y = max(zg * tile * ld_x, 2 * tile * ld_p, tile * ld_w)
+        smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + (zg + 3) * tile * H)
+    else:
+        zg = k[f"ZG{wn}"]
+        rows, ld_x = zg * tile, wn + 4
+        n_y = max(rows * ld_x, 2 * tile * ld_p, tile * ld_w)
+        n_w = (3 * hid + hidm) // kc * 32 * wn if k[f"RES{wn}"] else k["STAGES"] * 32 * wn
+        smem = 4 * (rows * ld_x + n_y + tile * ld_w + n_w + (zg + 3) * tile * H + zg * hid * H)
     if smem > k["SMEM_CAP"]:
         raise ValueError(f"K1 would need {smem} B of shared memory, more than {k['SMEM_CAP']}")
     return smem
@@ -450,6 +487,21 @@ def k1_library_smem_bytes(dims: Sequence[int]) -> int:
     return int(fn((ctypes.c_int * len(dims))(*dims), len(dims)))
 
 
+def k1_occupancy(dims: Sequence[int], source: str = KERNEL_SOURCE) -> Tuple[int, int]:
+    """The built K1 library's width class for a launch with these dims (the launcher's) and
+    the blocks of that instantiation an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at its shared memory); raises for a shape it refuses. On the card; ``source`` may name
+    another build of the same C interface."""
+    fn = cuda_lib.load(source).fused_decode_fwd_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    rc = fn((ctypes.c_int * len(dims))(*dims), len(dims), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_fwd_occupancy failed for dims {list(dims)} (cudaError {rc})")
+    return int(out[0]), int(out[1])
+
+
 def _fwd_lib(source: str = KERNEL_SOURCE):
     """K1's library, bound; ``source`` may name another build of the same C interface."""
     lib = cuda_lib.load(source)
@@ -463,13 +515,13 @@ def _fwd_lib(source: str = KERNEL_SOURCE):
 
 
 def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=None,
-            lib=None) -> torch.Tensor:
+            lib=None, width: Optional[int] = None) -> torch.Tensor:
     H, D = num_heads, head_dim
     dev = inv.device
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
     if split is None:
-        _, split = split_weights(ws)
-    _check_split(split, ws, dev)
+        _, split = split_weights(ws, width)
+    _check_split(split, ws, dev, width)
     staged = {"G": G, **{f"split {n}": w for n, w in zip(SPLIT_WEIGHT_NAMES, split)}}
     if with_tail:
         staged.update((n, tws[TAIL_WEIGHT_NAMES.index(n)]) for n in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"))

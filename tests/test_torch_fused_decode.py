@@ -222,10 +222,13 @@ def test_kernel_source_matches_the_binding():
 
 
 def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
-    """K1's wide products run on the tensor cores in 3xTF32: the 128-row products (q_w1, v_w1,
-    fw over the rows of every latent of a group, m_w2 over two heads and a latent pair) on
-    wgmma, the 32-row ones (G, the tail) on the shared mma.sync helper; weights are staged by
-    cp.async in a ring of at least two stages; no library GEMM."""
+    """K1's wide products run on the tensor cores in 3xTF32: the products over a latent
+    group's rows (q_w1, v_w1, fw over the rows of every latent of a group, m_w2 over heads and
+    a latent pair) on wgmma at each width class's own width (m64n16k8, m64n32k8, and m64n64k8,
+    twice a slab at 128), the 32-row ones (G, the tail) on the shared mma.sync helper; the
+    class 128 stages every weight by cp.async in a ring of at least two stages, the narrow
+    classes keep the shared weights resident (or in a ring of narrow blocks) and load G and
+    the tail's B fragments into registers a k step ahead; no library GEMM."""
     src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
     header = (cuda_lib.CSRC_DIR / "tf32_mma.cuh").read_text()
     assert '#include "tf32_mma.cuh"' in src
@@ -233,43 +236,66 @@ def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
     assert header.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1
     tiles = re.search(r"void mma_3xtf32_tiles\(.*?\n}", header, re.S).group(0)
     assert tiles.count("mma_tf32(") == 3  # small x big, big x small, big x big, across the tiles
-    assert src.count("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32") == 1
+    for n in (16, 32, 64):
+        assert src.count(f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32") == 1, n
+    assert "wgmma.mma_async" not in src.replace("wgmma.mma_async.sync.aligned.m64n", "")
     body_of = lambda name: re.search(rf"\n(?:template <[^\n]*>\n)?__(?:device|global)__[^\n]* {name}\(.*?\n}}\n", src, re.S).group(0)
     wg = body_of("gemm_wg")
-    # Three wgmma per k step (small x big, big x small, big x big), a slab's whole sum in the
-    # accumulator: one commit and wait a chunk.
-    assert wg.count("wgmma_tf32(") == 3 and "split_tf32_int(" in wg and "fence_async_smem()" in wg
+    # Three wgmma per k step (small x big, big x small, big x big) at the class's width NB (two
+    # n64 halves at 128), a slab's whole sum in the accumulator: one commit and wait a chunk.
+    assert wg.count("wgmma_tf32<NB>(") == 3 and "split_tf32_int(" in wg and "fence_async_smem()" in wg
+    assert "constexpr int NB = WN < 64 ? WN : 64;" in wg and "constexpr int NACC = WN / 2;" in wg
     assert wg.count("wg_commit();") == 1 and wg.count("wg_wait0();") == 1
     d32 = body_of("dense32")
     assert "mma_3xtf32_tiles(" in d32 and "split_tf32_int(" in d32
-    for gemm in (wg, d32):  # asynchronous staging: 16-byte cp.async, waited for two chunks late
+    for gemm in (wg, d32):  # the ring: 16-byte cp.async, waited for two chunks late
         assert "cp_async16(" in gemm and "cp_async_wait<STAGES - 2>()" in gemm
+    assert "if constexpr (!RES)" in wg  # resident weights: no ring and no barrier past the first
+    direct = body_of("dense32_direct")
+    assert "mma_3xtf32_tiles(p," in direct and "acc[mi][j][e] += p[mi][j][e];" in direct
+    assert "if (ks & 1) {" in direct  # a fresh accumulator per two k steps, as dense32's
+    # B fragments into registers a k step ahead, the first before the barrier; not inlined.
+    assert "load(nxt, n0, ks + 1)" in direct and "cp_async" not in direct and "__noinline__" in direct
+    assert direct.index("load(cur, n0, 0)") < direct.index("if (sync) __syncthreads();")
     assert "cp.async.cg.shared.global" in src
     assert int(re.search(r"constexpr int STAGES = (\d+);", src).group(1)) >= 2
     # mma.sync: a fresh accumulator per staged chunk (two k steps), added into f32 registers.
     assert "acc[mi][j][e] += p[mi][j][e];" in d32 and "mma_3xtf32_tiles(p," in d32
     assert "#define K1_" not in src and "#ifndef" not in src  # no build-time variants
     body = body_of("fused_decode_fwd_kernel")
-    for w in ("q_w1s", "v_w1s", "fws"):
-        assert re.search(rf"dense128<ACT_\w+>\([^;]*nz \* TILE, hid, P\.{w},", body), w
+    for w in ("Wq", "Wv", "Wf"):
+        assert re.search(rf"dense_group<WN, MT, RES, ACT_\w+>\([^;]*nz \* TILE, hid, {w},", body), w
+    for w in ("q_w1s", "v_w1s", "fws", "m_w2s"):  # resident (narrow) or streamed from global
+        assert re.search(rf"RES \? ring[^;]*: P\.{w};", body), w
     assert int(re.search(r"constexpr int ZG = (\d+);", src).group(1)) * 32 == 128
-    assert "gemm_wg(" in body_of("mixer") and re.search(r"mixer\([^;]*P\.m_w2s", body)
-    assert re.search(r"dense32<ACT_\w+>\([^;]*P\.G \+ bz", body)
+    assert "gemm_wg<WN, MT, RES>(" in body_of("mixer") and re.search(r"mixer<WN, MT, RES>\([^;]*Wm,", body)
+    assert re.search(r"dense32<ACT_\w+>\([^;]*P\.G \+ bz", body) and re.search(r"dense32_direct<ACT_\w+>\([^;]*P\.G \+ bz", body)
     for w in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"):
         assert re.search(rf"dense32<ACT_\w+>\([^;]*P\.{w},", body), w
+        assert re.search(rf"dense32_direct<ACT_\w+>\([^;]*P\.{w},", body), w
     # No f32 FMA loop over a weight tile is left for the wide products.
     assert "fmaf(x, w[j]" not in src and "Ws[(kk + q) * SLAB" not in src
     for banned in ("wmma", "cutlass", "cublas", "torch/extension.h"):
         assert banned not in src.lower() and banned not in header.lower()
 
 
-def test_split_weights_reconstruct_and_match_the_launcher():
-    """The pre-split copies of the 128-row products' weights: big and small are tf32 (13 low
-    bits clear), big is W rounded to nearest with ties away from zero, big + small is within
-    2^-21 |W| of W, the blocks are the K-major layout the kernel's wgmma descriptors read,
-    and the views go to the launcher in the order it unpacks them."""
+# (hid, hidm, D) -> width class: the narrow classes pad N up to their width, the class 128 to
+# slabs of WG_N (D = 136: two slabs); N of the shared weights is hid (48, 40: padded) and D.
+SPLIT_CASES = {16: (16, 16, 8), 32: (32, 16, 32), 64: (48, 64, 40), 128: (32, 16, 136)}
+
+
+@pytest.mark.parametrize("wn", sorted(SPLIT_CASES))
+def test_split_weights_reconstruct_and_match_the_launcher(wn):
+    """The pre-split copies of the shared weights of the products over a latent group's rows,
+    for each width class: big and small are tf32 (13 low bits clear), big is W rounded to
+    nearest with ties away from zero, big + small is within 2^-21 |W| of W, the blocks are the
+    K-major layout the kernel's wgmma descriptors read at the class's slab width, and the views
+    go to the launcher in the order it unpacks them."""
+    hid, hidm, D = SPLIT_CASES[wn]
+    assert fd.k1_width_class(hid, hidm, D) == wn
     gen = torch.Generator().manual_seed(3)
-    shapes = ((4, 8), (32, 48), (48,), (4, 8), (32, 48), (48,), (32, 48), (48,), (16, 136), (136,))
+    shapes = ((4, hid // 2), (hid, hid), (hid,), (4, hid // 2), (hid, hid), (hid,), (hid, hid), (hid,),
+              (hidm, D), (D,))
     ws = [torch.randn(*shape, generator=gen) * 10.0 ** torch.randint(-3, 3, shape, generator=gen)
           for shape in shapes]
     buf, views = fd.split_weights(ws)
@@ -278,22 +304,25 @@ def test_split_weights_reconstruct_and_match_the_launcher():
     for name, view in zip(fd.SPLIT_WEIGHT_NAMES, views):
         w = ws[fd.WEIGHT_NAMES.index(name)]
         K, N = w.shape
-        slabs = -(-N // fd.WG_N)
-        assert view.shape == (K // 16, slabs, 2, 2, 16, 2, 8, 4)
+        slabs = -(-N // wn)
+        assert view.shape == (K // 16, slabs, 2, 2, wn // 8, 2, 8, 4)
+        assert slabs == 1 or wn == fd.WG_N  # a narrow class's weight is one slab: resident whole
         assert view.data_ptr() == buf.data_ptr() + off * 4
         off += view.numel()
-        # Element W[16 kc + 8 q + 4 kg + i, WG_N s + 8 ng + r] sits at [kc, s, part, q, ng, kg, r, i].
-        parts = view.permute(2, 0, 3, 5, 7, 1, 4, 6).reshape(2, K, slabs * fd.WG_N)
+        # Element W[16 kc + 8 q + 4 kg + i, wn s + 8 ng + r] sits at [kc, s, part, q, ng, kg, r, i].
+        parts = view.permute(2, 0, 3, 5, 7, 1, 4, 6).reshape(2, K, slabs * wn)
         big, small = parts[0, :, :N], parts[1, :, :N]
         assert not parts[:, :, N:].any()  # columns past N are zero
         for part in (big, small):
             assert not (part.contiguous().view(torch.int32) & 0x1FFF).any()
         assert ((big + small) - w).abs().le(2.0 ** -21 * w.abs()).all()
         assert (w - big).abs().le(2.0 ** -11 * w.abs()).all()
-        kc, s, q, ng, kg, r, i = K // 16 - 1, slabs - 1, 1, 3, 1, 5, 2
-        k, n = 16 * kc + 8 * q + 4 * kg + i, fd.WG_N * s + 8 * ng + r
+        kc, s, q, ng, kg, r, i = K // 16 - 1, slabs - 1, 1, wn // 8 - 1, 1, 5, 2
+        k, n = 16 * kc + 8 * q + 4 * kg + i, wn * s + 8 * ng + r
         if n < N:
             assert view[kc, s, 0, q, ng, kg, r, i] == big[k, n]
+        # One block per chunk and slab: 32 wn floats, the kernel's BLOCK.
+        assert view[0, 0].numel() == 32 * wn
     assert off == buf.numel()
     one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23, 3.0])
     assert fd._tf32(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0]
@@ -301,11 +330,15 @@ def test_split_weights_reconstruct_and_match_the_launcher():
     first = 6 + len(fd.WEIGHT_NAMES) + len(fd.TAIL_WEIGHT_NAMES) + 1
     for i, name in enumerate(fd.SPLIT_WEIGHT_NAMES):
         assert re.search(rf"P\.{name}s = f\[{first + i}\];", src), name
-    # The descriptors: a block of WG_N columns; 8 rows x 4 k (16 bytes) per core matrix, the
-    # two k groups of a k step 128 bytes apart, groups of 8 columns 256 bytes apart.
+    # The descriptors: a block of wn columns; 8 rows x 4 k (16 bytes) per core matrix, the two
+    # k groups of a k step 128 bytes apart, groups of 8 columns 256 bytes apart, at every class.
     assert int(re.search(r"constexpr int WG_N = (\d+);", src).group(1)) == fd.WG_N
+    assert "static constexpr int BLOCK = 2 * 2 * 8 * WN;" in src
     lbo, sbo = map(int, re.search(r"constexpr int WG_LBO = (\d+), WG_SBO = (\d+);", src).groups())
     assert (lbo, sbo) == (8 * 4 * 4, 2 * 8 * 4 * 4)
+    # The classes the mirror names are the source's.
+    assert "return w <= 16 ? 16 : w <= 32 ? 32 : w <= 64 ? 64 : WG_N;" in src
+    assert fd.NARROW_CLASSES == (16, 32, 64)
 
 
 def test_build_key_covers_included_headers(tmp_path):
@@ -343,18 +376,30 @@ ABLATION_RUNS = [f"navier_stokes nef.invariant_type={name}" for name in ("abs_po
 ABLATION_RUNS.append("ihc nef.invariant_type=ball_lat")
 
 
+# The width class each config's decode takes: Navier-Stokes and shallow water keep the class
+# 128 design, the planar configs take 64, ihc 32, diff_sphere 16.
+CONFIG_CLASSES = {"navier_stokes": 128, "navier_stokes_nonmaml": 128, "shallow_water": 128,
+                  "diffusion_plane": 64, "cahn_hilliard": 64, "ihc": 32, "diff_sphere": 16}
+
+
 @pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)
 def test_k1_layout_accepts_every_shipped_decode_shape(name):
     """``k1_smem_bytes`` (the mirror of K1's ``layout``, its constants read from the source)
     accepts each config's decode widths: I from the config's cross-attention invariant,
     hid = hidm = D = nef.num_hidden, H heads, its latents; the size does not grow with Z.
-    The ablation runs add I = 2 and I = 1 at Navier-Stokes width."""
+    The ablation runs add I = 2 and I = 1 at Navier-Stokes width. Each config takes its
+    width class (``k1_width_class``); a narrow class leaves room for its blocks an SM."""
     name, *overrides = name.split()
     nef = jax_load_config(name, overrides).nef
     I, hid, H = jax_get_ca_invariant(nef).dim, nef.num_hidden, nef.num_heads
+    assert set(CONFIG_CLASSES) == set(SHIPPED_CONFIGS)
+    wn = fd.k1_width_class(hid, hid, hid)
+    assert wn == CONFIG_CLASSES[name]
     smem = fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
     assert 0 < smem <= fd.k1_constants()["SMEM_CAP"] == 232_448
     assert {fd.k1_smem_bytes(z, I, hid, H, hid, hid) for z in (1, 4, 5, 8, 9, 16, 25, 64, 1000)} == {smem}
+    if wn < fd.WG_N:  # an SM has 233,472 B, 1,024 B of it kept back per block
+        assert fd.k1_constants()[f"MINB{wn}"] * (smem + 1024) <= 233_472
 
 
 def test_k1_layout_mirror_refuses_what_layout_refuses():

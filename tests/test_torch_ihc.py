@@ -227,13 +227,15 @@ def test_flop_count_and_shared_memory_at_ihc_widths():
     """K1 at the published widths: I = 5, hid = hidm = D = 32, H = 3, z = 25, num_out = 1.
     Per latent: RFF projection 2 I hid/2, three hid^2 layers, logits hid H, G hid H hidm,
     mixer H hidm D; the tail 3 (HD)^2 + HD hid + hid^2 + hid; 2 FLOPs a multiply-add. The
-    shared memory (X, Y [128 x 36], acc [32 x 100], the ring, the softmax state of 3
-    heads) does not depend on z; the built library's ``layout`` gave the same 120,448 B on
-    the card."""
+    shared memory of the width class 32 (X, Y [128 x 36], acc [32 x 100], the four shared
+    weights resident, 32 KB, the softmax state of 3 heads and a group's A) does not depend on
+    z and leaves room for two blocks an SM; ``chip_smoke.py`` holds it against the built
+    library's ``layout``."""
     per_latent = 2 * (2 * 5 * 16 + 3 * 32 * 32 + 32 * 3 + 32 * 96 + 3 * 32 * 32)
     tail = 2 * (3 * 96 * 96 + 96 * 32 + 32 * 32 + 32)
     assert fd.decode_flops_per_point(3, 32, 32, 32, 25, 5, 1) == 25 * per_latent + tail == 537_152
-    assert fd.k1_smem_bytes(25, 5, 32, 3, 32, 32) == fd.k1_smem_bytes(4, 5, 32, 3, 32, 32) == 120_448
+    assert fd.k1_smem_bytes(25, 5, 32, 3, 32, 32) == fd.k1_smem_bytes(4, 5, 32, 3, 32, 32) == 93_824
+    assert fd.k1_width_class(32, 32, 32) == 32 and 2 * (93_824 + 1024) <= 233_472
 
 
 # ----------------------------------------------------------------- equivariance

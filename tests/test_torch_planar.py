@@ -253,12 +253,15 @@ def test_flop_count_at_planar_widths():
 
 def test_k1_shared_memory_at_planar_widths():
     """The mirror of K1's ``layout`` (``fused_decode.k1_smem_bytes``): the source header's
-    231,168 B at Navier-Stokes width, under the 232,448 B a block may have, and well under
-    it at the planar widths, the same for z = 4 and 9 (the softmax runs online over groups)."""
+    231,168 B at Navier-Stokes width, under the 232,448 B a block may have, and at the planar
+    widths the width class 64 (X, Y [128 x 68], acc [32 x 132], a ring of 3 narrow blocks of
+    the shared weights: two blocks an SM), the same for z = 4 and 9 (the softmax runs online
+    over groups)."""
     assert fd.k1_smem_bytes(4, 4, 128, 2, 128, 128) == 231_168
     assert "231,168 B" in (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
-    assert fd.k1_smem_bytes(4, 2, 64, 2, 64, 64) == 149_248
-    assert fd.k1_smem_bytes(9, 2, 64, 2, 64, 64) == 149_248
+    assert fd.k1_width_class(64, 64, 64) == 64
+    assert fd.k1_smem_bytes(4, 2, 64, 2, 64, 64) == 114_944
+    assert fd.k1_smem_bytes(9, 2, 64, 2, 64, 64) == 114_944
 
 
 # ----------------------------------------------------------------- equivariance

@@ -215,7 +215,9 @@ def test_flop_count_and_shared_memory_at_sphere_widths():
     per_latent = 2 * (2 * 1 * 8 + 3 * 16 * 16 + 16 * 2 + 16 * 2 * 16 + 2 * 16 * 16)
     tail = 2 * (3 * 32 * 32 + 32 * 16 + 16 * 16 + 16)
     assert fd.decode_flops_per_point(2, 16, 16, 16, 18, 1, 1) == 18 * per_latent + tail == 73_952
-    assert fd.k1_smem_bytes(18, 1, 16, 2, 16, 16) == 104_192  # X, Y [128 x 36]; acc [32 x 36]; the ring
+    # The width class 16: X, Y [256 x 20]; acc [32 x 36]; the shared weights resident, 8 KB.
+    assert fd.k1_width_class(16, 16, 16) == 16
+    assert fd.k1_smem_bytes(18, 1, 16, 2, 16, 16) == 57_600
 
 
 # ----------------------------------------------------------------- equivariance
