@@ -241,7 +241,22 @@ then the last modules at the Navier-Stokes width (phase 7's data is removed afte
     ``run_experiment`` epoch with ``dataset.device_cache=false`` (the run record says
     ``prefetcher``; the probe batch and each training batch go through it);
 33. the split-DFT Navier-Stokes solver: 1,000 steps of a block of 16 fields, split against
-    ``torch.fft`` within rel-L2 1e-4, and µs a step both ways.
+    ``torch.fft`` within rel-L2 1e-4, and µs a step both ways;
+
+then K2 at the widths the other configs give it:
+
+34. for ``diffusion_plane``, ``cahn_hilliard``, ``diff_sphere`` and ``ihc`` at full width
+    with ``nef.backend=pallas`` (which no YAML sets, and which sends the nef step and the fits
+    through K1 and K2): one nef step and one fit through the trainer on a seeded random
+    trajectory (finite loss, gradients and latents; K2's launches by shape), then K2 against
+    its plain version in all four modes with the kinks stopped at the nef step's and the fit's
+    shapes, one launch repeated bit for bit, timed.
+
+Every K2 phase (5, 17, 20, 27, 30, 31, 34) repeats one launch with the tail and weight
+gradients and requires the same bits (and the same bits of the six latent gradients without
+weight gradients), and prints, on each ``[timing]`` line, K2's scratch
+bytes a launch, its blocks an SM, grid and shared memory, the library's layout held equal to
+the Python mirrors ``k2_smem_bytes`` and ``k2_scratch_bytes``.
 
 Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
 config's paths, its time at that config's forecast launch shape (``ihc`` included), or for the baselines at
@@ -252,8 +267,10 @@ K2 at 16 x 512 with weight gradients and at 8 x 512 with and without, each with 
 launches at that shape (and mode) in phase 28's run and forecast and its error against its
 plain version at that shape (phases 26-27); K1 and K2 (without weight gradients for the ode
 step, with them for the dual) at the 50-frame rollout's 400 x 512 (phase 30) and at a
-world-of-2 rank's 40 x 512 (phase 31, both ranks' launches), and K1's launches in the
-world's sharded decodes at 160 x 512 (phase 4's numbers); each kernel's
+world-of-2 rank's 40 x 512 (phase 31, both ranks' launches), K1's launches in the
+world's sharded decodes at 160 x 512 (phase 4's numbers), and K2 at phase 34's nef-step and
+fit shapes with weight gradients, each with its launches in that phase's step and fit (K2's
+entries also carry its scratch bytes a launch and blocks an SM); each kernel's
 ``bound_ms`` is that of the route it takes, 3xTF32 on the tensor cores, or bytes where
 they take longer. Last,
 ``{"ok": true, "device": {...}}``.
@@ -329,6 +346,9 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     k1_occupancy,
     k1_smem_bytes,
     k1_width_class,
+    k2_occupancy,
+    k2_scratch_bytes,
+    k2_smem_bytes,
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
@@ -704,24 +724,66 @@ def k2_bounds(cfg, args, g, wg: bool) -> dict:
                 bound_by="bytes" if b_bytes >= b_tc else "operations")
 
 
+def k2_layout(args, num_heads: int, head_dim: int, num_out: int, wg: bool) -> dict:
+    """The built K2 library's layout of a tail launch of ``args`` (shared memory, blocks an SM,
+    grid, row slots, scratch bytes), held equal to the Python mirrors ``k2_smem_bytes`` and
+    ``k2_scratch_bytes`` (at the library's blocks an SM and this card's SMs)."""
+    inv, ws = args[0], args[6]
+    B, Z, C, I = inv.shape
+    hid, hidm = ws[1].shape[0], ws[8].shape[0]
+    lay = k2_occupancy([B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, 1, int(wg)])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mirror = (k2_smem_bytes(Z, I, hid, num_heads, head_dim, hidm),
+              k2_scratch_bytes(B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, True, wg, lay["per_sm"], sms))
+    if mirror != (lay["smem"], lay["scratch"]):
+        raise AssertionError(f"K2's layout {lay} differs from its Python mirror (smem, scratch) {mirror}")
+    return lay
+
+
+def k2_repeat_check(cfg, args, g) -> None:
+    """Two K2 launches with the tail and weight gradients on the same inputs: equal bit for bit
+    (its partials are reduced in a fixed order, with no atomics); and a launch without weight
+    gradients gives the same bits of dinv, dwb, dA, dab, dG and dc (the partition of the work, and
+    so the order of every sum, does not depend on the flag)."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    a = [t for t in grad_list(fused_decode_bwd(*args, g, H, D, True)) if t is not None]
+    b = [t for t in grad_list(fused_decode_bwd(*args, g, H, D, True)) if t is not None]
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("two K2 launches on the same inputs differ")
+    c = fused_decode_bwd(*args, g, H, D, False)[:6]
+    if not all(torch.equal(x, y) for x, y in zip(a[:6], c)):
+        raise AssertionError("K2's latent gradients differ with and without weight gradients")
+    log(f"[check] K2 b={args[0].shape[0]} c={args[0].shape[2]}: two launches equal bit for bit ({len(a)} tensors); "
+        "without weight gradients the same bits of the six latent gradients")
+
+
+def grad_list(x):
+    return [v for t in x for v in (t if isinstance(t, tuple) else (t,))]
+
+
 def k2_phase(cfg, coords: np.ndarray, dev, b=None) -> dict:
-    """5 / 17 / 20 / 27. K2 against its plain version at the ode step's decode shape (or at
-    ``b`` frames of it); its timing."""
+    """5 / 17 / 20 / 27 / 30 / 31 / 34. K2 against its plain version at the ode step's decode
+    shape (or at ``b`` frames of it), one launch repeated bit for bit; its timing beside its
+    scratch bytes per launch and blocks an SM (the library's, held equal to the mirrors)."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     args, g = k2_inputs(cfg, coords, dev, b)
     max_err = k2_check(cfg, args, g)
+    k2_repeat_check(cfg, args, g[True])
     B, Zl, C = args[0].shape[:3]
     timing = {}
     for wg in (False, True):
+        lay = k2_layout(args, H, D, cfg.nef.num_out, wg)
         k_ms = cuda_ms(lambda: fused_decode_bwd(*args, g[True], H, D, wg), iters=10)
         p_ms = cuda_ms(lambda: fused_decode_bwd_plain(*args, g[True], H, D, wg), iters=3, warmup=1)
         bd = k2_bounds(cfg, args, g[True], wg)
-        timing[wg] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
+        timing[wg] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                          scratch_bytes=lay["scratch"], blocks_per_sm=lay["per_sm"])
         log(f"[timing] K2 {'with' if wg else 'without'} weight grads, tail, b={B} z={Zl} c={C}: "
             f"{k_ms:.4f} ms ({bd['flops'] / k_ms / 1e9:.2f} TFLOP/s); plain {p_ms:.4f} ms; bound "
             f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (f32 CUDA cores {bd['f32_ms']:.4f} ms, "
             f"3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms: "
-            f"{bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} MB)")
+            f"{bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} MB); scratch {lay['scratch'] / 1e6:.1f} MB "
+            f"a launch, {lay['per_sm']} blocks an SM, grid {lay['grid']}, {lay['smem']} B shared")
     return {"max_abs_err": max_err, "timing": timing}
 
 
@@ -2189,6 +2251,58 @@ def solvers_phase(dev) -> dict:
             "k1": k1_shapes_phase("rollout T=50", [(cfg, b, 512)], dev), "k2": k2_phase(cfg, coords, dev, b=b)}
 
 
+# The configs whose decode widths K2 first met through ``nef.backend: pallas`` (phase 34).
+K2_CONFIGS = ("diffusion_plane", "cahn_hilliard", "diff_sphere", "ihc")
+
+
+def all_finite(x) -> bool:
+    if isinstance(x, dict):
+        return all(all_finite(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return all(all_finite(v) for v in x)
+    return bool(torch.isfinite(x).all()) if torch.is_tensor(x) else True
+
+
+def k2_configs_phase(dev) -> dict:
+    """34. K2 at the narrow configs' widths through ``nef.backend=pallas`` (no YAML sets it):
+    for each of ``K2_CONFIGS`` at full width with seeded random weights, one nef step
+    (``nef_grads``) and one fit (``fit_latents``) on a seeded random trajectory, K2's launches
+    counted by shape (finite loss and gradients); then K2 against its plain version in all four
+    modes with the kinks stopped, one launch repeated bit for bit, and timed, at the nef step's
+    (batch x ``fit_on_num_steps`` frames) and the fit's (batch frames) x
+    ``max_num_sampled_points``."""
+    t0 = time.perf_counter()
+    res = {}
+    for name in K2_CONFIGS:
+        cfg = shape_config(name, "nef.backend=pallas")
+        coords = config_coords(cfg)
+        trainer = make_trainer(cfg, coords)
+        state = trainer.init_state()
+        gen = torch.Generator().manual_seed(SEED + 40)
+        traj = (0.5 * torch.randn(cfg.dataset.batch_size, cfg.dataset.traj_len_train, coords.shape[0],
+                                  cfg.nef.num_out, generator=gen)).to(dev)
+        reset_launches()
+        (loss, grads), _, k2_nef = launches_of(lambda: trainer.nef_grads(state, traj))
+        fit, _, k2_fit = launches_of(lambda: trainer.fit_latents(state, traj[:, 0]))
+        shapes = Counter(fused_decode_bwd.launches_by_shape)
+        log(f"[phase 34] {name} (nef.backend=pallas): nef step loss {float(loss):.4e}, K2 launches {k2_nef}; fit "
+            f"K2 launches {k2_fit}; by (b, z, c, weight grads): {dict(sorted(shapes.items()))}")
+        if not (all_finite((loss, grads, fit)) and k2_nef and k2_fit):
+            raise AssertionError(f"{name}: the nef step or the fit on the kernels is not finite or launched no K2")
+        Z, M = cfg.nef.num_latents, cfg.training.max_num_sampled_points
+        b_nef = cfg.dataset.batch_size * cfg.training.nef.fit_on_num_steps
+        out = {"shapes": shapes, "Z": Z, "M": M, "b_nef": b_nef, "b_fit": cfg.dataset.batch_size}
+        del trainer, state, traj, grads, fit
+        torch.cuda.empty_cache()
+        for what in ("b_nef", "b_fit"):
+            log(f"[phase 34] K2 at {name}'s {'nef step' if what == 'b_nef' else 'fit'}: b={out[what]} z={Z} c={M}")
+            out[what.replace("b_", "k2_")] = k2_phase(cfg, coords, dev, b=out[what])
+        res[name] = out
+        torch.cuda.empty_cache()
+    log(f"[phase 34] K2 at {len(K2_CONFIGS)} configs' nef steps and fits in {time.perf_counter() - t0:.2f} s")
+    return res
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -2626,6 +2740,8 @@ def main() -> int:
     prefetcher_phase(dev)
     shutil.rmtree(DATA_DIR)  # phase 32 was its last reader: the output directory stays small
     split_fft_phase(dev)
+    # 34. K2 at the narrow configs' widths through nef.backend=pallas.
+    k2_configs = k2_configs_phase(dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
@@ -2721,6 +2837,18 @@ def main() -> int:
                                                  f"{'with' if wg else 'without'} weight gradients",
                             "launches": res["k2_launches"][wg], "max_abs_err": res["k2"]["max_abs_err"],
                             **res["k2"]["timing"][wg]})
+    # Phase 34: K2 at the narrow configs' nef step and fit, with the launches of that phase's step
+    # and fit at each shape (all with weight gradients: the decoder's weights take gradients there).
+    for name, res in k2_configs.items():
+        for what, b in (("nef step", res["b_nef"]), ("fit", res["b_fit"])):
+            r = res["k2_nef" if what == "nef step" else "k2_fit"]
+            kernels.append({**k2_entry, "shape": f"{name} nef.backend=pallas {what} b={b} z={res['Z']} c={res['M']} "
+                                                 "with weight gradients",
+                            "launches": res["shapes"][(b, res["Z"], res["M"], True)], "max_abs_err": r["max_abs_err"],
+                            **r["timing"][True]})
+    unlaunched = [k["shape"] for k in kernels[-2 * len(k2_configs):] if k["launches"] == 0]
+    if unlaunched:
+        raise AssertionError(f"phase 34 launched no K2 at {unlaunched}")
     kernels.append({**k1_entry, "shape": f"navier_stokes world={WORLD} coordinate-sharded validation and forecast "
                                          f"b={NUM_SIGNALS * NUM_FRAMES} z={Zc} c=512",
                     "launches": multi["decode_launches"], "max_abs_err": max(max_errs), "ms": kernel_ms,

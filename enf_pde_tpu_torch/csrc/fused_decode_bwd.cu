@@ -1,5 +1,5 @@
 // Fused ENF decode, backward: CUDA C++ for Hopper (sm_90a), its products on the tensor
-// cores at f32 accuracy (3xTF32 mma.sync).
+// cores at f32 accuracy (3xTF32 wgmma over 64-row tiles).
 //
 // Replaces the TPU kernel `_bwd_kernel` launched by `_bwd_pallas`
 // (enf_pde_tpu/ops/pallas_decode.py), which recomputes one coordinate tile's forward
@@ -14,100 +14,151 @@
 //   weight gradients (optional, flag)            summed over every coordinate of the grid
 // The RFF coefficients get no gradient (stop_gradient in JAX, fixed buffers here).
 //
-// The Pallas grid runs in order and carries the sums from one grid step to the next;
-// the CUDA grid does not. Deterministic two-pass reduction instead of atomics:
-//   pass 1 (`fused_decode_bwd_kernel`): block (b, j) owns batch row b and a contiguous
-//     run of 32-coordinate tiles (one at the ode shape: about five rounds of blocks fill
-//     the card better than two rounds of longer runs). It keeps t and dpre of its tiles
-//     in its workspace and at its end stores dG = t^T dpre and dc = sum dpre, contracted
-//     once over all its rows, into its slice of a partial-sum buffer. Tile by tile it adds
-//     dA/dab into zeroed sections and the weight gradients into sections that its first
-//     contribution stored. No two blocks write the same address.
-//   pass 2 (`fused_decode_bwd_reduce`): one thread per output element sums the
-//     partials of the row's blocks (per-row gradients) or of all blocks (weights), in
-//     a fixed order.
-// Per tile, the order the softmax over latents forces:
-//   1. logits of every latent (query chain), softmax over Z (narrow [Z, T, H]);
-//   2. each latent's value chain, its activations kept, y = sum_z p_z v_z;
-//   3. the tail forward (activations kept) and its VJP, giving dy;
-//   4. dp_z = <dy, v_z> per head, dlogit_z = p_z (dp_z - sum_z' p_z' dp_z');
-//   5. per latent, the VJP of the value chain (cotangent p_z dy) and of the logit chain
-//      (cotangent dlogit_z), accumulating dinv over both.
+// The mixer is linear, so its product is taken once a tile, not once a latent: with
+// nbar_h = sum_z p_zh nn_zh (nn the normalized mixer hidden of latent z, head h),
+// y_h = nbar_h m_w2 + m_b2 (the softmax weights sum to 1); with e_h = dy_h m_w2^T, the
+// mixer's input gradient of latent z is p_zh e_h, its softmax gradient dp_zh = <e_h, nn_zh>
+// (the bias term <dy_h, m_b2> cancels in dlogit = p (dp - sum_z p dp)), and
+// dm_w2 = sum_h nbar_h^T dy_h.
+//
+// Design. A block of 256 threads (two warpgroups) takes work items (batch row, tile of
+// TILE = 64 coordinates: JAX's tile_c_bwd) in a fixed, contiguous run: persistent blocks, as
+// many as the SMs hold at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor; at least
+// MIN_IPB items a block). Per item:
+//   1. per latent: the query chain (RFF features, q_w1, the logits on the CUDA cores);
+//      then the softmax over latents;
+//   2. per latent: the value chain (v_w1, fw, LayerNorm-gelu, G, LayerNorm-gelu per head),
+//      weighted into nbar; y = nbar m_w2 + m_b2;
+//   3. the tail forward, its activations kept in the block's workspace slice, then its VJP:
+//      dy; e = dy m_w2^T into the workspace slice;
+//   4. per latent: the value chain again (recomputed: nothing of step 2 is kept), dp, the
+//      mixer-LayerNorm VJP (dpre), dG += t^T dpre, dt = dpre G^T, the LayerNorm VJP, fw's and
+//      v_w1's VJPs, the RFF VJP into dinv; then dlogit = p (dp - sum_z p dp);
+//   5. per latent: the query chain again, dA, dab, dwb, dhq, q_w1's VJP, dinv.
 // Hand-written VJPs: sin/cos features (d proj = 2 pi (cos dS - sin dC)), ReLU, tanh-gelu,
-// and the scale-free LayerNorm (dx = r (dn - mean(dn) - n mean(dn n))).
+// and the scale-free LayerNorm (dx = r (dn - mean(dn) - n mean(dn n))), each recomputing
+// the forward values of its row from the pre-activation (gelu and gelu' from one tanh).
+// The LayerNorm passes take width / 8 lanes a segment (at most 32), 8 values a lane.
 //
-// Products. Three shapes, all on m16n8k8 TF32 mma.sync through the 3xTF32 helper of
-// tf32_mma.cuh (shared with K1): forward layers Y = X W and
-// input gradients dX = dY W^T (`dense_tc`: the 32-row tile is two m16 tiles, the 8 warps
-// split N, 2 or 4 n8 tiles each), and row contractions out += X^T dY over a tile's or a
-// block's rows (`tn_tc`: weight gradients and dG; 64 x 128 output blocks, warps 2 x 4).
-// Operands go through shared memory in 16-deep chunks with row strides that make every
-// fragment load conflict free; the next chunk's global loads are issued before this
-// chunk's products. 3xTF32: each f32 operand x = big + small, both tf32, and
-// a b = ab bb + ab bs + as bb with as bs dropped, about 2^-21 relative per product. The
-// tensor core aligns its addends to the largest and truncates, so a long sum kept in its
-// accumulator drifts toward zero (1.8e-3 rel-L2 on the weight gradients, measured); each
-// k step of 8 goes into a fresh accumulator that is added into an f32 register sum, and
-// every gradient stays within 2e-6 rel-L2 of autograd in f32.
+// Products. Every product runs on 3xTF32 wgmma m64nWNk8 (A from registers, B K-major from
+// shared memory), WN the width class (`width_class`: 64 at hid 128, 32 at 64, 16 at 32, 8
+// at 16; each warpgroup takes WN columns, or one m64 tile of a row contraction): forward
+// layers Y = X W, input gradients dX = dY W^T and row contractions X^T dY (the weight
+// gradients and dG, over the tile's 64 rows; M, the width of X, in m64 tiles padded with
+// zero rows). `gemm` stages B in 16-deep chunks, split into tf32 (big, small) halves in the
+// blocked layout wgmma reads (K1's `split_weights` layout), in a ring of chunk buffers, one
+// barrier a chunk. The nine shared weights are split once a launch by `split_weights_kernel`
+// into that layout, both ways (as the B of X W and of dY W^T), in the workspace; their chunks
+// go into the ring whole by 16-byte cp.async, two chunks ahead of the products at the width
+// class 64 (a ring of three) and one below it (two: a third buffer would cost the second block
+// an SM). G[b, z], the tile's gradient in shared memory and the activations kept in the
+// workspace are loaded into registers two chunks ahead, then split and stored one ahead while
+// a chunk's wgmma run. A's fragments are loaded from shared memory (row-major, or transposed
+// for a row contraction) and split in registers. 3xTF32: x = big + small, both tf32, and a b
+// = ab bb + ab bs + as bb with as bs dropped, about 2^-21 relative per product. The tensor
+// core aligns its addends to the largest and truncates, so a long sum kept in its
+// accumulator drifts toward zero (1.8e-3 rel-L2 on the weight gradients, measured on the PR 7
+// build): each k step of 8 goes into a fresh accumulator (its first wgmma does not
+// accumulate) that is added into an f32 register sum, two accumulators in flight.
+// ptxas serializes every wgmma of a kernel where one crosses a function call or sits on a
+// path that differs within a warpgroup, so `gemm` is inlined and a warpgroup without a unit
+// in a round multiplies its partner's again and skips only the epilogue.
 //
-// Memory. One latent's activations at T = 32 (hq, features, hidden, t, pre, mixer,
-// v_mix) are about 100 KB and all four with the tail's do not fit in 227 KB of shared
-// memory beside the staging. They are not recomputed either: each block keeps them in
-// its own slice of a global workspace (about 1.2 MB a block at Navier-Stokes width),
-// which it writes once and reads back in step 5 while they are mostly in the 50 MB L2.
-// Shared memory (96 KB at that width, two blocks per SM) holds the operand staging, the
-// two gradient buffers that every transposed product reads, the logits and softmax
-// weights and the tile's invariants.
+// Memory. Shared memory at Navier-Stokes width (hid = hidm = D = 128, H = 2, I = 4):
+//   stage  3 x 2 slabs x 16 k x 64 n x (big, small)   49,152 B   B chunks
+//   P      [64 x 260] f32                              66,560 B   hv, pre / dpre, y, the tail's wide
+//   X1     [64 x 132] f32                              33,792 B   features, u, hq, dhv
+//   W2     [64 x 264] f32 (X2 and X3, or one wide)     67,584 B   nbar, hv, t / dt / du, the tail's wide
+//   softmax weights and dp / dlogit [2][Z][64][H], the invariants [64][I]:
+//   222,208 B at Z = 4 (`k2_smem_bytes` mirrors it; past Z = 14 the ring has two buffers,
+//   past Z = 30 the shape is refused): one block an SM.
+// A workspace in device memory: the pre-split shared weights (5.0 MB at Navier-Stokes width),
+// then a slice a block, written and read back within an item: e [64][H hidm], nbar (with
+// weight gradients), and the tail's activations (q1, q2, q3, q4; with weight gradients also y
+// and y1, which two row contractions read as their B; t1, y2 are recomputed from q1, q2 for
+// theirs): 256 KB a block at Navier-Stokes width without weight gradients, 448 KB with.
+// Partial sums, per block: one slot of dA | dab | dG | dc for each batch row its run touches
+// (the first item of a row in the run stores, later ones add), and the weight gradients,
+// accumulated over the whole run (stored by its first item, added by later ones); an
+// epilogue that adds reads every old value before it writes any. Pass 2
+// (`fused_decode_bwd_reduce`) sums the slots of a row's blocks, or every block's weight
+// gradients, in block order: no atomics, two launches give the same bits.
 //
 // What bounds it. About 3.1 MFLOP of matmul per point without weight gradients and 4.2
-// with them (`decode_bwd_flops_per_point`): bound by operations, 1.9 ms at the ode shape
-// on the f32 CUDA cores and 0.8 ms for the three TF32 products of each product on the
-// tensor cores. Measured (PERF.md) at several times that: the mma itself is about a third
-// of the time, the chunk staging with its barriers and the elementwise passes the rest.
-// wgmma with TMA-fed staging is the next step.
+// with them (`decode_bwd_flops_per_point`; this design recomputes the value and query
+// chains once more and takes the mixer once a tile, about +8 % / -5 % of that): bound by
+// operations, 0.77 / 1.05 ms at the ode step's 80 x 512 for the three TF32 products of
+// each product on the tensor cores.
+// Measured (PERF.md, PR 18; NVIDIA H100 80GB HBM3 at 700 W, tools/k2_compare.py beside the PR 17
+// build): 7.33 / 10.48 ms without / with weight gradients at 80 x 512 (PR 17: 8.15 / 13.71),
+// 7.28 / 10.05 at shallow water's 10 x 2048, 36.86 / 52.52 at 400 x 512, 1.8-2.6x the PR 17
+// build at the narrow widths: 9.5-11.5x the bound. The product loops take about half (issue
+// bound: the A split, the fresh accumulators' adds, a barrier a chunk; the wgmma themselves
+// about an eighth), the LayerNorm passes a fifth, and with weight gradients the adds into the
+// partials a quarter.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32_mma.cuh"  // gelu_tanh, split_tf32, mma_3xtf32 (shared with K1)
+#include "tf32_mma.cuh"  // gelu_tanh, aligned16 (shared with K1)
 
 namespace {
 
-constexpr int TILE = 32;              // coordinates per tile
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-// Tensor-core products (3xTF32 mma.sync.m16n8k8): a 32-row tile is two m16 tiles; the 8
-// warps split the N columns, NT n8 tiles each.
-constexpr int TC_KC = 16;             // k per staging step
-constexpr int XS_LD = TC_KC + 4;      // split-X row stride in float2: fragment loads hit 16 distinct 8-byte banks
-constexpr int WT_LD = TC_KC + 4;      // transposed W staging Ws[n][k] row stride: 20 g + t covers 32 banks
-constexpr int TC_SLAB = 256;          // widest slab (NT = 4)
-constexpr int TC_W = (TC_KC * (TC_SLAB + 8) > TC_SLAB * WT_LD) ? TC_KC * (TC_SLAB + 8) : TC_SLAB * WT_LD;
-constexpr int STAGE = TC_W + 2 * TILE * XS_LD;  // floats of the staging area
-constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
+constexpr int TILE = 64;      // coordinates per work item: one m64 tile
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int WARPS = 8;
+constexpr int KC = 16;        // k per staged chunk: two wgmma k steps
+// Blocks an SM that __launch_bounds__ asks the compiler to leave registers for, per width
+// class; the grid is what the SMs hold at once (occupancy).
+constexpr int MINB64 = 1;
+constexpr int MINB32 = 2;
+constexpr int MINB16 = 2;
+constexpr int MINB8 = 2;
+// A block takes at least this many items: its partials (every weight gradient's, a batch row's)
+// are stored once for all of them (a launch of few items otherwise holds one a tile). The rule
+// holds with and without weight gradients, so the partition, and with it the order of every sum,
+// does not depend on whether they are asked for: dinv ... dc come out the same bits either way.
+constexpr int MIN_IPB = 2;
+constexpr int MAX_I = 8;      // invariant dims (the RFF VJP's sums are kept in registers)
+constexpr int MAX_SEG = 256;  // widest LayerNorm segment (32 lanes of 8 values)
+constexpr int SMEM_CAP = 232448;  // bytes of shared memory a block may have on an H100
+// These constants and `shape` have one mirror, k2_smem_bytes / k2_scratch_bytes in
+// ops/fused_decode.py, which reads the `constexpr int` lines of this file.
+constexpr float LN_EPS = 1e-6f;  // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr int kNumPtrs = 34;
 constexpr int kNumDims = 11;
-constexpr int kTargetBlocks = 1320;   // about five rounds of 2 blocks on each of 132 SMs: a short last round
 
-enum { ACT_NONE = 0, ACT_RELU = 1 };
+__host__ __device__ constexpr int minb_of(int wn) { return wn == 64 ? MINB64 : wn == 32 ? MINB32 : wn == 16 ? MINB16 : MINB8; }
+// Floats of the B staging: a ring of `stages` chunk buffers of two slabs of 32 wn (big and small,
+// 16 k, wn n).
+__host__ __device__ constexpr int stage_floats(int wn, int stages) { return stages * 2 * 32 * wn; }
+// Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
+__host__ __device__ inline int row_stride(int width) { return (width + 31) / 32 * 32 + 4; }
 
 // Sizes and offsets shared by the host launcher and the kernels.
 struct Dims {
   int B, Z, C, I, hid, H, D, hidm, out, tail, wgrad;
-  int HD, HH, W;      // H*D, H*hidm, widest gradient row (padded)
-  int ntiles, tpb, bpr;  // tiles per row, tiles per block, blocks per row
-  // Per-block workspace offsets (floats), each a [TILE][width] buffer (or Z of them; t and
-  // dpre: Z x tpb of them, every tile of the block).
-  long long o_fq, o_hq, o_fv, o_hv, o_u, o_t, o_dpre, o_pre, o_nn, o_vm, o_rt, o_rm;
-  long long o_y, o_dy, o_y1, o_q1, o_t1, o_q2, o_y2, o_q3, o_h1, o_q4, o_h2, o_rt1;
-  long long work;     // floats per block
-  // Partial / output layout: per-row sections then the weights.
-  long long l_A, l_ab, l_G, l_c, l_row;           // per row
-  long long w_off[20], w_len[20];                  // weights: 8 attention + 12 tail
+  int HD, HH, wn;       // H*D, H*hidm, the width class
+  int ldh, ldw, n_w2;   // shared row strides of hid-wide and wide buffers; floats of W2
+  int stages;           // chunk buffers of the B staging ring: 3 at the width class 64 where they fit, else 2
+  long long smem;       // bytes of dynamic shared memory
+  int nt;               // tiles a batch row
+  long long items;      // work items (batch row, tile)
+  int per_sm, ipb, grid, slots;  // blocks an SM holds, items a block, blocks, batch-row slots a block
+  // The shared weights pre-split for the products (`split_weights_kernel`) at the workspace's
+  // start: entry j (SPLIT_* order) at split_off[j], its B K x N (split_K, split_N); split_n of
+  // the 18 are laid out (the tail's only with the tail).
+  long long split_off[18], split_total;
+  int split_K[18], split_N[18], split_n;
+  // Workspace floats per block after them, and the offsets of its pieces ([64][width] each).
+  long long w_e, w_n, w_y, w_y1, w_q1, w_q2, w_q3, w_q4, work;
+  // Partials: per-row sections, the weights (8 attention + 12 tail), floats per block.
+  long long l_A, l_ab, l_G, l_c, l_row;
+  long long w_off[20], w_len[20];
   int n_w;
-  long long l_w, part;                             // weight floats, partial floats per block
+  long long l_w, part;
 };
 
 __host__ __device__ inline void weight_shapes(const Dims& d, int* rows, int* cols) {
@@ -120,42 +171,69 @@ __host__ __device__ inline void weight_shapes(const Dims& d, int* rows, int* col
   for (int i = 0; i < 20; ++i) { rows[i] = r[i]; cols[i] = c[i]; }
 }
 
-inline bool make_dims(const int* v, Dims& d) {
+// The width class: each warpgroup's slab of a product's columns. Every N (hid, H hidm, H D,
+// hidm, D) is a multiple of it, and the narrowest of hid, hidm and D holds two of them.
+inline int width_class(int hid, int hidm, int D) {
+  const int w = hid < hidm ? (hid < D ? hid : D) : (hidm < D ? hidm : D);
+  return w >= 128 ? 64 : w >= 64 ? 32 : w >= 32 ? 16 : 8;
+}
+
+// Everything but the grid; false for shapes the kernel does not take.
+inline bool shape(const int* v, Dims& d) {
   d.B = v[0]; d.Z = v[1]; d.C = v[2]; d.I = v[3]; d.hid = v[4]; d.H = v[5]; d.D = v[6];
   d.hidm = v[7]; d.out = v[8]; d.tail = v[9] != 0; d.wgrad = v[10] != 0;
-  if (d.B <= 0 || d.Z <= 0 || d.C <= 0 || d.I <= 0 || d.H <= 0 || d.out <= 0) return false;
-  if (d.hid % 4 || d.hidm % 4 || d.D % 4 || d.hid % 2) return false;
+  if (d.B <= 0 || d.Z <= 0 || d.C <= 0 || d.I <= 0 || d.I > MAX_I || d.H <= 0 || d.out <= 0) return false;
+  if (d.hid < 16 || d.hid % 16 || d.hidm < 16 || d.hidm % 16 || d.D < 16 || d.D % 16) return false;
   d.HD = d.H * d.D; d.HH = d.H * d.hidm;
   if (!d.tail && d.out != d.HD) return false;
-  int w = d.HD > d.HH ? d.HD : d.HH;
-  w = w > d.hid ? w : d.hid;
-  w = w > d.out ? w : d.out;
-  d.W = (w + 31) / 32 * 32 + 16;  // row stride 16 mod 32: a quarter warp's float4 reads of two rows hit distinct banks
-  d.ntiles = (d.C + TILE - 1) / TILE;
-  int bpr = (kTargetBlocks + d.B - 1) / d.B;
-  bpr = bpr < 1 ? 1 : (bpr > d.ntiles ? d.ntiles : bpr);
-  d.tpb = (d.ntiles + bpr - 1) / bpr;
-  d.bpr = (d.ntiles + d.tpb - 1) / d.tpb;
-  if ((long long)d.B * d.bpr > 2147483647LL) return false;
+  if (d.hidm > MAX_SEG || d.HD > MAX_SEG || d.hid > MAX_SEG) return false;  // LayerNorm segments
+  d.wn = width_class(d.hid, d.hidm, d.D);
+  if (d.hid % d.wn || d.hidm % d.wn || d.D % d.wn) return false;
+  int wide = d.HH > d.HD ? d.HH : d.HD;
+  wide = wide > d.hid ? wide : d.hid;
+  d.ldh = row_stride(d.hid);
+  d.ldw = row_stride(wide);
+  d.n_w2 = TILE * (d.ldw > 2 * d.ldh ? d.ldw : 2 * d.ldh);
+  // A third buffer copies the pre-split weights two chunks ahead. At the width class 64 (one
+  // block an SM) it is free; below it would cost the second block an SM (PERF.md, PR 18).
+  for (d.stages = d.wn == 64 ? 3 : 2; d.stages >= 2; --d.stages) {
+    d.smem = 4LL * (stage_floats(d.wn, d.stages) + (long long)TILE * d.ldw + (long long)TILE * d.ldh + d.n_w2 +
+                    2LL * d.Z * TILE * d.H + (long long)TILE * d.I);
+    if (d.smem <= SMEM_CAP) break;
+  }
+  if (d.smem > SMEM_CAP) return false;
+  d.nt = (d.C + TILE - 1) / TILE;
+  d.items = (long long)d.B * d.nt;
+  if (d.items > 2147483647LL) return false;
 
-  const long long T = TILE, Z = d.Z;
+  // The shared weights each product reads as its B, pre-split: as X W (K x N = the weight's
+  // shape), then as dY W^T (its transpose); the tail's only with the tail.
+  const int ks[9] = {d.hid, d.hid, d.hid, d.hidm, d.HD, d.HD, d.HD, d.HD, d.hid};
+  const int ns[9] = {d.hid, d.hid, d.hid, d.D, d.HD, d.HD, d.HD, d.hid, d.hid};
+  const int per = d.tail ? 9 : 4;
+  d.split_n = 2 * per;
+  d.split_total = 0;
+  for (int tr = 0; tr < 2; ++tr)
+    for (int i = 0; i < 9; ++i) {
+      const int j = tr * 9 + i;
+      d.split_K[j] = tr ? ns[i] : ks[i];
+      d.split_N[j] = tr ? ks[i] : ns[i];
+      d.split_off[j] = d.split_total;
+      if (i < per) d.split_total += 2LL * d.split_K[j] * d.split_N[j];
+    }
+
+  const long long T = TILE;
   long long o = 0;
-  auto take = [&](long long n) { long long r = o; o += (n + 3) / 4 * 4; return r; };
-  d.o_fq = take(Z * T * d.hid); d.o_hq = take(Z * T * d.hid);
-  d.o_fv = take(Z * T * d.hid); d.o_hv = take(Z * T * d.hid);
-  d.o_u = take(Z * T * d.hid);
-  // t and dpre of every tile of the block: dG and dc contract over all its rows at its end.
-  d.o_t = take(Z * d.tpb * T * d.hid); d.o_dpre = take(Z * d.tpb * T * d.HH);
-  d.o_pre = take(Z * T * d.HH); d.o_nn = take(Z * T * d.HH);
-  d.o_vm = take(Z * T * d.HD);
-  d.o_rt = take(Z * T); d.o_rm = take(Z * T * d.H);
-  d.o_y = take(T * d.W); d.o_dy = take(T * d.W);
-  d.o_y1 = take(T * d.HD); d.o_q1 = take(T * d.HD); d.o_t1 = take(T * d.HD);
-  d.o_q2 = take(T * d.HD); d.o_y2 = take(T * d.HD);
-  d.o_q3 = take(T * d.hid); d.o_h1 = take(T * d.hid); d.o_q4 = take(T * d.hid);
-  d.o_h2 = take(T * d.hid); d.o_rt1 = take(T);
+  auto take = [&](bool need, long long n) { long long r = o; if (need) o += n; return need ? r : -1; };
+  d.w_e = take(true, T * d.HH);
+  d.w_n = take(d.wgrad, T * d.HH);
+  d.w_q1 = take(d.tail, T * d.HD); d.w_q2 = take(d.tail, T * d.HD);
+  d.w_q3 = take(d.tail, T * d.hid); d.w_q4 = take(d.tail, T * d.hid);
+  const bool tw = d.tail && d.wgrad;
+  d.w_y = take(tw, T * d.HD); d.w_y1 = take(tw, T * d.HD);
   d.work = o;
 
+  const long long Z = d.Z;
   d.l_A = Z * d.hid * d.H; d.l_ab = Z * d.H; d.l_G = Z * d.hid * d.HH; d.l_c = Z * d.HH;
   d.l_row = d.l_A + d.l_ab + d.l_G + d.l_c;
   int rows[20], cols[20];
@@ -168,8 +246,23 @@ inline bool make_dims(const int* v, Dims& d) {
     d.w_len[i] = (long long)rows[i] * (cols[i] ? cols[i] : 1);
     d.l_w += d.w_len[i];
   }
-  d.part = d.l_row + d.l_w;
   return true;
+}
+
+// The grid: as many blocks as the SMs hold at once (per_sm of them on each of sms), or one per
+// MIN_IPB items when there are fewer; each takes a contiguous run of ipb items.
+inline void plan(Dims& d, int per_sm, int sms) {
+  d.per_sm = per_sm;
+  long long most = (long long)per_sm * sms;
+  const long long few = (d.items + MIN_IPB - 1) / MIN_IPB;
+  most = most < few ? most : few;
+  most = most < 1 ? 1 : most;
+  const long long g = d.items < most ? d.items : most;
+  d.ipb = (int)((d.items + g - 1) / g);
+  d.grid = (int)((d.items + d.ipb - 1) / d.ipb);
+  d.slots = (d.ipb + d.nt - 2) / d.nt + 1;  // batch rows a run of ipb items can touch
+  d.slots = d.slots > d.B ? d.B : d.slots;
+  d.part = d.slots * d.l_row + d.l_w;
 }
 
 struct Params {
@@ -181,327 +274,364 @@ struct Params {
   Dims d;
 };
 
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-  const float k = 0.7978845608028654f;
-  const float th = tanhf(k * (x + 0.044715f * x * x * x));
-  return 0.5f * (1.0f + th) + 0.5f * x * (1.0f - th * th) * k * (1.0f + 3.0f * 0.044715f * x * x);
+// x rounded to tf32 (to nearest, ties away from zero), as tf32_mma.cuh's split_tf32_int rounds.
+__device__ __forceinline__ float tf32_round(float x) { return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u); }
+
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
-// One staged k chunk of a dense layer on a warp's 2 x NT tiles: A fragments from the split
-// X chunk, B fragments from the W chunk, split here; each k step of 8 into a fresh
-// accumulator added into acc.
-template <bool TRANS, int NT, int WS_LD>
-__device__ __forceinline__ void dense_chunk(float (&acc)[2][NT][4], const float2* Xs, const float* Ws,
-                                            int wn0, int g, int tq) {
-#pragma unroll
-  for (int ks = 0; ks < TC_KC; ks += 8) {
-    uint32_t ab[2][4], as[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const float2* xr = Xs + (mi * 16 + g) * XS_LD + ks + tq;
-      const float2 v[4] = {xr[0], xr[8 * XS_LD], xr[4], xr[8 * XS_LD + 4]};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ab[mi][e] = __float_as_uint(v[e].x);
-        as[mi][e] = __float_as_uint(v[e].y);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = wn0 + 8 * j + g;
-      const float w0 = TRANS ? Ws[n * WT_LD + ks + tq] : Ws[(ks + tq) * WS_LD + n];
-      const float w1 = TRANS ? Ws[n * WT_LD + ks + tq + 4] : Ws[(ks + tq + 4) * WS_LD + n];
-      const float2 s0 = split_tf32(w0), s1 = split_tf32(w1);
-      const uint32_t bb[2] = {__float_as_uint(s0.x), __float_as_uint(s1.x)};
-      const uint32_t bs[2] = {__float_as_uint(s0.y), __float_as_uint(s1.y)};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_3xtf32(part, ab[mi], as[mi], bb, bs);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[e];
-      }
-    }
+// ---- wgmma ------------------------------------------------------------------------------------
+// D (64 x N, f32, this thread's N / 2 values) = A (64 x 8 tf32, registers: this warp's 16 rows in
+// the m16n8k8 A-fragment order) x B (8 x N tf32, K-major in shared memory, `desc`) + (accumulate ?
+// D : 0), one asynchronous warpgroup product, N = 8, 16, 32 or 64. D's fragment: n8 tile j at
+// d[4 j .. 4 j + 3] = (row g, col 8 j + 2 t), (g, 8 j + 2 t + 1), (g + 8, 8 j + 2 t),
+// (g + 8, 8 j + 2 t + 1) of the warp's 16 rows.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
   }
 }
 
-__device__ __forceinline__ void store_split4(float2* dst, float4 v) {
-  const float2 a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z), e = split_tf32(v.w);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  d4[0] = make_float4(a.x, a.y, b.x, b.y);
-  d4[1] = make_float4(c.x, c.y, e.x, e.y);
+// Shared-memory descriptor of a K-major tf32 B tile without swizzle (the staged layout): core
+// matrices of 8 rows x 16 bytes stored whole; LBO is the step between the two core matrices of a
+// k step of 8, SBO the step between groups of 8 rows (n).
+constexpr int WG_LBO = 128, WG_SBO = 256;
+__device__ __forceinline__ uint64_t wg_desc(const float* smem) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(WG_LBO >> 4) << 16) | ((uint64_t)(WG_SBO >> 4) << 32);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Orders the generic-proxy writes of shared memory (the staging stores) before wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+// Keeps the compiler from moving reads of an accumulator across wgmma's asynchronous writes.
+template <int N>
+__device__ __forceinline__ void wg_fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Y[t, n] = act(sum_k X[t, k] * W(k, n) + bias[n]) for the TILE rows on the tensor cores,
-// W(k, n) = W[k * N + n] or, with TRANS, W[n * K + k]. Per step of TC_KC: the block splits
-// the X chunk once into (big, small) pairs (Xs [TILE][XS_LD] float2) and stages the W chunk
-// (Ws[k][n], row stride SLAB + 8, or transposed Ws[n][k], row stride WT_LD: either way a
-// B-fragment load hits 32 banks); each warp then runs its 2 x NT tiles. When the shapes
-// allow 16-byte loads, the next chunk's global loads are issued before this chunk's
-// products, so their latency hides behind the tensor cores; ragged K and N take a plain
-// path that zero-pads the staging. Every thread of the block calls it; it starts with a
-// barrier.
-template <int ACT, bool TRANS, int NT>
-__device__ __noinline__ void dense_tc(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                                      const float* __restrict__ bias, float* Y, int ldy, float* S) {
-  constexpr int WN = 8 * NT, SLAB = WARPS * WN, WS_LD = SLAB + 8;
-  constexpr int WV = SLAB * TC_KC / 4 / THREADS;  // float4s of W a thread stages per chunk
-  static_assert(SLAB <= TC_SLAB && WV * 4 * THREADS == SLAB * TC_KC, "staging shape");
-  float* Ws = S;
-  float2* Xs = reinterpret_cast<float2*>(S + TC_W);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wn0 = warp * WN;
-  const bool fast = K % TC_KC == 0 && ldx % 4 == 0 && aligned16(X) && aligned16(W) &&
-                    (TRANS ? true : N % SLAB == 0);
-  for (int n_base = 0; n_base < N; n_base += SLAB) {
-    const int ncols = min(SLAB, N - n_base);
-    float acc[2][NT][4];
+// Where `gemm` reads B (element (k, n) of the K x N operand): a row-major [K][ldb] source in
+// global memory (G, a workspace activation), its transpose [N][ldb] in global memory (G as the
+// B of dpre G^T; a float4 a thread), a row-major source in shared memory (the tile's gradient,
+// for a row contraction), each split and staged by the threads; or a shared weight pre-split in
+// the staged layout (B_SPLIT: one block of SLOT floats per 16-deep chunk and WN slab, copied
+// whole by cp.async).
+enum { B_KN = 0, B_NK = 1, B_KN_SMEM = 2, B_SPLIT = 3 };
+// The pre-split weights (Dims::split_off): each of q_w1, v_w1, fw, m_w2, o_w, p_w1, p_w2, h_w1,
+// h_w2 as the B of X W, then (SPLIT_T + its index) as the B of dY W^T.
+enum { SPLIT_Q = 0, SPLIT_V, SPLIT_F, SPLIT_M, SPLIT_O, SPLIT_P1, SPLIT_P2, SPLIT_H1, SPLIT_H2, SPLIT_T = 9 };
+
+// A block-private partial that a product adds into, stored by its first contribution:
+// element (m, n) at dst[m * ld + n], or at dst[n * ld + m] with trans.
+struct ToPart {
+  float* dst;
+  int ld;
+  bool first, trans;
+};
+
+// The end of a product's unit: its sums (column n = ns WN + 8 j + 2 tq (+1) of rows m0 and m1,
+// when ok0 / ok1) handed to epi in pairs of columns.
+template <int WN, class Epi>
+__device__ __forceinline__ void finish(const Epi& epi, const float* sum, int ns, int tq, int m0, int m1, bool ok0,
+                                       bool ok1) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
-    if (fast) {
-      // Thread tid stages X float4 (r, q) = (tid / QK, tid % QK) and W float4s idx = tid +
-      // i * THREADS: TRANS (n, q) = (idx / QK, idx % QK), else (kk, q) = (idx / (SLAB / 4), ...).
-      constexpr int QK = TC_KC / 4;
-      const int xr = tid / QK, xq = tid % QK;
-      const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float4 xv = zero4, wv[WV];
-      auto load = [&](int k0) {
-        if (tid < TILE * TC_KC / 4) xv = *reinterpret_cast<const float4*>(X + xr * ldx + k0 + 4 * xq);
-#pragma unroll
-        for (int i = 0; i < WV; ++i) {
-          const int idx = tid + i * THREADS;
-          if (TRANS) {
-            const int n = idx / QK, q = idx % QK;
-            wv[i] = n < ncols ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(n_base + n) * K + k0) + q) : zero4;
-          } else {
-            const int kk = idx / (SLAB / 4), q = idx % (SLAB / 4);
-            wv[i] = __ldg(reinterpret_cast<const float4*>(W + (size_t)(k0 + kk) * N + n_base) + q);
-          }
-        }
-      };
-      load(0);
-      for (int k0 = 0; k0 < K; k0 += TC_KC) {
-        __syncthreads();  // earlier readers of Ws / Xs (and writers of X) are done
-        if (tid < TILE * TC_KC / 4) store_split4(Xs + xr * XS_LD + 4 * xq, xv);
-#pragma unroll
-        for (int i = 0; i < WV; ++i) {
-          const int idx = tid + i * THREADS;
-          float* dst = TRANS ? Ws + (idx / QK) * WT_LD + 4 * (idx % QK)
-                             : Ws + (idx / (SLAB / 4)) * WS_LD + 4 * (idx % (SLAB / 4));
-          *reinterpret_cast<float4*>(dst) = wv[i];
-        }
-        __syncthreads();
-        if (k0 + TC_KC < K) load(k0 + TC_KC);
-        if (wn0 < ncols) dense_chunk<TRANS, NT, WS_LD>(acc, Xs, Ws, wn0, g, tq);
-      }
-    } else {
-      for (int k0 = 0; k0 < K; k0 += TC_KC) {
-        const int kc = min(TC_KC, K - k0);
-        __syncthreads();
-        for (int idx = tid; idx < TILE * TC_KC; idx += THREADS) {
-          const int r = idx / TC_KC, kk = idx - r * TC_KC;
-          Xs[r * XS_LD + kk] = split_tf32(kk < kc ? X[r * ldx + k0 + kk] : 0.0f);
-        }
-        for (int idx = tid; idx < SLAB * TC_KC; idx += THREADS) {
-          const int a = idx / TC_KC, b = idx - a * TC_KC;  // TRANS: (n, kk); else (kk, n) below
-          if (TRANS) {
-            Ws[a * WT_LD + b] = a < ncols && b < kc ? __ldg(W + (size_t)(n_base + a) * K + k0 + b) : 0.0f;
-          } else {
-            const int kk = idx / SLAB, n = idx - kk * SLAB;
-            Ws[kk * WS_LD + n] = n < ncols && kk < kc ? __ldg(W + (size_t)(k0 + kk) * N + n_base + n) : 0.0f;
-          }
-        }
-        __syncthreads();
-        if (wn0 < ncols) dense_chunk<TRANS, NT, WS_LD>(acc, Xs, Ws, wn0, g, tq);
-      }
-    }
-    if (wn0 < ncols) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = wn0 + 8 * j + 2 * tq + e;
-          if (n >= ncols) continue;
-          const float bn = bias ? __ldg(bias + n_base + n) : 0.0f;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float v = acc[mi][j][2 * h + e] + bn;
-              Y[(mi * 16 + g + 8 * h) * ldy + n_base + n] = ACT == ACT_RELU ? fmaxf(v, 0.0f) : v;
-            }
-        }
-    }
+  for (int j = 0; j < WN / 8; ++j) {
+    const int n = ns * WN + 8 * j + 2 * tq;
+    if (ok0) epi(m0, n, sum[4 * j], sum[4 * j + 1]);
+    if (ok1) epi(m1, n, sum[4 * j + 2], sum[4 * j + 3]);
   }
-  __syncthreads();
 }
 
-// Every dense layer and input gradient of K2: four n8 tiles a warp when N fills them.
-template <int ACT, bool TRANS>
-__device__ __forceinline__ void dense(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                                      const float* __restrict__ bias, float* Y, int ldy, float* S) {
-  if (N > 8 * WARPS * 2)
-    dense_tc<ACT, TRANS, 4>(X, ldx, K, W, N, bias, Y, ldy, S);
-  else
-    dense_tc<ACT, TRANS, 2>(X, ldx, K, W, N, bias, Y, ldy, S);
+// ... added into a partial: every old value is read before any is written (a load and a store
+// through one pointer would otherwise run one round trip to memory at a time).
+template <int WN>
+__device__ __forceinline__ void finish(const ToPart& p, float* sum, int ns, int tq, int m0, int m1, bool ok0,
+                                       bool ok1) {
+  auto at = [&](int m, int n) { return p.trans ? p.dst + (size_t)n * p.ld + m : p.dst + (size_t)m * p.ld + n; };
+  if (!p.first) {
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = ns * WN + 8 * j + 2 * tq + e;
+        if (ok0) sum[4 * j + e] += *at(m0, n);
+        if (ok1) sum[4 * j + 2 + e] += *at(m1, n);
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = ns * WN + 8 * j + 2 * tq + e;
+      if (ok0) *at(m0, n) = sum[4 * j + e];
+      if (ok1) *at(m1, n) = sum[4 * j + 2 + e];
+    }
 }
 
-// Staging of the row-contracting product: RC rows of an X block [RC][TN_M] split into
-// (big, small) pairs (row stride TN_M + 4 float2: A fragments read (r, m) with lanes
-// 68 t + g, 16 distinct 8-byte banks) and of a dY block [RC][TN_N] (row stride TN_N + 8:
-// B fragments hit 32 banks).
-constexpr int TN_RC = 16, TN_M = 64, TN_N = 128;
-constexpr int TN_XLD = TN_M + 4, TN_YLD = TN_N + 8;
-static_assert(2 * TN_RC * TN_XLD + TN_RC * TN_YLD <= STAGE, "row-product staging must fit");
+template <int WN>
+struct Cls {
+  static constexpr int SLOT = 32 * WN;     // floats of one staged slab: part, k step, n group, k group, 8 n, 4 k
+  static constexpr int BUF = 2 * SLOT;     // a chunk of two slabs
+  static constexpr int GROUPS = 8 * WN;    // float4 groups (4 k of one n) of a chunk of two slabs
+  static constexpr int GPT = (GROUPS + THREADS - 1) / THREADS;
+  static constexpr int NACC = WN / 2;      // accumulator registers a thread
+};
 
-// out[m, n] (+)= sum_{r < R} X[r, m] * dY[r, n] for m < M, n < N on the tensor cores at f32
-// accuracy (ACC adds into out, else stores); out is block private, row stride ldo. Output
-// blocks of TN_M x TN_N; the 8 warps as 2 (m) x 4 (n), each 32 x 32 (2 x 4 tiles). Rows go
-// in chunks of TN_RC, the next chunk's global loads issued before this chunk's products
-// when the shapes allow 16-byte loads. Every thread of the block calls it.
-template <bool ACC>
-__device__ __noinline__ void tn_tc(const float* X, int ldx, const float* dY, int ldy, int R, int M, int N,
-                                   float* out, int ldo, float* S) {
-  float2* Xs = reinterpret_cast<float2*>(S);   // [TN_RC][TN_XLD]
-  float* Ys = S + 2 * TN_RC * TN_XLD;          // [TN_RC][TN_YLD]
+// out(m, n) = sum_k A(m, k) B(k, n) on the tensor cores at f32 accuracy; epi(m, n, v0, v1) gets
+// columns n and n + 1 of row m. A_T false: A(m, k) = A[m * lda + k], M = 64 (the tile's rows);
+// true: A(m, k) = A[k * lda + m] for m < M, zero beyond (a row contraction, K = 64). B per BMODE
+// with row stride ldb. K is a multiple of KC, N of WN. Units (an m64 tile, a WN slab) go in
+// rounds of two, one a warpgroup; the two units of a round share each staged chunk (one slab
+// when they differ in m, two when in n). The staging is a ring of nst (2 or 3) chunk buffers:
+// a pre-split weight's chunks are copied by cp.async nst - 1 chunks ahead of the products; any
+// other B is loaded into registers two chunks ahead and split and stored one ahead, while the
+// products run. Per chunk: A fragments of both k steps from shared memory, split; three wgmma
+// per k step into a fresh accumulator; the accumulators added into f32 sums. Every thread of
+// the block calls it; it starts with a barrier and does not end with one.
+template <int WN, bool A_T, int BMODE, class Epi>
+__device__ __forceinline__ void gemm(const float* A, int lda, int M, int K, const float* B, int ldb, int N,
+                                     float* stage, int nst, Epi epi) {
+  using Cl = Cls<WN>;
+  constexpr int NACC = Cl::NACC, GPT = Cl::GPT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-  const bool fast = M % 4 == 0 && N % 4 == 0 && ldx % 4 == 0 && ldy % 4 == 0 && aligned16(X) && aligned16(dY);
-  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  // Thread tid stages X float4 (r, q) = (tid / 16, tid % 16) and dY float4s idx = tid, tid + 256:
-  // (r, q) = (idx / 32, idx % 32).
-  const int xr = tid >> 4, xq = tid & 15;
-  for (int m0 = 0; m0 < M; m0 += TN_M) {
-    for (int n0 = 0; n0 < N; n0 += TN_N) {
-      float acc[2][4][4];
+  const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, w = warp & 3;
+  const int mtiles = A_T ? (M + TILE - 1) / TILE : 1;
+  const int units = mtiles * (N / WN), nk = K / KC;
+  for (int u0 = 0; u0 < units; u0 += 2) {
+    const int u1 = u0 + 1 < units ? u0 + 1 : u0;  // a lone last unit: the second warpgroup repeats it
+    const int u = wg ? u1 : u0;
+    const bool valid = u0 + wg < units;
+    const int mt = u % mtiles, ns = u / mtiles, ns0 = u0 / mtiles, ns1 = u1 / mtiles;
+    const int nslots = ns1 == ns0 ? 1 : 2;
+    const float* st0 = stage + (ns == ns0 ? 0 : Cl::SLOT);
+    const int m0 = mt * TILE + 16 * w + g, m1 = m0 + 8;
+    // This thread's groups of a chunk: a source offset (without the chunk's k) and a staging offset.
+    int src_off[GPT], dst_off[GPT];
+    bool has[GPT];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
-      float4 xv = zero4, yv[2] = {zero4, zero4};
-      auto load = [&](int r0) {
-        const int r = r0 + xr, m = m0 + 4 * xq;
-        xv = r < R && m < M ? *reinterpret_cast<const float4*>(X + (size_t)r * ldx + m) : zero4;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int idx = tid + i * THREADS, rr = r0 + (idx >> 5), n = n0 + 4 * (idx & 31);
-          yv[i] = rr < R && n < N ? *reinterpret_cast<const float4*>(dY + (size_t)rr * ldy + n) : zero4;
+    for (int i = 0; i < GPT; ++i) {
+      const int gi = tid + i * THREADS;
+      has[i] = gi < nslots * 4 * WN;
+      const int s = gi / (4 * WN), rem = gi % (4 * WN);
+      const int nb = (s ? ns1 : ns0) * WN;
+      int kq, n;
+      if (BMODE == B_NK) {  // lanes: 8 n of one k quad, then the k quads, then n groups
+        kq = (rem % 32) / 8;
+        n = (rem / 32) * 8 + rem % 8;
+        src_off[i] = (nb + n) * ldb + 4 * kq;
+      } else {  // lanes along n
+        kq = rem / WN;
+        n = rem % WN;
+        src_off[i] = 4 * kq * ldb + nb + n;
+      }
+      dst_off[i] = s * Cl::SLOT + (kq >> 1) * 8 * WN + (n >> 3) * 64 + (kq & 1) * 32 + (n & 7) * 4;
+    }
+    // B_SPLIT: chunk c's slabs copied whole into ring buffer buf, one cp.async group a chunk (an
+    // empty one past the last, so that the waits count uniformly).
+    auto copy = [&](int c, int buf) {
+      if (c < nk) {
+        const int nsl = N / WN;
+        float* dst = stage + buf * Cl::BUF;
+        for (int i = tid; i < nslots * Cl::SLOT / 4; i += THREADS) {
+          const int sl = i / (Cl::SLOT / 4), off = 4 * (i % (Cl::SLOT / 4));
+          cp_async16(dst + sl * Cl::SLOT + off, B + ((size_t)c * nsl + (sl ? ns1 : ns0)) * Cl::SLOT + off);
         }
-      };
-      if (fast) load(0);
-      for (int r0 = 0; r0 < R; r0 += TN_RC) {
-        __syncthreads();  // earlier readers of the staging (and writers of X, dY) are done
-        if (fast) {
-          store_split4(Xs + xr * TN_XLD + 4 * xq, xv);
+      }
+      cp_async_commit();
+    };
+    // Chunk c's copies have landed (nst - 1 chunks are copied ahead: the later ones may not have).
+    auto copied = [&]() {
+      if (nst == 3)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      fence_async_smem();  // this thread's copies are visible to wgmma
+    };
+    float4 raw[GPT];
+    auto load = [&](int c) {
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int idx = tid + i * THREADS;
-            *reinterpret_cast<float4*>(Ys + (idx >> 5) * TN_YLD + 4 * (idx & 31)) = yv[i];
-          }
+      for (int i = 0; i < GPT; ++i) {
+        if (!has[i]) continue;
+        if (BMODE == B_NK) {
+          raw[i] = __ldg(reinterpret_cast<const float4*>(B + src_off[i] + c * KC));
         } else {
-          for (int idx = tid; idx < TN_RC * TN_M; idx += THREADS) {
-            const int r = idx / TN_M, m = idx - r * TN_M;
-            Xs[r * TN_XLD + m] = split_tf32(r0 + r < R && m0 + m < M ? X[(size_t)(r0 + r) * ldx + m0 + m] : 0.0f);
-          }
-          for (int idx = tid; idx < TN_RC * TN_N; idx += THREADS) {
-            const int r = idx / TN_N, n = idx - r * TN_N;
-            Ys[r * TN_YLD + n] = r0 + r < R && n0 + n < N ? dY[(size_t)(r0 + r) * ldy + n0 + n] : 0.0f;
-          }
-        }
-        __syncthreads();
-        if (fast && r0 + TN_RC < R) load(r0 + TN_RC);
-#pragma unroll
-        for (int ks = 0; ks < TN_RC; ks += 8) {
-          uint32_t ab[2][4], as[2][4];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const float2* xr2 = Xs + (ks + tq) * TN_XLD + wm + 16 * mi + g;
-            const float2 v[4] = {xr2[0], xr2[8], xr2[4 * TN_XLD], xr2[4 * TN_XLD + 8]};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              ab[mi][e] = __float_as_uint(v[e].x);
-              as[mi][e] = __float_as_uint(v[e].y);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float* yr = Ys + (ks + tq) * TN_YLD + wn + 8 * j + g;
-            const float2 s0 = split_tf32(yr[0]), s1 = split_tf32(yr[4 * TN_YLD]);
-            const uint32_t bb[2] = {__float_as_uint(s0.x), __float_as_uint(s1.x)};
-            const uint32_t bs[2] = {__float_as_uint(s0.y), __float_as_uint(s1.y)};
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              mma_3xtf32(part, ab[mi], as[mi], bb, bs);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[e];
-            }
-          }
+          const float* p = B + src_off[i] + (size_t)c * KC * ldb;
+          if (BMODE == B_KN)  // G, or an activation this block kept in the workspace: not through the
+                              // read-only cache, which does not see the block's own later writes
+            raw[i] = make_float4(__ldcg(p), __ldcg(p + ldb), __ldcg(p + 2 * ldb), __ldcg(p + 3 * ldb));
+          else
+            raw[i] = make_float4(p[0], p[ldb], p[2 * ldb], p[3 * ldb]);
         }
       }
-      // With ACC, every old value is read before any is written: a load and a store
-      // through one pointer would otherwise run one round trip at a time.
+    };
+    auto store = [&](int buf) {  // the loaded chunk's values, split into (big, small), into ring buffer buf
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm + 16 * mi + g + 8 * h;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int n = n0 + wn + 8 * j + 2 * tq + e;
-              if (ACC && m < M && n < N) acc[mi][j][2 * h + e] += out[(size_t)m * ldo + n];
-            }
-        }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm + 16 * mi + g + 8 * h;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int n = n0 + wn + 8 * j + 2 * tq + e;
-              if (m < M && n < N) out[(size_t)m * ldo + n] = acc[mi][j][2 * h + e];
-            }
-        }
-    }
-  }
-  __syncthreads();
-}
+      for (int i = 0; i < GPT; ++i) {
+        if (!has[i]) continue;
+        const float4 v = raw[i];
+        const float4 big = make_float4(tf32_round(v.x), tf32_round(v.y), tf32_round(v.z), tf32_round(v.w));
+        const float4 small = make_float4(tf32_round(v.x - big.x), tf32_round(v.y - big.y), tf32_round(v.z - big.z),
+                                         tf32_round(v.w - big.w));
+        float* dst = stage + buf * Cl::BUF + dst_off[i];
+        *reinterpret_cast<float4*>(dst) = big;
+        *reinterpret_cast<float4*>(dst + 16 * WN) = small;
+      }
+    };
 
-// A weight gradient over the tile: dW[k, n] (+)= sum_t X[t, k] * dY[t, n] (dW [K, N], block
-// private) and db[n] (+)= sum_t dY[t, n] when db is not null; the block's first
-// contribution stores (add false), the later ones add.
-__device__ void wgrad(const float* X, int ldx, int K, const float* dY, int ldy, int N,
-                      float* dW, float* db, float* S, bool add) {
-  if (add)
-    tn_tc<true>(X, ldx, dY, ldy, TILE, K, N, dW, N, S);
-  else
-    tn_tc<false>(X, ldx, dY, ldy, TILE, K, N, dW, N, S);
-  if (db) {
-    for (int n = threadIdx.x; n < N; n += THREADS) {
-      float s = 0.0f;
-      for (int t = 0; t < TILE; ++t) s += dY[t * ldy + n];
-      db[n] = add ? db[n] + s : s;
+    if (BMODE == B_SPLIT) {
+      __syncthreads();  // A was written; earlier readers of the staging are done
+      for (int c = 0; c + 1 < nst; ++c) copy(c, c);
+      copied();
+    } else {
+      // A B in device memory is loaded before the barrier (its latency under the wait); one in
+      // shared memory was written just before it.
+      if (BMODE != B_KN_SMEM) load(0);
+      __syncthreads();
+      if (BMODE == B_KN_SMEM) load(0);
+      store(0);
+      if (nk > 1) load(1);
+      fence_async_smem();
     }
     __syncthreads();
+    float sum[NACC], f0[NACC], f1[NACC];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) sum[i] = f0[i] = f1[i] = 0.0f;
+    int cur = 0, nxt = 1, prv = nst - 1;  // ring buffers of chunks c, c + 1 and c - 1 (c + nst - 1)
+    for (int c = 0; c < nk; ++c) {
+      if (BMODE == B_SPLIT) copy(c + nst - 1, prv);  // into the buffer chunk c - 1 used: under this chunk's products
+      uint32_t ab[2][4], as[2][4];  // A's parts: big, small
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = c * KC + 8 * q + tq;
+        float v[4];
+        if (A_T) {
+          v[0] = m0 < M ? A[k * lda + m0] : 0.0f;
+          v[1] = m1 < M ? A[k * lda + m1] : 0.0f;
+          v[2] = m0 < M ? A[(k + 4) * lda + m0] : 0.0f;
+          v[3] = m1 < M ? A[(k + 4) * lda + m1] : 0.0f;
+        } else {
+          v[0] = A[m0 * lda + k];
+          v[1] = A[m1 * lda + k];
+          v[2] = A[m0 * lda + k + 4];
+          v[3] = A[m1 * lda + k + 4];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float big = tf32_round(v[e]);
+          ab[q][e] = __float_as_uint(big);
+          as[q][e] = __float_as_uint(tf32_round(v[e] - big));
+        }
+      }
+      const float* st = st0 + cur * Cl::BUF;
+      wg_fence_operands<NACC>(f0);
+      wg_fence_operands<NACC>(f1);
+      wg_fence();
+      // k step 0 into f0, k step 1 into f1: small x big (not accumulating: a fresh accumulator),
+      // big x small, big x big. Part p (big 0, small 1) of k step q is at st + 16 WN p + 8 WN q.
+      wgmma_tf32<WN>(f0, as[0], wg_desc(st), 0);
+      wgmma_tf32<WN>(f0, ab[0], wg_desc(st + 16 * WN), 1);
+      wgmma_tf32<WN>(f0, ab[0], wg_desc(st), 1);
+      wgmma_tf32<WN>(f1, as[1], wg_desc(st + 8 * WN), 0);
+      wgmma_tf32<WN>(f1, ab[1], wg_desc(st + 24 * WN), 1);
+      wgmma_tf32<WN>(f1, ab[1], wg_desc(st + 8 * WN), 1);
+      wg_commit();
+      if (BMODE != B_SPLIT && c + 1 < nk) {
+        store(nxt);
+        if (c + 2 < nk) load(c + 2);
+        fence_async_smem();
+      }
+      wg_wait0();
+      wg_fence_operands<NACC>(f0);
+      wg_fence_operands<NACC>(f1);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) {
+        sum[i] += f0[i];
+        sum[i] += f1[i];
+      }
+      if (BMODE == B_SPLIT) copied();  // chunk c + 1
+      __syncthreads();  // the next chunk is staged; everyone is done with this one
+      prv = cur;
+      cur = nxt;
+      nxt = nxt + 1 == nst ? 0 : nxt + 1;
+    }
+    if (valid) finish<WN>(epi, sum, ns, tq, m0, m1, !A_T || m0 < M, !A_T || m1 < M);
   }
+}
+
+// ---- Row passes on the CUDA cores ---------------------------------------------------------------
+// Each starts with a barrier (its inputs were just written) and does not end with one.
+
+// s_inv[t * I + i] = inv[(c0 + t) * I + i] of a latent's tile, zero past the last coordinate.
+__device__ __noinline__ void load_inv(float* s_inv, const float* src, int rows, int I) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * I; idx += THREADS) s_inv[idx] = idx / I < rows ? src[idx] : 0.0f;
 }
 
 // F[t, :half] = sin(2 pi inv[t] @ coeff), F[t, half:] = cos(...); coeff is [I, half].
-__device__ void rff_features(const float* s_inv, int I, const float* __restrict__ coeff,
-                             int half, float* F, int ldf) {
+__device__ __noinline__ void rff(const float* s_inv, int I, const float* __restrict__ coeff, int half, float* F,
+                                 int ldf) {
+  __syncthreads();
   for (int idx = threadIdx.x; idx < TILE * half; idx += THREADS) {
     const int t = idx / half, j = idx - t * half;
     float proj = 0.0f;
@@ -511,478 +641,577 @@ __device__ void rff_features(const float* s_inv, int I, const float* __restrict_
     F[t * ldf + j] = s;
     F[t * ldf + half + j] = co;
   }
+}
+
+// dinv[t, i] (+)= sum_j 2 pi (cos_j dF[t, j] - sin_j dF[t, half + j]) coeff[i, j] for t < rows,
+// sin and cos recomputed from the invariants. A warp per row, lanes along j.
+__device__ __noinline__ void rff_vjp(const float* s_inv, int I, const float* __restrict__ coeff, int half,
+                                     const float* dF, int ldd, float* dinv, int rows, bool add) {
   __syncthreads();
-}
-
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
-// s_dinv[t, i] += sum_j 2 pi (cos_j dF[t, j] - sin_j dF[t, half + j]) coeff[i, j], with
-// sin / cos read back from the features F. A warp per row, lanes along j.
-__device__ void rff_features_vjp(const float* F, int ldf, const float* dF, int ldd,
-                                 const float* __restrict__ coeff, int half, int I, float* s_dinv) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int t = warp; t < TILE; t += WARPS) {
-    const float* f = F + t * ldf;
-    const float* df = dF + t * ldd;
-    for (int i = 0; i < I; ++i) {
-      float s = 0.0f;
-      for (int j = lane; j < half; j += 32) {
-        const float dproj = TWO_PI * (f[half + j] * df[j] - f[j] * df[half + j]);
-        s = fmaf(dproj, __ldg(coeff + i * half + j), s);
-      }
-      s = warp_sum(s);
-      if (lane == 0) s_dinv[t * I + i] += s;
+    float acc[MAX_I];
+#pragma unroll
+    for (int i = 0; i < MAX_I; ++i) acc[i] = 0.0f;
+    for (int j = lane; j < half; j += 32) {
+      float proj = 0.0f;
+      for (int i = 0; i < I; ++i) proj = fmaf(s_inv[t * I + i], __ldg(coeff + i * half + j), proj);
+      float s, co;
+      sincosf(TWO_PI * proj, &s, &co);
+      const float dproj = TWO_PI * (co * dF[t * ldd + j] - s * dF[t * ldd + half + j]);
+#pragma unroll
+      for (int i = 0; i < MAX_I; ++i)
+        if (i < I) acc[i] = fmaf(dproj, __ldg(coeff + i * half + j), acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < MAX_I; ++i) {
+      if (i >= I) break;
+      const float s = warp_sum(acc[i]);
+      if (lane == 0 && t < rows) dinv[t * I + i] = add ? dinv[t * I + i] + s : s;
     }
   }
+}
+
+// gelu(x) and gelu'(x) from one tanh.
+__device__ __forceinline__ float2 gelu_and_grad(float x) {
+  const float k = 0.7978845608028654f;
+  const float th = tanhf(k * (x + 0.044715f * x * x * x));
+  return make_float2(0.5f * x * (1.0f + th),
+                     0.5f * (1.0f + th) + 0.5f * x * (1.0f - th * th) * k * (1.0f + 3.0f * 0.044715f * x * x));
+}
+
+// The LayerNorm passes take L lanes a segment of `width` columns: the largest power of two up to
+// width / 8 (at most 32), so a lane holds 8 (at most 16) of its values in registers and a warp
+// takes 32 / L segments at once (128 columns: 16 lanes, two segments a warp; 16 columns: 2 lanes).
+__device__ __forceinline__ int seg_lanes(int width) {
+  int L = 1;
+  while (L < 32 && 2 * L <= width / 8) L *= 2;
+  return L;
+}
+
+// Y = normalize(gelu(X)) in each of `segs` segments of `width` of the 64 rows (in place when
+// Y == X); var = E[x^2] - E[x]^2 as in the JAX kernel.
+template <int NV>
+__device__ __noinline__ void ln_gelu_nv(const float* X, int ldx, float* Y, int ldy, int segs, int width, int L) {
   __syncthreads();
-}
-
-// Row passes: one warp per row segment, two rows at a time. At the widths of the model
-// (a multiple of 128 floats) a lane keeps its 16-byte pieces of both rows in registers, so
-// each row costs one round trip to the workspace; other widths take a plain loop.
-template <int V>  // float4s a lane holds per row: width = 128 V
-__device__ __forceinline__ void load_row(float4 (&v)[V], const float* x) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < V; ++k) v[k] = *reinterpret_cast<const float4*>(x + 128 * k + 4 * lane);
-}
-template <int V>
-__device__ __forceinline__ void store_row(float* y, const float4 (&v)[V]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < V; ++k) *reinterpret_cast<float4*>(y + 128 * k + 4 * lane) = v[k];
-}
-#define K2_F4(OP) OP(x) OP(y) OP(z) OP(w)
-
-// Y[t, :] = normalize(gelu(X[t, :])) over `segs` segments of `width`; var = E[x^2] - E[x]^2
-// as in the JAX kernel; rstd[t * segs + s] kept.
-template <int V>
-__device__ __noinline__ void gelu_normalize_v(const float* X, float* Y, int ld, int segs, float* rstd) {
-  constexpr int width = 128 * V;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r0 = warp; r0 < TILE * segs; r0 += 2 * WARPS) {  // TILE * segs is a multiple of 2 WARPS
-    float4 v[2][V];
-    float s[2], ss[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + i * WARPS;
-      load_row<V>(v[i], X + (r / segs) * ld + (r % segs) * width);
-      s[i] = ss[i] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-#define K2_GELU(c) v[i][k].c = gelu_tanh(v[i][k].c); s[i] += v[i][k].c; ss[i] = fmaf(v[i][k].c, v[i][k].c, ss[i]);
-        K2_F4(K2_GELU)
-#undef K2_GELU
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + i * WARPS;
-      const float mean = warp_sum(s[i]) / width;
-      const float r_ = 1.0f / sqrtf(warp_sum(ss[i]) / width - mean * mean + LN_EPS);
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-#define K2_NORM(c) v[i][k].c = (v[i][k].c - mean) * r_;
-        K2_F4(K2_NORM)
-#undef K2_NORM
-      }
-      store_row<V>(Y + (r / segs) * ld + (r % segs) * width, v[i]);
-      if (lane == 0) rstd[r] = r_;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ void gelu_normalize(const float* X, float* Y, int ld, int segs, int width, float* rstd) {
-  if (width == 128 && ld % 4 == 0 && aligned16(X) && aligned16(Y)) return gelu_normalize_v<1>(X, Y, ld, segs, rstd);
-  if (width == 256 && ld % 4 == 0 && aligned16(X) && aligned16(Y)) return gelu_normalize_v<2>(X, Y, ld, segs, rstd);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < TILE * segs; r += WARPS) {
-    const float* x = X + (r / segs) * ld + (r % segs) * width;
-    float* y = Y + (r / segs) * ld + (r % segs) * width;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane % L, spw = 32 / L;
+  for (int base = warp * spw; base < TILE * segs; base += WARPS * spw) {  // warp-uniform: every lane shuffles
+    const int r = base + lane / L;
+    const bool ok = r < TILE * segs;
+    const int t = ok ? r / segs : 0, o = ok ? (r % segs) * width : 0;
+    float v[NV];
     float s = 0.0f, ss = 0.0f;
-    for (int n = lane; n < width; n += 32) {
-      const float v = gelu_tanh(x[n]);
-      y[n] = v;
-      s += v;
-      ss = fmaf(v, v, ss);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int n = sub + L * i;
+      v[i] = ok && n < width ? gelu_tanh(X[t * ldx + o + n]) : 0.0f;
+      s += v[i];
+      ss = fmaf(v[i], v[i], ss);
     }
-    const float mean = warp_sum(s) / width;
-    const float r_ = 1.0f / sqrtf(warp_sum(ss) / width - mean * mean + LN_EPS);
-    for (int n = lane; n < width; n += 32) y[n] = (y[n] - mean) * r_;
-    if (lane == 0) rstd[r] = r_;
+    for (int sh = L / 2; sh > 0; sh >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, sh);
+      ss += __shfl_xor_sync(0xffffffffu, ss, sh);
+    }
+    const float mean = s / width;
+    const float rs = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int n = sub + L * i;
+      if (ok && n < width) Y[t * ldy + o + n] = (v[i] - mean) * rs;
+    }
   }
-  __syncthreads();
 }
 
-// In place: dX[t, :] = gelu'(P[t, :]) * r (dN - mean(dN) - N mean(dN N)) per segment,
-// the VJP of N = normalize(gelu(P)) with N and r kept from the forward; also written to
-// `copy` (row stride ld) when given.
-template <int V>
-__device__ __noinline__ void gelu_normalize_vjp_v(float* dX, int ldd, const float* P, const float* Nn, int ld,
-                                                  int segs, const float* rstd, float* copy) {
-  constexpr int width = 128 * V;
-  const int warp = threadIdx.x >> 5;
-  for (int r0 = warp; r0 < TILE * segs; r0 += 2 * WARPS) {
-    float4 dx[2][V], nn[2][V], p[2][V];
-    float s[2], sn[2];
+__device__ void ln_gelu(const float* X, int ldx, float* Y, int ldy, int segs, int width) {
+  const int L = seg_lanes(width);
+  if (width <= 8 * L)
+    ln_gelu_nv<8>(X, ldx, Y, ldy, segs, width, L);
+  else
+    ln_gelu_nv<16>(X, ldx, Y, ldy, segs, width, L);
+}
+
+// In place, per segment: dX = gelu'(P) r (dn - mean(dn) - n mean(dn n)), the VJP of
+// n = normalize(gelu(P)), with gelu(P), gelu'(P) (one tanh), its mean and r recomputed from the
+// pre-activation P (shared or device memory). With E (device memory, row stride lde): dn =
+// prob[t, seg] E (the mixer's input gradient of one latent, dX's old value unread), and
+// dp[t, seg] = <E, n>.
+template <int NV>
+__device__ __noinline__ void ln_gelu_vjp_nv(float* dX, int ldd, const float* P, int ldp, int segs, int width, int L,
+                                            const float* E, int lde, const float* prob, float* dp) {
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane % L, spw = 32 / L;
+  for (int base = warp * spw; base < TILE * segs; base += WARPS * spw) {
+    const int r = base + lane / L;
+    const bool ok = r < TILE * segs;
+    const int t = ok ? r / segs : 0, o = ok ? (r % segs) * width : 0;
+    float gv[NV], gd[NV], dn[NV];
+    float s = 0.0f, ss = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + i * WARPS, t = r / segs, o = (r % segs) * width;
-      load_row<V>(dx[i], dX + t * ldd + o);
-      load_row<V>(nn[i], Nn + t * ld + o);
-      load_row<V>(p[i], P + t * ld + o);
+    for (int i = 0; i < NV; ++i) {
+      const int n = sub + L * i;
+      const bool in = ok && n < width;
+      const float2 gg = gelu_and_grad(in ? P[t * ldp + o + n] : 0.0f);
+      gv[i] = in ? gg.x : 0.0f;
+      gd[i] = gg.y;
+      dn[i] = in ? (E ? E[t * lde + o + n] : dX[t * ldd + o + n]) : 0.0f;
+      s += gv[i];
+      ss = fmaf(gv[i], gv[i], ss);
     }
+    for (int sh = L / 2; sh > 0; sh >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, sh);
+      ss += __shfl_xor_sync(0xffffffffu, ss, sh);
+    }
+    const float mean = s / width;
+    const float rs = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
+    const float pr = E && ok ? prob[r] : 0.0f;
+    float sd = 0.0f, sdn = 0.0f, se = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      s[i] = sn[i] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-#define K2_SUMS(c) s[i] += dx[i][k].c; sn[i] = fmaf(dx[i][k].c, nn[i][k].c, sn[i]);
-        K2_F4(K2_SUMS)
-#undef K2_SUMS
+    for (int i = 0; i < NV; ++i) {
+      const int n = sub + L * i;
+      if (ok && n < width) {
+        gv[i] = (gv[i] - mean) * rs;  // n
+        se = fmaf(dn[i], gv[i], se);  // <E, n> before the scale
+        if (E) dn[i] *= pr;
+        sd += dn[i];
+        sdn = fmaf(dn[i], gv[i], sdn);
       }
     }
+    for (int sh = L / 2; sh > 0; sh >>= 1) {
+      sd += __shfl_xor_sync(0xffffffffu, sd, sh);
+      sdn += __shfl_xor_sync(0xffffffffu, sdn, sh);
+      if (E) se += __shfl_xor_sync(0xffffffffu, se, sh);
+    }
+    const float md = sd / width, mdn = sdn / width;
+    if (E && ok && sub == 0) dp[r] = se;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + i * WARPS, t = r / segs, o = (r % segs) * width;
-      const float ms = warp_sum(s[i]) / width, msn = warp_sum(sn[i]) / width, r_ = rstd[r];
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-#define K2_VJP(c) dx[i][k].c = r_ * (dx[i][k].c - ms - nn[i][k].c * msn) * gelu_tanh_grad(p[i][k].c);
-        K2_F4(K2_VJP)
-#undef K2_VJP
-      }
-      store_row<V>(dX + t * ldd + o, dx[i]);
-      if (copy) store_row<V>(copy + t * ld + o, dx[i]);
+    for (int i = 0; i < NV; ++i) {
+      const int n = sub + L * i;
+      if (ok && n < width) dX[t * ldd + o + n] = rs * (dn[i] - md - gv[i] * mdn) * gd[i];
     }
   }
-  __syncthreads();
 }
 
-__device__ void gelu_normalize_vjp(float* dX, int ldd, const float* P, const float* Nn, int ld,
-                                   int segs, int width, const float* rstd, float* copy = nullptr) {
-  const bool vec = ld % 4 == 0 && ldd % 4 == 0 && aligned16(dX) && aligned16(P) && aligned16(Nn) &&
-                   aligned16(copy);
-  if (width == 128 && vec) return gelu_normalize_vjp_v<1>(dX, ldd, P, Nn, ld, segs, rstd, copy);
-  if (width == 256 && vec) return gelu_normalize_vjp_v<2>(dX, ldd, P, Nn, ld, segs, rstd, copy);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < TILE * segs; r += WARPS) {
-    float* dx = dX + (r / segs) * ldd + (r % segs) * width;
-    const float* p = P + (r / segs) * ld + (r % segs) * width;
-    const float* nn = Nn + (r / segs) * ld + (r % segs) * width;
-    float s = 0.0f, sn = 0.0f;
-    for (int n = lane; n < width; n += 32) {
-      s += dx[n];
-      sn = fmaf(dx[n], nn[n], sn);
+__device__ void ln_gelu_vjp(float* dX, int ldd, const float* P, int ldp, int segs, int width,
+                            const float* E = nullptr, int lde = 0, const float* prob = nullptr, float* dp = nullptr) {
+  const int L = seg_lanes(width);
+  if (width <= 8 * L)
+    ln_gelu_vjp_nv<8>(dX, ldd, P, ldp, segs, width, L, E, lde, prob, dp);
+  else
+    ln_gelu_vjp_nv<16>(dX, ldd, P, ldp, segs, width, L, E, lde, prob, dp);
+}
+
+// Y = gelu(X) over [64][width] (in place when Y == X).
+__device__ __noinline__ void gelu_rows(const float* X, int ldx, float* Y, int ldy, int width) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
+    const int t = idx / width, n = idx - t * width;
+    Y[t * ldy + n] = gelu_tanh(X[t * ldx + n]);
+  }
+}
+
+// dX *= gelu'(Q) (Q in the block's workspace, [64][width] dense: written by this block, so read
+// at L2 and not through the read-only cache, which may still hold an earlier item's values).
+__device__ __noinline__ void mul_gelu_grad(float* dX, int ldd, const float* Q, int width) {
+  __syncthreads();
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
+    const int t = idx / width, n = idx - t * width;
+    dX[t * ldd + n] *= gelu_and_grad(__ldcg(Q + idx)).y;
+  }
+}
+
+// dX = 0 where the ReLU's output H is not positive.
+__device__ __noinline__ void relu_mask(float* dX, int ldd, const float* Hh, int ldh, int width) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
+    const int t = idx / width, n = idx - t * width;
+    if (!(Hh[t * ldh + n] > 0.0f)) dX[t * ldd + n] = 0.0f;
+  }
+}
+
+// dst[t * width + n] = X[t * ld + n] (a tile into the workspace, row stride width).
+__device__ __noinline__ void copy_out(float* dst, const float* X, int ld, int width) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
+    const int t = idx / width, n = idx - t * width;
+    dst[idx] = X[t * ld + n];
+  }
+}
+
+// dst[n] (+)= sum_t sum_h dY[t, h * fold + n] for n < fold, h < width / fold (a bias gradient;
+// fold < width sums the heads of the mixer's output).
+__device__ __noinline__ void col_sums(const float* dY, int ld, int width, int fold, float* dst, bool first) {
+  __syncthreads();
+  for (int n = threadIdx.x; n < fold; n += THREADS) {
+    float s = 0.0f;
+    for (int t = 0; t < TILE; ++t)
+      for (int h = n; h < width; h += fold) s += dY[t * ld + h];
+    dst[n] = first ? s : dst[n] + s;
+  }
+}
+
+// nbar[t, h * hidm + j] (+)= prob[t, h] nn[t, h * hidm + j].
+__device__ __noinline__ void accum_nbar(float* nbar, const float* nn, int ld, const float* prob, int H, int hidm,
+                                        bool first) {
+  __syncthreads();
+  const int HH = H * hidm;
+  for (int idx = threadIdx.x; idx < TILE * HH; idx += THREADS) {
+    const int t = idx / HH, n = idx - t * HH;
+    const float v = prob[t * H + n / hidm] * nn[t * ld + n];
+    nbar[t * ld + n] = first ? v : nbar[t * ld + n] + v;
+  }
+}
+
+// logit[t, h] = hq[t] . A[:, h] + ab[h] + wb[t] (wb zero past the last coordinate).
+__device__ __noinline__ void logits(const float* hq, int ldh, int hid, const float* __restrict__ Az,
+                                    const float* __restrict__ abz, const float* __restrict__ wbz, int rows, int H,
+                                    float* out) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * H; idx += THREADS) {
+    const int t = idx / H, h = idx - t * H;
+    float s = 0.0f;
+    for (int k = 0; k < hid; ++k) s = fmaf(hq[t * ldh + k], __ldg(Az + k * H + h), s);
+    out[idx] = s + __ldg(abz + h) + (t < rows ? __ldg(wbz + t) : 0.0f);
+  }
+}
+
+// The softmax over latents of s_prob [Z][64][H], in place.
+__device__ __noinline__ void softmax_z(float* s_prob, int Z, int H) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * H; idx += THREADS) {
+    float m = -INFINITY;
+    for (int z = 0; z < Z; ++z) m = fmaxf(m, s_prob[z * TILE * H + idx]);
+    float sum = 0.0f;
+    for (int z = 0; z < Z; ++z) {
+      const float e = expf(s_prob[z * TILE * H + idx] - m);
+      s_prob[z * TILE * H + idx] = e;
+      sum += e;
     }
-    const float ms = warp_sum(s) / width, msn = warp_sum(sn) / width, r_ = rstd[r];
-    float* cp = copy ? copy + (r / segs) * ld + (r % segs) * width : nullptr;
-    for (int n = lane; n < width; n += 32) {
-      dx[n] = r_ * (dx[n] - ms - nn[n] * msn) * gelu_tanh_grad(p[n]);
-      if (cp) cp[n] = dx[n];
+    for (int z = 0; z < Z; ++z) s_prob[z * TILE * H + idx] /= sum;
+  }
+}
+
+// dlogit_z = p_z (dp_z - sum_z' p_z' dp_z'), in place over dp.
+__device__ __noinline__ void softmax_vjp(const float* s_prob, float* s_dp, int Z, int H) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * H; idx += THREADS) {
+    float s = 0.0f;
+    for (int z = 0; z < Z; ++z) s = fmaf(s_prob[z * TILE * H + idx], s_dp[z * TILE * H + idx], s);
+    for (int z = 0; z < Z; ++z) {
+      const int k = z * TILE * H + idx;
+      s_dp[k] = s_prob[k] * (s_dp[k] - s);
     }
   }
-  __syncthreads();
 }
 
-// Elementwise passes over [TILE][width]: a warp per row, lanes along it.
-__device__ void gelu_rows(const float* X, float* Y, int ld, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < TILE; t += WARPS)
+// The logit chain's VJP of one latent: dA[k, h] (+)= sum_t hq[t, k] dlog[t, h], dab[h] (+)=
+// sum_t dlog[t, h] (first: store), dwb[t] = sum_h dlog[t, h] (t < rows), and dhq[t, k] =
+// (hq > 0) sum_h dlog[t, h] A[k, h].
+__device__ __noinline__ void logit_vjp(const float* hq, int ldh, int hid, const float* dlog, int H,
+                                       const float* __restrict__ Az, float* dA, float* dab, float* dwb, int rows,
+                                       bool first, float* dhq, int ldq) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < hid * H; idx += THREADS) {
+    const int k = idx / H, h = idx - k * H;
+    float s = 0.0f;
+    for (int t = 0; t < TILE; ++t) s = fmaf(hq[t * ldh + k], dlog[t * H + h], s);
+    dA[idx] = first ? s : dA[idx] + s;
+  }
+  for (int h = threadIdx.x; h < H; h += THREADS) {
+    float s = 0.0f;
+    for (int t = 0; t < TILE; ++t) s += dlog[t * H + h];
+    dab[h] = first ? s : dab[h] + s;
+  }
+  for (int t = threadIdx.x; t < rows; t += THREADS) {
+    float s = 0.0f;
+    for (int h = 0; h < H; ++h) s += dlog[t * H + h];
+    dwb[t] = s;
+  }
+  for (int idx = threadIdx.x; idx < TILE * hid; idx += THREADS) {
+    const int t = idx / hid, k = idx - t * hid;
+    float s = 0.0f;
+    for (int h = 0; h < H; ++h) s = fmaf(dlog[t * H + h], __ldg(Az + k * H + h), s);
+    dhq[t * ldq + k] = hq[t * ldh + k] > 0.0f ? s : 0.0f;
+  }
+}
+
+// The head's last layer (N = out, on the CUDA cores): dh2[t, k] = sum_o g[t, o] h_w3[k, o] (g
+// zero past the last coordinate); with weight gradients dh_w3[k, o] (+)= sum_t h2[t, k] g[t, o]
+// and dh_b3[o] (+)= sum_t g[t, o].
+__device__ __noinline__ void head_vjp(const float* gsrc, int rows, int out, const float* __restrict__ h_w3, int hid,
+                                      float* dh2, int ldd, const float* h2, int ld2, float* dw, float* db,
+                                      bool first) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * hid; idx += THREADS) {
+    const int t = idx / hid, k = idx - t * hid;
+    float s = 0.0f;
+    if (t < rows)
+      for (int o = 0; o < out; ++o) s = fmaf(gsrc[t * out + o], __ldg(h_w3 + k * out + o), s);
+    dh2[t * ldd + k] = s;
+  }
+  if (!dw) return;
+  for (int idx = threadIdx.x; idx < hid * out; idx += THREADS) {
+    const int k = idx / out, o = idx - k * out;
+    float s = 0.0f;
+    for (int t = 0; t < rows; ++t) s = fmaf(h2[t * ld2 + k], gsrc[t * out + o], s);
+    dw[idx] = first ? s : dw[idx] + s;
+  }
+  for (int o = threadIdx.x; o < out; o += THREADS) {
+    float s = 0.0f;
+    for (int t = 0; t < rows; ++t) s += gsrc[t * out + o];
+    db[o] = first ? s : db[o] + s;
+  }
+}
+
+// Y[t, n] = g[t, n] for t < rows, else 0 (without the tail the cotangent is dy).
+__device__ __noinline__ void load_g(float* Y, int ld, const float* __restrict__ gsrc, int rows, int width) {
+  __syncthreads();
 #pragma unroll 4
-    for (int n = lane; n < width; n += 32) Y[t * ld + n] = gelu_tanh(X[t * ld + n]);
-  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
+    const int t = idx / width, n = idx - t * width;
+    Y[t * ld + n] = t < rows ? __ldg(gsrc + idx) : 0.0f;
+  }
 }
 
-// dX *= gelu'(P).
-__device__ void mul_gelu_grad(float* dX, int ldd, const float* P, int ld, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < TILE; t += WARPS)
-#pragma unroll 4
-    for (int n = lane; n < width; n += 32) dX[t * ldd + n] *= gelu_tanh_grad(P[t * ld + n]);
-  __syncthreads();
+// ---- The kernels -------------------------------------------------------------------------------
+// Pass 0: the shared weights into the staged layout `gemm` copies whole (B_SPLIT), once a launch:
+// entry j's B (K x N) as blocks of SLOT floats, one per 16-deep chunk kc and WN slab s (kc major),
+// each holding part, k step q, n group, k group, 8 rows, 4 k, i.e. element (16 kc + 8 q + 4 kg + i,
+// WN s + 8 ng + r) of B; part p the tf32 rounding of what parts 0 .. p - 1 left.
+template <int WN>
+__global__ void split_weights_kernel(const Params P) {
+  using Cl = Cls<WN>;
+  const Dims& d = P.d;
+  const float* src[9] = {P.q_w1, P.v_w1, P.fw, P.m_w2, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
+  const int per = d.split_n / 2;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < d.split_total;
+       idx += (long long)gridDim.x * blockDim.x) {
+    int j = 0;  // the laid-out entry holding idx: the last whose offset is at most idx
+    for (int jj = 1; jj < 18; ++jj)
+      if (jj % 9 < per && d.split_off[jj] <= idx) j = jj;
+    const long long e = idx - d.split_off[j];
+    const int K = d.split_K[j], N = d.split_N[j];
+    const long long blk = e / Cl::SLOT;
+    const int w = (int)(e % Cl::SLOT);
+    const int kc = (int)(blk / (N / WN)), sl = (int)(blk % (N / WN));
+    const int part = w / (16 * WN), q = w % (16 * WN) / (8 * WN), ng = w % (8 * WN) / 64, kg = w % 64 / 32;
+    const int r = w % 32 / 4, i = w % 4;
+    const int k = 16 * kc + 8 * q + 4 * kg + i, n = WN * sl + 8 * ng + r;
+    float x = j < 9 ? src[j][(size_t)k * N + n] : src[j - 9][(size_t)n * K + k];  // B of X W, or of dY W^T
+    float v = tf32_round(x);
+    for (int pt = 0; pt < part; ++pt) {
+      x -= v;
+      v = tf32_round(x);
+    }
+    P.work[idx] = v;
+  }
 }
 
-// dX *= (H > 0): the ReLU's VJP from its output.
-__device__ void mul_relu_grad(float* dX, int ldd, const float* Hh, int ld, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < TILE; t += WARPS)
-#pragma unroll 4
-    for (int n = lane; n < width; n += 32)
-      if (!(Hh[t * ld + n] > 0.0f)) dX[t * ldd + n] = 0.0f;
-  __syncthreads();
-}
-
-template <bool WITH_TAIL, bool WGRAD>
-__global__ void __launch_bounds__(THREADS, 2) fused_decode_bwd_kernel(const __grid_constant__ Params P) {
+// Pass 1.
+template <int WN>
+__global__ void __launch_bounds__(THREADS, minb_of(WN)) fused_decode_bwd_kernel(const __grid_constant__ Params P) {
   extern __shared__ __align__(16) float smem[];
   const Dims& d = P.d;
-  const int Z = d.Z, H = d.H, I = d.I, hid = d.hid, D = d.D, hidm = d.hidm;
-  const int HD = d.HD, HH = d.HH, Wd = d.W, half = hid / 2;
-  float* Ws = smem;                          // [STAGE] staging, also wgrad's operands
-  float* GA = Ws + STAGE;                    // [TILE][W] gradient ping-pong buffers: the X
-  float* GB = GA + TILE * Wd;                // of every dX = dY W^T, the dY of every wgrad
-  float* s_prob = GB + TILE * Wd;            // [Z][TILE][H] softmax weights
-  float* s_dlog = s_prob + Z * TILE * H;     // [Z][TILE][H] logit gradients
-  float* s_inv = s_dlog + Z * TILE * H;      // [TILE][I]
-  float* s_dinv = s_inv + TILE * I;          // [TILE][I]
+  const int Z = d.Z, H = d.H, I = d.I, hid = d.hid, D = d.D, hidm = d.hidm, C = d.C;
+  const int HD = d.HD, HH = d.HH, ldh = d.ldh, ldw = d.ldw, half = hid / 2;
+  float* stage = smem;                           // the B staging
+  const int nst = d.stages;
+  float* Pb = stage + stage_floats(WN, nst);     // [64][ldw]
+  float* X1 = Pb + TILE * ldw;                   // [64][ldh]
+  float* W2 = X1 + TILE * ldh;                   // [64][ldw] wide, or X2 and X3 [64][ldh]
+  float* X2 = W2;
+  float* X3 = W2 + TILE * ldh;
+  float* s_prob = W2 + d.n_w2;                   // [Z][64][H] softmax weights
+  float* s_dlog = s_prob + Z * TILE * H;         // [Z][64][H] dp, then dlogit
+  float* s_inv = s_dlog + Z * TILE * H;          // [64][I]
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / d.bpr, j = blockIdx.x % d.bpr;
-  float* work = P.work + (size_t)blockIdx.x * d.work;
-  float* part = P.part + (size_t)blockIdx.x * d.part;
-  float* pA = part;
-  float* pab = pA + d.l_A;
-  float* pG = pab + d.l_ab;
-  float* pc = pG + d.l_G;
-  float* pw = part + d.l_row;
-  // Zero dA and dab, which every tile adds into. The weight sections are stored by the
-  // block's first contribution and added into after; dG and dc are stored whole at its end.
-  for (long long idx = tid; idx < d.l_A + d.l_ab; idx += THREADS) part[idx] = 0.0f;
+  float* ws = P.work + d.split_total + (size_t)blockIdx.x * d.work;
+  auto wsplit = [&](int j) { return P.work + d.split_off[j]; };  // a pre-split weight
+  float* pb = P.part + (size_t)blockIdx.x * d.part;
+  float* pw = pb + (size_t)d.slots * d.l_row;    // the weight gradients, over the whole run
+  const bool wgr = d.wgrad, tail = d.tail;
+  const long long lo = (long long)blockIdx.x * d.ipb;
+  const long long hi = lo + d.ipb < d.items ? lo + d.ipb : d.items;
+  const int b_first = (int)(lo / d.nt);
 
-  const size_t zT = (size_t)TILE;
-  float *FQ = work + d.o_fq, *HQ = work + d.o_hq, *FV = work + d.o_fv, *HV = work + d.o_hv;
-  float *U = work + d.o_u, *TT = work + d.o_t, *DPRE = work + d.o_dpre, *PRE = work + d.o_pre;
-  float *NN = work + d.o_nn;
-  float *VM = work + d.o_vm, *RTs = work + d.o_rt, *RM = work + d.o_rm;
-  float *Y = work + d.o_y, *DY = work + d.o_dy;
-  float *Y1 = work + d.o_y1, *Q1 = work + d.o_q1, *T1 = work + d.o_t1, *Q2 = work + d.o_q2;
-  float *Y2 = work + d.o_y2, *Q3 = work + d.o_q3, *H1 = work + d.o_h1, *Q4 = work + d.o_q4;
-  float *H2 = work + d.o_h2, *RT1 = work + d.o_rt1;
-  // Weight partials (only read when WGRAD).
-  float* wq_w1 = pw + d.w_off[0];
-  float* wq_b1 = pw + d.w_off[1];
-  float* wv_w1 = pw + d.w_off[2];
-  float* wv_b1 = pw + d.w_off[3];
-  float* wfw = pw + d.w_off[4];
-  float* wfb = pw + d.w_off[5];
-  float* wm_w2 = pw + d.w_off[6];
-  float* wm_b2 = pw + d.w_off[7];
+  // Epilogues: a shared-memory store (with a bias and a ReLU), a store into device memory, an
+  // add into a block-private partial (stored by its first contribution), and that add transposed.
+  auto to_smem = [](float* Y, int ld, const float* bias, bool relu) {
+    return [=](int m, int n, float v0, float v1) {
+      if (bias) { v0 += __ldg(bias + n); v1 += __ldg(bias + n + 1); }
+      if (relu) { v0 = fmaxf(v0, 0.0f); v1 = fmaxf(v1, 0.0f); }
+      Y[m * ld + n] = v0;
+      Y[m * ld + n + 1] = v1;
+    };
+  };
+  auto to_part = [](float* dst, int ld, bool first) { return ToPart{dst, ld, first, false}; };
+  auto to_part_t = [](float* dst, int ld, bool first) { return ToPart{dst, ld, first, true}; };  // dst[n][m]
 
-  const int tile0 = j * d.tpb, tile1 = min(d.ntiles, (j + 1) * d.tpb);
-  for (int tile = tile0; tile < tile1; ++tile) {
-    const int c0 = tile * TILE;
-    const size_t tl = tile - tile0;  // the tile's place in the block's kept t and dpre rows
-    const int rows = min(TILE, d.C - c0);
-    __syncthreads();
+  for (long long item = lo; item < hi; ++item) {
+    const int b = (int)(item / d.nt), tile = (int)(item % d.nt);
+    const int c0 = tile * TILE, rows = min(TILE, C - c0);
+    const bool first_row = item == lo || tile == 0, first_w = item == lo;
+    float* pr = pb + (size_t)(b - b_first) * d.l_row;
+    float* pA = pr;
+    float* pab = pA + d.l_A;
+    float* pG = pab + d.l_ab;
+    float* pc = pG + d.l_G;
 
-    // 1. Logits of every latent, then the softmax over latents.
+    // 1. Logits of every latent (the query chain), then the softmax over latents.
     for (int z = 0; z < Z; ++z) {
       const size_t bz = (size_t)b * Z + z;
-      const float* src = P.inv + (bz * d.C + c0) * I;
-      for (int idx = tid; idx < TILE * I; idx += THREADS) s_inv[idx] = idx / I < rows ? src[idx] : 0.0f;
-      __syncthreads();
-      float* fq = FQ + z * zT * hid;
-      float* hq = HQ + z * zT * hid;
-      rff_features(s_inv, I, P.q_coeff, half, fq, hid);
-      dense<ACT_RELU, false>(fq, hid, hid, P.q_w1, hid, P.q_b1, hq, hid, Ws);
-      float* logit = s_prob + z * TILE * H;
-      dense<ACT_NONE, false>(hq, hid, hid, P.A + bz * hid * H, H, P.ab + bz * H, logit, H, Ws);
-      for (int idx = tid; idx < TILE * H; idx += THREADS) {
-        const int t = idx / H;
-        if (t < rows) logit[idx] += P.wb[bz * d.C + c0 + t];
-      }
-      __syncthreads();
+      load_inv(s_inv, P.inv + (bz * C + c0) * I, rows, I);
+      rff(s_inv, I, P.q_coeff, half, X1, ldh);
+      gemm<WN, false, B_SPLIT>(X1, ldh, TILE, hid, wsplit(SPLIT_Q), 0, hid, stage, nst, to_smem(X2, ldh, P.q_b1, true));
+      logits(X2, ldh, hid, P.A + bz * hid * H, P.ab + bz * H, P.wb + bz * C + c0, rows, H, s_prob + z * TILE * H);
     }
-    for (int idx = tid; idx < TILE * H; idx += THREADS) {
-      float m = -INFINITY;
-      for (int z = 0; z < Z; ++z) m = fmaxf(m, s_prob[z * TILE * H + idx]);
-      float sum = 0.0f;
-      for (int z = 0; z < Z; ++z) {
-        const float e = expf(s_prob[z * TILE * H + idx] - m);
-        s_prob[z * TILE * H + idx] = e;
-        sum += e;
-      }
-      for (int z = 0; z < Z; ++z) s_prob[z * TILE * H + idx] /= sum;
-    }
-    for (int idx = tid; idx < TILE * Wd; idx += THREADS) Y[idx] = 0.0f;
-    __syncthreads();
+    softmax_z(s_prob, Z, H);
 
-    // 2. Value chains, activations kept; y = sum_z p_z v_z.
+    // 2. Value chains, weighted into nbar (W2, row stride ldw).
     for (int z = 0; z < Z; ++z) {
       const size_t bz = (size_t)b * Z + z;
-      const float* src = P.inv + (bz * d.C + c0) * I;
-      for (int idx = tid; idx < TILE * I; idx += THREADS) s_inv[idx] = idx / I < rows ? src[idx] : 0.0f;
-      __syncthreads();
-      float *fv = FV + z * zT * hid, *hv = HV + z * zT * hid, *u = U + z * zT * hid;
-      float *tt = TT + (z * d.tpb + tl) * zT * hid;
-      float *pre = PRE + z * zT * HH, *nn = NN + z * zT * HH, *vm = VM + z * zT * HD;
-      rff_features(s_inv, I, P.v_coeff, half, fv, hid);
-      dense<ACT_RELU, false>(fv, hid, hid, P.v_w1, hid, P.v_b1, hv, hid, Ws);
-      dense<ACT_NONE, false>(hv, hid, hid, P.fw, hid, P.fb, u, hid, Ws);
-      gelu_normalize(u, tt, hid, 1, hid, RTs + z * TILE);
-      dense<ACT_NONE, false>(tt, hid, hid, P.G + bz * hid * HH, HH, P.c + bz * HH, pre, HH, Ws);
-      gelu_normalize(pre, nn, HH, H, hidm, RM + z * TILE * H);
+      load_inv(s_inv, P.inv + (bz * C + c0) * I, rows, I);
+      rff(s_inv, I, P.v_coeff, half, X1, ldh);
+      gemm<WN, false, B_SPLIT>(X1, ldh, TILE, hid, wsplit(SPLIT_V), 0, hid, stage, nst, to_smem(Pb, ldh, P.v_b1, true));  // hv
+      gemm<WN, false, B_SPLIT>(Pb, ldh, TILE, hid, wsplit(SPLIT_F), 0, hid, stage, nst, to_smem(X1, ldh, P.fb, false));     // u
+      ln_gelu(X1, ldh, X1, ldh, 1, hid);                                                                   // t
+      gemm<WN, false, B_KN>(X1, ldh, TILE, hid, P.G + bz * hid * HH, HH, HH, stage, nst,
+                            to_smem(Pb, ldw, P.c + bz * HH, false));                                      // pre
+      ln_gelu(Pb, ldw, Pb, ldw, H, hidm);                                                                  // nn
+      accum_nbar(W2, Pb, ldw, s_prob + z * TILE * H, H, hidm, z == 0);
+    }
+    if (wgr) copy_out(ws + d.w_n, W2, ldw, HH);
+
+    // 3. The tail forward (its activations into the workspace) and its VJP: dy in W2.
+    const float* gsrc = P.g + ((size_t)b * C + c0) * d.out;
+    if (tail) {
+      for (int h = 0; h < H; ++h)  // y = nbar m_w2 + m_b2, a head at a time
+        gemm<WN, false, B_SPLIT>(W2 + h * hidm, ldw, TILE, hidm, wsplit(SPLIT_M), 0, D, stage, nst,
+                              to_smem(Pb + h * D, ldw, P.m_b2, false));
+      if (wgr) copy_out(ws + d.w_y, Pb, ldw, HD);
+      gemm<WN, false, B_SPLIT>(Pb, ldw, TILE, HD, wsplit(SPLIT_O), 0, HD, stage, nst, to_smem(W2, ldw, P.o_b, false));  // y1
+      if (wgr) copy_out(ws + d.w_y1, W2, ldw, HD);
+      gemm<WN, false, B_SPLIT>(W2, ldw, TILE, HD, wsplit(SPLIT_P1), 0, HD, stage, nst, to_smem(Pb, ldw, P.p_b1, false));  // q1
+      copy_out(ws + d.w_q1, Pb, ldw, HD);
+      ln_gelu(Pb, ldw, Pb, ldw, 1, HD);                                                                    // t1
+      gemm<WN, false, B_SPLIT>(Pb, ldw, TILE, HD, wsplit(SPLIT_P2), 0, HD, stage, nst, to_smem(W2, ldw, P.p_b2, false));  // q2
+      copy_out(ws + d.w_q2, W2, ldw, HD);
+      gelu_rows(W2, ldw, W2, ldw, HD);                                                                     // y2
+      gemm<WN, false, B_SPLIT>(W2, ldw, TILE, HD, wsplit(SPLIT_H1), 0, hid, stage, nst, to_smem(X1, ldh, P.h_b1, false));  // q3
+      copy_out(ws + d.w_q3, X1, ldh, hid);
+      gelu_rows(X1, ldh, X1, ldh, hid);                                                                    // h1
+      gemm<WN, false, B_SPLIT>(X1, ldh, TILE, hid, wsplit(SPLIT_H2), 0, hid, stage, nst, to_smem(Pb, ldh, P.h_b2, false));  // q4
+      copy_out(ws + d.w_q4, Pb, ldh, hid);
+      gelu_rows(Pb, ldh, Pb, ldh, hid);                                                                    // h2
+      // Head layer 3 on the CUDA cores: dh2 into X2; then dq4 = dh2 gelu'(q4).
+      head_vjp(gsrc, rows, d.out, P.h_w3, hid, X2, ldh, Pb, ldh, wgr ? pw + d.w_off[18] : nullptr,
+               pw + d.w_off[19], first_w);
+      mul_gelu_grad(X2, ldh, ws + d.w_q4, hid);
+      if (wgr) {  // dh_w2 = h1^T dq4 (h1 in X1)
+        gemm<WN, true, B_KN_SMEM>(X1, ldh, hid, TILE, X2, ldh, hid, stage, nst, to_part(pw + d.w_off[16], hid, first_w));
+        col_sums(X2, ldh, hid, hid, pw + d.w_off[17], first_w);
+      }
+      gemm<WN, false, B_SPLIT>(X2, ldh, TILE, hid, wsplit(SPLIT_T + SPLIT_H2), 0, hid, stage, nst, to_smem(X3, ldh, nullptr, false));  // dh1
+      mul_gelu_grad(X3, ldh, ws + d.w_q3, hid);                                                              // dq3
+      if (wgr) {  // dh_w1 = y2^T dq3: dq3^T y2 transposed, y2 = gelu(q2) recomputed into P
+        gelu_rows(ws + d.w_q2, HD, Pb, ldw, HD);
+        gemm<WN, true, B_KN_SMEM>(X3, ldh, hid, TILE, Pb, ldw, HD, stage, nst, to_part_t(pw + d.w_off[14], hid, first_w));
+        col_sums(X3, ldh, hid, hid, pw + d.w_off[15], first_w);
+      }
+      gemm<WN, false, B_SPLIT>(X3, ldh, TILE, hid, wsplit(SPLIT_T + SPLIT_H1), 0, HD, stage, nst, to_smem(Pb, ldw, nullptr, false));  // dy2
+      mul_gelu_grad(Pb, ldw, ws + d.w_q2, HD);                                                               // dq2
+      if (wgr) {  // dp_w2 = t1^T dq2, t1 recomputed from q1 into W2
+        ln_gelu(ws + d.w_q1, HD, W2, ldw, 1, HD);
+        gemm<WN, true, B_KN_SMEM>(Pb, ldw, HD, TILE, W2, ldw, HD, stage, nst, to_part_t(pw + d.w_off[12], HD, first_w));
+        col_sums(Pb, ldw, HD, HD, pw + d.w_off[13], first_w);
+      }
+      gemm<WN, false, B_SPLIT>(Pb, ldw, TILE, HD, wsplit(SPLIT_T + SPLIT_P2), 0, HD, stage, nst, to_smem(W2, ldw, nullptr, false));  // dt1
+      ln_gelu_vjp(W2, ldw, ws + d.w_q1, HD, 1, HD);                                                        // dq1
+      if (wgr) {  // dp_w1 = y1^T dq1
+        gemm<WN, true, B_KN>(W2, ldw, HD, TILE, ws + d.w_y1, HD, HD, stage, nst, to_part_t(pw + d.w_off[10], HD, first_w));
+        col_sums(W2, ldw, HD, HD, pw + d.w_off[11], first_w);
+      }
+      gemm<WN, false, B_SPLIT>(W2, ldw, TILE, HD, wsplit(SPLIT_T + SPLIT_P1), 0, HD, stage, nst, to_smem(Pb, ldw, nullptr, false));  // dy1
+      if (wgr) {  // do_w = y^T dy1
+        gemm<WN, true, B_KN>(Pb, ldw, HD, TILE, ws + d.w_y, HD, HD, stage, nst, to_part_t(pw + d.w_off[8], HD, first_w));
+        col_sums(Pb, ldw, HD, HD, pw + d.w_off[9], first_w);
+      }
+      gemm<WN, false, B_SPLIT>(Pb, ldw, TILE, HD, wsplit(SPLIT_T + SPLIT_O), 0, HD, stage, nst, to_smem(W2, ldw, nullptr, false));  // dy
+    } else {
+      load_g(W2, ldw, gsrc, rows, HD);
+    }
+
+    // The mixer's VJP: dm_w2 = sum_h nbar_h^T dy_h (dy_h^T nbar_h transposed), dm_b2, and
+    // e_h = dy_h m_w2^T into the workspace.
+    if (wgr) {
       for (int h = 0; h < H; ++h)
-        dense<ACT_NONE, false>(nn + h * hidm, HH, hidm, P.m_w2, D, P.m_b2, vm + h * D, HD, Ws);
-      const float* prob = s_prob + z * TILE * H;
-      for (int idx = tid; idx < TILE * HD; idx += THREADS) {
-        const int t = idx / HD, n = idx - t * HD;
-        Y[t * Wd + n] = fmaf(prob[t * H + n / D], vm[idx], Y[t * Wd + n]);
-      }
-      __syncthreads();
+        gemm<WN, true, B_KN>(W2 + h * D, ldw, D, TILE, ws + d.w_n + h * hidm, HH, hidm, stage, nst,
+                             to_part_t(pw + d.w_off[6], D, first_w && h == 0));
+      col_sums(W2, ldw, HD, D, pw + d.w_off[7], first_w);
+    }
+    for (int h = 0; h < H; ++h) {
+      float* e = ws + d.w_e + h * hidm;
+      gemm<WN, false, B_SPLIT>(W2 + h * D, ldw, TILE, D, wsplit(SPLIT_T + SPLIT_M), 0, hidm, stage, nst,
+                            [=](int m, int n, float v0, float v1) {
+                              e[m * HH + n] = v0;
+                              e[m * HH + n + 1] = v1;
+                            });
     }
 
-    // 3. The tail forward and its VJP: dy.
-    {
-      const float* gsrc = P.g + ((size_t)b * d.C + c0) * d.out;
-      for (int idx = tid; idx < TILE * d.out; idx += THREADS) {
-        const int t = idx / d.out, n = idx - t * d.out;
-        (WITH_TAIL ? GA : DY)[t * Wd + n] = t < rows ? gsrc[idx] : 0.0f;
-      }
-      __syncthreads();
-    }
-    if (WITH_TAIL) {
-      const int out = d.out;
-      dense<ACT_NONE, false>(Y, Wd, HD, P.o_w, HD, P.o_b, Y1, HD, Ws);
-      dense<ACT_NONE, false>(Y1, HD, HD, P.p_w1, HD, P.p_b1, Q1, HD, Ws);
-      gelu_normalize(Q1, T1, HD, 1, HD, RT1);
-      dense<ACT_NONE, false>(T1, HD, HD, P.p_w2, HD, P.p_b2, Q2, HD, Ws);
-      gelu_rows(Q2, Y2, HD, HD);
-      dense<ACT_NONE, false>(Y2, HD, HD, P.h_w1, hid, P.h_b1, Q3, hid, Ws);
-      gelu_rows(Q3, H1, hid, hid);
-      dense<ACT_NONE, false>(H1, hid, hid, P.h_w2, hid, P.h_b2, Q4, hid, Ws);
-      gelu_rows(Q4, H2, hid, hid);
-      // GA = g. Head layer 3, 2, 1, block FFN dense 2 and 1, out-projection.
-      if (WGRAD) wgrad(H2, hid, hid, GA, Wd, out, pw + d.w_off[18], pw + d.w_off[19], Ws, tile > tile0);
-      dense<ACT_NONE, true>(GA, Wd, out, P.h_w3, hid, nullptr, GB, Wd, Ws);
-      mul_gelu_grad(GB, Wd, Q4, hid, hid);
-      if (WGRAD) wgrad(H1, hid, hid, GB, Wd, hid, pw + d.w_off[16], pw + d.w_off[17], Ws, tile > tile0);
-      dense<ACT_NONE, true>(GB, Wd, hid, P.h_w2, hid, nullptr, GA, Wd, Ws);
-      mul_gelu_grad(GA, Wd, Q3, hid, hid);
-      if (WGRAD) wgrad(Y2, HD, HD, GA, Wd, hid, pw + d.w_off[14], pw + d.w_off[15], Ws, tile > tile0);
-      dense<ACT_NONE, true>(GA, Wd, hid, P.h_w1, HD, nullptr, GB, Wd, Ws);
-      mul_gelu_grad(GB, Wd, Q2, HD, HD);
-      if (WGRAD) wgrad(T1, HD, HD, GB, Wd, HD, pw + d.w_off[12], pw + d.w_off[13], Ws, tile > tile0);
-      dense<ACT_NONE, true>(GB, Wd, HD, P.p_w2, HD, nullptr, GA, Wd, Ws);
-      gelu_normalize_vjp(GA, Wd, Q1, T1, HD, 1, HD, RT1);
-      if (WGRAD) wgrad(Y1, HD, HD, GA, Wd, HD, pw + d.w_off[10], pw + d.w_off[11], Ws, tile > tile0);
-      dense<ACT_NONE, true>(GA, Wd, HD, P.p_w1, HD, nullptr, GB, Wd, Ws);
-      if (WGRAD) wgrad(Y, Wd, HD, GB, Wd, HD, pw + d.w_off[8], pw + d.w_off[9], Ws, tile > tile0);
-      dense<ACT_NONE, true>(GB, Wd, HD, P.o_w, HD, nullptr, DY, Wd, Ws);
-    }
-
-    // 4. Softmax VJP: dp_z = <dy, v_z> per head, dlogit_z = p_z (dp_z - sum_z' p_z' dp_z').
-    // A warp per (z, t, h), lanes along the head, four at a time.
-    for (int i0 = (tid >> 5) * 4; i0 < Z * TILE * H; i0 += WARPS * 4) {
-      float s[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = min(i0 + u, Z * TILE * H - 1);
-        const int z = idx / (TILE * H), r = idx - z * TILE * H, t = r / H, h = r - t * H;
-        const float* vm = VM + z * zT * HD + t * HD + h * D;
-        const float* dy = DY + t * Wd + h * D;
-        s[u] = 0.0f;
-        for (int n = tid & 31; n < D; n += 32) s[u] = fmaf(dy[n], vm[n], s[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        s[u] = warp_sum(s[u]);
-        if ((tid & 31) == 0 && i0 + u < Z * TILE * H) s_dlog[i0 + u] = s[u];
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TILE * H; idx += THREADS) {
-      float s = 0.0f;
-      for (int z = 0; z < Z; ++z) s = fmaf(s_prob[z * TILE * H + idx], s_dlog[z * TILE * H + idx], s);
-      for (int z = 0; z < Z; ++z) {
-        const int k = z * TILE * H + idx;
-        s_dlog[k] = s_prob[k] * (s_dlog[k] - s);
-      }
-    }
-    __syncthreads();
-
-    // 5. Per latent: the value chain's and the logit chain's VJPs.
+    // 4. Per latent: the value chain again, then its VJP.
     for (int z = 0; z < Z; ++z) {
       const size_t bz = (size_t)b * Z + z;
-      float *fq = FQ + z * zT * hid, *hq = HQ + z * zT * hid;
-      float *fv = FV + z * zT * hid, *hv = HV + z * zT * hid, *u = U + z * zT * hid;
-      float *tt = TT + (z * d.tpb + tl) * zT * hid;
-      float *pre = PRE + z * zT * HH, *nn = NN + z * zT * HH;
-      const float* prob = s_prob + z * TILE * H;
-      const float* dlog = s_dlog + z * TILE * H;
-      for (int idx = tid; idx < TILE * I; idx += THREADS) s_dinv[idx] = 0.0f;
-      // dv_mix = p_z dy, per head.
-      for (int idx = tid; idx < TILE * HD; idx += THREADS) {
-        const int t = idx / HD, n = idx - t * HD;
-        GA[t * Wd + n] = prob[t * H + n / D] * DY[t * Wd + n];
+      const float* Gz = P.G + bz * hid * HH;
+      load_inv(s_inv, P.inv + (bz * C + c0) * I, rows, I);
+      rff(s_inv, I, P.v_coeff, half, X1, ldh);
+      gemm<WN, false, B_SPLIT>(X1, ldh, TILE, hid, wsplit(SPLIT_V), 0, hid, stage, nst, to_smem(X2, ldh, P.v_b1, true));  // hv
+      gemm<WN, false, B_SPLIT>(X2, ldh, TILE, hid, wsplit(SPLIT_F), 0, hid, stage, nst, to_smem(X1, ldh, P.fb, false));     // u
+      ln_gelu(X1, ldh, X3, ldh, 1, hid);                                                                   // t
+      gemm<WN, false, B_KN>(X3, ldh, TILE, hid, Gz, HH, HH, stage, nst, to_smem(Pb, ldw, P.c + bz * HH, false));  // pre
+      // dpre from dn = p e, and dp = <e, nn>, per head.
+      ln_gelu_vjp(Pb, ldw, Pb, ldw, H, hidm, ws + d.w_e, HH, s_prob + z * TILE * H, s_dlog + z * TILE * H);
+      gemm<WN, true, B_KN_SMEM>(X3, ldh, hid, TILE, Pb, ldw, HH, stage, nst, to_part(pG + (size_t)z * hid * HH, HH, first_row));
+      col_sums(Pb, ldw, HH, HH, pc + (size_t)z * HH, first_row);
+      gemm<WN, false, B_NK>(Pb, ldw, TILE, HH, Gz, HH, hid, stage, nst, to_smem(X3, ldh, nullptr, false));  // dt
+      ln_gelu_vjp(X3, ldh, X1, ldh, 1, hid);                                                            // du
+      if (wgr) {  // dfw = hv^T du
+        gemm<WN, true, B_KN_SMEM>(X2, ldh, hid, TILE, X3, ldh, hid, stage, nst, to_part(pw + d.w_off[4], hid, first_w && z == 0));
+        col_sums(X3, ldh, hid, hid, pw + d.w_off[5], first_w && z == 0);
       }
-      __syncthreads();
-      for (int h = 0; h < H; ++h) {
-        if (WGRAD)
-          wgrad(nn + h * hidm, HH, hidm, GA + h * D, Wd, D, wm_w2, wm_b2, Ws, tile > tile0 || z > 0 || h > 0);
-        dense<ACT_NONE, true>(GA + h * D, Wd, D, P.m_w2, hidm, nullptr, GB + h * hidm, Wd, Ws);
+      gemm<WN, false, B_SPLIT>(X3, ldh, TILE, hid, wsplit(SPLIT_T + SPLIT_F), 0, hid, stage, nst, to_smem(X1, ldh, nullptr, false));  // dhv
+      relu_mask(X1, ldh, X2, ldh, hid);
+      if (wgr) {  // dv_w1 = F^T dhv, the features recomputed into X2
+        rff(s_inv, I, P.v_coeff, half, X2, ldh);
+        gemm<WN, true, B_KN_SMEM>(X2, ldh, hid, TILE, X1, ldh, hid, stage, nst, to_part(pw + d.w_off[2], hid, first_w && z == 0));
+        col_sums(X1, ldh, hid, hid, pw + d.w_off[3], first_w && z == 0);
       }
-      gelu_normalize_vjp(GB, Wd, pre, nn, HH, H, hidm, RM + z * TILE * H,  // GB = dpre, kept
-                         DPRE + (z * d.tpb + tl) * zT * HH);
-      dense<ACT_NONE, true>(GB, Wd, HH, P.G + bz * hid * HH, hid, nullptr, GA, Wd, Ws);  // dt
-      gelu_normalize_vjp(GA, Wd, u, tt, hid, 1, hid, RTs + z * TILE);                     // du
-      if (WGRAD) wgrad(hv, hid, hid, GA, Wd, hid, wfw, wfb, Ws, tile > tile0 || z > 0);
-      dense<ACT_NONE, true>(GA, Wd, hid, P.fw, hid, nullptr, GB, Wd, Ws);
-      mul_relu_grad(GB, Wd, hv, hid, hid);
-      if (WGRAD) wgrad(fv, hid, hid, GB, Wd, hid, wv_w1, wv_b1, Ws, tile > tile0 || z > 0);
-      dense<ACT_NONE, true>(GB, Wd, hid, P.v_w1, hid, nullptr, GA, Wd, Ws);  // dF (value)
-      rff_features_vjp(fv, hid, GA, Wd, P.v_coeff, half, I, s_dinv);
-      // Logit chain: dA, dab, dwb, then back through the query RFF net. GA and GB
-      // take row stride Wd; the narrow [TILE][H] products are plain loops.
-      const float* Az = P.A + bz * hid * H;
-      float* pAz = pA + (size_t)z * hid * H;
-      for (int idx = tid; idx < hid * H; idx += THREADS) {
-        const int k = idx / H, h = idx - k * H;
-        float s = 0.0f;
-        for (int t = 0; t < TILE; ++t) s = fmaf(hq[t * hid + k], dlog[t * H + h], s);
-        pAz[idx] += s;
-      }
-      for (int h = tid; h < H; h += THREADS) {
-        float s = 0.0f;
-        for (int t = 0; t < TILE; ++t) s += dlog[t * H + h];
-        pab[z * H + h] += s;
-      }
-      for (int t = tid; t < rows; t += THREADS) {
-        float s = 0.0f;
-        for (int h = 0; h < H; ++h) s += dlog[t * H + h];
-        P.dwb[bz * d.C + c0 + t] = s;
-      }
-      for (int idx = tid; idx < TILE * hid; idx += THREADS) {
-        const int t = idx / hid, k = idx - t * hid;
-        float s = 0.0f;
-        for (int h = 0; h < H; ++h) s = fmaf(dlog[t * H + h], __ldg(Az + k * H + h), s);
-        GB[t * Wd + k] = hq[t * hid + k] > 0.0f ? s : 0.0f;
-      }
-      __syncthreads();
-      if (WGRAD) wgrad(fq, hid, hid, GB, Wd, hid, wq_w1, wq_b1, Ws, tile > tile0 || z > 0);
-      dense<ACT_NONE, true>(GB, Wd, hid, P.q_w1, hid, nullptr, GA, Wd, Ws);  // dF (query)
-      rff_features_vjp(fq, hid, GA, Wd, P.q_coeff, half, I, s_dinv);
-      float* dst = P.dinv + (bz * d.C + c0) * I;
-      for (int idx = tid; idx < rows * I; idx += THREADS) dst[idx] = s_dinv[idx];
-      __syncthreads();
+      gemm<WN, false, B_SPLIT>(X1, ldh, TILE, hid, wsplit(SPLIT_T + SPLIT_V), 0, hid, stage, nst, to_smem(X3, ldh, nullptr, false));  // dF
+      rff_vjp(s_inv, I, P.v_coeff, half, X3, ldh, P.dinv + (bz * C + c0) * I, rows, false);
     }
-  }
+    softmax_vjp(s_prob, s_dlog, Z, H);
 
-  // dG = t^T dpre and dc = sum dpre over every row of the block's tiles, once per latent.
-  // Padded rows (past C) have dpre = 0: their cotangent is 0.
-  const int R = (tile1 - tile0) * TILE;
-  for (int z = 0; z < Z; ++z) {
-    const float* tt = TT + (size_t)z * d.tpb * TILE * hid;
-    const float* dpre = DPRE + (size_t)z * d.tpb * TILE * HH;
-    tn_tc<false>(tt, hid, dpre, HH, R, hid, HH, pG + (size_t)z * hid * HH, HH, Ws);
-    for (int n = tid; n < HH; n += THREADS) {
-      float s = 0.0f;
-      for (int r = 0; r < R; ++r) s += dpre[(size_t)r * HH + n];
-      pc[(size_t)z * HH + n] = s;
+    // 5. Per latent: the query chain again, then its VJP.
+    for (int z = 0; z < Z; ++z) {
+      const size_t bz = (size_t)b * Z + z;
+      load_inv(s_inv, P.inv + (bz * C + c0) * I, rows, I);
+      rff(s_inv, I, P.q_coeff, half, X1, ldh);
+      gemm<WN, false, B_SPLIT>(X1, ldh, TILE, hid, wsplit(SPLIT_Q), 0, hid, stage, nst, to_smem(X2, ldh, P.q_b1, true));  // hq
+      logit_vjp(X2, ldh, hid, s_dlog + z * TILE * H, H, P.A + bz * hid * H, pA + (size_t)z * hid * H,
+                pab + (size_t)z * H, P.dwb + bz * C + c0, rows, first_row, X3, ldh);                       // dhq
+      if (wgr) {  // dq_w1 = F^T dhq
+        gemm<WN, true, B_KN_SMEM>(X1, ldh, hid, TILE, X3, ldh, hid, stage, nst, to_part(pw + d.w_off[0], hid, first_w && z == 0));
+        col_sums(X3, ldh, hid, hid, pw + d.w_off[1], first_w && z == 0);
+      }
+      gemm<WN, false, B_SPLIT>(X3, ldh, TILE, hid, wsplit(SPLIT_T + SPLIT_Q), 0, hid, stage, nst, to_smem(X2, ldh, nullptr, false));  // dF
+      rff_vjp(s_inv, I, P.q_coeff, half, X2, ldh, P.dinv + (bz * C + c0) * I, rows, true);
     }
   }
 }
 
 // Pass 2: out = [dA | dab | dG | dc] over all rows (each [B, Z, ...]), then the weight
-// gradients; each element sums its blocks' partials in block order.
-__global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* __restrict__ out,
-                                        const Dims d) {
+// gradients; each element sums its partials in block order: a row's slots in the blocks whose
+// runs touch it, a weight's in every block.
+__global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* __restrict__ out, const Dims d) {
   const long long n_row = (long long)d.B * d.l_row;
   const long long total = n_row + d.l_w;
   const long long sec_len[4] = {d.l_A, d.l_ab, d.l_G, d.l_c};
@@ -998,28 +1227,52 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
         ++sec;
       }
       const long long b = rem / sec_len[sec], e = rem - b * sec_len[sec];
-      for (int j = 0; j < d.bpr; ++j) s += part[(b * d.bpr + j) * d.part + sec_off + e];
+      const long long k0 = b * d.nt / d.ipb, k1 = ((b + 1) * d.nt - 1) / d.ipb;
+      for (long long k = k0; k <= k1; ++k) {
+        const long long slot = b - k * d.ipb / d.nt;
+        s += part[k * d.part + slot * d.l_row + sec_off + e];
+      }
     } else {
-      const long long e = d.l_row + (o - n_row);
-      const long long nblk = (long long)d.B * d.bpr;
-      for (long long k = 0; k < nblk; ++k) s += part[k * d.part + e];
+      const long long e = (long long)d.slots * d.l_row + (o - n_row);
+      for (long long k = 0; k < d.grid; ++k) s += part[k * d.part + e];
     }
     out[o] = s;
   }
 }
 
-size_t smem_bytes(const Dims& d) {
-  return sizeof(float) * ((size_t)STAGE + 2 * (size_t)TILE * d.W + 2 * (size_t)d.Z * TILE * d.H +
-                          2 * (size_t)TILE * d.I);
+// Sets the kernel's shared memory; with `per_sm`, the blocks an SM holds at that size.
+template <int WN>
+cudaError_t prepare(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(fused_decode_bwd_kernel<WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_decode_bwd_kernel<WN>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && per_sm)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_bwd_kernel<WN>, THREADS, smem);
+  return err;
 }
 
-template <bool T, bool W>
-cudaError_t launch_main(const Params& P, size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(fused_decode_bwd_kernel<T, W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t prepare_class(int wn, size_t smem, int* per_sm) {
+  switch (wn) {
+    case 64: return prepare<64>(smem, per_sm);
+    case 32: return prepare<32>(smem, per_sm);
+    case 16: return prepare<16>(smem, per_sm);
+    default: return prepare<8>(smem, per_sm);
+  }
+}
+
+// shape + the grid the card holds; cudaErrorInvalidValue for shapes the kernel does not take.
+cudaError_t layout(const int* dims, int n_dims, Dims& d) {
+  if (n_dims != kNumDims || !shape(dims, d)) return cudaErrorInvalidValue;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = prepare_class(d.wn, (size_t)d.smem, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  fused_decode_bwd_kernel<T, W><<<P.d.B * P.d.bpr, THREADS, smem, s>>>(P);
-  return cudaGetLastError();
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  plan(d, per_sm, sms);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1030,21 +1283,41 @@ extern "C" {
 // sizes <- floats of the reduced output, of the workspace and of the partials.
 int fused_decode_bwd_sizes(const int* dims, int n_dims, long long* sizes) {
   Dims d;
-  if (n_dims != kNumDims || !make_dims(dims, d)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = layout(dims, n_dims, d);
+  if (err != cudaSuccess) return (int)err;
   sizes[0] = (long long)d.B * d.l_row + d.l_w;
-  sizes[1] = (long long)d.B * d.bpr * d.work;
-  sizes[2] = (long long)d.B * d.bpr * d.part;
+  sizes[1] = d.split_total + (long long)d.grid * d.work;
+  sizes[2] = (long long)d.grid * d.part;
+  return 0;
+}
+
+// out <- the dynamic shared memory in bytes, the blocks an SM, the grid, the row slots a block
+// and the floats of scratch (workspace and partials) of a launch with these dims. Returns the
+// cudaError_t (cudaErrorInvalidValue for shapes the kernel does not take); sets the kernel's
+// attributes as a launch does.
+int fused_decode_bwd_occupancy(const int* dims, int n_dims, long long* out) {
+  Dims d;
+  const cudaError_t err = layout(dims, n_dims, d);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = d.smem;
+  out[1] = d.per_sm;
+  out[2] = d.grid;
+  out[3] = d.slots;
+  out[4] = d.split_total + (long long)d.grid * (d.work + d.part);
   return 0;
 }
 
 // ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null
 // without the tail), g, dinv, dwb, out (reduced gradients), workspace, partials;
-// sized by `fused_decode_bwd_sizes`. Launches both passes on `stream` and returns the
-// cudaError_t of the launches.
+// sized by `fused_decode_bwd_sizes`. Launches the three passes on `stream` and returns the
+// cudaError_t of the launches (cudaErrorInvalidValue for a shape the kernel does not take, or
+// for G or the workspace not starting on 16 bytes).
 int fused_decode_bwd_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
                             void* stream) {
   Params P;
-  if (n_ptrs != kNumPtrs || n_dims != kNumDims || !make_dims(dims, P.d)) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != kNumPtrs) return (int)cudaErrorInvalidValue;
+  cudaError_t err = layout(dims, n_dims, P.d);
+  if (err != cudaSuccess) return (int)err;
   const float* const* f = reinterpret_cast<const float* const*>(ptrs);
   P.inv = f[0]; P.wb = f[1]; P.A = f[2]; P.ab = f[3]; P.G = f[4]; P.c = f[5];
   P.q_coeff = f[6]; P.q_w1 = f[7]; P.q_b1 = f[8];
@@ -1056,15 +1329,32 @@ int fused_decode_bwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   P.dinv = const_cast<float*>(f[29]); P.dwb = const_cast<float*>(f[30]);
   P.out = const_cast<float*>(f[31]); P.work = const_cast<float*>(f[32]);
   P.part = const_cast<float*>(f[33]);
+  // G is read a float4 at a time (the B of dpre G^T), the workspace copied by 16-byte cp.async.
+  if (!aligned16(P.G) || !aligned16(P.work)) return (int)cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(P.d);
-  cudaError_t err;
-  if (P.d.tail)
-    err = P.d.wgrad ? launch_main<true, true>(P, smem, s) : launch_main<true, false>(P, smem, s);
-  else
-    err = P.d.wgrad ? launch_main<false, true>(P, smem, s) : launch_main<false, false>(P, smem, s);
-  if (err != cudaSuccess) return (int)err;
+  const size_t smem = (size_t)P.d.smem;
+  long long sb = (P.d.split_total + THREADS - 1) / THREADS;
+  const int split_blocks = (int)(sb > 1024 ? 1024 : sb);
+  switch (P.d.wn) {
+    case 64:
+      split_weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);
+      fused_decode_bwd_kernel<64><<<P.d.grid, THREADS, smem, s>>>(P);
+      break;
+    case 32:
+      split_weights_kernel<32><<<split_blocks, THREADS, 0, s>>>(P);
+      fused_decode_bwd_kernel<32><<<P.d.grid, THREADS, smem, s>>>(P);
+      break;
+    case 16:
+      split_weights_kernel<16><<<split_blocks, THREADS, 0, s>>>(P);
+      fused_decode_bwd_kernel<16><<<P.d.grid, THREADS, smem, s>>>(P);
+      break;
+    default:
+      split_weights_kernel<8><<<split_blocks, THREADS, 0, s>>>(P);
+      fused_decode_bwd_kernel<8><<<P.d.grid, THREADS, smem, s>>>(P);
+      break;
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long total = (long long)P.d.B * P.d.l_row + P.d.l_w;
   long long blocks = (total + THREADS - 1) / THREADS;
   blocks = blocks > 4096 ? 4096 : (blocks < 1 ? 1 : blocks);

@@ -69,6 +69,11 @@ __all__ = [
     "k1_occupancy",
     "fused_decode_bwd_plain",
     "fused_decode_bwd",
+    "k2_width_class",
+    "k2_constants",
+    "k2_smem_bytes",
+    "k2_scratch_bytes",
+    "k2_occupancy",
     "FusedDecode",
     "decode_flops_per_point",
     "decode_bwd_flops_per_point",
@@ -415,11 +420,23 @@ def _check_split(split: Sequence[torch.Tensor], ws: Sequence[torch.Tensor], devi
 
 
 def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
-    """K1 stages these by 16-byte ``cp.async``: each must start on 16 bytes (a contiguous
-    view at a storage offset that is not a multiple of 4 floats does not)."""
+    """K1 stages these by 16-byte ``cp.async``, K2 reads some a float4 at a time: each must
+    start on 16 bytes (a contiguous view at a storage offset that is not a multiple of 4 floats
+    does not)."""
     for name, t in named.items():
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on 16 bytes for K1 (storage offset {t.storage_offset()})")
+            raise ValueError(f"{name} must start on 16 bytes for the kernels (storage offset {t.storage_offset()})")
+
+
+def _source_constants(source: str) -> Dict[str, int]:
+    """The ``constexpr int NAME = expr;`` lines of a kernel source, each an integer
+    expression of the ones before."""
+    env: Dict[str, int] = {}
+    text = (cuda_lib.CSRC_DIR / source).read_text()
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([\w\s*+/()-]+);", text, re.M):
+        # C's integer division; the expression holds only integers and earlier names.
+        env[name] = int(eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(env)))
+    return env
 
 
 def k1_constants() -> Dict[str, int]:
@@ -427,12 +444,7 @@ def k1_constants() -> Dict[str, int]:
     ZG16 / RES16 / MINB16, ...), read from the
     ``constexpr int NAME = expr;`` lines of its source, each an integer expression of the
     ones before: the kernel and ``k1_smem_bytes`` share one set of constants."""
-    env: Dict[str, int] = {}
-    text = (cuda_lib.CSRC_DIR / KERNEL_SOURCE).read_text()
-    for name, expr in re.findall(r"^constexpr int (\w+) = ([\w\s*+/()-]+);", text, re.M):
-        # C's integer division; the expression holds only integers and earlier names.
-        env[name] = int(eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(env)))
-    return env
+    return _source_constants(KERNEL_SOURCE)
 
 
 def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
@@ -612,12 +624,123 @@ def _bwd_lib(source: str = BWD_KERNEL_SOURCE):
     return lib
 
 
+def k2_width_class(hid: int, hidm: int, D: int) -> int:
+    """K2's width class, as ``width_class`` in its source: the columns of a product each
+    warpgroup takes (its wgmma's N), 64 when the narrowest of hid, hidm and D is at least 128,
+    32 from 64, 16 from 32, else 8."""
+    w = min(hid, hidm, D)
+    return 64 if w >= 128 else 32 if w >= 64 else 16 if w >= 32 else 8
+
+
+def k2_constants() -> Dict[str, int]:
+    """K2's layout constants (TILE, THREADS, KC, MINB64 ... MINB8, MIN_IPB, MAX_I,
+    MAX_SEG, SMEM_CAP),
+    read from the ``constexpr int`` lines of its source, as ``k1_constants`` reads K1's."""
+    return _source_constants(BWD_KERNEL_SOURCE)
+
+
+def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> Dict[str, int]:
+    """``shape`` in ``csrc/fused_decode_bwd.cu`` without the grid: the width class, the shared
+    row strides and the dynamic shared memory; raises ``ValueError`` for what it refuses."""
+    k = k2_constants()
+    tile = k["TILE"]
+    if Z <= 0 or H <= 0 or not 0 < I <= k["MAX_I"]:
+        raise ValueError(f"K2 needs Z and H positive and 0 < I <= {k['MAX_I']}, got {Z}, {H}, {I}")
+    if any(w < 16 or w % 16 for w in (hid, hidm, D)):
+        raise ValueError(f"K2 needs hid, hidm and D in multiples of 16, got {hid}, {hidm}, {D}")
+    if max(hid, hidm, H * D) > k["MAX_SEG"]:
+        raise ValueError(f"K2 needs hid, hidm and H*D <= {k['MAX_SEG']}, got {hid}, {hidm}, {H * D}")
+    wn = k2_width_class(hid, hidm, D)
+    if hid % wn or hidm % wn or D % wn:
+        raise ValueError(f"K2's width class {wn} must divide hid, hidm and D, got {hid}, {hidm}, {D}")
+
+    def stride(w: int) -> int:  # row_stride: 4 mod 32 words
+        return (w + 31) // 32 * 32 + 4
+
+    ldh, ldw = stride(hid), stride(max(H * hidm, H * D, hid))
+    n_w2 = tile * max(ldw, 2 * ldh)
+    for stages in ((3, 2) if wn == 64 else (2,)):  # the B staging ring: chunk buffers of two slabs of 32 wn floats
+        smem = 4 * (stages * 2 * 32 * wn + tile * ldw + tile * ldh + n_w2 + 2 * Z * tile * H + tile * I)
+        if smem <= k["SMEM_CAP"]:
+            return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages)
+    raise ValueError(f"K2 would need {smem} B of shared memory for {Z} latents, more than {k['SMEM_CAP']}")
+
+
+def k2_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
+    """K2's dynamic shared memory in bytes for a decode shape, as ``shape`` in
+    ``csrc/fused_decode_bwd.cu`` computes it: the B staging (a ring of chunk buffers, each of
+    two slabs of the width class ``k2_width_class``, big and small tf32 parts: three at the class
+    64 where they fit, else two), the wide buffer P, X1, W2 (X2 and X3, or one wide), the
+    softmax weights and dp / dlogit of every latent, the tile's invariants. It grows with
+    ``Z`` (1,024 B a latent at two heads; the ring drops to two buffers before the shape is
+    refused). Raises ``ValueError`` for a shape it refuses:
+    widths it does not take, or more than ``SMEM_CAP`` bytes."""
+    return _k2_layout(Z, I, hid, H, D, hidm)["smem"]
+
+
+def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, hidm: int, out: int,
+                     tail: bool, weight_grads: bool, per_sm: Optional[int] = None, sms: int = 132) -> int:
+    """Bytes of K2's scratch for one launch (its workspace and its partials: the second and
+    third of ``fused_decode_bwd_sizes``), as ``shape`` and ``plan`` in its source lay them out
+    for a grid of ``per_sm`` blocks on each of ``sms`` SMs (or one block per work item when
+    there are fewer): the shared weights pre-split once, then per block its workspace slice,
+    its batch-row slots and its weight gradients. ``per_sm`` defaults to the most blocks of that shared memory an SM can
+    hold (233,472 B an SM, 1,024 B of it kept back per block; 8 blocks of 256 threads), an
+    upper bound of the launch's occupancy: the scratch grows with the grid. A block takes at
+    least ``MIN_IPB`` items."""
+    k = k2_constants()
+    lay = _k2_layout(Z, I, hid, H, D, hidm)
+    tile = k["TILE"]
+    if per_sm is None:
+        per_sm = min(2048 // k["THREADS"], 233_472 // (lay["smem"] + 1024))
+    HD, HH = H * D, H * hidm
+    nt = -(-C // tile)
+    items = B * nt
+    most = min(per_sm * sms, -(-items // k["MIN_IPB"]))  # a block takes at least MIN_IPB items
+    grid0 = min(items, max(1, most))
+    ipb = -(-items // grid0)
+    grid = -(-items // ipb)
+    slots = min(B, (ipb + nt - 2) // nt + 1)
+    work = tile * HH * (1 + weight_grads)
+    if tail:
+        work += tile * (2 * HD + 2 * hid)
+        if weight_grads:
+            work += tile * 2 * HD
+    l_row = Z * (hid * H + H + hid * HH + HH)
+    l_w = 0
+    if weight_grads:
+        l_w = 3 * (hid * hid + hid) + hidm * D + D
+        if tail:
+            l_w += 3 * (HD * HD + HD) + HD * hid + hid + hid * hid + hid + hid * out + out
+    # The shared weights pre-split once a launch (both orientations, both tf32 parts).
+    split = 3 * hid * hid + hidm * D + (3 * HD * HD + HD * hid + hid * hid if tail else 0)
+    return 4 * (2 * 2 * split + grid * (work + slots * l_row + l_w))
+
+
+def k2_occupancy(dims: Sequence[int], source: str = BWD_KERNEL_SOURCE) -> Dict[str, int]:
+    """The built K2 library's layout of a launch with these dims (the launcher's): ``smem``, its
+    dynamic shared memory in bytes; ``per_sm``, the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); ``grid``; ``slots``, the batch-row slots
+    a block; ``scratch``, the bytes of its workspace and partials. Raises for a shape it refuses.
+    On the card; ``source`` may name another build of the same C interface."""
+    fn = cuda_lib.load(source).fused_decode_bwd_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    rc = fn((ctypes.c_int * len(dims))(*dims), len(dims), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_bwd_occupancy failed for dims {list(dims)} (cudaError {rc})")
+    return dict(smem=int(out[0]), per_sm=int(out[1]), grid=int(out[2]), slots=int(out[3]), scratch=4 * int(out[4]))
+
+
 def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
                 weight_grads: bool, lib=None):
     H, D = num_heads, head_dim
     dev = inv.device
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
     _check("g", g, (B, C, out_dim), dev)
+    k2_smem_bytes(Z, I, hid, H, D, hidm)  # refuses, before any launch, a shape the kernel does not take
+    _check_aligned16({"G": G})  # read a float4 at a time (the B of dpre G^T)
     lib = lib or _bwd_lib()
     dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail), int(weight_grads)]
     c_dims = (ctypes.c_int * len(dims))(*dims)
@@ -629,8 +752,8 @@ def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
     n_out, n_work, n_part = sizes
     f32 = dict(device=dev, dtype=torch.float32)
     dinv, dwb = torch.empty(B, Z, C, I, **f32), torch.empty(B, Z, C, **f32)
-    # The reduced gradients in one buffer; per-block partials and per-block activations
-    # are the kernel's scratch (it zeroes its own partials).
+    # The reduced gradients in one buffer; the per-block partials and workspace slices are
+    # the kernel's scratch (each block's first contribution stores its partials).
     flat, work, part = torch.empty(n_out, **f32), torch.empty(n_work, **f32), torch.empty(n_part, **f32)
     tail_ptrs = [t.data_ptr() for t in tws] if with_tail else [None] * len(TAIL_WEIGHT_NAMES)
     ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G.data_ptr(),

@@ -30,8 +30,12 @@ Group = Dict[str, torch.Tensor]
 
 
 def clip_by_global_norm(grads: Group, max_norm: float) -> Group:
-    """optax ``clip_by_global_norm``: scale all leaves by ``max_norm / ||g||`` if above."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    """optax ``clip_by_global_norm``: scale all leaves by ``max_norm / ||g||`` if above.
+
+    The squares are summed in float64 (each exact there), so the norm does not depend on a
+    leaf's memory layout: an f32 reduction's order follows its strides and alignment, which
+    differ between autograd's gradients and the views a data mesh's all-reduce hands back."""
+    norm = torch.sqrt(sum(torch.sum(g.double() * g.double()) for g in grads.values())).float()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     return {k: g * scale for k, g in grads.items()}
 

@@ -9,7 +9,9 @@ the CUDA kernel itself is held against that plain version on the card by
 - the kernel backend's gradients through ``FusedDecode`` against the eager decoder's;
 - what ``FusedDecode`` computes (only the gradients asked for), and its double
   backward against the eager decoder's;
-- the wrapper's dispatch, its input checks and the C interface it binds.
+- the wrapper's dispatch, its input checks and the C interface it binds;
+- the kernel's layout (``k2_smem_bytes``, ``k2_scratch_bytes``, the mirrors of its
+  source's ``shape`` and ``plan``) at every shipped config's K2 launch shapes.
 """
 
 import re
@@ -19,11 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+from enf_pde_tpu.config import load_experiment_config as jax_load_config
+from enf_pde_tpu.geometry.invariants import get_ca_invariant as jax_get_ca_invariant
 from enf_pde_tpu.ops import pallas_decode as jpd
 
 from enf_pde_tpu_torch.ops import cuda_lib
 from enf_pde_tpu_torch.ops import fused_decode as fd
-from tests.test_torch_fused_decode import jax_fused_inputs
+from tests.test_torch_fused_decode import ABLATION_RUNS, SHIPPED_CONFIGS, jax_fused_inputs
 from tests.test_torch_modules import B, D, H, N, Z, assert_close, decoder_pair, t
 
 torch.set_num_threads(1)
@@ -183,30 +187,139 @@ def test_bwd_kernel_source_matches_the_binding():
     assert n_dims == 11
     for sym in ("fused_decode_bwd_launch", "fused_decode_bwd_sizes", "fused_decode_bwd_error_string"):
         assert re.search(rf"\b{sym}\(", src)
-    # Two passes (per-block partials, then a reduction kernel), no atomics, no libraries.
-    assert src.count("__global__") == 2 and "atomicAdd" not in src
+    # Three passes (the shared weights pre-split, per-block partials, then a reduction kernel),
+    # no atomics, no libraries.
+    assert src.count("__global__") == 3 and "atomicAdd" not in src
     assert 'extern "C"' in src and "torch/extension.h" not in src and "cublas" not in src.lower()
     # The weight-gradient layout the wrapper splits: 8 attention weights + 12 tail ones.
     assert len(fd.WEIGHT_NAMES) - len(fd.COEFF_INDICES) == 8 and len(fd.TAIL_WEIGHT_NAMES) == 12
 
 
 def test_bwd_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
-    """K2's products go through the 3xTF32 mma.sync helper (tf32_mma.cuh, which it shares
-    with K1): every product shape calls it, each operand is split into two tf32 parts,
-    and no library GEMM is linked."""
-    src = ((cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE).read_text()
-           + (cuda_lib.CSRC_DIR / "tf32_mma.cuh").read_text())
-    assert src.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1
-    assert src.count("cvt.rna.tf32.f32") == 1
-    helper = re.search(r"void mma_3xtf32\(.*?\n}", src, re.S).group(0)
-    assert helper.count("mma_tf32(") == 3  # small x big, big x small, big x big
-    # Forward layers and input gradients (dense_tc), row contractions (tn_tc).
-    for fn in ("dense_tc", "tn_tc"):
-        body = re.search(rf"void {fn}\(.*?\n}}\n", src, re.S).group(0)
-        assert "mma_3xtf32" in body or "dense_chunk" in body
-    assert re.search(r"void dense_chunk\(.*?mma_3xtf32", src, re.S)
-    for banned in ("wmma", "cutlass", "cublas", "fmaf(xs[i], ys[j]"):
+    """K2's products run on 3xTF32 wgmma over 64-row tiles (m64nNk8 at each width class's N:
+    8, 16, 32, 64), A split into tf32 halves in registers, B split and staged in shared memory
+    (the shared weights pre-split once a launch and copied by cp.async); each k step's three
+    wgmma go into a fresh accumulator (the first does not accumulate) that is added into an f32
+    register sum; a persistent grid sized by occupancy; partials reduced in a fixed order with no
+    float atomics; no mma.sync, WMMA, CUTLASS or cuBLAS."""
+    src = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE).read_text()
+    assert '#include "tf32_mma.cuh"' in src
+    for n in (8, 16, 32, 64):
+        assert src.count(f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32") == 1, n
+    assert "wgmma.mma_async" not in src.replace("wgmma.mma_async.sync.aligned.m64n", "")
+    assert "mma.sync" not in src and "mma_3xtf32" not in src and not re.search(r"\bmma_tf32\(", src)
+    body = re.search(r"\n__device__ __forceinline__ void gemm\(.*?\n}\n", src, re.S).group(0)
+    # Two k steps a chunk, each into its own accumulator (f0, f1): small x big first, not
+    # accumulating (a fresh accumulator), then big x small and big x big; after the wait both
+    # are added into the f32 sum. Part p (big, small) of k step q sits at st + 16 WN p + 8 WN q.
+    call = re.compile(r"wgmma_tf32<WN>\((f[01]), (a[bs])\[([01])\], wg_desc\(st(?: \+ (\d+) \* WN)?\), ([01])\);")
+    calls = call.findall(body)
+    assert len(calls) == 6
+    for f, q in (("f0", 0), ("f1", 1)):
+        chain = [(a, int(k), int(off or 0), int(acc)) for ff, a, k, off, acc in calls if ff == f]
+        assert chain == [("as", q, 8 * q, 0), ("ab", q, 16 + 8 * q, 1), ("ab", q, 8 * q, 1)], chain
+        assert f"sum[i] += {f}[i];" in body
+    assert body.count("wg_commit();") == 1 and body.count("wg_wait0();") == 1
+    assert "tf32_round(" in body and "fence_async_smem();" in body
+    # B of the next chunk split and stored while this chunk's wgmma run, the one after loaded;
+    # a pre-split shared weight copied by 16-byte cp.async a chunk ahead of the products.
+    assert body.index("wg_commit();") < body.index("store(nxt);") < body.index("wg_wait0();")
+    assert body.index("copy(c + nst - 1, prv);") < body.index("wg_fence();")
+    assert "cp.async.cg.shared.global" in src and "cp_async16(" in body
+    for w in ("Q", "V", "F", "M", "O", "P1", "P2", "H1", "H2"):  # every shared weight, both ways
+        assert f"wsplit(SPLIT_{w})" in src and f"wsplit(SPLIT_T + SPLIT_{w})" in src, w
+    # Persistent blocks sized by occupancy; a fixed-order reduction, no float atomics.
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
+    assert not re.search(r"\batomic\w*\s*\(", src)  # no atomicAdd, atomicCAS, ...: no float atomics
+    for banned in ("wmma", "cutlass", "cublas"):
         assert banned not in src.lower()
+
+
+def _parent_scratch_bytes(B, Z, C, I, hid, H, D, hidm, out, tail, weight_grads):
+    """The workspace and partials of one launch of the PR 17 build of K2 (3xTF32 mma.sync on
+    32-coordinate tiles, 1,320 blocks targeted, every activation of a block kept in device
+    memory), as its ``make_dims`` laid them out: what the new layout is held against."""
+    T, HD, HH = 32, H * D, H * hidm
+    W = (max(HD, HH, hid, out) + 31) // 32 * 32 + 16
+    ntiles = -(-C // T)
+    bpr = min(max(-(-1320 // B), 1), ntiles)
+    tpb = -(-ntiles // bpr)
+    bpr = -(-ntiles // tpb)
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    work = (5 * r4(Z * T * hid) + r4(Z * tpb * T * hid) + r4(Z * tpb * T * HH) + 2 * r4(Z * T * HH)
+            + r4(Z * T * HD) + r4(Z * T) + r4(Z * T * H) + 2 * r4(T * W) + 5 * r4(T * HD) + 4 * r4(T * hid) + r4(T))
+    l_row = Z * (hid * H + H + hid * HH + HH)
+    l_w = 0
+    if weight_grads:
+        l_w = 3 * (hid * hid + hid) + hidm * D + D
+        if tail:
+            l_w += 3 * (HD * HD + HD) + HD * hid + hid + hid * hid + hid + hid * out + out
+    return 4 * B * bpr * (work + l_row + l_w)
+
+
+def _k2_shapes(name):
+    """(label, widths, frames, points) of each K2 launch a config makes: the ode and dual
+    steps' rollout decode (batch x traj_len_train frames), the nef step's inner decodes on
+    ``nef.backend: pallas`` (batch x fit_on_num_steps) and a fit's (batch); Navier-Stokes also
+    at the 50-frame rollout's 400 x 512."""
+    cfg_name, *overrides = name.split()
+    cfg = jax_load_config(cfg_name, overrides)
+    nef, ds = cfg.nef, cfg.dataset
+    widths = dict(Z=nef.num_latents, I=jax_get_ca_invariant(nef).dim, hid=nef.num_hidden, H=nef.num_heads,
+                  D=nef.num_hidden, hidm=nef.num_hidden, out=3 if cfg_name == "shallow_water" else 1)
+    points = cfg.training.max_num_sampled_points
+    shapes = [("ode step", ds.batch_size * ds.traj_len_train), ("nef step", ds.batch_size * cfg.training.nef.fit_on_num_steps),
+              ("fit", ds.batch_size)]
+    if cfg_name == "navier_stokes" and not overrides:
+        shapes.append(("rollout T=50", ds.batch_size * 50))
+    return widths, [(label, b, points) for label, b in shapes]
+
+
+@pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)
+def test_k2_layout_fits_every_shipped_decode_shape(name):
+    """``k2_smem_bytes`` and ``k2_scratch_bytes`` (the mirrors of K2's ``shape`` and ``plan``, its
+    constants read from the source) at each config's widths (I from its cross-attention invariant,
+    hid = hidm = D = nef.num_hidden, H heads, its latents) and at each of its K2 launch shapes: the
+    shared memory fits 227 KB, and the scratch of a launch (workspace + partials, at the most blocks
+    an SM can hold, an upper bound of the grid's) is at most a quarter of the PR 17 build's, in all
+    four modes."""
+    w, shapes = _k2_shapes(name)
+    smem = fd.k2_smem_bytes(w["Z"], w["I"], w["hid"], w["H"], w["D"], w["hidm"])
+    assert 0 < smem <= fd.k2_constants()["SMEM_CAP"] == 232_448
+    for label, b, c in shapes:
+        for tail in (True, False):
+            for wg in (False, True):
+                out = w["out"] if tail else w["H"] * w["D"]
+                args = (b, w["Z"], c, w["I"], w["hid"], w["H"], w["D"], w["hidm"], out, tail, wg)
+                new, old = fd.k2_scratch_bytes(*args), _parent_scratch_bytes(*args)
+                assert 0 < new <= old / 4, (label, tail, wg, new, old)
+
+
+def test_k2_layout_mirror_refuses_what_the_kernel_refuses(pair, monkeypatch, tmp_path):
+    """The mirror's numbers at Navier-Stokes width (one block an SM, 128 blocks at the ode step),
+    the parent's scratch as its library reported it on the card (2,240.9 / 3,843.2 MB, PERF.md), and
+    the shapes K2 refuses: too many latents for its shared memory, widths it does not take. An
+    oversized Z raises ValueError on the host in ``_launch_bwd``, before any build or launch."""
+    assert fd.k2_smem_bytes(4, 4, 128, 2, 128, 128) == 205_824 + 16_384  # a third ring buffer
+    assert fd.k2_smem_bytes(25, 4, 128, 2, 128, 128) == 205_824 + 21 * 1024  # two ring buffers
+    assert fd.k2_width_class(128, 128, 128) == 64 and fd.k2_width_class(16, 16, 16) == 8
+    ns = (80, 4, 512, 4, 128, 2, 128, 128, 1, True)
+    assert round(_parent_scratch_bytes(*ns, False) / 1e6, 1) == 2240.9
+    assert round(_parent_scratch_bytes(*ns, True) / 1e6, 1) == 3843.2
+    split = 2 * 2 * (5 * 128 * 128 + 3 * 256 * 256 + 256 * 128)  # both orientations, two tf32 parts
+    assert fd.k2_scratch_bytes(*ns, False, per_sm=1) == 4 * (split + 128 * (64 * 256 * 3 + 64 * 256 + 2 * 133_128))
+    for bad in ((31, 4, 128, 2, 128, 128), (4, 9, 128, 2, 128, 128), (4, 4, 136, 2, 128, 128),
+                (4, 4, 8, 2, 8, 8), (4, 4, 128, 3, 128, 128), (0, 4, 128, 2, 128, 128)):
+        with pytest.raises(ValueError):
+            fd.k2_smem_bytes(*bad)
+    _, _, dec, (x, p, a, sigma) = pair
+    with torch.no_grad():
+        inv, wb, A, ab, G, c, ws, tws = dec.kernel_inputs(t(x), t(p), t(a), t(sigma))
+    big = 2000  # latents: [b, z, hid, H*hidm] G alone is 16 MB at this test's widths
+    rep = lambda x: x[:, :1].expand(-1, big, *x.shape[2:]).contiguous()  # noqa: E731
+    monkeypatch.setattr(cuda_lib, "build", lambda *a: pytest.fail("a refused shape reached the build"))
+    with pytest.raises(ValueError, match="latents"):
+        fd._launch_bwd(rep(inv), rep(wb), rep(A), rep(ab), rep(G), rep(c), ws, tws, torch.ones(B, N, 1), H, D, True)
 
 
 def test_bwd_flop_count_at_navier_stokes_width():

@@ -351,3 +351,22 @@ def test_val_step_is_a_function_of_state_and_batch(pair, dp):
     second = tr.val_step(state, x, dp=dp, batch_idx=batch_idx)
     assert [float(v) for v in first] == [float(v) for v in second]
     assert float(first[0]) > 0
+
+
+def test_clip_by_global_norm_does_not_depend_on_the_leaves_layout():
+    """The same gradient values as autograd hands them back (some transposed, non-contiguous)
+    and as a data mesh's all-reduce does (contiguous views at odd offsets of one flat buffer)
+    give the same clipped bits: the norm's sum of squares does not follow the leaves' layout."""
+    rng = np.random.default_rng(0)
+    shapes = [(128, 256), (256,), (96, 130), (1,), (512, 64)]
+    vals = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    as_autograd = {f"w{i}": v.t().contiguous().t() if v.dim() == 2 else v for i, v in enumerate(vals)}
+    flat = torch.cat([torch.zeros(1)] + [v.reshape(-1) for v in vals])  # a loss first, as the mesh's mean
+    views, off = {}, 1
+    for i, v in enumerate(vals):
+        views[f"w{i}"] = flat[off:off + v.numel()].view(v.shape)
+        off += v.numel()
+    assert any(not g.is_contiguous() for g in as_autograd.values())
+    a, b = clip_by_global_norm(as_autograd, 1.0), clip_by_global_norm(views, 1.0)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
