@@ -4,7 +4,12 @@ Run from the repository root, with one card:
 
     python3 chip_smoke.py
 
-Phases, one line each, flushed as they go:
+Phases, one line each, flushed as they go. The YAMLs' ``pallas`` decodes with K1's and K2's
+bf16 programs on the card (bf16 operands, f32 sums: JAX's ``compute_dtype=bfloat16``, what its
+kernel runs on the TPU), so the main paths (forecasts, training runs, the steps of the
+later phases) run those; the phases that hold a kernel path to eager or to the plain version
+at 1e-5 (6, 17, 22 and 26's steps, 27) run the strict-f32 programs (``pallas_interpret``,
+``F32_KERNELS``), and every K1 / K2 check at a shape calls the f32 program unless it says bf16:
 
 1. build: compile every CUDA kernel with plain ``nvcc``, one process per source, all
    started together (the build's seconds, the compiler's register/spill report, the
@@ -16,9 +21,10 @@ Phases, one line each, flushed as they go:
 3. the Navier-Stokes forecast end to end at full width with seeded random weights:
    ``Forecaster.forecast`` of 8 smooth periodic 64x64 frames for 20 frames
    (3-step latent fit, 19 Euler steps of the PONITA ODE, decode of 160 frames x
-   4096 points through K1), the launch count of K1 in that run, the output's
-   shape and finiteness, the decoded field against the plain decode of the same
-   latents, and the time of the call and of each stage (median of 5 warm repeats);
+   4096 points through K1's bf16 program), the launch count of K1 in that run, the output's
+   shape and finiteness, the decoded field against the plain bf16 decode of the same
+   latents (phase 35's gates), and the time of the call and of each stage (median of 5 warm
+   repeats);
 4. K1 at the forecast's launch shape (160 frames x 512 points) against its plain
    version, and its time there and at the rollout decode's shape (80 x 512), its
    shared weights split once as the forecast decode splits them, beside the plain
@@ -30,8 +36,8 @@ Phases, one line each, flushed as they go:
    width, with and without weight gradients and with and without the tail, every
    gradient tensor; its time beside the plain version's and the bound;
 6. one ode step's and one dual step's loss and gradients with the rollout decode on
-   the kernels (K1 + K2) against the same step with the eager decoder, from the same
-   state and draws;
+   the kernels' f32 programs (K1 + K2) against the same step with the eager decoder, from the
+   same state and draws;
 7. data: ``get_dataloader`` for ``navier_stokes`` at the full protocol (64x64, viscosity
    1e-3, dt 1e-3, 30 time units of burn-in, 20 frames: 50,000 solver steps a block of
    16) with 16 training and 8 test signals, generated on the card into a fresh
@@ -194,7 +200,7 @@ phase 28 and removed after it):
     in float64 with the whole cotangent and with those points stopped: a few such points
     move the ODE's gradient by about the gate); the same numbers, with no gate, on a second
     draw of weights, frames and masks;
-27. second order through K1 and K2 (``nef.backend=pallas``) at ``num_layers`` 0 and 2: the
+27. second order through K1 and K2 (their f32 programs: ``nef.backend=pallas_interpret``) at ``num_layers`` 0 and 2: the
     nef step on the kernels against the same step on the eager decoder from the same state,
     frames and masks (loss within 1e-5 relative, every gradient tensor within rel-L2 1e-4;
     both steps' distances from the eager step in float64 printed beside),
@@ -252,31 +258,37 @@ then K2 at the widths the other configs give it:
     its plain version in all four modes with the kinks stopped at the nef step's and the fit's
     shapes, one launch repeated bit for bit, timed.
 
+then the bf16 programs:
+
+35. K1's and K2's bf16 programs against the plain bf16 version at every launch shape the
+    paths above give them (``BF16_K1_SHAPES``, ``BF16_K2_SHAPES``: the forecasts', validations'
+    and steps' of every config, 400 x 512 included), with the gates ``bf16_gates`` (rel-L2 to the
+    plain bf16 version at most 0.35 of the bf16 function's own distance from f32, the distance
+    to the plain f32 version within 0.9-1.1 of it, and K1's outputs within 5e-2 of f32; K2 with
+    the cotangent 0 within 2^-8 of an RFF ReLU's kink, the whole cotangent's numbers beside, two
+    launches bit for bit), each timed beside the f32 program at the same shape, the plain bf16
+    version and the bf16 bound (operations at 989 TFLOP/s, or bytes); the Navier-Stokes ode,
+    dual and validation steps and the 8 x 20 forecast in both modes (the forecasts' rel-L2); one
+    nef step with ``nef.backend=pallas`` in bf16 against the same step through the plain bf16
+    composition, with the same gates.
+
 Every K2 phase (5, 17, 20, 27, 30, 31, 34) repeats one launch with the tail and weight
 gradients and requires the same bits (and the same bits of the six latent gradients without
 weight gradients), and prints, on each ``[timing]`` line, K2's scratch
 bytes a launch, its blocks an SM, grid and shared memory, the library's layout held equal to
 the Python mirrors ``k2_smem_bytes`` and ``k2_scratch_bytes``.
 
-Then one line ``{"kernels": [...]}``: K1 once per config it ran at (its launches in that
-config's paths, its time at that config's forecast launch shape (``ihc`` included), or for the baselines at
-phase 20's shape; the Navier-Stokes entry's error includes phase 13's) and K2 at the
-Navier-Stokes, ``shallow_water`` and ``abs_pos`` ode steps' shapes; behind the
-self-attention stack, K1 at 160 x 512, the nef step's 16 x 512 and the fit's 8 x 512, and
-K2 at 16 x 512 with weight gradients and at 8 x 512 with and without, each with its
-launches at that shape (and mode) in phase 28's run and forecast and its error against its
-plain version at that shape (phases 26-27); K1 and K2 (without weight gradients for the ode
-step, with them for the dual) at the 50-frame rollout's 400 x 512 (phase 30) and at a
-world-of-2 rank's 40 x 512 (phase 31, both ranks' launches), K1's launches in the
-world's sharded decodes at 160 x 512 (phase 4's numbers), and K2 at phase 34's nef-step and
-fit shapes with weight gradients, each with its launches in that phase's step and fit (K2's
-entries also carry its scratch bytes a launch and blocks an SM); each kernel's
-``bound_ms`` is that of the route it takes, 3xTF32 on the tensor cores, or bytes where
-they take longer. Last,
-``{"ok": true, "device": {...}}``.
+Then one line ``{"kernels": [...]}``: each program of K1 and K2 (``fused_decode_fwd`` and
+``fused_decode_bwd``, the f32 programs; ``..._bf16``, the bf16 ones) at each shape it was held and
+timed at, with its launches at that shape (and mode) on the paths the script drove
+(``PATH_LAUNCHES``: forecasts, training runs and steps, never a check or a timing): the bf16
+programs at phase 35's shapes with phase 35's numbers (``f32_ms``: the f32 program at the same
+shape), the f32 programs at the shapes of the phases that ran ``pallas_interpret`` (phases 4, 5,
+17, 20 and 27's numbers); ``bound_ms`` is that of the program's route (3xTF32 or bf16 on the tensor
+cores, or bytes where they take longer). Last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
-Every float check is in f32: rel-L2 <= 1e-5 against the plain version (K2 reduces
-its sums deterministically, in another order than autograd: no atomics).
+Every f32 check: rel-L2 <= 1e-5 against the plain version (K2 reduces its sums
+deterministically, in another order than autograd: no atomics); every bf16 check: phase 35's gates.
 """
 
 from __future__ import annotations
@@ -326,7 +338,7 @@ from enf_pde_tpu_torch.data.shallow_water import (
     sw_grid,
 )
 from enf_pde_tpu_torch.experiments.fit import run_experiment, super_resolution_eval
-from enf_pde_tpu_torch.geometry.invariants import get_sa_invariant
+from enf_pde_tpu_torch.geometry.invariants import get_ca_invariant, get_sa_invariant
 from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.decoder import decode_chunked
 from enf_pde_tpu_torch.models.latents import latents_to_pose
@@ -334,7 +346,10 @@ from enf_pde_tpu_torch.models.transformer import EquivariantTransformer
 from enf_pde_tpu_torch.ops import cuda_lib
 from enf_pde_tpu_torch.ops.fused_decode import (
     BWD_KERNEL_SOURCE,
+    BWD_KERNEL_SOURCE_BF16,
     KERNEL_SOURCE,
+    KERNEL_SOURCE_BF16,
+    bf16_weights,
     decode_bwd_flops_per_point,
     decode_flops_per_point,
     fused_decode_bwd,
@@ -396,6 +411,27 @@ NUM_OUT = {"shallow_water": 3}
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores, the kernels' operand type
 PEAK_TF32_FLOPS = 495e12  # tensor cores; K1's and K2's 3xTF32 products issue three per product
+PEAK_BF16_FLOPS = 989e12  # tensor cores, bf16 operands: the bf16 programs' products
+BF16 = torch.bfloat16
+# The kernels' strict-f32 programs (3xTF32; the config's ``pallas_interpret``): the phases that hold
+# a kernel path to eager or to the plain version at 1e-5 run there. ``kernel`` (the YAMLs' ``pallas``)
+# decodes with bf16 operands on the card, as the JAX kernel does on its chip.
+F32_KERNELS = "kernel_f32"
+# Phase 35's gates of a bf16 program against the plain bf16 version (two right bf16 functions differ
+# by chaotic roundings, so the gates are relative to the bf16 function's own distance from f32,
+# gap = rel-L2(plain16, plain32)): rel-L2(kernel16, plain16) <= BF16_NEAR gap, rel-L2(kernel16,
+# plain32) / gap in [BF16_LO, BF16_HI], and for K1's outputs rel-L2(kernel16, plain32) <= BF16_ABS
+# (the JAX kernel's own record on its chip is 1.1e-2 at Navier-Stokes width) wherever the bf16
+# function itself lies within it: at `diff_sphere`'s width (hid 16) the plain bf16 decode of a
+# forecast's latents lies 6.9e-2 from f32 (PERF.md §6, an H100), and there the ratio gates hold K1.
+BF16_NEAR, BF16_LO, BF16_HI, BF16_ABS = 0.35, 0.9, 1.1, 5e-2
+# K2's bf16 checks stop the cotangent where an RFF ReLU lies this close to its kink, on every side.
+# The bf16 products are exact and summed in f32, so two right bf16 programs' pre-activations differ
+# by f32 rounding of their sums, as in f32: TIE_MARGIN. (2^-8 of the terms' magnitudes stopped
+# every point at NS width; stopping at 1e-6 or 1e-5 moved no gate's number by more than its
+# spread on an H100, PERF.md §6: the bf16 programs' distance from the plain bf16 version is their
+# roundings', not the kinks'.)
+BF16_TIE_MARGIN = TIE_MARGIN
 # Phases 30-33.
 REMAT_TOL = 1e-6  # rel-L2, a step with the rollout rematerialized against it stored
 LONG_HORIZON = 50  # navier_stokes.yaml's traj_len_out_horizon: the rollout remat is for
@@ -822,7 +858,7 @@ class TieStop(torch.nn.Module):
 
 def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev, zero_by_structure=(),
                       ties: bool = False, seed: int = SEED, gate: bool = True) -> float:
-    """6 / 17 / 22 / 26. ode and dual step on K1 + K2 against the eager decoder, on
+    """6 / 17 / 22 / 26. ode and dual step on K1 + K2 (their f32 programs, F32_KERNELS) against the eager decoder, on
     trajectories ``traj`` [batch, frames, *grid, channels]: loss and gradients, from the
     weights of ``seed`` and its masks. ``ties`` holds the gradients with the cotangent 0 at
     the points near an RFF ReLU's kink (``TieStop``: the same points on every side; their
@@ -848,14 +884,15 @@ def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev, zero_by_st
     def both(fn):
         """(kernel's, eager's) (loss, gradients) of step ``fn``."""
         out = []
-        for backend in ("kernel", "eager"):
+        for backend in (F32_KERNELS, "eager"):
             trainer.ode_backend = backend
             k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
-            out.append(fn(state, traj, masks=masks, ode_masks=ode_masks))
-            torch.cuda.synchronize()
-            if backend == "kernel" and (fused_decode_fwd.launches - k1, fused_decode_bwd.launches - k2) != (1, 1):
+            with on_path():
+                out.append(fn(state, traj, masks=masks, ode_masks=ode_masks))
+                torch.cuda.synchronize()
+            if backend == F32_KERNELS and (fused_decode_fwd.launches - k1, fused_decode_bwd.launches - k2) != (1, 1):
                 raise AssertionError("a step on the kernel backend did not launch K1 and K2 once each")
-        trainer.ode_backend = "kernel"
+        trainer.ode_backend = F32_KERNELS
         return out
 
     def from_f64(tag, kind, grads_k, grads_e, stop=None):
@@ -878,7 +915,7 @@ def step_parity_phase(cfg, coords: np.ndarray, traj: np.ndarray, dev, zero_by_st
             trainer.ode_backend = "eager"
             trainer.decoder = replay = TieStop(decoder, stop.masks)
             _, grads_e = fn(state, traj, masks=masks, ode_masks=ode_masks)
-            trainer.decoder, trainer.ode_backend = decoder, "kernel"
+            trainer.decoder, trainer.ode_backend = decoder, F32_KERNELS
             if replay.calls != len(stop.masks):
                 raise AssertionError(f"the eager step decoded {replay.calls} times, the kernels' {len(stop.masks)}")
             label = f", cotangent 0 within {TIE_MARGIN:g} of a ReLU's kink"
@@ -1002,7 +1039,8 @@ def train_phase() -> dict:
     fresh_dir(LOG_DIR)
     torch.cuda.reset_peak_memory_stats()
     fused_decode_fwd.launches = fused_decode_bwd.launches = 0
-    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    with on_path():
+        (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer = loop.trainer
@@ -1062,7 +1100,8 @@ def resume_phase() -> dict:
         "logging.resume=true", "training.ode.train_until_epoch=4", "training.num_epochs=4"))
     before = len(read_metrics())
     fused_decode_fwd.launches = fused_decode_bwd.launches = 0
-    (loop, _), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    with on_path():
+        (loop, _), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     records = read_metrics()[before:]
     resumed = next((r for r in records if "resumed_from_epoch" in r), {})
@@ -1090,7 +1129,8 @@ def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
     log(f"[{tag}] Forecaster built on {fc.device} (random weights, seed {SEED}) in {init_s:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     fused_decode_fwd.launches = 0
-    out, fc_s = sync_time(lambda: fc.forecast(frames, num_frames=NUM_FRAMES))
+    with on_path():
+        out, fc_s = sync_time(lambda: fc.forecast(frames, num_frames=NUM_FRAMES))
     launches = fused_decode_fwd.launches
     chunk = cfg.training.max_num_sampled_points
     expect_launches = -(-coords.shape[0] // chunk)  # one launch per chunk of the 160-frame decode
@@ -1127,12 +1167,14 @@ def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
     xs = fc.trainer.coords[None].expand(pb * tb, -1, -1)
     with torch.no_grad():
         folded = dec.fold(*flat)
-        plain = decode_chunked(
+        plain = {dt: decode_chunked(
             lambda xc, pp, aa, ww: fused_decode_plain(*dec.kernel_geometry(xc, pp, ww), *folded,
-                                                      num_heads=H, head_dim=D),
+                                                      num_heads=H, head_dim=D, compute_dtype=dt),
             xs, *flat, chunk_size=chunk,
-        ).reshape(field.shape)
-    err = check_close(f"{tag} forecast decode vs plain decode", field, plain)
+        ).reshape(field.shape) for dt in (BF16, torch.float32)}
+    # The forecast decodes on the YAML's pallas: K1's bf16 program, held as phase 35 holds it.
+    err = bf16_gates(f"{tag} forecast decode (bf16) vs plain decode", field, plain[BF16], plain[torch.float32],
+                     absolute=True)["max_abs_err"]
     return dict(fc=fc, launches=launches, max_abs_err=err, dec=dec, flat=flat, xs=xs, folded=folded,
                 chunk=chunk)
 
@@ -1276,7 +1318,8 @@ def config_train_phase(name: str, data: Path, overrides: list, phases: list, coo
                                         "test.test_equiv_at_epoch=0", "logging.log_every_n_steps=1",
                                         "logging.checkpoint_every_n_epochs=1", *overrides])
     fused_decode_fwd.launches = fused_decode_bwd.launches = 0
-    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    with on_path():
+        (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
     epochs = [r for r in records if "train_mse_epoch" in r]
@@ -1553,7 +1596,8 @@ def nonmaml_phase(dev) -> dict:
     cfg = load_experiment_config("navier_stokes_nonmaml", nonmaml_overrides(log_dir))
     torch.cuda.reset_peak_memory_stats()
     fused_decode_fwd.launches = fused_decode_bwd.launches = 0
-    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    with on_path():
+        (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer = loop.trainer
@@ -1639,7 +1683,8 @@ def abs_pos_phase(dev) -> dict:
     traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 4)).to(dev)
     before = {k: v.clone() for k, v in trainer.ode_model.state_dict().items()}
     fused_decode_fwd.launches = fused_decode_bwd.launches = 0
-    (loss, state), step_s = sync_time(lambda: trainer.ode_train_step(state, traj))
+    with on_path():
+        (loss, state), step_s = sync_time(lambda: trainer.ode_train_step(state, traj))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     moved = float(max((trainer.ode_model.state_dict()[k] - v).abs().max() for k, v in before.items()))
     log(f"[navier_stokes abs_pos] one full-width ode step with node.name=mlp ({type(trainer.ode_model).__name__}, "
@@ -1869,11 +1914,30 @@ def reset_launches() -> None:
 
 
 def launches_of(fn):
-    """(fn's result, its K1 launches, its K2 launches), synchronised."""
+    """(fn's result, its K1 launches, its K2 launches), synchronised; a path's run (``on_path``)."""
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
-    out = fn()
-    torch.cuda.synchronize()
+    with on_path():
+        out = fn()
+        torch.cuda.synchronize()
     return out, fused_decode_fwd.launches - k1, fused_decode_bwd.launches - k2
+
+
+# The launches of the paths the script drives (a forecast, a training run, a step: not a kernel
+# held against its plain version or timed), by (kernel, compute dtype, b, z, c, I[, weight
+# grads]): the kernels line's counts. ``launches_by_program`` is never reset.
+PATH_LAUNCHES = Counter()
+
+
+@contextlib.contextmanager
+def on_path():
+    """Counts the K1 and K2 launches of the enclosed run into PATH_LAUNCHES."""
+    before = [Counter(k.launches_by_program) for k in (fused_decode_fwd, fused_decode_bwd)]
+    try:
+        yield
+    finally:
+        for name, k, b in zip(("K1", "K2"), (fused_decode_fwd, fused_decode_bwd), before):
+            for key, n in (k.launches_by_program - b).items():
+                PATH_LAUNCHES[(name, *key)] += n
 
 
 def device_summary(prof, trace_file: Path, top: int = 10) -> str:
@@ -1941,7 +2005,7 @@ def f64_step(trainer, kind: str, state, traj, stop=None, **draws):
 
 
 def second_order_phase(dev) -> dict:
-    """27. Second order through K1 and K2 (``nef.backend=pallas``) at num_layers 0 and
+    """27. Second order through K1 and K2 (their f32 programs: ``nef.backend=pallas_interpret``) at num_layers 0 and
     SA_LAYERS, NS width, seeded random weights: the nef step on the kernels against the same
     step on the eager decoder from the same state, frames and masks (loss rel 1e-5, every
     gradient tensor rel-L2 NEF_TOL), and both against the eager step in float64
@@ -1957,28 +2021,30 @@ def second_order_phase(dev) -> dict:
     N = coords.shape[0]
     out = {"launches": {}}
     for layers in (0, SA_LAYERS):
-        cfg = load_experiment_config("navier_stokes", [f"nef.num_layers={layers}", "nef.backend=pallas"])
+        cfg = load_experiment_config("navier_stokes", [f"nef.num_layers={layers}", "nef.backend=pallas_interpret",
+                                                        "nef.eval_backend=pallas_interpret",
+                                                        "nef.ode_backend=pallas_interpret"])
         K, M = cfg.meta.num_inner_steps, cfg.training.max_num_sampled_points
         trainer = make_trainer(cfg, coords)
-        if (trainer.train_backend, trainer.eval_backend, trainer.ode_backend) != ("kernel",) * 3:
-            raise AssertionError(f"nef.backend=pallas resolved to {trainer.train_backend}")
+        if (trainer.train_backend, trainer.eval_backend, trainer.ode_backend) != (F32_KERNELS,) * 3:
+            raise AssertionError(f"nef.backend=pallas_interpret resolved to {trainer.train_backend}")
         state = trainer.init_state()
         gen = torch.Generator().manual_seed(SEED + 30 + layers)
         masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
         frame_idx = torch.randperm(cfg.dataset.traj_len_train, generator=gen)[:cfg.training.nef.fit_on_num_steps]
         tag = f"num_layers={layers}"
         grads = {}
-        for backend in ("kernel", "eager"):
+        for backend in (F32_KERNELS, "eager"):
             trainer.train_backend = backend
             grads[backend], k1, k2 = launches_of(lambda: trainer.nef_grads(state, traj, frame_idx=frame_idx,
                                                                              masks=masks))
-            if backend == "kernel":
+            if backend == F32_KERNELS:
                 out["launches"][f"nef {tag}"] = (k1, k2)
-        trainer.train_backend = "kernel"
-        (loss_k, grads_k), (loss_e, grads_e) = grads["kernel"], grads["eager"]
+        trainer.train_backend = F32_KERNELS
+        (loss_k, grads_k), (loss_e, grads_e) = grads[F32_KERNELS], grads["eager"]
         # Which side f32 rounding moves: both against the eager step in float64 (no gate).
         loss_64, grads_64 = f64_step(trainer, "nef", state, traj, frame_idx=frame_idx, masks=masks)
-        for label, (loss, g) in (("eager decoder in f32", grads["eager"]), ("kernels", grads["kernel"])):
+        for label, (loss, g) in (("eager decoder in f32", grads["eager"]), ("kernels", grads[F32_KERNELS])):
             worst, name, _, n = grad_errors(g, grads_64)
             log(f"[second order] nef step {tag} on the {label} against the eager decoder in float64: loss "
                 f"rel {abs(float(loss) - float(loss_64)) / abs(float(loss_64)):.3e}, {n} gradient tensors, worst "
@@ -1995,13 +2061,13 @@ def second_order_phase(dev) -> dict:
         fc = Forecaster(cfg, coords, device="cuda")
         fit_masks = masks[:K]
         fits = {}
-        for backend in ("kernel", "eager"):
+        for backend in (F32_KERNELS, "eager"):
             fc.trainer.train_backend = backend
             fits[backend], k1, k2 = launches_of(lambda: fc.fit(frames, masks=fit_masks))
-            if backend == "kernel":
+            if backend == F32_KERNELS:
                 out["launches"][f"fit {tag}"] = (k1, k2)
         for name in fits["eager"]:
-            check_close(f"fit {tag} {name}, kernels vs eager decoder", fits["kernel"][name], fits["eager"][name],
+            check_close(f"fit {tag} {name}, kernels vs eager decoder", fits[F32_KERNELS][name], fits["eager"][name],
                         NEF_TOL)
         if out["launches"][f"fit {tag}"] != (K, K):
             raise AssertionError(f"the fit {tag} launched {out['launches'][f'fit {tag}']}, not {(K, K)}")
@@ -2009,7 +2075,7 @@ def second_order_phase(dev) -> dict:
             f"{out['launches'][f'fit {tag}']} at {K} inner steps")
 
         medians = {}
-        for backend in ("kernel", "eager"):
+        for backend in (F32_KERNELS, "eager"):
             trainer.train_backend = fc.trainer.train_backend = backend
             for name, fn in (("nef step", lambda: trainer.nef_train_step(state, traj)),
                              ("fit", lambda: fc.fit(frames))):
@@ -2017,7 +2083,7 @@ def second_order_phase(dev) -> dict:
                 medians[(name, backend)] = statistics.median(samples)
                 log(f"[second order] {tag} {name} on {backend} (warm, median of {WARM_REPEATS}): "
                     f"{medians[(name, backend)]:.2f} ms (samples {', '.join(f'{v:.2f}' for v in samples)})")
-        trainer.train_backend = fc.trainer.train_backend = "kernel"
+        trainer.train_backend = fc.trainer.train_backend = F32_KERNELS
         out[f"medians {tag}"] = medians
         if layers == SA_LAYERS:
             trace_dir = fresh_dir(OUT_DIR / "trace_nef_step")
@@ -2061,7 +2127,8 @@ def sa_train_phase(dev) -> dict:
     cfg = load_experiment_config("navier_stokes", train_overrides(*over, log_dir=log_dir))
     coords = planar_coords(GRID, GRID)
     reset_launches()
-    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
+    with on_path():
+        (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     k1_shapes, k2_shapes = Counter(fused_decode_fwd.launches_by_shape), Counter(fused_decode_bwd.launches_by_shape)
     records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
@@ -2096,7 +2163,8 @@ def sa_train_phase(dev) -> dict:
     built = Forecaster(fc_cfg, coords, params=params, device="cuda", backend="pallas")
     frames = torch.as_tensor(next(iter(loop.val_loader))[0], device=dev)[:NUM_SIGNALS, 0]
     reset_launches()
-    got, fc_s = sync_time(lambda: served.forecast(frames, num_frames=NUM_FRAMES))
+    with on_path():
+        got, fc_s = sync_time(lambda: served.forecast(frames, num_frames=NUM_FRAMES))
     fc_k1, fc_k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
     k1_shapes += fused_decode_fwd.launches_by_shape
     want = built.forecast(frames, num_frames=NUM_FRAMES)
@@ -2221,8 +2289,9 @@ def solvers_phase(dev) -> dict:
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
-                    loss, grads = fn(state, traj, draws["masks"], draws["ode_masks"])
-                    torch.cuda.synchronize()
+                    with on_path():
+                        loss, grads = fn(state, traj, draws["masks"], draws["ode_masks"])
+                        torch.cuda.synchronize()
                     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
                     samples = [sync_time(lambda: fn(state, traj, draws["masks"], draws["ode_masks"]))[1] * 1e3
                                for _ in range(WARM_REPEATS)]
@@ -2343,7 +2412,7 @@ def world_rank(rank: int, payload_file: str, out_dir: str) -> None:
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank, world_size=WORLD)
     try:
-        for src in (KERNEL_SOURCE, BWD_KERNEL_SOURCE):
+        for src in (KERNEL_SOURCE, BWD_KERNEL_SOURCE, KERNEL_SOURCE_BF16, BWD_KERNEL_SOURCE_BF16):
             cuda_lib.load(src)  # built by the parent: the cached libraries
         pl = torch.load(payload_file, weights_only=False)
         cfg = load_experiment_config("navier_stokes")
@@ -2449,6 +2518,12 @@ def world_phase(dev, traj: torch.Tensor, frames: np.ndarray) -> dict:
     k1 = sum(res["step_launches"][0][(b, 4, 512)] for res in ranks)
     k2 = {wg: sum(res["step_launches"][1][(b, 4, 512, wg)] for res in ranks) for wg in (False, True)}
     dec = sum(res["decode_launches"][(NUM_SIGNALS * NUM_FRAMES, 4, 512)] for res in ranks)
+    I = get_ca_invariant(cfg.nef).dim
+    for res in ranks:  # the ranks' paths ran in their own processes, on the YAML's pallas: bf16
+        for shape, n in (res["step_launches"][0] + res["decode_launches"]).items():
+            PATH_LAUNCHES[("K1", BF16, *shape, I)] += n
+        for (B_, Z_, C_, wg), n in res["step_launches"][1].items():
+            PATH_LAUNCHES[("K2", BF16, B_, Z_, C_, I, wg)] += n
     if not (k1 and k2[False] and k2[True] and dec):
         raise AssertionError(f"the world launched K1 or K2 no time at its shapes: {k1}, {k2}, {dec}")
     return {"b": b, "k1_launches": k1, "k2_launches": k2, "decode_launches": dec, "max_abs_err": max(errs),
@@ -2572,6 +2647,376 @@ def split_fft_phase(dev) -> dict:
     return {"rel": rel, "us": us}
 
 
+def flat_tensors(x, prefix=""):
+    """(name, tensor) of nested dicts and sequences of tensors, None skipped."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from flat_tensors(v, f"{prefix}{k}.")
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from flat_tensors(v, f"{prefix}{i}.")
+    elif x is not None:
+        yield prefix.rstrip("."), x
+
+
+def bf16_gates(label: str, got, plain16, plain32, absolute: bool, groups=None) -> dict:
+    """Phase 35's gates of ``got`` (a bf16 program's outputs or gradients) against the plain bf16
+    version ``plain16`` and the plain f32 version ``plain32``, per gradient group: with gap =
+    rel-L2(plain16, plain32), rel-L2(got, plain16) <= BF16_NEAR gap and rel-L2(got, plain32) / gap
+    in [BF16_LO, BF16_HI]; with ``absolute``, rel-L2(got, plain32) <= BF16_ABS. A group is a tensor
+    (nested as ``grad_errors`` takes them), or the concatenation of the tensors whose names
+    ``groups(name)`` maps to one group (K2's weight gradients, a step's optimizer groups); each
+    tensor's own numbers are printed beside, with no gate. A group that no bf16 rounding reaches
+    (gap 0: the head's bias) is held to the plain version at REL_L2_TOL. One line; the worst of
+    each number and the max abs error against plain16."""
+    worst = {"near": 0.0, "ratio_lo": math.inf, "ratio_hi": 0.0, "d32": 0.0, "max_abs_err": 0.0, "n": 0}
+    bad, cat, per = [], {}, []
+    for (name, g), (_, w16), (_, w32) in zip(flat_tensors(got), flat_tensors(plain16), flat_tensors(plain32),
+                                             strict=True):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {name}: non-finite values")
+        worst["max_abs_err"] = max(worst["max_abs_err"], float((g - w16).abs().max()))
+        gap = rel_l2(w16, w32) if w32.any() else 0.0
+        if gap > 0:
+            per.append(f"{name} {rel_l2(g, w16) / gap:.2f}")
+        key = groups(name) if groups else name
+        parts = cat.setdefault(key, ([], [], []))
+        for lst, t in zip(parts, (g, w16, w32)):
+            lst.append(t.detach().reshape(-1).float())
+    for name, parts in cat.items():
+        g, w16, w32 = (torch.cat(lst) for lst in parts)
+        gap, near, d32 = rel_l2(w16, w32) if w32.any() else 0.0, rel_l2(g, w16) if w16.any() else 0.0, 0.0
+        worst["n"] += 1
+        if gap == 0:
+            if not near <= REL_L2_TOL:
+                bad.append(f"{name} rel_l2 {near:.3e} where plain16 = plain32")
+            continue
+        d32 = rel_l2(g, w32)
+        ratio = d32 / gap
+        worst.update(near=max(worst["near"], near / gap), ratio_lo=min(worst["ratio_lo"], ratio),
+                     ratio_hi=max(worst["ratio_hi"], ratio), d32=max(worst["d32"], d32))
+        if absolute and gap > BF16_ABS:
+            log(f"[bf16] {label} {name}: the bf16 function itself lies {gap:.3e} from f32, past {BF16_ABS:g}: "
+                "held by the ratio gates")
+        if not (near <= BF16_NEAR * gap and BF16_LO <= ratio <= BF16_HI
+                and (not absolute or d32 <= BF16_ABS or gap > BF16_ABS)):
+            bad.append(f"{name} gap {gap:.3e}, rel_l2 to plain16 {near:.3e} ({near / gap:.3f} gap), to plain32 "
+                       f"{d32:.3e} ({ratio:.3f} gap)")
+    log(f"[bf16] {label}: {worst['n']} groups; worst rel_l2 to plain16 {worst['near']:.3f} gap (gate {BF16_NEAR}), "
+        f"rel_l2 to plain32 {worst['ratio_lo']:.3f} .. {worst['ratio_hi']:.3f} gap (gate [{BF16_LO}, {BF16_HI}]), "
+        f"at most {worst['d32']:.3e}{f' (gate {BF16_ABS:g})' if absolute else ''}; max_abs_err {worst['max_abs_err']:.3e}"
+        + (f"; each tensor's rel_l2 to plain16 in gaps (no gate): {', '.join(per)}" if groups else ""))
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    return worst
+
+
+def bf16_bound(flops: int, moved: int) -> dict:
+    """The least time of a bf16 program's work: its products at the bf16 tensor-core rate, or bytes."""
+    b_bytes, b_tc = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return dict(bound_ms=max(b_bytes, b_tc), bound_by="bytes" if b_bytes >= b_tc else "operations")
+
+
+def k1_bf16_check(cfg, args, label: str) -> dict:
+    """K1's bf16 program against the plain bf16 version at ``args`` (with and without the tail,
+    phase 35's gates), then timed beside the f32 program and the plain bf16 version, each program
+    with its shared weights laid out once (as the forecast decode lays them out)."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    errs = []
+    with torch.no_grad():
+        for tail in (True, False):
+            kargs = args if tail else (*args[:7], ())
+            got = fused_decode_fwd(*kargs, num_heads=H, head_dim=D, compute_dtype=BF16)
+            p16 = fused_decode_plain(*kargs, num_heads=H, head_dim=D, compute_dtype=BF16)
+            p32 = fused_decode_plain(*kargs, num_heads=H, head_dim=D)
+            errs.append(bf16_gates(f"K1 {label} {'tail' if tail else 'no-tail'}", got, p16, p32, absolute=True))
+        w16, w32 = bf16_weights(args[6])[1], split_weights(args[6])[1]
+        ms16 = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=w16, compute_dtype=BF16), iters=10)
+        ms32 = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=w32), iters=10)
+        p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D, compute_dtype=BF16), iters=3, warmup=1)
+        bd = k1_bounds(cfg, args, got)
+    bound = bf16_bound(bd["flops"], bd["moved"])
+    log(f"[timing] K1 bf16 {label}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bf16 tensor cores {bd['flops'] / PEAK_BF16_FLOPS * 1e3:.4f} "
+        f"ms, bytes {bd['bytes_ms']:.4f} ms; the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} ms); "
+        f"{ms16 / bound['bound_ms']:.1f}x its bound")
+    return dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=max(e["max_abs_err"] for e in errs), **bound)
+
+
+def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
+    """K2's bf16 program against the plain bf16 version (tail mode, ``wgs`` weight-gradient modes;
+    phase 35's gates per gradient tensor) with the cotangent 0 where an RFF ReLU lies within
+    BF16_TIE_MARGIN of its kink (the number of such points and the whole cotangent's numbers
+    printed beside); two launches bit for bit; timed beside the f32 program and the plain bf16
+    version."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    keep = ~relu_ties(args, BF16_TIE_MARGIN)
+    gk = g * keep[..., None]
+    out = {}
+    for wg in wgs:
+        mode = f"{label} {'with' if wg else 'without'} weight grads"
+        whole = [fn(*args, g, H, D, wg, compute_dtype=dt) for fn, dt in
+                 ((fused_decode_bwd, BF16), (fused_decode_bwd_plain, BF16), (fused_decode_bwd_plain, torch.float32))]
+        near, ratio = [], []
+        for (_, a), (_, b), (_, c) in zip(*(flat_tensors(w) for w in whole)):
+            gap = rel_l2(b, c) if c.any() else 0.0
+            if gap > 0:
+                near.append(rel_l2(a, b) / gap)
+                ratio.append(rel_l2(a, c) / gap)
+        log(f"[bf16] K2 {mode}, the whole cotangent (no gate): worst rel_l2 to plain16 {max(near):.3f} gap, to plain32 "
+            f"{min(ratio):.3f} .. {max(ratio):.3f} gap; {int((~keep).sum())} of {keep.numel()} points lie within "
+            f"{BF16_TIE_MARGIN:g} of a ReLU's kink")
+        del whole
+        got = fused_decode_bwd(*args, gk, H, D, wg, compute_dtype=BF16)
+        again = fused_decode_bwd(*args, gk, H, D, wg, compute_dtype=BF16)
+        if not all(torch.equal(x, y) for (_, x), (_, y) in zip(flat_tensors(got), flat_tensors(again))):
+            raise AssertionError(f"K2 bf16 {mode}: two launches on the same inputs differ")
+        worst = bf16_gates(f"K2 {mode}, cotangent 0 at those points", got,
+                           fused_decode_bwd_plain(*args, gk, H, D, wg, compute_dtype=BF16),
+                           fused_decode_bwd_plain(*args, gk, H, D, wg), absolute=False, groups=K2_GROUPS)
+        del got, again
+        ms16 = cuda_ms(lambda: fused_decode_bwd(*args, g, H, D, wg, compute_dtype=BF16), iters=5)
+        ms32 = cuda_ms(lambda: fused_decode_bwd(*args, g, H, D, wg), iters=5)
+        p_ms = cuda_ms(lambda: fused_decode_bwd_plain(*args, g, H, D, wg, compute_dtype=BF16), iters=2, warmup=1)
+        bd = k2_bounds(cfg, args, g, wg)
+        bound = bf16_bound(bd["flops"], bd["moved"])
+        log(f"[timing] K2 bf16 {mode}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} "
+            f"ms); {ms16 / bound['bound_ms']:.1f}x its bound")
+        out[wg] = dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=worst["max_abs_err"], **bound)
+        torch.cuda.empty_cache()
+    return out
+
+
+def K2_GROUPS(name: str) -> str:
+    """K2's gradient groups: dinv, dwb, dA, dab, dG, dc (the first six outputs), and the weights."""
+    first = name.split(".")[0]
+    return ("dinv", "dwb", "dA", "dab", "dG", "dc")[int(first)] if int(first) < 6 else "weights"
+
+
+class PlainDecode(torch.nn.Module):
+    """``decoder`` whose kernel backends decode through the plain composition at ``dtype`` (autograd to
+    any order): the reference of a step on the kernels."""
+
+    def __init__(self, decoder, dtype):
+        super().__init__()
+        self.decoder, self.dtype = decoder, dtype
+
+    def forward(self, x, p, a, w, backend="eager"):
+        d = self.decoder
+        if backend == "eager":
+            return d(x, p, a, w)
+        return fused_decode_plain(*d.kernel_inputs(x, p, a, w), d.num_heads, d.num_hidden, self.dtype)
+
+
+# Phase 35's launch shapes: (config, overrides, b, c, label) of K1 on the paths the script drives,
+# and (config, overrides, b, c, weight-gradient modes, label) of K2.
+SA_OVER = (f"nef.num_layers={SA_LAYERS}", "nef.backend=pallas")
+BF16_K1_SHAPES = (
+    ("navier_stokes", (), NUM_SIGNALS * NUM_FRAMES, 512, "forecast and validation"),
+    ("navier_stokes", (), NUM_SIGNALS * 10, 512, "ode and dual steps"),
+    ("navier_stokes", (), NUM_SIGNALS * LONG_HORIZON, 512, f"rollout T={LONG_HORIZON}"),
+    ("navier_stokes", (), NUM_SIGNALS // WORLD * 10, 512, f"world={WORLD} rank's steps"),
+    ("navier_stokes", SA_OVER, 16, 512, "nef step"),
+    ("navier_stokes", SA_OVER, NUM_SIGNALS, 512, "fit"),
+    ("navier_stokes_nonmaml", (), NUM_SIGNALS * NUM_FRAMES, 2048, "validation"),
+    ("navier_stokes", ("nef.invariant_type=abs_pos",), NUM_SIGNALS * NUM_FRAMES, 512, "validation"),
+    ("navier_stokes", ("nef.invariant_type=abs_pos",), NUM_SIGNALS * 10, 512, "ode and dual steps"),
+    ("diffusion_plane", (), NUM_SIGNALS * NUM_FRAMES, 1024, "forecast and validation"),
+    ("cahn_hilliard", (), NUM_SIGNALS * NUM_FRAMES, 2048, "forecast and validation"),
+    ("diff_sphere", (), NUM_SIGNALS * NUM_FRAMES, 2048, "forecast"),
+    ("diff_sphere", (), 40, 2048, "validation"),
+    ("shallow_water", (), NUM_SIGNALS * NUM_FRAMES, 2048, "forecast"),
+    ("shallow_water", (), 14, 2048, "validation"),
+    ("shallow_water", (), 10, 2048, "ode and dual steps"),
+    ("ihc", (), NUM_SIGNALS * NUM_FRAMES, 2048, "forecast"),
+    ("ihc", (), 14, 2048, "validation"),
+)
+BF16_K2_SHAPES = (
+    ("navier_stokes", (), NUM_SIGNALS * 10, 512, (False, True), "ode / dual step"),
+    ("navier_stokes", (), NUM_SIGNALS * LONG_HORIZON, 512, (False, True), f"rollout T={LONG_HORIZON} ode / dual step"),
+    ("navier_stokes", (), NUM_SIGNALS // WORLD * 10, 512, (False, True), f"world={WORLD} rank's ode / dual step"),
+    ("navier_stokes", SA_OVER, 16, 512, (True,), "nef step"),
+    ("navier_stokes", SA_OVER, NUM_SIGNALS, 512, (True, False), "fit"),
+    ("navier_stokes", ("nef.invariant_type=abs_pos",), NUM_SIGNALS * 10, 512, (False, True), "ode / dual step"),
+    ("shallow_water", (), 10, 2048, (False, True), "ode / dual step"),
+    ("diffusion_plane", ("nef.backend=pallas",), 32, 1024, (True,), "nef step"),
+    ("diffusion_plane", ("nef.backend=pallas",), 8, 1024, (True,), "fit"),
+    ("cahn_hilliard", ("nef.backend=pallas",), 24, 2048, (True,), "nef step"),
+    ("cahn_hilliard", ("nef.backend=pallas",), 8, 2048, (True,), "fit"),
+    ("diff_sphere", ("nef.backend=pallas",), 8, 2048, (True,), "nef step"),
+    ("diff_sphere", ("nef.backend=pallas",), 2, 2048, (True,), "fit"),
+    ("ihc", ("nef.backend=pallas",), 2, 2048, (True,), "nef step"),
+    ("ihc", ("nef.backend=pallas",), 1, 2048, (True,), "fit"),
+)
+
+
+def bf16_phase(dev) -> dict:
+    """35. The bf16 programs of K1 and K2 (the YAMLs' ``pallas`` on the card, JAX's
+    ``compute_dtype=bfloat16``): each held against the plain bf16 version with phase 35's gates
+    (``bf16_gates``) at every launch shape the script's paths give it (BF16_K1_SHAPES,
+    BF16_K2_SHAPES), timed beside the f32 program and the plain bf16 version with the bf16 bound;
+    the Navier-Stokes ode, dual and validation steps and the 8 x 20 forecast in both modes (the
+    forecast's rel-L2 between them); one nef step with ``nef.backend=pallas`` in bf16 against the
+    same step through the plain bf16 composition. Returns the timings by (kernel, config,
+    overrides, b, c[, weight grads])."""
+    t0 = time.perf_counter()
+    res = {}
+    for i, (name, over, b, c, label) in enumerate(BF16_K1_SHAPES):
+        cfg = shape_config(name, *over)
+        args = decode_inputs(cfg, config_coords(cfg), dev, b, c, SEED + 50 + i)
+        res[("K1", name, over, b, c)] = k1_bf16_check(cfg, args, f"{name} {' '.join(over)} {label} b={b} c={c}")
+        del args
+        torch.cuda.empty_cache()
+    for i, (name, over, b, c, wgs, label) in enumerate(BF16_K2_SHAPES):
+        cfg = shape_config(name, *over)
+        coords = config_coords(cfg)
+        args = decode_inputs(cfg, coords, dev, b, c, SEED + 80 + i)
+        gen = torch.Generator().manual_seed(SEED + 81 + i)
+        g = torch.randn(b, c, cfg.nef.num_out, generator=gen).to(dev)
+        for wg, r in k2_bf16_check(cfg, args, g, wgs, f"{name} {' '.join(over)} {label} b={b} c={c}").items():
+            res[("K2", name, over, b, c, wg)] = r
+        del args, g
+        torch.cuda.empty_cache()
+    log(f"[phase 35] K1 at {len(BF16_K1_SHAPES)} and K2 at {len(BF16_K2_SHAPES)} launch shapes in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # The Navier-Stokes steps and forecast in both modes.
+    cfg = load_experiment_config("navier_stokes")
+    coords = planar_coords(GRID, GRID)
+    traj = torch.from_numpy(smooth_trajectories(NUM_SIGNALS, TRAIN_FRAMES, GRID, SEED + 3)).to(dev)
+    frames = smooth_frames(NUM_SIGNALS, GRID, SEED)
+    fields, medians = {}, {}
+    for backend in ("kernel", F32_KERNELS):
+        trainer = make_trainer(cfg, coords)
+        trainer.ode_backend = trainer.eval_backend = backend
+        state = trainer.init_state()
+        with on_path():
+            for fn in (trainer.ode_train_step, trainer.dual_train_step, trainer.val_step):
+                fn(state, traj)
+            torch.cuda.synchronize()
+        medians[backend] = {}
+        for step, fn in (("ode", trainer.ode_train_step), ("dual", trainer.dual_train_step), ("val", trainer.val_step)):
+            medians[backend][step] = statistics.median(sync_time(lambda: fn(state, traj))[1] * 1e3
+                                                       for _ in range(WARM_REPEATS))
+        fc = Forecaster(cfg, coords, device="cuda", backend="pallas" if backend == "kernel" else "pallas_interpret")
+        with on_path():
+            fields[backend] = fc.forecast(frames, num_frames=NUM_FRAMES)
+        medians[backend]["forecast"] = statistics.median(
+            sync_time(lambda: fc.forecast(frames, num_frames=NUM_FRAMES))[1] * 1e3 for _ in range(WARM_REPEATS))
+        del trainer, state, fc
+    fc_rel = rel_l2(fields["kernel"], fields[F32_KERNELS])
+    log(f"[bf16] navier_stokes in bf16 (pallas) against f32 (pallas_interpret), warm medians of {WARM_REPEATS}: "
+        + "; ".join(f"{k} {medians['kernel'][k]:.2f} / {medians[F32_KERNELS][k]:.2f} ms" for k in medians["kernel"])
+        + f"; the 8 x {NUM_FRAMES} forecasts' rel_l2 {fc_rel:.3e}")
+    if not (torch.isfinite(fields["kernel"]).all() and fc_rel <= BF16_ABS):
+        raise AssertionError(f"the bf16 forecast is not finite or lies {fc_rel:.3e} from the f32 one")
+
+    # One nef step on the kernels in bf16 against the plain bf16 composition (and plain f32).
+    cfg = load_experiment_config("navier_stokes", ["nef.backend=pallas"])
+    trainer = make_trainer(cfg, coords)
+    state = trainer.init_state()
+    gen = torch.Generator().manual_seed(SEED + 60)
+    K, M, N = cfg.meta.num_inner_steps, cfg.training.max_num_sampled_points, coords.shape[0]
+    masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
+    frame_idx = torch.randperm(cfg.dataset.traj_len_train, generator=gen)[:cfg.training.nef.fit_on_num_steps]
+    decoder, steps = trainer.decoder, {}
+    for tag, dec in (("kernel", decoder), ("plain16", PlainDecode(decoder, BF16)),
+                     ("plain32", PlainDecode(decoder, torch.float32))):
+        trainer.decoder = dec
+        with on_path():
+            steps[tag] = trainer.nef_grads(state, traj, frame_idx=frame_idx, masks=masks)
+            torch.cuda.synchronize()
+    trainer.decoder = decoder
+    # The gates hold the loss and the decoder's gradient (the nef group). The latent groups
+    # (autodecoder, meta_sgd_lrs: the inits' and learning rates' gradients, second order through three
+    # bf16 inner steps) and the whole gradient are printed with no gate: there the bf16 function is as
+    # far from a second right evaluation of itself as from f32 (0.65 and 0.18 of the gap with a ratio
+    # of 1.19 and 0.82 on an H100, PERF.md §6), while every K1 and K2 launch held 0.23 of it.
+    label = "nef step (nef.backend=pallas, second order through K1 and K2 in bf16)"
+    latent = ("autodecoder", "meta_sgd_lrs")
+    sides = [[loss, {g: v for g, v in grads.items() if g not in latent}] for loss, grads in steps.values()]
+    bf16_gates(f"{label} loss and decoder gradients", *sides, absolute=False,
+               groups=lambda name: "loss" if name == "0" else name.split(".")[1])
+    for what, sides, groups in (("latent groups", [[{g: grads[g] for g in latent}] for _, grads in steps.values()],
+                                 lambda name: name.split(".")[1]),
+                                ("whole gradient", [grads for _, grads in steps.values()], lambda name: "all")):
+        try:
+            bf16_gates(f"{label} {what} (no gate)", *sides, absolute=False, groups=groups)
+        except AssertionError as e:
+            log(f"[bf16] {label}, the {what} past the gates (no gate here): {e}")
+    del trainer, state, steps
+    torch.cuda.empty_cache()
+    log(f"[phase 35] bf16 programs in {time.perf_counter() - t0:.2f} s")
+    return {"timing": res, "medians": medians, "forecast_rel": fc_rel}
+
+
+def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16) -> list:
+    """The kernels line: each program of K1 and K2 at the shapes it was held and timed at, with its
+    launches at that shape (and mode) in the paths the script drove (PATH_LAUNCHES): the bf16
+    programs on the YAMLs' ``pallas`` paths (phase 35's numbers), the f32 programs on the phases that
+    ran ``pallas_interpret`` (6, 17, 22, 26, 27, 35; phases 4, 5, 17, 20 and 27's numbers). Fails
+    unless every program was launched on a path and every listed entry has launches."""
+    Zn, In = cfg.nef.num_latents, get_ca_invariant(cfg.nef).dim
+    f32 = torch.float32
+    entries = []
+
+    def entry(kernel, dtype, shape, key, nums):
+        bf = dtype == BF16
+        src = (KERNEL_SOURCE_BF16 if bf else KERNEL_SOURCE) if kernel == "K1" else (
+            BWD_KERNEL_SOURCE_BF16 if bf else BWD_KERNEL_SOURCE)
+        launches = PATH_LAUNCHES[(kernel, dtype, *key)]
+        if not launches:
+            log(f"[kernels] {kernel} {'bf16' if bf else 'f32'} at {shape}: no launch on a path; not listed")
+            return
+        entries.append({
+            "name": ("fused_decode_fwd" if kernel == "K1" else "fused_decode_bwd") + ("_bf16" if bf else ""),
+            "shape": shape, "route": "cuda", "source": f"enf_pde_tpu_torch/csrc/{src}",
+            "replaces": "enf_pde_tpu/ops/pallas_decode.py:" + ("548" if kernel == "K1" else "635"),
+            "launches": launches, "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
+            "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"], "library_ms": None,
+            **({"f32_ms": nums["f32_ms"]} if bf else {})})
+
+    b_fc, b_ode = NUM_SIGNALS * NUM_FRAMES, NUM_SIGNALS * cfg.dataset.traj_len_train
+    ns = f"navier_stokes z={Zn} c=512"
+    entry("K1", f32, f"{ns} b={b_fc} (pallas_interpret forecast and validation)", (b_fc, Zn, 512, In),
+          k1_timing["forecast"])
+    entry("K1", f32, f"{ns} b={b_ode} (pallas_interpret ode and dual steps)", (b_ode, Zn, 512, In),
+          k1_timing["rollout"])
+    for b in (second["b_nef"], NUM_SIGNALS):
+        entry("K1", f32, f"navier_stokes num_layers={SA_LAYERS} z={Zn} c=512 b={b} (pallas_interpret nef step or fit)",
+              (b, Zn, 512, In), second["k1"][b])
+    for wg in (False, True):
+        mode = f"{'with' if wg else 'without'} weight gradients"
+        entry("K2", f32, f"{ns} b={b_ode} {mode}", (b_ode, Zn, 512, In, wg), {**k2["timing"][wg], "max_abs_err": k2["max_abs_err"]})
+        entry("K2", f32, f"shallow_water b=10 z=8 c=2048 {mode}", (10, 8, 2048, 4, wg),
+              {**sw["k2"]["timing"][wg], "max_abs_err": sw["k2"]["max_abs_err"]})
+        entry("K2", f32, f"navier_stokes abs_pos b={b_ode} z={Zn} c=512 I=2 {mode}", (b_ode, Zn, 512, 2, wg),
+              {**ablation["k2"]["timing"][wg], "max_abs_err": ablation["k2"]["max_abs_err"]})
+    for b, wg in ((second["b_nef"], True), (NUM_SIGNALS, True), (NUM_SIGNALS, False)):
+        entry("K2", f32, f"navier_stokes num_layers={SA_LAYERS} b={b} z={Zn} c=512 {'with' if wg else 'without'} "
+                         "weight gradients", (b, Zn, 512, In, wg),
+              {**second["k2"][b]["timing"][wg], "max_abs_err": second["k2"][b]["max_abs_err"]})
+    for key, nums in bf16["timing"].items():
+        kernel, name, over, b, c, *wg = key
+        ccfg = shape_config(name, *over)
+        Z, I = ccfg.nef.num_latents, get_ca_invariant(ccfg.nef).dim
+        mode = f" {'with' if wg[0] else 'without'} weight gradients" if wg else ""
+        entry(kernel, BF16, f"{name} {' '.join(over)} b={b} z={Z} c={c} I={I}{mode}".replace("  ", " "),
+              (b, Z, c, I, *wg), nums)
+    for kernel in ("K1", "K2"):
+        for dtype in (BF16, f32):
+            n = sum(v for k, v in PATH_LAUNCHES.items() if k[:2] == (kernel, dtype))
+            listed = sum(e["launches"] for e in entries if e["name"].startswith(
+                "fused_decode_fwd" if kernel == "K1" else "fused_decode_bwd") and e["name"].endswith("_bf16") == (dtype == BF16))
+            log(f"[kernels] {kernel} {'bf16' if dtype == BF16 else 'f32'}: {n} launches on the paths, {listed} at the "
+                "listed shapes")
+            if not listed:
+                raise AssertionError(f"{kernel}'s {'bf16' if dtype == BF16 else 'f32'} program was launched no time "
+                                     "at a listed shape on the paths")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card.",
@@ -2582,7 +3027,7 @@ def main() -> int:
 
     # 1. Build: one nvcc per source, all started together.
     t0 = time.perf_counter()
-    sources = (KERNEL_SOURCE, BWD_KERNEL_SOURCE)
+    sources = (KERNEL_SOURCE, BWD_KERNEL_SOURCE, KERNEL_SOURCE_BF16, BWD_KERNEL_SOURCE_BF16)
     with ThreadPoolExecutor(len(sources)) as pool:
         lib_paths = list(pool.map(cuda_lib.build, sources))
     for src in sources:
@@ -2636,7 +3081,7 @@ def main() -> int:
 
     # 3. The forecast end to end, at full width.
     ns_fc = forecast_phase(cfg, coords, smooth_frames(NUM_SIGNALS, GRID, SEED), "forecast")
-    launches, max_errs = ns_fc["launches"], max_errs + [ns_fc["max_abs_err"]]
+    launches = ns_fc["launches"]
     dec, flat, xs, folded, chunk = (ns_fc[k] for k in ("dec", "flat", "xs", "folded", "chunk"))
 
     # 4. K1 at the forecast's launch shape and the rollout decode's: kernel against plain,
@@ -2668,8 +3113,8 @@ def main() -> int:
     log(f"[timing] decode prologue: weight fold {fold_ms:.4f} ms and split {split_ms:.4f} ms per decode, geometry "
         f"{geom_ms:.4f} ms per chunk x {launches} chunks; forecast decode total at K1's time "
         f"{k1_timing['forecast']['ms'] * launches:.3f} ms")
-    kernel_ms, plain_ms = k1_timing["forecast"]["ms"], k1_timing["forecast"]["plain_ms"]
-    bound_ms, bound_by = k1_timing["forecast"]["bound_ms"], k1_timing["forecast"]["bound_by"]
+    for t in k1_timing.values():  # the f32 program's checks at Navier-Stokes width (phases 2 and 4)
+        t["max_abs_err"] = max(max_errs)
 
     # 5-9. The training path: K2, the kernel-backend steps, the data, run_experiment, resume.
     del args, out_k, folded, flat, xs, ns_fc, rollout_args
@@ -2741,118 +3186,12 @@ def main() -> int:
     shutil.rmtree(DATA_DIR)  # phase 32 was its last reader: the output directory stays small
     split_fft_phase(dev)
     # 34. K2 at the narrow configs' widths through nef.backend=pallas.
-    k2_configs = k2_configs_phase(dev)
+    k2_configs_phase(dev)
+    # 35. The bf16 programs at every launch shape of the paths above; the steps and forecast in both modes.
+    bf16 = bf16_phase(dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
-    k1_entry = {"name": "fused_decode_fwd", "route": "cuda",
-                "source": f"enf_pde_tpu_torch/csrc/{KERNEL_SOURCE}",
-                "replaces": "enf_pde_tpu/ops/pallas_decode.py:548", "library_ms": None}
-    kernels = [{
-        **k1_entry,
-        "shape": f"navier_stokes b={NUM_SIGNALS * NUM_FRAMES} z={cfg.nef.num_latents} c={chunk}",
-        "launches": launches + train["k1"] + resume["k1"],
-        "max_abs_err": max(max_errs + [repair["max_abs_err"]]),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-    }, *({**k1_entry, **entry} for entry in (*planar, sphere, sw["k1"], ihc)), {
-        "name": "fused_decode_bwd",
-        "shape": f"navier_stokes b={NUM_SIGNALS * cfg.dataset.traj_len_train} z={cfg.nef.num_latents} "
-                 f"c={cfg.training.max_num_sampled_points}",
-        "route": "cuda",
-        "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
-        "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
-        "launches": train["k2"] + resume["k2"],
-        "max_abs_err": k2["max_abs_err"],
-        # The ode step's mode (no weight gradients), the phase of 1600 of 2000 epochs.
-        **k2["timing"][False],
-        "library_ms": None,
-    }, {
-        "name": "fused_decode_bwd",
-        "shape": "shallow_water b=10 z=8 c=2048",
-        "route": "cuda",
-        "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
-        "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
-        "launches": sw["k2"]["launches"],
-        "max_abs_err": sw["k2"]["max_abs_err"],
-        **sw["k2"]["timing"][False],  # the ode step's mode, as for Navier-Stokes
-        "library_ms": None,
-    }]
-    b_val = NUM_SIGNALS * NUM_FRAMES
-    for res, shape, c, launches, err in (
-            (ablation["nonmaml"], f"navier_stokes_nonmaml b={b_val} z={cfg.nef.num_latents} c=2048",
-             2048, nonmaml["k1"], ablation["nonmaml"]["max_abs_err"]),
-            (ablation["abs_pos"], f"navier_stokes abs_pos b={b_val} z={cfg.nef.num_latents} c=512 I=2",
-             512, abs_pos["k1"], max(ablation["abs_pos"]["max_abs_err"], abs_pos["step_err"]))):
-        main = res["timing"][(cfg.nef.num_latents, b_val, c)]
-        kernels.append({**k1_entry, "shape": shape, "launches": launches, "max_abs_err": err,
-                        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
-    kernels.append({
-        "name": "fused_decode_bwd",
-        "shape": f"navier_stokes abs_pos b={NUM_SIGNALS * cfg.dataset.traj_len_train} z={cfg.nef.num_latents} "
-                 f"c={cfg.training.max_num_sampled_points} I=2",
-        "route": "cuda",
-        "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
-        "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
-        "launches": abs_pos["k2"],
-        "max_abs_err": ablation["k2"]["max_abs_err"],
-        **ablation["k2"]["timing"][False],  # the ode step's mode
-        "library_ms": None,
-    })
-    # This slice's shapes: K1 and K2 as phases 26-27 held them against their plain versions
-    # and timed them, each with its launches at that shape (and K2's mode) in phase 28's run.
-    b_nef, Zc = second["b_nef"], cfg.nef.num_latents
-    k1_sa = [(NUM_SIGNALS * NUM_FRAMES, "decode", attention),
-             (b_nef, "nef step", second["k1"][b_nef]), (NUM_SIGNALS, "fit", second["k1"][NUM_SIGNALS])]
-    for b, what, res in k1_sa:
-        kernels.append({**k1_entry, "shape": f"navier_stokes num_layers={SA_LAYERS} {what} b={b} z={Zc} c=512",
-                        "launches": sa_run["k1_shapes"][(b, Zc, 512)],
-                        **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
-    k2_sa = [(b_nef, True, "nef step"), (NUM_SIGNALS, True, "fit"), (NUM_SIGNALS, False, "fit")]
-    for b, wg, what in k2_sa:
-        kernels.append({
-            "name": "fused_decode_bwd", "route": "cuda", "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
-            "replaces": "enf_pde_tpu/ops/pallas_decode.py:635",
-            "shape": f"navier_stokes num_layers={SA_LAYERS} {what} b={b} z={Zc} c=512 "
-                     f"{'with' if wg else 'without'} weight gradients",
-            "launches": sa_run["k2_shapes"][(b, Zc, 512, wg)], "max_abs_err": second["k2"][b]["max_abs_err"],
-            **second["k2"][b]["timing"][wg], "library_ms": None})
-    unlaunched = [k["shape"] for k in kernels[-len(k1_sa) - len(k2_sa):] if k["launches"] == 0]
-    if unlaunched:
-        raise AssertionError(f"phase 28 launched no kernel at {unlaunched}")
-    # Phases 30-31: K1 and K2 at the 50-frame rollout's and at a world-of-2 rank's step shapes,
-    # held and timed there, with their launches in those phases' runs; K1's launches in the
-    # world's coordinate-sharded decodes, at the forecast's launch shape (phase 4's numbers).
-    k2_entry = {"name": "fused_decode_bwd", "route": "cuda", "source": f"enf_pde_tpu_torch/csrc/{BWD_KERNEL_SOURCE}",
-                "replaces": "enf_pde_tpu/ops/pallas_decode.py:635", "library_ms": None}
-    for res, what in ((solvers, f"rollout T={LONG_HORIZON}"), (multi, f"world={WORLD} rank's")):
-        b = res["b"]
-        k1t = res["k1"]["timing"][(Zc, b, 512)]
-        kernels.append({**k1_entry, "shape": f"navier_stokes {what} ode and dual steps b={b} z={Zc} c=512",
-                        "launches": res["k1_launches"],
-                        **{k: k1t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
-        for wg, step in ((False, "ode"), (True, "dual")):
-            kernels.append({**k2_entry, "shape": f"navier_stokes {what} {step} step b={b} z={Zc} c=512 "
-                                                 f"{'with' if wg else 'without'} weight gradients",
-                            "launches": res["k2_launches"][wg], "max_abs_err": res["k2"]["max_abs_err"],
-                            **res["k2"]["timing"][wg]})
-    # Phase 34: K2 at the narrow configs' nef step and fit, with the launches of that phase's step
-    # and fit at each shape (all with weight gradients: the decoder's weights take gradients there).
-    for name, res in k2_configs.items():
-        for what, b in (("nef step", res["b_nef"]), ("fit", res["b_fit"])):
-            r = res["k2_nef" if what == "nef step" else "k2_fit"]
-            kernels.append({**k2_entry, "shape": f"{name} nef.backend=pallas {what} b={b} z={res['Z']} c={res['M']} "
-                                                 "with weight gradients",
-                            "launches": res["shapes"][(b, res["Z"], res["M"], True)], "max_abs_err": r["max_abs_err"],
-                            **r["timing"][True]})
-    unlaunched = [k["shape"] for k in kernels[-2 * len(k2_configs):] if k["launches"] == 0]
-    if unlaunched:
-        raise AssertionError(f"phase 34 launched no K2 at {unlaunched}")
-    kernels.append({**k1_entry, "shape": f"navier_stokes world={WORLD} coordinate-sharded validation and forecast "
-                                         f"b={NUM_SIGNALS * NUM_FRAMES} z={Zc} c=512",
-                    "launches": multi["decode_launches"], "max_abs_err": max(max_errs), "ms": kernel_ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+    kernels = kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16)
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

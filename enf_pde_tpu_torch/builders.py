@@ -1,10 +1,13 @@
 """Construction of decoder + latent-ODE models from an experiment config.
 
 Counterpart of ``enf_pde_tpu/builders.py``. The config keeps the JAX package's
-decoder backend names: ``xla`` is the port's eager decoder and ``pallas`` its fused
-kernels (``decoder_backend``). The kernels compute only a decoder with the RFF embedding
-and the value conditioning; for any other, ``resolve_backend`` resolves ``pallas`` to the
-eager decoder, as the JAX decoder takes its XLA path there, and says so.
+decoder backend names: ``xla`` is the port's eager decoder, ``pallas`` its fused kernels
+(``kernel``: bf16 operands on the card, as the JAX kernel runs on its chip; f32 on the CPU)
+and ``pallas_interpret`` the kernels' strict-f32 programs (``kernel_f32``, JAX's
+``compute_dtype=float32``) (``decoder_backend``). The kernels compute only a decoder with the
+RFF embedding and the value conditioning; for any other, ``resolve_backend`` resolves
+``pallas`` (and ``pallas_interpret``) to the eager decoder, as the JAX decoder takes its XLA
+path there, and says so.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from enf_pde_tpu_torch.models.decoder import EnfDecoder
 
 __all__ = ["build_models", "coordinate_system_for", "decoder_backend", "resolve_backend"]
 
-_BACKENDS = {"xla": "eager", "pallas": "kernel"}
+_BACKENDS = {"xla": "eager", "pallas": "kernel", "pallas_interpret": "kernel_f32"}
 
 
 def decoder_backend(name: str) -> str:
@@ -30,11 +33,11 @@ def decoder_backend(name: str) -> str:
 
 def resolve_backend(name: str, decoder: EnfDecoder, key: str = "nef.backend") -> str:
     """The backend that decodes for config value ``name`` (of ``key``): ``decoder_backend``,
-    except that ``pallas`` on a decoder the kernels do not compute
+    except that a kernel backend on a decoder the kernels do not compute
     (``not decoder.kernel_eligible``) resolves to ``'eager'``, with a line that says so.
     The trainers call it once per backend key, at construction."""
     backend = decoder_backend(name)
-    if backend == "kernel" and not decoder.kernel_eligible:
+    if backend != "eager" and not decoder.kernel_eligible:
         print(f"[builders] {key}: {name} resolves to eager: the fused kernels compute the rff "
               f"embedding with condition_value_transform, this decoder has embedding_type="
               f"{decoder.embedding_type!r}, condition_value_transform={decoder.condition_value_transform}")

@@ -16,10 +16,14 @@ Two backends share the parameters:
   with autograd carrying K2's gradients of the folded inputs back through the folds and
   the blocks to the latents and the weights. A double backward takes K2's values and the
   plain composition's second derivatives (``FusedDecode``). On CUDA tensors it launches
-  the kernels or raises. It computes only decoders with the RFF embedding and the value
-  conditioning (``kernel_eligible``), as JAX's ``_use_pallas_full``; the trainers resolve
-  a ``pallas`` backend of any other decoder to ``'eager'`` at construction
-  (``builders.resolve_backend``).
+  the kernels' bf16 programs (bf16 operands, f32 sums: JAX's ``compute_dtype=bfloat16``,
+  what its ``pallas`` backend runs on the chip) or raises; on CPU tensors it runs the plain
+  version in f32, as JAX's interpreter does (``kernel_compute_dtype``). It computes only
+  decoders with the RFF embedding and the value conditioning (``kernel_eligible``), as
+  JAX's ``_use_pallas_full``; the trainers resolve a ``pallas`` backend of any other decoder
+  to ``'eager'`` at construction (``builders.resolve_backend``).
+- ``'kernel_f32'``: the same on the kernels' strict-f32 programs (3xTF32) on CUDA tensors,
+  the counterpart of JAX's ``pallas_interpret`` (``compute_dtype=float32``).
 """
 
 from __future__ import annotations
@@ -37,14 +41,27 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fold_decode_weights,
     fused_decode_fwd,
     FusedDecode,
+    bf16_weights,
     split_weights,
 )
 from enf_pde_tpu_torch.ops.layers import Dense, LayerNorm, gelu
 
 __all__ = ["EnfDecoder", "CrossAttentionBlock", "decode_chunked", "decode_trajectories",
-           "embed_pose_angles", "BACKENDS"]
+           "embed_pose_angles", "kernel_compute_dtype", "BACKENDS", "KERNEL_BACKENDS"]
 
-BACKENDS = ("eager", "kernel")
+KERNEL_BACKENDS = ("kernel", "kernel_f32")
+BACKENDS = ("eager", *KERNEL_BACKENDS)
+
+
+def kernel_compute_dtype(backend: str, device) -> torch.dtype:
+    """The fused kernels' compute dtype for a kernel backend on ``device``, as the JAX decoder
+    picks ``compute_dtype``: ``'kernel'`` (the config's ``pallas``) is bf16 on the card and f32
+    on the CPU (JAX's interpreter runs f32); ``'kernel_f32'`` (``pallas_interpret``) is f32."""
+    if backend not in KERNEL_BACKENDS:
+        raise ValueError(f"{backend!r} is not a kernel backend ({KERNEL_BACKENDS})")
+    if backend == "kernel" and torch.device(device).type == "cuda":
+        return torch.bfloat16
+    return torch.float32
 
 
 def embed_pose_angles(p: torch.Tensor, invariant: BaseInvariant) -> torch.Tensor:
@@ -154,14 +171,16 @@ class EnfDecoder(nn.Module):
             p: [batch, num_latents, pose_dim].
             a: [batch, num_latents, latent_dim].
             gaussian_window: [batch, num_latents, 1] per-latent window size.
-            backend: ``'eager'`` or ``'kernel'`` (only where ``kernel_eligible``).
+            backend: ``'eager'``, ``'kernel'`` or ``'kernel_f32'`` (the last two only where
+                ``kernel_eligible``; ``kernel_compute_dtype`` gives their programs).
 
         Returns:
             [batch, num_coords, num_out].
         """
-        if backend == "kernel":
+        if backend in KERNEL_BACKENDS:
             inv, wb, A, ab, G, c, ws, tws = self.kernel_inputs(x, p, a, gaussian_window)
             return FusedDecode.apply(self.num_heads, self.num_hidden, len(tws),
+                                     kernel_compute_dtype(backend, inv.device),
                                      inv, wb, A, ab, G, c, *ws, *tws)
         if backend != "eager":
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -249,22 +268,23 @@ def decode_trajectories(decoder: EnfDecoder, backend: str, coords: torch.Tensor,
     [points, coord_dim] in chunks of ``chunk_size`` points on ``backend``; returns
     [batch, T, points, out]. The validation and forecast decode of both trainers.
 
-    On the kernel backend the weight folds (with the stem and the self-attention blocks),
-    which depend on the latents only, and K1's split of the shared weights run once for
-    all chunks.
+    On a kernel backend the weight folds (with the stem and the self-attention blocks),
+    which depend on the latents only, and K1's layout of the shared weights for its program
+    (``split_weights``' tf32 parts, or ``bf16_weights``) run once for all chunks.
     """
     p, a, w = latent_traj
     b, t = p.shape[0], p.shape[1]
     p_fl, a_fl, w_fl = (x.reshape(b * t, *x.shape[2:]) for x in (p, a, w))
     xs = coords[None].expand(b * t, *coords.shape)
-    if backend == "kernel":
+    if backend in KERNEL_BACKENDS:
         folded = decoder.fold(p_fl, a_fl, w_fl)
-        _, split = split_weights(folded[4])
+        dtype = kernel_compute_dtype(backend, coords.device)
+        _, split = (bf16_weights if dtype == torch.bfloat16 else split_weights)(folded[4])
 
         def apply_fn(x, pp, aa, ww):
             return fused_decode_fwd(*decoder.kernel_geometry(x, pp, ww), *folded,
                                     num_heads=decoder.num_heads, head_dim=decoder.num_hidden,
-                                    split=split)
+                                    split=split, compute_dtype=dtype)
     else:
         apply_fn = decoder
     out = decode_chunked(apply_fn, xs, p_fl, a_fl, w_fl, chunk_size=chunk_size)

@@ -35,12 +35,20 @@ Layers, as in the JAX package:
 Numerics: the reference paths run in strict f32. ``strict_fp32`` turns TF32 off for
 both cuBLAS matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``); the fold and the plain version call it.
+
+Each kernel has two programs, as the JAX kernel has two modes (``_Spec.compute_dtype``):
+``compute_dtype=torch.float32`` (3xTF32, ``fused_decode_fwd.cu`` / ``fused_decode_bwd.cu``) and
+``torch.bfloat16`` (bf16 operands with f32 sums, ``fused_decode_fwd_bf16.cu`` /
+``fused_decode_bwd_bf16.cu``, their shared weights laid out by ``bf16_weights``), each held
+against ``fused_decode_plain`` at the same ``compute_dtype``. Which one a decoder backend runs is
+``models.decoder.kernel_compute_dtype``'s choice.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 import re
 from typing import Dict, Optional, Sequence, Tuple
@@ -59,9 +67,13 @@ __all__ = [
     "fold_weights",
     "fold_tail_weights",
     "fold_decode_weights",
+    "fast_sincos",
     "fused_decode_plain",
     "fused_decode_fwd",
     "split_weights",
+    "bf16_weights",
+    "shared_weights",
+    "kernel_sources",
     "k1_width_class",
     "k1_constants",
     "k1_smem_bytes",
@@ -104,8 +116,24 @@ NARROW_CLASSES = (16, 32, 64)
 
 KERNEL_SOURCE = "fused_decode_fwd.cu"
 BWD_KERNEL_SOURCE = "fused_decode_bwd.cu"
+# The bf16 programs (JAX's compute_dtype=bfloat16): the same C interfaces.
+KERNEL_SOURCE_BF16 = "fused_decode_fwd_bf16.cu"
+BWD_KERNEL_SOURCE_BF16 = "fused_decode_bwd_bf16.cu"
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # The RFF coefficients (fixed buffers, ``stop_gradient`` in JAX) get no gradient.
 COEFF_INDICES = (WEIGHT_NAMES.index("q_coeff"), WEIGHT_NAMES.index("v_coeff"))
+
+
+def _check_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, got {compute_dtype}")
+    return compute_dtype
+
+
+def kernel_sources(compute_dtype: torch.dtype = torch.float32) -> Tuple[str, str]:
+    """The sources of K1 and K2 for a compute dtype: the f32 programs (3xTF32) or the bf16 ones."""
+    bf = _check_dtype(compute_dtype) == torch.bfloat16
+    return (KERNEL_SOURCE_BF16, BWD_KERNEL_SOURCE_BF16) if bf else (KERNEL_SOURCE, BWD_KERNEL_SOURCE)
 
 
 def strict_fp32() -> None:
@@ -259,56 +287,102 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + LN_EPS)
 
 
-def _rff_hidden(x, coeff, w1, b1):
-    """RFF sin/cos features -> ReLU dense (RFFNet dense 1)."""
+def _b16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even) and back to f32. Products of such values
+    are exact in f32, so a matmul of them is JAX's bf16 ``dot`` with ``preferred_element_type=
+    f32``; autograd through the casts rounds the cotangent of the bf16 value, as JAX's transpose
+    of ``convert_element_type`` does."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """``_mm`` of the JAX kernel: both operands rounded to bf16 in the bf16 mode, f32 sums."""
+    return _b16(x) @ _b16(w) if bf16 else x @ w
+
+
+def fast_sincos(proj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_fast_sincos``: sin and cos of ``2 pi proj`` by polynomials after an exact range
+    reduction, t = pi (proj - round(proj)), sin = 2 s(t) c(t), cos = 1 - 2 s(t)^2 (the bf16
+    mode's; f32 throughout, each operation as the JAX kernel orders it)."""
+    t = math.pi * (proj - torch.round(proj))
+    t2 = t * t
+    s = t * (0.9999999995 + t2 * (-0.1666666279 + t2 * (8.333288177e-3 + t2 * (-1.980741872e-4
+                                                                            + t2 * 2.601885479e-6))))
+    c = 1.0 + t2 * (-0.4999999963 + t2 * (4.166657362e-2 + t2 * (-1.388544180e-3 + t2 * 2.423340843e-5)))
+    return 2.0 * s * c, 1.0 - 2.0 * s * s
+
+
+def _rff_hidden(x, coeff, w1, b1, bf16: bool = False):
+    """RFF sin/cos features -> ReLU dense (RFFNet dense 1); the projection stays f32, the bf16
+    mode takes the polynomial sin/cos and rounds the dense's operands."""
     proj = x @ coeff
-    h = torch.cat([torch.sin(2 * math.pi * proj), torch.cos(2 * math.pi * proj)], dim=-1)
-    return torch.relu(h @ w1 + b1)
+    if bf16:
+        h = torch.cat(fast_sincos(proj), dim=-1)
+    else:
+        h = torch.cat([torch.sin(2 * math.pi * proj), torch.cos(2 * math.pi * proj)], dim=-1)
+    return torch.relu(_mm(h, w1, bf16) + b1)
 
 
 def fused_decode_plain(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
-                       tws: Sequence[torch.Tensor], num_heads: int, head_dim: int):
-    """``_tile_decode`` on whole tensors: inv [b, z, c, I], wb [b, z, c] -> [b, c, out]."""
+                       tws: Sequence[torch.Tensor], num_heads: int, head_dim: int,
+                       compute_dtype: torch.dtype = torch.float32):
+    """``_tile_decode`` on whole tensors: inv [b, z, c, I], wb [b, z, c] -> [b, c, out].
+
+    ``compute_dtype`` is ``_Spec.compute_dtype``: ``torch.float32`` (strict f32, the
+    ``pallas_interpret`` mode) or ``torch.bfloat16`` (the TPU kernel's default): every product
+    operand rounded to bf16 with f32 sums (A, G and every weight included; one rounding of
+    ``m_w2`` per head, as JAX casts it in each head's ``_mm``), the polynomial sin/cos, and the
+    softmax weights rounded to bf16 before they weight the values; the RFF projection, the biases,
+    gelu, the LayerNorm statistics and the softmax stay f32.
+    """
     strict_fp32()
+    bf = _check_dtype(compute_dtype) == torch.bfloat16
     H, D = num_heads, head_dim
     q_coeff, q_w1, q_b1, v_coeff, v_w1, v_b1, fw, fb, m_w2, m_b2 = ws
     b, Z, C, _ = inv.shape
     hidm = m_w2.shape[0]
 
     # Per-head logits straight from the query RFF hidden (A holds the key and scale).
-    hq = _rff_hidden(inv, q_coeff, q_w1, q_b1)  # [b, z, c, hid]
-    att = hq @ A + ab[:, :, None, :] + wb[..., None]  # [b, z, c, H]
+    hq = _rff_hidden(inv, q_coeff, q_w1, q_b1, bf)  # [b, z, c, hid]
+    att = _mm(hq, A, bf) + ab[:, :, None, :] + wb[..., None]  # [b, z, c, H]
 
     # Value chain: FiLM and mixer dense 1 are one per-latent matmul with G / c.
-    t = _normalize(gelu(_rff_hidden(inv, v_coeff, v_w1, v_b1) @ fw + fb))
-    pre = (t @ G + c[:, :, None, :]).reshape(b, Z, C, H, hidm)
-    v_mix = (_normalize(gelu(pre)) @ m_w2 + m_b2).reshape(b, Z, C, H * D)
+    t = _normalize(gelu(_mm(_rff_hidden(inv, v_coeff, v_w1, v_b1, bf), fw, bf) + fb))
+    pre = (_mm(t, G, bf) + c[:, :, None, :]).reshape(b, Z, C, H, hidm)
+    if bf:
+        nn = _normalize(gelu(pre))
+        v_mix = torch.cat([_mm(nn[..., h, :], m_w2, bf) + m_b2 for h in range(H)], dim=-1)
+    else:
+        v_mix = (_normalize(gelu(pre)) @ m_w2 + m_b2).reshape(b, Z, C, H * D)
 
     # Softmax over latents on the narrow logits, then the weighted sum.
     m = att.amax(dim=1, keepdim=True)
     pr = torch.exp(att - m)
     pr = pr / pr.sum(dim=1, keepdim=True)
+    if bf:
+        pr = _b16(pr)
     y = (pr.repeat_interleave(D, dim=-1) * v_mix).sum(dim=1)  # [b, c, H*D]
     if not tws:
         return y
 
     o_w, o_b, p_w1, p_b1, p_w2, p_b2, h_w1, h_b1, h_w2, h_b2, h_w3, h_b3 = tws
-    y = y @ o_w + o_b
-    t = _normalize(gelu(y @ p_w1 + p_b1))
-    y = gelu(t @ p_w2 + p_b2)
-    h = gelu(y @ h_w1 + h_b1)
-    h = gelu(h @ h_w2 + h_b2)
-    return h @ h_w3 + h_b3
+    y = _mm(y, o_w, bf) + o_b
+    t = _normalize(gelu(_mm(y, p_w1, bf) + p_b1))
+    y = gelu(_mm(t, p_w2, bf) + p_b2)
+    h = gelu(_mm(y, h_w1, bf) + h_b1)
+    h = gelu(_mm(h, h_w2, bf) + h_b2)
+    return _mm(h, h_w3, bf) + h_b3
 
 
 # --------------------------------------------------------------------- kernel K1
 
 
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).removeprefix('torch.')}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
@@ -408,15 +482,57 @@ def split_weights(ws: Sequence[torch.Tensor], width: Optional[int] = None
     return buf, tuple(views)
 
 
+def bf16_weights(ws: Sequence[torch.Tensor], width: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``split_weights``' counterpart for K1's bf16 program: ``SPLIT_WEIGHT_NAMES`` of the folded
+    weights rounded to bf16 (to nearest, ties to even) in the K-major blocks that its bf16
+    ``wgmma`` reads, at the width class ``wn`` of ``ws`` (or ``width``).
+
+    Each weight W [K, N] (K a multiple of 16; N padded with zeros to a multiple of ``wn``) is laid
+    out as one block of 16 ``wn`` bf16 per 16-deep chunk kc and ``wn``-wide slab s, holding in
+    order n group ng (``wn`` / 8), k group kg (2), row r (8), k i (8): the element
+    W[16 kc + 8 kg + i, wn s + 8 ng + r] (core matrices of 8 n x 16 bytes, the two k groups 128
+    bytes apart, the n groups 256). Returns one contiguous bf16 buffer and, per weight, its view
+    [K / 16, N / wn, wn / 8, 2, 8, 8], whose pointers the bf16 K1 takes after ``out``.
+    """
+    wn = width or _ws_class(ws)
+    blocks = []
+    for name in SPLIT_WEIGHT_NAMES:
+        w = ws[WEIGHT_NAMES.index(name)]
+        K, N = w.shape
+        if K % 16:
+            raise ValueError(f"{name}: K1 needs the rows of {name} in chunks of 16, got {K}")
+        w = torch.nn.functional.pad(w, (0, -N % wn)).to(torch.bfloat16)
+        blk = w.reshape(K // 16, 2, 8, w.shape[1] // wn, wn // 8, 8)  # kc kg i s ng r
+        blocks.append(blk.permute(0, 3, 4, 1, 5, 2).contiguous())  # kc s ng kg r i
+    buf = torch.cat([b.reshape(-1) for b in blocks])
+    views, off = [], 0
+    for b in blocks:
+        views.append(buf[off:off + b.numel()].view(b.shape))
+        off += b.numel()
+    return buf, tuple(views)
+
+
+def shared_weights(ws: Sequence[torch.Tensor], compute_dtype: torch.dtype = torch.float32,
+                   width: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """The views K1 takes as ``split`` for ``compute_dtype``: ``split_weights(ws)[1]`` (f32) or
+    ``bf16_weights(ws)[1]`` (bf16). Made once per fold, they serve every chunk of a decode."""
+    bf = _check_dtype(compute_dtype) == torch.bfloat16
+    return (bf16_weights if bf else split_weights)(ws, width)[1]
+
+
 def _check_split(split: Sequence[torch.Tensor], ws: Sequence[torch.Tensor], device: torch.device,
-                 width: Optional[int] = None) -> None:
-    """``split`` is ``split_weights(ws, width)[1]`` in shape: the blocks K1 reads for each weight."""
+                 width: Optional[int] = None, compute_dtype: torch.dtype = torch.float32) -> None:
+    """``split`` is ``shared_weights(ws, compute_dtype, width)`` in shape and type: the blocks K1
+    reads for each weight."""
     if len(split) != len(SPLIT_WEIGHT_NAMES):
         raise ValueError(f"expected {len(SPLIT_WEIGHT_NAMES)} split weights, got {len(split)}")
     wn = width or _ws_class(ws)
+    bf = compute_dtype == torch.bfloat16
     for name, blk in zip(SPLIT_WEIGHT_NAMES, split):
         K, N = ws[WEIGHT_NAMES.index(name)].shape
-        _check(f"split {name}", blk, (K // 16, -(-N // wn), 2, 2, wn // 8, 2, 8, 4), device)
+        shape = (K // 16, -(-N // wn), wn // 8, 2, 8, 8) if bf else (K // 16, -(-N // wn), 2, 2, wn // 8, 2, 8, 4)
+        _check(f"split {name}", blk, shape, device, compute_dtype)
 
 
 def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
@@ -428,9 +544,11 @@ def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
             raise ValueError(f"{name} must start on 16 bytes for the kernels (storage offset {t.storage_offset()})")
 
 
+@functools.lru_cache(maxsize=None)
 def _source_constants(source: str) -> Dict[str, int]:
     """The ``constexpr int NAME = expr;`` lines of a kernel source, each an integer
-    expression of the ones before."""
+    expression of the ones before (read once a process: a launch's host-side layout check
+    reads them)."""
     env: Dict[str, int] = {}
     text = (cuda_lib.CSRC_DIR / source).read_text()
     for name, expr in re.findall(r"^constexpr int (\w+) = ([\w\s*+/()-]+);", text, re.M):
@@ -439,15 +557,17 @@ def _source_constants(source: str) -> Dict[str, int]:
     return env
 
 
-def k1_constants() -> Dict[str, int]:
+def k1_constants(compute_dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """K1's layout constants (TILE, ZG, RING_FLOATS, MAXW, SMEM_CAP, the narrow classes'
     ZG16 / RES16 / MINB16, ...), read from the
-    ``constexpr int NAME = expr;`` lines of its source, each an integer expression of the
-    ones before: the kernel and ``k1_smem_bytes`` share one set of constants."""
-    return _source_constants(KERNEL_SOURCE)
+    ``constexpr int NAME = expr;`` lines of its source (the f32 or the bf16 program's), each an
+    integer expression of the ones before: the kernel and ``k1_smem_bytes`` share one set of
+    constants."""
+    return _source_constants(kernel_sources(compute_dtype)[0])
 
 
-def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
+def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
+                  compute_dtype: torch.dtype = torch.float32) -> int:
     """K1's dynamic shared memory in bytes for a decode shape, as ``layout`` in
     ``csrc/fused_decode_fwd.cu`` computes it for the shape's width class
     (``k1_width_class``). At ``WG_N``: X, Y (which also stages a latent group's
@@ -455,9 +575,13 @@ def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
     logits and the online softmax's running max, sum and factor. Narrow (class ``wn``): X
     and Y of ``ZG<wn>`` latents' rows at a stride of ``wn`` + 4, acc, the four shared
     weights resident (``RES<wn>``) or a ring of ``STAGES`` of their blocks, the softmax's
-    state and the group's A. It does not depend on ``Z``. Raises ``ValueError`` for a shape
-    that ``layout`` refuses: widths it does not take, or more than ``SMEM_CAP`` bytes."""
-    k = k1_constants()
+    state and the group's A. It does not depend on ``Z``. The bf16 program
+    (``compute_dtype=torch.bfloat16``, ``fused_decode_fwd_bf16.cu``) keeps no split A chunks and
+    no online softmax state but every latent's logits ([Z][TILE][H]: it grows with ``Z``), and
+    its shared weights are bf16 blocks of 8 ``wn`` floats a chunk. Raises ``ValueError`` for a
+    shape that ``layout`` refuses: widths it does not take, or more than ``SMEM_CAP`` bytes."""
+    bf = _check_dtype(compute_dtype) == torch.bfloat16
+    k = k1_constants(compute_dtype)
     tile, zg, kc = k["TILE"], k["ZG"], k["KC"]
     if Z <= 0 or I <= 0 or H <= 0:
         raise ValueError(f"K1 needs Z, I and H positive, got {Z}, {I}, {H}")
@@ -474,26 +598,31 @@ def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
 
     ld_p, ld_w = stride(H * hidm), stride(max(H * D, hid))
     wn = k1_width_class(hid, hidm, D)
+    # The softmax's shared floats: the f32 program's group logits, running max, sum and factor,
+    # or every latent's logits in the bf16 program.
     if wn == k["WG_N"]:
         ld_x = stride(hid)
         n_y = max(zg * tile * ld_x, 2 * tile * ld_p, tile * ld_w)
-        smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + (zg + 3) * tile * H)
+        n_sm = Z * tile * H if bf else (zg + 3) * tile * H
+        smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + n_sm)
     else:
         zg = k[f"ZG{wn}"]
         rows, ld_x = zg * tile, wn + 4
         n_y = max(rows * ld_x, 2 * tile * ld_p, tile * ld_w)
-        n_w = (3 * hid + hidm) // kc * 32 * wn if k[f"RES{wn}"] else k["STAGES"] * 32 * wn
-        smem = 4 * (rows * ld_x + n_y + tile * ld_w + n_w + (zg + 3) * tile * H + zg * hid * H)
+        block = 8 * wn if bf else 32 * wn  # floats of a shared weight's 16-deep chunk
+        n_w = (3 * hid + hidm) // kc * block if k[f"RES{wn}"] else k["STAGES"] * block
+        n_sm = Z * tile * H if bf else (zg + 3) * tile * H
+        smem = 4 * (rows * ld_x + n_y + tile * ld_w + n_w + n_sm + zg * hid * H)
     if smem > k["SMEM_CAP"]:
         raise ValueError(f"K1 would need {smem} B of shared memory, more than {k['SMEM_CAP']}")
     return smem
 
 
-def k1_library_smem_bytes(dims: Sequence[int]) -> int:
+def k1_library_smem_bytes(dims: Sequence[int], compute_dtype: torch.dtype = torch.float32) -> int:
     """The shared memory that the built K1 library's ``layout`` gives a launch with these
     dims (the launcher's ``B, Z, C, I, hid, H, D, hidm, out_dim, with_tail``), -1 for a
     shape it refuses; on the card, held against ``k1_smem_bytes``."""
-    fn = cuda_lib.load(KERNEL_SOURCE).fused_decode_fwd_smem_bytes
+    fn = cuda_lib.load(kernel_sources(compute_dtype)[0]).fused_decode_fwd_smem_bytes
     fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     fn.restype = ctypes.c_longlong
     return int(fn((ctypes.c_int * len(dims))(*dims), len(dims)))
@@ -527,18 +656,21 @@ def _fwd_lib(source: str = KERNEL_SOURCE):
 
 
 def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=None,
-            lib=None, width: Optional[int] = None) -> torch.Tensor:
+            lib=None, width: Optional[int] = None, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     H, D = num_heads, head_dim
     dev = inv.device
+    bf = _check_dtype(compute_dtype) == torch.bfloat16
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
+    if bf:  # the bf16 program's layout grows with Z: refuse on the host what it cannot take
+        k1_smem_bytes(Z, I, hid, H, D, hidm, compute_dtype)
     if split is None:
-        _, split = split_weights(ws, width)
-    _check_split(split, ws, dev, width)
+        split = shared_weights(ws, compute_dtype, width)
+    _check_split(split, ws, dev, width, compute_dtype)
     staged = {"G": G, **{f"split {n}": w for n, w in zip(SPLIT_WEIGHT_NAMES, split)}}
     if with_tail:
         staged.update((n, tws[TAIL_WEIGHT_NAMES.index(n)]) for n in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"))
     _check_aligned16(staged)
-    lib = lib or _fwd_lib()
+    lib = lib or _fwd_lib(kernel_sources(compute_dtype)[0])
 
     out = torch.empty(B, C, out_dim, device=dev, dtype=torch.float32)
     tail_ptrs = [t.data_ptr() for t in tws] if with_tail else [None] * len(TAIL_WEIGHT_NAMES)
@@ -556,33 +688,39 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=
         raise RuntimeError(f"fused_decode_fwd launch failed for dims {dims}: {msg} (cudaError {rc})")
     fused_decode_fwd.launches += 1
     fused_decode_fwd.launches_by_shape[(B, Z, C)] += 1
+    fused_decode_fwd.launches_by_program[(compute_dtype, B, Z, C, I)] += 1
     return out
 
 
 def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
                      tws: Sequence[torch.Tensor], num_heads: int, head_dim: int,
-                     split: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                     split: Optional[Sequence[torch.Tensor]] = None,
+                     compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel K1: the fused forward decode.
 
     ``inv`` [b, z, c, I] and ``wb`` [b, z, c] are the latent-major invariants and
-    window bias; the rest is what ``fold_decode_weights`` returns. ``split`` may be
-    ``split_weights(ws)[1]``, made once for every launch with the same ``ws``; without
-    it each launch splits ``ws`` anew.
+    window bias; the rest is what ``fold_decode_weights`` returns. ``compute_dtype`` picks
+    the program: ``torch.float32`` (3xTF32, ``fused_decode_fwd.cu``) or ``torch.bfloat16``
+    (bf16 operands, f32 sums: ``fused_decode_fwd_bf16.cu``), as ``fused_decode_plain``
+    defines them. ``split`` may be ``shared_weights(ws, compute_dtype)``, made once for every
+    launch with the same ``ws``; without it each launch lays ``ws`` out anew.
 
-    On CPU tensors this is ``fused_decode_plain`` (``split`` is not read); on CUDA
-    tensors it launches the kernel on the current stream (counted in
-    ``fused_decode_fwd.launches``, and by ``(b, z, c)`` in ``launches_by_shape``) or
-    raises. Returns [b, c, num_out] with tail weights, else [b, c, H*D].
+    On CPU tensors this is ``fused_decode_plain`` at ``compute_dtype`` (``split`` is not
+    read); on CUDA tensors it launches that program on the current stream (counted in
+    ``fused_decode_fwd.launches``, by ``(b, z, c)`` in ``launches_by_shape`` and by
+    ``(compute_dtype, b, z, c, I)`` in ``launches_by_program``) or raises. Returns
+    [b, c, num_out] with tail weights, else [b, c, H*D].
     """
     if inv.device.type == "cpu":
-        return fused_decode_plain(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim)
+        return fused_decode_plain(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim, compute_dtype)
     if inv.device.type != "cuda":
         raise ValueError(f"fused_decode_fwd runs on CPU or CUDA tensors, got {inv.device}")
-    return _launch(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim, split)
+    return _launch(inv, wb, A, ab, G, c, ws, tws, num_heads, head_dim, split, compute_dtype=compute_dtype)
 
 
 fused_decode_fwd.launches = 0
 fused_decode_fwd.launches_by_shape = collections.Counter()
+fused_decode_fwd.launches_by_program = collections.Counter()
 
 
 # --------------------------------------------------------------------- kernel K2
@@ -590,8 +728,10 @@ fused_decode_fwd.launches_by_shape = collections.Counter()
 
 def fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
                            tws: Sequence[torch.Tensor], g: torch.Tensor, num_heads: int,
-                           head_dim: int, weight_grads: bool = True):
-    """The VJP of ``fused_decode_plain`` at cotangent ``g`` [b, c, out], by autograd.
+                           head_dim: int, weight_grads: bool = True,
+                           compute_dtype: torch.dtype = torch.float32):
+    """The VJP of ``fused_decode_plain`` (at ``compute_dtype``) at cotangent ``g`` [b, c, out],
+    by autograd: in bf16 its casts round the cotangents as JAX's transposes do.
 
     Returns ``(dinv, dwb, dA, dab, dG, dc, dws, dtws)``: the first six have their
     inputs' shapes; ``dws`` / ``dtws`` follow ``ws`` / ``tws``, with ``None`` for the
@@ -601,7 +741,7 @@ def fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
         lat = [x.detach().requires_grad_(True) for x in (inv, wb, A, ab, G, c)]
         wts = [w.detach().requires_grad_(weight_grads and i not in COEFF_INDICES)
                for i, w in enumerate((*ws, *tws))]
-        out = fused_decode_plain(*lat, wts[:len(ws)], wts[len(ws):], num_heads, head_dim)
+        out = fused_decode_plain(*lat, wts[:len(ws)], wts[len(ws):], num_heads, head_dim, compute_dtype)
         targets = lat + [w for w in wts if w.requires_grad]
         grads = list(torch.autograd.grad(out, targets, g))
     dlat, dw_iter = grads[:6], iter(grads[6:])
@@ -632,17 +772,21 @@ def k2_width_class(hid: int, hidm: int, D: int) -> int:
     return 64 if w >= 128 else 32 if w >= 64 else 16 if w >= 32 else 8
 
 
-def k2_constants() -> Dict[str, int]:
+def k2_constants(compute_dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """K2's layout constants (TILE, THREADS, KC, MINB64 ... MINB8, MIN_IPB, MAX_I,
     MAX_SEG, SMEM_CAP),
-    read from the ``constexpr int`` lines of its source, as ``k1_constants`` reads K1's."""
-    return _source_constants(BWD_KERNEL_SOURCE)
+    read from the ``constexpr int`` lines of its source (the f32 or the bf16 program's), as
+    ``k1_constants`` reads K1's."""
+    return _source_constants(kernel_sources(compute_dtype)[1])
 
 
-def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> Dict[str, int]:
-    """``shape`` in ``csrc/fused_decode_bwd.cu`` without the grid: the width class, the shared
-    row strides and the dynamic shared memory; raises ``ValueError`` for what it refuses."""
-    k = k2_constants()
+def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
+               compute_dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """``shape`` in ``csrc/fused_decode_bwd.cu`` (or its bf16 program's) without the grid: the
+    width class, the shared row strides and the dynamic shared memory; raises ``ValueError`` for
+    what it refuses."""
+    bf = _check_dtype(compute_dtype) == torch.bfloat16
+    k = k2_constants(compute_dtype)
     tile = k["TILE"]
     if Z <= 0 or H <= 0 or not 0 < I <= k["MAX_I"]:
         raise ValueError(f"K2 needs Z and H positive and 0 < I <= {k['MAX_I']}, got {Z}, {H}, {I}")
@@ -659,27 +803,35 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> Dict[str,
 
     ldh, ldw = stride(hid), stride(max(H * hidm, H * D, hid))
     n_w2 = tile * max(ldw, 2 * ldh)
-    for stages in ((3, 2) if wn == 64 else (2,)):  # the B staging ring: chunk buffers of two slabs of 32 wn floats
-        smem = 4 * (stages * 2 * 32 * wn + tile * ldw + tile * ldh + n_w2 + 2 * Z * tile * H + tile * I)
+    # The B staging ring: chunk buffers of two slabs of 16 x wn, two tf32 parts (32 wn floats a
+    # slab) or three bf16 ones (24 wn); the bf16 program also keeps two [TILE][H] rows (the sums
+    # of the rounded softmax weights and <dy, m_b2>).
+    slab, extra = (24 * wn, 2 * tile * H) if bf else (32 * wn, 0)
+    for stages in ((3, 2) if wn == 64 else (2,)):
+        smem = 4 * (stages * 2 * slab + tile * ldw + tile * ldh + n_w2 + 2 * Z * tile * H + extra + tile * I)
         if smem <= k["SMEM_CAP"]:
             return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages)
     raise ValueError(f"K2 would need {smem} B of shared memory for {Z} latents, more than {k['SMEM_CAP']}")
 
 
-def k2_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int) -> int:
+def k2_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
+                  compute_dtype: torch.dtype = torch.float32) -> int:
     """K2's dynamic shared memory in bytes for a decode shape, as ``shape`` in
     ``csrc/fused_decode_bwd.cu`` computes it: the B staging (a ring of chunk buffers, each of
-    two slabs of the width class ``k2_width_class``, big and small tf32 parts: three at the class
+    two slabs of the width class ``k2_width_class``, big and small tf32 parts (three bf16 parts in
+    the bf16 program): three at the class
     64 where they fit, else two), the wide buffer P, X1, W2 (X2 and X3, or one wide), the
     softmax weights and dp / dlogit of every latent, the tile's invariants. It grows with
     ``Z`` (1,024 B a latent at two heads; the ring drops to two buffers before the shape is
     refused). Raises ``ValueError`` for a shape it refuses:
-    widths it does not take, or more than ``SMEM_CAP`` bytes."""
-    return _k2_layout(Z, I, hid, H, D, hidm)["smem"]
+    widths it does not take, or more than ``SMEM_CAP`` bytes. ``compute_dtype=torch.bfloat16``:
+    the bf16 program's (``fused_decode_bwd_bf16.cu``)."""
+    return _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)["smem"]
 
 
 def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, hidm: int, out: int,
-                     tail: bool, weight_grads: bool, per_sm: Optional[int] = None, sms: int = 132) -> int:
+                     tail: bool, weight_grads: bool, per_sm: Optional[int] = None, sms: int = 132,
+                     compute_dtype: torch.dtype = torch.float32) -> int:
     """Bytes of K2's scratch for one launch (its workspace and its partials: the second and
     third of ``fused_decode_bwd_sizes``), as ``shape`` and ``plan`` in its source lay them out
     for a grid of ``per_sm`` blocks on each of ``sms`` SMs (or one block per work item when
@@ -687,9 +839,12 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
     its batch-row slots and its weight gradients. ``per_sm`` defaults to the most blocks of that shared memory an SM can
     hold (233,472 B an SM, 1,024 B of it kept back per block; 8 blocks of 256 threads), an
     upper bound of the launch's occupancy: the scratch grows with the grid. A block takes at
-    least ``MIN_IPB`` items."""
-    k = k2_constants()
-    lay = _k2_layout(Z, I, hid, H, D, hidm)
+    least ``MIN_IPB`` items. The bf16 program (``compute_dtype=torch.bfloat16``) keeps the shared
+    weights in bf16 (one part, 2 bytes an element) and ``m_w2``'s gradient a head (each head's
+    sum is rounded to bf16 on its own, as JAX casts ``m_w2`` in each head's product)."""
+    bf = _check_dtype(compute_dtype) == torch.bfloat16
+    k = k2_constants(compute_dtype)
+    lay = _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)
     tile = k["TILE"]
     if per_sm is None:
         per_sm = min(2048 // k["THREADS"], 233_472 // (lay["smem"] + 1024))
@@ -709,12 +864,12 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
     l_row = Z * (hid * H + H + hid * HH + HH)
     l_w = 0
     if weight_grads:
-        l_w = 3 * (hid * hid + hid) + hidm * D + D
+        l_w = 3 * (hid * hid + hid) + (H if bf else 1) * hidm * D + D
         if tail:
             l_w += 3 * (HD * HD + HD) + HD * hid + hid + hid * hid + hid + hid * out + out
-    # The shared weights pre-split once a launch (both orientations, both tf32 parts).
+    # The shared weights laid out once a launch (both orientations; two tf32 parts, or bf16).
     split = 3 * hid * hid + hidm * D + (3 * HD * HD + HD * hid + hid * hid if tail else 0)
-    return 4 * (2 * 2 * split + grid * (work + slots * l_row + l_w))
+    return 4 * ((1 if bf else 4) * split + grid * (work + slots * l_row + l_w))
 
 
 def k2_occupancy(dims: Sequence[int], source: str = BWD_KERNEL_SOURCE) -> Dict[str, int]:
@@ -734,14 +889,15 @@ def k2_occupancy(dims: Sequence[int], source: str = BWD_KERNEL_SOURCE) -> Dict[s
 
 
 def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
-                weight_grads: bool, lib=None):
+                weight_grads: bool, lib=None, compute_dtype: torch.dtype = torch.float32):
     H, D = num_heads, head_dim
     dev = inv.device
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
     _check("g", g, (B, C, out_dim), dev)
-    k2_smem_bytes(Z, I, hid, H, D, hidm)  # refuses, before any launch, a shape the kernel does not take
+    # Refuses, before any launch, a shape the kernel does not take.
+    k2_smem_bytes(Z, I, hid, H, D, hidm, compute_dtype)
     _check_aligned16({"G": G})  # read a float4 at a time (the B of dpre G^T)
-    lib = lib or _bwd_lib()
+    lib = lib or _bwd_lib(kernel_sources(compute_dtype)[1])
     dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail), int(weight_grads)]
     c_dims = (ctypes.c_int * len(dims))(*dims)
     sizes = (ctypes.c_longlong * 3)()
@@ -768,6 +924,7 @@ def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
         raise RuntimeError(f"fused_decode_bwd launch failed: {msg} (cudaError {rc})")
     fused_decode_bwd.launches += 1
     fused_decode_bwd.launches_by_shape[(B, Z, C, bool(weight_grads))] += 1
+    fused_decode_bwd.launches_by_program[(compute_dtype, B, Z, C, I, bool(weight_grads))] += 1
 
     # Split the flat buffer: dA, dab, dG, dc, then the trained weights in order.
     shapes = [A.shape, ab.shape, G.shape, c.shape]
@@ -789,68 +946,76 @@ def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
 
 def fused_decode_bwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
                      tws: Sequence[torch.Tensor], g: torch.Tensor, num_heads: int, head_dim: int,
-                     weight_grads: bool = True):
+                     weight_grads: bool = True, compute_dtype: torch.dtype = torch.float32):
     """Kernel K2: the fused backward decode, the VJP of ``fused_decode_fwd`` at ``g``.
 
     Same inputs as ``fused_decode_fwd`` plus the cotangent ``g`` [b, c, out]; returns
     what ``fused_decode_bwd_plain`` returns. ``weight_grads=False`` computes only the
-    gradients of inv, wb, A, ab, G and c (the ode step's need).
+    gradients of inv, wb, A, ab, G and c (the ode step's need). ``compute_dtype`` picks the
+    program (``fused_decode_bwd.cu``, or ``fused_decode_bwd_bf16.cu`` for bf16).
 
     On CPU tensors this is ``fused_decode_bwd_plain``; on CUDA tensors it launches
-    the kernel on the current stream (counted in ``fused_decode_bwd.launches``, and by
-    ``(b, z, c, weight_grads)`` in ``launches_by_shape``) or raises.
+    the kernel on the current stream (counted in ``fused_decode_bwd.launches``, by
+    ``(b, z, c, weight_grads)`` in ``launches_by_shape`` and by ``(compute_dtype, b, z, c, I,
+    weight_grads)`` in ``launches_by_program``) or raises.
     """
     if inv.device.type == "cpu":
         return fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws, tws, g, num_heads, head_dim,
-                                      weight_grads)
+                                      weight_grads, compute_dtype)
     if inv.device.type != "cuda":
         raise ValueError(f"fused_decode_bwd runs on CPU or CUDA tensors, got {inv.device}")
-    return _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads, head_dim, weight_grads)
+    return _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads, head_dim, weight_grads,
+                       compute_dtype=compute_dtype)
 
 
 fused_decode_bwd.launches = 0
 fused_decode_bwd.launches_by_shape = collections.Counter()
+fused_decode_bwd.launches_by_program = collections.Counter()
 
 
 class FusedDecode(torch.autograd.Function):
     """K1 forward, K2 backward: the differentiable fused decode.
 
-    ``FusedDecode.apply(num_heads, head_dim, num_tail, inv, wb, A, ab, G, c, *ws, *tws)``
-    with ``num_tail`` = ``len(tws)`` (0 or 12). The backward computes only what
+    ``FusedDecode.apply(num_heads, head_dim, num_tail, compute_dtype, inv, wb, A, ab, G, c, *ws,
+    *tws)`` with ``num_tail`` = ``len(tws)`` (0 or 12) and ``compute_dtype`` the programs'
+    (``torch.float32`` or ``torch.bfloat16``). The backward computes only what
     ``ctx.needs_input_grad`` asks for: the weight gradients only when some weight
     needs one. A backward that builds a graph for a double backward
     (``create_graph=True``) returns ``FusedDecodeVJP``'s gradients, whose values are
-    K2's and whose derivatives are the plain composition's.
+    K2's and whose derivatives are the plain composition's at the same compute dtype.
     """
 
     @staticmethod
-    def forward(ctx, num_heads: int, head_dim: int, num_tail: int, inv, wb, A, ab, G, c, *weights):
+    def forward(ctx, num_heads: int, head_dim: int, num_tail: int, compute_dtype: torch.dtype,
+                inv, wb, A, ab, G, c, *weights):
         ctx.num_heads, ctx.head_dim, ctx.num_tail = num_heads, head_dim, num_tail
+        ctx.compute_dtype = _check_dtype(compute_dtype)
         ctx.save_for_backward(inv, wb, A, ab, G, c, *weights)
         n_ws = len(weights) - num_tail
         return fused_decode_fwd(inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:],
-                                num_heads, head_dim)
+                                num_heads, head_dim, compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[3:]
+        needs = ctx.needs_input_grad[4:]
         if torch.is_grad_enabled():  # create_graph: the gradients must be differentiable
-            got = iter(FusedDecodeVJP.apply(ctx.num_heads, ctx.head_dim, ctx.num_tail, needs,
-                                            g.contiguous(), *saved))
-            return (None, None, None, *(next(got) if need else None for need in needs))
-        grads = _k2_grads(ctx.num_heads, ctx.head_dim, ctx.num_tail, needs, g.contiguous(), saved)
-        return (None, None, None, *(d if need else None for d, need in zip(grads, needs)))
+            got = iter(FusedDecodeVJP.apply(ctx.num_heads, ctx.head_dim, ctx.num_tail, ctx.compute_dtype,
+                                            needs, g.contiguous(), *saved))
+            return (None, None, None, None, *(next(got) if need else None for need in needs))
+        grads = _k2_grads(ctx.num_heads, ctx.head_dim, ctx.num_tail, ctx.compute_dtype, needs,
+                          g.contiguous(), saved)
+        return (None, None, None, None, *(d if need else None for d, need in zip(grads, needs)))
 
 
-def _k2_grads(num_heads: int, head_dim: int, num_tail: int, needs, g, saved):
+def _k2_grads(num_heads: int, head_dim: int, num_tail: int, compute_dtype: torch.dtype, needs, g, saved):
     """K2's gradients of every input of ``FusedDecode`` (in its order), with the weights'
     only when ``needs`` asks for one of them."""
     inv, wb, A, ab, G, c, *weights = saved
     n_ws = len(weights) - num_tail
     dinv, dwb, dA, dab, dG, dc, dws, dtws = fused_decode_bwd(
         inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:], g, num_heads, head_dim,
-        any(needs[6:]))
+        any(needs[6:]), compute_dtype=compute_dtype)
     return (dinv, dwb, dA, dab, dG, dc, *dws, *dtws)
 
 
@@ -858,21 +1023,24 @@ class FusedDecodeVJP(torch.autograd.Function):
     """The VJP of the fused decode as a differentiable function of its inputs and of the
     cotangent (JAX's ``_bwd_op`` with its ``custom_jvp``).
 
-    ``FusedDecodeVJP.apply(num_heads, head_dim, num_tail, needs, g, inv, wb, A, ab, G, c,
-    *weights)`` returns the gradients of the inputs that ``needs`` marks (in order), with
-    K2's values. Its backward recomputes ``fused_decode_plain`` from the same inputs,
-    takes the plain VJP at ``g`` with a graph, and differentiates that against the
-    incoming cotangents, so a double backward sees the plain composition's second
+    ``FusedDecodeVJP.apply(num_heads, head_dim, num_tail, compute_dtype, needs, g, inv, wb, A,
+    ab, G, c, *weights)`` returns the gradients of the inputs that ``needs`` marks (in order),
+    with K2's values. Its backward recomputes ``fused_decode_plain`` at the same
+    ``compute_dtype`` from the same inputs (JAX's shields run ``_reference_decode`` with the
+    spec's dtype), takes the plain VJP at ``g`` with a graph, and differentiates that against
+    the incoming cotangents, so a double backward sees the plain composition's second
     derivatives. Every tensor it reads, ``g`` included, is an input: the outer gradient
     reaches the weights, the latents and, through ``g``, the loss.
     """
 
     @staticmethod
-    def forward(ctx, num_heads: int, head_dim: int, num_tail: int, needs, g, *saved):
+    def forward(ctx, num_heads: int, head_dim: int, num_tail: int, compute_dtype: torch.dtype, needs, g,
+                *saved):
         ctx.num_heads, ctx.head_dim, ctx.num_tail, ctx.needs = num_heads, head_dim, num_tail, needs
+        ctx.compute_dtype = compute_dtype
         ctx.save_for_backward(g, *saved)
         ctx.set_materialize_grads(False)
-        grads = _k2_grads(num_heads, head_dim, num_tail, needs, g, saved)
+        grads = _k2_grads(num_heads, head_dim, num_tail, compute_dtype, needs, g, saved)
         return tuple(d for d, need in zip(grads, needs) if need)
 
     @staticmethod
@@ -889,18 +1057,18 @@ class FusedDecodeVJP(torch.autograd.Function):
                   for x, need in zip((g, *saved), (True, *ctx.needs))]
             g_, inv, wb, A, ab, G, c, *weights = xs
             out = fused_decode_plain(inv, wb, A, ab, G, c, weights[:n_ws], weights[n_ws:],
-                                     ctx.num_heads, ctx.head_dim)
+                                     ctx.num_heads, ctx.head_dim, ctx.compute_dtype)
             targets = [x for x, need in zip(xs[1:], ctx.needs) if need]
             first = torch.autograd.grad(out, targets, g_, create_graph=True)
             pairs = [(f, ct) for f, ct in zip(first, cotangents) if ct is not None and f.requires_grad]
-            wrt = [i for i, need in enumerate(ctx.needs_input_grad[4:]) if need]
+            wrt = [i for i, need in enumerate(ctx.needs_input_grad[5:]) if need]
             got = torch.autograd.grad([f for f, _ in pairs], [xs[i] for i in wrt],
                                       [ct for _, ct in pairs], allow_unused=True,
                                       create_graph=higher) if pairs and wrt else [None] * len(wrt)
         grads = [None] * len(xs)
         for i, d in zip(wrt, got):
             grads[i] = d
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def decode_flops_per_point(num_heads: int, head_dim: int, hidden: int, hidden_mixer: int,

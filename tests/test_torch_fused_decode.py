@@ -382,24 +382,32 @@ CONFIG_CLASSES = {"navier_stokes": 128, "navier_stokes_nonmaml": 128, "shallow_w
                   "diffusion_plane": 64, "cahn_hilliard": 64, "ihc": 32, "diff_sphere": 16}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)
-def test_k1_layout_accepts_every_shipped_decode_shape(name):
+def test_k1_layout_accepts_every_shipped_decode_shape(name, dtype):
     """``k1_smem_bytes`` (the mirror of K1's ``layout``, its constants read from the source)
     accepts each config's decode widths: I from the config's cross-attention invariant,
     hid = hidm = D = nef.num_hidden, H heads, its latents; the size does not grow with Z.
     The ablation runs add I = 2 and I = 1 at Navier-Stokes width. Each config takes its
-    width class (``k1_width_class``); a narrow class leaves room for its blocks an SM."""
+    width class (``k1_width_class``); a narrow class leaves room for its blocks an SM. The
+    bf16 program (``fused_decode_fwd_bf16.cu``) holds every latent's logits, 4 TILE H bytes a
+    latent, and its shared weights in bf16: less than the f32 program's at each config's Z."""
     name, *overrides = name.split()
     nef = jax_load_config(name, overrides).nef
     I, hid, H = jax_get_ca_invariant(nef).dim, nef.num_hidden, nef.num_heads
     assert set(CONFIG_CLASSES) == set(SHIPPED_CONFIGS)
     wn = fd.k1_width_class(hid, hid, hid)
     assert wn == CONFIG_CLASSES[name]
-    smem = fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
-    assert 0 < smem <= fd.k1_constants()["SMEM_CAP"] == 232_448
-    assert {fd.k1_smem_bytes(z, I, hid, H, hid, hid) for z in (1, 4, 5, 8, 9, 16, 25, 64, 1000)} == {smem}
+    smem = fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid, dtype)
+    assert 0 < smem <= fd.k1_constants(dtype)["SMEM_CAP"] == 232_448
+    if dtype == torch.float32:
+        assert {fd.k1_smem_bytes(z, I, hid, H, hid, hid) for z in (1, 4, 5, 8, 9, 16, 25, 64, 1000)} == {smem}
+    else:
+        tile = fd.k1_constants(dtype)["TILE"]
+        assert fd.k1_smem_bytes(nef.num_latents + 1, I, hid, H, hid, hid, dtype) - smem == 4 * tile * H
+        assert smem < fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
     if wn < fd.WG_N:  # an SM has 233,472 B, 1,024 B of it kept back per block
-        assert fd.k1_constants()[f"MINB{wn}"] * (smem + 1024) <= 233_472
+        assert fd.k1_constants(dtype)[f"MINB{wn}"] * (smem + 1024) <= 233_472
 
 
 def test_k1_layout_mirror_refuses_what_layout_refuses():

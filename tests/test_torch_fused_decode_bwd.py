@@ -275,23 +275,27 @@ def _k2_shapes(name):
     return widths, [(label, b, points) for label, b in shapes]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)
-def test_k2_layout_fits_every_shipped_decode_shape(name):
+def test_k2_layout_fits_every_shipped_decode_shape(name, dtype):
     """``k2_smem_bytes`` and ``k2_scratch_bytes`` (the mirrors of K2's ``shape`` and ``plan``, its
     constants read from the source) at each config's widths (I from its cross-attention invariant,
     hid = hidm = D = nef.num_hidden, H heads, its latents) and at each of its K2 launch shapes: the
     shared memory fits 227 KB, and the scratch of a launch (workspace + partials, at the most blocks
     an SM can hold, an upper bound of the grid's) is at most a quarter of the PR 17 build's, in all
-    four modes."""
+    four modes. The bf16 program (``fused_decode_bwd_bf16.cu``) stages half the floats a chunk and
+    keeps two more [TILE][H] rows; its shared memory is the f32 program's or less."""
     w, shapes = _k2_shapes(name)
-    smem = fd.k2_smem_bytes(w["Z"], w["I"], w["hid"], w["H"], w["D"], w["hidm"])
-    assert 0 < smem <= fd.k2_constants()["SMEM_CAP"] == 232_448
+    smem = fd.k2_smem_bytes(w["Z"], w["I"], w["hid"], w["H"], w["D"], w["hidm"], dtype)
+    assert 0 < smem <= fd.k2_constants(dtype)["SMEM_CAP"] == 232_448
+    if dtype == torch.bfloat16:
+        assert smem <= fd.k2_smem_bytes(w["Z"], w["I"], w["hid"], w["H"], w["D"], w["hidm"])
     for label, b, c in shapes:
         for tail in (True, False):
             for wg in (False, True):
                 out = w["out"] if tail else w["H"] * w["D"]
                 args = (b, w["Z"], c, w["I"], w["hid"], w["H"], w["D"], w["hidm"], out, tail, wg)
-                new, old = fd.k2_scratch_bytes(*args), _parent_scratch_bytes(*args)
+                new, old = fd.k2_scratch_bytes(*args, compute_dtype=dtype), _parent_scratch_bytes(*args)
                 assert 0 < new <= old / 4, (label, tail, wg, new, old)
 
 

@@ -2,6 +2,7 @@
 
     python3 tools/k1_compare.py [--old path/to/fused_decode_fwd_old.cu ...] [--skip PHASE ...] [--variant V ...]
         [--shape navier_stokes|diffusion_plane|cahn_hilliard|diff_sphere|shallow_water|ihc ...] [--latents Z ...]
+        [--dtype f32|bf16|both]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_fwd.cu``, each ``--old`` (an earlier K1
 source, named by its file name; one with the 29-pointer interface from before the
@@ -26,6 +27,12 @@ per shape and mode. Then times plain, old, variants, new, new, variants, old, pl
 them, beside the bounds (f32 on the CUDA cores and 3xTF32 on the tensor cores by
 operations, and by bytes) and the design's L2 weight bytes per point. Prints the card's name and power limit. Exits 1 when
 the new build misses the rel-L2 tolerance of ``chip_smoke.py`` at any shape.
+
+``--dtype bf16`` (or ``both``) also builds the bf16 program, ``fused_decode_fwd_bf16.cu`` ("new16"),
+holds it against the plain bf16 version with ``chip_smoke.py``'s bf16 gates (``bf16_gates``) at every
+shape and mode, and times it in the same turns (its shared weights laid out once by
+``bf16_weights``) beside its bound at the bf16 tensor-core rate; ``--old``, ``--skip`` and
+``--variant`` apply to the f32 program. ``--dtype bf16`` leaves the f32 program out of the turns.
 """
 
 from __future__ import annotations
@@ -147,6 +154,7 @@ def occupancy_line(sources: dict, args, H: int, D: int, out_dim: int) -> str:
 
 def compare_shape(shape: str, opts, kernels: dict, widths: dict, sources: dict, olds: list, extra: list,
                   worst: dict) -> None:
+    bf = "new16" in kernels
     """Every build against the plain version at ``shape``'s widths and launch shapes, then
     their times in turns at the first two; the worst rel-L2 of each build into ``worst``."""
     cfg = cs.shape_config(shape)
@@ -170,8 +178,17 @@ def compare_shape(shape: str, opts, kernels: dict, widths: dict, sources: dict, 
         for label, args in inputs.items():
             for tail, kargs in ((True, args), (False, (*args[:7], ()))):
                 ref = fd.fused_decode_plain(*kargs, H, D)
+                if bf:
+                    try:
+                        cs.bf16_gates(f"K1 {shape} {'tail' if tail else 'no-tail'} {label} new16", kernels["new16"](
+                            *kargs, H, D), fd.fused_decode_plain(*kargs, H, D, torch.bfloat16), ref, absolute=True)
+                    except AssertionError as e:
+                        cs.log(f"[check] {e}")
+                        worst["new16"] = float("inf")
                 parts = []
                 for name, k1 in kernels.items():
+                    if name == "new16":
+                        continue
                     try:
                         out = k1(*kargs, H, D)
                     except RuntimeError as e:  # an older build's layout may refuse the shape
@@ -185,25 +202,31 @@ def compare_shape(shape: str, opts, kernels: dict, widths: dict, sources: dict, 
                 cs.log(f"[check] K1 {shape} {'tail' if tail else 'no-tail'} {label} rel_l2 vs plain: " + "; ".join(parts))
         torch.cuda.synchronize()
 
-        order = ["plain", *olds, *extra, "new", "new", *extra[::-1], *olds[::-1], "plain"]
+        f32s = [n for n in ("new",) if n in kernels]
+        news = [*f32s, *(["new16"] if bf else [])]
+        order = ["plain", *olds, *extra, *news, *news[::-1], *extra[::-1], *olds[::-1], "plain"]
         for label in list(inputs)[:2]:
             args = inputs[label]
             splits = {w: fd.split_weights(args[6], w)[1] for w in set(widths.values())}  # once, as the forecast decode splits
-            fns = {name: partial(k1, *args, H, D, split=splits[widths[name]]) for name, k1 in kernels.items()}
+            fns = {name: partial(k1, *args, H, D, split=splits[widths[name]]) for name, k1 in kernels.items()
+                   if name != "new16"}
             fns["plain"] = partial(fd.fused_decode_plain, *args, H, D)
+            if bf:
+                fns["new16"] = partial(kernels["new16"], *args, H, D, split=fd.bf16_weights(args[6])[1])
             samples = {name: [] for name in fns}
             for name in order:
                 iters = 5 if name == "plain" else opts.iters
                 samples[name].append(cs.cuda_ms(fns[name], iters=iters, warmup=1 if name == "plain" else 2))
-            bd = cs.k1_bounds(cfg, args, fns["new"]())
+            bd = cs.k1_bounds(cfg, args, fns[news[0]]())
             cs.log(f"[occupancy] K1 {shape} {label}: " + occupancy_line(sources, args, H, D, cfg.nef.num_out))
             cs.log(f"[timing] K1 {shape} tail {label}, turns {order}: " + "; ".join(
                 f"{n} {', '.join(f'{v:.4f}' for v in vals)} ms (mean {statistics.mean(vals):.4f})"
                 for n, vals in samples.items()))
             cs.log(f"[bound] K1 {shape} {label}: {bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} MB; f32 CUDA "
                    f"cores {bd['f32_ms']:.4f} ms, 3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes "
-                   f"{bd['bytes_ms']:.4f} ms; new at {bd['flops'] / statistics.mean(samples['new']) / 1e9:.2f} "
-                   f"TFLOP/s; L2 weight bytes per point {bd['l2_per_point'] / 1e3:.1f} KB")
+                   f"{bd['bytes_ms']:.4f} ms; bf16 tensor cores {bd['flops'] / cs.PEAK_BF16_FLOPS * 1e3:.4f} ms; "
+                   + "; ".join(f"{n} at {bd['flops'] / statistics.mean(samples[n]) / 1e9:.2f} TFLOP/s" for n in news)
+                   + f"; L2 weight bytes per point {bd['l2_per_point'] / 1e3:.1f} KB")
 
 
 def main() -> int:
@@ -220,11 +243,15 @@ def main() -> int:
                     help="a config whose widths K1 runs at (repeatable; default navier_stokes)")
     ap.add_argument("--latents", action="append", type=int, default=[],
                     help="also check K1 with this many latents at each shape's widths, 8 x 1000 (repeatable)")
+    ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="f32",
+                    help="the programs held and timed: f32 (3xTF32), bf16, or both in the same turns")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("k1_compare: torch.cuda.is_available() is False; this needs a CUDA card.", file=sys.stderr)
         return 2
-    sources = {"new": str(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE)}
+    sources = {"new": str(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE)} if opts.dtype != "bf16" else {}
+    if opts.dtype != "f32":
+        sources["new16"] = str(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16)
     olds = [Path(p).stem for p in opts.old]
     sources.update({name: str(Path(p).resolve()) for name, p in zip(olds, opts.old)})
     variants = dict(edited_source(f"skip_{p}", SKIPS[p]) for p in opts.skip)
@@ -246,14 +273,15 @@ def main() -> int:
             lib = _FirstPointers(lib, n_ptrs)
         # A build from before the width classes reads the shared weights in WG_N slabs at every width.
         widths[name] = None if "fused_decode_fwd_occupancy" in Path(sources[name]).read_text() else fd.WG_N
-        kernels[name] = partial(fd._launch, lib=lib, width=widths[name])
+        kernels[name] = partial(fd._launch, lib=lib, width=widths[name],
+                                **({"compute_dtype": torch.bfloat16} if name == "new16" else {}))
     cs.log(f"[device] {torch.cuda.get_device_name(0)} | {cs.nvidia_smi()} | torch {torch.__version__}")
 
     worst = {name: 0.0 for name in kernels}
     for shape in opts.shape or ["navier_stokes"]:
         compare_shape(shape, opts, kernels, widths, sources, olds, extra, worst)
     cs.log(cs.nvidia_smi())
-    return 0 if worst["new"] <= cs.REL_L2_TOL else 1
+    return 0 if worst.get("new", 0.0) <= cs.REL_L2_TOL and worst.get("new16", 0.0) == 0.0 else 1
 
 
 if __name__ == "__main__":

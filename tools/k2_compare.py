@@ -1,7 +1,7 @@
 """Kernel K2 against earlier builds of it and its plain version, on one card.
 
     python3 tools/k2_compare.py [--old path/to/fused_decode_bwd_old.cu ...] [--skip PHASE ...]
-        [--skip-base path/to/source.cu] [--variant V ...] [--shape NAME ...] [--f64]
+        [--skip-base path/to/source.cu] [--variant V ...] [--shape NAME ...] [--f64] [--dtype f32|bf16|both]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_bwd.cu`` (and each ``--old``, a source with
 the same C interface, named by its file name; for each ``--skip`` a copy of the current
@@ -26,6 +26,13 @@ version against the plain version in float64 (the whole cotangent, at the first 
 prints the largest dinv differences beside the points' ReLU margins. Prints the card's name
 and power limit. Exits 1 when the new build misses the rel-L2 tolerance of
 ``chip_smoke.py``, or two of its launches on the same inputs differ in a bit.
+
+``--dtype bf16`` (or ``both``) also builds the bf16 program, ``fused_decode_bwd_bf16.cu`` ("new16"),
+holds it against the plain bf16 version with ``chip_smoke.py``'s bf16 gates (``k2_bf16_check``:
+the cotangent 0 within ``BF16_TIE_MARGIN`` of a kink, two launches bit for bit) in the tail mode with
+and without weight gradients, and times it in the same turns beside its bound at the bf16
+tensor-core rate; ``--old``, ``--skip`` and ``--variant`` apply to the f32 program. ``--dtype bf16``
+leaves the f32 program out.
 """
 
 from __future__ import annotations
@@ -176,6 +183,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10, help="kernel launches per timed sample")
     ap.add_argument("--shape", action="append", choices=sorted(SHAPES),
                     help="a decode shape K2 runs at (repeatable; default navier_stokes)")
+    ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="f32",
+                    help="the programs held and timed: f32 (3xTF32), bf16, or both in the same turns")
     ap.add_argument("--f64", action="store_true",
                     help="also hold every build and the plain f32 version against the plain version in "
                          "float64, with the whole cotangent, and show the largest dinv differences")
@@ -184,7 +193,9 @@ def main() -> int:
         print("k2_compare: torch.cuda.is_available() is False; this needs a CUDA card.", file=sys.stderr)
         return 2
     current = cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE
-    sources = {"new": str(current)}
+    sources = {"new": str(current)} if opts.dtype != "bf16" else {}
+    if opts.dtype != "f32":
+        sources["new16"] = str(cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE_BF16)
     olds = [Path(p).stem for p in opts.old]
     sources.update({name: str(Path(p).resolve()) for name, p in zip(olds, opts.old)})
     base = Path(opts.skip_base).resolve() if opts.skip_base else current
@@ -200,7 +211,9 @@ def main() -> int:
                 cs.log(f"[build] {name}: {ln.strip()}")
     cs.log(f"[device] {torch.cuda.get_device_name(0)} | {cs.nvidia_smi()} | torch {torch.__version__}")
 
-    kernels = {name: partial(fd._launch_bwd, lib=fd._bwd_lib(src)) for name, src in sources.items()}
+    kernels = {name: partial(fd._launch_bwd, lib=fd._bwd_lib(src),
+                             compute_dtype=torch.bfloat16 if name == "new16" else torch.float32)
+               for name, src in sources.items()}
     worst, bitwise = {name: 0.0 for name in kernels}, True
     for i, shape in enumerate(opts.shape or ["navier_stokes"]):
         name, frames = SHAPES[shape]
@@ -214,13 +227,21 @@ def main() -> int:
             dims = [B, Z, C, I, ws[1].shape[0], H, D, ws[8].shape[0], cfg.nef.num_out, 1, int(wg)]
             cs.log(f"[layout] K2 {shape} {'with' if wg else 'without'} weight grads: " + layout_note(sources, dims))
         for name_, bwd in kernels.items():  # a skip build's results are wrong by design
-            if not name_.startswith("skip_"):
+            if not name_.startswith("skip_") and name_ != "new16":
                 worst[name_] = max(worst[name_], check(cfg, args, g, f"{shape} {name_}", bwd))
-        bitwise &= repeat_check(cfg, args, g, kernels["new"], shape)
+        if "new" in kernels:
+            bitwise &= repeat_check(cfg, args, g, kernels["new"], shape)
+        if "new16" in kernels:
+            try:
+                cs.k2_bf16_check(cfg, args, g[True], (False, True), f"{shape} new16")
+            except AssertionError as e:
+                cs.log(f"[check] {e}")
+                worst["new16"] = float("inf")
         if opts.f64 and i == 0:
-            against_f64(cfg, args, g[True], kernels)
+            against_f64(cfg, args, g[True], {n: k for n, k in kernels.items() if n != "new16"})
 
-        order = ["plain", *olds, *extra, "new", "new", *list(extra)[::-1], *olds[::-1], "plain"]
+        news = [n for n in ("new", "new16") if n in kernels]
+        order = ["plain", *olds, *extra, *news, *news[::-1], *list(extra)[::-1], *olds[::-1], "plain"]
         for wg in (False, True):
             fns = {name_: partial(bwd, *args, g[True], H, D, wg) for name_, bwd in kernels.items()}
             fns["plain"] = partial(fd.fused_decode_bwd_plain, *args, g[True], H, D, wg)
@@ -235,12 +256,12 @@ def main() -> int:
                 for n, vals in samples.items()))
             cs.log(f"[bound] K2 {shape} {label} weight grads: {bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} "
                    f"MB; f32 CUDA cores {bd['f32_ms']:.4f} ms, 3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes "
-                   f"{bd['bytes_ms']:.4f} ms; new at {bd['flops'] / statistics.mean(samples['new']) / 1e9:.2f} "
-                   f"TFLOP/s")
+                   f"{bd['bytes_ms']:.4f} ms; bf16 tensor cores {bd['flops'] / cs.PEAK_BF16_FLOPS * 1e3:.4f} ms; "
+                   + "; ".join(f"{n} at {bd['flops'] / statistics.mean(samples[n]) / 1e9:.2f} TFLOP/s" for n in news))
         del args, g
         torch.cuda.empty_cache()
     cs.log(cs.nvidia_smi())
-    return 0 if worst["new"] <= cs.REL_L2_TOL and bitwise else 1
+    return 0 if worst.get("new", 0.0) <= cs.REL_L2_TOL and worst.get("new16", 0.0) == 0.0 and bitwise else 1
 
 
 def repeat_check(cfg, args, g, bwd, shape: str) -> bool:
