@@ -349,7 +349,6 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     BWD_KERNEL_SOURCE_BF16,
     KERNEL_SOURCE,
     KERNEL_SOURCE_BF16,
-    bf16_weights,
     decode_bwd_flops_per_point,
     decode_flops_per_point,
     fused_decode_bwd,
@@ -358,13 +357,14 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fused_decode_plain,
     k1_constants,
     k1_library_smem_bytes,
+    k1_logits_floats,
     k1_occupancy,
     k1_smem_bytes,
     k1_width_class,
     k2_occupancy,
     k2_scratch_bytes,
     k2_smem_bytes,
-    split_weights,
+    shared_weights,
 )
 from enf_pde_tpu_torch.ops.layers import reset_parameters
 from enf_pde_tpu_torch.parallel.mesh import make_mesh, shard_batch
@@ -432,6 +432,16 @@ BF16_NEAR, BF16_LO, BF16_HI, BF16_ABS = 0.35, 0.9, 1.1, 5e-2
 # spread on an H100, PERF.md §6: the bf16 programs' distance from the plain bf16 version is their
 # roundings', not the kinks'.)
 BF16_TIE_MARGIN = TIE_MARGIN
+# Where two right evaluations of the bf16 function lie farther apart than BF16_NEAR of its gap (the
+# nef step, second order through three bf16 inner steps; K1 at many latents), the kernels are held
+# to the exact bf16 function x16 (the plain bf16 composition with the same roundings and float64
+# sums) beside witnesses, more right evaluations of it (the plain bf16 composition on the card, and
+# on the CPU: f32 sums in other orders, other sin / exp / rsqrt): with gap = rel-L2(x16, plain32),
+# the kernels' rel-L2 to x16 may be WITNESS_FACTOR times the farthest witness's on any draw, and
+# their ratio rel-L2(., plain32) / gap may leave 1 by WITNESS_FACTOR times the witnesses' (or by
+# BF16_NEAR and BF16_HI - 1, where wider). The nef step runs NEF_WITNESS_SEEDS draws.
+NEF_WITNESS_SEEDS = 3
+WITNESS_FACTOR = 1.5
 # Phases 30-33.
 REMAT_TOL = 1e-6  # rel-L2, a step with the rollout rematerialized against it stored
 LONG_HORIZON = 50  # navier_stokes.yaml's traj_len_out_horizon: the rollout remat is for
@@ -1212,7 +1222,7 @@ def k1_shapes_phase(tag: str, shapes: list, dev) -> dict:
                 check_close(f"{label} no-tail", fused_decode_fwd(*no_tail, num_heads=H, head_dim=D),
                             fused_decode_plain(*no_tail, num_heads=H, head_dim=D))]
             errs += shape_errs
-            split = split_weights(args[6])[1]  # once per fold, as the decode splits
+            split = shared_weights(args[6])  # once per fold, as the decode splits
             k_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
             p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
         bd = k1_bounds(c, args, out_k)
@@ -1886,7 +1896,7 @@ def attention_phase(dev) -> dict:
             errs.append(check_close(f"K1 behind {SA_LAYERS} self-attention blocks b={b} c={M} vs its plain version",
                                     out_k, fused_decode_plain(*args, num_heads=H, head_dim=D)))
             if b == NUM_SIGNALS * NUM_FRAMES:
-                split = split_weights(args[6])[1]
+                split = shared_weights(args[6])
                 k_ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
                 p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
                 fold_ms = cuda_ms(lambda: decoder.fold(p, a, w), iters=5, warmup=1)
@@ -1907,10 +1917,11 @@ def attention_phase(dev) -> dict:
 
 
 def reset_launches() -> None:
-    """Every launch count to 0: K1's and K2's totals and their tallies by shape."""
+    """Every launch count to 0: K1's and K2's totals and their tallies by program (compute dtype
+    and shape). Never inside ``on_path``, which diffs the tallies around its run."""
     for kernel in (fused_decode_fwd, fused_decode_bwd):
         kernel.launches = 0
-        kernel.launches_by_shape.clear()
+        kernel.launches_by_program.clear()
 
 
 def launches_of(fn):
@@ -1924,7 +1935,7 @@ def launches_of(fn):
 
 # The launches of the paths the script drives (a forecast, a training run, a step: not a kernel
 # held against its plain version or timed), by (kernel, compute dtype, b, z, c, I[, weight
-# grads]): the kernels line's counts. ``launches_by_program`` is never reset.
+# grads]): the kernels line's counts, diffed from ``launches_by_program`` around each run.
 PATH_LAUNCHES = Counter()
 
 
@@ -2130,7 +2141,7 @@ def sa_train_phase(dev) -> dict:
     with on_path():
         (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device="cuda"))
     k1, k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
-    k1_shapes, k2_shapes = Counter(fused_decode_fwd.launches_by_shape), Counter(fused_decode_bwd.launches_by_shape)
+    k1_shapes, k2_shapes = Counter(fused_decode_fwd.launches_by_program), Counter(fused_decode_bwd.launches_by_program)
     records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
     rec = next(r for r in records if "train_backend" in r)
     backends = tuple(rec[k] for k in ("train_backend", "eval_backend", "ode_backend"))
@@ -2147,8 +2158,8 @@ def sa_train_phase(dev) -> dict:
     epoch_mse = ", ".join(f"{r['train_mse_epoch']:.4e}" for r in epochs)
     log(f"[attention] run_experiment(3 epochs, navier_stokes {' '.join(over)}) in {run_s:.2f} s: phases "
         f"{[r['phase'] for r in epochs]}, train_mse_epoch [{epoch_mse}]; "
-        f"record backends {backends}; K1 launches {k1}, K2 launches {k2} (expected {expect}); by (b, z, c): K1 "
-        f"{dict(sorted(k1_shapes.items()))}, K2 (and weight gradients) {dict(sorted(k2_shapes.items()))}")
+        f"record backends {backends}; K1 launches {k1}, K2 launches {k2} (expected {expect}); by (dtype, b, z, c, I): "
+        f"K1 {dict(sorted(k1_shapes.items(), key=str))}, K2 (and weight gradients) {dict(sorted(k2_shapes.items(), key=str))}")
     if backends != ("kernel",) * 3:
         raise AssertionError(f"the run record gives backends {backends}")
     if [r["phase"] for r in epochs] != ["nef", "nef+ode", "ode"] or not all(np.isfinite(v) for v in values):
@@ -2166,7 +2177,7 @@ def sa_train_phase(dev) -> dict:
     with on_path():
         got, fc_s = sync_time(lambda: served.forecast(frames, num_frames=NUM_FRAMES))
     fc_k1, fc_k2 = fused_decode_fwd.launches, fused_decode_bwd.launches
-    k1_shapes += fused_decode_fwd.launches_by_shape
+    k1_shapes += fused_decode_fwd.launches_by_program
     want = built.forecast(frames, num_frames=NUM_FRAMES)
     same = torch.equal(got, want)
     stages = {"fit": [], "rollout": [], "decode": []}
@@ -2308,10 +2319,10 @@ def solvers_phase(dev) -> dict:
         del trainer, state, traj
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    b = NUM_SIGNALS * LONG_HORIZON
-    k1 = fused_decode_fwd.launches_by_shape[(b, 4, 512)]
-    k2 = {wg: fused_decode_bwd.launches_by_shape[(b, 4, 512, wg)] for wg in (False, True)}
-    log(f"[solvers] launches at T={LONG_HORIZON} (b={b} z=4 c=512): K1 {k1}, K2 without weight "
+    b, I = NUM_SIGNALS * LONG_HORIZON, get_ca_invariant(cfg.nef).dim
+    k1 = fused_decode_fwd.launches_by_program[(BF16, b, 4, 512, I)]  # the YAML's pallas on the card: bf16
+    k2 = {wg: fused_decode_bwd.launches_by_program[(BF16, b, 4, 512, I, wg)] for wg in (False, True)}
+    log(f"[solvers] launches of the bf16 programs at T={LONG_HORIZON} (b={b} z=4 c=512): K1 {k1}, K2 without weight "
         f"gradients {k2[False]}, with {k2[True]}")
     if not (k1 and k2[False] and k2[True]):
         raise AssertionError("phase 30 launched K1 or K2 no time at the 50-frame rollout's shape")
@@ -2353,9 +2364,9 @@ def k2_configs_phase(dev) -> dict:
         reset_launches()
         (loss, grads), _, k2_nef = launches_of(lambda: trainer.nef_grads(state, traj))
         fit, _, k2_fit = launches_of(lambda: trainer.fit_latents(state, traj[:, 0]))
-        shapes = Counter(fused_decode_bwd.launches_by_shape)
+        shapes = Counter(fused_decode_bwd.launches_by_program)
         log(f"[phase 34] {name} (nef.backend=pallas): nef step loss {float(loss):.4e}, K2 launches {k2_nef}; fit "
-            f"K2 launches {k2_fit}; by (b, z, c, weight grads): {dict(sorted(shapes.items()))}")
+            f"K2 launches {k2_fit}; by (dtype, b, z, c, I, weight grads): {dict(sorted(shapes.items(), key=str))}")
         if not (all_finite((loss, grads, fit)) and k2_nef and k2_fit):
             raise AssertionError(f"{name}: the nef step or the fit on the kernels is not finite or launched no K2")
         Z, M = cfg.nef.num_latents, cfg.training.max_num_sampled_points
@@ -2408,7 +2419,8 @@ def world1_phase(dev, traj: torch.Tensor, frames: np.ndarray) -> None:
 def world_rank(rank: int, payload_file: str, out_dir: str) -> None:
     """31 (b)-(e), one rank of the gloo world on the one card: the steps on its rows with the
     payload's draws, their warm medians, the coordinate-sharded validation and forecast,
-    three steps with the generator's draws, each part's K1 / K2 launches by shape."""
+    three steps with the generator's draws, each part's K1 / K2 launches by program (compute
+    dtype and shape, as this rank's wrappers counted them)."""
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank, world_size=WORLD)
     try:
@@ -2424,7 +2436,7 @@ def world_rank(rank: int, payload_file: str, out_dir: str) -> None:
         reset_launches()
         grads = step_grads(trainer, state, x, pl["draws"])
         torch.cuda.synchronize()
-        step_launches = (Counter(fused_decode_fwd.launches_by_shape), Counter(fused_decode_bwd.launches_by_shape))
+        step_launches = (Counter(fused_decode_fwd.launches_by_program), Counter(fused_decode_bwd.launches_by_program))
         medians = {}
         for kind, (fn, args) in {"nef": (trainer.nef_grads, ("frame_idx", "masks")),
                                  "ode": (trainer.ode_grads, ("masks", "ode_masks")),
@@ -2436,7 +2448,7 @@ def world_rank(rank: int, payload_file: str, out_dir: str) -> None:
         val = sharded.val_step(sharded.init_state(), pl["traj"].to("cuda"), batch_idx=3)
         forecast = Forecaster(cfg, coords, device="cuda").forecast(pl["frames"], NUM_FRAMES)
         torch.cuda.synchronize()
-        decode_launches = Counter(fused_decode_fwd.launches_by_shape)
+        decode_launches = Counter(fused_decode_fwd.launches_by_program)
         for step in (trainer.nef_train_step, trainer.ode_train_step, trainer.dual_train_step):
             step(state, x)
         after = {f"nef.{k}": v for k, v in trainer.nef_group().items()}
@@ -2504,8 +2516,8 @@ def world_phase(dev, traj: torch.Tensor, frames: np.ndarray) -> dict:
                 torch.equal(res["forecast"], want_fc.cpu()))
         log(f"[world] rank {r}: coordinate-sharded validation and forecast bit for bit this process's: "
             f"{same}; step medians (warm, 3) " + ", ".join(f"{k} {v:.2f} ms" for k, v in res["medians"].items())
-            + f"; K1 launches by (b, z, c): steps {dict(res['step_launches'][0])}, decodes "
-            f"{dict(res['decode_launches'])}; K2 by (b, z, c, weight grads): {dict(res['step_launches'][1])}")
+            + f"; K1 launches by (dtype, b, z, c, I): steps {dict(res['step_launches'][0])}, decodes "
+            f"{dict(res['decode_launches'])}; K2 by (dtype, b, z, c, I, weight grads): {dict(res['step_launches'][1])}")
         if not all(same):
             raise AssertionError(f"rank {r}: the sharded decodes differ from the unsharded ones: {same}")
     first = ranks[0]["after"]
@@ -2514,16 +2526,16 @@ def world_phase(dev, traj: torch.Tensor, frames: np.ndarray) -> dict:
         f"{len(differ)} differ between the ranks; the world's spawn and run took {spawn_s:.1f} s")
     if differ or len(first) < 40:
         raise AssertionError(f"the ranks' states differ at {differ[:5]}")
-    b = NUM_SIGNALS // WORLD * cfg.dataset.traj_len_train
-    k1 = sum(res["step_launches"][0][(b, 4, 512)] for res in ranks)
-    k2 = {wg: sum(res["step_launches"][1][(b, 4, 512, wg)] for res in ranks) for wg in (False, True)}
-    dec = sum(res["decode_launches"][(NUM_SIGNALS * NUM_FRAMES, 4, 512)] for res in ranks)
-    I = get_ca_invariant(cfg.nef).dim
-    for res in ranks:  # the ranks' paths ran in their own processes, on the YAML's pallas: bf16
-        for shape, n in (res["step_launches"][0] + res["decode_launches"]).items():
-            PATH_LAUNCHES[("K1", BF16, *shape, I)] += n
-        for (B_, Z_, C_, wg), n in res["step_launches"][1].items():
-            PATH_LAUNCHES[("K2", BF16, B_, Z_, C_, I, wg)] += n
+    b, I = NUM_SIGNALS // WORLD * cfg.dataset.traj_len_train, get_ca_invariant(cfg.nef).dim
+    # The ranks ran the YAML's pallas: the bf16 programs, as their own counters say.
+    k1 = sum(res["step_launches"][0][(BF16, b, 4, 512, I)] for res in ranks)
+    k2 = {wg: sum(res["step_launches"][1][(BF16, b, 4, 512, I, wg)] for res in ranks) for wg in (False, True)}
+    dec = sum(res["decode_launches"][(BF16, NUM_SIGNALS * NUM_FRAMES, 4, 512, I)] for res in ranks)
+    for res in ranks:  # the ranks' paths ran in their own processes: their counters, key for key
+        for key, n in (res["step_launches"][0] + res["decode_launches"]).items():
+            PATH_LAUNCHES[("K1", *key)] += n
+        for key, n in res["step_launches"][1].items():
+            PATH_LAUNCHES[("K2", *key)] += n
     if not (k1 and k2[False] and k2[True] and dec):
         raise AssertionError(f"the world launched K1 or K2 no time at its shapes: {k1}, {k2}, {dec}")
     return {"b": b, "k1_launches": k1, "k2_launches": k2, "decode_launches": dec, "max_abs_err": max(errs),
@@ -2717,20 +2729,37 @@ def bf16_bound(flops: int, moved: int) -> dict:
     return dict(bound_ms=max(b_bytes, b_tc), bound_by="bytes" if b_bytes >= b_tc else "operations")
 
 
-def k1_bf16_check(cfg, args, label: str) -> dict:
+def k1_bf16_check(cfg, args, label: str, witness: bool = False) -> dict:
     """K1's bf16 program against the plain bf16 version at ``args`` (with and without the tail,
-    phase 35's gates), then timed beside the f32 program and the plain bf16 version, each program
-    with its shared weights laid out once (as the forecast decode lays them out)."""
+    phase 35's gates; with ``witness``, ``witness_gates`` against the exact bf16 function beside
+    the plain bf16 version), then timed beside the f32 program and the plain bf16 version, each program
+    with its shared weights laid out once (as the forecast decode lays them out). Its shared
+    memory (``k1_smem_bytes``) is held equal to the built library's ``layout``, and whether every
+    latent's logits lie there or in global memory (``k1_logits_floats``) is printed."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    B, Z, C, I = args[0].shape
+    hid, hidm = args[6][1].shape[0], args[6][8].shape[0]
+    smem = k1_smem_bytes(Z, I, hid, H, D, hidm, BF16)
+    lib_smem = k1_library_smem_bytes([B, Z, C, I, hid, H, D, hidm, cfg.nef.num_out, 1], BF16)
+    if lib_smem != smem:
+        raise AssertionError(f"K1 bf16 {label}: k1_smem_bytes {smem} != the library's layout {lib_smem}")
+    n_lg = k1_logits_floats(B, Z, C, I, hid, H, D, hidm, BF16)
     errs = []
     with torch.no_grad():
         for tail in (True, False):
             kargs = args if tail else (*args[:7], ())
             got = fused_decode_fwd(*kargs, num_heads=H, head_dim=D, compute_dtype=BF16)
+            tag = f"K1 {label} {'tail' if tail else 'no-tail'}"
+            if witness:
+                sides = {"kernel": got, **plain_sides(kargs, H, D, cpu=False)}
+                witness_gates(tag, [sides], lambda name: "out")
+                errs.append({"max_abs_err": float((got - sides["plain16"]).abs().max())})
+                del sides
+                continue
             p16 = fused_decode_plain(*kargs, num_heads=H, head_dim=D, compute_dtype=BF16)
             p32 = fused_decode_plain(*kargs, num_heads=H, head_dim=D)
-            errs.append(bf16_gates(f"K1 {label} {'tail' if tail else 'no-tail'}", got, p16, p32, absolute=True))
-        w16, w32 = bf16_weights(args[6])[1], split_weights(args[6])[1]
+            errs.append(bf16_gates(tag, got, p16, p32, absolute=True))
+        w16, w32 = shared_weights(args[6], BF16), shared_weights(args[6])
         ms16 = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=w16, compute_dtype=BF16), iters=10)
         ms32 = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=w32), iters=10)
         p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D, compute_dtype=BF16), iters=3, warmup=1)
@@ -2739,7 +2768,8 @@ def k1_bf16_check(cfg, args, label: str) -> dict:
     log(f"[timing] K1 bf16 {label}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
         f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bf16 tensor cores {bd['flops'] / PEAK_BF16_FLOPS * 1e3:.4f} "
         f"ms, bytes {bd['bytes_ms']:.4f} ms; the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} ms); "
-        f"{ms16 / bound['bound_ms']:.1f}x its bound")
+        f"{ms16 / bound['bound_ms']:.1f}x its bound; shared memory {smem} B (the library's layout agrees), the "
+        f"logits in {f'global memory ({4 * n_lg / 1e6:.1f} MB)' if n_lg else 'shared memory'}")
     return dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=max(e["max_abs_err"] for e in errs), **bound)
 
 
@@ -2796,17 +2826,167 @@ def K2_GROUPS(name: str) -> str:
 
 class PlainDecode(torch.nn.Module):
     """``decoder`` whose kernel backends decode through the plain composition at ``dtype`` (autograd to
-    any order): the reference of a step on the kernels."""
+    any order): the reference of a step on the kernels. ``device`` and ``sums`` move the composition's
+    inputs to that device and float type (the CPU; float64: the same bf16 roundings with exact sums)
+    and its output back."""
 
-    def __init__(self, decoder, dtype):
+    def __init__(self, decoder, dtype, device=None, sums=torch.float32):
         super().__init__()
-        self.decoder, self.dtype = decoder, dtype
+        self.decoder, self.dtype, self.device, self.sums = decoder, dtype, device, sums
 
     def forward(self, x, p, a, w, backend="eager"):
         d = self.decoder
         if backend == "eager":
             return d(x, p, a, w)
-        return fused_decode_plain(*d.kernel_inputs(x, p, a, w), d.num_heads, d.num_hidden, self.dtype)
+        move = lambda t: t.to(device=self.device or t.device, dtype=self.sums)  # noqa: E731
+        inv, wb, A, ab, G, c, ws, tws = d.kernel_inputs(x, p, a, w)
+        args = (*(move(t) for t in (inv, wb, A, ab, G, c)), [move(t) for t in ws], [move(t) for t in tws])
+        out = fused_decode_plain(*args, d.num_heads, d.num_hidden, self.dtype)
+        return out.to(device=x.device, dtype=torch.float32)
+
+
+def witness_gates(label: str, draws: list, groups, ungated=()) -> dict:
+    """The gates of a bf16 program's results against right evaluations of the same bf16 function
+    (WITNESS_FACTOR's comment). ``draws``: per draw, {side: nested tensors} with the sides
+    ``kernel``, ``x16``, ``plain32`` and the witnesses (every other key); ``groups(name)`` maps a
+    tensor's name (``flat_tensors``) to its group. Prints each draw's and group's distances, in
+    gaps, to x16, to plain32 and to plain16 where there is one; raises past the gates, which hold
+    every group but those in ``ungated`` (printed with their verdict). Returns the readings by
+    (draw, group, side): (to x16, to plain32) in gaps."""
+    rows, bad = {}, []
+    witnesses = [k for k in draws[0] if k not in ("kernel", "x16", "plain32")]
+    names = sorted({groups(n) for n, _ in flat_tensors(draws[0]["kernel"])}, key=str)
+    for d, sides in enumerate(draws):
+        flat = {}
+        for tag, val in sides.items():
+            parts = {}
+            for n, t in flat_tensors(val):
+                parts.setdefault(groups(n), []).append(t.detach().reshape(-1).double().cpu())
+            flat[tag] = {g: torch.cat(v) for g, v in parts.items()}
+        for g in names:
+            gap = rel_l2(flat["x16"][g], flat["plain32"][g])
+            if gap == 0:  # no bf16 rounding reaches it: held as the f32 programs are
+                near = rel_l2(flat["kernel"][g], flat["x16"][g]) if flat["x16"][g].any() else 0.0
+                if not near <= REL_L2_TOL:
+                    bad.append(f"draw {d} {g}: rel_l2 {near:.3e} where x16 = plain32")
+                continue
+            for tag in ["kernel", *witnesses]:
+                rows[(d, g, tag)] = (rel_l2(flat[tag][g], flat["x16"][g]) / gap,
+                                     rel_l2(flat[tag][g], flat["plain32"][g]) / gap)
+            to16 = {tag: rel_l2(flat[tag][g], flat["plain16"][g]) / rel_l2(flat["plain16"][g], flat["plain32"][g])
+                    for tag in ["kernel", *witnesses] if "plain16" in flat and tag != "plain16"}
+            log(f"[witness] {label} draw {d} {g}: gap {gap:.3e}; to x16 / to plain32 in gaps: "
+                + "; ".join(f"{t} {rows[(d, g, t)][0]:.3f} / {rows[(d, g, t)][1]:.3f}" for t in ["kernel", *witnesses])
+                + (("; to plain16 in its gap: " + ", ".join(f"{t} {v:.3f}" for t, v in to16.items())) if to16 else ""))
+    for g in names:
+        keys = [(d, g) for d in range(len(draws)) if (d, g, "kernel") in rows]
+        if not keys:
+            continue
+        w_near = max(rows[(*k, t)][0] for k in keys for t in witnesses)
+        w_dev = max(abs(rows[(*k, t)][1] - 1) for k in keys for t in witnesses)
+        k_near = max(rows[(*k, "kernel")][0] for k in keys)
+        k_dev = max(abs(rows[(*k, "kernel")][1] - 1) for k in keys)
+        near_gate, dev_gate = max(BF16_NEAR, WITNESS_FACTOR * w_near), max(BF16_HI - 1, WITNESS_FACTOR * w_dev)
+        held = k_near <= near_gate and k_dev <= dev_gate
+        log(f"[witness] {label} {g} over {len(keys)} draws: the kernels {k_near:.3f} of the gap from x16 (gate "
+            f"{near_gate:.3f}; the witnesses' farthest {w_near:.3f}), their ratio to plain32 within {k_dev:.3f} of 1 "
+            f"(gate {dev_gate:.3f}; the witnesses' {w_dev:.3f})"
+            + (f"; no gate here: {'within' if held else 'past'} it" if g in ungated else ""))
+        if g not in ungated and not held:
+            bad.append(f"{g}: {k_near:.3f} of the gap from x16 (gate {near_gate:.3f}), ratio off 1 by {k_dev:.3f} "
+                       f"(gate {dev_gate:.3f})")
+    if bad:
+        raise AssertionError(f"{label}: past the right bf16 evaluations' spread: " + "; ".join(bad))
+    return rows
+
+
+def plain_sides(args, H: int, D: int, fn=fused_decode_plain, g=None, wg: bool = False, cpu: bool = True) -> dict:
+    """``fn`` (the plain forward, or the plain VJP of cotangent ``g`` with weight gradients ``wg``)
+    at ``args``: the witnesses ``plain16`` (and, with ``cpu``, ``cpu16``: on the CPU), the exact bf16
+    function ``x16`` (float64 sums) and ``plain32``, each on the card and in f32."""
+    pre, post = ((g,), (wg,)) if g is not None else ((), ())
+
+    def moved(device=None, dtype=torch.float32):
+        mv = lambda t: t.to(device=device or t.device, dtype=dtype)  # noqa: E731
+        return (*(mv(t) for t in args[:6]), [mv(t) for t in args[6]], [mv(t) for t in args[7]], *(mv(t) for t in pre))
+
+    def back(x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(back(v) for v in x)
+        return None if x is None else x.to(device=args[0].device, dtype=torch.float32)
+    out = {"plain16": fn(*args, *pre, H, D, *post, compute_dtype=BF16)}
+    if cpu:
+        out["cpu16"] = back(fn(*moved("cpu"), H, D, *post, compute_dtype=BF16))
+    out["x16"] = back(fn(*moved(None, torch.float64), H, D, *post, compute_dtype=BF16))
+    out["plain32"] = fn(*args, *pre, H, D, *post)
+    return out
+
+
+def nef_witness(cfg, coords: np.ndarray, traj: torch.Tensor) -> dict:
+    """Phase 35's nef step with ``nef.backend=pallas``, second order through K1 and K2 in bf16, on
+    NEF_WITNESS_SEEDS draws (trainer seed and the step's frames and points). Each side's step: the
+    kernels, the witnesses (the plain bf16 composition on the card, ``plain16``, and on the CPU,
+    ``cpu16``), the exact bf16 function ``x16`` and ``plain32``. Phase 35's gates against plain16
+    are printed with their verdict for every draw; every gradient group (the decoder's, the inits',
+    the learning rates') is held by ``witness_gates``. The loss, a scalar whose bf16 gap is 2-8e-4
+    of it, is printed beside them and held within BF16_ABS of plain32 (PERF.md §6, §7: the kernels'
+    loss lies farther from x16 than the witnesses' on an H100). First, K1 and K2 at the step's
+    decode shape, held the same way with the same witnesses: at first order the kernels lie as far
+    from x16 as the witnesses do. Returns the readings."""
+    label = "nef step (nef.backend=pallas, second order through K1 and K2 in bf16)"
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    K, M, N = cfg.meta.num_inner_steps, cfg.training.max_num_sampled_points, coords.shape[0]
+    b_nef = cfg.dataset.batch_size * cfg.training.nef.fit_on_num_steps
+    first, second = [], []
+    for s in range(NEF_WITNESS_SEEDS):
+        args = decode_inputs(cfg, coords, traj.device, b_nef, M, SEED + 90 + s)
+        g = torch.randn(b_nef, M, cfg.nef.num_out, generator=torch.Generator().manual_seed(SEED + 95 + s)).to(traj.device)
+        with torch.no_grad():
+            fwd = {"kernel": fused_decode_fwd(*args, H, D, compute_dtype=BF16), **plain_sides(args, H, D)}
+        bwd = {"kernel": fused_decode_bwd(*args, g, H, D, True, compute_dtype=BF16),
+               **plain_sides(args, H, D, fused_decode_bwd_plain, g, True)}
+        first.append((fwd, bwd))
+    witness_gates(f"K1 at the nef step's {b_nef} x {M}", [f for f, _ in first], lambda name: "out")
+    witness_gates(f"K2 at the nef step's {b_nef} x {M}, with weight grads", [b for _, b in first], K2_GROUPS)
+    del first
+    sides = {"kernel": None, "plain16": dict(dtype=BF16), "cpu16": dict(dtype=BF16, device="cpu"),
+             "x16": dict(dtype=BF16, sums=torch.float64), "plain32": dict(dtype=torch.float32)}
+    plain16_fail = []
+    for s in range(NEF_WITNESS_SEEDS):
+        trainer = make_trainer(cfg, coords, seed=SEED + s)
+        state = trainer.init_state()
+        gen = torch.Generator().manual_seed(SEED + 60 + s)
+        masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
+        frame_idx = torch.randperm(cfg.dataset.traj_len_train, generator=gen)[:cfg.training.nef.fit_on_num_steps]
+        decoder, steps = trainer.decoder, {}
+        for tag, kw in sides.items():
+            trainer.decoder = decoder if kw is None else PlainDecode(decoder, **kw)
+            t0 = time.perf_counter()
+            with on_path() if kw is None else contextlib.nullcontext():
+                steps[tag] = trainer.nef_grads(state, traj, frame_idx=frame_idx, masks=masks)
+                torch.cuda.synchronize()
+            if s == 0:
+                log(f"[bf16] {label}: the {tag} step in {time.perf_counter() - t0:.2f} s")
+        trainer.decoder = decoder
+        try:
+            bf16_gates(f"{label} draw {s} (phase 35's gates against plain16, printed)", *(
+                steps[t] for t in ("kernel", "plain16", "plain32")), absolute=False,
+                groups=lambda name: "loss" if name == "0" else name.split(".")[1])
+        except AssertionError as e:
+            plain16_fail.append(s)
+            log(f"[bf16] {label} draw {s}: past phase 35's gates against plain16 (held by the witnesses): {e}")
+        second.append(steps)
+        del trainer, state
+        torch.cuda.empty_cache()
+    log(f"[witness] {label}: phase 35's gates against plain16 failed on draws {plain16_fail or 'none'} of "
+        f"{NEF_WITNESS_SEEDS}")
+    rows = witness_gates(label, second, lambda name: "loss" if name == "0" else name.split(".")[1], ungated=("loss",))
+    for d, steps in enumerate(second):
+        loss, ref = float(steps["kernel"][0]), float(steps["plain32"][0])
+        if not (math.isfinite(loss) and abs(loss / ref - 1) <= BF16_ABS):
+            raise AssertionError(f"{label} draw {d}: the loss {loss:.6e} is not finite or lies past {BF16_ABS:g} of "
+                                 f"plain32's {ref:.6e}")
+    return {"rows": rows, "plain16_fail": plain16_fail}
 
 
 # Phase 35's launch shapes: (config, overrides, b, c, label) of K1 on the paths the script drives,
@@ -2851,21 +3031,39 @@ BF16_K2_SHAPES = (
 )
 
 
+# K1's bf16 program past the latents whose logits fit shared memory (z = 52 at NS width): the logits
+# in global memory, at every width class the configs take; held by `witness_gates` (two right bf16
+# evaluations lie 0.36 of the gap apart at NS width with 64 latents, PERF.md §6) and timed.
+BF16_K1_MANY_LATENTS = (
+    ("navier_stokes", ("nef.num_latents=64",), NUM_SIGNALS, 1000),
+    ("diffusion_plane", ("nef.num_latents=600",), NUM_SIGNALS, 1000),
+    ("diff_sphere", ("nef.num_latents=1000",), NUM_SIGNALS, 1000),
+)
+
+
 def bf16_phase(dev) -> dict:
     """35. The bf16 programs of K1 and K2 (the YAMLs' ``pallas`` on the card, JAX's
     ``compute_dtype=bfloat16``): each held against the plain bf16 version with phase 35's gates
     (``bf16_gates``) at every launch shape the script's paths give it (BF16_K1_SHAPES,
     BF16_K2_SHAPES), timed beside the f32 program and the plain bf16 version with the bf16 bound;
+    K1's bf16 program past the latents whose logits fit shared memory (BF16_K1_MANY_LATENTS);
     the Navier-Stokes ode, dual and validation steps and the 8 x 20 forecast in both modes (the
-    forecast's rel-L2 between them); one nef step with ``nef.backend=pallas`` in bf16 against the
-    same step through the plain bf16 composition. Returns the timings by (kernel, config,
-    overrides, b, c[, weight grads])."""
+    forecast's rel-L2 between them); the nef step with ``nef.backend=pallas`` in bf16 beside the
+    exact bf16 function and its witnesses (``nef_witness``). Returns the timings by (kernel,
+    config, overrides, b, c[, weight grads]), the medians, the forecasts' distance and the
+    witnesses' readings."""
     t0 = time.perf_counter()
     res = {}
     for i, (name, over, b, c, label) in enumerate(BF16_K1_SHAPES):
         cfg = shape_config(name, *over)
         args = decode_inputs(cfg, config_coords(cfg), dev, b, c, SEED + 50 + i)
         res[("K1", name, over, b, c)] = k1_bf16_check(cfg, args, f"{name} {' '.join(over)} {label} b={b} c={c}")
+        del args
+        torch.cuda.empty_cache()
+    for i, (name, over, b, c) in enumerate(BF16_K1_MANY_LATENTS):
+        cfg = shape_config(name, *over)
+        args = decode_inputs(cfg, config_coords(cfg), dev, b, c, SEED + 70 + i)
+        k1_bf16_check(cfg, args, f"{name} {' '.join(over)} (many latents) b={b} c={c}", witness=True)
         del args
         torch.cuda.empty_cache()
     for i, (name, over, b, c, wgs, label) in enumerate(BF16_K2_SHAPES):
@@ -2912,43 +3110,10 @@ def bf16_phase(dev) -> dict:
     if not (torch.isfinite(fields["kernel"]).all() and fc_rel <= BF16_ABS):
         raise AssertionError(f"the bf16 forecast is not finite or lies {fc_rel:.3e} from the f32 one")
 
-    # One nef step on the kernels in bf16 against the plain bf16 composition (and plain f32).
-    cfg = load_experiment_config("navier_stokes", ["nef.backend=pallas"])
-    trainer = make_trainer(cfg, coords)
-    state = trainer.init_state()
-    gen = torch.Generator().manual_seed(SEED + 60)
-    K, M, N = cfg.meta.num_inner_steps, cfg.training.max_num_sampled_points, coords.shape[0]
-    masks = torch.stack([torch.randperm(N, generator=gen)[:M] for _ in range(K + 1)])
-    frame_idx = torch.randperm(cfg.dataset.traj_len_train, generator=gen)[:cfg.training.nef.fit_on_num_steps]
-    decoder, steps = trainer.decoder, {}
-    for tag, dec in (("kernel", decoder), ("plain16", PlainDecode(decoder, BF16)),
-                     ("plain32", PlainDecode(decoder, torch.float32))):
-        trainer.decoder = dec
-        with on_path():
-            steps[tag] = trainer.nef_grads(state, traj, frame_idx=frame_idx, masks=masks)
-            torch.cuda.synchronize()
-    trainer.decoder = decoder
-    # The gates hold the loss and the decoder's gradient (the nef group). The latent groups
-    # (autodecoder, meta_sgd_lrs: the inits' and learning rates' gradients, second order through three
-    # bf16 inner steps) and the whole gradient are printed with no gate: there the bf16 function is as
-    # far from a second right evaluation of itself as from f32 (0.65 and 0.18 of the gap with a ratio
-    # of 1.19 and 0.82 on an H100, PERF.md §6), while every K1 and K2 launch held 0.23 of it.
-    label = "nef step (nef.backend=pallas, second order through K1 and K2 in bf16)"
-    latent = ("autodecoder", "meta_sgd_lrs")
-    sides = [[loss, {g: v for g, v in grads.items() if g not in latent}] for loss, grads in steps.values()]
-    bf16_gates(f"{label} loss and decoder gradients", *sides, absolute=False,
-               groups=lambda name: "loss" if name == "0" else name.split(".")[1])
-    for what, sides, groups in (("latent groups", [[{g: grads[g] for g in latent}] for _, grads in steps.values()],
-                                 lambda name: name.split(".")[1]),
-                                ("whole gradient", [grads for _, grads in steps.values()], lambda name: "all")):
-        try:
-            bf16_gates(f"{label} {what} (no gate)", *sides, absolute=False, groups=groups)
-        except AssertionError as e:
-            log(f"[bf16] {label}, the {what} past the gates (no gate here): {e}")
-    del trainer, state, steps
-    torch.cuda.empty_cache()
+    # The nef step on the kernels in bf16 against the plain bf16 composition, and its witnesses.
+    witness = nef_witness(load_experiment_config("navier_stokes", ["nef.backend=pallas"]), coords, traj)
     log(f"[phase 35] bf16 programs in {time.perf_counter() - t0:.2f} s")
-    return {"timing": res, "medians": medians, "forecast_rel": fc_rel}
+    return {"timing": res, "medians": medians, "forecast_rel": fc_rel, "witness": witness}
 
 
 def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16) -> list:
@@ -3089,7 +3254,7 @@ def main() -> int:
     # geometry per chunk).
     with torch.no_grad():
         fold_ms = cuda_ms(lambda: dec.fold(*flat), iters=5, warmup=1)
-        split_ms = cuda_ms(lambda: split_weights(folded[4]), iters=5, warmup=1)
+        split_ms = cuda_ms(lambda: shared_weights(folded[4]), iters=5, warmup=1)
         geom_ms = cuda_ms(lambda: dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), iters=20)
         args = (*dec.kernel_geometry(xs[:, :chunk], flat[0], flat[2]), *folded)
         out_k = fused_decode_fwd(*args, num_heads=H, head_dim=D)
@@ -3097,7 +3262,7 @@ def main() -> int:
                                     fused_decode_plain(*args, num_heads=H, head_dim=D)))
         k1_timing = {}
         for label, kargs in (("forecast", args), ("rollout", rollout_args)):
-            split = split_weights(kargs[6])[1]  # once per fold, as the forecast decode splits
+            split = shared_weights(kargs[6])  # once per fold, as the forecast decode splits
             k_ms = cuda_ms(lambda: fused_decode_fwd(*kargs, num_heads=H, head_dim=D, split=split), iters=20)
             p_ms = cuda_ms(lambda: fused_decode_plain(*kargs, num_heads=H, head_dim=D), iters=5, warmup=1)
             bd = k1_bounds(cfg, kargs, out_k if label == "forecast" else

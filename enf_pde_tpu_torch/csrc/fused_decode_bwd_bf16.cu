@@ -7,7 +7,8 @@
 // of the same function is `fused_decode_bwd_plain(..., compute_dtype=torch.bfloat16)` in
 // enf_pde_tpu_torch/ops/fused_decode.py (autograd over the plain bf16 forward). The f32 program
 // (3xTF32) is fused_decode_bwd.cu; this source is that design (its header states the passes, the
-// blocks, the workspace and the partials) with what the bf16 function changes:
+// blocks, the workspace and the partials; fused_decode_bwd_common.cuh and fused_decode_bwd_host.cuh
+// hold what the two programs share) with what the bf16 function changes:
 //   - every forward product takes its operands rounded to bf16 (bf16_mma.cuh): one bf16 wgmma
 //     m64nWNk16 a 16-deep chunk. An input gradient dX = dY W^T is JAX's dot of the f32 cotangent
 //     dY with the bf16 W, rounded to bf16 after the product (the cotangent of a bf16 operand):
@@ -15,7 +16,7 @@
 //     rounds. A row contraction X^T dY takes the bf16 X and dY in three terms; nbar (the
 //     softmax-weighted sum of the mixer's normalized hidden, which JAX never rounds) takes three
 //     too: with both operands in three terms, the six products of terms i + j <= 2. The shared
-//     weights are converted to bf16 once a launch, both ways (`convert_weights_kernel`), one part
+//     weights are converted to bf16 once a launch, both ways (`weights_kernel`), one part
 //     where the f32 program keeps two;
 //   - the gradients of the bf16 operands JAX casts (A, G and every weight matrix) are rounded to
 //     bf16 once their sums are whole, in pass 2; m_w2's a head (JAX casts it in each head's
@@ -34,45 +35,14 @@
 // program's with the staging at three quarters of its floats (three bf16 parts a slab) and two
 // [64][H] rows, the sums of the rounded softmax weights and <dy, m_b2>.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "bf16_mma.cuh"  // bf16_round, pack_bf16, split3_bf16, wgmma_bf16, fast_sincos
-#include "tf32_mma.cuh"  // gelu_tanh, aligned16
+#include "fused_decode_bwd_common.cuh"  // constants, wgmma / cp.async helpers, shared row passes
+#include "bf16_mma.cuh"                  // bf16_round, pack_bf16, split3_bf16, wgmma_bf16, fast_sincos
 
 namespace {
 
-constexpr int TILE = 64;      // coordinates per work item: one m64 tile
-constexpr int THREADS = 256;  // two warpgroups
-constexpr int WARPS = 8;
-constexpr int KC = 16;        // k per staged chunk: two wgmma k steps
-// Blocks an SM that __launch_bounds__ asks the compiler to leave registers for, per width
-// class; the grid is what the SMs hold at once (occupancy).
-constexpr int MINB64 = 1;
-constexpr int MINB32 = 2;
-constexpr int MINB16 = 2;
-constexpr int MINB8 = 2;
-// A block takes at least this many items: its partials (every weight gradient's, a batch row's)
-// are stored once for all of them (a launch of few items otherwise holds one a tile). The rule
-// holds with and without weight gradients, so the partition, and with it the order of every sum,
-// does not depend on whether they are asked for: dinv ... dc come out the same bits either way.
-constexpr int MIN_IPB = 2;
-constexpr int MAX_I = 8;      // invariant dims (the RFF VJP's sums are kept in registers)
-constexpr int MAX_SEG = 256;  // widest LayerNorm segment (32 lanes of 8 values)
-constexpr int SMEM_CAP = 232448;  // bytes of shared memory a block may have on an H100
-// These constants and `shape` have one mirror, k2_smem_bytes / k2_scratch_bytes in
-// ops/fused_decode.py (compute_dtype=torch.bfloat16), which reads the `constexpr int` lines.
-constexpr float LN_EPS = 1e-6f;  // flax LayerNorm default
-constexpr int kNumPtrs = 34;
-constexpr int kNumDims = 11;
-
-__host__ __device__ constexpr int minb_of(int wn) { return wn == 64 ? MINB64 : wn == 32 ? MINB32 : wn == 16 ? MINB16 : MINB8; }
 // Floats of the B staging: a ring of `stages` chunk buffers of two slabs of 24 wn (three bf16
 // parts of 16 k x wn n).
 __host__ __device__ constexpr int stage_floats(int wn, int stages) { return stages * 2 * 24 * wn; }
-// Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
-__host__ __device__ inline int row_stride(int width) { return (width + 31) / 32 * 32 + 4; }
 
 // Sizes and offsets shared by the host launcher and the kernels.
 struct Dims {
@@ -84,7 +54,7 @@ struct Dims {
   int nt;               // tiles a batch row
   long long items;      // work items (batch row, tile)
   int per_sm, ipb, grid, slots;  // blocks an SM holds, items a block, blocks, batch-row slots a block
-  // The shared weights in bf16 for the products (`convert_weights_kernel`) at the workspace's
+  // The shared weights in bf16 for the products (`weights_kernel`) at the workspace's
   // start: entry j (SPLIT_* order) at split_off[j] floats (2 bf16 a float), its B K x N (split_K,
   // split_N); split_n of the 18 are laid out (the tail's only with the tail).
   long long split_off[18], split_total;
@@ -107,13 +77,6 @@ __host__ __device__ inline void weight_shapes(const Dims& d, int* rows, int* col
   const int c[20] = {d.hid, 0, d.hid, 0, d.hid, 0, d.D, 0,
                      d.HD, 0, d.HD, 0, d.HD, 0, d.hid, 0, d.hid, 0, d.out, 0};
   for (int i = 0; i < 20; ++i) { rows[i] = r[i]; cols[i] = c[i]; }
-}
-
-// The width class: each warpgroup's slab of a product's columns. Every N (hid, H hidm, H D,
-// hidm, D) is a multiple of it, and the narrowest of hid, hidm and D holds two of them.
-inline int width_class(int hid, int hidm, int D) {
-  const int w = hid < hidm ? (hid < D ? hid : D) : (hidm < D ? hidm : D);
-  return w >= 128 ? 64 : w >= 64 ? 32 : w >= 32 ? 16 : 8;
 }
 
 // Everything but the grid; false for shapes the kernel does not take.
@@ -190,22 +153,6 @@ inline bool shape(const int* v, Dims& d) {
   return true;
 }
 
-// The grid: as many blocks as the SMs hold at once (per_sm of them on each of sms), or one per
-// MIN_IPB items when there are fewer; each takes a contiguous run of ipb items.
-inline void plan(Dims& d, int per_sm, int sms) {
-  d.per_sm = per_sm;
-  long long most = (long long)per_sm * sms;
-  const long long few = (d.items + MIN_IPB - 1) / MIN_IPB;
-  most = most < few ? most : few;
-  most = most < 1 ? 1 : most;
-  const long long g = d.items < most ? d.items : most;
-  d.ipb = (int)((d.items + g - 1) / g);
-  d.grid = (int)((d.items + d.ipb - 1) / d.ipb);
-  d.slots = (d.ipb + d.nt - 2) / d.nt + 1;  // batch rows a run of ipb items can touch
-  d.slots = d.slots > d.B ? d.B : d.slots;
-  d.part = d.slots * d.l_row + d.l_w;
-}
-
 struct Params {
   const float *inv, *wb, *A, *ab, *G, *c;
   const float *q_coeff, *q_w1, *q_b1, *v_coeff, *v_w1, *v_b1, *fw, *fb, *m_w2, *m_b2;
@@ -215,98 +162,12 @@ struct Params {
   Dims d;
 };
 
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
+// The hooks of fused_decode_bwd_common.cuh: operands rounded to bf16, sin and cos by the bf16
+// mode's polynomial (`_fast_sincos`).
+__device__ __forceinline__ float operand(float x) { return bf16_round(x); }
+__device__ __forceinline__ void rff_sincos(float proj, float* s, float* c) { fast_sincos(proj, s, c); }
 
 // ---- wgmma (bf16_mma.cuh's wgmma_bf16) ------------------------------------------------------
-// Shared-memory descriptor of a K-major bf16 B tile without swizzle (the staged layout): core
-// matrices of 8 rows (n) x 16 bytes (8 k) stored whole; LBO is the step between the two core
-// matrices of a k step of 16, SBO the step between groups of 8 rows (n).
-constexpr int WG_LBO = 128, WG_SBO = 256;
-__device__ __forceinline__ uint64_t wg_desc(const float* smem) {
-  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(WG_LBO >> 4) << 16) | ((uint64_t)(WG_SBO >> 4) << 32);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// Orders the generic-proxy writes of shared memory (the staging stores) before wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-// Keeps the compiler from moving reads of an accumulator across wgmma's asynchronous writes.
-template <int N>
-__device__ __forceinline__ void wg_fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Where `gemm` reads B (element (k, n) of the K x N operand): a row-major [K][ldb] source in
-// global memory (G, a workspace activation), its transpose [N][ldb] in global memory (G as the
-// B of dpre G^T; a float4 a thread), a row-major source in shared memory (the tile's gradient,
-// for a row contraction), each rounded (and split) and staged by the threads; or a shared weight
-// in bf16 in the staged layout (B_SPLIT: one block of 8 WN floats per 16-deep chunk and WN slab,
-// copied whole by cp.async).
-enum { B_KN = 0, B_NK = 1, B_KN_SMEM = 2, B_SPLIT = 3 };
-// The bf16 shared weights (Dims::split_off): each of q_w1, v_w1, fw, m_w2, o_w, p_w1, p_w2, h_w1,
-// h_w2 as the B of X W, then (SPLIT_T + its index) as the B of dY W^T.
-enum { SPLIT_Q = 0, SPLIT_V, SPLIT_F, SPLIT_M, SPLIT_O, SPLIT_P1, SPLIT_P2, SPLIT_H1, SPLIT_H2, SPLIT_T = 9 };
-
-// A block-private partial that a product adds into, stored by its first contribution:
-// element (m, n) at dst[m * ld + n], or at dst[n * ld + m] with trans.
-struct ToPart {
-  float* dst;
-  int ld;
-  bool first, trans;
-};
-
-// The end of a product's unit: its sums (column n = ns WN + 8 j + 2 tq (+1) of rows m0 and m1,
-// when ok0 / ok1) handed to epi in pairs of columns.
-template <int WN, class Epi>
-__device__ __forceinline__ void finish(const Epi& epi, const float* sum, int ns, int tq, int m0, int m1, bool ok0,
-                                       bool ok1) {
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j) {
-    const int n = ns * WN + 8 * j + 2 * tq;
-    if (ok0) epi(m0, n, sum[4 * j], sum[4 * j + 1]);
-    if (ok1) epi(m1, n, sum[4 * j + 2], sum[4 * j + 3]);
-  }
-}
-
-// ... added into a partial: every old value is read before any is written (a load and a store
-// through one pointer would otherwise run one round trip to memory at a time).
-template <int WN>
-__device__ __forceinline__ void finish(const ToPart& p, float* sum, int ns, int tq, int m0, int m1, bool ok0,
-                                       bool ok1) {
-  auto at = [&](int m, int n) { return p.trans ? p.dst + (size_t)n * p.ld + m : p.dst + (size_t)m * p.ld + n; };
-  if (!p.first) {
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = ns * WN + 8 * j + 2 * tq + e;
-        if (ok0) sum[4 * j + e] += *at(m0, n);
-        if (ok1) sum[4 * j + 2 + e] += *at(m1, n);
-      }
-  }
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = ns * WN + 8 * j + 2 * tq + e;
-      if (ok0) *at(m0, n) = sum[4 * j + e];
-      if (ok1) *at(m1, n) = sum[4 * j + 2 + e];
-    }
-}
-
 template <int WN>
 struct Cls {
   static constexpr int PART = 8 * WN;        // floats of one bf16 part of a staged slab: 16 k x WN n
@@ -516,30 +377,7 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int M, int K, cons
   }
 }
 
-// ---- Row passes on the CUDA cores ---------------------------------------------------------------
-// Each starts with a barrier (its inputs were just written) and does not end with one.
-
-// s_inv[t * I + i] = inv[(c0 + t) * I + i] of a latent's tile, zero past the last coordinate.
-__device__ __noinline__ void load_inv(float* s_inv, const float* src, int rows, int I) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * I; idx += THREADS) s_inv[idx] = idx / I < rows ? src[idx] : 0.0f;
-}
-
-// F[t, :half] = sin(2 pi inv[t] @ coeff), F[t, half:] = cos(...) by the bf16 mode's polynomial
-// (fast_sincos); coeff is [I, half].
-__device__ __noinline__ void rff(const float* s_inv, int I, const float* __restrict__ coeff, int half, float* F,
-                                 int ldf) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * half; idx += THREADS) {
-    const int t = idx / half, j = idx - t * half;
-    float proj = 0.0f;
-    for (int i = 0; i < I; ++i) proj = fmaf(s_inv[t * I + i], __ldg(coeff + i * half + j), proj);
-    float s, co;
-    fast_sincos(proj, &s, &co);
-    F[t * ldf + j] = s;
-    F[t * ldf + half + j] = co;
-  }
-}
+// ---- Row passes on the CUDA cores whose math is the program's --------------------------------
 
 // dinv[t, i] (+)= sum_j (sin'_j dF[t, j] + cos'_j dF[t, half + j]) coeff[i, j] for t < rows, the
 // derivatives of fast_sincos's polynomials in the projection, recomputed from the invariants. A
@@ -569,64 +407,6 @@ __device__ __noinline__ void rff_vjp(const float* s_inv, int I, const float* __r
       if (lane == 0 && t < rows) dinv[t * I + i] = add ? dinv[t * I + i] + s : s;
     }
   }
-}
-
-// gelu(x) and gelu'(x) from one tanh.
-__device__ __forceinline__ float2 gelu_and_grad(float x) {
-  const float k = 0.7978845608028654f;
-  const float th = tanhf(k * (x + 0.044715f * x * x * x));
-  return make_float2(0.5f * x * (1.0f + th),
-                     0.5f * (1.0f + th) + 0.5f * x * (1.0f - th * th) * k * (1.0f + 3.0f * 0.044715f * x * x));
-}
-
-// The LayerNorm passes take L lanes a segment of `width` columns: the largest power of two up to
-// width / 8 (at most 32), so a lane holds 8 (at most 16) of its values in registers and a warp
-// takes 32 / L segments at once (128 columns: 16 lanes, two segments a warp; 16 columns: 2 lanes).
-__device__ __forceinline__ int seg_lanes(int width) {
-  int L = 1;
-  while (L < 32 && 2 * L <= width / 8) L *= 2;
-  return L;
-}
-
-// Y = normalize(gelu(X)) in each of `segs` segments of `width` of the 64 rows (in place when
-// Y == X); var = E[x^2] - E[x]^2 as in the JAX kernel.
-template <int NV>
-__device__ __noinline__ void ln_gelu_nv(const float* X, int ldx, float* Y, int ldy, int segs, int width, int L) {
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane % L, spw = 32 / L;
-  for (int base = warp * spw; base < TILE * segs; base += WARPS * spw) {  // warp-uniform: every lane shuffles
-    const int r = base + lane / L;
-    const bool ok = r < TILE * segs;
-    const int t = ok ? r / segs : 0, o = ok ? (r % segs) * width : 0;
-    float v[NV];
-    float s = 0.0f, ss = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int n = sub + L * i;
-      v[i] = ok && n < width ? gelu_tanh(X[t * ldx + o + n]) : 0.0f;
-      s += v[i];
-      ss = fmaf(v[i], v[i], ss);
-    }
-    for (int sh = L / 2; sh > 0; sh >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, sh);
-      ss += __shfl_xor_sync(0xffffffffu, ss, sh);
-    }
-    const float mean = s / width;
-    const float rs = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int n = sub + L * i;
-      if (ok && n < width) Y[t * ldy + o + n] = (v[i] - mean) * rs;
-    }
-  }
-}
-
-__device__ void ln_gelu(const float* X, int ldx, float* Y, int ldy, int segs, int width) {
-  const int L = seg_lanes(width);
-  if (width <= 8 * L)
-    ln_gelu_nv<8>(X, ldx, Y, ldy, segs, width, L);
-  else
-    ln_gelu_nv<16>(X, ldx, Y, ldy, segs, width, L);
 }
 
 // In place, per segment: dX = gelu'(P) r (dn - mean(dn) - n mean(dn n)), the VJP of
@@ -701,56 +481,6 @@ __device__ void ln_gelu_vjp(float* dX, int ldd, const float* P, int ldp, int seg
     ln_gelu_vjp_nv<16>(dX, ldd, P, ldp, segs, width, L, E, lde, prob, dp, dyb);
 }
 
-// Y = gelu(X) over [64][width] (in place when Y == X).
-__device__ __noinline__ void gelu_rows(const float* X, int ldx, float* Y, int ldy, int width) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    Y[t * ldy + n] = gelu_tanh(X[t * ldx + n]);
-  }
-}
-
-// dX *= gelu'(Q) (Q in the block's workspace, [64][width] dense: written by this block, so read
-// at L2 and not through the read-only cache, which may still hold an earlier item's values).
-__device__ __noinline__ void mul_gelu_grad(float* dX, int ldd, const float* Q, int width) {
-  __syncthreads();
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    dX[t * ldd + n] *= gelu_and_grad(__ldcg(Q + idx)).y;
-  }
-}
-
-// dX = 0 where the ReLU's output H is not positive.
-__device__ __noinline__ void relu_mask(float* dX, int ldd, const float* Hh, int ldh, int width) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    if (!(Hh[t * ldh + n] > 0.0f)) dX[t * ldd + n] = 0.0f;
-  }
-}
-
-// dst[t * width + n] = X[t * ld + n] (a tile into the workspace, row stride width).
-__device__ __noinline__ void copy_out(float* dst, const float* X, int ld, int width) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    dst[idx] = X[t * ld + n];
-  }
-}
-
-// dst[n] (+)= sum_t sum_h dY[t, h * fold + n] for n < fold, h < width / fold (a bias gradient;
-// fold < width sums the heads of the mixer's output).
-__device__ __noinline__ void col_sums(const float* dY, int ld, int width, int fold, float* dst, bool first) {
-  __syncthreads();
-  for (int n = threadIdx.x; n < fold; n += THREADS) {
-    float s = 0.0f;
-    for (int t = 0; t < TILE; ++t)
-      for (int h = n; h < width; h += fold) s += dY[t * ld + h];
-    dst[n] = first ? s : dst[n] + s;
-  }
-}
-
 // dst[n] (+)= sum_t sum_h psum[t, h] dY[t, h * D + n] for n < D: dm_b2, the bias taking each
 // latent's rounded softmax weight (their sum psum is not 1).
 __device__ __noinline__ void col_sums_psum(const float* dY, int ld, int H, int D, const float* psum, float* dst,
@@ -773,31 +503,6 @@ __device__ __noinline__ void dy_bias(const float* dY, int ld, int H, int D, cons
     float s = 0.0f;
     for (int n = 0; n < D; ++n) s = fmaf(dY[t * ld + h * D + n], __ldg(m_b2 + n), s);
     dyb[idx] = s;
-  }
-}
-
-// nbar[t, h * hidm + j] (+)= bf16(prob[t, h]) bf16(nn[t, h * hidm + j]) (exact in f32).
-__device__ __noinline__ void accum_nbar(float* nbar, const float* nn, int ld, const float* prob, int H, int hidm,
-                                        bool first) {
-  __syncthreads();
-  const int HH = H * hidm;
-  for (int idx = threadIdx.x; idx < TILE * HH; idx += THREADS) {
-    const int t = idx / HH, n = idx - t * HH;
-    const float v = bf16_round(prob[t * H + n / hidm]) * bf16_round(nn[t * ld + n]);
-    nbar[t * ld + n] = first ? v : nbar[t * ld + n] + v;
-  }
-}
-
-// logit[t, h] = bf16(hq[t]) . bf16(A[:, h]) + ab[h] + wb[t] (wb zero past the last coordinate).
-__device__ __noinline__ void logits(const float* hq, int ldh, int hid, const float* __restrict__ Az,
-                                    const float* __restrict__ abz, const float* __restrict__ wbz, int rows, int H,
-                                    float* out) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * H; idx += THREADS) {
-    const int t = idx / H, h = idx - t * H;
-    float s = 0.0f;
-    for (int k = 0; k < hid; ++k) s = fmaf(bf16_round(hq[t * ldh + k]), bf16_round(__ldg(Az + k * H + h)), s);
-    out[idx] = s + __ldg(abz + h) + (t < rows ? __ldg(wbz + t) : 0.0f);
   }
 }
 
@@ -824,95 +529,13 @@ __device__ __noinline__ void softmax_z(float* s_prob, int Z, int H, float* psum)
   }
 }
 
-// dlogit_z = p_z (dp_z - sum_z' p_z' dp_z'), in place over dp.
-__device__ __noinline__ void softmax_vjp(const float* s_prob, float* s_dp, int Z, int H) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * H; idx += THREADS) {
-    float s = 0.0f;
-    for (int z = 0; z < Z; ++z) s = fmaf(s_prob[z * TILE * H + idx], s_dp[z * TILE * H + idx], s);
-    for (int z = 0; z < Z; ++z) {
-      const int k = z * TILE * H + idx;
-      s_dp[k] = s_prob[k] * (s_dp[k] - s);
-    }
-  }
-}
-
-// The logit chain's VJP of one latent: dA[k, h] (+)= sum_t bf16(hq[t, k]) dlog[t, h], dab[h] (+)=
-// sum_t dlog[t, h] (first: store), dwb[t] = sum_h dlog[t, h] (t < rows), and dhq[t, k] =
-// (hq > 0) bf16(sum_h dlog[t, h] bf16(A[k, h])).
-__device__ __noinline__ void logit_vjp(const float* hq, int ldh, int hid, const float* dlog, int H,
-                                       const float* __restrict__ Az, float* dA, float* dab, float* dwb, int rows,
-                                       bool first, float* dhq, int ldq) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < hid * H; idx += THREADS) {
-    const int k = idx / H, h = idx - k * H;
-    float s = 0.0f;
-    for (int t = 0; t < TILE; ++t) s = fmaf(bf16_round(hq[t * ldh + k]), dlog[t * H + h], s);
-    dA[idx] = first ? s : dA[idx] + s;
-  }
-  for (int h = threadIdx.x; h < H; h += THREADS) {
-    float s = 0.0f;
-    for (int t = 0; t < TILE; ++t) s += dlog[t * H + h];
-    dab[h] = first ? s : dab[h] + s;
-  }
-  for (int t = threadIdx.x; t < rows; t += THREADS) {
-    float s = 0.0f;
-    for (int h = 0; h < H; ++h) s += dlog[t * H + h];
-    dwb[t] = s;
-  }
-  for (int idx = threadIdx.x; idx < TILE * hid; idx += THREADS) {
-    const int t = idx / hid, k = idx - t * hid;
-    float s = 0.0f;
-    for (int h = 0; h < H; ++h) s = fmaf(dlog[t * H + h], bf16_round(__ldg(Az + k * H + h)), s);
-    dhq[t * ldq + k] = hq[t * ldh + k] > 0.0f ? bf16_round(s) : 0.0f;
-  }
-}
-
-// The head's last layer (N = out, on the CUDA cores): dh2[t, k] = bf16(sum_o g[t, o] bf16(h_w3[k, o]))
-// (g zero past the last coordinate); with weight gradients dh_w3[k, o] (+)= sum_t bf16(h2[t, k])
-// g[t, o] and dh_b3[o] (+)= sum_t g[t, o].
-__device__ __noinline__ void head_vjp(const float* gsrc, int rows, int out, const float* __restrict__ h_w3, int hid,
-                                      float* dh2, int ldd, const float* h2, int ld2, float* dw, float* db,
-                                      bool first) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * hid; idx += THREADS) {
-    const int t = idx / hid, k = idx - t * hid;
-    float s = 0.0f;
-    if (t < rows)
-      for (int o = 0; o < out; ++o) s = fmaf(gsrc[t * out + o], bf16_round(__ldg(h_w3 + k * out + o)), s);
-    dh2[t * ldd + k] = bf16_round(s);
-  }
-  if (!dw) return;
-  for (int idx = threadIdx.x; idx < hid * out; idx += THREADS) {
-    const int k = idx / out, o = idx - k * out;
-    float s = 0.0f;
-    for (int t = 0; t < rows; ++t) s = fmaf(bf16_round(h2[t * ld2 + k]), gsrc[t * out + o], s);
-    dw[idx] = first ? s : dw[idx] + s;
-  }
-  for (int o = threadIdx.x; o < out; o += THREADS) {
-    float s = 0.0f;
-    for (int t = 0; t < rows; ++t) s += gsrc[t * out + o];
-    db[o] = first ? s : db[o] + s;
-  }
-}
-
-// Y[t, n] = g[t, n] for t < rows, else 0 (without the tail the cotangent is dy).
-__device__ __noinline__ void load_g(float* Y, int ld, const float* __restrict__ gsrc, int rows, int width) {
-  __syncthreads();
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < TILE * width; idx += THREADS) {
-    const int t = idx / width, n = idx - t * width;
-    Y[t * ld + n] = t < rows ? __ldg(gsrc + idx) : 0.0f;
-  }
-}
-
 // ---- The kernels -------------------------------------------------------------------------------
 // Pass 0: the shared weights in bf16 into the staged layout `gemm` copies whole (B_SPLIT), once a
 // launch: entry j's B (K x N) as blocks of 16 WN bf16, one per 16-deep chunk kc and WN slab s (kc
 // major), each holding n group, k group, 8 rows, 8 k, i.e. element (16 kc + 8 kg + i, WN s + 8 ng
 // + r) of B, rounded to nearest (ties to even).
 template <int WN>
-__global__ void convert_weights_kernel(const Params P) {
+__global__ void weights_kernel(const Params P) {
   const Dims& d = P.d;
   const float* src[9] = {P.q_w1, P.v_w1, P.fw, P.m_w2, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
   const int per = d.split_n / 2;
@@ -1199,130 +822,11 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
   }
 }
 
-// Sets the kernel's shared memory; with `per_sm`, the blocks an SM holds at that size.
-template <int WN>
-cudaError_t prepare(size_t smem, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(fused_decode_bwd_kernel<WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_decode_bwd_kernel<WN>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && per_sm)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_bwd_kernel<WN>, THREADS, smem);
-  return err;
-}
-
-cudaError_t prepare_class(int wn, size_t smem, int* per_sm) {
-  switch (wn) {
-    case 64: return prepare<64>(smem, per_sm);
-    case 32: return prepare<32>(smem, per_sm);
-    case 16: return prepare<16>(smem, per_sm);
-    default: return prepare<8>(smem, per_sm);
-  }
-}
-
-// shape + the grid the card holds; cudaErrorInvalidValue for shapes the kernel does not take.
-cudaError_t layout(const int* dims, int n_dims, Dims& d) {
-  if (n_dims != kNumDims || !shape(dims, d)) return cudaErrorInvalidValue;
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = prepare_class(d.wn, (size_t)d.smem, &per_sm);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  plan(d, per_sm, sms);
-  return cudaSuccess;
-}
+// The launcher's hooks (fused_decode_bwd_host.cuh): threads of `weights_kernel` (one a bf16 of the
+// converted weights, two a float) and floats of the reduced output (m_w2 summed over its heads).
+inline long long weight_threads(const Dims& d) { return 2 * d.split_total; }
+inline long long out_floats(const Dims& d) { return d.l_wo; }
 
 }  // namespace
 
-extern "C" {
-
-// dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail, weight_grads.
-// sizes <- floats of the reduced output, of the workspace and of the partials.
-int fused_decode_bwd_sizes(const int* dims, int n_dims, long long* sizes) {
-  Dims d;
-  const cudaError_t err = layout(dims, n_dims, d);
-  if (err != cudaSuccess) return (int)err;
-  sizes[0] = (long long)d.B * d.l_row + d.l_wo;
-  sizes[1] = d.split_total + (long long)d.grid * d.work;
-  sizes[2] = (long long)d.grid * d.part;
-  return 0;
-}
-
-// out <- the dynamic shared memory in bytes, the blocks an SM, the grid, the row slots a block
-// and the floats of scratch (workspace and partials) of a launch with these dims. Returns the
-// cudaError_t (cudaErrorInvalidValue for shapes the kernel does not take); sets the kernel's
-// attributes as a launch does.
-int fused_decode_bwd_occupancy(const int* dims, int n_dims, long long* out) {
-  Dims d;
-  const cudaError_t err = layout(dims, n_dims, d);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = d.smem;
-  out[1] = d.per_sm;
-  out[2] = d.grid;
-  out[3] = d.slots;
-  out[4] = d.split_total + (long long)d.grid * (d.work + d.part);
-  return 0;
-}
-
-// ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null
-// without the tail), g, dinv, dwb, out (reduced gradients), workspace, partials;
-// sized by `fused_decode_bwd_sizes`. Launches the three passes on `stream` and returns the
-// cudaError_t of the launches (cudaErrorInvalidValue for a shape the kernel does not take, or
-// for G or the workspace not starting on 16 bytes).
-int fused_decode_bwd_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
-                            void* stream) {
-  Params P;
-  if (n_ptrs != kNumPtrs) return (int)cudaErrorInvalidValue;
-  cudaError_t err = layout(dims, n_dims, P.d);
-  if (err != cudaSuccess) return (int)err;
-  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
-  P.inv = f[0]; P.wb = f[1]; P.A = f[2]; P.ab = f[3]; P.G = f[4]; P.c = f[5];
-  P.q_coeff = f[6]; P.q_w1 = f[7]; P.q_b1 = f[8];
-  P.v_coeff = f[9]; P.v_w1 = f[10]; P.v_b1 = f[11];
-  P.fw = f[12]; P.fb = f[13]; P.m_w2 = f[14]; P.m_b2 = f[15];
-  P.o_w = f[16]; P.o_b = f[17]; P.p_w1 = f[18]; P.p_b1 = f[19]; P.p_w2 = f[20]; P.p_b2 = f[21];
-  P.h_w1 = f[22]; P.h_b1 = f[23]; P.h_w2 = f[24]; P.h_b2 = f[25]; P.h_w3 = f[26]; P.h_b3 = f[27];
-  P.g = f[28];
-  P.dinv = const_cast<float*>(f[29]); P.dwb = const_cast<float*>(f[30]);
-  P.out = const_cast<float*>(f[31]); P.work = const_cast<float*>(f[32]);
-  P.part = const_cast<float*>(f[33]);
-  // G is read a float4 at a time (the B of dpre G^T), the workspace copied by 16-byte cp.async.
-  if (!aligned16(P.G) || !aligned16(P.work)) return (int)cudaErrorInvalidValue;
-
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)P.d.smem;
-  long long sb = (2 * P.d.split_total + THREADS - 1) / THREADS;
-  const int split_blocks = (int)(sb > 1024 ? 1024 : sb);
-  switch (P.d.wn) {
-    case 64:
-      convert_weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);
-      fused_decode_bwd_kernel<64><<<P.d.grid, THREADS, smem, s>>>(P);
-      break;
-    case 32:
-      convert_weights_kernel<32><<<split_blocks, THREADS, 0, s>>>(P);
-      fused_decode_bwd_kernel<32><<<P.d.grid, THREADS, smem, s>>>(P);
-      break;
-    case 16:
-      convert_weights_kernel<16><<<split_blocks, THREADS, 0, s>>>(P);
-      fused_decode_bwd_kernel<16><<<P.d.grid, THREADS, smem, s>>>(P);
-      break;
-    default:
-      convert_weights_kernel<8><<<split_blocks, THREADS, 0, s>>>(P);
-      fused_decode_bwd_kernel<8><<<P.d.grid, THREADS, smem, s>>>(P);
-      break;
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long total = (long long)P.d.B * P.d.l_row + P.d.l_wo;
-  long long blocks = (total + THREADS - 1) / THREADS;
-  blocks = blocks > 4096 ? 4096 : (blocks < 1 ? 1 : blocks);
-  fused_decode_bwd_reduce<<<(int)blocks, THREADS, 0, s>>>(P.part, P.out, P.d);
-  return (int)cudaGetLastError();
-}
-
-const char* fused_decode_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-}  // extern "C"
+#include "fused_decode_bwd_host.cuh"  // the launcher's C interface (shared with the f32 program)

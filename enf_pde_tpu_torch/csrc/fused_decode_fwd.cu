@@ -8,7 +8,9 @@
 // (enf_pde_tpu/ops/pallas_decode.py), whose body is `_tile_decode`. The plain
 // PyTorch version of the same function is `fused_decode_plain` in
 // enf_pde_tpu_torch/ops/fused_decode.py; the folded inputs (A, ab, G, c and the
-// folded weights) come from `fold_decode_weights` there.
+// folded weights) come from `fold_decode_weights` there. What this program shares with the bf16
+// one (fused_decode_fwd_bf16.cu) lives in fused_decode_fwd_common.cuh (constants, launch
+// parameters, staging, the row passes, the mixer) and fused_decode_fwd_host.cuh (the launcher).
 //
 // What it computes, for each batch row b and coordinate c:
 //   per latent z:  hq = relu(sincos(2 pi inv @ q_coeff) @ q_w1 + q_b1)
@@ -145,49 +147,16 @@
 // z = 9); the update runs on all lanes and shares barriers rather than taking its own
 // (64 threads and two barriers of their own: +3.6 %).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "tf32_mma.cuh"  // gelu_tanh, split_tf32_int, mma_3xtf32_tiles (the header K2 shares)
+#include "fused_decode_fwd_common.cuh"  // constants, Params, staging, row passes, mixer (shared with the bf16 program)
+#include "tf32_mma.cuh"                  // split_tf32_int, mma_3xtf32_tiles (the header K2 shares)
 
 namespace {
 
-constexpr int TILE = 32;              // coordinates per block
-constexpr int THREADS = 256;          // two warpgroups
-constexpr int WARPS = THREADS / 32;
-constexpr int ZG = 4;                 // latents per batched product (ZG * TILE = 128 rows)
-constexpr int KC = 16;                // k rows per staged chunk
-constexpr int STAGES = 3;             // ring depth (2 measured the same, PERF.md §6)
-constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (256 + 8) f32, or a 16 KB wgmma block
-constexpr int WG_N = 128;             // columns of one wgmma product and of one pre-split slab
 constexpr int WG_BLOCK = 2 * 2 * 8 * WG_N;  // floats of a pre-split chunk: part x k step x 8 x 128
 constexpr int LDA = KC + 4;  // float2 per row of a block-split A chunk: fragment loads conflict free
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + 2 * 2 * 32 * LDA;  // the B ring, then two A chunks
-constexpr int SMEM_CAP = 232448;      // bytes of shared memory a block may have on an H100
-// The narrow width classes WN = 16, 32, 64 (hid, hidm and D at most WN; wider shapes take the
-// class WG_N): the most latents a group takes (ZG16 * TILE rows), whether the four shared
-// weights stay resident in shared memory (RES, 1) or pass through a ring of STAGES narrow blocks
-// (0), and the blocks an SM that __launch_bounds__ asks the compiler to make room for.
-constexpr int ZG16 = 8;
-constexpr int ZG32 = 4;
-constexpr int ZG64 = 4;
-constexpr int RES16 = 1;
-constexpr int RES32 = 1;
-constexpr int RES64 = 0;
-constexpr int MINB16 = 2;
-constexpr int MINB32 = 2;
-constexpr int MINB64 = 2;
-// These constants and `layout` have one mirror, k1_smem_bytes in ops/fused_decode.py, which
-// reads the `constexpr int` lines of this file.
-constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
 constexpr float TWO_PI = 6.283185307179586f;
-constexpr int kNumPtrs = 33;
-constexpr int kNumDims = 10;
 static_assert(STAGES >= 2 && WG_BLOCK <= STAGE_FLOATS, "ring");
-
-__host__ __device__ constexpr int zg_of(int wn) { return wn == 16 ? ZG16 : wn == 32 ? ZG32 : wn == 64 ? ZG64 : ZG; }
-__host__ __device__ constexpr bool res_of(int wn) { return wn == 16 ? RES16 : wn == 32 ? RES32 : wn == 64 ? RES64 : 0; }
 
 // What a width class fixes at compile time.
 template <int WN>
@@ -202,38 +171,10 @@ struct Width {
   static_assert(ZGN <= ZL && MT >= 1 && MT <= 2, "class");
 };
 
-struct Params {
-  const float *inv, *wb, *A, *ab, *G, *c;
-  const float *q_coeff, *q_b1, *v_coeff, *v_b1, *fb, *m_b2;
-  const float *q_w1s, *v_w1s, *fws, *m_w2s;  // pre-split, blocked for wgmma (split_weights)
-  const float *o_w, *o_b, *p_w1, *p_b1, *p_w2, *p_b2, *h_w1, *h_b1, *h_w2, *h_b2, *h_w3, *h_b3;
-  float* out;
-  int B, Z, C, I, hid, H, D, hidm, out_dim;
-  int ldX, ldP, ldW;  // row strides (words, 4 mod 8): X / Y as [ZG TILE][ldX], pre [64][ldP], acc [32][ldW]
-  int nY;             // floats of Y
-  int nW;             // narrow classes: floats of the resident shared weights, or of their ring
-};
-
-// Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
-__host__ __device__ inline int row_stride(int width) { return (width + 31) / 32 * 32 + 4; }
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
-
-template <int ACT>
-__device__ __forceinline__ float activate(float x) {
-  if (ACT == ACT_RELU) return fmaxf(x, 0.0f);
-  if (ACT == ACT_GELU) return gelu_tanh(x);
-  return x;
-}
+// The hooks of fused_decode_fwd_common.cuh: f32 operands (the products split them into tf32
+// parts themselves), sin and cos by sincosf.
+__device__ __forceinline__ float operand(float x) { return x; }
+__device__ __forceinline__ void rff_sincos(float proj, float* s, float* c) { sincosf(TWO_PI * proj, s, c); }
 
 // ---- 32-row products: 3xTF32 mma.sync ------------------------------------------------------
 // Y = act(X W + bias) for the TILE rows of X (shared memory, row stride ldx) and W [K x N] in
@@ -545,27 +486,6 @@ __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
   }
 }
-
-// Shared-memory descriptor of a K-major tf32 B tile without swizzle (split_weights' block):
-// core matrices of 8 rows x 16 bytes stored whole; LBO is the step between the two core
-// matrices of a k step of 8, SBO the step between groups of 8 rows (n). The same at every width.
-constexpr int WG_LBO = 128, WG_SBO = 256;
-__device__ __forceinline__ uint64_t wg_desc(const float* smem) {
-  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(WG_LBO >> 4) << 16) | ((uint64_t)(WG_SBO >> 4) << 32);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// Orders the generic-proxy writes of shared memory (cp.async, stores) before wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-// Keeps the compiler from moving reads of an accumulator across wgmma's asynchronous writes.
-template <int N>
-__device__ __forceinline__ void wg_fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // out = X W for the rows of a latent group on the tensor cores at f32 accuracy. Warpgroup wg
 // (warps 4 wg .. 4 wg + 3) multiplies the 64-row tiles wg + 2 mt (mt < MT) by each WN-wide slab
 // of N: at WN = 128 as two m64n64k8 products, below it as one m64nWNk8 product; warp w supplies
@@ -694,156 +614,6 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
   }
   if constexpr (!RES) cp_async_wait<0>();
 }
-
-// Y = act(X W + bias) over the rows of a latent group (R of them valid), row strides ldx, ldy;
-// W pre-split and blocked (or resident). Inlined, as is mixer: ptxas serializes every wgmma of
-// a kernel whose wgmma pipeline crosses a function call.
-template <int WN, int MT, bool RES, int ACT>  // ACT_NONE or ACT_RELU (the gelu after fw is applied in its normalize pass)
-__device__ __forceinline__ void dense_group(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
-                                            const float* __restrict__ bias, float* Y, int ldy, float* ring) {
-  gemm_wg<WN, MT, RES>(
-      [&](int wg, int mt, int w, int r) { return X + (64 * (wg + 2 * mt) + 16 * w + r) * ldx; },
-      [&](int wg, int mt) { return 64 * (wg + 2 * mt) < R; }, K, W, N, ring,
-      [&](int wg, int mt, int w, int r, int n, float v0, float v1) {
-        const float bn = __ldg(bias + n);
-        float* y = Y + (64 * (wg + 2 * mt) + 16 * w + r) * ldy + n;
-        y[0] = activate<ACT>(v0 + bn);
-        y[8 * ldy] = activate<ACT>(v1 + bn);
-      });
-}
-
-// F[r, :half] = sin(2 pi inv[r] @ coeff), F[r, half:] = cos(...) for the R rows of a latent
-// group; s_inv is [R][I] in shared memory, coeff [I, half].
-__device__ void rff_features(const float* s_inv, int R, int I, const float* __restrict__ coeff, int half,
-                             float* F, int ldf) {
-  for (int idx = threadIdx.x; idx < R * half; idx += THREADS) {
-    const int r = idx / half, j = idx - r * half;
-    float proj = 0.0f;
-    for (int i = 0; i < I; ++i) proj = fmaf(s_inv[r * I + i], __ldg(coeff + i * half + j), proj);
-    float s, co;
-    sincosf(TWO_PI * proj, &s, &co);
-    F[r * ldf + j] = s;
-    F[r * ldf + half + j] = co;
-  }
-}
-
-// Normalize-only LayerNorm of each of the `segs` segments of width `width` (a multiple of 4,
-// at most NW) in every one of `rows` rows of X, of gelu(X) with GELU (the activation of the
-// product that wrote X, applied here rather than in its epilogue); var = E[x^2] - E[x]^2 as
-// in the JAX kernel. L lanes per segment (8, or NW / 4 below 32 columns), 32 / L segments per
-// warp at once, the values held in registers between the two passes. Below MAXW columns gelu
-// takes only the columns the segment has; at MAXW (the width class 128) the zeros past them
-// too, as that class always has (8x the tanh at 32 columns: half of K1's time at ihc).
-constexpr int MAXW = 256;
-template <bool GELU, int NW = MAXW>
-__device__ void normalize(float* X, int ldx, int rows, int segs, int width) {
-  constexpr int L = NW >= 32 ? 8 : NW / 4, SPW = 32 / L, NV = (NW + 4 * L - 1) / (4 * L);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane % L;
-  const int n_seg = rows * segs;
-  for (int base = SPW * warp; base < n_seg; base += SPW * WARPS) {  // warp-uniform: the shuffles see every lane
-    const int r = base + lane / L;
-    const bool ok = r < n_seg;
-    float* row = X + (ok ? (r / segs) * ldx + (r % segs) * width : 0);
-    float4 v[NV];
-    float s = 0.0f, ss = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int n = 4 * sub + 4 * L * i;
-      const bool in = ok && n < width;
-      v[i] = in ? *reinterpret_cast<const float4*>(row + n) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (GELU && (in || NW == MAXW))
-        v[i] = make_float4(gelu_tanh(v[i].x), gelu_tanh(v[i].y), gelu_tanh(v[i].z), gelu_tanh(v[i].w));
-      s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
-      ss = fmaf(v[i].x, v[i].x, fmaf(v[i].y, v[i].y, fmaf(v[i].z, v[i].z, fmaf(v[i].w, v[i].w, ss))));
-    }
-#pragma unroll
-    for (int o = L / 2; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = s / width;
-    const float rstd = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int n = 4 * sub + 4 * L * i;
-      if (ok && n < width)
-        *reinterpret_cast<float4*>(row + n) = make_float4((v[i].x - mean) * rstd, (v[i].y - mean) * rstd,
-                                                          (v[i].z - mean) * rstd, (v[i].w - mean) * rstd);
-    }
-  }
-}
-
-// normalize<true> of the 32 rows of X, each one segment of `width` (the narrow classes' tail,
-// up to MAXW columns): a warp per row, lanes along it, gelu stored back in a first pass and
-// normalized in a second, nothing held in registers between them.
-__device__ __noinline__ void normalize_rows(float* X, int ldx, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < TILE; r += WARPS) {
-    float* row = X + r * ldx;
-    float s = 0.0f, ss = 0.0f;
-    for (int n = lane; n < width; n += 32) {
-      const float v = gelu_tanh(row[n]);
-      row[n] = v;
-      s += v;
-      ss = fmaf(v, v, ss);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = s / width;
-    const float rstd = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
-    for (int n = lane; n < width; n += 32) row[n] = (row[n] - mean) * rstd;
-  }
-}
-
-// The narrow products on the CUDA cores: for each output o of `count` (one warp per output),
-// lane t computes sum_k X(o)[t, k] W(o)[k * ldw] for row t of 32; store(o, t, value). Lane t
-// starts its sum at k = t, so the 32 rows (row stride 4 mod 32 words) hit distinct banks.
-// W_SHARED: W(o) lies in shared memory (else global, read through the read-only cache).
-template <bool W_SHARED = false, class XOf, class WOf, class Store>
-__device__ void lane_dots(int count, int K, int ldw, XOf x_of, WOf w_of, Store store) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = warp; o < count; o += WARPS) {
-    const float* x = x_of(o, lane);
-    const float* w = w_of(o);
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    int k = lane % K;
-    for (int i = 0; i < K; ++i) {
-      s[i & 3] = fmaf(x[k], W_SHARED ? w[k * ldw] : __ldg(w + k * ldw), s[i & 3]);
-      if (++k == K) k = 0;
-    }
-    store(o, lane, (s[0] + s[1]) + (s[2] + s[3]));
-  }
-}
-
-// acc[t, h*D + n] += sum over the np (1 or 2) latents of a pair of prob[z, t, h] *
-// (normalize(pre_z,h)[t] @ m_w2 + m_b2)[n]: one product over 2 MT heads and the latents of the
-// pair. The tile (wg, mt) holds head h0 + wg + 2 mt; warp w of it coordinates 8 w .. 8 w + 7,
-// its rows r and r + 8 the same coordinate in latents 0 and 1 of the pair, so one thread owns
-// both latents' sums of an output element.
-template <int WN, int MT, bool RES>
-__device__ __forceinline__ void mixer(const float* Y, int ldP, int np, int H, int hidm, int D,
-                                      const float* __restrict__ m_w2, const float* __restrict__ m_b2,
-                                      const float* prob, float* acc, int ldW, float* ring) {
-  for (int h0 = 0; h0 < H; h0 += 2 * MT) {
-    gemm_wg<WN, MT, RES>(
-        [&](int wg, int mt, int w, int r) {
-          const int h = min(h0 + wg + 2 * mt, H - 1), t = 8 * w + (r & 7);
-          return Y + ((r >= 8 && np > 1 ? TILE : 0) + t) * ldP + h * hidm;
-        },
-        [&](int wg, int mt) { return h0 + wg + 2 * mt < H; }, hidm, m_w2, D, ring,
-        [&](int wg, int mt, int w, int r, int n, float v0, float v1) {
-          const int h = h0 + wg + 2 * mt, t = 8 * w + r;
-          const float bn = __ldg(m_b2 + n);
-          float s = prob[t * H + h] * (v0 + bn);
-          if (np > 1) s = fmaf(prob[TILE * H + t * H + h], v1 + bn, s);
-          acc[t * ldW + h * D + n] += s;
-        });
-  }
-}
-
 template <int WN, bool WITH_TAIL>
 __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_kernel(const Params P) {
   using Cls = Width<WN>;
@@ -1055,13 +825,6 @@ __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_ker
     decode_tile(blockIdx.y, blockIdx.x * TILE);
   }
 }
-
-// The width class of a shape: the narrowest of 16, 32, 64 that holds hid, hidm and D, else WG_N.
-int width_class(int hid, int hidm, int D) {
-  const int w = hid > hidm ? (hid > D ? hid : D) : (hidm > D ? hidm : D);
-  return w <= 16 ? 16 : w <= 32 ? 32 : w <= 64 ? 64 : WG_N;
-}
-
 // Fills P's strides; false for shapes the kernel does not take. *cls: the width class.
 bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
   if (P.B < 0 || P.B > 65535 || P.Z <= 0 || P.C < 0 || P.I <= 0 || P.H <= 0 || P.out_dim <= 0) return false;
@@ -1099,129 +862,6 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
                            (size_t)(zg + 3) * TILE * P.H + (size_t)zg * P.hid * P.H);
   return *smem <= SMEM_CAP;
 }
-
-// The shape dims of the launcher's interface into P.
-void set_dims(Params& P, const int* dims) {
-  P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
-  P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
-}
-
-// Sets the kernel's shared memory (and, narrow, asks for the largest carve-out, so that
-// several blocks fit an SM); with `per_sm`, the blocks an SM holds at that size.
-template <int WN, bool TAIL>
-cudaError_t prepare(size_t smem, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(fused_decode_fwd_kernel<WN, TAIL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && WN < WG_N)
-    err = cudaFuncSetAttribute(fused_decode_fwd_kernel<WN, TAIL>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && per_sm)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_fwd_kernel<WN, TAIL>, THREADS, smem);
-  return err;
-}
-
-// The width class 128: one block per (tile, batch row). Narrow: persistent blocks, as many as
-// the SMs hold at once, or one per work item when there are fewer.
-template <int WN, bool TAIL>
-cudaError_t launch(const Params& P, size_t smem, cudaStream_t s) {
-  dim3 grid((P.C + TILE - 1) / TILE, P.B);
-  int per_sm = 0;
-  cudaError_t err = prepare<WN, TAIL>(smem, WN < WG_N ? &per_sm : nullptr);
-  if (err != cudaSuccess) return err;
-  if (WN < WG_N) {
-    int dev = 0, sms = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long items = (long long)grid.x * grid.y, most = (long long)per_sm * sms;
-    grid = dim3((unsigned)(items < most ? items : most));
-  }
-  fused_decode_fwd_kernel<WN, TAIL><<<grid, THREADS, smem, s>>>(P);
-  return cudaGetLastError();
-}
-
-// `launch` or `prepare` of the instantiation for class `cls` and the tail flag.
-template <template <int, bool> class F, class... Args>
-cudaError_t by_class(int cls, bool tail, Args... args) {
-  switch (cls) {
-    case 16: return tail ? F<16, true>::run(args...) : F<16, false>::run(args...);
-    case 32: return tail ? F<32, true>::run(args...) : F<32, false>::run(args...);
-    case 64: return tail ? F<64, true>::run(args...) : F<64, false>::run(args...);
-    default: return tail ? F<WG_N, true>::run(args...) : F<WG_N, false>::run(args...);
-  }
-}
-template <int WN, bool TAIL>
-struct Launch {
-  static cudaError_t run(const Params& P, size_t smem, cudaStream_t s) { return launch<WN, TAIL>(P, smem, s); }
-};
-template <int WN, bool TAIL>
-struct Prepare {
-  static cudaError_t run(size_t smem, int* per_sm) { return prepare<WN, TAIL>(smem, per_sm); }
-};
-
 }  // namespace
 
-extern "C" {
-
-// ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null without
-// the tail), out, then split_weights' blocks of q_w1, v_w1, fw and m_w2.
-// dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail. Launches on `stream` and returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for shapes it does not take, or for a
-// weight staged by cp.async (G, the split blocks, the tail's wide weights) that does not start
-// on 16 bytes).
-int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
-                            void* stream) {
-  if (n_ptrs != kNumPtrs || n_dims != kNumDims) return (int)cudaErrorInvalidValue;
-  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
-  Params P;
-  P.inv = f[0]; P.wb = f[1]; P.A = f[2]; P.ab = f[3]; P.G = f[4]; P.c = f[5];
-  P.q_coeff = f[6]; P.q_b1 = f[8]; P.v_coeff = f[9]; P.v_b1 = f[11]; P.fb = f[13]; P.m_b2 = f[15];
-  P.o_w = f[16]; P.o_b = f[17]; P.p_w1 = f[18]; P.p_b1 = f[19]; P.p_w2 = f[20]; P.p_b2 = f[21];
-  P.h_w1 = f[22]; P.h_b1 = f[23]; P.h_w2 = f[24]; P.h_b2 = f[25]; P.h_w3 = f[26]; P.h_b3 = f[27];
-  P.out = const_cast<float*>(f[28]);
-  P.q_w1s = f[29]; P.v_w1s = f[30]; P.fws = f[31]; P.m_w2s = f[32];
-  set_dims(P, dims);
-  const bool with_tail = dims[9] != 0;
-  size_t smem = 0;
-  int cls = 0;
-  if (!layout(P, with_tail, &smem, &cls)) return (int)cudaErrorInvalidValue;
-  // The weights staged by 16-byte cp.async must start on 16 bytes.
-  const float* staged[] = {P.G, P.q_w1s, P.v_w1s, P.fws, P.m_w2s, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
-  for (int i = 0; i < (with_tail ? 10 : 5); ++i)
-    if (!aligned16(staged[i])) return (int)cudaErrorInvalidValue;
-  if (P.B == 0 || P.C == 0) return (int)cudaSuccess;
-  return (int)by_class<Launch>(cls, with_tail, (const Params&)P, smem, static_cast<cudaStream_t>(stream));
-}
-
-// Bytes of dynamic shared memory a launch with these dims takes, or -1 for shapes the
-// kernel does not take (the launcher's dims).
-long long fused_decode_fwd_smem_bytes(const int* dims, int n_dims) {
-  if (n_dims != kNumDims) return -1;
-  Params P;
-  set_dims(P, dims);
-  size_t smem = 0;
-  int cls = 0;
-  return layout(P, dims[9] != 0, &smem, &cls) ? (long long)smem : -1;
-}
-
-// For a launch with these dims: out[0] its width class, out[1] the blocks of it an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory; a narrow launch's grid
-// is that times the SMs). Returns the cudaError_t (cudaErrorInvalidValue for shapes it does
-// not take); sets the kernel's attributes as a launch does.
-int fused_decode_fwd_occupancy(const int* dims, int n_dims, int* out) {
-  if (n_dims != kNumDims) return (int)cudaErrorInvalidValue;
-  Params P;
-  set_dims(P, dims);
-  size_t smem = 0;
-  int cls = 0;
-  if (!layout(P, dims[9] != 0, &smem, &cls)) return (int)cudaErrorInvalidValue;
-  out[0] = cls;
-  out[1] = 0;
-  return (int)by_class<Prepare>(cls, dims[9] != 0, smem, out + 1);
-}
-
-const char* fused_decode_fwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-}  // extern "C"
+#include "fused_decode_fwd_host.cuh"  // the launcher's C interface (shared with the bf16 program)

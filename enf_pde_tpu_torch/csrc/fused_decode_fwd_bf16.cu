@@ -8,7 +8,8 @@
 // `fused_decode_plain(..., compute_dtype=torch.bfloat16)` in enf_pde_tpu_torch/ops/fused_decode.py.
 // The f32 program (3xTF32, the `pallas_interpret` backend's) is fused_decode_fwd.cu; this source
 // is that design with the products and the softmax changed, and its header states the math, the
-// blocks, the width classes and the staging. What the bf16 mode changes, and this source with it:
+// blocks, the width classes and the staging; fused_decode_fwd_common.cuh and
+// fused_decode_fwd_host.cuh hold what the two programs share. What the bf16 mode changes, and this source with it:
 //   - every product operand is rounded to bf16 (bf16_mma.cuh): the RFF features, the hidden
 //     layers, the normalized activations, the folded A and G, the tail's activations and every
 //     weight; the products are exact and their sums f32. The RFF projection, the biases, gelu,
@@ -16,8 +17,12 @@
 //   - sin and cos of the RFF features by the polynomial of `_fast_sincos` (fast_sincos);
 //   - the softmax weights rounded to bf16 before they weight the values. That rounding needs
 //     each weight whole, so the softmax is not taken online: a first pass over the latent groups
-//     takes every latent's logits (the query chain) into shared memory ([Z][TILE][H]: its size
-//     grows with Z), the softmax over Z follows, and a second pass takes the value chains.
+//     takes every latent's logits (the query chain) into shared memory ([Z][TILE][H]), the
+//     softmax over Z follows, and a second pass takes the value chains. Where the logits do not
+//     fit beside the rest (Z > 52 at NS width), they go to a workspace in global memory that the
+//     wrapper allocates ([B][tiles][Z][TILE][H], a block's tile at its own offset, read back by
+//     the block that wrote it): the layout no longer depends on Z, and every Z that the f32
+//     program takes, this one takes.
 // Products:
 //   128 rows: wgmma m64nNk16 bf16 (A from registers, rounded per fragment; B K-major in shared
 //     memory): one wgmma per 16-deep chunk where 3xTF32 takes six. The wrapper hands the four
@@ -30,8 +35,9 @@
 // through a ring of three 2 KB blocks.
 // Shared memory (k1_smem_bytes mirrors it, with compute_dtype=torch.bfloat16): the f32
 // program's X, Y and acc, the ring without the split A chunks (class 128) or the bf16 weights
-// (narrow), every latent's logits [Z][TILE][H] and, narrow, the group's A:
-//   NS (I 4, hid 128, H 2, z 4): 220,160 B; shallow water (z 8) 221,184 B; one block an SM.
+// (narrow), every latent's logits [Z][TILE][H] where they fit and, narrow, the group's A:
+//   NS (I 4, hid 128, H 2, z 4): 220,160 B; shallow water (z 8) 221,184 B; one block an SM;
+//   NS past z = 52: 219,136 B with the logits in global memory.
 // Accuracy: against the plain bf16 version on the card the gates are relative to the bf16
 // function's own distance from f32 (two right bf16 programs differ by chaotic roundings):
 // chip_smoke.py's phase 35, where every launch shape lies within 0.21 of that distance.
@@ -39,47 +45,13 @@
 // an H100): 3.34 ms there against 4.63 for the f32 program; 0.81-0.86x the f32 program at
 // the narrow classes. The products were not the bulk: the row passes and the staging remain.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "bf16_mma.cuh"  // bf16_round, pack_bf16, mma_bf16, wgmma_bf16, fast_sincos
-#include "tf32_mma.cuh"  // gelu_tanh, aligned16
+#include "fused_decode_fwd_common.cuh"  // constants, Params, staging, row passes, mixer (shared with the f32 program)
+#include "bf16_mma.cuh"                  // bf16_round, pack_bf16, mma_bf16, wgmma_bf16, fast_sincos
 
 namespace {
 
-constexpr int TILE = 32;              // coordinates per block
-constexpr int THREADS = 256;          // two warpgroups
-constexpr int WARPS = THREADS / 32;
-constexpr int ZG = 4;                 // latents per batched product (ZG * TILE = 128 rows)
-constexpr int KC = 16;                // k rows per staged chunk: one bf16 wgmma / mma.sync k step
-constexpr int STAGES = 3;             // ring depth
-constexpr int STAGE_FLOATS = KC * 264;  // one stage: 16 x (256 + 8) f32 (dense32's raw B), or a bf16 wgmma block
-constexpr int WG_N = 128;             // columns of one wgmma product and of one bf16 slab
 constexpr int RING_FLOATS = STAGES * STAGE_FLOATS;  // the B ring
-constexpr int SMEM_CAP = 232448;      // bytes of shared memory a block may have on an H100
-// The narrow width classes WN = 16, 32, 64 (hid, hidm and D at most WN; wider shapes take the
-// class WG_N): the most latents a group takes (ZG16 * TILE rows), whether the four shared
-// weights stay resident in shared memory (RES, 1) or pass through a ring of STAGES narrow blocks
-// (0), and the blocks an SM that __launch_bounds__ asks the compiler to make room for.
-constexpr int ZG16 = 8;
-constexpr int ZG32 = 4;
-constexpr int ZG64 = 4;
-constexpr int RES16 = 1;
-constexpr int RES32 = 1;
-constexpr int RES64 = 0;
-constexpr int MINB16 = 2;
-constexpr int MINB32 = 2;
-constexpr int MINB64 = 2;
-// These constants and `layout` have one mirror, k1_smem_bytes in ops/fused_decode.py (with
-// compute_dtype=torch.bfloat16), which reads the `constexpr int` lines of this file.
-constexpr float LN_EPS = 1e-6f;       // flax LayerNorm default
-constexpr int kNumPtrs = 33;
-constexpr int kNumDims = 10;
 static_assert(STAGES >= 2 && 8 * WG_N <= STAGE_FLOATS, "ring");
-
-__host__ __device__ constexpr int zg_of(int wn) { return wn == 16 ? ZG16 : wn == 32 ? ZG32 : wn == 64 ? ZG64 : ZG; }
-__host__ __device__ constexpr bool res_of(int wn) { return wn == 16 ? RES16 : wn == 32 ? RES32 : wn == 64 ? RES64 : 0; }
 
 // What a width class fixes at compile time.
 template <int WN>
@@ -93,38 +65,10 @@ struct Width {
   static_assert(MT >= 1 && MT <= 2, "class");
 };
 
-struct Params {
-  const float *inv, *wb, *A, *ab, *G, *c;
-  const float *q_coeff, *q_b1, *v_coeff, *v_b1, *fb, *m_b2;
-  const float *q_w1s, *v_w1s, *fws, *m_w2s;  // bf16, blocked for wgmma (bf16_weights)
-  const float *o_w, *o_b, *p_w1, *p_b1, *p_w2, *p_b2, *h_w1, *h_b1, *h_w2, *h_b2, *h_w3, *h_b3;
-  float* out;
-  int B, Z, C, I, hid, H, D, hidm, out_dim;
-  int ldX, ldP, ldW;  // row strides (words, 4 mod 8): X / Y as [ZG TILE][ldX], pre [64][ldP], acc [32][ldW]
-  int nY;             // floats of Y
-  int nW;             // narrow classes: floats of the resident shared weights, or of their ring
-};
-
-// Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
-__host__ __device__ inline int row_stride(int width) { return (width + 31) / 32 * 32 + 4; }
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
-
-template <int ACT>
-__device__ __forceinline__ float activate(float x) {
-  if (ACT == ACT_RELU) return fmaxf(x, 0.0f);
-  if (ACT == ACT_GELU) return gelu_tanh(x);
-  return x;
-}
+// The hooks of fused_decode_fwd_common.cuh: operands rounded to bf16, sin and cos by the bf16
+// mode's polynomial (`_fast_sincos`).
+__device__ __forceinline__ float operand(float x) { return bf16_round(x); }
+__device__ __forceinline__ void rff_sincos(float proj, float* s, float* c) { fast_sincos(proj, s, c); }
 
 // ---- 32-row products: bf16 mma.sync --------------------------------------------------------
 // Y = act(X W + bias) for the TILE rows of X (shared memory, row stride ldx) and W [K x N] in
@@ -334,28 +278,7 @@ __device__ __forceinline__ void dense32_direct(const float* X, int ldx, int K, c
     dense32_direct<1, ACT>(X, ldx, K, W, N, bias, Y, ldy, sync, w0, nw);
 }
 
-// ---- Products over the rows of a latent group: bf16 wgmma ------------------------------------
-// Shared-memory descriptor of a K-major bf16 B tile without swizzle (bf16_weights' block): core
-// matrices of 8 rows (n) x 16 bytes (8 k) stored whole; LBO is the step between the two core
-// matrices of a k step of 16, SBO the step between groups of 8 rows (n). The same at every width.
-constexpr int WG_LBO = 128, WG_SBO = 256;
-__device__ __forceinline__ uint64_t wg_desc(const float* smem) {
-  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(WG_LBO >> 4) << 16) | ((uint64_t)(WG_SBO >> 4) << 32);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// Orders the generic-proxy writes of shared memory (cp.async, stores) before wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-// Keeps the compiler from moving reads of an accumulator across wgmma's asynchronous writes.
-template <int N>
-__device__ __forceinline__ void wg_fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// out = X W for the rows of a latent group on the tensor cores, bf16 operands. Warpgroup wg
+// ---- Products over the rows of a latent group: bf16 wgmma ------------------------------------// out = X W for the rows of a latent group on the tensor cores, bf16 operands. Warpgroup wg
 // (warps 4 wg .. 4 wg + 3) multiplies the 64-row tiles wg + 2 mt (mt < MT) by each WN-wide slab
 // of N: at WN = 128 as two m64n64k16 products, below it as one m64nWNk16 product; warp w supplies
 // A rows 16 w .. 16 w + 15 of a tile from shared memory (xrow(wg, mt, w, r) points at row r of
@@ -463,158 +386,6 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
   }
   if constexpr (!RES) cp_async_wait<0>();
 }
-
-// Y = act(X W + bias) over the rows of a latent group (R of them valid), row strides ldx, ldy;
-// W in bf16 blocks (or resident). Inlined, as is mixer: ptxas serializes every wgmma of
-// a kernel whose wgmma pipeline crosses a function call.
-template <int WN, int MT, bool RES, int ACT>  // ACT_NONE or ACT_RELU (the gelu after fw is applied in its normalize pass)
-__device__ __forceinline__ void dense_group(const float* X, int ldx, int R, int K, const float* __restrict__ W, int N,
-                                            const float* __restrict__ bias, float* Y, int ldy, float* ring) {
-  gemm_wg<WN, MT, RES>(
-      [&](int wg, int mt, int w, int r) { return X + (64 * (wg + 2 * mt) + 16 * w + r) * ldx; },
-      [&](int wg, int mt) { return 64 * (wg + 2 * mt) < R; }, K, W, N, ring,
-      [&](int wg, int mt, int w, int r, int n, float v0, float v1) {
-        const float bn = __ldg(bias + n);
-        float* y = Y + (64 * (wg + 2 * mt) + 16 * w + r) * ldy + n;
-        y[0] = activate<ACT>(v0 + bn);
-        y[8 * ldy] = activate<ACT>(v1 + bn);
-      });
-}
-
-// F[r, :half] = sin(2 pi inv[r] @ coeff), F[r, half:] = cos(...) for the R rows of a latent
-// group, by the bf16 mode's polynomial (fast_sincos); s_inv is [R][I] in shared memory, coeff
-// [I, half]. The projection is f32, as in `_rff_hidden`.
-__device__ void rff_features(const float* s_inv, int R, int I, const float* __restrict__ coeff, int half,
-                             float* F, int ldf) {
-  for (int idx = threadIdx.x; idx < R * half; idx += THREADS) {
-    const int r = idx / half, j = idx - r * half;
-    float proj = 0.0f;
-    for (int i = 0; i < I; ++i) proj = fmaf(s_inv[r * I + i], __ldg(coeff + i * half + j), proj);
-    float s, co;
-    fast_sincos(proj, &s, &co);
-    F[r * ldf + j] = s;
-    F[r * ldf + half + j] = co;
-  }
-}
-
-// Normalize-only LayerNorm of each of the `segs` segments of width `width` (a multiple of 4,
-// at most NW) in every one of `rows` rows of X, of gelu(X) with GELU (the activation of the
-// product that wrote X, applied here rather than in its epilogue); var = E[x^2] - E[x]^2 as
-// in the JAX kernel. L lanes per segment (8, or NW / 4 below 32 columns), 32 / L segments per
-// warp at once, the values held in registers between the two passes. Below MAXW columns gelu
-// takes only the columns the segment has; at MAXW (the width class 128) the zeros past them
-// too, as that class always has (8x the tanh at 32 columns: half of K1's time at ihc).
-constexpr int MAXW = 256;
-template <bool GELU, int NW = MAXW>
-__device__ void normalize(float* X, int ldx, int rows, int segs, int width) {
-  constexpr int L = NW >= 32 ? 8 : NW / 4, SPW = 32 / L, NV = (NW + 4 * L - 1) / (4 * L);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sub = lane % L;
-  const int n_seg = rows * segs;
-  for (int base = SPW * warp; base < n_seg; base += SPW * WARPS) {  // warp-uniform: the shuffles see every lane
-    const int r = base + lane / L;
-    const bool ok = r < n_seg;
-    float* row = X + (ok ? (r / segs) * ldx + (r % segs) * width : 0);
-    float4 v[NV];
-    float s = 0.0f, ss = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int n = 4 * sub + 4 * L * i;
-      const bool in = ok && n < width;
-      v[i] = in ? *reinterpret_cast<const float4*>(row + n) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (GELU && (in || NW == MAXW))
-        v[i] = make_float4(gelu_tanh(v[i].x), gelu_tanh(v[i].y), gelu_tanh(v[i].z), gelu_tanh(v[i].w));
-      s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
-      ss = fmaf(v[i].x, v[i].x, fmaf(v[i].y, v[i].y, fmaf(v[i].z, v[i].z, fmaf(v[i].w, v[i].w, ss))));
-    }
-#pragma unroll
-    for (int o = L / 2; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = s / width;
-    const float rstd = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int n = 4 * sub + 4 * L * i;
-      if (ok && n < width)
-        *reinterpret_cast<float4*>(row + n) = make_float4((v[i].x - mean) * rstd, (v[i].y - mean) * rstd,
-                                                          (v[i].z - mean) * rstd, (v[i].w - mean) * rstd);
-    }
-  }
-}
-
-// normalize<true> of the 32 rows of X, each one segment of `width` (the narrow classes' tail,
-// up to MAXW columns): a warp per row, lanes along it, gelu stored back in a first pass and
-// normalized in a second, nothing held in registers between them.
-__device__ __noinline__ void normalize_rows(float* X, int ldx, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < TILE; r += WARPS) {
-    float* row = X + r * ldx;
-    float s = 0.0f, ss = 0.0f;
-    for (int n = lane; n < width; n += 32) {
-      const float v = gelu_tanh(row[n]);
-      row[n] = v;
-      s += v;
-      ss = fmaf(v, v, ss);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = s / width;
-    const float rstd = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
-    for (int n = lane; n < width; n += 32) row[n] = (row[n] - mean) * rstd;
-  }
-}
-
-// The narrow products on the CUDA cores: for each output o of `count` (one warp per output),
-// lane t computes sum_k X(o)[t, k] W(o)[k * ldw] for row t of 32, both operands rounded to bf16
-// (the products exact, the sum f32); store(o, t, value). Lane t starts its sum at k = t, so the
-// 32 rows (row stride 4 mod 32 words) hit distinct banks.
-// W_SHARED: W(o) lies in shared memory (else global, read through the read-only cache).
-template <bool W_SHARED = false, class XOf, class WOf, class Store>
-__device__ void lane_dots(int count, int K, int ldw, XOf x_of, WOf w_of, Store store) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = warp; o < count; o += WARPS) {
-    const float* x = x_of(o, lane);
-    const float* w = w_of(o);
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    int k = lane % K;
-    for (int i = 0; i < K; ++i) {
-      s[i & 3] = fmaf(bf16_round(x[k]), bf16_round(W_SHARED ? w[k * ldw] : __ldg(w + k * ldw)), s[i & 3]);
-      if (++k == K) k = 0;
-    }
-    store(o, lane, (s[0] + s[1]) + (s[2] + s[3]));
-  }
-}
-
-// acc[t, h*D + n] += sum over the np (1 or 2) latents of a pair of prob[z, t, h] *
-// (normalize(pre_z,h)[t] @ m_w2 + m_b2)[n]: one product over 2 MT heads and the latents of the
-// pair. The tile (wg, mt) holds head h0 + wg + 2 mt; warp w of it coordinates 8 w .. 8 w + 7,
-// its rows r and r + 8 the same coordinate in latents 0 and 1 of the pair, so one thread owns
-// both latents' sums of an output element.
-template <int WN, int MT, bool RES>
-__device__ __forceinline__ void mixer(const float* Y, int ldP, int np, int H, int hidm, int D,
-                                      const float* __restrict__ m_w2, const float* __restrict__ m_b2,
-                                      const float* prob, float* acc, int ldW, float* ring) {
-  for (int h0 = 0; h0 < H; h0 += 2 * MT) {
-    gemm_wg<WN, MT, RES>(
-        [&](int wg, int mt, int w, int r) {
-          const int h = min(h0 + wg + 2 * mt, H - 1), t = 8 * w + (r & 7);
-          return Y + ((r >= 8 && np > 1 ? TILE : 0) + t) * ldP + h * hidm;
-        },
-        [&](int wg, int mt) { return h0 + wg + 2 * mt < H; }, hidm, m_w2, D, ring,
-        [&](int wg, int mt, int w, int r, int n, float v0, float v1) {
-          const int h = h0 + wg + 2 * mt, t = 8 * w + r;
-          const float bn = __ldg(m_b2 + n);
-          float s = prob[t * H + h] * (v0 + bn);
-          if (np > 1) s = fmaf(prob[TILE * H + t * H + h], v1 + bn, s);
-          acc[t * ldW + h * D + n] += s;
-        });
-  }
-}
-
 template <int WN, bool WITH_TAIL>
 __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_kernel(const Params P) {
   using Cls = Width<WN>;
@@ -627,8 +398,8 @@ __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_ker
   float* Y = X + ZGN * TILE * ldX;        // nY floats
   float* acc = Y + P.nY;                  // [TILE][ldW]
   float* ring = acc + TILE * ldW;         // [STAGES][STAGE_FLOATS]; narrow: the shared weights or their ring
-  float* s_prob = ring + (NARROW ? P.nW : RING_FLOATS);  // [Z][TILE][H] every latent's logits, then its weights
-  float* s_A = s_prob + Z * TILE * H;     // narrow: [ZGN][hid][H] the group's A
+  float* s_lg = ring + (NARROW ? P.nW : RING_FLOATS);  // [Z][TILE][H] every latent's logits, unless in P.lg
+  float* s_A = s_lg + (P.lg_global ? 0 : Z * TILE * H);  // narrow: [ZGN][hid][H] the group's A
   const int tid = threadIdx.x;
   // The four shared weights: resident in the ring's place (narrow, RES), else in global memory (bf16 blocks).
   const int wq_floats = hid / KC * Cls::BLOCK;
@@ -640,6 +411,8 @@ __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_ker
   // Decodes the TILE coordinates from c0 of batch row b into out.
   auto decode_tile = [&](const int b, const int c0) {
     const int rows = min(TILE, C - c0);  // valid coordinates in this tile
+    // Every latent's logits, then its weights: in shared memory, or this tile's slot of P.lg.
+    float* s_prob = P.lg_global ? P.lg + ((size_t)b * ((C + TILE - 1) / TILE) + c0 / TILE) * Z * TILE * H : s_lg;
 
     // The RFF features of a group's latents into X, their invariants staged in Y, which is
     // idle between the last pair's mixer and the first product of either chain (narrow: the
@@ -796,11 +569,13 @@ __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_ker
     decode_tile(blockIdx.y, blockIdx.x * TILE);
   }
 }
-
-// The width class of a shape: the narrowest of 16, 32, 64 that holds hid, hidm and D, else WG_N.
-int width_class(int hid, int hidm, int D) {
-  const int w = hid > hidm ? (hid > D ? hid : D) : (hidm > D ? hidm : D);
-  return w <= 16 ? 16 : w <= 32 ? 32 : w <= 64 ? 64 : WG_N;
+// Adds every latent's logits ([Z][TILE][H]) to *smem where they fit beside the rest; else they
+// go to the launch's workspace in global memory (P.lg_global). False if the rest does not fit.
+bool place_logits(Params& P, size_t* smem) {
+  const size_t lg = sizeof(float) * (size_t)P.Z * TILE * P.H;
+  P.lg_global = *smem + lg > SMEM_CAP;
+  if (!P.lg_global) *smem += lg;
+  return *smem <= SMEM_CAP;
 }
 
 // Fills P's strides; false for shapes the kernel does not take. *cls: the width class.
@@ -821,14 +596,13 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
     if ((size_t)TILE * P.ldW > nY) nY = (size_t)TILE * P.ldW;
     P.nY = (int)nY;
     P.nW = 0;
-    // X, Y, acc, the ring, every latent's logits.
-    *smem = sizeof(float) * ((size_t)ZG * TILE * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)RING_FLOATS +
-                             (size_t)P.Z * TILE * P.H);
-    return *smem <= SMEM_CAP;
+    // X, Y, acc, the ring, every latent's logits where they fit.
+    *smem = sizeof(float) * ((size_t)ZG * TILE * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)RING_FLOATS);
+    return place_logits(P, smem);
   }
   // Narrow: X and Y take a group's ZG rows at a stride of WN + 4 words (4 mod 8: the
   // A-fragment loads hit distinct banks), the shared weights (or their ring) replace the ring,
-  // and the group's A is staged beside every latent's logits.
+  // and the group's A is staged beside every latent's logits (where they fit).
   const int wn = *cls, zg = zg_of(wn), rows = zg * TILE;
   P.ldX = wn + 4;
   size_t nY = (size_t)rows * P.ldX;
@@ -837,132 +611,9 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
   P.nY = (int)nY;
   P.nW = res_of(wn) ? (3 * P.hid + P.hidm) / KC * 8 * wn : STAGES * 8 * wn;
   *smem = sizeof(float) * ((size_t)rows * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)P.nW +
-                           (size_t)P.Z * TILE * P.H + (size_t)zg * P.hid * P.H);
-  return *smem <= SMEM_CAP;
+                           (size_t)zg * P.hid * P.H);
+  return place_logits(P, smem);
 }
-
-// The shape dims of the launcher's interface into P.
-void set_dims(Params& P, const int* dims) {
-  P.B = dims[0]; P.Z = dims[1]; P.C = dims[2]; P.I = dims[3]; P.hid = dims[4];
-  P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
-}
-
-// Sets the kernel's shared memory (and, narrow, asks for the largest carve-out, so that
-// several blocks fit an SM); with `per_sm`, the blocks an SM holds at that size.
-template <int WN, bool TAIL>
-cudaError_t prepare(size_t smem, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(fused_decode_fwd_kernel<WN, TAIL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && WN < WG_N)
-    err = cudaFuncSetAttribute(fused_decode_fwd_kernel<WN, TAIL>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && per_sm)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_fwd_kernel<WN, TAIL>, THREADS, smem);
-  return err;
-}
-
-// The width class 128: one block per (tile, batch row). Narrow: persistent blocks, as many as
-// the SMs hold at once, or one per work item when there are fewer.
-template <int WN, bool TAIL>
-cudaError_t launch(const Params& P, size_t smem, cudaStream_t s) {
-  dim3 grid((P.C + TILE - 1) / TILE, P.B);
-  int per_sm = 0;
-  cudaError_t err = prepare<WN, TAIL>(smem, WN < WG_N ? &per_sm : nullptr);
-  if (err != cudaSuccess) return err;
-  if (WN < WG_N) {
-    int dev = 0, sms = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long items = (long long)grid.x * grid.y, most = (long long)per_sm * sms;
-    grid = dim3((unsigned)(items < most ? items : most));
-  }
-  fused_decode_fwd_kernel<WN, TAIL><<<grid, THREADS, smem, s>>>(P);
-  return cudaGetLastError();
-}
-
-// `launch` or `prepare` of the instantiation for class `cls` and the tail flag.
-template <template <int, bool> class F, class... Args>
-cudaError_t by_class(int cls, bool tail, Args... args) {
-  switch (cls) {
-    case 16: return tail ? F<16, true>::run(args...) : F<16, false>::run(args...);
-    case 32: return tail ? F<32, true>::run(args...) : F<32, false>::run(args...);
-    case 64: return tail ? F<64, true>::run(args...) : F<64, false>::run(args...);
-    default: return tail ? F<WG_N, true>::run(args...) : F<WG_N, false>::run(args...);
-  }
-}
-template <int WN, bool TAIL>
-struct Launch {
-  static cudaError_t run(const Params& P, size_t smem, cudaStream_t s) { return launch<WN, TAIL>(P, smem, s); }
-};
-template <int WN, bool TAIL>
-struct Prepare {
-  static cudaError_t run(size_t smem, int* per_sm) { return prepare<WN, TAIL>(smem, per_sm); }
-};
-
 }  // namespace
 
-extern "C" {
-
-// ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null without
-// the tail), out, then bf16_weights' blocks of q_w1, v_w1, fw and m_w2.
-// dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail. Launches on `stream` and returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for shapes it does not take, or for a
-// weight staged by cp.async (G, the bf16 blocks, the tail's wide weights) that does not start
-// on 16 bytes).
-int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims, int n_dims,
-                            void* stream) {
-  if (n_ptrs != kNumPtrs || n_dims != kNumDims) return (int)cudaErrorInvalidValue;
-  const float* const* f = reinterpret_cast<const float* const*>(ptrs);
-  Params P;
-  P.inv = f[0]; P.wb = f[1]; P.A = f[2]; P.ab = f[3]; P.G = f[4]; P.c = f[5];
-  P.q_coeff = f[6]; P.q_b1 = f[8]; P.v_coeff = f[9]; P.v_b1 = f[11]; P.fb = f[13]; P.m_b2 = f[15];
-  P.o_w = f[16]; P.o_b = f[17]; P.p_w1 = f[18]; P.p_b1 = f[19]; P.p_w2 = f[20]; P.p_b2 = f[21];
-  P.h_w1 = f[22]; P.h_b1 = f[23]; P.h_w2 = f[24]; P.h_b2 = f[25]; P.h_w3 = f[26]; P.h_b3 = f[27];
-  P.out = const_cast<float*>(f[28]);
-  P.q_w1s = f[29]; P.v_w1s = f[30]; P.fws = f[31]; P.m_w2s = f[32];
-  set_dims(P, dims);
-  const bool with_tail = dims[9] != 0;
-  size_t smem = 0;
-  int cls = 0;
-  if (!layout(P, with_tail, &smem, &cls)) return (int)cudaErrorInvalidValue;
-  // The weights staged by 16-byte cp.async must start on 16 bytes.
-  const float* staged[] = {P.G, P.q_w1s, P.v_w1s, P.fws, P.m_w2s, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
-  for (int i = 0; i < (with_tail ? 10 : 5); ++i)
-    if (!aligned16(staged[i])) return (int)cudaErrorInvalidValue;
-  if (P.B == 0 || P.C == 0) return (int)cudaSuccess;
-  return (int)by_class<Launch>(cls, with_tail, (const Params&)P, smem, static_cast<cudaStream_t>(stream));
-}
-
-// Bytes of dynamic shared memory a launch with these dims takes, or -1 for shapes the
-// kernel does not take (the launcher's dims).
-long long fused_decode_fwd_smem_bytes(const int* dims, int n_dims) {
-  if (n_dims != kNumDims) return -1;
-  Params P;
-  set_dims(P, dims);
-  size_t smem = 0;
-  int cls = 0;
-  return layout(P, dims[9] != 0, &smem, &cls) ? (long long)smem : -1;
-}
-
-// For a launch with these dims: out[0] its width class, out[1] the blocks of it an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory; a narrow launch's grid
-// is that times the SMs). Returns the cudaError_t (cudaErrorInvalidValue for shapes it does
-// not take); sets the kernel's attributes as a launch does.
-int fused_decode_fwd_occupancy(const int* dims, int n_dims, int* out) {
-  if (n_dims != kNumDims) return (int)cudaErrorInvalidValue;
-  Params P;
-  set_dims(P, dims);
-  size_t smem = 0;
-  int cls = 0;
-  if (!layout(P, dims[9] != 0, &smem, &cls)) return (int)cudaErrorInvalidValue;
-  out[0] = cls;
-  out[1] = 0;
-  return (int)by_class<Prepare>(cls, dims[9] != 0, smem, out + 1);
-}
-
-const char* fused_decode_fwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-}  // extern "C"
+#include "fused_decode_fwd_host.cuh"  // the launcher's C interface (shared with the f32 program)

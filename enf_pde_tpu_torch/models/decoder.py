@@ -41,8 +41,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fold_decode_weights,
     fused_decode_fwd,
     FusedDecode,
-    bf16_weights,
-    split_weights,
+    shared_weights,
 )
 from enf_pde_tpu_torch.ops.layers import Dense, LayerNorm, gelu
 
@@ -270,7 +269,7 @@ def decode_trajectories(decoder: EnfDecoder, backend: str, coords: torch.Tensor,
 
     On a kernel backend the weight folds (with the stem and the self-attention blocks),
     which depend on the latents only, and K1's layout of the shared weights for its program
-    (``split_weights``' tf32 parts, or ``bf16_weights``) run once for all chunks.
+    (``shared_weights``: ``split_weights``' tf32 parts, or ``bf16_weights``) run once for all chunks.
     """
     p, a, w = latent_traj
     b, t = p.shape[0], p.shape[1]
@@ -279,7 +278,7 @@ def decode_trajectories(decoder: EnfDecoder, backend: str, coords: torch.Tensor,
     if backend in KERNEL_BACKENDS:
         folded = decoder.fold(p_fl, a_fl, w_fl)
         dtype = kernel_compute_dtype(backend, coords.device)
-        _, split = (bf16_weights if dtype == torch.bfloat16 else split_weights)(folded[4])
+        split = shared_weights(folded[4], dtype)
 
         def apply_fn(x, pp, aa, ww):
             return fused_decode_fwd(*decoder.kernel_geometry(x, pp, ww), *folded,

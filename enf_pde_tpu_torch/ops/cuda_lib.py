@@ -19,7 +19,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "included_files", "build_key", "build", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "included_files", "expanded_source", "build_key", "build", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "_build"
@@ -44,6 +44,8 @@ def _nvcc() -> str:
 
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+_INCLUDE_LINE = re.compile(r'^\s*#\s*include\s*"([^"]+)".*$', re.M)
+_PRAGMA_ONCE = re.compile(r'^\s*#\s*pragma\s+once\s*$', re.M)
 
 
 def included_files(src: Path) -> list:
@@ -61,6 +63,24 @@ def included_files(src: Path) -> list:
         for name in _INCLUDE.findall(path.read_text()):
             todo.append((path.parent / name).resolve())
     return seen
+
+
+def expanded_source(src: Path) -> str:
+    """The text of ``src`` with each file it includes with ``#include "..."`` in the include's
+    place, recursively, each file once (where the compiler's ``#pragma once`` keeps it): one
+    self-contained translation unit, as a layout mirror reads its constants and a variant build
+    edits it."""
+    seen = set()
+
+    def expand(path: Path) -> str:
+        seen.add(path)
+
+        def include(m: "re.Match") -> str:
+            inner = (path.parent / m.group(1)).resolve()
+            return "" if inner in seen else expand(inner)
+        return _INCLUDE_LINE.sub(include, _PRAGMA_ONCE.sub("", path.read_text()))
+
+    return expand(Path(src).resolve())
 
 
 def build_key(src: Path) -> str:

@@ -77,6 +77,7 @@ __all__ = [
     "k1_width_class",
     "k1_constants",
     "k1_smem_bytes",
+    "k1_logits_floats",
     "k1_library_smem_bytes",
     "k1_occupancy",
     "fused_decode_bwd_plain",
@@ -288,11 +289,11 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def _b16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to bf16 (to nearest, ties to even) and back to f32. Products of such values
-    are exact in f32, so a matmul of them is JAX's bf16 ``dot`` with ``preferred_element_type=
-    f32``; autograd through the casts rounds the cotangent of the bf16 value, as JAX's transpose
-    of ``convert_element_type`` does."""
-    return x.to(torch.bfloat16).to(torch.float32)
+    """``x`` rounded to bf16 (to nearest, ties to even) and back to its type (f32; float64 sums
+    the same roundings exactly). Products of such values are exact in f32, so a matmul of them is
+    JAX's bf16 ``dot`` with ``preferred_element_type=f32``; autograd through the casts rounds the
+    cotangent of the bf16 value, as JAX's transpose of ``convert_element_type`` does."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -546,11 +547,11 @@ def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _source_constants(source: str) -> Dict[str, int]:
-    """The ``constexpr int NAME = expr;`` lines of a kernel source, each an integer
-    expression of the ones before (read once a process: a launch's host-side layout check
-    reads them)."""
+    """The ``constexpr int NAME = expr;`` lines of a kernel source and of the headers it
+    includes, in the order the compiler reads them, each an integer expression of the ones
+    before (read once a process: a launch's host-side layout check reads them)."""
     env: Dict[str, int] = {}
-    text = (cuda_lib.CSRC_DIR / source).read_text()
+    text = cuda_lib.expanded_source(cuda_lib.CSRC_DIR / source)
     for name, expr in re.findall(r"^constexpr int (\w+) = ([\w\s*+/()-]+);", text, re.M):
         # C's integer division; the expression holds only integers and earlier names.
         env[name] = int(eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(env)))
@@ -566,20 +567,9 @@ def k1_constants(compute_dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     return _source_constants(kernel_sources(compute_dtype)[0])
 
 
-def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
-                  compute_dtype: torch.dtype = torch.float32) -> int:
-    """K1's dynamic shared memory in bytes for a decode shape, as ``layout`` in
-    ``csrc/fused_decode_fwd.cu`` computes it for the shape's width class
-    (``k1_width_class``). At ``WG_N``: X, Y (which also stages a latent group's
-    invariants), acc, the ``cp.async`` ring and two split A chunks, then one latent group's
-    logits and the online softmax's running max, sum and factor. Narrow (class ``wn``): X
-    and Y of ``ZG<wn>`` latents' rows at a stride of ``wn`` + 4, acc, the four shared
-    weights resident (``RES<wn>``) or a ring of ``STAGES`` of their blocks, the softmax's
-    state and the group's A. It does not depend on ``Z``. The bf16 program
-    (``compute_dtype=torch.bfloat16``, ``fused_decode_fwd_bf16.cu``) keeps no split A chunks and
-    no online softmax state but every latent's logits ([Z][TILE][H]: it grows with ``Z``), and
-    its shared weights are bf16 blocks of 8 ``wn`` floats a chunk. Raises ``ValueError`` for a
-    shape that ``layout`` refuses: widths it does not take, or more than ``SMEM_CAP`` bytes."""
+def _k1_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
+               compute_dtype: torch.dtype = torch.float32) -> Tuple[int, bool]:
+    """``k1_smem_bytes`` and whether the bf16 program keeps the logits in global memory."""
     bf = _check_dtype(compute_dtype) == torch.bfloat16
     k = k1_constants(compute_dtype)
     tile, zg, kc = k["TILE"], k["ZG"], k["KC"]
@@ -598,24 +588,57 @@ def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
 
     ld_p, ld_w = stride(H * hidm), stride(max(H * D, hid))
     wn = k1_width_class(hid, hidm, D)
-    # The softmax's shared floats: the f32 program's group logits, running max, sum and factor,
-    # or every latent's logits in the bf16 program.
+    # The softmax's shared floats: the f32 program's group logits, running max, sum and factor;
+    # the bf16 program's every latent's logits, where they fit (`place_logits`).
     if wn == k["WG_N"]:
         ld_x = stride(hid)
         n_y = max(zg * tile * ld_x, 2 * tile * ld_p, tile * ld_w)
-        n_sm = Z * tile * H if bf else (zg + 3) * tile * H
+        n_sm = 0 if bf else (zg + 3) * tile * H
         smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + n_sm)
     else:
         zg = k[f"ZG{wn}"]
+        n_sm = 0 if bf else (zg + 3) * tile * H
         rows, ld_x = zg * tile, wn + 4
         n_y = max(rows * ld_x, 2 * tile * ld_p, tile * ld_w)
         block = 8 * wn if bf else 32 * wn  # floats of a shared weight's 16-deep chunk
         n_w = (3 * hid + hidm) // kc * block if k[f"RES{wn}"] else k["STAGES"] * block
-        n_sm = Z * tile * H if bf else (zg + 3) * tile * H
         smem = 4 * (rows * ld_x + n_y + tile * ld_w + n_w + n_sm + zg * hid * H)
+    logits_global = bf and smem + 4 * Z * tile * H > k["SMEM_CAP"]
+    if bf and not logits_global:
+        smem += 4 * Z * tile * H
     if smem > k["SMEM_CAP"]:
         raise ValueError(f"K1 would need {smem} B of shared memory, more than {k['SMEM_CAP']}")
-    return smem
+    return smem, logits_global
+
+
+def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
+                  compute_dtype: torch.dtype = torch.float32) -> int:
+    """K1's dynamic shared memory in bytes for a decode shape, as ``layout`` in
+    ``csrc/fused_decode_fwd.cu`` computes it for the shape's width class
+    (``k1_width_class``). At ``WG_N``: X, Y (which also stages a latent group's
+    invariants), acc, the ``cp.async`` ring and two split A chunks, then one latent group's
+    logits and the online softmax's running max, sum and factor. Narrow (class ``wn``): X
+    and Y of ``ZG<wn>`` latents' rows at a stride of ``wn`` + 4, acc, the four shared
+    weights resident (``RES<wn>``) or a ring of ``STAGES`` of their blocks, the softmax's
+    state and the group's A. The f32 program's does not depend on ``Z``. The bf16 program
+    (``compute_dtype=torch.bfloat16``, ``fused_decode_fwd_bf16.cu``) keeps no split A chunks and
+    no online softmax state but every latent's logits ([Z][TILE][H]) where they fit beside the
+    rest, else (Z > 52 at NS width) in a workspace in global memory (``k1_logits_floats``), so
+    that its layout too takes every ``Z``; its shared weights are bf16 blocks of 8 ``wn`` floats
+    a chunk. Raises ``ValueError`` for a shape that ``layout`` refuses: widths it does not take,
+    or more than ``SMEM_CAP`` bytes."""
+    return _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[0]
+
+
+def k1_logits_floats(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, hidm: int,
+                     compute_dtype: torch.dtype = torch.float32) -> int:
+    """Floats of the global-memory logits workspace a K1 launch needs: 0 for the f32 program and
+    for a bf16 launch whose logits fit shared memory, else ``[B][ceil(C / TILE)][Z][TILE][H]``
+    (``layout``'s ``place_logits``)."""
+    if not _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[1]:
+        return 0
+    tile = k1_constants(compute_dtype)["TILE"]
+    return B * -(-C // tile) * Z * tile * H
 
 
 def k1_library_smem_bytes(dims: Sequence[int], compute_dtype: torch.dtype = torch.float32) -> int:
@@ -661,8 +684,8 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=
     dev = inv.device
     bf = _check_dtype(compute_dtype) == torch.bfloat16
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
-    if bf:  # the bf16 program's layout grows with Z: refuse on the host what it cannot take
-        k1_smem_bytes(Z, I, hid, H, D, hidm, compute_dtype)
+    # The bf16 program's logits workspace, where they do not fit shared memory.
+    n_lg = k1_logits_floats(B, Z, C, I, hid, H, D, hidm, compute_dtype) if bf else 0
     if split is None:
         split = shared_weights(ws, compute_dtype, width)
     _check_split(split, ws, dev, width, compute_dtype)
@@ -677,6 +700,9 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=
     ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G.data_ptr(),
             c.data_ptr(), *[w.data_ptr() for w in ws], *tail_ptrs, out.data_ptr(),
             *[w.data_ptr() for w in split]]
+    if n_lg:
+        logits = torch.empty(n_lg, device=dev, dtype=torch.float32)
+        ptrs.append(logits.data_ptr())
     dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -687,7 +713,6 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=
         msg = lib.fused_decode_fwd_error_string(rc).decode()
         raise RuntimeError(f"fused_decode_fwd launch failed for dims {dims}: {msg} (cudaError {rc})")
     fused_decode_fwd.launches += 1
-    fused_decode_fwd.launches_by_shape[(B, Z, C)] += 1
     fused_decode_fwd.launches_by_program[(compute_dtype, B, Z, C, I)] += 1
     return out
 
@@ -707,8 +732,8 @@ def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
 
     On CPU tensors this is ``fused_decode_plain`` at ``compute_dtype`` (``split`` is not
     read); on CUDA tensors it launches that program on the current stream (counted in
-    ``fused_decode_fwd.launches``, by ``(b, z, c)`` in ``launches_by_shape`` and by
-    ``(compute_dtype, b, z, c, I)`` in ``launches_by_program``) or raises. Returns
+    ``fused_decode_fwd.launches`` and by ``(compute_dtype, b, z, c, I)`` in
+    ``launches_by_program``) or raises. Returns
     [b, c, num_out] with tail weights, else [b, c, H*D].
     """
     if inv.device.type == "cpu":
@@ -719,7 +744,6 @@ def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
 
 
 fused_decode_fwd.launches = 0
-fused_decode_fwd.launches_by_shape = collections.Counter()
 fused_decode_fwd.launches_by_program = collections.Counter()
 
 
@@ -923,7 +947,6 @@ def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
         msg = lib.fused_decode_bwd_error_string(rc).decode()
         raise RuntimeError(f"fused_decode_bwd launch failed: {msg} (cudaError {rc})")
     fused_decode_bwd.launches += 1
-    fused_decode_bwd.launches_by_shape[(B, Z, C, bool(weight_grads))] += 1
     fused_decode_bwd.launches_by_program[(compute_dtype, B, Z, C, I, bool(weight_grads))] += 1
 
     # Split the flat buffer: dA, dab, dG, dc, then the trained weights in order.
@@ -955,9 +978,8 @@ def fused_decode_bwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
     program (``fused_decode_bwd.cu``, or ``fused_decode_bwd_bf16.cu`` for bf16).
 
     On CPU tensors this is ``fused_decode_bwd_plain``; on CUDA tensors it launches
-    the kernel on the current stream (counted in ``fused_decode_bwd.launches``, by
-    ``(b, z, c, weight_grads)`` in ``launches_by_shape`` and by ``(compute_dtype, b, z, c, I,
-    weight_grads)`` in ``launches_by_program``) or raises.
+    the kernel on the current stream (counted in ``fused_decode_bwd.launches`` and by
+    ``(compute_dtype, b, z, c, I, weight_grads)`` in ``launches_by_program``) or raises.
     """
     if inv.device.type == "cpu":
         return fused_decode_bwd_plain(inv, wb, A, ab, G, c, ws, tws, g, num_heads, head_dim,
@@ -969,7 +991,6 @@ def fused_decode_bwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
 
 
 fused_decode_bwd.launches = 0
-fused_decode_bwd.launches_by_shape = collections.Counter()
 fused_decode_bwd.launches_by_program = collections.Counter()
 
 

@@ -34,7 +34,7 @@ from enf_pde_tpu_torch.builders import decoder_backend, resolve_backend
 from enf_pde_tpu_torch.models.decoder import KERNEL_BACKENDS, kernel_compute_dtype
 from enf_pde_tpu_torch.ops import cuda_lib
 from enf_pde_tpu_torch.ops import fused_decode as fd
-from tests.test_torch_fused_decode import jax_fused_inputs
+from tests.test_torch_fused_decode import jax_fused_inputs, program_text
 from tests.test_torch_fused_decode_bwd import port_args
 from tests.test_torch_modules import B, D, H, N, decoder_pair, t
 
@@ -43,6 +43,7 @@ torch.set_num_threads(1)
 # The gates (see the module's docstring).
 NEAR, LO, HI = 0.35, 0.9, 1.1
 BF16 = torch.bfloat16
+
 
 
 def rel(a, b) -> float:
@@ -175,7 +176,9 @@ def test_backends_map_as_the_jax_decoder_maps_them(pair):
 
 def test_bf16_weights_layout_and_wrapper_checks(pair, monkeypatch):
     """K1's bf16 blocks: every shared weight rounded to bf16 at [kc, s, ng, kg, r, i] = W[16 kc +
-    8 kg + i, wn s + 8 ng + r], zero past N; the wrapper refuses a split of the other program."""
+    8 kg + i, wn s + 8 ng + r], zero past N; the wrapper refuses a split of the other program;
+    past the latents whose logits fit shared memory the logits go to a global workspace, and the
+    wrapper takes the launch to the build rather than refusing it."""
     gen = torch.Generator().manual_seed(3)
     for wn, (hid, hidm, D_) in {16: (16, 16, 8), 32: (32, 16, 32), 64: (48, 64, 40), 128: (32, 16, 136)}.items():
         shapes = ((4, hid // 2), (hid, hid), (hid,), (4, hid // 2), (hid, hid), (hid,), (hid, hid), (hid,),
@@ -200,15 +203,27 @@ def test_bf16_weights_layout_and_wrapper_checks(pair, monkeypatch):
     with pytest.raises((ValueError, TypeError), match="split q_w1"):
         fd._launch(*args, H, D, split=fd.shared_weights(args[6]), compute_dtype=BF16)
     assert [v.dtype for v in fd.shared_weights(args[6], BF16)] == [BF16] * 4
-    # The bf16 layout grows with Z (every latent's logits): the host refuses what it cannot take.
-    assert fd.k1_smem_bytes(52, 4, 128, 2, 128, 128, BF16) <= 232_448
-    with pytest.raises(ValueError, match="shared memory"):
-        fd.k1_smem_bytes(53, 4, 128, 2, 128, 128, BF16)
+    # Every latent's logits in shared memory up to z = 52 at NS width, past it in global memory.
+    assert fd.k1_smem_bytes(52, 4, 128, 2, 128, 128, BF16) == 232_448
+    assert fd.k1_logits_floats(160, 52, 512, 4, 128, 2, 128, 128, BF16) == 0
+    assert fd.k1_smem_bytes(53, 4, 128, 2, 128, 128, BF16) == 219_136 == fd.k1_smem_bytes(1000, 4, 128, 2, 128, 128, BF16)
+    assert fd.k1_logits_floats(160, 53, 512, 4, 128, 2, 128, 128, BF16) == 160 * 16 * 53 * 32 * 2
+    assert fd.k1_logits_floats(160, 1000, 512, 4, 128, 2, 128, 128) == 0  # the f32 program takes none
     big = 700  # latents: past the class 32's shared memory at this test's widths
     rep = lambda x: x[:, :1].expand(-1, big, *x.shape[2:]).contiguous()  # noqa: E731
     inv, wb, A, ab, G, c, ws, tws = args
-    monkeypatch.setattr(cuda_lib, "build", lambda *a: pytest.fail("a refused shape reached the build"))
-    with pytest.raises(ValueError, match="shared memory"):
+    hid, hidm = ws[fd.WEIGHT_NAMES.index("q_w1")].shape[1], ws[fd.WEIGHT_NAMES.index("m_w2")].shape[0]
+    assert fd.k1_width_class(hid, hidm, D) == 32
+    assert fd.k1_logits_floats(inv.shape[0], big, inv.shape[2], inv.shape[3], hid, H, D, hidm, BF16) > 0
+
+    class Built(Exception):
+        pass
+
+    def build(*_):
+        raise Built
+
+    monkeypatch.setattr(cuda_lib, "build", build)
+    with pytest.raises(Built):
         fd._launch(rep(inv), rep(wb), rep(A), rep(ab), rep(G), rep(c), ws, tws, H, D, compute_dtype=BF16)
 
 
@@ -224,7 +239,7 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     assert "__fmul_rn" in header and "rintf(p)" in header  # fast_sincos: no contraction, round half even
     k1 = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16).read_text()
     k2 = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE_BF16).read_text()
-    for src in (k1, k2):
+    for src in (k1, k2):  # each program's own source; the headers it shares with the f32 program below
         assert '#include "bf16_mma.cuh"' in src
         assert "tf32.tf32" not in src and "wgmma_tf32" not in src and "mma_3xtf32" not in src
         assert "fast_sincos(" in src and "sincosf" not in src
@@ -237,5 +252,15 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     assert gemm.count("wgmma_bf16<WN>(") == 10 and gemm.count("split3_bf16(") == 3  # B two values a call, A one pair
     assert "static_assert((AP == 1 || AP == 3) && (BP == 1 || BP == 3)" in gemm
     assert k2.count("__global__") == 3
+    # The headers shared with the f32 program multiply through the program's own hooks: the
+    # operand rounding (`operand`: bf16_round here) and the RFF sin / cos (`rff_sincos`).
+    for src, source in ((k1, fd.KERNEL_SOURCE_BF16), (k2, fd.BWD_KERNEL_SOURCE_BF16)):
+        assert "float operand(float x) { return bf16_round(x); }" in src
+        assert "void rff_sincos(float proj, float* s, float* c) { fast_sincos(proj, s, c); }" in src
+        shared = program_text(source).replace(src, "")
+        assert "tf32.tf32" not in shared and "bf16_round(" not in shared and "rff_sincos(proj" in shared
+        for banned in ("wmma", "cutlass", "cublas", "torch/extension.h", "atomic"):
+            assert banned not in shared.lower()
     names = [p.name for p in cuda_lib.included_files(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16)]
-    assert names == [fd.KERNEL_SOURCE_BF16, "bf16_mma.cuh", "tf32_mma.cuh"]
+    assert names == [fd.KERNEL_SOURCE_BF16, "fused_decode_fwd_common.cuh", "bf16_mma.cuh", "fused_decode_fwd_host.cuh",
+                     "tf32_mma.cuh"]

@@ -140,13 +140,14 @@ def test_decode_splits_the_shared_weights_once(pair, monkeypatch):
     traj = fc.rollout(fc.fit(frames, masks=masks), 2)
     splits, seen = [], []
     # The decode driver both trainers share, ``models.decoder.decode_trajectories``.
-    split_weights, fwd = decoder_module.split_weights, decoder_module.fused_decode_fwd
-    monkeypatch.setattr(decoder_module, "split_weights", lambda ws: splits.append(split_weights(ws)) or splits[-1])
+    shared_weights, fwd = decoder_module.shared_weights, decoder_module.fused_decode_fwd
+    monkeypatch.setattr(decoder_module, "shared_weights",
+                        lambda ws, dtype: splits.append(shared_weights(ws, dtype)) or splits[-1])
     monkeypatch.setattr(decoder_module, "fused_decode_fwd",
                         lambda *args, split=None, **kw: seen.append(split) or fwd(*args, split=split, **kw))
     got = fc.decode(traj, chunk_size=48)  # 6 chunks, the last one ragged
     assert got.shape == (BATCH, 2, SIZE * SIZE, 1)
-    assert len(splits) == 1 and len(seen) == 6 and all(s is splits[0][1] for s in seen)
+    assert len(splits) == 1 and len(seen) == 6 and all(s is splits[0] for s in seen)
 
 
 def test_random_init_is_seeded():

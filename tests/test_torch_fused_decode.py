@@ -45,6 +45,13 @@ from tests.test_torch_modules import (
 torch.set_num_threads(1)
 
 
+def program_text(source: str) -> str:
+    """A kernel program's text: its source and the fused-decode headers it includes (the parts
+    that a kernel's two programs share), not the product helpers (tf32_mma.cuh, bf16_mma.cuh)."""
+    return "\n".join(p.read_text() for p in cuda_lib.included_files(cuda_lib.CSRC_DIR / source)
+                     if p.name.startswith("fused_decode"))
+
+
 def jax_fused_inputs(jdec, params, x, p, a, sigma, with_tail=True):
     """The JAX decoder's folded kernel inputs, built as ``_call_pallas_full`` builds them."""
     bound = jdec.bind(params)
@@ -145,10 +152,10 @@ def test_wrapper_runs_plain_on_cpu_without_counting(pair):
     _, _, dec, (x, p, a, sigma) = pair
     with torch.no_grad():
         args = dec.kernel_inputs(t(x), t(p), t(a), t(sigma))
-    before = fd.fused_decode_fwd.launches, dict(fd.fused_decode_fwd.launches_by_shape)
+    before = fd.fused_decode_fwd.launches, dict(fd.fused_decode_fwd.launches_by_program)
     got = fd.fused_decode_fwd(*args, num_heads=H, head_dim=D)
     assert torch.equal(got, fd.fused_decode_plain(*args, num_heads=H, head_dim=D))
-    assert (fd.fused_decode_fwd.launches, dict(fd.fused_decode_fwd.launches_by_shape)) == before
+    assert (fd.fused_decode_fwd.launches, dict(fd.fused_decode_fwd.launches_by_program)) == before
 
 
 def test_launch_checks_inputs_and_needs_nvcc(pair, monkeypatch, tmp_path):
@@ -198,7 +205,7 @@ def test_launch_refuses_weights_cp_async_cannot_stage(pair):
             fd._launch(inv, wb, A, ab, G, c, ws, tws, H, D, split=bad)
     with pytest.raises(ValueError, match="split m_w2 has shape"):
         fd._launch(inv, wb, A, ab, G, c, ws, tws, H, D, split=(*split[:3], split[3].reshape(-1)))
-    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    src = program_text(fd.KERNEL_SOURCE)
     staged = re.search(r"const float\* staged\[\] = \{([^}]*)\};", src).group(1)
     names = [n.strip().removeprefix("P.") for n in staged.split(",")]
     assert names == ["G", *(f"{n}s" for n in fd.SPLIT_WEIGHT_NAMES), "o_w", "p_w1", "p_w2", "h_w1", "h_w2"]
@@ -209,7 +216,7 @@ def test_launch_refuses_weights_cp_async_cannot_stage(pair):
 
 def test_kernel_source_matches_the_binding():
     """What the ctypes binding passes is what the C launcher unpacks (no nvcc here)."""
-    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    src = program_text(fd.KERNEL_SOURCE)
     n_ptrs = int(re.search(r"kNumPtrs = (\d+);", src).group(1))
     n_dims = int(re.search(r"kNumDims = (\d+);", src).group(1))
     # inputs, folded weights, tail weights, out, then the pre-split shared weights
@@ -229,7 +236,7 @@ def test_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
     class 128 stages every weight by cp.async in a ring of at least two stages, the narrow
     classes keep the shared weights resident (or in a ring of narrow blocks) and load G and
     the tail's B fragments into registers a k step ahead; no library GEMM."""
-    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    src = program_text(fd.KERNEL_SOURCE)
     header = (cuda_lib.CSRC_DIR / "tf32_mma.cuh").read_text()
     assert '#include "tf32_mma.cuh"' in src
     assert "mma.sync.aligned" not in src and "cvt.rna" not in src  # only through the shared helper
@@ -326,7 +333,7 @@ def test_split_weights_reconstruct_and_match_the_launcher(wn):
     assert off == buf.numel()
     one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23, 3.0])
     assert fd._tf32(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0]
-    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()
+    src = program_text(fd.KERNEL_SOURCE)
     first = 6 + len(fd.WEIGHT_NAMES) + len(fd.TAIL_WEIGHT_NAMES) + 1
     for i, name in enumerate(fd.SPLIT_WEIGHT_NAMES):
         assert re.search(rf"P\.{name}s = f\[{first + i}\];", src), name
@@ -349,15 +356,19 @@ def test_build_key_covers_included_headers(tmp_path):
     src = tmp_path / "k.cu"
     src.write_text('#include <cuda_runtime.h>\n#include "outer.cuh"\nint x;\n')
     assert [p.name for p in cuda_lib.included_files(src)] == ["k.cu", "outer.cuh", "inner.cuh"]
+    # One translation unit, each header once in its include's place (what the layout mirrors read).
+    text = cuda_lib.expanded_source(src)
+    assert text.count("// inner") == 1 and '#include "' not in text and "pragma once" not in text
+    assert text.index("// inner") < text.index("int x;")
     keys = {cuda_lib.build_key(src)}
     (tmp_path / "inner.cuh").write_text("// inner, edited\n")
     keys.add(cuda_lib.build_key(src))
     (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n// edited\n')
     keys.add(cuda_lib.build_key(src))
     assert len(keys) == 3
-    for source in (fd.KERNEL_SOURCE, fd.BWD_KERNEL_SOURCE):
+    for source, shared in ((fd.KERNEL_SOURCE, "fused_decode_fwd"), (fd.BWD_KERNEL_SOURCE, "fused_decode_bwd")):
         names = [p.name for p in cuda_lib.included_files(cuda_lib.CSRC_DIR / source)]
-        assert names == [source, "tf32_mma.cuh"]
+        assert names == [source, f"{shared}_common.cuh", "tf32_mma.cuh", f"{shared}_host.cuh"]
 
 
 def test_flop_count_at_navier_stokes_width():
@@ -391,7 +402,9 @@ def test_k1_layout_accepts_every_shipped_decode_shape(name, dtype):
     The ablation runs add I = 2 and I = 1 at Navier-Stokes width. Each config takes its
     width class (``k1_width_class``); a narrow class leaves room for its blocks an SM. The
     bf16 program (``fused_decode_fwd_bf16.cu``) holds every latent's logits, 4 TILE H bytes a
-    latent, and its shared weights in bf16: less than the f32 program's at each config's Z."""
+    latent, and its shared weights in bf16: less than the f32 program's at each config's Z.
+    Where the logits do not fit beside the rest they go to a global workspace
+    (``k1_logits_floats``), so the bf16 layout takes every Z that the f32 one takes."""
     name, *overrides = name.split()
     nef = jax_load_config(name, overrides).nef
     I, hid, H = jax_get_ca_invariant(nef).dim, nef.num_hidden, nef.num_heads
@@ -406,6 +419,10 @@ def test_k1_layout_accepts_every_shipped_decode_shape(name, dtype):
         tile = fd.k1_constants(dtype)["TILE"]
         assert fd.k1_smem_bytes(nef.num_latents + 1, I, hid, H, hid, hid, dtype) - smem == 4 * tile * H
         assert smem < fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
+        assert fd.k1_logits_floats(2, nef.num_latents, 100, I, hid, H, hid, hid, dtype) == 0
+        for z in (1, 4, 5, 8, 9, 16, 25, 64, 1000):
+            assert 0 < fd.k1_smem_bytes(z, I, hid, H, hid, hid, dtype) <= smem + 4 * tile * H * max(0, z - nef.num_latents)
+        assert fd.k1_logits_floats(2, 1000, 100, I, hid, H, hid, hid, dtype) == 2 * 4 * 1000 * tile * H
     if wn < fd.WG_N:  # an SM has 233,472 B, 1,024 B of it kept back per block
         assert fd.k1_constants(dtype)[f"MINB{wn}"] * (smem + 1024) <= 233_472
 
@@ -413,6 +430,9 @@ def test_k1_layout_accepts_every_shipped_decode_shape(name, dtype):
 def test_k1_layout_mirror_refuses_what_layout_refuses():
     assert fd.k1_smem_bytes(8, 4, 128, 2, 128, 128) == 231_168  # shallow_water: z = 8 at NS width
     assert "231,168 B" in (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()  # the header's table
+    # The narrow classes' table (diff_sphere, ihc, the planar configs): each class's own group size.
+    assert (fd.k1_smem_bytes(18, 1, 16, 2, 16, 16), fd.k1_smem_bytes(25, 5, 32, 3, 32, 32),
+            fd.k1_smem_bytes(4, 2, 64, 2, 64, 64)) == (57_600, 93_824, 114_944)
     for bad in ((4, 4, 136, 2, 128, 128), (4, 4, 120, 2, 128, 128), (4, 4, 128, 3, 128, 128),
                 (4, 4, 128, 1, 128, 272), (0, 4, 128, 2, 128, 128), (4, 21, 16, 2, 16, 16)):
         with pytest.raises(ValueError):

@@ -27,7 +27,7 @@ from enf_pde_tpu.ops import pallas_decode as jpd
 
 from enf_pde_tpu_torch.ops import cuda_lib
 from enf_pde_tpu_torch.ops import fused_decode as fd
-from tests.test_torch_fused_decode import ABLATION_RUNS, SHIPPED_CONFIGS, jax_fused_inputs
+from tests.test_torch_fused_decode import ABLATION_RUNS, SHIPPED_CONFIGS, jax_fused_inputs, program_text
 from tests.test_torch_modules import B, D, H, N, Z, assert_close, decoder_pair, t
 
 torch.set_num_threads(1)
@@ -147,13 +147,13 @@ def test_bwd_wrapper_runs_plain_on_cpu_without_counting(pair):
     with torch.no_grad():
         args = dec.kernel_inputs(t(x), t(p), t(a), t(sigma))
     g = torch.ones(B, N, 1)
-    before = fd.fused_decode_bwd.launches, dict(fd.fused_decode_bwd.launches_by_shape)
+    before = fd.fused_decode_bwd.launches, dict(fd.fused_decode_bwd.launches_by_program)
     got = fd.fused_decode_bwd(*args, g, H, D, weight_grads=False)
     want = fd.fused_decode_bwd_plain(*args, g, H, D, weight_grads=False)
     for gv, wv in zip(got[:6], want[:6]):
         assert torch.equal(gv, wv)
     assert all(w is None for w in (*got[6], *got[7]))
-    assert (fd.fused_decode_bwd.launches, dict(fd.fused_decode_bwd.launches_by_shape)) == before
+    assert (fd.fused_decode_bwd.launches, dict(fd.fused_decode_bwd.launches_by_program)) == before
     assert got[0].shape == (B, Z, N, 4) and got[1].shape == (B, Z, N)
 
 
@@ -179,7 +179,7 @@ def test_bwd_launch_checks_inputs_and_needs_nvcc(pair, monkeypatch, tmp_path):
 
 def test_bwd_kernel_source_matches_the_binding():
     """What the ctypes binding passes is what the C launcher unpacks (no nvcc here)."""
-    src = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE).read_text()
+    src = program_text(fd.BWD_KERNEL_SOURCE)
     n_ptrs = int(re.search(r"kNumPtrs = (\d+);", src).group(1))
     n_dims = int(re.search(r"kNumDims = (\d+);", src).group(1))
     # inputs, weights, tail weights, g, then dinv, dwb, reduced output, workspace, partials
@@ -202,7 +202,7 @@ def test_bwd_kernel_products_run_on_the_tensor_cores_at_f32_accuracy():
     wgmma go into a fresh accumulator (the first does not accumulate) that is added into an f32
     register sum; a persistent grid sized by occupancy; partials reduced in a fixed order with no
     float atomics; no mma.sync, WMMA, CUTLASS or cuBLAS."""
-    src = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE).read_text()
+    src = program_text(fd.BWD_KERNEL_SOURCE)
     assert '#include "tf32_mma.cuh"' in src
     for n in (8, 16, 32, 64):
         assert src.count(f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32") == 1, n

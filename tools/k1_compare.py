@@ -78,7 +78,7 @@ SKIPS = {
     "tail": [("  if (WITH_TAIL) {", "  if (WITH_TAIL && P.B < 0) {", 0)],
     "normalize": [("  for (int base = SPW * warp; base < n_seg;", "  for (int base = SPW * warp; base < n_seg && ldx < 0;", 0)],
     "dots": [("  for (int o = warp; o < count; o += WARPS) {", "  for (int o = warp; o < count && K < 0; o += WARPS) {", 0)],
-    "rff": [("    sincosf(TWO_PI * proj, &s, &co);", "    s = proj; co = 1.0f - proj;", 0)],
+    "rff": [("    rff_sincos(proj, &s, &co);", "    s = proj; co = 1.0f - proj;", 0)],
     # The online softmax: its per-group update of max, sum and weights; the rescale of acc.
     "online": [("    if (softmax) online_softmax(z0, nz);", "", 0)],
     "rescale": [("    if (softmax && z0 > 0)", "    if (softmax && z0 < 0)", 0)],
@@ -124,7 +124,7 @@ VARIANTS = {
 
 def edited_source(label: str, edits: list) -> tuple:
     """(label, path) of a copy of the current K1 source under csrc/_build/ with ``edits``."""
-    src = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text().replace('#include "', '#include "../')
+    src = cuda_lib.expanded_source(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE)
     for text, repl, which in edits:
         parts = src.split(text)
         if len(parts) <= which + 1:
@@ -207,12 +207,12 @@ def compare_shape(shape: str, opts, kernels: dict, widths: dict, sources: dict, 
         order = ["plain", *olds, *extra, *news, *news[::-1], *extra[::-1], *olds[::-1], "plain"]
         for label in list(inputs)[:2]:
             args = inputs[label]
-            splits = {w: fd.split_weights(args[6], w)[1] for w in set(widths.values())}  # once, as the forecast decode splits
+            splits = {w: fd.shared_weights(args[6], width=w) for w in set(widths.values())}  # once, as the forecast decode splits
             fns = {name: partial(k1, *args, H, D, split=splits[widths[name]]) for name, k1 in kernels.items()
                    if name != "new16"}
             fns["plain"] = partial(fd.fused_decode_plain, *args, H, D)
             if bf:
-                fns["new16"] = partial(kernels["new16"], *args, H, D, split=fd.bf16_weights(args[6])[1])
+                fns["new16"] = partial(kernels["new16"], *args, H, D, split=fd.shared_weights(args[6], torch.bfloat16))
             samples = {name: [] for name in fns}
             for name in order:
                 iters = 5 if name == "plain" else opts.iters

@@ -66,6 +66,7 @@ SHAPES = {
 }
 
 _ALL = -1  # an edit's occurrence: every one
+_ANY = -2  # every one, and none is no error (a part that an older source does not have)
 # Phase -> edits (text of the source, its replacement, which occurrence or _ALL); each
 # leaves that phase out of a build. The PR 17 build (3xTF32 mma.sync on 32-row tiles,
 # per-block partials of 1,280 blocks; ``--skip-base`` its source):
@@ -117,10 +118,12 @@ SKIPS = {
                ("  for (int idx = threadIdx.x; idx < TILE * HH; idx += THREADS) {",
                 "  for (int idx = threadIdx.x; idx < TILE * HH && HH < 0; idx += THREADS) {", 0)],
     # sin and cos of the RFF features and their VJPs
-    "sincos": [("sincosf(TWO_PI * proj, &s, &co);", "s = proj; co = 1.0f - proj;", _ALL)],
+    "sincos": [("sincosf(TWO_PI * proj, &s, &co);", "s = proj; co = 1.0f - proj;", _ALL),
+               ("sincosf(TWO_PI * proj, s, c);", "*s = proj; *c = 1.0f - proj;", _ANY)],
     # the CUDA-core dot products: logits, dA, bias and dc column sums
-    "dots": [("    for (int k = 0; k < hid; ++k) s = fmaf(hq[t * ldh + k], __ldg(Az + k * H + h), s);", "", 0),
-             ("    for (int t = 0; t < TILE; ++t) s = fmaf(hq[t * ldh + k], dlog[t * H + h], s);", "", 0),
+    "dots": [("    for (int k = 0; k < hid; ++k) s = fmaf(operand(hq[t * ldh + k]), operand(__ldg(Az + k * H + h)), s);",
+              "", 0),
+             ("    for (int t = 0; t < TILE; ++t) s = fmaf(operand(hq[t * ldh + k]), dlog[t * H + h], s);", "", 0),
              ("      for (int h = n; h < width; h += fold) s += dY[t * ld + h];", "", 0)],
 }
 # Other designs of the current source, right and timed beside it: a ring of two chunk buffers at
@@ -136,9 +139,12 @@ VARIANTS = {
 
 def edited_source(label: str, base: Path, edits: list) -> tuple:
     """(label, path) of a copy of ``base`` under csrc/_build/ with ``edits``."""
-    src = base.read_text().replace('#include "tf32_mma.cuh"', f'#include "{cuda_lib.CSRC_DIR / "tf32_mma.cuh"}"')
+    src = cuda_lib.expanded_source(base)
     for text, repl, which in edits:
         parts = src.split(text)
+        if which == _ANY:
+            src = repl.join(parts)
+            continue
         if len(parts) <= max(which, 0) + 1:
             raise SystemExit(f"k2_compare: {label}: {text.strip()!r} is not in {base}")
         if which == _ALL:
