@@ -356,9 +356,11 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fused_decode_fwd,
     fused_decode_plain,
     k1_constants,
+    k1_library_plan,
     k1_library_smem_bytes,
     k1_logits_floats,
     k1_occupancy,
+    k1_operands,
     k1_smem_bytes,
     k1_width_class,
     k2_occupancy,
@@ -677,6 +679,19 @@ def k1_l2_bytes_per_point(args, tile: int = 32) -> float:
     per_latent = args[4][0, 0].numel() + args[2][0, 0].numel()
     tail = sum(t.numel() for t in tws if t.dim() == 2)
     return (8 * split + 4 * (Z * per_latent + tail)) / tile
+
+
+def k1_bf16_l2_bytes_per_point(args, tile: int) -> float:
+    """Weight bytes the bf16 program's class 128 streams from L2 per work item of ``tile`` points, per
+    point: each latent's q_w1, v_w1, fw (bf16, 128-column slabs) and its G (a 128-column slab a head), A
+    and c (f32); the tail's blocked weights once (the two warpgroups split their columns); m_w2 none
+    (resident in a persistent block)."""
+    inv, ws, tws = args[0], args[6], args[7]
+    Z, (hid, H), hidm = inv.shape[1], args[2].shape[2:], ws[8].shape[0]
+    slab = 2 * 128  # bytes of a bf16 row of a 128-column slab
+    per_latent = 3 * hid * slab + H * hid * slab + 4 * (hid * H + H * hidm)
+    tail = sum(t.shape[0] * -(-t.shape[1] // 128) * slab for t in tws[0:10:2]) + 4 * tws[10].numel() if tws else 0
+    return (Z * per_latent + tail) / tile
 
 
 def k1_bounds(cfg, args, out) -> dict:
@@ -2743,7 +2758,7 @@ def k1_bf16_check(cfg, args, label: str, witness: bool = False) -> dict:
     lib_smem = k1_library_smem_bytes([B, Z, C, I, hid, H, D, hidm, cfg.nef.num_out, 1], BF16)
     if lib_smem != smem:
         raise AssertionError(f"K1 bf16 {label}: k1_smem_bytes {smem} != the library's layout {lib_smem}")
-    n_lg = k1_logits_floats(B, Z, C, I, hid, H, D, hidm, BF16)
+    n_lg = k1_logits_floats(B, Z, C, I, hid, H, D, hidm, BF16, torch.cuda.get_device_properties(0).multi_processor_count)
     errs = []
     with torch.no_grad():
         for tail in (True, False):
@@ -2759,17 +2774,21 @@ def k1_bf16_check(cfg, args, label: str, witness: bool = False) -> dict:
             p16 = fused_decode_plain(*kargs, num_heads=H, head_dim=D, compute_dtype=BF16)
             p32 = fused_decode_plain(*kargs, num_heads=H, head_dim=D)
             errs.append(bf16_gates(tag, got, p16, p32, absolute=True))
-        w16, w32 = shared_weights(args[6], BF16), shared_weights(args[6])
+        w16, w32 = k1_operands(args[4], args[6], args[7], H, BF16), shared_weights(args[6])  # once, as a decode
         ms16 = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=w16, compute_dtype=BF16), iters=10)
         ms32 = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=w32), iters=10)
         p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D, compute_dtype=BF16), iters=3, warmup=1)
         bd = k1_bounds(cfg, args, got)
     bound = bf16_bound(bd["flops"], bd["moved"])
+    plan = k1_library_plan([B, Z, C, I, hid, H, D, hidm, cfg.nef.num_out, 1], KERNEL_SOURCE_BF16)
+    l2 = k1_bf16_l2_bytes_per_point(args, plan["tile"]) if plan["cls"] == 128 else bd["l2_per_point"]
     log(f"[timing] K1 bf16 {label}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
         f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bf16 tensor cores {bd['flops'] / PEAK_BF16_FLOPS * 1e3:.4f} "
         f"ms, bytes {bd['bytes_ms']:.4f} ms; the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} ms); "
         f"{ms16 / bound['bound_ms']:.1f}x its bound; shared memory {smem} B (the library's layout agrees), the "
-        f"logits in {f'global memory ({4 * n_lg / 1e6:.1f} MB)' if n_lg else 'shared memory'}")
+        f"logits in {f'global memory ({4 * n_lg / 1e6:.1f} MB)' if n_lg else 'shared memory'}; width class "
+        f"{plan['cls']}, tile {plan['tile']}, {plan['per_sm']} blocks an SM, grid {plan['grid']}, L2 weight bytes "
+        f"per point {l2 / 1e3:.1f} KB")
     return dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=max(e["max_abs_err"] for e in errs), **bound)
 
 
@@ -3200,8 +3219,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for src, lib_path in zip(sources, lib_paths):
         ptxas = lib_path.with_name(lib_path.name.replace(".so", ".ptxas.txt"))
+        # Registers and spills of every instantiation, and any wgmma that ptxas serialized (C7510, C7520).
         report = [ln.strip() for ln in ptxas.read_text().splitlines()
-                  if "registers" in ln or "spill" in ln] if ptxas.exists() else []
+                  if any(w in ln for w in ("Used ", "spill", "C7510", "C7520"))] if ptxas.exists() else []
         log(f"[build] {src} with nvcc -> {lib_path.name}")
         for ln in report:
             log(f"[build] ptxas: {ln}")

@@ -106,6 +106,26 @@ __device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a, uint64_t
   }
 }
 
+// D (64 x 64, f32, this thread's 32 values as wgmma_bf16<64>'s) = A (64 x 16 bf16, K-major in shared
+// memory, `adesc`) x B (16 x 64 bf16, K-major in shared memory, `bdesc`) + (accumulate ? D : 0): both
+// operands read by the tensor cores where they lie, nothing of them in registers.
+__device__ __forceinline__ void wgmma_bf16_ss64(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
 // The polynomial sin and cos of 2 pi p of the bf16 decode (`_fast_sincos` in
 // pallas_decode.py): t = pi (p - round(p)) in [-pi/2, pi/2], s and c its sin and cos by
 // odd / even polynomials, sin(2 pi p) = 2 s c, cos(2 pi p) = 1 - 2 s^2. Each operation rounds

@@ -862,6 +862,9 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
                            (size_t)(zg + 3) * TILE * P.H + (size_t)zg * P.hid * P.H);
   return *smem <= SMEM_CAP;
 }
+// The narrow classes' blocks are persistent; the class 128 takes one block a tile. An item is a tile.
+bool persistent_class(int wn) { return wn < WG_N; }
+int item_tile(int, int, int, long long) { return TILE; }
 }  // namespace
 
 #include "fused_decode_fwd_host.cuh"  // the launcher's C interface (shared with the bf16 program)

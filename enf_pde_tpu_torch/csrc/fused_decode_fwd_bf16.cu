@@ -17,41 +17,50 @@
 //   - sin and cos of the RFF features by the polynomial of `_fast_sincos` (fast_sincos);
 //   - the softmax weights rounded to bf16 before they weight the values. That rounding needs
 //     each weight whole, so the softmax is not taken online: a first pass over the latent groups
-//     takes every latent's logits (the query chain) into shared memory ([Z][TILE][H]), the
+//     takes every latent's logits (the query chain) into shared memory ([Z][rows][H]), the
 //     softmax over Z follows, and a second pass takes the value chains. Where the logits do not
-//     fit beside the rest (Z > 52 at NS width), they go to a workspace in global memory that the
-//     wrapper allocates ([B][tiles][Z][TILE][H], a block's tile at its own offset, read back by
-//     the block that wrote it): the layout no longer depends on Z, and every Z that the f32
-//     program takes, this one takes.
-// Products:
-//   128 rows: wgmma m64nNk16 bf16 (A from registers, rounded per fragment; B K-major in shared
-//     memory): one wgmma per 16-deep chunk where 3xTF32 takes six. The wrapper hands the four
-//     shared weights over in bf16, blocked as wgmma reads them (`bf16_weights` in
-//     fused_decode.py): one block of 16 x WN bf16 per chunk and slab, element (16 kc + 8 kg + i,
-//     WN s + 8 ng + r) at [ng][kg][r][i], 4 KB at WN = 128 (a quarter of the split f32 block).
-//   32 rows: mma.sync m16n8k16 bf16, A and B fragments rounded as they are loaded (G and the tail
-//     come raw, in f32).
-// The narrow classes 16 and 32 keep the shared weights resident (2 / 8 KB); 64 streams them
-// through a ring of three 2 KB blocks.
-// Shared memory (k1_smem_bytes mirrors it, with compute_dtype=torch.bfloat16): the f32
-// program's X, Y and acc, the ring without the split A chunks (class 128) or the bf16 weights
-// (narrow), every latent's logits [Z][TILE][H] where they fit and, narrow, the group's A:
-//   NS (I 4, hid 128, H 2, z 4): 220,160 B; shallow water (z 8) 221,184 B; one block an SM;
-//   NS past z = 52: 219,136 B with the logits in global memory.
+//     fit beside the rest, they go to a workspace in global memory that the wrapper allocates
+//     (narrow: [B][tiles][Z][TILE][H], a block's tile at its own offset; class 128: a slot of
+//     [Z][64][H] for each block), read back by the block that wrote them: the layout no longer
+//     depends on Z, and every Z that the f32 program takes, this one takes.
+// The width class 128 (NS, SW, nonmaml, abs_pos; hid, hidm and D at most 128) has a design of its own,
+// below (`decode128`): persistent blocks over work items of 64 coordinates (32 where 64 would leave
+// half of the SMs idle), every product a bf16 wgmma m64n64k16 with A and B in shared memory (no
+// mma.sync), its columns split between the two warpgroups, G and the tail's weights handed over in
+// bf16 blocks as wgmma reads them (`k1_operands` in fused_decode.py: G once a decode, or once a
+// launch), the activations stored in bf16 where their next use is a product operand, gelu, the
+// LayerNorm statistics and the logits taken from the accumulator registers in the epilogues (no row
+// pass over shared memory but the RFF features and the softmax), m_w2 resident, the rest streamed by
+// each warpgroup on its own.
+// The narrow classes (16, 32, 64) keep their design (persistent blocks) with bf16 products:
+//   wgmma m64nNk16 bf16 over a latent group's rows (A from registers, rounded per fragment; B K-major
+//     in shared memory, the shared weights handed over by `bf16_weights`: one block of 16 x WN bf16 per
+//     chunk and slab, element (16 kc + 8 kg + i, WN s + 8 ng + r) at [ng][kg][r][i]);
+//   mma.sync m16n8k16 bf16 for the 32-row ones (G and the tail, read raw in f32 from L2, rounded as
+//     their fragments are loaded);
+//   the shared weights resident at 16 and 32 (2 / 8 KB), through a ring of three 2 KB blocks at 64.
+// Shared memory (k1_smem_bytes mirrors it, with compute_dtype=torch.bfloat16): at the class 128
+// SMEM128 (two bf16 operand buffers of 64 x 256, the attention output [64][264] f32, m_w2's 32 KB, two
+// rings of STAGES128 4 KB chunks, the row sums' exchange) and every latent's logits, [Z][64][H]:
+//   NS (I 4, hid 128, H 2, z 4): 202,752 B; shallow water (z 8) 204,800 B; one block an SM;
+//   past z = 62 at NS width the logits go to global memory (200,704 B), a slot for each block.
+// Narrow: the f32 program's X, Y and acc, the bf16 weights, every latent's logits and the group's A.
 // Accuracy: against the plain bf16 version on the card the gates are relative to the bf16
 // function's own distance from f32 (two right bf16 programs differ by chaotic roundings):
-// chip_smoke.py's phase 35, where every launch shape lies within 0.21 of that distance.
-// What bounds it: the products at the bf16 rate, 0.117 ms at NS 160 x 512. Measured (PERF.md §6,
-// an H100): 3.34 ms there against 4.63 for the f32 program; 0.81-0.86x the f32 program at
-// the narrow classes. The products were not the bulk: the row passes and the staging remain.
+// chip_smoke.py's phase 35.
+// What bounds it: the products at the bf16 rate, 0.1172 ms at NS 160 x 512 (NVIDIA H100 80GB HBM3,
+// 700 W). Measured (PERF.md §6, NVIDIA H100 80GB HBM3 at 700.00 W): the earlier design (at 2697ec8),
+// 32-row tiles and row passes over f32 shared memory, 3.26-3.35 ms there, its tail alone 1.17 ms; this design 1.7590 ms
+// (15.0x the bound; chip_smoke.py's phase 35) and 1.75-2.00 ms in tools/k1_compare.py (two builds of
+// the same program), SW 160 x 2048 11.42 ms (20.88), nonmaml 160 x 2048 6.71 ms (13.01). What holds it
+// now is latency: every phase costs about its share of the code (k1_compare --skip), the epilogues'
+// CUDA-core work, the features, the barriers a chunk and a latent, with two warpgroups an SM.
 
 #include "fused_decode_fwd_common.cuh"  // constants, Params, staging, row passes, mixer (shared with the f32 program)
 #include "bf16_mma.cuh"                  // bf16_round, pack_bf16, mma_bf16, wgmma_bf16, fast_sincos
 
 namespace {
 
-constexpr int RING_FLOATS = STAGES * STAGE_FLOATS;  // the B ring
-static_assert(STAGES >= 2 && 8 * WG_N <= STAGE_FLOATS, "ring");
 
 // What a width class fixes at compile time.
 template <int WN>
@@ -69,121 +78,6 @@ struct Width {
 // mode's polynomial (`_fast_sincos`).
 __device__ __forceinline__ float operand(float x) { return bf16_round(x); }
 __device__ __forceinline__ void rff_sincos(float proj, float* s, float* c) { fast_sincos(proj, s, c); }
-
-// ---- 32-row products: bf16 mma.sync --------------------------------------------------------
-// Y = act(X W + bias) for the TILE rows of X (shared memory, row stride ldx) and W [K x N] in
-// global memory, f32, on the tensor cores with bf16 operands. The 8 warps split N: warp w owns
-// the two m16 tiles of rows and NJ n8 tiles of each slab of 8 x 8 NJ columns. Per chunk of KC
-// k rows: W is staged raw by cp.async into the ring, two chunks ahead, and rounded per fragment
-// (each element is read by one warp); A's fragments are read from X and rounded. K must be a
-// multiple of KC and N of 4. Every thread of the block calls it; it starts with a barrier (X
-// may have been written just before) and does not end with one.
-template <int NJ, int ACT>
-__device__ __noinline__ void dense32(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                                     const float* __restrict__ bias, float* Y, int ldy, float* ring) {
-  constexpr int WN = 8 * NJ, SW = WARPS * WN;
-  constexpr int LD = SW + 8;                   // floats per staged k row: B loads conflict free
-  constexpr int CPT = KC * SW / 4 / THREADS;   // 16-byte copies a thread issues per chunk
-  static_assert(KC * LD <= STAGE_FLOATS && CPT * 4 * THREADS == KC * SW, "staging");
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int nk = K / KC, total = nk * ((N + SW - 1) / SW);
-
-  // What this thread copies does not change from chunk to chunk: its offsets are computed once.
-  int c_dst[CPT], c_src[CPT], c_col[CPT];
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    const int idx = tid + i * THREADS, kk = idx / (SW / 4), q = idx % (SW / 4);
-    c_col[i] = 4 * q;
-    c_dst[i] = kk * LD + 4 * q;
-    c_src[i] = kk * N + 4 * q;
-  }
-  int is = 0, ik = 0, ist = 0;  // slab, k chunk and ring stage of the next chunk to issue
-  auto issue = [&](int c) {
-    if (c < total) {
-      const float* src = W + ik * KC * N + is * SW;
-      float* st = ring + ist * STAGE_FLOATS;
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const bool ok = is * SW + c_col[i] < N;
-        cp_async16(st + c_dst[i], ok ? src + c_src[i] : W, ok);
-      }
-      if (++ik == nk) { ik = 0; ++is; }
-      if (++ist == STAGES) ist = 0;
-    }
-    cp_async_commit();  // an empty group past the end keeps the wait count uniform
-  };
-
-  __syncthreads();  // earlier readers of the ring (and writers of X) are done
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) issue(c);
-  float acc[2][NJ][4];
-  int s = 0, kc = 0, cst = 0;  // slab, k chunk and ring stage of chunk c
-  for (int c = 0; c < total; ++c) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed
-    __syncthreads();              // everyone's have; all are done with chunk c - 1
-    issue(c + STAGES - 1);        // into the stage chunk c - 1 used
-    if (kc == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
-    }
-    const int ncols = N - s * SW;
-    if (warp * WN < ncols) {
-      const float* st = ring + cst * STAGE_FLOATS;
-      uint32_t a[2][4], bf[NJ][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* x = X + (mi * 16 + g) * ldx + kc * KC + 2 * tq;
-        a[mi][0] = pack_bf16(x[0], x[1]);
-        a[mi][1] = pack_bf16(x[8 * ldx], x[8 * ldx + 1]);
-        a[mi][2] = pack_bf16(x[8], x[9]);
-        a[mi][3] = pack_bf16(x[8 * ldx + 8], x[8 * ldx + 9]);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float* b = st + 2 * tq * LD + warp * WN + 8 * j + g;
-        bf[j][0] = pack_bf16(b[0], b[LD]);
-        bf[j][1] = pack_bf16(b[8 * LD], b[9 * LD]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_bf16(acc[mi][j], a[mi], bf[j]);
-      if (kc == nk - 1) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int n = warp * WN + 8 * j + 2 * tq + e;
-            if (n >= ncols) continue;
-            const float bn = __ldg(bias + s * SW + n);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                Y[(mi * 16 + g + 8 * h) * ldy + s * SW + n] = activate<ACT>(acc[mi][j][2 * h + e] + bn);
-          }
-      }
-    }
-    if (++kc == nk) { kc = 0; ++s; }
-    cst = cst + 1 == STAGES ? 0 : cst + 1;
-  }
-  cp_async_wait<0>();
-}
-
-// The 32-row layers (one latent's G, the tail): four n8 tiles a warp when N is wide.
-template <int ACT>
-__device__ __forceinline__ void dense32(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                                        const float* __restrict__ bias, float* Y, int ldy, float* ring) {
-  if (N > 128)
-    dense32<4, ACT>(X, ldx, K, W, N, bias, Y, ldy, ring);
-  else
-    dense32<2, ACT>(X, ldx, K, W, N, bias, Y, ldy, ring);
-}
 
 // The narrow classes' 32-row products, with no ring and no barrier past the first: warp w owns
 // columns 8 NJ w .. 8 NJ w + 8 NJ - 1 of each slab of 64 NJ, loads its B fragments straight from
@@ -386,19 +280,516 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
   }
   if constexpr (!RES) cp_async_wait<0>();
 }
+// ---- The width class 128 (NS, SW, nonmaml, abs_pos): 64-row tiles, bf16 in shared memory ------------
+// A work item is 64 coordinates of a batch row (32 where items of 64 would leave half the grid's slots
+// idle: `item_tile`), decoded a latent at a time as m64 tiles. Every product is a bf16 wgmma m64n64k16
+// with both operands in shared memory: A (the activations) in the layout a16_index gives, B (a weight)
+// as bf16_weights blocks it. Each product's columns are split between the two warpgroups, an n64 half
+// each (a 128-column slab each for the tail's layers of N = 256, in two parts), and each warpgroup
+// streams its own half of B (cp.async into its ring, its own named barrier). The activations whose
+// next use is a product operand are stored in bf16 (the number JAX's cast gives). gelu, the LayerNorm
+// statistics and the logits come from the accumulator registers in the product's epilogue: a row of
+// an m64 tile lies in one quad of threads of each warpgroup (two shuffles, then one exchange between
+// the warpgroups through shared memory, `row_sums`). m_w2 stays resident; the rest streams from L2.
+constexpr int TILE128 = 64;     // rows of a work item's tiles
+constexpr int STAGES128 = 4;    // chunks of a warpgroup's ring (4 KB each); copies run STAGES128 - 2 ahead
+constexpr int FRESH_ACC = 0;    // 1: each 16-deep k step's product in a fresh accumulator, summed in f32 registers
+constexpr int LDA128 = 264;     // floats a row of the attention output (8 mod 32: its float2 updates conflict free)
+constexpr int A16_BYTES = TILE128 * 2 * WG_N * 2;  // one bf16 operand buffer: 64 rows x 256 columns
+constexpr int CHUNK16 = 16 * WG_N * 2;             // bytes of a 16 x 128 bf16 chunk
+constexpr int SMEM128 = 2 * A16_BYTES + 4 * TILE128 * LDA128 + 8 * CHUNK16 + 2 * STAGES128 * CHUNK16 + 4 * 8 * TILE128;
+static_assert(STAGES128 >= 3, "ring128");
+
+typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
+
+// Element (r, k) of a 64-row bf16 operand in shared memory, as wgmma reads A without swizzle: core
+// matrices of 8 rows x 8 k (128 bytes), the row groups of a k group 128 bytes apart (SBO), the k groups
+// 1,024 bytes apart (LBO); a 16-deep k step starts 2,048 bytes after the last.
+__device__ __forceinline__ int a16_index(int r, int k) { return ((((k >> 3) << 3) + (r >> 3)) << 6) + ((r & 7) << 3) + (k & 7); }
+constexpr int A16_LBO = 1024, A16_SBO = 128, A16_KSTEP = 1024;  // bytes, bytes, bf16 elements
+__device__ __forceinline__ uint64_t a16_desc(const bf16* p) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(A16_LBO >> 4) << 16) | ((uint64_t)(A16_SBO >> 4) << 32);
+}
+__device__ __forceinline__ void wg_bar(int id) { asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+__device__ __forceinline__ void store2(bf16* buf, int r, int n, float v0, float v1) {
+  *reinterpret_cast<bf162*>(buf + a16_index(r, n)) = __floats2bfloat162_rn(v0, v1);
+}
+// Two neighbouring f32 values (an even column of a bias, of c or of A's rows) in one load.
+__device__ __forceinline__ float2 ldg2(const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); }
+
+
+// A warpgroup's stream of B operand chunks into its ring of STAGES128 stages of 4 KB: a chunk is two k
+// steps of an n64 column half (16 x 64 bf16, 2 KB each), step ks read from `src` + ks * `kstride`; the
+// copies run STAGES128 - 2 chunks ahead of the products.
+struct Stream {
+  float* ring;
+  const float* src;
+  int kstride, nks, nc, issued, bar, lt;
+};
+__device__ __forceinline__ void issue(Stream& s) {
+  if (s.issued < s.nc) {
+    float* st = s.ring + (s.issued % STAGES128) * (CHUNK16 / 4);
+    for (int p = 0; p < 2; ++p) {
+      const int ks = 2 * s.issued + p;
+      if (ks < s.nks) {
+        const float* src = s.src + (size_t)ks * s.kstride;
+        cp_async16(st + p * (CHUNK16 / 8) + 4 * s.lt, src + 4 * s.lt, true);  // 128 threads x 16 bytes
+      }
+    }
+  }
+  ++s.issued;
+  cp_async_commit();  // an empty group past the end keeps the wait count uniform
+}
+// A product's first STAGES128 - 2 chunks in flight, before the work that precedes it: B's columns
+// [64 h, 64 h + 64) of a 128-column slab whose 16-row blocks lie `kstride` floats apart, K = 16 nks.
+__device__ __forceinline__ void prime(Stream& s, const float* slab, int kstride, int h, int nks) {
+  s.src = slab + h * (CHUNK16 / 8);
+  s.kstride = kstride;
+  s.nks = nks;
+  s.nc = (nks + 1) / 2;
+  s.issued = 0;
+  for (int c = 0; c < STAGES128 - 2; ++c) issue(s);
+}
+
+// The wgmma of k steps ks0 .. ks0 + n - 1: acc (this thread's 32 values of a 64 x 64 tile) = or += A
+// (a16 at `a`) x B (step p's 16 x 64 block at `b` + p `bstep` floats), issued back to back behind one
+// fence and committed as one group: a slab's whole sum in the wgmma accumulator. FRESH_ACC (the rule
+// K2 takes; ROADMAP Queue 2, item 8; k1_compare's variant `fresh`): each step's product in a fresh
+// accumulator (the tensor cores sum its 16 products exactly, truncating as they align them), added
+// to acc in f32 after it completes, step by step, two steps a group.
+__device__ __forceinline__ void steps_product(float (&acc)[32], const bf16* a, const float* b, int bstep, int ks0, int n) {
+  if constexpr (FRESH_ACC) {
+    for (int p0 = 0; p0 < n; p0 += 2) {
+      float part[2][32];
+      const bool two = p0 + 1 < n;
+      wg_fence_operands<32>(part[0]);
+      wg_fence_operands<32>(part[1]);
+      wg_fence();
+      wgmma_bf16_ss64(part[0], a16_desc(a + (ks0 + p0) * A16_KSTEP), wg_desc(b + p0 * bstep), 0);
+      if (two) wgmma_bf16_ss64(part[1], a16_desc(a + (ks0 + p0 + 1) * A16_KSTEP), wg_desc(b + (p0 + 1) * bstep), 0);
+      wg_commit();
+      wg_wait0();
+      wg_fence_operands<32>(part[0]);
+      wg_fence_operands<32>(part[1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float s = ks0 + p0 == 0 ? part[0][i] : acc[i] + part[0][i];
+        acc[i] = two ? s + part[1][i] : s;
+      }
+    }
+  } else {
+    wg_fence_operands<32>(acc);
+    wg_fence();
+    for (int p = 0; p < n; ++p)
+      wgmma_bf16_ss64(acc, a16_desc(a + (ks0 + p) * A16_KSTEP), wg_desc(b + p * bstep), ks0 + p > 0);
+    wg_commit();
+  }
+}
+
+// acc = A x B for this warpgroup over the stream's chunks (primed): A 64 x 16 nks bf16 at `a`. One
+// wgmma group in flight behind the copies; ends with every product complete and the ring free (the
+// warpgroup's barrier), so that the next stream may be primed.
+__device__ __forceinline__ void product(Stream& s, const bf16* a, float (&acc)[32]) {
+  for (int c = 0; c < s.nc; ++c) {
+    cp_async_wait<STAGES128 - 3>();  // this thread's copies of chunk c have landed
+    fence_async_smem();              // they (and its stores of A) are visible to wgmma
+    wg_bar(s.bar);                   // everyone's; chunk c - 2's products are complete
+    issue(s);                        // chunk c + STAGES128 - 2, into chunk c - 2's stage
+    steps_product(acc, a, s.ring + (c % STAGES128) * (CHUNK16 / 4), CHUNK16 / 8, c * 2, min(2, s.nks - 2 * c));
+    if constexpr (!FRESH_ACC) {
+      wg_wait1();
+      wg_fence_operands<32>(acc);
+    }
+  }
+  wg_wait0();
+  wg_fence_operands<32>(acc);
+  cp_async_wait<0>();
+  wg_bar(s.bar);
+}
+
+// acc = A x B, this warpgroup's n64 half h of B resident in shared memory (m_w2: nks blocks of 4 KB at
+// `b`). A's writers have fenced and met at a barrier.
+__device__ __forceinline__ void product_resident(const float* b, int h, const bf16* a, int nks, float (&acc)[32]) {
+  steps_product(acc, a, b + h * (CHUNK16 / 8), CHUNK16 / 4, 0, nks);
+  wg_wait0();
+  wg_fence_operands<32>(acc);
+}
+
+// This thread's part of a 64 x 64 product: the accumulator element i, its row r = r0 + 8 hr of the
+// tile (r0 = 16 warp + g) and its column col = 8 j + 2 tq + e; ACC_PAIRS visits the pairs (col, col + 1)
+// at i, i + 1. Loops unrolled into constant register indices.
+#define ACC_LOOP(...)                                                                       \
+  _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
+    _Pragma("unroll") for (int hr = 0; hr < 2; ++hr)                                         \
+      _Pragma("unroll") for (int e_ = 0; e_ < 2; ++e_) {                                     \
+        const int i = 4 * j_ + 2 * hr + e_, col = 8 * j_ + 2 * tq + e_, r = r0 + 8 * hr;       \
+        __VA_ARGS__                                                                          \
+      }
+#define ACC_PAIRS(...)                                                                      \
+  _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
+    _Pragma("unroll") for (int hr = 0; hr < 2; ++hr) {                                       \
+      const int i = 4 * j_ + 2 * hr, col = 8 * j_ + 2 * tq, r = r0 + 8 * hr;                  \
+      __VA_ARGS__                                                                            \
+    }
+#define ACC_FRAG const int tq = threadIdx.x & 3, r0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2)
+
+// Sums over a row of the tile whose columns the two warpgroups split: each thread's two rows' values,
+// summed over its quad by two shuffles, then with the other warpgroup's through `xs` (a block barrier).
+// `xs` alternates between two halves of its buffer (`par`), so that a warpgroup ahead writes the next
+// sums into the half nobody still reads.
+template <int NV>
+__device__ __forceinline__ void row_sums(float (&v)[2][NV], float* xs, int& par) {
+  ACC_FRAG;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 1);
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 2);
+    }
+  const int wg = threadIdx.x >> 7;
+  float* buf = xs + par * 4 * TILE128;  // a half: [2 warpgroups][64 rows][NV <= 2]
+  par ^= 1;
+  if (tq == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < NV; ++k) buf[(wg * TILE128 + r0 + 8 * h) * NV + k] = v[h][k];
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[h][k] += buf[((1 - wg) * TILE128 + r0 + 8 * h) * NV + k];
+}
+
+// mean and 1 / sqrt(var + eps) of each of this thread's two rows from their sums v[h] = (sum, sum of
+// squares) over `width` columns (var = E[x^2] - E[x]^2, as JAX's kernel takes it).
+__device__ __forceinline__ void row_moments(const float (&v)[2][2], int width, float (&mean)[2], float (&rstd)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] = v[h][0] / width;
+    rstd[h] = 1.0f / sqrtf(v[h][1] / width - mean[h] * mean[h] + LN_EPS);
+  }
+}
+
+// The normalize-only LayerNorm of this thread's two rows over the columns n0 + col < width of the
+// warpgroup's part, the rest of each row in the other warpgroup (row_sums).
+__device__ __forceinline__ void layer_norm(float (&acc)[32], int n0, int width, float* xs, int& par) {
+  ACC_FRAG;
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  ACC_LOOP(if (n0 + col < width) {
+    v[hr][0] += acc[i];
+    v[hr][1] = fmaf(acc[i], acc[i], v[hr][1]);
+  })
+  row_sums<2>(v, xs, par);
+  float mean[2], rstd[2];
+  row_moments(v, width, mean, rstd);
+  ACC_LOOP(acc[i] = (acc[i] - mean[hr]) * rstd[hr];)
+}
+
+// bf16(acc) of the columns n0 + col < width into the 64-row operand `out`.
+__device__ __forceinline__ void store_acc(const float (&acc)[32], bf16* out, int n0, int width) {
+  ACC_FRAG;
+  ACC_PAIRS(if (n0 + col < width) store2(out, r, n0 + col, acc[i], acc[i + 1]);)
+}
+
+// The RFF features of the 64 coordinates of an item (inv: the latent's [rows][I] invariants) into X16
+// (a 64-row operand): sin and cos of the f32 projection by the bf16 mode's polynomial, rounded to bf16.
+// A warp writes whole core matrices (8 rows x 4 column pairs). Not inlined (no wgmma in it): one copy
+// of its code serves both passes.
+__device__ __noinline__ void features128(const float* __restrict__ inv, int I, int rows, const float* __restrict__ coeff,
+                                         int hid, bf16* X16) {
+  const int half = hid >> 1, units = TILE128 * (half >> 1);
+#pragma unroll 2
+  for (int u = threadIdx.x; u < units; u += THREADS) {
+    const int q = u & 3, rr = (u >> 2) & 7, rest = u >> 5, rg = rest & 7, jg = rest >> 3;
+    const int t = 8 * rg + rr, j = 8 * jg + 2 * q;
+    float p0 = 0.0f, p1 = 0.0f;
+    if (t < rows) {
+      const float* x = inv + (size_t)t * I;
+      for (int k = 0; k < I; ++k) {
+        const float xi = __ldg(x + k);
+        const float2 cf = ldg2(coeff + k * half + j);
+        p0 = fmaf(xi, cf.x, p0);
+        p1 = fmaf(xi, cf.y, p1);
+      }
+    }
+    float s0, k0, s1, k1;
+    fast_sincos(p0, &s0, &k0);
+    fast_sincos(p1, &s1, &k1);
+    store2(X16, t, j, s0, s1);
+    store2(X16, t, half + j, k0, k1);
+  }
+  fence_async_smem();
+}
+
+// The tail's layers split their N columns between the warpgroups: a 128-column slab each (N > 128)
+// taken as two n64 parts, or an n64 half of the one slab. The stream of part `part` of W [K, N].
+__device__ __forceinline__ void prime_part(Stream& st, const float* W, int N, int K, int part) {
+  const int wg = threadIdx.x >> 7, two = N > WG_N;
+  prime(st, W + (two ? wg * (CHUNK16 / 4) : 0), (1 + two) * (CHUNK16 / 4), two ? part : wg, K / 16);
+}
+// out = act(in W + bias) in bf16 (the stream primed with W's first part), normalized (gelu first)
+// over its N columns with `ln` (the values of a slab's first part wait in `stage`, f32, until the
+// row's sums are whole); the next stream primed as soon as a part's products are done.
+__device__ __forceinline__ void tail_layer(Stream& st, const bf16* in, bf16* out, const float* W, int N, int K,
+                                           const float* __restrict__ bias, bool gelu, bool ln, float* stage, float* xs,
+                                           int& par, const float* next_w, int next_n, int next_k) {
+  ACC_FRAG;
+  const int wg = threadIdx.x >> 7, parts = N > WG_N ? 2 : 1;
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  for (int part = 0; part < parts; ++part) {
+    const int n0 = parts == 2 ? wg * WG_N + 64 * part : wg * 64;
+    float acc[32];
+    product(st, in, acc);
+    if (part + 1 < parts)
+      prime_part(st, W, N, K, part + 1);
+    else if (next_w)
+      prime_part(st, next_w, next_n, next_k, 0);
+    ACC_PAIRS(if (n0 + col < N) {
+      const float2 bb = ldg2(bias + n0 + col);
+      float x0 = acc[i] + bb.x, x1 = acc[i + 1] + bb.y;
+      if (gelu) {
+        x0 = gelu_tanh(x0);
+        x1 = gelu_tanh(x1);
+      }
+      acc[i] = x0;
+      acc[i + 1] = x1;
+      if (ln) {
+        v[hr][0] += x0 + x1;
+        v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+      }
+    })
+    if (ln) {
+      ACC_PAIRS(if (n0 + col < N) *reinterpret_cast<float2*>(stage + r * LDA128 + n0 + col) = make_float2(acc[i], acc[i + 1]);)
+    } else {
+      store_acc(acc, out, n0, N);
+    }
+  }
+  if (ln) {  // the LayerNorm of the staged values, this thread's own
+    row_sums<2>(v, xs, par);
+    float mean[2], rstd[2];
+    row_moments(v, N, mean, rstd);
+    for (int part = 0; part < parts; ++part) {
+      const int n0 = parts == 2 ? wg * WG_N + 64 * part : wg * 64;
+      ACC_PAIRS(if (n0 + col < N) {
+        const float2 x = *reinterpret_cast<const float2*>(stage + r * LDA128 + n0 + col);
+        store2(out, r, n0 + col, (x.x - mean[hr]) * rstd[hr], (x.y - mean[hr]) * rstd[hr]);
+      })
+    }
+  }
+  fence_async_smem();
+  __syncthreads();  // the layer's columns, from both warpgroups
+}
+// The tail on the bf16 attention output in X16: out-projection, block FFN (gelu, LayerNorm over H D),
+// two gelu layers of the head; their output in Y16. `stage`: f32 room of [64][LDA128] (accs, read).
+__device__ __forceinline__ void tail128(const Params& P, Stream& st, bf16* X16, bf16* Y16, float* stage, float* xs,
+                                        int& par) {
+  const int HD = P.H * P.D, hid = P.hid;
+  tail_layer(st, X16, Y16, P.o_w, HD, HD, P.o_b, false, false, stage, xs, par, P.p_w1, HD, HD);
+  tail_layer(st, Y16, X16, P.p_w1, HD, HD, P.p_b1, true, true, stage, xs, par, P.p_w2, HD, HD);
+  tail_layer(st, X16, Y16, P.p_w2, HD, HD, P.p_b2, true, false, stage, xs, par, P.h_w1, hid, HD);
+  tail_layer(st, Y16, X16, P.h_w1, hid, HD, P.h_b1, true, false, stage, xs, par, P.h_w2, hid, hid);
+  tail_layer(st, X16, Y16, P.h_w2, hid, hid, P.h_b2, true, false, stage, xs, par, nullptr, 0, 0);
+}
+
+// The decode of the class 128: a persistent block walks the work items (batch row, tile of P.tile
+// coordinates) from blockIdx.x by gridDim.x; a latent at a time, every product's columns split
+// between the two warpgroups (an n64 half each), each warpgroup streaming its own half of B.
+template <bool WITH_TAIL>
+__device__ __forceinline__ void decode128(const Params& P, float* smem) {
+  const int Z = P.Z, H = P.H, hid = P.hid, D = P.D, hidm = P.hidm, C = P.C, HD = H * D;
+  bf16* X16 = reinterpret_cast<bf16*>(smem);  // a latent's features, then t; the tail's even layers' input
+  bf16* Y16 = X16 + A16_BYTES / 2;            // a latent's hv, then a head's vm; the tail's odd layers' input
+  float* accs = reinterpret_cast<float*>(Y16 + A16_BYTES / 2);  // [64][LDA128] the attention output
+  float* mw2 = accs + TILE128 * LDA128;                         // m_w2's blocks, resident
+  float* rings = mw2 + 8 * CHUNK16 / 4;                         // [2][STAGES128][1,024]
+  float* xs = rings + 2 * STAGES128 * CHUNK16 / 4;              // [2][2][64][2] the row sums' exchange
+  float* prob = P.lg_global ? P.lg + (size_t)blockIdx.x * Z * TILE128 * H : xs + 8 * TILE128;  // [Z][64][H]
+  const int tid = threadIdx.x, wg = tid >> 7, nb = hid / 16, n0 = 64 * wg;
+  ACC_FRAG;
+  int par = 0;
+  Stream st;
+  st.ring = rings + wg * STAGES128 * (CHUNK16 / 4);
+  st.bar = 1 + wg;
+  st.lt = tid & 127;
+
+  // m_w2, once a block: hidm / 16 blocks of one 128-column slab (D <= 128).
+  for (int k = 4 * tid; k < hidm / 16 * (CHUNK16 / 4); k += 4 * THREADS) cp_async16(mw2 + k, P.m_w2s + k, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+
+  const int ntiles = (C + P.tile - 1) / P.tile, items = ntiles * P.B;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = item / ntiles, c0 = item % ntiles * P.tile, rows = min(P.tile, C - c0);
+    __syncthreads();  // the last item's readers of accs, X16 and Y16 are done
+    for (int idx = tid; idx < TILE128 * HD; idx += THREADS) accs[(idx / HD) * LDA128 + idx % HD] = 0.0f;
+
+    // Pass 1: every latent's logits, hq . A[b, z] + ab + wb, in q_w1's epilogue (each warpgroup's
+    // half of the dot, summed through xs).
+    for (int z = 0; z < Z; ++z) {
+      const size_t bz = (size_t)b * Z + z;
+      prime(st, P.q_w1s, CHUNK16 / 4, wg, nb);
+      __syncthreads();  // the last readers of X16 are done
+      features128(P.inv + (bz * C + c0) * P.I, P.I, rows, P.q_coeff, hid, X16);
+      __syncthreads();
+      float acc[32];
+      product(st, X16, acc);
+      ACC_PAIRS(if (n0 + col < hid) {
+        const float2 bq = ldg2(P.q_b1 + n0 + col);
+        acc[i] = bf16_round(fmaxf(acc[i] + bq.x, 0.0f));
+        acc[i + 1] = bf16_round(fmaxf(acc[i + 1] + bq.y, 0.0f));
+      } else {
+        acc[i] = acc[i + 1] = 0.0f;
+      })
+      for (int h0 = 0; h0 < H; h0 += 2) {  // two heads a time
+        const int h1 = min(h0 + 1, H - 1);
+        float lg[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+        ACC_LOOP(if (n0 + col < hid) {
+          const float* a = P.A + (bz * hid + n0 + col) * H;
+          const float2 ah = H % 2 == 0 ? ldg2(a + h0) : make_float2(__ldg(a + h0), __ldg(a + h1));
+          lg[hr][0] = fmaf(acc[i], bf16_round(ah.x), lg[hr][0]);
+          lg[hr][1] = fmaf(acc[i], bf16_round(ah.y), lg[hr][1]);
+        })
+        row_sums<2>(lg, xs, par);
+        if (tq == 0 && wg == 0)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int t = r0 + 8 * k;
+            const float w = t < rows ? __ldg(P.wb + bz * C + c0 + t) : 0.0f;
+            prob[(z * TILE128 + t) * H + h0] = lg[k][0] + __ldg(P.ab + bz * H + h0) + w;
+            if (h0 + 1 < H) prob[(z * TILE128 + t) * H + h1] = lg[k][1] + __ldg(P.ab + bz * H + h1) + w;
+          }
+      }
+    }
+    // The softmax over the latents, each weight rounded to bf16 (`pr.astype(dt)` in _tile_decode).
+    __syncthreads();
+    for (int idx = tid; idx < TILE128 * H; idx += THREADS) {
+      float m = -INFINITY;
+      for (int z = 0; z < Z; ++z) m = fmaxf(m, prob[z * TILE128 * H + idx]);
+      const float ms = m == -INFINITY ? 0.0f : m;  // every logit -inf: exp gives 0, not NaN
+      float l = 0.0f;
+      for (int z = 0; z < Z; ++z) {
+        const float e = expf(prob[z * TILE128 * H + idx] - ms);
+        prob[z * TILE128 * H + idx] = e;
+        l += e;
+      }
+      for (int z = 0; z < Z; ++z) prob[z * TILE128 * H + idx] = bf16_round(prob[z * TILE128 * H + idx] / l);
+    }
+
+    // Pass 2: each latent's value chain, hv = relu(. v_w1 + v_b1), t = normalize(gelu(hv fw + fb)),
+    // then a head at a time vm = normalize(gelu(t G[b, z, h] + c)) and accs[:, h D + n] += p[z, :, h]
+    // (vm m_w2 + m_b2)[:, n].
+    for (int z = 0; z < Z; ++z) {
+      const size_t bz = (size_t)b * Z + z;
+      prime(st, P.v_w1s, CHUNK16 / 4, wg, nb);
+      __syncthreads();  // the last readers of X16 and Y16 are done; the softmax's weights are stored
+      features128(P.inv + (bz * C + c0) * P.I, P.I, rows, P.v_coeff, hid, X16);
+      __syncthreads();
+      float acc[32];
+      product(st, X16, acc);
+      prime(st, P.fws, CHUNK16 / 4, wg, nb);
+      ACC_PAIRS(if (n0 + col < hid) {
+        const float2 bv = ldg2(P.v_b1 + n0 + col);
+        acc[i] = fmaxf(acc[i] + bv.x, 0.0f);
+        acc[i + 1] = fmaxf(acc[i + 1] + bv.y, 0.0f);
+      })
+      store_acc(acc, Y16, n0, hid);
+      fence_async_smem();
+      __syncthreads();  // hv, both halves
+      product(st, Y16, acc);
+      prime(st, P.G + bz * H * nb * (CHUNK16 / 4), CHUNK16 / 4, wg, nb);
+      ACC_PAIRS(if (n0 + col < hid) {
+        const float2 bf = ldg2(P.fb + n0 + col);
+        acc[i] = gelu_tanh(acc[i] + bf.x);
+        acc[i + 1] = gelu_tanh(acc[i + 1] + bf.y);
+      } else {
+        acc[i] = acc[i + 1] = 0.0f;
+      })
+      layer_norm(acc, n0, hid, xs, par);  // its barrier: both warpgroups are done reading X16
+      store_acc(acc, X16, n0, hid);
+      fence_async_smem();
+      __syncthreads();  // t, both halves
+      for (int h = 0; h < H; ++h) {
+        product(st, X16, acc);
+        if (h + 1 < H) prime(st, P.G + (bz * H + h + 1) * nb * (CHUNK16 / 4), CHUNK16 / 4, wg, nb);
+        const float* cz = P.c + (bz * H + h) * hidm + n0;
+        ACC_PAIRS(if (n0 + col < hidm) {
+          const float2 cc = ldg2(cz + col);
+          acc[i] = gelu_tanh(acc[i] + cc.x);
+          acc[i + 1] = gelu_tanh(acc[i + 1] + cc.y);
+        } else {
+          acc[i] = acc[i + 1] = 0.0f;
+        })
+        layer_norm(acc, n0, hidm, xs, par);  // its barrier: both warpgroups' last mixer read Y16
+        store_acc(acc, Y16, n0, hidm);
+        fence_async_smem();
+        __syncthreads();  // vm, both halves
+        product_resident(mw2, wg, Y16, hidm / 16, acc);
+        const float p0 = prob[(z * TILE128 + r0) * H + h], p1 = prob[(z * TILE128 + r0 + 8) * H + h];
+        ACC_PAIRS(if (n0 + col < D) {
+          float2* a = reinterpret_cast<float2*>(accs + r * LDA128 + h * D + n0 + col);
+          const float p = hr ? p1 : p0;
+          const float2 bm = ldg2(P.m_b2 + n0 + col);
+          float2 v = *a;
+          v.x = fmaf(p, acc[i] + bm.x, v.x);
+          v.y = fmaf(p, acc[i + 1] + bm.y, v.y);
+          *a = v;
+        })
+      }
+    }
+    __syncthreads();  // every head's sums are in accs
+
+    float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
+    if constexpr (WITH_TAIL) {
+      // The tail: out-projection, block FFN (gelu, LayerNorm over H D), head MLP.
+      prime_part(st, P.o_w, HD, HD, 0);
+      for (int idx = tid; idx < TILE128 * HD / 2; idx += THREADS) {
+        const int r = idx / (HD / 2), n = 2 * (idx % (HD / 2));
+        store2(X16, r, n, accs[r * LDA128 + n], accs[r * LDA128 + n + 1]);
+      }
+      fence_async_smem();
+      __syncthreads();
+      tail128(P, st, X16, Y16, accs, xs, par);
+      // The head's last layer on the CUDA cores: a warp an (output, 32 rows), lane t a row.
+      const int od = P.out_dim, warp = tid >> 5, lane = tid & 31;
+      for (int o2 = warp; o2 < 2 * od; o2 += WARPS) {
+        const int o = o2 >> 1, t = 32 * (o2 & 1) + lane;
+        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        int k = lane % hid;
+        for (int n = 0; n < hid; ++n) {
+          s[n & 3] = fmaf(__bfloat162float(Y16[a16_index(t, k)]), bf16_round(__ldg(P.h_w3 + k * od + o)), s[n & 3]);
+          if (++k == hid) k = 0;
+        }
+        if (t < rows) dst[t * od + o] = (s[0] + s[1]) + (s[2] + s[3]) + __ldg(P.h_b3 + o);
+      }
+    } else {
+      for (int idx = tid; idx < rows * HD; idx += THREADS) dst[idx] = accs[(idx / HD) * LDA128 + idx % HD];
+    }
+  }
+}
+
 template <int WN, bool WITH_TAIL>
 __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_kernel(const Params P) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (WN == WG_N) {
+    decode128<WITH_TAIL>(P, smem);
+  } else {
+  // The narrow classes.
   using Cls = Width<WN>;
   constexpr bool NARROW = Cls::NARROW, RES = Cls::RES;
   constexpr int ZGN = Cls::ZGN, MT = Cls::MT;
-  extern __shared__ __align__(16) float smem[];
   const int Z = P.Z, H = P.H, I = P.I, hid = P.hid, D = P.D, hidm = P.hidm, C = P.C;
   const int HD = H * D, HH = H * hidm, ldX = P.ldX, ldP = P.ldP, ldW = P.ldW;
   float* X = smem;                        // [ZGN * TILE][ldX]
   float* Y = X + ZGN * TILE * ldX;        // nY floats
   float* acc = Y + P.nY;                  // [TILE][ldW]
   float* ring = acc + TILE * ldW;         // [STAGES][STAGE_FLOATS]; narrow: the shared weights or their ring
-  float* s_lg = ring + (NARROW ? P.nW : RING_FLOATS);  // [Z][TILE][H] every latent's logits, unless in P.lg
+  float* s_lg = ring + P.nW;            // [Z][TILE][H] every latent's logits, unless in P.lg
   float* s_A = s_lg + (P.lg_global ? 0 : Z * TILE * H);  // narrow: [ZGN][hid][H] the group's A
   const int tid = threadIdx.x;
   // The four shared weights: resident in the ring's place (narrow, RES), else in global memory (bf16 blocks).
@@ -480,58 +871,34 @@ __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_ker
       dense_group<WN, MT, RES, ACT_RELU>(X, ldX, nz * TILE, hid, Wv, hid, P.v_b1, Y, ldX, ring);
       dense_group<WN, MT, RES, ACT_NONE>(Y, ldX, nz * TILE, hid, Wf, hid, P.fb, X, ldX, ring);
       __syncthreads();
-      if constexpr (NARROW)
-        normalize<true, WN>(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
-      else
-        normalize<true>(X, ldX, nz * TILE, 1, hid);
+      normalize<true, WN>(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
       for (int zp = 0; zp < nz; zp += 2) {  // pairs of latents
         const int np = min(2, nz - zp);
-        if constexpr (NARROW) {
-          if (np == 2) {  // the pair's products side by side: warps 0-3 the first, 4-7 the second
-            __syncthreads();
-            const int zz = (tid >> 5) >= WARPS / 2;
-            const size_t bz = (size_t)b * Z + z0 + zp + zz;
-            dense32_direct<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
-                                     Y + zz * TILE * ldP, ldP, false, zz * WARPS / 2, WARPS / 2);
-          } else {
-            const size_t bz = (size_t)b * Z + z0 + zp;
-            dense32_direct<ACT_NONE>(X + zp * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH, Y, ldP);
-          }
+        if (np == 2) {  // the pair's products side by side: warps 0-3 the first, 4-7 the second
+          __syncthreads();
+          const int zz = (tid >> 5) >= WARPS / 2;
+          const size_t bz = (size_t)b * Z + z0 + zp + zz;
+          dense32_direct<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
+                                   Y + zz * TILE * ldP, ldP, false, zz * WARPS / 2, WARPS / 2);
         } else {
-          for (int zz = 0; zz < np; ++zz) {
-            const size_t bz = (size_t)b * Z + z0 + zp + zz;
-            dense32<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
-                              Y + zz * TILE * ldP, ldP, ring);
-          }
+          const size_t bz = (size_t)b * Z + z0 + zp;
+          dense32_direct<ACT_NONE>(X + zp * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH, Y, ldP);
         }
         __syncthreads();
-        if constexpr (NARROW)
-          normalize<true, WN>(Y, ldP, np * TILE, H, hidm);  // gelu, then each head
-        else
-          normalize<true>(Y, ldP, np * TILE, H, hidm);
+        normalize<true, WN>(Y, ldP, np * TILE, H, hidm);  // gelu, then each head
         mixer<WN, MT, RES>(Y, P.ldP, np, H, hidm, D, Wm, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW, ring);
       }
     }
 
     float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
     if (WITH_TAIL) {
-      if constexpr (NARROW) {
-        dense32_direct<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW);
-        dense32_direct<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW);
-        __syncthreads();
-        normalize_rows(acc, ldW, HD);
-        dense32_direct<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW);
-        dense32_direct<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW);
-        dense32_direct<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW);
-      } else {
-        dense32<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW, ring);
-        dense32<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW, ring);
-        __syncthreads();
-        normalize<true>(acc, ldW, TILE, 1, HD);
-        dense32<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW, ring);
-        dense32<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW, ring);
-        dense32<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW, ring);
-      }
+      dense32_direct<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW);
+      dense32_direct<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW);
+      __syncthreads();
+      normalize_rows(acc, ldW, HD);
+      dense32_direct<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW);
+      dense32_direct<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW);
+      dense32_direct<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW);
       __syncthreads();
       const int od = P.out_dim;
       lane_dots(
@@ -545,7 +912,7 @@ __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_ker
     }
   };
 
-  if constexpr (NARROW) {
+  {
     // A persistent block: the shared weights come in once (RES), then it walks the work items
     // (batch row, tile) from blockIdx.x by gridDim.x, neighbours sharing a row's A, G and c in L2.
     if constexpr (RES) {
@@ -565,14 +932,13 @@ __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_ker
       __syncthreads();  // the last item's readers of acc and Y are done
       decode_tile(item / ntiles, item % ntiles * TILE);
     }
-  } else {
-    decode_tile(blockIdx.y, blockIdx.x * TILE);
+  }
   }
 }
-// Adds every latent's logits ([Z][TILE][H]) to *smem where they fit beside the rest; else they
-// go to the launch's workspace in global memory (P.lg_global). False if the rest does not fit.
-bool place_logits(Params& P, size_t* smem) {
-  const size_t lg = sizeof(float) * (size_t)P.Z * TILE * P.H;
+// Adds every latent's logits ([Z][rows][H]) to *smem where they fit beside the rest; else they go to
+// the launch's workspace in global memory (P.lg_global). False if the rest does not fit.
+bool place_logits(Params& P, size_t* smem, int rows) {
+  const size_t lg = sizeof(float) * (size_t)P.Z * rows * P.H;
   P.lg_global = *smem + lg > SMEM_CAP;
   if (!P.lg_global) *smem += lg;
   return *smem <= SMEM_CAP;
@@ -590,15 +956,13 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
   P.ldP = row_stride(HH);
   P.ldW = row_stride(HD > P.hid ? HD : P.hid);
   if (*cls == WG_N) {
-    P.ldX = row_stride(P.hid);
-    size_t nY = (size_t)ZG * TILE * P.ldX;
-    if ((size_t)2 * TILE * P.ldP > nY) nY = (size_t)2 * TILE * P.ldP;
-    if ((size_t)TILE * P.ldW > nY) nY = (size_t)TILE * P.ldW;
-    P.nY = (int)nY;
-    P.nW = 0;
-    // X, Y, acc, the ring, every latent's logits where they fit.
-    *smem = sizeof(float) * ((size_t)ZG * TILE * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)RING_FLOATS);
-    return place_logits(P, smem);
+    // One 128-column slab a head of G and of the mixer; the operand buffers, the attention output,
+    // m_w2, the two rings and the tail's LayerNorm sums are fixed; every latent's logits where they fit.
+    if (P.hidm > WG_N || P.D > WG_N) return false;
+    P.ldX = P.nY = P.nW = 0;
+    P.ldW = LDA128;
+    *smem = SMEM128;
+    return place_logits(P, smem, TILE128);
   }
   // Narrow: X and Y take a group's ZG rows at a stride of WN + 4 words (4 mod 8: the
   // A-fragment loads hit distinct banks), the shared weights (or their ring) replace the ring,
@@ -612,7 +976,17 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
   P.nW = res_of(wn) ? (3 * P.hid + P.hidm) / KC * 8 * wn : STAGES * 8 * wn;
   *smem = sizeof(float) * ((size_t)rows * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)P.nW +
                            (size_t)zg * P.hid * P.H);
-  return place_logits(P, smem);
+  return place_logits(P, smem, TILE);
+}
+
+// Every class's blocks are persistent over the work items (batch row, tile of item_tile coordinates):
+// the class 128 takes 64 coordinates an item, or 32 where items of 64 would leave half of the grid's
+// slots (the blocks the SMs hold at once) idle, as at the nef step's fits (8 x 512 on 132 SMs).
+bool persistent_class(int) { return true; }
+int item_tile(int wn, int B, int C, long long slots) {
+  if (wn != WG_N) return TILE;
+  const long long items = (long long)B * ((C + TILE128 - 1) / TILE128);
+  return 2 * items <= slots ? TILE : TILE128;
 }
 }  // namespace
 

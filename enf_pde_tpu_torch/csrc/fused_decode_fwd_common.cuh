@@ -62,7 +62,9 @@ struct Params {
   int nY;             // floats of Y
   int nW;             // narrow classes: floats of the resident shared weights, or of their ring
   int lg_global;      // the bf16 program: every latent's logits in `lg`, not in shared memory (`layout`)
-  float* lg;          // then [B][ceil(C / TILE)][Z][TILE][H], a block's tile at its own offset; else null
+  float* lg;          // then [B][ceil(C / TILE)][Z][TILE][H], a block's tile at its own offset (the bf16
+                      // class 128: [grid][Z][64][H], a block's slot); else null
+  int tile;           // coordinates a work item takes (the launcher's `item_tile`)
 };
 
 // Row strides of 4 mod 32 words: the A-fragment loads of a warp hit 32 distinct banks.
@@ -95,6 +97,10 @@ __device__ __forceinline__ void rff_sincos(float proj, float* s, float* c);
 template <int WN, int MT, bool RES, class XRow, class Active, class Epi>
 __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const float* __restrict__ W, int N,
                                         float* ring, Epi epi);
+// And the launch's plan: whether a class's blocks are persistent over the work items (batch row, tile)
+// and the coordinates an item takes (`item_tile`, from the blocks the grid holds at once).
+bool persistent_class(int wn);
+int item_tile(int wn, int B, int C, long long slots);
 
 // Shared-memory descriptor of a K-major B tile without swizzle (split_weights' tf32 block, or
 // bf16_weights'): core matrices of 8 rows (n) x 16 bytes stored whole; LBO is the step between

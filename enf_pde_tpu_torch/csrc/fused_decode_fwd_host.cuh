@@ -13,6 +13,7 @@ void set_dims(Params& P, const int* dims) {
   P.H = dims[5]; P.D = dims[6]; P.hidm = dims[7]; P.out_dim = dims[8];
   P.lg_global = 0;
   P.lg = nullptr;
+  P.tile = TILE;
 }
 
 // Sets the kernel's shared memory (and, narrow, asks for the largest carve-out, so that
@@ -29,20 +30,25 @@ cudaError_t prepare(size_t smem, int* per_sm) {
   return err;
 }
 
-// The width class 128: one block per (tile, batch row). Narrow: persistent blocks, as many as
-// the SMs hold at once, or one per work item when there are fewer.
+// One block per (tile, batch row), or (`persistent_class`) persistent blocks, as many as the SMs
+// hold at once (the class 128: one an SM, whatever more would fit), or one per work item when there
+// are fewer, an item `item_tile` coordinates of a batch row.
 template <int WN, bool TAIL>
-cudaError_t launch(const Params& P, size_t smem, cudaStream_t s) {
+cudaError_t launch(Params P, size_t smem, cudaStream_t s) {
   dim3 grid((P.C + TILE - 1) / TILE, P.B);
+  const bool persistent = persistent_class(WN);
   int per_sm = 0;
-  cudaError_t err = prepare<WN, TAIL>(smem, WN < WG_N ? &per_sm : nullptr);
+  cudaError_t err = prepare<WN, TAIL>(smem, persistent ? &per_sm : nullptr);
   if (err != cudaSuccess) return err;
-  if (WN < WG_N) {
+  if (persistent) {
     int dev = 0, sms = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long items = (long long)grid.x * grid.y, most = (long long)per_sm * sms;
+    if (WN == WG_N) per_sm = 1;  // a block's slot of the logits workspace: one an SM
+    const long long most = (long long)per_sm * sms;
+    P.tile = item_tile(WN, P.B, P.C, most);
+    const long long items = (long long)P.B * ((P.C + P.tile - 1) / P.tile);
     grid = dim3((unsigned)(items < most ? items : most));
   }
   fused_decode_fwd_kernel<WN, TAIL><<<grid, THREADS, smem, s>>>(P);
@@ -75,7 +81,8 @@ extern "C" {
 // ptrs: inv, wb, A, ab, G, c, the 10 folded weights, the 12 tail weights (null without
 // the tail), out, then the blocks of q_w1, v_w1, fw and m_w2 (split_weights' tf32 parts in the
 // f32 program, bf16_weights' in the bf16 one); then, for a bf16 launch whose logits do not fit
-// shared memory (`layout`), the logits workspace of B ceil(C / TILE) Z TILE H floats.
+// shared memory (`layout`), the logits workspace: B ceil(C / TILE) Z TILE H floats, or at the bf16
+// program's class 128 a slot of Z 64 H floats for each block of the grid (`fused_decode_fwd_plan`).
 // dims: B, Z, C, I, hid, H, D, hidm, out_dim, with_tail. Launches on `stream` and returns
 // the cudaError_t of the launch (cudaErrorInvalidValue for shapes it does not take, or for a
 // weight staged by cp.async (G, the blocks, the tail's wide weights) that does not start
@@ -133,6 +140,32 @@ int fused_decode_fwd_occupancy(const int* dims, int n_dims, int* out) {
   out[0] = cls;
   out[1] = 0;
   return (int)by_class<Prepare>(cls, dims[9] != 0, smem, out + 1);
+}
+
+// For a launch with these dims: out[0] its width class, out[1] the blocks of it an SM holds, out[2]
+// the coordinates a work item takes and out[3] the grid, as `launch` plans them on this device.
+// Returns the cudaError_t (cudaErrorInvalidValue for shapes it does not take).
+int fused_decode_fwd_plan(const int* dims, int n_dims, int* out) {
+  int occ[2];
+  const int rc = fused_decode_fwd_occupancy(dims, n_dims, occ);
+  if (rc != (int)cudaSuccess) return rc;
+  Params P;
+  set_dims(P, dims);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = occ[0];
+  out[1] = occ[1];
+  out[2] = TILE;
+  out[3] = (P.C + TILE - 1) / TILE * P.B;
+  if (persistent_class(occ[0])) {
+    const long long most = (long long)(occ[0] == WG_N ? 1 : occ[1]) * sms;
+    out[2] = item_tile(occ[0], P.B, P.C, most);
+    const long long items = (long long)P.B * ((P.C + out[2] - 1) / out[2]);
+    out[3] = (int)(items < most ? items : most);
+  }
+  return (int)cudaSuccess;
 }
 
 const char* fused_decode_fwd_error_string(int code) {

@@ -41,7 +41,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     fold_decode_weights,
     fused_decode_fwd,
     FusedDecode,
-    shared_weights,
+    k1_operands,
 )
 from enf_pde_tpu_torch.ops.layers import Dense, LayerNorm, gelu
 
@@ -268,8 +268,9 @@ def decode_trajectories(decoder: EnfDecoder, backend: str, coords: torch.Tensor,
     [batch, T, points, out]. The validation and forecast decode of both trainers.
 
     On a kernel backend the weight folds (with the stem and the self-attention blocks),
-    which depend on the latents only, and K1's layout of the shared weights for its program
-    (``shared_weights``: ``split_weights``' tf32 parts, or ``bf16_weights``) run once for all chunks.
+    which depend on the latents only, and K1's layout of what its program reads (``k1_operands``:
+    the shared weights as ``split_weights``' tf32 parts or ``bf16_weights``, and at the bf16
+    program's class 128 G and the tail's weights in bf16 blocks) run once for all chunks.
     """
     p, a, w = latent_traj
     b, t = p.shape[0], p.shape[1]
@@ -278,7 +279,7 @@ def decode_trajectories(decoder: EnfDecoder, backend: str, coords: torch.Tensor,
     if backend in KERNEL_BACKENDS:
         folded = decoder.fold(p_fl, a_fl, w_fl)
         dtype = kernel_compute_dtype(backend, coords.device)
-        split = shared_weights(folded[4], dtype)
+        split = k1_operands(folded[2], folded[4], folded[5], decoder.num_heads, dtype)
 
         def apply_fn(x, pp, aa, ww):
             return fused_decode_fwd(*decoder.kernel_geometry(x, pp, ww), *folded,

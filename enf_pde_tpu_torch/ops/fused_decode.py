@@ -51,7 +51,7 @@ import ctypes
 import functools
 import math
 import re
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -72,14 +72,20 @@ __all__ = [
     "fused_decode_fwd",
     "split_weights",
     "bf16_weights",
+    "bf16_blocks",
+    "bf16_g_blocks",
+    "K1Operands",
+    "k1_operands",
     "shared_weights",
     "kernel_sources",
     "k1_width_class",
     "k1_constants",
     "k1_smem_bytes",
     "k1_logits_floats",
+    "k1_plan",
     "k1_library_smem_bytes",
     "k1_occupancy",
+    "k1_library_plan",
     "fused_decode_bwd_plain",
     "fused_decode_bwd",
     "k2_width_class",
@@ -111,6 +117,9 @@ TAIL_WEIGHT_NAMES = (
 # Handed to K1 split into tf32 (big, small) parts too, in this order (after ``out``), in
 # the blocked layout of ``split_weights``; WG_N is the width of one slab of the widest class.
 SPLIT_WEIGHT_NAMES = ("q_w1", "v_w1", "fw", "m_w2")
+# The bf16 program's class 128 also takes G and these tail weights in bf16, blocked as its wgmma reads
+# them (``k1_operands``); h_w3 (a few columns, on the CUDA cores) stays f32.
+BLOCKED_TAIL_NAMES = ("o_w", "p_w1", "p_w2", "h_w1", "h_w2")
 WG_N = 128
 # K1's narrow width classes: a shape whose hid, hidm and D fit one takes it, else WG_N.
 NARROW_CLASSES = (16, 32, 64)
@@ -497,21 +506,63 @@ def bf16_weights(ws: Sequence[torch.Tensor], width: Optional[int] = None
     [K / 16, N / wn, wn / 8, 2, 8, 8], whose pointers the bf16 K1 takes after ``out``.
     """
     wn = width or _ws_class(ws)
-    blocks = []
-    for name in SPLIT_WEIGHT_NAMES:
-        w = ws[WEIGHT_NAMES.index(name)]
-        K, N = w.shape
-        if K % 16:
-            raise ValueError(f"{name}: K1 needs the rows of {name} in chunks of 16, got {K}")
-        w = torch.nn.functional.pad(w, (0, -N % wn)).to(torch.bfloat16)
-        blk = w.reshape(K // 16, 2, 8, w.shape[1] // wn, wn // 8, 8)  # kc kg i s ng r
-        blocks.append(blk.permute(0, 3, 4, 1, 5, 2).contiguous())  # kc s ng kg r i
+    blocks = [bf16_blocks(ws[WEIGHT_NAMES.index(name)], wn, name) for name in SPLIT_WEIGHT_NAMES]
     buf = torch.cat([b.reshape(-1) for b in blocks])
     views, off = [], 0
     for b in blocks:
         views.append(buf[off:off + b.numel()].view(b.shape))
         off += b.numel()
     return buf, tuple(views)
+
+
+def bf16_blocks(w: torch.Tensor, wn: int = WG_N, name: str = "weight") -> torch.Tensor:
+    """One weight W [K, N] (K a multiple of 16; N padded with zeros to a multiple of ``wn``) rounded to bf16
+    in the K-major blocks of ``bf16_weights``: [K / 16, N / wn, wn / 8, 2, 8, 8], element W[16 kc + 8 kg + i,
+    wn s + 8 ng + r] at [kc, s, ng, kg, r, i]. Leading dimensions of ``w`` before the last two are kept."""
+    K, N = w.shape[-2:]
+    if K % 16:
+        raise ValueError(f"{name}: K1 needs the rows of {name} in chunks of 16, got {K}")
+    w = torch.nn.functional.pad(w, (0, -N % wn)).to(torch.bfloat16)
+    lead = w.shape[:-2]
+    blk = w.reshape(*lead, K // 16, 2, 8, w.shape[-1] // wn, wn // 8, 8)  # kc kg i s ng r
+    d = len(lead)
+    return blk.permute(*range(d), d, d + 3, d + 4, d + 1, d + 5, d + 2).contiguous()  # kc s ng kg r i
+
+
+def bf16_g_blocks(G: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """G [b, z, hid, H hidm] as the bf16 program's class 128 reads it: each head's hidm columns padded
+    to ``WG_N`` and blocked as ``bf16_blocks`` blocks a weight, [b, z, H, hid / 16, WG_N / 8, 2, 8, 8]
+    (element G[b, z, 16 kc + 8 kg + i, h hidm + 8 ng + r] at [b, z, h, kc, ng, kg, r, i]): a head's
+    chunks of 16 rows, 4 KB each, one after the other. JAX rounds G to bf16 at its product anyway."""
+    b, z, hid, hh = G.shape
+    heads = G.reshape(b, z, hid, num_heads, hh // num_heads).transpose(2, 3)  # [b, z, H, hid, hidm]
+    if heads.shape[-1] > WG_N:
+        raise ValueError(f"the bf16 K1 takes a head of G at most {WG_N} wide, got {heads.shape[-1]}")
+    return bf16_blocks(heads, WG_N, "G")[:, :, :, :, 0]
+
+
+class K1Operands(NamedTuple):
+    """What K1 reads laid out for its program, made once for every launch with the same fold
+    (``k1_operands``): the shared weights' blocks (``shared_weights``) and, for the bf16 program's
+    class 128, G (``bf16_g_blocks``) and the tail's ``BLOCKED_TAIL_NAMES`` (``bf16_blocks``) in bf16;
+    else None and () (the program reads them as the fold gives them, f32)."""
+    shared: Tuple[torch.Tensor, ...]
+    G: Optional[torch.Tensor]
+    tail: Tuple[torch.Tensor, ...]
+
+
+def k1_operands(G: torch.Tensor, ws: Sequence[torch.Tensor], tws: Sequence[torch.Tensor], num_heads: int,
+                compute_dtype: torch.dtype = torch.float32) -> K1Operands:
+    """``K1Operands`` of a fold: once a decode (``models.decoder.decode_trajectories``), or once a launch
+    where the wrapper is given none (``FusedDecode``: once a training step)."""
+    shared = shared_weights(ws, compute_dtype)
+    if compute_dtype != torch.bfloat16 or _ws_class(ws) != WG_N:
+        return K1Operands(shared, None, ())
+    return K1Operands(shared, bf16_g_blocks(G, num_heads), _tail_blocks(tws))
+
+
+def _tail_blocks(tws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    return tuple(bf16_blocks(tws[TAIL_WEIGHT_NAMES.index(n)], WG_N, n) for n in BLOCKED_TAIL_NAMES) if tws else ()
 
 
 def shared_weights(ws: Sequence[torch.Tensor], compute_dtype: torch.dtype = torch.float32,
@@ -536,13 +587,13 @@ def _check_split(split: Sequence[torch.Tensor], ws: Sequence[torch.Tensor], devi
         _check(f"split {name}", blk, shape, device, compute_dtype)
 
 
-def _check_aligned16(named: Dict[str, torch.Tensor]) -> None:
+def _check_aligned16(named: Dict[str, torch.Tensor], nbytes: int = 16) -> None:
     """K1 stages these by 16-byte ``cp.async``, K2 reads some a float4 at a time: each must
     start on 16 bytes (a contiguous view at a storage offset that is not a multiple of 4 floats
-    does not)."""
+    does not); the bf16 K1's class 128 reads its f32 operands two at a time (``nbytes`` 8)."""
     for name, t in named.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on 16 bytes for the kernels (storage offset {t.storage_offset()})")
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name} must start on {nbytes} bytes for the kernels (storage offset {t.storage_offset()})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -590,7 +641,13 @@ def _k1_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     wn = k1_width_class(hid, hidm, D)
     # The softmax's shared floats: the f32 program's group logits, running max, sum and factor;
     # the bf16 program's every latent's logits, where they fit (`place_logits`).
-    if wn == k["WG_N"]:
+    lg_rows = tile  # rows of a latent's logits
+    if bf and wn == k["WG_N"]:
+        if hidm > k["WG_N"] or D > k["WG_N"]:
+            raise ValueError(f"the bf16 K1 takes hidm and D at most {k['WG_N']} at the width class {k['WG_N']}, "
+                             f"got {hidm}, {D}")
+        smem, lg_rows = k["SMEM128"], k["TILE128"]
+    elif wn == k["WG_N"]:
         ld_x = stride(hid)
         n_y = max(zg * tile * ld_x, 2 * tile * ld_p, tile * ld_w)
         n_sm = 0 if bf else (zg + 3) * tile * H
@@ -603,9 +660,9 @@ def _k1_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
         block = 8 * wn if bf else 32 * wn  # floats of a shared weight's 16-deep chunk
         n_w = (3 * hid + hidm) // kc * block if k[f"RES{wn}"] else k["STAGES"] * block
         smem = 4 * (rows * ld_x + n_y + tile * ld_w + n_w + n_sm + zg * hid * H)
-    logits_global = bf and smem + 4 * Z * tile * H > k["SMEM_CAP"]
+    logits_global = bf and smem + 4 * Z * lg_rows * H > k["SMEM_CAP"]
     if bf and not logits_global:
-        smem += 4 * Z * tile * H
+        smem += 4 * Z * lg_rows * H
     if smem > k["SMEM_CAP"]:
         raise ValueError(f"K1 would need {smem} B of shared memory, more than {k['SMEM_CAP']}")
     return smem, logits_global
@@ -623,21 +680,44 @@ def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     state and the group's A. The f32 program's does not depend on ``Z``. The bf16 program
     (``compute_dtype=torch.bfloat16``, ``fused_decode_fwd_bf16.cu``) keeps no split A chunks and
     no online softmax state but every latent's logits ([Z][TILE][H]) where they fit beside the
-    rest, else (Z > 52 at NS width) in a workspace in global memory (``k1_logits_floats``), so
-    that its layout too takes every ``Z``; its shared weights are bf16 blocks of 8 ``wn`` floats
-    a chunk. Raises ``ValueError`` for a shape that ``layout`` refuses: widths it does not take,
-    or more than ``SMEM_CAP`` bytes."""
+    rest, else in a workspace in global memory (``k1_logits_floats``), so that its layout too takes
+    every ``Z``; its shared weights are bf16 blocks of 8 ``wn`` floats a chunk. Its class 128
+    (``SMEM128``: two bf16 operand buffers of 64 x 256, the attention output, m_w2 resident, two
+    warpgroups' rings, the row sums' exchange) holds 64 rows of logits a latent (in shared memory up
+    to z = 62 at NS width) and takes hidm and D at most 128. Raises ``ValueError`` for a shape that ``layout`` refuses:
+    widths it does not take, or more than ``SMEM_CAP`` bytes."""
     return _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[0]
 
 
+def k1_plan(B: int, C: int, hid: int, hidm: int, D: int, compute_dtype: torch.dtype = torch.float32,
+            sms: int = 132) -> Tuple[int, int, int]:
+    """(tile, items, grid) of a K1 launch, as its launcher plans it on a card of ``sms`` SMs: the bf16
+    program's class 128 walks items of 64 coordinates of a batch row (32 where items of 64 would leave
+    half of the ``sms`` blocks idle, ``item_tile``) with one persistent block an SM; the other
+    launches take tiles of ``TILE`` (the narrow classes' grid also depends on their blocks an SM,
+    ``k1_occupancy``: here one an SM)."""
+    k = k1_constants(compute_dtype)
+    tile = k["TILE"]
+    if compute_dtype == torch.bfloat16 and k1_width_class(hid, hidm, D) == k["WG_N"]:
+        tile = tile if 2 * B * -(-C // k["TILE128"]) <= sms else k["TILE128"]
+        items = B * -(-C // tile)
+        return tile, items, min(items, sms)
+    items = B * -(-C // tile)
+    return tile, items, items
+
+
 def k1_logits_floats(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, hidm: int,
-                     compute_dtype: torch.dtype = torch.float32) -> int:
+                     compute_dtype: torch.dtype = torch.float32, sms: int = 132) -> int:
     """Floats of the global-memory logits workspace a K1 launch needs: 0 for the f32 program and
     for a bf16 launch whose logits fit shared memory, else ``[B][ceil(C / TILE)][Z][TILE][H]``
-    (``layout``'s ``place_logits``)."""
+    (``layout``'s ``place_logits``), or at the bf16 class 128 a slot of ``[Z][64][H]`` for each
+    block of its grid on a card of ``sms`` SMs (``k1_plan``)."""
     if not _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[1]:
         return 0
-    tile = k1_constants(compute_dtype)["TILE"]
+    k = k1_constants(compute_dtype)
+    if k1_width_class(hid, hidm, D) == k["WG_N"]:
+        return k1_plan(B, C, hid, hidm, D, compute_dtype, sms)[2] * Z * k["TILE128"] * H
+    tile = k["TILE"]
     return B * -(-C // tile) * Z * tile * H
 
 
@@ -666,6 +746,20 @@ def k1_occupancy(dims: Sequence[int], source: str = KERNEL_SOURCE) -> Tuple[int,
     return int(out[0]), int(out[1])
 
 
+def k1_library_plan(dims: Sequence[int], source: str = KERNEL_SOURCE) -> Dict[str, int]:
+    """The built K1 library's plan of a launch with these dims (the launcher's) on this card
+    (``fused_decode_fwd_plan``): its width class, blocks an SM, coordinates a work item and grid;
+    raises for a shape it refuses. On the card; ``source`` may name another build."""
+    fn = cuda_lib.load(source).fused_decode_fwd_plan
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn((ctypes.c_int * len(dims))(*dims), len(dims), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_fwd_plan failed for dims {list(dims)} (cudaError {rc})")
+    return dict(cls=int(out[0]), per_sm=int(out[1]), tile=int(out[2]), grid=int(out[3]))
+
+
 def _fwd_lib(source: str = KERNEL_SOURCE):
     """K1's library, bound; ``source`` may name another build of the same C interface."""
     lib = cuda_lib.load(source)
@@ -678,6 +772,18 @@ def _fwd_lib(source: str = KERNEL_SOURCE):
     return lib
 
 
+def _check_blocked(ops: K1Operands, G: torch.Tensor, tws, num_heads: int, device: torch.device) -> None:
+    """``ops.G`` and ``ops.tail`` are ``bf16_g_blocks(G)`` and the tail's ``bf16_blocks`` in shape and type
+    (the bf16 program's class 128 reads nothing else in their place)."""
+    b, z, hid, _ = G.shape
+    _check("blocked G", ops.G, (b, z, num_heads, hid // 16, WG_N // 8, 2, 8, 8), device, torch.bfloat16)
+    if len(ops.tail) != (len(BLOCKED_TAIL_NAMES) if tws else 0):
+        raise ValueError(f"expected {len(BLOCKED_TAIL_NAMES) if tws else 0} blocked tail weights, got {len(ops.tail)}")
+    for name, blk in zip(BLOCKED_TAIL_NAMES, ops.tail):
+        K, N = tws[TAIL_WEIGHT_NAMES.index(name)].shape
+        _check(f"blocked {name}", blk, (K // 16, -(-N // WG_N), WG_N // 8, 2, 8, 8), device, torch.bfloat16)
+
+
 def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=None,
             lib=None, width: Optional[int] = None, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     H, D = num_heads, head_dim
@@ -685,21 +791,35 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=
     bf = _check_dtype(compute_dtype) == torch.bfloat16
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
     # The bf16 program's logits workspace, where they do not fit shared memory.
-    n_lg = k1_logits_floats(B, Z, C, I, hid, H, D, hidm, compute_dtype) if bf else 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    n_lg = k1_logits_floats(B, Z, C, I, hid, H, D, hidm, compute_dtype, sms) if bf else 0
+    # What the program reads laid out for it: `split` (``k1_operands``, or the shared weights alone,
+    # ``shared_weights``), else laid out here for this launch.
+    blocked = bf and (width or _ws_class(ws)) == WG_N
     if split is None:
-        split = shared_weights(ws, compute_dtype, width)
-    _check_split(split, ws, dev, width, compute_dtype)
-    staged = {"G": G, **{f"split {n}": w for n, w in zip(SPLIT_WEIGHT_NAMES, split)}}
-    if with_tail:
-        staged.update((n, tws[TAIL_WEIGHT_NAMES.index(n)]) for n in ("o_w", "p_w1", "p_w2", "h_w1", "h_w2"))
+        split = k1_operands(G, ws, tws, H, compute_dtype) if width is None else K1Operands(
+            shared_weights(ws, compute_dtype, width), None, ())
+    elif not isinstance(split, K1Operands):
+        split = K1Operands(tuple(split), None, ())
+    if blocked and split.G is None:
+        split = split._replace(G=bf16_g_blocks(G, H), tail=_tail_blocks(tws))
+    _check_split(split.shared, ws, dev, width, compute_dtype)
+    G_in, tail_in = G, {n: tws[TAIL_WEIGHT_NAMES.index(n)] for n in BLOCKED_TAIL_NAMES} if with_tail else {}
+    if blocked:
+        _check_blocked(split, G, tws, H, dev)
+        G_in, tail_in = split.G, dict(zip(BLOCKED_TAIL_NAMES, split.tail))
+        _check_aligned16({"A": A, "c": c, **{n: w for n, w in zip(WEIGHT_NAMES, ws) if w.dim() == 1 or "coeff" in n},
+                          **{n: w for n, w in zip(TAIL_WEIGHT_NAMES, tws) if w.dim() == 1}}, 8)
+    staged = {"G": G_in, **{f"split {n}": w for n, w in zip(SPLIT_WEIGHT_NAMES, split.shared)}, **tail_in}
     _check_aligned16(staged)
     lib = lib or _fwd_lib(kernel_sources(compute_dtype)[0])
 
     out = torch.empty(B, C, out_dim, device=dev, dtype=torch.float32)
-    tail_ptrs = [t.data_ptr() for t in tws] if with_tail else [None] * len(TAIL_WEIGHT_NAMES)
-    ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G.data_ptr(),
+    tail_ptrs = [tail_in.get(n, t).data_ptr() for n, t in zip(TAIL_WEIGHT_NAMES, tws)] if with_tail \
+        else [None] * len(TAIL_WEIGHT_NAMES)
+    ptrs = [inv.data_ptr(), wb.data_ptr(), A.data_ptr(), ab.data_ptr(), G_in.data_ptr(),
             c.data_ptr(), *[w.data_ptr() for w in ws], *tail_ptrs, out.data_ptr(),
-            *[w.data_ptr() for w in split]]
+            *[w.data_ptr() for w in split.shared]]
     if n_lg:
         logits = torch.empty(n_lg, device=dev, dtype=torch.float32)
         ptrs.append(logits.data_ptr())
@@ -727,8 +847,10 @@ def fused_decode_fwd(inv, wb, A, ab, G, c, ws: Sequence[torch.Tensor],
     window bias; the rest is what ``fold_decode_weights`` returns. ``compute_dtype`` picks
     the program: ``torch.float32`` (3xTF32, ``fused_decode_fwd.cu``) or ``torch.bfloat16``
     (bf16 operands, f32 sums: ``fused_decode_fwd_bf16.cu``), as ``fused_decode_plain``
-    defines them. ``split`` may be ``shared_weights(ws, compute_dtype)``, made once for every
-    launch with the same ``ws``; without it each launch lays ``ws`` out anew.
+    defines them. ``split`` may be ``k1_operands(G, ws, tws, num_heads, compute_dtype)`` (or
+    ``shared_weights(ws, compute_dtype)`` alone), made once for every launch with the same fold;
+    without it each launch lays out what its program reads anew: the shared weights and, for the
+    bf16 program's class 128, G and the tail's weights in bf16 blocks.
 
     On CPU tensors this is ``fused_decode_plain`` at ``compute_dtype`` (``split`` is not
     read); on CUDA tensors it launches that program on the current stream (counted in

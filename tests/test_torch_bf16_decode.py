@@ -203,11 +203,13 @@ def test_bf16_weights_layout_and_wrapper_checks(pair, monkeypatch):
     with pytest.raises((ValueError, TypeError), match="split q_w1"):
         fd._launch(*args, H, D, split=fd.shared_weights(args[6]), compute_dtype=BF16)
     assert [v.dtype for v in fd.shared_weights(args[6], BF16)] == [BF16] * 4
-    # Every latent's logits in shared memory up to z = 52 at NS width, past it in global memory.
-    assert fd.k1_smem_bytes(52, 4, 128, 2, 128, 128, BF16) == 232_448
-    assert fd.k1_logits_floats(160, 52, 512, 4, 128, 2, 128, 128, BF16) == 0
-    assert fd.k1_smem_bytes(53, 4, 128, 2, 128, 128, BF16) == 219_136 == fd.k1_smem_bytes(1000, 4, 128, 2, 128, 128, BF16)
-    assert fd.k1_logits_floats(160, 53, 512, 4, 128, 2, 128, 128, BF16) == 160 * 16 * 53 * 32 * 2
+    # Every latent's logits (64 rows) in shared memory up to z = 62 at NS width, past it in global
+    # memory: a slot of [z][64][H] for each block of the persistent grid (132 on an H100).
+    assert fd.k1_smem_bytes(62, 4, 128, 2, 128, 128, BF16) == 232_448
+    assert fd.k1_logits_floats(160, 62, 512, 4, 128, 2, 128, 128, BF16) == 0
+    assert fd.k1_smem_bytes(63, 4, 128, 2, 128, 128, BF16) == 200_704 == fd.k1_smem_bytes(1000, 4, 128, 2, 128, 128, BF16)
+    assert fd.k1_logits_floats(160, 64, 512, 4, 128, 2, 128, 128, BF16) == 132 * 64 * 64 * 2
+    assert fd.k1_logits_floats(160, 64, 512, 4, 128, 2, 128, 128, BF16, sms=114) == 114 * 64 * 64 * 2
     assert fd.k1_logits_floats(160, 1000, 512, 4, 128, 2, 128, 128) == 0  # the f32 program takes none
     big = 700  # latents: past the class 32's shared memory at this test's widths
     rep = lambda x: x[:, :1].expand(-1, big, *x.shape[2:]).contiguous()  # noqa: E731
@@ -227,15 +229,78 @@ def test_bf16_weights_layout_and_wrapper_checks(pair, monkeypatch):
         fd._launch(rep(inv), rep(wb), rep(A), rep(ab), rep(G), rep(c), ws, tws, H, D, compute_dtype=BF16)
 
 
+def test_bf16_blocked_g_and_tail_rebuild_and_the_wrapper_refuses_another_layout(monkeypatch):
+    """The bf16 program's class 128 reads G (each head's columns padded to 128) and the tail's wide
+    weights in bf16 blocks, laid out once a decode (``k1_operands``): the blocks rebuild the matrices
+    they came from, rounded to bf16, zero past each head; the f32 program and the narrow classes take
+    none; the wrapper refuses a G or tail of another layout before anything is built and takes the
+    right one to the build."""
+    gen = torch.Generator().manual_seed(5)
+    b, z, hid, H_, hidm, I, C = 2, 3, 80, 2, 80, 4, 5
+    G = torch.randn(b, z, hid, H_ * hidm, generator=gen)
+    g16 = fd.bf16_g_blocks(G, H_)
+    assert g16.dtype == BF16 and g16.is_contiguous() and g16.shape == (b, z, H_, hid // 16, 16, 2, 8, 8)
+    back = g16.permute(0, 1, 2, 3, 5, 7, 4, 6).reshape(b, z, H_, hid, 128)  # [b, z, h, k, n]
+    want = G.reshape(b, z, hid, H_, hidm).transpose(2, 3)
+    assert torch.equal(back[..., :hidm], want.to(BF16)) and not back[..., hidm:].float().any()
+    kc, ng, kg, r, i = 4, 9, 1, 2, 7  # one element by its index: G[.., 16 kc + 8 kg + i, h hidm + 8 ng + r]
+    assert g16[1, 2, 1, kc, ng, kg, r, i] == G[1, 2, 16 * kc + 8 * kg + i, hidm + 8 * ng + r].to(BF16)
+    HD = H_ * hid
+    ws = [torch.randn(*s, generator=gen) for s in ((I, hid // 2), (hid, hid), (hid,), (I, hid // 2), (hid, hid), (hid,),
+                                                   (hid, hid), (hid,), (hidm, hid), (hid,))]
+    tws = [torch.randn(*s, generator=gen) for s in ((HD, HD), (HD,), (HD, HD), (HD,), (HD, HD), (HD,), (HD, hid), (hid,),
+                                                    (hid, hid), (hid,), (hid, 1), (1,))]
+    ops = fd.k1_operands(G, ws, tws, H_, BF16)
+    assert fd.k1_width_class(hid, hidm, hid) == fd.WG_N and torch.equal(ops.G, g16)
+    for name, blk in zip(fd.BLOCKED_TAIL_NAMES, ops.tail):
+        w = tws[fd.TAIL_WEIGHT_NAMES.index(name)]
+        K, Nw = w.shape
+        slabs = -(-Nw // 128)
+        rebuilt = blk.permute(0, 3, 5, 1, 2, 4).reshape(K, slabs * 128)
+        assert blk.shape == (K // 16, slabs, 16, 2, 8, 8)
+        assert torch.equal(rebuilt[:, :Nw], w.to(BF16)) and not rebuilt[:, Nw:].float().any()
+    assert fd.k1_operands(G, ws, tws, H_).G is None and fd.k1_operands(G, ws, (), H_, BF16).tail == ()
+    # The wrapper: inputs of this shape on the CPU reach its layout checks (it launches nothing here).
+    inv, wb = torch.randn(b, z, C, I, generator=gen), torch.randn(b, z, C, generator=gen)
+    A, ab, c = torch.randn(b, z, hid, H_, generator=gen), torch.randn(b, z, H_, generator=gen), torch.randn(b, z, H_ * hidm)
+    args = (inv, wb, A, ab, G, c, ws, tws, H_, hid)
+    with pytest.raises(TypeError, match="blocked G must be bfloat16"):
+        fd._launch(*args, split=ops._replace(G=G), compute_dtype=BF16)
+    with pytest.raises(ValueError, match="blocked G has shape"):
+        fd._launch(*args, split=ops._replace(G=g16.reshape(b, z, -1)), compute_dtype=BF16)
+    with pytest.raises(ValueError, match="blocked o_w has shape"):  # h_w1's blocks (one slab) in o_w's place (two)
+        fd._launch(*args, split=ops._replace(tail=(ops.tail[3], *ops.tail[1:])), compute_dtype=BF16)
+    with pytest.raises(ValueError, match="expected 5 blocked tail weights"):
+        fd._launch(*args, split=ops._replace(tail=ops.tail[:4]), compute_dtype=BF16)
+    # Its f32 operands are read two at a time: each must start on 8 bytes.
+    c_odd = torch.empty(c.numel() + 1)[1:].view(c.shape).copy_(c)
+    with pytest.raises(ValueError, match="c must start on 8 bytes"):
+        fd._launch(inv, wb, A, ab, G, c_odd, ws, tws, H_, hid, split=ops, compute_dtype=BF16)
+
+    class Built(Exception):
+        pass
+
+    def build(*_):
+        raise Built
+
+    monkeypatch.setattr(cuda_lib, "build", build)
+    for split in (ops, ops.shared, None):  # laid out once a decode, or here for this launch
+        with pytest.raises(Built):
+            fd._launch(*args, split=split, compute_dtype=BF16)
+
+
 def test_bf16_programs_run_on_bf16_tensor_cores():
-    """The bf16 programs' products: K1 on bf16 wgmma (m64nNk16 at N = 16, 32, 64) over a latent
-    group's rows and mma.sync m16n8k16 bf16 for the 32-row ones; K2 on bf16 wgmma at N = 8, 16,
-    32, 64 with a cotangent operand in three bf16 terms; the shared helper holds each instruction
-    once; no TF32 product, library GEMM, WMMA or atomics."""
+    """The bf16 programs' products: K1's class 128 on bf16 wgmma m64n64k16 with both operands in
+    shared memory and nothing else (no mma.sync, no operand rounded in registers); its narrow classes
+    on bf16 wgmma (m64nNk16 at N = 16, 32, 64, A from registers) over a latent group's rows and
+    mma.sync m16n8k16 bf16 for the 32-row ones; K2 on bf16 wgmma at N = 8, 16, 32, 64 with a
+    cotangent operand in three bf16 terms; the shared helper holds each instruction once; no TF32
+    product, library GEMM, WMMA or atomics."""
     header = (cuda_lib.CSRC_DIR / "bf16_mma.cuh").read_text()
     assert header.count("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32") == 1
-    for n in (8, 16, 32, 64):
-        assert header.count(f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == 1, n
+    for n in (8, 16, 32, 64):  # A from registers; at n = 64 also the shared-memory A of wgmma_bf16_ss64
+        assert header.count(f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == 1 + (n == 64), n
+    assert header.count('"%32, %33, p, 1, 1, 0, 0;\\n"') == 1  # two descriptors, neither transposed
     assert "__fmul_rn" in header and "rintf(p)" in header  # fast_sincos: no contraction, round half even
     k1 = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16).read_text()
     k2 = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE_BF16).read_text()
@@ -245,8 +310,15 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
         assert "fast_sincos(" in src and "sincosf" not in src
         for banned in ("wmma", "cutlass", "cublas", "torch/extension.h", "atomic"):
             assert banned not in src.lower()
-    assert re.search(r"wgmma_bf16<NB>\(acc\[mt\]", k1) and k1.count("mma_bf16(acc[mi][j], a[mi], bf[j]);") == 2
+    assert re.search(r"wgmma_bf16<NB>\(acc\[mt\]", k1) and k1.count("mma_bf16(acc[mi][j], a[mi], bf[j]);") == 1
     assert "bf16_round(s_prob[z * TILE * H + idx] / l)" in k1  # the softmax weights rounded
+    c128 = k1[k1.index("// ---- The width class 128"):k1.index("template <int WN, bool WITH_TAIL>\n__global__")]
+    # A slab's whole sum in the wgmma accumulator; k1_compare's variant `fresh` (ROADMAP Queue 2, item 8)
+    # flips FRESH_ACC to a fresh accumulator a 16-deep k step, summed in f32.
+    assert "constexpr int FRESH_ACC = 0;" in c128 and "acc[i] = two ? s + part[1][i] : s;" in c128
+    assert c128.count("wgmma_bf16_ss64(") == 3 and "mma_bf16(" not in c128 and "wgmma_bf16<" not in c128
+    assert "pack_bf16(" not in c128 and "dense32" not in c128  # operands stored in bf16, not rounded in registers
+    assert "bf16_round(prob[z * TILE128 * H + idx] / l)" in c128
     # A cotangent operand in three bf16 terms (split3_bf16): the products of terms i + j <= 2.
     gemm = re.search(r"\n__device__ __forceinline__ void gemm\(.*?\n}\n", k2, re.S).group(0)
     assert gemm.count("wgmma_bf16<WN>(") == 10 and gemm.count("split3_bf16(") == 3  # B two values a call, A one pair

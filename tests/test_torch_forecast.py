@@ -134,15 +134,16 @@ def test_decode_folds_once_for_all_chunks(pair, monkeypatch):
 
 
 def test_decode_splits_the_shared_weights_once(pair, monkeypatch):
-    """The kernel backend splits K1's shared weights once per decode and hands that split
+    """The kernel backend lays out what K1 reads (its shared weights split, and at the bf16 program's
+    class 128 G and the tail's weights blocked: ``k1_operands``) once per decode and hands that layout
     to every chunk's launch."""
     _, fc, frames, masks, _ = pair
     traj = fc.rollout(fc.fit(frames, masks=masks), 2)
     splits, seen = [], []
     # The decode driver both trainers share, ``models.decoder.decode_trajectories``.
-    shared_weights, fwd = decoder_module.shared_weights, decoder_module.fused_decode_fwd
-    monkeypatch.setattr(decoder_module, "shared_weights",
-                        lambda ws, dtype: splits.append(shared_weights(ws, dtype)) or splits[-1])
+    k1_operands, fwd = decoder_module.k1_operands, decoder_module.fused_decode_fwd
+    monkeypatch.setattr(decoder_module, "k1_operands",
+                        lambda *args: splits.append(k1_operands(*args)) or splits[-1])
     monkeypatch.setattr(decoder_module, "fused_decode_fwd",
                         lambda *args, split=None, **kw: seen.append(split) or fwd(*args, split=split, **kw))
     got = fc.decode(traj, chunk_size=48)  # 6 chunks, the last one ragged

@@ -1,7 +1,8 @@
 """Kernel K1 against earlier builds of it and its plain version, on one card.
 
     python3 tools/k1_compare.py [--old path/to/fused_decode_fwd_old.cu ...] [--skip PHASE ...] [--variant V ...]
-        [--shape navier_stokes|diffusion_plane|cahn_hilliard|diff_sphere|shallow_water|ihc ...] [--latents Z ...]
+        [--shape navier_stokes|diffusion_plane|cahn_hilliard|diff_sphere|shallow_water|ihc|navier_stokes_nonmaml ...]
+        [--latents Z ...]
         [--dtype f32|bf16|both]
 
 Builds ``enf_pde_tpu_torch/csrc/fused_decode_fwd.cu``, each ``--old`` (an earlier K1
@@ -17,7 +18,8 @@ an SM per shape. Holds every build against the plain version, with and without t
 tail, at each ``--shape`` config's widths (``navier_stokes``, the default;
 ``diffusion_plane``, z = 4; ``cahn_hilliard``, z = 9; I = 2 and hid = 64 for both planar
 ones; ``diff_sphere``, z = 18, I = 1, hid = 16; ``shallow_water``, z = 8 of latent 32,
-I = 4, hid = 128, three outputs; ``ihc``, z = 25 of latent 32, I = 5, hid = 32, 3 heads)
+I = 4, hid = 128, three outputs; ``ihc``, z = 25 of latent 32, I = 5, hid = 32, 3 heads;
+``navier_stokes_nonmaml``, NS width at its validation's 160 x 2048)
 and launch shapes: the forecast's and validation's 160 x chunk (512 / 1024 / 2048),
 160 x 512, 80 x 512, 8 x 4096 and a ragged 8 x 1000 (for ``ihc`` also validation's
 14 x 2048), and for each ``--latents`` Z the ragged 8 x 1000 with Z latents; one rel-L2
@@ -30,9 +32,15 @@ the new build misses the rel-L2 tolerance of ``chip_smoke.py`` at any shape.
 
 ``--dtype bf16`` (or ``both``) also builds the bf16 program, ``fused_decode_fwd_bf16.cu`` ("new16"),
 holds it against the plain bf16 version with ``chip_smoke.py``'s bf16 gates (``bf16_gates``) at every
-shape and mode, and times it in the same turns (its shared weights laid out once by
-``bf16_weights``) beside its bound at the bf16 tensor-core rate; ``--old``, ``--skip`` and
-``--variant`` apply to the f32 program. ``--dtype bf16`` leaves the f32 program out of the turns.
+shape and mode, and times it in the same turns (what it reads laid out once, ``k1_operands``, as the
+forecast decode lays it out) beside its bound at the bf16 tensor-core rate. ``--dtype both`` applies
+``--old``, ``--skip`` and ``--variant`` to the f32 program; ``--dtype bf16`` leaves the f32 program out
+and applies them to the bf16 one: ``--old`` an earlier bf16 source (one from before the blocked G
+and tail, the first bf16 design at 2697ec8, is handed G and the tail in f32 as it reads them), ``--skip``
+a phase of ``SKIPS16`` (the current design's, or with ``--skip-base`` the earlier design's ``*_old``),
+``--variant`` one of ``VARIANTS16``. Each bf16 build other than new16 is held against the plain bf16
+version too (skip builds only printed), and every ``[timing]`` line of a bf16 build gives its
+item tile, blocks an SM, grid and L2 weight bytes per point where its library reports them.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -53,6 +62,31 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from enf_pde_tpu_torch.ops import cuda_lib  # noqa: E402
 from enf_pde_tpu_torch.ops import fused_decode as fd  # noqa: E402
+
+
+BF16 = torch.bfloat16
+
+
+class _RawLatents:
+    """A bf16 build from before the blocked G and tail (the design at 2697ec8): it reads G and the tail's wide weights
+    in f32, as the fold gives them. ``launch`` hands the wrapper's pointer list over with those swapped
+    for the f32 tensors of the call."""
+
+    def __init__(self, lib):
+        self._lib, self.G, self.tws = lib, None, ()
+        self.fused_decode_fwd_error_string = lib.fused_decode_fwd_error_string
+
+    def fused_decode_fwd_launch(self, ptrs, n_ptrs, dims, n_dims, stream):
+        p = list(ptrs)
+        p[4] = self.G.data_ptr()
+        for name in fd.BLOCKED_TAIL_NAMES if self.tws else ():
+            i = fd.TAIL_WEIGHT_NAMES.index(name)
+            p[16 + i] = self.tws[i].data_ptr()
+        return self._lib.fused_decode_fwd_launch((ctypes.c_void_p * n_ptrs)(*p), n_ptrs, dims, n_dims, stream)
+
+    def launch(self, inv, wb, A, ab, G, c, ws, tws, *rest, **kw):
+        self.G, self.tws = G, tws
+        return fd._launch(inv, wb, A, ab, G, c, ws, tws, *rest, lib=self, **kw)
 
 
 class _FirstPointers:
@@ -122,13 +156,78 @@ VARIANTS = {
 }
 
 
-def edited_source(label: str, edits: list) -> tuple:
-    """(label, path) of a copy of the current K1 source under csrc/_build/ with ``edits``."""
-    src = cuda_lib.expanded_source(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE)
+# The bf16 program's phases, each left out of a copy by its edits. The earlier design (at 2697ec8; ``--skip-base``
+# its source; 32 coordinates a block, G and the tail on 32-row mma.sync, row passes over f32 shared
+# memory): the RFF features, the LayerNorm passes (t, each head's pre, the tail's), the CUDA-core
+# dots (the logits, the head's output), the softmax pass, G's 32-row products, the tail, the mixer,
+# the staging waits (cp.async of the ring's chunks), the group rows' wgmma (q_w1, v_w1, fw; the
+# mixer's too).
+SKIPS16 = {
+    "rff_old": [("      rff_features(s_inv, nz * TILE, I, coeff, hid / 2, X, ldX);", "", 0)],
+    "layernorm_old": [("  for (int base = SPW * warp; base < n_seg;",
+                     "  for (int base = SPW * warp; base < n_seg && ldx < 0;", 0)],
+    "dots_old": [("  for (int o = warp; o < count; o += WARPS) {", "  for (int o = warp; o < count && K < 0; o += WARPS) {", 0)],
+    "softmax_old": [("    for (int idx = tid; idx < TILE * H; idx += THREADS) {\n      float m = -INFINITY;",
+                   "    for (int idx = tid; idx < 0; idx += THREADS) {\n      float m = -INFINITY;", 0)],
+    "g_old": [("          for (int zz = 0; zz < np; ++zz) {", "          for (int zz = 0; zz < np && P.B < 0; ++zz) {", 0)],
+    "tail_old": [("    if (WITH_TAIL) {\n      if constexpr (NARROW) {", "    if (WITH_TAIL) {\n      if (P.B >= 0) return;\n"
+                "      if constexpr (NARROW) {", 0)],
+    "mixer_old": [("        mixer<WN, MT, RES>(Y, P.ldP, np, H, hidm, D, Wm, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW, ring);",
+                 "", 0)],
+    "staging_old": [("    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed", "", 0),
+                  ("      cp_async_wait<STAGES - 2>();\n      fence_async_smem();", "      fence_async_smem();", 0)],
+    "wgmma_old": [(_LOOP, "  for (int c = 0; c < total && K < 0; ++c) {", 1)],
+}
+# The current design's (64-row tiles, every product a wgmma from shared memory, the LayerNorms in the
+# epilogues): the RFF features, the logits' dots (q_w1's epilogue), the softmax pass, the LayerNorms
+# (their exchange's barrier kept), gelu, the products of q_w1, v_w1 and fw, G's products, the mixer's
+# products, the tail, the staging waits, every wgmma instruction, the warpgroups' barriers a chunk.
+_STEP_WGMMA = ("      wgmma_bf16_ss64(acc, a16_desc(a + (ks0 + p) * A16_KSTEP), wg_desc(b + p * bstep), ks0 + p > 0);")
+SKIPS16.update({
+    "features": [("  for (int u = threadIdx.x; u < units; u += THREADS) {",
+                  "  for (int u = threadIdx.x; u < units && I < 0; u += THREADS) {", 0)],
+    "logits": [("      for (int h0 = 0; h0 < H; h0 += 2) {  // two heads a time", "      for (int h0 = 0; h0 < 0; h0 += 2) {", 0)],
+    "softmax": [("    for (int idx = tid; idx < TILE128 * H; idx += THREADS) {", "    for (int idx = tid; idx < 0; idx += THREADS) {", 0)],
+    "layernorm": [("    row_moments(v, N, mean, rstd);", "    mean[0] = mean[1] = 0.0f;\n    rstd[0] = rstd[1] = 1.0f;", 0),
+                  ("      layer_norm(acc, n0, hid, xs, par);", "      __syncthreads();", 0),
+                  ("        layer_norm(acc, n0, hidm, xs, par);", "        __syncthreads();", 0)],
+    "gelu": [("        x0 = gelu_tanh(x0);\n        x1 = gelu_tanh(x1);", "", 0),
+             ("        acc[i] = gelu_tanh(acc[i] + bf.x);\n        acc[i + 1] = gelu_tanh(acc[i + 1] + bf.y);",
+              "        acc[i] = acc[i] + bf.x;\n        acc[i + 1] = acc[i + 1] + bf.y;", 0),
+             ("          acc[i] = gelu_tanh(acc[i] + cc.x);\n          acc[i + 1] = gelu_tanh(acc[i + 1] + cc.y);",
+              "          acc[i] = acc[i] + cc.x;\n          acc[i + 1] = acc[i + 1] + cc.y;", 0)],
+    "qvf": [("      product(st, X16, acc);\n      ACC_PAIRS(if (n0 + col < hid) {\n        const float2 bq", "      cp_async_wait<0>();\n      ACC_PAIRS(if (n0 + col < hid) {\n        const float2 bq", 0),
+            ("      product(st, X16, acc);\n      prime(st, P.fws", "      cp_async_wait<0>();\n      prime(st, P.fws", 0),
+            ("      product(st, Y16, acc);", "      cp_async_wait<0>();", 0)],
+    "g": [("        product(st, X16, acc);", "        cp_async_wait<0>();", 0)],
+    "mixer": [("        product_resident(mw2, wg, Y16, hidm / 16, acc);", "", 0)],
+    "tail": [("    if constexpr (WITH_TAIL) {\n      // The tail:", "    if constexpr (WITH_TAIL) {\n      if (P.B >= 0) continue;\n      // The tail:", 0)],
+    "staging": [("    cp_async_wait<STAGES128 - 3>();  // this thread's copies of chunk c have landed", "", 0)],
+    "wgmma": [(_STEP_WGMMA, "", 0)],
+    "barriers": [("    wg_bar(s.bar);                   // everyone's; chunk c - 2's products are complete", "", 0)],
+})
+# Other designs of the current bf16 source, right and timed beside it: each 16-deep k step's product in
+# a fresh accumulator summed in f32 registers (K2's rule; ROADMAP Queue 2, item 8); warpgroup rings of
+# three or six 4 KB chunks (copies one or four chunks ahead, not two); and `copy`, the same program
+# built from its expanded text (the spread between two builds of one program: the class 128's code
+# is long, and two builds of it differed by up to 12 % on an H100).
+VARIANTS16 = {
+    "fresh": [("constexpr int FRESH_ACC = 0;", "constexpr int FRESH_ACC = 1;", 0)],
+    "stages3": [("constexpr int STAGES128 = 4;", "constexpr int STAGES128 = 3;", 0)],
+    "stages6": [("constexpr int STAGES128 = 4;", "constexpr int STAGES128 = 6;", 0)],
+    "copy": [],
+}
+
+
+def edited_source(label: str, edits: list, base: Optional[Path] = None) -> tuple:
+    """(label, path) of a copy of ``base`` (the current f32 K1 source by default) under csrc/_build/
+    with ``edits``."""
+    base = base or cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE
+    src = cuda_lib.expanded_source(base)
     for text, repl, which in edits:
         parts = src.split(text)
         if len(parts) <= which + 1:
-            raise SystemExit(f"k1_compare: {label}: {text.strip()!r} is no longer in {fd.KERNEL_SOURCE}")
+            raise SystemExit(f"k1_compare: {label}: {text.strip()!r} is no longer in {base.name}")
         src = text.join(parts[:which + 1]) + repl + text.join(parts[which + 1:])
     path = cuda_lib.BUILD_DIR / f"fused_decode_fwd_{label}.cu"
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -152,11 +251,11 @@ def occupancy_line(sources: dict, args, H: int, D: int, out_dim: int) -> str:
     return "; ".join(parts)
 
 
-def compare_shape(shape: str, opts, kernels: dict, widths: dict, sources: dict, olds: list, extra: list,
-                  worst: dict) -> None:
-    bf = "new16" in kernels
-    """Every build against the plain version at ``shape``'s widths and launch shapes, then
-    their times in turns at the first two; the worst rel-L2 of each build into ``worst``."""
+def compare_shape(shape: str, opts, kernels: dict, dtypes: dict, prepare: dict, sources: dict, olds: list,
+                  extra: list, worst: dict) -> None:
+    """Every build against the plain version of its program at ``shape``'s widths and launch shapes,
+    then their times in turns at the first two; the worst rel-L2 of each f32 build into ``worst``
+    (a bf16 build that misses phase 35's gates: inf)."""
     cfg = cs.shape_config(shape)
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     dev = torch.device("cuda")
@@ -174,45 +273,45 @@ def compare_shape(shape: str, opts, kernels: dict, widths: dict, sources: dict, 
             cs.shape_config(shape, f"nef.num_latents={z}"), coords, dev, 8, 1000, cs.SEED + 20 + z)
     cs.log(f"[shape] {shape}: z={cfg.nef.num_latents} I={inputs[next(iter(inputs))][0].shape[-1]} "
            f"hid={cfg.nef.num_hidden} H={H} latent_dim={cfg.nef.latent_dim}")
+    skips = {n for n in kernels if n.startswith("skip_")}
     with torch.no_grad():
         for label, args in inputs.items():
             for tail, kargs in ((True, args), (False, (*args[:7], ()))):
                 ref = fd.fused_decode_plain(*kargs, H, D)
-                if bf:
-                    try:
-                        cs.bf16_gates(f"K1 {shape} {'tail' if tail else 'no-tail'} {label} new16", kernels["new16"](
-                            *kargs, H, D), fd.fused_decode_plain(*kargs, H, D, torch.bfloat16), ref, absolute=True)
-                    except AssertionError as e:
-                        cs.log(f"[check] {e}")
-                        worst["new16"] = float("inf")
+                ref16 = fd.fused_decode_plain(*kargs, H, D, torch.bfloat16) if BF16 in dtypes.values() else None
                 parts = []
                 for name, k1 in kernels.items():
-                    if name == "new16":
-                        continue
                     try:
                         out = k1(*kargs, H, D)
                     except RuntimeError as e:  # an older build's layout may refuse the shape
-                        if name == "new":
+                        if name in ("new", "new16"):
                             raise
                         parts.append(f"{name} refused ({e})")
                         continue
-                    rel = cs.rel_l2(out, ref) if torch.isfinite(out).all() else float("inf")
-                    worst[name] = max(worst[name], rel)
+                    if dtypes[name] == BF16 and name not in skips:
+                        try:
+                            cs.bf16_gates(f"K1 {shape} {'tail' if tail else 'no-tail'} {label} {name}", out, ref16, ref,
+                                          absolute=True)
+                        except AssertionError as e:
+                            cs.log(f"[check] {e}")
+                            worst[name] = float("inf")
+                        continue
+                    rel = cs.rel_l2(out, ref16 if dtypes[name] == BF16 else ref) if torch.isfinite(out).all() \
+                        else float("inf")
+                    if name not in skips:
+                        worst[name] = max(worst[name], rel)
                     parts.append(f"{name} {rel:.3e} (max abs {float((out - ref).abs().max()):.3e})")
-                cs.log(f"[check] K1 {shape} {'tail' if tail else 'no-tail'} {label} rel_l2 vs plain: " + "; ".join(parts))
+                if parts:
+                    cs.log(f"[check] K1 {shape} {'tail' if tail else 'no-tail'} {label} rel_l2 vs plain: "
+                           + "; ".join(parts))
         torch.cuda.synchronize()
 
-        f32s = [n for n in ("new",) if n in kernels]
-        news = [*f32s, *(["new16"] if bf else [])]
+        news = [n for n in ("new", "new16") if n in kernels]
         order = ["plain", *olds, *extra, *news, *news[::-1], *extra[::-1], *olds[::-1], "plain"]
         for label in list(inputs)[:2]:
             args = inputs[label]
-            splits = {w: fd.shared_weights(args[6], width=w) for w in set(widths.values())}  # once, as the forecast decode splits
-            fns = {name: partial(k1, *args, H, D, split=splits[widths[name]]) for name, k1 in kernels.items()
-                   if name != "new16"}
+            fns = {name: partial(k1, *args, H, D, split=prepare[name](args, H)) for name, k1 in kernels.items()}
             fns["plain"] = partial(fd.fused_decode_plain, *args, H, D)
-            if bf:
-                fns["new16"] = partial(kernels["new16"], *args, H, D, split=fd.shared_weights(args[6], torch.bfloat16))
             samples = {name: [] for name in fns}
             for name in order:
                 iters = 5 if name == "plain" else opts.iters
@@ -232,54 +331,68 @@ def compare_shape(shape: str, opts, kernels: dict, widths: dict, sources: dict, 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", action="append", default=[],
-                    help="an earlier K1 source with a compatible C interface (repeatable)")
-    ap.add_argument("--skip", action="append", default=[], choices=sorted(SKIPS),
-                    help="also build the current source without this phase (timing only; repeatable)")
-    ap.add_argument("--variant", action="append", default=[], choices=sorted(VARIANTS),
+                    help="an earlier K1 source of the program with a compatible C interface (repeatable)")
+    ap.add_argument("--skip", action="append", default=[], choices=sorted({*SKIPS, *SKIPS16}),
+                    help="also build the current source (or --skip-base) without this phase (timing only; repeatable)")
+    ap.add_argument("--skip-base", default=None, help="the source that --skip edits (default: the current one)")
+    ap.add_argument("--variant", action="append", default=[], choices=sorted({*VARIANTS, *VARIANTS16}),
                     help="also build and time this design of the current source (repeatable)")
     ap.add_argument("--iters", type=int, default=20, help="kernel launches per timed sample")
-    ap.add_argument("--shape", action="append", choices=("navier_stokes", "diffusion_plane",
-                                                         "cahn_hilliard", "diff_sphere", "shallow_water", "ihc"),
+    ap.add_argument("--shape", action="append", choices=("navier_stokes", "diffusion_plane", "cahn_hilliard",
+                                                         "diff_sphere", "shallow_water", "ihc", "navier_stokes_nonmaml"),
                     help="a config whose widths K1 runs at (repeatable; default navier_stokes)")
     ap.add_argument("--latents", action="append", type=int, default=[],
                     help="also check K1 with this many latents at each shape's widths, 8 x 1000 (repeatable)")
     ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="f32",
                     help="the programs held and timed: f32 (3xTF32), bf16, or both in the same turns")
     opts = ap.parse_args()
+    bf = opts.dtype == "bf16"  # --old, --skip and --variant apply to the bf16 program
+    skips, variants_of = (SKIPS16, VARIANTS16) if bf else (SKIPS, VARIANTS)
+    for name in opts.skip + opts.variant:
+        if name not in skips and name not in variants_of:
+            raise SystemExit(f"k1_compare: {name} is not a phase or variant of the {'bf16' if bf else 'f32'} program")
     if not torch.cuda.is_available():
         print("k1_compare: torch.cuda.is_available() is False; this needs a CUDA card.", file=sys.stderr)
         return 2
+    current = cuda_lib.CSRC_DIR / (fd.KERNEL_SOURCE_BF16 if bf else fd.KERNEL_SOURCE)
     sources = {"new": str(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE)} if opts.dtype != "bf16" else {}
     if opts.dtype != "f32":
         sources["new16"] = str(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16)
     olds = [Path(p).stem for p in opts.old]
     sources.update({name: str(Path(p).resolve()) for name, p in zip(olds, opts.old)})
-    variants = dict(edited_source(f"skip_{p}", SKIPS[p]) for p in opts.skip)
-    variants.update(edited_source(v, VARIANTS[v]) for v in opts.variant)
+    base = Path(opts.skip_base).resolve() if opts.skip_base else current
+    variants = dict(edited_source(f"skip_{p}", skips[p], base) for p in opts.skip)
+    variants.update(edited_source(v, variants_of[v], current) for v in opts.variant)
     extra = list(variants)
     sources.update(variants)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(cuda_lib.build, sources.values())))
-    kernels, widths = {}, {}
+    kernels, dtypes, prepare = {}, {}, {}
     for name, path in paths.items():
         report = path.with_name(path.name.replace(".so", ".ptxas.txt")).read_text().splitlines()
         for ln in report:
             if any(w in ln for w in ("registers", "spill", "Compiling entry", "Function properties", "warning", "wgmma")):
                 cs.log(f"[build] {name}: {ln.strip()}")
         lib = fd._fwd_lib(sources[name])
-        n_ptrs = int(re.search(r"kNumPtrs = (\d+);", Path(sources[name]).read_text()).group(1)) \
-            if name in olds else None
+        text = Path(sources[name]).read_text()
+        n_ptrs = int(re.search(r"kNumPtrs = (\d+);", text).group(1)) if name in olds else None
         if n_ptrs is not None and n_ptrs < 33:
             lib = _FirstPointers(lib, n_ptrs)
+        dtypes[name] = BF16 if name == "new16" or (bf and name != "new") else torch.float32
         # A build from before the width classes reads the shared weights in WG_N slabs at every width.
-        widths[name] = None if "fused_decode_fwd_occupancy" in Path(sources[name]).read_text() else fd.WG_N
-        kernels[name] = partial(fd._launch, lib=lib, width=widths[name],
-                                **({"compute_dtype": torch.bfloat16} if name == "new16" else {}))
+        width = None if "fused_decode_fwd_occupancy" in text else fd.WG_N
+        if dtypes[name] == BF16 and "TILE128" not in text:  # the earlier bf16 design: G and the tail in f32
+            kernels[name] = partial(_RawLatents(lib).launch, width=width, compute_dtype=BF16)
+        else:
+            kernels[name] = partial(fd._launch, lib=lib, width=width, compute_dtype=dtypes[name])
+        # What the build reads laid out once, as the forecast decode lays it out.
+        prepare[name] = partial(lambda a, H, w, dt: fd.k1_operands(a[4], a[6], a[7], H, dt) if w is None
+                                else fd.shared_weights(a[6], dt, width=w), w=width, dt=dtypes[name])
     cs.log(f"[device] {torch.cuda.get_device_name(0)} | {cs.nvidia_smi()} | torch {torch.__version__}")
 
     worst = {name: 0.0 for name in kernels}
     for shape in opts.shape or ["navier_stokes"]:
-        compare_shape(shape, opts, kernels, widths, sources, olds, extra, worst)
+        compare_shape(shape, opts, kernels, dtypes, prepare, sources, olds, extra, worst)
     cs.log(cs.nvidia_smi())
     return 0 if worst.get("new", 0.0) <= cs.REL_L2_TOL and worst.get("new16", 0.0) == 0.0 else 1
 
