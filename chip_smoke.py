@@ -303,6 +303,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -364,6 +365,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     k1_smem_bytes,
     k1_width_class,
     k2_occupancy,
+    k2_ns_design,
     k2_scratch_bytes,
     k2_smem_bytes,
     shared_weights,
@@ -785,19 +787,24 @@ def k2_bounds(cfg, args, g, wg: bool) -> dict:
                 bound_by="bytes" if b_bytes >= b_tc else "operations")
 
 
-def k2_layout(args, num_heads: int, head_dim: int, num_out: int, wg: bool) -> dict:
+def k2_layout(args, num_heads: int, head_dim: int, num_out: int, wg: bool, dtype=torch.float32) -> dict:
     """The built K2 library's layout of a tail launch of ``args`` (shared memory, blocks an SM,
-    grid, row slots, scratch bytes), held equal to the Python mirrors ``k2_smem_bytes`` and
-    ``k2_scratch_bytes`` (at the library's blocks an SM and this card's SMs)."""
+    grid, row slots, scratch bytes) for the program of ``dtype``, held equal to the Python mirrors
+    ``k2_smem_bytes`` and ``k2_scratch_bytes`` (at the library's blocks an SM and this card's SMs);
+    with the items a block takes."""
     inv, ws = args[0], args[6]
     B, Z, C, I = inv.shape
     hid, hidm = ws[1].shape[0], ws[8].shape[0]
-    lay = k2_occupancy([B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, 1, int(wg)])
+    src = BWD_KERNEL_SOURCE_BF16 if dtype == BF16 else BWD_KERNEL_SOURCE
+    lay = k2_occupancy([B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, 1, int(wg)], src)
+    lay["ipb"] = -(-B * -(-C // 64) // lay["grid"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mirror = (k2_smem_bytes(Z, I, hid, num_heads, head_dim, hidm),
-              k2_scratch_bytes(B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, True, wg, lay["per_sm"], sms))
+    mirror = (k2_smem_bytes(Z, I, hid, num_heads, head_dim, hidm, dtype),
+              k2_scratch_bytes(B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, True, wg, lay["per_sm"], sms,
+                               compute_dtype=dtype))
     if mirror != (lay["smem"], lay["scratch"]):
         raise AssertionError(f"K2's layout {lay} differs from its Python mirror (smem, scratch) {mirror}")
+    lay["ns"] = dtype == BF16 and k2_ns_design(Z, hid, num_heads, head_dim, hidm)
     return lay
 
 
@@ -2796,8 +2803,9 @@ def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
     """K2's bf16 program against the plain bf16 version (tail mode, ``wgs`` weight-gradient modes;
     phase 35's gates per gradient tensor) with the cotangent 0 where an RFF ReLU lies within
     BF16_TIE_MARGIN of its kink (the number of such points and the whole cotangent's numbers
-    printed beside); two launches bit for bit; timed beside the f32 program and the plain bf16
-    version."""
+    printed beside); two launches bit for bit, and dinv ... dc the same bits with and without weight
+    gradients; timed beside the f32 program and the plain bf16 version, with the launch's plan (its
+    design, shared memory, blocks an SM, grid, items a block, scratch bytes: ``k2_layout``)."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     keep = ~relu_ties(args, BF16_TIE_MARGIN)
     gk = g * keep[..., None]
@@ -2829,11 +2837,19 @@ def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
         p_ms = cuda_ms(lambda: fused_decode_bwd_plain(*args, g, H, D, wg, compute_dtype=BF16), iters=2, warmup=1)
         bd = k2_bounds(cfg, args, g, wg)
         bound = bf16_bound(bd["flops"], bd["moved"])
+        lay = k2_layout(args, H, D, cfg.nef.num_out, wg, BF16)
         log(f"[timing] K2 bf16 {mode}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} "
-            f"ms); {ms16 / bound['bound_ms']:.1f}x its bound")
+            f"ms); {ms16 / bound['bound_ms']:.1f}x its bound; {'the NS design' if lay['ns'] else 'the class design'}, "
+            f"{lay['smem']} B shared, {lay['per_sm']} blocks an SM, grid {lay['grid']}, {lay['ipb']} items a block, "
+            f"scratch {lay['scratch'] / 1e6:.1f} MB")
         out[wg] = dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=worst["max_abs_err"], **bound)
         torch.cuda.empty_cache()
+    # dinv ... dc the same bits with and without weight gradients (the order of every sum does not depend on them).
+    without, with_w = (fused_decode_bwd(*args, gk, H, D, wg, compute_dtype=BF16)[:6] for wg in (False, True))
+    if not all(torch.equal(x, y) for x, y in zip(without, with_w)):
+        raise AssertionError(f"K2 bf16 {label}: dinv ... dc differ with and without weight gradients")
+    log(f"[bf16] K2 {label}: two launches bit for bit; dinv ... dc the same bits with and without weight gradients")
     return out
 
 
@@ -3060,6 +3076,23 @@ BF16_K1_MANY_LATENTS = (
 )
 
 
+def k1_wide_inputs(dev, b: int, c: int, seed: int):
+    """(cfg, args) of K1 at hid 128, one head, hidm = D = 256: the NS decoder's inputs at two heads with
+    their G and c read as one head of 256 columns, A and ab cut to one head, m_w2 [256, 256] and m_b2
+    drawn anew (seeded; m_w2 at the NS weight's scale over twice the rows). No shipped decoder has this
+    shape (each has hidm = D = hid); the bf16 K1's class 128 takes it in its wide instantiation. ``cfg``
+    holds what the checks read of it (nef.num_heads, num_hidden, num_out)."""
+    cfg = shape_config("navier_stokes")
+    inv, wb, A, ab, G, c_, ws, tws = decode_inputs(cfg, config_coords(cfg), dev, b, c, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    m_w2, m_b2 = ws[8], ws[9]
+    ws = list(ws)
+    ws[8] = (torch.randn(256, 256, generator=gen) * float(m_w2.std()) * math.sqrt(0.5)).to(dev)
+    ws[9] = (torch.randn(256, generator=gen) * float(m_b2.std())).to(dev)
+    wide = types.SimpleNamespace(nef=types.SimpleNamespace(num_heads=1, num_hidden=256, num_out=cfg.nef.num_out))
+    return wide, (inv, wb, A[..., :1].contiguous(), ab[..., :1].contiguous(), G, c_, ws, tws)
+
+
 def bf16_phase(dev) -> dict:
     """35. The bf16 programs of K1 and K2 (the YAMLs' ``pallas`` on the card, JAX's
     ``compute_dtype=bfloat16``): each held against the plain bf16 version with phase 35's gates
@@ -3085,6 +3118,11 @@ def bf16_phase(dev) -> dict:
         k1_bf16_check(cfg, args, f"{name} {' '.join(over)} (many latents) b={b} c={c}", witness=True)
         del args
         torch.cuda.empty_cache()
+    wcfg, args = k1_wide_inputs(dev, NUM_SIGNALS * 10, 512, SEED + 75)
+    k1_wide = k1_bf16_check(wcfg, args, f"navier_stokes widths, one head, hidm = D = 256 (the class 128's wide "
+                                         f"instantiation; no decoder reaches it) b={NUM_SIGNALS * 10} c=512")
+    del args
+    torch.cuda.empty_cache()
     for i, (name, over, b, c, wgs, label) in enumerate(BF16_K2_SHAPES):
         cfg = shape_config(name, *over)
         coords = config_coords(cfg)
@@ -3132,7 +3170,7 @@ def bf16_phase(dev) -> dict:
     # The nef step on the kernels in bf16 against the plain bf16 composition, and its witnesses.
     witness = nef_witness(load_experiment_config("navier_stokes", ["nef.backend=pallas"]), coords, traj)
     log(f"[phase 35] bf16 programs in {time.perf_counter() - t0:.2f} s")
-    return {"timing": res, "medians": medians, "forecast_rel": fc_rel, "witness": witness}
+    return {"timing": res, "medians": medians, "forecast_rel": fc_rel, "witness": witness, "k1_wide": k1_wide}
 
 
 def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16) -> list:
@@ -3219,9 +3257,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for src, lib_path in zip(sources, lib_paths):
         ptxas = lib_path.with_name(lib_path.name.replace(".so", ".ptxas.txt"))
-        # Registers and spills of every instantiation, and any wgmma that ptxas serialized (C7510, C7520).
+        # Registers and spills of every instantiation, and any wgmma that ptxas serialized (C7510, C7512, C7520).
         report = [ln.strip() for ln in ptxas.read_text().splitlines()
-                  if any(w in ln for w in ("Used ", "spill", "C7510", "C7520"))] if ptxas.exists() else []
+                  if any(w in ln for w in ("Used ", "spill", "C7510", "C7512", "C7520"))] if ptxas.exists() else []
         log(f"[build] {src} with nvcc -> {lib_path.name}")
         for ln in report:
             log(f"[build] ptxas: {ln}")

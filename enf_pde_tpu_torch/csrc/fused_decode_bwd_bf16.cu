@@ -5,19 +5,14 @@
 // (enf_pde_tpu/ops/pallas_decode.py) in its bf16 mode (`_Spec.compute_dtype` bf16): the VJP of
 // `_tile_decode` at bf16, as JAX's autodiff takes it through the casts. The plain PyTorch version
 // of the same function is `fused_decode_bwd_plain(..., compute_dtype=torch.bfloat16)` in
-// enf_pde_tpu_torch/ops/fused_decode.py (autograd over the plain bf16 forward). The f32 program
-// (3xTF32) is fused_decode_bwd.cu; this source is that design (its header states the passes, the
-// blocks, the workspace and the partials; fused_decode_bwd_common.cuh and fused_decode_bwd_host.cuh
-// hold what the two programs share) with what the bf16 function changes:
-//   - every forward product takes its operands rounded to bf16 (bf16_mma.cuh): one bf16 wgmma
-//     m64nWNk16 a 16-deep chunk. An input gradient dX = dY W^T is JAX's dot of the f32 cotangent
-//     dY with the bf16 W, rounded to bf16 after the product (the cotangent of a bf16 operand):
-//     dY goes in as three bf16 terms (exact to f32 rounding; three wgmma) and the epilogue
-//     rounds. A row contraction X^T dY takes the bf16 X and dY in three terms; nbar (the
-//     softmax-weighted sum of the mixer's normalized hidden, which JAX never rounds) takes three
-//     too: with both operands in three terms, the six products of terms i + j <= 2. The shared
-//     weights are converted to bf16 once a launch, both ways (`weights_kernel`), one part
-//     where the f32 program keeps two;
+// enf_pde_tpu_torch/ops/fused_decode.py (autograd over the plain bf16 forward). What the bf16
+// function changes against the f32 one, in every design of this source:
+//   - every forward product takes its operands rounded to bf16 (bf16_mma.cuh). An input gradient
+//     dX = dY W^T is JAX's dot of the f32 cotangent dY with the bf16 W, rounded to bf16 after the
+//     product (the cotangent of a bf16 operand): dY goes in as three bf16 terms (exact to f32
+//     rounding) and the epilogue rounds. nbar (the softmax-weighted sum of the mixer's normalized
+//     hidden, which JAX never rounds) takes three terms too; with both operands in three terms, the
+//     six products of terms i + j <= 2;
 //   - the gradients of the bf16 operands JAX casts (A, G and every weight matrix) are rounded to
 //     bf16 once their sums are whole, in pass 2; m_w2's a head (JAX casts it in each head's
 //     product), so its partials are kept a head;
@@ -26,19 +21,42 @@
 //     dp = bf16(<e, n16> + <dy, m_b2>) (the bias term no longer cancels);
 //   - the polynomial sin / cos of `_fast_sincos` and its derivative in the RFF VJP.
 // Partials stay f32 and are reduced in a fixed order: two launches give the same bits.
-// What bounds it: the products at the bf16 rate, 0.128 / 0.176 ms at NS 80 x 512 without / with
-// weight gradients. Measured (PERF.md §6, an H100): 6.32 / 9.10 ms against 7.42 / 10.46 for
-// the f32 program; every gradient group within 0.24 of the bf16 function's distance from f32 of
-// the plain bf16 version (chip_smoke.py phase 35). The LayerNorm passes, the partials and the
-// product loops' overhead remain (fused_decode_bwd.cu's findings), the cotangent products at three terms.
-// Shared memory (k2_smem_bytes mirrors it, with compute_dtype=torch.bfloat16): the f32
-// program's with the staging at three quarters of its floats (three bf16 parts a slab) and two
-// [64][H] rows, the sums of the rounded softmax weights and <dy, m_b2>.
+// Two designs:
+//   - the NS design (`fused_decode_bwd_ns`, below its own header): every launch at Navier-Stokes
+//     width (hid = hidm = D = 128, two heads: NS, shallow water, abs_pos, the rollout; `Dims::ns`):
+//     bf16 operands written once in wgmma's shared-memory layouts, every product from shared memory
+//     by descriptor, its columns split between the two warpgroups, its whole K in the accumulator,
+//     the LayerNorm VJPs in the epilogues. Shared memory (k2_smem_bytes mirrors it) NS_SMEM and
+//     1,024 B a latent: 211,968 B at NS (z = 4), 216,064 B at shallow water (z = 8); one block an SM;
+//   - the class design (every other shape): the f32 program's (fused_decode_bwd.cu, whose header
+//     states its passes, blocks, workspace and partials) with bf16 products: one bf16 wgmma
+//     m64nWNk16 a 16-deep chunk into a fresh accumulator, A's fragments loaded from f32 shared memory
+//     and rounded or split each chunk, B staged through registers, row passes over f32 shared memory;
+//     its shared memory the f32 program's with the staging at three quarters of its floats and two
+//     [64][H] rows. The narrow classes (8, 16, 32) and the class 64's other widths take it.
+// What bounds it: the products at the bf16 rate, 0.1282 / 0.1757 ms at NS 80 x 512 without / with
+// weight gradients (NVIDIA H100 80GB HBM3, 700 W). Measured (PERF.md §6, NVIDIA H100 80GB HBM3 at
+// 700.00 W; tools/k2_compare.py in one call): the class design at NS 6.28 / 9.05 ms, where its chunk loops
+// took 2.04 / 2.33 ms, the LayerNorm passes 1.43 / 1.66, the partials 0.43 / 2.13; the NS design 4.89 /
+// 6.28 ms (38 / 36x the bound), SW 10 x 2048 4.79 / 5.98 (class design 6.20 / 8.83), 400 x 512 24.44 /
+// 31.19 (30.89 / 45.18). What holds the NS design now: its product loops wait on the tensor cores a chunk
+// at a time (1.28 ms of the loops, 0.89 of wgmma), the tail (0.99 / 1.67), and with weight gradients
+// the partials' traffic (1.45) and the row contractions (1.47).
 
 #include "fused_decode_bwd_common.cuh"  // constants, wgmma / cp.async helpers, shared row passes
 #include "bf16_mma.cuh"                  // bf16_round, pack_bf16, split3_bf16, wgmma_bf16, fast_sincos
 
 namespace {
+
+// The NS design's sizes (fused_decode_bwd_ns, below).
+constexpr int NS_HID = 128;      // hid = hidm = D
+constexpr int NS_W = 256;        // H hidm = H D, two heads
+constexpr int NS_STAGES = 4;     // 4 KB chunks of a warpgroup's ring; the copies run NS_STAGES - 2 ahead
+constexpr int NS_RING = 2 * NS_STAGES * 4096;  // bytes of the two rings
+constexpr int NS_U = 163840;     // bytes of the operand planes (the phases' union, below)
+constexpr int NS_SMALL = 4 * (4 * TILE + TILE * MAX_I + 2048);  // psum, dyb, invariants, the sums' exchange, the column sums
+constexpr int NS_SMEM = NS_RING + NS_U + NS_SMALL;  // and every latent's softmax weights and dp: 2 Z TILE 2 floats
+constexpr int NS_GBLK = NS_HID * NS_W;  // floats of one (b, z)'s G in bf16 blocks, both ways
 
 // Floats of the B staging: a ring of `stages` chunk buffers of two slabs of 24 wn (three bf16
 // parts of 16 k x wn n).
@@ -67,6 +85,10 @@ struct Dims {
   long long w_off[20], w_len[20], o_off[20], o_len[20];
   int n_w;
   long long l_w, l_wo, part;
+  // The NS design (fused_decode_bwd_ns): taken, G's bf16 blocks at g_off of the workspace (after the
+  // shared weights, inside split_total), and the block's workspace pieces.
+  int ns;
+  long long g_off, x_e, x_u, x_q1, x_gq2, x_gq3, x_nbar, x_img;
 };
 
 __host__ __device__ inline void weight_shapes(const Dims& d, int* rows, int* cols) {
@@ -102,6 +124,10 @@ inline bool shape(const int* v, Dims& d) {
                     2LL * d.Z * TILE * d.H + 2LL * TILE * d.H + (long long)TILE * d.I);
     if (d.smem <= SMEM_CAP) break;
   }
+  // The class 64 at NS width takes its own design (fused_decode_bwd_ns), where its layout fits.
+  const long long ns_smem = NS_SMEM + 4LL * 2 * d.Z * TILE * 2;
+  d.ns = d.wn == 64 && d.hid == NS_HID && d.hidm == NS_HID && d.D == NS_HID && d.H == 2 && ns_smem <= SMEM_CAP;
+  if (d.ns) d.smem = ns_smem;
   if (d.smem > SMEM_CAP) return false;
   d.nt = (d.C + TILE - 1) / TILE;
   d.items = (long long)d.B * d.nt;
@@ -133,6 +159,21 @@ inline bool shape(const int* v, Dims& d) {
   const bool tw = d.tail && d.wgrad;
   d.w_y = take(tw, T * d.HD); d.w_y1 = take(tw, T * d.HD);
   d.work = o;
+  if (d.ns) {  // the tail's q1, gelu'(q2), gelu'(q3); e, u; with weight gradients nbar and the tail's four planes
+    o = 0;
+    d.x_q1 = take(d.tail, T * NS_W); d.x_gq2 = take(d.tail, T * NS_W); d.x_gq3 = take(d.tail, T * NS_HID);
+    if (d.tail) {  // e and u are written after the tail's VJP has read q1 and gelu'(q2): their room
+      d.x_e = d.x_q1;
+      d.x_u = d.x_gq2;
+    } else {
+      d.x_e = take(true, T * NS_W);
+      d.x_u = take(true, T * NS_HID);
+    }
+    d.x_nbar = take(d.wgrad, T * NS_W); d.x_img = take(tw, 4 * T * NS_W / 2);
+    d.work = o;
+    d.g_off = d.split_total;
+    d.split_total += (long long)d.B * d.Z * NS_GBLK;
+  }
 
   const long long Z = d.Z;
   d.l_A = Z * d.hid * d.H; d.l_ab = Z * d.H; d.l_G = Z * d.hid * d.HH; d.l_c = Z * d.HH;
@@ -540,7 +581,8 @@ __global__ void weights_kernel(const Params P) {
   const float* src[9] = {P.q_w1, P.v_w1, P.fw, P.m_w2, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
   const int per = d.split_n / 2;
   __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(P.work);
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < 2 * d.split_total;
+  const long long n = d.ns ? d.g_off : d.split_total;  // the NS design's G blocks follow (ns_g_kernel)
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < 2 * n;
        idx += (long long)gridDim.x * blockDim.x) {
     int j = 0;  // the laid-out entry holding idx: the last whose offset is at most idx
     for (int jj = 1; jj < 18; ++jj)
@@ -779,6 +821,1140 @@ __global__ void __launch_bounds__(THREADS, minb_of(WN)) fused_decode_bwd_kernel(
   }
 }
 
+// ---- The width class 64 at NS width: a design of its own -----------------------------------------
+// Every K2 launch of the YAMLs' NS-width decoders (NS, SW, abs_pos, the rollout, a rank's and the nef
+// step's: hid = hidm = D = 128, two heads, so H hidm = H D = 256) takes it (`Dims::ns`); other shapes of
+// the class 64 take the design above. What it changes, by the class design's split (PERF.md §6):
+//   - operands in bf16, written once in the layouts wgmma reads: the epilogue that makes an activation
+//     stores it rounded to bf16 in shared memory as a 64-row A operand (`a16_index`); an f32 operand JAX
+//     does not round (the cotangents of every input gradient, nbar, dy without the tail) goes in as
+//     three bf16 planes (hi, mid, lo: their sum is the value to f32 rounding), split once in the
+//     epilogue that makes it; the products of terms i + j <= 2, the smallest first. Every product reads
+//     A and B from shared memory by descriptor: a row contraction (the weight gradients, dG) reads both
+//     of its operands, stored as 64-row A operands, transposed (MN-major);
+//   - each product's columns split between the two warpgroups (64 or 128 a warpgroup, one or two n64
+//     parts), its whole K summed in the wgmma accumulator, the B operand (the shared weights, and G laid
+//     out in bf16 blocks once a launch, both ways) streamed by each warpgroup through its own ring of
+//     NS_STAGES 4 KB chunks with its own barrier; a block barrier a product;
+//   - the LayerNorm-gelu passes and their VJPs in the epilogues (the row statistics exchanged between the
+//     warpgroups through shared memory; a head's columns are one warpgroup's), the softmax-weighted dn and
+//     dp of each head in G's epilogue, the logits and their VJP (dhq, dA) in q_w1's, the column sums (dc
+//     and the bias gradients) in the epilogue of the cotangent they sum (shuffles, then the warps in a
+//     fixed order); the RFF VJP stays a row pass (in dF's epilogue it cost 1.58 ms at NS, PERF.md §6);
+//   - f32 values the VJP needs (u, the tail's q1, gelu' of q2 and q3, e) in the block's workspace,
+//     each read back by the thread that wrote it (e by any, after a barrier); with weight gradients the
+//     tail's bf16 activations too, copied back before their row contraction; a row contraction loads the
+//     partial's old values before it issues its products.
+// The partials and pass 2 are the design's above, every sum in a fixed order: two launches give the same
+// bits, and dinv ... dc are the same with and without weight gradients.
+// The planes (bytes into U). Steps 1, 2, 4, 5, a latent at a time: the features F, hv, t, then (step 2)
+// nbar in f32 [64][256], (step 4) dpre's three planes of 64 x 256, after it du's three of 64 x 128, dhv
+// and dF in f32 [64][128]. The tail and the mixer: C (three planes of 64 x 256: nbar's, then the
+// cotangents), S (an activation, or one copied back from the workspace), E (h2, dy1), and each head's
+// nbar planes in S and E for dm_w2.
+constexpr int U_F = 0, U_HV = 16384, U_T = 32768, U_D = 49152, U_NBAR = 98304;
+constexpr int U_C = 0, U_S = 98304, U_E = 131072;
+constexpr int PL128 = TILE * 128, PL256 = TILE * 256;  // bf16 elements of a 64 x 128 and a 64 x 256 plane
+
+typedef __nv_bfloat16 bf16;
+
+// Element (r, k) of a 64-row bf16 operand in shared memory, as wgmma reads A without swizzle (K1's
+// layout): core matrices of 8 rows x 8 k (128 bytes), the row groups of a k group 128 bytes apart, the k
+// groups 1,024 bytes apart. A view from column c0 (a multiple of 8) starts 64 c0 elements further.
+__device__ __forceinline__ int a16_index(int r, int k) { return ((((k >> 3) << 3) + (r >> 3)) << 6) + ((r & 7) << 3) + (k & 7); }
+constexpr int A16_KSTEP = 1024;  // elements from one 16-deep k step to the next
+// K-major (a product's A): LBO the k groups' step, SBO the row groups'. Read transposed (MN-major, a
+// row contraction's operands, the 64 rows its K): core matrices of 8 columns (16 bytes) x 8 rows, the
+// column groups SBO apart, the row groups LBO apart.
+constexpr int A16_LBO = 1024, A16_SBO = 128, MN_LBO = 128, MN_SBO = 1024;
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+__device__ __forceinline__ void wg_bar(int id) { asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+__device__ __forceinline__ float b2f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store2(bf16* buf, int r, int n, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(buf + a16_index(r, n)) = __floats2bfloat162_rn(v0, v1);
+}
+// A pair of f32 values as three bf16 planes `pstride` elements apart (split3_bf16).
+__device__ __forceinline__ void store3(bf16* buf, int pstride, int r, int n, float v0, float v1) {
+  uint32_t t[3];
+  split3_bf16(v0, v1, t);
+  const int i = a16_index(r, n);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) *reinterpret_cast<uint32_t*>(buf + i + p * pstride) = t[p];
+}
+__device__ __forceinline__ float2 ldg2(const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); }
+__device__ __forceinline__ float2 ldcg2(const float* p) { return __ldcg(reinterpret_cast<const float2*>(p)); }
+__device__ __forceinline__ void stcg2(float* p, float a, float b) { __stcg(reinterpret_cast<float2*>(p), make_float2(a, b)); }
+
+// D (64 x 64 f32, in the fragment of the register-A product) = A (64 x 16) x B (16 x 64) + (accumulate ? D : 0), both
+// operands bf16 in shared memory; TA / TB: read MN-major (transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// A warpgroup's stream of B chunks into its ring: B's bf16 blocks (16 k x 64 n, 2 KB; block (ks, s) at
+// src + (ks nsl + s) 512 floats: `weights_kernel`'s layout), this warpgroup's slabs s0 .. s0 + NP - 1. A
+// chunk is two blocks: two k steps of the one slab (NP 1), or one k step of both (NP 2).
+struct Ring {
+  float* buf;
+  const float* src;
+  int nsl, nks, np, s0, nc, issued, bar, lt;
+};
+__device__ __forceinline__ void ring_issue(Ring& g) {
+  if (g.issued < g.nc) {
+    float* st = g.buf + (g.issued % NS_STAGES) * 1024;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int ks = g.np == 1 ? 2 * g.issued + q : g.issued, s = g.np == 1 ? g.s0 : g.s0 + q;
+      cp_async16(st + q * 512 + 4 * g.lt, g.src + ((size_t)ks * g.nsl + s) * 512 + 4 * g.lt);
+    }
+  }
+  ++g.issued;
+  cp_async_commit();  // an empty group past the end keeps the wait count uniform
+}
+// The first NS_STAGES - 2 chunks of a product's B (K = 16 nks, N = 64 nsl; this warpgroup's NP slabs) in
+// flight, before the work that precedes the product. The ring is free (`ns_run` ends so).
+__device__ __forceinline__ void ns_prime(Ring& g, const float* src, int nsl, int nks, int np) {
+  g.src = src;
+  g.nsl = nsl;
+  g.nks = nks;
+  g.np = np;
+  g.s0 = (threadIdx.x >> 7) * np;
+  g.nc = np == 1 ? nks / 2 : nks;
+  g.issued = 0;
+  for (int c = 0; c < NS_STAGES - 2; ++c) ring_issue(g);
+}
+// acc[p] (n64 part p of this warpgroup's columns) = A x B: A 64 x 16 nks in AP bf16 planes (`pstride`
+// elements apart; K-major at `a`), B the primed stream; per k step the products of A's terms, the
+// smallest first, into the accumulator (the first product of the whole K does not accumulate). Starts
+// with a block barrier (A is written), ends with every product complete and the ring free.
+template <int NP, int AP>
+__device__ __forceinline__ void ns_run(Ring& g, const bf16* a, int pstride, float (&acc)[NP][32]) {
+  // The accumulator's old values are dead (the first product does not accumulate): cleared, so that no
+  // value of an earlier product is live across the calls between two products (ptxas would serialize
+  // the wgmma of a pipeline that crosses a call, C7510).
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  __syncthreads();
+  for (int c = 0; c < g.nc; ++c) {
+    cp_async_wait<NS_STAGES - 3>();  // this thread's copies of chunk c have landed
+    fence_async_smem();              // they are visible to wgmma
+    wg_bar(g.bar);                   // everyone's; chunk c - 2's products are complete
+    ring_issue(g);                   // chunk c + NS_STAGES - 2, into chunk c - 2's stage
+    const float* st = g.buf + (c % NS_STAGES) * 1024;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) wg_fence_operands<32>(acc[p]);
+    wg_fence();
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int ks = NP == 1 ? 2 * c + q : c, p = NP == 1 ? 0 : q;
+#pragma unroll
+      for (int t = AP - 1; t >= 0; --t)
+        wgmma_ss<0, 0>(acc[p], smem_desc(a + t * pstride + ks * A16_KSTEP, A16_LBO, A16_SBO), wg_desc(st + q * 512),
+                       ks > 0 || t < AP - 1 || (NP == 2 && c > 0));
+    }
+    wg_commit();
+    wg_wait1();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) wg_fence_operands<32>(acc[p]);
+  }
+  wg_wait0();
+#pragma unroll
+  for (int p = 0; p < NP; ++p) wg_fence_operands<32>(acc[p]);
+  cp_async_wait<0>();
+  wg_bar(g.bar);
+}
+
+// This thread's part of a warpgroup's 64 x 64 accumulator: element i, its row r = r0 + 8 hr (r0 = 16 warp
+// + g) and its column col = 8 j + 2 tq + e. Loops unrolled into constant register indices.
+#define NS_LOOP(...)                                                                        \
+  _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
+    _Pragma("unroll") for (int hr = 0; hr < 2; ++hr)                                         \
+      _Pragma("unroll") for (int e_ = 0; e_ < 2; ++e_) {                                     \
+        const int i = 4 * j_ + 2 * hr + e_, col = 8 * j_ + 2 * tq + e_, r = r0 + 8 * hr;       \
+        __VA_ARGS__                                                                          \
+      }
+#define NS_PAIRS(...)                                                                       \
+  _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
+    _Pragma("unroll") for (int hr = 0; hr < 2; ++hr) {                                       \
+      const int i = 4 * j_ + 2 * hr, col = 8 * j_ + 2 * tq, r = r0 + 8 * hr;                  \
+      __VA_ARGS__                                                                            \
+    }
+#define NS_FRAG \
+  const int tq = threadIdx.x & 3, r0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2), wg = threadIdx.x >> 7
+
+// out(m, n) = sum over the 64 rows of X[r][m] Y[r][n] for X's columns m < M and Y's n < N, X in XP and Y
+// in YP bf16 planes (64-row operands, `xs` / `ys` elements apart), both read transposed: units of 64 x 64
+// over the warpgroups in turn, the products of terms i + j <= 2 a k step, the smallest first, summed in
+// the accumulator, into a block-private partial dst[m ld + n] (stored by its first contribution). The
+// partial's old values of a unit are loaded before its products are issued (their latency under the
+// products), two columns a load. Starts with a block barrier.
+template <int XP, int YP>
+__device__ __forceinline__ void ns_rows_part(const bf16* X, int xs, int M, const bf16* Y, int ys, int N, float* dst,
+                                             int ld, bool first) {
+  NS_FRAG;
+  __syncthreads();
+  const int mts = M / 64, units = mts * (N / 64);
+  for (int u = wg; u < units; u += 2) {
+    const int mt = u % mts, nt = u / mts;
+    float2* row[2] = {reinterpret_cast<float2*>(dst + (size_t)(64 * mt + r0) * ld + 64 * nt + 2 * tq),
+                      reinterpret_cast<float2*>(dst + (size_t)(64 * mt + r0 + 8) * ld + 64 * nt + 2 * tq)};
+    float2 old[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) old[h][j] = first ? make_float2(0.0f, 0.0f) : row[h][4 * j];
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    wg_fence_operands<32>(acc);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int s = 2; s >= 0; --s)
+#pragma unroll
+        for (int i = 0; i < XP; ++i) {
+          const int j = s - i;
+          if (j < 0 || j >= YP) continue;
+          const bool first_p = ks == 0 && s == (XP - 1 + YP - 1 < 2 ? XP - 1 + YP - 1 : 2) && i == (s - YP + 1 > 0 ? s - YP + 1 : 0);
+          wgmma_ss<1, 1>(acc, smem_desc(X + i * xs + a16_index(16 * ks, 64 * mt), MN_LBO, MN_SBO),
+                         smem_desc(Y + j * ys + a16_index(16 * ks, 64 * nt), MN_LBO, MN_SBO), !first_p);
+        }
+    wg_commit();
+    wg_wait0();
+    wg_fence_operands<32>(acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        row[h][4 * j] = first ? make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1])
+                              : make_float2(old[h][j].x + acc[4 * j + 2 * h], old[h][j].y + acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// Sums over a row of NV values of this thread's two rows: over its quad (two shuffles) and, with
+// `cross` (the row's columns split between the warpgroups), with the other warpgroup's through `xs` (a
+// block barrier; its two halves alternate, `par`, so that a warpgroup ahead writes the next sums into
+// the half nobody still reads).
+template <int NV>
+__device__ __forceinline__ void ns_row_sums(float (&v)[2][NV], float* xs, int& par, bool cross) {
+  NS_FRAG;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 1);
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 2);
+    }
+  if (!cross) return;
+  float* buf = xs + par * 2 * TILE * 4;  // a half: [2 warpgroups][64 rows][4]
+  par ^= 1;
+  if (tq == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < NV; ++k) buf[(wg * TILE + r0 + 8 * h) * 4 + k] = v[h][k];
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[h][k] += buf[((1 - wg) * TILE + r0 + 8 * h) * 4 + k];
+}
+
+// The RFF features of the tile's 64 coordinates (s_inv [64][I], zero past the last) into the plane F:
+// sin and cos of the f32 projection by the bf16 mode's polynomial, rounded to bf16. Not inlined: one
+// copy serves every chain. Starts with a barrier (s_inv written, F's last readers done).
+__device__ __noinline__ void ns_features(const float* s_inv, int I, const float* __restrict__ coeff, bf16* F) {
+  __syncthreads();
+  constexpr int half = NS_HID / 2, units = TILE * (half / 2);
+  for (int u = threadIdx.x; u < units; u += THREADS) {
+    const int q = u & 3, rr = (u >> 2) & 7, rest = u >> 5, rg = rest & 7, jg = rest >> 3;
+    const int t = 8 * rg + rr, j = 8 * jg + 2 * q;
+    float p0 = 0.0f, p1 = 0.0f;
+    for (int k = 0; k < I; ++k) {
+      const float xi = s_inv[t * I + k];
+      const float2 cf = ldg2(coeff + k * half + j);
+      p0 = fmaf(xi, cf.x, p0);
+      p1 = fmaf(xi, cf.y, p1);
+    }
+    float s0, k0, s1, k1;
+    fast_sincos(p0, &s0, &k0);
+    fast_sincos(p1, &s1, &k1);
+    store2(F, t, j, s0, s1);
+    store2(F, t, half + j, k0, k1);
+  }
+  fence_async_smem();
+}
+
+// dm_b2[n] (+)= sum_t sum_h psum[t, h] dy[t, h 128 + n] (the bias taking each latent's rounded softmax
+// weight; psum [64][2]), dy in npl bf16 planes (`ps` elements apart; their sum is the value), in the order of
+// col_sums_psum. Starts with a barrier.
+__device__ __noinline__ void ns_dm_b2(const bf16* Y, int ps, int npl, float* dst, bool first, const float* psum) {
+  __syncthreads();
+  for (int n = threadIdx.x; n < NS_HID; n += THREADS) {
+    float s = 0.0f;
+    for (int t = 0; t < TILE; ++t)
+      for (int h = 0; h < 2; ++h) {
+        const int i = a16_index(t, h * NS_HID + n);
+        float v = b2f(Y[i]);
+        for (int p = 1; p < npl; ++p) v += b2f(Y[i + p * ps]);
+        s = fmaf(psum[t * 2 + h], v, s);
+      }
+    dst[n] = first ? s : dst[n] + s;
+  }
+}
+
+// The head's last layer's weight gradients (on the CUDA cores): dh_w3[k, o] (+)= sum_t bf16(h2[t, k])
+// g[t, o] and dh_b3[o] (+)= sum_t g[t, o] over the rows t < rows; h2 in the plane H2.
+__device__ __noinline__ void ns_head_wgrad(const bf16* H2, const float* __restrict__ gsrc, int rows, int out, float* dw,
+                                           float* db, bool first) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < NS_HID * out; idx += THREADS) {
+    const int k = idx / out, o = idx - k * out;
+    float s = 0.0f;
+    for (int t = 0; t < rows; ++t) s = fmaf(b2f(H2[a16_index(t, k)]), __ldg(gsrc + t * out + o), s);
+    dw[idx] = first ? s : dw[idx] + s;
+  }
+  for (int o = threadIdx.x; o < out; o += THREADS) {
+    float s = 0.0f;
+    for (int t = 0; t < rows; ++t) s += __ldg(gsrc + t * out + o);
+    db[o] = first ? s : db[o] + s;
+  }
+}
+
+// The column sums over the tile's 64 rows of the values an epilogue makes: cv[p][2 j + e] holds this thread's
+// two rows' sum in column 8 j + 2 tq + e of its part p (columns 128 wg + 64 p of two parts, or 64 wg of one);
+// summed over the warp's rows by shuffles, then over the warpgroup's four warps in order through cs
+// ([4][256]); dst[n] (+)= the sum, n < 128 NP (first: store). Every thread calls it (two block barriers).
+template <int NP>
+__device__ __forceinline__ void ns_col_out(float (&cv)[NP][16], float* cs, float* dst, bool first) {
+  NS_FRAG;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      float v = cv[p][k];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      cv[p][k] = v;
+    }
+  __syncthreads();  // the last readers of cs are done
+  if (lane < 4)
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        cs[warp * NS_W + (NP == 2 ? 128 * wg + 64 * p : 64 * wg) + 8 * (k >> 1) + 2 * lane + (k & 1)] = cv[p][k];
+  __syncthreads();
+  for (int n = threadIdx.x; n < 128 * NP; n += THREADS) {
+    const float v = ((cs[n] + cs[NS_W + n]) + cs[2 * NS_W + n]) + cs[3 * NS_W + n];
+    dst[n] = first ? v : dst[n] + v;
+  }
+  (void)r0;
+}
+// Adds an epilogue's pair of values (columns col, col + 1 of part p, one of this thread's rows) to cv.
+#define NS_COL_ADD(cv, p, v0, v1)       \
+  {                                     \
+    (cv)[p][2 * j_] += (v0);            \
+    (cv)[p][2 * j_ + 1] += (v1);        \
+  }
+
+// A plane's image in the workspace back into shared memory (16 bytes a copy), visible to wgmma after the
+// next block barrier.
+__device__ __forceinline__ void ns_reload(bf16* dst, const float* img, int elems) {
+  float* d = reinterpret_cast<float*>(dst);
+  for (int i = 4 * threadIdx.x; i < elems / 2; i += 4 * THREADS) cp_async16(d + i, img + i);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+}
+
+// Pass 0 of the NS design, beside `weights_kernel`: G [b, z] in bf16 blocks (`weights_kernel`'s layout, 16
+// k x 64 n a block) both ways, at g_off of the workspace, NS_GBLK floats a (b, z): as the B of t G (K =
+// hid, N = H hidm), then as the B of dpre G^T (K = H hidm, N = hid).
+__global__ void ns_g_kernel(const Params P) {
+  const Dims& d = P.d;
+  bf16* out = reinterpret_cast<bf16*>(P.work + d.g_off);
+  const long long total = 2LL * d.B * d.Z * NS_GBLK;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const long long bz = idx / (2 * NS_GBLK);
+    const int e = (int)(idx % (2 * NS_GBLK)), tr = e >= NS_GBLK, w = e % NS_GBLK;
+    const int K = tr ? NS_W : NS_HID, N = tr ? NS_HID : NS_W;
+    const int blk = w / 1024, within = w % 1024, kc = blk / (N / 64), sl = blk % (N / 64);
+    const int ng = within / 128, kg = within % 128 / 64, r = within % 64 / 8, i = within % 8;
+    const int k = 16 * kc + 8 * kg + i, n = 64 * sl + 8 * ng + r;
+    const float* G = P.G + bz * NS_HID * NS_W;
+    out[idx] = __float2bfloat16_rn(tr ? G[(size_t)n * NS_W + k] : G[(size_t)k * NS_W + n]);
+    (void)K;
+  }
+}
+
+// What every phase of the NS design reads: the planes and rows of shared memory, the block's workspace.
+struct NsCtx {
+  const Params* P;
+  char* U;                                        // the operand planes (bytes, NS_U)
+  float *s_psum, *s_dyb, *s_inv, *xs, *cs, *s_prob, *s_dlog;
+  float *x_e, *x_u, *x_q1, *x_g2, *x_g3, *x_nb, *x_img;
+  const float* Gblk;                              // G's bf16 blocks, NS_GBLK floats a (b, z)
+};
+template <class T>
+__device__ __forceinline__ T* at(const NsCtx& c, int off) { return reinterpret_cast<T*>(c.U + off); }
+__device__ __forceinline__ const float* wsplit(const Params& P, int j) { return P.work + P.d.split_off[j]; }
+
+// The phases below are inlined into the kernel (NS_PHASE): a wgmma in a function the kernel calls is
+// serialized by ptxas (C7510), which cost 10 % (tools/k2_compare.py's variant `noinline`). Each primes
+// its own first product's stream; a phase starts and ends with the ring free.
+#define NS_PHASE __forceinline__
+
+// 1. A latent's logits, hq . A[b, z] + ab + wb, in q_w1's epilogue (each warpgroup's half of the dot,
+// summed through xs), into s_prob.
+__device__ NS_PHASE void ns_logits(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z) {
+  const Params& P = *c.P;
+  NS_FRAG;
+  bf16* F = at<bf16>(c, U_F);
+  ns_prime(rg, wsplit(P, SPLIT_Q), 2, 8, 1);
+  load_inv(c.s_inv, P.inv + (bz * P.d.C + c0) * P.d.I, rows, P.d.I);
+  ns_features(c.s_inv, P.d.I, P.q_coeff, F);
+  float acc[1][32];
+  ns_run<1, 1>(rg, F, 0, acc);
+  const int n0 = 64 * wg;
+  float lg[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  NS_LOOP({
+    const float hq = bf16_round(fmaxf(acc[0][i] + __ldg(P.q_b1 + n0 + col), 0.0f));
+    const float2 a = ldg2(P.A + (bz * NS_HID + n0 + col) * 2);
+    lg[hr][0] = fmaf(hq, bf16_round(a.x), lg[hr][0]);
+    lg[hr][1] = fmaf(hq, bf16_round(a.y), lg[hr][1]);
+  })
+  ns_row_sums<2>(lg, c.xs, par, true);
+  if (tq == 0 && wg == 0)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int t = r0 + 8 * k;
+      const float w = t < rows ? __ldg(P.wb + bz * P.d.C + c0 + t) : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) c.s_prob[(z * TILE + t) * 2 + h] = lg[k][h] + __ldg(P.ab + bz * 2 + h) + w;
+    }
+}
+
+// hv = relu(F v_w1 + v_b1) into HV, then (u = hv fw + fb) t = normalize(gelu(u)) into T, u into the
+// workspace where `keep_u`: the value chain of a latent up to G's product (steps 2 and 4).
+__device__ __forceinline__ void ns_value_chain(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, bool keep_u) {
+  const Params& P = *c.P;
+  NS_FRAG;
+  bf16 *F = at<bf16>(c, U_F), *HV = at<bf16>(c, U_HV), *T = at<bf16>(c, U_T);
+  ns_prime(rg, wsplit(P, SPLIT_V), 2, 8, 1);
+  load_inv(c.s_inv, P.inv + (bz * P.d.C + c0) * P.d.I, rows, P.d.I);
+  ns_features(c.s_inv, P.d.I, P.v_coeff, F);
+  float acc[1][32];
+  ns_run<1, 1>(rg, F, 0, acc);
+  ns_prime(rg, wsplit(P, SPLIT_F), 2, 8, 1);
+  const int n0 = 64 * wg;
+  NS_PAIRS({
+    const float2 bv = ldg2(P.v_b1 + n0 + col);
+    store2(HV, r, n0 + col, fmaxf(acc[0][i] + bv.x, 0.0f), fmaxf(acc[0][i + 1] + bv.y, 0.0f));
+  })
+  fence_async_smem();
+  ns_run<1, 1>(rg, HV, 0, acc);
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  NS_PAIRS({
+    const float2 bf = ldg2(P.fb + n0 + col);
+    const float u0 = acc[0][i] + bf.x, u1 = acc[0][i + 1] + bf.y;
+    if (keep_u) stcg2(c.x_u + r * NS_HID + n0 + col, u0, u1);
+    const float x0 = gelu_tanh(u0), x1 = gelu_tanh(u1);
+    acc[0][i] = x0;
+    acc[0][i + 1] = x1;
+    v[hr][0] += x0 + x1;
+    v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+  })
+  ns_row_sums<2>(v, c.xs, par, true);
+  float mean[2], rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] = v[h][0] / NS_HID;
+    rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
+  }
+  NS_PAIRS(store2(T, r, n0 + col, (acc[0][i] - mean[hr]) * rs[hr], (acc[0][i + 1] - mean[hr]) * rs[hr]);)
+  fence_async_smem();
+}
+
+// 2. A latent's value chain, weighted into nbar (f32, NB) by the rounded softmax weights in G's epilogue:
+// nn = normalize(gelu(t G + c)) per head (a warpgroup's columns), nbar (+)= bf16(p) bf16(nn).
+__device__ NS_PHASE void ns_value(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z) {
+  const Params& P = *c.P;
+  NS_FRAG;
+  float* NB = at<float>(c, U_NBAR);
+  ns_value_chain(c, rg, par, bz, c0, rows, false);
+  ns_prime(rg, c.Gblk + bz * NS_GBLK, 4, 8, 2);
+  float ag[2][32];
+  ns_run<2, 1>(rg, at<bf16>(c, U_T), 0, ag);
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int n0p = 128 * wg + 64 * p;
+    NS_LOOP({
+      const float x = gelu_tanh(ag[p][i] + __ldg(P.c + bz * NS_W + n0p + col));
+      ag[p][i] = x;
+      v[hr][0] += x;
+      v[hr][1] = fmaf(x, x, v[hr][1]);
+    })
+  }
+  ns_row_sums<2>(v, c.xs, par, false);
+  float mean[2], rs[2], pz[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] = v[h][0] / NS_HID;
+    rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
+    pz[h] = bf16_round(c.s_prob[(z * TILE + r0 + 8 * h) * 2 + wg]);
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int n0p = 128 * wg + 64 * p;
+    NS_PAIRS({
+      float2* nb = reinterpret_cast<float2*>(NB + r * NS_W + n0p + col);
+      const float a0 = pz[hr] * bf16_round((ag[p][i] - mean[hr]) * rs[hr]);
+      const float a1 = pz[hr] * bf16_round((ag[p][i + 1] - mean[hr]) * rs[hr]);
+      if (z == 0) {
+        *nb = make_float2(a0, a1);
+      } else {
+        const float2 o = *nb;
+        *nb = make_float2(o.x + a0, o.y + a1);
+      }
+    })
+  }
+}
+
+// 3a. The tail forward: y = nbar m_w2 + psum m_b2 a head (nbar in three planes), y1, t1 = normalize(gelu(q1)),
+// y2 = gelu(q2), h1 = gelu(q3), and in q4's epilogue h2 and dq4 = dh2 gelu'(q4) (dh2 = bf16(g h_w3^T) on the
+// CUDA cores), dq4's three planes in C. q1, gelu'(q2), gelu'(q3) into the workspace; with weight gradients
+// the planes of y, y1, t1, y2 too, and h2 in E.
+__device__ NS_PHASE void ns_tail_fwd(const NsCtx& c, Ring& rg, int& par, const float* gsrc, int rows, bool wgr,
+                                     bool first_w, float* pw) {
+  const Params& P = *c.P;
+  NS_FRAG;
+  const float* NB = at<float>(c, U_NBAR);
+  bf16 *CC = at<bf16>(c, U_C), *SS = at<bf16>(c, U_S), *EE = at<bf16>(c, U_E);
+  auto img = [&](int k) { return reinterpret_cast<bf16*>(c.x_img + (size_t)k * PL256 / 2); };
+  ns_prime(rg, wsplit(P, SPLIT_M), 2, 8, 1);
+  for (int idx = threadIdx.x; idx < TILE * NS_W / 2; idx += THREADS) {  // nbar's three planes
+    const int r = idx / (NS_W / 2), n = 2 * (idx % (NS_W / 2));
+    store3(CC, PL256, r, n, NB[r * NS_W + n], NB[r * NS_W + n + 1]);
+  }
+  fence_async_smem();
+  const int n0 = 64 * wg;
+  for (int h = 0; h < 2; ++h) {  // y = nbar m_w2 + psum m_b2, a head at a time
+    float acc[1][32];
+    ns_run<1, 3>(rg, CC + 64 * NS_HID * h, PL256, acc);
+    if (h == 0)
+      ns_prime(rg, wsplit(P, SPLIT_M), 2, 8, 1);
+    else
+      ns_prime(rg, wsplit(P, SPLIT_O), 4, 16, 2);
+    const float q0 = c.s_psum[r0 * 2 + h], q1 = c.s_psum[(r0 + 8) * 2 + h];
+    NS_PAIRS({
+      const float2 mb = ldg2(P.m_b2 + n0 + col);
+      const float q = hr ? q1 : q0;
+      const float y0 = fmaf(q, mb.x, acc[0][i]), y1 = fmaf(q, mb.y, acc[0][i + 1]);
+      store2(SS, r, NS_HID * h + n0 + col, y0, y1);
+      if (wgr) store2(img(0), r, NS_HID * h + n0 + col, y0, y1);
+    })
+    fence_async_smem();
+  }
+  float ag[2][32];
+  ns_run<2, 1>(rg, SS, 0, ag);  // y1 = y o_w + o_b
+  ns_prime(rg, wsplit(P, SPLIT_P1), 4, 16, 2);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int n0p = 128 * wg + 64 * p;
+    NS_PAIRS({
+      const float2 bb = ldg2(P.o_b + n0p + col);
+      store2(CC, r, n0p + col, ag[p][i] + bb.x, ag[p][i + 1] + bb.y);
+      if (wgr) store2(img(1), r, n0p + col, ag[p][i] + bb.x, ag[p][i + 1] + bb.y);
+    })
+  }
+  fence_async_smem();
+  ns_run<2, 1>(rg, CC, 0, ag);  // q1 = y1 p_w1 + p_b1; t1 = normalize(gelu(q1)) over H D
+  ns_prime(rg, wsplit(P, SPLIT_P2), 4, 16, 2);
+  {
+    float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float2 bb = ldg2(P.p_b1 + n0p + col);
+        const float qa = ag[p][i] + bb.x, qb = ag[p][i + 1] + bb.y;
+        stcg2(c.x_q1 + r * NS_W + n0p + col, qa, qb);
+        const float x0 = gelu_tanh(qa), x1 = gelu_tanh(qb);
+        ag[p][i] = x0;
+        ag[p][i + 1] = x1;
+        v[hr][0] += x0 + x1;
+        v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+      })
+    }
+    ns_row_sums<2>(v, c.xs, par, true);
+    float mean[2], rs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = v[h][0] / NS_W;
+      rs[h] = 1.0f / sqrtf(v[h][1] / NS_W - mean[h] * mean[h] + LN_EPS);
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float x0 = (ag[p][i] - mean[hr]) * rs[hr], x1 = (ag[p][i + 1] - mean[hr]) * rs[hr];
+        store2(SS, r, n0p + col, x0, x1);
+        if (wgr) store2(img(2), r, n0p + col, x0, x1);
+      })
+    }
+    fence_async_smem();
+  }
+  ns_run<2, 1>(rg, SS, 0, ag);  // q2 = t1 p_w2 + p_b2; y2 = gelu(q2)
+  ns_prime(rg, wsplit(P, SPLIT_H1), 2, 16, 1);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int n0p = 128 * wg + 64 * p;
+    NS_PAIRS({
+      const float2 bb = ldg2(P.p_b2 + n0p + col);
+      const float2 g0 = gelu_and_grad(ag[p][i] + bb.x), g1 = gelu_and_grad(ag[p][i + 1] + bb.y);
+      store2(CC, r, n0p + col, g0.x, g1.x);
+      if (wgr) store2(img(3), r, n0p + col, g0.x, g1.x);
+      stcg2(c.x_g2 + r * NS_W + n0p + col, g0.y, g1.y);
+    })
+  }
+  fence_async_smem();
+  float acc[1][32];
+  ns_run<1, 1>(rg, CC, 0, acc);  // q3 = y2 h_w1 + h_b1; h1 = gelu(q3)
+  ns_prime(rg, wsplit(P, SPLIT_H2), 2, 8, 1);
+  NS_PAIRS({
+    const float2 bb = ldg2(P.h_b1 + n0 + col);
+    const float2 g0 = gelu_and_grad(acc[0][i] + bb.x), g1 = gelu_and_grad(acc[0][i + 1] + bb.y);
+    store2(SS, r, n0 + col, g0.x, g1.x);
+    stcg2(c.x_g3 + r * NS_HID + n0 + col, g0.y, g1.y);
+  })
+  fence_async_smem();
+  ns_run<1, 1>(rg, SS, 0, acc);  // q4 = h1 h_w2 + h_b2; h2 = gelu(q4); dq4 = dh2 gelu'(q4)
+  const int od = P.d.out;
+  float cv[1][16] = {};
+  NS_PAIRS({
+    const float2 bb = ldg2(P.h_b2 + n0 + col);
+    const float2 g0 = gelu_and_grad(acc[0][i] + bb.x), g1 = gelu_and_grad(acc[0][i + 1] + bb.y);
+    float s0 = 0.0f, s1 = 0.0f;
+    if (r < rows)
+      for (int o = 0; o < od; ++o) {
+        const float gg = __ldg(gsrc + r * od + o);
+        s0 = fmaf(gg, bf16_round(__ldg(P.h_w3 + (n0 + col) * od + o)), s0);
+        s1 = fmaf(gg, bf16_round(__ldg(P.h_w3 + (n0 + col + 1) * od + o)), s1);
+      }
+    const float q0 = bf16_round(s0) * g0.y, q1 = bf16_round(s1) * g1.y;
+    store3(CC, PL128, r, n0 + col, q0, q1);
+    NS_COL_ADD(cv, 0, q0, q1);
+    if (wgr) store2(EE, r, n0 + col, g0.x, g1.x);
+  })
+  fence_async_smem();
+  if (wgr) ns_col_out<1>(cv, c.cs, pw + P.d.w_off[17], first_w);  // dh_b2
+}
+
+// 3b. The tail's VJP from dq4 (three planes in C, h1 in S): each input gradient dX = bf16(dY W^T) and the
+// product's epilogue (gelu' from the workspace, the LayerNorm-gelu VJP of t1 with the statistics of both
+// warpgroups in one exchange), each cotangent in three planes in C; with weight gradients each row
+// contraction X^T dY after its cotangent (X copied back from the workspace into S), the bias sums in the
+// cotangents' epilogues.
+// Ends with dy = bf16(dy1 o_w^T), one plane in C.
+__device__ NS_PHASE void ns_tail_vjp(const NsCtx& c, Ring& rg, int& par, const float* gsrc, int rows, bool wgr,
+                                         bool first_w, float* pw) {
+  const Params& P = *c.P;
+  const Dims& d = P.d;
+  NS_FRAG;
+  bf16 *CC = at<bf16>(c, U_C), *SS = at<bf16>(c, U_S), *EE = at<bf16>(c, U_E);
+  auto img = [&](int k) { return c.x_img + (size_t)k * PL256 / 2; };
+  const int n0 = 64 * wg;
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_H2), 2, 8, 1);
+  if (wgr) {
+    ns_rows_part<1, 3>(SS, 0, NS_HID, CC, PL128, NS_HID, pw + d.w_off[16], NS_HID, first_w);  // dh_w2 = h1^T dq4
+    ns_head_wgrad(EE, gsrc, rows, d.out, pw + d.w_off[18], pw + d.w_off[19], first_w);
+  }
+  bf16* DQ3 = CC + 3 * PL128;
+  float acc[1][32];
+  ns_run<1, 3>(rg, CC, PL128, acc);  // dh1 = bf16(dq4 h_w2^T); dq3 = dh1 gelu'(q3)
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_H1), 4, 8, 2);
+  {
+    float cv[1][16] = {};
+    NS_PAIRS({
+      const float2 gd = ldcg2(c.x_g3 + r * NS_HID + n0 + col);
+      const float q0 = bf16_round(acc[0][i]) * gd.x, q1 = bf16_round(acc[0][i + 1]) * gd.y;
+      store3(DQ3, PL128, r, n0 + col, q0, q1);
+      NS_COL_ADD(cv, 0, q0, q1);
+    })
+    fence_async_smem();
+    if (wgr) ns_col_out<1>(cv, c.cs, pw + d.w_off[15], first_w);  // dh_b1
+  }
+  if (wgr) {  // dh_w1 = y2^T dq3
+    ns_reload(SS, img(3), PL256);
+    ns_rows_part<1, 3>(SS, 0, NS_W, DQ3, PL128, NS_HID, pw + d.w_off[14], NS_HID, first_w);
+  }
+  float ag[2][32];
+  ns_run<2, 3>(rg, DQ3, PL128, ag);  // dy2 = bf16(dq3 h_w1^T); dq2 = dy2 gelu'(q2), in C's place
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_P2), 4, 16, 2);
+  __syncthreads();  // both warpgroups are done reading dq3
+  {
+    float cv[2][16] = {};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float2 gd = ldcg2(c.x_g2 + r * NS_W + n0p + col);
+        const float q0 = bf16_round(ag[p][i]) * gd.x, q1 = bf16_round(ag[p][i + 1]) * gd.y;
+        store3(CC, PL256, r, n0p + col, q0, q1);
+        NS_COL_ADD(cv, p, q0, q1);
+      })
+    }
+    fence_async_smem();
+    if (wgr) ns_col_out<2>(cv, c.cs, pw + d.w_off[13], first_w);  // dp_b2
+  }
+  if (wgr) {  // dp_w2 = t1^T dq2
+    ns_reload(SS, img(2), PL256);
+    ns_rows_part<1, 3>(SS, 0, NS_W, CC, PL256, NS_W, pw + d.w_off[12], NS_W, first_w);
+  }
+  ns_run<2, 3>(rg, CC, PL256, ag);  // dt1 = bf16(dq2 p_w2^T); dq1 by the LayerNorm-gelu VJP, in C's place
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_P1), 4, 16, 2);
+  {
+    float v[2][4] = {};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float2 q = ldcg2(c.x_q1 + r * NS_W + n0p + col);
+        const float x0 = gelu_tanh(q.x), x1 = gelu_tanh(q.y);
+        const float d0 = bf16_round(ag[p][i]), d1 = bf16_round(ag[p][i + 1]);
+        ag[p][i] = d0;
+        ag[p][i + 1] = d1;
+        v[hr][0] += x0 + x1;
+        v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+        v[hr][2] += d0 + d1;
+        v[hr][3] = fmaf(d0, x0, fmaf(d1, x1, v[hr][3]));
+      })
+    }
+    ns_row_sums<4>(v, c.xs, par, true);  // its barrier: both warpgroups are done reading dq2
+    float mean[2], rs[2], md[2], mdn[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = v[h][0] / NS_W;
+      rs[h] = 1.0f / sqrtf(v[h][1] / NS_W - mean[h] * mean[h] + LN_EPS);
+      md[h] = v[h][2] / NS_W;
+      mdn[h] = rs[h] * (v[h][3] - mean[h] * v[h][2]) / NS_W;
+    }
+    float cv[2][16] = {};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float2 q = ldcg2(c.x_q1 + r * NS_W + n0p + col);
+        const float2 g0 = gelu_and_grad(q.x), g1 = gelu_and_grad(q.y);
+        const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
+        const float q0 = rs[hr] * (ag[p][i] - md[hr] - m0 * mdn[hr]) * g0.y;
+        const float q1 = rs[hr] * (ag[p][i + 1] - md[hr] - m1 * mdn[hr]) * g1.y;
+        store3(CC, PL256, r, n0p + col, q0, q1);
+        NS_COL_ADD(cv, p, q0, q1);
+      })
+    }
+    fence_async_smem();
+    if (wgr) ns_col_out<2>(cv, c.cs, pw + d.w_off[11], first_w);  // dp_b1
+  }
+  if (wgr) {  // dp_w1 = y1^T dq1
+    ns_reload(SS, img(1), PL256);
+    ns_rows_part<1, 3>(SS, 0, NS_W, CC, PL256, NS_W, pw + d.w_off[10], NS_W, first_w);
+  }
+  ns_run<2, 3>(rg, CC, PL256, ag);  // dy1 = bf16(dq1 p_w1^T), into E
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_O), 4, 16, 2);
+  {
+    float cv[2][16] = {};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float q0 = bf16_round(ag[p][i]), q1 = bf16_round(ag[p][i + 1]);
+        store2(EE, r, n0p + col, q0, q1);
+        NS_COL_ADD(cv, p, q0, q1);
+      })
+    }
+    fence_async_smem();
+    if (wgr) ns_col_out<2>(cv, c.cs, pw + d.w_off[9], first_w);  // do_b
+  }
+  if (wgr) {  // do_w = y^T dy1 (dy1 is bf16: one term)
+    ns_reload(SS, img(0), PL256);
+    ns_rows_part<1, 1>(SS, 0, NS_W, EE, 0, NS_W, pw + d.w_off[8], NS_W, first_w);
+  }
+  ns_run<2, 1>(rg, EE, 0, ag);  // dy = bf16(dy1 o_w^T), into C
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int n0p = 128 * wg + 64 * p;
+    NS_PAIRS(store2(CC, r, n0p + col, ag[p][i], ag[p][i + 1]);)
+  }
+  fence_async_smem();
+}
+
+// The mixer's VJP from dy (dyp planes in C): <dy_h, m_b2>; with weight gradients dm_b2 = sum psum dy and
+// dm_w2 = nbar_h^T dy_h a head (nbar_h's three planes from the workspace into S and E; each head's own
+// partial); e_h = dy_h m_w2^T into the workspace (not rounded: the cotangent of the rounded n is bf16(p16 e)).
+template <int DYP>
+__device__ NS_PHASE void ns_mixer_vjp(const NsCtx& c, Ring& rg, bool wgr, bool first_w, float* pw) {
+  const Params& P = *c.P;
+  const Dims& d = P.d;
+  NS_FRAG;
+  bf16 *CC = at<bf16>(c, U_C), *SS = at<bf16>(c, U_S);
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_M), 2, 8, 1);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * 2; idx += THREADS) {
+    const int t = idx >> 1, h = idx & 1;
+    float s = 0.0f;
+    for (int n = 0; n < NS_HID; ++n) {
+      const int i = a16_index(t, h * NS_HID + n);
+      float v = b2f(CC[i]);
+      for (int p = 1; p < DYP; ++p) v += b2f(CC[i + p * PL256]);
+      s = fmaf(v, __ldg(P.m_b2 + n), s);
+    }
+    c.s_dyb[idx] = s;
+  }
+  if (wgr) {
+    ns_dm_b2(CC, PL256, DYP, pw + d.w_off[7], first_w, c.s_psum);
+    for (int h = 0; h < 2; ++h) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < TILE * NS_HID / 2; idx += THREADS) {
+        const int r = idx / (NS_HID / 2), n = 2 * (idx % (NS_HID / 2));
+        const float2 v = ldcg2(c.x_nb + r * NS_W + h * NS_HID + n);
+        store3(SS, PL128, r, n, v.x, v.y);
+      }
+      fence_async_smem();
+      ns_rows_part<3, DYP>(SS, PL128, NS_HID, CC + 64 * NS_HID * h, PL256, NS_HID,
+                           pw + d.w_off[6] + (size_t)h * NS_HID * NS_HID, NS_HID, first_w);
+    }
+  }
+  for (int h = 0; h < 2; ++h) {
+    float acc[1][32];
+    ns_run<1, DYP>(rg, CC + 64 * NS_HID * h, PL256, acc);
+    if (h == 0) ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_M), 2, 8, 1);
+    const int n0 = NS_HID * h + 64 * wg;
+    NS_PAIRS(stcg2(c.x_e + r * NS_W + n0 + col, acc[0][i], acc[0][i + 1]);)
+  }
+}
+
+// 4. A latent's value chain again, then its VJP: in G's epilogue dn = bf16(bf16(p) e) and dp = bf16(<e, bf16(n)>
+// + <dy, m_b2>) per head (a warpgroup's columns) and dpre, three planes; dc, dG = t^T dpre; dt = bf16(dpre
+// G^T) and du by the LayerNorm-gelu VJP in its epilogue (one exchange); dfw; dhv = bf16(du fw^T) where hv >
+// 0; dv_w1; dF = bf16(dhv v_w1^T) and the RFF VJP into dinv.
+__device__ NS_PHASE void ns_value_vjp(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z,
+                                          float* pG, float* pc, bool first_row, bool wgr, bool first_w, float* pw) {
+  const Params& P = *c.P;
+  const Dims& d = P.d;
+  NS_FRAG;
+  bf16 *F = at<bf16>(c, U_F), *HV = at<bf16>(c, U_HV), *T = at<bf16>(c, U_T), *DP = at<bf16>(c, U_D);
+  ns_value_chain(c, rg, par, bz, c0, rows, true);
+  ns_prime(rg, c.Gblk + bz * NS_GBLK, 4, 8, 2);
+  float ag[2][32];
+  ns_run<2, 1>(rg, T, 0, ag);  // pre = t G + c
+  ns_prime(rg, c.Gblk + bz * NS_GBLK + NS_GBLK / 2, 2, 16, 1);
+  {
+    float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_LOOP({
+        const float x = ag[p][i] + __ldg(P.c + bz * NS_W + n0p + col);
+        ag[p][i] = x;
+        const float g = gelu_tanh(x);
+        v[hr][0] += g;
+        v[hr][1] = fmaf(g, g, v[hr][1]);
+      })
+    }
+    ns_row_sums<2>(v, c.xs, par, false);
+    float mean[2], rs[2], pz[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = v[h][0] / NS_HID;
+      rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
+      pz[h] = bf16_round(c.s_prob[(z * TILE + r0 + 8 * h) * 2 + wg]);
+    }
+    float w[2][3] = {};  // sums of e bf16(n), dn and dn n
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float2 e = ldcg2(c.x_e + r * NS_W + n0p + col);
+        const float m0 = (gelu_tanh(ag[p][i]) - mean[hr]) * rs[hr], m1 = (gelu_tanh(ag[p][i + 1]) - mean[hr]) * rs[hr];
+        const float d0 = bf16_round(e.x * pz[hr]), d1 = bf16_round(e.y * pz[hr]);
+        w[hr][0] = fmaf(e.x, bf16_round(m0), fmaf(e.y, bf16_round(m1), w[hr][0]));
+        w[hr][1] += d0 + d1;
+        w[hr][2] = fmaf(d0, m0, fmaf(d1, m1, w[hr][2]));
+      })
+    }
+    ns_row_sums<3>(w, c.xs, par, false);
+    if (tq == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r0 + 8 * h;
+        c.s_dlog[(z * TILE + t) * 2 + wg] = bf16_round(w[h][0] + c.s_dyb[t * 2 + wg]);
+      }
+    float cv[2][16] = {};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int n0p = 128 * wg + 64 * p;
+      NS_PAIRS({
+        const float2 e = ldcg2(c.x_e + r * NS_W + n0p + col);
+        const float2 g0 = gelu_and_grad(ag[p][i]), g1 = gelu_and_grad(ag[p][i + 1]);
+        const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
+        const float d0 = bf16_round(e.x * pz[hr]), d1 = bf16_round(e.y * pz[hr]);
+        const float md = w[hr][1] / NS_HID, mdn = w[hr][2] / NS_HID;
+        const float q0 = rs[hr] * (d0 - md - m0 * mdn) * g0.y, q1 = rs[hr] * (d1 - md - m1 * mdn) * g1.y;
+        store3(DP, PL256, r, n0p + col, q0, q1);
+        NS_COL_ADD(cv, p, q0, q1);
+      })
+    }
+    fence_async_smem();
+    ns_col_out<2>(cv, c.cs, pc + (size_t)z * NS_W, first_row);  // dc
+  }
+  ns_rows_part<1, 3>(T, 0, NS_HID, DP, PL256, NS_W, pG + (size_t)z * NS_HID * NS_W, NS_W, first_row);  // dG = t^T dpre
+  float acc[1][32];
+  ns_run<1, 3>(rg, DP, PL256, acc);  // dt = bf16(dpre G^T); du by the LayerNorm-gelu VJP, in dpre's place
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_F), 2, 8, 1);
+  const int n0 = 64 * wg;
+  {
+    float v[2][4] = {};
+    NS_PAIRS({
+      const float2 u = ldcg2(c.x_u + r * NS_HID + n0 + col);
+      const float x0 = gelu_tanh(u.x), x1 = gelu_tanh(u.y);
+      const float d0 = bf16_round(acc[0][i]), d1 = bf16_round(acc[0][i + 1]);
+      acc[0][i] = d0;
+      acc[0][i + 1] = d1;
+      v[hr][0] += x0 + x1;
+      v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+      v[hr][2] += d0 + d1;
+      v[hr][3] = fmaf(d0, x0, fmaf(d1, x1, v[hr][3]));
+    })
+    ns_row_sums<4>(v, c.xs, par, true);  // its barrier: both warpgroups are done reading dpre
+    float mean[2], rs[2], md[2], mdn[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = v[h][0] / NS_HID;
+      rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
+      md[h] = v[h][2] / NS_HID;
+      mdn[h] = rs[h] * (v[h][3] - mean[h] * v[h][2]) / NS_HID;
+    }
+    float cv[1][16] = {};
+    NS_PAIRS({
+      const float2 u = ldcg2(c.x_u + r * NS_HID + n0 + col);
+      const float2 g0 = gelu_and_grad(u.x), g1 = gelu_and_grad(u.y);
+      const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
+      const float q0 = rs[hr] * (acc[0][i] - md[hr] - m0 * mdn[hr]) * g0.y;
+      const float q1 = rs[hr] * (acc[0][i + 1] - md[hr] - m1 * mdn[hr]) * g1.y;
+      store3(DP, PL128, r, n0 + col, q0, q1);
+      NS_COL_ADD(cv, 0, q0, q1);
+    })
+    fence_async_smem();
+    if (wgr) ns_col_out<1>(cv, c.cs, pw + d.w_off[5], first_w && z == 0);  // dfb
+  }
+  bf16* DHV = DP + 3 * PL128;
+  if (wgr)  // dfw = hv^T du
+    ns_rows_part<1, 3>(HV, 0, NS_HID, DP, PL128, NS_HID, pw + d.w_off[4], NS_HID, first_w && z == 0);
+  ns_run<1, 3>(rg, DP, PL128, acc);  // dhv = bf16(du fw^T), 0 where hv is not positive
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_V), 2, 8, 1);
+  {
+    float cv[1][16] = {};
+    NS_PAIRS({
+      const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(HV + a16_index(r, n0 + col));
+      const float q0 = b2f(h2.x) > 0.0f ? bf16_round(acc[0][i]) : 0.0f, q1 = b2f(h2.y) > 0.0f ? bf16_round(acc[0][i + 1]) : 0.0f;
+      store2(DHV, r, n0 + col, q0, q1);
+      NS_COL_ADD(cv, 0, q0, q1);
+    })
+    fence_async_smem();
+    if (wgr) ns_col_out<1>(cv, c.cs, pw + d.w_off[3], first_w && z == 0);  // dv_b1
+  }
+  if (wgr)  // dv_w1 = F^T dhv (dhv is bf16: one term)
+    ns_rows_part<1, 1>(F, 0, NS_HID, DHV, 0, NS_HID, pw + d.w_off[2], NS_HID, first_w && z == 0);
+  ns_run<1, 1>(rg, DHV, 0, acc);  // dF = bf16(dhv v_w1^T), then the RFF VJP into dinv (a row pass)
+  float* DF = at<float>(c, U_D + 65536);
+  NS_PAIRS(*reinterpret_cast<float2*>(DF + r * NS_HID + n0 + col) = make_float2(bf16_round(acc[0][i]), bf16_round(acc[0][i + 1]));)
+  rff_vjp(c.s_inv, d.I, P.v_coeff, NS_HID / 2, DF, NS_HID, P.dinv + (bz * d.C + c0) * d.I, rows, false);
+}
+
+// 5. A latent's query chain again, then its VJP: in q_w1's epilogue dhq = (hq > 0) bf16(dlog A^T) and dA's
+// column sums (over the quads' rows by shuffles, then the warps' in order); dab, dwb; dq_w1; dF =
+// bf16(dhq q_w1^T) and the RFF VJP added into dinv.
+__device__ NS_PHASE void ns_query_vjp(const NsCtx& c, Ring& rg, size_t bz, int c0, int rows, int z, float* pA,
+                                          float* pab, bool first_row, bool wgr, bool first_w, float* pw) {
+  const Params& P = *c.P;
+  const Dims& d = P.d;
+  NS_FRAG;
+  bf16 *F = at<bf16>(c, U_F), *DH = at<bf16>(c, U_HV);
+  ns_prime(rg, wsplit(P, SPLIT_Q), 2, 8, 1);
+  load_inv(c.s_inv, P.inv + (bz * d.C + c0) * d.I, rows, d.I);
+  ns_features(c.s_inv, d.I, P.q_coeff, F);
+  float acc[1][32];
+  ns_run<1, 1>(rg, F, 0, acc);
+  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_Q), 2, 8, 1);
+  const int n0 = 64 * wg, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* dlog = c.s_dlog + z * TILE * 2;
+  float dl[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) dl[h][k] = dlog[(r0 + 8 * h) * 2 + k];
+  float da[8][2][2];  // this thread's columns' sums over its two rows of bf16(hq) dlog
+  float cv[1][16] = {};
+  NS_PAIRS({
+    const float2 bq = ldg2(P.q_b1 + n0 + col);
+    const float hq[2] = {fmaxf(acc[0][i] + bq.x, 0.0f), fmaxf(acc[0][i + 1] + bq.y, 0.0f)};
+    float dh[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float2 a = ldg2(P.A + (bz * NS_HID + n0 + col + e) * 2);
+      const float s = fmaf(dl[hr][1], bf16_round(a.y), dl[hr][0] * bf16_round(a.x));
+      dh[e] = hq[e] > 0.0f ? bf16_round(s) : 0.0f;
+      const float hb = bf16_round(hq[e]);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) da[j_][e][k] = hr ? fmaf(hb, dl[hr][k], da[j_][e][k]) : hb * dl[hr][k];
+    }
+    store2(DH, r, n0 + col, dh[0], dh[1]);
+    NS_COL_ADD(cv, 0, dh[0], dh[1]);
+  })
+  fence_async_smem();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float s = da[j][e][k];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        da[j][e][k] = s;
+      }
+  if (lane < 4)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) c.cs[((warp & 3) * NS_HID + n0 + 8 * j + 2 * lane + e) * 2 + k] = da[j][e][k];
+  __syncthreads();
+  float* dA = pA + (size_t)z * NS_HID * 2;
+  for (int idx = threadIdx.x; idx < NS_HID * 2; idx += THREADS) {
+    const float s = ((c.cs[idx] + c.cs[NS_HID * 2 + idx]) + c.cs[2 * NS_HID * 2 + idx]) + c.cs[3 * NS_HID * 2 + idx];
+    dA[idx] = first_row ? s : dA[idx] + s;
+  }
+  if (threadIdx.x < 2) {
+    float s = 0.0f;
+    for (int t = 0; t < TILE; ++t) s += dlog[t * 2 + threadIdx.x];
+    pab[z * 2 + threadIdx.x] = first_row ? s : pab[z * 2 + threadIdx.x] + s;
+  }
+  for (int t = threadIdx.x; t < rows; t += THREADS) P.dwb[bz * d.C + c0 + t] = dlog[t * 2] + dlog[t * 2 + 1];
+  if (wgr) {  // dq_b1, dq_w1 = F^T dhq
+    ns_col_out<1>(cv, c.cs, pw + d.w_off[1], first_w && z == 0);
+    ns_rows_part<1, 1>(F, 0, NS_HID, DH, 0, NS_HID, pw + d.w_off[0], NS_HID, first_w && z == 0);
+  }
+  ns_run<1, 1>(rg, DH, 0, acc);  // dF = bf16(dhq q_w1^T), then the RFF VJP added into dinv (a row pass)
+  float* DF = at<float>(c, U_D + 65536);
+  NS_PAIRS(*reinterpret_cast<float2*>(DF + r * NS_HID + n0 + col) = make_float2(bf16_round(acc[0][i]), bf16_round(acc[0][i + 1]));)
+  rff_vjp(c.s_inv, d.I, P.q_coeff, NS_HID / 2, DF, NS_HID, P.dinv + (bz * d.C + c0) * d.I, rows, true);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) fused_decode_bwd_ns(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& d = P.d;
+  const int Z = d.Z, tid = threadIdx.x;
+  NsCtx c;
+  c.P = &P;
+  c.U = reinterpret_cast<char*>(smem) + NS_RING;
+  c.s_psum = reinterpret_cast<float*>(c.U + NS_U);  // [64][2] sum_z bf16(p_z)
+  c.s_dyb = c.s_psum + 2 * TILE;                      // [64][2] <dy_h, m_b2>
+  c.s_inv = c.s_dyb + 2 * TILE;                       // [64][I]
+  c.xs = c.s_inv + TILE * MAX_I;                      // the row sums' exchange: [2][2][64][4]
+  c.cs = c.xs + 1024;                                 // the column sums of the warps: [4][128][2]
+  c.s_prob = c.cs + 1024;                             // [Z][64][2] softmax weights (f32)
+  c.s_dlog = c.s_prob + Z * TILE * 2;                 // [Z][64][2] dp, then dlogit
+  float* ws = P.work + d.split_total + (size_t)blockIdx.x * d.work;
+  c.x_e = ws + d.x_e;        // [64][256] e = dy m_w2^T (f32)
+  c.x_u = ws + d.x_u;        // [64][128] u
+  c.x_q1 = ws + d.x_q1;      // [64][256] the tail's q1
+  c.x_g2 = ws + d.x_gq2;     // [64][256] gelu'(q2)
+  c.x_g3 = ws + d.x_gq3;     // [64][128] gelu'(q3)
+  c.x_nb = ws + d.x_nbar;    // [64][256] nbar (with weight gradients)
+  c.x_img = ws + d.x_img;    // y, y1, t1, y2 as bf16 planes (with weight gradients and the tail)
+  c.Gblk = P.work + d.g_off;
+  Ring rg;
+  rg.buf = smem + (tid >> 7) * NS_STAGES * 1024;
+  rg.bar = 1 + (tid >> 7);
+  rg.lt = tid & 127;
+  int par = 0;
+  float* pb = P.part + (size_t)blockIdx.x * d.part;
+  float* pw = pb + (size_t)d.slots * d.l_row;
+  const bool wgr = d.wgrad;
+  const long long lo = (long long)blockIdx.x * d.ipb;
+  const long long hi = lo + d.ipb < d.items ? lo + d.ipb : d.items;
+  const int b_first = (int)(lo / d.nt);
+
+  for (long long item = lo; item < hi; ++item) {
+    const int b = (int)(item / d.nt), tile = (int)(item % d.nt);
+    const int c0 = tile * TILE, rows = min(TILE, d.C - c0);
+    const bool first_row = item == lo || tile == 0, first_w = item == lo;
+    float* pA = pb + (size_t)(b - b_first) * d.l_row;
+    float* pab = pA + d.l_A;
+    float* pG = pab + d.l_ab;
+    float* pc = pG + d.l_G;
+    const float* gsrc = P.g + ((size_t)b * d.C + c0) * d.out;
+
+    for (int z = 0; z < Z; ++z) ns_logits(c, rg, par, (size_t)b * Z + z, c0, rows, z);
+    softmax_z(c.s_prob, Z, 2, c.s_psum);
+    for (int z = 0; z < Z; ++z) ns_value(c, rg, par, (size_t)b * Z + z, c0, rows, z);
+    __syncthreads();  // nbar, every latent's
+    if (wgr) {
+      const float* NB = at<float>(c, U_NBAR);
+      for (int idx = 4 * tid; idx < TILE * NS_W; idx += 4 * THREADS)
+        __stcg(reinterpret_cast<float4*>(c.x_nb + idx), *reinterpret_cast<const float4*>(NB + idx));
+    }
+    if (d.tail) {
+      ns_tail_fwd(c, rg, par, gsrc, rows, wgr, first_w, pw);
+      ns_tail_vjp(c, rg, par, gsrc, rows, wgr, first_w, pw);
+      ns_mixer_vjp<1>(c, rg, wgr, first_w, pw);
+    } else {
+      bf16* CC = at<bf16>(c, U_C);
+      for (int idx = tid; idx < TILE * NS_W / 2; idx += THREADS) {  // dy = g, three planes
+        const int r = idx / (NS_W / 2), n = 2 * (idx % (NS_W / 2));
+        const float2 v = r < rows ? ldg2(gsrc + r * NS_W + n) : make_float2(0.0f, 0.0f);
+        store3(CC, PL256, r, n, v.x, v.y);
+      }
+      fence_async_smem();
+      ns_mixer_vjp<3>(c, rg, wgr, first_w, pw);
+    }
+    for (int z = 0; z < Z; ++z)
+      ns_value_vjp(c, rg, par, (size_t)b * Z + z, c0, rows, z, pG, pc, first_row, wgr, first_w, pw);
+    softmax_vjp(c.s_prob, c.s_dlog, Z, 2);
+    for (int z = 0; z < Z; ++z) ns_query_vjp(c, rg, (size_t)b * Z + z, c0, rows, z, pA, pab, first_row, wgr, first_w, pw);
+  }
+}
+
 // Pass 2: out = [dA | dab | dG | dc] over all rows (each [B, Z, ...]), then the weight
 // gradients; each element sums its partials in block order: a row's slots in the blocks whose
 // runs touch it, a weight's in every block. The gradients of what JAX casts to bf16 (A, G and the
@@ -824,9 +2000,27 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 
 // The launcher's hooks (fused_decode_bwd_host.cuh): threads of `weights_kernel` (one a bf16 of the
 // converted weights, two a float) and floats of the reduced output (m_w2 summed over its heads).
-inline long long weight_threads(const Dims& d) { return 2 * d.split_total; }
+inline long long weight_threads(const Dims& d) { return 2 * (d.ns ? d.g_off : d.split_total); }
+
+// The NS design's kernel attributes and launch (K2_NS_DESIGN, fused_decode_bwd_host.cuh): pass 0's
+// weights and G's blocks, then pass 1.
+cudaError_t prepare_ns(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(fused_decode_bwd_ns, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_decode_bwd_ns, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && per_sm) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_bwd_ns, THREADS, smem);
+  return err;
+}
+void launch_ns(const Params& P, int split_blocks, size_t smem, cudaStream_t s) {
+  weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);
+  long long gb = (2LL * P.d.B * P.d.Z * NS_GBLK + THREADS - 1) / THREADS;
+  ns_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);
+  fused_decode_bwd_ns<<<P.d.grid, THREADS, smem, s>>>(P);
+}
 inline long long out_floats(const Dims& d) { return d.l_wo; }
 
 }  // namespace
 
+#define K2_NS_DESIGN 1                // the launcher takes the NS design where Dims::ns says so
 #include "fused_decode_bwd_host.cuh"  // the launcher's C interface (shared with the f32 program)

@@ -22,6 +22,9 @@ inline void plan(Dims& d, int per_sm, int sms) {
   d.slots = (d.ipb + d.nt - 2) / d.nt + 1;  // batch rows a run of ipb items can touch
   d.slots = d.slots > d.B ? d.B : d.slots;
   d.part = d.slots * d.l_row + d.l_w;
+#ifdef K2_NS_DESIGN
+  if (d.ns) d.part = (d.part + 3) / 4 * 4;  // each block's partials on 16 bytes (the NS design adds two at a time)
+#endif
 }
 
 // Sets the kernel's shared memory; with `per_sm`, the blocks an SM holds at that size.
@@ -50,7 +53,11 @@ cudaError_t prepare_class(int wn, size_t smem, int* per_sm) {
 cudaError_t layout(const int* dims, int n_dims, Dims& d) {
   if (n_dims != kNumDims || !shape(dims, d)) return cudaErrorInvalidValue;
   int per_sm = 0, dev = 0, sms = 0;
+#ifdef K2_NS_DESIGN
+  cudaError_t err = d.ns ? prepare_ns((size_t)d.smem, &per_sm) : prepare_class(d.wn, (size_t)d.smem, &per_sm);
+#else
   cudaError_t err = prepare_class(d.wn, (size_t)d.smem, &per_sm);
+#endif
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -120,6 +127,9 @@ int fused_decode_bwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   const size_t smem = (size_t)P.d.smem;
   long long sb = (weight_threads(P.d) + THREADS - 1) / THREADS;
   const int split_blocks = (int)(sb > 1024 ? 1024 : sb);
+#ifdef K2_NS_DESIGN
+  if (P.d.ns) launch_ns(P, split_blocks, smem, s); else
+#endif
   switch (P.d.wn) {
     case 64:
       weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);

@@ -23,7 +23,7 @@
 //     (narrow: [B][tiles][Z][TILE][H], a block's tile at its own offset; class 128: a slot of
 //     [Z][64][H] for each block), read back by the block that wrote them: the layout no longer
 //     depends on Z, and every Z that the f32 program takes, this one takes.
-// The width class 128 (NS, SW, nonmaml, abs_pos; hid, hidm and D at most 128) has a design of its own,
+// The width class 128 (NS, SW, nonmaml, abs_pos; hid at most 128) has a design of its own,
 // below (`decode128`): persistent blocks over work items of 64 coordinates (32 where 64 would leave
 // half of the SMs idle), every product a bf16 wgmma m64n64k16 with A and B in shared memory (no
 // mma.sync), its columns split between the two warpgroups, G and the tail's weights handed over in
@@ -31,7 +31,9 @@
 // launch), the activations stored in bf16 where their next use is a product operand, gelu, the
 // LayerNorm statistics and the logits taken from the accumulator registers in the epilogues (no row
 // pass over shared memory but the RFF features and the softmax), m_w2 resident, the rest streamed by
-// each warpgroup on its own.
+// each warpgroup on its own. hidm or D past 128 (up to 256, as the f32 program takes them) launch an
+// instantiation of its own (WIDE128): a head of G and m_w2 in two 128-column slabs, each warpgroup's
+// columns in two n64 parts, m_w2 streamed; the NS-width instantiation's code is the one above.
 // The narrow classes (16, 32, 64) keep their design (persistent blocks) with bf16 products:
 //   wgmma m64nNk16 bf16 over a latent group's rows (A from registers, rounded per fragment; B K-major
 //     in shared memory, the shared weights handed over by `bf16_weights`: one block of 16 x WN bf16 per
@@ -292,6 +294,7 @@ __device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const f
 // an m64 tile lies in one quad of threads of each warpgroup (two shuffles, then one exchange between
 // the warpgroups through shared memory, `row_sums`). m_w2 stays resident; the rest streams from L2.
 constexpr int TILE128 = 64;     // rows of a work item's tiles
+constexpr int WIDE128 = 2 * WG_N;  // the class 128's instantiation for hidm or D past 128 (K1_WIDE_CLASS)
 constexpr int STAGES128 = 4;    // chunks of a warpgroup's ring (4 KB each); copies run STAGES128 - 2 ahead
 constexpr int FRESH_ACC = 0;    // 1: each 16-deep k step's product in a fresh accumulator, summed in f32 registers
 constexpr int LDA128 = 264;     // floats a row of the attention output (8 mod 32: its float2 updates conflict free)
@@ -596,10 +599,34 @@ __device__ __forceinline__ void tail128(const Params& P, Stream& st, bf16* X16, 
   tail_layer(st, X16, Y16, P.h_w2, hid, hid, P.h_b2, true, false, stage, xs, par, nullptr, 0, 0);
 }
 
+// The LayerNorm of this thread's two rows over the columns of two n64 parts (n0[p] + col < width; the
+// wide instantiation's G products), the rest of each row in the other warpgroup (row_sums).
+__device__ __forceinline__ void layer_norm2(float (&acc)[2][32], const int (&n0)[2], int width, float* xs, int& par) {
+  ACC_FRAG;
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    ACC_LOOP(if (n0[p] + col < width) {
+      v[hr][0] += acc[p][i];
+      v[hr][1] = fmaf(acc[p][i], acc[p][i], v[hr][1]);
+    })
+  }
+  row_sums<2>(v, xs, par);
+  float mean[2], rstd[2];
+  row_moments(v, width, mean, rstd);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    ACC_LOOP(acc[p][i] = (acc[p][i] - mean[hr]) * rstd[hr];)
+  }
+}
+
 // The decode of the class 128: a persistent block walks the work items (batch row, tile of P.tile
 // coordinates) from blockIdx.x by gridDim.x; a latent at a time, every product's columns split
-// between the two warpgroups (an n64 half each), each warpgroup streaming its own half of B.
-template <bool WITH_TAIL>
+// between the two warpgroups (an n64 half each), each warpgroup streaming its own half of B. WIDE (an
+// instantiation of its own, for hidm or D past 128, up to 256): a head of G and m_w2 in two 128-column
+// slabs where they are wider than 128, each warpgroup taking its slab as two n64 parts; m_w2 streamed, not
+// resident; each head's mixer after its G products (no stream primed across them).
+template <bool WITH_TAIL, bool WIDE>
 __device__ __forceinline__ void decode128(const Params& P, float* smem) {
   const int Z = P.Z, H = P.H, hid = P.hid, D = P.D, hidm = P.hidm, C = P.C, HD = H * D;
   bf16* X16 = reinterpret_cast<bf16*>(smem);  // a latent's features, then t; the tail's even layers' input
@@ -618,10 +645,19 @@ __device__ __forceinline__ void decode128(const Params& P, float* smem) {
   st.lt = tid & 127;
 
   // m_w2, once a block: hidm / 16 blocks of one 128-column slab (D <= 128).
-  for (int k = 4 * tid; k < hidm / 16 * (CHUNK16 / 4); k += 4 * THREADS) cp_async16(mw2 + k, P.m_w2s + k, true);
-  cp_async_commit();
-  cp_async_wait<0>();
-  fence_async_smem();
+  if constexpr (!WIDE) {
+    for (int k = 4 * tid; k < hidm / 16 * (CHUNK16 / 4); k += 4 * THREADS) cp_async16(mw2 + k, P.m_w2s + k, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();
+  }
+  // WIDE: the 128-column slabs of a head of G (gs) and of m_w2 (ms), and the parts (n64 each) a warpgroup
+  // takes of each product: its slab's two halves where there are two slabs, else its half of the one.
+  const int gs = (hidm + WG_N - 1) / WG_N, ms = (D + WG_N - 1) / WG_N;
+  auto part_n0 = [&](int slabs, int p) { return slabs == 2 ? wg * WG_N + 64 * p : 64 * wg; };
+  auto prime_slabs = [&](const float* w, int slabs, int p, int nks) {
+    prime(st, w + (slabs == 2 ? wg * (CHUNK16 / 4) : 0), slabs * (CHUNK16 / 4), slabs == 2 ? p : wg, nks);
+  };
 
   const int ntiles = (C + P.tile - 1) / P.tile, items = ntiles * P.B;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
@@ -702,7 +738,10 @@ __device__ __forceinline__ void decode128(const Params& P, float* smem) {
       fence_async_smem();
       __syncthreads();  // hv, both halves
       product(st, Y16, acc);
-      prime(st, P.G + bz * H * nb * (CHUNK16 / 4), CHUNK16 / 4, wg, nb);
+      if constexpr (WIDE)
+        prime_slabs(P.G + bz * H * nb * gs * (CHUNK16 / 4), gs, 0, nb);
+      else
+        prime(st, P.G + bz * H * nb * (CHUNK16 / 4), CHUNK16 / 4, wg, nb);
       ACC_PAIRS(if (n0 + col < hid) {
         const float2 bf = ldg2(P.fb + n0 + col);
         acc[i] = gelu_tanh(acc[i] + bf.x);
@@ -714,32 +753,76 @@ __device__ __forceinline__ void decode128(const Params& P, float* smem) {
       store_acc(acc, X16, n0, hid);
       fence_async_smem();
       __syncthreads();  // t, both halves
-      for (int h = 0; h < H; ++h) {
-        product(st, X16, acc);
-        if (h + 1 < H) prime(st, P.G + (bz * H + h + 1) * nb * (CHUNK16 / 4), CHUNK16 / 4, wg, nb);
-        const float* cz = P.c + (bz * H + h) * hidm + n0;
-        ACC_PAIRS(if (n0 + col < hidm) {
-          const float2 cc = ldg2(cz + col);
-          acc[i] = gelu_tanh(acc[i] + cc.x);
-          acc[i + 1] = gelu_tanh(acc[i + 1] + cc.y);
-        } else {
-          acc[i] = acc[i + 1] = 0.0f;
-        })
-        layer_norm(acc, n0, hidm, xs, par);  // its barrier: both warpgroups' last mixer read Y16
-        store_acc(acc, Y16, n0, hidm);
-        fence_async_smem();
-        __syncthreads();  // vm, both halves
-        product_resident(mw2, wg, Y16, hidm / 16, acc);
-        const float p0 = prob[(z * TILE128 + r0) * H + h], p1 = prob[(z * TILE128 + r0 + 8) * H + h];
-        ACC_PAIRS(if (n0 + col < D) {
-          float2* a = reinterpret_cast<float2*>(accs + r * LDA128 + h * D + n0 + col);
-          const float p = hr ? p1 : p0;
-          const float2 bm = ldg2(P.m_b2 + n0 + col);
-          float2 v = *a;
-          v.x = fmaf(p, acc[i] + bm.x, v.x);
-          v.y = fmaf(p, acc[i + 1] + bm.y, v.y);
-          *a = v;
-        })
+      if constexpr (WIDE) {
+        for (int h = 0; h < H; ++h) {
+          const float* gh = P.G + (bz * H + h) * nb * gs * (CHUNK16 / 4);
+          float ag[2][32];
+          int gn[2];
+          for (int p = 0; p < gs; ++p) {
+            if (p > 0 || h > 0) prime_slabs(gh, gs, p, nb);
+            product(st, X16, ag[p]);
+            gn[p] = part_n0(gs, p);
+            const float* cz = P.c + (bz * H + h) * hidm + gn[p];
+            ACC_PAIRS(if (gn[p] + col < hidm) {
+              const float2 cc = ldg2(cz + col);
+              ag[p][i] = gelu_tanh(ag[p][i] + cc.x);
+              ag[p][i + 1] = gelu_tanh(ag[p][i + 1] + cc.y);
+            } else {
+              ag[p][i] = ag[p][i + 1] = 0.0f;
+            })
+          }
+          if (gs == 2) {
+            layer_norm2(ag, gn, hidm, xs, par);  // its barrier: both warpgroups' last mixer read Y16
+          } else {
+            layer_norm(ag[0], gn[0], hidm, xs, par);
+          }
+          for (int p = 0; p < gs; ++p) store_acc(ag[p], Y16, gn[p], hidm);
+          fence_async_smem();
+          __syncthreads();  // vm, both halves
+          for (int p = 0; p < ms; ++p) {
+            prime_slabs(P.m_w2s, ms, p, hidm / 16);
+            product(st, Y16, acc);
+            const int m0 = part_n0(ms, p);
+            const float p0 = prob[(z * TILE128 + r0) * H + h], p1 = prob[(z * TILE128 + r0 + 8) * H + h];
+            ACC_PAIRS(if (m0 + col < D) {
+              float2* a = reinterpret_cast<float2*>(accs + r * LDA128 + h * D + m0 + col);
+              const float p = hr ? p1 : p0;
+              const float2 bm = ldg2(P.m_b2 + m0 + col);
+              float2 v = *a;
+              v.x = fmaf(p, acc[i] + bm.x, v.x);
+              v.y = fmaf(p, acc[i + 1] + bm.y, v.y);
+              *a = v;
+            })
+          }
+        }
+      } else {
+        for (int h = 0; h < H; ++h) {
+          product(st, X16, acc);
+          if (h + 1 < H) prime(st, P.G + (bz * H + h + 1) * nb * (CHUNK16 / 4), CHUNK16 / 4, wg, nb);
+          const float* cz = P.c + (bz * H + h) * hidm + n0;
+          ACC_PAIRS(if (n0 + col < hidm) {
+            const float2 cc = ldg2(cz + col);
+            acc[i] = gelu_tanh(acc[i] + cc.x);
+            acc[i + 1] = gelu_tanh(acc[i + 1] + cc.y);
+          } else {
+            acc[i] = acc[i + 1] = 0.0f;
+          })
+          layer_norm(acc, n0, hidm, xs, par);  // its barrier: both warpgroups' last mixer read Y16
+          store_acc(acc, Y16, n0, hidm);
+          fence_async_smem();
+          __syncthreads();  // vm, both halves
+          product_resident(mw2, wg, Y16, hidm / 16, acc);
+          const float p0 = prob[(z * TILE128 + r0) * H + h], p1 = prob[(z * TILE128 + r0 + 8) * H + h];
+          ACC_PAIRS(if (n0 + col < D) {
+            float2* a = reinterpret_cast<float2*>(accs + r * LDA128 + h * D + n0 + col);
+            const float p = hr ? p1 : p0;
+            const float2 bm = ldg2(P.m_b2 + n0 + col);
+            float2 v = *a;
+            v.x = fmaf(p, acc[i] + bm.x, v.x);
+            v.y = fmaf(p, acc[i + 1] + bm.y, v.y);
+            *a = v;
+          })
+        }
       }
     }
     __syncthreads();  // every head's sums are in accs
@@ -777,7 +860,9 @@ template <int WN, bool WITH_TAIL>
 __global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_kernel(const Params P) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (WN == WG_N) {
-    decode128<WITH_TAIL>(P, smem);
+    decode128<WITH_TAIL, false>(P, smem);
+  } else if constexpr (WN == WIDE128) {
+    decode128<WITH_TAIL, true>(P, smem);
   } else {
   // The narrow classes.
   using Cls = Width<WN>;
@@ -956,9 +1041,9 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
   P.ldP = row_stride(HH);
   P.ldW = row_stride(HD > P.hid ? HD : P.hid);
   if (*cls == WG_N) {
-    // One 128-column slab a head of G and of the mixer; the operand buffers, the attention output,
-    // m_w2, the two rings and the tail's LayerNorm sums are fixed; every latent's logits where they fit.
-    if (P.hidm > WG_N || P.D > WG_N) return false;
+    // One 128-column slab a head of G and of the mixer (two past 128: the instantiation WIDE128); the
+    // operand buffers, the attention output, m_w2, the two rings and the tail's LayerNorm sums are fixed;
+    // every latent's logits where they fit.
     P.ldX = P.nY = P.nW = 0;
     P.ldW = LDA128;
     *smem = SMEM128;
@@ -984,10 +1069,11 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
 // slots (the blocks the SMs hold at once) idle, as at the nef step's fits (8 x 512 on 132 SMs).
 bool persistent_class(int) { return true; }
 int item_tile(int wn, int B, int C, long long slots) {
-  if (wn != WG_N) return TILE;
+  if (wn < WG_N) return TILE;
   const long long items = (long long)B * ((C + TILE128 - 1) / TILE128);
   return 2 * items <= slots ? TILE : TILE128;
 }
 }  // namespace
 
+#define K1_WIDE_CLASS WIDE128       // the launcher takes hidm or D past 128 at the class 128 in WIDE128
 #include "fused_decode_fwd_host.cuh"  // the launcher's C interface (shared with the f32 program)

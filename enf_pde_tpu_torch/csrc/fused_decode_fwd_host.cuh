@@ -16,6 +16,15 @@ void set_dims(Params& P, const int* dims) {
   P.tile = TILE;
 }
 
+// The instantiation that launches class `cls`: the class itself, or, where the program defines
+// K1_WIDE_CLASS (the bf16 one), that instantiation for hidm or D past WG_N at the class WG_N.
+inline int instance(const Params& P, int cls) {
+#ifdef K1_WIDE_CLASS
+  if (cls == WG_N && (P.hidm > WG_N || P.D > WG_N)) return K1_WIDE_CLASS;
+#endif
+  return cls;
+}
+
 // Sets the kernel's shared memory (and, narrow, asks for the largest carve-out, so that
 // several blocks fit an SM); with `per_sm`, the blocks an SM holds at that size.
 template <int WN, bool TAIL>
@@ -45,9 +54,9 @@ cudaError_t launch(Params P, size_t smem, cudaStream_t s) {
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    if (WN == WG_N) per_sm = 1;  // a block's slot of the logits workspace: one an SM
+    if (WN >= WG_N) per_sm = 1;  // a block's slot of the logits workspace: one an SM
     const long long most = (long long)per_sm * sms;
-    P.tile = item_tile(WN, P.B, P.C, most);
+    P.tile = item_tile(WN < WG_N ? WN : WG_N, P.B, P.C, most);
     const long long items = (long long)P.B * ((P.C + P.tile - 1) / P.tile);
     grid = dim3((unsigned)(items < most ? items : most));
   }
@@ -62,6 +71,9 @@ cudaError_t by_class(int cls, bool tail, Args... args) {
     case 16: return tail ? F<16, true>::run(args...) : F<16, false>::run(args...);
     case 32: return tail ? F<32, true>::run(args...) : F<32, false>::run(args...);
     case 64: return tail ? F<64, true>::run(args...) : F<64, false>::run(args...);
+#ifdef K1_WIDE_CLASS
+    case K1_WIDE_CLASS: return tail ? F<K1_WIDE_CLASS, true>::run(args...) : F<K1_WIDE_CLASS, false>::run(args...);
+#endif
     default: return tail ? F<WG_N, true>::run(args...) : F<WG_N, false>::run(args...);
   }
 }
@@ -112,7 +124,7 @@ int fused_decode_fwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   for (int i = 0; i < (with_tail ? 10 : 5); ++i)
     if (!aligned16(staged[i])) return (int)cudaErrorInvalidValue;
   if (P.B == 0 || P.C == 0) return (int)cudaSuccess;
-  return (int)by_class<Launch>(cls, with_tail, (const Params&)P, smem, static_cast<cudaStream_t>(stream));
+  return (int)by_class<Launch>(instance(P, cls), with_tail, (const Params&)P, smem, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of dynamic shared memory a launch with these dims takes, or -1 for shapes the
@@ -139,7 +151,7 @@ int fused_decode_fwd_occupancy(const int* dims, int n_dims, int* out) {
   if (!layout(P, dims[9] != 0, &smem, &cls)) return (int)cudaErrorInvalidValue;
   out[0] = cls;
   out[1] = 0;
-  return (int)by_class<Prepare>(cls, dims[9] != 0, smem, out + 1);
+  return (int)by_class<Prepare>(instance(P, cls), dims[9] != 0, smem, out + 1);
 }
 
 // For a launch with these dims: out[0] its width class, out[1] the blocks of it an SM holds, out[2]

@@ -93,6 +93,9 @@ __all__ = [
     "k2_smem_bytes",
     "k2_scratch_bytes",
     "k2_occupancy",
+    "k2_ns_design",
+    "a16_index",
+    "split3_bf16",
     "FusedDecode",
     "decode_flops_per_point",
     "decode_bwd_flops_per_point",
@@ -533,12 +536,15 @@ def bf16_g_blocks(G: torch.Tensor, num_heads: int) -> torch.Tensor:
     """G [b, z, hid, H hidm] as the bf16 program's class 128 reads it: each head's hidm columns padded
     to ``WG_N`` and blocked as ``bf16_blocks`` blocks a weight, [b, z, H, hid / 16, WG_N / 8, 2, 8, 8]
     (element G[b, z, 16 kc + 8 kg + i, h hidm + 8 ng + r] at [b, z, h, kc, ng, kg, r, i]): a head's
-    chunks of 16 rows, 4 KB each, one after the other. JAX rounds G to bf16 at its product anyway."""
+    chunks of 16 rows, 4 KB each, one after the other. A head wider than ``WG_N`` (hidm up to 2 ``WG_N``,
+    the class's wide instantiation) is padded to two slabs, [b, z, H, hid / 16, 2, WG_N / 8, 2, 8, 8]: a
+    chunk of 16 rows holds both slabs' blocks. JAX rounds G to bf16 at its product anyway."""
     b, z, hid, hh = G.shape
     heads = G.reshape(b, z, hid, num_heads, hh // num_heads).transpose(2, 3)  # [b, z, H, hid, hidm]
-    if heads.shape[-1] > WG_N:
-        raise ValueError(f"the bf16 K1 takes a head of G at most {WG_N} wide, got {heads.shape[-1]}")
-    return bf16_blocks(heads, WG_N, "G")[:, :, :, :, 0]
+    if heads.shape[-1] > 2 * WG_N:
+        raise ValueError(f"the bf16 K1 takes a head of G at most {2 * WG_N} wide, got {heads.shape[-1]}")
+    blocks = bf16_blocks(heads, WG_N, "G")
+    return blocks[:, :, :, :, 0] if blocks.shape[4] == 1 else blocks
 
 
 class K1Operands(NamedTuple):
@@ -642,10 +648,7 @@ def _k1_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     # The softmax's shared floats: the f32 program's group logits, running max, sum and factor;
     # the bf16 program's every latent's logits, where they fit (`place_logits`).
     lg_rows = tile  # rows of a latent's logits
-    if bf and wn == k["WG_N"]:
-        if hidm > k["WG_N"] or D > k["WG_N"]:
-            raise ValueError(f"the bf16 K1 takes hidm and D at most {k['WG_N']} at the width class {k['WG_N']}, "
-                             f"got {hidm}, {D}")
+    if bf and wn == k["WG_N"]:  # hidm or D past WG_N: the wide instantiation, the same layout
         smem, lg_rows = k["SMEM128"], k["TILE128"]
     elif wn == k["WG_N"]:
         ld_x = stride(hid)
@@ -684,7 +687,8 @@ def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     every ``Z``; its shared weights are bf16 blocks of 8 ``wn`` floats a chunk. Its class 128
     (``SMEM128``: two bf16 operand buffers of 64 x 256, the attention output, m_w2 resident, two
     warpgroups' rings, the row sums' exchange) holds 64 rows of logits a latent (in shared memory up
-    to z = 62 at NS width) and takes hidm and D at most 128. Raises ``ValueError`` for a shape that ``layout`` refuses:
+    to z = 62 at NS width); hidm or D past 128 (up to 256) take its wide instantiation in the same
+    layout. Raises ``ValueError`` for a shape that ``layout`` refuses:
     widths it does not take, or more than ``SMEM_CAP`` bytes."""
     return _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[0]
 
@@ -775,8 +779,10 @@ def _fwd_lib(source: str = KERNEL_SOURCE):
 def _check_blocked(ops: K1Operands, G: torch.Tensor, tws, num_heads: int, device: torch.device) -> None:
     """``ops.G`` and ``ops.tail`` are ``bf16_g_blocks(G)`` and the tail's ``bf16_blocks`` in shape and type
     (the bf16 program's class 128 reads nothing else in their place)."""
-    b, z, hid, _ = G.shape
-    _check("blocked G", ops.G, (b, z, num_heads, hid // 16, WG_N // 8, 2, 8, 8), device, torch.bfloat16)
+    b, z, hid, hh = G.shape
+    slabs = -(-hh // num_heads // WG_N)
+    _check("blocked G", ops.G, (b, z, num_heads, hid // 16, *((slabs,) if slabs > 1 else ()), WG_N // 8, 2, 8, 8), device,
+           torch.bfloat16)
     if len(ops.tail) != (len(BLOCKED_TAIL_NAMES) if tws else 0):
         raise ValueError(f"expected {len(BLOCKED_TAIL_NAMES) if tws else 0} blocked tail weights, got {len(ops.tail)}")
     for name, blk in zip(BLOCKED_TAIL_NAMES, ops.tail):
@@ -949,6 +955,8 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
 
     ldh, ldw = stride(hid), stride(max(H * hidm, H * D, hid))
     n_w2 = tile * max(ldw, 2 * ldh)
+    if bf and k2_ns_design(Z, hid, H, D, hidm):  # the bf16 program's NS design (`fused_decode_bwd_ns`)
+        return dict(wn=wn, ldh=ldh, ldw=ldw, smem=k["NS_SMEM"] + 4 * 2 * Z * tile * 2, stages=k["NS_STAGES"], ns=True)
     # The B staging ring: chunk buffers of two slabs of 16 x wn, two tf32 parts (32 wn floats a
     # slab) or three bf16 ones (24 wn); the bf16 program also keeps two [TILE][H] rows (the sums
     # of the rounded softmax weights and <dy, m_b2>).
@@ -956,8 +964,39 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     for stages in ((3, 2) if wn == 64 else (2,)):
         smem = 4 * (stages * 2 * slab + tile * ldw + tile * ldh + n_w2 + 2 * Z * tile * H + extra + tile * I)
         if smem <= k["SMEM_CAP"]:
-            return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages)
+            return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages, ns=False)
     raise ValueError(f"K2 would need {smem} B of shared memory for {Z} latents, more than {k['SMEM_CAP']}")
+
+
+def k2_ns_design(Z: int, hid: int, H: int, D: int, hidm: int) -> bool:
+    """Whether a bf16 K2 launch of these widths takes the bf16 program's NS design
+    (``fused_decode_bwd_ns``, ``Dims::ns``): hid = hidm = D = ``NS_HID`` with two heads (every decoder at
+    Navier-Stokes width: NS, shallow water, ``abs_pos``, behind self-attention blocks), where its shared
+    memory (``NS_SMEM`` and every latent's softmax weights and dp, 1,024 B a latent) fits ``SMEM_CAP``.
+    The other shapes of the width class 64 take the class's design of the f32 program's kind."""
+    k = k2_constants(torch.bfloat16)
+    return (hid == hidm == D == k["NS_HID"] and H == 2 and k2_width_class(hid, hidm, D) == 64
+            and k["NS_SMEM"] + 4 * 2 * Z * k["TILE"] * 2 <= k["SMEM_CAP"])
+
+
+def a16_index(r, k):
+    """Element (r, k) of a 64-row bf16 operand in the layout the programs' ``wgmma`` read from shared
+    memory without swizzle (``a16_index`` of ``fused_decode_fwd_bf16.cu`` and ``fused_decode_bwd_bf16.cu``):
+    core matrices of 8 rows x 8 k (128 bytes), the row groups of a k group 128 bytes apart, the k groups
+    1,024 bytes apart. Read K-major (a product's A, its k the columns) with LBO 1,024 B and SBO 128 B;
+    read MN-major (a row contraction's operand, its k the 64 rows) with LBO 128 B and SBO 1,024 B.
+    Works on ints and on integer arrays or tensors."""
+    return ((k >> 3) * 8 + (r >> 3)) * 64 + (r & 7) * 8 + (k & 7)
+
+
+def split3_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 terms of an f32 operand, as ``split3_bf16`` in ``csrc/bf16_mma.cuh`` takes them:
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (each rounded to nearest, ties to even; the
+    subtractions exact in f32). (hi + mid) + lo in f32 is x."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def k2_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
@@ -971,7 +1010,10 @@ def k2_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     ``Z`` (1,024 B a latent at two heads; the ring drops to two buffers before the shape is
     refused). Raises ``ValueError`` for a shape it refuses:
     widths it does not take, or more than ``SMEM_CAP`` bytes. ``compute_dtype=torch.bfloat16``:
-    the bf16 program's (``fused_decode_bwd_bf16.cu``)."""
+    the bf16 program's (``fused_decode_bwd_bf16.cu``); at Navier-Stokes width (``k2_ns_design``) its NS
+    design's: two warpgroups' rings of ``NS_STAGES`` 4 KB chunks, the union ``NS_U`` of the phases'
+    bf16 operand planes (and nbar, dF in f32), the row sums' and column sums' exchanges, psum, <dy, m_b2>
+    and the invariants, then every latent's softmax weights and dp (1,024 B a latent)."""
     return _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)["smem"]
 
 
@@ -992,6 +1034,7 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
     k = k2_constants(compute_dtype)
     lay = _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)
     tile = k["TILE"]
+    ns = lay["ns"]
     if per_sm is None:
         per_sm = min(2048 // k["THREADS"], 233_472 // (lay["smem"] + 1024))
     HD, HH = H * D, H * hidm
@@ -1007,6 +1050,10 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
         work += tile * (2 * HD + 2 * hid)
         if weight_grads:
             work += tile * 2 * HD
+    if ns:  # the tail's q1, gelu'(q2), gelu'(q3), later e and u in their room (else their own); nbar; the
+        # tail's four bf16 planes
+        work = (tile * (2 * HD + hid) if tail else tile * (HH + hid)) + weight_grads * tile * HH \
+            + (tail and weight_grads) * 2 * tile * HD
     l_row = Z * (hid * H + H + hid * HH + HH)
     l_w = 0
     if weight_grads:
@@ -1015,7 +1062,11 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
             l_w += 3 * (HD * HD + HD) + HD * hid + hid + hid * hid + hid + hid * out + out
     # The shared weights laid out once a launch (both orientations; two tf32 parts, or bf16).
     split = 3 * hid * hid + hidm * D + (3 * HD * HD + HD * hid + hid * hid if tail else 0)
-    return 4 * ((1 if bf else 4) * split + grid * (work + slots * l_row + l_w))
+    g_blocks = B * Z * hid * HH if ns else 0  # G in bf16 blocks, both ways (``NS_GBLK`` floats a latent)
+    part = slots * l_row + l_w
+    if ns:  # each block's partials on 16 bytes
+        part = -(-part // 4) * 4
+    return 4 * ((1 if bf else 4) * split + g_blocks + grid * (work + part))
 
 
 def k2_occupancy(dims: Sequence[int], source: str = BWD_KERNEL_SOURCE) -> Dict[str, int]:
@@ -1043,6 +1094,10 @@ def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
     # Refuses, before any launch, a shape the kernel does not take.
     k2_smem_bytes(Z, I, hid, H, D, hidm, compute_dtype)
     _check_aligned16({"G": G})  # read a float4 at a time (the B of dpre G^T)
+    if compute_dtype == torch.bfloat16 and k2_ns_design(Z, hid, H, D, hidm):
+        # The bf16 program's NS design reads its f32 operands two at a time.
+        _check_aligned16({"A": A, "c": c, "g": g, **{n: w for n, w in zip(WEIGHT_NAMES, ws) if w.dim() == 1 or "coeff" in n},
+                          **{n: w for n, w in zip(TAIL_WEIGHT_NAMES, tws) if w.dim() == 1}}, 8)
     lib = lib or _bwd_lib(kernel_sources(compute_dtype)[1])
     dims = [B, Z, C, I, hid, H, D, hidm, out_dim, int(with_tail), int(weight_grads)]
     c_dims = (ctypes.c_int * len(dims))(*dims)

@@ -293,9 +293,11 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     """The bf16 programs' products: K1's class 128 on bf16 wgmma m64n64k16 with both operands in
     shared memory and nothing else (no mma.sync, no operand rounded in registers); its narrow classes
     on bf16 wgmma (m64nNk16 at N = 16, 32, 64, A from registers) over a latent group's rows and
-    mma.sync m16n8k16 bf16 for the 32-row ones; K2 on bf16 wgmma at N = 8, 16, 32, 64 with a
-    cotangent operand in three bf16 terms; the shared helper holds each instruction once; no TF32
-    product, library GEMM, WMMA or atomics."""
+    mma.sync m16n8k16 bf16 for the 32-row ones; K2's class design on bf16 wgmma at N = 8, 16, 32, 64
+    with a cotangent operand in three bf16 terms, its NS design on bf16 wgmma m64n64k16 with both
+    operands in shared memory (transposed for its row contractions) and the cotangents in three bf16
+    planes; the shared helper holds each instruction once; no TF32 product, library GEMM, WMMA or
+    atomics."""
     header = (cuda_lib.CSRC_DIR / "bf16_mma.cuh").read_text()
     assert header.count("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32") == 1
     for n in (8, 16, 32, 64):  # A from registers; at n = 64 also the shared-memory A of wgmma_bf16_ss64
@@ -323,7 +325,16 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     gemm = re.search(r"\n__device__ __forceinline__ void gemm\(.*?\n}\n", k2, re.S).group(0)
     assert gemm.count("wgmma_bf16<WN>(") == 10 and gemm.count("split3_bf16(") == 3  # B two values a call, A one pair
     assert "static_assert((AP == 1 || AP == 3) && (BP == 1 || BP == 3)" in gemm
-    assert k2.count("__global__") == 3
+    # Passes 0 (the shared weights; the NS design's G blocks), 1 (the class design; the NS design) and 2.
+    assert k2.count("__global__") == 5
+    # The NS design (hid = hidm = D = 128, two heads): every product a wgmma m64n64k16 with both operands
+    # in shared memory (a row contraction's transposed: its instruction takes the transpose flags), none
+    # with A in registers, no operand rounded in registers; f32 cotangents and nbar as three bf16 planes.
+    ns = k2[k2.index("// ---- The width class 64 at NS width"):k2.index("// Pass 2: out")]
+    assert ns.count("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16") == 1
+    assert '"%32, %33, p, 1, 1, %35, %36;\\n"' in ns and "wgmma_ss<1, 1>(" in ns and "wgmma_ss<0, 0>(" in ns
+    assert "wgmma_bf16<" not in ns and "mma_bf16(" not in ns and "pack_bf16(" not in ns
+    assert ns.count("store3(") >= 8 and "split3_bf16(v0, v1, t);" in ns
     # The headers shared with the f32 program multiply through the program's own hooks: the
     # operand rounding (`operand`: bf16_round here) and the RFF sin / cos (`rff_sincos`).
     for src, source in ((k1, fd.KERNEL_SOURCE_BF16), (k2, fd.BWD_KERNEL_SOURCE_BF16)):
@@ -336,3 +347,54 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     names = [p.name for p in cuda_lib.included_files(cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16)]
     assert names == [fd.KERNEL_SOURCE_BF16, "fused_decode_fwd_common.cuh", "bf16_mma.cuh", "fused_decode_fwd_host.cuh",
                      "tf32_mma.cuh"]
+
+
+def _bf16_rne(x: np.ndarray) -> np.ndarray:
+    """f32 rounded to bf16 (to nearest, ties to even) and back, by integer arithmetic in numpy."""
+    u = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("K", [128, 256])
+def test_a16_layout_and_its_descriptors_against_numpy(K):
+    """``a16_index`` (the bf16 programs' 64-row operand in shared memory) against the core-matrix layout
+    built directly in numpy: 8 x 8 blocks, the row groups of a k group 128 bytes apart, the k groups
+    1,024 bytes. Read as wgmma reads a descriptor without swizzle, K-major (LBO 1,024 B, SBO 128 B: a
+    product's A) the buffer gives X, and MN-major (LBO 128 B, SBO 1,024 B: a row contraction's operand,
+    its K the 64 rows) it gives X^T, from any 16-row step and 64-column view the NS design starts at."""
+    rng = np.random.default_rng(K)
+    X = rng.standard_normal((64, K)).astype(np.float32)
+    direct = X.reshape(8, 8, K // 8, 8).transpose(2, 0, 1, 3).reshape(-1)  # [k group][row group][row][k]
+    r, k = np.meshgrid(np.arange(64), np.arange(K), indexing="ij")
+    buf = np.empty(64 * K, np.float32)
+    buf[fd.a16_index(r, k)] = X
+    np.testing.assert_array_equal(buf, direct)
+
+    def read(start, a, b, lbo, sbo, mn):  # element (a, b) of a descriptor's 64 x 16 (or 16 x 64) tile
+        off = 2 * start + (a // 8) * sbo + (b // 8) * lbo + ((b % 8) * 16 + (a % 8) * 2 if mn else (a % 8) * 16 + (b % 8) * 2)
+        return buf[off // 2]
+    m, kk = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+    for ks in range(K // 16):  # a product's A: rows m, k step ks
+        got = read(fd.a16_index(0, 16 * ks), m, kk, 1024, 128, False)
+        np.testing.assert_array_equal(got, X[:, 16 * ks:16 * ks + 16])
+    for ks in range(4):  # a row contraction's operand: columns 64 mt .. of X as M, rows 16 ks .. as K
+        for mt in range(K // 64):
+            got = read(fd.a16_index(16 * ks, 64 * mt), m, kk, 128, 1024, True)
+            np.testing.assert_array_equal(got, X[16 * ks:16 * ks + 16, 64 * mt:64 * mt + 64].T)
+
+
+def test_split3_bf16_against_numpy():
+    """``split3_bf16`` (an f32 operand as three bf16 terms, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
+    hi - mid)) against the same steps in numpy bit for bit, over values across twelve decades and zeros;
+    (hi + mid) + lo in f32 is x exactly."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal(20_000) * 10.0 ** rng.uniform(-6, 6, 20_000)).astype(np.float32)
+    x[:10] = 0.0
+    hi, mid, lo = (t.float().numpy() for t in fd.split3_bf16(torch.from_numpy(x)))
+    h = _bf16_rne(x)
+    rest = (x - h).astype(np.float32)
+    mm = _bf16_rne(rest)
+    np.testing.assert_array_equal(hi.view(np.uint32), h.view(np.uint32))
+    np.testing.assert_array_equal(mid.view(np.uint32), mm.view(np.uint32))
+    np.testing.assert_array_equal(lo.view(np.uint32), _bf16_rne((rest - mm).astype(np.float32)).view(np.uint32))
+    np.testing.assert_array_equal(((hi + mid).astype(np.float32) + lo).astype(np.float32), x)

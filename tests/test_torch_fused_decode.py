@@ -436,14 +436,23 @@ def test_k1_layout_mirror_refuses_what_layout_refuses():
     assert fd.k1_smem_bytes(8, 4, 128, 2, 128, 128) == 231_168  # shallow_water: z = 8 at NS width
     assert "231,168 B" in (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE).read_text()  # the header's table
     # The bf16 program's class 128 (its header's table): NS (z = 4) and shallow water (z = 8); it takes
-    # hidm and D at most 128 (one 128-column slab a head), where the f32 program takes them to 256.
+    # hidm and D up to 256, as the f32 program does (past 128 in its wide instantiation, whose layout is
+    # the same: the operand buffers hold 256 columns), and refuses them past 256.
     bf = torch.bfloat16
     assert (fd.k1_smem_bytes(4, 4, 128, 2, 128, 128, bf), fd.k1_smem_bytes(8, 4, 128, 2, 128, 128, bf)) == (202_752, 204_800)
     assert all(f"{n:,} B" in (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16).read_text() for n in (202_752, 204_800))
-    for bad in ((4, 4, 128, 1, 256, 128), (4, 4, 128, 1, 128, 160), (4, 4, 64, 1, 144, 64)):
-        fd.k1_smem_bytes(*bad)  # the f32 program takes them
-        with pytest.raises(ValueError, match="at most 128"):
-            fd.k1_smem_bytes(*bad, bf)
+    for wide in ((4, 4, 128, 1, 256, 128), (4, 4, 128, 1, 128, 160), (4, 4, 64, 1, 144, 64), (4, 4, 128, 1, 256, 256)):
+        fd.k1_smem_bytes(*wide)  # the f32 program takes them
+        assert fd.k1_smem_bytes(*wide, bf) == 200_704 + 4 * 4 * 64 * 1  # SMEM128 and four latents' logits of one head
+    for bad in ((4, 4, 128, 1, 272, 128), (4, 4, 128, 1, 128, 272), (4, 4, 128, 2, 144, 128)):
+        for dtype in (torch.float32, bf):
+            with pytest.raises(ValueError):
+                fd.k1_smem_bytes(*bad, dtype)
+    G = torch.randn(2, 3, 128, 256)
+    assert fd.bf16_g_blocks(G, 1).shape == (2, 3, 1, 8, 2, 16, 2, 8, 8)  # a head of 256: two slabs a chunk
+    assert fd.bf16_g_blocks(G, 2).shape == (2, 3, 2, 8, 16, 2, 8, 8)
+    blk = fd.bf16_g_blocks(G, 1)
+    assert torch.equal(blk[1, 2, 0, 3, 1, 5, 1, 6, 7].float(), G[1, 2, 16 * 3 + 8 + 7, 128 + 8 * 5 + 6].bfloat16().float())
     # Its launch plan: 64 coordinates an item and one persistent block an SM (132 on an H100), 32 where
     # items of 64 would leave half of the blocks idle (the fit's 8 x 512), never below one wave.
     assert fd.k1_plan(160, 512, 128, 128, 128, bf) == (64, 1280, 132)

@@ -279,10 +279,10 @@ def compare_shape(shape: str, opts, kernels: dict, dtypes: dict, prepare: dict, 
             for tail, kargs in ((True, args), (False, (*args[:7], ()))):
                 ref = fd.fused_decode_plain(*kargs, H, D)
                 ref16 = fd.fused_decode_plain(*kargs, H, D, torch.bfloat16) if BF16 in dtypes.values() else None
-                parts = []
+                parts, outs = [], {}
                 for name, k1 in kernels.items():
                     try:
-                        out = k1(*kargs, H, D)
+                        out = outs[name] = k1(*kargs, H, D)
                     except RuntimeError as e:  # an older build's layout may refuse the shape
                         if name in ("new", "new16"):
                             raise
@@ -304,6 +304,11 @@ def compare_shape(shape: str, opts, kernels: dict, dtypes: dict, prepare: dict, 
                 if parts:
                     cs.log(f"[check] K1 {shape} {'tail' if tail else 'no-tail'} {label} rel_l2 vs plain: "
                            + "; ".join(parts))
+                for name in olds:  # an earlier build of the same program: the same bits?
+                    new = "new16" if dtypes.get(name) == BF16 else "new"
+                    if name in outs and new in outs:
+                        cs.log(f"[same] K1 {shape} {'tail' if tail else 'no-tail'} {label}: {name} and {new} "
+                               f"{'equal' if torch.equal(outs[name], outs[new]) else 'DIFFER'} bit for bit")
         torch.cuda.synchronize()
 
         news = [n for n in ("new", "new16") if n in kernels]

@@ -31,8 +31,15 @@ and power limit. Exits 1 when the new build misses the rel-L2 tolerance of
 holds it against the plain bf16 version with ``chip_smoke.py``'s bf16 gates (``k2_bf16_check``:
 the cotangent 0 within ``BF16_TIE_MARGIN`` of a kink, two launches bit for bit) in the tail mode with
 and without weight gradients, and times it in the same turns beside its bound at the bf16
-tensor-core rate; ``--old``, ``--skip`` and ``--variant`` apply to the f32 program. ``--dtype bf16``
-leaves the f32 program out.
+tensor-core rate. ``--dtype both`` applies ``--old``, ``--skip`` and ``--variant`` to the f32 program;
+``--dtype bf16`` leaves the f32 program out and applies them to the bf16 program: ``--skip`` a phase of
+``SKIPS16`` (the earlier design's ``*_old`` with ``--skip-base`` its source, the current design's
+without), ``--variant`` one of ``VARIANTS16`` (``copy``: the same program built from its expanded text,
+the spread between two builds), ``--old`` an earlier bf16 source. Each bf16 build but the skips is held
+against the plain bf16 version with phase 35's gates, two of its launches bit for bit and dinv ... dc
+the same bits with and without weight gradients. For every build the layout line prints its shared
+memory, blocks an SM, grid, items a block and scratch bytes. An ``--old`` build of the program under test
+is also compared with it bit for bit (the tail mode with weight gradients: a ``[same]`` line).
 """
 
 from __future__ import annotations
@@ -137,6 +144,72 @@ VARIANTS = {
 }
 
 
+# The bf16 program's phases, each left out of a copy by its edits (timing only). The earlier design (at
+# b9553c7; ``--skip-base`` its source: the f32 program's with bf16 products, a block barrier and a fresh
+# accumulator a 16-deep chunk, A's fragments loaded from f32 shared memory and rounded or split in three
+# each chunk, row passes over f32 shared memory): every product's chunk loop, the wgmma instructions, the
+# staging of B after each product's first chunk, the adds of each chunk's fresh accumulator into the f32
+# sums, the block barrier a chunk, A's fragment loads and three-way splits, the LayerNorm passes and their
+# VJPs, the elementwise passes, the adds into the block's partials, the CUDA-core dots, the RFF features'
+# sin and cos, pass 2.
+SKIPS16 = {
+    "gemm_old": SKIPS["gemm"],
+    "wgmma_old": SKIPS["wgmma"],
+    "staging_old": SKIPS["staging"],
+    "fresh_old": [("      for (int i = 0; i < NACC; ++i) sum[i] += f0[i];", "", 0)],
+    "chunkbar_old": [("      __syncthreads();  // the next chunk is staged; everyone is done with this one", "", 0)],
+    "afrag_old": [("            v[4 * q + e] = m0 < M ? A[kk * lda + m0] : 0.0f;\n"
+                   "            v[4 * q + 2 + e] = m1 < M ? A[kk * lda + m1] : 0.0f;",
+                   "            v[4 * q + e] = kk;\n            v[4 * q + 2 + e] = kk + 1;", 0),
+                  ("            v[4 * q + e] = A[m0 * lda + kk];\n            v[4 * q + 2 + e] = A[m1 * lda + kk];",
+                   "            v[4 * q + e] = kk;\n            v[4 * q + 2 + e] = kk + 1;", 0),
+                  ("          split3_bf16(v[2 * r], v[2 * r + 1], t3);",
+                   "          t3[0] = t3[1] = t3[2] = __float_as_uint(v[2 * r]);", 0)],
+    "layernorm_old": SKIPS["layernorm"],
+    "passes_old": SKIPS["passes"],
+    "partials_old": SKIPS["partials"],
+    "dots_old": SKIPS["dots"],
+    "sincos_old": [("    rff_sincos(proj, &s, &co);", "    s = proj; co = 1.0f - proj;", 0),
+                   ("      fast_sincos(proj, &s, &co, &ds, &dc);", "      s = proj; co = 1.0f - proj; ds = 1.0f; dc = -1.0f;", 0)],
+    "reduce": SKIPS["reduce"],
+}
+# The current design's (the NS design, `fused_decode_bwd_ns`: bf16 operand planes in shared memory, every product
+# a wgmma from them, its columns split between the warpgroups, the LayerNorm VJPs in the epilogues): the
+# products' chunk loops, the row contractions (dG and the weight gradients), the wgmma instructions, the ring's
+# copies, the warpgroup barrier a chunk, the row sums' exchange between the warpgroups, the column sums (bias
+# gradients, dc), the RFF features and their VJP, G's bf16 blocks (pass 0), the tail (its forward and VJP), the
+# row contractions' loads and stores of the partials (dG, the weight gradients).
+SKIPS16.update({
+    "products": [("  for (int c = 0; c < g.nc; ++c) {\n    cp_async_wait<NS_STAGES - 3>();",
+                  "  for (int c = 0; c < g.nc && g.nks < 0; ++c) {\n    cp_async_wait<NS_STAGES - 3>();", 0)],
+    "rows": [("  for (int u = wg; u < units; u += 2) {", "  for (int u = wg; u < units && M < 0; u += 2) {", 0)],
+    "nswgmma": [("__device__ __forceinline__ void wgmma_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {",
+                 "__device__ __forceinline__ void wgmma_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {\n"
+                 "  if (accumulate >= 0) return;", 0)],
+    "ring": [("      cp_async16(st + q * 512 + 4 * g.lt, g.src + ((size_t)ks * g.nsl + s) * 512 + 4 * g.lt);", "", 0)],
+    "ringbar": [("    wg_bar(g.bar);                   // everyone's; chunk c - 2's products are complete", "", 0)],
+    "exchange": [("  if (!cross) return;\n  float* buf", "  return;\n  float* buf", 0)],
+    "colsums": [("  for (int n = threadIdx.x; n < 128 * NP; n += THREADS) {", "  for (int n = threadIdx.x; n < 128 * NP && NP < 0; n += THREADS) {", 0),
+                ("  for (int n = threadIdx.x; n < NS_HID; n += THREADS) {\n    float s = 0.0f;",
+                 "  for (int n = threadIdx.x; n < NS_HID && npl < 0; n += THREADS) {\n    float s = 0.0f;", 0)],
+    "rffvjp": [("  for (int t = warp; t < TILE; t += WARPS) {\n    float acc[MAX_I];",
+                "  for (int t = warp; t < TILE && I < 0; t += WARPS) {\n    float acc[MAX_I];", 0)],
+    "features": [("  for (int u = threadIdx.x; u < units; u += THREADS) {", "  for (int u = threadIdx.x; u < units && I < 0; u += THREADS) {", 0)],
+    "gblocks": [("  ns_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);", "", 0)],
+    "tail": [("      ns_tail_fwd(c, rg, par, gsrc, rows, wgr, first_w, pw);\n      ns_tail_vjp(c, rg, par, gsrc, rows, wgr, first_w, pw);", "", 0)],
+    "partials": SKIPS["partials"],
+    "nspartials": [("      for (int j = 0; j < 8; ++j) old[h][j] = first ? make_float2(0.0f, 0.0f) : row[h][4 * j];",
+                    "      for (int j = 0; j < 8; ++j) old[h][j] = make_float2(0.0f, 0.0f);", 0),
+                   ("        row[h][4 * j] = first ? make_float2(", "        if (M < 0) row[h][4 * j] = first ? make_float2(", 0)],
+})
+# Other designs of the current bf16 source, right and timed beside it: ``copy``, the same program built from
+# its expanded text (two builds of one long kernel differ in time: up to 14 % for K1's bf16 class 128).
+VARIANTS16 = {
+    "copy": [],
+    "noinline": [("#define NS_PHASE __forceinline__", "#define NS_PHASE __noinline__", 0)],
+}
+
+
 def edited_source(label: str, base: Path, edits: list) -> tuple:
     """(label, path) of a copy of ``base`` under csrc/_build/ with ``edits``."""
     src = cuda_lib.expanded_source(base)
@@ -151,7 +224,7 @@ def edited_source(label: str, base: Path, edits: list) -> tuple:
             src = repl.join(parts)
         else:
             src = text.join(parts[:which + 1]) + repl + text.join(parts[which + 1:])
-    path = cuda_lib.BUILD_DIR / f"fused_decode_bwd_{label}.cu"
+    path = cuda_lib.BUILD_DIR / f"fused_decode_bwd_{label}{'_bf16' if 'bf16' in base.name else ''}.cu"
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path.write_text(src)
     return label, str(path)
@@ -159,7 +232,7 @@ def edited_source(label: str, base: Path, edits: list) -> tuple:
 
 def layout_note(sources: dict, dims: list) -> str:
     """Each build's scratch bytes per launch (workspace + partials) and, where it reports them,
-    its shared memory, blocks an SM and grid."""
+    its shared memory, blocks an SM, grid, items a block and row slots."""
     parts = []
     for name, src in sources.items():
         lib = fd._bwd_lib(src)
@@ -170,8 +243,9 @@ def layout_note(sources: dict, dims: list) -> str:
         note = f"{name} scratch {4 * (sizes[1] + sizes[2]) / 1e6:.1f} MB"
         if hasattr(lib, "fused_decode_bwd_occupancy"):
             lay = fd.k2_occupancy(dims, src)
+            items = dims[0] * -(-dims[2] // 64)
             note += (f", {lay['smem']} B shared, {lay['per_sm']} blocks an SM, grid {lay['grid']}, "
-                     f"{lay['slots']} row slots a block")
+                     f"{-(-items // lay['grid'])} items a block, {lay['slots']} row slots a block")
         parts.append(note)
     return "; ".join(parts)
 
@@ -180,11 +254,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", action="append", default=[],
                     help="an earlier K2 source with the same C interface (repeatable)")
-    ap.add_argument("--skip", action="append", default=[], choices=sorted(SKIPS),
+    ap.add_argument("--skip", action="append", default=[], choices=sorted({*SKIPS, *SKIPS16}),
                     help="also build the source without this phase (timing only; repeatable)")
     ap.add_argument("--skip-base", default=None,
                     help="the source the --skip copies edit (default: the current one)")
-    ap.add_argument("--variant", action="append", default=[], choices=sorted(VARIANTS),
+    ap.add_argument("--variant", action="append", default=[], choices=sorted({*VARIANTS, *VARIANTS16}),
                     help="also build and time this design of the current source (repeatable)")
     ap.add_argument("--iters", type=int, default=10, help="kernel launches per timed sample")
     ap.add_argument("--shape", action="append", choices=sorted(SHAPES),
@@ -195,18 +269,23 @@ def main() -> int:
                     help="also hold every build and the plain f32 version against the plain version in "
                          "float64, with the whole cotangent, and show the largest dinv differences")
     opts = ap.parse_args()
+    bf = opts.dtype == "bf16"  # --old, --skip and --variant apply to the bf16 program
+    skips, variants_of = (SKIPS16, VARIANTS16) if bf else (SKIPS, VARIANTS)
+    for name in opts.skip + opts.variant:
+        if name not in skips and name not in variants_of:
+            raise SystemExit(f"k2_compare: {name} is not a phase or variant of the {'bf16' if bf else 'f32'} program")
     if not torch.cuda.is_available():
         print("k2_compare: torch.cuda.is_available() is False; this needs a CUDA card.", file=sys.stderr)
         return 2
-    current = cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE
-    sources = {"new": str(current)} if opts.dtype != "bf16" else {}
+    current = cuda_lib.CSRC_DIR / (fd.BWD_KERNEL_SOURCE_BF16 if bf else fd.BWD_KERNEL_SOURCE)
+    sources = {"new": str(cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE)} if not bf else {}
     if opts.dtype != "f32":
         sources["new16"] = str(cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE_BF16)
     olds = [Path(p).stem for p in opts.old]
     sources.update({name: str(Path(p).resolve()) for name, p in zip(olds, opts.old)})
     base = Path(opts.skip_base).resolve() if opts.skip_base else current
-    extra = dict(edited_source(f"skip_{p}", base, SKIPS[p]) for p in opts.skip)
-    extra.update(edited_source(v, current, VARIANTS[v]) for v in opts.variant)
+    extra = dict(edited_source(f"skip_{p}", base, skips[p]) for p in opts.skip)
+    extra.update(edited_source(v, current, variants_of[v]) for v in opts.variant)
     sources.update(extra)
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(cuda_lib.build, sources.values())))
@@ -217,8 +296,8 @@ def main() -> int:
                 cs.log(f"[build] {name}: {ln.strip()}")
     cs.log(f"[device] {torch.cuda.get_device_name(0)} | {cs.nvidia_smi()} | torch {torch.__version__}")
 
-    kernels = {name: partial(fd._launch_bwd, lib=fd._bwd_lib(src),
-                             compute_dtype=torch.bfloat16 if name == "new16" else torch.float32)
+    dtypes = {name: torch.bfloat16 if name == "new16" or (bf and name != "new") else torch.float32 for name in sources}
+    kernels = {name: partial(fd._launch_bwd, lib=fd._bwd_lib(src), compute_dtype=dtypes[name])
                for name, src in sources.items()}
     worst, bitwise = {name: 0.0 for name in kernels}, True
     for i, shape in enumerate(opts.shape or ["navier_stokes"]):
@@ -233,24 +312,36 @@ def main() -> int:
             dims = [B, Z, C, I, ws[1].shape[0], H, D, ws[8].shape[0], cfg.nef.num_out, 1, int(wg)]
             cs.log(f"[layout] K2 {shape} {'with' if wg else 'without'} weight grads: " + layout_note(sources, dims))
         for name_, bwd in kernels.items():  # a skip build's results are wrong by design
-            if not name_.startswith("skip_") and name_ != "new16":
+            if name_.startswith("skip_"):
+                continue
+            if dtypes[name_] == torch.float32:
                 worst[name_] = max(worst[name_], check(cfg, args, g, f"{shape} {name_}", bwd))
+                continue
+            try:
+                check16(cfg, args, g[True], f"{shape} {name_}", bwd)
+            except (AssertionError, RuntimeError, ValueError) as e:
+                cs.log(f"[check] {shape} {name_}: {e}")
+                worst[name_] = float("inf")
         if "new" in kernels:
             bitwise &= repeat_check(cfg, args, g, kernels["new"], shape)
-        if "new16" in kernels:
-            try:
-                cs.k2_bf16_check(cfg, args, g[True], (False, True), f"{shape} new16")
-            except AssertionError as e:
-                cs.log(f"[check] {e}")
-                worst["new16"] = float("inf")
+        for name_ in olds:  # an earlier build of the same program: the same bits (tail, weight gradients)?
+            new = "new16" if dtypes[name_] == torch.bfloat16 else "new"
+            if new in kernels:
+                H_, D_ = cfg.nef.num_heads, cfg.nef.num_hidden
+                a = list(flat(kernels[name_](*args, g[True], H_, D_, True)))
+                b = list(flat(kernels[new](*args, g[True], H_, D_, True)))
+                same = all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+                cs.log(f"[same] K2 {shape}: {name_} and {new} {'equal' if same else 'DIFFER'} bit for bit")
         if opts.f64 and i == 0:
             against_f64(cfg, args, g[True], {n: k for n, k in kernels.items() if n != "new16"})
 
         news = [n for n in ("new", "new16") if n in kernels]
-        order = ["plain", *olds, *extra, *news, *news[::-1], *list(extra)[::-1], *olds[::-1], "plain"]
+        olds_ = [n for n in olds if n in kernels]
+        order = ["plain", *olds_, *extra, *news, *news[::-1], *list(extra)[::-1], *olds_[::-1], "plain"]
         for wg in (False, True):
             fns = {name_: partial(bwd, *args, g[True], H, D, wg) for name_, bwd in kernels.items()}
-            fns["plain"] = partial(fd.fused_decode_bwd_plain, *args, g[True], H, D, wg)
+            fns["plain"] = partial(fd.fused_decode_bwd_plain, *args, g[True], H, D, wg,
+                                   compute_dtype=torch.bfloat16 if bf else torch.float32)
             samples = {name_: [] for name_ in fns}
             for name_ in order:
                 iters = 3 if name_ == "plain" else opts.iters
@@ -263,11 +354,35 @@ def main() -> int:
             cs.log(f"[bound] K2 {shape} {label} weight grads: {bd['flops'] / 1e9:.3f} GFLOP, {bd['moved'] / 1e6:.3f} "
                    f"MB; f32 CUDA cores {bd['f32_ms']:.4f} ms, 3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes "
                    f"{bd['bytes_ms']:.4f} ms; bf16 tensor cores {bd['flops'] / cs.PEAK_BF16_FLOPS * 1e3:.4f} ms; "
-                   + "; ".join(f"{n} at {bd['flops'] / statistics.mean(samples[n]) / 1e9:.2f} TFLOP/s" for n in news))
+                      + "; ".join(f"{n} at {bd['flops'] / statistics.mean(samples[n]) / 1e9:.2f} TFLOP/s" for n in news))
         del args, g
         torch.cuda.empty_cache()
     cs.log(cs.nvidia_smi())
     return 0 if worst.get("new", 0.0) <= cs.REL_L2_TOL and worst.get("new16", 0.0) == 0.0 and bitwise else 1
+
+
+def check16(cfg, args, g, name: str, bwd) -> None:
+    """A bf16 build against the plain bf16 version with phase 35's gates (``chip_smoke.bf16_gates``, tail
+    mode, with and without weight gradients, the cotangent 0 within ``BF16_TIE_MARGIN`` of a ReLU's kink);
+    two launches bit for bit; dinv ... dc the same bits with and without weight gradients. Raises past a
+    gate."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    gk = g * (~cs.relu_ties(args, cs.BF16_TIE_MARGIN))[..., None]
+    first = {}
+    for wg in (False, True):
+        got = bwd(*args, gk, H, D, wg)
+        again = bwd(*args, gk, H, D, wg)
+        if not all(x is None or torch.equal(x, y) for x, y in zip(flat(got), flat(again))):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        first[wg] = got
+        cs.bf16_gates(f"K2 {name} {'with' if wg else 'without'} weight grads", got,
+                      fd.fused_decode_bwd_plain(*args, gk, H, D, wg, compute_dtype=torch.bfloat16),
+                      fd.fused_decode_bwd_plain(*args, gk, H, D, wg), absolute=False, groups=cs.K2_GROUPS)
+    same = all(torch.equal(x, y) for x, y in zip(first[False][:6], first[True][:6]))
+    cs.log(f"[repeat] K2 {name}: two launches equal bit for bit; dinv ... dc {'the same' if same else 'DIFFER'} "
+           "with and without weight gradients")
+    if not same:
+        raise AssertionError(f"{name}: dinv ... dc differ with and without weight gradients")
 
 
 def repeat_check(cfg, args, g, bwd, shape: str) -> bool:
