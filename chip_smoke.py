@@ -260,17 +260,19 @@ then K2 at the widths the other configs give it:
 
 then the bf16 programs:
 
-35. K1's and K2's bf16 programs against the plain bf16 version at every launch shape the
-    paths above give them (``BF16_K1_SHAPES``, ``BF16_K2_SHAPES``: the forecasts', validations'
-    and steps' of every config, 400 x 512 included), with the gates ``bf16_gates`` (rel-L2 to the
-    plain bf16 version at most 0.35 of the bf16 function's own distance from f32, the distance
-    to the plain f32 version within 0.9-1.1 of it, and K1's outputs within 5e-2 of f32; K2 with
-    the cotangent 0 within 2^-8 of an RFF ReLU's kink, the whole cotangent's numbers beside, two
-    launches bit for bit), each timed beside the f32 program at the same shape, the plain bf16
-    version and the bf16 bound (operations at 989 TFLOP/s, or bytes); the Navier-Stokes ode,
-    dual and validation steps and the 8 x 20 forecast in both modes (the forecasts' rel-L2); one
-    nef step with ``nef.backend=pallas`` in bf16 against the same step through the plain bf16
-    composition, with the same gates.
+35. K1's and K2's bf16 programs against the plain bf16 version at every launch shape the paths
+    above give them (``BF16_K1_SHAPES``, ``BF16_K2_SHAPES``: the forecasts', validations' and
+    steps' of every config, 400 x 512 included; beside them K1's wide instantiation, hidm = D =
+    256, and K2's class design at width class 64, one head of NS width, which no path gives),
+    with the gates ``bf16_gates`` (rel-L2 to the plain bf16 version at most 0.35 of the bf16
+    function's own distance from f32, the distance to the plain f32 version within 0.9-1.1 of
+    it, and K1's outputs within 5e-2 of f32; K2 with the cotangent 0 within 2^-8 of an RFF
+    ReLU's kink, the whole cotangent's numbers beside, two launches bit for bit, dinv ... dc the
+    same bits with and without weight gradients), each timed beside the f32 program at the same
+    shape, the plain bf16 version and the bf16 bound (operations at 989 TFLOP/s, or bytes); the
+    Navier-Stokes ode, dual and validation steps and the 8 x 20 forecast in both modes (the
+    forecasts' rel-L2); one nef step with ``nef.backend=pallas`` in bf16 against the same step
+    through the plain bf16 composition, with the same gates.
 
 Every K2 phase (5, 17, 20, 27, 30, 31, 34) repeats one launch with the tail and weight
 gradients and requires the same bits (and the same bits of the six latent gradients without
@@ -365,7 +367,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     k1_smem_bytes,
     k1_width_class,
     k2_occupancy,
-    k2_ns_design,
+    k2_w128_design,
     k2_scratch_bytes,
     k2_smem_bytes,
     shared_weights,
@@ -804,7 +806,7 @@ def k2_layout(args, num_heads: int, head_dim: int, num_out: int, wg: bool, dtype
                                compute_dtype=dtype))
     if mirror != (lay["smem"], lay["scratch"]):
         raise AssertionError(f"K2's layout {lay} differs from its Python mirror (smem, scratch) {mirror}")
-    lay["ns"] = dtype == BF16 and k2_ns_design(Z, hid, num_heads, head_dim, hidm)
+    lay["w128"] = dtype == BF16 and k2_w128_design(Z, hid, num_heads, head_dim, hidm)
     return lay
 
 
@@ -2809,7 +2811,7 @@ def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     keep = ~relu_ties(args, BF16_TIE_MARGIN)
     gk = g * keep[..., None]
-    out = {}
+    out, first6 = {}, {}
     for wg in wgs:
         mode = f"{label} {'with' if wg else 'without'} weight grads"
         whole = [fn(*args, g, H, D, wg, compute_dtype=dt) for fn, dt in
@@ -2831,6 +2833,7 @@ def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
         worst = bf16_gates(f"K2 {mode}, cotangent 0 at those points", got,
                            fused_decode_bwd_plain(*args, gk, H, D, wg, compute_dtype=BF16),
                            fused_decode_bwd_plain(*args, gk, H, D, wg), absolute=False, groups=K2_GROUPS)
+        first6[wg] = got[:6]
         del got, again
         ms16 = cuda_ms(lambda: fused_decode_bwd(*args, g, H, D, wg, compute_dtype=BF16), iters=5)
         ms32 = cuda_ms(lambda: fused_decode_bwd(*args, g, H, D, wg), iters=5)
@@ -2840,13 +2843,15 @@ def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
         lay = k2_layout(args, H, D, cfg.nef.num_out, wg, BF16)
         log(f"[timing] K2 bf16 {mode}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} "
-            f"ms); {ms16 / bound['bound_ms']:.1f}x its bound; {'the NS design' if lay['ns'] else 'the class design'}, "
+            f"ms); {ms16 / bound['bound_ms']:.1f}x its bound; {'the W128 design' if lay['w128'] else 'the class design'}, "
             f"{lay['smem']} B shared, {lay['per_sm']} blocks an SM, grid {lay['grid']}, {lay['ipb']} items a block, "
             f"scratch {lay['scratch'] / 1e6:.1f} MB")
         out[wg] = dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=worst["max_abs_err"], **bound)
         torch.cuda.empty_cache()
-    # dinv ... dc the same bits with and without weight gradients (the order of every sum does not depend on them).
-    without, with_w = (fused_decode_bwd(*args, gk, H, D, wg, compute_dtype=BF16)[:6] for wg in (False, True))
+    # dinv ... dc the same bits with and without weight gradients (the order of every sum does not depend on them):
+    # the gated launches' outputs, and a launch in the mode ``wgs`` leaves out.
+    without, with_w = (first6[wg] if wg in first6 else fused_decode_bwd(*args, gk, H, D, wg, compute_dtype=BF16)[:6]
+                       for wg in (False, True))
     if not all(torch.equal(x, y) for x, y in zip(without, with_w)):
         raise AssertionError(f"K2 bf16 {label}: dinv ... dc differ with and without weight gradients")
     log(f"[bf16] K2 {label}: two launches bit for bit; dinv ... dc the same bits with and without weight gradients")
@@ -3054,6 +3059,8 @@ BF16_K2_SHAPES = (
     ("navier_stokes", SA_OVER, 16, 512, (True,), "nef step"),
     ("navier_stokes", SA_OVER, NUM_SIGNALS, 512, (True, False), "fit"),
     ("navier_stokes", ("nef.invariant_type=abs_pos",), NUM_SIGNALS * 10, 512, (False, True), "ode / dual step"),
+    # One head at NS width: the class design at width class 64 (no YAML sets it; the W128 design takes two heads).
+    ("navier_stokes", ("nef.num_heads=1",), NUM_SIGNALS * 10, 512, (False, True), "ode / dual step's shape"),
     ("shallow_water", (), 10, 2048, (False, True), "ode / dual step"),
     ("diffusion_plane", ("nef.backend=pallas",), 32, 1024, (True,), "nef step"),
     ("diffusion_plane", ("nef.backend=pallas",), 8, 1024, (True,), "fit"),
@@ -3097,7 +3104,8 @@ def bf16_phase(dev) -> dict:
     """35. The bf16 programs of K1 and K2 (the YAMLs' ``pallas`` on the card, JAX's
     ``compute_dtype=bfloat16``): each held against the plain bf16 version with phase 35's gates
     (``bf16_gates``) at every launch shape the script's paths give it (BF16_K1_SHAPES,
-    BF16_K2_SHAPES), timed beside the f32 program and the plain bf16 version with the bf16 bound;
+    BF16_K2_SHAPES, which also holds K2's class design at width class 64; K1's wide instantiation,
+    ``k1_wide_inputs``), timed beside the f32 program and the plain bf16 version with the bf16 bound;
     K1's bf16 program past the latents whose logits fit shared memory (BF16_K1_MANY_LATENTS);
     the Navier-Stokes ode, dual and validation steps and the 8 x 20 forecast in both modes (the
     forecast's rel-L2 between them); the nef step with ``nef.backend=pallas`` in bf16 beside the

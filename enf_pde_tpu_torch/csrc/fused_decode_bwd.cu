@@ -871,6 +871,10 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 // the split weights) and floats of the reduced output.
 inline long long weight_threads(const Dims& d) { return d.split_total; }
 inline long long out_floats(const Dims& d) { return d.l_w; }
+// No design of its own beside the width classes.
+inline bool own_design(const Dims&) { return false; }
+inline cudaError_t prepare_own(size_t, int*) { return cudaErrorNotSupported; }
+inline void launch_own(const Params&, int, size_t, cudaStream_t) {}
 
 }  // namespace
 

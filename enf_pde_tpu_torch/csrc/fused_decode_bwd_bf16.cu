@@ -22,11 +22,11 @@
 //   - the polynomial sin / cos of `_fast_sincos` and its derivative in the RFF VJP.
 // Partials stay f32 and are reduced in a fixed order: two launches give the same bits.
 // Two designs:
-//   - the NS design (`fused_decode_bwd_ns`, below its own header): every launch at Navier-Stokes
-//     width (hid = hidm = D = 128, two heads: NS, shallow water, abs_pos, the rollout; `Dims::ns`):
+//   - the W128 design (`fused_decode_bwd_w128`, below its own header): every launch at hid = hidm = D = 128
+//     with two heads (Navier-Stokes width: NS, shallow water, abs_pos, the rollout; `Dims::w128`):
 //     bf16 operands written once in wgmma's shared-memory layouts, every product from shared memory
 //     by descriptor, its columns split between the two warpgroups, its whole K in the accumulator,
-//     the LayerNorm VJPs in the epilogues. Shared memory (k2_smem_bytes mirrors it) NS_SMEM and
+//     the LayerNorm VJPs in the epilogues. Shared memory (k2_smem_bytes mirrors it) W128_SMEM and
 //     1,024 B a latent: 211,968 B at NS (z = 4), 216,064 B at shallow water (z = 8); one block an SM;
 //   - the class design (every other shape): the f32 program's (fused_decode_bwd.cu, whose header
 //     states its passes, blocks, workspace and partials) with bf16 products: one bf16 wgmma
@@ -37,9 +37,9 @@
 // What bounds it: the products at the bf16 rate, 0.1282 / 0.1757 ms at NS 80 x 512 without / with
 // weight gradients (NVIDIA H100 80GB HBM3, 700 W). Measured (PERF.md §6, NVIDIA H100 80GB HBM3 at
 // 700.00 W; tools/k2_compare.py in one call): the class design at NS 6.28 / 9.05 ms, where its chunk loops
-// took 2.04 / 2.33 ms, the LayerNorm passes 1.43 / 1.66, the partials 0.43 / 2.13; the NS design 4.89 /
+// took 2.04 / 2.33 ms, the LayerNorm passes 1.43 / 1.66, the partials 0.43 / 2.13; the W128 design 4.89 /
 // 6.28 ms (38 / 36x the bound), SW 10 x 2048 4.79 / 5.98 (class design 6.20 / 8.83), 400 x 512 24.44 /
-// 31.19 (30.89 / 45.18). What holds the NS design now: its product loops wait on the tensor cores a chunk
+// 31.19 (30.89 / 45.18). What holds the W128 design now: its product loops wait on the tensor cores a chunk
 // at a time (1.28 ms of the loops, 0.89 of wgmma), the tail (0.99 / 1.67), and with weight gradients
 // the partials' traffic (1.45) and the row contractions (1.47).
 
@@ -48,15 +48,15 @@
 
 namespace {
 
-// The NS design's sizes (fused_decode_bwd_ns, below).
-constexpr int NS_HID = 128;      // hid = hidm = D
-constexpr int NS_W = 256;        // H hidm = H D, two heads
-constexpr int NS_STAGES = 4;     // 4 KB chunks of a warpgroup's ring; the copies run NS_STAGES - 2 ahead
-constexpr int NS_RING = 2 * NS_STAGES * 4096;  // bytes of the two rings
-constexpr int NS_U = 163840;     // bytes of the operand planes (the phases' union, below)
-constexpr int NS_SMALL = 4 * (4 * TILE + TILE * MAX_I + 2048);  // psum, dyb, invariants, the sums' exchange, the column sums
-constexpr int NS_SMEM = NS_RING + NS_U + NS_SMALL;  // and every latent's softmax weights and dp: 2 Z TILE 2 floats
-constexpr int NS_GBLK = NS_HID * NS_W;  // floats of one (b, z)'s G in bf16 blocks, both ways
+// The W128 design's sizes (fused_decode_bwd_w128, below).
+constexpr int W128_HID = 128;    // hid = hidm = D
+constexpr int W128_W = 256;      // H hidm = H D, two heads
+constexpr int W128_STAGES = 4;   // 4 KB chunks of a warpgroup's ring; the copies run W128_STAGES - 2 ahead
+constexpr int W128_RING = 2 * W128_STAGES * 4096;  // bytes of the two rings
+constexpr int W128_U = 163840;   // bytes of the operand planes (the phases' union, below)
+constexpr int W128_SMALL = 4 * (4 * TILE + TILE * MAX_I + 2048);  // psum, dyb, invariants, the sums' exchange, the column sums
+constexpr int W128_SMEM = W128_RING + W128_U + W128_SMALL;  // and every latent's softmax weights and dp: 2 Z TILE 2 floats
+constexpr int W128_GBLK = W128_HID * W128_W;  // floats of one (b, z)'s G in bf16 blocks, both ways
 
 // Floats of the B staging: a ring of `stages` chunk buffers of two slabs of 24 wn (three bf16
 // parts of 16 k x wn n).
@@ -85,9 +85,9 @@ struct Dims {
   long long w_off[20], w_len[20], o_off[20], o_len[20];
   int n_w;
   long long l_w, l_wo, part;
-  // The NS design (fused_decode_bwd_ns): taken, G's bf16 blocks at g_off of the workspace (after the
+  // The W128 design (fused_decode_bwd_w128): taken, G's bf16 blocks at g_off of the workspace (after the
   // shared weights, inside split_total), and the block's workspace pieces.
-  int ns;
+  int w128;
   long long g_off, x_e, x_u, x_q1, x_gq2, x_gq3, x_nbar, x_img;
 };
 
@@ -124,10 +124,11 @@ inline bool shape(const int* v, Dims& d) {
                     2LL * d.Z * TILE * d.H + 2LL * TILE * d.H + (long long)TILE * d.I);
     if (d.smem <= SMEM_CAP) break;
   }
-  // The class 64 at NS width takes its own design (fused_decode_bwd_ns), where its layout fits.
-  const long long ns_smem = NS_SMEM + 4LL * 2 * d.Z * TILE * 2;
-  d.ns = d.wn == 64 && d.hid == NS_HID && d.hidm == NS_HID && d.D == NS_HID && d.H == 2 && ns_smem <= SMEM_CAP;
-  if (d.ns) d.smem = ns_smem;
+  // The class 64 at hid = hidm = D = 128, two heads, takes the W128 design (fused_decode_bwd_w128), where
+  // its layout fits.
+  const long long w128_smem = W128_SMEM + 4LL * 2 * d.Z * TILE * 2;
+  d.w128 = d.wn == 64 && d.hid == W128_HID && d.hidm == W128_HID && d.D == W128_HID && d.H == 2 && w128_smem <= SMEM_CAP;
+  if (d.w128) d.smem = w128_smem;
   if (d.smem > SMEM_CAP) return false;
   d.nt = (d.C + TILE - 1) / TILE;
   d.items = (long long)d.B * d.nt;
@@ -159,20 +160,20 @@ inline bool shape(const int* v, Dims& d) {
   const bool tw = d.tail && d.wgrad;
   d.w_y = take(tw, T * d.HD); d.w_y1 = take(tw, T * d.HD);
   d.work = o;
-  if (d.ns) {  // the tail's q1, gelu'(q2), gelu'(q3); e, u; with weight gradients nbar and the tail's four planes
+  if (d.w128) {  // the tail's q1, gelu'(q2), gelu'(q3); e, u; with weight gradients nbar and the tail's four planes
     o = 0;
-    d.x_q1 = take(d.tail, T * NS_W); d.x_gq2 = take(d.tail, T * NS_W); d.x_gq3 = take(d.tail, T * NS_HID);
+    d.x_q1 = take(d.tail, T * W128_W); d.x_gq2 = take(d.tail, T * W128_W); d.x_gq3 = take(d.tail, T * W128_HID);
     if (d.tail) {  // e and u are written after the tail's VJP has read q1 and gelu'(q2): their room
       d.x_e = d.x_q1;
       d.x_u = d.x_gq2;
     } else {
-      d.x_e = take(true, T * NS_W);
-      d.x_u = take(true, T * NS_HID);
+      d.x_e = take(true, T * W128_W);
+      d.x_u = take(true, T * W128_HID);
     }
-    d.x_nbar = take(d.wgrad, T * NS_W); d.x_img = take(tw, 4 * T * NS_W / 2);
+    d.x_nbar = take(d.wgrad, T * W128_W); d.x_img = take(tw, 4 * T * W128_W / 2);
     d.work = o;
     d.g_off = d.split_total;
-    d.split_total += (long long)d.B * d.Z * NS_GBLK;
+    d.split_total += (long long)d.B * d.Z * W128_GBLK;
   }
 
   const long long Z = d.Z;
@@ -581,7 +582,7 @@ __global__ void weights_kernel(const Params P) {
   const float* src[9] = {P.q_w1, P.v_w1, P.fw, P.m_w2, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
   const int per = d.split_n / 2;
   __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(P.work);
-  const long long n = d.ns ? d.g_off : d.split_total;  // the NS design's G blocks follow (ns_g_kernel)
+  const long long n = d.w128 ? d.g_off : d.split_total;  // the W128 design's G blocks follow (w128_g_kernel)
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < 2 * n;
        idx += (long long)gridDim.x * blockDim.x) {
     int j = 0;  // the laid-out entry holding idx: the last whose offset is at most idx
@@ -821,10 +822,10 @@ __global__ void __launch_bounds__(THREADS, minb_of(WN)) fused_decode_bwd_kernel(
   }
 }
 
-// ---- The width class 64 at NS width: a design of its own -----------------------------------------
-// Every K2 launch of the YAMLs' NS-width decoders (NS, SW, abs_pos, the rollout, a rank's and the nef
-// step's: hid = hidm = D = 128, two heads, so H hidm = H D = 256) takes it (`Dims::ns`); other shapes of
-// the class 64 take the design above. What it changes, by the class design's split (PERF.md §6):
+// ---- The W128 design: the width class 64 at hid = hidm = D = 128, two heads --------------------------
+// Every K2 launch of the YAMLs' Navier-Stokes-width decoders (NS, SW, abs_pos, the rollout, a rank's and the
+// nef step's: hid = hidm = D = 128, two heads, so H hidm = H D = 256) takes it (`Dims::w128`); other shapes
+// of the class 64 take the design above. What it changes, by the class design's split (PERF.md §6):
 //   - operands in bf16, written once in the layouts wgmma reads: the epilogue that makes an activation
 //     stores it rounded to bf16 in shared memory as a 64-row A operand (`a16_index`); an f32 operand JAX
 //     does not round (the cotangents of every input gradient, nbar, dy without the tail) goes in as
@@ -835,7 +836,7 @@ __global__ void __launch_bounds__(THREADS, minb_of(WN)) fused_decode_bwd_kernel(
 //   - each product's columns split between the two warpgroups (64 or 128 a warpgroup, one or two n64
 //     parts), its whole K summed in the wgmma accumulator, the B operand (the shared weights, and G laid
 //     out in bf16 blocks once a launch, both ways) streamed by each warpgroup through its own ring of
-//     NS_STAGES 4 KB chunks with its own barrier; a block barrier a product;
+//     W128_STAGES 4 KB chunks with its own barrier; a block barrier a product;
 //   - the LayerNorm-gelu passes and their VJPs in the epilogues (the row statistics exchanged between the
 //     warpgroups through shared memory; a head's columns are one warpgroup's), the softmax-weighted dn and
 //     dp of each head in G's epilogue, the logits and their VJP (dhq, dA) in q_w1's, the column sums (dc
@@ -919,7 +920,7 @@ struct Ring {
 };
 __device__ __forceinline__ void ring_issue(Ring& g) {
   if (g.issued < g.nc) {
-    float* st = g.buf + (g.issued % NS_STAGES) * 1024;
+    float* st = g.buf + (g.issued % W128_STAGES) * 1024;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int ks = g.np == 1 ? 2 * g.issued + q : g.issued, s = g.np == 1 ? g.s0 : g.s0 + q;
@@ -929,9 +930,9 @@ __device__ __forceinline__ void ring_issue(Ring& g) {
   ++g.issued;
   cp_async_commit();  // an empty group past the end keeps the wait count uniform
 }
-// The first NS_STAGES - 2 chunks of a product's B (K = 16 nks, N = 64 nsl; this warpgroup's NP slabs) in
-// flight, before the work that precedes the product. The ring is free (`ns_run` ends so).
-__device__ __forceinline__ void ns_prime(Ring& g, const float* src, int nsl, int nks, int np) {
+// The first W128_STAGES - 2 chunks of a product's B (K = 16 nks, N = 64 nsl; this warpgroup's NP slabs) in
+// flight, before the work that precedes the product. The ring is free (`w128_run` ends so).
+__device__ __forceinline__ void w128_prime(Ring& g, const float* src, int nsl, int nks, int np) {
   g.src = src;
   g.nsl = nsl;
   g.nks = nks;
@@ -939,14 +940,14 @@ __device__ __forceinline__ void ns_prime(Ring& g, const float* src, int nsl, int
   g.s0 = (threadIdx.x >> 7) * np;
   g.nc = np == 1 ? nks / 2 : nks;
   g.issued = 0;
-  for (int c = 0; c < NS_STAGES - 2; ++c) ring_issue(g);
+  for (int c = 0; c < W128_STAGES - 2; ++c) ring_issue(g);
 }
 // acc[p] (n64 part p of this warpgroup's columns) = A x B: A 64 x 16 nks in AP bf16 planes (`pstride`
 // elements apart; K-major at `a`), B the primed stream; per k step the products of A's terms, the
 // smallest first, into the accumulator (the first product of the whole K does not accumulate). Starts
 // with a block barrier (A is written), ends with every product complete and the ring free.
 template <int NP, int AP>
-__device__ __forceinline__ void ns_run(Ring& g, const bf16* a, int pstride, float (&acc)[NP][32]) {
+__device__ __forceinline__ void w128_run(Ring& g, const bf16* a, int pstride, float (&acc)[NP][32]) {
   // The accumulator's old values are dead (the first product does not accumulate): cleared, so that no
   // value of an earlier product is live across the calls between two products (ptxas would serialize
   // the wgmma of a pipeline that crosses a call, C7510).
@@ -956,11 +957,11 @@ __device__ __forceinline__ void ns_run(Ring& g, const bf16* a, int pstride, floa
     for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
   __syncthreads();
   for (int c = 0; c < g.nc; ++c) {
-    cp_async_wait<NS_STAGES - 3>();  // this thread's copies of chunk c have landed
+    cp_async_wait<W128_STAGES - 3>();  // this thread's copies of chunk c have landed
     fence_async_smem();              // they are visible to wgmma
     wg_bar(g.bar);                   // everyone's; chunk c - 2's products are complete
-    ring_issue(g);                   // chunk c + NS_STAGES - 2, into chunk c - 2's stage
-    const float* st = g.buf + (c % NS_STAGES) * 1024;
+    ring_issue(g);                   // chunk c + W128_STAGES - 2, into chunk c - 2's stage
+    const float* st = g.buf + (c % W128_STAGES) * 1024;
 #pragma unroll
     for (int p = 0; p < NP; ++p) wg_fence_operands<32>(acc[p]);
     wg_fence();
@@ -986,20 +987,20 @@ __device__ __forceinline__ void ns_run(Ring& g, const bf16* a, int pstride, floa
 
 // This thread's part of a warpgroup's 64 x 64 accumulator: element i, its row r = r0 + 8 hr (r0 = 16 warp
 // + g) and its column col = 8 j + 2 tq + e. Loops unrolled into constant register indices.
-#define NS_LOOP(...)                                                                        \
+#define W128_LOOP(...)                                                                        \
   _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
     _Pragma("unroll") for (int hr = 0; hr < 2; ++hr)                                         \
       _Pragma("unroll") for (int e_ = 0; e_ < 2; ++e_) {                                     \
         const int i = 4 * j_ + 2 * hr + e_, col = 8 * j_ + 2 * tq + e_, r = r0 + 8 * hr;       \
         __VA_ARGS__                                                                          \
       }
-#define NS_PAIRS(...)                                                                       \
+#define W128_PAIRS(...)                                                                       \
   _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
     _Pragma("unroll") for (int hr = 0; hr < 2; ++hr) {                                       \
       const int i = 4 * j_ + 2 * hr, col = 8 * j_ + 2 * tq, r = r0 + 8 * hr;                  \
       __VA_ARGS__                                                                            \
     }
-#define NS_FRAG \
+#define W128_FRAG \
   const int tq = threadIdx.x & 3, r0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2), wg = threadIdx.x >> 7
 
 // out(m, n) = sum over the 64 rows of X[r][m] Y[r][n] for X's columns m < M and Y's n < N, X in XP and Y
@@ -1009,9 +1010,9 @@ __device__ __forceinline__ void ns_run(Ring& g, const bf16* a, int pstride, floa
 // partial's old values of a unit are loaded before its products are issued (their latency under the
 // products), two columns a load. Starts with a block barrier.
 template <int XP, int YP>
-__device__ __forceinline__ void ns_rows_part(const bf16* X, int xs, int M, const bf16* Y, int ys, int N, float* dst,
+__device__ __forceinline__ void w128_rows_part(const bf16* X, int xs, int M, const bf16* Y, int ys, int N, float* dst,
                                              int ld, bool first) {
-  NS_FRAG;
+  W128_FRAG;
   __syncthreads();
   const int mts = M / 64, units = mts * (N / 64);
   for (int u = wg; u < units; u += 2) {
@@ -1057,8 +1058,8 @@ __device__ __forceinline__ void ns_rows_part(const bf16* X, int xs, int M, const
 // block barrier; its two halves alternate, `par`, so that a warpgroup ahead writes the next sums into
 // the half nobody still reads).
 template <int NV>
-__device__ __forceinline__ void ns_row_sums(float (&v)[2][NV], float* xs, int& par, bool cross) {
-  NS_FRAG;
+__device__ __forceinline__ void w128_row_sums(float (&v)[2][NV], float* xs, int& par, bool cross) {
+  W128_FRAG;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -1084,9 +1085,9 @@ __device__ __forceinline__ void ns_row_sums(float (&v)[2][NV], float* xs, int& p
 // The RFF features of the tile's 64 coordinates (s_inv [64][I], zero past the last) into the plane F:
 // sin and cos of the f32 projection by the bf16 mode's polynomial, rounded to bf16. Not inlined: one
 // copy serves every chain. Starts with a barrier (s_inv written, F's last readers done).
-__device__ __noinline__ void ns_features(const float* s_inv, int I, const float* __restrict__ coeff, bf16* F) {
+__device__ __noinline__ void w128_features(const float* s_inv, int I, const float* __restrict__ coeff, bf16* F) {
   __syncthreads();
-  constexpr int half = NS_HID / 2, units = TILE * (half / 2);
+  constexpr int half = W128_HID / 2, units = TILE * (half / 2);
   for (int u = threadIdx.x; u < units; u += THREADS) {
     const int q = u & 3, rr = (u >> 2) & 7, rest = u >> 5, rg = rest & 7, jg = rest >> 3;
     const int t = 8 * rg + rr, j = 8 * jg + 2 * q;
@@ -1109,13 +1110,13 @@ __device__ __noinline__ void ns_features(const float* s_inv, int I, const float*
 // dm_b2[n] (+)= sum_t sum_h psum[t, h] dy[t, h 128 + n] (the bias taking each latent's rounded softmax
 // weight; psum [64][2]), dy in npl bf16 planes (`ps` elements apart; their sum is the value), in the order of
 // col_sums_psum. Starts with a barrier.
-__device__ __noinline__ void ns_dm_b2(const bf16* Y, int ps, int npl, float* dst, bool first, const float* psum) {
+__device__ __noinline__ void w128_dm_b2(const bf16* Y, int ps, int npl, float* dst, bool first, const float* psum) {
   __syncthreads();
-  for (int n = threadIdx.x; n < NS_HID; n += THREADS) {
+  for (int n = threadIdx.x; n < W128_HID; n += THREADS) {
     float s = 0.0f;
     for (int t = 0; t < TILE; ++t)
       for (int h = 0; h < 2; ++h) {
-        const int i = a16_index(t, h * NS_HID + n);
+        const int i = a16_index(t, h * W128_HID + n);
         float v = b2f(Y[i]);
         for (int p = 1; p < npl; ++p) v += b2f(Y[i + p * ps]);
         s = fmaf(psum[t * 2 + h], v, s);
@@ -1126,10 +1127,10 @@ __device__ __noinline__ void ns_dm_b2(const bf16* Y, int ps, int npl, float* dst
 
 // The head's last layer's weight gradients (on the CUDA cores): dh_w3[k, o] (+)= sum_t bf16(h2[t, k])
 // g[t, o] and dh_b3[o] (+)= sum_t g[t, o] over the rows t < rows; h2 in the plane H2.
-__device__ __noinline__ void ns_head_wgrad(const bf16* H2, const float* __restrict__ gsrc, int rows, int out, float* dw,
+__device__ __noinline__ void w128_head_wgrad(const bf16* H2, const float* __restrict__ gsrc, int rows, int out, float* dw,
                                            float* db, bool first) {
   __syncthreads();
-  for (int idx = threadIdx.x; idx < NS_HID * out; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < W128_HID * out; idx += THREADS) {
     const int k = idx / out, o = idx - k * out;
     float s = 0.0f;
     for (int t = 0; t < rows; ++t) s = fmaf(b2f(H2[a16_index(t, k)]), __ldg(gsrc + t * out + o), s);
@@ -1147,8 +1148,8 @@ __device__ __noinline__ void ns_head_wgrad(const bf16* H2, const float* __restri
 // summed over the warp's rows by shuffles, then over the warpgroup's four warps in order through cs
 // ([4][256]); dst[n] (+)= the sum, n < 128 NP (first: store). Every thread calls it (two block barriers).
 template <int NP>
-__device__ __forceinline__ void ns_col_out(float (&cv)[NP][16], float* cs, float* dst, bool first) {
-  NS_FRAG;
+__device__ __forceinline__ void w128_col_out(float (&cv)[NP][16], float* cs, float* dst, bool first) {
+  W128_FRAG;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 #pragma unroll
   for (int p = 0; p < NP; ++p)
@@ -1166,16 +1167,16 @@ __device__ __forceinline__ void ns_col_out(float (&cv)[NP][16], float* cs, float
     for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int k = 0; k < 16; ++k)
-        cs[warp * NS_W + (NP == 2 ? 128 * wg + 64 * p : 64 * wg) + 8 * (k >> 1) + 2 * lane + (k & 1)] = cv[p][k];
+        cs[warp * W128_W + (NP == 2 ? 128 * wg + 64 * p : 64 * wg) + 8 * (k >> 1) + 2 * lane + (k & 1)] = cv[p][k];
   __syncthreads();
   for (int n = threadIdx.x; n < 128 * NP; n += THREADS) {
-    const float v = ((cs[n] + cs[NS_W + n]) + cs[2 * NS_W + n]) + cs[3 * NS_W + n];
+    const float v = ((cs[n] + cs[W128_W + n]) + cs[2 * W128_W + n]) + cs[3 * W128_W + n];
     dst[n] = first ? v : dst[n] + v;
   }
   (void)r0;
 }
 // Adds an epilogue's pair of values (columns col, col + 1 of part p, one of this thread's rows) to cv.
-#define NS_COL_ADD(cv, p, v0, v1)       \
+#define W128_COL_ADD(cv, p, v0, v1)       \
   {                                     \
     (cv)[p][2 * j_] += (v0);            \
     (cv)[p][2 * j_ + 1] += (v1);        \
@@ -1183,7 +1184,7 @@ __device__ __forceinline__ void ns_col_out(float (&cv)[NP][16], float* cs, float
 
 // A plane's image in the workspace back into shared memory (16 bytes a copy), visible to wgmma after the
 // next block barrier.
-__device__ __forceinline__ void ns_reload(bf16* dst, const float* img, int elems) {
+__device__ __forceinline__ void w128_reload(bf16* dst, const float* img, int elems) {
   float* d = reinterpret_cast<float*>(dst);
   for (int i = 4 * threadIdx.x; i < elems / 2; i += 4 * THREADS) cp_async16(d + i, img + i);
   cp_async_commit();
@@ -1191,64 +1192,64 @@ __device__ __forceinline__ void ns_reload(bf16* dst, const float* img, int elems
   fence_async_smem();
 }
 
-// Pass 0 of the NS design, beside `weights_kernel`: G [b, z] in bf16 blocks (`weights_kernel`'s layout, 16
-// k x 64 n a block) both ways, at g_off of the workspace, NS_GBLK floats a (b, z): as the B of t G (K =
+// Pass 0 of the W128 design, beside `weights_kernel`: G [b, z] in bf16 blocks (`weights_kernel`'s layout, 16
+// k x 64 n a block) both ways, at g_off of the workspace, W128_GBLK floats a (b, z): as the B of t G (K =
 // hid, N = H hidm), then as the B of dpre G^T (K = H hidm, N = hid).
-__global__ void ns_g_kernel(const Params P) {
+__global__ void w128_g_kernel(const Params P) {
   const Dims& d = P.d;
   bf16* out = reinterpret_cast<bf16*>(P.work + d.g_off);
-  const long long total = 2LL * d.B * d.Z * NS_GBLK;
+  const long long total = 2LL * d.B * d.Z * W128_GBLK;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (long long)gridDim.x * blockDim.x) {
-    const long long bz = idx / (2 * NS_GBLK);
-    const int e = (int)(idx % (2 * NS_GBLK)), tr = e >= NS_GBLK, w = e % NS_GBLK;
-    const int K = tr ? NS_W : NS_HID, N = tr ? NS_HID : NS_W;
+    const long long bz = idx / (2 * W128_GBLK);
+    const int e = (int)(idx % (2 * W128_GBLK)), tr = e >= W128_GBLK, w = e % W128_GBLK;
+    const int K = tr ? W128_W : W128_HID, N = tr ? W128_HID : W128_W;
     const int blk = w / 1024, within = w % 1024, kc = blk / (N / 64), sl = blk % (N / 64);
     const int ng = within / 128, kg = within % 128 / 64, r = within % 64 / 8, i = within % 8;
     const int k = 16 * kc + 8 * kg + i, n = 64 * sl + 8 * ng + r;
-    const float* G = P.G + bz * NS_HID * NS_W;
-    out[idx] = __float2bfloat16_rn(tr ? G[(size_t)n * NS_W + k] : G[(size_t)k * NS_W + n]);
+    const float* G = P.G + bz * W128_HID * W128_W;
+    out[idx] = __float2bfloat16_rn(tr ? G[(size_t)n * W128_W + k] : G[(size_t)k * W128_W + n]);
     (void)K;
   }
 }
 
-// What every phase of the NS design reads: the planes and rows of shared memory, the block's workspace.
-struct NsCtx {
+// What every phase of the W128 design reads: the planes and rows of shared memory, the block's workspace.
+struct W128Ctx {
   const Params* P;
-  char* U;                                        // the operand planes (bytes, NS_U)
+  char* U;                                        // the operand planes (bytes, W128_U)
   float *s_psum, *s_dyb, *s_inv, *xs, *cs, *s_prob, *s_dlog;
   float *x_e, *x_u, *x_q1, *x_g2, *x_g3, *x_nb, *x_img;
-  const float* Gblk;                              // G's bf16 blocks, NS_GBLK floats a (b, z)
+  const float* Gblk;                              // G's bf16 blocks, W128_GBLK floats a (b, z)
 };
 template <class T>
-__device__ __forceinline__ T* at(const NsCtx& c, int off) { return reinterpret_cast<T*>(c.U + off); }
+__device__ __forceinline__ T* at(const W128Ctx& c, int off) { return reinterpret_cast<T*>(c.U + off); }
 __device__ __forceinline__ const float* wsplit(const Params& P, int j) { return P.work + P.d.split_off[j]; }
 
-// The phases below are inlined into the kernel (NS_PHASE): a wgmma in a function the kernel calls is
+// The phases below are inlined into the kernel (W128_PHASE): a wgmma in a function the kernel calls is
 // serialized by ptxas (C7510), which cost 10 % (tools/k2_compare.py's variant `noinline`). Each primes
 // its own first product's stream; a phase starts and ends with the ring free.
-#define NS_PHASE __forceinline__
+#define W128_PHASE __forceinline__
 
 // 1. A latent's logits, hq . A[b, z] + ab + wb, in q_w1's epilogue (each warpgroup's half of the dot,
 // summed through xs), into s_prob.
-__device__ NS_PHASE void ns_logits(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z) {
+__device__ W128_PHASE void w128_logits(const W128Ctx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z) {
   const Params& P = *c.P;
-  NS_FRAG;
+  W128_FRAG;
   bf16* F = at<bf16>(c, U_F);
-  ns_prime(rg, wsplit(P, SPLIT_Q), 2, 8, 1);
+  w128_prime(rg, wsplit(P, SPLIT_Q), 2, 8, 1);
   load_inv(c.s_inv, P.inv + (bz * P.d.C + c0) * P.d.I, rows, P.d.I);
-  ns_features(c.s_inv, P.d.I, P.q_coeff, F);
+  w128_features(c.s_inv, P.d.I, P.q_coeff, F);
   float acc[1][32];
-  ns_run<1, 1>(rg, F, 0, acc);
+  w128_run<1, 1>(rg, F, 0, acc);
   const int n0 = 64 * wg;
   float lg[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  NS_LOOP({
+  W128_LOOP({
     const float hq = bf16_round(fmaxf(acc[0][i] + __ldg(P.q_b1 + n0 + col), 0.0f));
-    const float2 a = ldg2(P.A + (bz * NS_HID + n0 + col) * 2);
+    const float2 a = ldg2(P.A + (bz * W128_HID + n0 + col) * 2);
     lg[hr][0] = fmaf(hq, bf16_round(a.x), lg[hr][0]);
     lg[hr][1] = fmaf(hq, bf16_round(a.y), lg[hr][1]);
   })
-  ns_row_sums<2>(lg, c.xs, par, true);
+  w128_row_sums<2>(lg, c.xs, par, true);
   if (tq == 0 && wg == 0)
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
@@ -1261,79 +1262,79 @@ __device__ NS_PHASE void ns_logits(const NsCtx& c, Ring& rg, int& par, size_t bz
 
 // hv = relu(F v_w1 + v_b1) into HV, then (u = hv fw + fb) t = normalize(gelu(u)) into T, u into the
 // workspace where `keep_u`: the value chain of a latent up to G's product (steps 2 and 4).
-__device__ __forceinline__ void ns_value_chain(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, bool keep_u) {
+__device__ __forceinline__ void w128_value_chain(const W128Ctx& c, Ring& rg, int& par, size_t bz, int c0, int rows, bool keep_u) {
   const Params& P = *c.P;
-  NS_FRAG;
+  W128_FRAG;
   bf16 *F = at<bf16>(c, U_F), *HV = at<bf16>(c, U_HV), *T = at<bf16>(c, U_T);
-  ns_prime(rg, wsplit(P, SPLIT_V), 2, 8, 1);
+  w128_prime(rg, wsplit(P, SPLIT_V), 2, 8, 1);
   load_inv(c.s_inv, P.inv + (bz * P.d.C + c0) * P.d.I, rows, P.d.I);
-  ns_features(c.s_inv, P.d.I, P.v_coeff, F);
+  w128_features(c.s_inv, P.d.I, P.v_coeff, F);
   float acc[1][32];
-  ns_run<1, 1>(rg, F, 0, acc);
-  ns_prime(rg, wsplit(P, SPLIT_F), 2, 8, 1);
+  w128_run<1, 1>(rg, F, 0, acc);
+  w128_prime(rg, wsplit(P, SPLIT_F), 2, 8, 1);
   const int n0 = 64 * wg;
-  NS_PAIRS({
+  W128_PAIRS({
     const float2 bv = ldg2(P.v_b1 + n0 + col);
     store2(HV, r, n0 + col, fmaxf(acc[0][i] + bv.x, 0.0f), fmaxf(acc[0][i + 1] + bv.y, 0.0f));
   })
   fence_async_smem();
-  ns_run<1, 1>(rg, HV, 0, acc);
+  w128_run<1, 1>(rg, HV, 0, acc);
   float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  NS_PAIRS({
+  W128_PAIRS({
     const float2 bf = ldg2(P.fb + n0 + col);
     const float u0 = acc[0][i] + bf.x, u1 = acc[0][i + 1] + bf.y;
-    if (keep_u) stcg2(c.x_u + r * NS_HID + n0 + col, u0, u1);
+    if (keep_u) stcg2(c.x_u + r * W128_HID + n0 + col, u0, u1);
     const float x0 = gelu_tanh(u0), x1 = gelu_tanh(u1);
     acc[0][i] = x0;
     acc[0][i + 1] = x1;
     v[hr][0] += x0 + x1;
     v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
   })
-  ns_row_sums<2>(v, c.xs, par, true);
+  w128_row_sums<2>(v, c.xs, par, true);
   float mean[2], rs[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mean[h] = v[h][0] / NS_HID;
-    rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
+    mean[h] = v[h][0] / W128_HID;
+    rs[h] = 1.0f / sqrtf(v[h][1] / W128_HID - mean[h] * mean[h] + LN_EPS);
   }
-  NS_PAIRS(store2(T, r, n0 + col, (acc[0][i] - mean[hr]) * rs[hr], (acc[0][i + 1] - mean[hr]) * rs[hr]);)
+  W128_PAIRS(store2(T, r, n0 + col, (acc[0][i] - mean[hr]) * rs[hr], (acc[0][i + 1] - mean[hr]) * rs[hr]);)
   fence_async_smem();
 }
 
 // 2. A latent's value chain, weighted into nbar (f32, NB) by the rounded softmax weights in G's epilogue:
 // nn = normalize(gelu(t G + c)) per head (a warpgroup's columns), nbar (+)= bf16(p) bf16(nn).
-__device__ NS_PHASE void ns_value(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z) {
+__device__ W128_PHASE void w128_value(const W128Ctx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z) {
   const Params& P = *c.P;
-  NS_FRAG;
+  W128_FRAG;
   float* NB = at<float>(c, U_NBAR);
-  ns_value_chain(c, rg, par, bz, c0, rows, false);
-  ns_prime(rg, c.Gblk + bz * NS_GBLK, 4, 8, 2);
+  w128_value_chain(c, rg, par, bz, c0, rows, false);
+  w128_prime(rg, c.Gblk + bz * W128_GBLK, 4, 8, 2);
   float ag[2][32];
-  ns_run<2, 1>(rg, at<bf16>(c, U_T), 0, ag);
+  w128_run<2, 1>(rg, at<bf16>(c, U_T), 0, ag);
   float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int n0p = 128 * wg + 64 * p;
-    NS_LOOP({
-      const float x = gelu_tanh(ag[p][i] + __ldg(P.c + bz * NS_W + n0p + col));
+    W128_LOOP({
+      const float x = gelu_tanh(ag[p][i] + __ldg(P.c + bz * W128_W + n0p + col));
       ag[p][i] = x;
       v[hr][0] += x;
       v[hr][1] = fmaf(x, x, v[hr][1]);
     })
   }
-  ns_row_sums<2>(v, c.xs, par, false);
+  w128_row_sums<2>(v, c.xs, par, false);
   float mean[2], rs[2], pz[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mean[h] = v[h][0] / NS_HID;
-    rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
+    mean[h] = v[h][0] / W128_HID;
+    rs[h] = 1.0f / sqrtf(v[h][1] / W128_HID - mean[h] * mean[h] + LN_EPS);
     pz[h] = bf16_round(c.s_prob[(z * TILE + r0 + 8 * h) * 2 + wg]);
   }
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int n0p = 128 * wg + 64 * p;
-    NS_PAIRS({
-      float2* nb = reinterpret_cast<float2*>(NB + r * NS_W + n0p + col);
+    W128_PAIRS({
+      float2* nb = reinterpret_cast<float2*>(NB + r * W128_W + n0p + col);
       const float a0 = pz[hr] * bf16_round((ag[p][i] - mean[hr]) * rs[hr]);
       const float a1 = pz[hr] * bf16_round((ag[p][i + 1] - mean[hr]) * rs[hr]);
       if (z == 0) {
@@ -1350,61 +1351,61 @@ __device__ NS_PHASE void ns_value(const NsCtx& c, Ring& rg, int& par, size_t bz,
 // y2 = gelu(q2), h1 = gelu(q3), and in q4's epilogue h2 and dq4 = dh2 gelu'(q4) (dh2 = bf16(g h_w3^T) on the
 // CUDA cores), dq4's three planes in C. q1, gelu'(q2), gelu'(q3) into the workspace; with weight gradients
 // the planes of y, y1, t1, y2 too, and h2 in E.
-__device__ NS_PHASE void ns_tail_fwd(const NsCtx& c, Ring& rg, int& par, const float* gsrc, int rows, bool wgr,
+__device__ W128_PHASE void w128_tail_fwd(const W128Ctx& c, Ring& rg, int& par, const float* gsrc, int rows, bool wgr,
                                      bool first_w, float* pw) {
   const Params& P = *c.P;
-  NS_FRAG;
+  W128_FRAG;
   const float* NB = at<float>(c, U_NBAR);
   bf16 *CC = at<bf16>(c, U_C), *SS = at<bf16>(c, U_S), *EE = at<bf16>(c, U_E);
   auto img = [&](int k) { return reinterpret_cast<bf16*>(c.x_img + (size_t)k * PL256 / 2); };
-  ns_prime(rg, wsplit(P, SPLIT_M), 2, 8, 1);
-  for (int idx = threadIdx.x; idx < TILE * NS_W / 2; idx += THREADS) {  // nbar's three planes
-    const int r = idx / (NS_W / 2), n = 2 * (idx % (NS_W / 2));
-    store3(CC, PL256, r, n, NB[r * NS_W + n], NB[r * NS_W + n + 1]);
+  w128_prime(rg, wsplit(P, SPLIT_M), 2, 8, 1);
+  for (int idx = threadIdx.x; idx < TILE * W128_W / 2; idx += THREADS) {  // nbar's three planes
+    const int r = idx / (W128_W / 2), n = 2 * (idx % (W128_W / 2));
+    store3(CC, PL256, r, n, NB[r * W128_W + n], NB[r * W128_W + n + 1]);
   }
   fence_async_smem();
   const int n0 = 64 * wg;
   for (int h = 0; h < 2; ++h) {  // y = nbar m_w2 + psum m_b2, a head at a time
     float acc[1][32];
-    ns_run<1, 3>(rg, CC + 64 * NS_HID * h, PL256, acc);
+    w128_run<1, 3>(rg, CC + 64 * W128_HID * h, PL256, acc);
     if (h == 0)
-      ns_prime(rg, wsplit(P, SPLIT_M), 2, 8, 1);
+      w128_prime(rg, wsplit(P, SPLIT_M), 2, 8, 1);
     else
-      ns_prime(rg, wsplit(P, SPLIT_O), 4, 16, 2);
+      w128_prime(rg, wsplit(P, SPLIT_O), 4, 16, 2);
     const float q0 = c.s_psum[r0 * 2 + h], q1 = c.s_psum[(r0 + 8) * 2 + h];
-    NS_PAIRS({
+    W128_PAIRS({
       const float2 mb = ldg2(P.m_b2 + n0 + col);
       const float q = hr ? q1 : q0;
       const float y0 = fmaf(q, mb.x, acc[0][i]), y1 = fmaf(q, mb.y, acc[0][i + 1]);
-      store2(SS, r, NS_HID * h + n0 + col, y0, y1);
-      if (wgr) store2(img(0), r, NS_HID * h + n0 + col, y0, y1);
+      store2(SS, r, W128_HID * h + n0 + col, y0, y1);
+      if (wgr) store2(img(0), r, W128_HID * h + n0 + col, y0, y1);
     })
     fence_async_smem();
   }
   float ag[2][32];
-  ns_run<2, 1>(rg, SS, 0, ag);  // y1 = y o_w + o_b
-  ns_prime(rg, wsplit(P, SPLIT_P1), 4, 16, 2);
+  w128_run<2, 1>(rg, SS, 0, ag);  // y1 = y o_w + o_b
+  w128_prime(rg, wsplit(P, SPLIT_P1), 4, 16, 2);
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int n0p = 128 * wg + 64 * p;
-    NS_PAIRS({
+    W128_PAIRS({
       const float2 bb = ldg2(P.o_b + n0p + col);
       store2(CC, r, n0p + col, ag[p][i] + bb.x, ag[p][i + 1] + bb.y);
       if (wgr) store2(img(1), r, n0p + col, ag[p][i] + bb.x, ag[p][i + 1] + bb.y);
     })
   }
   fence_async_smem();
-  ns_run<2, 1>(rg, CC, 0, ag);  // q1 = y1 p_w1 + p_b1; t1 = normalize(gelu(q1)) over H D
-  ns_prime(rg, wsplit(P, SPLIT_P2), 4, 16, 2);
+  w128_run<2, 1>(rg, CC, 0, ag);  // q1 = y1 p_w1 + p_b1; t1 = normalize(gelu(q1)) over H D
+  w128_prime(rg, wsplit(P, SPLIT_P2), 4, 16, 2);
   {
     float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
+      W128_PAIRS({
         const float2 bb = ldg2(P.p_b1 + n0p + col);
         const float qa = ag[p][i] + bb.x, qb = ag[p][i + 1] + bb.y;
-        stcg2(c.x_q1 + r * NS_W + n0p + col, qa, qb);
+        stcg2(c.x_q1 + r * W128_W + n0p + col, qa, qb);
         const float x0 = gelu_tanh(qa), x1 = gelu_tanh(qb);
         ag[p][i] = x0;
         ag[p][i + 1] = x1;
@@ -1412,17 +1413,17 @@ __device__ NS_PHASE void ns_tail_fwd(const NsCtx& c, Ring& rg, int& par, const f
         v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
       })
     }
-    ns_row_sums<2>(v, c.xs, par, true);
+    w128_row_sums<2>(v, c.xs, par, true);
     float mean[2], rs[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] = v[h][0] / NS_W;
-      rs[h] = 1.0f / sqrtf(v[h][1] / NS_W - mean[h] * mean[h] + LN_EPS);
+      mean[h] = v[h][0] / W128_W;
+      rs[h] = 1.0f / sqrtf(v[h][1] / W128_W - mean[h] * mean[h] + LN_EPS);
     }
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
+      W128_PAIRS({
         const float x0 = (ag[p][i] - mean[hr]) * rs[hr], x1 = (ag[p][i + 1] - mean[hr]) * rs[hr];
         store2(SS, r, n0p + col, x0, x1);
         if (wgr) store2(img(2), r, n0p + col, x0, x1);
@@ -1430,34 +1431,34 @@ __device__ NS_PHASE void ns_tail_fwd(const NsCtx& c, Ring& rg, int& par, const f
     }
     fence_async_smem();
   }
-  ns_run<2, 1>(rg, SS, 0, ag);  // q2 = t1 p_w2 + p_b2; y2 = gelu(q2)
-  ns_prime(rg, wsplit(P, SPLIT_H1), 2, 16, 1);
+  w128_run<2, 1>(rg, SS, 0, ag);  // q2 = t1 p_w2 + p_b2; y2 = gelu(q2)
+  w128_prime(rg, wsplit(P, SPLIT_H1), 2, 16, 1);
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int n0p = 128 * wg + 64 * p;
-    NS_PAIRS({
+    W128_PAIRS({
       const float2 bb = ldg2(P.p_b2 + n0p + col);
       const float2 g0 = gelu_and_grad(ag[p][i] + bb.x), g1 = gelu_and_grad(ag[p][i + 1] + bb.y);
       store2(CC, r, n0p + col, g0.x, g1.x);
       if (wgr) store2(img(3), r, n0p + col, g0.x, g1.x);
-      stcg2(c.x_g2 + r * NS_W + n0p + col, g0.y, g1.y);
+      stcg2(c.x_g2 + r * W128_W + n0p + col, g0.y, g1.y);
     })
   }
   fence_async_smem();
   float acc[1][32];
-  ns_run<1, 1>(rg, CC, 0, acc);  // q3 = y2 h_w1 + h_b1; h1 = gelu(q3)
-  ns_prime(rg, wsplit(P, SPLIT_H2), 2, 8, 1);
-  NS_PAIRS({
+  w128_run<1, 1>(rg, CC, 0, acc);  // q3 = y2 h_w1 + h_b1; h1 = gelu(q3)
+  w128_prime(rg, wsplit(P, SPLIT_H2), 2, 8, 1);
+  W128_PAIRS({
     const float2 bb = ldg2(P.h_b1 + n0 + col);
     const float2 g0 = gelu_and_grad(acc[0][i] + bb.x), g1 = gelu_and_grad(acc[0][i + 1] + bb.y);
     store2(SS, r, n0 + col, g0.x, g1.x);
-    stcg2(c.x_g3 + r * NS_HID + n0 + col, g0.y, g1.y);
+    stcg2(c.x_g3 + r * W128_HID + n0 + col, g0.y, g1.y);
   })
   fence_async_smem();
-  ns_run<1, 1>(rg, SS, 0, acc);  // q4 = h1 h_w2 + h_b2; h2 = gelu(q4); dq4 = dh2 gelu'(q4)
+  w128_run<1, 1>(rg, SS, 0, acc);  // q4 = h1 h_w2 + h_b2; h2 = gelu(q4); dq4 = dh2 gelu'(q4)
   const int od = P.d.out;
   float cv[1][16] = {};
-  NS_PAIRS({
+  W128_PAIRS({
     const float2 bb = ldg2(P.h_b2 + n0 + col);
     const float2 g0 = gelu_and_grad(acc[0][i] + bb.x), g1 = gelu_and_grad(acc[0][i + 1] + bb.y);
     float s0 = 0.0f, s1 = 0.0f;
@@ -1469,11 +1470,11 @@ __device__ NS_PHASE void ns_tail_fwd(const NsCtx& c, Ring& rg, int& par, const f
       }
     const float q0 = bf16_round(s0) * g0.y, q1 = bf16_round(s1) * g1.y;
     store3(CC, PL128, r, n0 + col, q0, q1);
-    NS_COL_ADD(cv, 0, q0, q1);
+    W128_COL_ADD(cv, 0, q0, q1);
     if (wgr) store2(EE, r, n0 + col, g0.x, g1.x);
   })
   fence_async_smem();
-  if (wgr) ns_col_out<1>(cv, c.cs, pw + P.d.w_off[17], first_w);  // dh_b2
+  if (wgr) w128_col_out<1>(cv, c.cs, pw + P.d.w_off[17], first_w);  // dh_b2
 }
 
 // 3b. The tail's VJP from dq4 (three planes in C, h1 in S): each input gradient dX = bf16(dY W^T) and the
@@ -1482,70 +1483,70 @@ __device__ NS_PHASE void ns_tail_fwd(const NsCtx& c, Ring& rg, int& par, const f
 // contraction X^T dY after its cotangent (X copied back from the workspace into S), the bias sums in the
 // cotangents' epilogues.
 // Ends with dy = bf16(dy1 o_w^T), one plane in C.
-__device__ NS_PHASE void ns_tail_vjp(const NsCtx& c, Ring& rg, int& par, const float* gsrc, int rows, bool wgr,
+__device__ W128_PHASE void w128_tail_vjp(const W128Ctx& c, Ring& rg, int& par, const float* gsrc, int rows, bool wgr,
                                          bool first_w, float* pw) {
   const Params& P = *c.P;
   const Dims& d = P.d;
-  NS_FRAG;
+  W128_FRAG;
   bf16 *CC = at<bf16>(c, U_C), *SS = at<bf16>(c, U_S), *EE = at<bf16>(c, U_E);
   auto img = [&](int k) { return c.x_img + (size_t)k * PL256 / 2; };
   const int n0 = 64 * wg;
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_H2), 2, 8, 1);
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_H2), 2, 8, 1);
   if (wgr) {
-    ns_rows_part<1, 3>(SS, 0, NS_HID, CC, PL128, NS_HID, pw + d.w_off[16], NS_HID, first_w);  // dh_w2 = h1^T dq4
-    ns_head_wgrad(EE, gsrc, rows, d.out, pw + d.w_off[18], pw + d.w_off[19], first_w);
+    w128_rows_part<1, 3>(SS, 0, W128_HID, CC, PL128, W128_HID, pw + d.w_off[16], W128_HID, first_w);  // dh_w2 = h1^T dq4
+    w128_head_wgrad(EE, gsrc, rows, d.out, pw + d.w_off[18], pw + d.w_off[19], first_w);
   }
   bf16* DQ3 = CC + 3 * PL128;
   float acc[1][32];
-  ns_run<1, 3>(rg, CC, PL128, acc);  // dh1 = bf16(dq4 h_w2^T); dq3 = dh1 gelu'(q3)
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_H1), 4, 8, 2);
+  w128_run<1, 3>(rg, CC, PL128, acc);  // dh1 = bf16(dq4 h_w2^T); dq3 = dh1 gelu'(q3)
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_H1), 4, 8, 2);
   {
     float cv[1][16] = {};
-    NS_PAIRS({
-      const float2 gd = ldcg2(c.x_g3 + r * NS_HID + n0 + col);
+    W128_PAIRS({
+      const float2 gd = ldcg2(c.x_g3 + r * W128_HID + n0 + col);
       const float q0 = bf16_round(acc[0][i]) * gd.x, q1 = bf16_round(acc[0][i + 1]) * gd.y;
       store3(DQ3, PL128, r, n0 + col, q0, q1);
-      NS_COL_ADD(cv, 0, q0, q1);
+      W128_COL_ADD(cv, 0, q0, q1);
     })
     fence_async_smem();
-    if (wgr) ns_col_out<1>(cv, c.cs, pw + d.w_off[15], first_w);  // dh_b1
+    if (wgr) w128_col_out<1>(cv, c.cs, pw + d.w_off[15], first_w);  // dh_b1
   }
   if (wgr) {  // dh_w1 = y2^T dq3
-    ns_reload(SS, img(3), PL256);
-    ns_rows_part<1, 3>(SS, 0, NS_W, DQ3, PL128, NS_HID, pw + d.w_off[14], NS_HID, first_w);
+    w128_reload(SS, img(3), PL256);
+    w128_rows_part<1, 3>(SS, 0, W128_W, DQ3, PL128, W128_HID, pw + d.w_off[14], W128_HID, first_w);
   }
   float ag[2][32];
-  ns_run<2, 3>(rg, DQ3, PL128, ag);  // dy2 = bf16(dq3 h_w1^T); dq2 = dy2 gelu'(q2), in C's place
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_P2), 4, 16, 2);
+  w128_run<2, 3>(rg, DQ3, PL128, ag);  // dy2 = bf16(dq3 h_w1^T); dq2 = dy2 gelu'(q2), in C's place
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_P2), 4, 16, 2);
   __syncthreads();  // both warpgroups are done reading dq3
   {
     float cv[2][16] = {};
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
-        const float2 gd = ldcg2(c.x_g2 + r * NS_W + n0p + col);
+      W128_PAIRS({
+        const float2 gd = ldcg2(c.x_g2 + r * W128_W + n0p + col);
         const float q0 = bf16_round(ag[p][i]) * gd.x, q1 = bf16_round(ag[p][i + 1]) * gd.y;
         store3(CC, PL256, r, n0p + col, q0, q1);
-        NS_COL_ADD(cv, p, q0, q1);
+        W128_COL_ADD(cv, p, q0, q1);
       })
     }
     fence_async_smem();
-    if (wgr) ns_col_out<2>(cv, c.cs, pw + d.w_off[13], first_w);  // dp_b2
+    if (wgr) w128_col_out<2>(cv, c.cs, pw + d.w_off[13], first_w);  // dp_b2
   }
   if (wgr) {  // dp_w2 = t1^T dq2
-    ns_reload(SS, img(2), PL256);
-    ns_rows_part<1, 3>(SS, 0, NS_W, CC, PL256, NS_W, pw + d.w_off[12], NS_W, first_w);
+    w128_reload(SS, img(2), PL256);
+    w128_rows_part<1, 3>(SS, 0, W128_W, CC, PL256, W128_W, pw + d.w_off[12], W128_W, first_w);
   }
-  ns_run<2, 3>(rg, CC, PL256, ag);  // dt1 = bf16(dq2 p_w2^T); dq1 by the LayerNorm-gelu VJP, in C's place
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_P1), 4, 16, 2);
+  w128_run<2, 3>(rg, CC, PL256, ag);  // dt1 = bf16(dq2 p_w2^T); dq1 by the LayerNorm-gelu VJP, in C's place
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_P1), 4, 16, 2);
   {
     float v[2][4] = {};
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
-        const float2 q = ldcg2(c.x_q1 + r * NS_W + n0p + col);
+      W128_PAIRS({
+        const float2 q = ldcg2(c.x_q1 + r * W128_W + n0p + col);
         const float x0 = gelu_tanh(q.x), x1 = gelu_tanh(q.y);
         const float d0 = bf16_round(ag[p][i]), d1 = bf16_round(ag[p][i + 1]);
         ag[p][i] = d0;
@@ -1556,61 +1557,61 @@ __device__ NS_PHASE void ns_tail_vjp(const NsCtx& c, Ring& rg, int& par, const f
         v[hr][3] = fmaf(d0, x0, fmaf(d1, x1, v[hr][3]));
       })
     }
-    ns_row_sums<4>(v, c.xs, par, true);  // its barrier: both warpgroups are done reading dq2
+    w128_row_sums<4>(v, c.xs, par, true);  // its barrier: both warpgroups are done reading dq2
     float mean[2], rs[2], md[2], mdn[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] = v[h][0] / NS_W;
-      rs[h] = 1.0f / sqrtf(v[h][1] / NS_W - mean[h] * mean[h] + LN_EPS);
-      md[h] = v[h][2] / NS_W;
-      mdn[h] = rs[h] * (v[h][3] - mean[h] * v[h][2]) / NS_W;
+      mean[h] = v[h][0] / W128_W;
+      rs[h] = 1.0f / sqrtf(v[h][1] / W128_W - mean[h] * mean[h] + LN_EPS);
+      md[h] = v[h][2] / W128_W;
+      mdn[h] = rs[h] * (v[h][3] - mean[h] * v[h][2]) / W128_W;
     }
     float cv[2][16] = {};
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
-        const float2 q = ldcg2(c.x_q1 + r * NS_W + n0p + col);
+      W128_PAIRS({
+        const float2 q = ldcg2(c.x_q1 + r * W128_W + n0p + col);
         const float2 g0 = gelu_and_grad(q.x), g1 = gelu_and_grad(q.y);
         const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
         const float q0 = rs[hr] * (ag[p][i] - md[hr] - m0 * mdn[hr]) * g0.y;
         const float q1 = rs[hr] * (ag[p][i + 1] - md[hr] - m1 * mdn[hr]) * g1.y;
         store3(CC, PL256, r, n0p + col, q0, q1);
-        NS_COL_ADD(cv, p, q0, q1);
+        W128_COL_ADD(cv, p, q0, q1);
       })
     }
     fence_async_smem();
-    if (wgr) ns_col_out<2>(cv, c.cs, pw + d.w_off[11], first_w);  // dp_b1
+    if (wgr) w128_col_out<2>(cv, c.cs, pw + d.w_off[11], first_w);  // dp_b1
   }
   if (wgr) {  // dp_w1 = y1^T dq1
-    ns_reload(SS, img(1), PL256);
-    ns_rows_part<1, 3>(SS, 0, NS_W, CC, PL256, NS_W, pw + d.w_off[10], NS_W, first_w);
+    w128_reload(SS, img(1), PL256);
+    w128_rows_part<1, 3>(SS, 0, W128_W, CC, PL256, W128_W, pw + d.w_off[10], W128_W, first_w);
   }
-  ns_run<2, 3>(rg, CC, PL256, ag);  // dy1 = bf16(dq1 p_w1^T), into E
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_O), 4, 16, 2);
+  w128_run<2, 3>(rg, CC, PL256, ag);  // dy1 = bf16(dq1 p_w1^T), into E
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_O), 4, 16, 2);
   {
     float cv[2][16] = {};
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
+      W128_PAIRS({
         const float q0 = bf16_round(ag[p][i]), q1 = bf16_round(ag[p][i + 1]);
         store2(EE, r, n0p + col, q0, q1);
-        NS_COL_ADD(cv, p, q0, q1);
+        W128_COL_ADD(cv, p, q0, q1);
       })
     }
     fence_async_smem();
-    if (wgr) ns_col_out<2>(cv, c.cs, pw + d.w_off[9], first_w);  // do_b
+    if (wgr) w128_col_out<2>(cv, c.cs, pw + d.w_off[9], first_w);  // do_b
   }
   if (wgr) {  // do_w = y^T dy1 (dy1 is bf16: one term)
-    ns_reload(SS, img(0), PL256);
-    ns_rows_part<1, 1>(SS, 0, NS_W, EE, 0, NS_W, pw + d.w_off[8], NS_W, first_w);
+    w128_reload(SS, img(0), PL256);
+    w128_rows_part<1, 1>(SS, 0, W128_W, EE, 0, W128_W, pw + d.w_off[8], W128_W, first_w);
   }
-  ns_run<2, 1>(rg, EE, 0, ag);  // dy = bf16(dy1 o_w^T), into C
+  w128_run<2, 1>(rg, EE, 0, ag);  // dy = bf16(dy1 o_w^T), into C
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int n0p = 128 * wg + 64 * p;
-    NS_PAIRS(store2(CC, r, n0p + col, ag[p][i], ag[p][i + 1]);)
+    W128_PAIRS(store2(CC, r, n0p + col, ag[p][i], ag[p][i + 1]);)
   }
   fence_async_smem();
 }
@@ -1619,18 +1620,18 @@ __device__ NS_PHASE void ns_tail_vjp(const NsCtx& c, Ring& rg, int& par, const f
 // dm_w2 = nbar_h^T dy_h a head (nbar_h's three planes from the workspace into S and E; each head's own
 // partial); e_h = dy_h m_w2^T into the workspace (not rounded: the cotangent of the rounded n is bf16(p16 e)).
 template <int DYP>
-__device__ NS_PHASE void ns_mixer_vjp(const NsCtx& c, Ring& rg, bool wgr, bool first_w, float* pw) {
+__device__ W128_PHASE void w128_mixer_vjp(const W128Ctx& c, Ring& rg, bool wgr, bool first_w, float* pw) {
   const Params& P = *c.P;
   const Dims& d = P.d;
-  NS_FRAG;
+  W128_FRAG;
   bf16 *CC = at<bf16>(c, U_C), *SS = at<bf16>(c, U_S);
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_M), 2, 8, 1);
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_M), 2, 8, 1);
   __syncthreads();
   for (int idx = threadIdx.x; idx < TILE * 2; idx += THREADS) {
     const int t = idx >> 1, h = idx & 1;
     float s = 0.0f;
-    for (int n = 0; n < NS_HID; ++n) {
-      const int i = a16_index(t, h * NS_HID + n);
+    for (int n = 0; n < W128_HID; ++n) {
+      const int i = a16_index(t, h * W128_HID + n);
       float v = b2f(CC[i]);
       for (int p = 1; p < DYP; ++p) v += b2f(CC[i + p * PL256]);
       s = fmaf(v, __ldg(P.m_b2 + n), s);
@@ -1638,25 +1639,25 @@ __device__ NS_PHASE void ns_mixer_vjp(const NsCtx& c, Ring& rg, bool wgr, bool f
     c.s_dyb[idx] = s;
   }
   if (wgr) {
-    ns_dm_b2(CC, PL256, DYP, pw + d.w_off[7], first_w, c.s_psum);
+    w128_dm_b2(CC, PL256, DYP, pw + d.w_off[7], first_w, c.s_psum);
     for (int h = 0; h < 2; ++h) {
       __syncthreads();
-      for (int idx = threadIdx.x; idx < TILE * NS_HID / 2; idx += THREADS) {
-        const int r = idx / (NS_HID / 2), n = 2 * (idx % (NS_HID / 2));
-        const float2 v = ldcg2(c.x_nb + r * NS_W + h * NS_HID + n);
+      for (int idx = threadIdx.x; idx < TILE * W128_HID / 2; idx += THREADS) {
+        const int r = idx / (W128_HID / 2), n = 2 * (idx % (W128_HID / 2));
+        const float2 v = ldcg2(c.x_nb + r * W128_W + h * W128_HID + n);
         store3(SS, PL128, r, n, v.x, v.y);
       }
       fence_async_smem();
-      ns_rows_part<3, DYP>(SS, PL128, NS_HID, CC + 64 * NS_HID * h, PL256, NS_HID,
-                           pw + d.w_off[6] + (size_t)h * NS_HID * NS_HID, NS_HID, first_w);
+      w128_rows_part<3, DYP>(SS, PL128, W128_HID, CC + 64 * W128_HID * h, PL256, W128_HID,
+                           pw + d.w_off[6] + (size_t)h * W128_HID * W128_HID, W128_HID, first_w);
     }
   }
   for (int h = 0; h < 2; ++h) {
     float acc[1][32];
-    ns_run<1, DYP>(rg, CC + 64 * NS_HID * h, PL256, acc);
-    if (h == 0) ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_M), 2, 8, 1);
-    const int n0 = NS_HID * h + 64 * wg;
-    NS_PAIRS(stcg2(c.x_e + r * NS_W + n0 + col, acc[0][i], acc[0][i + 1]);)
+    w128_run<1, DYP>(rg, CC + 64 * W128_HID * h, PL256, acc);
+    if (h == 0) w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_M), 2, 8, 1);
+    const int n0 = W128_HID * h + 64 * wg;
+    W128_PAIRS(stcg2(c.x_e + r * W128_W + n0 + col, acc[0][i], acc[0][i + 1]);)
   }
 }
 
@@ -1664,44 +1665,44 @@ __device__ NS_PHASE void ns_mixer_vjp(const NsCtx& c, Ring& rg, bool wgr, bool f
 // + <dy, m_b2>) per head (a warpgroup's columns) and dpre, three planes; dc, dG = t^T dpre; dt = bf16(dpre
 // G^T) and du by the LayerNorm-gelu VJP in its epilogue (one exchange); dfw; dhv = bf16(du fw^T) where hv >
 // 0; dv_w1; dF = bf16(dhv v_w1^T) and the RFF VJP into dinv.
-__device__ NS_PHASE void ns_value_vjp(const NsCtx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z,
+__device__ W128_PHASE void w128_value_vjp(const W128Ctx& c, Ring& rg, int& par, size_t bz, int c0, int rows, int z,
                                           float* pG, float* pc, bool first_row, bool wgr, bool first_w, float* pw) {
   const Params& P = *c.P;
   const Dims& d = P.d;
-  NS_FRAG;
+  W128_FRAG;
   bf16 *F = at<bf16>(c, U_F), *HV = at<bf16>(c, U_HV), *T = at<bf16>(c, U_T), *DP = at<bf16>(c, U_D);
-  ns_value_chain(c, rg, par, bz, c0, rows, true);
-  ns_prime(rg, c.Gblk + bz * NS_GBLK, 4, 8, 2);
+  w128_value_chain(c, rg, par, bz, c0, rows, true);
+  w128_prime(rg, c.Gblk + bz * W128_GBLK, 4, 8, 2);
   float ag[2][32];
-  ns_run<2, 1>(rg, T, 0, ag);  // pre = t G + c
-  ns_prime(rg, c.Gblk + bz * NS_GBLK + NS_GBLK / 2, 2, 16, 1);
+  w128_run<2, 1>(rg, T, 0, ag);  // pre = t G + c
+  w128_prime(rg, c.Gblk + bz * W128_GBLK + W128_GBLK / 2, 2, 16, 1);
   {
     float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_LOOP({
-        const float x = ag[p][i] + __ldg(P.c + bz * NS_W + n0p + col);
+      W128_LOOP({
+        const float x = ag[p][i] + __ldg(P.c + bz * W128_W + n0p + col);
         ag[p][i] = x;
         const float g = gelu_tanh(x);
         v[hr][0] += g;
         v[hr][1] = fmaf(g, g, v[hr][1]);
       })
     }
-    ns_row_sums<2>(v, c.xs, par, false);
+    w128_row_sums<2>(v, c.xs, par, false);
     float mean[2], rs[2], pz[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] = v[h][0] / NS_HID;
-      rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
+      mean[h] = v[h][0] / W128_HID;
+      rs[h] = 1.0f / sqrtf(v[h][1] / W128_HID - mean[h] * mean[h] + LN_EPS);
       pz[h] = bf16_round(c.s_prob[(z * TILE + r0 + 8 * h) * 2 + wg]);
     }
     float w[2][3] = {};  // sums of e bf16(n), dn and dn n
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
-        const float2 e = ldcg2(c.x_e + r * NS_W + n0p + col);
+      W128_PAIRS({
+        const float2 e = ldcg2(c.x_e + r * W128_W + n0p + col);
         const float m0 = (gelu_tanh(ag[p][i]) - mean[hr]) * rs[hr], m1 = (gelu_tanh(ag[p][i + 1]) - mean[hr]) * rs[hr];
         const float d0 = bf16_round(e.x * pz[hr]), d1 = bf16_round(e.y * pz[hr]);
         w[hr][0] = fmaf(e.x, bf16_round(m0), fmaf(e.y, bf16_round(m1), w[hr][0]));
@@ -1709,7 +1710,7 @@ __device__ NS_PHASE void ns_value_vjp(const NsCtx& c, Ring& rg, int& par, size_t
         w[hr][2] = fmaf(d0, m0, fmaf(d1, m1, w[hr][2]));
       })
     }
-    ns_row_sums<3>(w, c.xs, par, false);
+    w128_row_sums<3>(w, c.xs, par, false);
     if (tq == 0)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -1720,29 +1721,29 @@ __device__ NS_PHASE void ns_value_vjp(const NsCtx& c, Ring& rg, int& par, size_t
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       const int n0p = 128 * wg + 64 * p;
-      NS_PAIRS({
-        const float2 e = ldcg2(c.x_e + r * NS_W + n0p + col);
+      W128_PAIRS({
+        const float2 e = ldcg2(c.x_e + r * W128_W + n0p + col);
         const float2 g0 = gelu_and_grad(ag[p][i]), g1 = gelu_and_grad(ag[p][i + 1]);
         const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
         const float d0 = bf16_round(e.x * pz[hr]), d1 = bf16_round(e.y * pz[hr]);
-        const float md = w[hr][1] / NS_HID, mdn = w[hr][2] / NS_HID;
+        const float md = w[hr][1] / W128_HID, mdn = w[hr][2] / W128_HID;
         const float q0 = rs[hr] * (d0 - md - m0 * mdn) * g0.y, q1 = rs[hr] * (d1 - md - m1 * mdn) * g1.y;
         store3(DP, PL256, r, n0p + col, q0, q1);
-        NS_COL_ADD(cv, p, q0, q1);
+        W128_COL_ADD(cv, p, q0, q1);
       })
     }
     fence_async_smem();
-    ns_col_out<2>(cv, c.cs, pc + (size_t)z * NS_W, first_row);  // dc
+    w128_col_out<2>(cv, c.cs, pc + (size_t)z * W128_W, first_row);  // dc
   }
-  ns_rows_part<1, 3>(T, 0, NS_HID, DP, PL256, NS_W, pG + (size_t)z * NS_HID * NS_W, NS_W, first_row);  // dG = t^T dpre
+  w128_rows_part<1, 3>(T, 0, W128_HID, DP, PL256, W128_W, pG + (size_t)z * W128_HID * W128_W, W128_W, first_row);  // dG = t^T dpre
   float acc[1][32];
-  ns_run<1, 3>(rg, DP, PL256, acc);  // dt = bf16(dpre G^T); du by the LayerNorm-gelu VJP, in dpre's place
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_F), 2, 8, 1);
+  w128_run<1, 3>(rg, DP, PL256, acc);  // dt = bf16(dpre G^T); du by the LayerNorm-gelu VJP, in dpre's place
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_F), 2, 8, 1);
   const int n0 = 64 * wg;
   {
     float v[2][4] = {};
-    NS_PAIRS({
-      const float2 u = ldcg2(c.x_u + r * NS_HID + n0 + col);
+    W128_PAIRS({
+      const float2 u = ldcg2(c.x_u + r * W128_HID + n0 + col);
       const float x0 = gelu_tanh(u.x), x1 = gelu_tanh(u.y);
       const float d0 = bf16_round(acc[0][i]), d1 = bf16_round(acc[0][i + 1]);
       acc[0][i] = d0;
@@ -1752,67 +1753,67 @@ __device__ NS_PHASE void ns_value_vjp(const NsCtx& c, Ring& rg, int& par, size_t
       v[hr][2] += d0 + d1;
       v[hr][3] = fmaf(d0, x0, fmaf(d1, x1, v[hr][3]));
     })
-    ns_row_sums<4>(v, c.xs, par, true);  // its barrier: both warpgroups are done reading dpre
+    w128_row_sums<4>(v, c.xs, par, true);  // its barrier: both warpgroups are done reading dpre
     float mean[2], rs[2], md[2], mdn[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] = v[h][0] / NS_HID;
-      rs[h] = 1.0f / sqrtf(v[h][1] / NS_HID - mean[h] * mean[h] + LN_EPS);
-      md[h] = v[h][2] / NS_HID;
-      mdn[h] = rs[h] * (v[h][3] - mean[h] * v[h][2]) / NS_HID;
+      mean[h] = v[h][0] / W128_HID;
+      rs[h] = 1.0f / sqrtf(v[h][1] / W128_HID - mean[h] * mean[h] + LN_EPS);
+      md[h] = v[h][2] / W128_HID;
+      mdn[h] = rs[h] * (v[h][3] - mean[h] * v[h][2]) / W128_HID;
     }
     float cv[1][16] = {};
-    NS_PAIRS({
-      const float2 u = ldcg2(c.x_u + r * NS_HID + n0 + col);
+    W128_PAIRS({
+      const float2 u = ldcg2(c.x_u + r * W128_HID + n0 + col);
       const float2 g0 = gelu_and_grad(u.x), g1 = gelu_and_grad(u.y);
       const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
       const float q0 = rs[hr] * (acc[0][i] - md[hr] - m0 * mdn[hr]) * g0.y;
       const float q1 = rs[hr] * (acc[0][i + 1] - md[hr] - m1 * mdn[hr]) * g1.y;
       store3(DP, PL128, r, n0 + col, q0, q1);
-      NS_COL_ADD(cv, 0, q0, q1);
+      W128_COL_ADD(cv, 0, q0, q1);
     })
     fence_async_smem();
-    if (wgr) ns_col_out<1>(cv, c.cs, pw + d.w_off[5], first_w && z == 0);  // dfb
+    if (wgr) w128_col_out<1>(cv, c.cs, pw + d.w_off[5], first_w && z == 0);  // dfb
   }
   bf16* DHV = DP + 3 * PL128;
   if (wgr)  // dfw = hv^T du
-    ns_rows_part<1, 3>(HV, 0, NS_HID, DP, PL128, NS_HID, pw + d.w_off[4], NS_HID, first_w && z == 0);
-  ns_run<1, 3>(rg, DP, PL128, acc);  // dhv = bf16(du fw^T), 0 where hv is not positive
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_V), 2, 8, 1);
+    w128_rows_part<1, 3>(HV, 0, W128_HID, DP, PL128, W128_HID, pw + d.w_off[4], W128_HID, first_w && z == 0);
+  w128_run<1, 3>(rg, DP, PL128, acc);  // dhv = bf16(du fw^T), 0 where hv is not positive
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_V), 2, 8, 1);
   {
     float cv[1][16] = {};
-    NS_PAIRS({
+    W128_PAIRS({
       const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(HV + a16_index(r, n0 + col));
       const float q0 = b2f(h2.x) > 0.0f ? bf16_round(acc[0][i]) : 0.0f, q1 = b2f(h2.y) > 0.0f ? bf16_round(acc[0][i + 1]) : 0.0f;
       store2(DHV, r, n0 + col, q0, q1);
-      NS_COL_ADD(cv, 0, q0, q1);
+      W128_COL_ADD(cv, 0, q0, q1);
     })
     fence_async_smem();
-    if (wgr) ns_col_out<1>(cv, c.cs, pw + d.w_off[3], first_w && z == 0);  // dv_b1
+    if (wgr) w128_col_out<1>(cv, c.cs, pw + d.w_off[3], first_w && z == 0);  // dv_b1
   }
   if (wgr)  // dv_w1 = F^T dhv (dhv is bf16: one term)
-    ns_rows_part<1, 1>(F, 0, NS_HID, DHV, 0, NS_HID, pw + d.w_off[2], NS_HID, first_w && z == 0);
-  ns_run<1, 1>(rg, DHV, 0, acc);  // dF = bf16(dhv v_w1^T), then the RFF VJP into dinv (a row pass)
+    w128_rows_part<1, 1>(F, 0, W128_HID, DHV, 0, W128_HID, pw + d.w_off[2], W128_HID, first_w && z == 0);
+  w128_run<1, 1>(rg, DHV, 0, acc);  // dF = bf16(dhv v_w1^T), then the RFF VJP into dinv (a row pass)
   float* DF = at<float>(c, U_D + 65536);
-  NS_PAIRS(*reinterpret_cast<float2*>(DF + r * NS_HID + n0 + col) = make_float2(bf16_round(acc[0][i]), bf16_round(acc[0][i + 1]));)
-  rff_vjp(c.s_inv, d.I, P.v_coeff, NS_HID / 2, DF, NS_HID, P.dinv + (bz * d.C + c0) * d.I, rows, false);
+  W128_PAIRS(*reinterpret_cast<float2*>(DF + r * W128_HID + n0 + col) = make_float2(bf16_round(acc[0][i]), bf16_round(acc[0][i + 1]));)
+  rff_vjp(c.s_inv, d.I, P.v_coeff, W128_HID / 2, DF, W128_HID, P.dinv + (bz * d.C + c0) * d.I, rows, false);
 }
 
 // 5. A latent's query chain again, then its VJP: in q_w1's epilogue dhq = (hq > 0) bf16(dlog A^T) and dA's
 // column sums (over the quads' rows by shuffles, then the warps' in order); dab, dwb; dq_w1; dF =
 // bf16(dhq q_w1^T) and the RFF VJP added into dinv.
-__device__ NS_PHASE void ns_query_vjp(const NsCtx& c, Ring& rg, size_t bz, int c0, int rows, int z, float* pA,
+__device__ W128_PHASE void w128_query_vjp(const W128Ctx& c, Ring& rg, size_t bz, int c0, int rows, int z, float* pA,
                                           float* pab, bool first_row, bool wgr, bool first_w, float* pw) {
   const Params& P = *c.P;
   const Dims& d = P.d;
-  NS_FRAG;
+  W128_FRAG;
   bf16 *F = at<bf16>(c, U_F), *DH = at<bf16>(c, U_HV);
-  ns_prime(rg, wsplit(P, SPLIT_Q), 2, 8, 1);
+  w128_prime(rg, wsplit(P, SPLIT_Q), 2, 8, 1);
   load_inv(c.s_inv, P.inv + (bz * d.C + c0) * d.I, rows, d.I);
-  ns_features(c.s_inv, d.I, P.q_coeff, F);
+  w128_features(c.s_inv, d.I, P.q_coeff, F);
   float acc[1][32];
-  ns_run<1, 1>(rg, F, 0, acc);
-  ns_prime(rg, wsplit(P, SPLIT_T + SPLIT_Q), 2, 8, 1);
+  w128_run<1, 1>(rg, F, 0, acc);
+  w128_prime(rg, wsplit(P, SPLIT_T + SPLIT_Q), 2, 8, 1);
   const int n0 = 64 * wg, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* dlog = c.s_dlog + z * TILE * 2;
   float dl[2][2];
@@ -1822,13 +1823,13 @@ __device__ NS_PHASE void ns_query_vjp(const NsCtx& c, Ring& rg, size_t bz, int c
     for (int k = 0; k < 2; ++k) dl[h][k] = dlog[(r0 + 8 * h) * 2 + k];
   float da[8][2][2];  // this thread's columns' sums over its two rows of bf16(hq) dlog
   float cv[1][16] = {};
-  NS_PAIRS({
+  W128_PAIRS({
     const float2 bq = ldg2(P.q_b1 + n0 + col);
     const float hq[2] = {fmaxf(acc[0][i] + bq.x, 0.0f), fmaxf(acc[0][i + 1] + bq.y, 0.0f)};
     float dh[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float2 a = ldg2(P.A + (bz * NS_HID + n0 + col + e) * 2);
+      const float2 a = ldg2(P.A + (bz * W128_HID + n0 + col + e) * 2);
       const float s = fmaf(dl[hr][1], bf16_round(a.y), dl[hr][0] * bf16_round(a.x));
       dh[e] = hq[e] > 0.0f ? bf16_round(s) : 0.0f;
       const float hb = bf16_round(hq[e]);
@@ -1836,7 +1837,7 @@ __device__ NS_PHASE void ns_query_vjp(const NsCtx& c, Ring& rg, size_t bz, int c
       for (int k = 0; k < 2; ++k) da[j_][e][k] = hr ? fmaf(hb, dl[hr][k], da[j_][e][k]) : hb * dl[hr][k];
     }
     store2(DH, r, n0 + col, dh[0], dh[1]);
-    NS_COL_ADD(cv, 0, dh[0], dh[1]);
+    W128_COL_ADD(cv, 0, dh[0], dh[1]);
   })
   fence_async_smem();
 #pragma unroll
@@ -1857,11 +1858,11 @@ __device__ NS_PHASE void ns_query_vjp(const NsCtx& c, Ring& rg, size_t bz, int c
 #pragma unroll
       for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int k = 0; k < 2; ++k) c.cs[((warp & 3) * NS_HID + n0 + 8 * j + 2 * lane + e) * 2 + k] = da[j][e][k];
+        for (int k = 0; k < 2; ++k) c.cs[((warp & 3) * W128_HID + n0 + 8 * j + 2 * lane + e) * 2 + k] = da[j][e][k];
   __syncthreads();
-  float* dA = pA + (size_t)z * NS_HID * 2;
-  for (int idx = threadIdx.x; idx < NS_HID * 2; idx += THREADS) {
-    const float s = ((c.cs[idx] + c.cs[NS_HID * 2 + idx]) + c.cs[2 * NS_HID * 2 + idx]) + c.cs[3 * NS_HID * 2 + idx];
+  float* dA = pA + (size_t)z * W128_HID * 2;
+  for (int idx = threadIdx.x; idx < W128_HID * 2; idx += THREADS) {
+    const float s = ((c.cs[idx] + c.cs[W128_HID * 2 + idx]) + c.cs[2 * W128_HID * 2 + idx]) + c.cs[3 * W128_HID * 2 + idx];
     dA[idx] = first_row ? s : dA[idx] + s;
   }
   if (threadIdx.x < 2) {
@@ -1871,23 +1872,23 @@ __device__ NS_PHASE void ns_query_vjp(const NsCtx& c, Ring& rg, size_t bz, int c
   }
   for (int t = threadIdx.x; t < rows; t += THREADS) P.dwb[bz * d.C + c0 + t] = dlog[t * 2] + dlog[t * 2 + 1];
   if (wgr) {  // dq_b1, dq_w1 = F^T dhq
-    ns_col_out<1>(cv, c.cs, pw + d.w_off[1], first_w && z == 0);
-    ns_rows_part<1, 1>(F, 0, NS_HID, DH, 0, NS_HID, pw + d.w_off[0], NS_HID, first_w && z == 0);
+    w128_col_out<1>(cv, c.cs, pw + d.w_off[1], first_w && z == 0);
+    w128_rows_part<1, 1>(F, 0, W128_HID, DH, 0, W128_HID, pw + d.w_off[0], W128_HID, first_w && z == 0);
   }
-  ns_run<1, 1>(rg, DH, 0, acc);  // dF = bf16(dhq q_w1^T), then the RFF VJP added into dinv (a row pass)
+  w128_run<1, 1>(rg, DH, 0, acc);  // dF = bf16(dhq q_w1^T), then the RFF VJP added into dinv (a row pass)
   float* DF = at<float>(c, U_D + 65536);
-  NS_PAIRS(*reinterpret_cast<float2*>(DF + r * NS_HID + n0 + col) = make_float2(bf16_round(acc[0][i]), bf16_round(acc[0][i + 1]));)
-  rff_vjp(c.s_inv, d.I, P.q_coeff, NS_HID / 2, DF, NS_HID, P.dinv + (bz * d.C + c0) * d.I, rows, true);
+  W128_PAIRS(*reinterpret_cast<float2*>(DF + r * W128_HID + n0 + col) = make_float2(bf16_round(acc[0][i]), bf16_round(acc[0][i + 1]));)
+  rff_vjp(c.s_inv, d.I, P.q_coeff, W128_HID / 2, DF, W128_HID, P.dinv + (bz * d.C + c0) * d.I, rows, true);
 }
 
-__global__ void __launch_bounds__(THREADS, 1) fused_decode_bwd_ns(const __grid_constant__ Params P) {
+__global__ void __launch_bounds__(THREADS, 1) fused_decode_bwd_w128(const __grid_constant__ Params P) {
   extern __shared__ __align__(16) float smem[];
   const Dims& d = P.d;
   const int Z = d.Z, tid = threadIdx.x;
-  NsCtx c;
+  W128Ctx c;
   c.P = &P;
-  c.U = reinterpret_cast<char*>(smem) + NS_RING;
-  c.s_psum = reinterpret_cast<float*>(c.U + NS_U);  // [64][2] sum_z bf16(p_z)
+  c.U = reinterpret_cast<char*>(smem) + W128_RING;
+  c.s_psum = reinterpret_cast<float*>(c.U + W128_U);  // [64][2] sum_z bf16(p_z)
   c.s_dyb = c.s_psum + 2 * TILE;                      // [64][2] <dy_h, m_b2>
   c.s_inv = c.s_dyb + 2 * TILE;                       // [64][I]
   c.xs = c.s_inv + TILE * MAX_I;                      // the row sums' exchange: [2][2][64][4]
@@ -1904,7 +1905,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_bwd_ns(const __grid_c
   c.x_img = ws + d.x_img;    // y, y1, t1, y2 as bf16 planes (with weight gradients and the tail)
   c.Gblk = P.work + d.g_off;
   Ring rg;
-  rg.buf = smem + (tid >> 7) * NS_STAGES * 1024;
+  rg.buf = smem + (tid >> 7) * W128_STAGES * 1024;
   rg.bar = 1 + (tid >> 7);
   rg.lt = tid & 127;
   int par = 0;
@@ -1925,33 +1926,33 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_bwd_ns(const __grid_c
     float* pc = pG + d.l_G;
     const float* gsrc = P.g + ((size_t)b * d.C + c0) * d.out;
 
-    for (int z = 0; z < Z; ++z) ns_logits(c, rg, par, (size_t)b * Z + z, c0, rows, z);
+    for (int z = 0; z < Z; ++z) w128_logits(c, rg, par, (size_t)b * Z + z, c0, rows, z);
     softmax_z(c.s_prob, Z, 2, c.s_psum);
-    for (int z = 0; z < Z; ++z) ns_value(c, rg, par, (size_t)b * Z + z, c0, rows, z);
+    for (int z = 0; z < Z; ++z) w128_value(c, rg, par, (size_t)b * Z + z, c0, rows, z);
     __syncthreads();  // nbar, every latent's
     if (wgr) {
       const float* NB = at<float>(c, U_NBAR);
-      for (int idx = 4 * tid; idx < TILE * NS_W; idx += 4 * THREADS)
+      for (int idx = 4 * tid; idx < TILE * W128_W; idx += 4 * THREADS)
         __stcg(reinterpret_cast<float4*>(c.x_nb + idx), *reinterpret_cast<const float4*>(NB + idx));
     }
     if (d.tail) {
-      ns_tail_fwd(c, rg, par, gsrc, rows, wgr, first_w, pw);
-      ns_tail_vjp(c, rg, par, gsrc, rows, wgr, first_w, pw);
-      ns_mixer_vjp<1>(c, rg, wgr, first_w, pw);
+      w128_tail_fwd(c, rg, par, gsrc, rows, wgr, first_w, pw);
+      w128_tail_vjp(c, rg, par, gsrc, rows, wgr, first_w, pw);
+      w128_mixer_vjp<1>(c, rg, wgr, first_w, pw);
     } else {
       bf16* CC = at<bf16>(c, U_C);
-      for (int idx = tid; idx < TILE * NS_W / 2; idx += THREADS) {  // dy = g, three planes
-        const int r = idx / (NS_W / 2), n = 2 * (idx % (NS_W / 2));
-        const float2 v = r < rows ? ldg2(gsrc + r * NS_W + n) : make_float2(0.0f, 0.0f);
+      for (int idx = tid; idx < TILE * W128_W / 2; idx += THREADS) {  // dy = g, three planes
+        const int r = idx / (W128_W / 2), n = 2 * (idx % (W128_W / 2));
+        const float2 v = r < rows ? ldg2(gsrc + r * W128_W + n) : make_float2(0.0f, 0.0f);
         store3(CC, PL256, r, n, v.x, v.y);
       }
       fence_async_smem();
-      ns_mixer_vjp<3>(c, rg, wgr, first_w, pw);
+      w128_mixer_vjp<3>(c, rg, wgr, first_w, pw);
     }
     for (int z = 0; z < Z; ++z)
-      ns_value_vjp(c, rg, par, (size_t)b * Z + z, c0, rows, z, pG, pc, first_row, wgr, first_w, pw);
+      w128_value_vjp(c, rg, par, (size_t)b * Z + z, c0, rows, z, pG, pc, first_row, wgr, first_w, pw);
     softmax_vjp(c.s_prob, c.s_dlog, Z, 2);
-    for (int z = 0; z < Z; ++z) ns_query_vjp(c, rg, (size_t)b * Z + z, c0, rows, z, pA, pab, first_row, wgr, first_w, pw);
+    for (int z = 0; z < Z; ++z) w128_query_vjp(c, rg, (size_t)b * Z + z, c0, rows, z, pA, pab, first_row, wgr, first_w, pw);
   }
 }
 
@@ -2000,27 +2001,27 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 
 // The launcher's hooks (fused_decode_bwd_host.cuh): threads of `weights_kernel` (one a bf16 of the
 // converted weights, two a float) and floats of the reduced output (m_w2 summed over its heads).
-inline long long weight_threads(const Dims& d) { return 2 * (d.ns ? d.g_off : d.split_total); }
+inline long long weight_threads(const Dims& d) { return 2 * (d.w128 ? d.g_off : d.split_total); }
 
-// The NS design's kernel attributes and launch (K2_NS_DESIGN, fused_decode_bwd_host.cuh): pass 0's
-// weights and G's blocks, then pass 1.
-cudaError_t prepare_ns(size_t smem, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(fused_decode_bwd_ns, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The launcher's hooks for a design of the program's own (fused_decode_bwd_host.cuh): whether a launch takes
+// the W128 design, its kernel attributes, and its launch (pass 0's weights and G's blocks, then pass 1).
+inline bool own_design(const Dims& d) { return d.w128; }
+cudaError_t prepare_own(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(fused_decode_bwd_w128, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_decode_bwd_ns, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(fused_decode_bwd_w128, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && per_sm) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_bwd_ns, THREADS, smem);
+  if (err == cudaSuccess && per_sm) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_bwd_w128, THREADS, smem);
   return err;
 }
-void launch_ns(const Params& P, int split_blocks, size_t smem, cudaStream_t s) {
+void launch_own(const Params& P, int split_blocks, size_t smem, cudaStream_t s) {
   weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);
-  long long gb = (2LL * P.d.B * P.d.Z * NS_GBLK + THREADS - 1) / THREADS;
-  ns_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);
-  fused_decode_bwd_ns<<<P.d.grid, THREADS, smem, s>>>(P);
+  long long gb = (2LL * P.d.B * P.d.Z * W128_GBLK + THREADS - 1) / THREADS;
+  w128_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);
+  fused_decode_bwd_w128<<<P.d.grid, THREADS, smem, s>>>(P);
 }
 inline long long out_floats(const Dims& d) { return d.l_wo; }
 
 }  // namespace
 
-#define K2_NS_DESIGN 1                // the launcher takes the NS design where Dims::ns says so
 #include "fused_decode_bwd_host.cuh"  // the launcher's C interface (shared with the f32 program)

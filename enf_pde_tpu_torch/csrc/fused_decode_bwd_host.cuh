@@ -1,8 +1,10 @@
 // Fused ENF decode, backward (kernel K2): the launcher's C interface, shared by its two programs
 // (fused_decode_bwd.cu, fused_decode_bwd_bf16.cu). Each source includes it last, after its
 // kernels (`weights_kernel<WN>`, which lays the shared weights out, `fused_decode_bwd_kernel<WN>`
-// and `fused_decode_bwd_reduce`), its Dims and `shape`, and the hooks `weight_threads` and
-// `out_floats` (fused_decode_bwd_common.cuh holds the rest that they share).
+// and `fused_decode_bwd_reduce`), its Dims and `shape`, and the hooks `weight_threads`, `out_floats`
+// and, for a design of the program's own beside its width classes (the bf16 program's W128 design),
+// `own_design`, `prepare_own` and `launch_own` (fused_decode_bwd_common.cuh holds the rest that they
+// share).
 
 #pragma once
 
@@ -22,9 +24,7 @@ inline void plan(Dims& d, int per_sm, int sms) {
   d.slots = (d.ipb + d.nt - 2) / d.nt + 1;  // batch rows a run of ipb items can touch
   d.slots = d.slots > d.B ? d.B : d.slots;
   d.part = d.slots * d.l_row + d.l_w;
-#ifdef K2_NS_DESIGN
-  if (d.ns) d.part = (d.part + 3) / 4 * 4;  // each block's partials on 16 bytes (the NS design adds two at a time)
-#endif
+  if (own_design(d)) d.part = (d.part + 3) / 4 * 4;  // each block's partials on 16 bytes (an own design adds two at a time)
 }
 
 // Sets the kernel's shared memory; with `per_sm`, the blocks an SM holds at that size.
@@ -53,11 +53,7 @@ cudaError_t prepare_class(int wn, size_t smem, int* per_sm) {
 cudaError_t layout(const int* dims, int n_dims, Dims& d) {
   if (n_dims != kNumDims || !shape(dims, d)) return cudaErrorInvalidValue;
   int per_sm = 0, dev = 0, sms = 0;
-#ifdef K2_NS_DESIGN
-  cudaError_t err = d.ns ? prepare_ns((size_t)d.smem, &per_sm) : prepare_class(d.wn, (size_t)d.smem, &per_sm);
-#else
-  cudaError_t err = prepare_class(d.wn, (size_t)d.smem, &per_sm);
-#endif
+  cudaError_t err = own_design(d) ? prepare_own((size_t)d.smem, &per_sm) : prepare_class(d.wn, (size_t)d.smem, &per_sm);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -127,9 +123,7 @@ int fused_decode_bwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   const size_t smem = (size_t)P.d.smem;
   long long sb = (weight_threads(P.d) + THREADS - 1) / THREADS;
   const int split_blocks = (int)(sb > 1024 ? 1024 : sb);
-#ifdef K2_NS_DESIGN
-  if (P.d.ns) launch_ns(P, split_blocks, smem, s); else
-#endif
+  if (own_design(P.d)) launch_own(P, split_blocks, smem, s); else
   switch (P.d.wn) {
     case 64:
       weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);

@@ -93,7 +93,7 @@ __all__ = [
     "k2_smem_bytes",
     "k2_scratch_bytes",
     "k2_occupancy",
-    "k2_ns_design",
+    "k2_w128_design",
     "a16_index",
     "split3_bf16",
     "FusedDecode",
@@ -955,8 +955,8 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
 
     ldh, ldw = stride(hid), stride(max(H * hidm, H * D, hid))
     n_w2 = tile * max(ldw, 2 * ldh)
-    if bf and k2_ns_design(Z, hid, H, D, hidm):  # the bf16 program's NS design (`fused_decode_bwd_ns`)
-        return dict(wn=wn, ldh=ldh, ldw=ldw, smem=k["NS_SMEM"] + 4 * 2 * Z * tile * 2, stages=k["NS_STAGES"], ns=True)
+    if bf and k2_w128_design(Z, hid, H, D, hidm):  # the bf16 program's W128 design (`fused_decode_bwd_w128`)
+        return dict(wn=wn, ldh=ldh, ldw=ldw, smem=k["W128_SMEM"] + 4 * 2 * Z * tile * 2, stages=k["W128_STAGES"], w128=True)
     # The B staging ring: chunk buffers of two slabs of 16 x wn, two tf32 parts (32 wn floats a
     # slab) or three bf16 ones (24 wn); the bf16 program also keeps two [TILE][H] rows (the sums
     # of the rounded softmax weights and <dy, m_b2>).
@@ -964,19 +964,19 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     for stages in ((3, 2) if wn == 64 else (2,)):
         smem = 4 * (stages * 2 * slab + tile * ldw + tile * ldh + n_w2 + 2 * Z * tile * H + extra + tile * I)
         if smem <= k["SMEM_CAP"]:
-            return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages, ns=False)
+            return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages, w128=False)
     raise ValueError(f"K2 would need {smem} B of shared memory for {Z} latents, more than {k['SMEM_CAP']}")
 
 
-def k2_ns_design(Z: int, hid: int, H: int, D: int, hidm: int) -> bool:
-    """Whether a bf16 K2 launch of these widths takes the bf16 program's NS design
-    (``fused_decode_bwd_ns``, ``Dims::ns``): hid = hidm = D = ``NS_HID`` with two heads (every decoder at
+def k2_w128_design(Z: int, hid: int, H: int, D: int, hidm: int) -> bool:
+    """Whether a bf16 K2 launch of these widths takes the bf16 program's W128 design
+    (``fused_decode_bwd_w128``, ``Dims::w128``): hid = hidm = D = ``W128_HID`` with two heads (every decoder at
     Navier-Stokes width: NS, shallow water, ``abs_pos``, behind self-attention blocks), where its shared
-    memory (``NS_SMEM`` and every latent's softmax weights and dp, 1,024 B a latent) fits ``SMEM_CAP``.
+    memory (``W128_SMEM`` and every latent's softmax weights and dp, 1,024 B a latent) fits ``SMEM_CAP``.
     The other shapes of the width class 64 take the class's design of the f32 program's kind."""
     k = k2_constants(torch.bfloat16)
-    return (hid == hidm == D == k["NS_HID"] and H == 2 and k2_width_class(hid, hidm, D) == 64
-            and k["NS_SMEM"] + 4 * 2 * Z * k["TILE"] * 2 <= k["SMEM_CAP"])
+    return (hid == hidm == D == k["W128_HID"] and H == 2 and k2_width_class(hid, hidm, D) == 64
+            and k["W128_SMEM"] + 4 * 2 * Z * k["TILE"] * 2 <= k["SMEM_CAP"])
 
 
 def a16_index(r, k):
@@ -1010,8 +1010,8 @@ def k2_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     ``Z`` (1,024 B a latent at two heads; the ring drops to two buffers before the shape is
     refused). Raises ``ValueError`` for a shape it refuses:
     widths it does not take, or more than ``SMEM_CAP`` bytes. ``compute_dtype=torch.bfloat16``:
-    the bf16 program's (``fused_decode_bwd_bf16.cu``); at Navier-Stokes width (``k2_ns_design``) its NS
-    design's: two warpgroups' rings of ``NS_STAGES`` 4 KB chunks, the union ``NS_U`` of the phases'
+    the bf16 program's (``fused_decode_bwd_bf16.cu``); at hid = hidm = D = 128, two heads (``k2_w128_design``)
+    its W128 design's: two warpgroups' rings of ``W128_STAGES`` 4 KB chunks, the union ``W128_U`` of the phases'
     bf16 operand planes (and nbar, dF in f32), the row sums' and column sums' exchanges, psum, <dy, m_b2>
     and the invariants, then every latent's softmax weights and dp (1,024 B a latent)."""
     return _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)["smem"]
@@ -1034,7 +1034,7 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
     k = k2_constants(compute_dtype)
     lay = _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)
     tile = k["TILE"]
-    ns = lay["ns"]
+    w128 = lay["w128"]
     if per_sm is None:
         per_sm = min(2048 // k["THREADS"], 233_472 // (lay["smem"] + 1024))
     HD, HH = H * D, H * hidm
@@ -1050,7 +1050,7 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
         work += tile * (2 * HD + 2 * hid)
         if weight_grads:
             work += tile * 2 * HD
-    if ns:  # the tail's q1, gelu'(q2), gelu'(q3), later e and u in their room (else their own); nbar; the
+    if w128:  # the tail's q1, gelu'(q2), gelu'(q3), later e and u in their room (else their own); nbar; the
         # tail's four bf16 planes
         work = (tile * (2 * HD + hid) if tail else tile * (HH + hid)) + weight_grads * tile * HH \
             + (tail and weight_grads) * 2 * tile * HD
@@ -1062,9 +1062,9 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
             l_w += 3 * (HD * HD + HD) + HD * hid + hid + hid * hid + hid + hid * out + out
     # The shared weights laid out once a launch (both orientations; two tf32 parts, or bf16).
     split = 3 * hid * hid + hidm * D + (3 * HD * HD + HD * hid + hid * hid if tail else 0)
-    g_blocks = B * Z * hid * HH if ns else 0  # G in bf16 blocks, both ways (``NS_GBLK`` floats a latent)
+    g_blocks = B * Z * hid * HH if w128 else 0  # G in bf16 blocks, both ways (``W128_GBLK`` floats a latent)
     part = slots * l_row + l_w
-    if ns:  # each block's partials on 16 bytes
+    if w128:  # each block's partials on 16 bytes
         part = -(-part // 4) * 4
     return 4 * ((1 if bf else 4) * split + g_blocks + grid * (work + part))
 
@@ -1094,8 +1094,8 @@ def _launch_bwd(inv, wb, A, ab, G, c, ws, tws, g, num_heads: int, head_dim: int,
     # Refuses, before any launch, a shape the kernel does not take.
     k2_smem_bytes(Z, I, hid, H, D, hidm, compute_dtype)
     _check_aligned16({"G": G})  # read a float4 at a time (the B of dpre G^T)
-    if compute_dtype == torch.bfloat16 and k2_ns_design(Z, hid, H, D, hidm):
-        # The bf16 program's NS design reads its f32 operands two at a time.
+    if compute_dtype == torch.bfloat16 and k2_w128_design(Z, hid, H, D, hidm):
+        # The bf16 program's W128 design reads its f32 operands two at a time.
         _check_aligned16({"A": A, "c": c, "g": g, **{n: w for n, w in zip(WEIGHT_NAMES, ws) if w.dim() == 1 or "coeff" in n},
                           **{n: w for n, w in zip(TAIL_WEIGHT_NAMES, tws) if w.dim() == 1}}, 8)
     lib = lib or _bwd_lib(kernel_sources(compute_dtype)[1])

@@ -294,7 +294,7 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     shared memory and nothing else (no mma.sync, no operand rounded in registers); its narrow classes
     on bf16 wgmma (m64nNk16 at N = 16, 32, 64, A from registers) over a latent group's rows and
     mma.sync m16n8k16 bf16 for the 32-row ones; K2's class design on bf16 wgmma at N = 8, 16, 32, 64
-    with a cotangent operand in three bf16 terms, its NS design on bf16 wgmma m64n64k16 with both
+    with a cotangent operand in three bf16 terms, its W128 design on bf16 wgmma m64n64k16 with both
     operands in shared memory (transposed for its row contractions) and the cotangents in three bf16
     planes; the shared helper holds each instruction once; no TF32 product, library GEMM, WMMA or
     atomics."""
@@ -325,16 +325,16 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     gemm = re.search(r"\n__device__ __forceinline__ void gemm\(.*?\n}\n", k2, re.S).group(0)
     assert gemm.count("wgmma_bf16<WN>(") == 10 and gemm.count("split3_bf16(") == 3  # B two values a call, A one pair
     assert "static_assert((AP == 1 || AP == 3) && (BP == 1 || BP == 3)" in gemm
-    # Passes 0 (the shared weights; the NS design's G blocks), 1 (the class design; the NS design) and 2.
+    # Passes 0 (the shared weights; the W128 design's G blocks), 1 (the class design; the W128 design) and 2.
     assert k2.count("__global__") == 5
-    # The NS design (hid = hidm = D = 128, two heads): every product a wgmma m64n64k16 with both operands
+    # The W128 design (hid = hidm = D = 128, two heads): every product a wgmma m64n64k16 with both operands
     # in shared memory (a row contraction's transposed: its instruction takes the transpose flags), none
     # with A in registers, no operand rounded in registers; f32 cotangents and nbar as three bf16 planes.
-    ns = k2[k2.index("// ---- The width class 64 at NS width"):k2.index("// Pass 2: out")]
-    assert ns.count("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16") == 1
-    assert '"%32, %33, p, 1, 1, %35, %36;\\n"' in ns and "wgmma_ss<1, 1>(" in ns and "wgmma_ss<0, 0>(" in ns
-    assert "wgmma_bf16<" not in ns and "mma_bf16(" not in ns and "pack_bf16(" not in ns
-    assert ns.count("store3(") >= 8 and "split3_bf16(v0, v1, t);" in ns
+    w128 = k2[k2.index("// ---- The W128 design"):k2.index("// Pass 2: out")]
+    assert w128.count("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16") == 1
+    assert '"%32, %33, p, 1, 1, %35, %36;\\n"' in w128 and "wgmma_ss<1, 1>(" in w128 and "wgmma_ss<0, 0>(" in w128
+    assert "wgmma_bf16<" not in w128 and "mma_bf16(" not in w128 and "pack_bf16(" not in w128
+    assert w128.count("store3(") >= 8 and "split3_bf16(v0, v1, t);" in w128
     # The headers shared with the f32 program multiply through the program's own hooks: the
     # operand rounding (`operand`: bf16_round here) and the RFF sin / cos (`rff_sincos`).
     for src, source in ((k1, fd.KERNEL_SOURCE_BF16), (k2, fd.BWD_KERNEL_SOURCE_BF16)):
@@ -361,7 +361,7 @@ def test_a16_layout_and_its_descriptors_against_numpy(K):
     built directly in numpy: 8 x 8 blocks, the row groups of a k group 128 bytes apart, the k groups
     1,024 bytes. Read as wgmma reads a descriptor without swizzle, K-major (LBO 1,024 B, SBO 128 B: a
     product's A) the buffer gives X, and MN-major (LBO 128 B, SBO 1,024 B: a row contraction's operand,
-    its K the 64 rows) it gives X^T, from any 16-row step and 64-column view the NS design starts at."""
+    its K the 64 rows) it gives X^T, from any 16-row step and 64-column view the W128 design starts at."""
     rng = np.random.default_rng(K)
     X = rng.standard_normal((64, K)).astype(np.float32)
     direct = X.reshape(8, 8, K // 8, 8).transpose(2, 0, 1, 3).reshape(-1)  # [k group][row group][row][k]

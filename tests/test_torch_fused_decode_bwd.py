@@ -336,20 +336,20 @@ def test_bwd_flop_count_at_navier_stokes_width():
 
 @pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)
 def test_k2_bf16_ns_design_mirror_at_every_shipped_shape(name):
-    """The bf16 program's NS design (``k2_ns_design``, ``fused_decode_bwd_ns``) is what every decoder of
+    """The bf16 program's W128 design (``k2_w128_design``, ``fused_decode_bwd_w128``) is what every decoder of
     Navier-Stokes width launches (hid = hidm = D = 128, two heads: NS, shallow water, the ablations),
-    and no other config: its shared memory is ``NS_SMEM`` and 1,024 B a latent (the source header's
+    and no other config: its shared memory is ``W128_SMEM`` and 1,024 B a latent (the source header's
     table), and its scratch a launch at each of the config's K2 shapes is the shared weights in bf16,
     G's bf16 blocks both ways (128 KB a latent) and each block's workspace and partials (padded to 16
     bytes a block), as ``shape`` and ``plan`` lay them out for one block an SM on 132 SMs."""
     bf = torch.bfloat16
     w, shapes = _k2_shapes(name)
-    ns = fd.k2_ns_design(w["Z"], w["hid"], w["H"], w["D"], w["hidm"])
-    assert ns == (w["hid"] == 128 and w["H"] == 2)
+    w128 = fd.k2_w128_design(w["Z"], w["hid"], w["H"], w["D"], w["hidm"])
+    assert w128 == (w["hid"] == 128 and w["H"] == 2)
     smem = fd.k2_smem_bytes(w["Z"], w["I"], w["hid"], w["H"], w["D"], w["hidm"], bf)
-    if not ns:
+    if not w128:
         return
-    assert fd.k2_constants(bf)["NS_SMEM"] == 207_872 and smem == 207_872 + 1024 * w["Z"]
+    assert fd.k2_constants(bf)["W128_SMEM"] == 207_872 and smem == 207_872 + 1024 * w["Z"]
     assert f"{smem:,} B" in (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE_BF16).read_text()
     HD = 256
     for label, b, c in shapes:
@@ -373,13 +373,13 @@ def test_k2_bf16_ns_design_mirror_at_every_shipped_shape(name):
 
 
 def test_k2_bf16_ns_design_refusals():
-    """Where the NS design does not take a shape of the class 64 the class design does (25 latents at
+    """Where the W128 design does not take a shape of the class 64 the class design does (25 latents at
     NS width; one head; hid 192), with its own layout, and past both the shape is refused on the host
     with a ValueError, as the kernel's ``shape`` refuses it."""
     bf = torch.bfloat16
-    assert fd.k2_ns_design(24, 128, 2, 128, 128) and fd.k2_smem_bytes(24, 4, 128, 2, 128, 128, bf) == 207_872 + 24 * 1024
+    assert fd.k2_w128_design(24, 128, 2, 128, 128) and fd.k2_smem_bytes(24, 4, 128, 2, 128, 128, bf) == 207_872 + 24 * 1024
     for z, hid, h in ((25, 128, 2), (4, 128, 1), (4, 192, 1)):
-        assert not fd.k2_ns_design(z, hid, h, hid, hid)
+        assert not fd.k2_w128_design(z, hid, h, hid, hid)
         assert fd.k2_smem_bytes(z, 4, hid, h, hid, hid, bf) == {25: 232_448, 128: 175_616, 192: 228_864}[z if z == 25 else hid]
     for bad in ((40, 4, 128, 2, 128, 128), (4, 9, 128, 2, 128, 128), (4, 4, 128, 3, 128, 128), (4, 4, 272, 1, 128, 128)):
         with pytest.raises(ValueError):

@@ -173,32 +173,32 @@ SKIPS16 = {
                    ("      fast_sincos(proj, &s, &co, &ds, &dc);", "      s = proj; co = 1.0f - proj; ds = 1.0f; dc = -1.0f;", 0)],
     "reduce": SKIPS["reduce"],
 }
-# The current design's (the NS design, `fused_decode_bwd_ns`: bf16 operand planes in shared memory, every product
+# The current design's (the W128 design, `fused_decode_bwd_w128`: bf16 operand planes in shared memory, every product
 # a wgmma from them, its columns split between the warpgroups, the LayerNorm VJPs in the epilogues): the
 # products' chunk loops, the row contractions (dG and the weight gradients), the wgmma instructions, the ring's
 # copies, the warpgroup barrier a chunk, the row sums' exchange between the warpgroups, the column sums (bias
 # gradients, dc), the RFF features and their VJP, G's bf16 blocks (pass 0), the tail (its forward and VJP), the
 # row contractions' loads and stores of the partials (dG, the weight gradients).
 SKIPS16.update({
-    "products": [("  for (int c = 0; c < g.nc; ++c) {\n    cp_async_wait<NS_STAGES - 3>();",
-                  "  for (int c = 0; c < g.nc && g.nks < 0; ++c) {\n    cp_async_wait<NS_STAGES - 3>();", 0)],
+    "products": [("  for (int c = 0; c < g.nc; ++c) {\n    cp_async_wait<W128_STAGES - 3>();",
+                  "  for (int c = 0; c < g.nc && g.nks < 0; ++c) {\n    cp_async_wait<W128_STAGES - 3>();", 0)],
     "rows": [("  for (int u = wg; u < units; u += 2) {", "  for (int u = wg; u < units && M < 0; u += 2) {", 0)],
-    "nswgmma": [("__device__ __forceinline__ void wgmma_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {",
+    "w128wgmma": [("__device__ __forceinline__ void wgmma_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {",
                  "__device__ __forceinline__ void wgmma_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {\n"
                  "  if (accumulate >= 0) return;", 0)],
     "ring": [("      cp_async16(st + q * 512 + 4 * g.lt, g.src + ((size_t)ks * g.nsl + s) * 512 + 4 * g.lt);", "", 0)],
     "ringbar": [("    wg_bar(g.bar);                   // everyone's; chunk c - 2's products are complete", "", 0)],
     "exchange": [("  if (!cross) return;\n  float* buf", "  return;\n  float* buf", 0)],
     "colsums": [("  for (int n = threadIdx.x; n < 128 * NP; n += THREADS) {", "  for (int n = threadIdx.x; n < 128 * NP && NP < 0; n += THREADS) {", 0),
-                ("  for (int n = threadIdx.x; n < NS_HID; n += THREADS) {\n    float s = 0.0f;",
-                 "  for (int n = threadIdx.x; n < NS_HID && npl < 0; n += THREADS) {\n    float s = 0.0f;", 0)],
+                ("  for (int n = threadIdx.x; n < W128_HID; n += THREADS) {\n    float s = 0.0f;",
+                 "  for (int n = threadIdx.x; n < W128_HID && npl < 0; n += THREADS) {\n    float s = 0.0f;", 0)],
     "rffvjp": [("  for (int t = warp; t < TILE; t += WARPS) {\n    float acc[MAX_I];",
                 "  for (int t = warp; t < TILE && I < 0; t += WARPS) {\n    float acc[MAX_I];", 0)],
     "features": [("  for (int u = threadIdx.x; u < units; u += THREADS) {", "  for (int u = threadIdx.x; u < units && I < 0; u += THREADS) {", 0)],
-    "gblocks": [("  ns_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);", "", 0)],
-    "tail": [("      ns_tail_fwd(c, rg, par, gsrc, rows, wgr, first_w, pw);\n      ns_tail_vjp(c, rg, par, gsrc, rows, wgr, first_w, pw);", "", 0)],
+    "gblocks": [("  w128_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);", "", 0)],
+    "tail": [("      w128_tail_fwd(c, rg, par, gsrc, rows, wgr, first_w, pw);\n      w128_tail_vjp(c, rg, par, gsrc, rows, wgr, first_w, pw);", "", 0)],
     "partials": SKIPS["partials"],
-    "nspartials": [("      for (int j = 0; j < 8; ++j) old[h][j] = first ? make_float2(0.0f, 0.0f) : row[h][4 * j];",
+    "w128partials": [("      for (int j = 0; j < 8; ++j) old[h][j] = first ? make_float2(0.0f, 0.0f) : row[h][4 * j];",
                     "      for (int j = 0; j < 8; ++j) old[h][j] = make_float2(0.0f, 0.0f);", 0),
                    ("        row[h][4 * j] = first ? make_float2(", "        if (M < 0) row[h][4 * j] = first ? make_float2(", 0)],
 })
@@ -206,7 +206,7 @@ SKIPS16.update({
 # its expanded text (two builds of one long kernel differ in time: up to 14 % for K1's bf16 class 128).
 VARIANTS16 = {
     "copy": [],
-    "noinline": [("#define NS_PHASE __forceinline__", "#define NS_PHASE __noinline__", 0)],
+    "noinline": [("#define W128_PHASE __forceinline__", "#define W128_PHASE __noinline__", 0)],
 }
 
 
