@@ -363,6 +363,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     k1_library_smem_bytes,
     k1_logits_floats,
     k1_occupancy,
+    k1_plan,
     k1_operands,
     k1_smem_bytes,
     k1_width_class,
@@ -685,16 +686,16 @@ def k1_l2_bytes_per_point(args, tile: int = 32) -> float:
     return (8 * split + 4 * (Z * per_latent + tail)) / tile
 
 
-def k1_bf16_l2_bytes_per_point(args, tile: int) -> float:
-    """Weight bytes the bf16 program's class 128 streams from L2 per work item of ``tile`` points, per
-    point: each latent's q_w1, v_w1, fw (bf16, 128-column slabs) and its G (a 128-column slab a head), A
-    and c (f32); the tail's blocked weights once (the two warpgroups split their columns); m_w2 none
-    (resident in a persistent block)."""
+def k1_bf16_l2_bytes_per_point(args, tile: int, wn: int) -> float:
+    """Weight bytes the bf16 program at width class ``wn`` reads from L2 per work item of ``tile`` points,
+    per point: each latent's G (bf16, a ``wn``-column slab a head), A and c (f32), and at the class 128 its
+    q_w1, v_w1 and fw (bf16, 128-column slabs; resident at the narrow classes); the tail's blocked weights
+    (``wn``-column slabs) and h_w3 once; m_w2 none (resident in a persistent block)."""
     inv, ws, tws = args[0], args[6], args[7]
     Z, (hid, H), hidm = inv.shape[1], args[2].shape[2:], ws[8].shape[0]
-    slab = 2 * 128  # bytes of a bf16 row of a 128-column slab
-    per_latent = 3 * hid * slab + H * hid * slab + 4 * (hid * H + H * hidm)
-    tail = sum(t.shape[0] * -(-t.shape[1] // 128) * slab for t in tws[0:10:2]) + 4 * tws[10].numel() if tws else 0
+    slab = 2 * wn  # bytes of a bf16 row of a wn-column slab
+    per_latent = (3 * hid * slab if wn == 128 else 0) + H * hid * slab + 4 * (hid * H + H * hidm)
+    tail = sum(t.shape[0] * -(-t.shape[1] // wn) * slab for t in tws[0:10:2]) + 4 * tws[10].numel() if tws else 0
     return (Z * per_latent + tail) / tile
 
 
@@ -2747,6 +2748,27 @@ def bf16_gates(label: str, got, plain16, plain32, absolute: bool, groups=None) -
     return worst
 
 
+# The f32 instructions of K1 bf16's elementwise work, counted from its code (`features64`, `fast_sincos`, `gelu_sig`,
+# `quad_norm`, the softmax): an RFF projection I fmas and fast_sincos's 25 operations (sin and cos both); gelu 18 (the
+# cubic, the exponential, the quotient); a LayerNorm 4 an element (two sums, subtract, scale); the softmax 20 a
+# weight (max, exponential, sum, divide, round). One issues per CUDA core per clock: PEAK_F32_FLOPS / 2 a second.
+K1_OPS_PROJECTION, K1_OPS_GELU, K1_OPS_LN, K1_OPS_SOFTMAX = 25, 18, 4, 20
+
+
+def k1_elementwise_ms(args, num_heads: int, head_dim: int) -> float:
+    """The least time of K1 bf16's elementwise work on the CUDA cores (its CUDA-core bound, beside the products'
+    bound): per point and latent the features of both chains (hid / 2 projections each), gelu and the LayerNorm of
+    fw's (hid) and G's (H hidm) outputs, the softmax's H weights; per point the tail's gelu (p_w1, p_w2: H D; h_w1,
+    h_w2: hid) and p_w1's LayerNorm (H D)."""
+    inv, ws, tws = args[0], args[6], args[7]
+    B, Z, C, I = inv.shape
+    hid, hidm, H, HD = ws[1].shape[0], ws[8].shape[0], num_heads, num_heads * head_dim
+    chain = hid + H * hidm
+    per_latent = hid * (I + K1_OPS_PROJECTION) + (K1_OPS_GELU + K1_OPS_LN) * chain + K1_OPS_SOFTMAX * H
+    tail = K1_OPS_GELU * (2 * HD + 2 * hid) + K1_OPS_LN * HD if tws else 0
+    return B * C * (Z * per_latent + tail) / (PEAK_F32_FLOPS / 2) * 1e3
+
+
 def bf16_bound(flops: int, moved: int) -> dict:
     """The least time of a bf16 program's work: its products at the bf16 tensor-core rate, or bytes."""
     b_bytes, b_tc = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
@@ -2757,9 +2779,11 @@ def k1_bf16_check(cfg, args, label: str, witness: bool = False) -> dict:
     """K1's bf16 program against the plain bf16 version at ``args`` (with and without the tail,
     phase 35's gates; with ``witness``, ``witness_gates`` against the exact bf16 function beside
     the plain bf16 version), then timed beside the f32 program and the plain bf16 version, each program
-    with its shared weights laid out once (as the forecast decode lays them out). Its shared
-    memory (``k1_smem_bytes``) is held equal to the built library's ``layout``, and whether every
-    latent's logits lie there or in global memory (``k1_logits_floats``) is printed."""
+    with its shared weights laid out once (as the forecast decode lays them out). Two launches give the
+    same bits. Its shared memory (``k1_smem_bytes``) is held equal to the built library's ``layout``, its
+    plan (tile and grid: ``k1_library_plan``) to ``k1_plan``; its design, whether every latent's logits
+    lie there or in global memory (``k1_logits_floats``), its blocks an SM and its L2 weight bytes a point
+    are printed."""
     H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     B, Z, C, I = args[0].shape
     hid, hidm = args[6][1].shape[0], args[6][8].shape[0]
@@ -2774,6 +2798,8 @@ def k1_bf16_check(cfg, args, label: str, witness: bool = False) -> dict:
             kargs = args if tail else (*args[:7], ())
             got = fused_decode_fwd(*kargs, num_heads=H, head_dim=D, compute_dtype=BF16)
             tag = f"K1 {label} {'tail' if tail else 'no-tail'}"
+            if not torch.equal(got, fused_decode_fwd(*kargs, num_heads=H, head_dim=D, compute_dtype=BF16)):
+                raise AssertionError(f"{tag}: two launches on the same inputs differ")
             if witness:
                 sides = {"kernel": got, **plain_sides(kargs, H, D, cpu=False)}
                 witness_gates(tag, [sides], lambda name: "out")
@@ -2790,15 +2816,23 @@ def k1_bf16_check(cfg, args, label: str, witness: bool = False) -> dict:
         bd = k1_bounds(cfg, args, got)
     bound = bf16_bound(bd["flops"], bd["moved"])
     plan = k1_library_plan([B, Z, C, I, hid, H, D, hidm, cfg.nef.num_out, 1], KERNEL_SOURCE_BF16)
-    l2 = k1_bf16_l2_bytes_per_point(args, plan["tile"]) if plan["cls"] == 128 else bd["l2_per_point"]
+    mirror = k1_plan(B, Z, C, I, hid, H, D, hidm, BF16, torch.cuda.get_device_properties(0).multi_processor_count)
+    if (plan["tile"], plan["grid"]) != (mirror[0], mirror[2]):
+        raise AssertionError(f"K1 bf16 {label}: the library plans tile {plan['tile']}, grid {plan['grid']}; k1_plan {mirror}")
+    l2 = k1_bf16_l2_bytes_per_point(args, plan["tile"], plan["cls"])
+    core_ms = k1_elementwise_ms(args, H, D)
+    design = ("the narrow design (a latent a warpgroup)" if plan["cls"] < 128 else
+              "the class-128 design" + (" (WIDE128)" if max(hidm, D) > 128 else ""))
     log(f"[timing] K1 bf16 {label}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
         f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bf16 tensor cores {bd['flops'] / PEAK_BF16_FLOPS * 1e3:.4f} "
         f"ms, bytes {bd['bytes_ms']:.4f} ms; the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} ms); "
-        f"{ms16 / bound['bound_ms']:.1f}x its bound; shared memory {smem} B (the library's layout agrees), the "
-        f"logits in {f'global memory ({4 * n_lg / 1e6:.1f} MB)' if n_lg else 'shared memory'}; width class "
-        f"{plan['cls']}, tile {plan['tile']}, {plan['per_sm']} blocks an SM, grid {plan['grid']}, L2 weight bytes "
-        f"per point {l2 / 1e3:.1f} KB")
-    return dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=max(e["max_abs_err"] for e in errs), **bound)
+        f"{ms16 / bound['bound_ms']:.1f}x its bound; the elementwise work's CUDA-core bound {core_ms:.4f} ms "
+        f"({ms16 / core_ms:.1f}x); shared memory {smem} B (the library's layout agrees), the "
+        f"logits in {f'global memory ({4 * n_lg / 1e6:.1f} MB)' if n_lg else 'shared memory'}; {design}, width "
+        f"class {plan['cls']}, tile {plan['tile']}, {plan['per_sm']} blocks an SM, grid {plan['grid']}, L2 weight "
+        f"bytes per point {l2 / 1e3:.1f} KB; two launches bit for bit")
+    return dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=max(e["max_abs_err"] for e in errs), cuda_core_ms=core_ms,
+                **bound)
 
 
 def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
@@ -3258,8 +3292,12 @@ def main() -> int:
     # 1. Build: one nvcc per source, all started together.
     t0 = time.perf_counter()
     sources = (KERNEL_SOURCE, BWD_KERNEL_SOURCE, KERNEL_SOURCE_BF16, BWD_KERNEL_SOURCE_BF16)
+
+    def timed_build(src):
+        t = time.perf_counter()
+        return cuda_lib.build(src), time.perf_counter() - t
     with ThreadPoolExecutor(len(sources)) as pool:
-        lib_paths = list(pool.map(cuda_lib.build, sources))
+        lib_paths, nvcc_s = zip(*pool.map(timed_build, sources))
     for src in sources:
         cuda_lib.load(src)
     build_s = time.perf_counter() - t0
@@ -3268,7 +3306,7 @@ def main() -> int:
         # Registers and spills of every instantiation, and any wgmma that ptxas serialized (C7510, C7512, C7520).
         report = [ln.strip() for ln in ptxas.read_text().splitlines()
                   if any(w in ln for w in ("Used ", "spill", "C7510", "C7512", "C7520"))] if ptxas.exists() else []
-        log(f"[build] {src} with nvcc -> {lib_path.name}")
+        log(f"[build] {src} with nvcc -> {lib_path.name} in {nvcc_s[sources.index(src)]:.2f} s")
         for ln in report:
             log(f"[build] ptxas: {ln}")
     log(f"[build] {len(sources)} sources in {build_s:.2f} s")

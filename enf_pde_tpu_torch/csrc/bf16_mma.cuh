@@ -35,18 +35,6 @@ __device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t* t) {
   t[2] = pack_bf16(r0 - m0, r1 - m1);
 }
 
-// d += a b on one m16n8k16 tile. Fragments (lane = 4 g + t; each register two k, the lower in
-// its low half): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..);
-// b0 (k = 2t..2t+1, n = g), b1 (k = 2t + 8.., n = g); d as m16n8k8's: d0, d1 (g, 2t, 2t + 1),
-// d2, d3 (g + 8, 2t, 2t + 1).
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // D (64 x N, f32, this thread's N / 2 values) = A (64 x 16 bf16, registers: this warp's 16 rows
 // in the m16n8k16 A-fragment order) x B (16 x N bf16, K-major in shared memory, `desc`) +
 // (accumulate ? D : 0), one asynchronous warpgroup product, N = 8, 16, 32 or 64. D's fragment as
@@ -124,6 +112,39 @@ __device__ __forceinline__ void wgmma_bf16_ss64(float* d, uint64_t adesc, uint64
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
+// wgmma_bf16_ss64 at N = 16, 32 or 64 columns (this thread's N / 2 values of D as wgmma_bf16<N>'s): K1's
+// narrow classes, each product as wide as the class.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate));
+  } else {
+    wgmma_bf16_ss64(d, adesc, bdesc, accumulate);
+  }
 }
 
 // The polynomial sin and cos of 2 pi p of the bf16 decode (`_fast_sincos` in

@@ -6,282 +6,83 @@
 // (enf_pde_tpu/ops/pallas_decode.py) in its bf16 mode, whose body is `_tile_decode` with
 // `_Spec.compute_dtype` bf16. The plain PyTorch version of the same function is
 // `fused_decode_plain(..., compute_dtype=torch.bfloat16)` in enf_pde_tpu_torch/ops/fused_decode.py.
-// The f32 program (3xTF32, the `pallas_interpret` backend's) is fused_decode_fwd.cu; this source
-// is that design with the products and the softmax changed, and its header states the math, the
-// blocks, the width classes and the staging; fused_decode_fwd_common.cuh and
-// fused_decode_fwd_host.cuh hold what the two programs share. What the bf16 mode changes, and this source with it:
+// The f32 program (3xTF32, the `pallas_interpret` backend's) is fused_decode_fwd.cu, whose header
+// states the math; fused_decode_fwd_common.cuh and fused_decode_fwd_host.cuh hold what the two
+// programs share (constants, Params, cp.async and wgmma helpers, the launcher). What the bf16 mode
+// changes, and this source with it:
 //   - every product operand is rounded to bf16 (bf16_mma.cuh): the RFF features, the hidden
 //     layers, the normalized activations, the folded A and G, the tail's activations and every
 //     weight; the products are exact and their sums f32. The RFF projection, the biases, gelu,
 //     the LayerNorm statistics and the softmax stay f32;
 //   - sin and cos of the RFF features by the polynomial of `_fast_sincos` (fast_sincos);
 //   - the softmax weights rounded to bf16 before they weight the values. That rounding needs
-//     each weight whole, so the softmax is not taken online: a first pass over the latent groups
-//     takes every latent's logits (the query chain) into shared memory ([Z][rows][H]), the
-//     softmax over Z follows, and a second pass takes the value chains. Where the logits do not
-//     fit beside the rest, they go to a workspace in global memory that the wrapper allocates
-//     (narrow: [B][tiles][Z][TILE][H], a block's tile at its own offset; class 128: a slot of
-//     [Z][64][H] for each block), read back by the block that wrote them: the layout no longer
-//     depends on Z, and every Z that the f32 program takes, this one takes.
-// The width class 128 (NS, SW, nonmaml, abs_pos; hid at most 128) has a design of its own,
-// below (`decode128`): persistent blocks over work items of 64 coordinates (32 where 64 would leave
-// half of the SMs idle), every product a bf16 wgmma m64n64k16 with A and B in shared memory (no
-// mma.sync), its columns split between the two warpgroups, G and the tail's weights handed over in
-// bf16 blocks as wgmma reads them (`k1_operands` in fused_decode.py: G once a decode, or once a
-// launch), the activations stored in bf16 where their next use is a product operand, gelu, the
-// LayerNorm statistics and the logits taken from the accumulator registers in the epilogues (no row
-// pass over shared memory but the RFF features and the softmax), m_w2 resident, the rest streamed by
-// each warpgroup on its own. hidm or D past 128 (up to 256, as the f32 program takes them) launch an
-// instantiation of its own (WIDE128): a head of G and m_w2 in two 128-column slabs, each warpgroup's
-// columns in two n64 parts, m_w2 streamed; the NS-width instantiation's code is the one above.
-// The narrow classes (16, 32, 64) keep their design (persistent blocks) with bf16 products:
-//   wgmma m64nNk16 bf16 over a latent group's rows (A from registers, rounded per fragment; B K-major
-//     in shared memory, the shared weights handed over by `bf16_weights`: one block of 16 x WN bf16 per
-//     chunk and slab, element (16 kc + 8 kg + i, WN s + 8 ng + r) at [ng][kg][r][i]);
-//   mma.sync m16n8k16 bf16 for the 32-row ones (G and the tail, read raw in f32 from L2, rounded as
-//     their fragments are loaded);
-//   the shared weights resident at 16 and 32 (2 / 8 KB), through a ring of three 2 KB blocks at 64.
-// Shared memory (k1_smem_bytes mirrors it, with compute_dtype=torch.bfloat16): at the class 128
-// SMEM128 (two bf16 operand buffers of 64 x 256, the attention output [64][264] f32, m_w2's 32 KB, two
-// rings of STAGES128 4 KB chunks, the row sums' exchange) and every latent's logits, [Z][64][H]:
-//   NS (I 4, hid 128, H 2, z 4): 202,752 B; shallow water (z 8) 204,800 B; one block an SM;
-//   past z = 62 at NS width the logits go to global memory (200,704 B), a slot for each block.
-// Narrow: the f32 program's X, Y and acc, the bf16 weights, every latent's logits and the group's A.
+//     each weight whole, so the softmax is not taken online: a first pass over the latents takes
+//     every latent's logits (the query chain) into shared memory ([Z][64][H]), the softmax over Z
+//     follows, and a second pass takes the value chains. Where the logits do not fit beside the
+//     rest, they go to a workspace in global memory that the wrapper allocates (a slot of
+//     [Z][64][H] for each block of the persistent grid), read back by the block that wrote them:
+//     the layout does not depend on Z, and every Z that the f32 program takes, this one takes.
+// Both designs below walk work items of 64 coordinates of a batch row (32 where items of 64 would
+// leave half of the grid's slots idle) on persistent blocks of two warpgroups; every product is a
+// bf16 wgmma with A and B in shared memory (no mma.sync, nothing rounded in registers): A an
+// activation stored in bf16 by the epilogue before it (`a16_index`), B a weight in bf16 blocks as
+// wgmma reads them (`bf16_weights`, and G and the tail's weights laid out by `k1_operands` in
+// fused_decode.py, once a decode or once a launch). gelu, the LayerNorm statistics, the logits and
+// the mixer's weighted sum come from the accumulator registers in the epilogues: no row pass over
+// shared memory but the RFF features and the softmax.
+//   - The width class 128 (NS, SW, nonmaml, abs_pos; `decode128`): each product's columns split
+//     between the warpgroups (an n64 half each, m64n64k16), a LayerNorm's row sums exchanged between
+//     them, m_w2 resident, the rest streamed by each warpgroup through its own ring. hidm or D past
+//     128 (up to 256) launch an instantiation of its own (WIDE128): a head of G and m_w2 in two
+//     128-column slabs, each warpgroup's columns in two n64 parts, m_w2 streamed.
+//   - The narrow classes 16, 32, 64 (diff_sphere, ihc, the planar configs; `decode_narrow`): a
+//     latent a warpgroup, each product one m64nWNk16 as wide as the class (a row whole in a quad of
+//     threads: a LayerNorm's statistics are two shuffles), the shared weights resident, a latent's G
+//     copied by cp.async a latent ahead, the tail's layers a weight at a time, their WN-wide column
+//     slabs split between the warpgroups.
+// Shared memory (k1_smem_bytes mirrors it, with compute_dtype=torch.bfloat16), and every latent's
+// logits where they fit:
+//   class 128 (SMEM128: two bf16 operand buffers of 64 x 256, the attention output [64][264] f32,
+//     m_w2's 32 KB, two rings of STAGES128 4 KB chunks, the row sums' exchange): NS (I 4, hid 128,
+//     H 2, z 4) 202,752 B; shallow water (z 8) 204,800 B; one block an SM; past z = 62 at NS width
+//     the logits go to global memory (200,704 B);
+//   narrow (`narrow_layout`): ihc (hid 32, H 3, z 25) 111,360 B, two blocks an SM (BLOCKS32); diff_sphere
+//     (hid 16, H 2, z 18) 44,032 B, three (BLOCKS16); cahn_hilliard (hid 64, H 2, z 9) 174,592 B and
+//     diffusion_plane (z 4) 172,032 B, one (BLOCKS64). The logits take the room of BLOCKS blocks an SM or
+//     go to global memory.
 // Accuracy: against the plain bf16 version on the card the gates are relative to the bf16
 // function's own distance from f32 (two right bf16 programs differ by chaotic roundings):
 // chip_smoke.py's phase 35.
 // What bounds it: the products at the bf16 rate, 0.1172 ms at NS 160 x 512 (NVIDIA H100 80GB HBM3,
-// 700 W). Measured (PERF.md §6, NVIDIA H100 80GB HBM3 at 700.00 W): the earlier design (at 2697ec8),
-// 32-row tiles and row passes over f32 shared memory, 3.26-3.35 ms there, its tail alone 1.17 ms; this design 1.7590 ms
-// (15.0x the bound; chip_smoke.py's phase 35) and 1.75-2.00 ms in tools/k1_compare.py (two builds of
-// the same program), SW 160 x 2048 11.42 ms (20.88), nonmaml 160 x 2048 6.71 ms (13.01). What holds it
-// now is latency: every phase costs about its share of the code (k1_compare --skip), the epilogues'
-// CUDA-core work, the features, the barriers a chunk and a latent, with two warpgroups an SM.
+// 700 W); at the narrow classes the CUDA-core work (the features' sin and cos, gelu, the LayerNorms,
+// the softmax) comes nearer (PERF.md §6). Measured (PERF.md §6, NVIDIA H100 80GB HBM3 at
+// 700.00 W): the class 128 1.7590 ms at NS 160 x 512 (15.0x the bound; 3.26-3.35 ms in its earlier design);
+// the narrow classes PERF.md's table.
 
 #include "fused_decode_fwd_common.cuh"  // constants, Params, staging, row passes, mixer (shared with the f32 program)
-#include "bf16_mma.cuh"                  // bf16_round, pack_bf16, mma_bf16, wgmma_bf16, fast_sincos
+#include "bf16_mma.cuh"                  // bf16_round, wgmma_bf16_ss64, wgmma_bf16_ss, fast_sincos
 
 namespace {
 
+// The narrow classes' blocks an SM (`narrow_slots`), and the room an SM's shared memory gives a block:
+// SM_SHARED bytes, SM_KEPT of them kept back for each block.
+constexpr int BLOCKS16 = 3;
+constexpr int BLOCKS32 = 2;
+constexpr int BLOCKS64 = 1;
+constexpr int SM_SHARED = 233472;
+constexpr int SM_KEPT = 1024;
 
-// What a width class fixes at compile time.
-template <int WN>
-struct Width {
-  static constexpr bool NARROW = WN < WG_N;
-  static constexpr int ZGN = zg_of(WN);                 // the most latents a group
-  static constexpr int MT = (ZGN * TILE / 64 + 1) / 2;  // m64 row tiles a warpgroup takes: tiles wg, wg + 2
-  static constexpr bool RES = res_of(WN);
-  static constexpr int MINB = WN == 16 ? MINB16 : WN == 32 ? MINB32 : WN == 64 ? MINB64 : 1;
-  static constexpr int BLOCK = 8 * WN;                  // floats of one bf16 block (16 k x WN columns)
-  static_assert(MT >= 1 && MT <= 2, "class");
-};
+// A class's blocks an SM: what __launch_bounds__ makes room for, and what `narrow_slots` plans (one at the class 128).
+__host__ __device__ constexpr int narrow_blocks(int wn) {
+  return wn == 16 ? BLOCKS16 : wn == 32 ? BLOCKS32 : wn == 64 ? BLOCKS64 : 1;
+}
 
 // The hooks of fused_decode_fwd_common.cuh: operands rounded to bf16, sin and cos by the bf16
 // mode's polynomial (`_fast_sincos`).
 __device__ __forceinline__ float operand(float x) { return bf16_round(x); }
 __device__ __forceinline__ void rff_sincos(float proj, float* s, float* c) { fast_sincos(proj, s, c); }
 
-// The narrow classes' 32-row products, with no ring and no barrier past the first: warp w owns
-// columns 8 NJ w .. 8 NJ w + 8 NJ - 1 of each slab of 64 NJ, loads its B fragments straight from
-// global memory (L2: G and the tail are read by every block of a batch row) into registers one
-// k step of 16 ahead of the products (the first before the barrier), and its A fragments from X
-// in shared memory, both rounded per fragment. Not inlined: its registers are its own; no wgmma
-// crosses the call. `sync`: the barrier (X may have been written just before). Warps w0 ..
-// w0 + nw - 1 take the product (a latent pair's two G products run side by side, four warps
-// each); the others must not call it.
-template <int NJ, int ACT>
-__device__ __noinline__ void dense32_direct(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                                            const float* __restrict__ bias, float* Y, int ldy, bool sync, int w0,
-                                            int nw) {
-  constexpr int WN = 8 * NJ;
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - w0, SW = nw * WN;
-  const int g = lane >> 2, tq = lane & 3;
-  const int nks = K / 16;
-  // B fragment values of k step ks: k = 16 ks + 2 tq, + 1, + 8, + 9 of column n0 + 8 j + g.
-  auto load = [&](float (&dst)[NJ][4], int n0, int ks) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = n0 + 8 * j + g;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        dst[j][r] = n < N ? __ldg(W + (size_t)(16 * ks + 2 * tq + (r & 1) + 8 * (r >> 1)) * N + n) : 0.0f;
-    }
-  };
-  float cur[NJ][4], nxt[NJ][4] = {};
-  int n0 = warp * WN;
-  if (n0 < N) load(cur, n0, 0);
-  if (sync) __syncthreads();
-  for (; n0 < N; n0 += SW) {  // warp-uniform
-    float acc[2][NJ][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
-    for (int ks = 0; ks < nks; ++ks) {
-      if (ks + 1 < nks)
-        load(nxt, n0, ks + 1);
-      else if (n0 + SW < N)
-        load(nxt, n0 + SW, 0);  // the next slab's first k step
-      uint32_t a[2][4], bf[NJ][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* x = X + (mi * 16 + g) * ldx + 16 * ks + 2 * tq;
-        a[mi][0] = pack_bf16(x[0], x[1]);
-        a[mi][1] = pack_bf16(x[8 * ldx], x[8 * ldx + 1]);
-        a[mi][2] = pack_bf16(x[8], x[9]);
-        a[mi][3] = pack_bf16(x[8 * ldx + 8], x[8 * ldx + 9]);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        bf[j][0] = pack_bf16(cur[j][0], cur[j][1]);
-        bf[j][1] = pack_bf16(cur[j][2], cur[j][3]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cur[j][r] = nxt[j][r];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_bf16(acc[mi][j], a[mi], bf[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * j + 2 * tq + e;
-        if (n >= N) continue;
-        const float bn = __ldg(bias + n);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) Y[(mi * 16 + g + 8 * h) * ldy + n] = activate<ACT>(acc[mi][j][2 * h + e] + bn);
-      }
-  }
-}
 
-// As many n8 tiles a warp (up to 3) as N needs over the nw warps in one slab.
-template <int ACT>
-__device__ __forceinline__ void dense32_direct(const float* X, int ldx, int K, const float* __restrict__ W, int N,
-                                               const float* __restrict__ bias, float* Y, int ldy, bool sync = true,
-                                               int w0 = 0, int nw = WARPS) {
-  const int cols = (N + nw - 1) / nw;  // columns a warp
-  if (cols > 16)
-    dense32_direct<3, ACT>(X, ldx, K, W, N, bias, Y, ldy, sync, w0, nw);
-  else if (cols > 8)
-    dense32_direct<2, ACT>(X, ldx, K, W, N, bias, Y, ldy, sync, w0, nw);
-  else
-    dense32_direct<1, ACT>(X, ldx, K, W, N, bias, Y, ldy, sync, w0, nw);
-}
-
-// ---- Products over the rows of a latent group: bf16 wgmma ------------------------------------// out = X W for the rows of a latent group on the tensor cores, bf16 operands. Warpgroup wg
-// (warps 4 wg .. 4 wg + 3) multiplies the 64-row tiles wg + 2 mt (mt < MT) by each WN-wide slab
-// of N: at WN = 128 as two m64n64k16 products, below it as one m64nWNk16 product; warp w supplies
-// A rows 16 w .. 16 w + 15 of a tile from shared memory (xrow(wg, mt, w, r) points at row r of
-// them), rounded into registers. W is bf16_weights' blocked layout: each block (16 k, WN columns)
-// is either staged whole into the ring by cp.async, two chunks ahead (RES false), or read where it
-// lies, the block's resident copy of the weight (RES: no ring, no barrier past the first). A
-// slab's whole sum stays in the accumulator, one commit and wait a chunk. active(wg, mt) says
-// whether the tile has rows (a warpgroup's tiles fill in order: none is active unless its first
-// is); epi(wg, mt, w, r, n, v0, v1) gets column n of rows r (0..7) and r + 8 of warp w's 16.
-// Every thread of the block calls it; it starts with a barrier and does not end with one.
-template <int WN, int MT, bool RES, class XRow, class Active, class Epi>
-__device__ __forceinline__ void gemm_wg(XRow xrow, Active active, int K, const float* __restrict__ W, int N,
-                                        float* ring, Epi epi) {
-  constexpr int NB = WN < 64 ? WN : 64;       // columns of one wgmma
-  constexpr int NH = WN / NB;                 // wgmma a slab, chunk and tile
-  constexpr int NACC = WN / 2;                // accumulator registers a tile
-  constexpr int BLOCK = 8 * WN;               // floats of a bf16 chunk: 16 k x WN
-  constexpr int RS = WN == WG_N ? STAGE_FLOATS : BLOCK;  // floats of a ring stage
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, w = warp & 3;
-  bool act[MT];
-  const float* xr0[MT];
-  const float* xr1[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    act[mt] = active(wg, mt);
-    xr0[mt] = xrow(wg, mt, w, g);
-    xr1[mt] = xrow(wg, mt, w, g + 8);
-  }
-  const int nk = K / KC, nslab = (N + WN - 1) / WN, total = nk * nslab;
-  int is = 0, ik = 0, ist = 0;  // slab, k chunk and ring stage of the next chunk to issue
-  auto issue = [&](int c) {
-    if (c < total) {
-      const float* src = W + (ik * nslab + is) * BLOCK;
-      float* st = ring + ist * RS;
-      for (int i = tid; i < BLOCK / 4; i += THREADS) cp_async16(st + 4 * i, src + 4 * i, true);
-      if (++ik == nk) { ik = 0; ++is; }
-      if (++ist == STAGES) ist = 0;
-    }
-    cp_async_commit();
-  };
-
-  __syncthreads();  // earlier readers of the ring (and writers of X) are done
-  if constexpr (!RES) {
-#pragma unroll
-    for (int c = 0; c < STAGES - 1; ++c) issue(c);
-  }
-  float acc[MT][NACC];
-  int s = 0, kc = 0, cst = 0;  // slab, k chunk and ring stage of chunk c
-  for (int c = 0; c < total; ++c) {
-    if constexpr (!RES) {
-      cp_async_wait<STAGES - 2>();
-      fence_async_smem();  // this thread's copies of chunk c are visible to wgmma
-      __syncthreads();     // and everyone's; all are done with chunk c - 1
-      issue(c + STAGES - 1);
-    }
-    if (kc == 0) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) acc[mt][i] = 0.0f;
-    }
-    if (act[0]) {
-      // Every tile of the warpgroup is multiplied, its rows valid or not (the epilogue skips
-      // an inactive one): a wgmma on a path that differs within the warpgroup's program would
-      // have ptxas serialize them all.
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int k = kc * KC + 2 * tq;
-        a[mt][0] = pack_bf16(xr0[mt][k], xr0[mt][k + 1]);
-        a[mt][1] = pack_bf16(xr1[mt][k], xr1[mt][k + 1]);
-        a[mt][2] = pack_bf16(xr0[mt][k + 8], xr0[mt][k + 9]);
-        a[mt][3] = pack_bf16(xr1[mt][k + 8], xr1[mt][k + 9]);
-      }
-      const float* st = RES ? W + (kc * nslab + s) * BLOCK : ring + cst * RS;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) wg_fence_operands<NACC>(acc[mt]);
-      wg_fence();
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < NH; ++half)  // NH products of NB columns: NB / 2 accumulator registers each
-          wgmma_bf16<NB>(acc[mt] + NB / 2 * half, a[mt], wg_desc(st + half * 8 * NB), 1);
-      wg_commit();
-      wg_wait0();
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) wg_fence_operands<NACC>(acc[mt]);
-      if (kc == nk - 1) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          if (mt > 0 && !act[mt]) continue;
-#pragma unroll
-          for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int n = s * WN + 8 * j + 2 * tq + e;
-              if (n < N) epi(wg, mt, w, g, n, acc[mt][4 * j + e], acc[mt][4 * j + 2 + e]);
-            }
-        }
-      }
-    }
-    if (++kc == nk) { kc = 0; ++s; }
-    cst = cst + 1 == STAGES ? 0 : cst + 1;
-  }
-  if constexpr (!RES) cp_async_wait<0>();
-}
 // ---- The width class 128 (NS, SW, nonmaml, abs_pos): 64-row tiles, bf16 in shared memory ------------
 // A work item is 64 coordinates of a batch row (32 where items of 64 would leave half the grid's slots
 // idle: `item_tile`), decoded a latent at a time as m64 tiles. Every product is a bf16 wgmma m64n64k16
@@ -421,22 +222,25 @@ __device__ __forceinline__ void product_resident(const float* b, int h, const bf
   wg_fence_operands<32>(acc);
 }
 
-// This thread's part of a 64 x 64 product: the accumulator element i, its row r = r0 + 8 hr of the
-// tile (r0 = 16 warp + g) and its column col = 8 j + 2 tq + e; ACC_PAIRS visits the pairs (col, col + 1)
-// at i, i + 1. Loops unrolled into constant register indices.
-#define ACC_LOOP(...)                                                                       \
-  _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
+// This thread's part of a 64 x WN product (NJ = WN / 8 n8 tiles): the accumulator element i, its row
+// r = r0 + 8 hr of the tile (r0 = 16 warp + g) and its column col = 8 j + 2 tq + e; NACC_PAIRS visits the pairs
+// (col, col + 1) at i, i + 1. Loops unrolled into constant register indices. ACC_LOOP / ACC_PAIRS: a 64 x 64 one.
+#define NACC_LOOP(NJ, ...)                                                                  \
+  _Pragma("unroll") for (int j_ = 0; j_ < (NJ); ++j_)                                        \
     _Pragma("unroll") for (int hr = 0; hr < 2; ++hr)                                         \
       _Pragma("unroll") for (int e_ = 0; e_ < 2; ++e_) {                                     \
         const int i = 4 * j_ + 2 * hr + e_, col = 8 * j_ + 2 * tq + e_, r = r0 + 8 * hr;       \
         __VA_ARGS__                                                                          \
       }
-#define ACC_PAIRS(...)                                                                      \
-  _Pragma("unroll") for (int j_ = 0; j_ < 8; ++j_)                                           \
+#define NACC_PAIRS(NJ, ...)                                                                 \
+  _Pragma("unroll") for (int j_ = 0; j_ < (NJ); ++j_)                                        \
     _Pragma("unroll") for (int hr = 0; hr < 2; ++hr) {                                       \
       const int i = 4 * j_ + 2 * hr, col = 8 * j_ + 2 * tq, r = r0 + 8 * hr;                  \
       __VA_ARGS__                                                                            \
     }
+
+#define ACC_LOOP(...) NACC_LOOP(8, __VA_ARGS__)
+#define ACC_PAIRS(...) NACC_PAIRS(8, __VA_ARGS__)
 #define ACC_FRAG const int tq = threadIdx.x & 3, r0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2)
 
 // Sums over a row of the tile whose columns the two warpgroups split: each thread's two rows' values,
@@ -501,13 +305,13 @@ __device__ __forceinline__ void store_acc(const float (&acc)[32], bf16* out, int
 
 // The RFF features of the 64 coordinates of an item (inv: the latent's [rows][I] invariants) into X16
 // (a 64-row operand): sin and cos of the f32 projection by the bf16 mode's polynomial, rounded to bf16.
-// A warp writes whole core matrices (8 rows x 4 column pairs). Not inlined (no wgmma in it): one copy
-// of its code serves both passes.
-__device__ __noinline__ void features128(const float* __restrict__ inv, int I, int rows, const float* __restrict__ coeff,
-                                         int hid, bf16* X16) {
+// A warp writes whole core matrices (8 rows x 4 column pairs); threads u0, u0 + du, ... take the units (the
+// block's, or a warpgroup's). Not inlined (no wgmma in it): one copy of its code serves every pass.
+__device__ __noinline__ void features64(const float* __restrict__ inv, int I, int rows, const float* __restrict__ coeff,
+                                        int hid, bf16* X16, int u0, int du) {
   const int half = hid >> 1, units = TILE128 * (half >> 1);
 #pragma unroll 2
-  for (int u = threadIdx.x; u < units; u += THREADS) {
+  for (int u = u0; u < units; u += du) {
     const int q = u & 3, rr = (u >> 2) & 7, rest = u >> 5, rg = rest & 7, jg = rest >> 3;
     const int t = 8 * rg + rr, j = 8 * jg + 2 * q;
     float p0 = 0.0f, p1 = 0.0f;
@@ -527,6 +331,22 @@ __device__ __noinline__ void features128(const float* __restrict__ inv, int I, i
     store2(X16, t, half + j, k0, k1);
   }
   fence_async_smem();
+}
+
+// The head's last layer on the CUDA cores (h_w3, one column an output): a warp an (output, 32 rows), lane t
+// a row, from the 64-row bf16 operand Y16 (K = hid).
+__device__ __forceinline__ void head_out(const Params& P, const bf16* Y16, float* dst, int rows) {
+  const int hid = P.hid, od = P.out_dim, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int o2 = warp; o2 < 2 * od; o2 += WARPS) {
+    const int o = o2 >> 1, t = 32 * (o2 & 1) + lane;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int k = lane % hid;
+    for (int n = 0; n < hid; ++n) {
+      s[n & 3] = fmaf(__bfloat162float(Y16[a16_index(t, k)]), bf16_round(__ldg(P.h_w3 + k * od + o)), s[n & 3]);
+      if (++k == hid) k = 0;
+    }
+    if (t < rows) dst[t * od + o] = (s[0] + s[1]) + (s[2] + s[3]) + __ldg(P.h_b3 + o);
+  }
 }
 
 // The tail's layers split their N columns between the warpgroups: a 128-column slab each (N > 128)
@@ -671,7 +491,7 @@ __device__ __forceinline__ void decode128(const Params& P, float* smem) {
       const size_t bz = (size_t)b * Z + z;
       prime(st, P.q_w1s, CHUNK16 / 4, wg, nb);
       __syncthreads();  // the last readers of X16 are done
-      features128(P.inv + (bz * C + c0) * P.I, P.I, rows, P.q_coeff, hid, X16);
+      features64(P.inv + (bz * C + c0) * P.I, P.I, rows, P.q_coeff, hid, X16, tid, THREADS);
       __syncthreads();
       float acc[32];
       product(st, X16, acc);
@@ -724,7 +544,7 @@ __device__ __forceinline__ void decode128(const Params& P, float* smem) {
       const size_t bz = (size_t)b * Z + z;
       prime(st, P.v_w1s, CHUNK16 / 4, wg, nb);
       __syncthreads();  // the last readers of X16 and Y16 are done; the softmax's weights are stored
-      features128(P.inv + (bz * C + c0) * P.I, P.I, rows, P.v_coeff, hid, X16);
+      features64(P.inv + (bz * C + c0) * P.I, P.I, rows, P.v_coeff, hid, X16, tid, THREADS);
       __syncthreads();
       float acc[32];
       product(st, X16, acc);
@@ -838,196 +658,387 @@ __device__ __forceinline__ void decode128(const Params& P, float* smem) {
       fence_async_smem();
       __syncthreads();
       tail128(P, st, X16, Y16, accs, xs, par);
-      // The head's last layer on the CUDA cores: a warp an (output, 32 rows), lane t a row.
-      const int od = P.out_dim, warp = tid >> 5, lane = tid & 31;
-      for (int o2 = warp; o2 < 2 * od; o2 += WARPS) {
-        const int o = o2 >> 1, t = 32 * (o2 & 1) + lane;
-        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        int k = lane % hid;
-        for (int n = 0; n < hid; ++n) {
-          s[n & 3] = fmaf(__bfloat162float(Y16[a16_index(t, k)]), bf16_round(__ldg(P.h_w3 + k * od + o)), s[n & 3]);
-          if (++k == hid) k = 0;
-        }
-        if (t < rows) dst[t * od + o] = (s[0] + s[1]) + (s[2] + s[3]) + __ldg(P.h_b3 + o);
-      }
+      head_out(P, Y16, dst, rows);
     } else {
       for (int idx = tid; idx < rows * HD; idx += THREADS) dst[idx] = accs[(idx / HD) * LDA128 + idx % HD];
     }
   }
 }
+// ---- The narrow classes (16, 32, 64: diff_sphere, ihc, the planar configs): a latent a warpgroup ----------
+// A work item is 64 coordinates of a batch row (32 where items of 64 would leave half the grid's slots idle,
+// `item_tile`), as at the class 128. At these widths a warpgroup's m64 x WN accumulator holds whole rows,
+// so each warpgroup decodes latents of its own (z = wg, wg + 2, ...; for an odd Z the second one repeats the
+// last latent and drops its results, so that both run the same products) with its own bf16 operand buffers,
+// its own G and its own share of the attention output, and meets the other only at the item's block barriers
+// (the softmax, the shares' sum, the tail). Every product is a bf16 wgmma m64nWNk16 with both operands in
+// shared memory: A an activation (a16 layout, K = hid or hidm) stored in bf16 by the epilogue before it, B the
+// shared weights (resident, bf16_weights' blocks at the class width), the latent's G (bf16_g_blocks at the class
+// width: a head's hidm columns padded to WN), copied by cp.async a latent ahead, A[b, z] (the logits' product,
+// m64n16k16), or a tail layer's blocks. gelu, the LayerNorms (a row's statistics: a quad's two shuffles), the
+// logits and the mixer's weighted sum come from the accumulator registers. A warp's wait covers its own part of
+// a product only: a warpgroup barrier precedes every write of a buffer another warp's product may still read.
+// The tail splits each layer's WN-wide column slabs between the warpgroups (p_w1's LayerNorm sums exchanged
+// through xs, `row_sums`); h_w3 on the CUDA cores.
+
+// The narrow classes' shared memory, byte offsets: the shared weights (q_w1, v_w1 and fw: hid x WN bf16
+// each; m_w2 hidm x WN), then `xs` (the tail's row sums), then r1 (each warpgroup's X, Y and G, pw bytes
+// apart; the tail's two operands), r2 (each warpgroup's share of the attention output, [64][ld] f32; the
+// tail's LayerNorm stage and, at `tw`, a layer's weight blocks) and `prob`, every latent's logits where
+// they fit (`layout`).
+constexpr int XS_BYTES = 4 * 8 * TILE128;  // the tail's row sums' exchange, as at the class 128
+struct NarrowLayout {
+  int xs, r1, pw, r2, ld, tw, prob;
+};
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline NarrowLayout narrow_layout(int wn, int hid, int hidm, int H, int D) {
+  NarrowLayout L;
+  const int HD = H * D, kt = imax(HD, hid), hdp = (HD + wn - 1) / wn * wn;
+  L.ld = (HD + 23) / 32 * 32 + 8;  // 8 mod 32 words: a warp's float2 updates of its 8 rows conflict free
+  L.xs = (3 * hid + hidm) * wn * 2;
+  L.r1 = L.xs + XS_BYTES;
+  L.pw = TILE128 * 2 * (hid + imax(hid, hidm)) + hid * H * wn * 2;
+  L.r2 = L.r1 + imax(2 * L.pw, 2 * TILE128 * 2 * kt);
+  L.tw = TILE128 * 4 * L.ld;
+  L.prob = L.r2 + imax(2 * TILE128 * 4 * L.ld, L.tw + 2 * imax(HD * hdp, hid * wn));
+  return L;
+}
+
+// acc = A x B, one wgmma group, waited for: A 64 x 16 nks bf16 (a16 at `a`), B's k step ks the 16 x N block at
+// b + ks * bstep. Every warpgroup of the block issues the same products (ptxas serializes a wgmma it finds on a
+// path that differs between warps), one group at a time: the other warpgroups fill the waits.
+template <int N>
+__device__ __forceinline__ void product_ss(float (&acc)[N / 2], const bf16* a, const bf16* b, int bstep, int nks) {
+  wg_fence_operands<N / 2>(acc);
+  wg_fence();
+  for (int ks = 0; ks < nks; ++ks)
+    wgmma_bf16_ss<N>(acc, a16_desc(a + ks * A16_KSTEP), wg_desc(reinterpret_cast<const float*>(b + ks * bstep)), ks > 0);
+  wg_commit();
+  wg_wait0();
+  wg_fence_operands<N / 2>(acc);
+}
+
+// gelu_tanh as x sigmoid(2 u), u = sqrt(2 / pi) (x + 0.044715 x^3): the same function, by __expf and __fdividef
+// (within a few ulp of tanhf's form, far below the bf16 rounding of the product operand it feeds; x -> -inf: the
+// quotient's denominator overflows and it gives -0, as 0.5 x (1 + tanh u) does).
+__device__ __forceinline__ float gelu_sig(float x) {
+  return __fdividef(x, 1.0f + __expf(-1.5957691216057308f * (x + 0.044715f * x * x * x)));
+}
+
+// The normalize-only LayerNorm of this thread's two rows over their columns col < width, the whole row
+// in the thread's quad (two shuffles); mean and 1 / sqrt(var + eps) by a reciprocal and rsqrtf (within an ulp
+// or two of row_moments' division and sqrt: far below the bf16 rounding that follows).
+template <int NJ>
+__device__ __forceinline__ void quad_norm(float (&acc)[4 * NJ], int width) {
+  ACC_FRAG;
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  NACC_LOOP(NJ, if (col < width) {
+    v[hr][0] += acc[i];
+    v[hr][1] = fmaf(acc[i], acc[i], v[hr][1]);
+  })
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 1);
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 2);
+    }
+  const float inv = 1.0f / width;
+  float mean[2], rstd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] = v[h][0] * inv;
+    rstd[h] = rsqrtf(v[h][1] * inv - mean[h] * mean[h] + LN_EPS);
+  }
+  NACC_LOOP(NJ, acc[i] = (acc[i] - mean[hr]) * rstd[hr];)
+}
+
+// bf16(acc) of the columns col < width into the 64-row operand `out`.
+template <int NJ>
+__device__ __forceinline__ void store_rows(const float (&acc)[4 * NJ], bf16* out, int width) {
+  ACC_FRAG;
+  NACC_PAIRS(NJ, if (col < width) store2(out, r, col, acc[i], acc[i + 1]);)
+}
+
+// A tail layer on the item's 64 rows: out = act(in W + bias) in bf16 (normalized over its N columns with
+// `ln`, gelu first, the values waiting in `stage` until the row's sums are whole). W's blocks (K x N, each
+// 16-row chunk's WN-wide slabs side by side) are copied whole into TW first; warpgroup wg takes the slabs
+// wg, wg + 2, .... Every thread calls it; it ends with a block barrier.
+template <int WN>
+__device__ __forceinline__ void tail_layer_n(const bf16* in, bf16* out, const float* W, int K, int N,
+                                             const float* __restrict__ bias, bool gelu, bool ln, bf16* TW, float* stage,
+                                             int ld, float* xs, int& par) {
+  constexpr int NJ = WN / 8;
+  ACC_FRAG;
+  const int wg = threadIdx.x >> 7, nslab = (N + WN - 1) / WN;
+  float* tw = reinterpret_cast<float*>(TW);
+  for (int k = 4 * threadIdx.x; k < K * nslab * WN / 2; k += 4 * THREADS) cp_async16(tw + k, W + k, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();  // the blocks, and the last layer's output
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  for (int si = 0; si < (nslab + 1) / 2; ++si) {  // the same products in both warpgroups: no wgmma on a divergent path
+    const int s = min(2 * si + wg, nslab - 1), n0 = s * WN;
+    float acc[WN / 2];
+    product_ss<WN>(acc, in, TW + s * 16 * WN, nslab * 16 * WN, K / 16);
+    if (2 * si + wg < nslab) NACC_PAIRS(NJ, if (n0 + col < N) {
+      const float2 bb = ldg2(bias + n0 + col);
+      float x0 = acc[i] + bb.x, x1 = acc[i + 1] + bb.y;
+      if (gelu) {
+        x0 = gelu_sig(x0);
+        x1 = gelu_sig(x1);
+      }
+      if (ln) {
+        v[hr][0] += x0 + x1;
+        v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+        *reinterpret_cast<float2*>(stage + r * ld + n0 + col) = make_float2(x0, x1);
+      } else {
+        store2(out, r, n0 + col, x0, x1);
+      }
+    })
+  }
+  if (ln) {  // the LayerNorm of the staged values, this thread's own
+    row_sums<2>(v, xs, par);
+    float mean[2], rstd[2];
+    row_moments(v, N, mean, rstd);
+    for (int s = wg; s < nslab; s += 2) {
+      const int n0 = s * WN;
+      NACC_PAIRS(NJ, if (n0 + col < N) {
+        const float2 x = *reinterpret_cast<const float2*>(stage + r * ld + n0 + col);
+        store2(out, r, n0 + col, (x.x - mean[hr]) * rstd[hr], (x.y - mean[hr]) * rstd[hr]);
+      })
+    }
+  }
+  fence_async_smem();
+  __syncthreads();  // the layer's columns, from both warpgroups; TW free
+}
+
+// The decode of a narrow class WN: a persistent block walks the work items (batch row, tile of P.tile
+// coordinates) from blockIdx.x by gridDim.x; in each, warpgroup wg takes the latents wg, wg + 2, ....
+template <int WN, bool WITH_TAIL>
+__device__ __forceinline__ void decode_narrow(const Params& P, float* smem) {
+  constexpr int NJ = WN / 8, NA = WN / 2, NL = 16;  // NL: the logits product's columns, the heads (H <= 16)
+  const int Z = P.Z, H = P.H, hid = P.hid, D = P.D, hidm = P.hidm, C = P.C, HD = H * D;
+  const NarrowLayout L = narrow_layout(WN, hid, hidm, H, D);
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* W = reinterpret_cast<bf16*>(base);  // q_w1, v_w1, fw, m_w2: resident
+  const bf16 *Wq = W, *Wv = W + hid * WN, *Wf = W + 2 * hid * WN, *Wm = W + 3 * hid * WN;
+  float* xs = reinterpret_cast<float*>(base + L.xs);
+  const int tid = threadIdx.x, wg = tid >> 7, lt = tid & 127, nk = hid / 16, bar = 1 + wg;
+  ACC_FRAG;
+  bf16* XA = reinterpret_cast<bf16*>(base + L.r1 + wg * L.pw);  // a latent's features, then its t
+  bf16* YA = XA + TILE128 * hid;                                // its hv, then a head's vm
+  bf16* GB = YA + TILE128 * imax(hid, hidm);                    // its G: a head's hid / 16 blocks after another
+  float* AC = reinterpret_cast<float*>(base + L.r2) + wg * TILE128 * L.ld;  // this warpgroup's share of the output
+  bf16* TX = reinterpret_cast<bf16*>(base + L.r1);              // the tail's operands
+  bf16* TY = TX + TILE128 * imax(HD, hid);
+  float* stage = reinterpret_cast<float*>(base + L.r2);
+  bf16* TW = reinterpret_cast<bf16*>(base + L.r2 + L.tw);
+  float* prob = P.lg_global ? P.lg + (size_t)blockIdx.x * Z * TILE128 * H : reinterpret_cast<float*>(base + L.prob);
+  const int gfl = hid * H * WN / 2;  // floats of a latent's G blocks
+  const int zn = (Z + 1) / 2;        // latents a warpgroup takes
+  int par = 0;
+
+  // The shared weights, once a block.
+  {
+    const float* src[4] = {P.q_w1s, P.v_w1s, P.fws, P.m_w2s};
+    const int n[4] = {hid * WN / 2, hid * WN / 2, hid * WN / 2, hidm * WN / 2};
+    float* dst = reinterpret_cast<float*>(W);
+    for (int w = 0; w < 4; ++w) {
+      for (int k = 4 * tid; k < n[w]; k += 4 * THREADS) cp_async16(dst + k, src[w] + k, true);
+      dst += n[w];
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();  // visible to wgmma after the barrier that starts each item
+  }
+  const int ntiles = (C + P.tile - 1) / P.tile, items = ntiles * P.B;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = item / ntiles, c0 = item % ntiles * P.tile, rows = min(P.tile, C - c0);
+    // Latent z's G blocks into this warpgroup's GB (its last G product is complete).
+    auto copy_g = [&](int z) {
+      const float* src = P.G + ((size_t)b * Z + z) * gfl;
+      for (int k = 4 * lt; k < gfl; k += 4 * 128) cp_async16(reinterpret_cast<float*>(GB) + k, src + k, true);
+      cp_async_commit();
+    };
+    __syncthreads();  // the last item's readers of every buffer are done
+    for (int idx = lt; idx < TILE128 * HD; idx += 128) AC[(idx / HD) * L.ld + idx % HD] = 0.0f;
+
+    // Pass 1: every latent's logits, hq . A[b, z] + ab + wb: hq (bf16) times A[b, z] (its heads padded to NL
+    // columns, as a bf16 B operand in GB, idle in this pass) in one more product, + ab + wb in its epilogue.
+    for (int zi = 0; zi < zn; ++zi) {
+      const int z = min(2 * zi + wg, Z - 1);  // an odd Z: the second warpgroup's last latent repeats one it drops
+      const bool own = 2 * zi + wg < Z;
+      const size_t bz = (size_t)b * Z + z;
+      wg_bar(bar);  // every warp's last products from XA, YA and GB are complete (a warp waits for its own part)
+      const float* Az = P.A + bz * hid * H;
+      for (int e = lt; e < hid * NL; e += 128) {
+        const int k = e / NL, n = e % NL;
+        GB[(k >> 4) * 16 * NL + (n >> 3) * 128 + ((k >> 3) & 1) * 64 + (n & 7) * 8 + (k & 7)] =
+            __float2bfloat16_rn(n < H ? __ldg(Az + k * H + n) : 0.0f);
+      }
+      features64(P.inv + (bz * C + c0) * P.I, P.I, rows, P.q_coeff, hid, XA, lt, 128);
+      wg_bar(bar);
+      float acc[NA];
+      product_ss<WN>(acc, XA, Wq, 16 * WN, nk);
+      NACC_PAIRS(NJ, if (col < hid) {
+        const float2 bq = ldg2(P.q_b1 + col);
+        acc[i] = fmaxf(acc[i] + bq.x, 0.0f);
+        acc[i + 1] = fmaxf(acc[i + 1] + bq.y, 0.0f);
+      })
+      store_rows<NJ>(acc, YA, hid);  // hq, rounded to bf16
+      fence_async_smem();
+      wg_bar(bar);
+      float lg[NL / 2];
+      product_ss<NL>(lg, YA, GB, 16 * NL, nk);
+      if (own) {
+        const float w0 = r0 < rows ? __ldg(P.wb + bz * C + c0 + r0) : 0.0f;
+        const float w1 = r0 + 8 < rows ? __ldg(P.wb + bz * C + c0 + r0 + 8) : 0.0f;
+        NACC_LOOP(NL / 8, if (col < H) prob[(z * TILE128 + r) * H + col] = lg[i] + __ldg(P.ab + bz * H + col) + (hr ? w1 : w0);)
+      }
+    }
+    wg_bar(bar);  // every warp's logits product from GB is complete
+    copy_g(min(wg, Z - 1));
+    // The softmax over the latents, each weight rounded to bf16 (`pr.astype(dt)` in _tile_decode).
+    __syncthreads();
+    for (int idx = tid; idx < TILE128 * H; idx += THREADS) {
+      float m = -INFINITY;
+      for (int z = 0; z < Z; ++z) m = fmaxf(m, prob[z * TILE128 * H + idx]);
+      const float ms = m == -INFINITY ? 0.0f : m;  // every logit -inf: exp gives 0, not NaN
+      float l = 0.0f;
+      for (int z = 0; z < Z; ++z) {
+        const float e = expf(prob[z * TILE128 * H + idx] - ms);
+        prob[z * TILE128 * H + idx] = e;
+        l += e;
+      }
+      for (int z = 0; z < Z; ++z) prob[z * TILE128 * H + idx] = bf16_round(prob[z * TILE128 * H + idx] / l);
+    }
+    __syncthreads();
+
+    // Pass 2: each latent's value chain, hv = relu(. v_w1 + v_b1), t = normalize(gelu(hv fw + fb)), then a
+    // head at a time vm = normalize(gelu(t G[b, z, h] + c)) and AC[:, h D + n] += p[z, :, h] (vm m_w2 + m_b2)[:, n].
+    for (int zi = 0; zi < zn; ++zi) {
+      const int z = min(2 * zi + wg, Z - 1);
+      const bool own = 2 * zi + wg < Z;
+      const size_t bz = (size_t)b * Z + z;
+      wg_bar(bar);  // every warp's last products from XA and YA are complete
+      features64(P.inv + (bz * C + c0) * P.I, P.I, rows, P.v_coeff, hid, XA, lt, 128);
+      wg_bar(bar);
+      float acc[NA];
+      product_ss<WN>(acc, XA, Wv, 16 * WN, nk);
+      NACC_PAIRS(NJ, if (col < hid) {
+        const float2 bv = ldg2(P.v_b1 + col);
+        acc[i] = fmaxf(acc[i] + bv.x, 0.0f);
+        acc[i + 1] = fmaxf(acc[i + 1] + bv.y, 0.0f);
+      })
+      store_rows<NJ>(acc, YA, hid);
+      fence_async_smem();
+      wg_bar(bar);  // hv
+      product_ss<WN>(acc, YA, Wf, 16 * WN, nk);
+      NACC_PAIRS(NJ, if (col < hid) {
+        const float2 bf = ldg2(P.fb + col);
+        acc[i] = gelu_sig(acc[i] + bf.x);
+        acc[i + 1] = gelu_sig(acc[i + 1] + bf.y);
+      } else {
+        acc[i] = acc[i + 1] = 0.0f;
+      })
+      quad_norm<NJ>(acc, hid);
+      store_rows<NJ>(acc, XA, hid);
+      cp_async_wait<0>();  // this thread's copies of G
+      fence_async_smem();
+      wg_bar(bar);  // t, and G
+      for (int h = 0; h < H; ++h) {
+        float ag[NA];
+        product_ss<WN>(ag, XA, GB + h * hid * WN, 16 * WN, nk);
+        const float* cz = P.c + (bz * H + h) * hidm;
+        NACC_PAIRS(NJ, if (col < hidm) {
+          const float2 cc = ldg2(cz + col);
+          ag[i] = gelu_sig(ag[i] + cc.x);
+          ag[i + 1] = gelu_sig(ag[i + 1] + cc.y);
+        } else {
+          ag[i] = ag[i + 1] = 0.0f;
+        })
+        quad_norm<NJ>(ag, hidm);
+        if (h > 0) wg_bar(bar);  // every warp's m_w2 product of the last head is complete
+        store_rows<NJ>(ag, YA, hidm);
+        fence_async_smem();
+        wg_bar(bar);  // vm
+        float am[NA];
+        product_ss<WN>(am, YA, Wm, 16 * WN, hidm / 16);
+        if (own) {
+          const float q0 = prob[(z * TILE128 + r0) * H + h], q1 = prob[(z * TILE128 + r0 + 8) * H + h];
+          NACC_PAIRS(NJ, if (col < D) {
+            float2* a = reinterpret_cast<float2*>(AC + r * L.ld + h * D + col);
+            const float q = hr ? q1 : q0;
+            const float2 bm = ldg2(P.m_b2 + col);
+            float2 v = *a;
+            v.x = fmaf(q, am[i] + bm.x, v.x);
+            v.y = fmaf(q, am[i + 1] + bm.y, v.y);
+            *a = v;
+          })
+        }
+      }
+      if (zi + 1 < zn) {
+        wg_bar(bar);  // every warp's G products are complete
+        copy_g(min(2 * zi + 2 + wg, Z - 1));
+      }
+    }
+    __syncthreads();  // both warpgroups' shares
+
+    const float* AC0 = reinterpret_cast<const float*>(base + L.r2);
+    const float* AC1 = AC0 + TILE128 * L.ld;
+    float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
+    if constexpr (WITH_TAIL) {
+      // The tail: out-projection, block FFN (gelu, LayerNorm over H D), head MLP, on bf16(the shares' sum).
+      for (int idx = tid; idx < TILE128 * HD / 2; idx += THREADS) {
+        const int r = idx / (HD / 2), n = 2 * (idx % (HD / 2));
+        const float2 x = *reinterpret_cast<const float2*>(AC0 + r * L.ld + n);
+        const float2 y = *reinterpret_cast<const float2*>(AC1 + r * L.ld + n);
+        store2(TX, r, n, x.x + y.x, x.y + y.y);
+      }
+      fence_async_smem();
+      __syncthreads();  // the shares are read: stage and TW may take their place
+      tail_layer_n<WN>(TX, TY, P.o_w, HD, HD, P.o_b, false, false, TW, stage, L.ld, xs, par);
+      tail_layer_n<WN>(TY, TX, P.p_w1, HD, HD, P.p_b1, true, true, TW, stage, L.ld, xs, par);
+      tail_layer_n<WN>(TX, TY, P.p_w2, HD, HD, P.p_b2, true, false, TW, stage, L.ld, xs, par);
+      tail_layer_n<WN>(TY, TX, P.h_w1, HD, hid, P.h_b1, true, false, TW, stage, L.ld, xs, par);
+      tail_layer_n<WN>(TX, TY, P.h_w2, hid, hid, P.h_b2, true, false, TW, stage, L.ld, xs, par);
+      head_out(P, TY, dst, rows);
+    } else {
+      for (int idx = tid; idx < rows * HD; idx += THREADS) {
+        const int r = idx / HD, n = idx % HD;
+        dst[idx] = AC0[r * L.ld + n] + AC1[r * L.ld + n];
+      }
+    }
+  }
+}
 
 template <int WN, bool WITH_TAIL>
-__global__ void __launch_bounds__(THREADS, Width<WN>::MINB) fused_decode_fwd_kernel(const Params P) {
+__global__ void __launch_bounds__(THREADS, narrow_blocks(WN)) fused_decode_fwd_kernel(const Params P) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (WN == WG_N) {
     decode128<WITH_TAIL, false>(P, smem);
   } else if constexpr (WN == WIDE128) {
     decode128<WITH_TAIL, true>(P, smem);
   } else {
-  // The narrow classes.
-  using Cls = Width<WN>;
-  constexpr bool NARROW = Cls::NARROW, RES = Cls::RES;
-  constexpr int ZGN = Cls::ZGN, MT = Cls::MT;
-  const int Z = P.Z, H = P.H, I = P.I, hid = P.hid, D = P.D, hidm = P.hidm, C = P.C;
-  const int HD = H * D, HH = H * hidm, ldX = P.ldX, ldP = P.ldP, ldW = P.ldW;
-  float* X = smem;                        // [ZGN * TILE][ldX]
-  float* Y = X + ZGN * TILE * ldX;        // nY floats
-  float* acc = Y + P.nY;                  // [TILE][ldW]
-  float* ring = acc + TILE * ldW;         // [STAGES][STAGE_FLOATS]; narrow: the shared weights or their ring
-  float* s_lg = ring + P.nW;            // [Z][TILE][H] every latent's logits, unless in P.lg
-  float* s_A = s_lg + (P.lg_global ? 0 : Z * TILE * H);  // narrow: [ZGN][hid][H] the group's A
-  const int tid = threadIdx.x;
-  // The four shared weights: resident in the ring's place (narrow, RES), else in global memory (bf16 blocks).
-  const int wq_floats = hid / KC * Cls::BLOCK;
-  const float* Wq = RES ? ring : P.q_w1s;
-  const float* Wv = RES ? ring + wq_floats : P.v_w1s;
-  const float* Wf = RES ? ring + 2 * wq_floats : P.fws;
-  const float* Wm = RES ? ring + 3 * wq_floats : P.m_w2s;
-
-  // Decodes the TILE coordinates from c0 of batch row b into out.
-  auto decode_tile = [&](const int b, const int c0) {
-    const int rows = min(TILE, C - c0);  // valid coordinates in this tile
-    // Every latent's logits, then its weights: in shared memory, or this tile's slot of P.lg.
-    float* s_prob = P.lg_global ? P.lg + ((size_t)b * ((C + TILE - 1) / TILE) + c0 / TILE) * Z * TILE * H : s_lg;
-
-    // The RFF features of a group's latents into X, their invariants staged in Y, which is
-    // idle between the last pair's mixer and the first product of either chain (narrow: the
-    // query chain stages the group's A beside them).
-    float* s_inv = Y;  // [ZGN][TILE][I]
-    auto features = [&](int z0, int nz, const float* coeff, bool query) {
-      __syncthreads();  // earlier readers of X and Y are done
-      for (int idx = tid; idx < nz * TILE * I; idx += THREADS) {
-        const int zz = idx / (TILE * I), rem = idx - zz * TILE * I, t = rem / I;
-        s_inv[idx] = t < rows ? P.inv[((size_t)(b * Z + z0 + zz) * C + c0) * I + rem] : 0.0f;
-      }
-      if (NARROW && query)  // A[b, z0 .. z0 + nz) is contiguous
-        for (int idx = tid; idx < nz * hid * H; idx += THREADS) s_A[idx] = __ldg(P.A + ((size_t)b * Z + z0) * hid * H + idx);
-      __syncthreads();
-      rff_features(s_inv, nz * TILE, I, coeff, hid / 2, X, ldX);
-    };
-
-    for (int idx = tid; idx < TILE * HD; idx += THREADS) acc[(idx / HD) * ldW + idx % HD] = 0.0f;
-    // Groups of at most ZGN latents; the narrow classes spread Z evenly over them, so a last
-    // group is never left with a latent or two (z = 25 at ZG32 = 4: four groups of 4, three of 3).
-    const int ngroups = (Z + ZGN - 1) / ZGN;
-    auto group = [&](int gi, int& z0, int& nz) {
-      z0 = NARROW ? gi * Z / ngroups : gi * ZG;
-      nz = NARROW ? (gi + 1) * Z / ngroups - z0 : min(ZG, Z - z0);
-    };
-    // Pass 1: every group's logits from the query chain, its latents' rows in one product.
-    for (int gi = 0; gi < ngroups; ++gi) {
-      int z0, nz;
-      group(gi, z0, nz);
-      features(z0, nz, P.q_coeff, true);
-      dense_group<WN, MT, RES, ACT_RELU>(X, ldX, nz * TILE, hid, Wq, hid, P.q_b1, Y, ldX, ring);
-      __syncthreads();
-      // logit[z, t, h] = hq[z, t] . A[b, z][:, h] + ab + wb: one warp per (latent, head).
-      lane_dots<NARROW>(
-          nz * H, hid, H, [&](int o, int t) { return Y + ((o / H) * TILE + t) * ldX; },
-          [&](int o) {
-            return NARROW ? s_A + (o / H) * hid * H + o % H : P.A + ((size_t)b * Z + z0 + o / H) * hid * H + o % H;
-          },
-          [&](int o, int t, float s) {
-            const int z = z0 + o / H, h = o % H;
-            const size_t bz = (size_t)b * Z + z;
-            s_prob[(z * TILE + t) * H + h] =
-                s + __ldg(P.ab + bz * H + h) + (t < rows ? __ldg(P.wb + bz * C + c0 + t) : 0.0f);
-          });
-    }
-    // The softmax over the latents, each weight rounded to bf16 (`pr.astype(dt)` in _tile_decode).
-    __syncthreads();
-    for (int idx = tid; idx < TILE * H; idx += THREADS) {
-      float m = -INFINITY;
-      for (int z = 0; z < Z; ++z) m = fmaxf(m, s_prob[z * TILE * H + idx]);
-      const float ms = m == -INFINITY ? 0.0f : m;  // every logit -inf: exp gives 0, not NaN
-      float l = 0.0f;
-      for (int z = 0; z < Z; ++z) {
-        const float e = expf(s_prob[z * TILE * H + idx] - ms);
-        s_prob[z * TILE * H + idx] = e;
-        l += e;
-      }
-      for (int z = 0; z < Z; ++z) s_prob[z * TILE * H + idx] = bf16_round(s_prob[z * TILE * H + idx] / l);
-    }
-    // Pass 2: every group's FiLM-conditioned value chains, weighted into acc.
-    for (int gi = 0; gi < ngroups; ++gi) {
-      int z0, nz;
-      group(gi, z0, nz);
-      features(z0, nz, P.v_coeff, false);
-      dense_group<WN, MT, RES, ACT_RELU>(X, ldX, nz * TILE, hid, Wv, hid, P.v_b1, Y, ldX, ring);
-      dense_group<WN, MT, RES, ACT_NONE>(Y, ldX, nz * TILE, hid, Wf, hid, P.fb, X, ldX, ring);
-      __syncthreads();
-      normalize<true, WN>(X, ldX, nz * TILE, 1, hid);  // t of every latent of the group
-      for (int zp = 0; zp < nz; zp += 2) {  // pairs of latents
-        const int np = min(2, nz - zp);
-        if (np == 2) {  // the pair's products side by side: warps 0-3 the first, 4-7 the second
-          __syncthreads();
-          const int zz = (tid >> 5) >= WARPS / 2;
-          const size_t bz = (size_t)b * Z + z0 + zp + zz;
-          dense32_direct<ACT_NONE>(X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,
-                                   Y + zz * TILE * ldP, ldP, false, zz * WARPS / 2, WARPS / 2);
-        } else {
-          const size_t bz = (size_t)b * Z + z0 + zp;
-          dense32_direct<ACT_NONE>(X + zp * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH, Y, ldP);
-        }
-        __syncthreads();
-        normalize<true, WN>(Y, ldP, np * TILE, H, hidm);  // gelu, then each head
-        mixer<WN, MT, RES>(Y, P.ldP, np, H, hidm, D, Wm, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW, ring);
-      }
-    }
-
-    float* dst = P.out + ((size_t)b * C + c0) * (WITH_TAIL ? P.out_dim : HD);
-    if (WITH_TAIL) {
-      dense32_direct<ACT_NONE>(acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW);
-      dense32_direct<ACT_NONE>(Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW);
-      __syncthreads();
-      normalize_rows(acc, ldW, HD);
-      dense32_direct<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW);
-      dense32_direct<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW);
-      dense32_direct<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW);
-      __syncthreads();
-      const int od = P.out_dim;
-      lane_dots(
-          od, hid, od, [&](int, int t) { return Y + t * ldW; }, [&](int o) { return P.h_w3 + o; },
-          [&](int o, int t, float s) {
-            if (t < rows) dst[t * od + o] = s + __ldg(P.h_b3 + o);
-          });
-    } else {
-      __syncthreads();
-      for (int idx = tid; idx < rows * HD; idx += THREADS) dst[idx] = acc[(idx / HD) * ldW + idx % HD];
-    }
-  };
-
-  {
-    // A persistent block: the shared weights come in once (RES), then it walks the work items
-    // (batch row, tile) from blockIdx.x by gridDim.x, neighbours sharing a row's A, G and c in L2.
-    if constexpr (RES) {
-      const float* src[4] = {P.q_w1s, P.v_w1s, P.fws, P.m_w2s};
-      const int n[4] = {wq_floats, wq_floats, wq_floats, hidm / KC * Cls::BLOCK};
-      float* dst = ring;
-      for (int i = 0; i < 4; ++i) {
-        for (int j = 4 * tid; j < n[i]; j += 4 * THREADS) cp_async16(dst + j, src[i] + j, true);
-        dst += n[i];
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      fence_async_smem();  // visible to wgmma after the barrier that starts each item
-    }
-    const int ntiles = (C + TILE - 1) / TILE, items = ntiles * P.B;
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      __syncthreads();  // the last item's readers of acc and Y are done
-      decode_tile(item / ntiles, item % ntiles * TILE);
-    }
-  }
+    decode_narrow<WN, WITH_TAIL>(P, smem);
   }
 }
-// Adds every latent's logits ([Z][rows][H]) to *smem where they fit beside the rest; else they go to
-// the launch's workspace in global memory (P.lg_global). False if the rest does not fit.
-bool place_logits(Params& P, size_t* smem, int rows) {
+
+// Adds every latent's logits ([Z][rows][H]) to *smem where they fit beside the rest within `cap` bytes; else
+// they go to the launch's workspace in global memory (P.lg_global): a slot of [Z][64][H] for each block of the
+// persistent grid. False if the rest does not fit.
+bool place_logits(Params& P, size_t* smem, int rows, size_t cap = SMEM_CAP) {
   const size_t lg = sizeof(float) * (size_t)P.Z * rows * P.H;
-  P.lg_global = *smem + lg > SMEM_CAP;
+  P.lg_global = *smem + lg > cap;
   if (!P.lg_global) *smem += lg;
   return *smem <= SMEM_CAP;
 }
+
+// A narrow class's blocks an SM: BLOCKS<wn> where its shared memory leaves room for them (`layout` sends the
+// logits to global memory rather than take that room), else one.
+size_t narrow_room(int wn) { return (size_t)SM_SHARED / narrow_blocks(wn) - SM_KEPT; }
+int narrow_slots(int wn, size_t smem) { return smem <= narrow_room(wn) ? narrow_blocks(wn) : 1; }
 
 // Fills P's strides; false for shapes the kernel does not take. *cls: the width class.
 bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
@@ -1036,44 +1047,34 @@ bool layout(Params& P, bool with_tail, size_t* smem, int* cls) {
   if (P.hidm > MAXW || P.H * P.D > MAXW) return false;                        // normalize's registers
   if (!with_tail && P.out_dim != P.H * P.D) return false;
   if (P.I > P.hid + 4) return false;  // a group's invariants are staged in Y
-  const int HD = P.H * P.D, HH = P.H * P.hidm;
   *cls = width_class(P.hid, P.hidm, P.D);
-  P.ldP = row_stride(HH);
-  P.ldW = row_stride(HD > P.hid ? HD : P.hid);
+  P.ldX = P.ldP = P.nY = P.nW = 0;
   if (*cls == WG_N) {
     // One 128-column slab a head of G and of the mixer (two past 128: the instantiation WIDE128); the
     // operand buffers, the attention output, m_w2, the two rings and the tail's LayerNorm sums are fixed;
     // every latent's logits where they fit.
-    P.ldX = P.nY = P.nW = 0;
     P.ldW = LDA128;
     *smem = SMEM128;
     return place_logits(P, smem, TILE128);
   }
-  // Narrow: X and Y take a group's ZG rows at a stride of WN + 4 words (4 mod 8: the
-  // A-fragment loads hit distinct banks), the shared weights (or their ring) replace the ring,
-  // and the group's A is staged beside every latent's logits (where they fit).
-  const int wn = *cls, zg = zg_of(wn), rows = zg * TILE;
-  P.ldX = wn + 4;
-  size_t nY = (size_t)rows * P.ldX;
-  if ((size_t)2 * TILE * P.ldP > nY) nY = (size_t)2 * TILE * P.ldP;
-  if ((size_t)TILE * P.ldW > nY) nY = (size_t)TILE * P.ldW;
-  P.nY = (int)nY;
-  P.nW = res_of(wn) ? (3 * P.hid + P.hidm) / KC * 8 * wn : STAGES * 8 * wn;
-  *smem = sizeof(float) * ((size_t)rows * P.ldX + nY + (size_t)TILE * P.ldW + (size_t)P.nW +
-                           (size_t)zg * P.hid * P.H);
-  return place_logits(P, smem, TILE);
+  // Narrow: `narrow_layout`, and every latent's logits where they fit in the room of BLOCKS<class> blocks an SM.
+  const NarrowLayout L = narrow_layout(*cls, P.hid, P.hidm, P.H, P.D);
+  P.ldW = L.ld;
+  *smem = L.prob;
+  const size_t room = narrow_room(*cls);
+  return place_logits(P, smem, TILE128, *smem <= room ? room : SMEM_CAP);
 }
 
-// Every class's blocks are persistent over the work items (batch row, tile of item_tile coordinates):
-// the class 128 takes 64 coordinates an item, or 32 where items of 64 would leave half of the grid's
-// slots (the blocks the SMs hold at once) idle, as at the nef step's fits (8 x 512 on 132 SMs).
+// Every class's blocks are persistent over the work items (batch row, tile of item_tile coordinates): 64
+// coordinates an item, or 32 where items of 64 would leave half of the grid's slots (the blocks the SMs hold
+// at once) idle, as at the nef step's fits (8 x 512 on 132 SMs).
 bool persistent_class(int) { return true; }
-int item_tile(int wn, int B, int C, long long slots) {
-  if (wn < WG_N) return TILE;
+int item_tile(int, int B, int C, long long slots) {
   const long long items = (long long)B * ((C + TILE128 - 1) / TILE128);
   return 2 * items <= slots ? TILE : TILE128;
 }
 }  // namespace
 
-#define K1_WIDE_CLASS WIDE128       // the launcher takes hidm or D past 128 at the class 128 in WIDE128
+#define K1_WIDE_CLASS WIDE128          // the launcher takes hidm or D past 128 at the class 128 in WIDE128
+#define K1_NARROW_SLOTS narrow_slots   // and caps a narrow class's blocks an SM
 #include "fused_decode_fwd_host.cuh"  // the launcher's C interface (shared with the f32 program)

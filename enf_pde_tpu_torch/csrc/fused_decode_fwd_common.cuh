@@ -1,9 +1,10 @@
 // Fused ENF decode, forward (kernel K1): the parts that its two programs share, the f32 program
 // fused_decode_fwd.cu (3xTF32, the `pallas_interpret` backend's) and the bf16 program
 // fused_decode_fwd_bf16.cu (bf16 operands, f32 sums: the YAMLs' `pallas` on the card). Each
-// source includes this header first, then defines its products (the 32-row `dense32` /
-// `dense32_direct`, the group rows' `gemm_wg` and the Width class traits), the two hooks below,
-// its kernel `fused_decode_fwd_kernel<WN, WITH_TAIL>` and its `layout`, and ends with
+// source includes this header first, then defines its products (the f32 program's 32-row `dense32`
+// / `dense32_direct` and group rows' `gemm_wg`; the bf16 program's designs of its own), its Width
+// class traits, the two hooks below, its kernel `fused_decode_fwd_kernel<WN, WITH_TAIL>` and its
+// `layout`, and ends with
 // fused_decode_fwd_host.cuh, the launcher's C interface. fused_decode_fwd.cu's header states
 // the math, the blocks, the width classes and the staging; here are the constants, the launch
 // parameters, the cp.async and wgmma staging helpers, the row passes (the RFF features, the
@@ -91,7 +92,7 @@ __device__ __forceinline__ float activate(float x) {
 
 // Each program defines these two: a product operand as the program takes it (the f32 value,
 // or rounded to bf16), and sin and cos of 2 pi proj for the RFF features (sincosf, or the bf16
-// mode's polynomial). gemm_wg, the group rows' product, is each program's too.
+// mode's polynomial). gemm_wg, the group rows' product, is the f32 program's (dense_group, mixer).
 __device__ __forceinline__ float operand(float x);
 __device__ __forceinline__ void rff_sincos(float proj, float* s, float* c);
 template <int WN, int MT, bool RES, class XRow, class Active, class Epi>

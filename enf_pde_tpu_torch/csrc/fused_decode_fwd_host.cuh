@@ -55,6 +55,9 @@ cudaError_t launch(Params P, size_t smem, cudaStream_t s) {
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     if (WN >= WG_N) per_sm = 1;  // a block's slot of the logits workspace: one an SM
+#ifdef K1_NARROW_SLOTS
+    else if (K1_NARROW_SLOTS(WN, smem) < per_sm) per_sm = K1_NARROW_SLOTS(WN, smem);  // and BLOCKS<class>
+#endif
     const long long most = (long long)per_sm * sms;
     P.tile = item_tile(WN < WG_N ? WN : WG_N, P.B, P.C, most);
     const long long items = (long long)P.B * ((P.C + P.tile - 1) / P.tile);
@@ -154,8 +157,9 @@ int fused_decode_fwd_occupancy(const int* dims, int n_dims, int* out) {
   return (int)by_class<Prepare>(instance(P, cls), dims[9] != 0, smem, out + 1);
 }
 
-// For a launch with these dims: out[0] its width class, out[1] the blocks of it an SM holds, out[2]
-// the coordinates a work item takes and out[3] the grid, as `launch` plans them on this device.
+// For a launch with these dims: out[0] its width class, out[1] the blocks of it an SM holds (at most
+// K1_NARROW_SLOTS where the program caps them), out[2] the coordinates a work item takes and out[3] the grid,
+// as `launch` plans them on this device.
 // Returns the cudaError_t (cudaErrorInvalidValue for shapes it does not take).
 int fused_decode_fwd_plan(const int* dims, int n_dims, int* out) {
   int occ[2];
@@ -172,6 +176,14 @@ int fused_decode_fwd_plan(const int* dims, int n_dims, int* out) {
   out[2] = TILE;
   out[3] = (P.C + TILE - 1) / TILE * P.B;
   if (persistent_class(occ[0])) {
+#ifdef K1_NARROW_SLOTS
+    if (occ[0] < WG_N) {
+      size_t smem = 0;
+      int cls = 0;
+      layout(P, dims[9] != 0, &smem, &cls);
+      if (K1_NARROW_SLOTS(occ[0], smem) < occ[1]) out[1] = occ[1] = K1_NARROW_SLOTS(occ[0], smem);
+    }
+#endif
     const long long most = (long long)(occ[0] == WG_N ? 1 : occ[1]) * sms;
     out[2] = item_tile(occ[0], P.B, P.C, most);
     const long long items = (long long)P.B * ((P.C + out[2] - 1) / out[2]);

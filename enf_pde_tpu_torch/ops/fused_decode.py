@@ -120,12 +120,14 @@ TAIL_WEIGHT_NAMES = (
 # Handed to K1 split into tf32 (big, small) parts too, in this order (after ``out``), in
 # the blocked layout of ``split_weights``; WG_N is the width of one slab of the widest class.
 SPLIT_WEIGHT_NAMES = ("q_w1", "v_w1", "fw", "m_w2")
-# The bf16 program's class 128 also takes G and these tail weights in bf16, blocked as its wgmma reads
-# them (``k1_operands``); h_w3 (a few columns, on the CUDA cores) stays f32.
+# The bf16 program also takes G and these tail weights in bf16, blocked as its wgmma reads them at the
+# width class (``k1_operands``); h_w3 (a few columns, on the CUDA cores) stays f32.
 BLOCKED_TAIL_NAMES = ("o_w", "p_w1", "p_w2", "h_w1", "h_w2")
 WG_N = 128
 # K1's narrow width classes: a shape whose hid, hidm and D fit one takes it, else WG_N.
 NARROW_CLASSES = (16, 32, 64)
+# The SMs of the card a K1 plan is made for where no card says (an H100's).
+SMS = 132
 
 KERNEL_SOURCE = "fused_decode_fwd.cu"
 BWD_KERNEL_SOURCE = "fused_decode_bwd.cu"
@@ -532,26 +534,29 @@ def bf16_blocks(w: torch.Tensor, wn: int = WG_N, name: str = "weight") -> torch.
     return blk.permute(*range(d), d, d + 3, d + 4, d + 1, d + 5, d + 2).contiguous()  # kc s ng kg r i
 
 
-def bf16_g_blocks(G: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """G [b, z, hid, H hidm] as the bf16 program's class 128 reads it: each head's hidm columns padded
-    to ``WG_N`` and blocked as ``bf16_blocks`` blocks a weight, [b, z, H, hid / 16, WG_N / 8, 2, 8, 8]
-    (element G[b, z, 16 kc + 8 kg + i, h hidm + 8 ng + r] at [b, z, h, kc, ng, kg, r, i]): a head's
-    chunks of 16 rows, 4 KB each, one after the other. A head wider than ``WG_N`` (hidm up to 2 ``WG_N``,
-    the class's wide instantiation) is padded to two slabs, [b, z, H, hid / 16, 2, WG_N / 8, 2, 8, 8]: a
-    chunk of 16 rows holds both slabs' blocks. JAX rounds G to bf16 at its product anyway."""
+def bf16_g_blocks(G: torch.Tensor, num_heads: int, wn: int = WG_N) -> torch.Tensor:
+    """G [b, z, hid, H hidm] as the bf16 program reads it at the width class ``wn`` (``k1_width_class``):
+    each head's hidm columns padded to ``wn`` and blocked as ``bf16_blocks`` blocks a weight,
+    [b, z, H, hid / 16, wn / 8, 2, 8, 8] (element G[b, z, 16 kc + 8 kg + i, h hidm + 8 ng + r] at
+    [b, z, h, kc, ng, kg, r, i]): a head's chunks of 16 rows, 32 ``wn`` bytes each (4 KB at ``WG_N``), one
+    after the other, and a latent's heads one after the other (a narrow class copies a latent's whole). A
+    head wider than ``WG_N`` (hidm up to 2 ``WG_N``, the class 128's wide instantiation) is padded to two
+    slabs, [b, z, H, hid / 16, 2, WG_N / 8, 2, 8, 8]: a chunk of 16 rows holds both slabs' blocks. JAX
+    rounds G to bf16 at its product anyway."""
     b, z, hid, hh = G.shape
     heads = G.reshape(b, z, hid, num_heads, hh // num_heads).transpose(2, 3)  # [b, z, H, hid, hidm]
-    if heads.shape[-1] > 2 * WG_N:
-        raise ValueError(f"the bf16 K1 takes a head of G at most {2 * WG_N} wide, got {heads.shape[-1]}")
-    blocks = bf16_blocks(heads, WG_N, "G")
+    if heads.shape[-1] > (2 if wn == WG_N else 1) * wn:
+        raise ValueError(f"the bf16 K1 takes a head of G at most {2 * WG_N if wn == WG_N else wn} wide at the width "
+                         f"class {wn}, got {heads.shape[-1]}")
+    blocks = bf16_blocks(heads, wn, "G")
     return blocks[:, :, :, :, 0] if blocks.shape[4] == 1 else blocks
 
 
 class K1Operands(NamedTuple):
     """What K1 reads laid out for its program, made once for every launch with the same fold
-    (``k1_operands``): the shared weights' blocks (``shared_weights``) and, for the bf16 program's
-    class 128, G (``bf16_g_blocks``) and the tail's ``BLOCKED_TAIL_NAMES`` (``bf16_blocks``) in bf16;
-    else None and () (the program reads them as the fold gives them, f32)."""
+    (``k1_operands``): the shared weights' blocks (``shared_weights``) and, for the bf16 program, G
+    (``bf16_g_blocks``) and the tail's ``BLOCKED_TAIL_NAMES`` (``bf16_blocks``) in bf16 blocks at the
+    width class; else None and () (the f32 program reads them as the fold gives them)."""
     shared: Tuple[torch.Tensor, ...]
     G: Optional[torch.Tensor]
     tail: Tuple[torch.Tensor, ...]
@@ -562,13 +567,14 @@ def k1_operands(G: torch.Tensor, ws: Sequence[torch.Tensor], tws: Sequence[torch
     """``K1Operands`` of a fold: once a decode (``models.decoder.decode_trajectories``), or once a launch
     where the wrapper is given none (``FusedDecode``: once a training step)."""
     shared = shared_weights(ws, compute_dtype)
-    if compute_dtype != torch.bfloat16 or _ws_class(ws) != WG_N:
+    if compute_dtype != torch.bfloat16:
         return K1Operands(shared, None, ())
-    return K1Operands(shared, bf16_g_blocks(G, num_heads), _tail_blocks(tws))
+    wn = _ws_class(ws)
+    return K1Operands(shared, bf16_g_blocks(G, num_heads, wn), _tail_blocks(tws, wn))
 
 
-def _tail_blocks(tws: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    return tuple(bf16_blocks(tws[TAIL_WEIGHT_NAMES.index(n)], WG_N, n) for n in BLOCKED_TAIL_NAMES) if tws else ()
+def _tail_blocks(tws: Sequence[torch.Tensor], wn: int = WG_N) -> Tuple[torch.Tensor, ...]:
+    return tuple(bf16_blocks(tws[TAIL_WEIGHT_NAMES.index(n)], wn, n) for n in BLOCKED_TAIL_NAMES) if tws else ()
 
 
 def shared_weights(ws: Sequence[torch.Tensor], compute_dtype: torch.dtype = torch.float32,
@@ -625,8 +631,9 @@ def k1_constants(compute_dtype: torch.dtype = torch.float32) -> Dict[str, int]:
 
 
 def _k1_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
-               compute_dtype: torch.dtype = torch.float32) -> Tuple[int, bool]:
-    """``k1_smem_bytes`` and whether the bf16 program keeps the logits in global memory."""
+               compute_dtype: torch.dtype = torch.float32) -> Tuple[int, bool, int]:
+    """``k1_smem_bytes``, whether the bf16 program keeps the logits in global memory, and the blocks an
+    SM its narrow classes plan for (``narrow_slots``; 0 elsewhere)."""
     bf = _check_dtype(compute_dtype) == torch.bfloat16
     k = k1_constants(compute_dtype)
     tile, zg, kc = k["TILE"], k["ZG"], k["KC"]
@@ -646,29 +653,36 @@ def _k1_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     ld_p, ld_w = stride(H * hidm), stride(max(H * D, hid))
     wn = k1_width_class(hid, hidm, D)
     # The softmax's shared floats: the f32 program's group logits, running max, sum and factor;
-    # the bf16 program's every latent's logits, where they fit (`place_logits`).
-    lg_rows = tile  # rows of a latent's logits
+    # the bf16 program's every latent's logits, where they fit (`place_logits`) in `cap` bytes.
+    lg_rows, cap, slots = tile, k["SMEM_CAP"], 0  # rows of a latent's logits
     if bf and wn == k["WG_N"]:  # hidm or D past WG_N: the wide instantiation, the same layout
         smem, lg_rows = k["SMEM128"], k["TILE128"]
+    elif bf:  # narrow_layout: the shared weights, xs, r1 (X, Y, G a warpgroup; the tail's operands), r2
+        T, HD = k["TILE128"], H * D
+        ld, hdp = (HD + 23) // 32 * 32 + 8, -(-HD // wn) * wn
+        pw = 2 * T * (hid + max(hid, hidm)) + 2 * hid * H * wn
+        r2 = (3 * hid + hidm) * wn * 2 + k["XS_BYTES"] + max(2 * pw, 4 * T * max(HD, hid))
+        smem, lg_rows = r2 + max(8 * T * ld, 4 * T * ld + 2 * max(HD * hdp, hid * wn)), T
+        room = k["SM_SHARED"] // k[f"BLOCKS{wn}"] - k["SM_KEPT"]
+        cap = room if smem <= room else cap
     elif wn == k["WG_N"]:
         ld_x = stride(hid)
         n_y = max(zg * tile * ld_x, 2 * tile * ld_p, tile * ld_w)
-        n_sm = 0 if bf else (zg + 3) * tile * H
-        smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + n_sm)
+        smem = 4 * (zg * tile * ld_x + n_y + tile * ld_w + k["RING_FLOATS"] + (zg + 3) * tile * H)
     else:
         zg = k[f"ZG{wn}"]
-        n_sm = 0 if bf else (zg + 3) * tile * H
         rows, ld_x = zg * tile, wn + 4
         n_y = max(rows * ld_x, 2 * tile * ld_p, tile * ld_w)
-        block = 8 * wn if bf else 32 * wn  # floats of a shared weight's 16-deep chunk
-        n_w = (3 * hid + hidm) // kc * block if k[f"RES{wn}"] else k["STAGES"] * block
-        smem = 4 * (rows * ld_x + n_y + tile * ld_w + n_w + n_sm + zg * hid * H)
-    logits_global = bf and smem + 4 * Z * lg_rows * H > k["SMEM_CAP"]
+        n_w = (3 * hid + hidm) // kc * 32 * wn if k[f"RES{wn}"] else k["STAGES"] * 32 * wn
+        smem = 4 * (rows * ld_x + n_y + tile * ld_w + n_w + (zg + 3) * tile * H + zg * hid * H)
+    logits_global = bf and smem + 4 * Z * lg_rows * H > cap
     if bf and not logits_global:
         smem += 4 * Z * lg_rows * H
     if smem > k["SMEM_CAP"]:
         raise ValueError(f"K1 would need {smem} B of shared memory, more than {k['SMEM_CAP']}")
-    return smem, logits_global
+    if bf and wn < k["WG_N"]:
+        slots = k[f"BLOCKS{wn}"] if smem <= room else 1
+    return smem, logits_global, slots
 
 
 def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
@@ -681,48 +695,47 @@ def k1_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     and Y of ``ZG<wn>`` latents' rows at a stride of ``wn`` + 4, acc, the four shared
     weights resident (``RES<wn>``) or a ring of ``STAGES`` of their blocks, the softmax's
     state and the group's A. The f32 program's does not depend on ``Z``. The bf16 program
-    (``compute_dtype=torch.bfloat16``, ``fused_decode_fwd_bf16.cu``) keeps no split A chunks and
-    no online softmax state but every latent's logits ([Z][TILE][H]) where they fit beside the
-    rest, else in a workspace in global memory (``k1_logits_floats``), so that its layout too takes
-    every ``Z``; its shared weights are bf16 blocks of 8 ``wn`` floats a chunk. Its class 128
-    (``SMEM128``: two bf16 operand buffers of 64 x 256, the attention output, m_w2 resident, two
-    warpgroups' rings, the row sums' exchange) holds 64 rows of logits a latent (in shared memory up
-    to z = 62 at NS width); hidm or D past 128 (up to 256) take its wide instantiation in the same
-    layout. Raises ``ValueError`` for a shape that ``layout`` refuses:
-    widths it does not take, or more than ``SMEM_CAP`` bytes."""
+    (``compute_dtype=torch.bfloat16``, ``fused_decode_fwd_bf16.cu``) keeps every latent's logits
+    ([Z][64][H]) where they fit beside the rest, else in a workspace in global memory
+    (``k1_logits_floats``), so that its layout too takes every ``Z``. Its class 128 (``SMEM128``: two
+    bf16 operand buffers of 64 x 256, the attention output, m_w2 resident, two warpgroups' rings, the row
+    sums' exchange) holds them up to z = 62 at NS width; hidm or D past 128 (up to 256) take its wide
+    instantiation in the same layout. Its narrow classes (``narrow_layout``: the shared weights resident,
+    each warpgroup's operands, G and share of the attention output, the tail's operands, stage and a
+    layer's weights in their place) hold them where ``BLOCKS<wn>`` blocks still fit an SM (else where
+    one does). Raises ``ValueError`` for a shape that ``layout`` refuses: widths it does not take, or
+    more than ``SMEM_CAP`` bytes."""
     return _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[0]
 
 
-def k1_plan(B: int, C: int, hid: int, hidm: int, D: int, compute_dtype: torch.dtype = torch.float32,
-            sms: int = 132) -> Tuple[int, int, int]:
+def k1_plan(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, hidm: int,
+            compute_dtype: torch.dtype = torch.float32, sms: int = SMS) -> Tuple[int, int, int]:
     """(tile, items, grid) of a K1 launch, as its launcher plans it on a card of ``sms`` SMs: the bf16
-    program's class 128 walks items of 64 coordinates of a batch row (32 where items of 64 would leave
-    half of the ``sms`` blocks idle, ``item_tile``) with one persistent block an SM; the other
-    launches take tiles of ``TILE`` (the narrow classes' grid also depends on their blocks an SM,
-    ``k1_occupancy``: here one an SM)."""
+    program walks items of 64 coordinates of a batch row (32 where items of 64 would leave half of the
+    grid's slots idle, ``item_tile``) with persistent blocks, one an SM at the class 128 and
+    ``narrow_slots`` (``BLOCKS<wn>`` where they fit) at the narrow classes; the f32 program takes tiles of
+    ``TILE``, a block each (its narrow classes' grid also depends on their blocks an SM,
+    ``k1_occupancy``: here one a tile)."""
     k = k1_constants(compute_dtype)
     tile = k["TILE"]
-    if compute_dtype == torch.bfloat16 and k1_width_class(hid, hidm, D) == k["WG_N"]:
-        tile = tile if 2 * B * -(-C // k["TILE128"]) <= sms else k["TILE128"]
+    if compute_dtype == torch.bfloat16:
+        per_sm = _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[2] or 1
+        slots = per_sm * sms
+        tile = tile if 2 * B * -(-C // k["TILE128"]) <= slots else k["TILE128"]
         items = B * -(-C // tile)
-        return tile, items, min(items, sms)
+        return tile, items, min(items, slots)
     items = B * -(-C // tile)
     return tile, items, items
 
 
 def k1_logits_floats(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, hidm: int,
-                     compute_dtype: torch.dtype = torch.float32, sms: int = 132) -> int:
+                     compute_dtype: torch.dtype = torch.float32, sms: int = SMS) -> int:
     """Floats of the global-memory logits workspace a K1 launch needs: 0 for the f32 program and
-    for a bf16 launch whose logits fit shared memory, else ``[B][ceil(C / TILE)][Z][TILE][H]``
-    (``layout``'s ``place_logits``), or at the bf16 class 128 a slot of ``[Z][64][H]`` for each
-    block of its grid on a card of ``sms`` SMs (``k1_plan``)."""
+    for a bf16 launch whose logits fit shared memory, else a slot of ``[Z][64][H]`` for each block of
+    its persistent grid on a card of ``sms`` SMs (``k1_plan``)."""
     if not _k1_layout(Z, I, hid, H, D, hidm, compute_dtype)[1]:
         return 0
-    k = k1_constants(compute_dtype)
-    if k1_width_class(hid, hidm, D) == k["WG_N"]:
-        return k1_plan(B, C, hid, hidm, D, compute_dtype, sms)[2] * Z * k["TILE128"] * H
-    tile = k["TILE"]
-    return B * -(-C // tile) * Z * tile * H
+    return k1_plan(B, Z, C, I, hid, H, D, hidm, compute_dtype, sms)[2] * Z * k1_constants(compute_dtype)["TILE128"] * H
 
 
 def k1_library_smem_bytes(dims: Sequence[int], compute_dtype: torch.dtype = torch.float32) -> int:
@@ -776,18 +789,18 @@ def _fwd_lib(source: str = KERNEL_SOURCE):
     return lib
 
 
-def _check_blocked(ops: K1Operands, G: torch.Tensor, tws, num_heads: int, device: torch.device) -> None:
-    """``ops.G`` and ``ops.tail`` are ``bf16_g_blocks(G)`` and the tail's ``bf16_blocks`` in shape and type
-    (the bf16 program's class 128 reads nothing else in their place)."""
+def _check_blocked(ops: K1Operands, G: torch.Tensor, tws, num_heads: int, device: torch.device, wn: int) -> None:
+    """``ops.G`` and ``ops.tail`` are ``bf16_g_blocks(G, num_heads, wn)`` and the tail's ``bf16_blocks`` at the
+    width class ``wn`` in shape and type (the bf16 program reads nothing else in their place)."""
     b, z, hid, hh = G.shape
-    slabs = -(-hh // num_heads // WG_N)
-    _check("blocked G", ops.G, (b, z, num_heads, hid // 16, *((slabs,) if slabs > 1 else ()), WG_N // 8, 2, 8, 8), device,
+    slabs = -(-hh // num_heads // wn)
+    _check("blocked G", ops.G, (b, z, num_heads, hid // 16, *((slabs,) if slabs > 1 else ()), wn // 8, 2, 8, 8), device,
            torch.bfloat16)
     if len(ops.tail) != (len(BLOCKED_TAIL_NAMES) if tws else 0):
         raise ValueError(f"expected {len(BLOCKED_TAIL_NAMES) if tws else 0} blocked tail weights, got {len(ops.tail)}")
     for name, blk in zip(BLOCKED_TAIL_NAMES, ops.tail):
         K, N = tws[TAIL_WEIGHT_NAMES.index(name)].shape
-        _check(f"blocked {name}", blk, (K // 16, -(-N // WG_N), WG_N // 8, 2, 8, 8), device, torch.bfloat16)
+        _check(f"blocked {name}", blk, (K // 16, -(-N // wn), wn // 8, 2, 8, 8), device, torch.bfloat16)
 
 
 def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=None,
@@ -797,22 +810,22 @@ def _launch(inv, wb, A, ab, G, c, ws, tws, num_heads: int, head_dim: int, split=
     bf = _check_dtype(compute_dtype) == torch.bfloat16
     B, Z, C, I, hid, hidm, out_dim, with_tail = _check_inputs(inv, wb, A, ab, G, c, ws, tws, H, D)
     # The bf16 program's logits workspace, where they do not fit shared memory.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else SMS
     n_lg = k1_logits_floats(B, Z, C, I, hid, H, D, hidm, compute_dtype, sms) if bf else 0
     # What the program reads laid out for it: `split` (``k1_operands``, or the shared weights alone,
     # ``shared_weights``), else laid out here for this launch.
-    blocked = bf and (width or _ws_class(ws)) == WG_N
+    wn = width or _ws_class(ws)
     if split is None:
         split = k1_operands(G, ws, tws, H, compute_dtype) if width is None else K1Operands(
             shared_weights(ws, compute_dtype, width), None, ())
     elif not isinstance(split, K1Operands):
         split = K1Operands(tuple(split), None, ())
-    if blocked and split.G is None:
-        split = split._replace(G=bf16_g_blocks(G, H), tail=_tail_blocks(tws))
+    if bf and split.G is None:
+        split = split._replace(G=bf16_g_blocks(G, H, wn), tail=_tail_blocks(tws, wn))
     _check_split(split.shared, ws, dev, width, compute_dtype)
     G_in, tail_in = G, {n: tws[TAIL_WEIGHT_NAMES.index(n)] for n in BLOCKED_TAIL_NAMES} if with_tail else {}
-    if blocked:
-        _check_blocked(split, G, tws, H, dev)
+    if bf:
+        _check_blocked(split, G, tws, H, dev, wn)
         G_in, tail_in = split.G, dict(zip(BLOCKED_TAIL_NAMES, split.tail))
         _check_aligned16({"A": A, "c": c, **{n: w for n, w in zip(WEIGHT_NAMES, ws) if w.dim() == 1 or "coeff" in n},
                           **{n: w for n, w in zip(TAIL_WEIGHT_NAMES, tws) if w.dim() == 1}}, 8)

@@ -17,7 +17,8 @@ by ``chip_smoke.py``. Here:
 - the double backward through ``FusedDecode`` in bf16 against the plain bf16 composition's;
 - the backends: ``pallas_interpret`` is ``kernel_f32``, and ``kernel`` decodes in bf16 on CUDA
   tensors and in f32 on CPU tensors (the resolution; nothing is launched);
-- the bf16 programs' instructions in the sources: bf16 ``wgmma`` and ``mma.sync``.
+- the bf16 programs' instructions in the sources: bf16 ``wgmma`` (K1's from shared memory only);
+- K1's bf16 blocks of G and the tail at the narrow classes and its layout mirrors at phase 35's launch shapes.
 """
 
 import re
@@ -289,20 +290,135 @@ def test_bf16_blocked_g_and_tail_rebuild_and_the_wrapper_refuses_another_layout(
             fd._launch(*args, split=split, compute_dtype=BF16)
 
 
+# The narrow classes' blocks (hid, H, hidm, D at each): `diff_sphere`'s widths, `ihc`'s, and a class 64 whose heads
+# (hidm 48) and tail (H D = 96) stop short of the class width.
+NARROW_BLOCK_WIDTHS = {16: (16, 2, 16, 16), 32: (32, 3, 32, 32), 64: (64, 2, 48, 48)}
+
+
+@pytest.mark.parametrize("wn", sorted(NARROW_BLOCK_WIDTHS))
+def test_bf16_narrow_blocks_and_the_wrapper_refuses_another_layout(wn, monkeypatch):
+    """The narrow classes read G (each head's hidm columns padded to the class width) and the tail's wide weights in
+    bf16 blocks at the class width, laid out once a decode (``k1_operands``): each element where its index says,
+    the blocks rebuild the matrices rounded to bf16, zero past each head and past N; a latent's heads one after the
+    other. The wrapper refuses G or the tail in another layout (the class 128's blocks, f32) before anything is
+    built, and takes the right one to the build."""
+    gen = torch.Generator().manual_seed(wn)
+    hid, H_, hidm, D_ = NARROW_BLOCK_WIDTHS[wn]
+    b, z, I, C, HD = 2, 3, 2, 5, H_ * D_
+    assert fd.k1_width_class(hid, hidm, D_) == wn
+    G = torch.randn(b, z, hid, H_ * hidm, generator=gen)
+    g16 = fd.bf16_g_blocks(G, H_, wn)
+    assert g16.dtype == BF16 and g16.is_contiguous() and g16.shape == (b, z, H_, hid // 16, wn // 8, 2, 8, 8)
+    back = g16.permute(0, 1, 2, 3, 5, 7, 4, 6).reshape(b, z, H_, hid, wn)  # [b, z, h, k, n]
+    want = G.reshape(b, z, hid, H_, hidm).transpose(2, 3)
+    assert torch.equal(back[..., :hidm], want.to(BF16)) and not back[..., hidm:].float().any()
+    for kc, ng, kg, r, i in ((0, 0, 0, 0, 0), (hid // 16 - 1, hidm // 8 - 1, 1, 7, 7), (hid // 16 - 1, 1, 0, 5, 2)):
+        h = H_ - 1  # element G[.., 16 kc + 8 kg + i, h hidm + 8 ng + r]
+        assert g16[1, 2, h, kc, ng, kg, r, i] == G[1, 2, 16 * kc + 8 * kg + i, h * hidm + 8 * ng + r].to(BF16)
+    flat = g16.reshape(b, z, -1)  # a latent's heads one after the other, 16 wn bf16 a chunk of 16 rows
+    assert torch.equal(flat[1, 2, hid * wn:hid * wn + 16 * wn], g16[1, 2, 1, 0].reshape(-1))
+    ws = [torch.randn(*s, generator=gen) for s in ((I, hid // 2), (hid, hid), (hid,), (I, hid // 2), (hid, hid), (hid,),
+                                                   (hid, hid), (hid,), (hidm, D_), (D_,))]
+    tws = [torch.randn(*s, generator=gen) for s in ((HD, HD), (HD,), (HD, HD), (HD,), (HD, HD), (HD,), (HD, hid), (hid,),
+                                                    (hid, hid), (hid,), (hid, 1), (1,))]
+    ops = fd.k1_operands(G, ws, tws, H_, BF16)
+    assert torch.equal(ops.G, g16) and len(ops.tail) == len(fd.BLOCKED_TAIL_NAMES)
+    for name, blk in zip(fd.BLOCKED_TAIL_NAMES, ops.tail):
+        w = tws[fd.TAIL_WEIGHT_NAMES.index(name)]
+        K, Nw = w.shape
+        slabs = -(-Nw // wn)
+        assert blk.shape == (K // 16, slabs, wn // 8, 2, 8, 8)
+        rebuilt = blk.permute(0, 3, 5, 1, 2, 4).reshape(K, slabs * wn)
+        assert torch.equal(rebuilt[:, :Nw], w.to(BF16)) and not rebuilt[:, Nw:].float().any()
+        kc, s_, ng, kg, r, i = K // 16 - 1, slabs - 1, 0, 1, 3, 6  # element W[16 kc + 8 kg + i, wn s + 8 ng + r]
+        assert blk[kc, s_, ng, kg, r, i] == w[16 * kc + 8 * kg + i, wn * s_ + 8 * ng + r].to(BF16)
+    assert fd.k1_operands(G, ws, tws, H_).G is None and fd.k1_operands(G, ws, (), H_, BF16).tail == ()
+    with pytest.raises(ValueError, match="at most"):  # a head wider than the class
+        fd.bf16_g_blocks(torch.randn(1, 1, 16, 2 * (wn + 16)), 2, wn)
+    inv, wb = torch.randn(b, z, C, I, generator=gen), torch.randn(b, z, C, generator=gen)
+    A, ab, c = torch.randn(b, z, hid, H_, generator=gen), torch.randn(b, z, H_, generator=gen), torch.randn(b, z, H_ * hidm)
+    args = (inv, wb, A, ab, G, c, ws, tws, H_, D_)
+    with pytest.raises(TypeError, match="blocked G must be bfloat16"):
+        fd._launch(*args, split=ops._replace(G=G), compute_dtype=BF16)
+    with pytest.raises(ValueError, match="blocked G has shape"):  # the class 128's blocks
+        fd._launch(*args, split=ops._replace(G=fd.bf16_g_blocks(G, H_)), compute_dtype=BF16)
+    with pytest.raises(ValueError, match="blocked o_w has shape"):
+        fd._launch(*args, split=ops._replace(tail=fd._tail_blocks(tws)), compute_dtype=BF16)
+
+    class Built(Exception):
+        pass
+
+    def build(*_):
+        raise Built
+
+    monkeypatch.setattr(cuda_lib, "build", build)
+    for split in (ops, ops.shared, None):  # laid out once a decode, or here for this launch
+        with pytest.raises(Built):
+            fd._launch(*args, split=split, compute_dtype=BF16)
+
+
+# The bf16 K1's layout mirrors at every narrow launch shape of `chip_smoke.py`'s phase 35 (BF16_K1_SHAPES and
+# BF16_K1_MANY_LATENTS): shared bytes, whether the logits lie in global memory, blocks an SM, (tile, items, grid) on
+# 132 SMs, and the logits workspace's floats (a slot of [Z][64][H] a block).
+NARROW_LAUNCHES = {
+    ("diffusion_plane", (), 160, 1024): (172_032, False, 1, (64, 2560, 132), 0),
+    ("cahn_hilliard", (), 160, 2048): (174_592, False, 1, (64, 5120, 132), 0),
+    ("diff_sphere", (), 160, 2048): (44_032, False, 3, (64, 5120, 396), 0),
+    ("diff_sphere", (), 40, 2048): (44_032, False, 3, (64, 1280, 396), 0),
+    ("ihc", (), 160, 2048): (111_360, False, 2, (64, 5120, 264), 0),
+    ("ihc", (), 14, 2048): (111_360, False, 2, (64, 448, 264), 0),
+    ("diffusion_plane", ("nef.num_latents=600",), 8, 1000): (169_984, True, 1, (64, 128, 128), 128 * 600 * 64 * 2),
+    ("diff_sphere", ("nef.num_latents=1000",), 8, 1000): (34_816, True, 3, (32, 256, 256), 256 * 1000 * 64 * 2),
+}
+
+
+def test_bf16_narrow_mirrors_at_every_phase35_launch():
+    """``k1_smem_bytes``, ``k1_plan`` and ``k1_logits_floats`` of the bf16 program at each narrow launch shape that
+    ``chip_smoke.py`` holds on the card (its configs' widths, I from their invariants): the narrow layout (the shared
+    weights; each warpgroup's X, Y and G; the attention output's two shares or the tail's stage and weights; the
+    logits) and its plan, 64 coordinates an item (32 where items of 64 leave half of the 132 SMs' slots idle), three
+    blocks an SM at 16, two at 32, one at 64 (each within its share of an SM's 233,472 B, 1,024 B of it kept back a
+    block); past the latents whose logits fit, a workspace slot for each block of the grid."""
+    import chip_smoke as cs
+    from enf_pde_tpu_torch.config import load_experiment_config
+    from enf_pde_tpu_torch.geometry.invariants import get_ca_invariant
+
+    shapes = {(n, o, b, c) for n, o, b, c, _ in cs.BF16_K1_SHAPES} | set(cs.BF16_K1_MANY_LATENTS)
+    k = fd.k1_constants(BF16)
+    seen = set()
+    for name, over, b, c in sorted(shapes):
+        nef = load_experiment_config(name, list(over)).nef
+        I, hid, H_, Z = get_ca_invariant(nef).dim, nef.num_hidden, nef.num_heads, nef.num_latents
+        wn = fd.k1_width_class(hid, hid, hid)
+        if wn == fd.WG_N:
+            continue
+        smem, glob, slots, plan, floats = NARROW_LAUNCHES[(name, over, b, c)]
+        seen.add((name, over, b, c))
+        assert fd._k1_layout(Z, I, hid, H_, hid, hid, BF16) == (smem, glob, slots)
+        assert fd.k1_smem_bytes(Z, I, hid, H_, hid, hid, BF16) == smem
+        assert fd.k1_plan(b, Z, c, I, hid, H_, hid, hid, BF16) == plan
+        assert fd.k1_logits_floats(b, Z, c, I, hid, H_, hid, hid, BF16) == floats
+        assert slots == k[f"BLOCKS{wn}"] and slots * (smem + k["SM_KEPT"]) <= k["SM_SHARED"] == 233_472
+        assert (plan[0] == 32) == (2 * b * -(-c // 64) <= slots * 132) and plan[2] == min(plan[1], slots * 132)
+    assert seen == set(NARROW_LAUNCHES)
+
+
 def test_bf16_programs_run_on_bf16_tensor_cores():
-    """The bf16 programs' products: K1's class 128 on bf16 wgmma m64n64k16 with both operands in
-    shared memory and nothing else (no mma.sync, no operand rounded in registers); its narrow classes
-    on bf16 wgmma (m64nNk16 at N = 16, 32, 64, A from registers) over a latent group's rows and
-    mma.sync m16n8k16 bf16 for the 32-row ones; K2's class design on bf16 wgmma at N = 8, 16, 32, 64
+    """The bf16 programs' products: K1 on bf16 wgmma with both operands in shared memory and nothing
+    else (no mma.sync, no wgmma with A in registers, no operand rounded in registers), m64n64k16 at
+    the class 128 and m64nWNk16 at the narrow classes WN = 16, 32, 64 (a product as wide as the class,
+    `wgmma_bf16_ss<WN>`); K2's class design on bf16 wgmma at N = 8, 16, 32, 64
     with a cotangent operand in three bf16 terms, its W128 design on bf16 wgmma m64n64k16 with both
     operands in shared memory (transposed for its row contractions) and the cotangents in three bf16
-    planes; the shared helper holds each instruction once; no TF32 product, library GEMM, WMMA or
+    planes; the shared helper holds each instruction once (at n16-n64 once with A in registers, once
+    with A in shared memory); no TF32 product, library GEMM, WMMA or
     atomics."""
     header = (cuda_lib.CSRC_DIR / "bf16_mma.cuh").read_text()
-    assert header.count("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32") == 1
-    for n in (8, 16, 32, 64):  # A from registers; at n = 64 also the shared-memory A of wgmma_bf16_ss64
-        assert header.count(f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == 1 + (n == 64), n
-    assert header.count('"%32, %33, p, 1, 1, 0, 0;\\n"') == 1  # two descriptors, neither transposed
+    assert "mma.sync" not in header  # every bf16 product a wgmma
+    for n in (8, 16, 32, 64):  # A from registers; at n = 16, 32, 64 also A in shared memory (wgmma_bf16_ss)
+        assert header.count(f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == 1 + (n > 8), n
+    for d in ("%8, %9", "%16, %17", "%32, %33"):  # two descriptors, neither transposed
+        assert header.count(f'"{d}, p, 1, 1, 0, 0;\\n"') == 1, d
     assert "__fmul_rn" in header and "rintf(p)" in header  # fast_sincos: no contraction, round half even
     k1 = (cuda_lib.CSRC_DIR / fd.KERNEL_SOURCE_BF16).read_text()
     k2 = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE_BF16).read_text()
@@ -312,15 +428,27 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
         assert "fast_sincos(" in src and "sincosf" not in src
         for banned in ("wmma", "cutlass", "cublas", "torch/extension.h", "atomic"):
             assert banned not in src.lower()
-    assert re.search(r"wgmma_bf16<NB>\(acc\[mt\]", k1) and k1.count("mma_bf16(acc[mi][j], a[mi], bf[j]);") == 1
-    assert "bf16_round(s_prob[z * TILE * H + idx] / l)" in k1  # the softmax weights rounded
+    # K1: no mma.sync, no wgmma with A in registers, no operand rounded in registers (stored in bf16 once by
+    # the epilogue before its product), none of the 32-row products; the softmax weights rounded.
+    for banned in ("mma_bf16(", "wgmma_bf16<", "pack_bf16(", "dense32", "gemm_wg", "mma.sync.aligned"):
+        assert banned not in k1, banned
+    assert k1.count("bf16_round(prob[z * TILE128 * H + idx] / l)") == 2
     c128 = k1[k1.index("// ---- The width class 128"):k1.index("template <int WN, bool WITH_TAIL>\n__global__")]
     # A slab's whole sum in the wgmma accumulator; k1_compare's variant `fresh` (ROADMAP Queue 2, item 8)
     # flips FRESH_ACC to a fresh accumulator a 16-deep k step, summed in f32.
     assert "constexpr int FRESH_ACC = 0;" in c128 and "acc[i] = two ? s + part[1][i] : s;" in c128
     assert c128.count("wgmma_bf16_ss64(") == 3 and "mma_bf16(" not in c128 and "wgmma_bf16<" not in c128
-    assert "pack_bf16(" not in c128 and "dense32" not in c128  # operands stored in bf16, not rounded in registers
     assert "bf16_round(prob[z * TILE128 * H + idx] / l)" in c128
+    # The narrow classes (a latent a warpgroup): every product one wgmma_bf16_ss<N> instruction in `product_ss`,
+    # its K in one group (q_w1, v_w1, fw, G, m_w2 and the tail's five layers at N = WN; the logits, hq times A[b, z]
+    # with the heads padded to NL = 16 columns); no wgmma on a path that differs between the warpgroups; the
+    # LayerNorms from a quad's shuffles (`quad_norm`), the tail's exchanged (`row_sums`).
+    narrow = k1[k1.index("// ---- The narrow classes"):k1.index("template <int WN, bool WITH_TAIL>\n__global__")]
+    assert narrow.count("wgmma_bf16_ss<N>(") == 1 and "wgmma_bf16_ss64(" not in narrow
+    assert narrow.count("product_ss<WN>(") == 6 and narrow.count("product_ss<NL>(") == 1
+    assert narrow.count("tail_layer_n<WN>(") == 5 and "wg_wait1();" not in narrow and "__shfl" in narrow
+    assert narrow.count("quad_norm<NJ>(") == 2 and narrow.count("row_sums<2>(") == 1
+    assert "normalize<" not in narrow and "normalize_rows(" not in narrow and "lane_dots(" not in narrow  # no row pass
     # A cotangent operand in three bf16 terms (split3_bf16): the products of terms i + j <= 2.
     gemm = re.search(r"\n__device__ __forceinline__ void gemm\(.*?\n}\n", k2, re.S).group(0)
     assert gemm.count("wgmma_bf16<WN>(") == 10 and gemm.count("split3_bf16(") == 3  # B two values a call, A one pair
@@ -355,9 +483,10 @@ def _bf16_rne(x: np.ndarray) -> np.ndarray:
     return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
 
 
-@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("K", [16, 32, 64, 128, 256])
 def test_a16_layout_and_its_descriptors_against_numpy(K):
-    """``a16_index`` (the bf16 programs' 64-row operand in shared memory) against the core-matrix layout
+    """``a16_index`` (the bf16 programs' 64-row operand in shared memory, K = hid at K1's narrow classes) against
+    the core-matrix layout
     built directly in numpy: 8 x 8 blocks, the row groups of a k group 128 bytes apart, the k groups
     1,024 bytes. Read as wgmma reads a descriptor without swizzle, K-major (LBO 1,024 B, SBO 128 B: a
     product's A) the buffer gives X, and MN-major (LBO 128 B, SBO 1,024 B: a row contraction's operand,

@@ -400,12 +400,13 @@ def test_k1_layout_accepts_every_shipped_decode_shape(name, dtype):
     accepts each config's decode widths: I from the config's cross-attention invariant,
     hid = hidm = D = nef.num_hidden, H heads, its latents; the size does not grow with Z.
     The ablation runs add I = 2 and I = 1 at Navier-Stokes width. Each config takes its
-    width class (``k1_width_class``); a narrow class leaves room for its blocks an SM. The
-    bf16 program (``fused_decode_fwd_bf16.cu``) holds every latent's logits, 4 TILE H bytes a
-    latent (4 TILE128 H at the class 128, whose tiles have 64 rows), and its shared weights in bf16:
-    less than the f32 program's at each config's Z. Where the logits do not fit beside the rest they
-    go to a global workspace (``k1_logits_floats``; at the class 128 a slot for each block of its
-    persistent grid, ``k1_plan``), so the bf16 layout takes every Z that the f32 one takes."""
+    width class (``k1_width_class``); a narrow class leaves room for its blocks an SM (the f32
+    program's ``MINB<wn>``, the bf16 program's ``BLOCKS<wn>``). The bf16 program
+    (``fused_decode_fwd_bf16.cu``) holds every latent's logits, 4 TILE128 H bytes a latent (its work
+    items have 64 rows at every class), and its shared weights in bf16: at the class 128 less than the
+    f32 program's at each config's Z. Where the logits do not fit beside the rest they go to a global workspace
+    (``k1_logits_floats``: a slot for each block of its persistent grid, ``k1_plan``), so the bf16
+    layout takes every Z that the f32 one takes."""
     name, *overrides = name.split()
     nef = jax_load_config(name, overrides).nef
     I, hid, H = jax_get_ca_invariant(nef).dim, nef.num_hidden, nef.num_heads
@@ -418,18 +419,20 @@ def test_k1_layout_accepts_every_shipped_decode_shape(name, dtype):
         assert {fd.k1_smem_bytes(z, I, hid, H, hid, hid) for z in (1, 4, 5, 8, 9, 16, 25, 64, 1000)} == {smem}
     else:
         k = fd.k1_constants(dtype)
-        rows = k["TILE128"] if wn == fd.WG_N else k["TILE"]  # a latent's logits: the class 128's tiles have 64 rows
+        rows = k["TILE128"]  # a latent's logits: 64 rows at every class
         assert fd.k1_smem_bytes(nef.num_latents + 1, I, hid, H, hid, hid, dtype) - smem == 4 * rows * H
-        assert smem < fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
+        if wn == fd.WG_N:  # the narrow classes' 64-row items take more than the f32 program's 32-row tiles
+            assert smem < fd.k1_smem_bytes(nef.num_latents, I, hid, H, hid, hid)
         assert fd.k1_logits_floats(2, nef.num_latents, 100, I, hid, H, hid, hid, dtype) == 0
         for z in (1, 4, 5, 8, 9, 16, 25, 64, 1000):
             assert 0 < fd.k1_smem_bytes(z, I, hid, H, hid, hid, dtype) <= smem + 4 * rows * H * max(0, z - nef.num_latents)
-        # 2 x 100 coordinates: 8 items of 32 (the class 128 takes 32 where items of 64 would leave half of
-        # the grid idle), a slot each (a block each at the class 128, a tile each at the narrow classes).
-        assert fd.k1_plan(2, 100, hid, hid, hid, dtype)[:2] == (32, 8)
+        # 2 x 100 coordinates: 8 items of 32 (32 where items of 64 would leave half of the grid idle), a
+        # block and a slot each.
+        assert fd.k1_plan(2, 1000, 100, I, hid, H, hid, hid, dtype) == (32, 8, 8)
         assert fd.k1_logits_floats(2, 1000, 100, I, hid, H, hid, hid, dtype) == 8 * 1000 * rows * H
     if wn < fd.WG_N:  # an SM has 233,472 B, 1,024 B of it kept back per block
-        assert fd.k1_constants(dtype)[f"MINB{wn}"] * (smem + 1024) <= 233_472
+        blocks = fd.k1_constants(dtype)[f"MINB{wn}" if dtype == torch.float32 else f"BLOCKS{wn}"]
+        assert blocks * (smem + 1024) <= 233_472
 
 
 def test_k1_layout_mirror_refuses_what_layout_refuses():
@@ -455,10 +458,10 @@ def test_k1_layout_mirror_refuses_what_layout_refuses():
     assert torch.equal(blk[1, 2, 0, 3, 1, 5, 1, 6, 7].float(), G[1, 2, 16 * 3 + 8 + 7, 128 + 8 * 5 + 6].bfloat16().float())
     # Its launch plan: 64 coordinates an item and one persistent block an SM (132 on an H100), 32 where
     # items of 64 would leave half of the blocks idle (the fit's 8 x 512), never below one wave.
-    assert fd.k1_plan(160, 512, 128, 128, 128, bf) == (64, 1280, 132)
-    assert fd.k1_plan(16, 512, 128, 128, 128, bf) == (64, 128, 128)
-    assert fd.k1_plan(8, 512, 128, 128, 128, bf) == (32, 128, 128)
-    assert fd.k1_plan(8, 512, 128, 128, 128) == (32, 128, 128)  # the f32 program: one block a tile
+    assert fd.k1_plan(160, 4, 512, 4, 128, 2, 128, 128, bf) == (64, 1280, 132)
+    assert fd.k1_plan(16, 4, 512, 4, 128, 2, 128, 128, bf) == (64, 128, 128)
+    assert fd.k1_plan(8, 4, 512, 4, 128, 2, 128, 128, bf) == (32, 128, 128)
+    assert fd.k1_plan(8, 4, 512, 4, 128, 2, 128, 128) == (32, 128, 128)  # the f32 program: one block a tile
     # The narrow classes' table (diff_sphere, ihc, the planar configs): each class's own group size.
     assert (fd.k1_smem_bytes(18, 1, 16, 2, 16, 16), fd.k1_smem_bytes(25, 5, 32, 3, 32, 32),
             fd.k1_smem_bytes(4, 2, 64, 2, 64, 64)) == (57_600, 93_824, 114_944)

@@ -35,10 +35,14 @@ holds it against the plain bf16 version with ``chip_smoke.py``'s bf16 gates (``b
 shape and mode, and times it in the same turns (what it reads laid out once, ``k1_operands``, as the
 forecast decode lays it out) beside its bound at the bf16 tensor-core rate. ``--dtype both`` applies
 ``--old``, ``--skip`` and ``--variant`` to the f32 program; ``--dtype bf16`` leaves the f32 program out
-and applies them to the bf16 one: ``--old`` an earlier bf16 source (one from before the blocked G
-and tail, the first bf16 design at 2697ec8, is handed G and the tail in f32 as it reads them), ``--skip``
-a phase of ``SKIPS16`` (the current design's, or with ``--skip-base`` the earlier design's ``*_old``),
-``--variant`` one of ``VARIANTS16``. Each bf16 build other than new16 is held against the plain bf16
+and applies them to the bf16 one: ``--old`` an earlier bf16 source (one that reads G and the tail in f32,
+as the first bf16 design at 2697ec8 does at every class and the narrow classes' earlier design at e909e65
+does at 16 / 32 / 64, is handed them in f32 there), ``--skip`` a phase of ``SKIPS16`` (the current
+designs', or with ``--skip-base`` the narrow classes' earlier design's ``*_old``), ``--variant`` one of
+``VARIANTS16``. The narrow design's phases: ``nfeatures`` (the RFF features), ``nlogits`` (the logits product and its
+B operand), ``nsoftmax``, ``nlayernorm``, ``ngelu``, ``nqvf`` (q_w1's, v_w1's and fw's products), ``ng`` (G's
+products), ``ngcopy`` (G's copies), ``nmixer`` (m_w2's products), ``ntail``, ``nwaits`` (the products' waits),
+``nbarriers`` (the warpgroups' barriers). Each bf16 build other than new16 is held against the plain bf16
 version too (skip builds only printed), and every ``[timing]`` line of a bf16 build gives its
 item tile, blocks an SM, grid and L2 weight bytes per point where its library reports them.
 """
@@ -68,12 +72,13 @@ BF16 = torch.bfloat16
 
 
 class _RawLatents:
-    """A bf16 build from before the blocked G and tail (the design at 2697ec8): it reads G and the tail's wide weights
-    in f32, as the fold gives them. ``launch`` hands the wrapper's pointer list over with those swapped
-    for the f32 tensors of the call."""
+    """A bf16 build that reads G and the tail's wide weights in f32, as the fold gives them: the design at
+    2697ec8 at every width class, or (``narrow_only``) the narrow classes' earlier design (at e909e65, whose
+    class 128 reads them blocked). ``launch`` hands the wrapper's pointer list over with those swapped for
+    the f32 tensors of the call."""
 
-    def __init__(self, lib):
-        self._lib, self.G, self.tws = lib, None, ()
+    def __init__(self, lib, narrow_only: bool = False):
+        self._lib, self.G, self.tws, self.narrow_only = lib, None, (), narrow_only
         self.fused_decode_fwd_error_string = lib.fused_decode_fwd_error_string
 
     def fused_decode_fwd_launch(self, ptrs, n_ptrs, dims, n_dims, stream):
@@ -86,7 +91,8 @@ class _RawLatents:
 
     def launch(self, inv, wb, A, ab, G, c, ws, tws, *rest, **kw):
         self.G, self.tws = G, tws
-        return fd._launch(inv, wb, A, ab, G, c, ws, tws, *rest, lib=self, **kw)
+        raw = not self.narrow_only or fd._ws_class(ws) < fd.WG_N
+        return fd._launch(inv, wb, A, ab, G, c, ws, tws, *rest, lib=self if raw else self._lib, **kw)
 
 
 class _FirstPointers:
@@ -156,12 +162,13 @@ VARIANTS = {
 }
 
 
-# The bf16 program's phases, each left out of a copy by its edits. The earlier design (at 2697ec8; ``--skip-base``
-# its source; 32 coordinates a block, G and the tail on 32-row mma.sync, row passes over f32 shared
-# memory): the RFF features, the LayerNorm passes (t, each head's pre, the tail's), the CUDA-core
-# dots (the logits, the head's output), the softmax pass, G's 32-row products, the tail, the mixer,
-# the staging waits (cp.async of the ring's chunks), the group rows' wgmma (q_w1, v_w1, fw; the
-# mixer's too).
+# The bf16 program's phases, each left out of a copy by its edits. The narrow classes' earlier design (at
+# e909e65; ``--skip-base`` its expanded source; 32 coordinates a block, G and the tail on 32-row mma.sync
+# read from L2 in f32, row passes over f32 shared memory): the RFF features, the LayerNorm passes of t and
+# of each head's pre, the CUDA-core dots (the logits, the head's output), the softmax pass, G's 32-row
+# products, the tail (its 32-row products alone, its LayerNorm pass alone, or all of it), the mixer, the
+# ring's staging waits (class 64), the group rows' wgmma (q_w1, v_w1, fw; the mixer's too).
+_D32 = "dense32_direct<ACT_NONE>("
 SKIPS16 = {
     "rff_old": [("      rff_features(s_inv, nz * TILE, I, coeff, hid / 2, X, ldX);", "", 0)],
     "layernorm_old": [("  for (int base = SPW * warp; base < n_seg;",
@@ -169,14 +176,22 @@ SKIPS16 = {
     "dots_old": [("  for (int o = warp; o < count; o += WARPS) {", "  for (int o = warp; o < count && K < 0; o += WARPS) {", 0)],
     "softmax_old": [("    for (int idx = tid; idx < TILE * H; idx += THREADS) {\n      float m = -INFINITY;",
                    "    for (int idx = tid; idx < 0; idx += THREADS) {\n      float m = -INFINITY;", 0)],
-    "g_old": [("          for (int zz = 0; zz < np; ++zz) {", "          for (int zz = 0; zz < np && P.B < 0; ++zz) {", 0)],
-    "tail_old": [("    if (WITH_TAIL) {\n      if constexpr (NARROW) {", "    if (WITH_TAIL) {\n      if (P.B >= 0) return;\n"
-                "      if constexpr (NARROW) {", 0)],
+    "g_old": [("          " + _D32 + "X + (zp + zz) * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH,\n"
+               "                                   Y + zz * TILE * ldP, ldP, false, zz * WARPS / 2, WARPS / 2);", "", 0),
+              ("          " + _D32 + "X + zp * TILE * ldX, ldX, hid, P.G + bz * hid * HH, HH, P.c + bz * HH, Y, ldP);",
+               "", 0)],
+    "tail32_old": [("      " + _D32 + "acc, ldW, HD, P.o_w, HD, P.o_b, Y, ldW);\n"
+                    "      " + _D32 + "Y, ldW, HD, P.p_w1, HD, P.p_b1, acc, ldW);", "", 0),
+                   ("      dense32_direct<ACT_GELU>(acc, ldW, HD, P.p_w2, HD, P.p_b2, Y, ldW);\n"
+                    "      dense32_direct<ACT_GELU>(Y, ldW, HD, P.h_w1, hid, P.h_b1, acc, ldW);\n"
+                    "      dense32_direct<ACT_GELU>(acc, ldW, hid, P.h_w2, hid, P.h_b2, Y, ldW);", "", 0)],
+    "tailln_old": [("      normalize_rows(acc, ldW, HD);", "", 0)],
+    "tail_old": [("    if (WITH_TAIL) {\n      " + _D32 + "acc, ldW, HD, P.o_w",
+                  "    if (WITH_TAIL) {\n      if (P.B >= 0) return;\n      " + _D32 + "acc, ldW, HD, P.o_w", 0)],
     "mixer_old": [("        mixer<WN, MT, RES>(Y, P.ldP, np, H, hidm, D, Wm, P.m_b2, s_prob + (z0 + zp) * TILE * H, acc, ldW, ring);",
                  "", 0)],
-    "staging_old": [("    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed", "", 0),
-                  ("      cp_async_wait<STAGES - 2>();\n      fence_async_smem();", "      fence_async_smem();", 0)],
-    "wgmma_old": [(_LOOP, "  for (int c = 0; c < total && K < 0; ++c) {", 1)],
+    "staging_old": [("      cp_async_wait<STAGES - 2>();\n      fence_async_smem();", "      fence_async_smem();", 0)],
+    "wgmma_old": [(_LOOP, "  for (int c = 0; c < total && K < 0; ++c) {", 0)],
 }
 # The current design's (64-row tiles, every product a wgmma from shared memory, the LayerNorms in the
 # epilogues): the RFF features, the logits' dots (q_w1's epilogue), the softmax pass, the LayerNorms
@@ -184,8 +199,7 @@ SKIPS16 = {
 # products, the tail, the staging waits, every wgmma instruction, the warpgroups' barriers a chunk.
 _STEP_WGMMA = ("      wgmma_bf16_ss64(acc, a16_desc(a + (ks0 + p) * A16_KSTEP), wg_desc(b + p * bstep), ks0 + p > 0);")
 SKIPS16.update({
-    "features": [("  for (int u = threadIdx.x; u < units; u += THREADS) {",
-                  "  for (int u = threadIdx.x; u < units && I < 0; u += THREADS) {", 0)],
+    "features": [("hid, X16, tid, THREADS);", "0, X16, tid, THREADS);", 0), ("hid, X16, tid, THREADS);", "0, X16, tid, THREADS);", 0)],
     "logits": [("      for (int h0 = 0; h0 < H; h0 += 2) {  // two heads a time", "      for (int h0 = 0; h0 < 0; h0 += 2) {", 0)],
     "softmax": [("    for (int idx = tid; idx < TILE128 * H; idx += THREADS) {", "    for (int idx = tid; idx < 0; idx += THREADS) {", 0)],
     "layernorm": [("    row_moments(v, N, mean, rstd);", "    mean[0] = mean[1] = 0.0f;\n    rstd[0] = rstd[1] = 1.0f;", 0),
@@ -194,8 +208,8 @@ SKIPS16.update({
     "gelu": [("        x0 = gelu_tanh(x0);\n        x1 = gelu_tanh(x1);", "", 0),
              ("        acc[i] = gelu_tanh(acc[i] + bf.x);\n        acc[i + 1] = gelu_tanh(acc[i + 1] + bf.y);",
               "        acc[i] = acc[i] + bf.x;\n        acc[i + 1] = acc[i + 1] + bf.y;", 0),
-             ("          acc[i] = gelu_tanh(acc[i] + cc.x);\n          acc[i + 1] = gelu_tanh(acc[i + 1] + cc.y);",
-              "          acc[i] = acc[i] + cc.x;\n          acc[i + 1] = acc[i + 1] + cc.y;", 0)],
+             ("            acc[i] = gelu_tanh(acc[i] + cc.x);\n            acc[i + 1] = gelu_tanh(acc[i + 1] + cc.y);",
+              "            acc[i] = acc[i] + cc.x;\n            acc[i + 1] = acc[i + 1] + cc.y;", 0)],
     "qvf": [("      product(st, X16, acc);\n      ACC_PAIRS(if (n0 + col < hid) {\n        const float2 bq", "      cp_async_wait<0>();\n      ACC_PAIRS(if (n0 + col < hid) {\n        const float2 bq", 0),
             ("      product(st, X16, acc);\n      prime(st, P.fws", "      cp_async_wait<0>();\n      prime(st, P.fws", 0),
             ("      product(st, Y16, acc);", "      cp_async_wait<0>();", 0)],
@@ -206,9 +220,35 @@ SKIPS16.update({
     "wgmma": [(_STEP_WGMMA, "", 0)],
     "barriers": [("    wg_bar(s.bar);                   // everyone's; chunk c - 2's products are complete", "", 0)],
 })
+# The narrow classes' design (64-coordinate items, a latent a warpgroup, every product a wgmma from shared
+# memory): the RFF features, the logits' dots (q_w1's epilogue), the softmax pass, the LayerNorms (t's and each
+# head's from a quad's shuffles, the tail's exchanged), gelu (fw's, G's and the tail's epilogues), the products of
+# q_w1, v_w1 and fw, G's products, G's copies, the mixer's products, the tail, the waits for the products, the
+# warpgroups' barriers.
+_NSOFTMAX = "    for (int idx = tid; idx < TILE128 * H; idx += THREADS) {"
+_NBAR = ("      wg_bar(bar);", "", 0)
+SKIPS16.update({
+    "nfeatures": [("rows, P.q_coeff, hid, XA, lt, 128);", "rows, P.q_coeff, 0, XA, lt, 128);", 0),
+                  ("rows, P.v_coeff, hid, XA, lt, 128);", "rows, P.v_coeff, 0, XA, lt, 128);", 0)],
+    "nlogits": [("      for (int e = lt; e < hid * NL; e += 128) {", "      for (int e = lt; e < hid * NL && P.B < 0; e += 128) {", 0),
+                ("      product_ss<NL>(lg, YA, GB, 16 * NL, nk);", "      for (int i = 0; i < NL / 2; ++i) lg[i] = 0.0f;", 0)],
+    "nsoftmax": [(_NSOFTMAX, "    for (int idx = tid; idx < 0; idx += THREADS) {", 1)],
+    "nlayernorm": [("    rstd[h] = rsqrtf(v[h][1] * inv - mean[h] * mean[h] + LN_EPS);", "    mean[h] = 0.0f;\n    rstd[h] = 1.0f;", 0),
+                   ("    row_moments(v, N, mean, rstd);", "    mean[0] = mean[1] = 0.0f;\n    rstd[0] = rstd[1] = 1.0f;", 1)],
+    "ngelu": [("  return __fdividef(x, 1.0f + __expf(-1.5957691216057308f * (x + 0.044715f * x * x * x)));", "  return x;", 0)],
+    "nqvf": [(f"      product_ss<WN>(acc, {a}, {w}, 16 * WN, nk);", "      for (int i = 0; i < NA; ++i) acc[i] = 0.0f;", 0)
+             for a, w in (("XA", "Wq"), ("XA", "Wv"), ("YA", "Wf"))],
+    "ng": [("        product_ss<WN>(ag, XA, GB + h * hid * WN, 16 * WN, nk);", "        for (int i = 0; i < NA; ++i) ag[i] = 0.0f;", 0)],
+    "ngcopy": [("      for (int k = 4 * lt; k < gfl; k += 4 * 128)", "      for (int k = 4 * lt; k < gfl && P.B < 0; k += 4 * 128)", 0)],
+    "nmixer": [("        product_ss<WN>(am, YA, Wm, 16 * WN, hidm / 16);", "        for (int i = 0; i < NA; ++i) am[i] = 0.0f;", 0)],
+    "ntail": [("      tail_layer_n<WN>(TX, TY, P.o_w,", "      if (P.B >= 0) continue;\n      tail_layer_n<WN>(TX, TY, P.o_w,", 0)],
+    "nwaits": [("  wg_commit();\n  wg_wait0();\n  wg_fence_operands<N / 2>(acc);", "  wg_commit();\n  wg_fence_operands<N / 2>(acc);", 0)],
+    "nbarriers": [_NBAR] * 9,
+})
 # Other designs of the current bf16 source, right and timed beside it: each 16-deep k step's product in
 # a fresh accumulator summed in f32 registers (K2's rule; ROADMAP Queue 2, item 8); warpgroup rings of
-# three or six 4 KB chunks (copies one or four chunks ahead, not two); and `copy`, the same program
+# three or six 4 KB chunks (copies one or four chunks ahead, not two); the narrow classes' blocks an SM
+# (`nblocks1`, `nblocks2`); and `copy`, the same program
 # built from its expanded text (the spread between two builds of one program: the class 128's code
 # is long, and two builds of it differed by up to 12 % on an H100).
 VARIANTS16 = {
@@ -216,6 +256,10 @@ VARIANTS16 = {
     "stages3": [("constexpr int STAGES128 = 4;", "constexpr int STAGES128 = 3;", 0)],
     "stages6": [("constexpr int STAGES128 = 4;", "constexpr int STAGES128 = 6;", 0)],
     "copy": [],
+    # The narrow classes: one block an SM at the classes 16 and 32 (not three and two), or two at the class 16.
+    "nblocks1": [("constexpr int BLOCKS16 = 3;", "constexpr int BLOCKS16 = 1;", 0),
+                 ("constexpr int BLOCKS32 = 2;", "constexpr int BLOCKS32 = 1;", 0)],
+    "nblocks2": [("constexpr int BLOCKS16 = 3;", "constexpr int BLOCKS16 = 2;", 0)],
 }
 
 
@@ -379,15 +423,15 @@ def main() -> int:
             if any(w in ln for w in ("registers", "spill", "Compiling entry", "Function properties", "warning", "wgmma")):
                 cs.log(f"[build] {name}: {ln.strip()}")
         lib = fd._fwd_lib(sources[name])
-        text = Path(sources[name]).read_text()
+        text = cuda_lib.expanded_source(Path(sources[name]))
         n_ptrs = int(re.search(r"kNumPtrs = (\d+);", text).group(1)) if name in olds else None
         if n_ptrs is not None and n_ptrs < 33:
             lib = _FirstPointers(lib, n_ptrs)
         dtypes[name] = BF16 if name == "new16" or (bf and name != "new") else torch.float32
         # A build from before the width classes reads the shared weights in WG_N slabs at every width.
         width = None if "fused_decode_fwd_occupancy" in text else fd.WG_N
-        if dtypes[name] == BF16 and "TILE128" not in text:  # the earlier bf16 design: G and the tail in f32
-            kernels[name] = partial(_RawLatents(lib).launch, width=width, compute_dtype=BF16)
+        if dtypes[name] == BF16 and ("TILE128" not in text or "void dense32_direct(" in text):  # G and the tail in f32
+            kernels[name] = partial(_RawLatents(lib, "TILE128" in text).launch, width=width, compute_dtype=BF16)
         else:
             kernels[name] = partial(fd._launch, lib=lib, width=width, compute_dtype=dtypes[name])
         # What the build reads laid out once, as the forecast decode lays it out.
