@@ -254,16 +254,19 @@ then K2 at the widths the other configs give it:
 34. for ``diffusion_plane``, ``cahn_hilliard``, ``diff_sphere`` and ``ihc`` at full width
     with ``nef.backend=pallas`` (which no YAML sets, and which sends the nef step and the fits
     through K1 and K2): one nef step and one fit through the trainer on a seeded random
-    trajectory (finite loss, gradients and latents; K2's launches by shape), then K2 against
-    its plain version in all four modes with the kinks stopped at the nef step's and the fit's
-    shapes, one launch repeated bit for bit, timed.
+    trajectory (finite loss, gradients and latents; K2's launches by shape and weight-gradient
+    mode: the nef step's K inner steps and the fit's K steps ask for none, the nef step's other
+    K + 1 launches for them), then K2 against its plain version in all four modes with the kinks
+    stopped at the nef step's and the fit's shapes, one launch repeated bit for bit, timed.
 
 then the bf16 programs:
 
 35. K1's and K2's bf16 programs against the plain bf16 version at every launch shape the paths
     above give them (``BF16_K1_SHAPES``, ``BF16_K2_SHAPES``: the forecasts', validations' and
-    steps' of every config, 400 x 512 included; beside them K1's wide instantiation, hidm = D =
-    256, and K2's class design at width class 64, one head of NS width, which no path gives),
+    steps' of every config, 400 x 512 included, the narrow configs' nef steps and fits in both
+    weight-gradient modes, which K2's narrow design takes; beside them K1's wide instantiation,
+    hidm = D = 256, and K2's class design at width class 64, one head of NS width, which no path
+    gives; each K2 line names its design, as the kernels line does),
     with the gates ``bf16_gates`` (rel-L2 to the plain bf16 version at most 0.35 of the bf16
     function's own distance from f32, the distance to the plain f32 version within 0.9-1.1 of
     it, and K1's outputs within 5e-2 of f32; K2 with the cotangent 0 within 2^-8 of an RFF
@@ -367,6 +370,7 @@ from enf_pde_tpu_torch.ops.fused_decode import (
     k1_operands,
     k1_smem_bytes,
     k1_width_class,
+    k2_narrow_design,
     k2_occupancy,
     k2_w128_design,
     k2_scratch_bytes,
@@ -794,13 +798,14 @@ def k2_layout(args, num_heads: int, head_dim: int, num_out: int, wg: bool, dtype
     """The built K2 library's layout of a tail launch of ``args`` (shared memory, blocks an SM,
     grid, row slots, scratch bytes) for the program of ``dtype``, held equal to the Python mirrors
     ``k2_smem_bytes`` and ``k2_scratch_bytes`` (at the library's blocks an SM and this card's SMs);
-    with the items a block takes."""
+    with the items a block takes (the bf16 narrow design's items are (b, z, tile)) and the design."""
     inv, ws = args[0], args[6]
     B, Z, C, I = inv.shape
     hid, hidm = ws[1].shape[0], ws[8].shape[0]
     src = BWD_KERNEL_SOURCE_BF16 if dtype == BF16 else BWD_KERNEL_SOURCE
     lay = k2_occupancy([B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, 1, int(wg)], src)
-    lay["ipb"] = -(-B * -(-C // 64) // lay["grid"])
+    narrow = dtype == BF16 and k2_narrow_design(hid, hidm, head_dim)
+    lay["ipb"] = -(-B * (Z if narrow else 1) * -(-C // 64) // lay["grid"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mirror = (k2_smem_bytes(Z, I, hid, num_heads, head_dim, hidm, dtype),
               k2_scratch_bytes(B, Z, C, I, hid, num_heads, head_dim, hidm, num_out, True, wg, lay["per_sm"], sms,
@@ -808,6 +813,7 @@ def k2_layout(args, num_heads: int, head_dim: int, num_out: int, wg: bool, dtype
     if mirror != (lay["smem"], lay["scratch"]):
         raise AssertionError(f"K2's layout {lay} differs from its Python mirror (smem, scratch) {mirror}")
     lay["w128"] = dtype == BF16 and k2_w128_design(Z, hid, num_heads, head_dim, hidm)
+    lay["design"] = "the W128 design" if lay["w128"] else "the narrow design" if narrow else "the class design"
     return lay
 
 
@@ -2388,12 +2394,24 @@ def k2_configs_phase(dev) -> dict:
                                   cfg.nef.num_out, generator=gen)).to(dev)
         reset_launches()
         (loss, grads), _, k2_nef = launches_of(lambda: trainer.nef_grads(state, traj))
+        nef_shapes = Counter(fused_decode_bwd.launches_by_program)
         fit, _, k2_fit = launches_of(lambda: trainer.fit_latents(state, traj[:, 0]))
         shapes = Counter(fused_decode_bwd.launches_by_program)
         log(f"[phase 34] {name} (nef.backend=pallas): nef step loss {float(loss):.4e}, K2 launches {k2_nef}; fit "
             f"K2 launches {k2_fit}; by (dtype, b, z, c, I, weight grads): {dict(sorted(shapes.items(), key=str))}")
         if not (all_finite((loss, grads, fit)) and k2_nef and k2_fit):
             raise AssertionError(f"{name}: the nef step or the fit on the kernels is not finite or launched no K2")
+        # K2 is asked for weight gradients only where something reads them: the nef step's K inner steps
+        # (latent_grads_only) and the fit's K steps (the decoder frozen) take none, the outer backward through each
+        # inner step and the query decode take them.
+        K = cfg.meta.num_inner_steps
+        split = {wg: sum(v for k, v in nef_shapes.items() if k[-1] == wg) for wg in (False, True)}
+        fit_split = {wg: sum(v for k, v in (shapes - nef_shapes).items() if k[-1] == wg) for wg in (False, True)}
+        log(f"[phase 34] {name}: K2 launches without / with weight gradients: nef step {split[False]} / {split[True]} "
+            f"(K = {K} inner steps), fit {fit_split[False]} / {fit_split[True]}")
+        if split != {False: K, True: K + 1} or fit_split != {False: K, True: 0}:
+            raise AssertionError(f"{name}: K2's weight-gradient split {split} (nef step), {fit_split} (fit); want "
+                                 f"{K} / {K + 1} and {K} / 0")
         Z, M = cfg.nef.num_latents, cfg.training.max_num_sampled_points
         b_nef = cfg.dataset.batch_size * cfg.training.nef.fit_on_num_steps
         out = {"shapes": shapes, "Z": Z, "M": M, "b_nef": b_nef, "b_fit": cfg.dataset.batch_size}
@@ -2877,10 +2895,10 @@ def k2_bf16_check(cfg, args, g, wgs, label: str) -> dict:
         lay = k2_layout(args, H, D, cfg.nef.num_out, wg, BF16)
         log(f"[timing] K2 bf16 {mode}: {ms16:.4f} ms (f32 program {ms32:.4f} ms); plain bf16 {p_ms:.4f} ms; bound "
             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (the f32 program's 3xTF32 bound {bd['bound_ms']:.4f} "
-            f"ms); {ms16 / bound['bound_ms']:.1f}x its bound; {'the W128 design' if lay['w128'] else 'the class design'}, "
+            f"ms); {ms16 / bound['bound_ms']:.1f}x its bound; {lay['design']}, "
             f"{lay['smem']} B shared, {lay['per_sm']} blocks an SM, grid {lay['grid']}, {lay['ipb']} items a block, "
             f"scratch {lay['scratch'] / 1e6:.1f} MB")
-        out[wg] = dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=worst["max_abs_err"], **bound)
+        out[wg] = dict(ms=ms16, f32_ms=ms32, plain_ms=p_ms, max_abs_err=worst["max_abs_err"], design=lay["design"], **bound)
         torch.cuda.empty_cache()
     # dinv ... dc the same bits with and without weight gradients (the order of every sum does not depend on them):
     # the gated launches' outputs, and a launch in the mode ``wgs`` leaves out.
@@ -3096,14 +3114,14 @@ BF16_K2_SHAPES = (
     # One head at NS width: the class design at width class 64 (no YAML sets it; the W128 design takes two heads).
     ("navier_stokes", ("nef.num_heads=1",), NUM_SIGNALS * 10, 512, (False, True), "ode / dual step's shape"),
     ("shallow_water", (), 10, 2048, (False, True), "ode / dual step"),
-    ("diffusion_plane", ("nef.backend=pallas",), 32, 1024, (True,), "nef step"),
-    ("diffusion_plane", ("nef.backend=pallas",), 8, 1024, (True,), "fit"),
-    ("cahn_hilliard", ("nef.backend=pallas",), 24, 2048, (True,), "nef step"),
-    ("cahn_hilliard", ("nef.backend=pallas",), 8, 2048, (True,), "fit"),
-    ("diff_sphere", ("nef.backend=pallas",), 8, 2048, (True,), "nef step"),
-    ("diff_sphere", ("nef.backend=pallas",), 2, 2048, (True,), "fit"),
-    ("ihc", ("nef.backend=pallas",), 2, 2048, (True,), "nef step"),
-    ("ihc", ("nef.backend=pallas",), 1, 2048, (True,), "fit"),
+    ("diffusion_plane", ("nef.backend=pallas",), 32, 1024, (True, False), "nef step"),
+    ("diffusion_plane", ("nef.backend=pallas",), 8, 1024, (True, False), "fit"),
+    ("cahn_hilliard", ("nef.backend=pallas",), 24, 2048, (True, False), "nef step"),
+    ("cahn_hilliard", ("nef.backend=pallas",), 8, 2048, (True, False), "fit"),
+    ("diff_sphere", ("nef.backend=pallas",), 8, 2048, (True, False), "nef step"),
+    ("diff_sphere", ("nef.backend=pallas",), 2, 2048, (True, False), "fit"),
+    ("ihc", ("nef.backend=pallas",), 2, 2048, (True, False), "nef step"),
+    ("ihc", ("nef.backend=pallas",), 1, 2048, (True, False), "fit"),
 )
 
 
@@ -3239,7 +3257,7 @@ def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16) -> list:
             "replaces": "enf_pde_tpu/ops/pallas_decode.py:" + ("548" if kernel == "K1" else "635"),
             "launches": launches, "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"], "library_ms": None,
-            **({"f32_ms": nums["f32_ms"]} if bf else {})})
+            **({"f32_ms": nums["f32_ms"]} if bf else {}), **({"design": nums["design"]} if "design" in nums else {})})
 
     b_fc, b_ode = NUM_SIGNALS * NUM_FRAMES, NUM_SIGNALS * cfg.dataset.traj_len_train
     ns = f"navier_stokes z={Zn} c=512"

@@ -872,9 +872,12 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 inline long long weight_threads(const Dims& d) { return d.split_total; }
 inline long long out_floats(const Dims& d) { return d.l_w; }
 // No design of its own beside the width classes.
+inline long long work_floats(const Dims& d) { return d.split_total + (long long)d.grid * d.work; }
+inline long long part_floats(const Dims& d) { return (long long)d.grid * d.part; }
 inline bool own_design(const Dims&) { return false; }
-inline cudaError_t prepare_own(size_t, int*) { return cudaErrorNotSupported; }
-inline void launch_own(const Params&, int, size_t, cudaStream_t) {}
+inline cudaError_t prepare_own(Dims&, int*) { return cudaErrorNotSupported; }
+inline void own_plan(Dims&, int, int) {}
+inline cudaError_t launch_own(const Params&, cudaStream_t) { return cudaErrorNotSupported; }
 
 }  // namespace
 

@@ -21,19 +21,23 @@
 //     dp = bf16(<e, n16> + <dy, m_b2>) (the bias term no longer cancels);
 //   - the polynomial sin / cos of `_fast_sincos` and its derivative in the RFF VJP.
 // Partials stay f32 and are reduced in a fixed order: two launches give the same bits.
-// Two designs:
+// Three designs:
 //   - the W128 design (`fused_decode_bwd_w128`, below its own header): every launch at hid = hidm = D = 128
 //     with two heads (Navier-Stokes width: NS, shallow water, abs_pos, the rollout; `Dims::w128`):
 //     bf16 operands written once in wgmma's shared-memory layouts, every product from shared memory
 //     by descriptor, its columns split between the two warpgroups, its whole K in the accumulator,
 //     the LayerNorm VJPs in the epilogues. Shared memory (k2_smem_bytes mirrors it) W128_SMEM and
 //     1,024 B a latent: 211,968 B at NS (z = 4), 216,064 B at shallow water (z = 8); one block an SM;
-//   - the class design (every other shape): the f32 program's (fused_decode_bwd.cu, whose header
-//     states its passes, blocks, workspace and partials) with bf16 products: one bf16 wgmma
-//     m64nWNk16 a 16-deep chunk into a fresh accumulator, A's fragments loaded from f32 shared memory
-//     and rounded or split each chunk, B staged through registers, row passes over f32 shared memory;
-//     its shared memory the f32 program's with the staging at three quarters of its floats and two
-//     [64][H] rows. The narrow classes (8, 16, 32) and the class 64's other widths take it.
+//   - the narrow design (`narrow_logits` ... `narrow_query_vjp`, below their own header): every launch below the
+//     width class 64 (hid = hidm = D = 16, 32, 64: diff_sphere, ihc, the planar configs; `Dims::narrow`): the
+//     latents spread over the grid, a (batch row, latent, tile) item a block, kernels on the stream around the
+//     softmax over latents, bf16 operands in wgmma's shared-memory layouts, the LayerNorm VJPs in the epilogues;
+//   - the class design (the class 64's other shapes: one head at NS width, hid 192, past 24 latents at NS width):
+//     the f32 program's (fused_decode_bwd.cu, whose header states its passes, blocks, workspace and partials) with
+//     bf16 products: one bf16 wgmma m64n64k16 a 16-deep chunk into a fresh accumulator, A's fragments loaded from
+//     f32 shared memory and rounded or split each chunk, B staged through registers, row passes over f32 shared
+//     memory; its shared memory the f32 program's with the staging at three quarters of its floats and two [64][H]
+//     rows.
 // What bounds it: the products at the bf16 rate, 0.1282 / 0.1757 ms at NS 80 x 512 without / with
 // weight gradients (NVIDIA H100 80GB HBM3, 700 W). Measured (PERF.md §6, NVIDIA H100 80GB HBM3 at
 // 700.00 W; tools/k2_compare.py in one call): the class design at NS 6.28 / 9.05 ms, where its chunk loops
@@ -89,6 +93,16 @@ struct Dims {
   // shared weights, inside split_total), and the block's workspace pieces.
   int w128;
   long long g_off, x_e, x_u, x_q1, x_gq2, x_gq3, x_nbar, x_img;
+  // The narrow design (narrow_shape, narrow_plan): taken, its width hid = hidm = D, the coordinates padded to
+  // whole tiles; the per-latent kernels' items, plan and partials (smem and per_sm above are theirs), the tail's;
+  // the workspace: the weight images, G's, every latent's logits (then dp), softmax weights and nn, e and <dy,
+  // m_b2>, a tail block's pieces.
+  int narrow, nw, smem_t, per_sm_t, n_img;
+  long long cp, items_l, items_t;
+  int grid_l, ipb_l, grid_t, ipb_t;
+  long long lr_A, lr_ab, lr_G, lr_c, lr_row, lw_off[6], part_l, tw_off[20], part_t;
+  long long x_w[9], x_g, x_lg, x_p, x_dp, x_nn, x_ee, x_dyb, x_t, ws_total;
+  long long t_q1, t_g2, t_g3, t_img, t_nb, t_ws;
 };
 
 __host__ __device__ inline void weight_shapes(const Dims& d, int* rows, int* cols) {
@@ -101,25 +115,17 @@ __host__ __device__ inline void weight_shapes(const Dims& d, int* rows, int* col
   for (int i = 0; i < 20; ++i) { rows[i] = r[i]; cols[i] = c[i]; }
 }
 
-// Everything but the grid; false for shapes the kernel does not take.
-inline bool shape(const int* v, Dims& d) {
-  d.B = v[0]; d.Z = v[1]; d.C = v[2]; d.I = v[3]; d.hid = v[4]; d.H = v[5]; d.D = v[6];
-  d.hidm = v[7]; d.out = v[8]; d.tail = v[9] != 0; d.wgrad = v[10] != 0;
-  if (d.B <= 0 || d.Z <= 0 || d.C <= 0 || d.I <= 0 || d.I > MAX_I || d.H <= 0 || d.out <= 0) return false;
-  if (d.hid < 16 || d.hid % 16 || d.hidm < 16 || d.hidm % 16 || d.D < 16 || d.D % 16) return false;
-  d.HD = d.H * d.D; d.HH = d.H * d.hidm;
-  if (!d.tail && d.out != d.HD) return false;
-  if (d.hidm > MAX_SEG || d.HD > MAX_SEG || d.hid > MAX_SEG) return false;  // LayerNorm segments
-  d.wn = width_class(d.hid, d.hidm, d.D);
+inline bool narrow_shape(Dims& d);
+// The class design's and the W128 design's layout (the class 64); false for what they do not take.
+inline bool class_shape(Dims& d) {
   if (d.hid % d.wn || d.hidm % d.wn || d.D % d.wn) return false;
   int wide = d.HH > d.HD ? d.HH : d.HD;
   wide = wide > d.hid ? wide : d.hid;
   d.ldh = row_stride(d.hid);
   d.ldw = row_stride(wide);
   d.n_w2 = TILE * (d.ldw > 2 * d.ldh ? d.ldw : 2 * d.ldh);
-  // A third buffer copies the bf16 weights two chunks ahead. At the width class 64 (one
-  // block an SM) it is free; below it would cost the second block an SM (PERF.md §6).
-  for (d.stages = d.wn == 64 ? 3 : 2; d.stages >= 2; --d.stages) {
+  // A third buffer copies the bf16 weights two chunks ahead where it fits (one block an SM).
+  for (d.stages = 3; d.stages >= 2; --d.stages) {
     d.smem = 4LL * (stage_floats(d.wn, d.stages) + (long long)TILE * d.ldw + (long long)TILE * d.ldh + d.n_w2 +
                     2LL * d.Z * TILE * d.H + 2LL * TILE * d.H + (long long)TILE * d.I);
     if (d.smem <= SMEM_CAP) break;
@@ -176,6 +182,22 @@ inline bool shape(const int* v, Dims& d) {
     d.split_total += (long long)d.B * d.Z * W128_GBLK;
   }
 
+  return true;
+}
+
+// Everything but the grid; false for shapes the kernel does not take.
+inline bool shape(const int* v, Dims& d) {
+  d.B = v[0]; d.Z = v[1]; d.C = v[2]; d.I = v[3]; d.hid = v[4]; d.H = v[5]; d.D = v[6];
+  d.hidm = v[7]; d.out = v[8]; d.tail = v[9] != 0; d.wgrad = v[10] != 0;
+  if (d.B <= 0 || d.Z <= 0 || d.C <= 0 || d.I <= 0 || d.I > MAX_I || d.H <= 0 || d.out <= 0) return false;
+  if (d.hid < 16 || d.hid % 16 || d.hidm < 16 || d.hidm % 16 || d.D < 16 || d.D % 16) return false;
+  d.HD = d.H * d.D; d.HH = d.H * d.hidm;
+  if (!d.tail && d.out != d.HD) return false;
+  if (d.hidm > MAX_SEG || d.HD > MAX_SEG || d.hid > MAX_SEG) return false;  // LayerNorm segments
+  d.wn = width_class(d.hid, d.hidm, d.D);
+  d.narrow = d.wn < 64;  // the narrow classes take the narrow design (narrow_shape)
+  d.w128 = 0;
+  if (d.narrow ? !narrow_shape(d) : !class_shape(d)) return false;
   const long long Z = d.Z;
   d.l_A = Z * d.hid * d.H; d.l_ab = Z * d.H; d.l_G = Z * d.hid * d.HH; d.l_c = Z * d.HH;
   d.l_row = d.l_A + d.l_ab + d.l_G + d.l_c;
@@ -1956,6 +1978,1357 @@ __global__ void __launch_bounds__(THREADS, 1) fused_decode_bwd_w128(const __grid
   }
 }
 
+// ---- The narrow design: the width classes 8, 16, 32 (hid = hidm = D = 16, 32, 64) ------------------------------
+// Every bf16 launch below the width class 64 (diff_sphere, ihc, diffusion_plane, cahn_hilliard: the nef step's and
+// the fit's on `nef.backend: pallas`) takes it (`Dims::narrow`; `fd.k2_narrow_design`). The class design walked each
+// work item (batch row, tile) through every latent four times, one small product after another, on a grid of a few
+// dozen blocks at these shapes. Here the softmax over latents, the one coupling between them, splits the launch into
+// kernels on the stream, and the rest runs a (batch row, latent, 64-coordinate tile) item at a time:
+//   1. `narrow_logits`: a latent's query chain and its logits, into global memory;
+//   2. `narrow_values`: the softmax over latents (each item takes its own latent's weights from every latent's
+//      logits, in latent order) and a latent's value chain, nn = normalize(gelu(t G + c)) in bf16;
+//   3. `narrow_tail`, a (batch row, tile) an item: nbar = sum_z bf16(p_z) nn_z in latent order, the tail forward and
+//      its VJP, the mixer's VJP: e = dy m_w2^T and <dy, m_b2> into global memory;
+//   4. `narrow_value_vjp`: a latent's value chain again and its VJP: dp, dG, dc, dfw ... dv_b1, dinv;
+//   5. `narrow_query_vjp`: the softmax's VJP (every latent's p and dp, in latent order) and a latent's query chain
+//      again and its VJP: dA, dab, dwb, dq_w1, dq_b1, dinv added;
+//   then `narrow_reduce`: the partials summed in block order.
+// Every product is a bf16 wgmma with both operands in shared memory, read by descriptor: an activation stored in bf16
+// by the epilogue that makes it (64 rows, `a16_index`), an f32 cotangent in three bf16 planes (`store3`; the
+// products of terms i + j <= 2, the smallest first, in the accumulator), the shared weights and G in bf16 images
+// written once a launch (`narrow_prep`: K x N in `op_index`'s layout with K rows), read MN-major as the B of X W and
+// K-major as the B of dY W^T; a row contraction (dG and the weight gradients) reads both of its operands MN-major.
+// From W = 32 a block has two warpgroups, each half of every product's columns (m64n(W/2)k16; at W = 16 one
+// warpgroup, m64n16k16): both run the same products, so no wgmma sits on a path that differs between them. A row
+// of a product lies in one quad of each warpgroup: the LayerNorm-gelu passes and their VJPs, the logits and dp are
+// epilogues (two shuffles, then the two warpgroups' sums added through shared memory, `xsum`); the column sums (dc
+// and the bias gradients) are shuffles, then each warpgroup's four warps in order (`ncol_out`). The weights a
+// latent's chain reads stay resident for the block's life; a latent's G is copied in by cp.async at the item's
+// start; the tail's weights are streamed, two buffers, each copied while the product before it runs. Each product
+// waits for its group and ends with a block barrier, so no write of a buffer races a warp's product still reading
+// it (a warp's wait covers only its own part).
+// The per-latent kernels share one plan: persistent blocks, each a contiguous run of items ordered (b, z, tile), so
+// that a (b, z) row's partials (dA, dab, dG, dc) and the weight gradients are summed per block in item order and
+// across blocks in block order (`narrow_reduce`); the plan does not depend on whether weight gradients are asked
+// for, so dinv ... dc are the same bits either way. What passes between the kernels goes through the workspace
+// (`narrow_plan`): every latent's logits (later dp) and softmax weights, nn in bf16, e and <dy, m_b2>. Shared
+// memory (nl_layout, nt_layout; k2_smem_bytes / k2_narrow_layout mirror them), the per-latent kernels' and the
+// tail's: diffusion_plane and cahn_hilliard (W 64, H 2) 115,200 B and 219,648 B; ihc (W 32, H 3) 67,840 B and
+// 162,048 B; diff_sphere (W 16, H 2) 27,648 B and 54,272 B.
+constexpr int NWIDE = 32;      // from this width a block has two warpgroups, each half of every product's columns
+constexpr int NHD_MAX = 128;   // widest H D
+constexpr int NH_MAX = 8;      // most heads
+
+// A block's warpgroups at width W (the other widths: one, every product's columns), its threads, a warpgroup's
+// columns of a product W wide, and the blocks an SM __launch_bounds__ leaves registers for (at most 128 a thread;
+// 170 with one warpgroup).
+__host__ __device__ constexpr int nwg(int W) { return W >= NWIDE ? 2 : 1; }
+__host__ __device__ constexpr int nthreads(int W) { return 128 * nwg(W); }
+__host__ __device__ constexpr int ncols(int W) { return W / nwg(W); }
+__host__ __device__ constexpr int nminb(int W) { return nwg(W) == 2 ? 2 : 3; }
+constexpr int SM_BYTES = 233472;  // shared memory of an SM; 1,024 B of it kept back a block (the tail's plan)
+constexpr int NXS = 2 * 2 * TILE * 4 * 4;  // bytes of the row sums' exchange between the warpgroups: [2][2][64][4]
+
+__host__ __device__ inline int nmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int nround(int x, int m) { return (x + m - 1) / m * m; }
+
+// The per-latent kernels' shared memory, byte offsets: the resident weights w1 (q_w1 or v_w1) and w2 (fw), a
+// latent's G, the operands F, HV, T ([64][W] each), PL (dpre's three planes [64][H W]; later du's three
+// planes, dhv and dF in f32), the invariants, the softmax weights or dlog [64][H], the column sums' and the row
+// sums' exchanges.
+// A row contraction reads 64 columns of its A (F, HV or T) from where W of them start: past them it reads the
+// next buffer's bytes into the rows of its result that it drops.
+struct NarrowLatent {
+  int w1, w2, gb, f, hv, t, pl, inv, sp, cs, xs, total;
+};
+__host__ __device__ inline NarrowLatent nl_layout(int W, int H) {
+  NarrowLatent L;
+  const int HH = H * W;
+  L.w1 = 0;
+  L.w2 = L.w1 + W * W * 2;
+  L.gb = L.w2 + W * W * 2;
+  L.f = L.gb + W * HH * 2;
+  L.hv = L.f + TILE * W * 2;
+  L.t = L.hv + TILE * W * 2;
+  L.pl = L.t + TILE * W * 2;
+  L.inv = L.pl + nmax(3 * TILE * HH * 2, 3 * TILE * W * 2 + TILE * W * 2 + TILE * W * 4);
+  L.sp = L.inv + TILE * MAX_I * 4;
+  L.cs = L.sp + nround(TILE * H * 4, 16);
+  L.xs = L.cs + 4 * nmax(HH, W) * 4;
+  L.total = L.xs + NXS;
+  return L;
+}
+// The tail kernel's: two weight buffers, two buffers of three planes [64][H D] (PA: nbar, the cotangents; PB),
+// two activations X1, X2 [64][xc], the bf16 stage DT [64][H D] (dt1, then dy), psum [64][H], the column sums'
+// and the row sums' exchanges. xc rounds H D up to the 64 columns a row contraction reads of its A; its reads of the last head of
+// nbar (dm_w2's A) run on into PB, into rows of its result that it drops.
+struct NarrowTail {
+  int wb, pa, pb, pc, x1, x2, xc, dt, psum, cs, xs, total;
+};
+__host__ __device__ inline NarrowTail nt_layout(int W, int H) {
+  NarrowTail L;
+  const int HD = H * W;
+  const int wbytes = nmax(HD * HD, nmax(HD * W, W * W)) * 2;
+  L.pc = HD;
+  L.xc = nround(HD, 64);
+  L.wb = 0;
+  L.pa = L.wb + 2 * wbytes;
+  L.pb = L.pa + 3 * TILE * L.pc * 2;
+  L.x1 = L.pb + 3 * TILE * L.pc * 2;
+  L.x2 = L.x1 + TILE * L.xc * 2;
+  L.dt = L.x2 + TILE * L.xc * 2;
+  L.psum = L.dt + TILE * HD * 2;
+  L.cs = L.psum + nround(TILE * H * 4, 16);
+  L.xs = L.cs + 4 * nmax(HD, W) * 4;
+  L.total = L.xs + NXS;
+  return L;
+}
+
+// gelu of the tanh form, 0.5 x (1 + tanh(u)), u = sqrt(2 / pi) (x + 0.044715 x^3), as x s with s = sigmoid(2 u) =
+// 1 / (1 + exp(-2 u)) by __expf and a fast quotient (within a few ulp of tanhf's form, far below the bf16 rounding
+// the values meet; x -> -inf: s -> 0), and with it gelu'(x) = s + 2 x s (1 - s) u'(x).
+__device__ __forceinline__ float nsig(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-1.5957691216057308f * (x + 0.044715f * x * x * x)));
+}
+__device__ __forceinline__ float ngelu(float x) { return x * nsig(x); }
+__device__ __forceinline__ float2 ngelu2(float x) {
+  const float sg = nsig(x);
+  return make_float2(x * sg, fmaf(2.0f * x * sg * (1.0f - sg), 0.7978845608028654f * (1.0f + 0.134145f * x * x), sg));
+}
+
+// Element (r, c) of an R-row bf16 operand (R a multiple of 8): core matrices of 8 rows x 8 columns (128 bytes),
+// the row groups of a column group 128 bytes apart, the column groups R 16 bytes apart (R = 64: a16_index). Read
+// K-major (its rows are a product's M or N, its columns K): LBO R 16, SBO 128; MN-major (its rows are K): LBO
+// 128, SBO R 16.
+__host__ __device__ inline int op_index(int r, int c, int R) { return (((c >> 3) * (R >> 3) + (r >> 3)) << 6) + ((r & 7) << 3) + (c & 7); }
+__device__ __forceinline__ uint64_t kdesc(const bf16* p, int R) { return smem_desc(p, R * 16, 128); }
+__device__ __forceinline__ uint64_t mdesc(const bf16* p, int R) { return smem_desc(p, 128, R * 16); }
+
+// D (64 x N f32, this thread's N / 2 values in the fragment order of K1's products) (+)= A (64 x 16) x B (16 x N), bf16 in
+// shared memory; TA / TB: read MN-major.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_t(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 64) {
+    wgmma_ss<TA, TB>(d, adesc, bdesc, accumulate);
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate), "n"(TA), "n"(TB));
+  } else if constexpr (N == 8) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, %7, %8;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(adesc), "l"(bdesc), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+}
+
+// acc (this thread's N / 2 values of its warpgroup's 64 x N part of a product 2N wide) = sum over nks k steps of
+// A x B, the products of A's and B's bf16 terms i + j <= 2 (AP / BP planes `aps` / `bps` elements apart), the
+// smallest first, in the accumulator. A's k step ks at a + ks astep (an R = ra-row operand, MN-major with TA), B's
+// likewise, from the first column of the product: warpgroup wg reads columns wg N .. of B (its rows, R = rb, MN-major;
+// its rows 8 apart, K-major). Every thread calls it, both warpgroups the same products: it starts with the writers'
+// fence and a block barrier (the operands are written) and ends with the product complete in every warp and a block
+// barrier (any buffer may be written).
+template <int N, int TA, int TB, int AP, int BP>
+__device__ __forceinline__ void nmma(float (&acc)[N / 2], const bf16* a, int ra, int astep, int aps, const bf16* b,
+                                     int rb, int bstep, int bps, int nks) {
+  constexpr int S = AP + BP - 2 < 2 ? AP + BP - 2 : 2;
+  b += (threadIdx.x >> 7) * N * (TB ? rb : 8);
+  fence_async_smem();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  wg_fence_operands<N / 2>(acc);
+  wg_fence();
+  for (int ks = 0; ks < nks; ++ks) {
+#pragma unroll
+    for (int s = S; s >= 0; --s)
+#pragma unroll
+      for (int i = AP - 1; i >= 0; --i) {
+        const int j = s - i;
+        if (j < 0 || j >= BP) continue;
+        const bf16* pa = a + i * aps + ks * astep;
+        const bf16* pb = b + j * bps + ks * bstep;
+        wgmma_t<N, TA, TB>(acc, TA ? mdesc(pa, ra) : kdesc(pa, ra), TB ? mdesc(pb, rb) : kdesc(pb, rb), 1);
+      }
+  }
+  wg_commit();
+  wg_wait0();
+  wg_fence_operands<N / 2>(acc);
+  __syncthreads();
+}
+
+// This thread's part of its warpgroup's 64 x N part of a product (columns cb = wg N ..): element i, its row r =
+// r0 + 8 hr (r0 = 16 warp + g, the warp's rank in its warpgroup) and its column col = cb + 8 j + 2 tq + e of the
+// product; N_PAIRS visits the pairs (col, col + 1) at i, i + 1. Loops unrolled into constant register indices.
+#define N_FRAG(N) \
+  const int tq = threadIdx.x & 3, r0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2), cb = (threadIdx.x >> 7) * (N)
+#define N_PAIRS(NJ, ...)                                                                    \
+  _Pragma("unroll") for (int j_ = 0; j_ < (NJ); ++j_)                                        \
+    _Pragma("unroll") for (int hr = 0; hr < 2; ++hr) {                                       \
+      const int i = 4 * j_ + 2 * hr, col = cb + 8 * j_ + 2 * tq, r = r0 + 8 * hr;             \
+      __VA_ARGS__                                                                            \
+    }
+
+// Sums over a row of a product whose columns the two warpgroups split: this thread's two rows' values summed over
+// its quad, then the warpgroups' sums added through xs (a block barrier), the first warpgroup's first: the same bits
+// in both. xs alternates between two halves (`par`), so that a warpgroup ahead writes the next sums into the half
+// nobody still reads.
+template <int NV>
+__device__ __forceinline__ void xsum(float (&v)[2][NV], float* xs, int& par) {
+  const int tq = threadIdx.x & 3, r0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2), wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 1);
+      v[h][k] += __shfl_xor_sync(0xffffffffu, v[h][k], 2);
+    }
+  if (blockDim.x == 128) return;  // one warpgroup: the row is whole in the quad
+  float* buf = xs + par * (2 * TILE * 4);
+  par ^= 1;
+  if (tq == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < NV; ++k) buf[(wg * TILE + r0 + 8 * h) * 4 + k] = v[h][k];
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[h][k] = buf[(r0 + 8 * h) * 4 + k] + buf[(TILE + r0 + 8 * h) * 4 + k];
+}
+// mean and 1 / sqrt(var + eps) of `width` values from their sum and sum of squares (var = E[x^2] - E[x]^2).
+__device__ __forceinline__ void moments(float s, float ss, int width, float& mean, float& rs) {
+  mean = s / width;
+  rs = 1.0f / sqrtf(ss / width - mean * mean + LN_EPS);
+}
+
+// The column sums over the 64 rows of a slab 2N wide that an epilogue makes: cv[2 j + e] this thread's two rows' sum
+// in column cb + 8 j + 2 tq + e (its warpgroup's N columns from cb = wg N); summed over the warp's rows by shuffles,
+// then over its warpgroup's four warps in order through cs ([2][4][N]); dst[n] (+)= the sum (first: store), n < 2N.
+// Every thread calls it (two block barriers).
+template <int N>
+__device__ __forceinline__ void ncol_out(float (&cv)[N / 4], float* cs, float* dst, bool first) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    float v = cv[k];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    cv[k] = v;
+  }
+  __syncthreads();  // the last readers of cs are done
+  if (lane < 4)
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) cs[(wg * 4 + warp) * N + 8 * (k >> 1) + 2 * lane + (k & 1)] = cv[k];
+  __syncthreads();
+  for (int i = threadIdx.x; i < (int)(blockDim.x >> 7) * N; i += blockDim.x) {
+    const float* c = cs + (i / N) * 3 * N + i;  // warpgroup i / N's four warps at column i % N
+    const float v = ((c[0] + c[N]) + c[2 * N]) + c[3 * N];
+    dst[i] = first ? v : dst[i] + v;
+  }
+}
+#define N_COL_ADD(cv, v0, v1) \
+  {                           \
+    (cv)[2 * j_] += (v0);     \
+    (cv)[2 * j_ + 1] += (v1); \
+  }
+
+// A row contraction into a block-private partial: dst[(m0 + m) ld + n0 + n] (+)= sum over the 64 rows t of
+// X[t][m0 + m] Y[t][n0 + n] for m < M - m0 (one m64 tile of X's columns), n < 2N (warpgroup wg's N columns from
+// wg N); X in XP planes (64-row operands `xs` elements apart), Y in YP planes (`ys`), both read MN-major. The old
+// values are loaded before they are stored, two columns a load (dst + ld and n0 on 8 bytes).
+template <int N, int XP, int YP>
+__device__ __forceinline__ void nrows_part(const bf16* X, int xs, int m0, int M, const bf16* Y, int ys, int n0,
+                                           float* dst, int ld, bool first) {
+  N_FRAG(N);
+  float acc[N / 2];
+  nmma<N, 1, 1, XP, YP>(acc, X + m0 * 64, 64, 128, xs, Y + n0 * 64, 64, 128, ys, 4);
+  float2 old[N / 4];
+  N_PAIRS(N / 8, {
+    const int k = 2 * j_ + hr;
+    old[k] = make_float2(0.0f, 0.0f);
+    if (!first && m0 + r < M) old[k] = *reinterpret_cast<const float2*>(dst + (size_t)(m0 + r) * ld + n0 + col);
+  })
+  N_PAIRS(N / 8, {
+    const int k = 2 * j_ + hr;
+    if (m0 + r < M)
+      *reinterpret_cast<float2*>(dst + (size_t)(m0 + r) * ld + n0 + col) = make_float2(old[k].x + acc[i], old[k].y + acc[i + 1]);
+  })
+}
+
+// s_inv[t I + i] = inv[(c0 + t) I + i] of a latent's tile, zero past the last coordinate.
+__device__ __forceinline__ void nload_inv(float* s_inv, const float* src, int rows, int I) {
+  for (int idx = threadIdx.x; idx < TILE * I; idx += blockDim.x) s_inv[idx] = idx / I < rows ? src[idx] : 0.0f;
+}
+// F = [sin | cos](2 pi s_inv coeff) (fast_sincos) of the tile's 64 rows, W / 2 projections a row, in bf16.
+__device__ __forceinline__ void nfeatures(const float* s_inv, int I, const float* __restrict__ coeff, int W, bf16* F) {
+  const int half = W / 2, pairs = half / 2;
+  for (int u = threadIdx.x; u < TILE * pairs; u += blockDim.x) {
+    const int t = u / pairs, j = 2 * (u - t * pairs);
+    float p0 = 0.0f, p1 = 0.0f;
+    for (int k = 0; k < I; ++k) {
+      const float xi = s_inv[t * I + k];
+      p0 = fmaf(xi, __ldg(coeff + k * half + j), p0);
+      p1 = fmaf(xi, __ldg(coeff + k * half + j + 1), p1);
+    }
+    float s0, k0, s1, k1;
+    fast_sincos(p0, &s0, &k0);
+    fast_sincos(p1, &s1, &k1);
+    store2(F, t, j, s0, s1);
+    store2(F, t, half + j, k0, k1);
+  }
+}
+// dinv[t, i] (+)= sum_j (sin'_j dF[t, j] + cos'_j dF[t, half + j]) coeff[i, j] for t < rows (dF f32 [64][W]), the
+// derivatives of fast_sincos's polynomials recomputed: a lane a projection j (half = W / 2 of them), a row's sums over
+// its lanes by shuffles (rff_vjp's sums: the shuffles it adds past half lanes add zeros). Below half = 32 a warp takes
+// 32 / half rows at once and interleaves the I sums (at hid 16 the RFF VJP's time fell by about half, PERF.md §6);
+// at half = 32, a row a warp, a sum after another (interleaved they took longer there).
+template <int W>
+__device__ __forceinline__ void nrff_vjp(const float* s_inv, int I, const float* __restrict__ coeff, const float* dF,
+                                         float* dinv, int rows, bool add) {
+  constexpr int half = W / 2, per = 32 / half;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, j = lane % half;
+  for (int t = warp * per + lane / half; t < TILE; t += (blockDim.x / 32) * per) {
+    float proj = 0.0f;
+    for (int i = 0; i < I; ++i) proj = fmaf(s_inv[t * I + i], __ldg(coeff + i * half + j), proj);
+    float s, co, ds, dc;
+    fast_sincos(proj, &s, &co, &ds, &dc);
+    const float dproj = ds * dF[t * W + j] + dc * dF[t * W + half + j];
+    if constexpr (per == 1) {
+#pragma unroll
+      for (int i = 0; i < MAX_I; ++i) {
+        if (i >= I) break;
+        const float sum = warp_sum(dproj * __ldg(coeff + i * half + j));
+        if (lane == 0 && t < rows) dinv[t * I + i] = add ? dinv[t * I + i] + sum : sum;
+      }
+    } else {
+      float acc[MAX_I];
+#pragma unroll
+      for (int i = 0; i < MAX_I; ++i) acc[i] = i < I ? dproj * __ldg(coeff + i * half + j) : 0.0f;
+#pragma unroll
+      for (int o = half / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < MAX_I; ++i)
+          if (i < I) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+      if (j == 0 && t < rows)
+#pragma unroll
+        for (int i = 0; i < MAX_I; ++i)
+          if (i < I) dinv[t * I + i] = add ? dinv[t * I + i] + acc[i] : acc[i];
+    }
+  }
+}
+// `floats` floats from global memory into shared memory by 16-byte cp.async, one group (not waited for).
+__device__ __forceinline__ void ncopy(void* dst, const float* src, int floats) {
+  float* d = reinterpret_cast<float*>(dst);
+  for (int i = 4 * threadIdx.x; i < floats; i += 4 * blockDim.x) cp_async16(d + i, src + i);
+  cp_async_commit();
+}
+
+// The weight images (`narrow_prep`): q_w1, v_w1, fw, m_w2, o_w, p_w1, p_w2, h_w1, h_w2, each K x N in op_index's
+// layout with its K rows, at x_w[j] floats of the workspace.
+enum { NI_Q = 0, NI_V, NI_F, NI_M, NI_O, NI_P1, NI_P2, NI_H1, NI_H2 };
+__host__ __device__ inline void narrow_image_shape(const Dims& d, int j, int& K, int& N) {
+  const int W = d.nw, HD = d.HD;
+  const int k[9] = {W, W, W, W, HD, HD, HD, HD, W}, n[9] = {W, W, W, W, HD, HD, HD, W, W};
+  K = k[j];
+  N = n[j];
+}
+
+// Pass 0: the weight images and G [b, z] (K = hid rows, N = H hidm) in bf16, rounded to nearest.
+__global__ void narrow_prep(const Params P) {
+  const Dims& d = P.d;
+  const float* src[9] = {P.q_w1, P.v_w1, P.fw, P.m_w2, P.o_w, P.p_w1, P.p_w2, P.h_w1, P.h_w2};
+  bf16* out = reinterpret_cast<bf16*>(P.work);
+  const int W = d.nw, HH = d.HH;
+  const long long nimg = 2 * d.x_g, total = nimg + (long long)d.B * d.Z * W * HH;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    int R, N, j = 0;
+    const float* s;
+    long long e;
+    if (idx < nimg) {  // image j, the last whose start is at most idx
+      for (int jj = 1; jj < d.n_img; ++jj)
+        if (2 * d.x_w[jj] <= idx) j = jj;
+      e = idx - 2 * d.x_w[j];
+      narrow_image_shape(d, j, R, N);
+      s = src[j];
+    } else {
+      const long long g = idx - nimg, per = (long long)W * HH;
+      R = W;
+      N = HH;
+      s = P.G + (g / per) * per;
+      e = g % per;
+    }
+    const int r = (int)(e / N), c = (int)(e % N);  // element e of the source, row-major: where the image holds it
+    out[(idx < nimg ? 2 * d.x_w[j] : 2 * d.x_g + (idx - nimg - e)) + op_index(r, c, R)] = __float2bfloat16_rn(s[e]);
+  }
+}
+
+// An item (b z, tile) of the per-latent kernels' plan: its row b z, batch row, tile, first coordinate and rows.
+struct NItem {
+  long long bz;
+  int b, c0, rows, tile;
+};
+__device__ __forceinline__ NItem nitem(const Dims& d, long long item) {
+  NItem it;
+  it.bz = item / d.nt;
+  it.tile = (int)(item % d.nt);
+  it.b = (int)(it.bz / d.Z);
+  it.c0 = it.tile * TILE;
+  it.rows = min(TILE, d.C - it.c0);
+  return it;
+}
+__device__ __forceinline__ float* wimg(const Params& P, int j) { return P.work + P.d.x_w[j]; }
+
+// hq = relu(F q_w1 + q_b1) (or hv with v_w1, v_b1): the first layer of a latent's chain from its features.
+template <int W>
+__device__ __forceinline__ void nfirst(float (&acc)[ncols(W) / 2], const bf16* F, const bf16* Wt, const float* __restrict__ bias) {
+  N_FRAG(ncols(W));
+  nmma<ncols(W), 0, 1, 1, 1>(acc, F, 64, 1024, 0, Wt, W, 128, 0, W / 16);
+  N_PAIRS(ncols(W) / 8, {
+    acc[i] = fmaxf(acc[i] + __ldg(bias + col), 0.0f);
+    acc[i + 1] = fmaxf(acc[i + 1] + __ldg(bias + col + 1), 0.0f);
+  })
+  (void)r0;
+}
+
+// 1. A latent's logits: hq . A[b, z] + ab + wb (A and hq rounded to bf16) into LG [b z][C padded][H], every row of
+// the tile (the padded ones from zero invariants).
+template <int W>
+__global__ void __launch_bounds__(nthreads(W), nminb(W)) narrow_logits(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& d = P.d;
+  const NarrowLatent L = nl_layout(W, d.H);
+  char* base = reinterpret_cast<char*>(smem);
+  bf16 *Wq = reinterpret_cast<bf16*>(base + L.w1), *F = reinterpret_cast<bf16*>(base + L.f);
+  float *s_inv = reinterpret_cast<float*>(base + L.inv), *xs = reinterpret_cast<float*>(base + L.xs);
+  float* LG = P.work + d.x_lg;
+  const int H = d.H;
+  int par = 0;
+  N_FRAG(ncols(W));
+  ncopy(Wq, wimg(P, NI_Q), W * W / 2);
+  const long long lo = (long long)blockIdx.x * d.ipb_l, hi = min(lo + d.ipb_l, d.items_l);
+  for (long long item = lo; item < hi; ++item) {
+    const NItem it = nitem(d, item);
+    nload_inv(s_inv, P.inv + (it.bz * d.C + it.c0) * d.I, it.rows, d.I);
+    __syncthreads();
+    nfeatures(s_inv, d.I, P.q_coeff, W, F);
+    cp_async_wait<0>();
+    float acc[ncols(W) / 2];
+    nfirst<W>(acc, F, Wq, P.q_b1);
+    const float* Az = P.A + it.bz * W * H;
+    for (int h = 0; h < H; ++h) {
+      float lg[2][1] = {{0.0f}, {0.0f}};
+      N_PAIRS(ncols(W) / 8, {
+        lg[hr][0] = fmaf(bf16_round(acc[i]), bf16_round(__ldg(Az + (col) * H + h)), lg[hr][0]);
+        lg[hr][0] = fmaf(bf16_round(acc[i + 1]), bf16_round(__ldg(Az + (col + 1) * H + h)), lg[hr][0]);
+      })
+      xsum<1>(lg, xs, par);
+      if (tq == 0 && cb == 0)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = r0 + 8 * hr;
+          const float w = r < it.rows ? __ldg(P.wb + it.bz * d.C + it.c0 + r) : 0.0f;
+          LG[(it.bz * d.cp + it.c0 + r) * H + h] = lg[hr][0] + __ldg(P.ab + it.bz * H + h) + w;
+        }
+    }
+  }
+}
+
+// u = hv fw + fb from HV: the value chain's second layer.
+template <int W>
+__device__ __forceinline__ void nsecond(float (&acc)[ncols(W) / 2], const Params& P, const bf16* HV, const bf16* Wf) {
+  N_FRAG(ncols(W));
+  nmma<ncols(W), 0, 1, 1, 1>(acc, HV, 64, 1024, 0, Wf, W, 128, 0, W / 16);
+  N_PAIRS(ncols(W) / 8, {
+    acc[i] += __ldg(P.fb + col);
+    acc[i + 1] += __ldg(P.fb + col + 1);
+  })
+  (void)r0;
+}
+// The value chain of a latent up to G's product: hv = relu(F v_w1 + v_b1) into HV, u = hv fw + fb, t =
+// normalize(gelu(u)) into T.
+template <int W>
+__device__ __forceinline__ void nvalue_chain(const Params& P, const bf16* F, const bf16* Wv, const bf16* Wf, bf16* HV,
+                                             bf16* T, float* xs, int& par) {
+  N_FRAG(ncols(W));
+  float acc[ncols(W) / 2];
+  nfirst<W>(acc, F, Wv, P.v_b1);
+  N_PAIRS(ncols(W) / 8, store2(HV, r, col, acc[i], acc[i + 1]);)
+  nsecond<W>(acc, P, HV, Wf);
+  float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  N_PAIRS(ncols(W) / 8, {
+    const float x0 = ngelu(acc[i]), x1 = ngelu(acc[i + 1]);
+    acc[i] = x0;
+    acc[i + 1] = x1;
+    v[hr][0] += x0 + x1;
+    v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+  })
+  xsum<2>(v, xs, par);
+  float mean[2], rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) moments(v[h][0], v[h][1], W, mean[h], rs[h]);
+  N_PAIRS(ncols(W) / 8, store2(T, r, col, (acc[i] - mean[hr]) * rs[hr], (acc[i + 1] - mean[hr]) * rs[hr]);)
+}
+
+// 2. The softmax over latents of the tile's rows (every latent's logits, in latent order; this item's weights into
+// Pz [b z][C padded][H]), then the latent's value chain: nn = normalize(gelu(t G[b, z] + c)) a head, in bf16, into
+// NN [b z][C padded][H hidm].
+template <int W>
+__global__ void __launch_bounds__(nthreads(W), nminb(W)) narrow_values(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& d = P.d;
+  const int H = d.H, Z = d.Z, HH = d.HH;
+  const NarrowLatent L = nl_layout(W, H);
+  char* base = reinterpret_cast<char*>(smem);
+  bf16 *Wv = reinterpret_cast<bf16*>(base + L.w1), *Wf = reinterpret_cast<bf16*>(base + L.w2);
+  bf16 *GB = reinterpret_cast<bf16*>(base + L.gb), *F = reinterpret_cast<bf16*>(base + L.f);
+  bf16 *HV = reinterpret_cast<bf16*>(base + L.hv), *T = reinterpret_cast<bf16*>(base + L.t);
+  float *s_inv = reinterpret_cast<float*>(base + L.inv), *xs = reinterpret_cast<float*>(base + L.xs);
+  const float *LG = P.work + d.x_lg;
+  float* Pz = P.work + d.x_p;
+  __nv_bfloat162* NN = reinterpret_cast<__nv_bfloat162*>(P.work + d.x_nn);
+  int par = 0;
+  N_FRAG(ncols(W));
+  ncopy(Wv, wimg(P, NI_V), W * W / 2);
+  ncopy(Wf, wimg(P, NI_F), W * W / 2);
+  const long long lo = (long long)blockIdx.x * d.ipb_l, hi = min(lo + d.ipb_l, d.items_l);
+  for (long long item = lo; item < hi; ++item) {
+    const NItem it = nitem(d, item);
+    ncopy(GB, P.work + d.x_g + it.bz * W * HH / 2, W * HH / 2);
+    const long long row0 = (long long)it.b * Z * d.cp + it.c0;  // latent 0's first row of the tile
+    for (int idx = threadIdx.x; idx < TILE * H; idx += blockDim.x) {
+      const int r = idx / H, h = idx - r * H;
+      float m = -INFINITY;
+#pragma unroll 8
+      for (int z = 0; z < Z; ++z) m = fmaxf(m, LG[(row0 + (long long)z * d.cp + r) * H + h]);
+      float sum = 0.0f;
+#pragma unroll 8
+      for (int z = 0; z < Z; ++z) sum += expf(LG[(row0 + (long long)z * d.cp + r) * H + h] - m);
+      Pz[(it.bz * d.cp + it.c0 + r) * H + h] = expf(LG[(it.bz * d.cp + it.c0 + r) * H + h] - m) / sum;
+    }
+    nload_inv(s_inv, P.inv + (it.bz * d.C + it.c0) * d.I, it.rows, d.I);
+    __syncthreads();
+    nfeatures(s_inv, d.I, P.v_coeff, W, F);
+    cp_async_wait<0>();
+    nvalue_chain<W>(P, F, Wv, Wf, HV, T, xs, par);
+    for (int h = 0; h < H; ++h) {
+      float acc[ncols(W) / 2];
+      nmma<ncols(W), 0, 1, 1, 1>(acc, T, 64, 1024, 0, GB + h * W * W, W, 128, 0, W / 16);
+      float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+      const float* cz = P.c + it.bz * HH + h * W;
+      N_PAIRS(ncols(W) / 8, {
+        const float x0 = ngelu(acc[i] + __ldg(cz + col)), x1 = ngelu(acc[i + 1] + __ldg(cz + col + 1));
+        acc[i] = x0;
+        acc[i + 1] = x1;
+        v[hr][0] += x0 + x1;
+        v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+      })
+      xsum<2>(v, xs, par);
+      float mean[2], rs[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) moments(v[k][0], v[k][1], W, mean[k], rs[k]);
+      N_PAIRS(ncols(W) / 8, {
+        NN[((it.bz * d.cp + it.c0 + r) * HH + h * W + col) / 2] =
+            __floats2bfloat162_rn((acc[i] - mean[hr]) * rs[hr], (acc[i + 1] - mean[hr]) * rs[hr]);
+      })
+    }
+  }
+}
+
+// 3. A (b, tile) item: psum = sum_z bf16(p_z) and nbar = sum_z bf16(p_z) nn_z (latent order; three planes), the
+// tail forward (y = nbar m_w2 + psum m_b2 a head, y1, t1 = normalize(gelu(q1)) over H D, y2 = gelu(q2), h1 =
+// gelu(q3), h2 = gelu(q4)) and its VJP from g (every input gradient dX = bf16(dY W^T), each cotangent in three
+// planes; q1, gelu'(q2), gelu'(q3) in the block's workspace, read back by the thread that wrote them), with weight
+// gradients each row contraction after its cotangent (the activation's image copied back from the workspace into
+// X2) and the bias sums in the cotangents' epilogues; then the mixer's VJP: <dy_h, m_b2> into DYB [b][C padded][H],
+// dm_b2 and dm_w2 a head (nbar's planes copied back), e_h = dy_h m_w2^T (f32) into E [b][C padded][H hidm]. The
+// weights are streamed through two buffers in the order the products read them (`seq`), each copied while the
+// product before it runs.
+template <int W, bool TAIL>
+__global__ void __launch_bounds__(nthreads(W), nminb(W)) narrow_tail(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& d = P.d;
+  const int H = d.H, Z = d.Z, HH = d.HH, HD = d.HD, od = d.out;
+  const NarrowTail L = nt_layout(W, H);
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* WB[2] = {reinterpret_cast<bf16*>(base + L.wb), reinterpret_cast<bf16*>(base + L.wb + (L.pa - L.wb) / 2)};
+  bf16 *PA = reinterpret_cast<bf16*>(base + L.pa), *PB = reinterpret_cast<bf16*>(base + L.pb);
+  bf16 *X1 = reinterpret_cast<bf16*>(base + L.x1), *X2 = reinterpret_cast<bf16*>(base + L.x2);
+  bf16* DT = reinterpret_cast<bf16*>(base + L.dt);
+  float *psum = reinterpret_cast<float*>(base + L.psum), *cs = reinterpret_cast<float*>(base + L.cs);
+  float* xs = reinterpret_cast<float*>(base + L.xs);
+  int par = 0;
+  const int PS = TILE * L.pc;          // elements between the planes of PA / PB
+  const int XE = TILE * L.xc / 2;      // floats of an activation's image
+  float* ws = P.work + d.x_t + (size_t)blockIdx.x * d.t_ws;
+  float *Q1 = ws + d.t_q1, *G2 = ws + d.t_g2, *G3 = ws + d.t_g3;
+  auto img = [&](int k) { return ws + d.t_img + (size_t)k * XE; };  // y, y1, t1, y2
+  float* nbimg = ws + d.t_nb;
+  const float *Pz = P.work + d.x_p;
+  const __nv_bfloat162* NN = reinterpret_cast<const __nv_bfloat162*>(P.work + d.x_nn);
+  float *E = P.work + d.x_ee, *DYB = P.work + d.x_dyb;
+  float* pw = P.part + (size_t)d.grid_l * d.part_l + (size_t)blockIdx.x * d.part_t;
+  const bool wgr = d.wgrad;
+  constexpr bool tail = TAIL;  // a constant: no product on a branch ptxas cannot prove uniform (it would serialize
+                               // their wgmma, C7520)
+  N_FRAG(ncols(W));
+  // The weights in the order the products read them: forward m_w2, o_w, p_w1, p_w2, h_w1, h_w2, then the VJP's
+  // h_w2 ... m_w2; m_w2 alone without the tail.
+  const int seq[12] = {NI_M, NI_O, NI_P1, NI_P2, NI_H1, NI_H2, NI_H2, NI_H1, NI_P2, NI_P1, NI_O, NI_M};
+  const int nseq = tail ? 12 : 1;
+  auto wcopy = [&](int k) {  // weight k of seq into buffer k % 2 (an empty group past the end)
+    if (k < nseq) {
+      int K, N;
+      narrow_image_shape(d, seq[k], K, N);
+      float* dst = reinterpret_cast<float*>(WB[k & 1]);
+      const float* src = wimg(P, seq[k]);
+      for (int i = 4 * threadIdx.x; i < K * N / 2; i += 4 * blockDim.x) cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+  auto wready = [&]() { cp_async_wait<1>(); };  // this thread's copies of all but the newest group have landed
+  auto reload = [&](bf16* dst, const float* src, int floats) {  // an image back into shared memory, landed
+    ncopy(dst, src, floats);
+    cp_async_wait<0>();
+  };
+  constexpr int NJ = ncols(W) / 8;
+  const long long lo = (long long)blockIdx.x * d.ipb_t, hi = min(lo + d.ipb_t, d.items_t);
+  for (long long item = lo; item < hi; ++item) {
+    const int b = (int)(item / d.nt), c0 = (int)(item % d.nt) * TILE, rows = min(TILE, d.C - c0);
+    const bool first = item == lo;
+    const long long row0 = (long long)b * Z * d.cp + c0;  // latent 0's first row of the tile
+    const float* gsrc = P.g + ((size_t)b * d.C + c0) * od;
+    wcopy(0);
+    wcopy(1);
+    // psum and nbar's three planes in PA (and their image with weight gradients).
+    for (int idx = threadIdx.x; idx < TILE * H; idx += blockDim.x) {
+      const int rr = idx / H, h = idx - rr * H;
+      float s = 0.0f;
+#pragma unroll 8
+      for (int z = 0; z < Z; ++z) s += bf16_round(Pz[(row0 + (long long)z * d.cp + rr) * H + h]);
+      psum[idx] = s;
+    }
+    constexpr int NB = 4;  // pairs of nbar a thread sums at once, every latent's loads of them in flight together
+    for (int i0 = threadIdx.x; i0 < TILE * HH / 2; i0 += NB * blockDim.x) {
+      float v[NB][2];
+      int rr[NB], hh[NB];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        const int idx = min(i0 + k * (int)blockDim.x, TILE * HH / 2 - 1);
+        rr[k] = idx / (HH / 2);
+        hh[k] = 2 * (idx - rr[k] * (HH / 2));
+      }
+#pragma unroll 2
+      for (int z = 0; z < Z; ++z) {
+        float p[NB];
+        float2 nn[NB];
+        const long long rz = row0 + (long long)z * d.cp;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          p[k] = Pz[(rz + rr[k]) * H + hh[k] / W];
+          nn[k] = __bfloat1622float2(NN[((rz + rr[k]) * HH + hh[k]) / 2]);
+        }
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          const float q = bf16_round(p[k]);
+          v[k][0] = z ? v[k][0] + q * nn[k].x : q * nn[k].x;
+          v[k][1] = z ? v[k][1] + q * nn[k].y : q * nn[k].y;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        if (i0 + k * (int)blockDim.x >= TILE * HH / 2) break;
+        store3(PA, PS, rr[k], hh[k], v[k][0], v[k][1]);
+        if (wgr) store3(reinterpret_cast<bf16*>(nbimg), PS, rr[k], hh[k], v[k][0], v[k][1]);
+      }
+    }
+    const bf16* DY;  // dy: one plane in DT (the tail's), or three in PB (g)
+    int dyp;
+    float acc[ncols(W) / 2];
+    if (tail) {
+      wready();  // m_w2
+      for (int h = 0; h < H; ++h) {  // y = nbar m_w2 + psum m_b2 a head, into X1
+        nmma<ncols(W), 0, 1, 3, 1>(acc, PA + h * W * 64, 64, 1024, PS, WB[0], W, 128, 0, W / 16);
+        const float q[2] = {psum[r0 * H + h], psum[(r0 + 8) * H + h]};
+        N_PAIRS(NJ, {
+          const float y0 = fmaf(q[hr], __ldg(P.m_b2 + col), acc[i]), y1 = fmaf(q[hr], __ldg(P.m_b2 + col + 1), acc[i + 1]);
+          store2(X1, r, h * W + col, y0, y1);
+          if (wgr) store2(reinterpret_cast<bf16*>(img(0)), r, h * W + col, y0, y1);
+        })
+      }
+      wcopy(2);
+      wready();  // o_w
+      for (int s = 0; s < H; ++s) {  // y1 = y o_w + o_b, into X2
+        nmma<ncols(W), 0, 1, 1, 1>(acc, X1, 64, 1024, 0, WB[1] + s * W * HD, HD, 128, 0, HD / 16);
+        N_PAIRS(NJ, {
+          const int n = s * W + col;
+          const float a0 = acc[i] + __ldg(P.o_b + n), a1 = acc[i + 1] + __ldg(P.o_b + n + 1);
+          store2(X2, r, n, a0, a1);
+          if (wgr) store2(reinterpret_cast<bf16*>(img(1)), r, n, a0, a1);
+        })
+      }
+      wcopy(3);
+      wready();  // p_w1
+      {  // q1 = y1 p_w1 + p_b1 (into Q1); t1 = normalize(gelu(q1)) over H D, into X1
+        float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+        for (int s = 0; s < H; ++s) {
+          nmma<ncols(W), 0, 1, 1, 1>(acc, X2, 64, 1024, 0, WB[0] + s * W * HD, HD, 128, 0, HD / 16);
+          N_PAIRS(NJ, {
+            const int n = s * W + col;
+            const float qa = acc[i] + __ldg(P.p_b1 + n), qb = acc[i + 1] + __ldg(P.p_b1 + n + 1);
+            __stcg(reinterpret_cast<float2*>(Q1 + r * HD + n), make_float2(qa, qb));
+            const float x0 = ngelu(qa), x1 = ngelu(qb);
+            v[hr][0] += x0 + x1;
+            v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+          })
+        }
+        xsum<2>(v, xs, par);
+        float mean[2], rs[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) moments(v[k][0], v[k][1], HD, mean[k], rs[k]);
+        for (int s = 0; s < H; ++s)
+          N_PAIRS(NJ, {
+            const int n = s * W + col;
+            const float2 q = __ldcg(reinterpret_cast<const float2*>(Q1 + r * HD + n));
+            const float t0 = (ngelu(q.x) - mean[hr]) * rs[hr], t1 = (ngelu(q.y) - mean[hr]) * rs[hr];
+            store2(X1, r, n, t0, t1);
+            if (wgr) store2(reinterpret_cast<bf16*>(img(2)), r, n, t0, t1);
+          })
+      }
+      wcopy(4);
+      wready();  // p_w2
+      for (int s = 0; s < H; ++s) {  // q2 = t1 p_w2 + p_b2; y2 = gelu(q2) into X2, gelu'(q2) into G2
+        nmma<ncols(W), 0, 1, 1, 1>(acc, X1, 64, 1024, 0, WB[1] + s * W * HD, HD, 128, 0, HD / 16);
+        N_PAIRS(NJ, {
+          const int n = s * W + col;
+          const float2 g0 = ngelu2(acc[i] + __ldg(P.p_b2 + n)), g1 = ngelu2(acc[i + 1] + __ldg(P.p_b2 + n + 1));
+          store2(X2, r, n, g0.x, g1.x);
+          if (wgr) store2(reinterpret_cast<bf16*>(img(3)), r, n, g0.x, g1.x);
+          __stcg(reinterpret_cast<float2*>(G2 + r * HD + n), make_float2(g0.y, g1.y));
+        })
+      }
+      wcopy(5);
+      wready();  // h_w1: q3 = y2 h_w1 + h_b1; h1 = gelu(q3) into X1, gelu'(q3) into G3
+      nmma<ncols(W), 0, 1, 1, 1>(acc, X2, 64, 1024, 0, WB[0], HD, 128, 0, HD / 16);
+      N_PAIRS(NJ, {
+        const float2 g0 = ngelu2(acc[i] + __ldg(P.h_b1 + col)), g1 = ngelu2(acc[i + 1] + __ldg(P.h_b1 + col + 1));
+        store2(X1, r, col, g0.x, g1.x);
+        __stcg(reinterpret_cast<float2*>(G3 + r * W + col), make_float2(g0.y, g1.y));
+      })
+      wcopy(6);
+      wready();  // h_w2: q4 = h1 h_w2 + h_b2; h2 = gelu(q4) (into X2 with weight gradients); dq4 = dh2 gelu'(q4),
+                 // dh2 = bf16(g h_w3^T) on the CUDA cores, three planes in PB
+      nmma<ncols(W), 0, 1, 1, 1>(acc, X1, 64, 1024, 0, WB[1], W, 128, 0, W / 16);
+      {
+        float cv[ncols(W) / 4] = {};
+        N_PAIRS(NJ, {
+          const float2 g0 = ngelu2(acc[i] + __ldg(P.h_b2 + col)), g1 = ngelu2(acc[i + 1] + __ldg(P.h_b2 + col + 1));
+          float s0 = 0.0f, s1 = 0.0f;
+          if (r < rows)
+            for (int o = 0; o < od; ++o) {
+              const float gg = __ldg(gsrc + r * od + o);
+              s0 = fmaf(gg, bf16_round(__ldg(P.h_w3 + col * od + o)), s0);
+              s1 = fmaf(gg, bf16_round(__ldg(P.h_w3 + (col + 1) * od + o)), s1);
+            }
+          const float q0 = bf16_round(s0) * g0.y, q1 = bf16_round(s1) * g1.y;
+          store3(PB, PS, r, col, q0, q1);
+          N_COL_ADD(cv, q0, q1);
+          if (wgr) store2(X2, r, col, g0.x, g1.x);
+        })
+        wcopy(7);
+        if (wgr) {
+          __syncthreads();  // h2
+          float* dw = pw + d.tw_off[18];
+          for (int idx = threadIdx.x; idx < W * od; idx += blockDim.x) {  // dh_w3 = h2^T g, dh_b3 = sum g
+            const int k = idx / od, o = idx - k * od;
+            float s = 0.0f;
+            for (int t = 0; t < rows; ++t) s = fmaf(__bfloat162float(X2[a16_index(t, k)]), __ldg(gsrc + t * od + o), s);
+            dw[idx] = first ? s : dw[idx] + s;
+          }
+          for (int o = threadIdx.x; o < od; o += blockDim.x) {
+            float s = 0.0f;
+            for (int t = 0; t < rows; ++t) s += __ldg(gsrc + t * od + o);
+            pw[d.tw_off[19] + o] = first ? s : pw[d.tw_off[19] + o] + s;
+          }
+          ncol_out<ncols(W)>(cv, cs, pw + d.tw_off[17], first);                               // dh_b2
+          nrows_part<ncols(W), 1, 3>(X1, 0, 0, W, PB, PS, 0, pw + d.tw_off[16], W, first);  // dh_w2 = h1^T dq4
+        }
+      }
+      wready();  // h_w2: dh1 = bf16(dq4 h_w2^T); dq3 = dh1 gelu'(q3), three planes in PA
+      nmma<ncols(W), 0, 0, 3, 1>(acc, PB, 64, 1024, PS, WB[0], W, W * 16, 0, W / 16);
+      {
+        float cv[ncols(W) / 4] = {};
+        N_PAIRS(NJ, {
+          const float2 gd = __ldcg(reinterpret_cast<const float2*>(G3 + r * W + col));
+          const float q0 = bf16_round(acc[i]) * gd.x, q1 = bf16_round(acc[i + 1]) * gd.y;
+          store3(PA, PS, r, col, q0, q1);
+          N_COL_ADD(cv, q0, q1);
+        })
+        wcopy(8);
+        if (wgr) {
+          ncol_out<ncols(W)>(cv, cs, pw + d.tw_off[15], first);  // dh_b1
+          reload(X2, img(3), XE);                          // dh_w1 = y2^T dq3
+          for (int m0 = 0; m0 < HD; m0 += 64) nrows_part<ncols(W), 1, 3>(X2, 0, m0, HD, PA, PS, 0, pw + d.tw_off[14], W, first);
+        }
+      }
+      wready();  // h_w1: dy2 = bf16(dq3 h_w1^T); dq2 = dy2 gelu'(q2), three planes in PB
+      for (int s = 0; s < H; ++s) {
+        nmma<ncols(W), 0, 0, 3, 1>(acc, PA, 64, 1024, PS, WB[1] + s * W * 8, HD, HD * 16, 0, W / 16);
+        float cv[ncols(W) / 4] = {};
+        N_PAIRS(NJ, {
+          const int n = s * W + col;
+          const float2 gd = __ldcg(reinterpret_cast<const float2*>(G2 + r * HD + n));
+          const float q0 = bf16_round(acc[i]) * gd.x, q1 = bf16_round(acc[i + 1]) * gd.y;
+          store3(PB, PS, r, n, q0, q1);
+          N_COL_ADD(cv, q0, q1);
+        })
+        if (wgr) ncol_out<ncols(W)>(cv, cs, pw + d.tw_off[13] + s * W, first);  // dp_b2
+      }
+      wcopy(9);
+      if (wgr) {  // dp_w2 = t1^T dq2
+        reload(X2, img(2), XE);
+        for (int m0 = 0; m0 < HD; m0 += 64)
+          for (int s = 0; s < H; ++s) nrows_part<ncols(W), 1, 3>(X2, 0, m0, HD, PB, PS, s * W, pw + d.tw_off[12], HD, first);
+      }
+      wready();  // p_w2: dt1 = bf16(dq2 p_w2^T) (into DT); dq1 by the LayerNorm-gelu VJP over H D, three planes in PA
+      {
+        float v[2][4] = {};
+        for (int s = 0; s < H; ++s) {
+          nmma<ncols(W), 0, 0, 3, 1>(acc, PB, 64, 1024, PS, WB[0] + s * W * 8, HD, HD * 16, 0, HD / 16);
+          N_PAIRS(NJ, {
+            const int n = s * W + col;
+            const float2 q = __ldcg(reinterpret_cast<const float2*>(Q1 + r * HD + n));
+            const float x0 = ngelu(q.x), x1 = ngelu(q.y);
+            const float d0 = bf16_round(acc[i]), d1 = bf16_round(acc[i + 1]);
+            store2(DT, r, n, d0, d1);
+            v[hr][0] += x0 + x1;
+            v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+            v[hr][2] += d0 + d1;
+            v[hr][3] = fmaf(d0, x0, fmaf(d1, x1, v[hr][3]));
+          })
+        }
+        wcopy(10);
+        xsum<4>(v, xs, par);
+        float mean[2], rs[2], md[2], mdn[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          moments(v[k][0], v[k][1], HD, mean[k], rs[k]);
+          md[k] = v[k][2] / HD;
+          mdn[k] = rs[k] * (v[k][3] - mean[k] * v[k][2]) / HD;
+        }
+        for (int s = 0; s < H; ++s) {
+          float cv[ncols(W) / 4] = {};
+          N_PAIRS(NJ, {
+            const int n = s * W + col;
+            const float2 q = __ldcg(reinterpret_cast<const float2*>(Q1 + r * HD + n));
+            const float2 dd = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(DT + a16_index(r, n)));
+            const float2 g0 = ngelu2(q.x), g1 = ngelu2(q.y);
+            const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
+            const float q0 = rs[hr] * (dd.x - md[hr] - m0 * mdn[hr]) * g0.y;
+            const float q1 = rs[hr] * (dd.y - md[hr] - m1 * mdn[hr]) * g1.y;
+            store3(PA, PS, r, n, q0, q1);
+            N_COL_ADD(cv, q0, q1);
+          })
+          if (wgr) ncol_out<ncols(W)>(cv, cs, pw + d.tw_off[11] + s * W, first);  // dp_b1
+        }
+      }
+      if (wgr) {  // dp_w1 = y1^T dq1
+        reload(X2, img(1), XE);
+        for (int m0 = 0; m0 < HD; m0 += 64)
+          for (int s = 0; s < H; ++s) nrows_part<ncols(W), 1, 3>(X2, 0, m0, HD, PA, PS, s * W, pw + d.tw_off[10], HD, first);
+      }
+      wready();  // p_w1: dy1 = bf16(dq1 p_w1^T), into X1
+      for (int s = 0; s < H; ++s) {
+        nmma<ncols(W), 0, 0, 3, 1>(acc, PA, 64, 1024, PS, WB[1] + s * W * 8, HD, HD * 16, 0, HD / 16);
+        float cv[ncols(W) / 4] = {};
+        N_PAIRS(NJ, {
+          const float q0 = bf16_round(acc[i]), q1 = bf16_round(acc[i + 1]);
+          store2(X1, r, s * W + col, q0, q1);
+          N_COL_ADD(cv, q0, q1);
+        })
+        if (wgr) ncol_out<ncols(W)>(cv, cs, pw + d.tw_off[9] + s * W, first);  // do_b
+      }
+      wcopy(11);
+      if (wgr) {  // do_w = y^T dy1 (dy1 is bf16: one plane)
+        reload(X2, img(0), XE);
+        for (int m0 = 0; m0 < HD; m0 += 64)
+          for (int s = 0; s < H; ++s) nrows_part<ncols(W), 1, 1>(X2, 0, m0, HD, X1, 0, s * W, pw + d.tw_off[8], HD, first);
+      }
+      wready();  // o_w: dy = bf16(dy1 o_w^T), into DT
+      for (int s = 0; s < H; ++s) {
+        nmma<ncols(W), 0, 0, 1, 1>(acc, X1, 64, 1024, 0, WB[0] + s * W * 8, HD, HD * 16, 0, HD / 16);
+        N_PAIRS(NJ, store2(DT, r, s * W + col, acc[i], acc[i + 1]);)
+      }
+      wcopy(12);
+      DY = DT;
+      dyp = 1;
+    } else {
+      for (int idx = threadIdx.x; idx < TILE * HD / 2; idx += blockDim.x) {  // dy = g, three planes in PB
+        const int rr = idx / (HD / 2), n = 2 * (idx - rr * (HD / 2));
+        const float v0 = rr < rows ? __ldg(gsrc + rr * HD + n) : 0.0f, v1 = rr < rows ? __ldg(gsrc + rr * HD + n + 1) : 0.0f;
+        store3(PB, PS, rr, n, v0, v1);
+      }
+      DY = PB;
+      dyp = 3;
+    }
+    // The mixer's VJP.
+    const int dps = dyp == 3 ? PS : 0;
+    __syncthreads();  // dy
+    auto dyv = [&](int t, int n) {
+      const int i = a16_index(t, n);
+      float v = __bfloat162float(DY[i]);
+      for (int p = 1; p < dyp; ++p) v += __bfloat162float(DY[i + p * dps]);
+      return v;
+    };
+    for (int idx = threadIdx.x; idx < TILE * H; idx += blockDim.x) {  // <dy_h, m_b2>
+      const int t = idx / H, h = idx - t * H;
+      float s = 0.0f;
+      for (int n = 0; n < W; ++n) s = fmaf(dyv(t, h * W + n), __ldg(P.m_b2 + n), s);
+      DYB[((long long)b * d.cp + c0 + t) * H + h] = s;
+    }
+    if (wgr) {
+      for (int n = threadIdx.x; n < W; n += blockDim.x) {  // dm_b2 = sum psum dy
+        float s = 0.0f;
+        for (int t = 0; t < TILE; ++t)
+          for (int h = 0; h < H; ++h) s = fmaf(psum[t * H + h], dyv(t, h * W + n), s);
+        pw[d.tw_off[7] + n] = first ? s : pw[d.tw_off[7] + n] + s;
+      }
+      if (tail) reload(PA, nbimg, 3 * PS / 2);  // nbar's planes
+      for (int h = 0; h < H; ++h) {  // dm_w2 = nbar_h^T dy_h, each head's own partial
+        float* dst = pw + d.tw_off[6] + (size_t)h * W * W;
+        if (tail)
+          nrows_part<ncols(W), 3, 1>(PA + h * W * 64, PS, 0, W, DY + h * W * 64, 0, 0, dst, W, first);
+        else
+          nrows_part<ncols(W), 3, 3>(PA + h * W * 64, PS, 0, W, DY + h * W * 64, PS, 0, dst, W, first);
+      }
+    }
+    wready();  // m_w2: e_h = dy_h m_w2^T, not rounded
+    bf16* WM = WB[tail ? 1 : 0];
+    for (int h = 0; h < H; ++h) {
+      if (tail)
+        nmma<ncols(W), 0, 0, 1, 1>(acc, DY + h * W * 64, 64, 1024, 0, WM, W, W * 16, 0, W / 16);
+      else
+        nmma<ncols(W), 0, 0, 3, 1>(acc, DY + h * W * 64, 64, 1024, PS, WM, W, W * 16, 0, W / 16);
+      N_PAIRS(NJ, __stcg(reinterpret_cast<float2*>(E + ((long long)b * d.cp + c0 + r) * HH + h * W + col), make_float2(acc[i], acc[i + 1]));)
+    }
+  }
+}
+
+// 4. A latent's value chain again, then its VJP: in each head's G epilogue dn = bf16(bf16(p) e), dp = bf16(<e, bf16(n)>
+// + <dy, m_b2>) (into DP [b z][C padded][H]) and dpre (three planes in PL), dc; dG = t^T dpre; dt = bf16(dpre G^T)
+// and du by the LayerNorm-gelu VJP in its epilogue; dfw, dfb; dhv = bf16(du fw^T)
+// where hv > 0; dv_w1, dv_b1; dF = bf16(dhv v_w1^T) and the RFF VJP into dinv. u is taken again (hv fw + fb) for
+// du: a product of the block's own, no workspace.
+template <int W>
+__global__ void __launch_bounds__(nthreads(W), nminb(W)) narrow_value_vjp(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& d = P.d;
+  const int H = d.H, HH = d.HH;
+  const NarrowLatent L = nl_layout(W, H);
+  char* base = reinterpret_cast<char*>(smem);
+  bf16 *Wv = reinterpret_cast<bf16*>(base + L.w1), *Wf = reinterpret_cast<bf16*>(base + L.w2);
+  bf16 *GB = reinterpret_cast<bf16*>(base + L.gb), *F = reinterpret_cast<bf16*>(base + L.f);
+  bf16 *HV = reinterpret_cast<bf16*>(base + L.hv), *T = reinterpret_cast<bf16*>(base + L.t);
+  bf16* PL = reinterpret_cast<bf16*>(base + L.pl);  // dpre [3][64][H W]; then du [3][64][W], dhv [64][W], dF f32 [64][W]
+  bf16 *DU = PL, *DHV = PL + 3 * TILE * W;
+  float* DF = reinterpret_cast<float*>(PL + 4 * TILE * W);
+  float *s_inv = reinterpret_cast<float*>(base + L.inv), *sp = reinterpret_cast<float*>(base + L.sp);
+  float *cs = reinterpret_cast<float*>(base + L.cs), *xs = reinterpret_cast<float*>(base + L.xs);
+  const int PLS = TILE * HH, DUS = TILE * W;
+  int par = 0;
+  const float *Pz = P.work + d.x_p, *E = P.work + d.x_ee, *DYB = P.work + d.x_dyb;
+  float* DP = P.work + d.x_dp;
+  float* pb = P.part + (size_t)blockIdx.x * d.part_l;
+  float* pw = pb + (size_t)d.slots * d.lr_row;
+  const bool wgr = d.wgrad;
+  constexpr int NJ = ncols(W) / 8;
+  N_FRAG(ncols(W));
+  ncopy(Wv, wimg(P, NI_V), W * W / 2);
+  ncopy(Wf, wimg(P, NI_F), W * W / 2);
+  const long long lo = (long long)blockIdx.x * d.ipb_l, hi = min(lo + d.ipb_l, d.items_l);
+  const long long bz_first = lo / d.nt;
+  for (long long item = lo; item < hi; ++item) {
+    const NItem it = nitem(d, item);
+    const bool first_row = item == lo || it.tile == 0, first_w = item == lo;
+    float* pr = pb + (size_t)(it.bz - bz_first) * d.lr_row;
+    float *pG = pr + d.lr_A + d.lr_ab, *pc = pG + d.lr_G;
+    ncopy(GB, P.work + d.x_g + it.bz * W * HH / 2, W * HH / 2);
+    const long long row = it.bz * d.cp + it.c0, brow = (long long)it.b * d.cp + it.c0;
+    for (int idx = threadIdx.x; idx < TILE * H; idx += blockDim.x) sp[idx] = Pz[row * H + idx];
+    nload_inv(s_inv, P.inv + (it.bz * d.C + it.c0) * d.I, it.rows, d.I);
+    __syncthreads();
+    nfeatures(s_inv, d.I, P.v_coeff, W, F);
+    cp_async_wait<0>();
+    nvalue_chain<W>(P, F, Wv, Wf, HV, T, xs, par);
+    float acc[ncols(W) / 2];
+    for (int h = 0; h < H; ++h) {  // pre = t G + c; dpre, dp and dc of head h
+      nmma<ncols(W), 0, 1, 1, 1>(acc, T, 64, 1024, 0, GB + h * W * W, W, 128, 0, W / 16);
+      const float* cz = P.c + it.bz * HH + h * W;
+      float v[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, gd[ncols(W) / 2];  // gelu into acc, gelu' into gd
+      float2 ev[ncols(W) / 4];                                          // e of this thread's pairs
+      N_PAIRS(NJ, {
+        ev[2 * j_ + hr] = __ldcg(reinterpret_cast<const float2*>(E + (brow + r) * HH + h * W + col));
+        const float2 g0 = ngelu2(acc[i] + __ldg(cz + col)), g1 = ngelu2(acc[i + 1] + __ldg(cz + col + 1));
+        acc[i] = g0.x;
+        acc[i + 1] = g1.x;
+        gd[i] = g0.y;
+        gd[i + 1] = g1.y;
+        v[hr][0] += g0.x + g1.x;
+        v[hr][1] = fmaf(g0.x, g0.x, fmaf(g1.x, g1.x, v[hr][1]));
+      })
+      xsum<2>(v, xs, par);
+      float mean[2], rs[2], pz[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        moments(v[k][0], v[k][1], W, mean[k], rs[k]);
+        pz[k] = bf16_round(sp[(r0 + 8 * k) * H + h]);
+      }
+      float w[2][3] = {};  // sums of e bf16(n), dn and dn n
+      N_PAIRS(NJ, {
+        const float2 e = ev[2 * j_ + hr];
+        const float m0 = (acc[i] - mean[hr]) * rs[hr], m1 = (acc[i + 1] - mean[hr]) * rs[hr];
+        const float d0 = bf16_round(e.x * pz[hr]), d1 = bf16_round(e.y * pz[hr]);
+        w[hr][0] = fmaf(e.x, bf16_round(m0), fmaf(e.y, bf16_round(m1), w[hr][0]));
+        w[hr][1] += d0 + d1;
+        w[hr][2] = fmaf(d0, m0, fmaf(d1, m1, w[hr][2]));
+      })
+      xsum<3>(w, xs, par);
+      if (tq == 0 && cb == 0)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int t = r0 + 8 * k;
+          DP[(row + t) * H + h] = bf16_round(w[k][0] + __ldcg(DYB + (brow + t) * H + h));
+        }
+      float cv[ncols(W) / 4] = {};
+      N_PAIRS(NJ, {
+        const float2 e = ev[2 * j_ + hr];
+        const float m0 = (acc[i] - mean[hr]) * rs[hr], m1 = (acc[i + 1] - mean[hr]) * rs[hr];
+        const float d0 = bf16_round(e.x * pz[hr]), d1 = bf16_round(e.y * pz[hr]);
+        const float md = w[hr][1] / W, mdn = w[hr][2] / W;
+        const float q0 = rs[hr] * (d0 - md - m0 * mdn) * gd[i], q1 = rs[hr] * (d1 - md - m1 * mdn) * gd[i + 1];
+        store3(PL, PLS, r, h * W + col, q0, q1);
+        N_COL_ADD(cv, q0, q1);
+      })
+      ncol_out<ncols(W)>(cv, cs, pc + h * W, first_row);  // dc
+    }
+    for (int h = 0; h < H; ++h) nrows_part<ncols(W), 1, 3>(T, 0, 0, W, PL, PLS, h * W, pG, HH, first_row);  // dG = t^T dpre
+    float u[ncols(W) / 2];
+    nsecond<W>(u, P, HV, Wf);  // u again, the same bits
+    nmma<ncols(W), 0, 0, 3, 1>(acc, PL, 64, 1024, PLS, GB, W, W * 16, 0, HH / 16);  // dt = bf16(dpre G^T); du, three planes
+    {
+      float v[2][4] = {};
+      N_PAIRS(NJ, {
+        const float x0 = ngelu(u[i]), x1 = ngelu(u[i + 1]);
+        const float d0 = bf16_round(acc[i]), d1 = bf16_round(acc[i + 1]);
+        acc[i] = d0;
+        acc[i + 1] = d1;
+        v[hr][0] += x0 + x1;
+        v[hr][1] = fmaf(x0, x0, fmaf(x1, x1, v[hr][1]));
+        v[hr][2] += d0 + d1;
+        v[hr][3] = fmaf(d0, x0, fmaf(d1, x1, v[hr][3]));
+      })
+      xsum<4>(v, xs, par);
+      float mean[2], rs[2], md[2], mdn[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        moments(v[k][0], v[k][1], W, mean[k], rs[k]);
+        md[k] = v[k][2] / W;
+        mdn[k] = rs[k] * (v[k][3] - mean[k] * v[k][2]) / W;
+      }
+      float cv[ncols(W) / 4] = {};
+      N_PAIRS(NJ, {
+        const float2 g0 = ngelu2(u[i]), g1 = ngelu2(u[i + 1]);
+        const float m0 = (g0.x - mean[hr]) * rs[hr], m1 = (g1.x - mean[hr]) * rs[hr];
+        const float q0 = rs[hr] * (acc[i] - md[hr] - m0 * mdn[hr]) * g0.y;
+        const float q1 = rs[hr] * (acc[i + 1] - md[hr] - m1 * mdn[hr]) * g1.y;
+        store3(DU, DUS, r, col, q0, q1);
+        N_COL_ADD(cv, q0, q1);
+      })
+      if (wgr) {
+        ncol_out<ncols(W)>(cv, cs, pw + d.lw_off[5], first_w);                         // dfb
+        nrows_part<ncols(W), 1, 3>(HV, 0, 0, W, DU, DUS, 0, pw + d.lw_off[4], W, first_w);  // dfw = hv^T du
+      }
+    }
+    nmma<ncols(W), 0, 0, 3, 1>(acc, DU, 64, 1024, DUS, Wf, W, W * 16, 0, W / 16);  // dhv = bf16(du fw^T), 0 where hv <= 0
+    {
+      float cv[ncols(W) / 4] = {};
+      N_PAIRS(NJ, {
+        const float2 h2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(HV + a16_index(r, col)));
+        const float q0 = h2.x > 0.0f ? bf16_round(acc[i]) : 0.0f, q1 = h2.y > 0.0f ? bf16_round(acc[i + 1]) : 0.0f;
+        store2(DHV, r, col, q0, q1);
+        N_COL_ADD(cv, q0, q1);
+      })
+      if (wgr) {
+        ncol_out<ncols(W)>(cv, cs, pw + d.lw_off[3], first_w);                        // dv_b1
+        nrows_part<ncols(W), 1, 1>(F, 0, 0, W, DHV, 0, 0, pw + d.lw_off[2], W, first_w);  // dv_w1 = F^T dhv
+      }
+    }
+    nmma<ncols(W), 0, 0, 1, 1>(acc, DHV, 64, 1024, 0, Wv, W, W * 16, 0, W / 16);  // dF = bf16(dhv v_w1^T)
+    N_PAIRS(NJ, *reinterpret_cast<float2*>(DF + r * W + col) = make_float2(bf16_round(acc[i]), bf16_round(acc[i + 1]));)
+    __syncthreads();
+    nrff_vjp<W>(s_inv, d.I, P.v_coeff, DF, P.dinv + (it.bz * d.C + it.c0) * d.I, it.rows, false);
+    __syncthreads();  // s_inv, DF and sp are read
+  }
+}
+
+// 5. The softmax's VJP of a latent's rows (dlog = p (dp - sum_z' p_z' dp_z'), every latent's in latent order), then
+// its query chain again and its VJP: in q_w1's epilogue dhq = (hq > 0) bf16(dlog A^T); dA = bf16(hq)^T dlog, dab,
+// dwb; dq_w1, dq_b1; dF = bf16(dhq q_w1^T) and the RFF VJP added into dinv.
+template <int W>
+__global__ void __launch_bounds__(nthreads(W), nminb(W)) narrow_query_vjp(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& d = P.d;
+  const int H = d.H, Z = d.Z;
+  const NarrowLatent L = nl_layout(W, H);
+  char* base = reinterpret_cast<char*>(smem);
+  bf16 *Wq = reinterpret_cast<bf16*>(base + L.w1), *F = reinterpret_cast<bf16*>(base + L.f);
+  bf16 *HQ = reinterpret_cast<bf16*>(base + L.hv), *DHQ = reinterpret_cast<bf16*>(base + L.t);
+  float* DF = reinterpret_cast<float*>(base + L.pl);
+  float *s_inv = reinterpret_cast<float*>(base + L.inv), *dl = reinterpret_cast<float*>(base + L.sp);
+  float* cs = reinterpret_cast<float*>(base + L.cs);
+  const float *Pz = P.work + d.x_p, *DP = P.work + d.x_dp;
+  float* pb = P.part + (size_t)blockIdx.x * d.part_l;
+  float* pw = pb + (size_t)d.slots * d.lr_row;
+  const bool wgr = d.wgrad;
+  constexpr int NJ = ncols(W) / 8;
+  N_FRAG(ncols(W));
+  ncopy(Wq, wimg(P, NI_Q), W * W / 2);
+  const long long lo = (long long)blockIdx.x * d.ipb_l, hi = min(lo + d.ipb_l, d.items_l);
+  const long long bz_first = lo / d.nt;
+  for (long long item = lo; item < hi; ++item) {
+    const NItem it = nitem(d, item);
+    const bool first_row = item == lo || it.tile == 0, first_w = item == lo;
+    float* pA = pb + (size_t)(it.bz - bz_first) * d.lr_row;
+    float* pab = pA + d.lr_A;
+    const long long row = it.bz * d.cp + it.c0, row0 = (long long)it.b * Z * d.cp + it.c0;
+    for (int idx = threadIdx.x; idx < TILE * H; idx += blockDim.x) {
+      const int rr = idx / H, h = idx - rr * H;
+      float s = 0.0f;
+#pragma unroll 8
+      for (int z = 0; z < Z; ++z) {
+        const long long k = (row0 + (long long)z * d.cp + rr) * H + h;
+        s = fmaf(Pz[k], DP[k], s);
+      }
+      dl[idx] = Pz[row * H + idx] * (DP[row * H + idx] - s);
+    }
+    nload_inv(s_inv, P.inv + (it.bz * d.C + it.c0) * d.I, it.rows, d.I);
+    __syncthreads();
+    nfeatures(s_inv, d.I, P.q_coeff, W, F);
+    cp_async_wait<0>();
+    float acc[ncols(W) / 2];
+    nfirst<W>(acc, F, Wq, P.q_b1);
+    const float* Az = P.A + it.bz * W * H;
+    float cv[ncols(W) / 4] = {};
+    N_PAIRS(NJ, {
+      float dh[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = 0.0f;
+        for (int h = 0; h < H; ++h) s = fmaf(dl[r * H + h], bf16_round(__ldg(Az + (col + e) * H + h)), s);
+        dh[e] = acc[i + e] > 0.0f ? bf16_round(s) : 0.0f;
+      }
+      store2(HQ, r, col, acc[i], acc[i + 1]);
+      store2(DHQ, r, col, dh[0], dh[1]);
+      N_COL_ADD(cv, dh[0], dh[1]);
+    })
+    __syncthreads();  // hq
+    for (int idx = threadIdx.x; idx < W * H; idx += blockDim.x) {  // dA = bf16(hq)^T dlog
+      const int k = idx / H, h = idx - k * H;
+      float s = 0.0f;
+      for (int t = 0; t < TILE; ++t) s = fmaf(__bfloat162float(HQ[a16_index(t, k)]), dl[t * H + h], s);
+      pA[idx] = first_row ? s : pA[idx] + s;
+    }
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      float s = 0.0f;
+      for (int t = 0; t < TILE; ++t) s += dl[t * H + h];
+      pab[h] = first_row ? s : pab[h] + s;
+    }
+    for (int t = threadIdx.x; t < it.rows; t += blockDim.x) {
+      float s = 0.0f;
+      for (int h = 0; h < H; ++h) s += dl[t * H + h];
+      P.dwb[it.bz * d.C + it.c0 + t] = s;
+    }
+    if (wgr) {
+      ncol_out<ncols(W)>(cv, cs, pw + d.lw_off[1], first_w);                          // dq_b1
+      nrows_part<ncols(W), 1, 1>(F, 0, 0, W, DHQ, 0, 0, pw + d.lw_off[0], W, first_w);  // dq_w1 = F^T dhq
+    }
+    nmma<ncols(W), 0, 0, 1, 1>(acc, DHQ, 64, 1024, 0, Wq, W, W * 16, 0, W / 16);  // dF = bf16(dhq q_w1^T)
+    N_PAIRS(NJ, *reinterpret_cast<float2*>(DF + r * W + col) = make_float2(bf16_round(acc[i]), bf16_round(acc[i + 1]));)
+    __syncthreads();
+    nrff_vjp<W>(s_inv, d.I, P.q_coeff, DF, P.dinv + (it.bz * d.C + it.c0) * d.I, it.rows, true);
+    __syncthreads();  // s_inv, DF and dl are read
+  }
+}
+
+// Pass 2 of the narrow design: out = [dA | dab | dG | dc] over the (b, z) rows, then the weight gradients; each
+// element sums its partials in block order: a row's slots in the per-latent blocks whose runs touch it, a
+// weight's in every block of its kernel's grid (q_w1 ... fb the per-latent kernels', m_w2 ... h_b3 the tail's).
+// The gradients of what JAX casts to bf16 (A, G and the weight matrices) are rounded once whole; m_w2's a head.
+__global__ void narrow_reduce(const float* __restrict__ part, float* __restrict__ out, const Dims d) {
+  const long long R = (long long)d.B * d.Z;
+  const long long sec_len[4] = {(long long)d.hid * d.H, d.H, (long long)d.hid * d.HH, d.HH};
+  const long long sec_off[4] = {0, d.lr_A, d.lr_A + d.lr_ab, d.lr_A + d.lr_ab + d.lr_G};
+  const long long n_row = R * (sec_len[0] + sec_len[1] + sec_len[2] + sec_len[3]);
+  const long long total = n_row + d.l_wo;
+  for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x; o < total; o += (long long)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    if (o < n_row) {
+      long long rem = o;
+      int sec = 0;
+      while (rem >= R * sec_len[sec]) rem -= R * sec_len[sec++];
+      const long long bz = rem / sec_len[sec], e = rem - bz * sec_len[sec];
+      const long long k0 = bz * d.nt / d.ipb_l, k1 = ((bz + 1) * d.nt - 1) / d.ipb_l;
+#pragma unroll 4
+      for (long long k = k0; k <= k1; ++k) {
+        const long long slot = bz - k * d.ipb_l / d.nt;
+        s += part[k * d.part_l + slot * d.lr_row + sec_off[sec] + e];
+      }
+      if (sec == 0 || sec == 2) s = bf16_round(s);  // dA, dG
+    } else {
+      const long long ow = o - n_row;
+      int i = 0;  // the weight holding ow
+      while (i + 1 < d.n_w && d.o_off[i + 1] <= ow) ++i;
+      const long long e = ow - d.o_off[i];
+      const int heads = i == 6 ? d.H : 1;
+      for (int h = 0; h < heads; ++h) {
+        float sh = 0.0f;
+        if (i < 6)
+#pragma unroll 8
+          for (long long k = 0; k < d.grid_l; ++k) sh += part[k * d.part_l + (long long)d.slots * d.lr_row + d.lw_off[i] + e];
+        else
+#pragma unroll 8
+          for (long long k = 0; k < d.grid_t; ++k)
+            sh += part[(long long)d.grid_l * d.part_l + k * d.part_t + d.tw_off[i] + h * d.o_len[i] + e];
+        s += i % 2 == 0 ? bf16_round(sh) : sh;
+      }
+    }
+    out[o] = s;
+  }
+}
+
+// The narrow design's shape: hid = hidm = D = 16, 32 or 64, at most NH_MAX heads and NHD_MAX columns H D, both
+// layouts within SMEM_CAP; false for what it does not take.
+inline bool narrow_shape(Dims& d) {
+  const int W = d.hid;
+  if (d.hidm != W || d.D != W || (W != 16 && W != 32 && W != 64)) return false;
+  if (d.H > NH_MAX || d.HD > NHD_MAX) return false;
+  d.nw = W;
+  d.nt = (d.C + TILE - 1) / TILE;
+  d.cp = (long long)d.nt * TILE;
+  d.items = (long long)d.B * d.nt;
+  d.items_t = d.items;
+  d.items_l = d.items * d.Z;
+  d.smem = nl_layout(W, d.H).total;
+  d.smem_t = nt_layout(W, d.H).total;
+  return d.smem <= SMEM_CAP && d.smem_t <= SMEM_CAP && d.items_l <= 2147483647LL;
+}
+
+// The narrow design's plan for per_sm blocks of the per-latent kernels and per_sm_t of the tail on each of sms
+// SMs: persistent blocks, a contiguous run of ipb items each; then its partials (a block's: the (b, z) rows its
+// run touches, padded sections, then with weight gradients the weights its kernels sum) and the workspace.
+inline void narrow_plan(Dims& d, int per_sm, int sms) {
+  auto r4 = [](long long n) { return (n + 3) / 4 * 4; };
+  auto run = [](long long items, long long most, int& grid, int& ipb) {
+    most = most < items ? most : items;
+    most = most < 1 ? 1 : most;
+    ipb = (int)((items + most - 1) / most);
+    grid = (int)((items + ipb - 1) / ipb);
+  };
+  const int W = d.nw, H = d.H, HD = d.HD, HH = d.HH;
+  d.per_sm = per_sm;
+  run(d.items_l, (long long)per_sm * sms, d.grid_l, d.ipb_l);
+  d.per_sm_t = SM_BYTES / (d.smem_t + 1024);  // the tail's blocks an SM by its shared memory (its grid follows)
+  const int most = 2048 / nthreads(W);
+  d.per_sm_t = d.per_sm_t < most ? d.per_sm_t : most;
+  // With weight gradients a tail block takes at least two items: its partials (the tail's weights, H D x H D each)
+  // are stored once for both (the e and <dy, m_b2> it writes are an item's own: nothing else depends on the split).
+  run(d.items_t, d.wgrad ? ((long long)d.per_sm_t * sms < (d.items_t + 1) / 2 ? (long long)d.per_sm_t * sms : (d.items_t + 1) / 2)
+                         : (long long)d.per_sm_t * sms, d.grid_t, d.ipb_t);
+  d.grid = d.grid_l;
+  d.ipb = d.ipb_l;
+  const long long rows_bz = (long long)d.B * d.Z;
+  // The (b, z) rows a run of ipb items can touch: ipb / nt where runs are whole rows, one where a row holds whole
+  // runs, else as `plan` counts them.
+  d.slots = d.ipb_l % d.nt == 0 ? d.ipb_l / d.nt : d.nt % d.ipb_l == 0 ? 1 : (int)((d.ipb_l + d.nt - 2) / d.nt + 1);
+  d.slots = d.slots > rows_bz ? (int)rows_bz : d.slots;
+  d.lr_A = r4((long long)W * H);
+  d.lr_ab = r4(H);
+  d.lr_G = (long long)W * HH;
+  d.lr_c = r4(HH);
+  d.lr_row = d.lr_A + d.lr_ab + d.lr_G + d.lr_c;
+  long long o = 0;  // the weights after the row slots
+  for (int i = 0; i < 6; ++i) {
+    d.lw_off[i] = o;
+    if (d.wgrad) o += r4(d.o_len[i]);
+  }
+  d.part_l = (long long)d.slots * d.lr_row + o;
+  o = 0;
+  for (int i = 0; i < 20; ++i) {
+    d.tw_off[i] = o;
+    if (i >= 6 && i < d.n_w) o += r4(d.o_len[i] * (i == 6 ? H : 1));
+  }
+  d.part_t = o;
+  d.part = d.part_l;
+  // The workspace: the weight images, G's, every latent's logits (then dp), softmax weights and nn, e and <dy, m_b2>
+  // a batch row, the tail's pieces a tail block.
+  d.n_img = d.tail ? 9 : 4;
+  o = 0;
+  for (int j = 0; j < 9; ++j) {
+    int K, N;
+    narrow_image_shape(d, j, K, N);
+    d.x_w[j] = o;
+    if (j < d.n_img) o += r4((long long)K * N / 2);
+  }
+  d.x_g = o;
+  o += r4(rows_bz * W * HH / 2);
+  const long long lat_rows = rows_bz * d.cp, b_rows = (long long)d.B * d.cp;
+  d.x_lg = d.x_dp = o; o += r4(lat_rows * H);  // the logits, read last by narrow_values; then dp
+  d.x_p = o; o += r4(lat_rows * H);
+  d.x_nn = o; o += r4(lat_rows * HH / 2);
+  d.x_ee = o; o += r4(b_rows * HH);
+  d.x_dyb = o; o += r4(b_rows * H);
+  const NarrowTail T = nt_layout(W, H);
+  long long t = 0;
+  d.t_q1 = t; if (d.tail) t += TILE * HD;
+  d.t_g2 = t; if (d.tail) t += TILE * HD;
+  d.t_g3 = t; if (d.tail) t += TILE * W;
+  d.t_img = t; if (d.tail && d.wgrad) t += 4LL * TILE * T.xc / 2;
+  d.t_nb = t; if (d.wgrad) t += 3LL * TILE * T.pc / 2;
+  d.t_ws = t;
+  d.x_t = o;
+  o += (long long)d.grid_t * d.t_ws;
+  d.ws_total = o;
+}
+
 // Pass 2: out = [dA | dab | dG | dc] over all rows (each [B, Z, ...]), then the weight
 // gradients; each element sums its partials in block order: a row's slots in the blocks whose
 // runs touch it, a weight's in every block. The gradients of what JAX casts to bf16 (A, G and the
@@ -2000,28 +3373,110 @@ __global__ void fused_decode_bwd_reduce(const float* __restrict__ part, float* _
 }
 
 // The launcher's hooks (fused_decode_bwd_host.cuh): threads of `weights_kernel` (one a bf16 of the
-// converted weights, two a float) and floats of the reduced output (m_w2 summed over its heads).
+// converted weights, two a float), floats of the reduced output (m_w2 summed over its heads), of the workspace
+// and of the partials.
 inline long long weight_threads(const Dims& d) { return 2 * (d.w128 ? d.g_off : d.split_total); }
+inline long long out_floats(const Dims& d) { return d.l_wo; }
+inline long long work_floats(const Dims& d) { return d.narrow ? d.ws_total : d.split_total + (long long)d.grid * d.work; }
+inline long long part_floats(const Dims& d) {
+  return d.narrow ? (long long)d.grid_l * d.part_l + (long long)d.grid_t * d.part_t : (long long)d.grid * d.part;
+}
 
-// The launcher's hooks for a design of the program's own (fused_decode_bwd_host.cuh): whether a launch takes
-// the W128 design, its kernel attributes, and its launch (pass 0's weights and G's blocks, then pass 1).
-inline bool own_design(const Dims& d) { return d.w128; }
-cudaError_t prepare_own(size_t smem, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(fused_decode_bwd_w128, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The launcher's hooks for the program's own designs (fused_decode_bwd_host.cuh): whether a launch takes the W128
+// or the narrow design; its kernels' attributes and the blocks an SM its plan takes; the plan's own part (after
+// `plan`); its launch, every pass.
+inline bool own_design(const Dims& d) { return d.w128 || d.narrow; }
+template <class K>
+cudaError_t own_attributes(K* kernel, size_t smem, int threads, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_decode_bwd_w128, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && per_sm) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_decode_bwd_w128, THREADS, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
   return err;
 }
-void launch_own(const Params& P, int split_blocks, size_t smem, cudaStream_t s) {
-  weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);
-  long long gb = (2LL * P.d.B * P.d.Z * W128_GBLK + THREADS - 1) / THREADS;
-  w128_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);
-  fused_decode_bwd_w128<<<P.d.grid, THREADS, smem, s>>>(P);
+// The narrow design's kernels at width W; the per-latent kernels' blocks an SM (the fewest of the four) into per_sm.
+// Each launch lays its shape out twice (`fused_decode_bwd_sizes`, then the launch): the attributes and the
+// occupancy of the last shared-memory sizes a device and width were prepared for are kept (ten runtime calls fewer a
+// layout, the host's share of a launch of a few hundred microseconds).
+struct NarrowPrepared {
+  int dev = -1, smem = -1, smem_t = -1, tail = -1, per_sm = 0;
+};
+template <int W>
+cudaError_t prepare_narrow(const Dims& d, int* per_sm) {
+  static NarrowPrepared last[8];
+  int dev = 0;
+  cudaError_t err0 = cudaGetDevice(&dev);
+  if (err0 != cudaSuccess) return err0;
+  NarrowPrepared& k = last[dev & 7];
+  if (k.dev == dev && k.smem == (int)d.smem && k.smem_t == d.smem_t && k.tail == d.tail) {
+    *per_sm = k.per_sm;
+    return cudaSuccess;
+  }
+  int n[4] = {0, 0, 0, 0}, tail = 0;
+  cudaError_t err = own_attributes(narrow_logits<W>, (size_t)d.smem, nthreads(W), &n[0]);
+  if (err == cudaSuccess) err = own_attributes(narrow_values<W>, (size_t)d.smem, nthreads(W), &n[1]);
+  if (err == cudaSuccess) err = own_attributes(narrow_value_vjp<W>, (size_t)d.smem, nthreads(W), &n[2]);
+  if (err == cudaSuccess) err = own_attributes(narrow_query_vjp<W>, (size_t)d.smem, nthreads(W), &n[3]);
+  if (err == cudaSuccess)
+    err = d.tail ? own_attributes(narrow_tail<W, true>, (size_t)d.smem_t, nthreads(W), &tail)
+                 : own_attributes(narrow_tail<W, false>, (size_t)d.smem_t, nthreads(W), &tail);
+  *per_sm = n[0];
+  for (int i = 1; i < 4; ++i) *per_sm = n[i] < *per_sm ? n[i] : *per_sm;
+  if (err == cudaSuccess && tail < 1) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess) k = NarrowPrepared{dev, (int)d.smem, d.smem_t, d.tail, *per_sm};
+  return err;
 }
-inline long long out_floats(const Dims& d) { return d.l_wo; }
+cudaError_t prepare_own(Dims& d, int* per_sm) {
+  if (d.w128) return own_attributes(fused_decode_bwd_w128, (size_t)d.smem, THREADS, per_sm);
+  switch (d.nw) {
+    case 64: return prepare_narrow<64>(d, per_sm);
+    case 32: return prepare_narrow<32>(d, per_sm);
+    default: return prepare_narrow<16>(d, per_sm);
+  }
+}
+inline void own_plan(Dims& d, int per_sm, int sms) {
+  if (d.narrow)
+    narrow_plan(d, per_sm, sms);
+  else
+    d.part = (d.part + 3) / 4 * 4;  // each block's partials on 16 bytes (the W128 design adds two at a time)
+}
+template <int W>
+void launch_narrow(const Params& P, cudaStream_t s) {
+  const Dims& d = P.d;
+  long long pb = (2 * d.x_g + (long long)d.B * d.Z * W * d.HH + THREADS - 1) / THREADS;
+  narrow_prep<<<(int)(pb > 4096 ? 4096 : pb), THREADS, 0, s>>>(P);
+  narrow_logits<W><<<d.grid_l, nthreads(W), d.smem, s>>>(P);
+  narrow_values<W><<<d.grid_l, nthreads(W), d.smem, s>>>(P);
+  if (d.tail)
+    narrow_tail<W, true><<<d.grid_t, nthreads(W), d.smem_t, s>>>(P);
+  else
+    narrow_tail<W, false><<<d.grid_t, nthreads(W), d.smem_t, s>>>(P);
+  narrow_value_vjp<W><<<d.grid_l, nthreads(W), d.smem, s>>>(P);
+  narrow_query_vjp<W><<<d.grid_l, nthreads(W), d.smem, s>>>(P);
+  long long rb = ((long long)d.B * d.l_row + d.l_wo + THREADS - 1) / THREADS;
+  narrow_reduce<<<(int)(rb > 4096 ? 4096 : (rb < 1 ? 1 : rb)), THREADS, 0, s>>>(P.part, P.out, d);
+}
+cudaError_t launch_own(const Params& P, cudaStream_t s) {
+  const Dims& d = P.d;
+  if (d.w128) {
+    long long sb = (weight_threads(d) + THREADS - 1) / THREADS;
+    weights_kernel<64><<<(int)(sb > 1024 ? 1024 : sb), THREADS, 0, s>>>(P);
+    long long gb = (2LL * d.B * d.Z * W128_GBLK + THREADS - 1) / THREADS;
+    w128_g_kernel<<<(int)(gb > 4096 ? 4096 : gb), THREADS, 0, s>>>(P);
+    fused_decode_bwd_w128<<<d.grid, THREADS, (size_t)d.smem, s>>>(P);
+    long long rb = ((long long)d.B * d.l_row + d.l_wo + THREADS - 1) / THREADS;
+    fused_decode_bwd_reduce<<<(int)(rb > 4096 ? 4096 : (rb < 1 ? 1 : rb)), THREADS, 0, s>>>(P.part, P.out, d);
+  } else {
+    switch (d.nw) {
+      case 64: launch_narrow<64>(P, s); break;
+      case 32: launch_narrow<32>(P, s); break;
+      default: launch_narrow<16>(P, s); break;
+    }
+  }
+  return cudaGetLastError();
+}
 
 }  // namespace
 
+#define K2_CLASS64_ONLY  // the narrow classes take the narrow design: the class design is instantiated at the class 64 alone
 #include "fused_decode_bwd_host.cuh"  // the launcher's C interface (shared with the f32 program)

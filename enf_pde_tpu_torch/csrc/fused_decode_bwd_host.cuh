@@ -1,10 +1,11 @@
 // Fused ENF decode, backward (kernel K2): the launcher's C interface, shared by its two programs
 // (fused_decode_bwd.cu, fused_decode_bwd_bf16.cu). Each source includes it last, after its
 // kernels (`weights_kernel<WN>`, which lays the shared weights out, `fused_decode_bwd_kernel<WN>`
-// and `fused_decode_bwd_reduce`), its Dims and `shape`, and the hooks `weight_threads`, `out_floats`
-// and, for a design of the program's own beside its width classes (the bf16 program's W128 design),
-// `own_design`, `prepare_own` and `launch_own` (fused_decode_bwd_common.cuh holds the rest that they
-// share).
+// and `fused_decode_bwd_reduce`), its Dims and `shape`, and the hooks `weight_threads`, `out_floats`,
+// `work_floats`, `part_floats` and, for the designs of the program's own beside its width classes (the
+// bf16 program's W128 and narrow designs), `own_design`, `prepare_own`, `own_plan` and `launch_own`
+// (fused_decode_bwd_common.cuh holds the rest that they share). K2_CLASS64_ONLY: the class design is
+// instantiated at the width class 64 alone (the bf16 program's narrow design takes the others).
 
 #pragma once
 
@@ -24,7 +25,6 @@ inline void plan(Dims& d, int per_sm, int sms) {
   d.slots = (d.ipb + d.nt - 2) / d.nt + 1;  // batch rows a run of ipb items can touch
   d.slots = d.slots > d.B ? d.B : d.slots;
   d.part = d.slots * d.l_row + d.l_w;
-  if (own_design(d)) d.part = (d.part + 3) / 4 * 4;  // each block's partials on 16 bytes (an own design adds two at a time)
 }
 
 // Sets the kernel's shared memory; with `per_sm`, the blocks an SM holds at that size.
@@ -43,9 +43,13 @@ cudaError_t prepare(size_t smem, int* per_sm) {
 cudaError_t prepare_class(int wn, size_t smem, int* per_sm) {
   switch (wn) {
     case 64: return prepare<64>(smem, per_sm);
+#ifndef K2_CLASS64_ONLY
     case 32: return prepare<32>(smem, per_sm);
     case 16: return prepare<16>(smem, per_sm);
     default: return prepare<8>(smem, per_sm);
+#else
+    default: return cudaErrorInvalidValue;
+#endif
   }
 }
 
@@ -53,12 +57,13 @@ cudaError_t prepare_class(int wn, size_t smem, int* per_sm) {
 cudaError_t layout(const int* dims, int n_dims, Dims& d) {
   if (n_dims != kNumDims || !shape(dims, d)) return cudaErrorInvalidValue;
   int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = own_design(d) ? prepare_own((size_t)d.smem, &per_sm) : prepare_class(d.wn, (size_t)d.smem, &per_sm);
+  cudaError_t err = own_design(d) ? prepare_own(d, &per_sm) : prepare_class(d.wn, (size_t)d.smem, &per_sm);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   plan(d, per_sm, sms);
+  if (own_design(d)) own_plan(d, per_sm, sms);
   return cudaSuccess;
 }
 
@@ -73,8 +78,8 @@ int fused_decode_bwd_sizes(const int* dims, int n_dims, long long* sizes) {
   const cudaError_t err = layout(dims, n_dims, d);
   if (err != cudaSuccess) return (int)err;
   sizes[0] = (long long)d.B * d.l_row + out_floats(d);
-  sizes[1] = d.split_total + (long long)d.grid * d.work;
-  sizes[2] = (long long)d.grid * d.part;
+  sizes[1] = work_floats(d);
+  sizes[2] = part_floats(d);
   return 0;
 }
 
@@ -90,7 +95,7 @@ int fused_decode_bwd_occupancy(const int* dims, int n_dims, long long* out) {
   out[1] = d.per_sm;
   out[2] = d.grid;
   out[3] = d.slots;
-  out[4] = d.split_total + (long long)d.grid * (d.work + d.part);
+  out[4] = work_floats(d) + part_floats(d);
   return 0;
 }
 
@@ -120,15 +125,16 @@ int fused_decode_bwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
   if (!aligned16(P.G) || !aligned16(P.work)) return (int)cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (own_design(P.d)) return (int)launch_own(P, s);  // the design's own passes, its reduction included
   const size_t smem = (size_t)P.d.smem;
   long long sb = (weight_threads(P.d) + THREADS - 1) / THREADS;
   const int split_blocks = (int)(sb > 1024 ? 1024 : sb);
-  if (own_design(P.d)) launch_own(P, split_blocks, smem, s); else
   switch (P.d.wn) {
     case 64:
       weights_kernel<64><<<split_blocks, THREADS, 0, s>>>(P);
       fused_decode_bwd_kernel<64><<<P.d.grid, THREADS, smem, s>>>(P);
       break;
+#ifndef K2_CLASS64_ONLY
     case 32:
       weights_kernel<32><<<split_blocks, THREADS, 0, s>>>(P);
       fused_decode_bwd_kernel<32><<<P.d.grid, THREADS, smem, s>>>(P);
@@ -141,6 +147,10 @@ int fused_decode_bwd_launch(const void* const* ptrs, int n_ptrs, const int* dims
       weights_kernel<8><<<split_blocks, THREADS, 0, s>>>(P);
       fused_decode_bwd_kernel<8><<<P.d.grid, THREADS, smem, s>>>(P);
       break;
+#else
+    default:
+      return (int)cudaErrorInvalidValue;
+#endif
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long total = (long long)P.d.B * P.d.l_row + out_floats(P.d);

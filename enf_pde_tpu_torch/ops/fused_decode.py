@@ -47,10 +47,12 @@ against ``fused_decode_plain`` at the same ``compute_dtype``. Which one a decode
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import math
 import re
+import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -960,6 +962,8 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     if max(hid, hidm, H * D) > k["MAX_SEG"]:
         raise ValueError(f"K2 needs hid, hidm and H*D <= {k['MAX_SEG']}, got {hid}, {hidm}, {H * D}")
     wn = k2_width_class(hid, hidm, D)
+    if bf and wn < 64:  # the bf16 program's narrow design (`narrow_shape`)
+        return dict(wn=wn, narrow=True, w128=False, **k2_narrow_layout(hid, H, D, hidm))
     if hid % wn or hidm % wn or D % wn:
         raise ValueError(f"K2's width class {wn} must divide hid, hidm and D, got {hid}, {hidm}, {D}")
 
@@ -969,7 +973,8 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     ldh, ldw = stride(hid), stride(max(H * hidm, H * D, hid))
     n_w2 = tile * max(ldw, 2 * ldh)
     if bf and k2_w128_design(Z, hid, H, D, hidm):  # the bf16 program's W128 design (`fused_decode_bwd_w128`)
-        return dict(wn=wn, ldh=ldh, ldw=ldw, smem=k["W128_SMEM"] + 4 * 2 * Z * tile * 2, stages=k["W128_STAGES"], w128=True)
+        return dict(wn=wn, ldh=ldh, ldw=ldw, smem=k["W128_SMEM"] + 4 * 2 * Z * tile * 2, stages=k["W128_STAGES"], w128=True,
+                    narrow=False)
     # The B staging ring: chunk buffers of two slabs of 16 x wn, two tf32 parts (32 wn floats a
     # slab) or three bf16 ones (24 wn); the bf16 program also keeps two [TILE][H] rows (the sums
     # of the rounded softmax weights and <dy, m_b2>).
@@ -977,7 +982,7 @@ def _k2_layout(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     for stages in ((3, 2) if wn == 64 else (2,)):
         smem = 4 * (stages * 2 * slab + tile * ldw + tile * ldh + n_w2 + 2 * Z * tile * H + extra + tile * I)
         if smem <= k["SMEM_CAP"]:
-            return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages, w128=False)
+            return dict(wn=wn, ldh=ldh, ldw=ldw, smem=smem, stages=stages, w128=False, narrow=False)
     raise ValueError(f"K2 would need {smem} B of shared memory for {Z} latents, more than {k['SMEM_CAP']}")
 
 
@@ -986,10 +991,97 @@ def k2_w128_design(Z: int, hid: int, H: int, D: int, hidm: int) -> bool:
     (``fused_decode_bwd_w128``, ``Dims::w128``): hid = hidm = D = ``W128_HID`` with two heads (every decoder at
     Navier-Stokes width: NS, shallow water, ``abs_pos``, behind self-attention blocks), where its shared
     memory (``W128_SMEM`` and every latent's softmax weights and dp, 1,024 B a latent) fits ``SMEM_CAP``.
-    The other shapes of the width class 64 take the class's design of the f32 program's kind."""
+    The other shapes of the width class 64 take the class's design of the f32 program's kind; the narrower
+    classes the narrow design (``k2_narrow_design``)."""
     k = k2_constants(torch.bfloat16)
     return (hid == hidm == D == k["W128_HID"] and H == 2 and k2_width_class(hid, hidm, D) == 64
             and k["W128_SMEM"] + 4 * 2 * Z * k["TILE"] * 2 <= k["SMEM_CAP"])
+
+
+def k2_narrow_design(hid: int, hidm: int, D: int) -> bool:
+    """Whether a bf16 K2 launch of these widths takes the bf16 program's narrow design (``Dims::narrow``: the
+    kernels ``narrow_logits`` ... ``narrow_query_vjp``, a (batch row, latent, tile) item a block of one
+    warpgroup): every launch below the width class 64 (8, 16, 32: diff_sphere, ihc, the planar configs). It
+    takes hid = hidm = D = 16, 32 or 64 with at most ``NH_MAX`` heads and ``NHD_MAX`` columns H D and refuses
+    the rest of those classes (``k2_narrow_layout`` raises)."""
+    return k2_width_class(hid, hidm, D) < 64
+
+
+def k2_narrow_layout(hid: int, H: int, D: int, hidm: int) -> Dict[str, int]:
+    """The narrow design's shared memory in bytes, as ``nl_layout`` and ``nt_layout`` in
+    ``csrc/fused_decode_bwd_bf16.cu`` lay it out: ``smem``, the per-latent kernels' (the weights q_w1 or v_w1 and
+    fw, a latent's G, three [64][hid] bf16 operands, dpre's three planes or du's, dhv and dF, the invariants, the
+    softmax weights, the column sums' and the row sums' exchanges), and ``smem_t``, the tail kernel's (two weight
+    buffers, two buffers of three bf16 planes, two activations, the dt1 stage, psum, the exchanges); ``pc`` and ``xc``, the
+    columns of its planes and activations. Raises ``ValueError`` for a shape the design refuses."""
+    k = k2_constants(torch.bfloat16)
+    W, tile = hid, k["TILE"]
+    if not (hidm == D == W and W in (16, 32, 64)):
+        raise ValueError(f"K2's narrow design takes hid = hidm = D = 16, 32 or 64, got {hid}, {hidm}, {D}")
+    if H > k["NH_MAX"] or H * D > k["NHD_MAX"]:
+        raise ValueError(f"K2's narrow design takes at most {k['NH_MAX']} heads and H*D <= {k['NHD_MAX']}, got {H}, {H * D}")
+    HH = HD = H * W
+
+    def r(x: int, m: int) -> int:
+        return -(-x // m) * m
+
+    smem = (2 * W * W * 2 + W * HH * 2 + 3 * tile * W * 2 + max(3 * tile * HH * 2, 3 * tile * W * 2 + tile * W * 2 + tile * W * 4)
+            + tile * k["MAX_I"] * 4 + r(tile * H * 4, 16) + 4 * max(HH, W) * 4 + k["NXS"])
+    pc, xc = HD, r(HD, 64)
+    smem_t = (2 * max(HD * HD, HD * W, W * W) * 2 + 2 * 3 * tile * pc * 2 + 2 * tile * xc * 2 + tile * HD * 2
+              + r(tile * H * 4, 16) + 4 * max(HD, W) * 4 + k["NXS"])
+    if max(smem, smem_t) > k["SMEM_CAP"]:
+        raise ValueError(f"K2's narrow design would need {max(smem, smem_t)} B of shared memory, more than {k['SMEM_CAP']}")
+    return dict(smem=smem, smem_t=smem_t, pc=pc, xc=xc)
+
+
+def k2_narrow_plan(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, hidm: int, out: int, tail: bool,
+                   weight_grads: bool, per_sm: Optional[int] = None, sms: int = 132) -> Dict[str, int]:
+    """The narrow design's plan and scratch, as ``narrow_plan`` lays them out for ``per_sm`` blocks of the
+    per-latent kernels on each of ``sms`` SMs (by default the most their shared memory and threads allow: blocks of
+    two warpgroups from hid 32, of one below): ``grid`` and ``ipb`` (persistent blocks, a contiguous run of (b, z,
+    tile) items each), ``slots`` (the (b, z) rows a run touches), ``grid_t`` (the tail's blocks over its (b, tile)
+    items, as many an SM as its shared memory allows; at least two items a block with weight gradients), and
+    ``scratch`` in bytes: the workspace (the weight images and G's in bf16; every latent's logits, later its dp, and
+    softmax weights [b z][C padded][H] and nn in bf16; e and <dy, m_b2> a batch row; a tail block's q1, gelu'(q2),
+    gelu'(q3) and, with weight gradients, its activations' and nbar's images) and the partials (a per-latent block's
+    row slots and q_w1 ... fb, a tail block's m_w2 a head ... h_b3)."""
+    k = k2_constants(torch.bfloat16)
+    lay = k2_narrow_layout(hid, H, D, hidm)
+    W, tile = hid, k["TILE"]
+    nt_ = 256 if W >= k["NWIDE"] else 128  # a block's threads: two warpgroups from NWIDE (``nthreads``)
+    HD = HH = H * W
+
+    def r4(x: int) -> int:
+        return -(-x // 4) * 4
+
+    def run(items: int, most: int) -> Tuple[int, int]:
+        most = max(1, min(most, items))
+        ipb = -(-items // most)
+        return -(-items // ipb), ipb
+
+    if per_sm is None:
+        per_sm = min(2048 // nt_, k["SM_BYTES"] // (lay["smem"] + 1024))
+    per_sm_t = min(2048 // nt_, k["SM_BYTES"] // (lay["smem_t"] + 1024))
+    nt = -(-C // tile)
+    cp = nt * tile
+    grid, ipb = run(B * Z * nt, per_sm * sms)
+    # with weight gradients a tail block takes at least two items (its weights' partials stored once for both)
+    grid_t, _ = run(B * nt, min(per_sm_t * sms, -(-B * nt // 2)) if weight_grads else per_sm_t * sms)
+    slots = min(B * Z, ipb // nt if ipb % nt == 0 else 1 if nt % ipb == 0 else (ipb + nt - 2) // nt + 1)
+    lengths = [W * W, W, W * W, W, W * W, W, W * W * H, W, HD * HD, HD, HD * HD, HD, HD * HD, HD, HD * W, W, W * W, W,
+               W * out, out]
+    n_w = (20 if tail else 8) if weight_grads else 0
+    part_l = slots * (r4(W * H) + r4(H) + W * HH + r4(HH)) + sum(r4(n) for n in lengths[:min(n_w, 6)])
+    part_t = sum(r4(n) for n in lengths[6:n_w])
+    images = [W * W] * 4 + ([HD * HD] * 3 + [HD * W, W * W] if tail else [])
+    lat_rows, b_rows = B * Z * cp, B * cp
+    t_ws = (tile * (2 * HD + W) if tail else 0) + (4 * tile * lay["xc"] // 2 if tail and weight_grads else 0) \
+        + (3 * tile * lay["pc"] // 2 if weight_grads else 0)
+    work = (sum(r4(n // 2) for n in images) + r4(B * Z * W * HH // 2) + 2 * r4(lat_rows * H) + r4(lat_rows * HH // 2)
+            + r4(b_rows * HH) + r4(b_rows * H) + grid_t * t_ws)
+    return dict(grid=grid, ipb=ipb, slots=slots, grid_t=grid_t,
+                scratch=4 * (work + grid * part_l + grid_t * part_t))
 
 
 def a16_index(r, k):
@@ -1026,7 +1118,8 @@ def k2_smem_bytes(Z: int, I: int, hid: int, H: int, D: int, hidm: int,
     the bf16 program's (``fused_decode_bwd_bf16.cu``); at hid = hidm = D = 128, two heads (``k2_w128_design``)
     its W128 design's: two warpgroups' rings of ``W128_STAGES`` 4 KB chunks, the union ``W128_U`` of the phases'
     bf16 operand planes (and nbar, dF in f32), the row sums' and column sums' exchanges, psum, <dy, m_b2>
-    and the invariants, then every latent's softmax weights and dp (1,024 B a latent)."""
+    and the invariants, then every latent's softmax weights and dp (1,024 B a latent); below the width class 64
+    (``k2_narrow_design``) the narrow design's per-latent kernels' (``k2_narrow_layout``: Z does not enter)."""
     return _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)["smem"]
 
 
@@ -1042,10 +1135,13 @@ def k2_scratch_bytes(B: int, Z: int, C: int, I: int, hid: int, H: int, D: int, h
     upper bound of the launch's occupancy: the scratch grows with the grid. A block takes at
     least ``MIN_IPB`` items. The bf16 program (``compute_dtype=torch.bfloat16``) keeps the shared
     weights in bf16 (one part, 2 bytes an element) and ``m_w2``'s gradient a head (each head's
-    sum is rounded to bf16 on its own, as JAX casts ``m_w2`` in each head's product)."""
+    sum is rounded to bf16 on its own, as JAX casts ``m_w2`` in each head's product); below the width
+    class 64 its narrow design's (``k2_narrow_plan``)."""
     bf = _check_dtype(compute_dtype) == torch.bfloat16
     k = k2_constants(compute_dtype)
     lay = _k2_layout(Z, I, hid, H, D, hidm, compute_dtype)
+    if lay["narrow"]:
+        return k2_narrow_plan(B, Z, C, I, hid, H, D, hidm, out, tail, weight_grads, per_sm, sms)["scratch"]
     tile = k["TILE"]
     w128 = lay["w128"]
     if per_sm is None:
@@ -1184,6 +1280,25 @@ fused_decode_bwd.launches = 0
 fused_decode_bwd.launches_by_program = collections.Counter()
 
 
+_LATENT_ONLY = threading.local()
+
+
+@contextlib.contextmanager
+def latent_grads_only():
+    """Within it, each ``FusedDecode`` forward records on its node that its graph-building backward
+    (``create_graph=True``: the meta-SGD inner steps, whose gradients are taken of the latents alone) asks
+    K2 for the latents' gradients only, not the weights'. The record is made at forward time, on the
+    calling thread (the autograd engine may run a backward on another). A first-order backward through the
+    same node (the outer loss's, through the inner steps' cotangents) still takes every gradient its inputs
+    need; the outer loss reaches the weights through ``FusedDecodeVJP``'s plain recomputation."""
+    before = getattr(_LATENT_ONLY, "on", False)
+    _LATENT_ONLY.on = True
+    try:
+        yield
+    finally:
+        _LATENT_ONLY.on = before
+
+
 class FusedDecode(torch.autograd.Function):
     """K1 forward, K2 backward: the differentiable fused decode.
 
@@ -1193,13 +1308,15 @@ class FusedDecode(torch.autograd.Function):
     ``ctx.needs_input_grad`` asks for: the weight gradients only when some weight
     needs one. A backward that builds a graph for a double backward
     (``create_graph=True``) returns ``FusedDecodeVJP``'s gradients, whose values are
-    K2's and whose derivatives are the plain composition's at the same compute dtype.
+    K2's and whose derivatives are the plain composition's at the same compute dtype;
+    under ``latent_grads_only`` at forward time, the latents' alone.
     """
 
     @staticmethod
     def forward(ctx, num_heads: int, head_dim: int, num_tail: int, compute_dtype: torch.dtype,
                 inv, wb, A, ab, G, c, *weights):
         ctx.num_heads, ctx.head_dim, ctx.num_tail = num_heads, head_dim, num_tail
+        ctx.latent_only = getattr(_LATENT_ONLY, "on", False)
         ctx.compute_dtype = _check_dtype(compute_dtype)
         ctx.save_for_backward(inv, wb, A, ab, G, c, *weights)
         n_ws = len(weights) - num_tail
@@ -1211,6 +1328,8 @@ class FusedDecode(torch.autograd.Function):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[4:]
         if torch.is_grad_enabled():  # create_graph: the gradients must be differentiable
+            if ctx.latent_only:  # the weights' gradients are not asked for (``latent_grads_only``)
+                needs = needs[:6] + (False,) * (len(needs) - 6)
             got = iter(FusedDecodeVJP.apply(ctx.num_heads, ctx.head_dim, ctx.num_tail, ctx.compute_dtype,
                                             needs, g.contiguous(), *saved))
             return (None, None, None, None, *(next(got) if need else None for need in needs))

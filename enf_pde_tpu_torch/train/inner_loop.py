@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from enf_pde_tpu_torch.models.latents import LatentParams, latents_to_pose, tile_latents
+from enf_pde_tpu_torch.ops.fused_decode import latent_grads_only
 from enf_pde_tpu_torch.parallel.mesh import Mesh, data_sharding
 
 __all__ = [
@@ -152,7 +153,7 @@ def _fit(decoder_apply, coords, cfg: InnerLoopConfig, meta_lrs, latent_init, fra
                       for n, v in latents.items()}
         else:
             leaves = {n: latents[n].detach().requires_grad_(True) for n in names}
-        with torch.enable_grad():
+        with torch.enable_grad(), latent_grads_only():  # the fused decode's K2: the latents' gradients alone
             grads = torch.autograd.grad(recon_loss(leaves, masks[step]), [leaves[n] for n in names],
                                         create_graph=create_graph, allow_unused=True)
         # A latent the decode does not read (the window, with use_gaussian_window off) has a

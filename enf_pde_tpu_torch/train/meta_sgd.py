@@ -378,13 +378,16 @@ class MetaSGDTrainer:
         """Inner-fit latents to frames [batch, *spatial, channels]; returns the latent dict.
 
         Draws from ``generator``, else from the trainer's own; ``mesh``: the data mesh
-        whose rank's rows ``frames`` are (None: the whole batch).
+        whose rank's rows ``frames`` are (None: the whole batch). The decoder is out of
+        autograd meanwhile: the fit takes the latents' gradients alone (the fused decode's
+        K2 without weight gradients).
         """
-        return self.inner_loop(
-            state["meta_sgd_lrs"], state["autodecoder"], frames,
-            generator=generator if generator is not None else self.generator,
-            masks=masks, dp=dp, keep=keep, mesh=mesh,
-        )
+        with frozen(self.decoder):
+            return self.inner_loop(
+                state["meta_sgd_lrs"], state["autodecoder"], frames,
+                generator=generator if generator is not None else self.generator,
+                masks=masks, dp=dp, keep=keep, mesh=mesh,
+            )
 
     @torch.no_grad()
     def rollout_latents(self, latents, num_frames: int):

@@ -453,16 +453,30 @@ def test_bf16_programs_run_on_bf16_tensor_cores():
     gemm = re.search(r"\n__device__ __forceinline__ void gemm\(.*?\n}\n", k2, re.S).group(0)
     assert gemm.count("wgmma_bf16<WN>(") == 10 and gemm.count("split3_bf16(") == 3  # B two values a call, A one pair
     assert "static_assert((AP == 1 || AP == 3) && (BP == 1 || BP == 3)" in gemm
-    # Passes 0 (the shared weights; the W128 design's G blocks), 1 (the class design; the W128 design) and 2.
-    assert k2.count("__global__") == 5
+    # Passes 0 (the shared weights; the W128 design's G blocks; the narrow design's images), 1 (the class design at
+    # the class 64 alone; the W128 design; the narrow design's five kernels) and 2 (the reduction, the narrow design's).
+    assert k2.count("__global__") == 12 and "#define K2_CLASS64_ONLY" in k2
     # The W128 design (hid = hidm = D = 128, two heads): every product a wgmma m64n64k16 with both operands
     # in shared memory (a row contraction's transposed: its instruction takes the transpose flags), none
     # with A in registers, no operand rounded in registers; f32 cotangents and nbar as three bf16 planes.
-    w128 = k2[k2.index("// ---- The W128 design"):k2.index("// Pass 2: out")]
+    w128 = k2[k2.index("// ---- The W128 design"):k2.index("// ---- The narrow design")]
     assert w128.count("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16") == 1
     assert '"%32, %33, p, 1, 1, %35, %36;\\n"' in w128 and "wgmma_ss<1, 1>(" in w128 and "wgmma_ss<0, 0>(" in w128
     assert "wgmma_bf16<" not in w128 and "mma_bf16(" not in w128 and "pack_bf16(" not in w128
     assert w128.count("store3(") >= 8 and "split3_bf16(v0, v1, t);" in w128
+    # The narrow design (every launch below the width class 64): every product a wgmma with both operands in shared
+    # memory by descriptor (`nmma`: m64nNk16 at N = 8, 16, 32 and wgmma_ss's n64, each with the transpose flags), none
+    # with A in registers, no operand rounded in registers; the cotangents and nbar in three bf16 planes; the
+    # LayerNorms, their VJPs and dp in the epilogues (no row pass over f32 shared memory, no staging of B).
+    narrow = k2[k2.index("// ---- The narrow design"):k2.index("// Pass 2: out")]
+    for n in (8, 16, 32):
+        assert narrow.count(f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == 1
+    assert narrow.count('"%4, %5, p, 1, 1, %7, %8;\\n"') == 1 and narrow.count("wgmma_ss<TA, TB>(") == 1
+    assert narrow.count("wgmma_t<N, TA, TB>(") == 1 and narrow.count("nmma<") >= 20 and narrow.count("__global__") == 7
+    for banned in ("wgmma_bf16<", "mma_bf16(", "pack_bf16(", "gemm<", "ln_gelu(", "ln_gelu_vjp(", "gelu_rows(",
+                   "mul_gelu_grad(", "softmax_z(", "accum_nbar(", "B_SPLIT", "B_KN", "Cls<"):
+        assert banned not in narrow, banned
+    assert narrow.count("store3(") >= 8 and narrow.count("xsum<") >= 6 and "__shfl_xor_sync" in narrow
     # The headers shared with the f32 program multiply through the program's own hooks: the
     # operand rounding (`operand`: bf16_round here) and the RFF sin / cos (`rff_sincos`).
     for src, source in ((k1, fd.KERNEL_SOURCE_BF16), (k2, fd.BWD_KERNEL_SOURCE_BF16)):

@@ -284,11 +284,17 @@ def test_k2_layout_fits_every_shipped_decode_shape(name, dtype):
     shared memory fits 227 KB, and the scratch of a launch (workspace + partials, at the most blocks
     an SM can hold, an upper bound of the grid's) is at most a quarter of the PR 17 build's, in all
     four modes. The bf16 program (``fused_decode_bwd_bf16.cu``) stages half the floats a chunk and
-    keeps two more [TILE][H] rows; its shared memory is the f32 program's or less."""
+    keeps two more [TILE][H] rows; its shared memory is the f32 program's or less, but at the narrow widths
+    (its narrow design) room for two of its per-latent blocks an SM."""
     w, shapes = _k2_shapes(name)
     smem = fd.k2_smem_bytes(w["Z"], w["I"], w["hid"], w["H"], w["D"], w["hidm"], dtype)
     assert 0 < smem <= fd.k2_constants(dtype)["SMEM_CAP"] == 232_448
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and fd.k2_narrow_design(w["hid"], w["hidm"], w["D"]):
+        # The narrow design: two of its per-latent blocks an SM (233,472 B, 1,024 B kept back a block), its tail's
+        # block within the cap.
+        assert 2 * (smem + 1024) <= 233_472
+        assert fd.k2_narrow_layout(w["hid"], w["H"], w["D"], w["hidm"])["smem_t"] <= 232_448
+    elif dtype == torch.bfloat16:
         assert smem <= fd.k2_smem_bytes(w["Z"], w["I"], w["hid"], w["H"], w["D"], w["hidm"])
     for label, b, c in shapes:
         for tail in (True, False):
@@ -384,3 +390,82 @@ def test_k2_bf16_ns_design_refusals():
     for bad in ((40, 4, 128, 2, 128, 128), (4, 9, 128, 2, 128, 128), (4, 4, 128, 3, 128, 128), (4, 4, 272, 1, 128, 128)):
         with pytest.raises(ValueError):
             fd.k2_smem_bytes(*bad, bf)
+
+
+NARROW_CONFIGS = ("diffusion_plane", "cahn_hilliard", "ihc", "diff_sphere")
+
+
+@pytest.mark.parametrize("name", SHIPPED_CONFIGS + ABLATION_RUNS)
+def test_k2_bf16_narrow_design_mirror_at_every_shipped_shape(name):
+    """The bf16 program's narrow design (``k2_narrow_design``: ``narrow_logits`` ... ``narrow_query_vjp``) is what
+    every bf16 K2 launch below the width class 64 takes, and no other: the four narrow configs. Its shared
+    memory, the per-latent kernels' and the tail's, is the source header's table; its plan and scratch at each
+    of the config's K2 shapes (ode step, nef step, fit; tail or not; weight gradients or not) are ``narrow_plan``'s
+    for the most per-latent blocks an SM their shared memory and threads allow on 132 SMs (blocks of two warpgroups
+    from hid 32, of one below): persistent blocks, a contiguous run of (b, z, tile) items each, the (b, z) rows a run
+    touches counted exactly; the tail's (b, tile) items on the blocks an SM its shared memory allows, at least two a
+    block with weight gradients; the workspace and the partials piece by piece."""
+    bf = torch.bfloat16
+    w, shapes = _k2_shapes(name)
+    W, H, Z, I = w["hid"], w["H"], w["Z"], w["I"]
+    narrow = fd.k2_narrow_design(W, w["hidm"], w["D"])
+    assert narrow == (name.split()[0] in NARROW_CONFIGS and W < 128)
+    if not narrow:
+        return
+    lay = fd.k2_narrow_layout(W, H, W, W)
+    table = {(64, 2): (115_200, 219_648), (32, 3): (67_840, 162_048), (16, 2): (27_648, 54_272)}
+    assert (lay["smem"], lay["smem_t"]) == table[(W, H)] and fd.k2_smem_bytes(Z, I, W, H, W, W, bf) == lay["smem"]
+    text = (cuda_lib.CSRC_DIR / fd.BWD_KERNEL_SOURCE_BF16).read_text()
+    assert f"{lay['smem']:,} B" in text and f"{lay['smem_t']:,} B" in text
+    HD, r4 = H * W, lambda n: -(-n // 4) * 4  # noqa: E731
+    most = 2048 // (256 if W >= 32 else 128)  # threads an SM over a block's: two warpgroups from hid 32, one below
+    per_sm, per_sm_t = min(most, 233_472 // (lay["smem"] + 1024)), min(most, 233_472 // (lay["smem_t"] + 1024))
+    for label, b, c in shapes:
+        nt = -(-c // 64)
+        for tail in (True, False):
+            for wg in (False, True):
+                out = w["out"] if tail else HD
+                items, items_t = b * Z * nt, b * nt
+                ipb = -(-items // min(items, per_sm * 132))
+                grid = -(-items // ipb)
+                ipb_t = -(-items_t // min(items_t, per_sm_t * 132, -(-items_t // 2) if wg else items_t))
+                grid_t = -(-items_t // ipb_t)
+                slots = min(b * Z, ipb // nt if ipb % nt == 0 else 1 if nt % ipb == 0 else (ipb + nt - 2) // nt + 1)
+                row = r4(W * H) + r4(H) + W * HD + r4(HD)
+                lat_w = 3 * (W * W + r4(W)) if wg else 0
+                mix_w = (H * W * W + r4(W)) if wg else 0
+                tail_w = (3 * (HD * HD + r4(HD)) + HD * W + 2 * r4(W) + W * W + r4(W * out) + r4(out)) if wg and tail else 0
+                images = 4 * W * W // 2 + ((3 * HD * HD + HD * W + W * W) // 2 if tail else 0)
+                per_latent = 2 * b * Z * nt * 64 * H + b * Z * nt * 64 * HD // 2
+                per_row = b * nt * 64 * (HD + H)
+                tail_ws = (64 * (2 * HD + W) if tail else 0) + (2 * 64 * -(-HD // 64) * 64 if tail and wg else 0) \
+                    + (3 * 64 * HD // 2 if wg else 0)
+                want = 4 * (images + b * Z * W * HD // 2 + per_latent + per_row + grid_t * tail_ws
+                            + grid * (slots * row + lat_w) + grid_t * (mix_w + tail_w))
+                plan = fd.k2_narrow_plan(b, Z, c, I, W, H, W, W, out, tail, wg)
+                assert (plan["grid"], plan["ipb"], plan["slots"], plan["grid_t"]) == (grid, ipb, slots, grid_t), label
+                assert plan["scratch"] == want == fd.k2_scratch_bytes(b, Z, c, I, W, H, W, W, out, tail, wg,
+                                                                      compute_dtype=bf), (label, tail, wg)
+
+
+@pytest.mark.parametrize("widths", [(32, 64, 32, 2), (48, 48, 48, 2), (16, 16, 16, 9), (64, 64, 64, 3), (64, 64, 128, 1)])
+def test_k2_bf16_narrow_design_refusals(widths, monkeypatch):
+    """Below the width class 64 the bf16 program has the narrow design alone (the class design is built at the
+    class 64 only): it takes hid = hidm = D = 16, 32 or 64 with at most ``NH_MAX`` = 8 heads and H D <=
+    ``NHD_MAX`` = 128, and the rest of those classes is refused on the host, before any build, with a
+    ValueError (the f32 program still takes them)."""
+    hid, hidm, D, H = widths
+    bf = torch.bfloat16
+    k = fd.k2_constants(bf)
+    assert (k["NH_MAX"], k["NHD_MAX"], k["NWIDE"]) == (8, 128, 32)
+    assert fd.k2_narrow_design(hid, hidm, D) and not fd.k2_w128_design(4, hid, H, D, hidm)
+    with pytest.raises(ValueError, match="narrow design"):
+        fd.k2_smem_bytes(4, 2, hid, H, D, hidm, bf)
+    assert fd.k2_smem_bytes(4, 2, hid, H, D, hidm) > 0
+    monkeypatch.setattr(cuda_lib, "build", lambda *a: pytest.fail("a refused shape reached the build"))
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    ws = [r(2, hid // 2), r(hid, hid), r(hid), r(2, hid // 2), r(hid, hid), r(hid), r(hid, hid), r(hid), r(hidm, D), r(D)]
+    args = (r(1, 4, 64, 2), r(1, 4, 64), r(1, 4, hid, H), r(1, 4, H), r(1, 4, hid, H * hidm), r(1, 4, H * hidm))
+    with pytest.raises(ValueError, match="narrow design"):
+        fd._launch_bwd(*args, ws, (), r(1, 64, H * D), H, D, True, compute_dtype=bf)

@@ -18,6 +18,7 @@ backward goes through ``FusedDecodeVJP`` either way. Here:
   and ``trace``; ``load_config`` / ``Config.copy`` / ``Config.to_json`` against JAX's.
 """
 
+import contextlib
 import json
 import os
 
@@ -192,6 +193,55 @@ def test_fit_on_the_kernels_matches_the_eager_fit(trainers):
     tr.train_backend = "kernel"
     for k, v in fits["eager"].items():
         assert_close(fits["kernel"][k], v, rtol=2e-4, atol=2e-5)
+
+
+def test_inner_steps_and_fits_ask_k2_for_no_weight_gradient(trainers, monkeypatch):
+    """K2 is asked for weight gradients only where something reads them. A nef step's K inner steps
+    (create_graph) take the latents' gradients alone (``latent_grads_only``); the outer backward through
+    each inner step and the query decode take the weights' too: K + 1 of its 2K + 1 K2 calls. A fit runs
+    with the decoder frozen: its K calls take none. The nef step's loss and gradients and the fitted
+    latents are bit for bit what they are with every K2 call asked for weight gradients (the parent's
+    behaviour: the inner steps outside ``latent_grads_only``, the fit with the decoder in autograd)."""
+    from enf_pde_tpu_torch.train import inner_loop as il
+
+    _, _, tr, state, traj = trainers
+    K = tr.cfg.meta.num_inner_steps
+    flags = []
+    real = fd.fused_decode_bwd
+
+    def bwd(*args, **kw):
+        flags.append(bool(args[11]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fd, "fused_decode_bwd", bwd)
+    masks = np.stack([np.random.default_rng(i).permutation(SIZE * SIZE)[:24] for i in range(K + 1)])
+    frame_idx = np.array([0, 2])
+
+    def nef():
+        flags.clear()
+        loss, grads = tr.nef_grads(state, torch.from_numpy(traj), frame_idx=frame_idx, masks=masks)
+        return loss, grads, list(flags)
+
+    loss, grads, got = nef()
+    assert sorted(got) == [False] * K + [True] * (K + 1) and got[:K] == [False] * K
+    monkeypatch.setattr(il, "latent_grads_only", contextlib.nullcontext)
+    loss0, grads0, before = nef()
+    assert before == [True] * (2 * K + 1)
+    assert torch.equal(loss, loss0)
+    for group in grads:
+        for k, v in grads[group].items():
+            assert torch.equal(v, grads0[group][k]), (group, k)
+
+    frames = torch.from_numpy(traj[:, 0])
+    flags.clear()
+    fit = tr.fit_latents(state, frames, masks=torch.from_numpy(masks[:K]))
+    assert flags == [False] * K
+    flags.clear()
+    fit0 = tr.inner_loop(state["meta_sgd_lrs"], state["autodecoder"], frames, generator=tr.generator,
+                         masks=torch.from_numpy(masks[:K]))
+    assert flags == [True] * K
+    for k, v in fit.items():
+        assert torch.equal(v, fit0[k]), k
 
 
 # ----------------------------------------------------------------- backends

@@ -20,8 +20,10 @@ f32 on the CUDA cores and 3xTF32 on the tensor cores by operations, and by bytes
 is a config's ode step (batch x ``traj_len_train`` frames x ``max_num_sampled_points``:
 ``navier_stokes`` 80 x 512, ``shallow_water`` 10 x 2048, ``diffusion_plane`` 80 x 1024,
 ``cahn_hilliard`` 80 x 2048, ``diff_sphere`` 20 x 2048, ``ihc`` 10 x 2048,
-``navier_stokes_nonmaml`` 80 x 2048) or ``rollout``, the Navier-Stokes step at the
-50-frame horizon (400 x 512). With ``--f64``, also holds every build and the plain f32
+``navier_stokes_nonmaml`` 80 x 2048), ``rollout``, the Navier-Stokes step at the
+50-frame horizon (400 x 512), or a narrow config's nef step or fit on ``nef.backend: pallas``
+(``<config>_nef`` / ``<config>_fit``: ``diffusion_plane`` 32 / 8 x 1024, ``cahn_hilliard`` 24 / 8 x 2048,
+``diff_sphere`` 8 / 2 x 2048, ``ihc`` 2 / 1 x 2048). With ``--f64``, also holds every build and the plain f32
 version against the plain version in float64 (the whole cotangent, at the first shape) and
 prints the largest dinv differences beside the points' ReLU margins. Prints the card's name
 and power limit. Exits 1 when the new build misses the rel-L2 tolerance of
@@ -60,7 +62,8 @@ import chip_smoke as cs  # noqa: E402
 from enf_pde_tpu_torch.ops import cuda_lib  # noqa: E402
 from enf_pde_tpu_torch.ops import fused_decode as fd  # noqa: E402
 
-# Shape name -> (config, frames or None for the config's ode step).
+# Shape name -> (config, frames or None for the config's ode step). ``<config>_nef`` / ``<config>_fit``: the
+# nef step's and the fit's K2 launch on ``nef.backend: pallas`` (batch x fit_on_num_steps, batch; phase 35's).
 SHAPES = {
     "navier_stokes": ("navier_stokes", None),
     "shallow_water": ("shallow_water", None),
@@ -70,6 +73,10 @@ SHAPES = {
     "diff_sphere": ("diff_sphere", None),
     "ihc": ("ihc", None),
     "navier_stokes_nonmaml": ("navier_stokes_nonmaml", None),
+    "diffusion_plane_nef": ("diffusion_plane", 32), "diffusion_plane_fit": ("diffusion_plane", 8),
+    "cahn_hilliard_nef": ("cahn_hilliard", 24), "cahn_hilliard_fit": ("cahn_hilliard", 8),
+    "diff_sphere_nef": ("diff_sphere", 8), "diff_sphere_fit": ("diff_sphere", 2),
+    "ihc_nef": ("ihc", 2), "ihc_fit": ("ihc", 1),
 }
 
 _ALL = -1  # an edit's occurrence: every one
@@ -202,6 +209,23 @@ SKIPS16.update({
                     "      for (int j = 0; j < 8; ++j) old[h][j] = make_float2(0.0f, 0.0f);", 0),
                    ("        row[h][4 * j] = first ? make_float2(", "        if (M < 0) row[h][4 * j] = first ? make_float2(", 0)],
 })
+# The narrow design's (`narrow_logits` ... `narrow_query_vjp`, every launch below the width class 64): the tail kernel's
+# weight gradients, the loads of the partials' old values in the row contractions, the block barrier that ends each
+# product, the two warpgroups' row-sum exchange, every wgmma, the RFF VJP and features, the tail's nbar, the column sums.
+SKIPS16.update({
+    "ntailwg": [("  const bool wgr = d.wgrad;\n  constexpr bool tail = TAIL;", "  const bool wgr = false;\n  constexpr bool tail = TAIL;", 0)],
+    "nrmw": [("    if (!first && m0 + r < M) old[k] = *reinterpret_cast<const float2*>", "    if (M < 0) old[k] = *reinterpret_cast<const float2*>", 0)],
+    "nsync": [("  wg_commit();\n  wg_wait0();\n  wg_fence_operands<N / 2>(acc);\n  __syncthreads();\n}",
+               "  wg_commit();\n  wg_wait0();\n  wg_fence_operands<N / 2>(acc);\n}", 0)],
+    "nxsum": [("  if (blockDim.x == 128) return;  // one warpgroup", "  return;  // one warpgroup", 0)],
+    "nwgmma": [('  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma width");\n  if constexpr (N == 64) {',
+                '  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma width");\n  if (accumulate >= 0) return;\n  if constexpr (N == 64) {', 0)],
+    "nrffvjp": [("  for (int t = warp; t < TILE; t += blockDim.x / 32) {", "  for (int t = warp; t < TILE && I < 0; t += blockDim.x / 32) {", 0)],
+    "nfeatures": [("  for (int u = threadIdx.x; u < TILE * pairs; u += blockDim.x) {", "  for (int u = threadIdx.x; u < TILE * pairs && I < 0; u += blockDim.x) {", 0)],
+    "nnbar": [("    for (int i0 = threadIdx.x; i0 < TILE * HH / 2; i0 += NB * blockDim.x) {", "    for (int i0 = threadIdx.x; i0 < TILE * HH / 2 && Z < 0; i0 += NB * blockDim.x) {", 0)],
+    "ncolsums": [("  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;\n#pragma unroll\n  for (int k = 0; k < N / 4; ++k) {",
+                  "  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;\n  if (N > 0) return;\n#pragma unroll\n  for (int k = 0; k < N / 4; ++k) {", 0)],
+})
 # Other designs of the current bf16 source, right and timed beside it: ``copy``, the same program built from
 # its expanded text (two builds of one long kernel differ in time: up to 14 % for K1's bf16 class 128).
 VARIANTS16 = {
@@ -243,7 +267,10 @@ def layout_note(sources: dict, dims: list) -> str:
         note = f"{name} scratch {4 * (sizes[1] + sizes[2]) / 1e6:.1f} MB"
         if hasattr(lib, "fused_decode_bwd_occupancy"):
             lay = fd.k2_occupancy(dims, src)
-            items = dims[0] * -(-dims[2] // 64)
+            # the bf16 narrow design's items are (b, z, tile); a build's own (earlier designs') are (b, tile)
+            narrow = "bf16" in Path(src).name and "narrow_query_vjp" in Path(src).read_text() \
+                and fd.k2_width_class(dims[4], dims[7], dims[6]) < 64
+            items = dims[0] * (dims[1] if narrow else 1) * -(-dims[2] // 64)
             note += (f", {lay['smem']} B shared, {lay['per_sm']} blocks an SM, grid {lay['grid']}, "
                      f"{-(-items // lay['grid'])} items a block, {lay['slots']} row slots a block")
         parts.append(note)
