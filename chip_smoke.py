@@ -275,7 +275,26 @@ then the bf16 programs:
     shape, the plain bf16 version and the bf16 bound (operations at 989 TFLOP/s, or bytes); the
     Navier-Stokes ode, dual and validation steps and the 8 x 20 forecast in both modes (the
     forecasts' rel-L2); one nef step with ``nef.backend=pallas`` in bf16 against the same step
-    through the plain bf16 composition, with the same gates.
+    through the plain bf16 composition, with the same gates;
+
+then the repo's trained models:
+
+36. the four trained JAX runs of ``results/ckpt``, exported as numpy files under ``weights/``
+    (``tools/export_jax_checkpoint.py``: parameters and JAX's own outputs for seeded inputs) and
+    served by ``Forecaster.from_jax_export`` (``ns8192_s0``, ``diff_plane_full_s0``,
+    ``sw_full_s1``, ``ihc_full_s0``): (a) two seeded latent sets decoded on the whole grid eagerly
+    and by K1's f32 program, each within rel-L2 1e-5 of JAX's f32 decode, and by its bf16 program,
+    held with phase 35's gates against the plain bf16 and f32 versions on the same trained inputs,
+    its distances from JAX's bf16 and f32 decodes printed beside JAX's own gap; (b) the forecast of
+    the two JAX fields with JAX's inner-loop masks on ``xla`` within 1e-3 of JAX's, and on
+    ``pallas`` held with phase 35's gates against the plain bf16 decode of its rollout; (c) the
+    validation (``val_step``) on the test trajectories generated on the card by phases 7 (8 NS
+    signals), 18 (4 of shallow water) and 24 (2 of ``ihc``), kept on the host, and on 32 of
+    ``diffusion_plane`` generated here: in-t MSE within 2x of the run's recorded
+    ``val_mse_in_t`` where the split has 8 signals or more (NS, ``diffusion_plane``), printed
+    beside it for the others. Each run counted (K1's launches zeroed just before it, held to the
+    decode's chunks) and timed warm; K1's f32 program timed at the decode's launch shape and its
+    bf16 program (``k1_bf16_check``) at validation's, on the trained weights.
 
 Every K2 phase (5, 17, 20, 27, 30, 31, 34) repeats one launch with the tail and weight
 gradients and requires the same bits (and the same bits of the six latent gradients without
@@ -290,7 +309,9 @@ timed at, with its launches at that shape (and mode) on the paths the script dro
 programs at phase 35's shapes with phase 35's numbers (``f32_ms``: the f32 program at the same
 shape), the f32 programs at the shapes of the phases that ran ``pallas_interpret`` (phases 4, 5,
 17, 20 and 27's numbers); ``bound_ms`` is that of the program's route (3xTF32 or bf16 on the tensor
-cores, or bytes where they take longer). Last, ``{"ok": true, "device": {...}}``.
+cores, or bytes where they take longer); then K1's two programs on each trained run of phase 36,
+with every launch of its decode, forecast and validation (``launches_by_shape``), timed at one of
+those shapes. Last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
 Every f32 check: rel-L2 <= 1e-5 against the plain version (K2 reduces its sums
 deterministically, in another order than autograd: no atomics); every bf16 check: phase 35's gates.
@@ -346,7 +367,7 @@ from enf_pde_tpu_torch.data.shallow_water import (
 from enf_pde_tpu_torch.experiments.fit import run_experiment, super_resolution_eval
 from enf_pde_tpu_torch.geometry.invariants import get_ca_invariant, get_sa_invariant
 from enf_pde_tpu_torch.inference import Forecaster
-from enf_pde_tpu_torch.models.decoder import decode_chunked
+from enf_pde_tpu_torch.models.decoder import decode_chunked, decode_trajectories
 from enf_pde_tpu_torch.models.latents import latents_to_pose
 from enf_pde_tpu_torch.models.transformer import EquivariantTransformer
 from enf_pde_tpu_torch.ops import cuda_lib
@@ -461,6 +482,19 @@ WORLD_TOL = 1e-6  # rel-L2, a rank's step against this process's on the same row
 WORLD_DIR = OUT_DIR / "world"
 SPLIT_STEPS = 1000  # Navier-Stokes steps held split against complex
 SPLIT_TOL = 1e-4  # their rel-L2 (f32 matmul DFT against cuFFT, after 1,000 steps)
+# Phase 36: the repo's trained JAX runs, exported by tools/export_jax_checkpoint.py under weights/.
+TRAINED_RUNS = ("ns8192_s0", "diff_plane_full_s0", "sw_full_s1", "ihc_full_s0")
+WEIGHTS_DIR = Path(__file__).resolve().parent / "weights"
+TRAINED_TOL = 1e-5  # rel-L2 of eager and the f32 K1 against JAX's f32 decode (the CPU's worst: 4.9e-6)
+# rel-L2 of the xla forecast against JAX's: the fit, the rollout and the decode compound the sum
+# orders (the CPU's worst: 5.1e-6, tests/test_torch_trained_export.py).
+TRAINED_FORECAST_TOL = 1e-3
+# The in-t validation MSE within this factor of the run's record (its last validation over its own
+# test split), where the test trajectories number MSE_GATED_SIGNALS or more; else printed beside it.
+MSE_FACTOR, MSE_GATED_SIGNALS = 2.0, 8
+# The earlier phases' test trajectories, kept on the host for phase 36 (the data directories are
+# removed after their phases): dataset name -> [n, frames, *spatial, channels].
+TEST_SPLITS = {}
 
 
 def log(msg: str) -> None:
@@ -1029,6 +1063,7 @@ def data_phase(dev) -> dict:
         f"{field_rel:.3e}; 1000 solver steps card vs CPU rel_l2 {solver_rel:.3e} (tol {SOLVER_TOL:g})")
     if not (field_rel <= SOLVER_TOL and solver_rel <= SOLVER_TOL):
         raise AssertionError(f"card and CPU solvers disagree: {field_rel:.3e}, {solver_rel:.3e}")
+    keep_test_split("navier_stokes", DATA_DIR, VAL_SIGNALS)
     return {"block_s": block_s, "steps": steps}
 
 
@@ -1165,7 +1200,6 @@ def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
     random weights: K1's launches in the first call against the decode's chunks, the
     output's shape and finiteness, the median of warm calls and of each stage, and the
     decoded field against the plain decode of the same latents."""
-    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
     fc, init_s = sync_time(lambda: Forecaster(cfg, coords, device="cuda"))
     log(f"[{tag}] Forecaster built on {fc.device} (random weights, seed {SEED}) in {init_s:.3f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -1208,11 +1242,8 @@ def forecast_phase(cfg, coords: np.ndarray, frames, tag: str) -> dict:
     xs = fc.trainer.coords[None].expand(pb * tb, -1, -1)
     with torch.no_grad():
         folded = dec.fold(*flat)
-        plain = {dt: decode_chunked(
-            lambda xc, pp, aa, ww: fused_decode_plain(*dec.kernel_geometry(xc, pp, ww), *folded,
-                                                      num_heads=H, head_dim=D, compute_dtype=dt),
-            xs, *flat, chunk_size=chunk,
-        ).reshape(field.shape) for dt in (BF16, torch.float32)}
+    plain = {dt: plain_decode(dec, fc.trainer.coords, flat, chunk, dt).reshape(field.shape)
+             for dt in (BF16, torch.float32)}
     # The forecast decodes on the YAML's pallas: K1's bf16 program, held as phase 35 holds it.
     err = bf16_gates(f"{tag} forecast decode (bf16) vs plain decode", field, plain[BF16], plain[torch.float32],
                      absolute=True)["max_abs_err"]
@@ -1580,6 +1611,7 @@ def sw_phase(dev) -> dict:
         "training.ode.train_until_epoch=3", "test.test_interval=3", "test.test_dp_interval=3"],
         ["nef", "nef+ode", "ode"], coords, eqv_kinds=("longitude",))
     fc = forecast_phase(cfg, coords, train["frames"], name)
+    keep_test_split(name, data, SW_SIGNALS)
     shutil.rmtree(data)  # the generated data is not kept: the output directory stays small
     torch.cuda.empty_cache()
     k2 = kernels["k2"]
@@ -1893,6 +1925,7 @@ def ihc_phase(dev) -> dict:
         raise AssertionError(f"ball equivariance errors {errs}")
     del loop, state, trainer, decoder
     fc = forecast_phase(cfg, coords, train["frames"], name)
+    keep_test_split(name, data, IHC_SIGNALS)
     shutil.rmtree(data)  # the generated data is not kept: the output directory stays small
     torch.cuda.empty_cache()
     log(f"[phase 23-25] ihc in {time.perf_counter() - t0:.2f} s")
@@ -3233,12 +3266,233 @@ def bf16_phase(dev) -> dict:
     return {"timing": res, "medians": medians, "forecast_rel": fc_rel, "witness": witness, "k1_wide": k1_wide}
 
 
-def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16) -> list:
+# ----------------------------------------------------------------- phase 36
+
+
+def keep_test_split(name: str, path: Path, n: int) -> None:
+    """Keep the ``n`` test trajectories of experiment ``name`` that a data phase generated under
+    ``path``, as its test loader yields them (frames cut, pooled to the dataset's grid), on the
+    host in TEST_SPLITS under the dataset's name: phase 36 validates the trained runs on them
+    after the data directories are gone."""
+    cfg = load_experiment_config(name, [f"dataset.path={path}", f"dataset.num_signals_test={n}",
+                                        "dataset.batch_size=1"])
+    _, test = get_dataloader(cfg.dataset, device="cpu")
+    TEST_SPLITS[cfg.dataset.name] = np.concatenate([np.asarray(batch[0]) for batch in test])
+
+
+def trained_test_split(dataset: str, n: int, dev) -> np.ndarray:
+    """The test trajectories phase 36 validates a run of ``dataset`` on: those an earlier phase kept
+    (TEST_SPLITS), or else the run's own ``n`` generated on the card into a fresh directory, removed
+    after (``diffusion_plane``'s 32: its phase generated 8, in under a second)."""
+    kept = TEST_SPLITS.get(dataset)
+    if kept is not None:
+        return kept
+    path = fresh_dir(OUT_DIR / f"trained_{dataset}_data")
+    cfg = load_experiment_config(dataset, [f"dataset.path={path}", f"dataset.num_signals_test={n}",
+                                           "dataset.batch_size=1"])
+    _, test = get_dataloader(cfg.dataset, device=str(dev))
+    gen_s = sync_time(test.ensure_all)[1]
+    split = np.concatenate([np.asarray(batch[0]) for batch in test])
+    shutil.rmtree(path)
+    log(f"[phase 36] {dataset}: {n} test trajectories generated on the card in {gen_s:.2f} s "
+        "(no earlier phase kept its test split)")
+    return split
+
+
+def repeated_frames(traj, b: int) -> list:
+    """The frames of latent trajectories (p, a, w), each [n, T, ...], flattened and repeated to ``b``."""
+    flat = [t.reshape(-1, *t.shape[2:]) for t in traj]
+    reps = -(-b // flat[0].shape[0])
+    return [t.repeat(reps, *([1] * (t.dim() - 1)))[:b] for t in flat]
+
+
+def plain_decode(dec, coords: torch.Tensor, frames, chunk: int, dtype, sums=torch.float32) -> torch.Tensor:
+    """K1's plain version decoding latent frames ``(p, a, w)`` [b, ...] at every point of ``coords``
+    in chunks of ``chunk``, with ``dtype``'s roundings and its inputs (so its sums) in ``sums``
+    (float64: the exact function of those roundings); [b, points, out] in f32."""
+    folded = [[t.to(sums) for t in f] if isinstance(f, (list, tuple)) else f.to(sums) for f in dec.fold(*frames)]
+
+    def apply(xc, pp, aa, ww):
+        geometry = [t.to(sums) for t in dec.kernel_geometry(xc, pp, ww)]
+        return fused_decode_plain(*geometry, *folded, num_heads=dec.num_heads, head_dim=dec.num_hidden,
+                                  compute_dtype=dtype).float()
+    with torch.no_grad():
+        return decode_chunked(apply, coords[None].expand(frames[0].shape[0], -1, -1), *frames, chunk_size=chunk)
+
+
+def k1_f32_timing(cfg, args, label: str) -> dict:
+    """K1's f32 program at ``args`` against its plain version (REL_L2_TOL), timed beside it and the
+    3xTF32 bound, its shared weights split once as a decode splits them."""
+    H, D = cfg.nef.num_heads, cfg.nef.num_hidden
+    with torch.no_grad():
+        got = fused_decode_fwd(*args, num_heads=H, head_dim=D)
+        err = check_close(f"K1 {label}", got, fused_decode_plain(*args, num_heads=H, head_dim=D))
+        split = shared_weights(args[6])
+        ms = cuda_ms(lambda: fused_decode_fwd(*args, num_heads=H, head_dim=D, split=split), iters=20)
+        p_ms = cuda_ms(lambda: fused_decode_plain(*args, num_heads=H, head_dim=D), iters=3, warmup=1)
+    bd = k1_bounds(cfg, args, got)
+    log(f"[timing] K1 {label}: {ms:.4f} ms; plain {p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+        f"(3xTF32 tensor cores {bd['tc_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms)")
+    return dict(ms=ms, plain_ms=p_ms, max_abs_err=err, **bd)
+
+
+def trained_run_phase(run: str, dev) -> dict:
+    """36 for one trained JAX run, served from ``weights/<run>`` by ``Forecaster.from_jax_export``
+    (the fit on the eager decoder, the decode on K1's bf16 program; a second one on ``xla``):
+    (a) the two reference latent sets decoded eagerly, by the f32 K1 and by the bf16 K1: eager and the
+    f32 K1 within TRAINED_TOL of JAX's f32 decode, the bf16 K1 against the plain bf16 and f32
+    versions on the same inputs with phase 35's gates, and its distances from JAX's bf16 and f32
+    decodes printed beside JAX's own bf16-f32 gap; (b) the forecast from the reference fields with
+    JAX's masks on ``xla`` within TRAINED_FORECAST_TOL of JAX's, and on ``pallas`` held with phase
+    35's gates against the plain bf16 decode of the same rollout; (c) validation (``val_step``)
+    on the test trajectories the earlier phases generated on the card, its in-t MSE within
+    MSE_FACTOR of the run's record where the split has MSE_GATED_SIGNALS signals or more. Every
+    run counted with K1's launches zeroed just before it (``launches_by_program``, held to the
+    decode's chunks) and timed warm (median of WARM_REPEATS); K1's f32 program timed at the
+    decode's launch shape and its bf16 program (``k1_bf16_check``) at validation's, on the
+    trained weights and rolled-out latents. Returns the kernels line's two entries."""
+    t0 = time.perf_counter()
+    path = WEIGHTS_DIR / run
+    with np.load(path / "reference.npz", allow_pickle=False) as f:
+        ref = {k: f[k] for k in f.files}
+    fc, load_s = sync_time(lambda: Forecaster.from_jax_export(path))
+    fc_xla = Forecaster.from_jax_export(path, backend="xla")
+    cfg, record, coords = fc.cfg, fc.record, fc.trainer.coords
+    dec = fc.trainer.decoder
+    H, D, chunk, Z = cfg.nef.num_heads, cfg.nef.num_hidden, cfg.training.max_num_sampled_points, cfg.nef.num_latents
+    I, n_chunks = get_ca_invariant(cfg.nef).dim, -(-coords.shape[0] // chunk)
+    tag = f"trained {run}"
+    log(f"[{tag}] {cfg.dataset.name} epoch {record['epoch']}: Forecaster.from_jax_export in {load_s:.3f} s on "
+        f"{fc.device} (H={H}, hid={D}, z={Z}, I={I}, {coords.shape[0]} points in {n_chunks} chunks of {chunk})")
+    launches, medians = Counter(), {}
+
+    def counted(name: str, fn, b: int, dtype, runs: int = 1):
+        """``fn()`` with K1's counts set to 0 just before it and read just after (``runs`` x the decode's
+        chunks at ``(dtype, b, Z, chunk, I)``, no K2), then its warm median."""
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = Counter(fused_decode_fwd.launches_by_program)
+        want = Counter({(dtype, b, Z, chunk, I): runs * n_chunks} if dtype is not None else {})
+        if got != want or fused_decode_bwd.launches:
+            raise AssertionError(f"{tag} {name}: K1 launched {dict(got)} (expected {dict(want)}), K2 "
+                                 f"{fused_decode_bwd.launches} times")
+        launches.update(got)
+        medians[name] = statistics.median(sync_time(fn)[1] * 1e3 for _ in range(WARM_REPEATS))
+        return out
+
+    # (a) The two reference latent sets on the whole grid.
+    traj = tuple(torch.from_numpy(ref[k]).to(dev)[:, None] for k in ("p", "a", "window"))
+    j32, j16 = (torch.from_numpy(ref[k]).to(dev) for k in ("decode_f32", "decode_bf16"))
+    got = {backend: counted(f"decode {backend}", lambda: decode_trajectories(dec, backend, coords, traj, chunk)[:, 0],
+                            2, dtype)
+           for backend, dtype in (("eager", None), (F32_KERNELS, torch.float32), ("kernel", BF16))}
+    flat = [t[:, 0] for t in traj]
+    plain = {dt: plain_decode(dec, coords, flat, chunk, dt) for dt in (BF16, torch.float32)}
+    x16 = plain_decode(dec, coords, flat, chunk, BF16, sums=torch.float64)
+    errs = {b: rel_l2(got[b], j32) for b in ("eager", F32_KERNELS)}
+    log(f"[{tag}] (a) decode of 2 x {coords.shape[0]} points against JAX's f32: eager {errs['eager']:.3e}, f32 K1 "
+        f"{errs[F32_KERNELS]:.3e} (tol {TRAINED_TOL:g}); bf16 K1 to JAX's bf16 {rel_l2(got['kernel'], j16):.3e}, to "
+        f"JAX's f32 {rel_l2(got['kernel'], j32):.3e}, JAX's own bf16-f32 gap {rel_l2(j16, j32):.3e} (the TPU record at "
+        "random weights, 1.115e-2, results/r3/pallas_parity_tpu.txt; no gate); warm medians " + ", ".join(
+            f"{b} {medians[f'decode {b}']:.3f} ms" for b in got))
+    if max(errs.values()) > TRAINED_TOL:
+        raise AssertionError(f"{tag}: the port's f32 decode lies {errs} from JAX's")
+    gates = bf16_gates(f"{tag} decode (bf16 K1) vs plain decode", got["kernel"], plain[BF16], plain[torch.float32],
+                       absolute=True)
+    x_gap = rel_l2(x16, plain[torch.float32])
+    log(f"[{tag}] (a) against the exact bf16 function (the plain bf16 version with float64 sums; its gap from f32 "
+        f"{x_gap:.3e}), in gaps: bf16 K1 {rel_l2(got['kernel'], x16) / x_gap:.3f}, plain bf16 "
+        f"{rel_l2(plain[BF16], x16) / x_gap:.3f}, JAX's bf16 {rel_l2(j16, x16) / x_gap:.3f} (no gate)")
+
+    # (b) The forecast from the reference fields, with JAX's inner-loop masks.
+    frames, masks = torch.from_numpy(ref["decode_f32"]).to(dev), ref["forecast_masks"]
+    T = ref["forecast"].shape[1]
+    want = torch.from_numpy(ref["forecast"]).to(dev)
+    xla = counted("forecast xla", lambda: fc_xla.forecast(frames, num_frames=T, masks=masks), 0, None)
+    pallas = counted("forecast pallas", lambda: fc.forecast(frames, num_frames=T, masks=masks), 2 * T, BF16)
+    # The same path stage by stage, to hold its decode against the plain decode of its rollout.
+    roll = fc.rollout(fc.fit(frames, masks=masks), T)
+    field = counted("forecast pallas decode", lambda: fc.decode(roll), 2 * T, BF16)
+    fl = [t.reshape(2 * T, *t.shape[2:]) for t in roll]
+    plain = {dt: plain_decode(dec, coords, fl, chunk, dt).reshape(field.shape) for dt in (BF16, torch.float32)}
+    fc_err = rel_l2(xla, want)
+    log(f"[{tag}] (b) forecast of 2 fields x {T} frames: xla against JAX's {fc_err:.3e} (tol {TRAINED_FORECAST_TOL:g}); "
+        f"pallas (bf16 K1) against JAX's {rel_l2(pallas, want):.3e} (against its stages' decode "
+        f"{rel_l2(pallas, field):.3e}); warm medians xla "
+        f"{medians['forecast xla']:.2f} ms, pallas {medians['forecast pallas']:.2f} ms (its decode "
+        f"{medians['forecast pallas decode']:.2f} ms)")
+    if not fc_err <= TRAINED_FORECAST_TOL:
+        raise AssertionError(f"{tag}: the xla forecast lies {fc_err:.3e} from JAX's")
+    fc_gates = bf16_gates(f"{tag} forecast decode (bf16 K1) vs plain decode", field, plain[BF16], plain[torch.float32],
+                          absolute=True)
+
+    # (c) Validation on the test trajectories generated on the card.
+    split = trained_test_split(cfg.dataset.name, cfg.dataset.num_signals_test, dev)
+    bs = min(cfg.dataset.batch_size, len(split))
+    batches = [torch.from_numpy(split[i:i + bs]).to(dev) for i in range(0, len(split) - bs + 1, bs)]
+    t_total = min(cfg.dataset.traj_len_train + cfg.dataset.traj_len_out_horizon, split.shape[1])
+
+    def validate():
+        return [fc.trainer.val_step(fc.state, b, batch_idx=i) for i, b in enumerate(batches)]
+
+    per = [tuple(float(v) for v in mse) for mse in counted("validation", validate, bs * t_total, BF16, len(batches))]
+    mse_in, mse_out = (statistics.fmean(v[k] for v in per) for k in (0, 1))
+    rec_in, rec_out = record["metrics"]["val_mse_in_t"], record["metrics"]["val_mse_out_t"]
+    gated = len(split) >= MSE_GATED_SIGNALS
+    log(f"[{tag}] (c) validation on {len(split)} test trajectories generated on the card ({len(batches)} batches of "
+        f"{bs}, {t_total} frames): in-t MSE {mse_in:.4e} (the run's record {rec_in:.4e} over "
+        f"{cfg.dataset.num_signals_test} signals, ratio {mse_in / rec_in:.3f}"
+        f"{f', gate 1/{MSE_FACTOR:g} .. {MSE_FACTOR:g}' if gated else ', not gated: fewer than 8 signals'}), out-t "
+        f"{mse_out:.4e} (record {rec_out:.4e}); per batch in-t " + ", ".join(f"{v[0]:.3e}" for v in per)
+        + f"; warm median {medians['validation']:.2f} ms")
+    if gated and not 1 / MSE_FACTOR <= mse_in / rec_in <= MSE_FACTOR:
+        raise AssertionError(f"{tag}: in-t MSE {mse_in:.4e} is not within {MSE_FACTOR:g}x of the record {rec_in:.4e}")
+
+    # K1 at this run's launch shapes, on its trained weights and rolled-out latents.
+    b_val = bs * t_total
+    with torch.no_grad():
+        xs = coords[None, :chunk]
+        f32 = k1_f32_timing(cfg, dec.kernel_inputs(xs.expand(2, -1, -1), *flat), f"{tag} decode b=2 z={Z} c={chunk}")
+        val = k1_bf16_check(cfg, dec.kernel_inputs(xs.expand(b_val, -1, -1), *repeated_frames(roll, b_val)),
+                            f"{tag} validation b={b_val} z={Z} c={chunk}")
+    val["max_abs_err"] = max(val["max_abs_err"], gates["max_abs_err"], fc_gates["max_abs_err"])
+    log(f"[phase 36] {run} in {time.perf_counter() - t0:.2f} s; K1 launches " + ", ".join(
+        f"{'bf16' if k[0] == BF16 else 'f32'} b={k[1]} z={k[2]} c={k[3]} I={k[4]}: {n}" for k, n in launches.items()))
+    entries = []
+    for dtype, nums, shape in ((BF16, val, f"validation b={b_val}"), (torch.float32, f32, "decode b=2")):
+        by_shape = {f"b={k[1]} z={k[2]} c={k[3]} I={k[4]}": n for k, n in launches.items() if k[0] == dtype}
+        entries.append({
+            "name": "fused_decode_fwd" + ("_bf16" if dtype == BF16 else ""),
+            "shape": f"{run} trained weights ({cfg.dataset.name}), timed at the {shape} z={Z} c={chunk} I={I}",
+            "route": "cuda", "source": f"enf_pde_tpu_torch/csrc/{KERNEL_SOURCE_BF16 if dtype == BF16 else KERNEL_SOURCE}",
+            "replaces": "enf_pde_tpu/ops/pallas_decode.py:548", "launches": sum(by_shape.values()),
+            "launches_by_shape": by_shape, "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],
+            "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
+            "library_ms": None, **({"f32_ms": nums["f32_ms"]} if dtype == BF16 else {})})
+    del fc, fc_xla
+    torch.cuda.empty_cache()
+    return {"entries": entries, "mse_in": mse_in, "record_in": rec_in, "medians": medians}
+
+
+def trained_phase(dev) -> dict:
+    """36. The repo's four trained JAX runs (``weights/``, exported by ``tools/export_jax_checkpoint.py``
+    from ``results/ckpt``) served on the card: ``trained_run_phase`` for each of TRAINED_RUNS."""
+    t0 = time.perf_counter()
+    res = {run: trained_run_phase(run, dev) for run in TRAINED_RUNS}
+    log(f"[phase 36] {len(res)} trained runs in {time.perf_counter() - t0:.2f} s: in-t MSE / record " + ", ".join(
+        f"{run} {r['mse_in']:.4e} / {r['record_in']:.4e}" for run, r in res.items()))
+    return res
+
+
+def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16, trained) -> list:
     """The kernels line: each program of K1 and K2 at the shapes it was held and timed at, with its
     launches at that shape (and mode) in the paths the script drove (PATH_LAUNCHES): the bf16
     programs on the YAMLs' ``pallas`` paths (phase 35's numbers), the f32 programs on the phases that
-    ran ``pallas_interpret`` (6, 17, 22, 26, 27, 35; phases 4, 5, 17, 20 and 27's numbers). Fails
-    unless every program was launched on a path and every listed entry has launches."""
+    ran ``pallas_interpret`` (6, 17, 22, 26, 27, 35; phases 4, 5, 17, 20 and 27's numbers); then K1's
+    two programs on each trained run's paths (phase 36's entries: every launch of its decode, forecast
+    and validation, by shape, timed at one of them). Fails unless every program was launched on a
+    path and every listed entry has launches."""
     Zn, In = cfg.nef.num_latents, get_ca_invariant(cfg.nef).dim
     f32 = torch.float32
     entries = []
@@ -3286,9 +3540,12 @@ def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16) -> list:
         mode = f" {'with' if wg[0] else 'without'} weight gradients" if wg else ""
         entry(kernel, BF16, f"{name} {' '.join(over)} b={b} z={Z} c={c} I={I}{mode}".replace("  ", " "),
               (b, Z, c, I, *wg), nums)
+    trained = [e for run in trained.values() for e in run["entries"]]  # phase 36's, counted there
+    entries += trained
     for kernel in ("K1", "K2"):
         for dtype in (BF16, f32):
-            n = sum(v for k, v in PATH_LAUNCHES.items() if k[:2] == (kernel, dtype))
+            n = sum(v for k, v in PATH_LAUNCHES.items() if k[:2] == (kernel, dtype)) + sum(
+                e["launches"] for e in trained if kernel == "K1" and e["name"].endswith("_bf16") == (dtype == BF16))
             listed = sum(e["launches"] for e in entries if e["name"].startswith(
                 "fused_decode_fwd" if kernel == "K1" else "fused_decode_bwd") and e["name"].endswith("_bf16") == (dtype == BF16))
             log(f"[kernels] {kernel} {'bf16' if dtype == BF16 else 'f32'}: {n} launches on the paths, {listed} at the "
@@ -3476,9 +3733,11 @@ def main() -> int:
     k2_configs_phase(dev)
     # 35. The bf16 programs at every launch shape of the paths above; the steps and forecast in both modes.
     bf16 = bf16_phase(dev)
+    # 36. The repo's trained JAX runs served on the card: decode, forecast and validation on K1.
+    trained = trained_phase(dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
-    kernels = kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16)
+    kernels = kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16, trained)
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,16 +11,25 @@ directly, with the leaf renamed:
   the port's ``Dense.weight`` is ``[out, in]`` like ``nn.Linear``);
 - ``scale`` -> ``weight`` (LayerNorm);
 - ``bias`` and ``coefficients`` (RFF buffer) keep their names.
+
+``load_jax_export`` reads a trained JAX run that ``tools/export_jax_checkpoint.py`` wrote as
+numpy files (``config.json``, ``params.npz`` keyed by the flax paths joined with ``/``), with
+numpy alone: the orbax checkpoint itself needs JAX, orbax and zstd.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import json
+from pathlib import Path
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "convert_params"]
+from enf_pde_tpu_torch.builders import build_models
+from enf_pde_tpu_torch.config import Config
+
+__all__ = ["flax_to_state_dict", "convert_params", "export_leaves", "load_jax_export"]
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias", "coefficients": "coefficients"}
 
@@ -63,3 +72,50 @@ def convert_params(params: Mapping) -> dict:
         "autodecoder": as_tensors(params["autodecoder"]),
         "meta_sgd_lrs": as_tensors(params["meta_sgd_lrs"]) if "meta_sgd_lrs" in params else None,
     }
+
+
+def export_leaves(cfg: Config) -> set:
+    """The ``/``-joined flax paths of every leaf a JAX run of ``cfg`` holds in ``state.params``:
+    the decoder's and the ODE's (from the port's modules, each leaf by its flax name), the latent
+    init's and, for a meta-SGD run, the inner learning rates'."""
+    decoder, ode = build_models(cfg)
+    leaves = set()
+    for group, module in (("nef", decoder), ("ode", ode)):
+        for name in module.state_dict():
+            *path, leaf = name.split(".")
+            if leaf == "weight":
+                owner = module.get_submodule(".".join(path))
+                leaf = "scale" if isinstance(owner, torch.nn.LayerNorm) else "kernel"
+            leaves.add("/".join((group, "params", *path, leaf)))
+    latents = ["p_pos", "a", "gaussian_window"] + (["p_ori"] if decoder.cross_attn_invariant.num_z_ori_dims else [])
+    groups = ("autodecoder", "meta_sgd_lrs") if cfg.get_path("meta.meta_sgd", True) else ("autodecoder",)
+    return leaves | {f"{group}/{k}" for group in groups for k in latents}
+
+
+def load_jax_export(path) -> Tuple[Config, dict, dict]:
+    """A JAX run exported by ``tools/export_jax_checkpoint.py`` under ``path``.
+
+    Returns ``(config, params, record)``: the run's config, its parameters through
+    ``convert_params`` (the input of ``MetaSGDTrainer.load_state``, or of
+    ``AutodecodingTrainer.load_state`` for an autodecoding run), and the rest of
+    ``config.json`` (``run``, ``epoch``, ``metrics``: the run's last validation line).
+    Raises ``KeyError`` naming a leaf of ``params.npz`` that the config's models do not have,
+    or one they need that it lacks.
+    """
+    path = Path(path)
+    record = json.loads((path / "config.json").read_text())
+    cfg = Config(record.pop("config"))
+    with np.load(path / "params.npz", allow_pickle=False) as f:
+        flat = {key: f[key] for key in f.files}
+    odd = sorted(set(flat) ^ export_leaves(cfg))
+    if odd:
+        raise KeyError(f"{path / 'params.npz'}: " + "; ".join(
+            f"{'unexpected' if key in flat else 'missing'} leaf {key}" for key in odd))
+    tree: dict = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return cfg, convert_params(tree), record

@@ -5,7 +5,8 @@ meta-SGD inner loop (on ``nef.backend``: the eager decoder, or the fused kernels
 K2), roll them forward with the latent ODE, and decode the forecast at any coordinate
 set through the fused decode kernel (``nef.eval_backend``), in coordinate chunks of
 ``max_num_sampled_points`` that share one weight fold. ``Forecaster.from_checkpoint``
-serves a training run from its log directory. Where a process group of several ranks is
+serves a training run of the port from its log directory, ``Forecaster.from_jax_export`` a
+trained JAX run exported as numpy files (``tools/export_jax_checkpoint.py``). Where a process group of several ranks is
 initialised (``torchrun``), the decode shards the coordinates over the ranks
 (``parallel.mesh.sharded_decode``): each rank fits and rolls out the whole batch and
 decodes its share of the points.
@@ -13,6 +14,7 @@ decodes its share of the points.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from enf_pde_tpu_torch.builders import build_models
 from enf_pde_tpu_torch.config import Config
+from enf_pde_tpu_torch.convert import load_jax_export
 from enf_pde_tpu_torch.ops.fused_decode import strict_fp32
 from enf_pde_tpu_torch.parallel.mesh import make_mesh
 from enf_pde_tpu_torch.train.checkpoint import CheckpointManager
@@ -49,6 +52,7 @@ class Forecaster:
         fc = Forecaster(load_experiment_config("navier_stokes"), planar_coords(64, 64))
         forecast = fc.forecast(frames, num_frames=20)   # [b, 20, 4096, 1]
         fc = Forecaster.from_checkpoint("outputs/navier_stokes", cfg, planar_coords(64, 64))
+        fc = Forecaster.from_jax_export("weights/ns8192_s0")   # a trained JAX run
     """
 
     def __init__(self, cfg: Config, coords: np.ndarray, params: Optional[dict] = None,
@@ -79,6 +83,27 @@ class Forecaster:
         the eager decoder, the forecast's decode on K1)."""
         fc = cls(cfg, coords, device=device, backend=backend)
         fc.state, _ = CheckpointManager(log_dir).restore(fc.trainer)
+        return fc
+
+    @classmethod
+    def from_jax_export(cls, path: str, coords: Optional[np.ndarray] = None, device="cuda",
+                        backend: Optional[str] = "pallas", coord_mesh="auto") -> "Forecaster":
+        """Serve a trained meta-SGD JAX run exported under ``path`` by
+        ``tools/export_jax_checkpoint.py``, with numpy alone (``convert.load_jax_export``): the
+        run's config, its decoder, ODE, latent init and inner learning rates
+        (``MetaSGDTrainer.load_state``), and the grid ``coords`` (default ``reference.npz``'s
+        training grid). ``backend``, ``device`` and ``coord_mesh`` as in the constructor: by
+        default the fit on the eager decoder and the forecast's decode on K1 (``pallas``: its
+        bf16 program on the card; ``pallas_interpret``: its f32 one; ``xla``: eager). The
+        export's ``run``, ``epoch`` and ``metrics`` are ``record``."""
+        cfg, params, record = load_jax_export(path)
+        if params["meta_sgd_lrs"] is None:
+            raise ValueError(f"{path} is an autodecoding run; a Forecaster serves meta-SGD runs")
+        if coords is None:
+            with np.load(Path(path) / "reference.npz", allow_pickle=False) as ref:
+                coords = ref["coords"]
+        fc = cls(cfg, coords, params=params, device=device, backend=backend, coord_mesh=coord_mesh)
+        fc.record = record
         return fc
 
     def fit(self, frames, dp: float = 0.0, masks=None):

@@ -472,16 +472,20 @@ def test_k1_layout_mirror_refuses_what_layout_refuses():
 
 
 def test_package_imports_no_jax():
-    """The port and chip_smoke.py stay importable where jax/flax/optax/orbax/yaml are absent."""
+    """The port and chip_smoke.py stay importable where jax/flax/optax/orbax/yaml are absent, and a
+    trained JAX run's export loads and serves there (``Forecaster.from_jax_export`` on the CPU)."""
     import subprocess
     import sys
 
     root = Path(__file__).resolve().parents[1]
     code = (
         "import sys\n"
-        "for n in ('jax', 'flax', 'optax', 'orbax', 'yaml'):\n"
+        "for n in ('jax', 'flax', 'optax', 'orbax', 'yaml', 'tensorstore', 'zstandard'):\n"
         "    sys.modules[n] = None\n"
         "import enf_pde_tpu_torch, enf_pde_tpu_torch.inference, enf_pde_tpu_torch.convert, chip_smoke\n"
+        "cfg, params, record = enf_pde_tpu_torch.convert.load_jax_export('weights/ns8192_s0')\n"
+        "fc = enf_pde_tpu_torch.inference.Forecaster.from_jax_export('weights/ns8192_s0', device='cpu')\n"
+        "assert fc.record['epoch'] == 30 and params['meta_sgd_lrs'] is not None\n"
         "assert not any(m == 'enf_pde_tpu' or m.startswith('enf_pde_tpu.') for m in sys.modules)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
