@@ -26,10 +26,11 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from enf_pde_tpu_torch.builders import build_models
+from enf_pde_tpu_torch.builders import build_models, coordinate_system_for
 from enf_pde_tpu_torch.config import Config
+from enf_pde_tpu_torch.models.latents import init_latents
 
-__all__ = ["flax_to_state_dict", "convert_params", "export_leaves", "load_jax_export"]
+__all__ = ["flax_to_state_dict", "convert_params", "nest", "check_leaves", "load_jax_export"]
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias", "coefficients": "coefficients"}
 
@@ -74,22 +75,33 @@ def convert_params(params: Mapping) -> dict:
     }
 
 
-def export_leaves(cfg: Config) -> set:
-    """The ``/``-joined flax paths of every leaf a JAX run of ``cfg`` holds in ``state.params``:
-    the decoder's and the ODE's (from the port's modules, each leaf by its flax name), the latent
-    init's and, for a meta-SGD run, the inner learning rates'."""
+def nest(flat: Mapping[str, object]) -> dict:
+    """``{'a/b/c': leaf}`` -> ``{'a': {'b': {'c': leaf}}}``: a tree from its ``/``-joined paths."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def check_leaves(cfg: Config, params: Mapping) -> None:
+    """Raise ``KeyError`` naming each leaf of ``params`` (``convert_params``'s output) that the
+    port's models and latents of ``cfg`` do not have, and each they need that it lacks: the
+    decoder's and the ODE's ``state_dict`` keys, the latent init's (``init_latents``) and, for a
+    meta-SGD config (``meta.meta_sgd``, default on), one inner learning rate for each latent."""
     decoder, ode = build_models(cfg)
-    leaves = set()
-    for group, module in (("nef", decoder), ("ode", ode)):
-        for name in module.state_dict():
-            *path, leaf = name.split(".")
-            if leaf == "weight":
-                owner = module.get_submodule(".".join(path))
-                leaf = "scale" if isinstance(owner, torch.nn.LayerNorm) else "kernel"
-            leaves.add("/".join((group, "params", *path, leaf)))
-    latents = ["p_pos", "a", "gaussian_window"] + (["p_ori"] if decoder.cross_attn_invariant.num_z_ori_dims else [])
-    groups = ("autodecoder", "meta_sgd_lrs") if cfg.get_path("meta.meta_sgd", True) else ("autodecoder",)
-    return leaves | {f"{group}/{k}" for group in groups for k in latents}
+    inv = decoder.cross_attn_invariant
+    latents = init_latents(1, cfg.nef.num_latents, cfg.nef.latent_dim, inv.num_z_pos_dims, inv.num_z_ori_dims,
+                           coordinate_system_for(cfg.dataset.name), cfg.nef.gaussian_window)
+    want = {"nef": decoder.state_dict(), "ode": ode.state_dict(), "autodecoder": latents,
+            "meta_sgd_lrs": latents if cfg.get_path("meta.meta_sgd", True) else {}}
+    odd = [f"{'unexpected' if key in (params[group] or ()) else 'missing'} {group} leaf {key}"
+           for group, names in want.items() for key in sorted(set(params[group] or ()) ^ set(names))]
+    if odd:
+        raise KeyError("; ".join(odd))
 
 
 def load_jax_export(path) -> Tuple[Config, dict, dict]:
@@ -100,22 +112,13 @@ def load_jax_export(path) -> Tuple[Config, dict, dict]:
     ``AutodecodingTrainer.load_state`` for an autodecoding run), and the rest of
     ``config.json`` (``run``, ``epoch``, ``metrics``: the run's last validation line).
     Raises ``KeyError`` naming a leaf of ``params.npz`` that the config's models do not have,
-    or one they need that it lacks.
+    or one they need that it lacks (``check_leaves``; a leaf name that no module has is
+    refused by ``flax_to_state_dict``).
     """
     path = Path(path)
     record = json.loads((path / "config.json").read_text())
     cfg = Config(record.pop("config"))
     with np.load(path / "params.npz", allow_pickle=False) as f:
-        flat = {key: f[key] for key in f.files}
-    odd = sorted(set(flat) ^ export_leaves(cfg))
-    if odd:
-        raise KeyError(f"{path / 'params.npz'}: " + "; ".join(
-            f"{'unexpected' if key in flat else 'missing'} leaf {key}" for key in odd))
-    tree: dict = {}
-    for key, value in flat.items():
-        *parents, leaf = key.split("/")
-        node = tree
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-    return cfg, convert_params(tree), record
+        params = convert_params(nest({key: f[key] for key in f.files}))
+    check_leaves(cfg, params)
+    return cfg, params, record

@@ -5,11 +5,15 @@
 seeded inputs). Here, for each of ``ns8192_s0`` (Navier-Stokes), ``diff_plane_full_s0``
 (``diffusion_plane``), ``ihc_full_s0`` (``ihc``) and ``sw_full_s1`` (``shallow_water_low_res``):
 
-- a fresh export of the run gives the committed ``params.npz``'s arrays bit for bit and the same
-  ``config.json`` (at Navier-Stokes also JAX's reference outputs again), for each run whose
-  checkpoint the checkout holds (``.gitattributes`` leaves three out of ``git archive`` exports);
+- the run's orbax checkpoint, restored afresh, gives the committed ``params.npz``'s arrays bit for
+  bit, the same ``config.json`` and the reference's grid (skipped, with the reason, where the
+  checkout lacks the checkpoint: ``.gitattributes`` leaves three out of ``git archive`` exports);
 - the files load with numpy alone (``allow_pickle=False``);
-- ``Forecaster.from_jax_export(device="cpu")`` decodes the reference latents to JAX's f32
+- the committed reference's latents are the tool's seeded draws from the committed latent init,
+  its grid is the registry's, and JAX's XLA decode of them under the committed weights, run live
+  here, gives the committed ``decode_f32`` within rel-L2 DECODE_TOL (at Navier-Stokes every
+  array of ``reference.npz`` is made again live, the bf16 decode and the forecast too);
+- ``Forecaster.from_jax_export(device="cpu")`` decodes the reference latents to that live JAX
   decode within rel-L2 DECODE_TOL, eagerly and through the kernel backend (its plain version on
   CPU tensors);
 - its ``xla`` forecast of the two reference fields (JAX's inner-loop masks) matches JAX's within
@@ -25,32 +29,33 @@ import re
 import shutil
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from enf_pde_tpu.builders import build_models as jax_build_models
+from enf_pde_tpu.config import Config as JaxConfig
 from enf_pde_tpu.config import load_experiment_config as jax_load_config
 from enf_pde_tpu.data import planar_coords as jax_planar_coords
+from enf_pde_tpu.data.registry import dataset_spec as jax_dataset_spec
 from enf_pde_tpu.train.autodecode import AutodecodingTrainer as JaxAutodecodingTrainer
 from enf_pde_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
 
 from enf_pde_tpu_torch.builders import build_models
-from enf_pde_tpu_torch.convert import load_jax_export
+from enf_pde_tpu_torch.convert import load_jax_export, nest
 from enf_pde_tpu_torch.inference import Forecaster
 from enf_pde_tpu_torch.models.decoder import decode_trajectories
 from enf_pde_tpu_torch.train.autodecode import AutodecodingTrainer
-from tools.export_jax_checkpoint import export_run
+from tools.export_jax_checkpoint import (export_record, export_run, flat_params, jax_decode, reference_arrays,
+                                         reference_latents, restore_run)
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 WEIGHTS, CKPT = ROOT / "weights", ROOT / "results" / "ckpt"
 RUNS = ("ns8192_s0", "diff_plane_full_s0", "ihc_full_s0", "sw_full_s1")
-# The runs re-exported from their orbax checkpoints: ns8192_s0 always (tests/test_torch_checkpoint.py
-# restores it too), the others where the checkout holds them (a full clone does; `git archive`
-# leaves them out, `.gitattributes`).
-EXPORTED = ("ns8192_s0", *(r for r in RUNS[1:] if (CKPT / r / "checkpoints").is_dir()))
+# JAX's decode made again here gave the committed decode_f32 bit for bit at all four runs.
 DECODE_TOL = 1e-5
 # The forecast: the inner SGD steps, the ODE's Euler steps and the decode compound the two
 # frameworks' f32 sum orders (the fit's gradients cross RFF ReLU kinks). Measured on the CPU:
@@ -76,22 +81,38 @@ def served(request):
     return run, Forecaster.from_jax_export(WEIGHTS / run, device="cpu", backend="xla"), npz(WEIGHTS / run / "reference.npz")
 
 
-@pytest.mark.parametrize("run", EXPORTED)
-def test_fresh_export_rebuilds_the_committed_files(run, tmp_path):
-    ns = run == "ns8192_s0"
-    export_run(CKPT / run, tmp_path, reference=ns)
-    want, got = npz(WEIGHTS / run / "params.npz"), npz(tmp_path / "params.npz")
+def jax_run(run):
+    """(JAX config, ``state.params``) of the committed export: the tree of ``params.npz``."""
+    record = json.loads((WEIGHTS / run / "config.json").read_text())
+    return JaxConfig(record["config"]), nest({k: jnp.asarray(v) for k, v in npz(WEIGHTS / run / "params.npz").items()})
+
+
+@pytest.mark.parametrize("run", RUNS)
+def test_fresh_export_rebuilds_the_committed_files(run):
+    if not (CKPT / run / "checkpoints").is_dir():
+        pytest.skip(f"results/ckpt/{run} is not in this checkout (.gitattributes leaves it out of `git archive`)")
+    cfg_dict, epoch, _, state, coords = restore_run(CKPT / run)
+    want, got = npz(WEIGHTS / run / "params.npz"), flat_params(state.params)
     assert sorted(got) == sorted(want)
     for key, arr in want.items():
         assert got[key].dtype == np.float32 and np.array_equal(got[key], arr), key
-    assert json.loads((tmp_path / "config.json").read_text()) == json.loads((WEIGHTS / run / "config.json").read_text())
-    if ns:  # JAX's reference outputs again: its inputs bit for bit, its outputs to its own rounding
-        want, got = npz(WEIGHTS / run / "reference.npz"), npz(tmp_path / "reference.npz")
-        assert sorted(got) == sorted(want)
-        for key in ("coords", "p", "a", "window", "forecast_masks"):
-            assert np.array_equal(got[key], want[key]), key
-        for key in ("decode_f32", "decode_bf16", "forecast"):
-            assert rel(got[key], want[key]) <= DECODE_TOL, key
+    record = json.loads(json.dumps(export_record(CKPT / run, epoch, cfg_dict)))
+    assert record == json.loads((WEIGHTS / run / "config.json").read_text())
+    assert np.array_equal(coords, npz(WEIGHTS / run / "reference.npz")["coords"])
+
+
+def test_committed_reference_is_jaxs_again_at_navier_stokes():
+    """Every array of ``ns8192_s0``'s ``reference.npz`` made again by JAX from the committed
+    parameters: its inputs bit for bit, its outputs (decodes, forecast) to JAX's own rounding."""
+    run = "ns8192_s0"
+    cfg, params = jax_run(run)
+    want = npz(WEIGHTS / run / "reference.npz")
+    got = reference_arrays(cfg, params, want["coords"])
+    assert sorted(got) == sorted(want)
+    for key in ("coords", "p", "a", "window", "forecast_masks"):
+        assert np.array_equal(got[key], want[key]), key
+    for key in ("decode_f32", "decode_bf16", "forecast"):
+        assert rel(got[key], want[key]) <= DECODE_TOL, key
 
 
 @pytest.mark.parametrize("run", RUNS)
@@ -109,11 +130,18 @@ def test_export_loads_with_numpy_alone(run):
 
 
 def test_trained_decode_matches_jax(served):
+    """The port's decode held to JAX's, run live on the committed inputs: the reference's latents
+    (the tool's seeded draws from the committed latent init) and grid (the registry's)."""
     run, fc, ref = served
+    cfg, params = jax_run(run)
+    for key, arr in zip(("p", "a", "window"), reference_latents(params["autodecoder"], meta=True)):
+        assert np.array_equal(ref[key], arr), key
+    assert np.array_equal(ref["coords"], np.asarray(jax_dataset_spec(cfg.dataset.name, cfg.dataset).coords))
+    want = jax_decode(cfg, params["nef"], ref["coords"], ref["p"], ref["a"], ref["window"])
+    assert np.abs(want).max() > 0 and rel(ref["decode_bf16"], want) > 0  # the trained field, two JAX modes
+    assert rel(ref["decode_f32"], want) <= DECODE_TOL, run
     dec = fc.trainer.decoder
     traj = tuple(torch.from_numpy(ref[k])[:, None] for k in ("p", "a", "window"))
-    want = ref["decode_f32"]
-    assert np.abs(want).max() > 0 and rel(ref["decode_bf16"], want) > 0  # the trained field, two JAX modes
     with torch.no_grad():
         for backend in ("eager", "kernel"):
             got = decode_trajectories(dec, backend, fc.trainer.coords, traj, fc.cfg.training.max_num_sampled_points)
@@ -137,18 +165,23 @@ def test_trained_forecast_matches_jax(served):
 
 
 @pytest.mark.parametrize("run", RUNS)
-@pytest.mark.parametrize("change", ["missing", "unexpected"])
+@pytest.mark.parametrize("change", ["missing", "unexpected", "missing_latent"])
 def test_export_with_a_leaf_too_few_or_too_many_is_refused(run, change, tmp_path):
+    """The leaf is named as the port names it: its group and its ``state_dict`` key or latent."""
     shutil.copy(WEIGHTS / run / "config.json", tmp_path / "config.json")
     params = npz(WEIGHTS / run / "params.npz")
     if change == "missing":
-        key = sorted(k for k in params if k.startswith("nef/"))[-1]
+        key = sorted(k for k in params if k.startswith("nef/") and k.endswith("/bias"))[-1]
         del params[key]
+        name = "missing nef leaf " + ".".join(key.split("/")[2:])
+    elif change == "unexpected":
+        params["ode/params/Dense_9/bias"] = np.zeros(4, np.float32)
+        name = "unexpected ode leaf Dense_9.bias"
     else:
-        key = "ode/params/Dense_9/kernel"
-        params[key] = np.zeros((4, 4), np.float32)
+        del params["autodecoder/gaussian_window"]
+        name = "missing autodecoder leaf gaussian_window"
     np.savez(tmp_path / "params.npz", **params)
-    with pytest.raises(KeyError, match=re.escape(f"{change} leaf {key}")):
+    with pytest.raises(KeyError, match=re.escape(name)):
         load_jax_export(tmp_path)
 
 

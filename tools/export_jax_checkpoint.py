@@ -29,11 +29,13 @@ training grid for its dataset. Writes, under ``--out``:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import sys
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -54,7 +56,8 @@ from enf_pde_tpu.train.checkpoint import CheckpointManager  # noqa: E402
 from enf_pde_tpu.train.inner_loop import sample_coordinate_masks  # noqa: E402
 from enf_pde_tpu.train.meta_sgd import MetaSGDTrainer  # noqa: E402
 
-__all__ = ["restore_run", "flat_params", "last_val_record", "reference_arrays", "export_run"]
+__all__ = ["restore_run", "flat_params", "last_val_record", "export_record", "reference_latents", "jax_decode",
+           "reference_arrays", "export_run"]
 
 # Perturbation scale of each latent leaf (standard normals), in the order they are drawn.
 PERTURB = (("p_pos", 0.1), ("p_ori", 0.1), ("a", 0.5))
@@ -107,6 +110,11 @@ def last_val_record(run_dir) -> dict:
     return record
 
 
+def export_record(run_dir, epoch: int, cfg_dict: dict) -> dict:
+    """``config.json``'s content: the run's name, the epoch, its config and its last validation line."""
+    return {"run": Path(run_dir).name, "epoch": epoch, "config": cfg_dict, "metrics": last_val_record(run_dir)}
+
+
 def forecast_masks(cfg, num_coords: int) -> np.ndarray:
     """The inner-loop masks of the first ``Forecaster.fit`` call (its key, split as it splits)."""
     _, key = jax.random.split(jax.random.PRNGKey(cfg.get_path("seed", 0)))
@@ -115,54 +123,64 @@ def forecast_masks(cfg, num_coords: int) -> np.ndarray:
         k_mask, num_coords, cfg.meta.num_inner_steps + 1, cfg.training.max_num_sampled_points))
 
 
-def reference_arrays(cfg, trainer, state, coords) -> dict:
-    """JAX's decodes (f32 and bf16) of two seeded latent sets and, for a meta-SGD run, its
-    forecast from the f32 fields (see the module's docstring)."""
+def reference_latents(init: dict, meta: bool):
+    """(p, a, window) of the two seeded latent sets drawn from the latent init ``init`` (the
+    trained init tiled twice and perturbed for a meta-SGD run, else the table's first two codes;
+    see the module's docstring), as numpy arrays."""
     rng = np.random.default_rng(0)
-    init = {k: np.asarray(v) for k, v in state.params["autodecoder"].items()}
-    meta = "meta_sgd_lrs" in state.params
+    init = {k: np.asarray(v) for k, v in init.items()}
     latents = {k: np.repeat(v, 2, axis=0) if meta else v[:2] for k, v in init.items()}
     if meta:
         for name, scale in PERTURB:
             if name in latents:
                 v = latents[name]
                 latents[name] = (v + scale * rng.standard_normal(v.shape)).astype(np.float32)
-    p, a, w = (np.asarray(t) for t in latents_to_pose(latents))
-    xs = jnp.broadcast_to(jnp.asarray(coords)[None], (2, *coords.shape))
-    chunk = cfg.training.max_num_sampled_points
-    nef = state.params["nef"]
+    return tuple(np.asarray(t) for t in latents_to_pose(latents))
+
+
+def jax_decode(cfg, nef, coords, p, a, w, compute_dtype=None) -> np.ndarray:
+    """JAX's decode of the latents (p, a, w) [2, ...] on ``coords`` under the decoder weights
+    ``nef``, chunked as the run trains: by the XLA decoder at highest precision, or with
+    ``compute_dtype=jnp.bfloat16`` by the fused Pallas decoder in interpret mode at that dtype
+    (its interpret mode asks the kernel for its f32 program; the TPU runs its bf16 one)."""
     base, _ = build_models(cfg)
-
-    def decode(backend):
-        apply = jax.jit(base.clone(backend=backend).apply)
-        return np.asarray(decode_chunked(apply, nef, xs, p, a, w, chunk_size=chunk))
-
-    with jax.default_matmul_precision("highest"):
-        f32 = decode("xla")
-        # The decoder's interpret mode asks the kernel for its f32 program; the TPU runs its bf16 one.
+    xs = jnp.broadcast_to(jnp.asarray(coords)[None], (2, *coords.shape))
+    backend, mode = "xla", contextlib.nullcontext()
+    if compute_dtype is not None:
         kernel = pallas_decode.fused_enf_decode
-        with mock.patch.object(pallas_decode, "fused_enf_decode",
-                               lambda *args, **kw: kernel(*args, **{**kw, "compute_dtype": jnp.bfloat16})):
-            bf16 = decode("pallas_interpret")
-        out = dict(coords=coords, p=p, a=a, window=w, decode_f32=f32, decode_bf16=bf16)
-        if meta:
-            fc = Forecaster(cfg, state, coords, backend="xla", coord_mesh=None)
+        backend, mode = "pallas_interpret", mock.patch.object(
+            pallas_decode, "fused_enf_decode", lambda *args, **kw: kernel(*args, **{**kw, "compute_dtype": compute_dtype}))
+    with jax.default_matmul_precision("highest"), mode:
+        apply = jax.jit(base.clone(backend=backend).apply)
+        return np.asarray(decode_chunked(apply, nef, xs, p, a, w, chunk_size=cfg.training.max_num_sampled_points))
+
+
+def reference_arrays(cfg, params, coords) -> dict:
+    """JAX's decodes (f32 and bf16) of the two seeded latent sets and, for a meta-SGD run, its
+    forecast from the f32 fields (see the module's docstring), under ``params`` (a trainer's
+    ``state.params``)."""
+    meta = "meta_sgd_lrs" in params
+    p, a, w = reference_latents(params["autodecoder"], meta)
+    f32 = jax_decode(cfg, params["nef"], coords, p, a, w)
+    out = dict(coords=coords, p=p, a=a, window=w, decode_f32=f32,
+               decode_bf16=jax_decode(cfg, params["nef"], coords, p, a, w, jnp.bfloat16))
+    if meta:
+        with jax.default_matmul_precision("highest"):
+            fc = Forecaster(cfg, SimpleNamespace(params=params), coords, backend="xla", coord_mesh=None)
             out["forecast_masks"] = forecast_masks(cfg, coords.shape[0])
             out["forecast"] = np.asarray(fc.forecast(f32, num_frames=cfg.dataset.traj_len_train))
     return out
 
 
-def export_run(run_dir, out, epoch=None, reference: bool = True) -> Path:
-    """Write ``config.json``, ``params.npz`` and (with ``reference``) ``reference.npz`` of
-    ``run_dir`` under ``out``; returns ``out``."""
+def export_run(run_dir, out, epoch=None) -> Path:
+    """Write ``config.json``, ``params.npz`` and ``reference.npz`` of ``run_dir`` under ``out``;
+    returns ``out``."""
     run_dir, out = Path(run_dir), Path(out)
     cfg_dict, epoch, trainer, state, coords = restore_run(run_dir, epoch)
     out.mkdir(parents=True, exist_ok=True)
-    record = {"run": run_dir.name, "epoch": epoch, "config": cfg_dict, "metrics": last_val_record(run_dir)}
-    (out / "config.json").write_text(json.dumps(record, indent=1) + "\n")
+    (out / "config.json").write_text(json.dumps(export_record(run_dir, epoch, cfg_dict), indent=1) + "\n")
     np.savez(out / "params.npz", **flat_params(state.params))
-    if reference:
-        np.savez(out / "reference.npz", **reference_arrays(trainer.cfg, trainer, state, coords))
+    np.savez(out / "reference.npz", **reference_arrays(trainer.cfg, state.params, coords))
     return out
 
 
