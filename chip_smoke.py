@@ -294,7 +294,24 @@ then the repo's trained models:
     ``val_mse_in_t`` where the split has 8 signals or more (NS, ``diffusion_plane``), printed
     beside it for the others. Each run counted (K1's launches zeroed just before it, held to the
     decode's chunks) and timed warm; K1's f32 program timed at the decode's launch shape and its
-    bf16 program (``k1_bf16_check``) at validation's, on the trained weights.
+    bf16 program (``k1_bf16_check``) at validation's, on the trained weights;
+37. two of them trained on from their exports' optimizer states (``weights/<run>/opt_state.npz``):
+    ``ns8192_s0`` and ``sw_full_s1``, whose ode steps decode on K1 + K2 (``nef.ode_backend: pallas``):
+    (a) the export written as the port's checkpoint (``convert.write_resume_checkpoint``) and
+    ``run_experiment`` with ``logging.resume=true`` at the run's own config and widths for 2 more ode
+    epochs (31-32, 1501-1502) on the test split phase 7 / 18 kept (8 / 4 signals as both splits; the
+    reductions printed), every K1 and K2 launch counted by program and shape, the optimizers' counts
+    (the ODE's grown by the ode steps, the others kept) and the global step continued from JAX's record,
+    the in-t MSE beside the run's record (NS gated at 2x); (b) the restored state's own ode step at
+    80 x 512 (NS) and 10 x 2048 (SW): its K1 and K2 launch (the restored latents' rollout, the step's
+    cotangent) held by ``k1_bf16_check`` and ``k2_bf16_check`` without and with weight gradients, timed;
+    (c) 8 ode and 8 dual steps from the restored state on three backends (bf16 kernels, f32 kernels,
+    eager) with the same draws: the losses and the largest relative drift from eager beside JAX's TPU
+    record (``results/r4/ode_backend_check_*.json``, copied), the f32 kernels gated at it; the bf16
+    kernels' first-step loss held by phase 35's gates in scalar form against the plain bf16 and f32
+    compositions on the CPU or, where right evaluations of the bf16 function leave those too (SW), by
+    their spread (``first_loss_gates``); (d) the first ode step with the restored against fresh optimizer states:
+    the two ODE updates' rel-L2 and the losses after. The phase is held to 60 s.
 
 Every K2 phase (5, 17, 20, 27, 30, 31, 34) repeats one launch with the tail and weight
 gradients and requires the same bits (and the same bits of the six latent gradients without
@@ -311,7 +328,9 @@ shape), the f32 programs at the shapes of the phases that ran ``pallas_interpret
 17, 20 and 27's numbers); ``bound_ms`` is that of the program's route (3xTF32 or bf16 on the tensor
 cores, or bytes where they take longer); then K1's two programs on each trained run of phase 36,
 with every launch of its decode, forecast and validation (``launches_by_shape``), timed at one of
-those shapes. Last, ``{"ok": true, "device": {...}}``.
+those shapes; then the bf16 K1 and K2 (without weight gradients: its ode epochs take no dual step) on
+each run phase 37 resumes, with the launches of its ``run_experiment``, timed at its ode step.
+Last, ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any phase fails.
 Every f32 check: rel-L2 <= 1e-5 against the plain version (K2 reduces its sums
 deterministically, in another order than autograd: no atomics); every bf16 check: phase 35's gates.
@@ -320,6 +339,7 @@ deterministically, in another order than autograd: no atomics); every bf16 check
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -333,6 +353,7 @@ import types
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -340,7 +361,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from enf_pde_tpu_torch.builders import build_models
-from enf_pde_tpu_torch.config import load_experiment_config
+from enf_pde_tpu_torch.config import Config, load_experiment_config
+from enf_pde_tpu_torch.convert import load_jax_export, load_opt_state, write_resume_checkpoint
 from enf_pde_tpu_torch.data import get_dataloader, planar_coords
 from enf_pde_tpu_torch.data import native_loader
 from enf_pde_tpu_torch.data.ball_convection import BallConvectionSolver, BallOutputGrid
@@ -371,6 +393,7 @@ from enf_pde_tpu_torch.models.decoder import decode_chunked, decode_trajectories
 from enf_pde_tpu_torch.models.latents import latents_to_pose
 from enf_pde_tpu_torch.models.transformer import EquivariantTransformer
 from enf_pde_tpu_torch.ops import cuda_lib
+from enf_pde_tpu_torch.ops import fused_decode as fused_decode_module
 from enf_pde_tpu_torch.ops.fused_decode import (
     BWD_KERNEL_SOURCE,
     BWD_KERNEL_SOURCE_BF16,
@@ -492,9 +515,12 @@ TRAINED_FORECAST_TOL = 1e-3
 # The in-t validation MSE within this factor of the run's record (its last validation over its own
 # test split), where the test trajectories number MSE_GATED_SIGNALS or more; else printed beside it.
 MSE_FACTOR, MSE_GATED_SIGNALS = 2.0, 8
-# The earlier phases' test trajectories, kept on the host for phase 36 (the data directories are
-# removed after their phases): dataset name -> [n, frames, *spatial, channels].
+# The earlier phases' test trajectories, kept on the host for phases 36 and 37 (the data directories are
+# removed after their phases): dataset name -> [n, frames, *spatial, channels] as the loader yields them;
+# RAW_SPLITS: dataset name -> (its cache's directory name, the trajectories as the solver wrote them) of
+# the splits phase 37 trains on.
 TEST_SPLITS = {}
+RAW_SPLITS = {}
 
 
 def log(msg: str) -> None:
@@ -1063,7 +1089,7 @@ def data_phase(dev) -> dict:
         f"{field_rel:.3e}; 1000 solver steps card vs CPU rel_l2 {solver_rel:.3e} (tol {SOLVER_TOL:g})")
     if not (field_rel <= SOLVER_TOL and solver_rel <= SOLVER_TOL):
         raise AssertionError(f"card and CPU solvers disagree: {field_rel:.3e}, {solver_rel:.3e}")
-    keep_test_split("navier_stokes", DATA_DIR, VAL_SIGNALS)
+    keep_test_split("navier_stokes", DATA_DIR, VAL_SIGNALS, raw=True)
     return {"block_s": block_s, "steps": steps}
 
 
@@ -1611,7 +1637,7 @@ def sw_phase(dev) -> dict:
         "training.ode.train_until_epoch=3", "test.test_interval=3", "test.test_dp_interval=3"],
         ["nef", "nef+ode", "ode"], coords, eqv_kinds=("longitude",))
     fc = forecast_phase(cfg, coords, train["frames"], name)
-    keep_test_split(name, data, SW_SIGNALS)
+    keep_test_split(name, data, SW_SIGNALS, raw=True)
     shutil.rmtree(data)  # the generated data is not kept: the output directory stays small
     torch.cuda.empty_cache()
     k2 = kernels["k2"]
@@ -3269,15 +3295,20 @@ def bf16_phase(dev) -> dict:
 # ----------------------------------------------------------------- phase 36
 
 
-def keep_test_split(name: str, path: Path, n: int) -> None:
+def keep_test_split(name: str, path: Path, n: int, raw: bool = False) -> None:
     """Keep the ``n`` test trajectories of experiment ``name`` that a data phase generated under
     ``path``, as its test loader yields them (frames cut, pooled to the dataset's grid), on the
     host in TEST_SPLITS under the dataset's name: phase 36 validates the trained runs on them
-    after the data directories are gone."""
+    after the data directories are gone. With ``raw``, also the cache's files as the solver wrote
+    them (RAW_SPLITS): phase 37 writes them into a cache of its own and trains on them."""
     cfg = load_experiment_config(name, [f"dataset.path={path}", f"dataset.num_signals_test={n}",
                                         "dataset.batch_size=1"])
     _, test = get_dataloader(cfg.dataset, device="cpu")
     TEST_SPLITS[cfg.dataset.name] = np.concatenate([np.asarray(batch[0]) for batch in test])
+    if raw:
+        cache_name = dataset_spec(cfg.dataset.name, cfg.dataset, device="cpu").cache_name
+        cache = TrajectoryCache(str(path / cache_name / "test"), None)
+        RAW_SPLITS[cfg.dataset.name] = (cache_name, np.stack([cache.get(i) for i in range(n)]))
 
 
 def trained_test_split(dataset: str, n: int, dev) -> np.ndarray:
@@ -3485,14 +3516,411 @@ def trained_phase(dev) -> dict:
     return res
 
 
-def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16, trained) -> list:
+# ----------------------------------------------------------------- phase 37
+
+
+# Phase 37: the trained runs that train on through the kernels (``nef.ode_backend: pallas``), resumed on
+# the card from their exports (``weights/<run>/opt_state.npz``) for RESUME_EPOCHS epochs.
+RESUME_RUNS = ("ns8192_s0", "sw_full_s1")
+RESUME_EPOCHS = 2
+RESUME_BUDGET_S = 60.0  # the whole phase on the card
+DRIFT_STEPS = 8  # tools/ode_backend_check.py's k
+# JAX's TPU record of its ode / dual steps on the Pallas kernel against XLA, DRIFT_STEPS steps from a fresh
+# ``init_state`` on real data (results/r4/ode_backend_check_navier_stokes.json and
+# results/r4/ode_backend_check_sw.json, copied: the card's copy has no results/): the per-step losses and
+# the largest relative drift, |pallas - xla| / |xla|. Phase 37 gates the f32 kernels' drift from eager at
+# these numbers from the trained state, a start of its own.
+JAX_DRIFT_RECORD = {
+    "ns8192_s0": {
+        "config": "navier_stokes",
+        "ode": {"xla": [0.883548, 0.8799, 0.878842, 0.880476, 0.870376, 0.861238, 0.852777, 0.860164],
+                "pallas": [0.883527, 0.879836, 0.878773, 0.880432, 0.870316, 0.861129, 0.852723, 0.860091],
+                "max_rel_drift": 0.00013},
+        "dual": {"xla": [0.883548, 0.795239, 0.756342, 0.762352, 0.700391, 0.729195, 0.762227, 0.735852],
+                 "pallas": [0.883527, 0.795483, 0.756715, 0.765438, 0.695761, 0.719807, 0.750507, 0.738926],
+                 "max_rel_drift": 0.01538}},
+    "sw_full_s1": {
+        "config": "shallow_water",
+        "ode": {"xla": [0.024083, 0.018202, 0.013833, 0.011025, 0.009148, 0.008081, 0.00751, 0.007005],
+                "pallas": [0.023959, 0.018087, 0.013747, 0.010958, 0.009113, 0.008044, 0.007468, 0.006963],
+                "max_rel_drift": 0.00634},
+        "dual": {"xla": [0.024083, 0.008508, 0.004614, 0.003227, 0.002529, 0.001566, 0.001128, 0.001145],
+                 "pallas": [0.023959, 0.008438, 0.00456, 0.003229, 0.002512, 0.001543, 0.001108, 0.001148],
+                 "max_rel_drift": 0.01751}},
+}
+# The drift check's sides and their ode backends: on the card ``pallas`` is K1 + K2's bf16 programs,
+# ``pallas_interpret`` their f32 programs (``tools/resume_rehearsal.py`` runs the same check on the CPU,
+# where the kernel backends run the plain compositions, ``kernel`` at bf16 there).
+DRIFT_SIDES = {"pallas": "kernel", "pallas_interpret": F32_KERNELS, "eager": "eager"}
+# Right evaluations of the first ode step's loss beside cpu16 and plain16: the plain bf16 composition on the card with
+# the K terms of every product summed in a seeded order (``permuted_sums``). A small residual's loss moves by a chance
+# projection of its decode's roundings: at shallow water 32 such orders lay up to 5.26 gaps from the exact bf16
+# function (median 1.28) on an H100, each 0.30-0.32 gap from it as a tensor (PERF.md §6), so the spread wants many.
+LOSS_WITNESSES = 32
+
+
+class CaptureDecode(torch.nn.Module):
+    """``decoder`` keeping, at its last decode on a kernel backend, the kernel inputs (``args``) and the
+    cotangent that the step's backward hands its output (``g``): a step's own launch of K1 and K2."""
+
+    def __init__(self, decoder):
+        super().__init__()
+        self.decoder, self.args, self.g = decoder, None, None
+
+    def forward(self, x, p, a, w, backend="eager"):
+        out = self.decoder(x, p, a, w, backend=backend)
+        if backend != "eager":
+            with torch.no_grad():
+                self.args = self.decoder.kernel_inputs(x, p, a, w)
+            if out.requires_grad:
+                out.register_hook(lambda g: setattr(self, "g", g.detach()))
+        return out
+
+
+def snapshot(trainer, state) -> tuple:
+    """What a step changes: the modules' tensors, the state and the training generator."""
+    return ({k: v.clone() for k, v in trainer.decoder.state_dict().items()},
+            {k: v.clone() for k, v in trainer.ode_model.state_dict().items()},
+            copy.deepcopy(state), trainer.generator.get_state())
+
+
+def restored(trainer, snap) -> dict:
+    """``snap`` put back into ``trainer``; returns a copy of its state."""
+    nef, ode, state, gen = snap
+    trainer.decoder.load_state_dict(nef)
+    trainer.ode_model.load_state_dict(ode)
+    trainer.generator.set_state(gen)
+    return copy.deepcopy(state)
+
+
+def resume_draws(cfg, num_coords: int, n: int, seed: int) -> list:
+    """``n`` steps' draws: the inner-loop masks [K + 1, M] and the rollout's subsets [T, M]."""
+    gen = torch.Generator().manual_seed(seed)
+    M, K, T = cfg.training.max_num_sampled_points, cfg.meta.num_inner_steps, cfg.dataset.traj_len_train
+    return [{"masks": torch.stack([torch.randperm(num_coords, generator=gen)[:M] for _ in range(K + 1)]),
+             "ode_masks": torch.stack([torch.randperm(num_coords, generator=gen)[:M] for _ in range(T)])}
+            for _ in range(n)]
+
+
+def ode_loss(trainer, state, traj, draws) -> float:
+    """The ode step's loss at ``state`` on ``draws`` (no update)."""
+    with train_steps.frozen(trainer.decoder):
+        return float(trainer._ode_loss(state["meta_sgd_lrs"], state["autodecoder"], traj, second_order=False,
+                                       **draws).detach())
+
+
+def drift_check(run: str, trainer, state, traj, draws) -> dict:
+    """37 (c): from ``state``, DRIFT_STEPS ode steps and DRIFT_STEPS dual steps on ``draws`` on each of
+    DRIFT_SIDES (each from the same state, modules and generator): the per-step losses
+    and each side's largest relative drift from eager, |side - eager| / |eager|, printed beside JAX's TPU
+    record (JAX_DRIFT_RECORD: its kernel against XLA, from a fresh state); ``pallas_interpret`` (the f32
+    kernels) gated at the record's drift, ``pallas`` printed. Returns the losses and the drifts by kind
+    and side."""
+    record, snap = JAX_DRIFT_RECORD[run], snapshot(trainer, state)
+    backend0 = trainer.ode_backend
+    losses, drifts = {}, {}
+    for kind in ("ode", "dual"):
+        losses[kind] = {}
+        for side, backend in DRIFT_SIDES.items():
+            st = restored(trainer, snap)
+            trainer.ode_backend = backend
+            step = getattr(trainer, f"{kind}_train_step")
+            losses[kind][side] = [float(step(st, traj, **d)[0]) for d in draws]
+        trainer.ode_backend = backend0
+        eager = losses[kind]["eager"]
+        drifts[kind] = {side: max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, eager))
+                        for side, got in losses[kind].items() if side != "eager"}
+        jax = record[kind]
+        log(f"[phase 37] {run} (c) {DRIFT_STEPS} {kind} steps from the restored state, losses: " + "; ".join(
+            f"{side} [{', '.join(f'{v:.6e}' for v in got)}]" for side, got in losses[kind].items())
+            + "; largest relative drift from eager: " + ", ".join(f"{s} {v:.3e}" for s, v in drifts[kind].items())
+            + f" (JAX's TPU record, {record['config']}, its kernel against XLA from a fresh init_state on real data: "
+            f"{jax['max_rel_drift']:g}; its losses xla [{', '.join(f'{v:g}' for v in jax['xla'])}], pallas "
+            f"[{', '.join(f'{v:g}' for v in jax['pallas'])}], results/r4/ode_backend_check_{record['config'].replace('shallow_water', 'sw')}.json)")
+        f32 = drifts[kind].get("pallas_interpret")
+        if f32 is not None and not f32 <= jax["max_rel_drift"]:
+            raise AssertionError(f"{run}: the f32 kernels' {kind} drift from eager {f32:.3e} is past JAX's TPU "
+                                 f"record {jax['max_rel_drift']:g}")
+    restored(trainer, snap)
+    return {"losses": losses, "drifts": drifts}
+
+
+def permuted_sums(seed: int):
+    """``fused_decode._mm`` with the K terms of every product summed in a seeded order (a permutation of K): a right
+    evaluation of the same bf16 function with other f32 roundings (LOSS_WITNESSES)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def mm(x, w, bf16):
+        perm = torch.randperm(w.shape[-2], generator=gen).to(w.device)
+        xb, wb = (fused_decode_module._b16(x), fused_decode_module._b16(w)) if bf16 else (x, w)
+        return xb[..., perm] @ wb[..., perm, :]
+    return mm
+
+
+def rollout_targets(traj, ode_masks) -> torch.Tensor:
+    """``rollout_loss``'s targets: ``traj`` [b, >= T, *grid, C] (the ode step's first T frames) at each frame's subset
+    ``ode_masks`` [T, M] -> [b T, M, C]."""
+    m = torch.as_tensor(ode_masks, dtype=torch.long).to(traj.device)
+    (T, M), b, C = m.shape, traj.shape[0], traj.shape[-1]
+    return traj[:, :T].reshape(b, T, -1, C)[:, torch.arange(T, device=traj.device)[:, None], m].reshape(b * T, M, C)
+
+
+def first_loss_sides(args, ys, H: int, D: int, kernel=None) -> tuple:
+    """The first ode step's loss, ``rollout_loss``'s mean((o - ys)^2) taken in float64, for each side's decode o of
+    the step's own K1 inputs ``args`` and targets ``ys``: ``kernel`` (K1 bf16's output, where given), the right bf16
+    evaluations ``plain16`` and ``cpu16`` (``plain_sides``) and ``perm<s>``, the plain bf16 composition on ``args``'
+    device with permuted sums (``permuted_sums``, LOSS_WITNESSES seeds), the exact bf16 function ``x16`` and the
+    plain f32 composition on the CPU, ``cpu32``. Returns (losses, each side's decode's distance from x16 as a tensor
+    in gaps, |o - x16| / |x16 - cpu32|)."""
+    with torch.no_grad():
+        sides = plain_sides(args, H, D)
+        cpu = [[w.cpu() for w in t] if isinstance(t, (list, tuple)) else t.cpu() for t in args]
+        outs = {"x16": sides["x16"].double(), "cpu32": fused_decode_plain(*cpu, H, D).double().to(ys.device),
+                "plain16": sides["plain16"], "cpu16": sides["cpu16"]}
+        del sides
+        for seed in range(LOSS_WITNESSES):
+            with mock.patch.object(fused_decode_module, "_mm", permuted_sums(seed)):
+                outs[f"perm{seed}"] = fused_decode_plain(*args, H, D, compute_dtype=BF16)
+        if kernel is not None:
+            outs["kernel"] = kernel
+        x16, y = outs["x16"], ys.double()
+        gap = float((x16 - outs["cpu32"]).norm())
+        losses = {n: float(((o.double() - y) ** 2).mean()) for n, o in outs.items()}
+        dists = {n: float((o.double() - x16).norm()) / gap for n, o in outs.items() if n != "x16"}
+    return losses, dists
+
+
+def first_loss_gates(label: str, loss: dict, dist: dict) -> dict:
+    """The bf16 kernels' first-step loss ``loss["kernel"]`` (``first_loss_sides``) against the same loss through the
+    plain bf16 and f32 compositions on the CPU (``cpu16``, ``cpu32``): phase 35's gates in scalar form (``bf16_gates``).
+    Beside it each side's distance from the exact bf16 function ``x16`` in gaps (|x16 - cpu32| / |cpu32|), and its
+    decode's as a tensor (``dist``). Where the right evaluations (every side but the kernels, x16 and cpu32) themselves
+    lie farther than BF16_NEAR of the gap from x16, the scalar gates cannot tell right from wrong (a small residual's
+    loss moves by a chance projection of its decode's roundings), and the kernels are held as ``witness_gates`` holds
+    them: within WITNESS_FACTOR times the farthest right evaluation's distance from x16. Returns the readings."""
+    k, x16, p32 = loss["kernel"], loss["x16"], loss["cpu32"]
+    gap = abs(x16 - p32) / abs(p32)
+    signed = {n: (v - x16) / abs(p32) / gap for n, v in loss.items() if n not in ("x16", "cpu32")}
+    right = [n for n in signed if n != "kernel"]
+    perms = sorted(abs(signed[n]) for n in right if n.startswith("perm"))
+    spread = max(abs(signed[n]) for n in right)
+    log(f"[phase 37] {label}: kernels {k:.9e}, cpu16 {loss['cpu16']:.9e}, plain16 {loss['plain16']:.9e}, x16 {x16:.9e}, "
+        f"cpu32 {p32:.9e}; the bf16 gap {gap:.3e} of the loss; from x16 in gaps (signed): kernels {signed['kernel']:+.3f}, "
+        f"cpu16 {signed['cpu16']:+.3f}, plain16 {signed['plain16']:+.3f}, {len(perms)} permuted sums' median "
+        f"{perms[len(perms) // 2]:.3f} and farthest {perms[-1]:.3f}; the decodes from x16 as tensors in their gap: kernels "
+        f"{dist['kernel']:.3f}, the right evaluations {min(dist[n] for n in right):.3f} .. {max(dist[n] for n in right):.3f}")
+    as_t = lambda v: torch.tensor([v], dtype=torch.float64)  # noqa: E731
+    try:
+        worst = bf16_gates(f"{label} against the plain compositions on the CPU (phase 35's gates, scalar)", as_t(k),
+                           as_t(loss["cpu16"]), as_t(p32), absolute=False)
+        held = "phase 35's gates"
+    except AssertionError as e:
+        gate = WITNESS_FACTOR * spread
+        if spread <= BF16_NEAR or not abs(signed["kernel"]) <= gate:
+            raise AssertionError(f"{label}: {abs(signed['kernel']):.3f} of the gap from x16, past phase 35's scalar gates "
+                                 f"({e}) and past {WITNESS_FACTOR:g} x the right evaluations' farthest ({spread:.3f})")
+        worst, held = None, (f"the right evaluations' spread: {abs(signed['kernel']):.3f} of the gap from x16, within "
+                             f"{WITNESS_FACTOR:g} x the farthest of {len(right)} ({spread:.3f}, gate {gate:.3f}); past "
+                             f"phase 35's scalar gates, which the right evaluations leave too ({e})")
+    log(f"[phase 37] {label}: held by {held}")
+    return {"gap": gap, "signed": signed, "dist": dist, "spread": spread, "worst": worst, "held": held}
+
+
+def restored_vs_fresh(run: str, trainer, state, traj, draws) -> dict:
+    """37 (d): the first ode step from ``state`` once with its restored optimizer states and once with
+    fresh ones (``Adam.init``), the same draws: the rel-L2 between the two ODE updates and each one's
+    loss after (the same draws again)."""
+    snap, out = snapshot(trainer, state), {}
+    for label in ("restored", "fresh"):
+        st = restored(trainer, snap)
+        if label == "fresh":
+            st["opt"]["ode"] = trainer.opts["ode"].init(trainer.ode_group())
+        before = torch.cat([v.detach().reshape(-1).double() for v in trainer.ode_group().values()])
+        loss, st = trainer.ode_train_step(st, traj, **draws)
+        after = torch.cat([v.detach().reshape(-1).double() for v in trainer.ode_group().values()])
+        out[label] = {"update": after - before, "loss": float(loss), "after": ode_loss(trainer, st, traj, draws)}
+    restored(trainer, snap)
+    rel = rel_l2(out["fresh"]["update"], out["restored"]["update"])
+    ratio = float(out["fresh"]["update"].norm() / out["restored"]["update"].norm())
+    log(f"[phase 37] {run} (d) the first ode step with restored against fresh optimizer states: the ODE's updates "
+        f"lie {rel:.3e} apart (rel-L2 to the restored one; the fresh one {ratio:.2f}x its norm); loss {out['restored']['loss']:.6e} "
+        f"before, after {out['restored']['after']:.6e} (restored) / {out['fresh']['after']:.6e} (fresh)")
+    return {"rel": rel, "ratio": ratio, "after": {k: v["after"] for k, v in out.items()}, "before": out["restored"]["loss"]}
+
+
+def resume_data(run: str, cfg) -> tuple:
+    """A cache directory holding the test split an earlier phase kept (RAW_SPLITS, as the solver wrote it)
+    as both the train and the test split of ``cfg``'s dataset; returns (directory, number of signals)."""
+    cache_name, raw = RAW_SPLITS[cfg.dataset.name]
+    path = fresh_dir(OUT_DIR / f"resume_{run}_data")
+    for split in ("train", "test"):
+        cache = TrajectoryCache(str(path / cache_name / split), None)
+        for i, traj in enumerate(raw):
+            cache.write(i, traj)
+    return path, len(raw)
+
+
+def resume_run_phase(run: str, dev) -> dict:
+    """37 for one trained run (RESUME_RUNS) whose ode steps decode on the kernels (``nef.ode_backend:
+    pallas``): (a) its export written as the port's checkpoint (``convert.write_resume_checkpoint``) and
+    trained on by ``run_experiment`` with ``logging.resume=true`` for RESUME_EPOCHS ode epochs at its own
+    config and widths, on an earlier phase's test split (both splits; each reduction printed), K1's and
+    K2's launches counted by program and shape (zeroed just before), the optimizers' counts and the global
+    step continued, the in-t MSE beside the record (gated at MSE_FACTOR where the split has
+    MSE_GATED_SIGNALS); (b) from the restored state (the export in a fresh trainer, ``load_state`` with
+    its optimizer states) one ode step's own K1 and K2 launch (its rollout of the restored latents, its
+    cotangent): K2 bf16 without and with weight gradients (``k2_bf16_check``) and K1 bf16
+    (``k1_bf16_check``), timed; (c) ``drift_check`` and the first-step loss of the bf16 kernels against the
+    plain bf16 and f32 compositions on the CPU (phase 35's gates in scalar form); (d)
+    ``restored_vs_fresh``. Returns the kernels line's entries and the phase's numbers."""
+    t0 = time.perf_counter()
+    path = WEIGHTS_DIR / run
+    cfg0, params, record = load_jax_export(path)
+    opt0, step0, _ = load_opt_state(path, cfg0)
+    epoch = record["epoch"]
+    tag = f"resumed {run}"
+
+    # (a) run_experiment with logging.resume from the export's checkpoint.
+    data, n = resume_data(run, cfg0)
+    log_dir = fresh_dir(OUT_DIR / f"resume_{run}")
+    write_resume_checkpoint(path, log_dir)
+    reductions = {"dataset.num_signals_train": n, "dataset.num_signals_test": n,
+                  "training.num_epochs": epoch + RESUME_EPOCHS, "test.test_interval": RESUME_EPOCHS}
+    if cfg0.get_path("logging.visualize_every_n_epochs", 0):
+        reductions["logging.visualize_every_n_epochs"] = 0  # the card's Python has no matplotlib
+    log(f"[phase 37] {run}: the run's config at its own widths, cut: " + ", ".join(
+        f"{k} {cfg0.get_path(k)} -> {v}" for k, v in reductions.items())
+        + f" (the {n} test trajectories an earlier phase generated on the card, as both splits; validation at the "
+        "last epoch)")
+    cfg = Config(cfg0.to_dict())  # a copy: cfg0 builds the trainer of (b)
+    for k, v in {**reductions, "dataset.path": str(data), "logging.log_dir": str(log_dir),
+                 "logging.resume": True}.items():
+        cfg.set_path(k, v)
+    reset_launches()
+    (loop, state), run_s = sync_time(lambda: run_experiment(cfg, device=str(dev)))
+    k1, k2 = Counter(fused_decode_fwd.launches_by_program), Counter(fused_decode_bwd.launches_by_program)
+    records = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    resumed = next((r for r in records if "resumed_from_epoch" in r), {})
+    epochs = [(int(r["epoch"]), r["phase"]) for r in records if "train_mse_epoch" in r]
+    steps = len(loop.train_loader) * RESUME_EPOCHS
+    counts = {g: (opt0[g]["count"], state["opt"][g]["count"]) for g in opt0}
+    val = next(r for r in records if "val_mse_in_t" in r)
+    rec_in = record["metrics"]["val_mse_in_t"]
+    ratio = val["val_mse_in_t"] / rec_in
+    gated = n >= MSE_GATED_SIGNALS
+    log(f"[phase 37] {run}: resumed from epoch {int(resumed.get('resumed_from_epoch', -1))} through run_experiment in "
+        f"{run_s:.2f} s (config differs at {resumed.get('resumed_config_differs')}); epochs {epochs}; global step "
+        f"{step0} -> {loop.global_step}; optimizer counts before -> after: " + ", ".join(
+            f"{g} {a} -> {b}" for g, (a, b) in counts.items()) + f"; in-t MSE {val['val_mse_in_t']:.4e} at epoch "
+        f"{int(val['epoch'])} (the run's record {rec_in:.4e}, ratio {ratio:.3f}"
+        + (f", gate 1/{MSE_FACTOR:g} .. {MSE_FACTOR:g}" if gated else ", not gated: fewer than 8 signals")
+        + f"), out-t {val['val_mse_out_t']:.4e} (record {record['metrics']['val_mse_out_t']:.4e}); K1 launches "
+        + ", ".join(f"{'bf16' if k[0] == BF16 else 'f32'} b={k[1]} z={k[2]} c={k[3]} I={k[4]}: {v}" for k, v in k1.items())
+        + "; K2 " + ", ".join(f"{'bf16' if k[0] == BF16 else 'f32'} b={k[1]} z={k[2]} c={k[3]} I={k[4]} "
+                              f"{'with' if k[5] else 'without'} weight grads: {v}" for k, v in k2.items()))
+    if resumed.get("resumed_from_epoch") != epoch or epochs != [(epoch + e, "ode") for e in range(1, RESUME_EPOCHS + 1)]:
+        raise AssertionError(f"{tag}: resumed from {resumed.get('resumed_from_epoch')} and trained {epochs}, not "
+                             f"{RESUME_EPOCHS} ode epochs from {epoch + 1}")
+    want = {g: (a, a + steps if g == "ode" else a) for g, (a, _) in counts.items()}
+    if counts != want or loop.global_step != step0 + steps:
+        raise AssertionError(f"{tag}: counts {counts} (expected {want}), global step {loop.global_step} "
+                             f"(expected {step0 + steps})")
+    b_ode = cfg.dataset.batch_size * cfg.dataset.traj_len_train
+    ode_key = (BF16, b_ode, cfg.nef.num_latents, cfg.training.max_num_sampled_points, get_ca_invariant(cfg.nef).dim)
+    if k2 != Counter({(*ode_key, False): steps}) or k1[ode_key] < steps or any(k[0] != BF16 for k in k1):
+        raise AssertionError(f"{tag}: K1 {dict(k1)}, K2 {dict(k2)}: not the bf16 programs, one K1 and one K2 "
+                             f"(without weight grads) an ode step at {ode_key}")
+    if not math.isfinite(val["val_mse_in_t"]) or (gated and not 1 / MSE_FACTOR <= ratio <= MSE_FACTOR):
+        raise AssertionError(f"{tag}: in-t MSE {val['val_mse_in_t']:.4e} is not within {MSE_FACTOR:g}x of the record "
+                             f"{rec_in:.4e}")
+    coords = loop.trainer.coords
+    del loop, state
+    shutil.rmtree(data)
+    shutil.rmtree(log_dir)  # about 10 / 20 MB of checkpoint: the output directory stays small
+
+    # (b) The restored state's ode step, its own K1 and K2 launch held and timed at the trained weights.
+    trainer = MetaSGDTrainer(cfg0, *build_models(cfg0), coords, seed=cfg0.seed, device=str(dev))
+    state = trainer.load_state(params, opt0)
+    traj = torch.from_numpy(TEST_SPLITS[cfg0.dataset.name][:cfg0.dataset.batch_size]).to(dev)
+    draws = resume_draws(cfg0, coords.shape[0], DRIFT_STEPS, SEED + 37)
+    decoder, capture = trainer.decoder, CaptureDecode(trainer.decoder)
+    trainer.decoder = capture
+    trainer.ode_grads(state, traj, **draws[0])
+    trainer.decoder = decoder
+    args, g = capture.args, capture.g
+    B, Z, C, I = args[0].shape
+    label = f"{tag} ode step b={B} z={Z} c={C} I={I}"
+    k1_nums = k1_bf16_check(cfg0, args, label)
+    k2_nums = k2_bf16_check(cfg0, args, g, (False, True), f"{label} (its own cotangent)")
+    del g, capture
+    torch.cuda.empty_cache()
+
+    # (c) The drift check, and the bf16 kernels' first-step loss against the plain compositions on the CPU and
+    # more right bf16 evaluations, each through the step's own decode inputs (its loss: their decode's MSE).
+    drift = drift_check(run, trainer, state, traj, draws)
+    H, D = cfg0.nef.num_heads, cfg0.nef.num_hidden
+    with torch.no_grad():
+        first, dist = first_loss_sides(args, rollout_targets(traj, draws[0]["ode_masks"]), H, D,
+                                       kernel=fused_decode_fwd(*args, num_heads=H, head_dim=D, compute_dtype=BF16))
+    step_loss = drift["losses"]["ode"]["pallas"][0]
+    if not abs(first["kernel"] / step_loss - 1) <= REL_L2_TOL:
+        raise AssertionError(f"{tag}: the MSE of K1's decode at the captured inputs {first['kernel']:.9e} is not the "
+                             f"ode step's loss {step_loss:.9e}")
+    gates = first_loss_gates(f"{tag} first ode step's loss (bf16 K1 + K2)", first, dist)
+    del args
+    torch.cuda.empty_cache()
+
+    # (d) Restored against fresh optimizer states.
+    fresh = restored_vs_fresh(run, trainer, state, traj, draws[0])
+    del trainer, state
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    log(f"[phase 37] {run} in {phase_s:.2f} s")
+    entries = []
+    # The resumed run_experiment's programs: K1 and K2 without weight gradients (its ode epochs take no dual step;
+    # K2 with weight gradients is held and timed in (b) and printed there).
+    for kernel, nums, tally, mode in (("K1", k1_nums, k1, ""), ("K2", k2_nums[False], k2, " without weight gradients")):
+        by_shape = {f"b={k[1]} z={k[2]} c={k[3]} I={k[4]}" + (f" {'with' if k[5] else 'without'} weight grads" if kernel == "K2" else ""): v
+                    for k, v in tally.items() if k[0] == BF16}
+        launches = sum(by_shape.values())
+        entries.append({
+            "name": ("fused_decode_fwd" if kernel == "K1" else "fused_decode_bwd") + "_bf16",
+            "shape": f"{run} resumed ({cfg0.dataset.name}) by run_experiment, timed at its ode step b={B} z={Z} c={C} "
+                     f"I={I}{mode}",
+            "route": "cuda", "source": f"enf_pde_tpu_torch/csrc/{KERNEL_SOURCE_BF16 if kernel == 'K1' else BWD_KERNEL_SOURCE_BF16}",
+            "replaces": "enf_pde_tpu/ops/pallas_decode.py:" + ("548" if kernel == "K1" else "635"), "launches": launches,
+            "launches_by_shape": by_shape, "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
+            "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"], "library_ms": None, "f32_ms": nums["f32_ms"],
+            **({"design": nums["design"]} if "design" in nums else {})})
+    return {"entries": entries, "epoch": epoch, "mse_in": val["val_mse_in_t"], "record_in": rec_in, "counts": counts,
+            "drifts": drift["drifts"], "first": first, "gates": gates, "fresh": fresh,
+            "seconds": phase_s}
+
+
+def resume_phase_trained(dev) -> dict:
+    """37. The trained runs of RESUME_RUNS trained on from their exports on the card (``resume_run_phase``),
+    in at most RESUME_BUDGET_S."""
+    t0 = time.perf_counter()
+    res = {run: resume_run_phase(run, dev) for run in RESUME_RUNS}
+    total = time.perf_counter() - t0
+    log(f"[phase 37] {len(res)} runs resumed in {total:.2f} s (budget {RESUME_BUDGET_S:g} s): resumed from epoch "
+        + " / ".join(str(r["epoch"]) for r in res.values())
+        + "; in-t MSE / record " + ", ".join(f"{run} {r['mse_in']:.4e} / {r['record_in']:.4e}" for run, r in res.items()))
+    if total > RESUME_BUDGET_S:
+        raise AssertionError(f"phase 37 took {total:.2f} s, past its {RESUME_BUDGET_S:g} s")
+    return res
+
+
+def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16, trained, resumed) -> list:
     """The kernels line: each program of K1 and K2 at the shapes it was held and timed at, with its
     launches at that shape (and mode) in the paths the script drove (PATH_LAUNCHES): the bf16
     programs on the YAMLs' ``pallas`` paths (phase 35's numbers), the f32 programs on the phases that
     ran ``pallas_interpret`` (6, 17, 22, 26, 27, 35; phases 4, 5, 17, 20 and 27's numbers); then K1's
     two programs on each trained run's paths (phase 36's entries: every launch of its decode, forecast
-    and validation, by shape, timed at one of them). Fails unless every program was launched on a
-    path and every listed entry has launches."""
+    and validation, by shape, timed at one of them); then the bf16 programs on each resumed run's path
+    (phase 37's entries: K1's and K2's launches of its ``run_experiment``, by shape, timed at its ode
+    step's shape). Fails unless every program
+    was launched on a path and every listed entry has launches."""
     Zn, In = cfg.nef.num_latents, get_ca_invariant(cfg.nef).dim
     f32 = torch.float32
     entries = []
@@ -3540,12 +3968,14 @@ def kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16, trained) -> lis
         mode = f" {'with' if wg[0] else 'without'} weight gradients" if wg else ""
         entry(kernel, BF16, f"{name} {' '.join(over)} b={b} z={Z} c={c} I={I}{mode}".replace("  ", " "),
               (b, Z, c, I, *wg), nums)
-    trained = [e for run in trained.values() for e in run["entries"]]  # phase 36's, counted there
-    entries += trained
+    # Phases 36's and 37's entries, counted there.
+    counted = [e for phase in (trained, resumed) for run in phase.values() for e in run["entries"]]
+    entries += counted
     for kernel in ("K1", "K2"):
+        name = "fused_decode_fwd" if kernel == "K1" else "fused_decode_bwd"
         for dtype in (BF16, f32):
             n = sum(v for k, v in PATH_LAUNCHES.items() if k[:2] == (kernel, dtype)) + sum(
-                e["launches"] for e in trained if kernel == "K1" and e["name"].endswith("_bf16") == (dtype == BF16))
+                e["launches"] for e in counted if e["name"] == name + ("_bf16" if dtype == BF16 else ""))
             listed = sum(e["launches"] for e in entries if e["name"].startswith(
                 "fused_decode_fwd" if kernel == "K1" else "fused_decode_bwd") and e["name"].endswith("_bf16") == (dtype == BF16))
             log(f"[kernels] {kernel} {'bf16' if dtype == BF16 else 'f32'}: {n} launches on the paths, {listed} at the "
@@ -3735,9 +4165,11 @@ def main() -> int:
     bf16 = bf16_phase(dev)
     # 36. The repo's trained JAX runs served on the card: decode, forecast and validation on K1.
     trained = trained_phase(dev)
+    # 37. Two of them trained on from their exports' optimizer states: run_experiment with resume, K1 + K2 bf16.
+    resumed = resume_phase_trained(dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
-    kernels = kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16, trained)
+    kernels = kernels_line(cfg, k1_timing, k2, sw, ablation, second, bf16, trained, resumed)
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ from enf_pde_tpu_torch.builders import coordinate_system_for, resolve_backend
 from enf_pde_tpu_torch.models.decoder import decode_trajectories
 from enf_pde_tpu_torch.models.latents import gather_latents, init_latents, latents_to_pose
 from enf_pde_tpu_torch.ops.layers import reset_parameters
-from enf_pde_tpu_torch.train.state import make_optimizers
+from enf_pde_tpu_torch.train.state import make_optimizers, restore_opt_states
 from enf_pde_tpu_torch.train.steps import (
     frozen,
     grad_leaves,
@@ -105,13 +105,18 @@ class AutodecodingTrainer:
         reset_parameters(self.ode_model, generator)
         return self._new_state(self.make_table(num_signals or self.cfg.dataset.num_signals_train))
 
-    def load_state(self, params: dict) -> dict:
+    def load_state(self, params: dict, opt: Optional[dict] = None) -> dict:
         """Load converted JAX parameters (``convert.convert_params`` of an autodecoding
-        state); fresh optimizer states."""
+        state) with the optimizer states ``opt`` (``convert.load_opt_state``'s: checked against
+        each group's tensors and copied to the trainer's device), or fresh ones."""
         self.decoder.load_state_dict(params["nef"])
         self.ode_model.load_state_dict(params["ode"])
-        return self._new_state({k: torch.as_tensor(v, dtype=torch.float32).to(self.device, copy=True)
-                                for k, v in params["autodecoder"].items()})
+        state = self._new_state({k: torch.as_tensor(v, dtype=torch.float32).to(self.device, copy=True)
+                                 for k, v in params["autodecoder"].items()})
+        if opt is not None:
+            state["opt"] = restore_opt_states(opt, {"nef": module_group(self.decoder), "autodecoder": state["autodecoder"],
+                                                    "ode": module_group(self.ode_model)}, self.device)
+        return state
 
     def _new_state(self, table) -> dict:
         return {"autodecoder": table, "opt": {

@@ -62,7 +62,7 @@ from enf_pde_tpu_torch.train.inner_loop import (
     make_inner_loop,
     make_train_inner_loop,
 )
-from enf_pde_tpu_torch.train.state import make_optimizers
+from enf_pde_tpu_torch.train.state import make_optimizers, restore_opt_states
 from enf_pde_tpu_torch.train.steps import (
     frozen,
     grad_leaves,
@@ -161,11 +161,20 @@ class MetaSGDTrainer:
         )
         return self._new_state(latent_init, meta_lrs)
 
-    def load_state(self, params: dict) -> dict:
-        """Load converted JAX parameters (``convert.convert_params``); fresh optimizer states."""
+    def load_state(self, params: dict, opt: Optional[dict] = None) -> dict:
+        """Load converted JAX parameters (``convert.convert_params``) with the optimizer states
+        ``opt`` (``convert.load_opt_state``'s: checked against each group's tensors, copied to the
+        trainer's device and, under a data mesh, replicated from rank 0), or fresh ones."""
         self.decoder.load_state_dict(params["nef"])
         self.ode_model.load_state_dict(params["ode"])
-        return self._new_state(params["autodecoder"], params["meta_sgd_lrs"])
+        state = self._new_state(params["autodecoder"], params["meta_sgd_lrs"])
+        if opt is not None:
+            state["opt"] = restore_opt_states(opt, {"nef": self.nef_group(), "ode": self.ode_group(),
+                                                    "autodecoder": state["autodecoder"],
+                                                    "meta_sgd": state["meta_sgd_lrs"]}, self.device)
+            if self.mesh is not None:
+                replicate([t for g in state["opt"].values() for m in ("mu", "nu") for t in g[m].values()], self.mesh)
+        return state
 
     def _new_state(self, latent_init, meta_lrs) -> dict:
         # A copy: the steps update the state in place, never the caller's arrays.

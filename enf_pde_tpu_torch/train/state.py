@@ -24,7 +24,7 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["Adam", "clip_by_global_norm", "make_optimizers"]
+__all__ = ["Adam", "clip_by_global_norm", "make_optimizers", "moment_mismatches", "restore_opt_states"]
 
 Group = Dict[str, torch.Tensor]
 
@@ -95,3 +95,30 @@ def make_optimizers(cfg) -> Dict[str, Adam]:
         "ode": Adam(lr_enf, weight_decay=wd_ode, clip_norm=1.0),
         "meta_sgd": Adam(float(cfg.get_path("meta.learning_rate_meta_sgd", 1e-4))),
     }
+
+
+def moment_mismatches(opt: dict, shapes: Dict[str, Dict[str, tuple]]) -> list:
+    """Each way the moments of ``opt`` (``{group: {'count', 'mu', 'nu'}}``, as ``Adam.init`` makes
+    them) differ from ``shapes`` (``{group: {key: shape}}``): a group, a moment's key or its shape,
+    named."""
+    odd = [f"{'unexpected' if g in opt else 'missing'} optimizer state {g}" for g in sorted(set(opt) ^ set(shapes))]
+    for g in sorted(set(opt) & set(shapes)):
+        for moment in ("mu", "nu"):
+            got, want = opt[g][moment], shapes[g]
+            odd += [f"{'unexpected' if k in got else 'missing'} {g} moment {moment} {k}" for k in sorted(set(got) ^ set(want))]
+            odd += [f"{g} moment {moment} {k} has shape {tuple(got[k].shape)}, its group's {tuple(want[k])}"
+                    for k in sorted(set(got) & set(want)) if tuple(got[k].shape) != tuple(want[k])]
+    return odd
+
+
+def restore_opt_states(opt: dict, groups: Dict[str, Group], device) -> dict:
+    """The optimizer states ``opt`` (as ``Adam.init`` makes them and ``convert.convert_opt_state``
+    converts JAX's) checked against ``groups``, the tensors each optimizer updates, and copied to
+    ``device``. Raises ``KeyError`` naming every group, moment key or shape that differs."""
+    odd = moment_mismatches(opt, {g: {k: tuple(v.shape) for k, v in t.items()} for g, t in groups.items()})
+    if odd:
+        raise KeyError("; ".join(odd))
+    return {g: {"count": int(opt[g]["count"]),
+                **{m: {k: torch.as_tensor(v, dtype=torch.float32).to(device, copy=True) for k, v in opt[g][m].items()}
+                   for m in ("mu", "nu")}}
+            for g in groups}

@@ -1,6 +1,6 @@
 """Export a trained JAX run to plain numpy files that the PyTorch port serves.
 
-    python tools/export_jax_checkpoint.py results/ckpt/ns8192_s0 --out weights/ns8192_s0 [--epoch N]
+    python tools/export_jax_checkpoint.py results/ckpt/ns8192_s0 --out weights/ns8192_s0 [--epoch N] [--only FILE ...]
 
 Runs on the CPU with the JAX package and orbax (an orbax state is zstd-compressed zarr chunks
 in OCDBT storage, which the port cannot read). The run directory is copied to a temporary
@@ -13,7 +13,16 @@ training grid for its dataset. Writes, under ``--out``:
   that holds ``val_mse_in_t``;
 - ``params.npz``: every leaf of ``state.params``, keyed by its path joined with ``/`` (for
   example ``nef/params/out_proj/kernel``), as its own float32 array, untransposed (flax
-  layouts: ``enf_pde_tpu_torch.convert`` maps them). Optimizer states are not written;
+  layouts: ``enf_pde_tpu_torch.convert`` maps them);
+- ``opt_state.npz`` (zip-compressed: moments compress by about 10 %): every leaf of the four
+  optimizer states (``nef_opt_state``, ``ode_opt_state``, ``autodecoder_opt_state``,
+  ``meta_sgd_opt_state``), keyed by the field's name without ``_opt_state`` and the leaf's path in
+  the optax chain joined with ``/`` (for example ``nef/1/0/mu/params/out_proj/kernel`` and
+  ``nef/1/0/count``: the clip's empty state first, then AdamW's chain, Adam's state first in it),
+  each with its own dtype (int32 counts, float32 moments, untransposed); empty states write
+  nothing. Beside them ``rng`` (the state's uint32[2] key) and ``step`` (the loop's global step:
+  the ``step`` of the last validation line; left out where that line has none).
+  ``enf_pde_tpu_torch.convert.convert_opt_state`` maps them and checks the chain's positions;
 - ``reference.npz``: JAX's outputs on the CPU for seeded inputs,
   from ``np.random.default_rng(0)``: ``coords`` (the training grid); ``p``, ``a``, ``window``:
   two latent sets, the trained init tiled twice and perturbed (positions and orientations by
@@ -56,8 +65,11 @@ from enf_pde_tpu.train.checkpoint import CheckpointManager  # noqa: E402
 from enf_pde_tpu.train.inner_loop import sample_coordinate_masks  # noqa: E402
 from enf_pde_tpu.train.meta_sgd import MetaSGDTrainer  # noqa: E402
 
-__all__ = ["restore_run", "flat_params", "last_val_record", "export_record", "reference_latents", "jax_decode",
-           "reference_arrays", "export_run"]
+__all__ = ["restore_run", "flat_params", "flat_opt_state", "last_val_record", "export_record", "reference_latents",
+           "jax_decode", "reference_arrays", "export_run", "EXPORT_FILES"]
+
+EXPORT_FILES = ("config.json", "params.npz", "reference.npz", "opt_state.npz")
+OPT_STATE_FIELDS = ("nef", "ode", "autodecoder", "meta_sgd")
 
 # Perturbation scale of each latent leaf (standard normals), in the order they are drawn.
 PERTURB = (("p_pos", 0.1), ("p_ori", 0.1), ("a", 0.5))
@@ -94,6 +106,24 @@ def flat_params(params) -> dict:
         if arr.dtype != np.float32:
             raise TypeError(f"{key} is {arr.dtype}, not float32")
         out[key] = arr
+    return out
+
+
+def _key_name(entry) -> str:
+    """One entry of a JAX key path as text: a dict key, a sequence index or a named field."""
+    for attr in ("key", "idx", "name"):
+        if hasattr(entry, attr):
+            return str(getattr(entry, attr))
+    raise TypeError(f"unexpected key path entry {entry!r}")
+
+
+def flat_opt_state(state) -> dict:
+    """``{field/path joined with '/': array}`` of every leaf of ``state``'s four optimizer states
+    (the ``*_opt_state`` fields, named without the suffix), each with its own dtype."""
+    out = {}
+    for field in OPT_STATE_FIELDS:
+        for path, leaf in jax.tree_util.tree_flatten_with_path(getattr(state, f"{field}_opt_state"))[0]:
+            out["/".join([field, *(_key_name(k) for k in path)])] = np.asarray(leaf)
     return out
 
 
@@ -172,15 +202,26 @@ def reference_arrays(cfg, params, coords) -> dict:
     return out
 
 
-def export_run(run_dir, out, epoch=None) -> Path:
-    """Write ``config.json``, ``params.npz`` and ``reference.npz`` of ``run_dir`` under ``out``;
-    returns ``out``."""
+def export_run(run_dir, out, epoch=None, files=EXPORT_FILES) -> Path:
+    """Write ``files`` (default all of EXPORT_FILES) of ``run_dir``'s export under ``out``; returns
+    ``out``. (An npz file's bytes hold the time it was written; its arrays are the export.)"""
     run_dir, out = Path(run_dir), Path(out)
+    unknown = set(files) - set(EXPORT_FILES)
+    if unknown:
+        raise ValueError(f"unknown export files {sorted(unknown)}; choose from {EXPORT_FILES}")
     cfg_dict, epoch, trainer, state, coords = restore_run(run_dir, epoch)
+    record = export_record(run_dir, epoch, cfg_dict)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "config.json").write_text(json.dumps(export_record(run_dir, epoch, cfg_dict), indent=1) + "\n")
-    np.savez(out / "params.npz", **flat_params(state.params))
-    np.savez(out / "reference.npz", **reference_arrays(trainer.cfg, state.params, coords))
+    if "config.json" in files:
+        (out / "config.json").write_text(json.dumps(record, indent=1) + "\n")
+    if "params.npz" in files:
+        np.savez(out / "params.npz", **flat_params(state.params))
+    if "reference.npz" in files:
+        np.savez(out / "reference.npz", **reference_arrays(trainer.cfg, state.params, coords))
+    if "opt_state.npz" in files:
+        step = record["metrics"].get("step")
+        np.savez_compressed(out / "opt_state.npz", **flat_opt_state(state), rng=np.asarray(state.rng),
+                            **({} if step is None else {"step": np.asarray(step, dtype=np.int64)}))
     return out
 
 
@@ -189,9 +230,11 @@ def main(argv=None) -> None:
     ap.add_argument("run_dir", help="a training run's log directory (holds checkpoints/ and metrics.jsonl)")
     ap.add_argument("--out", required=True, help="where to write the export (for example weights/<run>)")
     ap.add_argument("--epoch", type=int, default=None, help="the checkpoint's epoch (default the latest)")
+    ap.add_argument("--only", nargs="+", choices=EXPORT_FILES, default=EXPORT_FILES,
+                    help="write these files alone (default all)")
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
-    out = export_run(args.run_dir, args.out, args.epoch)
+    out = export_run(args.run_dir, args.out, args.epoch, files=args.only)
     for f in sorted(out.iterdir()):
         print(f"{f} {f.stat().st_size} B")
 
